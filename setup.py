@@ -4,7 +4,10 @@ setup(
     name="deepspeed_tpu",
     version="0.5.0",
     description="TPU-native large-model training & inference framework (DeepSpeed-capability, JAX/XLA/Pallas)",
-    packages=find_packages(include=["deepspeed_tpu", "deepspeed_tpu.*"]),
+    packages=find_packages(
+        include=["deepspeed_tpu", "deepspeed_tpu.*", "deepspeed_tpu_torch", "deepspeed_tpu_torch.*"]
+    ),
+    package_data={"deepspeed_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=["jax", "optax", "orbax-checkpoint", "numpy"],
     entry_points={

@@ -7,23 +7,34 @@ Phases, in order; any failure raises and the script exits non-zero:
   1  build: every CUDA source under deepspeed_tpu_torch/csrc/ compiled with
      nvcc for sm_90a (one nvcc per source, in parallel), with build seconds.
   2  kernels against their plain PyTorch versions on the card, at the
-     serving main path's shape and at other dtypes / head dims / GQA;
-     timed with CUDA events at the main-path shape (device time, the
-     host's enqueueing hidden behind a device-side sleep; and per call
-     with the host's launch path) beside the plain version, one PyTorch
-     library call computing the same function, and the bound (bytes moved
-     over 3.35 TB/s, or operations over peak).
+     serving paths' shapes and at other dtypes / head dims / GQA / ragged
+     query counts: the paged decode kernel and the paged multi-token
+     kernel (at T=1 also against the decode kernel); each timed with CUDA
+     events at its main shape (device time, the host's enqueueing hidden
+     behind a device-side sleep; and per call with the host's launch path)
+     beside the plain version, one PyTorch library call computing the same
+     function, and the bound (bytes moved over 3.35 TB/s, or operations
+     over peak).
   3  serve: gpt2-medium in bf16 (seeded random weights) through
      init_inference(...).serve() with the default serving section; 16
      requests of mixed lengths must all finish with their full token count
      and no leaked pages, and the decode kernel must have launched exactly
      n_layer times per decode step.
-  4  fp32 card against CPU: the same weights at gpt2-medium width and 4
-     layers served on the card (kernel) and on the CPU (plain version);
-     the greedy streams must be identical, except at a tie (top-2 logit
-     margin < 1e-4), which is reported as such.
+  3b serve gpt2-medium bf16 with speculative decode (k=4), the prefix cache
+     and chunked prefill (64-token chunks) on: 16 requests, 8 sharing a
+     256-token system prompt, 8 cold up to 512 tokens. All must finish with
+     no leaked pages and nonzero prefix hits, chunk prefills and verify
+     steps; the multi-token kernel must have launched n_layer times per
+     chunk-program call and the decode kernel n_layer x (k+1) times per
+     verify step.
+  4  fp32 greedy streams at gpt2-medium width and 4 layers, from one set
+     of weights: the default path on the card (kernels) against the CPU
+     (plain versions); then with the three features on, the card against
+     the CPU and the card against the card's features-off streams. Each
+     pair must be identical, except at a tie (top-2 logit margin < 1e-4),
+     which is reported as such.
   5  one JSON line of per-kernel numbers, then the last line
-     {"ok": true, "device": {...}}.
+     {"ok": true, "device": {...}} with "count": 1, the cards the run used.
 
 Without a CUDA device it exits 1 before printing any result. It imports
 nothing of JAX or of the JAX package.
@@ -43,7 +54,13 @@ import deepspeed_tpu_torch as dtt
 from deepspeed_tpu_torch.models import gpt2
 from deepspeed_tpu_torch.ops import op_builder
 from deepspeed_tpu_torch.ops import paged_decode_attention as pda
+from deepspeed_tpu_torch.ops import paged_multitoken_attention as pma
 from deepspeed_tpu_torch.serving import RequestStatus
+from deepspeed_tpu_torch.tools.profile_serving import (
+    FEATURES_SECTION,
+    mixed_requests,
+    shared_prefix_requests,
+)
 from deepspeed_tpu_torch.utils.weights import params_from_numpy, params_to_numpy
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
@@ -65,11 +82,14 @@ def phase(n, title):
 # phase 2 helpers
 # ---------------------------------------------------------------------------
 
-def make_case(B, H, KV, D, page, P, n, pos, dtype, inactive=(), layers=1, seed=0):
-    """Random q and pools on the card, distinct pages per active slot, and
-    scratch-page tables for the inactive slots."""
+def make_case(B, H, KV, D, page, P, n, pos, dtype, inactive=(), layers=1, seed=0, T=None):
+    """Random q ([B, H, D], or [B, T, H, D] given T) and pools on the card,
+    distinct pages per active slot, scratch-page tables for the inactive
+    slots, and the per-slot position (``pos`` of the decode kernel, ``base``
+    of the multi-token kernel)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q = torch.randn(B, H, D, generator=g, device="cuda").to(dtype)
+    q = torch.randn(*((B, H, D) if T is None else (B, T, H, D)), generator=g,
+                    device="cuda").to(dtype)
     k = torch.randn(layers, P, KV, page, D, generator=g, device="cuda").to(dtype)
     v = torch.randn(layers, P, KV, page, D, generator=g, device="cuda").to(dtype)
     rs = np.random.RandomState(seed)
@@ -80,30 +100,41 @@ def make_case(B, H, KV, D, page, P, n, pos, dtype, inactive=(), layers=1, seed=0
             torch.tensor(pos, dtype=torch.int32, device="cuda"))
 
 
-def kernel_error(q, k, v, bt, pos):
-    out = pda.paged_decode_attention(q, k, v, bt, pos)
+# (kernel wrapper, its plain version)
+DECODE = (pda.paged_decode_attention, pda.paged_decode_attention_ref)
+MULTITOKEN = (pma.paged_multitoken_attention, pma.paged_multitoken_attention_ref)
+
+
+def kernel_error(kernel, plain, q, k, v, bt, pos):
+    """Max abs error of ``kernel`` against its f32 ``plain`` version."""
+    out = kernel(q, k, v, bt, pos)
     torch.cuda.synchronize()
     check(out.shape == q.shape and out.dtype == q.dtype, "kernel output shape/dtype")
     check(bool(torch.isfinite(out).all()), "kernel output not finite")
-    ref = pda.paged_decode_attention_ref(q.float(), k.float(), v.float(), bt, pos)
+    ref = plain(q.float(), k.float(), v.float(), bt, pos)
     return float((out.float() - ref).abs().max())
 
 
 def library_attention(q, k, v, bt, pos):
     """The same function as one PyTorch library call (timed as a yardstick
     only; the port never calls it): gather the pages, then SDPA with the
-    position mask."""
-    B, H, D = q.shape
+    position mask. ``q [B, H, D]`` is one query at ``pos``; ``q [B, T, H,
+    D]`` has query t at ``pos + t`` (the [B, 1, T, S] mask)."""
+    one = q.dim() == 3
+    if one:
+        q = q[:, None]
+    B, T, H, D = q.shape
     KV = k.shape[1]
     kd = k[bt.long()].transpose(2, 3).reshape(B, -1, KV, D).transpose(1, 2)
     vd = v[bt.long()].transpose(2, 3).reshape(B, -1, KV, D).transpose(1, 2)
     S = kd.shape[2]
-    mask = (torch.arange(S, device=q.device)[None, :] <= pos.long()[:, None])[:, None, None, :]
+    mask = (torch.arange(S, device=q.device)[None, None, :]
+            <= pos.long()[:, None, None] + torch.arange(T, device=q.device)[None, :, None])
     gqa = {"enable_gqa": True} if KV != H else {}
     o = torch.nn.functional.scaled_dot_product_attention(
-        q[:, :, None, :], kd, vd, attn_mask=mask, **gqa
-    )
-    return o[:, :, 0, :]
+        q.transpose(1, 2), kd, vd, attn_mask=mask[:, None], **gqa
+    ).transpose(1, 2)
+    return o[:, 0] if one else o
 
 
 def _events_ms(fn, iters, sleep_cycles=0):
@@ -146,15 +177,22 @@ def time_ms(fn, iters, warmup=10):
 
 
 def bound(q, k_layer, bt, pos):
-    """Least time for one call: the live K/V rows, q, the output, the block
-    table and pos each moved once over HBM, against the score and weighted
-    sum flops at the inputs' peak; the larger wins."""
-    B, H, D = q.shape
+    """Least time for one call (``q`` and ``pos`` as in
+    :func:`library_attention`): the live K/V rows (keys up to each slot's
+    last query, within its table), q, the output, the table and pos each
+    moved once over HBM, against the score and weighted-sum flops of every
+    query's visible keys at the inputs' peak; the larger wins."""
+    if q.dim() == 3:
+        q = q[:, None]
+    B, T, H, D = q.shape
     KV = k_layer.shape[1]
-    n_live = (pos.long() + 1).clamp(max=bt.shape[1] * k_layer.shape[2])
+    cap = bt.shape[1] * k_layer.shape[2]
+    p = pos.long().cpu()
+    n_live = (p + T).clamp(max=cap)
     kv_bytes = int(2 * n_live.sum() * KV * D * k_layer.element_size())
     nbytes = kv_bytes + 2 * q.numel() * q.element_size() + bt.numel() * 4 + pos.numel() * 4
-    flops = int(4 * n_live.sum() * H * D)
+    visible = (p[:, None] + torch.arange(T)[None, :] + 1).clamp(max=cap)
+    flops = int(4 * visible.sum() * H * D)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_OPS_PER_S[k_layer.dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -164,14 +202,25 @@ def bound(q, k_layer, bt, pos):
 # phase 3/4 helpers
 # ---------------------------------------------------------------------------
 
-def mixed_requests(srv, n, vocab, seed):
-    rs = np.random.RandomState(seed)
-    reqs = []
-    for i in range(n):
-        plen = int(rs.randint(8, 129))
-        budget = int(rs.randint(16, 65))
-        reqs.append((srv.submit(rs.randint(0, vocab, plen), max_new_tokens=budget, seed=i), budget))
-    return reqs
+def compare_streams(label, a_reqs, b_reqs):
+    """Greedy streams identical, except at a tie (top-2 margin < TIE_MARGIN
+    in either run at the first differing token). → ties."""
+    ties = 0
+    for i, (a, b) in enumerate(zip(a_reqs, b_reqs)):
+        if a.tokens == b.tokens:
+            continue
+        t = next(j for j, (x, y) in enumerate(zip(a.tokens, b.tokens)) if x != y)
+        margin = min(a.margins[t], b.margins[t])
+        print(f"{label}: request {i}: streams differ at token {t}, top-2 logit margin "
+              f"{margin:.3e}")
+        check(margin < TIE_MARGIN, f"{label}: request {i} differs at token {t} with margin "
+                                   f"{margin:.3e} >= {TIE_MARGIN} (not a tie)")
+        print(f"{label}: request {i}: a tie (margin < {TIE_MARGIN}), not a fault")
+        ties += 1
+    n_tok = sum(len(r.tokens) for r in a_reqs)
+    print(f"{label}: {len(a_reqs) - ties} of {len(a_reqs)} identical, {ties} ties, "
+          f"{n_tok} tokens compared")
+    return ties
 
 
 def main() -> int:
@@ -216,7 +265,7 @@ def main() -> int:
     q, k, v, bt, pos = make_case(8, 16, 16, 64, 16, 512, 12, main_pos, torch.bfloat16,
                                  inactive=(6, 7), layers=L, seed=1)
     errs = {}
-    errs["main bf16 B8 H16 D64 page16"] = kernel_error(q, k[0], v[0], bt, pos)
+    errs["main bf16 B8 H16 D64 page16"] = kernel_error(*DECODE, q, k[0], v[0], bt, pos)
     cases = [
         ("fp32 pool", dict(B=8, H=16, KV=16, D=64, page=16, P=128, n=12, pos=main_pos,
                            dtype=torch.float32, inactive=(6, 7))),
@@ -232,7 +281,7 @@ def main() -> int:
     for label, c in cases:
         dtype = c["dtype"]
         cq, ck, cv, cbt, cpos = make_case(**c, seed=2)
-        errs[label] = kernel_error(cq, ck[0], cv[0], cbt, cpos)
+        errs[label] = kernel_error(*DECODE, cq, ck[0], cv[0], cbt, cpos)
         check(errs[label] <= TOL[dtype], f"{label}: max abs err {errs[label]} > {TOL[dtype]}")
     check(errs["main bf16 B8 H16 D64 page16"] <= TOL[torch.bfloat16],
           f"main shape: max abs err {errs['main bf16 B8 H16 D64 page16']}")
@@ -254,6 +303,82 @@ def main() -> int:
     print(f"  per call with the host's launch path in the loop: kernel {call_ms:.4f} ms, "
           f"plain {plain_call_ms:.4f} ms, library {lib_call_ms:.4f} ms")
     del k, v
+
+    # the chunk program's shape on phase 3b's path: one slot, a 64-token
+    # chunk, gpt2-medium heads, page 16, 512-page bf16 pools, the table of
+    # a 512 + 64-token reservation (36 pages); the chunks of a 512-token
+    # prompt start at 0, 64, ..., 448. 24 layers of pools, as the chunk
+    # program has.
+    mt_bases = [0, 64, 256, 448]
+    mq, mk, mv, mbt, _ = make_case(1, 16, 16, 64, 16, 512, 36, [0], torch.bfloat16,
+                                   layers=L, seed=3, T=64)
+    mbase = [torch.tensor([b0], dtype=torch.int32, device="cuda") for b0 in mt_bases]
+    mt_errs = {}
+    for b0, bb in zip(mt_bases, mbase):
+        mt_errs[f"main bf16 B1 T64 H16 D64 page16 base {b0}"] = kernel_error(
+            *MULTITOKEN, mq, mk[0], mv[0], mbt, bb)
+    mt_main_err = max(mt_errs.values())
+    check(mt_main_err <= TOL[torch.bfloat16], f"multitoken main shape: max abs err {mt_main_err}")
+    mt_cases = [
+        ("ragged B4 T5 bf16, one slot on scratch", dict(
+            B=4, T=5, H=16, KV=16, D=64, page=16, P=64, n=6, pos=[14, 30, 47, 0],
+            dtype=torch.bfloat16, inactive=(3,))),
+        ("GQA H16 KV8 fp32", dict(B=2, T=16, H=16, KV=8, D=64, page=16, P=64, n=8,
+                                  pos=[5, 40], dtype=torch.float32)),
+        ("D128 bf16", dict(B=2, T=16, H=8, KV=8, D=128, page=16, P=64, n=8,
+                           pos=[0, 33], dtype=torch.bfloat16)),
+        ("ragged T37 fp16 page8", dict(B=2, T=37, H=16, KV=16, D=64, page=8, P=64, n=24,
+                                       pos=[0, 100], dtype=torch.float16)),
+        ("D256 fp32 page64", dict(B=2, T=9, H=4, KV=2, D=256, page=64, P=16, n=4,
+                                  pos=[60, 130], dtype=torch.float32)),
+    ]
+    for label, c in mt_cases:
+        cq, ck, cv, cbt, cbase = make_case(**c, seed=4)
+        mt_errs[label] = kernel_error(*MULTITOKEN, cq, ck[0], cv[0], cbt, cbase)
+        check(mt_errs[label] <= TOL[c["dtype"]],
+              f"multitoken {label}: max abs err {mt_errs[label]} > {TOL[c['dtype']]}")
+    # T = 1: the multi-token kernel against the decode kernel, fp32 and bf16
+    for dtype in (torch.float32, torch.bfloat16):
+        cq, ck, cv, cbt, cbase = make_case(8, 16, 16, 64, 16, 128, 12, main_pos, dtype,
+                                           inactive=(6, 7), seed=5, T=1)
+        label = f"T1 {str(dtype).replace('torch.', '')}"
+        mt_errs[label] = kernel_error(*MULTITOKEN, cq, ck[0], cv[0], cbt, cbase)
+        dec = pda.paged_decode_attention(cq[:, 0].contiguous(), ck[0], cv[0], cbt, cbase)
+        mt = pma.paged_multitoken_attention(cq, ck[0], cv[0], cbt, cbase)
+        torch.cuda.synchronize()
+        vs_dec = float((mt[:, 0].float() - dec.float()).abs().max())
+        mt_errs[f"{label} vs decode kernel"] = vs_dec
+        check(max(mt_errs[label], vs_dec) <= TOL[dtype],
+              f"multitoken {label}: err {mt_errs[label]}, vs decode kernel {vs_dec}")
+    for label, e in mt_errs.items():
+        print(f"paged_multitoken_attention {label}: max abs err {e:.3e}")
+    mt_lib_err = float((library_attention(mq, mk[0], mv[0], mbt, mbase[3]).float()
+                        - pma.paged_multitoken_attention_ref(
+                            mq.float(), mk[0].float(), mv[0].float(), mbt, mbase[3])
+                        ).abs().max())
+    check(mt_lib_err <= TOL[torch.bfloat16], f"multitoken library yardstick disagrees: {mt_lib_err}")
+    # timed over the four chunk starts in turn (and the 24 layers), so each
+    # number is the mean per call over the chunks of a 512-token prompt
+    nb = len(mt_bases)
+    mt_ms, mt_call_ms = time_ms(
+        lambda i: pma.paged_multitoken_attention(mq, mk[i % L], mv[i % L], mbt, mbase[i % nb]),
+        480)
+    mt_plain_ms, mt_plain_call_ms = time_ms(
+        lambda i: pma.paged_multitoken_attention_ref(mq, mk[i % L], mv[i % L], mbt,
+                                                     mbase[i % nb]), 32)
+    mt_lib_ms, mt_lib_call_ms = time_ms(
+        lambda i: library_attention(mq, mk[i % L], mv[i % L], mbt, mbase[i % nb]), 32)
+    bounds = [bound(mq, mk[0], mbt, bb) for bb in mbase]
+    mt_bound_ms = sum(b[0] for b in bounds) / nb
+    mt_bound_by = max(set(b[1] for b in bounds), key=[b[1] for b in bounds].count)
+    print(f"paged_multitoken_attention main shape (mean over chunk starts {mt_bases}), device "
+          f"ms per call: kernel {mt_ms:.4f}, plain {mt_plain_ms:.4f}, library {mt_lib_ms:.4f}, "
+          f"bound {mt_bound_ms:.5f} ({mt_bound_by}; per start "
+          + ", ".join(f"{b[0]:.5f} {b[1]}" for b in bounds)
+          + f"), kernel at {mt_bound_ms / mt_ms:.3f} of bound")
+    print(f"  per call with the host's launch path in the loop: kernel {mt_call_ms:.4f} ms, "
+          f"plain {mt_plain_call_ms:.4f} ms, library {mt_lib_call_ms:.4f} ms")
+    del mk, mv
 
     phase(3, "serve gpt2-medium bf16 (the main path)")
     cfg = gpt2.get_config("gpt2-medium")
@@ -284,39 +409,103 @@ def main() -> int:
           f"the token read), tokens/s end to end {st['tokens_per_s']:.1f}, "
           f"TTFT p50 {st['ttft']['p50_s'] * 1e3:.2f} ms, TPOT p50 {st['tpot']['p50_s'] * 1e3:.3f} ms, "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del srv
+
+    phase("3b", "serve gpt2-medium bf16 with speculation, the prefix cache and chunked "
+                "prefill (the slice's path)")
+    spec_k = FEATURES_SECTION["speculative"]["k"]
+    srv = eng.serve(FEATURES_SECTION)
+    reqs = shared_prefix_requests(srv, cfg.vocab_size, seed=4321, n_shared=8, n_cold=8,
+                                  system_len=256, tails=(8, 128), cold_lens=(64, 512),
+                                  budgets=(16, 64))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pda.LAUNCHES = 0
+    pma.LAUNCHES = 0
+    t0 = time.perf_counter()
+    done = srv.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    dec_launches_3b, mt_launches = pda.LAUNCHES, pma.LAUNCHES
+    st = srv.stats()
+    check(len(done) == 16, f"{len(done)} of 16 requests completed")
+    for req, budget in reqs:
+        check(req.status == RequestStatus.FINISHED, f"request {req.id}: {req.status} {req.detail}")
+        check(len(req.tokens) == budget, f"request {req.id}: {len(req.tokens)} of {budget} tokens")
+        check(all(0 <= t < cfg.vocab_size for t in req.tokens), f"request {req.id}: token out of vocab")
+    srv.check_no_leaks()
+    released = srv.release_prefix_cache()
+    srv.allocator.check_no_leaks()
+    hits = st["prefix_hits_partial"] + st["prefix_hits_full"]
+    check(hits > 0, f"no prefix hits: {st}")
+    check(st["chunk_prefills"] > 0 and st["spec_steps"] > 0, f"no chunks or verify steps: {st}")
+    check(mt_launches == cfg.n_layer * st["chunk_prefills"],
+          f"multitoken launches {mt_launches} != n_layer {cfg.n_layer} x chunk-program calls "
+          f"{st['chunk_prefills']}")
+    check(dec_launches_3b == cfg.n_layer * (spec_k + 1) * st["spec_steps"],
+          f"decode launches {dec_launches_3b} != {cfg.n_layer} x {spec_k + 1} x verify steps "
+          f"{st['spec_steps']}")
+    print(f"requests {len(done)} finished, prefix hits {hits} (full {st['prefix_hits_full']}, "
+          f"partial {st['prefix_hits_partial']}, misses {st['prefix_misses']}, evictions "
+          f"{st['prefix_evictions']}, {released} index pages released at the end), chunk-program "
+          f"calls {st['chunk_prefills']}, verify steps {st['spec_steps']}, wall {wall:.3f} s")
+    print(f"kernel launches: multitoken {mt_launches} (= {cfg.n_layer} x {st['chunk_prefills']}), "
+          f"decode {dec_launches_3b} (= {cfg.n_layer} x {spec_k + 1} x {st['spec_steps']})")
+    print(f"prefix hit rate {st['prefix_hit_rate']:.4f}, mean accept length "
+          f"{st['spec_accept_len_mean']:.4f} tokens per slot-step, decode tokens/s "
+          f"{st['decode_tokens_per_s']:.1f}, tokens/s end to end {st['tokens_per_s']:.1f}, "
+          f"TTFT p50 {st['ttft']['p50_s'] * 1e3:.2f} ms, TPOT p50 {st['tpot']['p50_s'] * 1e3:.3f} ms, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del srv, eng
 
-    phase(4, "fp32 streams, card against CPU")
+    phase(4, "fp32 streams: card against CPU, features on against off")
     cfg4 = gpt2.get_config("gpt2-medium", n_layer=4)
     tree = params_to_numpy(gpt2.init_params(
         cfg4, torch.Generator(device="cuda").manual_seed(7), "cuda", torch.float32))
+    # 4 slots, so the second wave of the shared-prefix traffic finds the
+    # first wave's prompt pages in the index
+    feat_cfg = {"max_slots": 4, "max_prompt_len": 128, "prefill_chunk_tokens": 32,
+                "prefix_cache": {"enabled": True}, "speculative": {"enabled": True, "k": 4}}
+    runs = {  # name -> (serving section, the traffic)
+        "default": (None, lambda s: mixed_requests(s, 8, cfg4.vocab_size, seed=99)),
+        "features": (feat_cfg, lambda s: shared_prefix_requests(
+            s, cfg4.vocab_size, seed=77, n_shared=4, n_cold=4, system_len=64,
+            tails=(1, 64), cold_lens=(8, 128), budgets=(16, 64))),
+    }
+    # the features' traffic with the features off
+    runs["features off"] = ({"max_slots": 4}, runs["features"][1])
     streams = {}
     for dev in ("cuda", "cpu"):
         e = dtt.init_inference(cfg4, params=params_from_numpy(tree, dev),
                                dtype=torch.float32, device=dev)
-        s = e.serve(track_margins=True)
-        rq = mixed_requests(s, 8, cfg4.vocab_size, seed=99)
-        s.run()
-        s.check_no_leaks()
-        for req, budget in rq:
-            check(req.status == RequestStatus.FINISHED and len(req.tokens) == budget,
-                  f"{dev} request {req.id}: {req.status}, {len(req.tokens)} of {budget}")
-        streams[dev] = [r for r, _ in rq]
-    ties = 0
-    for i, (g_req, c_req) in enumerate(zip(streams["cuda"], streams["cpu"])):
-        if g_req.tokens == c_req.tokens:
-            continue
-        t = next(j for j, (a, b) in enumerate(zip(g_req.tokens, c_req.tokens)) if a != b)
-        margin = min(g_req.margins[t], c_req.margins[t])
-        print(f"request {i}: streams differ at token {t}, top-2 logit margin {margin:.3e}")
-        check(margin < TIE_MARGIN, f"request {i}: card and CPU streams differ at token {t} "
-                                   f"with margin {margin:.3e} >= {TIE_MARGIN} (not a tie)")
-        print(f"request {i}: a tie (margin < {TIE_MARGIN}), not a fault")
-        ties += 1
-    n_tok = sum(len(r.tokens) for r in streams["cuda"])
-    print(f"fp32 streams: {8 - ties} of 8 identical, {ties} ties, {n_tok} tokens compared")
+        for name, (section, traffic) in runs.items():
+            if dev == "cpu" and name == "features off":
+                continue
+            s = e.serve(section, track_margins=True)
+            rq = traffic(s)
+            s.run()
+            s.check_no_leaks()
+            for req, budget in rq:
+                check(req.status == RequestStatus.FINISHED and len(req.tokens) == budget,
+                      f"{dev} {name} request {req.id}: {req.status}, "
+                      f"{len(req.tokens)} of {budget}")
+            if name == "features":
+                st4 = s.stats()
+                check(st4["prefix_hits_partial"] + st4["prefix_hits_full"] > 0
+                      and st4["chunk_prefills"] > 0 and st4["spec_steps"] > 0,
+                      f"{dev}: the features did not run: {st4}")
+            streams[dev, name] = [r for r, _ in rq]
+    compare_streams("default path, card vs CPU", streams["cuda", "default"],
+                    streams["cpu", "default"])
+    compare_streams("features on, card vs CPU", streams["cuda", "features"],
+                    streams["cpu", "features"])
+    compare_streams("card, features on vs off", streams["cuda", "features"],
+                    streams["cuda", "features off"])
 
     phase(5, "summary")
+    # launches: each kernel's count on the path of the slice that ported it
+    # (the decode kernel: phase 3's default path; the multi-token kernel:
+    # phase 3b's feature path)
     print(json.dumps({"kernels": [{
         "name": "paged_decode_attention",
         "route": "cuda",
@@ -329,10 +518,22 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": lib_ms,
+    }, {
+        "name": "paged_multitoken_attention",
+        "route": "cuda",
+        "source": "deepspeed_tpu_torch/csrc/paged_multitoken_attention.cu",
+        "replaces": "deepspeed_tpu/ops/pallas/decode_attention.py:317",
+        "launches": mt_launches,
+        "max_abs_err": mt_main_err,
+        "ms": mt_ms,
+        "plain_ms": mt_plain_ms,
+        "bound_ms": mt_bound_ms,
+        "bound_by": mt_bound_by,
+        "library_ms": mt_lib_ms,
     }]}))
+    # the run uses one card, whatever the machine holds
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1,
     }}))
     return 0
 

@@ -44,6 +44,14 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
             ctypes.c_int,
         ),
     },
+    "paged_multitoken_attention": {
+        "paged_multitoken_attention_launch": (
+            [_P, _P, _P, _P, _P, _P,           # q, k_pool, v_pool, tables, base, out
+             _I, _I, _I, _I, _I, _I, _I, _I,   # B, T, H, KV, P, page, n, D
+             _F, _I, _I, _P],                  # sm_scale, q dtype, kv dtype, stream
+            ctypes.c_int,
+        ),
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

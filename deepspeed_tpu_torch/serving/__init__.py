@@ -1,10 +1,12 @@
-"""Continuous-batching serving over a paged KV pool (the port's counterpart
-of ``deepspeed_tpu.serving`` on its default path)."""
+"""Continuous-batching serving over a paged KV pool, with speculative
+decode, shared-prefix KV reuse and chunked prefill (the port's counterpart
+of ``deepspeed_tpu.serving``)."""
 
 from .kv_cache import (
     SCRATCH_PAGE,
     PageAllocator,
     PageAllocatorError,
+    PrefixCache,
     SlotTable,
     init_pools,
     pages_for,
@@ -14,7 +16,7 @@ from .request import Request, RequestStatus
 from .scheduler import ServingEngine
 
 __all__ = [
-    "SCRATCH_PAGE", "PageAllocator", "PageAllocatorError", "SlotTable",
+    "SCRATCH_PAGE", "PageAllocator", "PageAllocatorError", "PrefixCache", "SlotTable",
     "init_pools", "pages_for", "pool_bytes", "Request", "RequestStatus",
     "ServingEngine",
 ]

@@ -10,11 +10,16 @@ Page 0 is a permanently reserved scratch page: inactive slots and the
 padded tail of block-table rows point at it, so every gather and scatter
 index is valid without masking, and garbage writes land where no active
 slot reads.
+
+:class:`PrefixCache` indexes full prompt pages by a chained hash so a later
+prompt with the same page-aligned prefix maps those pages (refcounted)
+instead of recomputing them.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from collections import OrderedDict
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -39,6 +44,7 @@ class PageAllocator:
         self.num_pages = int(num_pages)
         self._free: List[int] = list(range(self.num_pages - 1, 0, -1))
         self._refs: Dict[int, int] = {}  # page -> refcount (in-use pages only)
+        self.cow_forks_total = 0  # bumped by the scheduler's copy-on-write path
 
     @property
     def capacity(self) -> int:
@@ -183,3 +189,163 @@ def pool_bytes(n_layer: int, num_pages: int, n_kv_head: int, page_size: int,
                head_dim: int, itemsize: int = 2) -> int:
     """Device footprint of the K+V pools."""
     return 2 * n_layer * num_pages * n_kv_head * page_size * head_dim * itemsize
+
+
+# ---------------------------------------------------------------------------
+# shared-prefix index
+# ---------------------------------------------------------------------------
+
+class PrefixCache:
+    """Chained-hash index over FULL prompt pages: key (parent key, the
+    page's tokens) → the pool page holding that page's K/V (counterpart of
+    ``deepspeed_tpu/serving/kv_cache.py`` ``PrefixCache`` without the host
+    tier and heat hooks).
+
+    After a prompt prefills, each of its full pages is registered here (the
+    index ``retain``s the page, so it outlives the request); a later prompt
+    walks its own pages through the chain and maps every matching page into
+    its block table. The same tokens at the same positions give the same
+    K/V, so a mapped page holds what prefill would have written.
+
+    :meth:`lookup` never returns the page holding the prompt's last token
+    (the ``(plen-1)//page`` cap): the tail always re-runs through the model
+    so the first sampled token has logits. A page-aligned prompt whose last
+    page is indexed too is a full hit: that page is reported as
+    ``cow_page`` and the scheduler recomputes it into a private page
+    (copy-on-write by recompute; the shared original is never written).
+
+    Eviction: LRU among LEAF entries only (evicting a parent would orphan
+    its descendants). ``max_pages`` caps the index; the scheduler also
+    evicts on pool pressure."""
+
+    def __init__(self, allocator: PageAllocator, page_size: int, max_pages: int = 0):
+        self.allocator = allocator
+        self.page_size = int(page_size)
+        self.max_pages = int(max_pages)
+        # key -> page id, in LRU order (move_to_end on every hit)
+        self._entries: "OrderedDict[Tuple, int]" = OrderedDict()
+        self._children: Dict[Tuple, int] = {}  # key -> number of direct extensions
+        self._parent: Dict[Tuple, Optional[Tuple]] = {}
+        self.hits_full = 0
+        self.hits_partial = 0
+        self.misses = 0
+        self.evictions = 0
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    @property
+    def held_pages(self) -> List[int]:
+        return list(self._entries.values())
+
+    @staticmethod
+    def _key(parent: Optional[Tuple], tokens) -> Tuple:
+        return (parent, tuple(int(t) for t in tokens))
+
+    def _walk(self, prompt, refresh: bool):
+        """The indexed chain of ``prompt``'s mappable pages → (page ids,
+        last key matched)."""
+        plen = int(np.asarray(prompt).shape[-1])
+        page = self.page_size
+        pages: List[int] = []
+        parent: Optional[Tuple] = None
+        for j in range(max(0, (plen - 1) // page)):  # last token never shared
+            key = self._key(parent, prompt[j * page:(j + 1) * page])
+            pid = self._entries.get(key)
+            if pid is None:
+                break
+            if refresh:
+                self._entries.move_to_end(key)
+            pages.append(pid)
+            parent = key
+        return pages, parent
+
+    def lookup(self, prompt) -> Tuple[List[int], int, Optional[int]]:
+        """→ (shared page ids, shared token count, cow_page), counting the
+        hit or miss and refreshing the LRU order of what it matched."""
+        plen = int(np.asarray(prompt).shape[-1])
+        page = self.page_size
+        limit = max(0, (plen - 1) // page)
+        pages, parent = self._walk(prompt, refresh=True)
+        cow_page: Optional[int] = None
+        # a one-page prompt (limit == 0) has nothing to reuse: the tail IS
+        # the prompt, so it is a plain miss, never a phantom full hit
+        if pages and len(pages) == limit and plen % page == 0:
+            key = self._key(parent, prompt[limit * page: plen])
+            pid = self._entries.get(key)
+            if pid is not None:
+                self._entries.move_to_end(key)
+                cow_page = pid
+        if cow_page is not None:
+            self.hits_full += 1
+        elif pages:
+            self.hits_partial += 1
+        else:
+            self.misses += 1
+        return pages, len(pages) * page, cow_page
+
+    def probe(self, prompt) -> int:
+        """How many pages :meth:`lookup` would map right now, without
+        counting or refreshing anything (the admission gate calls it every
+        step while a request heads the queue)."""
+        return len(self._walk(prompt, refresh=False)[0])
+
+    def insert(self, prompt, pages: Sequence[int]) -> int:
+        """Register the full pages of ``prompt`` (whose K/V lives in
+        ``pages``, the slot's block-table prefix). Pages already indexed are
+        refreshed; new ones are ``retain``ed by the index. → pages newly
+        indexed."""
+        page = self.page_size
+        plen = int(np.asarray(prompt).shape[-1])
+        parent: Optional[Tuple] = None
+        added = 0
+        for j in range(min(plen // page, len(pages))):
+            key = self._key(parent, prompt[j * page:(j + 1) * page])
+            if key in self._entries:
+                self._entries.move_to_end(key)
+            else:
+                pid = int(pages[j])
+                self.allocator.retain([pid])
+                self._entries[key] = pid
+                self._parent[key] = parent
+                self._children[key] = 0
+                if parent is not None:
+                    self._children[parent] += 1
+                added += 1
+            parent = key
+        if self.max_pages > 0:
+            self.evict(keep=self.max_pages)
+        return added
+
+    def _evict_one(self) -> bool:
+        """Release the LRU leaf entry. → False if there is none."""
+        key = next((k for k in self._entries if self._children.get(k, 0) == 0), None)
+        if key is None:
+            return False
+        pid = self._entries.pop(key)
+        parent = self._parent.pop(key)
+        self._children.pop(key, None)
+        if parent is not None and parent in self._children:
+            self._children[parent] -= 1
+        self.allocator.free([pid])
+        self.evictions += 1
+        return True
+
+    def evict(self, keep: Optional[int] = None, need_free: int = 0) -> int:
+        """Evict LRU leaves until the index holds at most ``keep`` entries
+        (when given) and the allocator has at least ``need_free`` free pages
+        (when given); each goal stops mattering once met, so a pressure
+        eviction frees only what it needs. An evicted page frees only if the
+        index held its last reference. → entries evicted."""
+        n = 0
+        while self._entries:
+            over_cap = keep is not None and len(self._entries) > keep
+            starved = need_free > 0 and self.allocator.free_pages < need_free
+            if not (over_cap or starved) or not self._evict_one():
+                break
+            n += 1
+        return n
+
+    def clear(self) -> int:
+        """Release every index reference (teardown, leak accounting)."""
+        return self.evict(keep=0)

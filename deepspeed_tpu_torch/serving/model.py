@@ -9,6 +9,11 @@
   pages through its block-table row (update-then-attend), via
   ``ops.attention.paged_cached_attention``: the CUDA kernel on the card,
   its plain version on the CPU.
+- :func:`paged_verify_step`: speculative verify, T = k+1 tokens per slot in
+  one pass; attention runs as T single-token calls of the decode kernel.
+- :func:`paged_chunk_prefill`: one page-aligned chunk of a prompt that
+  attends the slot's cached prefix (earlier chunks or shared prefix pages)
+  through ``ops.attention.paged_multitoken_cached_attention``.
 
 The pools are updated IN PLACE (slice assignment / ``index_put_``); the JAX
 package threads them through as donated buffers instead, so there too the
@@ -28,7 +33,7 @@ from typing import Any, List, Optional
 import torch
 
 from ..models.gpt2 import GPT2Config, _layer_norm, _mlp
-from ..ops.attention import paged_cached_attention
+from ..ops.attention import paged_cached_attention, paged_multitoken_cached_attention
 from ..ops.sampling import sample_logits
 
 PyTree = Any
@@ -208,3 +213,178 @@ def paged_decode_step(
             for b, g in enumerate(generators)
         ])
     return (nxt, logits) if return_logits else nxt
+
+
+# ---------------------------------------------------------------------------
+# multi-token programs: speculative verify and chunked prefill
+#
+# Both take T tokens per slot in one pass with the decode step's
+# update-then-attend order: write the T tokens' K/V into the pool, then
+# attend with the per-query mask key <= base + t. The batched matmuls (QKV,
+# MLP, logits) are row-independent across the query dim. The verify step
+# attends its T queries as T single-token calls of the decode attention, so
+# query t's attention is exactly the decode step's at pos = base + t; the
+# chunk program attends all its queries in one call of the multi-token
+# kernel. Chunking reorders prefill arithmetic, so chunked streams are held
+# to token identity, not bits. (On the card the GEMMs of the verify step's
+# B*T rows may take another algorithm than the decode step's B rows, so the
+# verify stream too is held to token identity there.)
+# ---------------------------------------------------------------------------
+
+def _attend_multitoken_paged(cfg, h, q, k_pool_l, v_pool_l, block_tables, base):
+    """Attention of the chunk program: ``q [B, T, H, D]`` against the
+    (already written) paged cache, masked per query → ``[B, T, E]``; the
+    caller applies the output projection."""
+    B, T, E = h.shape
+    D = cfg.head_dim
+    o = paged_multitoken_cached_attention(
+        q.contiguous(), k_pool_l, v_pool_l, block_tables, base,
+        sm_scale=1.0 / math.sqrt(D),
+    )
+    return o.reshape(B, T, E).to(h.dtype)
+
+
+def _verify_write_targets(seq_lens, block_tables, page: int, T: int):
+    """→ (pidx [B, T], poff [B, T]) write targets of the tokens at positions
+    ``seq_lens + t``. Positions past the block-table row (a draft running
+    past the slot's reservation; the scheduler never emits those tokens) go
+    to the scratch page, never clamped into a real page, which would
+    overwrite live cache entries."""
+    B, W = block_tables.shape
+    pos = seq_lens.long()[:, None] + torch.arange(T, device=seq_lens.device)[None, :]
+    page_i = pos // page
+    gathered = block_tables.long().gather(1, page_i.clamp(max=W - 1))
+    pidx = torch.where(page_i < W, gathered, torch.zeros_like(gathered))
+    return pidx, pos % page
+
+
+def _attention_verify_paged(cfg, lp, h, k_pool, v_pool, block_tables, base, pidx, poff, l):
+    """T-token attention per slot: write every token's K/V to layer ``l`` at
+    (``pidx[b, t]``, ``poff[b, t]``), then attend query t at position
+    ``base + t`` through the block table with one single-token call each.
+    Query t's mask (key <= base + t) hides the K/V already written for the
+    queries after it, exactly as it hides any stale cache content, so
+    write-all-then-attend equals the sequential write/attend interleaving."""
+    B, T, E = h.shape
+    H, D = cfg.n_head, cfg.head_dim
+    qkv = h @ lp["c_attn_w"] + lp["c_attn_b"]
+    q, k_, v = qkv.split(H * D, dim=-1)
+    q = q.reshape(B, T, H, D)
+    # [B, T, KV, D] values to (pidx[b, t], :, poff[b, t]): the advanced
+    # index pair around the head slice puts (B, T) first
+    k_pool[l][pidx, :, poff] = k_.reshape(B, T, H, D).to(k_pool.dtype)
+    v_pool[l][pidx, :, poff] = v.reshape(B, T, H, D).to(v_pool.dtype)
+    scale = 1.0 / math.sqrt(D)
+    o = torch.cat([
+        paged_cached_attention(
+            q[:, t].contiguous(), k_pool[l], v_pool[l], block_tables,
+            base + t, sm_scale=scale,
+        ).reshape(B, 1, E).to(h.dtype)
+        for t in range(T)
+    ], dim=1)
+    return _proj(o, lp["c_proj_w"], lp["c_proj_b"])
+
+
+@torch.no_grad()
+def paged_verify_step(
+    cfg: GPT2Config,
+    params: PyTree,
+    tokens: torch.Tensor,        # [B, T] col 0 = last emitted, cols 1.. = drafts
+    seq_lens: torch.Tensor,      # [B] int32 tokens already cached per slot
+    k_pool: torch.Tensor,        # [L, P, KV, page, D], written in place
+    v_pool: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, W] int32
+    return_logits: bool = False,
+):
+    """Self-speculative verify: score T = k+1 tokens per slot in one pass →
+    ``greedy [B, T]`` (and the logits ``[B, T, V]`` when asked).
+
+    ``greedy[b, t]`` is the argmax next token after prefix + tokens[b, :t+1],
+    what :func:`paged_decode_step` would emit there. The host accepts the
+    longest prefix with ``tokens[b, t+1] == greedy[b, t]`` and emits
+    ``greedy[b, :accepted+1]``. Rejected drafts leave K/V past the accepted
+    length; the next step's writes cover every such position before
+    anything attends it (``new_base = base + accepted + 1 <= base + T``)."""
+    B, T = tokens.shape
+    page = k_pool.shape[3]
+    eps = cfg.layer_norm_epsilon
+    seq_lens = seq_lens.to(torch.int32).contiguous()
+    block_tables = block_tables.to(torch.int32).contiguous()
+    # positions past the model's table (past the decode budget) are clamped
+    # into it: their queries are never emitted and their writes go to scratch
+    positions = (
+        seq_lens.long()[:, None] + torch.arange(T, device=tokens.device)[None, :]
+    ).clamp(max=cfg.n_positions - 1)
+    h = params["wte"][tokens.long()] + params["wpe"][positions]
+    pidx, poff = _verify_write_targets(seq_lens, block_tables, page, T)
+
+    for l in range(cfg.n_layer):
+        lp = _layer_params(params, l)
+        h = h + _attention_verify_paged(
+            cfg, lp["attn"],
+            _layer_norm(h, lp["ln_1"]["scale"], lp["ln_1"]["bias"], eps),
+            k_pool, v_pool, block_tables, seq_lens, pidx, poff, l,
+        )
+        h = h + _mlp(cfg, lp["mlp"], _layer_norm(h, lp["ln_2"]["scale"], lp["ln_2"]["bias"], eps))
+
+    logits = _logits(cfg, params, h)
+    greedy = torch.argmax(logits.float(), dim=-1)
+    return (greedy, logits) if return_logits else greedy
+
+
+@torch.no_grad()
+def paged_chunk_prefill(
+    cfg: GPT2Config,
+    params: PyTree,
+    input_ids: torch.Tensor,     # [1, C] one chunk, right-padded past the prompt
+    start: int,                  # position of input_ids[0, 0] (page-aligned)
+    prompt_len: int,             # the request's true prompt length
+    k_pool: torch.Tensor,        # [L, P, KV, page, D], written in place
+    v_pool: torch.Tensor,
+    page_ids: torch.Tensor,      # [C // page] this chunk's slot pages (scratch-padded)
+    block_tables: torch.Tensor,  # [1, W] int32 the slot's full table row
+    generator: Optional[torch.Generator] = None,
+    temperature: float = 0.0,
+    top_k: int = 0,
+    top_p: float = 1.0,
+    return_logits: bool = False,
+):
+    """One chunk of an incremental prefill → token ``[1]`` (and its logits
+    ``[1, V]`` when asked), sampled at the true last prompt position; only
+    the final chunk's token is meaningful.
+
+    Positions ``start .. start+C-1`` run through the model attending the
+    slot's cached prefix (positions < start) plus causal intra-chunk; their
+    K/V is written page by page to ``page_ids`` before attention reads the
+    pool (update-then-attend)."""
+    B, C = input_ids.shape
+    page = k_pool.shape[3]
+    n_cp = C // page
+    eps = cfg.layer_norm_epsilon
+    H, D = cfg.n_head, cfg.head_dim
+    dev = input_ids.device
+    positions = (int(start) + torch.arange(C, device=dev)).clamp(max=cfg.n_positions - 1)
+    h = params["wte"][input_ids.long()] + params["wpe"][positions][None, :, :]
+    page_ids = page_ids.long()
+    block_tables = block_tables.to(torch.int32).contiguous()
+    base = torch.full((B,), int(start), dtype=torch.int32, device=dev)
+
+    for l in range(cfg.n_layer):
+        lp = _layer_params(params, l)
+        attn = lp["attn"]
+        hn = _layer_norm(h, lp["ln_1"]["scale"], lp["ln_1"]["bias"], eps)
+        qkv = hn @ attn["c_attn_w"] + attn["c_attn_b"]
+        q, k_, v = qkv.split(H * D, dim=-1)
+        q = q.reshape(B, C, H, D)
+        # page-granular write, exactly paged_prefill's
+        _write_pool_pages(k_pool, l, page_ids, k_.reshape(n_cp, page, H, D).transpose(1, 2))
+        _write_pool_pages(v_pool, l, page_ids, v.reshape(n_cp, page, H, D).transpose(1, 2))
+        o = _attend_multitoken_paged(cfg, hn, q, k_pool[l], v_pool[l], block_tables, base)
+        h = h + _proj(o, attn["c_proj_w"], attn["c_proj_b"])
+        h = h + _mlp(cfg, lp["mlp"], _layer_norm(h, lp["ln_2"]["scale"], lp["ln_2"]["bias"], eps))
+
+    # the true last prompt position, when it falls inside this chunk
+    idx = min(max(int(prompt_len) - 1 - int(start), 0), C - 1)
+    logits = _logits(cfg, params, h[:, idx])
+    first = sample_logits(logits, generator, temperature, top_k, top_p)
+    return (first, logits) if return_logits else first

@@ -1,14 +1,15 @@
 """Serving request lifecycle: QUEUED → RUNNING → FINISHED/TRUNCATED, or
-REJECTED at the door / TIMED_OUT while still queued / PREEMPTED by a drain
+REJECTED at the door / TIMED_OUT while still queued / PREEMPTED by a drain /
+FAILED when admission could not reserve its pages
 (counterpart of ``deepspeed_tpu/serving/request.py``, without the SLO,
-tenancy, retry, prefix-cache and fleet fields of the features not ported).
+tenancy, retry and fleet fields of the features not ported).
 """
 
 from __future__ import annotations
 
 import itertools
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Any, List, Optional
 
 import numpy as np
 
@@ -21,8 +22,9 @@ class RequestStatus:
     TIMED_OUT = "timed_out"     # deadline passed before ever reaching a slot
     REJECTED = "rejected"       # backpressure: queue full / can never fit
     PREEMPTED = "preempted"     # graceful drain evicted it
+    FAILED = "failed"           # admission could not reserve its pages
 
-    TERMINAL = (FINISHED, TRUNCATED, TIMED_OUT, REJECTED, PREEMPTED)
+    TERMINAL = (FINISHED, TRUNCATED, TIMED_OUT, REJECTED, PREEMPTED, FAILED)
 
 
 _ids = itertools.count()
@@ -41,6 +43,13 @@ class Request:
     # original ask when admission clamped max_new_tokens; None = not clamped
     requested_new_tokens: Optional[int] = None
 
+    # -- prefix cache ---------------------------------------------------
+    # prompt tokens served from shared prefix-index pages at admission
+    # (0 = cold); the tail past this point was prefilled
+    prefix_shared_tokens: int = 0
+    # a full-prefix hit forked the last prompt page copy-on-write
+    cow_forked: bool = False
+
     # -- filled by the scheduler ---------------------------------------
     id: int = field(default_factory=lambda: next(_ids))
     status: str = RequestStatus.QUEUED
@@ -53,6 +62,18 @@ class Request:
     # records them (ServingEngine(track_margins=True)): how close each
     # greedy choice was to a tie
     margins: List[float] = field(default_factory=list)
+    # the speculative drafter's incremental n-gram index over prompt +
+    # tokens (owned by ServingEngine._draft; None = not built yet)
+    draft_state: Optional[Any] = field(default=None, repr=False, compare=False)
+    _prompt_list: Optional[List[int]] = field(default=None, repr=False, compare=False)
+
+    @property
+    def prompt_list(self) -> List[int]:
+        """The prompt as a plain list, converted once: the drafter reads
+        prompt + tokens every step."""
+        if self._prompt_list is None:
+            self._prompt_list = np.asarray(self.prompt, np.int64).tolist()
+        return self._prompt_list
 
     @property
     def prompt_len(self) -> int:

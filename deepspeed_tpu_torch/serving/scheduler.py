@@ -1,11 +1,29 @@
 """Continuous-batching scheduler: slot-based decode over the paged KV pool
-(counterpart of ``deepspeed_tpu/serving/scheduler.py`` on its default path).
+(counterpart of ``deepspeed_tpu/serving/scheduler.py`` without TP,
+disaggregation, the host tier, retries and telemetry).
 
 A fixed array of ``max_slots`` decode slots advances one token per step
 through ONE batched decode step, while finished sequences vacate their slot
 mid-flight and queued requests are admitted into free slots by a prefill
 insertion. Inactive slots ride along in the decode batch pointed at the
 scratch page; every op is row-independent, so active slots are unaffected.
+
+Three hot-path features, each off by default and each keeping the greedy
+token streams:
+
+- **Speculative decode** (``serving.speculative``): the scheduler drafts
+  ``k`` tokens per slot host-side (prompt lookup over prompt + output) and
+  one verify step replaces the decode step, scoring all ``k + 1`` positions
+  and accepting the longest matching prefix. Rejected drafts' K/V is
+  overwritten before anything attends it. Greedy only.
+- **Shared-prefix KV reuse** (``serving.prefix_cache``): full prompt pages
+  are indexed after prefill; a later prompt maps its matching page-aligned
+  prefix (refcounted pages) and prefills only the tail through the chunk
+  program. A full-prefix hit recomputes the last page into a private page
+  (copy-on-write); the shared original is never written.
+- **Chunked prefill** (``serving.prefill_chunk_tokens``): long prompts
+  prefill in page-aligned chunks, one chunk per scheduler step, so a long
+  prompt does not stall the co-resident decode slots for its whole width.
 
 Robustness: admission control (queue depth, KV-page budget) rejects at the
 door; per-request deadlines evict mid-flight to a TRUNCATED response; an
@@ -31,7 +49,7 @@ from ..models.gpt2 import GPT2Config
 from ..runtime.config import ServingConfig
 from ..utils.logging import log_dist
 from . import model as smodel
-from .kv_cache import SlotTable, pages_for, pool_bytes
+from .kv_cache import PageAllocatorError, PrefixCache, SlotTable, pages_for, pool_bytes
 from .placement import ProgramSet
 from .request import Request, RequestStatus
 
@@ -43,9 +61,15 @@ _CACHE_DTYPES = {
 @dataclass
 class _Slot:
     request: Optional[Request] = None
-    pages: List[int] = field(default_factory=list)
+    pages: List[int] = field(default_factory=list)  # full row: shared + private
     pos: int = 0    # tokens currently in this slot's cache
     generator: Optional[torch.Generator] = None  # sampling draws (temperature > 0)
+    # True while the prompt prefills chunk by chunk; the main table row then
+    # stays scratch (the batched decode must not touch this slot's real,
+    # possibly shared, pages) and ``row`` carries the real block table
+    prefilling: bool = False
+    prefill_pos: int = 0               # prompt tokens prefilled so far
+    row: Optional[np.ndarray] = None   # [1, pages_per_slot] real block table
 
 
 def _top2_margin(logits: torch.Tensor) -> np.ndarray:
@@ -119,12 +143,39 @@ class ServingEngine:
         self._sampling = float(config.temperature) > 0.0
         self._draining = False
 
+        spec = config.speculative
+        self.spec_enabled = bool(spec.enabled)
+        self.spec_k = int(spec.k) if self.spec_enabled else 0
+        self.spec_ngram = int(spec.ngram) if self.spec_enabled else 2
+        if self.spec_enabled and self._sampling:
+            raise ValueError("serving.speculative requires temperature == 0 (greedy)")
+        pcfg = config.prefix_cache
+        self.prefix_cache: Optional[PrefixCache] = (
+            PrefixCache(self.allocator, page, max_pages=int(pcfg.max_pages))
+            if pcfg.enabled else None
+        )
+        cw = int(config.prefill_chunk_tokens)
+        self._chunk_cold = cw > 0  # chunk long cold prompts too
+        if cw > 0:
+            self.chunk_width = pages_for(cw, page) * page
+        elif self.prefix_cache is not None:
+            self.chunk_width = page  # prefix-hit tails run through the chunk program
+        else:
+            self.chunk_width = 0
+        self.chunk_width = min(self.chunk_width, self.prefill_width)
+
         self._status_counts: dict = {}
         self._step_count = 0
         self._prefills = 0
         self._timeouts = 0
         self._decode_tokens = 0
         self._decode_seconds = 0.0
+        self._chunks = 0
+        self._spec_steps = 0
+        self._spec_drafted = 0
+        self._spec_accepted = 0
+        self._spec_emitted = 0  # tokens emitted by verify steps (accept lengths summed)
+        self._spec_runs = 0     # slot-steps of verify (accept lengths counted)
         self._t_first_submit: Optional[float] = None
         self._t_last_finish: Optional[float] = None
         pool_mb = pool_bytes(
@@ -134,7 +185,8 @@ class ServingEngine:
         log_dist(
             f"ServingEngine: slots={self.max_slots} page={page} "
             f"pages={config.num_pages} (pool {pool_mb:.1f} MB) "
-            f"prefill_width={self.prefill_width} "
+            f"prefill_width={self.prefill_width} chunk_width={self.chunk_width} "
+            f"spec_k={self.spec_k} prefix_cache={self.prefix_cache is not None} "
             f"dtype={str(self.cache_dtype).replace('torch.', '')} device={self.device}"
         )
 
@@ -199,8 +251,9 @@ class ServingEngine:
     # ------------------------------------------------------------------
     def step(self) -> int:
         """One scheduler iteration: evict deadline-passed work, admit queued
-        requests into free slots (prefill insertion), advance every active
-        slot one token. Returns the number of active slots after the step."""
+        requests into free slots (prefill insertion), advance every
+        prefilling slot one chunk and every decoding slot one decode (or
+        verify) step. Returns the number of active slots after the step."""
         now = self.clock()
 
         # 1. timeout eviction: a request past its deadline degrades to a
@@ -226,68 +279,202 @@ class ServingEngine:
             self.queue = keep
 
         # 2. prefill insertions: FIFO admission into free slots, gated by the
-        # KV-page budget (the head of line blocks until finishing slots free
-        # pages). A drain stops admission.
+        # KV-page budget net of the prefix-index pages the prompt can map
+        # (the head of line blocks until finishing slots free pages). Under
+        # pool pressure the index yields cold entries first, and the need is
+        # re-probed: the eviction may have dropped pages the probe counted.
+        # A drain stops admission.
         while self.queue and not self._draining:
             free = next((i for i, s in enumerate(self.slots) if s.request is None), None)
             if free is None:
                 break
             req = self.queue[0]
-            if self._pages_needed(req) > self.allocator.free_pages:
-                break
+            need = self._pages_needed(req)
+            if need > self.allocator.free_pages:
+                if self.prefix_cache is not None and len(self.prefix_cache):
+                    self.prefix_cache.evict(need_free=need)
+                    need = self._pages_needed(req)
+                if need > self.allocator.free_pages:
+                    break
             self.queue.popleft()
             self._admit(free, req)
 
-        # 3. one batched decode step for every active slot
-        active = [i for i, s in enumerate(self.slots) if s.request is not None]
+        # 2b. chunked prefill: every prefilling slot advances one chunk, and
+        # the decode batch below still runs
+        for i, slot in enumerate(self.slots):
+            if slot.request is not None and slot.prefilling:
+                self._advance_chunk(i)
+
+        # 3. one batched decode (or speculative verify) step for every slot
+        # past its prefill
+        active = [i for i, s in enumerate(self.slots)
+                  if s.request is not None and not s.prefilling]
         if active:
             t0 = self.clock()
-            pset = self.pset
-            dev = self.device
-            gens = [s.generator for s in self.slots] if self._sampling else None
-            out = smodel.paged_decode_step(
-                self.model_config, pset.params,
-                torch.from_numpy(self.table.tokens).to(dev),
-                torch.from_numpy(self.table.seq_lens).to(dev),
-                pset.k_pool, pset.v_pool,
-                torch.from_numpy(self.table.block_tables).to(dev),
-                generators=gens,
-                temperature=float(self.config.temperature),
-                top_k=int(self.config.top_k), top_p=float(self.config.top_p),
-                return_logits=self.track_margins,
-            )
-            nxt, logits = out if self.track_margins else (out, None)
-            # the one deliberate sync of the slot loop: the scheduler must
-            # read the sampled tokens to retire or advance slots
-            out_np = nxt.cpu().numpy()
-            margins = _top2_margin(logits) if logits is not None else None
+            emitted, margins = (self._verify(active) if self.spec_enabled
+                                else self._decode(active))
             now = self.clock()
             self._step_count += 1
             self._decode_seconds += now - t0
-            self._decode_tokens += len(active)
-            for i in active:
+            for i, toks in emitted:
                 slot = self.slots[i]
                 req = slot.request
-                tok = int(out_np[i])
-                req.tokens.append(tok)
+                req.tokens.extend(toks)
                 if margins is not None:
-                    req.margins.append(float(margins[i]))
-                slot.pos += 1
+                    req.margins.extend(float(m) for m in margins[i][: len(toks)])
+                self._decode_tokens += len(toks)
+                slot.pos += len(toks)
                 self.table.seq_lens[i] = slot.pos
-                self.table.tokens[i] = tok
+                self.table.tokens[i] = toks[-1]
                 if len(req.tokens) >= req.max_new_tokens or (
-                    req.eos_token_id is not None and tok == req.eos_token_id
+                    req.eos_token_id is not None and toks[-1] == req.eos_token_id
                 ):
                     self._finish_slot(i, RequestStatus.FINISHED, "", now)
 
         return sum(1 for s in self.slots if s.request is not None)
 
+    def _decode(self, active):
+        """One batched decode step → ([(slot, [token])], margins [B, 1] or
+        None)."""
+        pset = self.pset
+        dev = self.device
+        gens = [s.generator for s in self.slots] if self._sampling else None
+        out = smodel.paged_decode_step(
+            self.model_config, pset.params,
+            torch.from_numpy(self.table.tokens).to(dev),
+            torch.from_numpy(self.table.seq_lens).to(dev),
+            pset.k_pool, pset.v_pool,
+            torch.from_numpy(self.table.block_tables).to(dev),
+            generators=gens,
+            temperature=float(self.config.temperature),
+            top_k=int(self.config.top_k), top_p=float(self.config.top_p),
+            return_logits=self.track_margins,
+        )
+        nxt, logits = out if self.track_margins else (out, None)
+        # the one deliberate sync of the slot loop: the scheduler must read
+        # the sampled tokens to retire or advance slots
+        out_np = nxt.cpu().numpy()
+        margins = _top2_margin(logits)[:, None] if logits is not None else None
+        return [(i, [int(out_np[i])]) for i in active], margins
+
+    def _verify(self, active):
+        """One speculative verify step: ``[max_slots, k+1]`` tokens (last
+        emitted + the drafts) → ([(slot, accepted tokens)], margins
+        [B, k+1] or None)."""
+        pset = self.pset
+        dev = self.device
+        vt = np.zeros((self.max_slots, self.spec_k + 1), np.int32)
+        vt[:, 0] = self.table.tokens
+        drafts = {}
+        for i in active:
+            drafts[i] = self._draft(self.slots[i].request)
+            vt[i, 1:] = drafts[i]
+        out = smodel.paged_verify_step(
+            self.model_config, pset.params, torch.from_numpy(vt).to(dev),
+            torch.from_numpy(self.table.seq_lens).to(dev),
+            pset.k_pool, pset.v_pool,
+            torch.from_numpy(self.table.block_tables).to(dev),
+            return_logits=self.track_margins,
+        )
+        greedy, logits = out if self.track_margins else (out, None)
+        out_np = greedy.cpu().numpy()  # the step's one deliberate sync
+        margins = _top2_margin(logits) if logits is not None else None
+        self._spec_steps += 1
+        self._spec_drafted += self.spec_k * len(active)
+        return [(i, self._accept_tokens(self.slots[i].request, drafts[i], out_np[i]))
+                for i in active], margins
+
+    def _draft(self, req: Request) -> np.ndarray:
+        """Host-side prompt-lookup draft: the continuation of the most
+        recent PRIOR occurrence of the context's last ``ngram`` tokens,
+        padded with the last token. The ngram → position map is kept on the
+        request and grown by the positions appended since the last step, so
+        a draft costs O(tokens appended), not a rescan of the context; a
+        context that shrank rebuilds it. A bad draft costs nothing extra
+        (the verify step's shape is fixed), so the fallback is plain."""
+        k, n = self.spec_k, self.spec_ngram
+        prompt = req.prompt_list
+        L = len(prompt) + len(req.tokens)
+        st = req.draft_state
+        if st is None or len(st[0]) > L:
+            st = ([], {}, [0])  # (context copy, ngram -> latest start, watermark)
+            req.draft_state = st
+        ctx, index, cur = st
+        if len(ctx) < L:
+            grown = len(ctx)
+            ctx.extend(prompt[grown:] if grown < len(prompt) else [])
+            ctx.extend(req.tokens[len(ctx) - len(prompt):])
+        # index every ngram start strictly before the target position L-n;
+        # the latest write wins, so a lookup is the backward scan's "most
+        # recent prior occurrence"
+        for s in range(cur[0], L - n):
+            index[tuple(ctx[s:s + n])] = s
+        cur[0] = max(cur[0], L - n)
+        last = ctx[-1]
+        if L >= n + 1:
+            s = index.get(tuple(ctx[L - n:]))
+            if s is not None:
+                cont = ctx[s + n:s + n + k]
+                return np.asarray((cont + [last] * k)[:k], np.int32)
+        return np.full((k,), last, np.int32)
+
+    def _accept_tokens(self, req: Request, draft: np.ndarray,
+                       greedy: np.ndarray) -> List[int]:
+        """The speculative accept rule: ``greedy[t]`` is the argmax token
+        after the prefix + draft[:t], so drafts are accepted while
+        ``draft[t] == greedy[t]`` and the step emits the accepted drafts plus
+        one bonus token: exactly the sequential greedy stream, cut to the
+        remaining budget and at EOS."""
+        n_acc = 0
+        while n_acc < self.spec_k and int(draft[n_acc]) == int(greedy[n_acc]):
+            n_acc += 1
+        emit = min(n_acc + 1, req.max_new_tokens - len(req.tokens))
+        toks = [int(t) for t in greedy[:emit]]
+        if req.eos_token_id is not None and req.eos_token_id in toks:
+            toks = toks[: toks.index(req.eos_token_id) + 1]
+        self._spec_accepted += len(toks) - 1
+        self._spec_emitted += len(toks)
+        self._spec_runs += 1
+        return toks
+
     def _pages_needed(self, req: Request) -> int:
-        """Pages an admission allocates: the request's full reservation."""
-        return pages_for(req.prompt_len + req.max_new_tokens, self.page_size)
+        """Net new pages an admission allocates: the request's full
+        reservation minus the pages the prefix index can map (a probe that
+        counts nothing and refreshes nothing: the gate runs it every step
+        while a request heads the queue)."""
+        total = pages_for(req.prompt_len + req.max_new_tokens, self.page_size)
+        if self.prefix_cache is None:
+            return total
+        return total - self.prefix_cache.probe(req.prompt)
 
     def _admit(self, slot_i: int, req: Request) -> None:
-        pages = self.allocator.alloc(self._pages_needed(req))
+        total = pages_for(req.prompt_len + req.max_new_tokens, self.page_size)
+        # prefix-cache lookup: map every indexed full page of the prompt. A
+        # full-prefix hit also finds the LAST prompt page indexed; that page
+        # is forked copy-on-write (a fresh private page, filled by
+        # recomputing its tokens through the chunk program), because the
+        # slot's own decode writes continue next to it
+        shared: List[int] = []
+        shared_tokens = 0
+        cow_page = None
+        if self.prefix_cache is not None:
+            shared, shared_tokens, cow_page = self.prefix_cache.lookup(req.prompt)
+            if shared:
+                self.allocator.retain(shared)
+            if cow_page is not None:
+                self.allocator.cow_forks_total += 1
+        try:
+            pages = shared + self.allocator.alloc(total - len(shared))
+        except PageAllocatorError as e:
+            # all or nothing: a failed reservation must not strand the
+            # prefix retains
+            if shared:
+                self.allocator.free(shared)
+            req.status = RequestStatus.FAILED
+            req.detail = f"admission reservation failed: {e}"
+            req.t_finish = self.clock()
+            self._req_terminal(req, req.t_finish)
+            return
         slot = self.slots[slot_i]
         slot.request = req
         slot.pages = pages
@@ -296,6 +483,22 @@ class ServingEngine:
             torch.Generator(device=self.device).manual_seed(req.seed)
             if self._sampling else None
         )
+        req.prefix_shared_tokens = shared_tokens
+        req.cow_forked = cow_page is not None
+
+        if self.chunk_width > 0 and (
+            shared_tokens > 0 or (self._chunk_cold and req.prompt_len > self.chunk_width)
+        ):
+            # chunked (tail) prefill: the real block table lives on the slot,
+            # the main table row stays scratch until the prompt is in
+            row = np.zeros((1, self.pages_per_slot), np.int32)
+            row[0, : len(pages)] = pages
+            slot.row = row
+            slot.prefilling = True
+            slot.prefill_pos = shared_tokens
+            req.status = RequestStatus.RUNNING
+            return
+
         self.table.assign(slot_i, pages)
 
         dev = self.device
@@ -320,18 +523,69 @@ class ServingEngine:
             req.margins.append(float(_top2_margin(logits)[0]))
         self._start_decoding(slot_i, tok0)
 
+    def _advance_chunk(self, slot_i: int) -> None:
+        """One chunk of a prefilling slot's prompt through the chunk
+        program; after the final chunk its sampled token is the request's
+        first token and the slot joins the decode batch."""
+        slot = self.slots[slot_i]
+        req = slot.request
+        C = self.chunk_width
+        page = self.page_size
+        start = slot.prefill_pos
+        ids = np.zeros((1, C), np.int64)
+        seg = req.prompt[start: start + C]
+        ids[0, : len(seg)] = seg
+        p0 = start // page
+        page_ids = np.zeros((C // page,), np.int32)  # scratch-padded past the row
+        avail = slot.row[0, p0: p0 + C // page]
+        page_ids[: len(avail)] = avail
+        # only the final chunk samples: an earlier chunk's token is
+        # discarded, and it must not consume the slot's generator
+        final = start + C >= req.prompt_len
+        pset = self.pset
+        dev = self.device
+        out = smodel.paged_chunk_prefill(
+            self.model_config, pset.params, torch.from_numpy(ids).to(dev),
+            start, req.prompt_len, pset.k_pool, pset.v_pool,
+            torch.from_numpy(page_ids).to(dev), torch.from_numpy(slot.row).to(dev),
+            slot.generator if final else None,
+            temperature=float(self.config.temperature) if final else 0.0,
+            top_k=int(self.config.top_k), top_p=float(self.config.top_p),
+            return_logits=self.track_margins and final,
+        )
+        self._chunks += 1
+        slot.prefill_pos = start + C
+        if not final:
+            return  # more chunks; the decode batch advances meanwhile
+        first, logits = out if self.track_margins else (out, None)
+        self._prefills += 1
+        # deliberate sync, as in _admit: the final chunk's sample is the
+        # request's first token
+        tok0 = int(first[0].item())
+        if logits is not None:
+            req.margins.append(float(_top2_margin(logits)[0]))
+        self._start_decoding(slot_i, tok0)
+
     def _start_decoding(self, slot_i: int, tok0: int) -> None:
-        """Post-prefill transition: record TTFT, arm the slot's decode row,
-        and finish at once on an immediate EOS or a single-token ask."""
+        """Post-prefill transition: install the real block table (after a
+        chunked prefill), record TTFT, arm the slot's decode row, index the
+        prompt's full pages, and finish at once on an immediate EOS or a
+        single-token ask."""
         slot = self.slots[slot_i]
         req = slot.request
         now = self.clock()
+        if slot.row is not None:
+            self.table.block_tables[slot_i, :] = slot.row[0]
+            slot.prefilling = False
+            slot.row = None
         req.status = RequestStatus.RUNNING
         req.t_first_token = now
         req.tokens.append(tok0)
         slot.pos = req.prompt_len
         self.table.seq_lens[slot_i] = slot.pos
         self.table.tokens[slot_i] = tok0
+        if self.prefix_cache is not None:
+            self.prefix_cache.insert(req.prompt, slot.pages)
         if req.max_new_tokens == 1 or (
             req.eos_token_id is not None and tok0 == req.eos_token_id
         ):
@@ -418,7 +672,12 @@ class ServingEngine:
             budget = sum(r.max_new_tokens for r in self.queue) + sum(
                 s.request.max_new_tokens for s in self.slots if s.request is not None
             )
-            max_steps = 2 * budget + len(self.queue) + 16
+            n_reqs = len(self.queue) + sum(1 for s in self.slots if s.request is not None)
+            # chunked prefill takes steps without emitting tokens
+            chunks_per_req = (
+                -(-self.prefill_width // self.chunk_width) if self.chunk_width else 0
+            )
+            max_steps = 2 * budget + n_reqs * chunks_per_req + len(self.queue) + 16
         start = len(self.completed)
         for _ in range(max_steps):
             if not self.queue and all(s.request is None for s in self.slots):
@@ -454,7 +713,7 @@ class ServingEngine:
             if self._t_first_submit is not None and self._t_last_finish is not None
             else 0.0
         )
-        return {
+        out = {
             "by_status": dict(self._status_counts),
             "ttft": quantiles(r.ttft_s for r in done),
             "tpot": quantiles(r.tpot_s for r in done),
@@ -470,12 +729,46 @@ class ServingEngine:
                 if self._decode_seconds > 0 else None
             ),
             "tokens_per_s": tokens / span if span > 0 else None,
+            "kv_pages_shared": self.allocator.pages_shared,
+            "kv_cow_forks": self.allocator.cow_forks_total,
+            "chunk_prefills": self._chunks,
         }
+        if self.prefix_cache is not None:
+            pc = self.prefix_cache
+            lookups = pc.hits_full + pc.hits_partial + pc.misses
+            out.update({
+                "prefix_index_pages": len(pc),
+                "prefix_hits_full": pc.hits_full,
+                "prefix_hits_partial": pc.hits_partial,
+                "prefix_misses": pc.misses,
+                "prefix_evictions": pc.evictions,
+                "prefix_hit_rate": (
+                    (pc.hits_full + pc.hits_partial) / lookups if lookups else None
+                ),
+            })
+        if self.spec_enabled:
+            out.update({
+                "spec_steps": self._spec_steps,
+                "spec_drafted": self._spec_drafted,
+                "spec_accepted": self._spec_accepted,
+                "spec_accept_len_mean": (
+                    self._spec_emitted / self._spec_runs if self._spec_runs else None
+                ),
+            })
+        return out
+
+    def release_prefix_cache(self) -> int:
+        """Drop every prefix-index reference (teardown, tests): afterwards a
+        drained engine's allocator is fully free. → pages released."""
+        return self.prefix_cache.clear() if self.prefix_cache is not None else 0
 
     def check_no_leaks(self) -> None:
-        """Drain invariant: every page back on the free list, every slot
-        empty, every block-table entry pointing at scratch."""
-        self.allocator.check_no_leaks()
+        """Drain invariant: every page either back on the free list or held
+        by exactly the prefix index (refcount 1), every slot empty, every
+        block-table entry pointing at scratch."""
+        self.allocator.check_no_leaks(
+            allowed=self.prefix_cache.held_pages if self.prefix_cache is not None else None
+        )
         assert all(s.request is None for s in self.slots)
         assert (self.table.block_tables == 0).all()
         assert (self.table.seq_lens == 0).all()

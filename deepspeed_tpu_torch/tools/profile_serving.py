@@ -1,18 +1,22 @@
-"""Where the serving main path's time goes on the card.
+"""Where the serving paths' time goes on the card.
 
 Usage, on a machine with one CUDA card, from the repository root:
 
     python -m deepspeed_tpu_torch.tools.profile_serving [--model gpt2-medium]
-        [--requests 16] [--seed 1234] [--top 12]
+        [--requests 16] [--seed 1234] [--top 12] [--features]
 
-Serves mixed requests (prompts of 8..128 tokens, budgets of 16..64, drawn
-from ``--seed``) through the model in bf16 with random weights and the
-default serving section: once to warm up (kernel build, cuBLAS handles,
-allocator), then again under ``torch.profiler``. Prints the device time by
-kernel (the ``--top`` largest), the paged decode kernel's share, and the
-device's busy and idle shares of the profiled run's wall time, then one
-JSON line with the same numbers. The profiler's own host overhead lengthens
-the wall time, so the idle share it reports is an upper bound.
+Serves requests through the model in bf16 with random weights: once to
+warm up (kernel build, cuBLAS handles, allocator), then again under
+``torch.profiler``. By default the traffic is mixed requests (prompts of
+8..128 tokens, budgets of 16..64, drawn from ``--seed``) through the
+default serving section; with ``--features`` it is the shared-prefix
+traffic through :data:`FEATURES_SECTION` (speculation k=4, the prefix
+cache, 64-token chunks), as ``chip_smoke.py`` phase 3b serves it. Prints
+the device time by kernel (the ``--top`` largest), the paged kernels'
+shares, and the device's busy and idle shares of the profiled run's wall
+time, then one JSON line with the same numbers. The profiler's own host
+overhead lengthens the wall time, so the idle share it reports is an upper
+bound.
 """
 
 from __future__ import annotations
@@ -27,14 +31,56 @@ import numpy as np
 import torch
 
 
-def _serve_once(eng, n_requests: int, seed: int):
-    srv = eng.serve()
-    vocab = eng.model_config.vocab_size
+# the serving section of the feature path at gpt2-medium's positions
+FEATURES_SECTION = {
+    "max_prompt_len": 512, "max_new_tokens": 64, "max_slots": 8, "page_size": 16,
+    "num_pages": 512, "prefill_chunk_tokens": 64, "prefix_cache": {"enabled": True},
+    "speculative": {"enabled": True, "k": 4},
+}
+
+
+def mixed_requests(srv, n, vocab, seed):
+    """``n`` requests with prompts of 8..128 tokens and budgets of 16..64,
+    drawn from ``seed`` → [(request, budget)]."""
     rs = np.random.RandomState(seed)
-    for i in range(n_requests):  # the same draws as chip_smoke.py's phase 3
+    reqs = []
+    for i in range(n):
         plen = int(rs.randint(8, 129))
         budget = int(rs.randint(16, 65))
-        srv.submit(rs.randint(0, vocab, plen), max_new_tokens=budget, seed=i)
+        reqs.append((srv.submit(rs.randint(0, vocab, plen), max_new_tokens=budget, seed=i), budget))
+    return reqs
+
+
+def shared_prefix_requests(srv, vocab, seed, n_shared=8, n_cold=8, system_len=256,
+                           tails=(8, 128), cold_lens=(64, 512), budgets=(16, 64)):
+    """``n_shared`` prompts = one ``system_len``-token system prompt + their
+    own tail, interleaved with ``n_cold`` cold prompts; lengths and budgets
+    drawn from ``seed`` in the inclusive ranges given → [(request, budget)]."""
+    rs = np.random.RandomState(seed)
+    system = rs.randint(0, vocab, system_len)
+    prompts = []
+    for i in range(max(n_shared, n_cold)):
+        if i < n_shared:
+            tail = rs.randint(0, vocab, int(rs.randint(tails[0], tails[1] + 1)))
+            prompts.append(np.concatenate([system, tail]))
+        if i < n_cold:
+            prompts.append(rs.randint(0, vocab, int(rs.randint(cold_lens[0], cold_lens[1] + 1))))
+    reqs = []
+    for i, p in enumerate(prompts):
+        budget = int(rs.randint(budgets[0], budgets[1] + 1))
+        reqs.append((srv.submit(p, max_new_tokens=budget, seed=i), budget))
+    return reqs
+
+
+def _serve_once(eng, n_requests: int, seed: int, features: bool):
+    vocab = eng.model_config.vocab_size
+    if features:
+        srv = eng.serve(FEATURES_SECTION)
+        shared_prefix_requests(srv, vocab, seed, n_shared=n_requests // 2,
+                               n_cold=n_requests - n_requests // 2)
+    else:
+        srv = eng.serve()
+        mixed_requests(srv, n_requests, vocab, seed)
     t0 = time.perf_counter()
     srv.run()
     torch.cuda.synchronize()
@@ -47,6 +93,9 @@ def main(argv=None) -> int:
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--seed", type=int, default=1234)
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--features", action="store_true",
+                    help="serve the shared-prefix traffic with speculation, the prefix "
+                         "cache and chunked prefill on")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_serving: needs a CUDA device", file=sys.stderr)
@@ -58,9 +107,9 @@ def main(argv=None) -> int:
     import deepspeed_tpu_torch as dtt
 
     eng = dtt.init_inference(args.model, dtype=torch.bfloat16, seed=0)
-    _serve_once(eng, args.requests, args.seed)
+    _serve_once(eng, args.requests, args.seed, args.features)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        srv, wall_s = _serve_once(eng, args.requests, args.seed)
+        srv, wall_s = _serve_once(eng, args.requests, args.seed, args.features)
 
     spans = sorted(
         (e.time_range.start, e.time_range.end, e.name)
@@ -82,21 +131,30 @@ def main(argv=None) -> int:
     busy_us += cur_end - cur_start
     total_us = sum(by_name.values())
     paged_us = sum(t for n, t in by_name.items() if "paged_decode_kernel" in n)
-    steps = srv.stats()["decode_steps"]
+    mt_us = sum(t for n, t in by_name.items() if "paged_multitoken_kernel" in n)
+    st = srv.stats()
+    steps, chunks = st["decode_steps"], st["chunk_prefills"]
 
-    print(f"{torch.cuda.get_device_name(0)}; {args.requests} requests, {steps} decode steps, "
-          f"wall {wall_s:.3f} s under the profiler")
+    print(f"{torch.cuda.get_device_name(0)}; {args.requests} requests"
+          f"{' (speculation, prefix cache, chunked prefill)' if args.features else ''}, "
+          f"{steps} decode steps, {chunks} chunk-program calls, wall {wall_s:.3f} s under "
+          "the profiler")
     print(f"device busy {busy_us / 1e6:.4f} s = {busy_us / 1e6 / wall_s:.3f} of wall; "
           f"idle share {1 - busy_us / 1e6 / wall_s:.3f}")
     print(f"paged decode kernel {paged_us / 1e6:.4f} s = {paged_us / total_us:.3f} of device time, "
           f"{paged_us / max(steps, 1):.1f} us per decode step")
+    print(f"paged multitoken kernel {mt_us / 1e6:.4f} s = {mt_us / total_us:.3f} of device time, "
+          f"{mt_us / max(chunks, 1):.1f} us per chunk-program call")
     for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[: args.top]:
         print(f"  {t / 1e3:10.3f} ms  {t / total_us:6.3f}  {name[:100]}")
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "wall_s": wall_s,
         "device_busy_s": busy_us / 1e6, "idle_share": 1 - busy_us / 1e6 / wall_s,
-        "decode_steps": steps, "paged_decode_kernel_s": paged_us / 1e6,
+        "features": args.features, "decode_steps": steps, "chunk_prefills": chunks,
+        "paged_decode_kernel_s": paged_us / 1e6,
         "paged_decode_share_of_device": paged_us / total_us,
+        "paged_multitoken_kernel_s": mt_us / 1e6,
+        "paged_multitoken_share_of_device": mt_us / total_us,
         "top": [[name, t / 1e6] for name, t in
                 sorted(by_name.items(), key=lambda kv: -kv[1])[: args.top]],
     }))

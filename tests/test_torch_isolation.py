@@ -62,3 +62,27 @@ def test_entry_point_defaults_to_the_card():
         with pytest.raises(RuntimeError, match="CUDA"):
             dtt.init_inference("gpt2-tiny", dtype=torch.float32)
     assert dtt.init_inference("gpt2-tiny", device="cpu").device.type == "cpu"
+
+
+def test_the_slice_modules_are_scanned():
+    """The speculative / prefix-cache / chunked-prefill slice's modules and
+    its kernel source are part of what the scans above cover."""
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for mod in ("ops/paged_multitoken_attention.py", "ops/attention.py",
+                "serving/kv_cache.py", "serving/model.py", "serving/scheduler.py",
+                "runtime/config.py"):
+        assert f"deepspeed_tpu_torch/{mod}" in names
+    assert (REPO / "deepspeed_tpu_torch/csrc/paged_multitoken_attention.cu").is_file()
+
+
+def test_multitoken_dispatch_has_no_other_route():
+    """CPU tensors run the plain version, CUDA tensors the kernel; any other
+    device raises instead of finding a fallback."""
+    from deepspeed_tpu_torch.ops.attention import paged_multitoken_cached_attention
+
+    q = torch.zeros(1, 2, 4, 64, device="meta")
+    pool = torch.zeros(4, 4, 8, 64, device="meta")
+    bt = torch.zeros(1, 2, dtype=torch.int32, device="meta")
+    base = torch.zeros(1, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no implementation"):
+        paged_multitoken_cached_attention(q, pool, pool, bt, base)

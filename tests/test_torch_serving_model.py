@@ -102,3 +102,103 @@ def test_decode_writes_before_it_attends(models):
             tk, tv, bt, return_logits=True,
         )[1])
     torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# the multi-token programs: chunked prefill and speculative verify
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("start,plen,C", [(0, 3, 4), (4, 10, 8), (8, 12, 8)])
+def test_paged_chunk_prefill(models, start, plen, C):
+    """One chunk attending a cached prefix through the slot's row; the last
+    case's chunk runs past the row (its second page id is scratch)."""
+    jcfg, tcfg, tree = models
+    kp, vp = _pools(jcfg, 11 + start)
+    row = np.array([[7, 3, 12]], np.int32)
+    ids = np.zeros((1, C), np.int32)
+    seg = np.random.RandomState(start).randint(0, jcfg.vocab_size, plen)[start: start + C]
+    ids[0, : len(seg)] = seg
+    page_ids = np.zeros((C // PAGE,), np.int32)
+    avail = row[0, start // PAGE: start // PAGE + C // PAGE]
+    page_ids[: len(avail)] = avail
+    jk, jv, jtok = jmodel.paged_chunk_prefill(
+        jcfg, jax.tree.map(jnp.asarray, tree), jnp.asarray(ids), jnp.int32(start),
+        jnp.int32(plen), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(page_ids),
+        jnp.asarray(row), jax.random.PRNGKey(0),
+    )
+    tk, tv = torch.from_numpy(kp.copy()), torch.from_numpy(vp.copy())
+    ttok = tmodel.paged_chunk_prefill(
+        tcfg, params_from_numpy(tree, "cpu"), torch.from_numpy(ids), start, plen,
+        tk, tv, torch.from_numpy(page_ids), torch.from_numpy(row),
+    )
+    np.testing.assert_allclose(tk.numpy(), np.asarray(jk), **TOL)
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), **TOL)
+    np.testing.assert_array_equal(ttok.numpy(), np.asarray(jtok))
+
+
+def test_paged_verify_step(models):
+    """T = 4 tokens over four slots: one inactive on scratch, one whose
+    drafts run past its block-table row (those writes go to scratch)."""
+    jcfg, tcfg, tree = models
+    kp, vp = _pools(jcfg, 5)
+    bt = np.array([[3, 4, 5, 6, 7],
+                   [0, 0, 0, 0, 0],
+                   [8, 9, 10, 11, 12],
+                   [13, 14, 15, 16, 17]], np.int32)
+    seq_lens = np.array([3, 0, 9, 18], np.int32)
+    tokens = np.random.RandomState(3).randint(0, jcfg.vocab_size, (4, 4)).astype(np.int32)
+    tokens[1] = 0
+    jk, jv, jgreedy = jmodel.paged_verify_step(
+        jcfg, jax.tree.map(jnp.asarray, tree), jnp.asarray(tokens), jnp.asarray(seq_lens),
+        jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(bt),
+    )
+    tk, tv = torch.from_numpy(kp.copy()), torch.from_numpy(vp.copy())
+    tgreedy = tmodel.paged_verify_step(
+        tcfg, params_from_numpy(tree, "cpu"), torch.from_numpy(tokens),
+        torch.from_numpy(seq_lens), tk, tv, torch.from_numpy(bt),
+    )
+    np.testing.assert_array_equal(tgreedy.numpy(), np.asarray(jgreedy))
+    # page 0 takes several writes to one place, in an order neither
+    # framework fixes; every other page must agree
+    np.testing.assert_allclose(tk.numpy()[:, 1:], np.asarray(jk)[:, 1:], **TOL)
+    np.testing.assert_allclose(tv.numpy()[:, 1:], np.asarray(jv)[:, 1:], **TOL)
+
+
+def test_verify_write_targets_send_past_the_row_to_scratch():
+    bt = torch.tensor([[5, 6, 7], [8, 9, 10]], dtype=torch.int32)
+    pidx, poff = tmodel._verify_write_targets(
+        torch.tensor([6, 10], dtype=torch.int32), bt, PAGE, 4
+    )
+    # slot 0: positions 6..9 -> pages 1, 1, 2, 2; slot 1: 10, 11 in page 2,
+    # 12 and 13 past the 3-page row -> scratch page 0
+    assert pidx.tolist() == [[6, 6, 7, 7], [10, 10, 0, 0]]
+    assert poff.tolist() == [[2, 3, 0, 1], [2, 3, 0, 1]]
+
+
+def test_verify_equals_sequential_decode(models):
+    """Inside the port: fed the sequential decode stream as its drafts, the
+    verify step's greedy tokens are that stream, and its logits are the
+    decode steps' logits."""
+    _, tcfg, tree = models
+    params = params_from_numpy(tree, "cpu")
+    kp, vp = _pools(tcfg, 9)
+    bt = torch.tensor([[3, 4, 5, 6, 7], [8, 9, 10, 11, 12]], dtype=torch.int32)
+    seq0 = np.array([5, 11], np.int32)
+    tok0 = np.array([17, 300], np.int32)
+    dk, dv = torch.from_numpy(kp.copy()), torch.from_numpy(vp.copy())
+    stream, logits_seq = [tok0], []
+    for step in range(3):
+        nxt, lg = tmodel.paged_decode_step(
+            tcfg, params, torch.from_numpy(stream[-1]), torch.from_numpy(seq0 + step),
+            dk, dv, bt, return_logits=True,
+        )
+        stream.append(nxt.numpy().astype(np.int32))
+        logits_seq.append(lg)
+    vk, vv = torch.from_numpy(kp.copy()), torch.from_numpy(vp.copy())
+    tokens = torch.from_numpy(np.stack(stream[:3], axis=1))  # last + 2 drafts
+    greedy, logits = tmodel.paged_verify_step(
+        tcfg, params, tokens, torch.from_numpy(seq0), vk, vv, bt, return_logits=True,
+    )
+    np.testing.assert_array_equal(greedy.numpy(), np.stack(stream[1:], axis=1))
+    for t in range(3):
+        torch.testing.assert_close(logits[:, t], logits_seq[t], **TOL)

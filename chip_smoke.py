@@ -33,7 +33,30 @@ Phases, in order; any failure raises and the script exits non-zero:
      the CPU and the card against the card's features-off streams. Each
      pair must be identical, except at a tie (top-2 logit margin < 1e-4),
      which is reported as such.
-  5  one JSON line of per-kernel numbers, then the last line
+  5  the flash-attention kernels (forward; backward = delta, dk/dv, dq)
+     against their plain versions on the card: o, lse, dq, dk and dv at the
+     training shape (B8 S1024 H16 D64 bf16 causal) and at fp32, fp16, D128,
+     D256, non-causal, GQA H16/KV4, window 256, ragged S=1000, one long
+     sequence (B1 H4 S8192), fp32 D256 S4224 (past the TPU's resident
+     budget) and S=128, each by max abs error and by max abs error over
+     max |ref|; forward and backward timed at the training shape
+     beside the plain versions, SDPA as the library yardstick (backward =
+     its forward+backward minus its forward) and the bound.
+  6  train gpt2-medium (24 layers, E1024, H16, vocab 50257, S=1024) in bf16
+     on an fp32 master through dtt.initialize(...): micro 8 x gas 2, AdamW,
+     WarmupLR, clipping 1.0, 12 steps on one seeded token batch. Losses must
+     be finite and fall; the flash forward and backward kernels must have
+     launched exactly 24 x 2 x 12 times each. Step ms (median of steps
+     3-12), tokens/s, MFU from the analytic flops, peak memory, then a
+     torch.profiler pass over 2 steps (device idle share, top kernels, the
+     flash kernels' shares).
+  6b the same model with remat on, 2 steps: forward launches == 2 x backward
+     launches (the backward re-runs each block's forward).
+  7  fp32 training at gpt2-medium width and 4 layers (S=256, micro 2 x gas
+     2, AdamW, 3 steps) from one set of weights: the card (kernels) against
+     the CPU (plain versions); step-1 loss within 1e-5 relative, later
+     losses within 1e-4, the max parameter difference printed.
+  8  one JSON line of per-kernel numbers, then the last line
      {"ok": true, "device": {...}} with "count": 1, the cards the run used.
 
 Without a CUDA device it exits 1 before printing any result. It imports
@@ -42,16 +65,20 @@ nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import gc
 import json
+import statistics
 import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 import deepspeed_tpu_torch as dtt
 from deepspeed_tpu_torch.models import gpt2
+from deepspeed_tpu_torch.ops import flash_attention as fa
 from deepspeed_tpu_torch.ops import op_builder
 from deepspeed_tpu_torch.ops import paged_decode_attention as pda
 from deepspeed_tpu_torch.ops import paged_multitoken_attention as pma
@@ -61,12 +88,27 @@ from deepspeed_tpu_torch.tools.profile_serving import (
     mixed_requests,
     shared_prefix_requests,
 )
-from deepspeed_tpu_torch.utils.weights import params_from_numpy, params_to_numpy
+from deepspeed_tpu_torch.tools.profile_training import (
+    analytic_train_flops_per_token,
+    print_profile,
+    profile_steps,
+    train_config,
+)
+from deepspeed_tpu_torch.utils.weights import params_from_numpy, params_to_numpy, tree_leaves
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 1e-5, torch.float16: 1e-2, torch.bfloat16: 1e-2}
 TIE_MARGIN = 1e-4
+# flash kernels against their plain versions, max abs error: fp32 sums in
+# another order (1e-5); bf16/fp16 round p, ds and the outputs to 8 / 11 bits
+FLASH_TOL = {torch.float32: 1e-5, torch.float16: 2e-2, torch.bfloat16: 2e-2}
+# and max abs error over max |ref|, which does not shrink with the outputs'
+# scale: a one-ulp flip of every bf16 output gives about 7e-3 of max |ref|,
+# while a systematic error of 5% or a query tile left out of dk/dv gives
+# about 5e-2. lse is f32 at every dtype.
+FLASH_REL_TOL = {torch.float32: 1e-5, torch.float16: 1.5e-2, torch.bfloat16: 1.5e-2}
+LSE_REL_TOL = 1e-5
 
 
 def check(cond, msg):
@@ -221,6 +263,81 @@ def compare_streams(label, a_reqs, b_reqs):
     print(f"{label}: {len(a_reqs) - ties} of {len(a_reqs)} identical, {ties} ties, "
           f"{n_tok} tokens compared")
     return ties
+
+
+# ---------------------------------------------------------------------------
+# phase 5-7 helpers
+# ---------------------------------------------------------------------------
+
+def flash_case(B, S, H, KV, D, dtype, seed=0):
+    """Random q, k, v and dO (scaled by 0.1, so that the grads' max abs
+    errors read against FLASH_TOL) on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(B, S, H, D, generator=g, device="cuda").to(dtype)
+    k = torch.randn(B, S, KV, D, generator=g, device="cuda").to(dtype)
+    v = torch.randn(B, S, KV, D, generator=g, device="cuda").to(dtype)
+    do = (torch.randn(B, S, H, D, generator=g, device="cuda") * 0.1).to(dtype)
+    return q, k, v, do
+
+
+def scaled_error(got, ref):
+    """max |got - ref| / max |ref|."""
+    ref = ref.float()
+    return float((got.float() - ref).abs().max() / ref.abs().max())
+
+
+def flash_errors(q, k, v, do, causal=True, window=None):
+    """Max abs error and :func:`scaled_error` of the kernels' o, lse, dq, dk,
+    dv against the plain versions' on the same inputs → (abs, scaled)."""
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, None, window)
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, do, causal, None, window)
+    torch.cuda.synchronize()
+    got = dict(zip(("o", "lse", "dq", "dk", "dv"), (o, lse) + grads))
+    for name, t in got.items():
+        check(bool(torch.isfinite(t).all()), f"flash {name} not finite")
+    o_r, lse_r = fa.flash_attention_fwd_ref(q, k, v, causal, None, window)
+    ref = dict(zip(("o", "lse", "dq", "dk", "dv"),
+                   (o_r, lse_r) + fa.flash_attention_bwd_ref(q, k, v, o_r, lse_r, do, causal,
+                                                             None, window)))
+    out, scaled = {}, {}
+    for name in got:
+        check(got[name].shape == ref[name].shape and got[name].dtype == ref[name].dtype,
+              f"flash {name}: shape/dtype {got[name].shape} {got[name].dtype} against "
+              f"{ref[name].shape} {ref[name].dtype}")
+        out[name] = float((got[name].float() - ref[name].float()).abs().max())
+        scaled[name] = scaled_error(got[name], ref[name])
+    return out, scaled
+
+
+def visible_pairs(S, causal, window):
+    """(query, key) pairs a causal / windowed / full attention computes."""
+    if not causal:
+        return S * S
+    w = window or 0
+    if w <= 0 or w >= S:
+        return S * (S + 1) // 2
+    return w * (w + 1) // 2 + (S - w) * w
+
+
+def flash_bound(q, k, causal, window, backward):
+    """Least time of one forward (2 products) or backward (5 products: the
+    function's s, dv, dp, dq, dk) call: each input read once and each output
+    written once over HBM, against its flops at the dtype's peak."""
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    it = q.element_size()
+    qo, kv = B * S * H * D * it, B * S * KV * D * it
+    lse = B * H * S * 4
+    nbytes = (4 * qo + 4 * kv + lse) if backward else (2 * qo + 2 * kv + lse)
+    flops = 2 * D * (5 if backward else 2) * B * H * visible_pairs(S, causal, window)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_OPS_PER_S[q.dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def reset_flash_launches():
+    for key in fa.LAUNCHES:
+        fa.LAUNCHES[key] = 0
 
 
 def main() -> int:
@@ -502,10 +619,182 @@ def main() -> int:
     compare_streams("card, features on vs off", streams["cuda", "features"],
                     streams["cuda", "features off"])
 
-    phase(5, "summary")
+    phase(5, "flash-attention kernels against their plain versions")
+    flash_cases = [  # label, (B, S, H, KV, D, dtype), causal, window
+        ("main bf16 B8 S1024 H16 D64 causal", (8, 1024, 16, 16, 64, torch.bfloat16), True, None),
+        ("fp32 B2 S1024 H16 D64", (2, 1024, 16, 16, 64, torch.float32), True, None),
+        ("fp16 B2 S1024 H16 D64", (2, 1024, 16, 16, 64, torch.float16), True, None),
+        ("D128 bf16 B2 S1024 H8", (2, 1024, 8, 8, 128, torch.bfloat16), True, None),
+        ("D256 bf16 B1 S1024 H4", (1, 1024, 4, 4, 256, torch.bfloat16), True, None),
+        ("non-causal bf16 B2 S1024 H16", (2, 1024, 16, 16, 64, torch.bfloat16), False, None),
+        ("GQA H16 KV4 bf16 B2 S1024", (2, 1024, 16, 4, 64, torch.bfloat16), True, None),
+        ("window 256 bf16 B2 S1024 H16", (2, 1024, 16, 16, 64, torch.bfloat16), True, 256),
+        ("ragged S1000 bf16 B2 H16", (2, 1000, 16, 16, 64, torch.bfloat16), True, None),
+        ("long B1 H4 S8192 bf16", (1, 8192, 4, 4, 64, torch.bfloat16), True, None),
+        ("fp32 D256 S4224 B1 H2", (1, 4224, 2, 2, 256, torch.float32), True, None),
+        ("S128 bf16 B8 H16", (8, 128, 16, 16, 64, torch.bfloat16), True, None),
+    ]
+    flash_errs = {}
+    for n, (label, shape, causal, window) in enumerate(flash_cases):
+        dtype = shape[-1]
+        errs5, scaled5 = flash_errors(*flash_case(*shape, seed=10 + n), causal=causal,
+                                      window=window)
+        flash_errs[label] = errs5
+        tol, rel_tol = FLASH_TOL[dtype], FLASH_REL_TOL[dtype]
+        print(f"flash {label}: max abs err " + ", ".join(f"{k} {e:.3e}" for k, e in errs5.items())
+              + f" (tolerance {tol:g}); max abs err / max |ref| "
+              + ", ".join(f"{k} {e:.3e}" for k, e in scaled5.items())
+              + f" (tolerance {rel_tol:g}, lse {LSE_REL_TOL:g})")
+        check(max(errs5.values()) <= tol, f"flash {label}: {errs5} above {tol}")
+        check(scaled5["lse"] <= LSE_REL_TOL, f"flash {label}: lse scaled err {scaled5['lse']}")
+        check(all(e <= rel_tol for k, e in scaled5.items() if k != "lse"),
+              f"flash {label}: scaled errors {scaled5} above {rel_tol}")
+        torch.cuda.empty_cache()
+    main_label = flash_cases[0][0]
+    fwd_err = max(flash_errs[main_label]["o"], flash_errs[main_label]["lse"])
+    bwd_err = max(flash_errs[main_label][k] for k in ("dq", "dk", "dv"))
+
+    q, k, v, do = flash_case(8, 1024, 16, 16, 64, torch.bfloat16, seed=10)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    lib_o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True).transpose(1, 2)
+    lib_err5 = float((lib_o.float() - fa.flash_attention_fwd_ref(q, k, v)[0].float()).abs().max())
+    check(lib_err5 <= FLASH_TOL[torch.bfloat16], f"flash library yardstick disagrees: {lib_err5}")
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+
+    def lib_fwd_bwd(_):
+        out = F.scaled_dot_product_attention(*(x.transpose(1, 2) for x in leaves), is_causal=True)
+        return torch.autograd.grad(out, leaves, dot)
+
+    fwd_ms, fwd_call_ms = time_ms(lambda i: fa.flash_attention_fwd(q, k, v), 60)
+    bwd_ms, bwd_call_ms = time_ms(lambda i: fa.flash_attention_bwd(q, k, v, o, lse, do), 30)
+    fwd_plain_ms, _ = time_ms(lambda i: fa.flash_attention_fwd_ref(q, k, v), 6, warmup=2)
+    bwd_plain_ms, _ = time_ms(lambda i: fa.flash_attention_bwd_ref(q, k, v, o, lse, do), 6,
+                              warmup=2)
+    lib_fwd_ms, _ = time_ms(lambda i: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), 60)
+    lib_fb_ms, _ = time_ms(lib_fwd_bwd, 30)
+    lib_bwd_ms = lib_fb_ms - lib_fwd_ms
+    fwd_bound, fwd_by = flash_bound(q, k, True, None, backward=False)
+    bwd_bound, bwd_by = flash_bound(q, k, True, None, backward=True)
+    print(f"flash_attention_fwd main shape, device ms per call: kernel {fwd_ms:.4f}, plain "
+          f"{fwd_plain_ms:.4f}, library (SDPA forward) {lib_fwd_ms:.4f}, bound {fwd_bound:.5f} "
+          f"({fwd_by}), kernel at {fwd_bound / fwd_ms:.3f} of bound; per call with the host's "
+          f"launch path {fwd_call_ms:.4f}")
+    print(f"flash_attention_bwd main shape, device ms per call: kernel {bwd_ms:.4f}, plain "
+          f"{bwd_plain_ms:.4f}, library (SDPA forward+backward {lib_fb_ms:.4f} minus forward) "
+          f"{lib_bwd_ms:.4f}, bound {bwd_bound:.5f} ({bwd_by}), kernel at "
+          f"{bwd_bound / bwd_ms:.3f} of bound; per call with the host's launch path "
+          f"{bwd_call_ms:.4f}")
+    del q, k, v, do, o, lse, qt, kt, vt, dot, leaves, lib_o
+    torch.cuda.empty_cache()
+
+    phase(6, "train gpt2-medium bf16 through initialize(...) (the slice's path)")
+    cfg6 = gpt2.get_config("gpt2-medium")
+    conf6 = train_config(micro=8, gas=2)
+    eng6, _, _, _ = dtt.initialize(model=gpt2.make_module(cfg6), config=conf6, seed=0)
+    S6 = cfg6.n_positions
+    batch6 = {"input_ids": np.random.RandomState(5).randint(
+        0, cfg6.vocab_size, (eng6.train_batch_size, S6)).astype(np.int32)}
+    tokens6 = eng6.train_batch_size * S6
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_flash_launches()
+    losses6, step_s6, gnorms6 = [], [], []
+    for _ in range(12):
+        t0 = time.perf_counter()
+        m6 = eng6.train_batch(batch6)
+        losses6.append(float(m6["loss"]))
+        gnorms6.append(float(m6["grad_norm"]))
+        torch.cuda.synchronize()
+        step_s6.append(time.perf_counter() - t0)
+    fwd_launches = fa.LAUNCHES["flash_attention_fwd"]
+    bwd_launches = fa.LAUNCHES["flash_attention_bwd"]
+    peak6 = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(losses6)) and all(np.isfinite(gnorms6)), f"non-finite: {losses6}")
+    check(losses6[-1] < losses6[0], f"loss did not fall: {losses6}")
+    want = cfg6.n_layer * eng6.gradient_accumulation_steps * 12
+    check(fwd_launches == want and bwd_launches == want,
+          f"flash launches fwd {fwd_launches} bwd {bwd_launches}, expected {want} each "
+          f"(= {cfg6.n_layer} x {eng6.gradient_accumulation_steps} x 12)")
+    step_ms6 = statistics.median(step_s6[2:]) * 1e3
+    tps6 = tokens6 / (step_ms6 / 1e3)
+    mfu6 = analytic_train_flops_per_token(cfg6.n_layer, cfg6.n_embd, cfg6.vocab_size, S6) \
+        * tps6 / PEAK_OPS_PER_S[torch.bfloat16]
+    print("losses " + " ".join(f"{x:.4f}" for x in losses6))
+    print(f"flash launches: forward {fwd_launches}, backward {bwd_launches} "
+          f"(= {cfg6.n_layer} x {eng6.gradient_accumulation_steps} x 12 each)")
+    print(f"step ms (median of steps 3-12, each closed by a sync) {step_ms6:.2f}, steps "
+          + " ".join(f"{x * 1e3:.1f}" for x in step_s6)
+          + f"; tokens/s {tps6:.1f} ({tokens6} tokens a step); MFU {mfu6:.4f} of "
+          f"{PEAK_OPS_PER_S[torch.bfloat16] / 1e12:.0f} TFLOP/s (analytic flops); peak memory "
+          f"{peak6 / 2**30:.2f} GiB")
+    p6 = profile_steps(eng6, batch6, 2)
+    print_profile(p6)
+    del eng6, m6
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("6b", "gpt2-medium bf16 with remat: the backward re-runs each block's forward")
+    cfg6b = gpt2.get_config("gpt2-medium", remat=True)
+    eng6b, _, _, _ = dtt.initialize(model=gpt2.make_module(cfg6b), config=conf6, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_flash_launches()
+    step_s6b, losses6b = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        losses6b.append(float(eng6b.train_batch(batch6)["loss"]))
+        torch.cuda.synchronize()
+        step_s6b.append(time.perf_counter() - t0)
+    f6b, b6b = fa.LAUNCHES["flash_attention_fwd"], fa.LAUNCHES["flash_attention_bwd"]
+    check(all(np.isfinite(losses6b)), f"remat losses {losses6b}")
+    check(b6b == cfg6b.n_layer * eng6b.gradient_accumulation_steps * 2 and f6b == 2 * b6b,
+          f"remat launches: forward {f6b}, backward {b6b}")
+    check(abs(losses6b[0] - losses6[0]) <= 1e-2 * abs(losses6[0]),
+          f"remat step-1 loss {losses6b[0]} against {losses6[0]}")
+    print(f"remat: launches forward {f6b} = 2 x backward {b6b}; losses "
+          + " ".join(f"{x:.4f}" for x in losses6b)
+          + f"; step ms {' '.join(f'{x * 1e3:.1f}' for x in step_s6b)}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del eng6b
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase(7, "fp32 training at gpt2-medium width, 4 layers: card against CPU")
+    cfg7 = gpt2.get_config("gpt2-medium", n_layer=4)
+    tree7 = params_to_numpy(gpt2.init_params(
+        cfg7, torch.Generator(device="cuda").manual_seed(11), "cuda", torch.float32))
+    conf7 = train_config(micro=2, gas=2)
+    conf7.pop("bf16")
+    batch7 = {"input_ids": np.random.RandomState(7).randint(
+        0, cfg7.vocab_size, (4, 256)).astype(np.int32)}
+    losses7, params7 = {}, {}
+    for dev in ("cuda", "cpu"):
+        reset_flash_launches()
+        eng7, _, _, _ = dtt.initialize(model=gpt2.make_module(cfg7), config=conf7,
+                                       model_parameters=params_from_numpy(tree7, dev), device=dev)
+        losses7[dev] = [float(eng7.train_batch(batch7)["loss"]) for _ in range(3)]
+        params7[dev] = params_to_numpy(eng7.params)
+        if dev == "cuda":
+            check(fa.LAUNCHES["flash_attention_fwd"] == 4 * 2 * 3
+                  and fa.LAUNCHES["flash_attention_bwd"] == 4 * 2 * 3,
+                  f"fp32 card run: flash launches {fa.LAUNCHES}")
+        del eng7
+    rel7 = [abs(a - b) / abs(b) for a, b in zip(losses7["cuda"], losses7["cpu"])]
+
+    pdiff7 = max(float(np.abs(a - b).max())
+                 for a, b in zip(tree_leaves(params7["cuda"]), tree_leaves(params7["cpu"])))
+    print("losses card " + " ".join(f"{x:.7f}" for x in losses7["cuda"]) + ", CPU "
+          + " ".join(f"{x:.7f}" for x in losses7["cpu"]) + ", relative differences "
+          + " ".join(f"{x:.3e}" for x in rel7) + f"; max parameter difference after step 3 "
+          f"{pdiff7:.3e}")
+    check(rel7[0] <= 1e-5, f"fp32 step-1 loss card vs CPU: relative {rel7[0]} > 1e-5")
+    check(max(rel7[1:]) <= 1e-4, f"fp32 later losses card vs CPU: relative {rel7} > 1e-4")
+
+    phase(8, "summary")
     # launches: each kernel's count on the path of the slice that ported it
     # (the decode kernel: phase 3's default path; the multi-token kernel:
-    # phase 3b's feature path)
+    # phase 3b's feature path; the flash kernels: phase 6's training run)
     print(json.dumps({"kernels": [{
         "name": "paged_decode_attention",
         "route": "cuda",
@@ -530,6 +819,30 @@ def main() -> int:
         "bound_ms": mt_bound_ms,
         "bound_by": mt_bound_by,
         "library_ms": mt_lib_ms,
+    }, {
+        "name": "flash_attention_fwd",
+        "route": "cuda",
+        "source": "deepspeed_tpu_torch/csrc/flash_attention_fwd.cu",
+        "replaces": "deepspeed_tpu/ops/pallas/flash_attention.py:262",
+        "launches": fwd_launches,
+        "max_abs_err": fwd_err,
+        "ms": fwd_ms,
+        "plain_ms": fwd_plain_ms,
+        "bound_ms": fwd_bound,
+        "bound_by": fwd_by,
+        "library_ms": lib_fwd_ms,
+    }, {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "deepspeed_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "deepspeed_tpu/ops/pallas/flash_attention.py:428",
+        "launches": bwd_launches,
+        "max_abs_err": bwd_err,
+        "ms": bwd_ms,
+        "plain_ms": bwd_plain_ms,
+        "bound_ms": bwd_bound,
+        "bound_by": bwd_by,
+        "library_ms": lib_bwd_ms,
     }]}))
     # the run uses one card, whatever the machine holds
     print(json.dumps({"ok": True, "device": {

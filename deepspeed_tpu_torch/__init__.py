@@ -1,21 +1,29 @@
 """deepspeed_tpu_torch: the PyTorch/CUDA port of deepspeed_tpu.
 
 A second package beside the JAX one, for NVIDIA Hopper (H100). What is
-ported so far is GPT-2 continuous-batching serving on one card: the paged
-KV pool, the scheduler and the serving programs, with the decode step's
-paged attention as a hand-written CUDA kernel (``csrc/``, built at first
-use). It imports torch, numpy and the standard library, and nothing of JAX
-or of ``deepspeed_tpu``.
+ported so far: GPT-2 continuous-batching serving on one card (the paged KV
+pool, the scheduler and the serving programs, with speculation, the prefix
+cache and chunked prefill) and GPT-2 training on one card (the
+single-device engine: bf16/fp16 on an fp32 master, accumulation, clipping,
+AdamW, LR schedules, loss scaling, full remat). Its attention kernels are
+hand-written CUDA (``csrc/``, built at first use): paged decode and
+multi-token attention for serving, flash attention forward and backward
+for training. It imports torch, numpy and the standard library, and
+nothing of JAX or of ``deepspeed_tpu``.
 
-Entry point: :func:`init_inference`, then ``.serve()``.
+Entry points: :func:`init_inference`, then ``.serve()``; :func:`initialize`,
+then ``engine.train_batch(...)``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 from .inference.engine import InferenceEngine
 from .models.gpt2 import GPT2Config, get_config
+from .runtime.config import DeepSpeedConfig, DeepSpeedConfigError, NotPortedError
+from .runtime.engine import DeepSpeedEngine
+from .runtime.module import ModuleSpec
 
 
 def init_inference(model_config: Union[GPT2Config, str] = "gpt2",
@@ -30,4 +38,34 @@ def init_inference(model_config: Union[GPT2Config, str] = "gpt2",
                            device=device, seed=seed, config=config)
 
 
-__all__ = ["InferenceEngine", "GPT2Config", "get_config", "init_inference"]
+def initialize(model: Optional[ModuleSpec] = None, optimizer: Any = None,
+               model_parameters: Any = None, training_data: Any = None,
+               lr_scheduler: Any = None, collate_fn: Any = None, config: Any = None,
+               seed: int = 0, device=None) -> Tuple[DeepSpeedEngine, Any, Any, Any]:
+    """Build a :class:`DeepSpeedEngine` (counterpart of
+    ``deepspeed_tpu.initialize``): ``model`` a :class:`ModuleSpec`
+    (``models.gpt2.make_module(cfg)``), ``model_parameters`` an optional
+    parameter tree (else ``model.init`` draws it from ``seed``), ``config``
+    a dict, JSON string or path, ``lr_scheduler`` an optional ``step -> lr``
+    callable, ``device`` the training device (default the CUDA card; raises
+    when there is none). → ``(engine, optimizer, training_dataloader,
+    lr_schedule)``."""
+    if model is None:
+        raise ValueError("deepspeed_tpu_torch.initialize: model is required")
+    if optimizer is not None:
+        raise NotPortedError(
+            "initialize(optimizer=...): a client optimizer is not ported to "
+            "deepspeed_tpu_torch yet; configure the config's optimizer section"
+        )
+    if config is None:
+        raise ValueError("deepspeed_tpu_torch.initialize: config is required")
+    engine = DeepSpeedEngine(model, config, params=model_parameters,
+                             lr_schedule=lr_scheduler if callable(lr_scheduler) else None,
+                             seed=seed, training_data=training_data, collate_fn=collate_fn,
+                             device=device)
+    return engine, engine.optimizer, engine.training_dataloader, engine.lr_schedule
+
+
+__all__ = ["DeepSpeedConfig", "DeepSpeedConfigError", "DeepSpeedEngine", "GPT2Config",
+           "InferenceEngine", "ModuleSpec", "NotPortedError", "get_config", "init_inference",
+           "initialize"]

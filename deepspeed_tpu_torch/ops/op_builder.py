@@ -34,8 +34,26 @@ NVCC_FLAGS = (
 )
 
 # ctypes signatures of each library's C entries: name -> {fn: (argtypes, restype)}
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
+    "flash_attention_fwd": {
+        "flash_attention_fwd_launch": (
+            [_P, _P, _P, _P, _P,               # q, k, v, o, lse
+             _I, _I, _I, _I, _I]               # B, S, H, KV, D
+            + [_L] * 12                        # q, k, v, o strides (batch, seq, head)
+            + [_I, _I, _F, _I, _P],            # causal, window, sm_scale, dtype, stream
+            ctypes.c_int,
+        ),
+    },
+    "flash_attention_bwd": {
+        "flash_attention_bwd_launch": (
+            [_P] * 10                          # q, k, v, o, do, lse, delta, dq, dk, dv
+            + [_I, _I, _I, _I, _I]             # B, S, H, KV, D
+            + [_L] * 15                        # q, k, v, o, do strides (batch, seq, head)
+            + [_I, _I, _F, _I, _P],            # causal, window, sm_scale, dtype, stream
+            ctypes.c_int,
+        ),
+    },
     "paged_decode_attention": {
         "paged_decode_attention_launch": (
             [_P, _P, _P, _P, _P, _P,           # q, k_pool, v_pool, tables, pos, out

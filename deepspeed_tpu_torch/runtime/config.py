@@ -1,6 +1,6 @@
-"""The ``serving`` config section, for the features this package serves.
+"""Config: the ``serving`` section and the training subset of the document.
 
-Counterpart of ``deepspeed_tpu/runtime/config.py`` ``ServingConfig``: the
+Counterpart of ``deepspeed_tpu/runtime/config.py``. ``ServingConfig``: the
 same fields, defaults and validation for the continuous-batching path
 (paged KV pool, admission control, deadlines, drain) and its three
 hot-path features: speculative decode (``speculative``), shared-prefix KV
@@ -9,10 +9,19 @@ The sections of the features that have not been ported yet (int8 pages,
 tensor parallelism, the host tier, the fleet, SLO classes, retries) are
 accepted only at their off values: turning one on raises
 :class:`NotPortedError` instead of being silently ignored.
+
+``DeepSpeedConfig``: the single-device training subset (the batch triple,
+``fp16``/``bf16``, ``gradient_clipping``, ``optimizer``, ``scheduler``,
+``prescale_gradients``/``gradient_predivide_factor``,
+``data_types.grad_accum_dtype``, ``zero_optimization.stage == 0``,
+``steps_per_print``) with the JAX package's key names and defaults. Any
+other section at a value that turns something on raises
+:class:`NotPortedError`.
 """
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass, field, fields
 from typing import Any, Dict, Optional
 
@@ -196,3 +205,233 @@ class ServingConfig:
                 typ = type(getattr(cls, key))  # every other field is a scalar
                 kwargs[key] = typ(value)
         return cls(**kwargs)
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+def _typed_section(cls, name: str, d) -> Any:
+    """A section's dataclass from its dict, values coerced to the field
+    types; unknown keys raise."""
+    if isinstance(d, cls):
+        return d
+    if not isinstance(d, dict):
+        raise DeepSpeedConfigError(f"{name} must be a dict, got {type(d).__name__}")
+    known = {f.name: f for f in fields(cls)}
+    unknown = sorted(set(d) - set(known))
+    if unknown:
+        raise DeepSpeedConfigError(f"{name}: unknown config keys {unknown}")
+    kwargs = {}
+    for key, value in d.items():
+        default = known[key].default
+        if isinstance(default, bool):
+            kwargs[key] = bool(value)
+        elif isinstance(default, int) and value is not None:
+            kwargs[key] = int(float(value))
+        elif isinstance(default, float) and value is not None:
+            kwargs[key] = float(value)
+        else:
+            kwargs[key] = value
+    return cls(**kwargs)
+
+
+@dataclass
+class FP16Config:
+    """``fp16`` (reference loss-scaler keys); ``loss_scale`` 0 = dynamic."""
+
+    enabled: bool = False
+    loss_scale: float = 0.0
+    initial_scale_power: int = 16
+    loss_scale_window: int = 1000
+    hysteresis: int = 2
+    min_loss_scale: float = 1.0
+
+    @property
+    def dynamic_loss_scale(self) -> bool:
+        return self.loss_scale == 0.0
+
+
+@dataclass
+class BF16Config:
+    enabled: bool = False
+
+
+@dataclass
+class OptimizerConfig:
+    type: str = "Adam"
+    params: Dict[str, Any] = field(default_factory=dict)
+
+
+@dataclass
+class SchedulerConfig:
+    type: Optional[str] = None
+    params: Dict[str, Any] = field(default_factory=dict)
+
+
+@dataclass
+class DataTypesConfig:
+    grad_accum_dtype: Optional[str] = None  # None | fp32 | fp16 | bf16
+
+    def __post_init__(self):
+        if self.grad_accum_dtype not in (None, "fp32", "fp16", "bf16"):
+            raise DeepSpeedConfigError(
+                "data_types.grad_accum_dtype must be fp32, fp16 or bf16; got "
+                f"{self.grad_accum_dtype!r}"
+            )
+
+
+# zero_optimization keys that turn on something not ported; the others tune
+# ZeRO's collectives, which stage 0 does not run
+_ZERO_OFF = {
+    "stage": lambda v: int(v) == 0,
+    "offload_param": lambda v: not v or str(v.get("device", "none")) in ("none", "None"),
+    "offload_optimizer": lambda v: not v or str(v.get("device", "none")) in ("none", "None"),
+}
+# top-level sections of the JAX document that the training path reads
+_TRAINING_KEYS = (
+    "train_batch_size", "train_micro_batch_size_per_gpu", "gradient_accumulation_steps",
+    "steps_per_print", "optimizer", "scheduler", "fp16", "bf16", "zero_optimization",
+    "data_types", "gradient_clipping", "prescale_gradients", "gradient_predivide_factor",
+)
+
+
+def _is_off(value) -> bool:
+    """A section left at a value that turns nothing on: empty, false, zero,
+    ``{"enabled": false, ...}``, or a dict of such values."""
+    if value is None or value is False or value == 0 or value == "" or value == []:
+        return True
+    if isinstance(value, dict):
+        if "enabled" in value:
+            return not value["enabled"]
+        return all(_is_off(v) for v in value.values())
+    return False
+
+
+@dataclass
+class DeepSpeedConfig:
+    """The training subset of the JAX package's ``DeepSpeedConfig``
+    (``deepspeed_tpu/runtime/config.py:1441``) for one device."""
+
+    train_batch_size: Optional[int] = None
+    train_micro_batch_size_per_gpu: Optional[int] = None
+    gradient_accumulation_steps: Optional[int] = None
+    steps_per_print: int = 10
+    optimizer: Optional[OptimizerConfig] = None
+    scheduler: Optional[SchedulerConfig] = None
+    fp16: FP16Config = field(default_factory=FP16Config)
+    bf16: BF16Config = field(default_factory=BF16Config)
+    data_types: DataTypesConfig = field(default_factory=DataTypesConfig)
+    gradient_clipping: float = 0.0
+    prescale_gradients: bool = False
+    gradient_predivide_factor: float = 1.0
+    _user_batch: Optional[tuple] = None
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "DeepSpeedConfig":
+        d = dict(d or {})
+        for key in sorted(set(d) - set(_TRAINING_KEYS)):
+            if key == "mesh" and all(int(d[key].get(a, 1)) <= 1 for a in ("tp", "pp", "ep", "sp")) \
+                    and int(d[key].get("dp", -1)) in (-1, 1):
+                continue  # one device is the mesh the port runs
+            if not _is_off(d[key]):
+                raise NotPortedError(
+                    f"config section {key!r}={d[key]!r} is not ported to deepspeed_tpu_torch "
+                    "yet (its training path is the single-device subset: ROADMAP queue 1 "
+                    "item 5)"
+                )
+        zero = d.get("zero_optimization") or {}
+        for key, is_off in _ZERO_OFF.items():
+            if key in zero and not is_off(zero[key]):
+                raise NotPortedError(
+                    f"zero_optimization.{key}={zero[key]!r} is not ported to "
+                    "deepspeed_tpu_torch yet: ZeRO stages 1-3 and offload need comm/ on "
+                    "NCCL (ROADMAP queue 1 item 5)"
+                )
+        cfg = cls(
+            train_batch_size=d.get("train_batch_size"),
+            train_micro_batch_size_per_gpu=d.get("train_micro_batch_size_per_gpu"),
+            gradient_accumulation_steps=d.get("gradient_accumulation_steps"),
+            steps_per_print=int(d.get("steps_per_print", 10)),
+            optimizer=(None if d.get("optimizer") is None
+                       else _typed_section(OptimizerConfig, "optimizer", d["optimizer"])),
+            scheduler=(None if d.get("scheduler") is None
+                       else _typed_section(SchedulerConfig, "scheduler", d["scheduler"])),
+            fp16=_typed_section(FP16Config, "fp16", d.get("fp16") or {}),
+            bf16=_typed_section(BF16Config, "bf16", d.get("bf16") or {}),
+            data_types=_typed_section(DataTypesConfig, "data_types", d.get("data_types") or {}),
+            gradient_clipping=float(d.get("gradient_clipping", 0.0) or 0.0),
+            prescale_gradients=bool(d.get("prescale_gradients", False)),
+            gradient_predivide_factor=float(d.get("gradient_predivide_factor", 1.0)),
+        )
+        if cfg.fp16.enabled and cfg.bf16.enabled:
+            raise DeepSpeedConfigError("fp16 and bf16 cannot both be enabled")
+        return cfg
+
+    @staticmethod
+    def load(config: Any) -> "DeepSpeedConfig":
+        """A dict, a JSON string, a path to a JSON file or a config →
+        the config, with the batch triple finalized for one device."""
+        if isinstance(config, DeepSpeedConfig):
+            cfg = config
+        elif isinstance(config, dict):
+            cfg = DeepSpeedConfig.from_dict(config)
+        elif isinstance(config, str):
+            if config.strip().startswith("{"):
+                cfg = DeepSpeedConfig.from_dict(json.loads(config))
+            else:
+                with open(config) as fh:
+                    cfg = DeepSpeedConfig.from_dict(json.load(fh))
+        else:
+            raise DeepSpeedConfigError(f"unsupported config type {type(config)}")
+        cfg.finalize(1)
+        return cfg
+
+    def finalize(self, dp_world_size: int = 1) -> None:
+        """Derive and validate the batch triple train_batch_size = micro *
+        gas * dp (reference ``_configure_train_batch_size``); idempotent."""
+        if int(dp_world_size) != 1:
+            raise NotPortedError(
+                f"data-parallel world size {dp_world_size}: deepspeed_tpu_torch trains on "
+                "one device (ROADMAP queue 1 item 5)"
+            )
+        if self._user_batch is None:
+            self._user_batch = (self.train_batch_size, self.train_micro_batch_size_per_gpu,
+                                self.gradient_accumulation_steps)
+        tb, mb, gas = (None if x is None else int(x) for x in self._user_batch)
+        if tb is not None and mb is not None and gas is not None:
+            if tb != mb * gas:
+                raise DeepSpeedConfigError(
+                    f"train_batch_size {tb} != micro_batch {mb} * gas {gas} * dp 1"
+                )
+        elif tb is not None and mb is not None:
+            if tb % mb:
+                raise DeepSpeedConfigError(
+                    f"train_batch_size {tb} not divisible by micro_batch {mb} * dp 1"
+                )
+            gas = tb // mb
+        elif tb is not None and gas is not None:
+            if tb % gas:
+                raise DeepSpeedConfigError(f"train_batch_size {tb} not divisible by gas {gas} * dp 1")
+            mb = tb // gas
+        elif mb is not None:
+            gas = gas or 1
+            tb = mb * gas
+        elif tb is not None:
+            gas, mb = 1, tb
+        else:
+            raise DeepSpeedConfigError(
+                "one of train_batch_size / train_micro_batch_size_per_gpu must be set"
+            )
+        self.train_batch_size, self.train_micro_batch_size_per_gpu = tb, mb
+        self.gradient_accumulation_steps = gas
+
+    @property
+    def compute_dtype(self):
+        import torch
+
+        if self.fp16.enabled:
+            return torch.float16
+        if self.bf16.enabled:
+            return torch.bfloat16
+        return torch.float32

@@ -25,11 +25,11 @@ import argparse
 import json
 import sys
 import time
-from collections import defaultdict
 
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch.utils.profiling import device_time
 
 # the serving section of the feature path at gpt2-medium's positions
 FEATURES_SECTION = {
@@ -101,7 +101,6 @@ def main(argv=None) -> int:
         print("profile_serving: needs a CUDA device", file=sys.stderr)
         return 1
 
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     import deepspeed_tpu_torch as dtt
@@ -111,24 +110,10 @@ def main(argv=None) -> int:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         srv, wall_s = _serve_once(eng, args.requests, args.seed, args.features)
 
-    spans = sorted(
-        (e.time_range.start, e.time_range.end, e.name)
-        for e in prof.events() if e.device_type == DeviceType.CUDA
-    )
-    if not spans:
+    by_name, busy_us = device_time(prof)
+    if not by_name:
         print("profile_serving: the profiler recorded no device activity", file=sys.stderr)
         return 1
-    by_name = defaultdict(float)
-    busy_us, cur_start, cur_end = 0.0, None, None
-    for start, end, name in spans:
-        by_name[name] += end - start
-        if cur_end is None or start > cur_end:
-            if cur_end is not None:
-                busy_us += cur_end - cur_start
-            cur_start, cur_end = start, end
-        else:
-            cur_end = max(cur_end, end)
-    busy_us += cur_end - cur_start
     total_us = sum(by_name.values())
     paged_us = sum(t for n, t in by_name.items() if "paged_decode_kernel" in n)
     mt_us = sum(t for n, t in by_name.items() if "paged_multitoken_kernel" in n)

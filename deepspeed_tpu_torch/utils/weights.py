@@ -54,3 +54,13 @@ def tree_map(fn, tree: PyTree) -> PyTree:
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+def tree_leaves(tree: PyTree) -> list:
+    """The leaves of a nested dict (keys in sorted order, as ``jax.tree.leaves``
+    orders a dict) or list of tensors."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for x in tree for leaf in tree_leaves(x)]
+    return [tree]

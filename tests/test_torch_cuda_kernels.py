@@ -100,3 +100,110 @@ def test_paged_multitoken_kernel_refuses_what_it_does_not_take(card):
     with pytest.raises(ValueError, match="contiguous"):
         pma.paged_multitoken_attention(
             torch.zeros(2, 4, 3, 64, device=card).transpose(1, 2), k, k, bt, base)
+
+
+# ---- flash attention (training path) ---------------------------------------
+
+from deepspeed_tpu_torch.ops import flash_attention as fa  # noqa: E402
+
+FLASH_TOL = {torch.float32: 1e-5, torch.float16: 2e-2, torch.bfloat16: 2e-2}
+# max abs error over max |ref|: a systematic error of 5%, or a query tile left
+# out of dk/dv, fails at any output scale (about 5e-2), a one-ulp flip of every
+# bf16 output passes (about 7e-3)
+FLASH_REL_TOL = {torch.float32: 1e-5, torch.float16: 1.5e-2, torch.bfloat16: 1.5e-2}
+LSE_REL_TOL = 1e-5
+
+
+def _flash_inputs(card, B, S, H, KV, D, dtype, seed=0):
+    g = torch.Generator(device=card).manual_seed(seed)
+    q = torch.randn(B, S, H, D, generator=g, device=card).to(dtype)
+    k = torch.randn(B, S, KV, D, generator=g, device=card).to(dtype)
+    v = torch.randn(B, S, KV, D, generator=g, device=card).to(dtype)
+    do = (torch.randn(B, S, H, D, generator=g, device=card) * 0.1).to(dtype)
+    return q, k, v, do
+
+
+def _max_err(a, b):
+    return (a.float() - b.float()).abs().max().item()
+
+
+def _scaled_err(got, ref):
+    ref = ref.float()
+    return ((got.float() - ref).abs().max() / ref.abs().max()).item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("B,S,H,KV,D,causal,window", [
+    (2, 256, 4, 4, 64, True, None),
+    (1, 384, 8, 2, 128, True, None),
+    (1, 128, 2, 2, 256, False, None),
+    (2, 384, 4, 4, 64, True, 100),
+    (1, 200, 4, 2, 64, True, None),
+])
+def test_flash_kernels_match_plain_versions(card, dtype, B, S, H, KV, D, causal, window):
+    q, k, v, do = _flash_inputs(card, B, S, H, KV, D, dtype)
+    before = dict(fa.LAUNCHES)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, None, window)
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, do, causal, None, window)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention_fwd"] == before["flash_attention_fwd"] + 1
+    assert fa.LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+    o_ref, lse_ref = fa.flash_attention_fwd_ref(q, k, v, causal, None, window)
+    grads_ref = fa.flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do, causal, None, window)
+    tol, rel_tol = FLASH_TOL[dtype], FLASH_REL_TOL[dtype]
+    assert _max_err(o, o_ref) <= tol
+    assert _scaled_err(o, o_ref) <= rel_tol
+    assert _max_err(lse, lse_ref) <= max(tol, 1e-4)
+    assert _scaled_err(lse, lse_ref) <= LSE_REL_TOL
+    for got, ref in zip((dq, dk, dv), grads_ref):
+        assert got.shape == ref.shape and got.dtype == ref.dtype
+        assert _max_err(got, ref) <= tol
+        assert _scaled_err(got, ref) <= rel_tol
+
+
+def test_flash_autograd_through_qkv_views(card):
+    """q, k, v as strided views of one [B, S, 3E] projection, as the GPT-2
+    trunk hands them over: no copies, and the grads match the plain path."""
+    B, S, H, D = 2, 256, 4, 64
+    g = torch.Generator(device=card).manual_seed(3)
+    qkv = torch.randn(B, S, 3 * H * D, generator=g, device=card).to(torch.bfloat16)
+    qkv.requires_grad_(True)
+    do = (torch.randn(B, S, H, D, generator=g, device=card) * 0.1).to(torch.bfloat16)
+
+    def run(x, device_fn):
+        q, k, v = (t.unflatten(-1, (H, D)) for t in x.split(H * D, dim=-1))
+        return device_fn(q, k, v)
+
+    o = run(qkv, fa.flash)
+    (gk,) = torch.autograd.grad(o, qkv, do)
+    ref = qkv.detach().float().cpu().requires_grad_(True)
+    o_ref = run(ref, fa.flash)  # CPU tensors: the plain versions
+    (gr,) = torch.autograd.grad(o_ref, ref, do.float().cpu())
+    assert _max_err(o.cpu(), o_ref) <= 2e-2
+    assert _max_err(gk.cpu(), gr) <= 2e-2
+    assert _scaled_err(o.cpu(), o_ref) <= FLASH_REL_TOL[torch.bfloat16]
+    assert _scaled_err(gk.cpu(), gr) <= FLASH_REL_TOL[torch.bfloat16]
+
+
+def test_flash_kernels_refuse_what_they_do_not_take(card):
+    q = torch.zeros(1, 128, 2, 32, device=card, dtype=torch.bfloat16)  # head dim 32
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_fwd(q, q, q)
+    q = torch.zeros(1, 128, 2, 64, device=card, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="dtype"):
+        fa.flash_attention_fwd(q, q.float(), q)
+    with pytest.raises(ValueError, match="strides"):
+        fa.flash_attention_fwd(torch.zeros(1, 128, 2, 66, device=card)[..., :64], q.float(), q.float())
+    with pytest.raises(ValueError, match="multiple of 128"):
+        fa.flash_attention(q[:, :100], q[:, :100], q[:, :100])
+
+
+def test_causal_attention_on_the_card_runs_the_kernels_or_raises(card):
+    from deepspeed_tpu_torch.ops.attention import causal_attention
+
+    q = torch.randn(1, 200, 2, 64, device=card, dtype=torch.bfloat16)
+    before = fa.LAUNCHES["flash_attention_fwd"]
+    causal_attention(q, q, q)  # a ragged S goes to the kernel too
+    assert fa.LAUNCHES["flash_attention_fwd"] == before + 1
+    with pytest.raises(ValueError, match="jnp"):
+        causal_attention(q, q, q, impl="jnp")

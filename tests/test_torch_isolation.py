@@ -86,3 +86,26 @@ def test_multitoken_dispatch_has_no_other_route():
     base = torch.zeros(1, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no implementation"):
         paged_multitoken_cached_attention(q, pool, pool, bt, base)
+
+
+def test_the_training_slice_modules_are_scanned():
+    """The training slice's modules and its kernel sources are part of what
+    the scans above cover."""
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for mod in ("ops/flash_attention.py", "models/lm_loss.py", "models/gpt2.py",
+                "runtime/engine.py", "runtime/optimizers.py", "runtime/lr_schedules.py",
+                "runtime/fp16/loss_scaler.py", "runtime/dataloader.py", "runtime/module.py",
+                "runtime/activation_checkpointing.py", "tools/profile_training.py"):
+        assert f"deepspeed_tpu_torch/{mod}" in names
+    for src in ("flash_attention_fwd.cu", "flash_attention_bwd.cu", "flash_attention_common.cuh"):
+        assert (REPO / "deepspeed_tpu_torch/csrc" / src).is_file()
+
+
+def test_causal_attention_has_no_other_route():
+    """CPU tensors run the plain version, CUDA tensors the flash kernels;
+    any other device raises instead of finding a fallback."""
+    from deepspeed_tpu_torch.ops.attention import causal_attention
+
+    q = torch.zeros(1, 128, 2, 64, device="meta")
+    with pytest.raises(ValueError, match="no implementation"):
+        causal_attention(q, q, q)

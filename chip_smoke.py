@@ -9,12 +9,18 @@ Phases, in order; any failure raises and the script exits non-zero:
   2  kernels against their plain PyTorch versions on the card, at the
      serving paths' shapes and at other dtypes / head dims / GQA / ragged
      query counts: the paged decode kernel and the paged multi-token
-     kernel (at T=1 also against the decode kernel); each timed with CUDA
-     events at its main shape (device time, the host's enqueueing hidden
-     behind a device-side sleep; and per call with the host's launch path)
-     beside the plain version, one PyTorch library call computing the same
-     function, and the bound (bytes moved over 3.35 TB/s, or operations
-     over peak).
+     kernel (at T=1 also against the decode kernel), both kernels' int8
+     modes at phase 3c's shapes and others (pools quantized by the codec,
+     a page at scale 0, garbage codes
+     in the scratch page, bf16 and fp32 q, GQA H16/KV4, D 64/128/256), and
+     the contiguous decode kernel (B8 Smax256 H16 D64 bf16, generate's
+     shape, and Smax 4096, D128, D256, GQA, fp32/fp16, pos 0 / ragged /
+     Smax-1, garbage past pos); each error as max abs and as max abs over
+     max |ref|. Each kernel and mode timed with CUDA events at its main
+     shape (device time, the host's enqueueing hidden behind a device-side
+     sleep; and per call with the host's launch path) beside the plain
+     version, one PyTorch library call computing the same function, and
+     the bound (bytes moved over 3.35 TB/s, or operations over peak).
   3  serve: gpt2-medium in bf16 (seeded random weights) through
      init_inference(...).serve() with the default serving section; 16
      requests of mixed lengths must all finish with their full token count
@@ -27,12 +33,20 @@ Phases, in order; any failure raises and the script exits non-zero:
      steps; the multi-token kernel must have launched n_layer times per
      chunk-program call and the decode kernel n_layer x (k+1) times per
      verify step.
+  3c the same model, traffic and features with int8 KV pages
+     (kv_cache_dtype="int8"): all 16 finish with prefix hits, no leaked
+     pages after the index is released; the int8 modes' launches exact
+     (multi-token n_layer x chunk calls, decode n_layer x (k+1) x verify
+     steps, the full-precision modes 0); the code bytes of the pools half
+     the bf16 pools' of 3b and the scales L x P x KV x 2 x 4 bytes, counted
+     on the tensors.
   4  fp32 greedy streams at gpt2-medium width and 4 layers, from one set
      of weights: the default path on the card (kernels) against the CPU
      (plain versions); then with the three features on, the card against
-     the CPU and the card against the card's features-off streams. Each
-     pair must be identical, except at a tie (top-2 logit margin < 1e-4),
-     which is reported as such.
+     the CPU and the card against the card's features-off streams; then the
+     same three pairs with int8 KV pages. Each pair must be identical,
+     except at a tie (top-2 logit margin < 1e-4), which is reported as
+     such.
   5  the flash-attention kernels (forward; backward = delta, dk/dv, dq)
      against their plain versions on the card: o, lse, dq, dk and dv at the
      training shape (B8 S1024 H16 D64 bf16 causal) and at fp32, fp16, D128,
@@ -56,7 +70,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      2, AdamW, 3 steps) from one set of weights: the card (kernels) against
      the CPU (plain versions); step-1 loss within 1e-5 relative, later
      losses within 1e-4, the max parameter difference printed.
-  8  one JSON line of per-kernel numbers, then the last line
+  9  offline generate: gpt2-medium bf16 through
+     init_inference(...).generate(ids [8, 128], max_new_tokens=128): one
+     warm-up, then 3 timed calls (ms per generated token, tokens/s); the
+     decode kernel must have launched exactly 24 x 127 times in the first.
+     A 100-token prompt (bucketed to 128) gives the tokens of the
+     unbucketed engine, and fp32 greedy tokens at gpt2-medium width and 4
+     layers are the CPU's, both except at a tie.
+  8  (last, after 9) one JSON line of per-kernel numbers, every kernel and
+     mode with its launches on the path that ported it, then the last line
      {"ok": true, "device": {...}} with "count": 1, the cards the run used.
 
 Without a CUDA device it exits 1 before printing any result. It imports
@@ -78,11 +100,15 @@ import torch.nn.functional as F
 
 import deepspeed_tpu_torch as dtt
 from deepspeed_tpu_torch.models import gpt2
+from deepspeed_tpu_torch.ops import decode_attention as tda
 from deepspeed_tpu_torch.ops import flash_attention as fa
 from deepspeed_tpu_torch.ops import op_builder
 from deepspeed_tpu_torch.ops import paged_decode_attention as pda
 from deepspeed_tpu_torch.ops import paged_multitoken_attention as pma
+from deepspeed_tpu_torch.ops.attention import gather_pool_pages
+from deepspeed_tpu_torch.ops.quantizer import quantize_kv_pages
 from deepspeed_tpu_torch.serving import RequestStatus
+from deepspeed_tpu_torch.serving.kv_cache import pages_for
 from deepspeed_tpu_torch.tools.profile_serving import (
     FEATURES_SECTION,
     mixed_requests,
@@ -99,7 +125,15 @@ from deepspeed_tpu_torch.utils.weights import params_from_numpy, params_to_numpy
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 1e-5, torch.float16: 1e-2, torch.bfloat16: 1e-2}
+# max abs error over max |ref| of the int8 modes and the contiguous decode
+# kernel: fp32 sums in another order; a 16-bit output rounds to 8 / 11 bits
+# (one ulp of the largest output is ~4e-3 of it in bf16)
+REL_TOL = {torch.float32: 1e-5, torch.float16: 1e-2, torch.bfloat16: 1e-2}
 TIE_MARGIN = 1e-4
+# bucketed against unbucketed bf16 generate: the prefill's GEMMs run over
+# another number of rows, so bf16 logits may differ in their last bits; a
+# differing token is a tie when its top-2 logit margin is below this
+BF16_TIE_MARGIN = 5e-2
 # flash kernels against their plain versions, max abs error: fp32 sums in
 # another order (1e-5); bf16/fp16 round p, ds and the outputs to 8 / 11 bits
 FLASH_TOL = {torch.float32: 1e-5, torch.float16: 2e-2, torch.bfloat16: 2e-2}
@@ -157,18 +191,95 @@ def kernel_error(kernel, plain, q, k, v, bt, pos):
     return float((out.float() - ref).abs().max())
 
 
-def library_attention(q, k, v, bt, pos):
+def make_int8_case(B, H, KV, D, page, P, n, pos, dtype, inactive=(), layers=1, seed=0, T=None):
+    """:func:`make_case` with int8 pools: random f32 pages quantized by the
+    codec (scales ``[layers, P, KV, 2]``), garbage codes in the scratch page
+    0, and the second table entry of the slot with the largest ``pos`` left
+    at scale 0 (a never-written page inside a live range, which reads 0)."""
+    q, _, _, bt, pos_t = make_case(B, H, KV, D, page, P, n, pos, dtype, inactive, 1, seed, T)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1000)
+    kq, ks = quantize_kv_pages(torch.randn(layers, P, KV, page, D, generator=g, device="cuda"))
+    vq, vs = quantize_kv_pages(torch.randn(layers, P, KV, page, D, generator=g, device="cuda"))
+    kq[:, 0] = torch.randint(-127, 128, kq[:, 0].shape, generator=g, device="cuda").to(torch.int8)
+    sc = torch.stack([ks, vs], dim=-1).contiguous()
+    if n > 1:
+        sc[:, bt[int(np.argmax(pos)), 1]] = 0.0
+    return q, kq, vq, sc, bt, pos_t
+
+
+def errors(out, ref):
+    """(max abs error, max abs error / max |ref|) of a kernel's output."""
+    check(bool(torch.isfinite(out).all()), "kernel output not finite")
+    err = float((out.float() - ref.float()).abs().max())
+    return err, err / max(float(ref.float().abs().max()), 1e-30)
+
+
+def int8_error(kernel, plain, q, kq, vq, sc, bt, pos):
+    """:func:`errors` of an int8-mode kernel against its plain version (f32
+    q, the same codes and scales)."""
+    out = kernel(q, kq, vq, bt, pos, scales=sc)
+    torch.cuda.synchronize()
+    check(out.shape == q.shape and out.dtype == q.dtype, "int8 kernel output shape/dtype")
+    return errors(out, plain(q.float(), kq, vq, bt, pos, scales=sc))
+
+
+def decode_case(B, S, H, KV, D, dtype, layers=1, seed=0):
+    """Random q ``[B, H, D]`` and a stacked ``[layers, B, S, KV, D]`` cache
+    on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(B, H, D, generator=g, device="cuda").to(dtype)
+    k = torch.randn(layers, B, S, KV, D, generator=g, device="cuda").to(dtype)
+    v = torch.randn(layers, B, S, KV, D, generator=g, device="cuda").to(dtype)
+    return q, k, v
+
+
+def decode_error(q, k, v, pos):
+    """:func:`errors` of the contiguous decode kernel against its plain
+    version, with huge garbage in every row past ``pos`` (which the kernel
+    must never read and the plain version masks)."""
+    k, v = k.clone(), v.clone()
+    k[:, pos + 1:], v[:, pos + 1:] = 1e4, -1e4
+    out = tda.decode_attention(q, k, v, pos)
+    torch.cuda.synchronize()
+    check(out.shape == q.shape and out.dtype == q.dtype, "decode kernel output shape/dtype")
+    return errors(out, tda.decode_attention_ref(q.float(), k.float(), v.float(), pos))
+
+
+def library_decode(q, k, v, pos):
+    """The contiguous decode as one library call (a yardstick only): SDPA
+    of the one query over rows 0..pos."""
+    gqa = {"enable_gqa": True} if k.shape[2] != q.shape[1] else {}
+    return F.scaled_dot_product_attention(
+        q[:, :, None], k[:, : pos + 1].transpose(1, 2), v[:, : pos + 1].transpose(1, 2), **gqa
+    )[:, :, 0]
+
+
+def decode_bound(q, k, pos):
+    """Least time of one contiguous decode call: rows 0..pos of K and V, q
+    and the output moved once, against 4·D flops per (query head, row)."""
+    B, H, D = q.shape
+    KV = k.shape[2]
+    nbytes = 2 * B * (pos + 1) * KV * D * k.element_size() + 2 * q.numel() * q.element_size()
+    flops = 4 * B * H * (pos + 1) * D
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_OPS_PER_S[k.dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def library_attention(q, k, v, bt, pos, scales=None):
     """The same function as one PyTorch library call (timed as a yardstick
-    only; the port never calls it): gather the pages, then SDPA with the
-    position mask. ``q [B, H, D]`` is one query at ``pos``; ``q [B, T, H,
-    D]`` has query t at ``pos + t`` (the [B, 1, T, S] mask)."""
+    only; the port never calls it): gather the pages (and dequantize an
+    int8 pool's to q's dtype), then SDPA with the position mask. ``q [B,
+    H, D]`` is one query at ``pos``; ``q [B, T, H, D]`` has query t at
+    ``pos + t`` (the [B, 1, T, S] mask)."""
     one = q.dim() == 3
     if one:
         q = q[:, None]
     B, T, H, D = q.shape
     KV = k.shape[1]
-    kd = k[bt.long()].transpose(2, 3).reshape(B, -1, KV, D).transpose(1, 2)
-    vd = v[bt.long()].transpose(2, 3).reshape(B, -1, KV, D).transpose(1, 2)
+    kd, vd = gather_pool_pages(k, v, bt, scales)
+    kd = kd.to(q.dtype).transpose(2, 3).reshape(B, -1, KV, D).transpose(1, 2)
+    vd = vd.to(q.dtype).transpose(2, 3).reshape(B, -1, KV, D).transpose(1, 2)
     S = kd.shape[2]
     mask = (torch.arange(S, device=q.device)[None, None, :]
             <= pos.long()[:, None, None] + torch.arange(T, device=q.device)[None, :, None])
@@ -218,25 +329,33 @@ def time_ms(fn, iters, warmup=10):
     return device_ms, call_ms
 
 
-def bound(q, k_layer, bt, pos):
+def bound(q, k_layer, bt, pos, scales=None):
     """Least time for one call (``q`` and ``pos`` as in
     :func:`library_attention`): the live K/V rows (keys up to each slot's
     last query, within its table), q, the output, the table and pos each
-    moved once over HBM, against the score and weighted-sum flops of every
-    query's visible keys at the inputs' peak; the larger wins."""
+    moved once over HBM (an int8 pool: 1-byte codes plus the live pages'
+    [KV, 2] f32 scales), against the score and weighted-sum flops of every
+    query's visible keys at the inputs' peak; the larger wins. An int8
+    pool's scores can run at q's rate (its codes are integers that bf16
+    holds exactly, and the page's scale factors out of q·k), its weighted
+    sum only at the f32 rate (P is not rounded)."""
     if q.dim() == 3:
         q = q[:, None]
     B, T, H, D = q.shape
-    KV = k_layer.shape[1]
-    cap = bt.shape[1] * k_layer.shape[2]
+    KV, page = k_layer.shape[1], k_layer.shape[2]
+    cap = bt.shape[1] * page
     p = pos.long().cpu()
     n_live = (p + T).clamp(max=cap)
     kv_bytes = int(2 * n_live.sum() * KV * D * k_layer.element_size())
+    if scales is not None:
+        kv_bytes += int(((n_live + page - 1) // page).sum()) * KV * 2 * 4
     nbytes = kv_bytes + 2 * q.numel() * q.element_size() + bt.numel() * 4 + pos.numel() * 4
     visible = (p[:, None] + torch.arange(T)[None, :] + 1).clamp(max=cap)
-    flops = int(4 * visible.sum() * H * D)
+    product_flops = int(2 * visible.sum() * H * D)  # each of q·k and P·V
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_OPS_PER_S[k_layer.dtype] * 1e3
+    score_dt, pv_dt = (k_layer.dtype,) * 2 if scales is None else (q.dtype, torch.float32)
+    t_ops = (product_flops / PEAK_OPS_PER_S[score_dt]
+             + product_flops / PEAK_OPS_PER_S[pv_dt]) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -262,6 +381,28 @@ def compare_streams(label, a_reqs, b_reqs):
     n_tok = sum(len(r.tokens) for r in a_reqs)
     print(f"{label}: {len(a_reqs) - ties} of {len(a_reqs)} identical, {ties} ties, "
           f"{n_tok} tokens compared")
+    return ties
+
+
+def compare_generated(label, eng, a, b, prompt_len, margin_limit):
+    """Two ``generate`` outputs ``[B, S + new]``: each row identical, or a
+    tie: at the first differing token the top-2 margin of ``eng``'s logits
+    for the prefix before it is below ``margin_limit``. → ties."""
+    ties = 0
+    for r in range(a.shape[0]):
+        if np.array_equal(a[r], b[r]):
+            continue
+        t = int(np.nonzero(a[r] != b[r])[0][0])
+        logits = eng.forward({"input_ids": a[r:r + 1, :t]})[0, -1].float()
+        top2 = torch.topk(logits, 2).values
+        margin = float(top2[0] - top2[1])
+        print(f"{label}: row {r}: differs at new token {t - prompt_len}, top-2 logit margin "
+              f"{margin:.3e}")
+        check(margin < margin_limit, f"{label}: row {r} differs with margin {margin:.3e} >= "
+                                     f"{margin_limit} (not a tie)")
+        ties += 1
+    print(f"{label}: {a.shape[0] - ties} of {a.shape[0]} rows identical, {ties} ties, "
+          f"{a.shape[0] * (a.shape[1] - prompt_len)} tokens compared")
     return ties
 
 
@@ -497,6 +638,158 @@ def main() -> int:
           f"plain {mt_plain_call_ms:.4f} ms, library {mt_lib_call_ms:.4f} ms")
     del mk, mv
 
+    # the int8 mode of the paged decode kernel where phase 3c runs it, in
+    # the verify steps: 8 slots, 512-page int8 pools (24 layers) and their
+    # scales, bf16 q, the table of a 512 + 64-token reservation (36 pages),
+    # slots at pos 256..575 (a 256-token shared prompt and its tails, cold
+    # prompts up to 512, 64 new tokens) with page-boundary values and two
+    # inactive slots on scratch; then other shapes. Each case by max abs
+    # error and by max abs error / max |ref|
+    i8_n = pages_for(FEATURES_SECTION["max_prompt_len"] + FEATURES_SECTION["max_new_tokens"],
+                     FEATURES_SECTION["page_size"])
+    i8_pos = [256, 271, 300, 383, 384, 575, 0, 0]
+    iq, ikq, ivq, isc, ibt, ipos = make_int8_case(8, 16, 16, 64, 16, 512, i8_n, i8_pos,
+                                                  torch.bfloat16, inactive=(6, 7), layers=L,
+                                                  seed=21)
+    i8_main = f"main bf16 q B8 H16 D64 page16, {i8_n}-page table"
+    i8_errs = {i8_main: int8_error(*DECODE, iq, ikq[0], ivq[0], isc[0], ibt, ipos)}
+    i8_cases = [
+        ("fp32 q", dict(B=8, H=16, KV=16, D=64, page=16, P=512, n=i8_n, pos=i8_pos,
+                        dtype=torch.float32, inactive=(6, 7))),
+        ("GQA H16 KV4 bf16", dict(B=4, H=16, KV=4, D=64, page=16, P=64, n=8,
+                                  pos=[3, 40, 127, 64], dtype=torch.bfloat16)),
+        ("GQA H16 KV4 fp32", dict(B=4, H=16, KV=4, D=64, page=16, P=64, n=8,
+                                  pos=[3, 40, 127, 64], dtype=torch.float32)),
+        ("D128 bf16", dict(B=4, H=8, KV=8, D=128, page=16, P=64, n=8,
+                           pos=[0, 31, 32, 100], dtype=torch.bfloat16)),
+        ("D256 fp32 page64", dict(B=3, H=4, KV=2, D=256, page=64, P=16, n=4,
+                                  pos=[63, 64, 255], dtype=torch.float32)),
+        ("D256 bf16 page64", dict(B=3, H=4, KV=2, D=256, page=64, P=16, n=4,
+                                  pos=[63, 64, 255], dtype=torch.bfloat16)),
+    ]
+    for label, c in i8_cases:
+        cq, ckq, cvq, csc, cbt, cpos = make_int8_case(**c, seed=22)
+        i8_errs[label] = int8_error(*DECODE, cq, ckq[0], cvq[0], csc[0], cbt, cpos)
+    for label, (e, r) in i8_errs.items():
+        dtype = torch.bfloat16 if label == i8_main else dict(i8_cases)[label]["dtype"]
+        print(f"paged_decode_attention int8 {label}: max abs err {e:.3e} (tolerance "
+              f"{TOL[dtype]:g}), / max |ref| {r:.3e} (tolerance {REL_TOL[dtype]:g})")
+        check(e <= TOL[dtype] and r <= REL_TOL[dtype], f"int8 decode {label}: {e}, {r}")
+    i8_lib_err = errors(library_attention(iq, ikq[0], ivq[0], ibt, ipos, isc[0]),
+                        pda.paged_decode_attention_ref(iq.float(), ikq[0], ivq[0], ibt, ipos,
+                                                       scales=isc[0]))[0]
+    check(i8_lib_err <= TOL[torch.bfloat16], f"int8 library yardstick disagrees: {i8_lib_err}")
+    i8_ms, i8_call_ms = time_ms(lambda i: pda.paged_decode_attention(
+        iq, ikq[i % L], ivq[i % L], ibt, ipos, scales=isc[i % L]), 480)
+    i8_plain_ms, _ = time_ms(lambda i: pda.paged_decode_attention_ref(
+        iq, ikq[i % L], ivq[i % L], ibt, ipos, scales=isc[i % L]), 32)
+    i8_lib_ms, _ = time_ms(lambda i: library_attention(
+        iq, ikq[i % L], ivq[i % L], ibt, ipos, isc[i % L]), 32)
+    i8_bound_ms, i8_bound_by = bound(iq, ikq[0], ibt, ipos, isc[0])
+    print(f"paged_decode_attention int8 main shape, device ms per call: kernel {i8_ms:.4f}, "
+          f"plain {i8_plain_ms:.4f}, library (dequantizing gather + SDPA) {i8_lib_ms:.4f}, "
+          f"bound {i8_bound_ms:.5f} ({i8_bound_by}), kernel at {i8_bound_ms / i8_ms:.3f} of "
+          f"bound; per call with the host's launch path {i8_call_ms:.4f}")
+    del ikq, ivq, isc
+
+    # the int8 mode of the multi-token kernel at the chunk program's shape
+    # of phase 3c (timed over the four chunk starts and 24 layers, as above)
+    mq, mkq, mvq, msc, mbt, _ = make_int8_case(1, 16, 16, 64, 16, 512, 36, [0], torch.bfloat16,
+                                               layers=L, seed=23, T=64)
+    i8mt_errs = {}
+    for b0, bb in zip(mt_bases, mbase):
+        i8mt_errs[f"main bf16 q B1 T64 H16 D64 page16 base {b0}"] = int8_error(
+            *MULTITOKEN, mq, mkq[0], mvq[0], msc[0], mbt, bb)
+    i8mt_cases = [
+        ("ragged B4 T5 bf16, one slot on scratch", dict(
+            B=4, T=5, H=16, KV=16, D=64, page=16, P=64, n=6, pos=[14, 30, 47, 0],
+            dtype=torch.bfloat16, inactive=(3,))),
+        ("GQA H16 KV4 fp32", dict(B=2, T=16, H=16, KV=4, D=64, page=16, P=64, n=8,
+                                  pos=[5, 40], dtype=torch.float32)),
+        ("GQA H16 KV4 bf16 T64", dict(B=2, T=64, H=16, KV=4, D=64, page=16, P=64, n=8,
+                                      pos=[0, 40], dtype=torch.bfloat16)),
+        ("D128 bf16", dict(B=2, T=16, H=8, KV=8, D=128, page=16, P=64, n=8,
+                           pos=[0, 33], dtype=torch.bfloat16)),
+        ("D256 fp32 page64", dict(B=2, T=9, H=4, KV=2, D=256, page=64, P=16, n=4,
+                                  pos=[60, 130], dtype=torch.float32)),
+    ]
+    for label, c in i8mt_cases:
+        cq, ckq, cvq, csc, cbt, cbase = make_int8_case(**c, seed=24)
+        i8mt_errs[label] = int8_error(*MULTITOKEN, cq, ckq[0], cvq[0], csc[0], cbt, cbase)
+    for label, (e, r) in i8mt_errs.items():
+        dtype = dict(i8mt_cases)[label]["dtype"] if label in dict(i8mt_cases) else torch.bfloat16
+        print(f"paged_multitoken_attention int8 {label}: max abs err {e:.3e} (tolerance "
+              f"{TOL[dtype]:g}), / max |ref| {r:.3e} (tolerance {REL_TOL[dtype]:g})")
+        check(e <= TOL[dtype] and r <= REL_TOL[dtype], f"int8 multitoken {label}: {e}, {r}")
+    i8mt_main_err = max(e for k, (e, _) in i8mt_errs.items() if k.startswith("main"))
+    i8mt_ms, i8mt_call_ms = time_ms(lambda i: pma.paged_multitoken_attention(
+        mq, mkq[i % L], mvq[i % L], mbt, mbase[i % nb], scales=msc[i % L]), 480)
+    i8mt_plain_ms, _ = time_ms(lambda i: pma.paged_multitoken_attention_ref(
+        mq, mkq[i % L], mvq[i % L], mbt, mbase[i % nb], scales=msc[i % L]), 32)
+    i8mt_lib_ms, _ = time_ms(lambda i: library_attention(
+        mq, mkq[i % L], mvq[i % L], mbt, mbase[i % nb], msc[i % L]), 32)
+    i8mt_bounds = [bound(mq, mkq[0], mbt, bb, msc[0]) for bb in mbase]
+    i8mt_bound_ms = sum(b[0] for b in i8mt_bounds) / nb
+    i8mt_bound_by = max(set(b[1] for b in i8mt_bounds), key=[b[1] for b in i8mt_bounds].count)
+    print(f"paged_multitoken_attention int8 main shape (mean over chunk starts {mt_bases}), "
+          f"device ms per call: kernel {i8mt_ms:.4f}, plain {i8mt_plain_ms:.4f}, library "
+          f"{i8mt_lib_ms:.4f}, bound {i8mt_bound_ms:.5f} ({i8mt_bound_by}), kernel at "
+          f"{i8mt_bound_ms / i8mt_ms:.3f} of bound; per call with the host's launch path "
+          f"{i8mt_call_ms:.4f}")
+    del mkq, mvq, msc
+
+    # the contiguous decode kernel at phase 9's decode step (B8, a 256-row
+    # cache: 128 prompt + 128 new tokens, gpt2-medium heads, bf16, a layer's
+    # slice of the stacked [24, B, Smax, H, D] cache) and at other shapes;
+    # every row past pos holds huge garbage
+    dq, dk, dv = decode_case(8, 256, 16, 16, 64, torch.bfloat16, layers=L, seed=31)
+    dec_main = "main bf16 B8 Smax256 H16 D64"
+    d_errs = {f"{dec_main} pos {p}": decode_error(dq, dk[0], dv[0], p) for p in (0, 137, 255)}
+    d_cases = [  # label, (B, S, H, KV, D, dtype), pos
+        ("fp32 B8 Smax256 H16 D64", (8, 256, 16, 16, 64, torch.float32), 137),
+        ("fp16 B8 Smax256 H16 D64", (8, 256, 16, 16, 64, torch.float16), 255),
+        ("Smax4096 bf16 B2 H16", (2, 4096, 16, 16, 64, torch.bfloat16), 4095),
+        ("Smax4096 fp32 B2 H16 ragged", (2, 4096, 16, 16, 64, torch.float32), 3001),
+        ("D128 bf16 B4 Smax512 H8", (4, 512, 8, 8, 128, torch.bfloat16), 300),
+        ("D256 fp32 B2 Smax256 H4", (2, 256, 4, 4, 256, torch.float32), 255),
+        ("D256 bf16 B2 Smax256 H4", (2, 256, 4, 4, 256, torch.bfloat16), 0),
+        ("GQA H16 KV4 bf16 B4 Smax256", (4, 256, 16, 4, 64, torch.bfloat16), 99),
+        ("GQA H16 KV4 fp32 B4 Smax256", (4, 256, 16, 4, 64, torch.float32), 200),
+    ]
+    d_dtypes = {f"{dec_main} pos {p}": torch.bfloat16 for p in (0, 137, 255)}
+    for n, (label, shape, p) in enumerate(d_cases):
+        cq, ck, cv = decode_case(*shape, seed=32 + n)
+        d_errs[label] = decode_error(cq, ck[0], cv[0], p)
+        d_dtypes[label] = shape[-1]
+    for label, (e, r) in d_errs.items():
+        dtype = d_dtypes[label]
+        print(f"decode_attention {label}: max abs err {e:.3e} (tolerance {TOL[dtype]:g}), "
+              f"/ max |ref| {r:.3e} (tolerance {REL_TOL[dtype]:g})")
+        check(e <= TOL[dtype] and r <= REL_TOL[dtype], f"decode {label}: {e}, {r}")
+    d_main_err = max(e for k, (e, _) in d_errs.items() if k.startswith(dec_main))
+    d_lib_err = errors(library_decode(dq, dk[0], dv[0], 137),
+                       tda.decode_attention_ref(dq.float(), dk[0].float(), dv[0].float(), 137))[0]
+    check(d_lib_err <= TOL[torch.bfloat16], f"decode library yardstick disagrees: {d_lib_err}")
+    # timed over positions phase 9's decode steps pass through (and the 24
+    # layers), so each number is a mean per call over a generation
+    dec_pos = [128, 160, 192, 224, 254]
+    npos = len(dec_pos)
+    d_ms, d_call_ms = time_ms(lambda i: tda.decode_attention(dq, dk[i % L], dv[i % L],
+                                                             dec_pos[i % npos]), 480)
+    d_plain_ms, _ = time_ms(lambda i: tda.decode_attention_ref(dq, dk[i % L], dv[i % L],
+                                                               dec_pos[i % npos]), 32)
+    d_lib_ms, _ = time_ms(lambda i: library_decode(dq, dk[i % L], dv[i % L], dec_pos[i % npos]),
+                          32)
+    d_bounds = [decode_bound(dq, dk[0], p) for p in dec_pos]
+    d_bound_ms = sum(b[0] for b in d_bounds) / npos
+    d_bound_by = max(set(b[1] for b in d_bounds), key=[b[1] for b in d_bounds].count)
+    print(f"decode_attention main shape (mean over pos {dec_pos}), device ms per call: kernel "
+          f"{d_ms:.4f}, plain {d_plain_ms:.4f}, library (SDPA over rows 0..pos) {d_lib_ms:.4f}, "
+          f"bound {d_bound_ms:.5f} ({d_bound_by}), kernel at {d_bound_ms / d_ms:.3f} of bound; "
+          f"per call with the host's launch path {d_call_ms:.4f}")
+    del dk, dv
+    torch.cuda.empty_cache()
+
     phase(3, "serve gpt2-medium bf16 (the main path)")
     cfg = gpt2.get_config("gpt2-medium")
     eng = dtt.init_inference(cfg, dtype=torch.bfloat16, seed=0)
@@ -573,6 +866,73 @@ def main() -> int:
           f"{st['decode_tokens_per_s']:.1f}, tokens/s end to end {st['tokens_per_s']:.1f}, "
           f"TTFT p50 {st['ttft']['p50_s'] * 1e3:.2f} ms, TPOT p50 {st['tpot']['p50_s'] * 1e3:.3f} ms, "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    st_3b = st
+    bf16_pool_bytes = sum(t.numel() * t.element_size() for t in (srv.k_pool, srv.v_pool))
+    del srv
+
+    phase("3c", "serve gpt2-medium bf16 with int8 KV pages, speculation, the prefix cache and "
+                "chunked prefill (3b's traffic)")
+    srv = eng.serve(dict(FEATURES_SECTION, kv_cache_dtype="int8"))
+    reqs = shared_prefix_requests(srv, cfg.vocab_size, seed=4321, n_shared=8, n_cold=8,
+                                  system_len=256, tails=(8, 128), cold_lens=(64, 512),
+                                  budgets=(16, 64))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pda.LAUNCHES = pda.LAUNCHES_INT8 = 0
+    pma.LAUNCHES = pma.LAUNCHES_INT8 = 0
+    t0 = time.perf_counter()
+    done = srv.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    dec8_launches, mt8_launches = pda.LAUNCHES_INT8, pma.LAUNCHES_INT8
+    fp_launches = pda.LAUNCHES + pma.LAUNCHES
+    st = srv.stats()
+    check(len(done) == 16, f"{len(done)} of 16 requests completed")
+    for req, budget in reqs:
+        check(req.status == RequestStatus.FINISHED, f"request {req.id}: {req.status} {req.detail}")
+        check(len(req.tokens) == budget, f"request {req.id}: {len(req.tokens)} of {budget} tokens")
+        check(all(0 <= t < cfg.vocab_size for t in req.tokens), f"request {req.id}: token out of vocab")
+    srv.check_no_leaks()
+    hits = st["prefix_hits_partial"] + st["prefix_hits_full"]
+    check(hits > 0, f"no prefix hits: {st}")
+    check(st["chunk_prefills"] > 0 and st["spec_steps"] > 0, f"no chunks or verify steps: {st}")
+    check(mt8_launches == cfg.n_layer * st["chunk_prefills"],
+          f"int8 multitoken launches {mt8_launches} != n_layer {cfg.n_layer} x chunk-program "
+          f"calls {st['chunk_prefills']}")
+    check(dec8_launches == cfg.n_layer * (spec_k + 1) * st["spec_steps"],
+          f"int8 decode launches {dec8_launches} != {cfg.n_layer} x {spec_k + 1} x verify steps "
+          f"{st['spec_steps']}")
+    check(fp_launches == 0, f"full-precision kernel modes launched {fp_launches} times in 3c")
+    # the bytes, on the tensors: codes half of 3b's bf16 pools, scales
+    # [L, P, KV, 2] f32
+    code_bytes = sum(t.numel() * t.element_size() for t in (srv.k_pool, srv.v_pool))
+    scale_bytes = srv.kv_scales.numel() * srv.kv_scales.element_size()
+    want_scales = cfg.n_layer * FEATURES_SECTION["num_pages"] * cfg.n_head * 2 * 4
+    check(srv.k_pool.dtype == torch.int8 and 2 * code_bytes == bf16_pool_bytes,
+          f"int8 pools {code_bytes} bytes against the bf16 pools' {bf16_pool_bytes}")
+    check(srv.kv_scales.dtype == torch.float32 and scale_bytes == want_scales,
+          f"scales {scale_bytes} bytes, expected {want_scales}")
+    check(st["kv_pool_bytes"] == code_bytes and st["kv_scales_bytes"] == scale_bytes,
+          f"stats() bytes {st['kv_pool_bytes']}, {st['kv_scales_bytes']}")
+    released = srv.release_prefix_cache()
+    srv.allocator.check_no_leaks()
+    print(f"requests {len(done)} finished, prefix hits {hits} (full {st['prefix_hits_full']}, "
+          f"partial {st['prefix_hits_partial']}, misses {st['prefix_misses']}, {released} index "
+          f"pages released at the end), chunk-program calls {st['chunk_prefills']}, verify steps "
+          f"{st['spec_steps']}, wall {wall:.3f} s")
+    print(f"int8 kernel launches: multitoken {mt8_launches} (= {cfg.n_layer} x "
+          f"{st['chunk_prefills']}), decode {dec8_launches} (= {cfg.n_layer} x {spec_k + 1} x "
+          f"{st['spec_steps']}); full-precision modes {fp_launches}")
+    print(f"pool bytes on the tensors: int8 codes {code_bytes} = bf16 {bf16_pool_bytes} / 2, "
+          f"scales {scale_bytes} (= {cfg.n_layer} x {FEATURES_SECTION['num_pages']} x "
+          f"{cfg.n_head} x 2 x 4)")
+    print(f"prefix hit rate {st['prefix_hit_rate']:.4f}, mean accept length "
+          f"{st['spec_accept_len_mean']:.4f}, decode tokens/s {st['decode_tokens_per_s']:.1f} "
+          f"(3b, bf16 pages: {st_3b['decode_tokens_per_s']:.1f}), tokens/s end to end "
+          f"{st['tokens_per_s']:.1f} (3b: {st_3b['tokens_per_s']:.1f}), TTFT p50 "
+          f"{st['ttft']['p50_s'] * 1e3:.2f} ms (3b: {st_3b['ttft']['p50_s'] * 1e3:.2f}), TPOT p50 "
+          f"{st['tpot']['p50_s'] * 1e3:.3f} ms (3b: {st_3b['tpot']['p50_s'] * 1e3:.3f}), peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del srv, eng
 
     phase(4, "fp32 streams: card against CPU, features on against off")
@@ -591,12 +951,17 @@ def main() -> int:
     }
     # the features' traffic with the features off
     runs["features off"] = ({"max_slots": 4}, runs["features"][1])
+    # the same three with int8 KV pages
+    runs["int8 default"] = ({"kv_cache_dtype": "int8"}, runs["default"][1])
+    runs["int8 features"] = (dict(feat_cfg, kv_cache_dtype="int8"), runs["features"][1])
+    runs["int8 features off"] = ({"max_slots": 4, "kv_cache_dtype": "int8"},
+                                 runs["features"][1])
     streams = {}
     for dev in ("cuda", "cpu"):
         e = dtt.init_inference(cfg4, params=params_from_numpy(tree, dev),
                                dtype=torch.float32, device=dev)
         for name, (section, traffic) in runs.items():
-            if dev == "cpu" and name == "features off":
+            if dev == "cpu" and name.endswith("features off"):
                 continue
             s = e.serve(section, track_margins=True)
             rq = traffic(s)
@@ -606,7 +971,7 @@ def main() -> int:
                 check(req.status == RequestStatus.FINISHED and len(req.tokens) == budget,
                       f"{dev} {name} request {req.id}: {req.status}, "
                       f"{len(req.tokens)} of {budget}")
-            if name == "features":
+            if name.endswith("features"):
                 st4 = s.stats()
                 check(st4["prefix_hits_partial"] + st4["prefix_hits_full"] > 0
                       and st4["chunk_prefills"] > 0 and st4["spec_steps"] > 0,
@@ -618,6 +983,12 @@ def main() -> int:
                     streams["cpu", "features"])
     compare_streams("card, features on vs off", streams["cuda", "features"],
                     streams["cuda", "features off"])
+    compare_streams("int8 default path, card vs CPU", streams["cuda", "int8 default"],
+                    streams["cpu", "int8 default"])
+    compare_streams("int8 features on, card vs CPU", streams["cuda", "int8 features"],
+                    streams["cpu", "int8 features"])
+    compare_streams("int8 card, features on vs off", streams["cuda", "int8 features"],
+                    streams["cuda", "int8 features off"])
 
     phase(5, "flash-attention kernels against their plain versions")
     flash_cases = [  # label, (B, S, H, KV, D, dtype), causal, window
@@ -791,10 +1162,64 @@ def main() -> int:
     check(rel7[0] <= 1e-5, f"fp32 step-1 loss card vs CPU: relative {rel7[0]} > 1e-5")
     check(max(rel7[1:]) <= 1e-4, f"fp32 later losses card vs CPU: relative {rel7} > 1e-4")
 
+    phase(9, "offline generate: gpt2-medium bf16 through init_inference(...).generate")
+    eng9 = dtt.init_inference("gpt2-medium", seed=0)
+    cfg9 = eng9.model_config
+    B9, S9, new9 = 8, 128, 128
+    ids9 = np.random.RandomState(9).randint(0, cfg9.vocab_size, (B9, S9)).astype(np.int32)
+    check(eng9._prompt_bucket(S9, new9) == S9, "the 128-token prompt is its own bucket")
+    out9 = eng9.generate(ids9, max_new_tokens=new9)  # warm-up
+    check(out9.shape == (B9, S9 + new9) and np.array_equal(out9[:, :S9], ids9)
+          and ((out9[:, S9:] >= 0) & (out9[:, S9:] < cfg9.vocab_size)).all(),
+          f"generate output {out9.shape}")
+    walls9 = []
+    for i in range(3):
+        if i == 0:
+            tda.LAUNCHES = 0
+            pda.LAUNCHES = pda.LAUNCHES_INT8 = 0
+        t0 = time.perf_counter()
+        o9 = eng9.generate(ids9, max_new_tokens=new9)  # reads the tokens: a sync
+        walls9.append(time.perf_counter() - t0)
+        if i == 0:
+            gen_launches, gen_paged = tda.LAUNCHES, pda.LAUNCHES + pda.LAUNCHES_INT8
+            repeat9 = np.array_equal(o9, out9)
+    check(gen_launches == cfg9.n_layer * (new9 - 1) and gen_paged == 0,
+          f"decode kernel launches {gen_launches} != {cfg9.n_layer} x {new9 - 1} "
+          f"(paged kernels {gen_paged})")
+    wall9 = statistics.median(walls9)
+    print(f"generate B{B9} prompt {S9} + {new9} new tokens: decode kernel launches "
+          f"{gen_launches} (= {cfg9.n_layer} x {new9 - 1}); wall per call "
+          + " ".join(f"{w * 1e3:.1f}" for w in walls9)
+          + f" ms; {wall9 * 1e3 / new9:.3f} ms per generated token (median call / {new9}), "
+          f"{B9 * new9 / wall9:.1f} tokens/s; repeat call identical to the warm-up: {repeat9}")
+    # a 100-token prompt: bucketed to 128 against the unbucketed engine
+    ids100 = ids9[:, :100]
+    eng_nb = dtt.init_inference(cfg9, params=eng9.params, config={"prompt_bucket_sizes": []})
+    check(eng9._prompt_bucket(100, 64) == 128 and eng_nb._prompt_bucket(100, 64) is None,
+          "bucket sizes")
+    compare_generated("bf16 bucketed (100 -> 128) vs unbucketed", eng9,
+                      eng9.generate(ids100, max_new_tokens=64),
+                      eng_nb.generate(ids100, max_new_tokens=64), 100, BF16_TIE_MARGIN)
+    del eng9, eng_nb
+    # fp32 at gpt2-medium width, 4 layers (phase 4's weights): card vs CPU
+    ids4 = np.random.RandomState(10).randint(0, cfg4.vocab_size, (4, 100)).astype(np.int32)
+    gen4 = {}
+    for dev in ("cuda", "cpu"):
+        e = dtt.init_inference(cfg4, params=params_from_numpy(tree, dev), dtype=torch.float32,
+                               device=dev)
+        gen4[dev] = e.generate(ids4, max_new_tokens=32)
+    compare_generated("fp32 generate, card vs CPU", e, gen4["cuda"], gen4["cpu"], 100,
+                      TIE_MARGIN)
+    del e
+    gc.collect()
+    torch.cuda.empty_cache()
+
     phase(8, "summary")
-    # launches: each kernel's count on the path of the slice that ported it
-    # (the decode kernel: phase 3's default path; the multi-token kernel:
-    # phase 3b's feature path; the flash kernels: phase 6's training run)
+    # launches: each kernel's (and mode's) count on the path of the slice
+    # that ported it (the decode kernel: phase 3's default path; the
+    # multi-token kernel: phase 3b's feature path; their int8 modes: phase
+    # 3c; the flash kernels: phase 6's training run; the contiguous decode
+    # kernel: phase 9's first timed generate)
     print(json.dumps({"kernels": [{
         "name": "paged_decode_attention",
         "route": "cuda",
@@ -808,6 +1233,18 @@ def main() -> int:
         "bound_by": bound_by,
         "library_ms": lib_ms,
     }, {
+        "name": "paged_decode_attention (int8 pool mode)",
+        "route": "cuda",
+        "source": "deepspeed_tpu_torch/csrc/paged_decode_attention.cu",
+        "replaces": "deepspeed_tpu/ops/pallas/decode_attention.py:162",
+        "launches": dec8_launches,
+        "max_abs_err": i8_errs[i8_main][0],
+        "ms": i8_ms,
+        "plain_ms": i8_plain_ms,
+        "bound_ms": i8_bound_ms,
+        "bound_by": i8_bound_by,
+        "library_ms": i8_lib_ms,
+    }, {
         "name": "paged_multitoken_attention",
         "route": "cuda",
         "source": "deepspeed_tpu_torch/csrc/paged_multitoken_attention.cu",
@@ -819,6 +1256,30 @@ def main() -> int:
         "bound_ms": mt_bound_ms,
         "bound_by": mt_bound_by,
         "library_ms": mt_lib_ms,
+    }, {
+        "name": "paged_multitoken_attention (int8 pool mode)",
+        "route": "cuda",
+        "source": "deepspeed_tpu_torch/csrc/paged_multitoken_attention.cu",
+        "replaces": "deepspeed_tpu/ops/pallas/decode_attention.py:294",
+        "launches": mt8_launches,
+        "max_abs_err": i8mt_main_err,
+        "ms": i8mt_ms,
+        "plain_ms": i8mt_plain_ms,
+        "bound_ms": i8mt_bound_ms,
+        "bound_by": i8mt_bound_by,
+        "library_ms": i8mt_lib_ms,
+    }, {
+        "name": "decode_attention",
+        "route": "cuda",
+        "source": "deepspeed_tpu_torch/csrc/decode_attention.cu",
+        "replaces": "deepspeed_tpu/ops/pallas/decode_attention.py:97",
+        "launches": gen_launches,
+        "max_abs_err": d_main_err,
+        "ms": d_ms,
+        "plain_ms": d_plain_ms,
+        "bound_ms": d_bound_ms,
+        "bound_by": d_bound_by,
+        "library_ms": d_lib_ms,
     }, {
         "name": "flash_attention_fwd",
         "route": "cuda",

@@ -3,16 +3,18 @@
 A second package beside the JAX one, for NVIDIA Hopper (H100). What is
 ported so far: GPT-2 continuous-batching serving on one card (the paged KV
 pool, the scheduler and the serving programs, with speculation, the prefix
-cache and chunked prefill) and GPT-2 training on one card (the
-single-device engine: bf16/fp16 on an fp32 master, accumulation, clipping,
-AdamW, LR schedules, loss scaling, full remat). Its attention kernels are
+cache, chunked prefill and int8 KV pages), offline GPT-2 generation over a
+contiguous KV cache, and GPT-2 training on one card (the single-device
+engine: bf16/fp16 on an fp32 master, accumulation, clipping, AdamW, LR
+schedules, loss scaling, full remat). Its attention kernels are
 hand-written CUDA (``csrc/``, built at first use): paged decode and
-multi-token attention for serving, flash attention forward and backward
+multi-token attention (each with an int8 mode) for serving, contiguous
+decode attention for ``generate``, flash attention forward and backward
 for training. It imports torch, numpy and the standard library, and
 nothing of JAX or of ``deepspeed_tpu``.
 
-Entry points: :func:`init_inference`, then ``.serve()``; :func:`initialize`,
-then ``engine.train_batch(...)``.
+Entry points: :func:`init_inference`, then ``.serve()``, ``.generate(...)``
+or ``engine(batch)``; :func:`initialize`, then ``engine.train_batch(...)``.
 """
 
 from __future__ import annotations

@@ -7,6 +7,15 @@
 // positions > pos[b] masked (pos inclusive), online softmax in f32,
 // output acc / max(l, 1e-30) in the query's dtype.
 //
+// int8 mode (the TPU kernel's `quantized`): the pool holds int8 codes and
+// scales [P, KV, 2] f32 holds one K and one V scale per (page, kv head).
+// Each code is converted with one cvt and multiplied by its page's scale,
+// which a warp reads once per page it enters (by the same table entry that
+// names the page), so K and V are f32 values and P.V runs in f32, as the
+// TPU kernel's dequantize-to-f32 does. A fresh page's scale is 0, so its
+// values are 0; masked keys (past pos, the scratch page) still get
+// probability exactly 0.
+//
 // What bounds it on the card: HBM bytes. Each live key and value row is
 // read once and used for 2*D flops, so the work is ~1 flop per byte, two
 // orders of magnitude under the H100's ridge point; the least time is the
@@ -28,7 +37,10 @@
 // What it does not do yet: TMA, split-K across blocks for long caches
 // (a slot's cache is walked by one block), sharing one K/V read between
 // the query heads of a GQA group (each head's block re-reads its group's
-// rows, from L2 after the first), or the int8 pool mode.
+// rows, from L2 after the first).
+//
+// On P's rounding: P is kept in f32 for the weighted sum at every dtype
+// (not rounded to the cache dtype as the TPU kernel's bf16 path does).
 //
 // Inactive serving slots point every table entry at the scratch page 0,
 // whose contents are garbage; every page index is clamped to [0, P) and
@@ -39,6 +51,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kWarps = 4;   // warps per block
@@ -47,6 +61,7 @@ constexpr int kUnroll = 4;  // tokens in flight per warp per iteration
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(int8_t x) { return static_cast<float>(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -100,9 +115,11 @@ paged_decode_kernel(const TQ* __restrict__ q,                  // [B, H, D]
                     const TKV* __restrict__ v_pool,            // [P, KV, page, D]
                     const int32_t* __restrict__ block_tables,  // [B, n]
                     const int32_t* __restrict__ pos,           // [B]
+                    const float* __restrict__ scales,          // [P, KV, 2] (int8 pools)
                     TQ* __restrict__ out,                      // [B, H, D]
                     int H, int KV, int P, int page, int n, float sm_scale) {
   constexpr int E = D / 32;  // elements of D per lane
+  constexpr bool kQuant = std::is_same<TKV, int8_t>::value;
   const int b = blockIdx.x / H;
   const int h = blockIdx.x % H;
   const int g = h / (H / KV);  // this head's kv column (GQA)
@@ -122,6 +139,9 @@ paged_decode_kernel(const TQ* __restrict__ q,                  // [B, H, D]
   float acc[E];
 #pragma unroll
   for (int e = 0; e < E; ++e) acc[e] = 0.f;
+  // int8 mode: the scales of the page this warp last entered
+  int scale_pg = -1;
+  float k_scale = 0.f, v_scale = 0.f;
 
   for (int s0 = warp * kUnroll; s0 <= last; s0 += kWarps * kUnroll) {
     float sc[kUnroll];
@@ -136,6 +156,18 @@ paged_decode_kernel(const TQ* __restrict__ q,                  // [B, H, D]
         float kk[E];
         load_floats<TKV, E>(k_pool + off, kk);
         load_floats<TKV, E>(v_pool + off, vv[u]);
+        if constexpr (kQuant) {
+          if (pg != scale_pg) {  // warp-uniform: s is the same in every lane
+            scale_pg = pg;
+            k_scale = scales[((size_t)pg * KV + g) * 2];
+            v_scale = scales[((size_t)pg * KV + g) * 2 + 1];
+          }
+#pragma unroll
+          for (int e = 0; e < E; ++e) {
+            kk[e] *= k_scale;
+            vv[u][e] *= v_scale;
+          }
+        }
 #pragma unroll
         for (int e = 0; e < E; ++e) part += qv[e] * kk[e];
       } else {
@@ -200,48 +232,53 @@ paged_decode_kernel(const TQ* __restrict__ q,                  // [B, H, D]
 
 template <typename TQ, typename TKV, int D>
 void launch(const void* q, const void* k, const void* v, const void* bt, const void* pos,
-            void* out, int B, int H, int KV, int P, int page, int n, float sm_scale,
-            cudaStream_t stream) {
+            const void* scales, void* out, int B, int H, int KV, int P, int page, int n,
+            float sm_scale, cudaStream_t stream) {
   paged_decode_kernel<TQ, TKV, D><<<B * H, kWarps * 32, 0, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k), static_cast<const TKV*>(v),
-      static_cast<const int32_t*>(bt), static_cast<const int32_t*>(pos), static_cast<TQ*>(out),
-      H, KV, P, page, n, sm_scale);
+      static_cast<const int32_t*>(bt), static_cast<const int32_t*>(pos),
+      static_cast<const float*>(scales), static_cast<TQ*>(out), H, KV, P, page, n, sm_scale);
 }
 
 template <typename TQ, typename TKV>
 bool dispatch_d(int D, const void* q, const void* k, const void* v, const void* bt,
-                const void* pos, void* out, int B, int H, int KV, int P, int page, int n,
-                float sm_scale, cudaStream_t stream) {
+                const void* pos, const void* sc, void* out, int B, int H, int KV, int P,
+                int page, int n, float sm_scale, cudaStream_t stream) {
   switch (D) {
-    case 64: launch<TQ, TKV, 64>(q, k, v, bt, pos, out, B, H, KV, P, page, n, sm_scale, stream); return true;
-    case 128: launch<TQ, TKV, 128>(q, k, v, bt, pos, out, B, H, KV, P, page, n, sm_scale, stream); return true;
-    case 256: launch<TQ, TKV, 256>(q, k, v, bt, pos, out, B, H, KV, P, page, n, sm_scale, stream); return true;
+    case 64: launch<TQ, TKV, 64>(q, k, v, bt, pos, sc, out, B, H, KV, P, page, n, sm_scale, stream); return true;
+    case 128: launch<TQ, TKV, 128>(q, k, v, bt, pos, sc, out, B, H, KV, P, page, n, sm_scale, stream); return true;
+    case 256: launch<TQ, TKV, 256>(q, k, v, bt, pos, sc, out, B, H, KV, P, page, n, sm_scale, stream); return true;
     default: return false;
   }
 }
 
 template <typename TQ>
 bool dispatch_kv(int kv_dtype, int D, const void* q, const void* k, const void* v,
-                 const void* bt, const void* pos, void* out, int B, int H, int KV, int P,
-                 int page, int n, float sm_scale, cudaStream_t stream) {
+                 const void* bt, const void* pos, const void* sc, void* out, int B, int H,
+                 int KV, int P, int page, int n, float sm_scale, cudaStream_t stream) {
   switch (kv_dtype) {
-    case 0: return dispatch_d<TQ, float>(D, q, k, v, bt, pos, out, B, H, KV, P, page, n, sm_scale, stream);
-    case 1: return dispatch_d<TQ, __half>(D, q, k, v, bt, pos, out, B, H, KV, P, page, n, sm_scale, stream);
-    case 2: return dispatch_d<TQ, __nv_bfloat16>(D, q, k, v, bt, pos, out, B, H, KV, P, page, n, sm_scale, stream);
+    case 0: return dispatch_d<TQ, float>(D, q, k, v, bt, pos, sc, out, B, H, KV, P, page, n, sm_scale, stream);
+    case 1: return dispatch_d<TQ, __half>(D, q, k, v, bt, pos, sc, out, B, H, KV, P, page, n, sm_scale, stream);
+    case 2: return dispatch_d<TQ, __nv_bfloat16>(D, q, k, v, bt, pos, sc, out, B, H, KV, P, page, n, sm_scale, stream);
+    case 3: return sc != nullptr &&
+                   dispatch_d<TQ, int8_t>(D, q, k, v, bt, pos, sc, out, B, H, KV, P, page, n, sm_scale, stream);
     default: return false;
   }
 }
 
 }  // namespace
 
-// dtype codes: 0 float32, 1 float16, 2 bfloat16. Returns the CUDA error of
-// the launch (0 on success); cudaErrorInvalidValue for shapes or dtypes the
-// kernel does not take. The launch is asynchronous on `stream`.
+// q dtype codes: 0 float32, 1 float16, 2 bfloat16; kv dtype codes the same
+// plus 3 int8 (then `scales` [P, KV, 2] f32 is required; it is ignored
+// otherwise). Returns the CUDA error of the launch (0 on success);
+// cudaErrorInvalidValue for shapes or dtypes the kernel does not take. The
+// launch is asynchronous on `stream`.
 extern "C" int paged_decode_attention_launch(const void* q, const void* k_pool,
                                              const void* v_pool, const void* block_tables,
-                                             const void* pos, void* out, int B, int H, int KV,
-                                             int P, int page, int n, int D, float sm_scale,
-                                             int q_dtype, int kv_dtype, void* stream) {
+                                             const void* pos, const void* scales, void* out,
+                                             int B, int H, int KV, int P, int page, int n, int D,
+                                             float sm_scale, int q_dtype, int kv_dtype,
+                                             void* stream) {
   if (B < 0 || H <= 0 || KV <= 0 || H % KV != 0 || P <= 0 || page <= 0 || n <= 0) {
     return (int)cudaErrorInvalidValue;
   }
@@ -249,9 +286,9 @@ extern "C" int paged_decode_attention_launch(const void* q, const void* k_pool,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   bool ok;
   switch (q_dtype) {
-    case 0: ok = dispatch_kv<float>(kv_dtype, D, q, k_pool, v_pool, block_tables, pos, out, B, H, KV, P, page, n, sm_scale, s); break;
-    case 1: ok = dispatch_kv<__half>(kv_dtype, D, q, k_pool, v_pool, block_tables, pos, out, B, H, KV, P, page, n, sm_scale, s); break;
-    case 2: ok = dispatch_kv<__nv_bfloat16>(kv_dtype, D, q, k_pool, v_pool, block_tables, pos, out, B, H, KV, P, page, n, sm_scale, s); break;
+    case 0: ok = dispatch_kv<float>(kv_dtype, D, q, k_pool, v_pool, block_tables, pos, scales, out, B, H, KV, P, page, n, sm_scale, s); break;
+    case 1: ok = dispatch_kv<__half>(kv_dtype, D, q, k_pool, v_pool, block_tables, pos, scales, out, B, H, KV, P, page, n, sm_scale, s); break;
+    case 2: ok = dispatch_kv<__nv_bfloat16>(kv_dtype, D, q, k_pool, v_pool, block_tables, pos, scales, out, B, H, KV, P, page, n, sm_scale, s); break;
     default: ok = false;
   }
   if (!ok) return (int)cudaErrorInvalidValue;

@@ -9,6 +9,14 @@
 // softmax in f32, output acc / max(l, 1e-30) in the query's dtype,
 // [B, T, H, D]. GQA: query head h reads kv head h / (H / KV).
 //
+// int8 mode (the TPU kernel's `quantized`): the pool holds int8 codes and
+// scales [P, KV, 2] f32 one K and one V scale per (page, kv head). A chunk
+// row's 16-byte vectors of codes are converted with one cvt each and
+// multiplied by the row's page scales (read beside the row's table entry),
+// and the chunk lands in shared memory as f32, so both products run on f32
+// values, as the TPU kernel's dequantize-to-f32 does. A fresh page's scale
+// is 0, so its values are 0; masked keys still get probability exactly 0.
+//
 // What bounds it on the card: at the chunk widths serving uses (T <= ~256)
 // the bytes of the live K/V rows. Each row is read once per block and used
 // by the block's TQ queries (2*D flops each), so a block does ~TQ flops per
@@ -38,7 +46,7 @@
 // What it does not do yet: tensor cores (mma.sync / wgmma) for the two
 // products, TMA or cp.async double-buffering of the chunks, sharing one
 // K/V read between the query heads of a GQA group, split-K over pages for
-// long caches, or the int8 pool mode.
+// long caches, or keeping int8 codes (not f32) in shared memory.
 //
 // Bounds: every page id is clamped to [0, P); the key loop stops at the
 // table's n pages; query rows past T are neither read nor written; key rows
@@ -51,6 +59,8 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -95,9 +105,9 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-// shared-memory layout of one block: KS = a K/V chunk row's stride (D plus
-// one 32-bit word), NK = keys per chunk, 32 (one a lane) where the two
-// chunks and the query tile fit the static budget
+// shared-memory layout of one block, for chunks held as TKV: KS = a K/V
+// chunk row's stride (D plus one 32-bit word), NK = keys per chunk, 32 (one
+// a lane) where the two chunks and the query tile fit the static budget
 template <typename TKV, int D>
 struct Smem {
   static constexpr int KS = D + 4 / (int)sizeof(TKV);
@@ -114,19 +124,23 @@ paged_multitoken_kernel(const TQ* __restrict__ q,                  // [B, T, H, 
                         const TKV* __restrict__ v_pool,            // [P, KV, page, D]
                         const int32_t* __restrict__ block_tables,  // [B, n]
                         const int32_t* __restrict__ base,          // [B]
+                        const float* __restrict__ scales,          // [P, KV, 2] (int8 pools)
                         TQ* __restrict__ out,                      // [B, T, H, D]
                         int T, int H, int KV, int P, int page, int n, float sm_scale) {
-  constexpr int NK = Smem<TKV, D>::NK;
-  constexpr int KS = Smem<TKV, D>::KS;
+  constexpr bool kQuant = std::is_same<TKV, int8_t>::value;
+  // the chunks' type in shared memory: the pool's, f32 for int8 codes
+  using TS = typename std::conditional<kQuant, float, TKV>::type;
+  constexpr int NK = Smem<TS, D>::NK;
+  constexpr int KS = Smem<TS, D>::KS;
   constexpr int E = D / 32;                    // elements of D per lane
-  constexpr int VEC = 16 / (int)sizeof(TKV);   // elements per 16-byte load
+  constexpr int VEC = 16 / (int)sizeof(TKV);   // pool elements per 16-byte load
   constexpr int RV = D / VEC;                  // 16-byte loads per row
   // raw bytes, so no element type's constructor runs on shared memory
-  __shared__ __align__(16) unsigned char smem_k[NK * KS * sizeof(TKV)];
-  __shared__ __align__(16) unsigned char smem_v[NK * KS * sizeof(TKV)];
+  __shared__ __align__(16) unsigned char smem_k[NK * KS * sizeof(TS)];
+  __shared__ __align__(16) unsigned char smem_v[NK * KS * sizeof(TS)];
   __shared__ __align__(16) float qs[kTQ * D];
-  TKV* ks = reinterpret_cast<TKV*>(smem_k);
-  TKV* vs = reinterpret_cast<TKV*>(smem_v);
+  TS* ks = reinterpret_cast<TS*>(smem_k);
+  TS* vs = reinterpret_cast<TS*>(smem_v);
 
   const int n_tiles = (T + kTQ - 1) / kTQ;
   const int tile = blockIdx.x % n_tiles;
@@ -179,18 +193,28 @@ paged_multitoken_kernel(const TQ* __restrict__ q,                  // [B, T, H, 
       const int c = (v % RV) * VEC;
       const int s = s0 + r;
       uint4 kb = make_uint4(0u, 0u, 0u, 0u), vb = kb;
+      float k_scale = 0.f, v_scale = 0.f;
       if (s <= last) {
         const int pg = min(max(bt[s / page], 0), P - 1);
         const size_t off = (size_t)pg * page_stride + col + (size_t)(s % page) * D + c;
         kb = *reinterpret_cast<const uint4*>(k_pool + off);
         vb = *reinterpret_cast<const uint4*>(v_pool + off);
+        if constexpr (kQuant) {
+          k_scale = scales[((size_t)pg * KV + g) * 2];
+          v_scale = scales[((size_t)pg * KV + g) * 2 + 1];
+        }
       }
       const TKV* kt = reinterpret_cast<const TKV*>(&kb);
       const TKV* vt = reinterpret_cast<const TKV*>(&vb);
 #pragma unroll
       for (int i = 0; i < VEC; ++i) {
-        ks[r * KS + c + i] = kt[i];
-        vs[r * KS + c + i] = vt[i];
+        if constexpr (kQuant) {
+          ks[r * KS + c + i] = static_cast<float>(kt[i]) * k_scale;
+          vs[r * KS + c + i] = static_cast<float>(vt[i]) * v_scale;
+        } else {
+          ks[r * KS + c + i] = kt[i];
+          vs[r * KS + c + i] = vt[i];
+        }
       }
     }
     __syncthreads();
@@ -252,50 +276,55 @@ paged_multitoken_kernel(const TQ* __restrict__ q,                  // [B, T, H, 
 
 template <typename TQ, typename TKV, int D>
 void launch(const void* q, const void* k, const void* v, const void* bt, const void* base,
-            void* out, int B, int T, int H, int KV, int P, int page, int n, float sm_scale,
-            cudaStream_t stream) {
+            const void* scales, void* out, int B, int T, int H, int KV, int P, int page, int n,
+            float sm_scale, cudaStream_t stream) {
   const int n_tiles = (T + kTQ - 1) / kTQ;
   paged_multitoken_kernel<TQ, TKV, D><<<B * H * n_tiles, kWarps * 32, 0, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k), static_cast<const TKV*>(v),
       static_cast<const int32_t*>(bt), static_cast<const int32_t*>(base),
-      static_cast<TQ*>(out), T, H, KV, P, page, n, sm_scale);
+      static_cast<const float*>(scales), static_cast<TQ*>(out), T, H, KV, P, page, n,
+      sm_scale);
 }
 
 template <typename TQ, typename TKV>
 bool dispatch_d(int D, const void* q, const void* k, const void* v, const void* bt,
-                const void* base, void* out, int B, int T, int H, int KV, int P, int page,
-                int n, float sm_scale, cudaStream_t stream) {
+                const void* base, const void* sc, void* out, int B, int T, int H, int KV,
+                int P, int page, int n, float sm_scale, cudaStream_t stream) {
   switch (D) {
-    case 64: launch<TQ, TKV, 64>(q, k, v, bt, base, out, B, T, H, KV, P, page, n, sm_scale, stream); return true;
-    case 128: launch<TQ, TKV, 128>(q, k, v, bt, base, out, B, T, H, KV, P, page, n, sm_scale, stream); return true;
-    case 256: launch<TQ, TKV, 256>(q, k, v, bt, base, out, B, T, H, KV, P, page, n, sm_scale, stream); return true;
+    case 64: launch<TQ, TKV, 64>(q, k, v, bt, base, sc, out, B, T, H, KV, P, page, n, sm_scale, stream); return true;
+    case 128: launch<TQ, TKV, 128>(q, k, v, bt, base, sc, out, B, T, H, KV, P, page, n, sm_scale, stream); return true;
+    case 256: launch<TQ, TKV, 256>(q, k, v, bt, base, sc, out, B, T, H, KV, P, page, n, sm_scale, stream); return true;
     default: return false;
   }
 }
 
 template <typename TQ>
 bool dispatch_kv(int kv_dtype, int D, const void* q, const void* k, const void* v,
-                 const void* bt, const void* base, void* out, int B, int T, int H, int KV,
-                 int P, int page, int n, float sm_scale, cudaStream_t stream) {
+                 const void* bt, const void* base, const void* sc, void* out, int B, int T,
+                 int H, int KV, int P, int page, int n, float sm_scale, cudaStream_t stream) {
   switch (kv_dtype) {
-    case 0: return dispatch_d<TQ, float>(D, q, k, v, bt, base, out, B, T, H, KV, P, page, n, sm_scale, stream);
-    case 1: return dispatch_d<TQ, __half>(D, q, k, v, bt, base, out, B, T, H, KV, P, page, n, sm_scale, stream);
-    case 2: return dispatch_d<TQ, __nv_bfloat16>(D, q, k, v, bt, base, out, B, T, H, KV, P, page, n, sm_scale, stream);
+    case 0: return dispatch_d<TQ, float>(D, q, k, v, bt, base, sc, out, B, T, H, KV, P, page, n, sm_scale, stream);
+    case 1: return dispatch_d<TQ, __half>(D, q, k, v, bt, base, sc, out, B, T, H, KV, P, page, n, sm_scale, stream);
+    case 2: return dispatch_d<TQ, __nv_bfloat16>(D, q, k, v, bt, base, sc, out, B, T, H, KV, P, page, n, sm_scale, stream);
+    case 3: return sc != nullptr &&
+                   dispatch_d<TQ, int8_t>(D, q, k, v, bt, base, sc, out, B, T, H, KV, P, page, n, sm_scale, stream);
     default: return false;
   }
 }
 
 }  // namespace
 
-// dtype codes: 0 float32, 1 float16, 2 bfloat16. Returns the CUDA error of
-// the launch (0 on success); cudaErrorInvalidValue for shapes or dtypes the
-// kernel does not take. The launch is asynchronous on `stream`.
+// q dtype codes: 0 float32, 1 float16, 2 bfloat16; kv dtype codes the same
+// plus 3 int8 (then `scales` [P, KV, 2] f32 is required; it is ignored
+// otherwise). Returns the CUDA error of the launch (0 on success);
+// cudaErrorInvalidValue for shapes or dtypes the kernel does not take. The
+// launch is asynchronous on `stream`.
 extern "C" int paged_multitoken_attention_launch(const void* q, const void* k_pool,
                                                  const void* v_pool, const void* block_tables,
-                                                 const void* base, void* out, int B, int T,
-                                                 int H, int KV, int P, int page, int n, int D,
-                                                 float sm_scale, int q_dtype, int kv_dtype,
-                                                 void* stream) {
+                                                 const void* base, const void* scales,
+                                                 void* out, int B, int T, int H, int KV, int P,
+                                                 int page, int n, int D, float sm_scale,
+                                                 int q_dtype, int kv_dtype, void* stream) {
   if (B < 0 || T <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || P <= 0 || page <= 0 || n <= 0) {
     return (int)cudaErrorInvalidValue;
   }
@@ -303,9 +332,9 @@ extern "C" int paged_multitoken_attention_launch(const void* q, const void* k_po
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   bool ok;
   switch (q_dtype) {
-    case 0: ok = dispatch_kv<float>(kv_dtype, D, q, k_pool, v_pool, block_tables, base, out, B, T, H, KV, P, page, n, sm_scale, s); break;
-    case 1: ok = dispatch_kv<__half>(kv_dtype, D, q, k_pool, v_pool, block_tables, base, out, B, T, H, KV, P, page, n, sm_scale, s); break;
-    case 2: ok = dispatch_kv<__nv_bfloat16>(kv_dtype, D, q, k_pool, v_pool, block_tables, base, out, B, T, H, KV, P, page, n, sm_scale, s); break;
+    case 0: ok = dispatch_kv<float>(kv_dtype, D, q, k_pool, v_pool, block_tables, base, scales, out, B, T, H, KV, P, page, n, sm_scale, s); break;
+    case 1: ok = dispatch_kv<__half>(kv_dtype, D, q, k_pool, v_pool, block_tables, base, scales, out, B, T, H, KV, P, page, n, sm_scale, s); break;
+    case 2: ok = dispatch_kv<__nv_bfloat16>(kv_dtype, D, q, k_pool, v_pool, block_tables, base, scales, out, B, T, H, KV, P, page, n, sm_scale, s); break;
     default: ok = false;
   }
   if (!ok) return (int)cudaErrorInvalidValue;

@@ -1,12 +1,17 @@
-"""Inference engine: GPT-2 parameters on a device, in a dtype, ready to serve
-(counterpart of ``deepspeed_tpu/inference/engine.py`` for the serving path).
+"""Inference engine: GPT-2 parameters on a device, in a dtype (counterpart
+of ``deepspeed_tpu/inference/engine.py`` for GPT-2 models).
 
 Builds the parameters from the seeded initialiser or takes a given tree,
 casts the floating leaves to ``dtype`` (bf16 by default, as the JAX package
-does), places them on ``device`` and hands out :class:`ServingEngine`s
-through :meth:`serve`. ``device=None`` means the CUDA card: without one the
-engine raises instead of running on the CPU; pass ``device="cpu"`` to ask
-for the CPU.
+does) and places them on ``device``. Then: :meth:`generate` (offline
+generation over a contiguous KV cache, prompts padded to length buckets),
+:meth:`forward` / ``engine(batch)`` (the logits of a batch), and
+:meth:`serve` (a continuous-batching :class:`ServingEngine`).
+``device=None`` means the CUDA card: without one the engine raises instead
+of running on the CPU; pass ``device="cpu"`` to ask for the CPU.
+
+Weight-only int8 (``dtype="int8"``, the JAX package's weight quantization)
+is not ported yet and raises :class:`NotPortedError`.
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ from __future__ import annotations
 import time
 from typing import Any, Dict, Optional, Union
 
+import numpy as np
 import torch
 
 from ..models import gpt2
@@ -32,6 +38,13 @@ _DTYPE_NAMES = {
 
 
 def _parse_dtype(d) -> torch.dtype:
+    if d is torch.int8 or str(d).lower().replace("torch.", "") == "int8":
+        raise NotPortedError(
+            "init_inference(dtype=int8): weight-only int8 (the JAX package's "
+            "ops/quantizer.py quantize_tree, maybe_dequantize in the programs) is not "
+            "ported to deepspeed_tpu_torch yet (ROADMAP queue 1 item 14); int8 KV "
+            "pages are: serving.kv_cache_dtype='int8'"
+        )
     if isinstance(d, torch.dtype):
         if d not in _DTYPE_NAMES.values():
             raise ValueError(f"unsupported inference dtype {d}")
@@ -66,6 +79,16 @@ class InferenceEngine:
         c = dict(config or {})
         cfg_dtype = c.pop("dtype", None)
         self._serving_config = c.pop("serving", None)
+        cfg_max = c.pop("max_out_tokens", c.pop("max_tokens", None))
+        self.max_tokens = int(cfg_max if cfg_max is not None else 1024)
+        # None: power-of-two prompt buckets; a list pins the sizes; [] or
+        # False turns bucketing off
+        self._prompt_buckets = c.pop("prompt_bucket_sizes", None)
+        # generate_cache_size caps the JAX package's compiled-generate
+        # executables; this eager engine keeps none (captured CUDA graphs
+        # would be what it bounds), so the key is accepted with nothing to
+        # bound yet
+        c.pop("generate_cache_size", None)
         if c:
             raise NotPortedError(
                 f"init_inference: config keys {sorted(c)} are not ported to "
@@ -95,6 +118,57 @@ class InferenceEngine:
             f"InferenceEngine: device={self.device} "
             f"dtype={str(self.dtype).replace('torch.', '')}"
         )
+
+    def forward(self, batch):
+        """The logits ``[B, S, V]`` of ``batch["input_ids"] [B, S]`` (a
+        tensor or array; the flash kernels on the card)."""
+        ids = batch["input_ids"]
+        if not isinstance(ids, torch.Tensor):
+            ids = torch.from_numpy(np.asarray(ids))
+        ids = ids.to(self.device).long()
+        with torch.no_grad():
+            return gpt2.forward(self.model_config, self.params, ids)
+
+    __call__ = forward
+
+    def _prompt_bucket(self, S: int, max_new_tokens: int) -> Optional[int]:
+        """The padded prompt length for ``generate``, or None when bucketing
+        is off (``prompt_bucket_sizes: []`` or ``False``). Default: the next
+        power of two; a list pins the sizes (the next power of two past the
+        largest). Capped so that bucket + max_new_tokens fits n_positions,
+        and never below the true length."""
+        b = self._prompt_buckets
+        if b is False or (isinstance(b, (list, tuple)) and len(b) == 0):
+            return None
+        cap = int(self.model_config.n_positions) - int(max_new_tokens)
+        if isinstance(b, (list, tuple)):
+            fits = sorted(int(x) for x in b if int(x) >= S)
+            bucket = fits[0] if fits else 1 << max(0, S - 1).bit_length()
+        else:
+            bucket = 1 << max(0, S - 1).bit_length()
+        return max(S, min(bucket, cap))
+
+    def generate(self, input_ids, max_new_tokens: int = 20, temperature: float = 0.0,
+                 seed: int = 0, top_k: int = 0, top_p: float = 1.0) -> np.ndarray:
+        """Autoregressive generation over a contiguous KV cache: the prompt
+        (padded to its bucket unless bucketing is off) prefills once, then
+        ``max_new_tokens - 1`` single-token decode steps, each running the
+        decode kernel once per layer on the card. Greedy unless
+        ``temperature > 0``; then the draws come from a ``torch.Generator``
+        seeded from ``seed``. → prompt + new tokens, ``[B, S +
+        max_new_tokens]`` numpy, read from the device once at the end."""
+        ids_np = np.asarray(input_ids)
+        B, S = ids_np.shape
+        ids = torch.from_numpy(ids_np.astype(np.int64)).to(self.device)
+        gen = (torch.Generator(device=self.device).manual_seed(int(seed))
+               if temperature and temperature > 0.0 else None)
+        bucket = self._prompt_bucket(S, max_new_tokens)
+        if bucket is not None and bucket > S:
+            ids = torch.cat([ids, ids.new_zeros((B, bucket - S))], dim=1)
+        new = gpt2.generate(self.model_config, self.params, ids, max_new_tokens,
+                            temperature=temperature, generator=gen, cache_dtype=self.dtype,
+                            top_k=top_k, top_p=top_p, prompt_len=S)
+        return np.concatenate([ids_np, new.cpu().numpy().astype(ids_np.dtype)], axis=1)
 
     def serve(self, serving_config=None, clock=None, track_margins: bool = False):
         """Continuous-batching server over this engine (a

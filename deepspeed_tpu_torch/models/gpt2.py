@@ -1,5 +1,7 @@
 """GPT-2: config, presets, parameter initialiser, the block pieces the
-serving programs are built from, and the training trunk and loss.
+serving programs are built from, the training trunk and loss, and
+incremental decode over a contiguous KV cache (``forward_cached``,
+``generate``).
 
 Counterpart of ``deepspeed_tpu/models/gpt2.py``. Parameters keep the JAX
 package's layout: a nested dict with the blocks stacked on a leading
@@ -8,7 +10,9 @@ package's layout: a nested dict with the blocks stacked on a leading
 training trunk walks the stacked blocks in a Python loop (the JAX
 package's ``lax.scan``), with ``remat`` wrapping each block in
 ``torch.utils.checkpoint``; attention goes through
-``ops.attention.causal_attention`` (the flash kernels on the card).
+``ops.attention.causal_attention`` (the flash kernels on the card). The
+cached decode step's attention goes through ``ops.attention.cached_attention``
+(the contiguous decode kernel on the card).
 """
 
 from __future__ import annotations
@@ -16,13 +20,14 @@ from __future__ import annotations
 import functools
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from ..ops.attention import causal_attention
+from ..ops.attention import cached_attention, causal_attention
 from ..ops.layer_norm import layer_norm
+from ..ops.sampling import sample_logits
 from ..runtime.activation_checkpointing import checkpoint
 from ..runtime.config import NotPortedError
 from ..runtime.module import ModuleSpec
@@ -253,3 +258,118 @@ def make_module(cfg: GPT2Config) -> ModuleSpec:
         loss_fn=lambda params, batch, generator, train: lm_loss(cfg, params, batch, generator, train),
         apply_fn=lambda params, batch: forward(cfg, params, batch["input_ids"]),
     )
+
+
+# ---------------------------------------------------------------------------
+# incremental decode with a contiguous KV cache
+# ---------------------------------------------------------------------------
+
+class KVCache(NamedTuple):
+    """Per-layer stacked KV cache; ``pos`` is the filled length (a Python
+    int, so a decode step needs no device read to know it)."""
+
+    k: torch.Tensor  # [L, B, Smax, H, D]
+    v: torch.Tensor  # [L, B, Smax, H, D]
+    pos: int
+
+
+def init_cache(cfg: GPT2Config, batch_size: int, max_len: int,
+               dtype: torch.dtype = torch.bfloat16, device=None) -> KVCache:
+    shape = (cfg.n_layer, batch_size, max_len, cfg.n_head, cfg.head_dim)
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device), pos=0)
+
+
+def _attention_cached(cfg: GPT2Config, lp, h, k_cache, v_cache, pos: int):
+    """Attention of ``h [B, S, E]`` against a layer's cache ``[B, Smax, H,
+    D]``: this chunk's K/V is written at ``[pos, pos + S)`` (in place), then
+    query i (at position ``pos + i``) attends keys ``<= pos + i``. S is the
+    prompt length at prefill (the dense masked einsum with probabilities in
+    the cache dtype, as the JAX package computes it outside any kernel) and
+    1 at decode (``cached_attention``: the decode kernel on the card)."""
+    B, S, E = h.shape
+    H, D = cfg.n_head, cfg.head_dim
+    qkv = h @ lp["c_attn_w"] + lp["c_attn_b"]
+    q, k_, v = qkv.split(E, dim=-1)
+    q = q.reshape(B, S, H, D)
+    k_cache[:, pos:pos + S] = k_.reshape(B, S, H, D).to(k_cache.dtype)
+    v_cache[:, pos:pos + S] = v.reshape(B, S, H, D).to(v_cache.dtype)
+    scale = 1.0 / math.sqrt(D)
+    # "jnp" names the plain version, which the card never runs:
+    # cached_attention refuses it for CUDA tensors
+    if S == 1 and (cfg.attn_impl in ("auto", "pallas") or h.device.type == "cuda"):
+        o1 = cached_attention(q[:, 0].contiguous(), k_cache, v_cache, pos,
+                              impl=cfg.attn_impl, sm_scale=scale)
+        o = o1.reshape(B, 1, E).to(h.dtype)
+    else:
+        Smax = k_cache.shape[1]
+        scores = torch.einsum("bshd,bthd->bhst", q.float(), k_cache.float()) * scale
+        mask = (torch.arange(Smax, device=h.device)[None, :]
+                <= pos + torch.arange(S, device=h.device)[:, None])  # [S, Smax]
+        scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+        probs = torch.softmax(scores, dim=-1).to(v_cache.dtype)
+        o = torch.einsum("bhst,bthd->bshd", probs, v_cache).reshape(B, S, E).to(h.dtype)
+    return o @ lp["c_proj_w"] + lp["c_proj_b"]
+
+
+@torch.no_grad()
+def forward_cached(cfg: GPT2Config, params: PyTree, input_ids, cache: KVCache,
+                   logits_at: Optional[int] = None) -> Tuple[torch.Tensor, KVCache]:
+    """``input_ids [B, S]`` (S tokens starting at ``cache.pos``) → (the last
+    token's logits ``[B, V]``, the cache advanced by S). One function serves
+    prefill (S = prompt) and decode (S = 1); the cache tensors are written
+    in place. ``logits_at``: read the head at this in-chunk position instead
+    of the last (the right-padded bucket's true last prompt token)."""
+    B, S = input_ids.shape
+    pos = int(cache.pos)
+    eps = cfg.layer_norm_epsilon
+    h = params["wte"][input_ids] + params["wpe"][pos:pos + S][None, :, :]
+    for l, lp in enumerate(_unstack(params["blocks"], cfg.n_layer)):
+        h = h + _attention_cached(
+            cfg, lp["attn"], layer_norm(h, lp["ln_1"]["scale"], lp["ln_1"]["bias"], eps),
+            cache.k[l], cache.v[l], pos,
+        )
+        h = h + _mlp(cfg, lp["mlp"], layer_norm(h, lp["ln_2"]["scale"], lp["ln_2"]["bias"], eps))
+    h = h[:, -1] if logits_at is None else h[:, int(logits_at)]
+    h = layer_norm(h, params["ln_f"]["scale"], params["ln_f"]["bias"], eps)
+    logits = (h @ params["wte"].t())[..., : cfg.vocab_size]
+    return logits, KVCache(k=cache.k, v=cache.v, pos=pos + S)
+
+
+@torch.no_grad()
+def generate(cfg: GPT2Config, params: PyTree, input_ids, max_new_tokens: int,
+             temperature: float = 0.0, generator: Optional[torch.Generator] = None,
+             max_len: Optional[int] = None, cache_dtype: torch.dtype = torch.bfloat16,
+             top_k: int = 0, top_p: float = 1.0,
+             prompt_len: Optional[int] = None) -> torch.Tensor:
+    """Autoregressive generation: one prefill, then ``max_new_tokens - 1``
+    single-token decode steps over the KV cache → ``[B, max_new_tokens]``
+    on the device. Greedy unless ``temperature > 0``; then the draws come
+    from ``generator`` in order. Tokens are sampled on the device and stay
+    there (no per-step host read).
+
+    ``prompt_len``: the true prompt length when ``input_ids`` is
+    right-padded to a bucket. The prefill runs over the padded rows, the
+    head reads position ``prompt_len - 1``, and decode starts writing at
+    ``prompt_len``: the padding's K/V is masked until those writes
+    overwrite it."""
+    B, S = input_ids.shape
+    if max_len is None:
+        max_len = S + max_new_tokens
+    if max_len > cfg.n_positions or max_len < S + max_new_tokens:
+        raise ValueError(
+            f"prompt ({S}) + max_new_tokens ({max_new_tokens}) needs a cache of "
+            f"{S + max_new_tokens} but max_len={max_len} (n_positions={cfg.n_positions}); "
+            "a shorter cache would silently overwrite KV entries"
+        )
+    n = S if prompt_len is None else int(prompt_len)
+    cache = init_cache(cfg, B, max_len, dtype=cache_dtype, device=input_ids.device)
+    logits, cache = forward_cached(cfg, params, input_ids, cache, logits_at=n - 1)
+    cache = KVCache(k=cache.k, v=cache.v, pos=n)
+    token = sample_logits(logits, generator, temperature, top_k, top_p)
+    tokens = [token]
+    for _ in range(max_new_tokens - 1):
+        logits, cache = forward_cached(cfg, params, token[:, None], cache)
+        token = sample_logits(logits, generator, temperature, top_k, top_p)
+        tokens.append(token)
+    return torch.stack(tokens, dim=1)

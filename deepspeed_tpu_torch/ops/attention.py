@@ -1,13 +1,17 @@
 """Attention dispatch (counterpart of ``deepspeed_tpu/ops/attention.py``):
-dense causal attention for training, and attention against the serving
-subsystem's paged KV pool.
+dense causal attention for training, single-token attention against a
+contiguous KV cache for offline ``generate``, and attention against the
+serving subsystem's paged KV pool.
 
 Dense layout: ``q [B, S, H, D]``, ``k``/``v`` ``[B, S, KV, D]`` (H % KV ==
-0). Paged layout: ``q [B, H, D]`` (one query per slot) or ``[B, T, H, D]``
-(T per slot), pools ``[P, KV, page, D]`` (KV == H, or H % KV == 0 for GQA),
-``block_tables [B, n]`` pool-page ids per slot, ``pos [B]`` each slot's
-highest valid cache index (inclusive), ``base [B]`` the position of a
-slot's first query.
+0). Contiguous cache: ``q [B, H, D]`` against ``[B, Smax, KV, D]`` caches
+with one ``pos`` for the batch. Paged layout: ``q [B, H, D]`` (one query
+per slot) or ``[B, T, H, D]`` (T per slot), pools ``[P, KV, page, D]`` (KV
+== H, or H % KV == 0 for GQA), ``block_tables [B, n]`` pool-page ids per
+slot, ``pos [B]`` each slot's highest valid cache index (inclusive),
+``base [B]`` the position of a slot's first query. An int8 pool comes with
+``scales [P, KV, 2]`` f32 (K at index 0, V at 1), given exactly when the
+pool is int8.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from typing import Optional
 
 import torch
 
+from .decode_attention import decode_attention, decode_attention_ref
 from .flash_attention import flash
 from .paged_decode_attention import paged_decode_attention, paged_decode_attention_ref
 from .paged_multitoken_attention import (
@@ -24,23 +29,61 @@ from .paged_multitoken_attention import (
 )
 
 
-def gather_pool_pages(k_pool, v_pool, block_tables):
-    """Each slot's pages as a dense ``[B, n, KV, page, D]`` view (a copy):
-    pure data movement, full-precision pools only."""
+def gather_pool_pages(k_pool, v_pool, block_tables, scales=None):
+    """Each slot's pages as a dense ``[B, n, KV, page, D]`` view (a copy);
+    an int8 pool is dequantized to f32 through ``scales [P, KV, 2]``
+    gathered by the same table."""
     idx = block_tables.long()
-    return k_pool[idx], v_pool[idx]
+    kd, vd = k_pool[idx], v_pool[idx]
+    if scales is not None:
+        st = scales[idx]  # [B, n, KV, 2]
+        kd = kd.float() * st[..., 0][..., None, None]
+        vd = vd.float() * st[..., 1][..., None, None]
+    return kd, vd
+
+
+def _check_scales(name, k_pool, scales):
+    if (scales is None) == (k_pool.dtype == torch.int8):
+        raise ValueError(
+            f"{name}: scales must be given exactly when the pool is int8 (pool "
+            f"dtype {k_pool.dtype}, scales {'given' if scales is not None else 'missing'})"
+        )
+
+
+def cached_attention(q, k_cache, v_cache, pos: int, impl: str = "auto",
+                     sm_scale: Optional[float] = None):
+    """Single-token decode attention against a contiguous KV cache: ``q
+    [B, H, D]``, caches ``[B, Smax, KV, D]`` (any strides with a unit last
+    one, e.g. a layer's slice of ``KVCache.k``), ``pos`` the highest valid
+    index for the whole batch → ``[B, H, D]``.
+
+    CUDA tensors go to the hand-written kernel (which raises on what it does
+    not take); CPU tensors to its plain version. There is no other route:
+    ``impl="jnp"`` (the plain version by name) is refused for CUDA tensors."""
+    if impl not in ("auto", "pallas", "jnp"):
+        raise ValueError(f"unknown attention impl {impl}")
+    if q.device.type == "cuda":
+        if impl == "jnp":
+            raise ValueError("cached_attention: impl='jnp' (the plain version) does not run "
+                             "on the card; CUDA tensors take the decode kernel")
+        return decode_attention(q, k_cache, v_cache, pos, sm_scale)
+    if q.device.type == "cpu":
+        return decode_attention_ref(q, k_cache, v_cache, pos, sm_scale)
+    raise ValueError(f"cached_attention: no implementation for device {q.device}")
 
 
 def paged_cached_attention(q, k_pool, v_pool, block_tables, pos,
-                           sm_scale: Optional[float] = None):
+                           sm_scale: Optional[float] = None, scales=None):
     """Single-token decode attention against a paged KV cache → ``[B, H, D]``.
 
     CUDA tensors go to the hand-written kernel (which raises on what it does
     not take); CPU tensors to its plain version. There is no other route."""
+    _check_scales("paged_cached_attention", k_pool, scales)
     if q.device.type == "cuda":
-        return paged_decode_attention(q, k_pool, v_pool, block_tables, pos, sm_scale)
+        return paged_decode_attention(q, k_pool, v_pool, block_tables, pos, sm_scale, scales)
     if q.device.type == "cpu":
-        return paged_decode_attention_ref(q, k_pool, v_pool, block_tables, pos, sm_scale)
+        return paged_decode_attention_ref(q, k_pool, v_pool, block_tables, pos, sm_scale,
+                                          scales)
     raise ValueError(f"paged_cached_attention: no implementation for device {q.device}")
 
 
@@ -51,17 +94,14 @@ def paged_multitoken_cached_attention(q, k_pool, v_pool, block_tables, base,
     + t``; the chunk's own K/V must already be in the pool.
 
     CUDA tensors go to the hand-written kernel (which raises on what it does
-    not take); CPU tensors to its plain version. There is no other route.
-    The int8 pool mode (``scales``) is not ported yet and raises."""
-    if scales is not None:
-        raise NotImplementedError(
-            "paged_multitoken_cached_attention: the int8 pool mode (scales) "
-            "is not ported yet"
-        )
+    not take); CPU tensors to its plain version. There is no other route."""
+    _check_scales("paged_multitoken_cached_attention", k_pool, scales)
     if q.device.type == "cuda":
-        return paged_multitoken_attention(q, k_pool, v_pool, block_tables, base, sm_scale)
+        return paged_multitoken_attention(q, k_pool, v_pool, block_tables, base, sm_scale,
+                                          scales)
     if q.device.type == "cpu":
-        return paged_multitoken_attention_ref(q, k_pool, v_pool, block_tables, base, sm_scale)
+        return paged_multitoken_attention_ref(q, k_pool, v_pool, block_tables, base, sm_scale,
+                                              scales)
     raise ValueError(
         f"paged_multitoken_cached_attention: no implementation for device {q.device}"
     )

@@ -54,9 +54,18 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
             ctypes.c_int,
         ),
     },
+    "decode_attention": {
+        "decode_attention_launch": (
+            [_P, _P, _P, _P,                   # q, k_cache, v_cache, out
+             _I, _I, _I, _I, _I, _I]           # B, Smax, H, KV, D, pos
+            + [_L] * 6                         # k, v strides (batch, seq, head)
+            + [_F, _I, _I, _P],                # sm_scale, q dtype, kv dtype, stream
+            ctypes.c_int,
+        ),
+    },
     "paged_decode_attention": {
         "paged_decode_attention_launch": (
-            [_P, _P, _P, _P, _P, _P,           # q, k_pool, v_pool, tables, pos, out
+            [_P, _P, _P, _P, _P, _P, _P,       # q, k_pool, v_pool, tables, pos, scales, out
              _I, _I, _I, _I, _I, _I, _I,       # B, H, KV, P, page, n, D
              _F, _I, _I, _P],                  # sm_scale, q dtype, kv dtype, stream
             ctypes.c_int,
@@ -64,7 +73,7 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "paged_multitoken_attention": {
         "paged_multitoken_attention_launch": (
-            [_P, _P, _P, _P, _P, _P,           # q, k_pool, v_pool, tables, base, out
+            [_P, _P, _P, _P, _P, _P, _P,       # q, k_pool, v_pool, tables, base, scales, out
              _I, _I, _I, _I, _I, _I, _I, _I,   # B, T, H, KV, P, page, n, D
              _F, _I, _I, _P],                  # sm_scale, q dtype, kv dtype, stream
             ctypes.c_int,

@@ -22,10 +22,13 @@ from typing import Optional
 
 import torch
 
-# kernel launches by this process (the main path's proof that it ran here)
+# kernel launches by this process (the main path's proof that it ran
+# here): full-precision pools, and the int8 mode
 LAUNCHES = 0
+LAUNCHES_INT8 = 0
 
 DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+KV_DTYPE_CODES = {**DTYPE_CODES, torch.int8: 3}
 HEAD_DIMS = (64, 128, 256)
 PAGE_RANGE = (8, 64)
 
@@ -52,16 +55,31 @@ def _check_shapes(q, k_pool, v_pool, block_tables, pos):
         )
 
 
+def check_scales_tensor(name, k_pool, scales):
+    """An int8 pool's ``scales``: f32 ``[P, KV, 2]`` on the pool's device."""
+    P, KV = k_pool.shape[:2]
+    if k_pool.dtype != torch.int8:
+        raise TypeError(f"{name}: scales given for a {k_pool.dtype} pool (int8 only)")
+    if tuple(scales.shape) != (P, KV, 2) or scales.dtype != torch.float32:
+        raise ValueError(
+            f"{name}: scales must be float32 [P={P}, KV={KV}, 2]; got "
+            f"{scales.dtype} {tuple(scales.shape)}"
+        )
+
+
 def paged_decode_attention_ref(q, k_pool, v_pool, block_tables, pos,
-                               sm_scale: Optional[float] = None):
+                               sm_scale: Optional[float] = None, scales=None):
     """Plain PyTorch paged decode attention → ``[B, H, D]`` in ``q.dtype``;
-    scores, softmax and the probability-weighted sum in f32."""
+    scores, softmax and the probability-weighted sum in f32 (an int8 pool
+    dequantized to f32 through ``scales`` first)."""
     from .attention import gather_pool_pages
 
     _check_shapes(q, k_pool, v_pool, block_tables, pos)
+    if scales is not None:
+        check_scales_tensor("paged_decode_attention_ref", k_pool, scales)
     B, H, D = q.shape
     KV = k_pool.shape[1]
-    kd, vd = gather_pool_pages(k_pool, v_pool, block_tables)  # [B,n,KV,page,D]
+    kd, vd = gather_pool_pages(k_pool, v_pool, block_tables, scales)  # [B,n,KV,page,D]
     kd = kd.transpose(2, 3).reshape(B, -1, KV, D)
     vd = vd.transpose(2, 3).reshape(B, -1, KV, D)
     scale = sm_scale if sm_scale is not None else 1.0 / (D ** 0.5)
@@ -83,19 +101,19 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, pos,
                            sm_scale: Optional[float] = None, scales=None):
     """Launch the CUDA kernel on ``torch.cuda.current_stream()`` → a new
     ``[B, H, D]`` tensor in ``q.dtype``. Every operand must be a contiguous
-    tensor on one CUDA device: q and the pools float32, float16 or bfloat16
-    (the pools one dtype), ``block_tables [B, n]`` and ``pos [B]`` int32.
-    Raises on anything else; the int8 pool mode (``scales``) is not ported
-    yet."""
-    global LAUNCHES
-    if scales is not None:
-        raise NotImplementedError(
-            "paged_decode_attention: the int8 pool mode (scales) is not "
-            "ported to the CUDA kernel yet"
-        )
+    tensor on one CUDA device: q float32, float16 or bfloat16, the pools one
+    of those or int8 (then with ``scales [P, KV, 2]`` float32),
+    ``block_tables [B, n]`` and ``pos [B]`` int32. Raises on anything
+    else."""
+    global LAUNCHES, LAUNCHES_INT8
     _check_shapes(q, k_pool, v_pool, block_tables, pos)
     tensors = {"q": q, "k_pool": k_pool, "v_pool": v_pool,
                "block_tables": block_tables, "pos": pos}
+    if scales is not None:
+        check_scales_tensor("paged_decode_attention", k_pool, scales)
+        tensors["scales"] = scales
+    elif k_pool.dtype == torch.int8:
+        raise ValueError("paged_decode_attention: an int8 pool needs its scales")
     for name, t in tensors.items():
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(
@@ -104,10 +122,10 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, pos,
             )
         if not t.is_contiguous():
             raise ValueError(f"paged_decode_attention: {name} must be contiguous")
-    if q.dtype not in DTYPE_CODES or k_pool.dtype not in DTYPE_CODES:
+    if q.dtype not in DTYPE_CODES or k_pool.dtype not in KV_DTYPE_CODES:
         raise TypeError(
-            f"paged_decode_attention: q {q.dtype} / pools {k_pool.dtype} must "
-            "be float32, float16 or bfloat16"
+            f"paged_decode_attention: q {q.dtype} must be float32, float16 or "
+            f"bfloat16 and the pools {k_pool.dtype} one of those or int8"
         )
     if v_pool.dtype != k_pool.dtype:
         raise TypeError(f"k_pool {k_pool.dtype} and v_pool {v_pool.dtype} differ")
@@ -134,12 +152,16 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, pos,
     scale = sm_scale if sm_scale is not None else 1.0 / (D ** 0.5)
     err = lib.paged_decode_attention_launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        block_tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
+        block_tables.data_ptr(), pos.data_ptr(),
+        scales.data_ptr() if scales is not None else None, out.data_ptr(),
         B, H, KV, P, page, n, D, ctypes.c_float(scale),
-        DTYPE_CODES[q.dtype], DTYPE_CODES[k_pool.dtype],
+        DTYPE_CODES[q.dtype], KV_DTYPE_CODES[k_pool.dtype],
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"paged_decode_attention: kernel launch failed, CUDA error {err}")
-    LAUNCHES += 1
+    if scales is not None:
+        LAUNCHES_INT8 += 1
+    else:
+        LAUNCHES += 1
     return out

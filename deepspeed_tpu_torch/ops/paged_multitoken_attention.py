@@ -5,7 +5,9 @@ kernel ``deepspeed_tpu/ops/pallas/decode_attention.py``
 ``paged_multitoken_attention`` (body ``_paged_multitoken_kernel``): T query
 tokens per serving slot, query t at position ``base[b] + t``, attend the
 slot's pages of a shared ``[P, KV, page, D]`` pool through its block-table
-row, keys past ``base[b] + t`` masked, online softmax in f32. Chunked
+row, keys past ``base[b] + t`` masked, online softmax in f32. Its int8 mode
+dequantizes the pool's codes with the page's per-kv-head f32 scale
+(``scales [P, KV, 2]``, gathered by the same table index). Chunked
 prefill and prefix-cache tails run it (the chunk's K/V already written:
 update-then-attend). At chunk widths up to ~256 it is bound by the HBM
 bytes of the live K/V rows, beyond that by its flops; the source's header
@@ -26,10 +28,18 @@ from typing import Optional
 
 import torch
 
-from .paged_decode_attention import DTYPE_CODES, HEAD_DIMS, PAGE_RANGE
+from .paged_decode_attention import (
+    DTYPE_CODES,
+    HEAD_DIMS,
+    KV_DTYPE_CODES,
+    PAGE_RANGE,
+    check_scales_tensor,
+)
 
-# kernel launches by this process (the main path's proof that it ran here)
+# kernel launches by this process (the main path's proof that it ran
+# here): full-precision pools, and the int8 mode
 LAUNCHES = 0
+LAUNCHES_INT8 = 0
 
 MAX_T = 1024
 
@@ -57,15 +67,18 @@ def _check_shapes(q, k_pool, v_pool, block_tables, base):
 
 
 def paged_multitoken_attention_ref(q, k_pool, v_pool, block_tables, base,
-                                   sm_scale: Optional[float] = None):
+                                   sm_scale: Optional[float] = None, scales=None):
     """Plain PyTorch paged multi-token attention → ``[B, T, H, D]`` in
-    ``q.dtype``; scores, softmax and the probability-weighted sum in f32."""
+    ``q.dtype``; scores, softmax and the probability-weighted sum in f32 (an
+    int8 pool dequantized to f32 through ``scales`` first)."""
     from .attention import gather_pool_pages
 
     _check_shapes(q, k_pool, v_pool, block_tables, base)
+    if scales is not None:
+        check_scales_tensor("paged_multitoken_attention_ref", k_pool, scales)
     B, T, H, D = q.shape
     KV = k_pool.shape[1]
-    kd, vd = gather_pool_pages(k_pool, v_pool, block_tables)  # [B,n,KV,page,D]
+    kd, vd = gather_pool_pages(k_pool, v_pool, block_tables, scales)  # [B,n,KV,page,D]
     kd = kd.transpose(2, 3).reshape(B, -1, KV, D)
     vd = vd.transpose(2, 3).reshape(B, -1, KV, D)
     scale = sm_scale if sm_scale is not None else 1.0 / (D ** 0.5)
@@ -89,19 +102,19 @@ def paged_multitoken_attention(q, k_pool, v_pool, block_tables, base,
                                sm_scale: Optional[float] = None, scales=None):
     """Launch the CUDA kernel on ``torch.cuda.current_stream()`` → a new
     ``[B, T, H, D]`` tensor in ``q.dtype``. Every operand must be a
-    contiguous tensor on one CUDA device: q and the pools float32, float16
-    or bfloat16 (the pools one dtype), ``block_tables [B, n]`` and
-    ``base [B]`` int32 (``base >= 0``), ``1 <= T <= 1024``. Raises on
-    anything else; the int8 pool mode (``scales``) is not ported yet."""
-    global LAUNCHES
-    if scales is not None:
-        raise NotImplementedError(
-            "paged_multitoken_attention: the int8 pool mode (scales) is not "
-            "ported to the CUDA kernel yet"
-        )
+    contiguous tensor on one CUDA device: q float32, float16 or bfloat16,
+    the pools one of those or int8 (then with ``scales [P, KV, 2]``
+    float32), ``block_tables [B, n]`` and ``base [B]`` int32 (``base >=
+    0``), ``1 <= T <= 1024``. Raises on anything else."""
+    global LAUNCHES, LAUNCHES_INT8
     _check_shapes(q, k_pool, v_pool, block_tables, base)
     tensors = {"q": q, "k_pool": k_pool, "v_pool": v_pool,
                "block_tables": block_tables, "base": base}
+    if scales is not None:
+        check_scales_tensor("paged_multitoken_attention", k_pool, scales)
+        tensors["scales"] = scales
+    elif k_pool.dtype == torch.int8:
+        raise ValueError("paged_multitoken_attention: an int8 pool needs its scales")
     for name, t in tensors.items():
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(
@@ -110,10 +123,10 @@ def paged_multitoken_attention(q, k_pool, v_pool, block_tables, base,
             )
         if not t.is_contiguous():
             raise ValueError(f"paged_multitoken_attention: {name} must be contiguous")
-    if q.dtype not in DTYPE_CODES or k_pool.dtype not in DTYPE_CODES:
+    if q.dtype not in DTYPE_CODES or k_pool.dtype not in KV_DTYPE_CODES:
         raise TypeError(
-            f"paged_multitoken_attention: q {q.dtype} / pools {k_pool.dtype} "
-            "must be float32, float16 or bfloat16"
+            f"paged_multitoken_attention: q {q.dtype} must be float32, float16 "
+            f"or bfloat16 and the pools {k_pool.dtype} one of those or int8"
         )
     if v_pool.dtype != k_pool.dtype:
         raise TypeError(f"k_pool {k_pool.dtype} and v_pool {v_pool.dtype} differ")
@@ -142,14 +155,18 @@ def paged_multitoken_attention(q, k_pool, v_pool, block_tables, base,
     scale = sm_scale if sm_scale is not None else 1.0 / (D ** 0.5)
     err = lib.paged_multitoken_attention_launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        block_tables.data_ptr(), base.data_ptr(), out.data_ptr(),
+        block_tables.data_ptr(), base.data_ptr(),
+        scales.data_ptr() if scales is not None else None, out.data_ptr(),
         B, T, H, KV, P, page, n, D, ctypes.c_float(scale),
-        DTYPE_CODES[q.dtype], DTYPE_CODES[k_pool.dtype],
+        DTYPE_CODES[q.dtype], KV_DTYPE_CODES[k_pool.dtype],
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(
             f"paged_multitoken_attention: kernel launch failed, CUDA error {err}"
         )
-    LAUNCHES += 1
+    if scales is not None:
+        LAUNCHES_INT8 += 1
+    else:
+        LAUNCHES += 1
     return out

@@ -2,11 +2,12 @@
 
 Counterpart of ``deepspeed_tpu/runtime/config.py``. ``ServingConfig``: the
 same fields, defaults and validation for the continuous-batching path
-(paged KV pool, admission control, deadlines, drain) and its three
-hot-path features: speculative decode (``speculative``), shared-prefix KV
-reuse (``prefix_cache``) and chunked prefill (``prefill_chunk_tokens``).
-The sections of the features that have not been ported yet (int8 pages,
-tensor parallelism, the host tier, the fleet, SLO classes, retries) are
+(paged KV pool, admission control, deadlines, drain), its int8 KV pages
+(``kv_cache_dtype="int8"``) and its three hot-path features: speculative
+decode (``speculative``), shared-prefix KV reuse (``prefix_cache``) and
+chunked prefill (``prefill_chunk_tokens``). The sections of the features
+that have not been ported yet (tensor parallelism, the host tier, the
+fleet, SLO classes, retries) are
 accepted only at their off values: turning one on raises
 :class:`NotPortedError` instead of being silently ignored.
 
@@ -183,8 +184,6 @@ class ServingConfig:
                 "serving.speculative requires temperature == 0 (greedy): the "
                 "verify step accepts drafts by argmax comparison"
             )
-        if self.kv_cache_dtype == "int8":
-            raise _not_ported("kv_cache_dtype='int8'")
         if int(self.retry_max) > 0:
             raise _not_ported(f"retry_max={self.retry_max}")
 

@@ -1,5 +1,5 @@
 """Continuous-batching serving over a paged KV pool, with speculative
-decode, shared-prefix KV reuse and chunked prefill (the port's counterpart
+decode, shared-prefix KV reuse, chunked prefill and int8 KV pages (the port's counterpart
 of ``deepspeed_tpu.serving``)."""
 
 from .kv_cache import (
@@ -11,12 +11,13 @@ from .kv_cache import (
     init_pools,
     pages_for,
     pool_bytes,
+    scales_bytes,
 )
 from .request import Request, RequestStatus
 from .scheduler import ServingEngine
 
 __all__ = [
     "SCRATCH_PAGE", "PageAllocator", "PageAllocatorError", "PrefixCache", "SlotTable",
-    "init_pools", "pages_for", "pool_bytes", "Request", "RequestStatus",
+    "init_pools", "pages_for", "pool_bytes", "Request", "RequestStatus", "scales_bytes",
     "ServingEngine",
 ]

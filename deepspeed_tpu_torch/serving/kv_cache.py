@@ -177,18 +177,33 @@ def pages_for(tokens: int, page_size: int) -> int:
 
 def init_pools(n_layer: int, num_pages: int, n_kv_head: int, page_size: int,
                head_dim: int, dtype: torch.dtype = torch.bfloat16, device=None):
-    """The shared K and V pools, ``[L, P, KV, page, D]`` zeros on ``device``
-    → ``(k_pool, v_pool)``. Per layer a pool is ``[P, KV, page, D]``, the
-    layout the decode kernel reads a page row from directly."""
+    """The shared K and V pools, ``[L, P, KV, page, D]`` zeros on ``device``,
+    and the scales pool → ``(k_pool, v_pool, scales)``. Per layer a pool is
+    ``[P, KV, page, D]``, the layout the paged kernels read a page row from
+    directly.
+
+    An int8 pool holds codes, and ``scales`` is ``[L, P, KV, 2]`` f32 zeros:
+    one scale per (layer, page, kv head) for K (index 0) and V (index 1),
+    indexed by page id like the pool, so a shared page shares its scale row
+    and a recomputed fork writes its own. A full-precision pool has
+    ``scales = None``."""
     shape = (n_layer, num_pages, n_kv_head, page_size, head_dim)
+    scales = (torch.zeros((n_layer, num_pages, n_kv_head, 2), dtype=torch.float32, device=device)
+              if dtype == torch.int8 else None)
     return (torch.zeros(shape, dtype=dtype, device=device),
-            torch.zeros(shape, dtype=dtype, device=device))
+            torch.zeros(shape, dtype=dtype, device=device), scales)
 
 
 def pool_bytes(n_layer: int, num_pages: int, n_kv_head: int, page_size: int,
                head_dim: int, itemsize: int = 2) -> int:
-    """Device footprint of the K+V pools."""
+    """Device footprint of the K+V pools (``itemsize`` 1 for int8 codes;
+    the scales are counted by :func:`scales_bytes`)."""
     return 2 * n_layer * num_pages * n_kv_head * page_size * head_dim * itemsize
+
+
+def scales_bytes(n_layer: int, num_pages: int, n_kv_head: int) -> int:
+    """Device footprint of an int8 pool's ``[L, P, KV, 2]`` f32 scales."""
+    return n_layer * num_pages * n_kv_head * 2 * 4
 
 
 # ---------------------------------------------------------------------------

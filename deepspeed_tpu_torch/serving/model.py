@@ -1,5 +1,5 @@
 """Serving programs over the paged KV pool (counterpart of
-``deepspeed_tpu/serving/model.py`` for full-precision pools):
+``deepspeed_tpu/serving/model.py``):
 
 - :func:`paged_prefill`: one request's prompt (right-padded to the prefill
   width) through the model, its K/V written page by page into the slot's
@@ -14,6 +14,17 @@
 - :func:`paged_chunk_prefill`: one page-aligned chunk of a prompt that
   attends the slot's cached prefix (earlier chunks or shared prefix pages)
   through ``ops.attention.paged_multitoken_cached_attention``.
+
+int8 pools (``serving.kv_cache_dtype = "int8"``) hold codes and come with
+``scales [L, P, KV, 2]`` (``scales=`` of every program; ``None`` for a
+full-precision pool). A page's scale is set exactly once, by the
+whole-page write that fills it (prefill, chunk prefill, COW recompute) or
+by the token write at its offset 0, and stays frozen until the page is
+refilled from offset 0: later token writes code against it and never
+re-code earlier positions. So a verify step whose T token writes follow
+that order leaves the pool (codes and scales) exactly as T decode steps
+would, and every reader (prefill included) attends the dequantized
+codes.
 
 The pools are updated IN PLACE (slice assignment / ``index_put_``); the JAX
 package threads them through as donated buffers instead, so there too the
@@ -34,6 +45,12 @@ import torch
 
 from ..models.gpt2 import GPT2Config, _layer_norm, _mlp
 from ..ops.attention import paged_cached_attention, paged_multitoken_cached_attention
+from ..ops.quantizer import (
+    dequantize_kv_pages,
+    kv_page_scale,
+    quantize_kv_pages,
+    quantize_kv_token,
+)
 from ..ops.sampling import sample_logits
 
 PyTree = Any
@@ -53,16 +70,55 @@ def _proj(o, w, b):
     return o @ w + b
 
 
-def _write_pool_pages(pool, l, page_ids, chunks):
-    """Whole-page write: ``chunks [n_pp, KV, page, D]`` into layer ``l``'s
-    pages ``page_ids`` (in place)."""
-    pool[l][page_ids] = chunks.to(pool.dtype)
+def _write_pool_pages(pool, scales, l, page_ids, chunks, sidx):
+    """Whole-page write: ``chunks [n_pp, KV, page, D]`` (in the dtype of
+    :func:`_pool_dtype`) into layer ``l``'s pages ``page_ids`` (in place),
+    quantized with fresh page scales when the pool is int8 (``sidx`` 0 = K
+    scales, 1 = V). → what attention must read
+    for these tokens: the chunks, or the dequantized codes of an int8
+    pool."""
+    if scales is None:
+        pool[l][page_ids] = chunks
+        return chunks
+    codes, s = quantize_kv_pages(chunks)
+    pool[l][page_ids] = codes
+    scales[l][page_ids, :, sidx] = s
+    return dequantize_kv_pages(codes, s)
 
 
-def _write_pool_token(pool, l, pidx, poff, vals):
-    """One-token write: ``vals [B, KV, D]`` to (layer ``l``, page
-    ``pidx[b]``, offset ``poff[b]``) (in place)."""
-    pool[l][pidx, :, poff] = vals.to(pool.dtype)
+def _write_pool_tokens(pool, scales, l, pidx, poff, vals, sidx):
+    """Token writes: ``vals [B, T, KV, D]`` (in the dtype of
+    :func:`_pool_dtype`) to (layer ``l``, page
+    ``pidx[b, t]``, offset ``poff[b, t]``) (in place); a slot's T tokens
+    sit at consecutive positions. The decode step's one token per slot
+    comes as ``pidx``/``poff [B]`` and ``vals [B, KV, D]``.
+
+    int8: a token at offset 0 sets its page's scale from its own values;
+    any other token codes against its page's scale as the writes before it
+    left it. That is the result of writing the tokens one at a time in
+    order, computed at once: token t's page was set in this call by token
+    ``t - poff[b, t]`` when that index is >= 0, and otherwise keeps its
+    frozen scale. (Writes past a slot's table land on the scratch page,
+    whose contents no live slot reads.)"""
+    if scales is None:
+        pool[l][pidx, :, poff] = vals
+        return
+    if pidx.dim() == 1:
+        pidx, poff, vals = pidx[:, None], poff[:, None], vals[:, None]
+    sl = scales[l]
+    T = vals.shape[1]
+    opener = torch.arange(T, device=poff.device)[None, :] - poff  # [B, T]
+    fresh = kv_page_scale(vals)  # [B, T, KV]
+    fresh = fresh.gather(1, opener.clamp(min=0)[..., None].expand_as(fresh))
+    s = torch.where((opener >= 0)[..., None], fresh, sl[pidx, :, sidx])
+    pool[l][pidx, :, poff] = quantize_kv_token(vals, s)
+    sl[pidx, :, sidx] = s
+
+
+def _pool_dtype(pool, scales, compute_dtype):
+    """The dtype K/V are cast to before the write: the pool's, or for an
+    int8 pool the compute dtype (the codec quantizes from it)."""
+    return compute_dtype if scales is not None else pool.dtype
 
 
 def _logits(cfg: GPT2Config, params, h_last):
@@ -76,27 +132,35 @@ def _logits(cfg: GPT2Config, params, h_last):
 # paged prefill (one request into one slot's pages)
 # ---------------------------------------------------------------------------
 
-def _attention_prefill_paged(cfg, lp, h, k_pool, v_pool, page_ids, l):
+def _attention_prefill_paged(cfg, lp, h, k_pool, v_pool, page_ids, l, scales=None):
     """Causal self-attention over the prompt, its K/V written to layer
     ``l``'s pages. The prompt starts at position 0 of a fresh slot, so the
     cache is the prompt itself: the attention is a dense causal
     matmul + masked softmax in f32, as the JAX package computes it outside
-    any kernel."""
+    any kernel. An int8 pool's prompt attends its dequantized codes, as
+    every later read of those pages does."""
     B, Sp, E = h.shape
     H, D = cfg.n_head, cfg.head_dim
     page = k_pool.shape[3]
     qkv = h @ lp["c_attn_w"] + lp["c_attn_b"]
     q, k_, v = qkv.split(H * D, dim=-1)
     q = q.reshape(B, Sp, H, D)
-    k_c = k_.reshape(B, Sp, H, D).to(k_pool.dtype)
-    v_c = v.reshape(B, Sp, H, D).to(v_pool.dtype)
+    pool_dt = _pool_dtype(k_pool, scales, h.dtype)
+    k_c = k_.reshape(B, Sp, H, D).to(pool_dt)
+    v_c = v.reshape(B, Sp, H, D).to(pool_dt)
 
     # [Sp, H, D] → [n_pp, H, page, D] whole pages; padded page ids point at
     # the scratch page, and garbage positions stay masked until the decode
     # write claims them
     n_pp = Sp // page
-    _write_pool_pages(k_pool, l, page_ids, k_c[0].reshape(n_pp, page, H, D).transpose(1, 2))
-    _write_pool_pages(v_pool, l, page_ids, v_c[0].reshape(n_pp, page, H, D).transpose(1, 2))
+    k_att = _write_pool_pages(k_pool, scales, l, page_ids,
+                              k_c[0].reshape(n_pp, page, H, D).transpose(1, 2), 0)
+    v_att = _write_pool_pages(v_pool, scales, l, page_ids,
+                              v_c[0].reshape(n_pp, page, H, D).transpose(1, 2), 1)
+    if scales is not None:
+        # [n_pp, KV, page, D] dequantized (f32) → the [B, Sp, H, D] prompt
+        k_c = k_att.transpose(1, 2).reshape(B, Sp, H, D)
+        v_c = v_att.transpose(1, 2).reshape(B, Sp, H, D)
 
     scale = 1.0 / math.sqrt(D)
     scores = torch.einsum("bshd,bthd->bhst", q.float(), k_c.float()) * scale
@@ -122,6 +186,7 @@ def paged_prefill(
     top_k: int = 0,
     top_p: float = 1.0,
     return_logits: bool = False,
+    scales: Optional[torch.Tensor] = None,  # [L, P, KV, 2] of an int8 pool
 ):
     """→ first token ``[1]`` (and its logits ``[1, V]`` when asked)."""
     B, Sp = input_ids.shape
@@ -135,7 +200,7 @@ def paged_prefill(
         h = h + _attention_prefill_paged(
             cfg, lp["attn"],
             _layer_norm(h, lp["ln_1"]["scale"], lp["ln_1"]["bias"], eps),
-            k_pool, v_pool, page_ids, l,
+            k_pool, v_pool, page_ids, l, scales,
         )
         h = h + _mlp(cfg, lp["mlp"], _layer_norm(h, lp["ln_2"]["scale"], lp["ln_2"]["bias"], eps))
 
@@ -148,7 +213,8 @@ def paged_prefill(
 # paged decode step (one token for every slot)
 # ---------------------------------------------------------------------------
 
-def _attention_decode_paged(cfg, lp, h, k_pool, v_pool, block_tables, pos, pidx, poff, l):
+def _attention_decode_paged(cfg, lp, h, k_pool, v_pool, block_tables, pos, pidx, poff, l,
+                            scales=None):
     """One-token attention per slot against its paged cache (layer ``l``).
     ``pos[b]`` = tokens already cached for slot b = the new token's
     position; the new K/V is written at (page ``pidx[b]``, offset
@@ -158,10 +224,12 @@ def _attention_decode_paged(cfg, lp, h, k_pool, v_pool, block_tables, pos, pidx,
     qkv = h @ lp["c_attn_w"] + lp["c_attn_b"]
     q, k_, v = qkv.split(H * D, dim=-1)
     q = q.reshape(B, H, D).contiguous()
-    _write_pool_token(k_pool, l, pidx, poff, k_.reshape(B, H, D))
-    _write_pool_token(v_pool, l, pidx, poff, v.reshape(B, H, D))
+    pool_dt = _pool_dtype(k_pool, scales, h.dtype)
+    _write_pool_tokens(k_pool, scales, l, pidx, poff, k_.reshape(B, H, D).to(pool_dt), 0)
+    _write_pool_tokens(v_pool, scales, l, pidx, poff, v.reshape(B, H, D).to(pool_dt), 1)
     o = paged_cached_attention(
-        q, k_pool[l], v_pool[l], block_tables, pos, sm_scale=1.0 / math.sqrt(D)
+        q, k_pool[l], v_pool[l], block_tables, pos, sm_scale=1.0 / math.sqrt(D),
+        scales=scales[l] if scales is not None else None,
     )
     o = o.reshape(B, S, E).to(h.dtype)
     return _proj(o, lp["c_proj_w"], lp["c_proj_b"])
@@ -181,6 +249,7 @@ def paged_decode_step(
     top_k: int = 0,
     top_p: float = 1.0,
     return_logits: bool = False,
+    scales: Optional[torch.Tensor] = None,  # [L, P, KV, 2] of an int8 pool
 ):
     """→ next tokens ``[B]`` (and the logits ``[B, V]`` when asked). Greedy
     unless ``temperature > 0``; then slot b draws from ``generators[b]``
@@ -199,7 +268,7 @@ def paged_decode_step(
         h = h + _attention_decode_paged(
             cfg, lp["attn"],
             _layer_norm(h, lp["ln_1"]["scale"], lp["ln_1"]["bias"], eps),
-            k_pool, v_pool, block_tables, seq_lens, pidx, poff, l,
+            k_pool, v_pool, block_tables, seq_lens, pidx, poff, l, scales,
         )
         h = h + _mlp(cfg, lp["mlp"], _layer_norm(h, lp["ln_2"]["scale"], lp["ln_2"]["bias"], eps))
 
@@ -231,7 +300,8 @@ def paged_decode_step(
 # verify stream too is held to token identity there.)
 # ---------------------------------------------------------------------------
 
-def _attend_multitoken_paged(cfg, h, q, k_pool_l, v_pool_l, block_tables, base):
+def _attend_multitoken_paged(cfg, h, q, k_pool_l, v_pool_l, block_tables, base,
+                             scales_l=None):
     """Attention of the chunk program: ``q [B, T, H, D]`` against the
     (already written) paged cache, masked per query → ``[B, T, E]``; the
     caller applies the output projection."""
@@ -239,7 +309,7 @@ def _attend_multitoken_paged(cfg, h, q, k_pool_l, v_pool_l, block_tables, base):
     D = cfg.head_dim
     o = paged_multitoken_cached_attention(
         q.contiguous(), k_pool_l, v_pool_l, block_tables, base,
-        sm_scale=1.0 / math.sqrt(D),
+        sm_scale=1.0 / math.sqrt(D), scales=scales_l,
     )
     return o.reshape(B, T, E).to(h.dtype)
 
@@ -258,7 +328,8 @@ def _verify_write_targets(seq_lens, block_tables, page: int, T: int):
     return pidx, pos % page
 
 
-def _attention_verify_paged(cfg, lp, h, k_pool, v_pool, block_tables, base, pidx, poff, l):
+def _attention_verify_paged(cfg, lp, h, k_pool, v_pool, block_tables, base, pidx, poff, l,
+                            scales=None):
     """T-token attention per slot: write every token's K/V to layer ``l`` at
     (``pidx[b, t]``, ``poff[b, t]``), then attend query t at position
     ``base + t`` through the block table with one single-token call each.
@@ -270,15 +341,19 @@ def _attention_verify_paged(cfg, lp, h, k_pool, v_pool, block_tables, base, pidx
     qkv = h @ lp["c_attn_w"] + lp["c_attn_b"]
     q, k_, v = qkv.split(H * D, dim=-1)
     q = q.reshape(B, T, H, D)
+    pool_dt = _pool_dtype(k_pool, scales, h.dtype)
     # [B, T, KV, D] values to (pidx[b, t], :, poff[b, t]): the advanced
-    # index pair around the head slice puts (B, T) first
-    k_pool[l][pidx, :, poff] = k_.reshape(B, T, H, D).to(k_pool.dtype)
-    v_pool[l][pidx, :, poff] = v.reshape(B, T, H, D).to(v_pool.dtype)
+    # index pair around the head slice puts (B, T) first. int8: a token at
+    # a page's offset 0 sets the page's scale and the tokens after it in
+    # this step code against it, as T sequential decode steps would
+    _write_pool_tokens(k_pool, scales, l, pidx, poff, k_.reshape(B, T, H, D).to(pool_dt), 0)
+    _write_pool_tokens(v_pool, scales, l, pidx, poff, v.reshape(B, T, H, D).to(pool_dt), 1)
     scale = 1.0 / math.sqrt(D)
+    scales_l = scales[l] if scales is not None else None
     o = torch.cat([
         paged_cached_attention(
             q[:, t].contiguous(), k_pool[l], v_pool[l], block_tables,
-            base + t, sm_scale=scale,
+            base + t, sm_scale=scale, scales=scales_l,
         ).reshape(B, 1, E).to(h.dtype)
         for t in range(T)
     ], dim=1)
@@ -295,6 +370,7 @@ def paged_verify_step(
     v_pool: torch.Tensor,
     block_tables: torch.Tensor,  # [B, W] int32
     return_logits: bool = False,
+    scales: Optional[torch.Tensor] = None,  # [L, P, KV, 2] of an int8 pool
 ):
     """Self-speculative verify: score T = k+1 tokens per slot in one pass →
     ``greedy [B, T]`` (and the logits ``[B, T, V]`` when asked).
@@ -323,7 +399,7 @@ def paged_verify_step(
         h = h + _attention_verify_paged(
             cfg, lp["attn"],
             _layer_norm(h, lp["ln_1"]["scale"], lp["ln_1"]["bias"], eps),
-            k_pool, v_pool, block_tables, seq_lens, pidx, poff, l,
+            k_pool, v_pool, block_tables, seq_lens, pidx, poff, l, scales,
         )
         h = h + _mlp(cfg, lp["mlp"], _layer_norm(h, lp["ln_2"]["scale"], lp["ln_2"]["bias"], eps))
 
@@ -348,6 +424,7 @@ def paged_chunk_prefill(
     top_k: int = 0,
     top_p: float = 1.0,
     return_logits: bool = False,
+    scales: Optional[torch.Tensor] = None,  # [L, P, KV, 2] of an int8 pool
 ):
     """One chunk of an incremental prefill → token ``[1]`` (and its logits
     ``[1, V]`` when asked), sampled at the true last prompt position; only
@@ -376,10 +453,15 @@ def paged_chunk_prefill(
         qkv = hn @ attn["c_attn_w"] + attn["c_attn_b"]
         q, k_, v = qkv.split(H * D, dim=-1)
         q = q.reshape(B, C, H, D)
-        # page-granular write, exactly paged_prefill's
-        _write_pool_pages(k_pool, l, page_ids, k_.reshape(n_cp, page, H, D).transpose(1, 2))
-        _write_pool_pages(v_pool, l, page_ids, v.reshape(n_cp, page, H, D).transpose(1, 2))
-        o = _attend_multitoken_paged(cfg, hn, q, k_pool[l], v_pool[l], block_tables, base)
+        # page-granular write, exactly paged_prefill's (the attention below
+        # reads the pool, so an int8 chunk attends its dequantized codes)
+        pool_dt = _pool_dtype(k_pool, scales, hn.dtype)
+        _write_pool_pages(k_pool, scales, l, page_ids,
+                          k_.to(pool_dt).reshape(n_cp, page, H, D).transpose(1, 2), 0)
+        _write_pool_pages(v_pool, scales, l, page_ids,
+                          v.to(pool_dt).reshape(n_cp, page, H, D).transpose(1, 2), 1)
+        o = _attend_multitoken_paged(cfg, hn, q, k_pool[l], v_pool[l], block_tables, base,
+                                     scales[l] if scales is not None else None)
         h = h + _proj(o, attn["c_proj_w"], attn["c_proj_b"])
         h = h + _mlp(cfg, lp["mlp"], _layer_norm(h, lp["ln_2"]["scale"], lp["ln_2"]["bias"], eps))
 

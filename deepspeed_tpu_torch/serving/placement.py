@@ -2,7 +2,8 @@
 (counterpart of ``deepspeed_tpu/serving/placement.py`` for one device).
 
 A :class:`ProgramSet` holds the parameters on the device, the two paged
-pools ``[L, P, KV, page, D]`` and the page allocator that hands out page ids
+pools ``[L, P, KV, page, D]`` (and the ``[L, P, KV, 2]`` scales of an int8
+pool, else ``None``) and the page allocator that hands out page ids
 in them. Tensor parallelism, meshes and disaggregated placements are not
 ported yet; the config refuses them before a ProgramSet is built.
 """
@@ -28,7 +29,7 @@ class ProgramSet:
         self.n_layer = int(mcfg.n_layer)
         self.n_kv_head = int(mcfg.n_head)
         self.head_dim = int(mcfg.head_dim)
-        self.k_pool, self.v_pool = init_pools(
+        self.k_pool, self.v_pool, self.scales = init_pools(
             self.n_layer, self.num_pages, self.n_kv_head, self.page_size,
             self.head_dim, dtype=cache_dtype, device=self.device,
         )

@@ -8,6 +8,12 @@ mid-flight and queued requests are admitted into free slots by a prefill
 insertion. Inactive slots ride along in the decode batch pointed at the
 scratch page; every op is row-independent, so active slots are unaffected.
 
+int8 KV pages (``serving.kv_cache_dtype = "int8"``) halve the pool's
+bytes: the pools hold codes and ``ProgramSet.scales`` their per-(page, kv
+head) scales, which every program reads and writes beside the pages and
+which follow their pages through prefix sharing and copy-on-write (a scale
+row is indexed by page id like the page itself).
+
 Three hot-path features, each off by default and each keeping the greedy
 token streams:
 
@@ -49,12 +55,20 @@ from ..models.gpt2 import GPT2Config
 from ..runtime.config import ServingConfig
 from ..utils.logging import log_dist
 from . import model as smodel
-from .kv_cache import PageAllocatorError, PrefixCache, SlotTable, pages_for, pool_bytes
+from .kv_cache import (
+    PageAllocatorError,
+    PrefixCache,
+    SlotTable,
+    pages_for,
+    pool_bytes,
+    scales_bytes,
+)
 from .placement import ProgramSet
 from .request import Request, RequestStatus
 
 _CACHE_DTYPES = {
     "bfloat16": torch.bfloat16, "float16": torch.float16, "float32": torch.float32,
+    "int8": torch.int8,
 }
 
 
@@ -178,13 +192,20 @@ class ServingEngine:
         self._spec_runs = 0     # slot-steps of verify (accept lengths counted)
         self._t_first_submit: Optional[float] = None
         self._t_last_finish: Optional[float] = None
-        pool_mb = pool_bytes(
+        quantized = self.pset.scales is not None
+        self.kv_pool_bytes = pool_bytes(
             mcfg.n_layer, int(config.num_pages), mcfg.n_head, page, mcfg.head_dim,
             self.pset.k_pool.element_size(),
-        ) / 1e6
+        )
+        self.kv_scales_bytes = (
+            scales_bytes(mcfg.n_layer, int(config.num_pages), mcfg.n_head)
+            if quantized else 0
+        )
         log_dist(
             f"ServingEngine: slots={self.max_slots} page={page} "
-            f"pages={config.num_pages} (pool {pool_mb:.1f} MB) "
+            f"pages={config.num_pages} (pool {self.kv_pool_bytes / 1e6:.1f} MB"
+            + (f" + {self.kv_scales_bytes / 1e6:.2f} MB scales" if quantized else "")
+            + ") "
             f"prefill_width={self.prefill_width} chunk_width={self.chunk_width} "
             f"spec_k={self.spec_k} prefix_cache={self.prefix_cache is not None} "
             f"dtype={str(self.cache_dtype).replace('torch.', '')} device={self.device}"
@@ -193,6 +214,19 @@ class ServingEngine:
     @property
     def allocator(self):
         return self.pset.allocator
+
+    @property
+    def k_pool(self):
+        return self.pset.k_pool
+
+    @property
+    def v_pool(self):
+        return self.pset.v_pool
+
+    @property
+    def kv_scales(self):
+        """The int8 pool's ``[L, P, KV, 2]`` scales (None otherwise)."""
+        return self.pset.scales
 
     # ------------------------------------------------------------------
     # admission control
@@ -348,7 +382,7 @@ class ServingEngine:
             generators=gens,
             temperature=float(self.config.temperature),
             top_k=int(self.config.top_k), top_p=float(self.config.top_p),
-            return_logits=self.track_margins,
+            return_logits=self.track_margins, scales=pset.scales,
         )
         nxt, logits = out if self.track_margins else (out, None)
         # the one deliberate sync of the slot loop: the scheduler must read
@@ -374,7 +408,7 @@ class ServingEngine:
             torch.from_numpy(self.table.seq_lens).to(dev),
             pset.k_pool, pset.v_pool,
             torch.from_numpy(self.table.block_tables).to(dev),
-            return_logits=self.track_margins,
+            return_logits=self.track_margins, scales=pset.scales,
         )
         greedy, logits = out if self.track_margins else (out, None)
         out_np = greedy.cpu().numpy()  # the step's one deliberate sync
@@ -512,7 +546,7 @@ class ServingEngine:
             torch.from_numpy(page_ids).to(dev), slot.generator,
             temperature=float(self.config.temperature),
             top_k=int(self.config.top_k), top_p=float(self.config.top_p),
-            return_logits=self.track_margins,
+            return_logits=self.track_margins, scales=pset.scales,
         )
         first, logits = out if self.track_margins else (out, None)
         self._prefills += 1
@@ -551,7 +585,7 @@ class ServingEngine:
             slot.generator if final else None,
             temperature=float(self.config.temperature) if final else 0.0,
             top_k=int(self.config.top_k), top_p=float(self.config.top_p),
-            return_logits=self.track_margins and final,
+            return_logits=self.track_margins and final, scales=pset.scales,
         )
         self._chunks += 1
         slot.prefill_pos = start + C
@@ -732,6 +766,9 @@ class ServingEngine:
             "kv_pages_shared": self.allocator.pages_shared,
             "kv_cow_forks": self.allocator.cow_forks_total,
             "chunk_prefills": self._chunks,
+            "kv_cache_dtype": str(self.cache_dtype).replace("torch.", ""),
+            "kv_pool_bytes": self.kv_pool_bytes,
+            "kv_scales_bytes": self.kv_scales_bytes,
         }
         if self.prefix_cache is not None:
             pc = self.prefix_cache

@@ -3,7 +3,8 @@
 Usage, on a machine with one CUDA card, from the repository root:
 
     python -m deepspeed_tpu_torch.tools.profile_serving [--model gpt2-medium]
-        [--requests 16] [--seed 1234] [--top 12] [--features]
+        [--requests 16] [--seed 1234] [--top 12] [--features] [--int8]
+        [--timed N]
 
 Serves requests through the model in bf16 with random weights: once to
 warm up (kernel build, cuBLAS handles, allocator), then again under
@@ -11,12 +12,21 @@ warm up (kernel build, cuBLAS handles, allocator), then again under
 8..128 tokens, budgets of 16..64, drawn from ``--seed``) through the
 default serving section; with ``--features`` it is the shared-prefix
 traffic through :data:`FEATURES_SECTION` (speculation k=4, the prefix
-cache, 64-token chunks), as ``chip_smoke.py`` phase 3b serves it. Prints
+cache, 64-token chunks), as ``chip_smoke.py`` phase 3b serves it; with
+``--int8`` the pool holds int8 pages (``kv_cache_dtype="int8"``; with
+``--features`` that is phase 3c's configuration). Prints
 the device time by kernel (the ``--top`` largest), the paged kernels'
 shares, and the device's busy and idle shares of the profiled run's wall
 time, then one JSON line with the same numbers. The profiler's own host
 overhead lengthens the wall time, so the idle share it reports is an upper
 bound.
+
+``--timed N`` replaces the profiled run with N runs without the profiler
+and prints each run's end-to-end numbers as ``chip_smoke.py`` reads them
+(decode tokens/s, tokens/s, TTFT and TPOT p50, wall), then one JSON line.
+The script uses only the serving entry points, so it also times an older
+tree of the package: run it by path with that tree first on
+``PYTHONPATH``.
 """
 
 from __future__ import annotations
@@ -72,19 +82,42 @@ def shared_prefix_requests(srv, vocab, seed, n_shared=8, n_cold=8, system_len=25
     return reqs
 
 
-def _serve_once(eng, n_requests: int, seed: int, features: bool):
+def _serve_once(eng, n_requests: int, seed: int, features: bool, int8: bool):
     vocab = eng.model_config.vocab_size
+    section = dict(FEATURES_SECTION) if features else {}
+    if int8:
+        section["kv_cache_dtype"] = "int8"
+    srv = eng.serve(section or None)
     if features:
-        srv = eng.serve(FEATURES_SECTION)
         shared_prefix_requests(srv, vocab, seed, n_shared=n_requests // 2,
                                n_cold=n_requests - n_requests // 2)
     else:
-        srv = eng.serve()
         mixed_requests(srv, n_requests, vocab, seed)
     t0 = time.perf_counter()
     srv.run()
     torch.cuda.synchronize()
     return srv, time.perf_counter() - t0
+
+
+def _timed(eng, args) -> int:
+    runs = []
+    for i in range(args.timed):
+        srv, wall_s = _serve_once(eng, args.requests, args.seed, args.features, args.int8)
+        st = srv.stats()
+        runs.append({"decode_tokens_per_s": st["decode_tokens_per_s"],
+                     "tokens_per_s": st["tokens_per_s"],
+                     "ttft_p50_ms": st["ttft"]["p50_s"] * 1e3,
+                     "tpot_p50_ms": st["tpot"]["p50_s"] * 1e3, "wall_s": wall_s})
+        print(f"run {i}: decode tokens/s {runs[-1]['decode_tokens_per_s']:.1f}, tokens/s "
+              f"{runs[-1]['tokens_per_s']:.1f}, TTFT p50 {runs[-1]['ttft_p50_ms']:.2f} ms, "
+              f"TPOT p50 {runs[-1]['tpot_p50_ms']:.3f} ms, wall {wall_s:.3f} s", flush=True)
+        del srv
+    import deepspeed_tpu_torch
+
+    print(json.dumps({"device": torch.cuda.get_device_name(0),
+                      "package": deepspeed_tpu_torch.__file__, "features": args.features,
+                      "int8": args.int8, "seed": args.seed, "runs": runs}))
+    return 0
 
 
 def main(argv=None) -> int:
@@ -96,6 +129,9 @@ def main(argv=None) -> int:
     ap.add_argument("--features", action="store_true",
                     help="serve the shared-prefix traffic with speculation, the prefix "
                          "cache and chunked prefill on")
+    ap.add_argument("--int8", action="store_true", help="int8 KV pages")
+    ap.add_argument("--timed", type=int, default=0,
+                    help="N runs without the profiler, end-to-end numbers only")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_serving: needs a CUDA device", file=sys.stderr)
@@ -106,9 +142,11 @@ def main(argv=None) -> int:
     import deepspeed_tpu_torch as dtt
 
     eng = dtt.init_inference(args.model, dtype=torch.bfloat16, seed=0)
-    _serve_once(eng, args.requests, args.seed, args.features)
+    _serve_once(eng, args.requests, args.seed, args.features, args.int8)
+    if args.timed:
+        return _timed(eng, args)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        srv, wall_s = _serve_once(eng, args.requests, args.seed, args.features)
+        srv, wall_s = _serve_once(eng, args.requests, args.seed, args.features, args.int8)
 
     by_name, busy_us = device_time(prof)
     if not by_name:
@@ -121,7 +159,8 @@ def main(argv=None) -> int:
     steps, chunks = st["decode_steps"], st["chunk_prefills"]
 
     print(f"{torch.cuda.get_device_name(0)}; {args.requests} requests"
-          f"{' (speculation, prefix cache, chunked prefill)' if args.features else ''}, "
+          f"{' (speculation, prefix cache, chunked prefill)' if args.features else ''}"
+          f"{', int8 KV pages' if args.int8 else ''}, "
           f"{steps} decode steps, {chunks} chunk-program calls, wall {wall_s:.3f} s under "
           "the profiler")
     print(f"device busy {busy_us / 1e6:.4f} s = {busy_us / 1e6 / wall_s:.3f} of wall; "
@@ -135,7 +174,8 @@ def main(argv=None) -> int:
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "wall_s": wall_s,
         "device_busy_s": busy_us / 1e6, "idle_share": 1 - busy_us / 1e6 / wall_s,
-        "features": args.features, "decode_steps": steps, "chunk_prefills": chunks,
+        "features": args.features, "int8": args.int8, "decode_steps": steps,
+        "chunk_prefills": chunks,
         "paged_decode_kernel_s": paged_us / 1e6,
         "paged_decode_share_of_device": paged_us / total_us,
         "paged_multitoken_kernel_s": mt_us / 1e6,

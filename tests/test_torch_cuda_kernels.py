@@ -207,3 +207,115 @@ def test_causal_attention_on_the_card_runs_the_kernels_or_raises(card):
     assert fa.LAUNCHES["flash_attention_fwd"] == before + 1
     with pytest.raises(ValueError, match="jnp"):
         causal_attention(q, q, q, impl="jnp")
+
+
+# ---- int8 modes of the paged kernels (serving with int8 KV pages) -----------
+
+from deepspeed_tpu_torch.ops import decode_attention as tda  # noqa: E402
+from deepspeed_tpu_torch.ops.quantizer import quantize_kv_pages  # noqa: E402
+
+
+def _int8_pools(card, P, KV, page, D, g):
+    """Pools quantized from random f32 pages; page 1 keeps scale 0 (a
+    never-written page) and the scratch page 0 holds garbage codes."""
+    kq, ks = quantize_kv_pages(torch.randn(P, KV, page, D, generator=g, device=card))
+    vq, vs = quantize_kv_pages(torch.randn(P, KV, page, D, generator=g, device=card))
+    scales = torch.stack([ks, vs], dim=-1).contiguous()
+    scales[1] = 0.0
+    kq[0] = torch.randint(-127, 128, kq[0].shape, generator=g, device=card).to(torch.int8)
+    return kq, vq, scales
+
+
+@pytest.mark.parametrize("qdtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("H,KV,D,page", [(16, 16, 64, 16), (16, 4, 64, 16),
+                                         (8, 8, 128, 8), (4, 2, 256, 64)])
+def test_int8_paged_decode_kernel_matches_plain_version(card, qdtype, tol, H, KV, D, page):
+    g = torch.Generator(device=card).manual_seed(2)
+    B, P, n = 4, 40, 8
+    q = torch.randn(B, H, D, generator=g, device=card).to(qdtype)
+    kq, vq, sc = _int8_pools(card, P, KV, page, D, g)
+    bt = torch.randperm(P - 2, generator=g, device=card)[: B * n].add(2).reshape(B, n).int()
+    bt[0, 1] = 1  # the fresh page inside slot 0's live range: values 0
+    bt[3] = 0  # an inactive slot on the scratch page
+    pos = torch.tensor([page + 3, page - 1, 3 * page, n * page + 7], dtype=torch.int32,
+                       device=card)
+    before = (pda.LAUNCHES, pda.LAUNCHES_INT8)
+    out = pda.paged_decode_attention(q, kq, vq, bt, pos, scales=sc)
+    torch.cuda.synchronize()
+    assert (pda.LAUNCHES, pda.LAUNCHES_INT8) == (before[0], before[1] + 1)
+    ref = pda.paged_decode_attention_ref(q.float(), kq, vq, bt, pos, scales=sc)
+    assert (out.float() - ref).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("qdtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("T,H,KV,D,page", [(64, 16, 16, 64, 16), (5, 16, 4, 64, 16),
+                                           (37, 8, 8, 128, 8), (3, 4, 2, 256, 64)])
+def test_int8_paged_multitoken_kernel_matches_plain_version(card, qdtype, tol, T, H, KV, D,
+                                                            page):
+    g = torch.Generator(device=card).manual_seed(3)
+    B, P, n = 4, 48, 8
+    q = torch.randn(B, T, H, D, generator=g, device=card).to(qdtype)
+    kq, vq, sc = _int8_pools(card, P, KV, page, D, g)
+    bt = torch.randperm(P - 2, generator=g, device=card)[: B * n].add(2).reshape(B, n).int()
+    bt[0, 0] = 1
+    bt[3] = 0
+    base = torch.tensor([0, page - 1, page + 3, n * page - 2], dtype=torch.int32, device=card)
+    before = pma.LAUNCHES_INT8
+    out = pma.paged_multitoken_attention(q, kq, vq, bt, base, scales=sc)
+    torch.cuda.synchronize()
+    assert pma.LAUNCHES_INT8 == before + 1
+    ref = pma.paged_multitoken_attention_ref(q.float(), kq, vq, bt, base, scales=sc)
+    assert (out.float() - ref).abs().max().item() <= tol
+
+
+def test_int8_kernels_refuse_what_they_do_not_take(card):
+    q = torch.zeros(2, 4, 64, device=card)
+    kq = torch.zeros(8, 4, 16, 64, dtype=torch.int8, device=card)
+    bt = torch.ones(2, 2, dtype=torch.int32, device=card)
+    pos = torch.zeros(2, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="needs its scales"):
+        pda.paged_decode_attention(q, kq, kq, bt, pos)
+    with pytest.raises(ValueError, match="float32"):
+        pda.paged_decode_attention(q, kq, kq, bt, pos,
+                                   scales=torch.zeros(8, 4, 2, device=card).half())
+    with pytest.raises(TypeError, match="int8"):
+        pda.paged_decode_attention(q, kq.float(), kq.float(), bt, pos,
+                                   scales=torch.zeros(8, 4, 2, device=card))
+
+
+# ---- contiguous decode attention (offline generate) -------------------------
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2),
+                                       (torch.float16, 1e-2)])
+@pytest.mark.parametrize("B,S,H,KV,D,pos", [(8, 256, 16, 16, 64, 137), (2, 4096, 8, 8, 64, 4095),
+                                            (3, 64, 8, 2, 128, 0), (2, 300, 4, 4, 256, 299)])
+def test_decode_kernel_matches_plain_version(card, dtype, tol, B, S, H, KV, D, pos):
+    g = torch.Generator(device=card).manual_seed(4)
+    q = torch.randn(B, H, D, generator=g, device=card).to(dtype)
+    # a layer's strided slice of a stacked [L, B, S, KV, D] cache; rows
+    # past pos hold huge values the kernel must never read
+    k = torch.randn(2, B, S, KV, D, generator=g, device=card).to(dtype)
+    v = torch.randn(2, B, S, KV, D, generator=g, device=card).to(dtype)
+    k[:, :, pos + 1:], v[:, :, pos + 1:] = 1e4, -1e4
+    before = tda.LAUNCHES
+    out = tda.decode_attention(q, k[1], v[1], pos)
+    torch.cuda.synchronize()
+    assert tda.LAUNCHES == before + 1
+    ref = tda.decode_attention_ref(q.float(), k[1].float(), v[1].float(), pos)
+    assert (out.float() - ref).abs().max().item() <= tol
+
+
+def test_decode_kernel_refuses_what_it_does_not_take(card):
+    q = torch.zeros(2, 4, 32, device=card)  # head dim 32 is not built
+    k = torch.zeros(2, 16, 4, 32, device=card)
+    with pytest.raises(ValueError, match="head dim"):
+        tda.decode_attention(q, k, k, 3)
+    q, k = torch.zeros(2, 4, 64, device=card), torch.zeros(2, 16, 4, 64, device=card)
+    with pytest.raises(TypeError, match="Python int"):
+        tda.decode_attention(q, k, k, torch.tensor(3, device=card))
+    with pytest.raises(ValueError, match="unit-stride"):
+        tda.decode_attention(q, k.transpose(1, 3).contiguous().transpose(1, 3), k, 3)
+    with pytest.raises(ValueError, match="jnp"):
+        from deepspeed_tpu_torch.ops.attention import cached_attention
+
+        cached_attention(q, k, k, 3, impl="jnp")

@@ -109,3 +109,36 @@ def test_causal_attention_has_no_other_route():
     q = torch.zeros(1, 128, 2, 64, device="meta")
     with pytest.raises(ValueError, match="no implementation"):
         causal_attention(q, q, q)
+
+
+def test_the_inference_slice_modules_are_scanned():
+    """The int8-pages / offline-generate slice's modules and its kernel
+    sources are part of what the scans above cover."""
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for mod in ("ops/quantizer.py", "ops/decode_attention.py", "inference/engine.py",
+                "tools/profile_generate.py"):
+        assert f"deepspeed_tpu_torch/{mod}" in names
+    for src in ("decode_attention.cu", "paged_decode_attention.cu",
+                "paged_multitoken_attention.cu"):
+        assert (REPO / "deepspeed_tpu_torch/csrc" / src).is_file()
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.int8])
+def test_cached_and_int8_dispatch_have_no_other_route(kv_dtype):
+    """The contiguous decode dispatch and the int8 paged dispatch: CPU
+    tensors run the plain versions, CUDA tensors the kernels; any other
+    device raises instead of finding a fallback."""
+    from deepspeed_tpu_torch.ops.attention import cached_attention, paged_cached_attention
+
+    q = torch.zeros(1, 4, 64, device="meta")
+    if kv_dtype == torch.float32:
+        cache = torch.zeros(1, 16, 4, 64, device="meta")
+        with pytest.raises(ValueError, match="no implementation"):
+            cached_attention(q, cache, cache, 3)
+        return
+    pool = torch.zeros(4, 4, 8, 64, dtype=torch.int8, device="meta")
+    scales = torch.zeros(4, 4, 2, device="meta")
+    bt = torch.zeros(1, 2, dtype=torch.int32, device="meta")
+    pos = torch.zeros(1, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no implementation"):
+        paged_cached_attention(q, pool, pool, bt, pos, scales=scales)

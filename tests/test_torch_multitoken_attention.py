@@ -139,8 +139,13 @@ def test_kernel_wrapper_refuses_cpu_tensors_and_int8_scales():
     args = (t(q), t(kp), t(vp), t(bt), t(np.zeros(3, np.int32)))
     with pytest.raises(ValueError, match="CUDA"):
         pma.paged_multitoken_attention(*args)
-    with pytest.raises(NotImplementedError, match="int8"):
+    # scales belong to an int8 pool only (the wrapper and the dispatcher
+    # both say so), and an int8 pool on the CPU is refused as any CPU tensor
+    with pytest.raises(TypeError, match="int8"):
         pma.paged_multitoken_attention(*args, scales=torch.ones(24, 4, 2))
-    with pytest.raises(NotImplementedError, match="int8"):
+    with pytest.raises(ValueError, match="int8"):
         paged_multitoken_cached_attention(*args, scales=torch.ones(24, 4, 2))
-    assert pma.LAUNCHES == 0
+    kq = torch.zeros(24, 4, 8, 64, dtype=torch.int8)
+    with pytest.raises(ValueError, match="CUDA"):
+        pma.paged_multitoken_attention(args[0], kq, kq, *args[3:], scales=torch.ones(24, 4, 2))
+    assert pma.LAUNCHES == pma.LAUNCHES_INT8 == 0

@@ -112,6 +112,11 @@ def test_kernel_wrapper_refuses_cpu_tensors_and_int8_scales():
     args = (t(q), t(kp), t(vp), t(bt), t(np.zeros(3, np.int32)))
     with pytest.raises(ValueError, match="CUDA"):
         pda.paged_decode_attention(*args)
-    with pytest.raises(NotImplementedError, match="int8"):
+    # scales belong to an int8 pool only, and an int8 pool on the CPU is
+    # refused by the wrapper as any CPU tensor is
+    with pytest.raises(TypeError, match="int8"):
         pda.paged_decode_attention(*args, scales=torch.ones(16, 4, 2))
-    assert pda.LAUNCHES == 0
+    kq = torch.zeros(16, 4, 8, 64, dtype=torch.int8)
+    with pytest.raises(ValueError, match="CUDA"):
+        pda.paged_decode_attention(args[0], kq, kq, *args[3:], scales=torch.ones(16, 4, 2))
+    assert pda.LAUNCHES == pda.LAUNCHES_INT8 == 0

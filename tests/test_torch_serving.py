@@ -332,7 +332,7 @@ class TestTimeoutEviction:
     {"placement": {"decode_tp": 2}},
     {"placement": {"device_base": 1}},
     {"placement": {"prefill_tp": 2}},
-    {"kv_cache_dtype": "int8"},
+    {"placement": {"tp": 2, "disaggregate": True}},
     {"placement": {"tp": 2}},
     {"placement": {"disaggregate": True}},
     {"tiering": {"enabled": True}},

@@ -77,9 +77,33 @@ Phases, in order; any failure raises and the script exits non-zero:
      A 100-token prompt (bucketed to 128) gives the tokens of the
      unbucketed engine, and fp32 greedy tokens at gpt2-medium width and 4
      layers are the CPU's, both except at a tie.
-  8  (last, after 9) one JSON line of per-kernel numbers, every kernel and
-     mode with its launches on the path that ported it, then the last line
-     {"ok": true, "device": {...}} with "count": 1, the cards the run used.
+  10 the block-sparse kernels (forward, dq, dk/dv) against their plain
+     versions, chained as training runs them: o, lse, dq, dk, dv at 16
+     cases (the GPT-2 and BERT main shapes; fixed, bigbird, bslongformer,
+     variable and dense layouts, the dense one also against the flash
+     kernel; a custom layout whose first query block sees nothing, whose
+     rows must give o = 0 and lse = +1e30; blocks 16/32/64/128, D 64/128,
+     fp32/fp16/bf16, S 128-4096; q/k/v as views of a [B, S, 3E]
+     projection), each by max abs error and max abs error over max |ref|;
+     each kernel timed at the GPT-2 shape (B2 S4096 H16 D64 bf16, fixed
+     unidirectional, block 64) and the BERT shape (B16 S512 H16 D64 bf16,
+     fixed bidirectional, block 16) beside its plain version, SDPA with the
+     layout's dense boolean mask, the bound, and the dense flash kernels.
+  11 train gpt2-medium in bf16 at S4096 with the block-sparse section
+     through dtt.initialize(...): micro 2 x gas 2, AdamW, 10 steps on one
+     batch; losses finite and falling, each block-sparse kernel launched
+     exactly 24 x 2 x 10 times, flash launches and dense-masked calls 0;
+     step ms, tokens/s, peak memory, a profiler pass over 2 steps.
+  12 pre-train bert-large (MLM + NSP) in bf16 at S512 with the default
+     sparse section (fixed bidirectional, block 16): micro 16, Adam, 10
+     steps on one full-length batch; the same checks (24 x 1 x 10).
+  13 fp32 block-sparse training at full width and 4 layers, card against
+     CPU: GPT-2 at S1024 (block 64) and BERT at S256 (block 16), 3 steps
+     each; step-1 loss within 1e-5 relative, later losses within 1e-4.
+  8  (last, after 13) one JSON line of per-kernel numbers, every kernel and
+     mode with its launches on the path that ported it (the block-sparse
+     kernels: phase 11's), then the last line {"ok": true, "device": {...}}
+     with "count": 1, the cards the run used.
 
 Without a CUDA device it exits 1 before printing any result. It imports
 nothing of JAX or of the JAX package.
@@ -99,14 +123,18 @@ import torch
 import torch.nn.functional as F
 
 import deepspeed_tpu_torch as dtt
-from deepspeed_tpu_torch.models import gpt2
+from deepspeed_tpu_torch.models import bert, gpt2
+from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
 from deepspeed_tpu_torch.ops import decode_attention as tda
 from deepspeed_tpu_torch.ops import flash_attention as fa
 from deepspeed_tpu_torch.ops import op_builder
 from deepspeed_tpu_torch.ops import paged_decode_attention as pda
 from deepspeed_tpu_torch.ops import paged_multitoken_attention as pma
+from deepspeed_tpu_torch.ops import sparse_attention as sac
 from deepspeed_tpu_torch.ops.attention import gather_pool_pages
 from deepspeed_tpu_torch.ops.quantizer import quantize_kv_pages
+from deepspeed_tpu_torch.ops.sparse_attention import from_ds_config
+from deepspeed_tpu_torch.runtime.config import SparseAttentionConfig
 from deepspeed_tpu_torch.serving import RequestStatus
 from deepspeed_tpu_torch.serving.kv_cache import pages_for
 from deepspeed_tpu_torch.tools.profile_serving import (
@@ -115,10 +143,13 @@ from deepspeed_tpu_torch.tools.profile_serving import (
     shared_prefix_requests,
 )
 from deepspeed_tpu_torch.tools.profile_training import (
+    BLOCK_SPARSE_KERNELS,
+    GPT2_SPARSE_SECTION,
     analytic_train_flops_per_token,
     print_profile,
     profile_steps,
     train_config,
+    workload,
 )
 from deepspeed_tpu_torch.utils.weights import params_from_numpy, params_to_numpy, tree_leaves
 
@@ -479,6 +510,198 @@ def flash_bound(q, k, causal, window, backward):
 def reset_flash_launches():
     for key in fa.LAUNCHES:
         fa.LAUNCHES[key] = 0
+
+
+# ---------------------------------------------------------------------------
+# phase 10-13 helpers
+# ---------------------------------------------------------------------------
+
+def reset_block_sparse_counts():
+    for key in bsa.LAUNCHES:
+        bsa.LAUNCHES[key] = 0
+    for key in bsa.DENSE_CALLS:
+        bsa.DENSE_CALLS[key] = 0
+
+
+def bs_layout(kind, H, blk, causal):
+    """A sparsity config (or, for "custom", an explicit layout whose first
+    query block lists only the block above the diagonal) by name."""
+    attention = "unidirectional" if causal else "bidirectional"
+    if kind == "gpt2":
+        return from_ds_config(GPT2_SPARSE_SECTION, H)
+    if kind == "bert":
+        return from_ds_config(SparseAttentionConfig(), H)
+    if kind == "fixed":
+        return sac.FixedSparsityConfig(num_heads=H, block=blk, num_local_blocks=4,
+                                       attention=attention)
+    if kind == "bigbird":
+        return sac.BigBirdSparsityConfig(num_heads=H, block=blk, different_layout_per_head=True,
+                                         num_random_blocks=2, attention=attention)
+    if kind == "bslongformer":
+        return sac.BSLongformerSparsityConfig(num_heads=H, block=blk, attention=attention)
+    if kind == "variable":
+        return sac.VariableSparsityConfig(num_heads=H, block=blk, num_random_blocks=1,
+                                          local_window_blocks=[2, 4], global_block_indices=[0, 5],
+                                          attention=attention)
+    if kind == "dense":
+        return sac.DenseSparsityConfig(num_heads=H, block=blk)
+    raise ValueError(kind)
+
+
+def bs_lists(kind, S, H, blk, causal):
+    if kind == "custom":
+        nb = S // blk
+        layout = np.tril(np.ones((H, nb, nb), bool))
+        layout[:, 0, 0] = False
+        layout[:, 0, 1] = True
+        return bsa.lists_from_layout(layout, blk, "cuda")
+    return bsa.index_lists(bs_layout(kind, H, blk, causal), S, "cuda")
+
+
+def bs_case(B, S, H, D, dtype, seed=0):
+    """q, k, v as strided views of one [B, S, 3E] projection (as GPT-2 hands
+    them over) and dO (scaled by 0.1), on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn(B, S, 3 * H * D, generator=g, device="cuda").to(dtype)
+    q, k, v = (t.unflatten(-1, (H, D)) for t in qkv.split(H * D, dim=-1))
+    do = (torch.randn(B, S, H, D, generator=g, device="cuda") * 0.1).to(dtype)
+    return q, k, v, do
+
+
+def bs_errors(q, k, v, do, lists, causal):
+    """The forward, dq and dk/dv kernels chained as training runs them,
+    against the plain versions chained the same way: max abs error and max
+    abs error / max |ref| of o, lse (rows with a finite lse; the poisoned
+    rows must be poisoned in both), dq, dk, dv → (abs, scaled, o, poisoned
+    rows)."""
+    o, lse = bsa.block_sparse_attention_fwd(q, k, v, lists, causal)
+    delta = bsa.block_sparse_delta(o, do)
+    dq = bsa.block_sparse_attention_dq(q, k, v, do, lse, delta, lists, causal)
+    dk, dv = bsa.block_sparse_attention_dkv(q, k, v, do, lse, delta, lists, causal)
+    torch.cuda.synchronize()
+    o_r, lse_r = bsa.block_sparse_attention_fwd_ref(q, k, v, lists, causal)
+    grads_r = bsa.block_sparse_attention_bwd_ref(q, k, v, o_r, lse_r, do, lists, causal)
+    poison = lse_r == 1e30
+    check(torch.equal(lse == 1e30, poison), "block-sparse lse: poisoned rows differ")
+    got = {"o": o, "lse": lse[~poison], "dq": dq, "dk": dk, "dv": dv}
+    ref = {"o": o_r, "lse": lse_r[~poison], "dq": grads_r[0], "dk": grads_r[1],
+           "dv": grads_r[2]}
+    out, scaled = {}, {}
+    for name in got:
+        check(bool(torch.isfinite(got[name]).all()), f"block-sparse {name} not finite")
+        check(got[name].shape == ref[name].shape and got[name].dtype == ref[name].dtype,
+              f"block-sparse {name}: shape/dtype {got[name].shape} {got[name].dtype} against "
+              f"{ref[name].shape} {ref[name].dtype}")
+        out[name] = float((got[name].float() - ref[name].float()).abs().max())
+        scaled[name] = scaled_error(got[name], ref[name])
+    return out, scaled, o, int(poison.sum())
+
+
+def bs_pairs(lists, causal):
+    """(query, key) pairs one batch row computes over all heads: each active
+    block's blk x blk, a diagonal block's blk (blk + 1) / 2 under the causal
+    rule, a block above the diagonal none."""
+    lay = lists.layout
+    blk = lists.block
+    if not causal:
+        return int(lay.sum()) * blk * blk
+    n = lay.shape[1]
+    i, j = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    below = int((lay & (j < i)[None]).sum())
+    diag = int((lay & (j == i)[None]).sum())
+    return below * blk * blk + diag * blk * (blk + 1) // 2
+
+
+# per kernel: tensors of q's shape moved (read or written), [B, H, S] f32
+# rows moved, products per computed (query, key) pair
+BS_WORK = {"fwd": (4, 1, 2), "dq": (5, 2, 3), "dkv": (6, 2, 4)}
+
+
+def bs_bound(q, lists, causal, which):
+    """Least time of one call of kernel ``which``: each input read once and
+    each output written once over HBM (fwd: q, k, v, o, lse; dq: q, k, v,
+    dO, dq, lse, delta; dk/dv: q, k, v, dO, dk, dv, lse, delta), against the
+    products its function needs over this run's computed pairs at the
+    dtype's peak (fwd: s, P·V; dq: s, dp, dS·K; dk/dv: s, P^T·dO, dp,
+    dS^T·Q); the larger wins."""
+    B, S, H, D = q.shape
+    big, rows, products = BS_WORK[which]
+    nbytes = big * B * S * H * D * q.element_size() + rows * B * H * S * 4
+    flops = 2 * D * products * B * bs_pairs(lists, causal)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_OPS_PER_S[q.dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def train_phase(label, module, conf, batch, steps, n_layer, profile_kernels):
+    """Train ``steps`` steps on one batch through initialize(...) with the
+    counts at 0 → (engine, losses, step seconds, counts read right after)."""
+    eng, _, _, _ = dtt.initialize(model=module, config=conf, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_block_sparse_counts()
+    reset_flash_launches()
+    losses, step_s = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        m = eng.train_batch(batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    counts = dict(bsa.LAUNCHES, **bsa.DENSE_CALLS,
+                  flash=sum(fa.LAUNCHES.values()))
+    peak = torch.cuda.max_memory_allocated()
+    gas = eng.gradient_accumulation_steps
+    want = n_layer * gas * steps
+    check(all(np.isfinite(losses)), f"{label}: non-finite losses {losses}")
+    check(losses[-1] < losses[0], f"{label}: loss did not fall: {losses}")
+    check(all(counts[k] == want for k in bsa.LAUNCHES),
+          f"{label}: block-sparse launches {counts}, expected {want} each "
+          f"(= {n_layer} x {gas} x {steps})")
+    check(counts["flash"] == 0 and counts["sparse_attention_dense"] == 0,
+          f"{label}: flash launches {counts['flash']}, dense calls "
+          f"{counts['sparse_attention_dense']}, expected 0")
+    S = batch["input_ids"].shape[1]
+    tokens = eng.train_batch_size * S
+    step_ms = statistics.median(step_s[2:]) * 1e3
+    print("losses " + " ".join(f"{x:.4f}" for x in losses))
+    print(f"block-sparse launches: " + ", ".join(f"{k} {counts[k]}" for k in bsa.LAUNCHES)
+          + f" (= {n_layer} x {gas} x {steps} each); flash launches {counts['flash']}, dense "
+          f"masked calls {counts['sparse_attention_dense']}")
+    print(f"step ms (median of steps 3-{steps}, each closed by a sync) {step_ms:.2f}, steps "
+          + " ".join(f"{x * 1e3:.1f}" for x in step_s)
+          + f"; tokens/s {tokens / (step_ms / 1e3):.1f} ({tokens} tokens a step); peak memory "
+          f"{peak / 2**30:.2f} GiB")
+    print_profile(profile_steps(eng, batch, 2, kernels=profile_kernels))
+    return eng, counts
+
+
+def cpu_card_losses(label, module, conf, tree, batch, n_layer, steps=3):
+    """fp32 training from one set of weights on the card (kernels) and the
+    CPU (plain versions): step-1 loss within 1e-5 relative, later losses
+    within 1e-4, and the card run on the block-sparse kernels alone."""
+    losses = {}
+    for dev in ("cuda", "cpu"):
+        reset_block_sparse_counts()
+        reset_flash_launches()
+        eng, _, _, _ = dtt.initialize(model=module, config=conf,
+                                      model_parameters=params_from_numpy(tree, dev), device=dev)
+        losses[dev] = [float(eng.train_batch(batch)["loss"]) for _ in range(steps)]
+        if dev == "cuda":
+            want = n_layer * eng.gradient_accumulation_steps * steps
+            check(all(bsa.LAUNCHES[k] == want for k in bsa.LAUNCHES)
+                  and sum(fa.LAUNCHES.values()) == 0
+                  and bsa.DENSE_CALLS["sparse_attention_dense"] == 0,
+                  f"{label} card run: launches {bsa.LAUNCHES}, flash {fa.LAUNCHES}, "
+                  f"dense {bsa.DENSE_CALLS}")
+        del eng
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"])]
+    print(f"{label}: losses card " + " ".join(f"{x:.7f}" for x in losses["cuda"]) + ", CPU "
+          + " ".join(f"{x:.7f}" for x in losses["cpu"]) + ", relative differences "
+          + " ".join(f"{x:.3e}" for x in rel))
+    check(rel[0] <= 1e-5, f"{label}: fp32 step-1 loss card vs CPU: relative {rel[0]} > 1e-5")
+    check(max(rel[1:]) <= 1e-4, f"{label}: fp32 later losses card vs CPU: relative {rel} > 1e-4")
+    return rel
 
 
 def main() -> int:
@@ -1214,6 +1437,173 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    phase(10, "block-sparse kernels against their plain versions")
+    bs_cases = [  # label, (B, S, H, D, dtype), block, layout, causal
+        ("GPT-2 main bf16 B2 S4096 H16 D64 fixed-uni blk64",
+         (2, 4096, 16, 64, torch.bfloat16), 64, "gpt2", True),
+        ("BERT main bf16 B16 S512 H16 D64 fixed-bi blk16",
+         (16, 512, 16, 64, torch.bfloat16), 16, "bert", False),
+        ("fp32 B1 S1024 H4 D64 fixed-uni blk64", (1, 1024, 4, 64, torch.float32), 64, "gpt2", True),
+        ("fp32 B2 S512 H4 D128 bigbird blk16", (2, 512, 4, 128, torch.float32), 16, "bigbird",
+         False),
+        ("fp32 B1 S1024 H2 D64 variable-uni blk32", (1, 1024, 2, 64, torch.float32), 32,
+         "variable", True),
+        ("fp32 B1 S2048 H2 D128 bslongformer-uni blk128", (1, 2048, 2, 128, torch.float32), 128,
+         "bslongformer", True),
+        ("fp16 B2 S1024 H8 D64 bigbird blk32", (2, 1024, 8, 64, torch.float16), 32, "bigbird",
+         False),
+        ("fp16 B1 S2048 H4 D128 fixed-bi blk128", (1, 2048, 4, 128, torch.float16), 128, "fixed",
+         False),
+        ("fp16 B2 S1024 H4 D64 fixed-uni blk16", (2, 1024, 4, 64, torch.float16), 16, "fixed",
+         True),
+        ("bf16 B1 S2048 H4 D128 bslongformer-uni blk128", (1, 2048, 4, 128, torch.bfloat16), 128,
+         "bslongformer", True),
+        ("bf16 B2 S1024 H4 D64 variable-bi blk32", (2, 1024, 4, 64, torch.bfloat16), 32,
+         "variable", False),
+        ("bf16 B4 S128 H4 D128 bigbird-uni blk16", (4, 128, 4, 128, torch.bfloat16), 16,
+         "bigbird", True),
+        ("bf16 B2 S1024 H4 D64 dense-uni blk64 (= flash)", (2, 1024, 4, 64, torch.bfloat16), 64,
+         "dense", True),
+        ("fp32 B1 S1024 H4 D128 dense-bi blk32 (= flash)", (1, 1024, 4, 128, torch.float32), 32,
+         "dense", False),
+        ("bf16 B1 S256 H2 D64 custom fully masked first row blk16",
+         (1, 256, 2, 64, torch.bfloat16), 16, "custom", True),
+        ("fp32 B1 S256 H2 D128 custom fully masked first row blk16",
+         (1, 256, 2, 128, torch.float32), 16, "custom", True),
+    ]
+    bs_errs = {}
+    for n, (label, (B, S, H, D, dtype), blk, kind, causal) in enumerate(bs_cases):
+        q, k, v, do = bs_case(B, S, H, D, dtype, seed=40 + n)
+        lists = bs_lists(kind, S, H, blk, causal)
+        errs10, scaled10, o10, poisoned = bs_errors(q, k, v, do, lists, causal)
+        bs_errs[label] = errs10
+        rel_tol = FLASH_REL_TOL[dtype]
+        extra = ""
+        if kind == "dense":
+            o_flash, _ = fa.flash_attention_fwd(q, k, v, causal)
+            e = scaled_error(o10, o_flash)
+            check(e <= rel_tol, f"block-sparse {label}: against the flash kernel {e}")
+            extra = f"; o against the flash kernel {e:.3e}"
+        if kind == "custom":
+            zero = float(o10[:, :blk].float().abs().max())
+            check(poisoned == B * H * blk and zero == 0.0,
+                  f"block-sparse {label}: {poisoned} poisoned rows, max |o| there {zero}")
+            extra = f"; {poisoned} poisoned rows with o exactly 0"
+        print(f"block-sparse {label}: density {sac.layout_density(lists.layout):.4f}; max abs "
+              "err " + ", ".join(f"{k} {e:.3e}" for k, e in errs10.items())
+              + "; max abs err / max |ref| " + ", ".join(f"{k} {e:.3e}" for k, e in scaled10.items())
+              + f" (tolerance {rel_tol:g}, lse {LSE_REL_TOL:g}){extra}")
+        check(scaled10["lse"] <= LSE_REL_TOL, f"block-sparse {label}: lse {scaled10['lse']}")
+        check(all(e <= rel_tol for k, e in scaled10.items() if k != "lse"),
+              f"block-sparse {label}: scaled errors {scaled10} above {rel_tol}")
+        del q, k, v, do, o10
+        torch.cuda.empty_cache()
+
+    # the two main shapes: each kernel timed beside its plain version, SDPA
+    # with the layout's dense boolean mask (backward: its forward+backward
+    # for that kernel's grads minus its forward), the bound, and the port's
+    # dense flash kernels at the same shape
+    bs_times = {}
+    for n, (label, (B, S, H, D, dtype), blk, kind, causal) in enumerate(bs_cases[:2]):
+        q, k, v, do = bs_case(B, S, H, D, dtype, seed=40 + n)
+        lists = bs_lists(kind, S, H, blk, causal)
+        o, lse = bsa.block_sparse_attention_fwd(q, k, v, lists, causal)
+        delta = bsa.block_sparse_delta(o, do)
+        keep = lists.dense_mask("cuda")
+        if causal:
+            keep = keep & torch.ones(S, S, dtype=torch.bool, device="cuda").tril()
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib_o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep[None]).transpose(1, 2)
+        lib_err = scaled_error(lib_o, bsa.block_sparse_attention_fwd_ref(q, k, v, lists, causal)[0])
+        check(lib_err <= FLASH_REL_TOL[dtype], f"block-sparse library yardstick disagrees: {lib_err}")
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+
+        def lib_fwd(_):
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep[None])
+
+        def lib_grad(which):
+            def fn(_):
+                out = F.scaled_dot_product_attention(*(x.transpose(1, 2) for x in leaves),
+                                                     attn_mask=keep[None])
+                return torch.autograd.grad(out, which, do.transpose(1, 2))
+            return fn
+
+        t = {}
+        t["fwd"] = time_ms(lambda i: bsa.block_sparse_attention_fwd(q, k, v, lists, causal), 40)
+        t["dq"] = time_ms(lambda i: bsa.block_sparse_attention_dq(q, k, v, do, lse, delta, lists,
+                                                                  causal), 40)
+        t["dkv"] = time_ms(lambda i: bsa.block_sparse_attention_dkv(q, k, v, do, lse, delta, lists,
+                                                                    causal), 40)
+        plain = {
+            "fwd": time_ms(lambda i: bsa.block_sparse_attention_fwd_ref(q, k, v, lists, causal), 3,
+                           warmup=1)[0],
+            "dq": time_ms(lambda i: bsa.block_sparse_attention_dq_ref(q, k, v, do, lse, delta,
+                                                                      lists, causal), 3,
+                          warmup=1)[0],
+            "dkv": time_ms(lambda i: bsa.block_sparse_attention_dkv_ref(q, k, v, do, lse, delta,
+                                                                        lists, causal), 3,
+                           warmup=1)[0],
+        }
+        lib_fwd_ms = time_ms(lib_fwd, 20)[0]
+        lib = {"fwd": lib_fwd_ms,
+               "dq": time_ms(lib_grad(leaves[:1]), 10)[0] - lib_fwd_ms,
+               "dkv": time_ms(lib_grad(leaves[1:]), 10)[0] - lib_fwd_ms}
+        flash_fwd_ms = time_ms(lambda i: fa.flash_attention_fwd(q, k, v, causal), 40)[0]
+        fo, flse = fa.flash_attention_fwd(q, k, v, causal)
+        flash_bwd_ms = time_ms(lambda i: fa.flash_attention_bwd(q, k, v, fo, flse, do, causal),
+                               20)[0]
+        for which in ("fwd", "dq", "dkv"):
+            b_ms, b_by = bs_bound(q, lists, causal, which)
+            bs_times[label, which] = dict(ms=t[which][0], call_ms=t[which][1], plain_ms=plain[which],
+                                          library_ms=lib[which], bound_ms=b_ms, bound_by=b_by)
+            print(f"block_sparse_attention_{which} {label}, device ms per call: kernel "
+                  f"{t[which][0]:.4f}, plain {plain[which]:.4f}, library (SDPA with the dense "
+                  f"mask{'' if which == 'fwd' else ', its backward for these grads'}) "
+                  f"{lib[which]:.4f}, bound {b_ms:.5f} ({b_by}), kernel at {b_ms / t[which][0]:.3f} "
+                  f"of bound; per call with the host's launch path {t[which][1]:.4f}")
+        print(f"the port's dense flash kernels at this shape ({'causal' if causal else 'full'}), "
+              f"device ms per call: forward {flash_fwd_ms:.4f}, backward (delta, dk/dv, dq) "
+              f"{flash_bwd_ms:.4f}; block-sparse forward / dense {t['fwd'][0] / flash_fwd_ms:.3f}, "
+              f"backward (dq + dk/dv) / dense {(t['dq'][0] + t['dkv'][0]) / flash_bwd_ms:.3f}, "
+              f"layout density {sac.layout_density(lists.layout):.4f}")
+        del q, k, v, do, o, lse, delta, keep, qt, kt, vt, lib_o, leaves, fo, flse
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    phase(11, "train gpt2-medium bf16 at S4096 with the block-sparse section (the slice's path)")
+    cfg11, module11, conf11, batch11 = workload("gpt2-medium", sparse=True)
+    check(cfg11.attn_impl == "sparse" and cfg11.n_positions == 4096, f"phase 11 config {cfg11}")
+    eng11, counts11 = train_phase("phase 11", module11, conf11, batch11, 10, cfg11.n_layer,
+                                  BLOCK_SPARSE_KERNELS)
+    del eng11, batch11
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase(12, "pre-train bert-large bf16 (MLM + NSP) with the default block-sparse section")
+    cfg12, module12, conf12, batch12 = workload("bert-large", sparse=True)
+    check(cfg12.attn_impl == "sparse" and cfg12.sparsity_config.block == 16,
+          f"phase 12 config {cfg12}")
+    eng12, counts12 = train_phase("phase 12", module12, conf12, batch12, 10, cfg12.n_layer,
+                                  BLOCK_SPARSE_KERNELS)
+    del eng12, batch12
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase(13, "fp32 block-sparse training at full width, 4 layers: card against CPU")
+    for label, model, kw in (("GPT-2 sparse S1024 blk64", "gpt2-medium",
+                              dict(n_layer=4, seq=1024, micro=1, gas=2)),
+                             ("BERT sparse S256 blk16", "bert-large",
+                              dict(n_layer=4, seq=256, micro=2, gas=2))):
+        cfg13, module13, conf13, batch13 = workload(model, sparse=True, seed=13, **kw)
+        conf13.pop("bf16")
+        init = bert.init_params if model.startswith("bert") else gpt2.init_params
+        tree13 = params_to_numpy(init(cfg13, torch.Generator(device="cuda").manual_seed(13),
+                                      "cuda", torch.float32))
+        cpu_card_losses(label, module13, conf13, tree13, batch13, cfg13.n_layer)
+        del tree13
+        gc.collect()
+        torch.cuda.empty_cache()
+
     phase(8, "summary")
     # launches: each kernel's (and mode's) count on the path of the slice
     # that ported it (the decode kernel: phase 3's default path; the
@@ -1304,7 +1694,21 @@ def main() -> int:
         "bound_ms": bwd_bound,
         "bound_by": bwd_by,
         "library_ms": lib_bwd_ms,
-    }]}))
+    }] + [{
+        "name": f"block_sparse_attention_{which}",
+        "route": "cuda",
+        "source": f"deepspeed_tpu_torch/csrc/block_sparse_attention_{src}.cu",
+        "replaces": f"deepspeed_tpu/ops/pallas/block_sparse_attention.py:{line}",
+        "launches": counts11[f"block_sparse_attention_{which}"],
+        "max_abs_err": max(bs_errs[bs_cases[0][0]][key] for key in outputs),
+        "ms": bs_times[bs_cases[0][0], which]["ms"],
+        "plain_ms": bs_times[bs_cases[0][0], which]["plain_ms"],
+        "bound_ms": bs_times[bs_cases[0][0], which]["bound_ms"],
+        "bound_by": bs_times[bs_cases[0][0], which]["bound_by"],
+        "library_ms": bs_times[bs_cases[0][0], which]["library_ms"],
+    } for which, src, line, outputs in (("fwd", "fwd", 176, ("o", "lse")),
+                                        ("dq", "bwd", 208, ("dq",)),
+                                        ("dkv", "bwd", 226, ("dk", "dv")))]}))
     # the run uses one card, whatever the machine holds
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1,

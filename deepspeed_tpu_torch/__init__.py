@@ -4,13 +4,15 @@ A second package beside the JAX one, for NVIDIA Hopper (H100). What is
 ported so far: GPT-2 continuous-batching serving on one card (the paged KV
 pool, the scheduler and the serving programs, with speculation, the prefix
 cache, chunked prefill and int8 KV pages), offline GPT-2 generation over a
-contiguous KV cache, and GPT-2 training on one card (the single-device
-engine: bf16/fp16 on an fp32 master, accumulation, clipping, AdamW, LR
-schedules, loss scaling, full remat). Its attention kernels are
-hand-written CUDA (``csrc/``, built at first use): paged decode and
-multi-token attention (each with an int8 mode) for serving, contiguous
-decode attention for ``generate``, flash attention forward and backward
-for training. It imports torch, numpy and the standard library, and
+contiguous KV cache, and training on one card (the single-device engine:
+bf16/fp16 on an fp32 master, accumulation, clipping, AdamW, LR schedules,
+loss scaling, full remat) of GPT-2, dense or with block-sparse attention
+(a ``sparse_attention`` section), and of BERT pre-training (MLM + NSP,
+dense or block-sparse). Its attention kernels are hand-written CUDA
+(``csrc/``, built at first use): paged decode and multi-token attention
+(each with an int8 mode) for serving, contiguous decode attention for
+``generate``, flash attention forward and backward and block-sparse
+attention forward, dq and dk/dv for training. It imports torch, numpy and the standard library, and
 nothing of JAX or of ``deepspeed_tpu``.
 
 Entry points: :func:`init_inference`, then ``.serve()``, ``.generate(...)``
@@ -22,8 +24,14 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple, Union
 
 from .inference.engine import InferenceEngine
+from .models.bert import BertConfig
 from .models.gpt2 import GPT2Config, get_config
-from .runtime.config import DeepSpeedConfig, DeepSpeedConfigError, NotPortedError
+from .runtime.config import (
+    DeepSpeedConfig,
+    DeepSpeedConfigError,
+    NotPortedError,
+    SparseAttentionConfig,
+)
 from .runtime.engine import DeepSpeedEngine
 from .runtime.module import ModuleSpec
 
@@ -46,7 +54,8 @@ def initialize(model: Optional[ModuleSpec] = None, optimizer: Any = None,
                seed: int = 0, device=None) -> Tuple[DeepSpeedEngine, Any, Any, Any]:
     """Build a :class:`DeepSpeedEngine` (counterpart of
     ``deepspeed_tpu.initialize``): ``model`` a :class:`ModuleSpec`
-    (``models.gpt2.make_module(cfg)``), ``model_parameters`` an optional
+    (``models.gpt2.make_module(cfg)``, ``models.bert.make_module(cfg)``),
+    ``model_parameters`` an optional
     parameter tree (else ``model.init`` draws it from ``seed``), ``config``
     a dict, JSON string or path, ``lr_scheduler`` an optional ``step -> lr``
     callable, ``device`` the training device (default the CUDA card; raises
@@ -68,6 +77,6 @@ def initialize(model: Optional[ModuleSpec] = None, optimizer: Any = None,
     return engine, engine.optimizer, engine.training_dataloader, engine.lr_schedule
 
 
-__all__ = ["DeepSpeedConfig", "DeepSpeedConfigError", "DeepSpeedEngine", "GPT2Config",
-           "InferenceEngine", "ModuleSpec", "NotPortedError", "get_config", "init_inference",
-           "initialize"]
+__all__ = ["BertConfig", "DeepSpeedConfig", "DeepSpeedConfigError", "DeepSpeedEngine",
+           "GPT2Config", "InferenceEngine", "ModuleSpec", "NotPortedError",
+           "SparseAttentionConfig", "get_config", "init_inference", "initialize"]

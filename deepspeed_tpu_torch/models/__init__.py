@@ -1,1 +1,1 @@
-"""Model families of the port (GPT-2 for now)."""
+"""Model families of the port: GPT-2 and BERT."""

@@ -10,7 +10,9 @@ package's layout: a nested dict with the blocks stacked on a leading
 training trunk walks the stacked blocks in a Python loop (the JAX
 package's ``lax.scan``), with ``remat`` wrapping each block in
 ``torch.utils.checkpoint``; attention goes through
-``ops.attention.causal_attention`` (the flash kernels on the card). The
+``ops.attention.causal_attention`` (the flash kernels on the card), or,
+with ``attn_impl="sparse"``, through ``ops.sparse_attention`` (the
+block-sparse kernels on the card). The
 cached decode step's attention goes through ``ops.attention.cached_attention``
 (the contiguous decode kernel on the card).
 """
@@ -28,6 +30,7 @@ import torch.nn.functional as F
 from ..ops.attention import cached_attention, causal_attention
 from ..ops.layer_norm import layer_norm
 from ..ops.sampling import sample_logits
+from ..ops.sparse_attention import FixedSparsityConfig, from_ds_config, sparse_attention
 from ..runtime.activation_checkpointing import checkpoint
 from ..runtime.config import NotPortedError
 from ..runtime.module import ModuleSpec
@@ -35,8 +38,8 @@ from .lm_loss import head_token_loss
 
 PyTree = Any
 
-_ATTN_IMPLS = ("auto", "pallas", "jnp")
-_UNPORTED_ATTN_IMPLS = ("ring", "ring_flash", "ulysses", "sparse")
+_ATTN_IMPLS = ("auto", "pallas", "jnp", "sparse")
+_UNPORTED_ATTN_IMPLS = ("ring", "ring_flash", "ulysses")
 
 
 @dataclass(frozen=True)
@@ -54,10 +57,15 @@ class GPT2Config:
     dropout: float = 0.0
     remat: bool = False
     remat_policy: str = "full"
-    # auto | pallas (both: the CUDA kernels on the card) | jnp (CPU tensors only)
+    # auto | pallas (both: the CUDA kernels on the card) | jnp (CPU tensors
+    # only) | sparse (block-sparse attention under ``sparsity``)
     attn_impl: str = "auto"
     ce_chunk: int = 0
     moe_experts: int = 0
+    # for attn_impl="sparse": a SparsityConfig (None: FixedSparsityConfig at
+    # n_head), built from a config's ``sparse_attention`` section by
+    # get_config(..., sparse_attention=section)
+    sparsity: Any = None
 
     def __post_init__(self):
         item = "ROADMAP queue 1 item 5"
@@ -105,8 +113,15 @@ PRESETS: Dict[str, Dict] = {
 
 
 def get_config(name: str, **overrides) -> GPT2Config:
+    """A preset with ``overrides``. ``sparse_attention=section`` (a dict or
+    the typed ``SparseAttentionConfig``) turns on block-sparse attention
+    with the section's pattern; an explicit ``attn_impl`` wins."""
     base = dict(PRESETS[name])
     base.update(overrides)
+    section = base.pop("sparse_attention", None)
+    if section is not None:
+        base.setdefault("attn_impl", "sparse")
+        base["sparsity"] = from_ds_config(section, base.get("n_head", 12))
     return GPT2Config(**base)
 
 
@@ -181,7 +196,11 @@ def _attention(cfg: GPT2Config, lp, h):
     H, D = cfg.n_head, cfg.head_dim
     qkv = h @ lp["c_attn_w"] + lp["c_attn_b"]
     q, k, v = (x.unflatten(-1, (H, D)) for x in qkv.split(E, dim=-1))
-    o = causal_attention(q, k, v, impl=cfg.attn_impl)
+    if cfg.attn_impl == "sparse":
+        o = sparse_attention(q, k, v, cfg.sparsity or FixedSparsityConfig(num_heads=H),
+                             causal=True)
+    else:
+        o = causal_attention(q, k, v, impl=cfg.attn_impl)
     return o.reshape(B, S, E) @ lp["c_proj_w"] + lp["c_proj_b"]
 
 
@@ -298,8 +317,10 @@ def _attention_cached(cfg: GPT2Config, lp, h, k_cache, v_cache, pos: int):
     # "jnp" names the plain version, which the card never runs:
     # cached_attention refuses it for CUDA tensors
     if S == 1 and (cfg.attn_impl in ("auto", "pallas") or h.device.type == "cuda"):
+        # a sparse model decodes densely against its cache, as in the JAX package
+        impl = "auto" if cfg.attn_impl == "sparse" else cfg.attn_impl
         o1 = cached_attention(q[:, 0].contiguous(), k_cache, v_cache, pos,
-                              impl=cfg.attn_impl, sm_scale=scale)
+                              impl=impl, sm_scale=scale)
         o = o1.reshape(B, 1, E).to(h.dtype)
     else:
         Smax = k_cache.shape[1]

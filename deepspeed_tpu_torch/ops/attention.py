@@ -1,5 +1,6 @@
 """Attention dispatch (counterpart of ``deepspeed_tpu/ops/attention.py``):
-dense causal attention for training, single-token attention against a
+dense causal attention for training, dense bidirectional (encoder)
+attention for BERT, single-token attention against a
 contiguous KV cache for offline ``generate``, and attention against the
 serving subsystem's paged KV pool.
 
@@ -153,3 +154,39 @@ def causal_attention(q, k, v, impl: str = "auto", sm_scale: Optional[float] = No
     if q.device.type == "cpu":
         return causal_attention_windowed_ref(q, k, v, window, sm_scale)
     raise ValueError(f"causal_attention: no implementation for device {q.device}")
+
+
+def bidirectional_attention_ref(q, k, v, mask=None, sm_scale: Optional[float] = None):
+    """Plain encoder attention (the JAX package's
+    ``bidirectional_attention_jnp``): ``[B, S, H, D]`` → ``[B, S, H, D]``,
+    an optional padding ``mask [B, S]`` (1 = attend), f32 scores and
+    softmax, probabilities cast to q's dtype before the product with v."""
+    D = q.shape[-1]
+    scale = sm_scale if sm_scale is not None else 1.0 / (D ** 0.5)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if mask is not None:
+        logits = logits.masked_fill(~mask.to(q.device).bool()[:, None, None, :], -1e30)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def bidirectional_attention(q, k, v, mask=None, impl: str = "auto",
+                            sm_scale: Optional[float] = None):
+    """Non-causal ``[B, S, H, D]`` attention with an optional padding
+    ``mask [B, S]``.
+
+    An unmasked call on CUDA tensors runs the flash kernels (non-causal),
+    which launch or raise; a mask goes to the plain masked path on any
+    device, as in the JAX package (the kernels have no mask input); CPU
+    tensors take the plain version. ``impl="jnp"`` (the plain version by
+    name) is refused for CUDA tensors."""
+    if impl not in ("auto", "pallas", "jnp"):
+        raise ValueError(f"unknown attention impl {impl}")
+    if q.device.type == "cuda" and impl == "jnp":
+        raise ValueError("bidirectional_attention: impl='jnp' (the plain version) does not run "
+                         "on the card; CUDA tensors take the flash kernels (impl='auto')")
+    if mask is not None or q.device.type == "cpu":
+        return bidirectional_attention_ref(q, k, v, mask, sm_scale)
+    if q.device.type == "cuda":
+        return flash(q, k, v, False, sm_scale)
+    raise ValueError(f"bidirectional_attention: no implementation for device {q.device}")

@@ -1,0 +1,433 @@
+"""Block-sparse attention: the CUDA kernels' wrappers, their plain versions,
+the cached index lists and the autograd Function that ties them together.
+
+Counterpart of ``deepspeed_tpu/ops/pallas/block_sparse_attention.py``. The
+kernels replace the Pallas forward (``_fwd_kernel``, ``pallas_call`` :176),
+dq (``_bwd_dq_kernel``, :208) and dk/dv (``_bwd_dkv_kernel``, :226):
+``csrc/block_sparse_attention_fwd.cu`` holds the first,
+``csrc/block_sparse_attention_bwd.cu`` the other two. A static layout
+``[H, nQ, nK]`` of ``block``-sized blocks becomes index lists: ``kidx [H,
+nQ, maxK]`` with counts ``kcnt [H, nQ]`` (the key blocks each query block
+visits, ascending), and the transposed ``qidx [H, nK, maxQ]`` / ``qcnt``,
+which the dk/dv kernel walks so that both backward kernels write their
+outputs without atomics.
+
+Layout: q/k/v ``[B, S, H, D]`` with any batch / sequence / head strides and
+a contiguous last dim (so GPT-2's q, k and v stay views of the ``[B, S,
+3E]`` projection); lse and delta ``[B, H, S]`` f32 (the TPU's 128-lane
+broadcast is gone).
+
+The precision contract is the JAX kernels': scores from storage-dtype
+operands with an f32 accumulator, ``sm_scale`` applied to the f32 scores,
+masked scores -1e30 (inside a visited block, key j is kept for query i iff
+``j <= i`` when causal), P rounded to the storage dtype before P·V, ``l``
+clamped at 1e-30; a query row whose every visited score is masked gets o =
+0 and lse = +1e30, so that its backward contributions vanish. Backward:
+``p = exp(s - lse)``, ``ds = p (dp - delta)`` rounded to the storage dtype
+before dS·K and dSᵀ·Q, dq and dk scaled once at the end; ``delta =
+rowsum(dO * O)`` is a torch op outside the kernels, as in the JAX package.
+The plain versions compute the same formulas with whole ``[S, S]`` score
+matrices under the dense mask of the layout.
+
+:class:`BlockSparseAttention` runs the kernels for CUDA tensors and the
+plain versions for CPU tensors; a CUDA tensor never reaches a plain
+version. The layout and its index lists are built once per (sparsity
+config, S, device) and kept (:func:`index_lists`): the JAX package builds
+them at trace time, and an eager port would otherwise rebuild them in
+every layer of every step.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .flash_attention import DTYPE_CODES, _scale, _strides3, _strides_ok
+
+# kernel launches by this process, per kernel (the main path's proof that
+# it ran here)
+LAUNCHES = {"block_sparse_attention_fwd": 0, "block_sparse_attention_dq": 0,
+            "block_sparse_attention_dkv": 0}
+# calls of the masked-dense path (sparse_attention with a key_mask, or
+# impl="jnp"), which materializes [B, H, S, S] scores: a kernel run shows 0
+DENSE_CALLS = {"sparse_attention_dense": 0}
+# the index-list cache's lookups
+CACHE_STATS = {"hits": 0, "misses": 0}
+
+BLOCKS = (16, 32, 64, 128)
+HEAD_DIMS = (64, 128)
+NEG_INF = -1e30
+
+
+def layout_to_index_lists(layout: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
+                                                        np.ndarray]:
+    """``[H, nQ, nK]`` bool → (kidx ``[H, nQ, maxK]``, kcnt ``[H, nQ]``, qidx
+    ``[H, nK, maxQ]``, qcnt ``[H, nK]``), int32, each row ascending and
+    zero-padded: the forward and dq walk kidx, dk/dv walks qidx."""
+    H, nQ, nK = layout.shape
+    kcnt = layout.sum(axis=2).astype(np.int32)
+    qcnt = layout.sum(axis=1).astype(np.int32)
+    maxK = max(1, int(kcnt.max()))
+    maxQ = max(1, int(qcnt.max()))
+    kidx = np.zeros((H, nQ, maxK), np.int32)
+    qidx = np.zeros((H, nK, maxQ), np.int32)
+    for h in range(H):
+        for i in range(nQ):
+            cols = np.nonzero(layout[h, i])[0]
+            kidx[h, i, : len(cols)] = cols
+        for j in range(nK):
+            rows = np.nonzero(layout[h, :, j])[0]
+            qidx[h, j, : len(rows)] = rows
+    return kidx, kcnt, qidx, qcnt
+
+
+@dataclass(frozen=True, eq=False)
+class IndexLists:
+    """A layout and its index lists on one device."""
+
+    layout: np.ndarray  # [H, nQ, nK] bool, on the host
+    block: int
+    kidx: torch.Tensor  # [H, nQ, maxK] int32
+    kcnt: torch.Tensor  # [H, nQ] int32
+    qidx: torch.Tensor  # [H, nK, maxQ] int32
+    qcnt: torch.Tensor  # [H, nK] int32
+
+    def dense_mask(self, device) -> torch.Tensor:
+        """``[H, S, S]`` bool: the layout's element mask (what the plain
+        versions and the library yardstick use)."""
+        lay = torch.from_numpy(self.layout).to(device)
+        return lay.repeat_interleave(self.block, 1).repeat_interleave(self.block, 2)
+
+
+_CACHE: Dict[tuple, IndexLists] = {}
+
+
+def _freeze(x):
+    return tuple(_freeze(v) for v in x) if isinstance(x, (list, tuple)) else x
+
+
+def _lists(key, make_layout, block: int, device) -> IndexLists:
+    hit = _CACHE.get(key)
+    if hit is not None:
+        CACHE_STATS["hits"] += 1
+        return hit
+    CACHE_STATS["misses"] += 1
+    layout = np.asarray(make_layout(), bool)
+    kidx, kcnt, qidx, qcnt = (torch.from_numpy(a).to(device)
+                              for a in layout_to_index_lists(layout))
+    lists = IndexLists(layout, int(block), kidx, kcnt, qidx, qcnt)
+    _CACHE[key] = lists
+    return lists
+
+
+def index_lists(sparsity_config, seq_len: int, device) -> IndexLists:
+    """The layout of ``sparsity_config`` at ``seq_len`` and its index lists
+    on ``device``, built once and kept. The key is the config's class and
+    field values (not its identity), so an equal config shares the entry
+    and a changed one gets its own."""
+    device = torch.device(device)
+    fields = tuple(sorted((k, _freeze(v)) for k, v in vars(sparsity_config).items()))
+    key = ("config", type(sparsity_config).__name__, fields, int(seq_len), str(device))
+    return _lists(key, lambda: sparsity_config.make_layout(int(seq_len)),
+                  sparsity_config.block, device)
+
+
+def lists_from_layout(layout: np.ndarray, block: int, device) -> IndexLists:
+    """The index lists of an explicit ``[H, nQ, nK]`` layout on ``device``
+    (cached by the layout's bytes)."""
+    layout = np.asarray(layout, bool)
+    device = torch.device(device)
+    key = ("layout", layout.shape, layout.tobytes(), int(block), str(device))
+    return _lists(key, lambda: layout, block, device)
+
+
+def _check_layout(name, q, lists: IndexLists):
+    B, S, H, D = q.shape
+    nQ = S // lists.block
+    if S % lists.block or lists.layout.shape != (H, nQ, nQ):
+        raise ValueError(
+            f"{name}: layout {lists.layout.shape} (block {lists.block}) does not fit q "
+            f"{tuple(q.shape)}: expected ({H}, {nQ}, {nQ}) with S a multiple of the block"
+        )
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def _keep(lists: IndexLists, causal: bool, device) -> torch.Tensor:
+    """``[H, S, S]`` bool: key j computed for query i (the layout's mask,
+    and j <= i when causal)."""
+    keep = lists.dense_mask(device)
+    if causal:
+        S = keep.shape[-1]
+        keep = keep & torch.ones(S, S, dtype=torch.bool, device=device).tril()
+    return keep
+
+
+def _scores(q, k, keep, scale):
+    """Masked scaled scores ``[B, H, S, S]`` f32."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    return s.masked_fill(~keep, NEG_INF)
+
+
+def block_sparse_attention_fwd_ref(q, k, v, lists: IndexLists, causal: bool = False,
+                                   sm_scale: Optional[float] = None):
+    """Plain PyTorch forward → ``(o [B, S, H, D] in q.dtype, lse [B, H, S]
+    f32)``; a row with no kept score gets o = 0 and lse = +1e30."""
+    _check_layout("block_sparse_attention_fwd_ref", q, lists)
+    s = _scores(q, k, _keep(lists, causal, q.device), _scale(q.shape[-1], sm_scale))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+    o = o / l.permute(0, 2, 1, 3)
+    valid = m > NEG_INF * 0.5  # [B, H, S, 1]
+    o = torch.where(valid.permute(0, 2, 1, 3), o, torch.zeros_like(o))
+    lse = torch.where(valid, m + torch.log(l), torch.full_like(m, -NEG_INF))
+    return o.to(q.dtype), lse[..., 0]
+
+
+def block_sparse_delta(o, do):
+    """``delta = rowsum(dO * O)`` → ``[B, H, S]`` f32 (outside the kernels,
+    as in the JAX package)."""
+    return (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
+
+
+def _p_ds(q, k, v, do, lse, delta, lists, causal, scale):
+    """The backward's recomputed ``p`` and ``ds`` (rounded to q's dtype),
+    ``[B, H, S, S]`` f32."""
+    p = torch.exp(_scores(q, k, _keep(lists, causal, q.device), scale) - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    ds = (p * (dp - delta[..., None])).to(q.dtype).float()
+    return p, ds
+
+
+def block_sparse_attention_dq_ref(q, k, v, do, lse, delta, lists: IndexLists,
+                                  causal: bool = False, sm_scale: Optional[float] = None):
+    """Plain version of the dq kernel → dq ``[B, S, H, D]`` in q's dtype."""
+    _check_layout("block_sparse_attention_dq_ref", q, lists)
+    scale = _scale(q.shape[-1], sm_scale)
+    _, ds = _p_ds(q, k, v, do, lse, delta, lists, causal, scale)
+    return (torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale).to(q.dtype)
+
+
+def block_sparse_attention_dkv_ref(q, k, v, do, lse, delta, lists: IndexLists,
+                                   causal: bool = False, sm_scale: Optional[float] = None):
+    """Plain version of the dk/dv kernel → (dk, dv) ``[B, S, H, D]``."""
+    _check_layout("block_sparse_attention_dkv_ref", q, lists)
+    scale = _scale(q.shape[-1], sm_scale)
+    p, ds = _p_ds(q, k, v, do, lse, delta, lists, causal, scale)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), do.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def block_sparse_attention_bwd_ref(q, k, v, o, lse, do, lists: IndexLists,
+                                   causal: bool = False, sm_scale: Optional[float] = None):
+    """Plain PyTorch backward → ``(dq, dk, dv)`` from the saved ``o`` and
+    ``lse`` by the kernels' recompute formula."""
+    delta = block_sparse_delta(o, do)
+    dq = block_sparse_attention_dq_ref(q, k, v, do, lse, delta, lists, causal, sm_scale)
+    dk, dv = block_sparse_attention_dkv_ref(q, k, v, do, lse, delta, lists, causal, sm_scale)
+    return dq, dk, dv
+
+
+# ---------------------------------------------------------------------------
+# the kernels' wrappers
+# ---------------------------------------------------------------------------
+
+def _check(name, q, lists: IndexLists, tensors):
+    if q.dim() != 4:
+        raise ValueError(f"{name}: expected q [B, S, H, D], got {tuple(q.shape)}")
+    B, S, H, D = q.shape
+    if q.dtype not in DTYPE_CODES:
+        raise TypeError(f"{name}: q is {q.dtype}; the kernels take float32, float16, bfloat16")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {D} not in {HEAD_DIMS} (the kernels are built "
+                         "for these; the JAX kernel takes any multiple of 8)")
+    if lists.block not in BLOCKS:
+        raise ValueError(f"{name}: sparsity block {lists.block} not in {BLOCKS} (the kernels "
+                         "are built for these; the JAX kernel takes any multiple of 8)")
+    _check_layout(name, q, lists)
+    if lists.kidx.device != q.device:
+        raise ValueError(f"{name}: index lists on {lists.kidx.device}, q on {q.device}")
+    for what, t in tensors.items():
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(f"{name}: {what} is on {t.device}, expected every operand on "
+                             "the one CUDA device of q")
+        if t.shape != q.shape:
+            raise ValueError(f"{name}: {what} {tuple(t.shape)} must be q's shape "
+                             f"{tuple(q.shape)}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name}: {what} is {t.dtype}, expected q's dtype {q.dtype}")
+        if not _strides_ok(t):
+            raise ValueError(
+                f"{name}: {what} needs a contiguous last dim, 16-byte aligned data and "
+                f"strides that are multiples of 16 bytes; got strides {t.stride()}"
+            )
+
+
+def _check_rows(name, q, **rows):
+    B, S, H, _ = q.shape
+    for what, t in rows.items():
+        if (t.dtype != torch.float32 or tuple(t.shape) != (B, H, S) or not t.is_contiguous()
+                or t.device != q.device):
+            raise ValueError(f"{name}: {what} must be a contiguous [B, H, S] float32 tensor "
+                             "on q's device")
+
+
+def _stream(q) -> int:
+    return torch.cuda.current_stream(q.device).cuda_stream
+
+
+def block_sparse_attention_fwd(q, k, v, lists: IndexLists, causal: bool = False,
+                               sm_scale: Optional[float] = None):
+    """Launch the forward kernel on ``torch.cuda.current_stream()`` → ``(o
+    [B, S, H, D] contiguous in q.dtype, lse [B, H, S] f32)``. Raises on
+    what the kernel does not take (device, dtype, head dim, block, strides)."""
+    name = "block_sparse_attention_fwd"
+    _check(name, q, lists, {"q": q, "k": k, "v": v})
+    B, S, H, D = q.shape
+    o = torch.empty(B, S, H, D, dtype=q.dtype, device=q.device)
+    lse = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
+    if B == 0:
+        return o, lse
+    from .op_builder import load
+
+    lib = load(name)
+    err = lib.block_sparse_attention_fwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        lists.kidx.data_ptr(), lists.kcnt.data_ptr(),
+        B, S, H, D, lists.block, lists.kidx.shape[2],
+        *_strides3(q), *_strides3(k), *_strides3(v),
+        int(bool(causal)), ctypes.c_float(_scale(D, sm_scale)), DTYPE_CODES[q.dtype], _stream(q),
+    )
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed, CUDA error {err}")
+    LAUNCHES[name] += 1
+    return o, lse
+
+
+def block_sparse_attention_dq(q, k, v, do, lse, delta, lists: IndexLists, causal: bool = False,
+                              sm_scale: Optional[float] = None):
+    """Launch the dq kernel → dq ``[B, S, H, D]`` contiguous in q's dtype."""
+    name = "block_sparse_attention_dq"
+    _check(name, q, lists, {"q": q, "k": k, "v": v, "do": do})
+    _check_rows(name, q, lse=lse, delta=delta)
+    B, S, H, D = q.shape
+    dq = torch.empty(B, S, H, D, dtype=q.dtype, device=q.device)
+    if B == 0:
+        return dq
+    from .op_builder import load
+
+    lib = load("block_sparse_attention_bwd")
+    err = lib.block_sparse_attention_dq_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), lists.kidx.data_ptr(), lists.kcnt.data_ptr(),
+        B, S, H, D, lists.block, lists.kidx.shape[2],
+        *_strides3(q), *_strides3(k), *_strides3(v), *_strides3(do),
+        int(bool(causal)), ctypes.c_float(_scale(D, sm_scale)), DTYPE_CODES[q.dtype], _stream(q),
+    )
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed, CUDA error {err}")
+    LAUNCHES[name] += 1
+    return dq
+
+
+def block_sparse_attention_dkv(q, k, v, do, lse, delta, lists: IndexLists,
+                               causal: bool = False, sm_scale: Optional[float] = None):
+    """Launch the dk/dv kernel → (dk, dv) ``[B, S, H, D]`` contiguous."""
+    name = "block_sparse_attention_dkv"
+    _check(name, q, lists, {"q": q, "k": k, "v": v, "do": do})
+    _check_rows(name, q, lse=lse, delta=delta)
+    B, S, H, D = q.shape
+    dk = torch.empty(B, S, H, D, dtype=q.dtype, device=q.device)
+    dv = torch.empty(B, S, H, D, dtype=q.dtype, device=q.device)
+    if B == 0:
+        return dk, dv
+    from .op_builder import load
+
+    lib = load("block_sparse_attention_bwd")
+    err = lib.block_sparse_attention_dkv_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), lists.qidx.data_ptr(),
+        lists.qcnt.data_ptr(), B, S, H, D, lists.block, lists.qidx.shape[2],
+        *_strides3(q), *_strides3(k), *_strides3(v), *_strides3(do),
+        int(bool(causal)), ctypes.c_float(_scale(D, sm_scale)), DTYPE_CODES[q.dtype], _stream(q),
+    )
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed, CUDA error {err}")
+    LAUNCHES[name] += 1
+    return dk, dv
+
+
+def block_sparse_attention_bwd(q, k, v, o, lse, do, lists: IndexLists, causal: bool = False,
+                               sm_scale: Optional[float] = None):
+    """delta (a torch op), then the dq and dk/dv kernels → ``(dq, dk, dv)``."""
+    delta = block_sparse_delta(o, do)
+    dq = block_sparse_attention_dq(q, k, v, do, lse, delta, lists, causal, sm_scale)
+    dk, dv = block_sparse_attention_dkv(q, k, v, do, lse, delta, lists, causal, sm_scale)
+    return dq, dk, dv
+
+
+# ---------------------------------------------------------------------------
+# autograd
+# ---------------------------------------------------------------------------
+
+def _on(device, kernel, plain, what):
+    if device.type == "cuda":
+        return kernel
+    if device.type == "cpu":
+        return plain
+    raise ValueError(f"block-sparse attention {what}: no implementation for device {device}")
+
+
+class BlockSparseAttention(torch.autograd.Function):
+    """o = block-sparse attention(q, k, v); saves ``(q, k, v, o, lse)``.
+    CUDA tensors run the kernels, CPU tensors their plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lists, causal, sm_scale):
+        fwd = _on(q.device, block_sparse_attention_fwd, block_sparse_attention_fwd_ref,
+                  "forward")
+        o, lse = fwd(q, k, v, lists, causal, sm_scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.opts = (lists, causal, sm_scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        bwd = _on(q.device, block_sparse_attention_bwd, block_sparse_attention_bwd_ref,
+                  "backward")
+        if do.device.type == "cuda" and not _strides_ok(do):
+            do = do.contiguous()  # the layout the kernels read, not another route
+        dq, dk, dv = bwd(q, k, v, o, lse, do, *ctx.opts)
+        return dq, dk, dv, None, None, None
+
+
+def block_sparse(q, k, v, lists: IndexLists, causal: bool = False,
+                 sm_scale: Optional[float] = None):
+    """The autograd Function over prepared index lists."""
+    _check_layout("block_sparse_attention", q, lists)
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"block_sparse_attention: k {tuple(k.shape)} / v {tuple(v.shape)} "
+                         f"must be q's shape {tuple(q.shape)}")
+    return BlockSparseAttention.apply(q, k, v, lists, bool(causal), sm_scale)
+
+
+def block_sparse_attention(q, k, v, layout: np.ndarray, block: int, causal: bool = False,
+                           sm_scale: Optional[float] = None):
+    """``[B, S, H, D]`` block-sparse attention under a static ``[H, nQ, nK]``
+    layout (the JAX entry's signature, without ``interpret``)."""
+    B, S, H, D = q.shape
+    nQ = S // block
+    layout = np.asarray(layout, bool)
+    if layout.shape != (H, nQ, nQ):
+        raise ValueError(f"layout {layout.shape} != {(H, nQ, nQ)}")
+    return block_sparse(q, k, v, lists_from_layout(layout, block, q.device), causal, sm_scale)

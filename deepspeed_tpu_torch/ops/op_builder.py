@@ -54,6 +54,31 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
             ctypes.c_int,
         ),
     },
+    "block_sparse_attention_fwd": {
+        "block_sparse_attention_fwd_launch": (
+            [_P] * 7                           # q, k, v, o, lse, kidx, kcnt
+            + [_I] * 6                         # B, S, H, D, block, maxK
+            + [_L] * 9                         # q, k, v strides (batch, seq, head)
+            + [_I, _F, _I, _P],                # causal, sm_scale, dtype, stream
+            ctypes.c_int,
+        ),
+    },
+    "block_sparse_attention_bwd": {
+        "block_sparse_attention_dq_launch": (
+            [_P] * 9                           # q, k, v, do, lse, delta, dq, kidx, kcnt
+            + [_I] * 6                         # B, S, H, D, block, maxK
+            + [_L] * 12                        # q, k, v, do strides (batch, seq, head)
+            + [_I, _F, _I, _P],                # causal, sm_scale, dtype, stream
+            ctypes.c_int,
+        ),
+        "block_sparse_attention_dkv_launch": (
+            [_P] * 10                          # q, k, v, do, lse, delta, dk, dv, qidx, qcnt
+            + [_I] * 6                         # B, S, H, D, block, maxQ
+            + [_L] * 12                        # q, k, v, do strides (batch, seq, head)
+            + [_I, _F, _I, _P],                # causal, sm_scale, dtype, stream
+            ctypes.c_int,
+        ),
+    },
     "decode_attention": {
         "decode_attention_launch": (
             [_P, _P, _P, _P,                   # q, k_cache, v_cache, out

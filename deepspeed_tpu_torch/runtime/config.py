@@ -15,16 +15,17 @@ accepted only at their off values: turning one on raises
 ``fp16``/``bf16``, ``gradient_clipping``, ``optimizer``, ``scheduler``,
 ``prescale_gradients``/``gradient_predivide_factor``,
 ``data_types.grad_accum_dtype``, ``zero_optimization.stage == 0``,
-``steps_per_print``) with the JAX package's key names and defaults. Any
-other section at a value that turns something on raises
-:class:`NotPortedError`.
+``steps_per_print``, and the typed ``sparse_attention`` section that a
+model config reads through ``ops.sparse_attention.from_ds_config``) with
+the JAX package's key names and defaults. Any other section at a value that
+turns something on raises :class:`NotPortedError`.
 """
 
 from __future__ import annotations
 
 import json
 from dataclasses import dataclass, field, fields
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 
 class DeepSpeedConfigError(ValueError):
@@ -292,7 +293,31 @@ _TRAINING_KEYS = (
     "train_batch_size", "train_micro_batch_size_per_gpu", "gradient_accumulation_steps",
     "steps_per_print", "optimizer", "scheduler", "fp16", "bf16", "zero_optimization",
     "data_types", "gradient_clipping", "prescale_gradients", "gradient_predivide_factor",
+    "sparse_attention",
 )
+
+
+@dataclass
+class SparseAttentionConfig:
+    """``sparse_attention``: the block-sparsity pattern a model config
+    builds its ``SparsityConfig`` from (``mode`` selects the pattern; the
+    other keys are its constructor's)."""
+
+    mode: str = "fixed"
+    block: int = 16
+    different_layout_per_head: bool = False
+    num_local_blocks: int = 4
+    num_global_blocks: int = 1
+    attention: str = "bidirectional"
+    horizontal_global_attention: bool = False
+    num_different_global_patterns: int = 1
+    # None = the mode's own default (bigbird 1, variable 0), resolved by
+    # ops.sparse_attention.from_ds_config
+    num_random_blocks: Optional[int] = None
+    num_sliding_window_blocks: int = 3
+    local_window_blocks: List[int] = field(default_factory=lambda: [4])
+    global_block_indices: List[int] = field(default_factory=lambda: [0])
+    global_block_end_indices: Optional[List[int]] = None
 
 
 def _is_off(value) -> bool:
@@ -324,6 +349,7 @@ class DeepSpeedConfig:
     gradient_clipping: float = 0.0
     prescale_gradients: bool = False
     gradient_predivide_factor: float = 1.0
+    sparse_attention: Optional[SparseAttentionConfig] = None
     _user_batch: Optional[tuple] = None
 
     @classmethod
@@ -362,6 +388,9 @@ class DeepSpeedConfig:
             gradient_clipping=float(d.get("gradient_clipping", 0.0) or 0.0),
             prescale_gradients=bool(d.get("prescale_gradients", False)),
             gradient_predivide_factor=float(d.get("gradient_predivide_factor", 1.0)),
+            sparse_attention=(None if d.get("sparse_attention") is None
+                              else _typed_section(SparseAttentionConfig, "sparse_attention",
+                                                  d["sparse_attention"])),
         )
         if cfg.fp16.enabled and cfg.bf16.enabled:
             raise DeepSpeedConfigError("fp16 and bf16 cannot both be enabled")

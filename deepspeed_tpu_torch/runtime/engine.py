@@ -276,3 +276,9 @@ class DeepSpeedEngine:
 
     def zero_optimization_stage(self) -> int:
         return self.zero_stage
+
+    def sparse_attention_config(self):
+        """The ``sparse_attention`` config section (None when absent), for a
+        client model to feed ``ops.sparse_attention.from_ds_config`` or
+        ``gpt2.get_config(..., sparse_attention=...)``."""
+        return self.config.sparse_attention

@@ -3,18 +3,28 @@
 Usage, on a machine with one CUDA card, from the repository root:
 
     python -m deepspeed_tpu_torch.tools.profile_training [--pad-vocab N]
+    python -m deepspeed_tpu_torch.tools.profile_training --sparse
+    python -m deepspeed_tpu_torch.tools.profile_training --model bert-large --sparse
 
-Trains gpt2-medium as ``chip_smoke.py``'s training phase does (bf16 on an
-fp32 master, micro 8 x gas 2 x S1024, AdamW, WarmupLR, clipping 1.0, one
-seeded token batch repeated, random weights) through
-``deepspeed_tpu_torch.initialize``: two steps to warm up (kernel build,
-cuBLAS handles, allocator), then two under ``torch.profiler``. Prints the
-device time by kernel (the 12 largest), the flash kernels' shares, and the
-device's busy and idle shares of the profiled wall time, then one JSON line
-with the same numbers. The profiler's own host overhead lengthens the wall
-time, so the idle share is an upper bound. ``--pad-vocab N`` pads the
-embedding table to a multiple of N rows (the logical vocabulary and the
-loss stay the same; the head GEMMs get aligned leading dimensions).
+Trains one of ``chip_smoke.py``'s training workloads through
+``deepspeed_tpu_torch.initialize`` (bf16 on an fp32 master, clipping 1.0,
+WarmupLR, one seeded batch repeated, random weights):
+
+- default: gpt2-medium, micro 8 x gas 2 x S1024, AdamW (phase 6);
+- ``--sparse``: gpt2-medium at S4096 with the fixed unidirectional
+  ``sparse_attention`` section of block 64, micro 2 x gas 2, AdamW (phase 11);
+- ``--model bert-large [--sparse]``: BERT-large MLM + NSP pre-training at
+  S512, micro 16, Adam, with the default ``sparse_attention`` section under
+  ``--sparse`` (fixed bidirectional, block 16; phase 12), else dense.
+
+Two steps warm up (kernel build, cuBLAS handles, allocator), then two run
+under ``torch.profiler``. Prints the device time by kernel (the 12
+largest), the attention kernels' shares, and the device's busy and idle
+shares of the profiled wall time, then one JSON line with the same numbers.
+The profiler's own host overhead lengthens the wall time, so the idle share
+is an upper bound. ``--pad-vocab N`` pads GPT-2's embedding table to a
+multiple of N rows (the logical vocabulary and the loss stay the same; the
+head GEMMs get aligned leading dimensions).
 """
 
 from __future__ import annotations
@@ -29,26 +39,81 @@ import torch
 
 from deepspeed_tpu_torch.utils.profiling import device_time
 
-# the kernels of the flash path, by the names their launches carry
+# the attention kernels of each path, by the names their launches carry
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "flash_delta")
+BLOCK_SPARSE_KERNELS = ("bs_fwd", "bs_dq", "bs_dkv")
+# the GPT-2 sparse workload's section: local windows of 4 blocks of 64 plus
+# one global block per window, causal (10240 of 65536 blocks at S4096, H16)
+GPT2_SPARSE_SECTION = {"mode": "fixed", "block": 64, "num_local_blocks": 4,
+                       "num_global_blocks": 1, "attention": "unidirectional"}
 
 
-def train_config(micro: int = 8, gas: int = 2) -> dict:
-    """The training section chip_smoke's training phase uses: bf16 on an
-    fp32 master, AdamW (lr 3e-4, betas 0.9/0.95, wd 0.1), WarmupLR over 4
-    steps, gradient clipping 1.0."""
+def train_config(micro: int = 8, gas: int = 2, optimizer: str = "AdamW") -> dict:
+    """The training section chip_smoke's training phases use: bf16 on an
+    fp32 master, AdamW (lr 3e-4, betas 0.9/0.95, wd 0.1) or Adam (lr 3e-4),
+    WarmupLR over 4 steps, gradient clipping 1.0."""
+    params = {"lr": 3e-4, "betas": [0.9, 0.95], "weight_decay": 0.1}
+    if optimizer == "Adam":
+        params = {"lr": 3e-4}
     return {
         "train_micro_batch_size_per_gpu": micro,
         "gradient_accumulation_steps": gas,
         "bf16": {"enabled": True},
         "gradient_clipping": 1.0,
         "steps_per_print": 1000,
-        "optimizer": {"type": "AdamW",
-                      "params": {"lr": 3e-4, "betas": [0.9, 0.95], "weight_decay": 0.1}},
+        "optimizer": {"type": optimizer, "params": params},
         "scheduler": {"type": "WarmupLR",
                       "params": {"warmup_min_lr": 0.0, "warmup_max_lr": 3e-4,
                                  "warmup_num_steps": 4}},
     }
+
+
+def bert_batch(vocab: int, rows: int, S: int, seed: int) -> dict:
+    """A BERT pre-training batch: 15% of the tokens masked (token 103) with
+    their labels, -100 elsewhere; two segments; next-sentence labels; no
+    attention mask (full-length rows keep every layer on the kernels)."""
+    rs = np.random.RandomState(seed)
+    ids = rs.randint(1000, vocab, (rows, S)).astype(np.int32)
+    labels = np.full((rows, S), -100, np.int32)
+    pick = rs.rand(rows, S) < 0.15
+    labels[pick] = ids[pick]
+    ids[pick] = 103
+    return {"input_ids": ids, "labels": labels,
+            "token_type_ids": np.repeat((np.arange(S)[None] >= S // 2), rows, 0).astype(np.int32),
+            "next_sentence_label": rs.randint(0, 2, (rows,)).astype(np.int32)}
+
+
+def workload(model: str = "gpt2-medium", sparse: bool = False, pad_vocab: int = 1,
+             n_layer=None, seq=None, micro=None, gas=None, seed: int = 5):
+    """(model config, ModuleSpec, training config, one batch) of a training
+    workload, at its own sizes unless overridden."""
+    from deepspeed_tpu_torch.models import bert, gpt2
+    from deepspeed_tpu_torch.ops.sparse_attention import from_ds_config
+    from deepspeed_tpu_torch.runtime.config import SparseAttentionConfig
+
+    depth = {} if n_layer is None else {"n_layer": n_layer}
+    if model.startswith("bert"):
+        S = seq or 512
+        extra = {}
+        if sparse:
+            extra = dict(attn_impl="sparse", sparsity_config=from_ds_config(
+                SparseAttentionConfig(), bert.PRESETS[model]["n_head"]))
+        cfg = bert.get_config(model, pretraining=True, **depth, **extra)
+        conf = train_config(micro or 16, gas or 1, optimizer="Adam")
+        rows = conf["train_micro_batch_size_per_gpu"] * conf["gradient_accumulation_steps"]
+        return cfg, bert.make_module(cfg), conf, bert_batch(cfg.vocab_size, rows, S, seed)
+    if sparse:
+        S = seq or 4096
+        cfg = gpt2.get_config(model, n_positions=max(S, 1024), pad_vocab_multiple=pad_vocab,
+                              sparse_attention=GPT2_SPARSE_SECTION, **depth)
+        conf = train_config(micro or 2, gas or 2)
+    else:
+        S = seq or 1024
+        cfg = gpt2.get_config(model, pad_vocab_multiple=pad_vocab, **depth)
+        conf = train_config(micro or 8, gas or 2)
+    rows = conf["train_micro_batch_size_per_gpu"] * conf["gradient_accumulation_steps"]
+    ids = np.random.RandomState(seed).randint(0, cfg.vocab_size, (rows, S)).astype(np.int32)
+    return cfg, gpt2.make_module(cfg), conf, {"input_ids": ids}
 
 
 def analytic_train_flops_per_token(L: int, h: int, vocab: int, S: int) -> float:
@@ -59,8 +124,10 @@ def analytic_train_flops_per_token(L: int, h: int, vocab: int, S: int) -> float:
     return 3.0 * fwd
 
 
-def profile_steps(engine, batch, steps: int, top: int = 12) -> dict:
-    """``steps`` train steps on ``batch`` under the profiler → the breakdown."""
+def profile_steps(engine, batch, steps: int, top: int = 12,
+                  kernels=FLASH_KERNELS) -> dict:
+    """``steps`` train steps on ``batch`` under the profiler → the breakdown;
+    ``kernels``: the name fragments of the attention kernels to report."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -74,11 +141,11 @@ def profile_steps(engine, batch, steps: int, top: int = 12) -> dict:
     if not by_name:
         raise RuntimeError("the profiler recorded no device activity")
     total_us = sum(by_name.values())
-    flash = {k: sum(t for n, t in by_name.items() if k in n) / total_us for k in FLASH_KERNELS}
+    shares = {k: sum(t for n, t in by_name.items() if k in n) / total_us for k in kernels}
     return {
         "steps": steps, "wall_s": wall_s, "device_busy_s": busy_us / 1e6,
         "idle_share": 1 - busy_us / 1e6 / wall_s, "device_s": total_us / 1e6,
-        "flash_share_of_device": flash,
+        "attention_share_of_device": shares,
         "top": [[name, t / 1e6, t / total_us] for name, t in
                 sorted(by_name.items(), key=lambda kv: -kv[1])[:top]],
     }
@@ -88,37 +155,39 @@ def print_profile(p: dict) -> None:
     print(f"profiled {p['steps']} steps: wall {p['wall_s']:.4f} s, device busy "
           f"{p['device_busy_s']:.4f} s, idle share {p['idle_share']:.4f} (an upper bound: the "
           "profiler lengthens the host's time)")
-    print("flash kernels' shares of device time: " + ", ".join(
-        f"{k} {v:.4f}" for k, v in p["flash_share_of_device"].items()))
+    print("attention kernels' shares of device time: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in p["attention_share_of_device"].items()))
     for name, s, share in p["top"]:
         print(f"  {s * 1e3:10.3f} ms  {share:6.4f}  {name[:100]}")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--model", default="gpt2-medium", choices=("gpt2-medium", "bert-large"))
+    ap.add_argument("--sparse", action="store_true",
+                    help="block-sparse attention (GPT-2: phase 11's section; BERT: the default)")
     ap.add_argument("--pad-vocab", type=int, default=1,
-                    help="pad the embedding table to a multiple of this many rows")
+                    help="pad GPT-2's embedding table to a multiple of this many rows")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_training: needs a CUDA device", file=sys.stderr)
         return 1
 
     import deepspeed_tpu_torch as dtt
-    from deepspeed_tpu_torch.models import gpt2
 
-    cfg = gpt2.get_config("gpt2-medium", pad_vocab_multiple=args.pad_vocab)
-    eng, *_ = dtt.initialize(model=gpt2.make_module(cfg), config=train_config(), seed=0)
-    ids = np.random.RandomState(5).randint(
-        0, cfg.vocab_size, (eng.train_batch_size, cfg.n_positions)).astype(np.int32)
-    batch = {"input_ids": ids}
+    cfg, module, conf, batch = workload(args.model, args.sparse, args.pad_vocab)
+    eng, *_ = dtt.initialize(model=module, config=conf, seed=0)
     for _ in range(2):
         eng.train_batch(batch)
-    p = profile_steps(eng, batch, 2)
-    print(f"{torch.cuda.get_device_name(0)}; gpt2-medium bf16, micro 8 x gas 2 x seq "
-          f"{cfg.n_positions}, embedding rows {cfg.padded_vocab_size}")
+    p = profile_steps(eng, batch, 2, kernels=BLOCK_SPARSE_KERNELS if args.sparse
+                      else FLASH_KERNELS)
+    S = batch["input_ids"].shape[1]
+    print(f"{torch.cuda.get_device_name(0)}; {args.model} bf16"
+          f"{' block-sparse' if args.sparse else ''}, micro "
+          f"{eng.micro_batch_size} x gas {eng.gradient_accumulation_steps} x seq {S}")
     print_profile(p)
-    print(json.dumps(dict(p, device=torch.cuda.get_device_name(0),
-                          padded_vocab=cfg.padded_vocab_size)))
+    print(json.dumps(dict(p, device=torch.cuda.get_device_name(0), model=args.model,
+                          sparse=args.sparse, seq=S)))
     return 0
 
 

@@ -319,3 +319,169 @@ def test_decode_kernel_refuses_what_it_does_not_take(card):
         from deepspeed_tpu_torch.ops.attention import cached_attention
 
         cached_attention(q, k, k, 3, impl="jnp")
+
+
+# ---- block-sparse attention (forward, dq, dk/dv) ----------------------------
+
+import numpy as np  # noqa: E402
+
+from deepspeed_tpu_torch.ops import block_sparse_attention as bsa  # noqa: E402
+from deepspeed_tpu_torch.ops.sparse_attention import (  # noqa: E402
+    BigBirdSparsityConfig,
+    BSLongformerSparsityConfig,
+    DenseSparsityConfig,
+    FixedSparsityConfig,
+    VariableSparsityConfig,
+)
+
+
+def _bs_config(kind, H, blk, causal):
+    attention = "unidirectional" if causal else "bidirectional"
+    if kind == "fixed":
+        return FixedSparsityConfig(num_heads=H, block=blk, num_local_blocks=4, attention=attention)
+    if kind == "bigbird":
+        return BigBirdSparsityConfig(num_heads=H, block=blk, different_layout_per_head=True,
+                                     num_random_blocks=2, attention=attention)
+    if kind == "bslongformer":
+        return BSLongformerSparsityConfig(num_heads=H, block=blk, attention=attention)
+    if kind == "variable":
+        return VariableSparsityConfig(num_heads=H, block=blk, num_random_blocks=1,
+                                      local_window_blocks=[2, 3], global_block_indices=[1],
+                                      attention=attention)
+    return DenseSparsityConfig(num_heads=H, block=blk)
+
+
+def _bs_check(q, k, v, do, lists, causal):
+    """The three kernels against their plain versions on the same inputs."""
+    before = dict(bsa.LAUNCHES)
+    o, lse = bsa.block_sparse_attention_fwd(q, k, v, lists, causal)
+    dq, dk, dv = bsa.block_sparse_attention_bwd(q, k, v, o, lse, do, lists, causal)
+    torch.cuda.synchronize()
+    assert all(bsa.LAUNCHES[n] == before[n] + 1 for n in bsa.LAUNCHES)
+    o_ref, lse_ref = bsa.block_sparse_attention_fwd_ref(q, k, v, lists, causal)
+    grads_ref = bsa.block_sparse_attention_bwd_ref(q, k, v, o_ref, lse_ref, do, lists, causal)
+    rel_tol = FLASH_REL_TOL[q.dtype]
+    assert _scaled_err(o, o_ref) <= rel_tol
+    poison = lse_ref == 1e30
+    assert torch.equal(lse == 1e30, poison)
+    assert _scaled_err(lse[~poison], lse_ref[~poison]) <= LSE_REL_TOL
+    for got, ref in zip((dq, dk, dv), grads_ref):
+        assert got.shape == ref.shape and got.dtype == ref.dtype
+        assert _scaled_err(got, ref) <= rel_tol
+    return o, (dq, dk, dv)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("kind,B,S,H,D,blk,causal", [
+    ("fixed", 2, 512, 4, 64, 16, False),
+    ("fixed", 1, 1024, 4, 64, 64, True),
+    ("bigbird", 2, 512, 4, 128, 32, False),
+    ("bslongformer", 1, 1024, 2, 128, 128, True),
+    ("variable", 1, 512, 4, 64, 32, True),
+    ("dense", 1, 256, 2, 64, 64, True),
+])
+def test_block_sparse_kernels_match_plain_versions(card, dtype, kind, B, S, H, D, blk, causal):
+    q, k, v, do = _flash_inputs(card, B, S, H, H, D, dtype, seed=blk + D)
+    lists = bsa.index_lists(_bs_config(kind, H, blk, causal), S, card)
+    o, _ = _bs_check(q, k, v, do, lists, causal)
+    if kind == "dense":  # the dense layout is flash attention
+        o_flash, _ = fa.flash_attention_fwd(q, k, v, causal)
+        assert _scaled_err(o, o_flash) <= FLASH_REL_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_sparse_fully_masked_row_gives_zeros(card, dtype):
+    """A layout whose first query block lists only a block above the
+    diagonal: under the causal rule its rows see nothing, so o, dq and the
+    rows' contributions are exactly 0 (and lse is the +1e30 poison)."""
+    B, S, H, D, blk = 1, 256, 2, 64, 16
+    nb = S // blk
+    layout = np.tril(np.ones((H, nb, nb), bool))
+    layout[:, 0, 0] = False
+    layout[:, 0, 1] = True
+    q, k, v, do = _flash_inputs(card, B, S, H, H, D, dtype, seed=5)
+    lists = bsa.lists_from_layout(layout, blk, card)
+    o, (dq, _, _) = _bs_check(q, k, v, do, lists, True)
+    assert float(o[:, :blk].abs().max()) == 0.0 and float(dq[:, :blk].abs().max()) == 0.0
+
+
+def test_block_sparse_autograd_through_qkv_views(card):
+    """GPT-2's q, k, v as strided views of one [B, S, 3E] projection: the
+    kernels read them in place, and the grads match the CPU plain path."""
+    B, S, H, D = 2, 512, 4, 64
+    g = torch.Generator(device=card).manual_seed(3)
+    qkv = torch.randn(B, S, 3 * H * D, generator=g, device=card).to(torch.bfloat16)
+    qkv.requires_grad_(True)
+    do = (torch.randn(B, S, H, D, generator=g, device=card) * 0.1).to(torch.bfloat16)
+    cfg = FixedSparsityConfig(num_heads=H, block=64, attention="unidirectional")
+
+    def run(x):
+        q, k, v = (t.unflatten(-1, (H, D)) for t in x.split(H * D, dim=-1))
+        lists = bsa.index_lists(cfg, S, x.device)
+        return bsa.block_sparse(q, k, v, lists, True)
+
+    o = run(qkv)
+    (gk,) = torch.autograd.grad(o, qkv, do)
+    ref = qkv.detach().float().cpu().requires_grad_(True)
+    o_ref = run(ref)  # CPU tensors: the plain versions
+    (gr,) = torch.autograd.grad(o_ref, ref, do.float().cpu())
+    assert _scaled_err(o.cpu(), o_ref) <= FLASH_REL_TOL[torch.bfloat16]
+    assert _scaled_err(gk.cpu(), gr) <= FLASH_REL_TOL[torch.bfloat16]
+
+
+def test_block_sparse_kernels_refuse_what_they_do_not_take(card):
+    from deepspeed_tpu_torch.ops.sparse_attention import sparse_attention
+
+    q = torch.zeros(1, 256, 2, 64, device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="block 8"):
+        bsa.block_sparse_attention_fwd(
+            q, q, q, bsa.index_lists(FixedSparsityConfig(num_heads=2, block=8), 256, card))
+    q32 = torch.zeros(1, 256, 2, 32, device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        bsa.block_sparse_attention_fwd(
+            q32, q32, q32, bsa.index_lists(FixedSparsityConfig(num_heads=2), 256, card))
+    with pytest.raises(ValueError, match="jnp"):
+        sparse_attention(q, q, q, FixedSparsityConfig(num_heads=2), impl="jnp")
+
+
+def test_bidirectional_attention_on_the_card(card):
+    """BERT's dense encoder attention: an unmasked batch runs the non-causal
+    flash kernels, a masked one the plain masked path (no kernel has a mask
+    input), and both agree with the CPU's plain version."""
+    from deepspeed_tpu_torch.ops.attention import (
+        bidirectional_attention,
+        bidirectional_attention_ref,
+    )
+
+    q, k, v, _ = _flash_inputs(card, 2, 256, 4, 4, 64, torch.bfloat16, seed=9)
+    mask = torch.ones(2, 256, dtype=torch.long, device=card)
+    mask[1, 200:] = 0
+    before = fa.LAUNCHES["flash_attention_fwd"]
+    out = bidirectional_attention(q, k, v)
+    assert fa.LAUNCHES["flash_attention_fwd"] == before + 1
+    masked = bidirectional_attention(q, k, v, mask=mask)
+    assert fa.LAUNCHES["flash_attention_fwd"] == before + 1
+    cpu = [x.float().cpu() for x in (q, k, v)]
+    assert _scaled_err(out.cpu(), bidirectional_attention_ref(*cpu)) <= FLASH_REL_TOL[torch.bfloat16]
+    assert _scaled_err(masked.cpu(), bidirectional_attention_ref(*cpu, mask.cpu())) <= \
+        FLASH_REL_TOL[torch.bfloat16]
+    with pytest.raises(ValueError, match="jnp"):
+        bidirectional_attention(q, k, v, impl="jnp")
+
+
+def test_sparse_bert_on_the_card_matches_the_cpu(card):
+    """bert-tiny's width is too narrow for the kernels (D16): a BERT of head
+    dim 64 and 2 layers, fp32, block-sparse, on the card against the CPU."""
+    from deepspeed_tpu_torch.models import bert
+    from deepspeed_tpu_torch.utils.weights import params_from_numpy, params_to_numpy
+
+    cfg = bert.get_config("bert-tiny", n_embd=128, n_head=2, attn_impl="sparse",
+                          sparsity_config=FixedSparsityConfig(num_heads=2, block=16))
+    tree = params_to_numpy(bert.init_params(cfg, torch.Generator().manual_seed(0)))
+    ids = torch.randint(1, cfg.vocab_size, (2, 128), generator=torch.Generator().manual_seed(1))
+    before = bsa.LAUNCHES["block_sparse_attention_fwd"]
+    h_card, pooled_card = bert.forward(cfg, params_from_numpy(tree, card), ids.to(card))
+    assert bsa.LAUNCHES["block_sparse_attention_fwd"] == before + cfg.n_layer
+    h_cpu, pooled_cpu = bert.forward(cfg, params_from_numpy(tree, "cpu"), ids)
+    assert _max_err(h_card.cpu(), h_cpu) <= 1e-4
+    assert _max_err(pooled_card.cpu(), pooled_cpu) <= 1e-4

@@ -60,16 +60,23 @@ Phases, in order; any failure raises and the script exits non-zero:
      on an fp32 master through dtt.initialize(...): micro 8 x gas 2, AdamW,
      WarmupLR, clipping 1.0, 12 steps on one seeded token batch. Losses must
      be finite and fall; the flash forward and backward kernels must have
-     launched exactly 24 x 2 x 12 times each. Step ms (median of steps
-     3-12), tokens/s, MFU from the analytic flops, peak memory, then a
-     torch.profiler pass over 2 steps (device idle share, top kernels, the
-     flash kernels' shares).
-  6b the same model with remat on, 2 steps: forward launches == 2 x backward
-     launches (the backward re-runs each block's forward).
+     launched exactly 24 x 2 x 12 times each and the fused AdamW kernel
+     exactly once a step. Step ms (median of steps 3-12), tokens/s, MFU
+     from the analytic flops, peak memory, then a torch.profiler pass over
+     2 steps (device idle share, top kernels, the flash and optimizer
+     kernels' shares).
+  6b the same model with remat on, 2 steps for each policy: "full",
+     forward launches == 2 x backward launches (the backward re-runs each
+     block's forward); "attn" and "dots", forward launches == backward
+     launches (the attention output and its lse are kept, the backward
+     never re-runs the attention forward); peak memory of each.
   7  fp32 training at gpt2-medium width and 4 layers (S=256, micro 2 x gas
-     2, AdamW, 3 steps) from one set of weights: the card (kernels) against
-     the CPU (plain versions); step-1 loss within 1e-5 relative, later
-     losses within 1e-4, the max parameter difference printed.
+     2, 3 steps) from one set of weights, with AdamW and with Lamb: the
+     card (kernels, the fused optimizer included) against the CPU (plain
+     versions); step-1 loss within 1e-5 relative, later losses within
+     1e-4, the max parameter difference printed; and the card's run
+     against the same run updating through the optimizer's plain version
+     on the card (the same gradients): losses within 1e-6 relative.
   9  offline generate: gpt2-medium bf16 through
      init_inference(...).generate(ids [8, 128], max_new_tokens=128): one
      warm-up, then 3 timed calls (ms per generated token, tokens/s); the
@@ -96,14 +103,35 @@ Phases, in order; any failure raises and the script exits non-zero:
      step ms, tokens/s, peak memory, a profiler pass over 2 steps.
   12 pre-train bert-large (MLM + NSP) in bf16 at S512 with the default
      sparse section (fixed bidirectional, block 16): micro 16, Adam, 10
-     steps on one full-length batch; the same checks (24 x 1 x 10).
+     steps on one full-length batch; the same checks (24 x 1 x 10). Phases
+     11 and 12 update through the fused AdamW kernel, once a step.
   13 fp32 block-sparse training at full width and 4 layers, card against
      CPU: GPT-2 at S1024 (block 64) and BERT at S256 (block 16), 3 steps
      each; step-1 loss within 1e-5 relative, later losses within 1e-4.
-  8  (last, after 13) one JSON line of per-kernel numbers, every kernel and
+  14 the fused AdamW and LAMB kernels against their plain versions on the
+     card: 3, 1000 and 8192 elements, an unaligned view, bf16 grads, the
+     masked tree of gpt2-medium (16 leaves, 354.8M parameters) in the three
+     Adam modes, LAMB on bert-large's pre-training tree (30 leaves, 336.2M
+     parameters, phase 15's) and on a tree with a
+     zero-norm leaf, clamp on and off, 1 and 5 steps; each by max abs error
+     and max abs error over max |ref| (p, m and v). Each kernel timed at its
+     main tree (AdamW: gpt2-medium; LAMB: bert-large), CUDA events, beside
+     the plain version, the library call (torch._fused_adamw_ over the two
+     decay groups; LAMB has none) and the bound (28 bytes a parameter over
+     3.35 TB/s).
+  15 pre-train bert-large (MLM + NSP) in bf16, dense, through
+     dtt.initialize(...) with LAMB (lr 1e-3, betas 0.9/0.999, eps 1e-6, wd
+     0.01), WarmupLR, clipping 1.0: micro 64 x gas 1 at S128, full-length
+     rows without a mask, 10 steps on one batch (the S128 stage of
+     DeepSpeed's BERT LAMB recipe). Losses finite and falling; the LAMB
+     kernel launched exactly 2 x 10 times, the flash forward and backward
+     exactly 24 x 10 each; step ms, tokens/s, peak memory, a profiler pass
+     over 2 steps.
+  8  (last, after 15) one JSON line of per-kernel numbers, every kernel and
      mode with its launches on the path that ported it (the block-sparse
-     kernels: phase 11's), then the last line {"ok": true, "device": {...}}
-     with "count": 1, the cards the run used.
+     kernels: phase 11's; fused AdamW: phase 6's; fused LAMB: phase 15's),
+     then the last line {"ok": true, "device": {...}} with "count": 1, the
+     cards the run used.
 
 Without a CUDA device it exits 1 before printing any result. It imports
 nothing of JAX or of the JAX package.
@@ -111,6 +139,7 @@ nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import statistics
@@ -127,6 +156,7 @@ from deepspeed_tpu_torch.models import bert, gpt2
 from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
 from deepspeed_tpu_torch.ops import decode_attention as tda
 from deepspeed_tpu_torch.ops import flash_attention as fa
+from deepspeed_tpu_torch.ops import fused_adam as fadam
 from deepspeed_tpu_torch.ops import op_builder
 from deepspeed_tpu_torch.ops import paged_decode_attention as pda
 from deepspeed_tpu_torch.ops import paged_multitoken_attention as pma
@@ -144,7 +174,9 @@ from deepspeed_tpu_torch.tools.profile_serving import (
 )
 from deepspeed_tpu_torch.tools.profile_training import (
     BLOCK_SPARSE_KERNELS,
+    FLASH_KERNELS,
     GPT2_SPARSE_SECTION,
+    OPTIMIZER_KERNELS,
     analytic_train_flops_per_token,
     print_profile,
     profile_steps,
@@ -512,6 +544,35 @@ def reset_flash_launches():
         fa.LAUNCHES[key] = 0
 
 
+def reset_optimizer_launches():
+    for key in fadam.LAUNCHES:
+        fadam.LAUNCHES[key] = 0
+
+
+@contextlib.contextmanager
+def plain_update():
+    """The optimizers update through the fused kernel's plain version on the
+    card while this is open (phase 7's kernel-against-plain comparison of
+    whole runs); the dispatch is restored on exit."""
+    saved = fadam.multi_tensor_adam, fadam.multi_tensor_lamb
+    fadam.multi_tensor_adam, fadam.multi_tensor_lamb = (fadam.multi_tensor_adam_ref_,
+                                                        fadam.multi_tensor_lamb_ref_)
+    try:
+        yield
+    finally:
+        fadam.multi_tensor_adam, fadam.multi_tensor_lamb = saved
+
+
+def check_optimizer_launches(label, steps, kernel="fused_adamw"):
+    """The fused optimizer's launches since the last reset: once a step for
+    AdamW, twice for LAMB, and none of the other."""
+    per = 2 if kernel == "fused_lamb" else 1
+    want = {k: (per * steps if k == kernel else 0) for k in fadam.LAUNCHES}
+    check(fadam.LAUNCHES == want, f"{label}: fused optimizer launches {fadam.LAUNCHES}, "
+          f"expected {want}")
+    return fadam.LAUNCHES[kernel]
+
+
 # ---------------------------------------------------------------------------
 # phase 10-13 helpers
 # ---------------------------------------------------------------------------
@@ -633,14 +694,18 @@ def bs_bound(q, lists, causal, which):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def train_phase(label, module, conf, batch, steps, n_layer, profile_kernels):
+def train_phase(label, module, conf, batch, steps, n_layer, profile_kernels, sparse=True,
+                opt_kernel="fused_adamw"):
     """Train ``steps`` steps on one batch through initialize(...) with the
-    counts at 0 → (engine, losses, step seconds, counts read right after)."""
+    counts at 0 → (engine, counts read right after). ``sparse``: the run
+    launches the block-sparse kernels only, else the flash kernels only;
+    ``opt_kernel`` the fused optimizer kernel it updates through."""
     eng, _, _, _ = dtt.initialize(model=module, config=conf, seed=0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_block_sparse_counts()
     reset_flash_launches()
+    reset_optimizer_launches()
     losses, step_s = [], []
     for _ in range(steps):
         t0 = time.perf_counter()
@@ -648,26 +713,30 @@ def train_phase(label, module, conf, batch, steps, n_layer, profile_kernels):
         losses.append(float(m["loss"]))
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
-    counts = dict(bsa.LAUNCHES, **bsa.DENSE_CALLS,
-                  flash=sum(fa.LAUNCHES.values()))
+    counts = dict(bsa.LAUNCHES, **bsa.DENSE_CALLS, **fa.LAUNCHES,
+                  flash=sum(fa.LAUNCHES.values()), sparse=sum(bsa.LAUNCHES.values()))
+    counts[opt_kernel] = check_optimizer_launches(label, steps, opt_kernel)
     peak = torch.cuda.max_memory_allocated()
     gas = eng.gradient_accumulation_steps
     want = n_layer * gas * steps
     check(all(np.isfinite(losses)), f"{label}: non-finite losses {losses}")
     check(losses[-1] < losses[0], f"{label}: loss did not fall: {losses}")
-    check(all(counts[k] == want for k in bsa.LAUNCHES),
-          f"{label}: block-sparse launches {counts}, expected {want} each "
+    mine, other = (bsa.LAUNCHES, "flash") if sparse else (fa.LAUNCHES, "sparse")
+    check(all(counts[k] == want for k in mine),
+          f"{label}: attention launches {counts}, expected {want} each "
           f"(= {n_layer} x {gas} x {steps})")
-    check(counts["flash"] == 0 and counts["sparse_attention_dense"] == 0,
-          f"{label}: flash launches {counts['flash']}, dense calls "
+    check(counts[other] == 0 and counts["sparse_attention_dense"] == 0,
+          f"{label}: {other} launches {counts[other]}, dense calls "
           f"{counts['sparse_attention_dense']}, expected 0")
     S = batch["input_ids"].shape[1]
     tokens = eng.train_batch_size * S
     step_ms = statistics.median(step_s[2:]) * 1e3
     print("losses " + " ".join(f"{x:.4f}" for x in losses))
-    print(f"block-sparse launches: " + ", ".join(f"{k} {counts[k]}" for k in bsa.LAUNCHES)
-          + f" (= {n_layer} x {gas} x {steps} each); flash launches {counts['flash']}, dense "
-          f"masked calls {counts['sparse_attention_dense']}")
+    print(f"{'block-sparse' if sparse else 'flash'} launches: "
+          + ", ".join(f"{k} {counts[k]}" for k in mine)
+          + f" (= {n_layer} x {gas} x {steps} each); {other} launches {counts[other]}, dense "
+          f"masked calls {counts['sparse_attention_dense']}; {opt_kernel} launches "
+          f"{counts[opt_kernel]} ({2 if opt_kernel == 'fused_lamb' else 1} x {steps})")
     print(f"step ms (median of steps 3-{steps}, each closed by a sync) {step_ms:.2f}, steps "
           + " ".join(f"{x * 1e3:.1f}" for x in step_s)
           + f"; tokens/s {tokens / (step_ms / 1e3):.1f} ({tokens} tokens a step); peak memory "
@@ -684,6 +753,7 @@ def cpu_card_losses(label, module, conf, tree, batch, n_layer, steps=3):
     for dev in ("cuda", "cpu"):
         reset_block_sparse_counts()
         reset_flash_launches()
+        reset_optimizer_launches()
         eng, _, _, _ = dtt.initialize(model=module, config=conf,
                                       model_parameters=params_from_numpy(tree, dev), device=dev)
         losses[dev] = [float(eng.train_batch(batch)["loss"]) for _ in range(steps)]
@@ -694,6 +764,9 @@ def cpu_card_losses(label, module, conf, tree, batch, n_layer, steps=3):
                   and bsa.DENSE_CALLS["sparse_attention_dense"] == 0,
                   f"{label} card run: launches {bsa.LAUNCHES}, flash {fa.LAUNCHES}, "
                   f"dense {bsa.DENSE_CALLS}")
+            check_optimizer_launches(f"{label} card run", steps)
+        else:
+            check_optimizer_launches(f"{label} CPU run", 0)
         del eng
     rel = [abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"])]
     print(f"{label}: losses card " + " ".join(f"{x:.7f}" for x in losses["cuda"]) + ", CPU "
@@ -702,6 +775,180 @@ def cpu_card_losses(label, module, conf, tree, batch, n_layer, steps=3):
     check(rel[0] <= 1e-5, f"{label}: fp32 step-1 loss card vs CPU: relative {rel[0]} > 1e-5")
     check(max(rel[1:]) <= 1e-4, f"{label}: fp32 later losses card vs CPU: relative {rel} > 1e-4")
     return rel
+
+
+# ---------------------------------------------------------------------------
+# phase 14 helpers
+# ---------------------------------------------------------------------------
+
+# max abs error over max |ref| of p, m and v, the fused optimizer kernels
+# against their plain versions: both compute in f32 (the plain version on
+# the card divides by the bias corrections as a multiply by their
+# reciprocal; LAMB's norms are double sums in the kernel, f32 reductions in
+# the plain version)
+OPT_REL_TOL = 1e-6
+
+
+def opt_case(leaves, seed, gdtype=torch.float32, offset=0):
+    """Copies of f32 ``leaves`` and grads, m and v (as after a few steps)
+    beside them, drawn on their device; ``offset`` > 0 makes every operand
+    an unaligned view."""
+    dev = leaves[0].device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(t, scale):
+        base = torch.randn(t.numel() + offset, generator=gen, device=dev) * scale
+        return base[offset:].view(t.shape)
+
+    ps = [draw(p, 1.0).copy_(p) for p in leaves]
+    gs = [draw(p, 1e-2).to(gdtype) if gdtype != torch.float32 else draw(p, 1e-2)
+          for p in leaves]
+    ms = [draw(p, 1e-3) for p in leaves]
+    vs = [draw(p, 1e-2).square_() for p in leaves]
+    return ps, gs, ms, vs
+
+
+def opt_errors(kernel, plain, case, steps, **kw):
+    """``steps`` updates by the kernel and by its plain version, each on its
+    own copy of the case → (max abs error, max abs error / max |ref|) over
+    p, m and v."""
+    ps, gs, ms, vs = case
+    mine = [[t.clone() for t in ts] for ts in (ps, ms, vs)]
+    ref = [[t.clone() for t in ts] for ts in (ps, ms, vs)]
+    for step in range(1, steps + 1):
+        kernel(mine[0], gs, mine[1], mine[2], step, **kw)
+        plain(ref[0], gs, ref[1], ref[2], step, **kw)
+    torch.cuda.synchronize()
+    err = rel = 0.0
+    for got, want in zip(mine, ref):
+        e = max(float((a - b).abs().max()) for a, b in zip(got, want) if b.numel())
+        r = max(float(b.abs().max()) for b in want if b.numel())
+        err, rel = max(err, e), max(rel, e / max(r, 1e-30))
+    return err, rel
+
+
+def opt_bound(leaves, grads, flops_per_param):
+    """Least time of one update: p, g, m, v read once and p, m, v written
+    once, against the update's f32 operations at the f32 peak."""
+    n = sum(p.numel() for p in leaves)
+    nbytes = 6 * 4 * n + sum(g.numel() * g.element_size() for g in grads)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops_per_param * n / PEAK_OPS_PER_S[torch.float32] * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")), nbytes
+
+
+def library_adamw(ps, gs, ms, vs, wds, lr, betas, eps):
+    """torch._fused_adamw_ over the leaf lists, one call per decay group
+    (the masked AdamW is two groups), as a timed function of the call
+    index; the port never calls it."""
+    steps = [torch.ones((), device=ps[0].device) for _ in ps]
+    groups = [([i for i, w in enumerate(wds) if w == wd], wd) for wd in sorted(set(wds))]
+
+    def call(_):
+        for idx, wd in groups:
+            torch._fused_adamw_([ps[i] for i in idx], [gs[i] for i in idx], [ms[i] for i in idx],
+                                [vs[i] for i in idx], [], [steps[i] for i in idx], lr=lr,
+                                beta1=betas[0], beta2=betas[1], weight_decay=wd, eps=eps,
+                                amsgrad=False, maximize=False)
+    return call
+
+
+def optimizer_kernels_phase(device="cuda", gpt_name="gpt2-medium", bert_name="bert-large"):
+    """Phase 14: the fused AdamW / LAMB kernels against their plain versions
+    at the cases of the module docstring, each kernel timed at its main
+    tree → (errors by case, times by kernel)."""
+    gen14 = torch.Generator(device=device).manual_seed(14)
+
+    def flat14(n):
+        return [torch.randn(n, generator=gen14, device=device)]
+
+    cfg_g = gpt2.get_config(gpt_name)
+    gpt_leaves = tree_leaves(gpt2.init_params(cfg_g, gen14, device, torch.float32))
+    gpt_wds = [0.1 if p.ndim >= 2 else 0.0 for p in gpt_leaves]
+    cfg_b = bert.get_config(bert_name, pretraining=True)
+    bert_leaves = tree_leaves(bert.init_params(cfg_b, gen14, device, torch.float32))
+    # gpt2-medium 16 leaves; bert-large with its MLM and NSP heads (phase 15's
+    # tree) 30
+    check(len(gpt_leaves) == 16 and len(bert_leaves) == 30,
+          f"leaves: {gpt_name} {len(gpt_leaves)}, {bert_name} {len(bert_leaves)}")
+    adam_kw = dict(lr=3e-4, betas=(0.9, 0.95), eps=1e-8)
+    lamb_kw = dict(lr=1e-3, betas=(0.9, 0.999), eps=1e-6)
+    zero_leaf = [torch.zeros(64, 64, device=device)] + flat14(70001) + flat14(3)
+    cases14 = [
+        ("adamw n3", "adam", opt_case(flat14(3), 1), 3, dict(weight_decays=[0.1])),
+        ("adamw n1000", "adam", opt_case(flat14(1000), 2), 3, dict(weight_decays=[0.1])),
+        ("adamw n8192", "adam", opt_case(flat14(8192), 3), 3, dict(weight_decays=[0.1])),
+        ("adamw unaligned n1000", "adam", opt_case(flat14(1000), 4, offset=1), 3,
+         dict(weight_decays=[0.1])),
+        ("adamw bf16 grads n65539", "adam", opt_case(flat14(65539), 5, torch.bfloat16), 3,
+         dict(weight_decays=[0.1])),
+    ] + [
+        (f"gpt2-medium tree {mode}", "adam", None, 1, dict(weight_decays=gpt_wds, mode=mode))
+        for mode in ("decoupled", "l2", "none")
+    ] + [
+        ("lamb bert-large tree", "lamb", None, 1, dict(weight_decays=[0.01] * len(bert_leaves))),
+    ] + [
+        (f"lamb zero-norm leaf {'clamped' if clamp else 'unclamped'} {steps} steps", "lamb",
+         opt_case(zero_leaf, 6), steps,
+         dict(weight_decays=[0.01] * 3, **(dict(min_trust=0.01, max_trust=10.0) if clamp
+                                            else {})))
+        for clamp in (False, True) for steps in (1, 5)
+    ]
+    errs14 = {}
+    for name, kind, case, steps, kw in cases14:
+        if case is None:  # the main trees, drawn once each
+            case = opt_case(gpt_leaves if kind == "adam" else bert_leaves, 7)
+        if kind == "adam":
+            kernel, plain, kw = fadam.multi_tensor_adam, fadam.multi_tensor_adam_ref_, \
+                dict(adam_kw, **kw)
+        else:
+            kernel, plain, kw = fadam.multi_tensor_lamb, fadam.multi_tensor_lamb_ref_, \
+                dict(lamb_kw, **kw)
+        errs14[name] = opt_errors(kernel, plain, case, steps, **kw)
+        print(f"{name}: max abs error {errs14[name][0]:.3e}, / max |ref| "
+              f"{errs14[name][1]:.3e}")
+        check(errs14[name][1] <= OPT_REL_TOL,
+              f"{name}: max abs error / max |ref| {errs14[name][1]} > {OPT_REL_TOL}")
+        del case
+    # LAMB's determinism: two runs of the kernel on the same inputs agree bit for bit
+    case = opt_case(bert_leaves[:4], 8)
+    runs = []
+    for _ in range(2):
+        p14 = [t.clone() for t in case[0]]
+        fadam.multi_tensor_lamb(p14, case[1], [t.clone() for t in case[2]],
+                                [t.clone() for t in case[3]], 1, weight_decays=[0.01] * 4,
+                                **lamb_kw)
+        runs.append(p14)
+    check(all(torch.equal(a, b) for a, b in zip(*runs)), "LAMB kernel runs differ")
+    del case, runs, p14
+    # each kernel timed at its main tree, in place (each call one more step)
+    times14 = {}
+    for kind, leaves in (("adam", gpt_leaves), ("lamb", bert_leaves)):
+        ps, gs, ms, vs = opt_case(leaves, 9)
+        if kind == "adam":
+            kernel, plain = fadam.multi_tensor_adam, fadam.multi_tensor_adam_ref_
+            kw = dict(adam_kw, weight_decays=gpt_wds, mode="decoupled")
+            flops = 15  # a parameter: moments 7, direction 4, decay 2, apply 2
+        else:
+            kernel, plain = fadam.multi_tensor_lamb, fadam.multi_tensor_lamb_ref_
+            kw = dict(lamb_kw, weight_decays=[0.01] * len(leaves))
+            flops = 19  # as AdamW, and the two squares-and-adds of the norms
+        ms_k, call_k = time_ms(lambda i: kernel(ps, gs, ms, vs, 1 + i, **kw), 20, warmup=3)
+        ms_p, _ = time_ms(lambda i: plain(ps, gs, ms, vs, 1 + i, **kw), 5, warmup=2)
+        lib = None
+        if kind == "adam":
+            lib, _ = time_ms(library_adamw(ps, gs, ms, vs, gpt_wds, **adam_kw), 20, warmup=3)
+        (bnd, by), nbytes = opt_bound(ps, gs, flops)
+        n = sum(p.numel() for p in ps)
+        times14[kind] = dict(ms=ms_k, plain_ms=ms_p, library_ms=lib, bound_ms=bnd, bound_by=by)
+        print(f"{'fused AdamW, gpt2-medium' if kind == 'adam' else 'fused LAMB, bert-large'} "
+              f"tree ({len(ps)} leaves, {n} parameters): kernel {ms_k:.4f} ms (per call with "
+              f"the host's launch path {call_k:.4f}), plain {ms_p:.4f} ms, library "
+              + (f"{lib:.4f} ms" if lib is not None else "none")
+              + f", bound {bnd:.4f} ms ({by}: {nbytes} bytes); {nbytes / ms_k / 1e6:.1f} GB/s, "
+              f"{bnd / ms_k:.3f} of bound")
+        del ps, gs, ms, vs
+    return errs14, times14
 
 
 def main() -> int:
@@ -1293,6 +1540,7 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_flash_launches()
+    reset_optimizer_launches()
     losses6, step_s6, gnorms6 = [], [], []
     for _ in range(12):
         t0 = time.perf_counter()
@@ -1303,6 +1551,7 @@ def main() -> int:
         step_s6.append(time.perf_counter() - t0)
     fwd_launches = fa.LAUNCHES["flash_attention_fwd"]
     bwd_launches = fa.LAUNCHES["flash_attention_bwd"]
+    adamw_launches = check_optimizer_launches("phase 6", 12)
     peak6 = torch.cuda.max_memory_allocated()
     check(all(np.isfinite(losses6)) and all(np.isfinite(gnorms6)), f"non-finite: {losses6}")
     check(losses6[-1] < losses6[0], f"loss did not fall: {losses6}")
@@ -1316,7 +1565,8 @@ def main() -> int:
         * tps6 / PEAK_OPS_PER_S[torch.bfloat16]
     print("losses " + " ".join(f"{x:.4f}" for x in losses6))
     print(f"flash launches: forward {fwd_launches}, backward {bwd_launches} "
-          f"(= {cfg6.n_layer} x {eng6.gradient_accumulation_steps} x 12 each)")
+          f"(= {cfg6.n_layer} x {eng6.gradient_accumulation_steps} x 12 each); fused AdamW "
+          f"launches {adamw_launches} (= 12)")
     print(f"step ms (median of steps 3-12, each closed by a sync) {step_ms6:.2f}, steps "
           + " ".join(f"{x * 1e3:.1f}" for x in step_s6)
           + f"; tokens/s {tps6:.1f} ({tokens6} tokens a step); MFU {mfu6:.4f} of "
@@ -1328,62 +1578,86 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    phase("6b", "gpt2-medium bf16 with remat: the backward re-runs each block's forward")
-    cfg6b = gpt2.get_config("gpt2-medium", remat=True)
-    eng6b, _, _, _ = dtt.initialize(model=gpt2.make_module(cfg6b), config=conf6, seed=0)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_flash_launches()
-    step_s6b, losses6b = [], []
-    for _ in range(2):
-        t0 = time.perf_counter()
-        losses6b.append(float(eng6b.train_batch(batch6)["loss"]))
+    phase("6b", "gpt2-medium bf16 with remat: full, attn and dots policies")
+    for policy in ("full", "attn", "dots"):
+        cfg6b = gpt2.get_config("gpt2-medium", remat=True, remat_policy=policy)
+        eng6b, _, _, _ = dtt.initialize(model=gpt2.make_module(cfg6b), config=conf6, seed=0)
         torch.cuda.synchronize()
-        step_s6b.append(time.perf_counter() - t0)
-    f6b, b6b = fa.LAUNCHES["flash_attention_fwd"], fa.LAUNCHES["flash_attention_bwd"]
-    check(all(np.isfinite(losses6b)), f"remat losses {losses6b}")
-    check(b6b == cfg6b.n_layer * eng6b.gradient_accumulation_steps * 2 and f6b == 2 * b6b,
-          f"remat launches: forward {f6b}, backward {b6b}")
-    check(abs(losses6b[0] - losses6[0]) <= 1e-2 * abs(losses6[0]),
-          f"remat step-1 loss {losses6b[0]} against {losses6[0]}")
-    print(f"remat: launches forward {f6b} = 2 x backward {b6b}; losses "
-          + " ".join(f"{x:.4f}" for x in losses6b)
-          + f"; step ms {' '.join(f'{x * 1e3:.1f}' for x in step_s6b)}; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    del eng6b
-    gc.collect()
-    torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_flash_launches()
+        reset_optimizer_launches()
+        step_s6b, losses6b = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            losses6b.append(float(eng6b.train_batch(batch6)["loss"]))
+            torch.cuda.synchronize()
+            step_s6b.append(time.perf_counter() - t0)
+        f6b, b6b = fa.LAUNCHES["flash_attention_fwd"], fa.LAUNCHES["flash_attention_bwd"]
+        check_optimizer_launches(f"remat {policy}", 2)
+        check(all(np.isfinite(losses6b)), f"remat {policy} losses {losses6b}")
+        # full: the backward re-runs each block's forward; attn and dots keep
+        # the attention output and its lse, so the forward runs once
+        ratio = 2 if policy == "full" else 1
+        check(b6b == cfg6b.n_layer * eng6b.gradient_accumulation_steps * 2
+              and f6b == ratio * b6b,
+              f"remat {policy} launches: forward {f6b}, backward {b6b}, expected forward = "
+              f"{ratio} x backward")
+        check(abs(losses6b[0] - losses6[0]) <= 1e-2 * abs(losses6[0]),
+              f"remat {policy} step-1 loss {losses6b[0]} against {losses6[0]}")
+        print(f"remat {policy}: launches forward {f6b} = {ratio} x backward {b6b}; losses "
+              + " ".join(f"{x:.4f}" for x in losses6b)
+              + f"; step ms {' '.join(f'{x * 1e3:.1f}' for x in step_s6b)}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del eng6b
+        gc.collect()
+        torch.cuda.empty_cache()
 
     phase(7, "fp32 training at gpt2-medium width, 4 layers: card against CPU")
     cfg7 = gpt2.get_config("gpt2-medium", n_layer=4)
     tree7 = params_to_numpy(gpt2.init_params(
         cfg7, torch.Generator(device="cuda").manual_seed(11), "cuda", torch.float32))
-    conf7 = train_config(micro=2, gas=2)
-    conf7.pop("bf16")
     batch7 = {"input_ids": np.random.RandomState(7).randint(
         0, cfg7.vocab_size, (4, 256)).astype(np.int32)}
-    losses7, params7 = {}, {}
-    for dev in ("cuda", "cpu"):
-        reset_flash_launches()
-        eng7, _, _, _ = dtt.initialize(model=gpt2.make_module(cfg7), config=conf7,
-                                       model_parameters=params_from_numpy(tree7, dev), device=dev)
-        losses7[dev] = [float(eng7.train_batch(batch7)["loss"]) for _ in range(3)]
-        params7[dev] = params_to_numpy(eng7.params)
-        if dev == "cuda":
-            check(fa.LAUNCHES["flash_attention_fwd"] == 4 * 2 * 3
-                  and fa.LAUNCHES["flash_attention_bwd"] == 4 * 2 * 3,
-                  f"fp32 card run: flash launches {fa.LAUNCHES}")
-        del eng7
-    rel7 = [abs(a - b) / abs(b) for a, b in zip(losses7["cuda"], losses7["cpu"])]
-
-    pdiff7 = max(float(np.abs(a - b).max())
-                 for a, b in zip(tree_leaves(params7["cuda"]), tree_leaves(params7["cpu"])))
-    print("losses card " + " ".join(f"{x:.7f}" for x in losses7["cuda"]) + ", CPU "
-          + " ".join(f"{x:.7f}" for x in losses7["cpu"]) + ", relative differences "
-          + " ".join(f"{x:.3e}" for x in rel7) + f"; max parameter difference after step 3 "
-          f"{pdiff7:.3e}")
-    check(rel7[0] <= 1e-5, f"fp32 step-1 loss card vs CPU: relative {rel7[0]} > 1e-5")
-    check(max(rel7[1:]) <= 1e-4, f"fp32 later losses card vs CPU: relative {rel7} > 1e-4")
+    for opt7, kernel7 in (("AdamW", "fused_adamw"), ("Lamb", "fused_lamb")):
+        conf7 = train_config(micro=2, gas=2, optimizer=opt7)
+        conf7.pop("bf16")
+        losses7, params7 = {}, {}
+        for dev in ("cuda plain update", "cuda", "cpu"):
+            reset_flash_launches()
+            reset_optimizer_launches()
+            with plain_update() if dev == "cuda plain update" else contextlib.nullcontext():
+                eng7, _, _, _ = dtt.initialize(
+                    model=gpt2.make_module(cfg7), config=conf7,
+                    model_parameters=params_from_numpy(tree7, dev.split()[0]),
+                    device=dev.split()[0])
+                losses7[dev] = [float(eng7.train_batch(batch7)["loss"]) for _ in range(3)]
+            params7[dev] = params_to_numpy(eng7.params)
+            if dev == "cuda":
+                check(fa.LAUNCHES["flash_attention_fwd"] == 4 * 2 * 3
+                      and fa.LAUNCHES["flash_attention_bwd"] == 4 * 2 * 3,
+                      f"fp32 card run: flash launches {fa.LAUNCHES}")
+                check_optimizer_launches(f"fp32 {opt7} card run", 3, kernel7)
+            else:
+                check_optimizer_launches(f"fp32 {opt7} {dev} run", 0)
+            del eng7
+        rel7 = [abs(a - b) / abs(b) for a, b in zip(losses7["cuda"], losses7["cpu"])]
+        pdiff7 = max(float(np.abs(a - b).max())
+                     for a, b in zip(tree_leaves(params7["cuda"]), tree_leaves(params7["cpu"])))
+        print(f"{opt7}: losses card " + " ".join(f"{x:.7f}" for x in losses7["cuda"])
+              + ", CPU " + " ".join(f"{x:.7f}" for x in losses7["cpu"])
+              + ", relative differences " + " ".join(f"{x:.3e}" for x in rel7)
+              + f"; max parameter difference after step 3 {pdiff7:.3e}")
+        check(rel7[0] <= 1e-5, f"fp32 {opt7} step-1 loss card vs CPU: relative {rel7[0]} > 1e-5")
+        check(max(rel7[1:]) <= 1e-4,
+              f"fp32 {opt7} later losses card vs CPU: relative {rel7} > 1e-4")
+        relk = [abs(a - b) / abs(b)
+                for a, b in zip(losses7["cuda"], losses7["cuda plain update"])]
+        pdiffk = max(float(np.abs(a - b).max()) for a, b in
+                     zip(tree_leaves(params7["cuda"]), tree_leaves(params7["cuda plain update"])))
+        print(f"{opt7}: the card's kernel update against its plain version on the card: loss "
+              "relative differences " + " ".join(f"{x:.3e}" for x in relk)
+              + f"; max parameter difference after step 3 {pdiffk:.3e}")
+        check(max(relk) <= 1e-6, f"fp32 {opt7} kernel vs plain update on the card: {relk}")
 
     phase(9, "offline generate: gpt2-medium bf16 through init_inference(...).generate")
     eng9 = dtt.init_inference("gpt2-medium", seed=0)
@@ -1574,7 +1848,7 @@ def main() -> int:
     cfg11, module11, conf11, batch11 = workload("gpt2-medium", sparse=True)
     check(cfg11.attn_impl == "sparse" and cfg11.n_positions == 4096, f"phase 11 config {cfg11}")
     eng11, counts11 = train_phase("phase 11", module11, conf11, batch11, 10, cfg11.n_layer,
-                                  BLOCK_SPARSE_KERNELS)
+                                  BLOCK_SPARSE_KERNELS + OPTIMIZER_KERNELS)
     del eng11, batch11
     gc.collect()
     torch.cuda.empty_cache()
@@ -1584,7 +1858,7 @@ def main() -> int:
     check(cfg12.attn_impl == "sparse" and cfg12.sparsity_config.block == 16,
           f"phase 12 config {cfg12}")
     eng12, counts12 = train_phase("phase 12", module12, conf12, batch12, 10, cfg12.n_layer,
-                                  BLOCK_SPARSE_KERNELS)
+                                  BLOCK_SPARSE_KERNELS + OPTIMIZER_KERNELS)
     del eng12, batch12
     gc.collect()
     torch.cuda.empty_cache()
@@ -1604,12 +1878,29 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    phase(14, "fused AdamW / LAMB kernels against their plain versions")
+    errs14, times14 = optimizer_kernels_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase(15, "pre-train bert-large bf16 (MLM + NSP), dense, with LAMB (the slice's path)")
+    cfg15, module15, conf15, batch15 = workload("bert-large", optimizer="Lamb")
+    check(cfg15.attn_impl != "sparse" and conf15["optimizer"]["type"] == "Lamb"
+          and batch15["input_ids"].shape == (64, 128), f"phase 15 workload {cfg15}, {conf15}")
+    eng15, counts15 = train_phase("phase 15", module15, conf15, batch15, 10, cfg15.n_layer,
+                                  FLASH_KERNELS + OPTIMIZER_KERNELS, sparse=False,
+                                  opt_kernel="fused_lamb")
+    del eng15, batch15
+    gc.collect()
+    torch.cuda.empty_cache()
+
     phase(8, "summary")
     # launches: each kernel's (and mode's) count on the path of the slice
     # that ported it (the decode kernel: phase 3's default path; the
     # multi-token kernel: phase 3b's feature path; their int8 modes: phase
     # 3c; the flash kernels: phase 6's training run; the contiguous decode
-    # kernel: phase 9's first timed generate)
+    # kernel: phase 9's first timed generate; fused AdamW: phase 6's training
+    # run; fused LAMB: phase 15's)
     print(json.dumps({"kernels": [{
         "name": "paged_decode_attention",
         "route": "cuda",
@@ -1708,7 +1999,17 @@ def main() -> int:
         "library_ms": bs_times[bs_cases[0][0], which]["library_ms"],
     } for which, src, line, outputs in (("fwd", "fwd", 176, ("o", "lse")),
                                         ("dq", "bwd", 208, ("dq",)),
-                                        ("dkv", "bwd", 226, ("dk", "dv")))]}))
+                                        ("dkv", "bwd", 226, ("dk", "dv")))] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "deepspeed_tpu_torch/csrc/fused_adam.cu",
+        "replaces": f"deepspeed_tpu/ops/fused_adam.py:{line}",
+        "launches": launches14,
+        "max_abs_err": errs14[case14][0],
+        **times14[kind],
+    } for name, line, launches14, case14, kind in (
+        ("fused_adamw", 96, adamw_launches, "gpt2-medium tree decoupled", "adam"),
+        ("fused_lamb", 187, counts15["fused_lamb"], "lamb bert-large tree", "lamb"))]}))
     # the run uses one card, whatever the machine holds
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1,

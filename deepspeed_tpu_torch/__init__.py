@@ -65,8 +65,9 @@ def initialize(model: Optional[ModuleSpec] = None, optimizer: Any = None,
         raise ValueError("deepspeed_tpu_torch.initialize: model is required")
     if optimizer is not None:
         raise NotPortedError(
-            "initialize(optimizer=...): a client optimizer is not ported to "
-            "deepspeed_tpu_torch yet; configure the config's optimizer section"
+            "initialize(optimizer=...): deepspeed_tpu_torch takes no client optimizer "
+            "(the JAX package's initialize does not read one either); configure the "
+            "config's optimizer section"
         )
     if config is None:
         raise ValueError("deepspeed_tpu_torch.initialize: config is required")

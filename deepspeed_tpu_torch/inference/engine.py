@@ -42,7 +42,7 @@ def _parse_dtype(d) -> torch.dtype:
         raise NotPortedError(
             "init_inference(dtype=int8): weight-only int8 (the JAX package's "
             "ops/quantizer.py quantize_tree, maybe_dequantize in the programs) is not "
-            "ported to deepspeed_tpu_torch yet (ROADMAP queue 1 item 14); int8 KV "
+            "ported to deepspeed_tpu_torch yet (ROADMAP queue 1 item 3); int8 KV "
             "pages are: serving.kv_cache_dtype='int8'"
         )
     if isinstance(d, torch.dtype):

@@ -59,7 +59,7 @@ class BertConfig:
         if self.dropout > 0.0:
             raise NotPortedError(
                 f"dropout={self.dropout}: dropout is not ported to deepspeed_tpu_torch yet "
-                "(its random bits need the JAX key schedule's parity, ROADMAP queue 1 item 6)"
+                "(its random bits need the JAX key schedule's parity, ROADMAP queue 1 item 4)"
             )
         if self.attn_impl not in _ATTN_IMPLS:
             raise ValueError(f"unknown attn_impl {self.attn_impl!r}")

@@ -9,7 +9,9 @@ package's layout: a nested dict with the blocks stacked on a leading
 ``[E, 3E]``), so a tree can move between the two packages unchanged. The
 training trunk walks the stacked blocks in a Python loop (the JAX
 package's ``lax.scan``), with ``remat`` wrapping each block in
-``torch.utils.checkpoint``; attention goes through
+``torch.utils.checkpoint`` (``remat_policy`` "full") or in the selective
+checkpoint of ``runtime.activation_checkpointing`` ("attn", "dots");
+attention goes through
 ``ops.attention.causal_attention`` (the flash kernels on the card), or,
 with ``attn_impl="sparse"``, through ``ops.sparse_attention`` (the
 block-sparse kernels on the card). The
@@ -27,11 +29,13 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..ops import block_sparse_attention as bsa
+from ..ops import flash_attention as fa
 from ..ops.attention import cached_attention, causal_attention
 from ..ops.layer_norm import layer_norm
 from ..ops.sampling import sample_logits
 from ..ops.sparse_attention import FixedSparsityConfig, from_ds_config, sparse_attention
-from ..runtime.activation_checkpointing import checkpoint
+from ..runtime.activation_checkpointing import POLICIES, checkpoint, selective_checkpoint
 from ..runtime.config import NotPortedError
 from ..runtime.module import ModuleSpec
 from .lm_loss import head_token_loss
@@ -68,27 +72,20 @@ class GPT2Config:
     sparsity: Any = None
 
     def __post_init__(self):
-        item = "ROADMAP queue 1 item 5"
         if self.dropout > 0.0:
             raise NotPortedError(
                 f"dropout={self.dropout}: dropout is not ported to deepspeed_tpu_torch yet "
-                "(its random bits need the JAX key schedule's parity, ROADMAP queue 1 item 6)"
+                "(its random bits need the JAX key schedule's parity, ROADMAP queue 1 item 4)"
             )
-        if self.ce_chunk > 0:
-            raise NotPortedError(f"ce_chunk={self.ce_chunk}: chunked cross-entropy is not "
-                                 f"ported yet ({item})")
         if self.moe_experts > 0:
             raise NotPortedError(f"moe_experts={self.moe_experts}: MoE is not ported yet "
-                                 "(ROADMAP queue 1 item 10)")
+                                 "(ROADMAP queue 1 item 12)")
         if self.attn_impl in _UNPORTED_ATTN_IMPLS:
             raise NotPortedError(f"attn_impl={self.attn_impl!r} is not ported yet "
-                                 "(ROADMAP queue 1 item 10)")
+                                 "(ROADMAP queue 1 item 12)")
         if self.attn_impl not in _ATTN_IMPLS:
             raise ValueError(f"unknown attn_impl {self.attn_impl!r}")
-        if self.remat_policy in ("dots", "attn"):
-            raise NotPortedError(f"remat_policy={self.remat_policy!r}: only 'full' is "
-                                 f"ported yet ({item})")
-        if self.remat_policy != "full":
+        if self.remat_policy not in POLICIES:
             raise ValueError(f"unknown remat_policy {self.remat_policy!r} (full|dots|attn)")
 
     @property
@@ -176,38 +173,61 @@ def _layer_norm(x, scale, bias, eps):
     return layer_norm(x, scale, bias, eps)
 
 
-def _mlp(cfg: GPT2Config, lp, h):
+def _dot(ops, x, w):
+    """``x @ w``; under a selective remat, the policy's ``ops.dot``."""
+    return x @ w if ops is None else ops.dot(x, w)
+
+
+def _mlp(cfg: GPT2Config, lp, h, ops=None):
     """Dense FFN: ``gelu_tanh(h @ c_fc_w + c_fc_b) @ c_proj_w + c_proj_b``
     (the tanh GELU matches ``jax.nn.gelu(approximate=True)``)."""
-    x = h @ lp["c_fc_w"] + lp["c_fc_b"]
+    x = _dot(ops, h, lp["c_fc_w"]) + lp["c_fc_b"]
     x = F.gelu(x, approximate="tanh")
-    return x @ lp["c_proj_w"] + lp["c_proj_b"]
+    return _dot(ops, x, lp["c_proj_w"]) + lp["c_proj_b"]
 
 
 # ---------------------------------------------------------------------------
 # training trunk
 # ---------------------------------------------------------------------------
 
-def _attention(cfg: GPT2Config, lp, h):
+def _attention_parts(cfg: GPT2Config, q):
+    """The trunk's attention for q's device as ``(forward, backward,
+    options)``, which a selective remat calls apart: the flash or
+    block-sparse kernels on the card, their plain versions on the CPU."""
+    if q.device.type == "cuda" and cfg.attn_impl == "jnp":
+        raise ValueError("attn_impl='jnp' (the plain version) does not run on the card")
+    if cfg.attn_impl == "sparse":
+        B, S, H, D = q.shape
+        lists = bsa.index_lists(cfg.sparsity or FixedSparsityConfig(num_heads=H), S, q.device)
+        return (*bsa.forward_backward(q.device), (lists, True, 1.0 / math.sqrt(D)))
+    return (*fa.forward_backward(q.device), (True, None, None))
+
+
+def _attention(cfg: GPT2Config, lp, h, ops=None):
     """Causal self-attention of ``h [B, S, E]``: q, k and v are strided
     views of the ``[B, S, 3E]`` projection (no copies on the way into the
     kernel)."""
     B, S, E = h.shape
     H, D = cfg.n_head, cfg.head_dim
-    qkv = h @ lp["c_attn_w"] + lp["c_attn_b"]
+    qkv = _dot(ops, h, lp["c_attn_w"]) + lp["c_attn_b"]
     q, k, v = (x.unflatten(-1, (H, D)) for x in qkv.split(E, dim=-1))
-    if cfg.attn_impl == "sparse":
+    if ops is not None:
+        # the attention output, kept by every selective policy (JAX: "attn_out")
+        o = ops.attention(q, k, v, *_attention_parts(cfg, q))
+    elif cfg.attn_impl == "sparse":
         o = sparse_attention(q, k, v, cfg.sparsity or FixedSparsityConfig(num_heads=H),
                              causal=True)
     else:
         o = causal_attention(q, k, v, impl=cfg.attn_impl)
-    return o.reshape(B, S, E) @ lp["c_proj_w"] + lp["c_proj_b"]
+    return _dot(ops, o.reshape(B, S, E), lp["c_proj_w"]) + lp["c_proj_b"]
 
 
-def _block(cfg: GPT2Config, lp, h):
+def _block(cfg: GPT2Config, lp, h, ops=None):
     eps = cfg.layer_norm_epsilon
-    h = h + _attention(cfg, lp["attn"], layer_norm(h, lp["ln_1"]["scale"], lp["ln_1"]["bias"], eps))
-    return h + _mlp(cfg, lp["mlp"], layer_norm(h, lp["ln_2"]["scale"], lp["ln_2"]["bias"], eps))
+    h = h + _attention(cfg, lp["attn"],
+                       layer_norm(h, lp["ln_1"]["scale"], lp["ln_1"]["bias"], eps), ops)
+    return h + _mlp(cfg, lp["mlp"], layer_norm(h, lp["ln_2"]["scale"], lp["ln_2"]["bias"], eps),
+                    ops)
 
 
 def _unstack(tree, n: int):
@@ -232,7 +252,9 @@ def hidden_with_aux(cfg: GPT2Config, params: PyTree, input_ids, train: bool = Fa
     B, S = input_ids.shape
     h = params["wte"][input_ids] + params["wpe"][:S][None, :, :]
     for lp in _unstack(params["blocks"], cfg.n_layer):
-        if cfg.remat:
+        if cfg.remat and cfg.remat_policy != "full":
+            h = selective_checkpoint(functools.partial(_block, cfg), cfg.remat_policy, lp, h)
+        elif cfg.remat:
             h = checkpoint(functools.partial(_block, cfg, lp), h)
         else:
             h = _block(cfg, lp, h)

@@ -387,6 +387,13 @@ def _on(device, kernel, plain, what):
     raise ValueError(f"block-sparse attention {what}: no implementation for device {device}")
 
 
+def forward_backward(device):
+    """``(forward, backward)`` for tensors on ``device``: the kernels for
+    CUDA, the plain versions for the CPU; any other device raises."""
+    return (_on(device, block_sparse_attention_fwd, block_sparse_attention_fwd_ref, "forward"),
+            _on(device, block_sparse_attention_bwd, block_sparse_attention_bwd_ref, "backward"))
+
+
 class BlockSparseAttention(torch.autograd.Function):
     """o = block-sparse attention(q, k, v); saves ``(q, k, v, o, lse)``.
     CUDA tensors run the kernels, CPU tensors their plain versions."""

@@ -258,6 +258,13 @@ def _on(device, kernel, plain, what):
     raise ValueError(f"flash attention {what}: no implementation for device {device}")
 
 
+def forward_backward(device):
+    """``(forward, backward)`` for tensors on ``device``: the kernels for
+    CUDA, the plain versions for the CPU; any other device raises."""
+    return (_on(device, flash_attention_fwd, flash_attention_fwd_ref, "forward"),
+            _on(device, flash_attention_bwd, flash_attention_bwd_ref, "backward"))
+
+
 class FlashAttention(torch.autograd.Function):
     """o = attention(q, k, v); saves ``(q, k, v, o, lse)``. CUDA tensors run
     the kernels, CPU tensors their plain versions."""

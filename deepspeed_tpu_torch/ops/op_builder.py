@@ -104,6 +104,22 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
             ctypes.c_int,
         ),
     },
+    "fused_adam": {
+        "fused_adam_launch": (
+            [_P] * 6                           # p, g, m, v pointer tables; n; wd
+            + [_I, _I, _I]                     # count, grad dtype, mode
+            + [_F] * 8                         # lr, b1, b2, 1-b1, 1-b2, eps, bc1, bc2
+            + [_P],                            # stream
+            ctypes.c_int,
+        ),
+        "fused_lamb_launch": (
+            [_P] * 6                           # p, g, m, v pointer tables; n; wd
+            + [_I, _I]                         # count, grad dtype
+            + [_F] * 10                        # lr, b1, b2, 1-b1, 1-b2, eps, bc1, bc2, min/max trust
+            + [_P, _L, _P],                    # workspace, its chunks, stream
+            ctypes.c_int,
+        ),
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

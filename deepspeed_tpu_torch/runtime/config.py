@@ -362,8 +362,8 @@ class DeepSpeedConfig:
             if not _is_off(d[key]):
                 raise NotPortedError(
                     f"config section {key!r}={d[key]!r} is not ported to deepspeed_tpu_torch "
-                    "yet (its training path is the single-device subset: ROADMAP queue 1 "
-                    "item 5)"
+                    "yet (its training path is the single-device subset; ROADMAP queue 1 "
+                    "names the item that ports each section)"
                 )
         zero = d.get("zero_optimization") or {}
         for key, is_off in _ZERO_OFF.items():
@@ -371,7 +371,7 @@ class DeepSpeedConfig:
                 raise NotPortedError(
                     f"zero_optimization.{key}={zero[key]!r} is not ported to "
                     "deepspeed_tpu_torch yet: ZeRO stages 1-3 and offload need comm/ on "
-                    "NCCL (ROADMAP queue 1 item 5)"
+                    "NCCL (ROADMAP queue 1 item 10)"
                 )
         cfg = cls(
             train_batch_size=d.get("train_batch_size"),
@@ -421,7 +421,7 @@ class DeepSpeedConfig:
         if int(dp_world_size) != 1:
             raise NotPortedError(
                 f"data-parallel world size {dp_world_size}: deepspeed_tpu_torch trains on "
-                "one device (ROADMAP queue 1 item 5)"
+                "one device (ROADMAP queue 1 item 10)"
             )
         if self._user_batch is None:
             self._user_batch = (self.train_batch_size, self.train_micro_batch_size_per_gpu,

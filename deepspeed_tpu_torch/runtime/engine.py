@@ -15,7 +15,8 @@ eagerly, in the same order (``_make_train_step``, engine.py:1106-1345):
 4. fp16 only: an overflow (a non-finite leaf) zeroes the gradients;
 5. the global norm is taken and the gradients clipped by
    ``clip / (gnorm + 1e-6)``;
-6. Adam (optax's math) updates the master in place, unless the step
+6. the optimizer (optax's math; the Adam and Lamb families through the
+   fused kernel on the card) updates the master in place, unless the step
    overflowed: then params and optimizer state stay, ``skipped_steps``
    counts it, and the loss scaler updates either way.
 
@@ -32,7 +33,7 @@ import numpy as np
 import torch
 
 from ..inference.engine import resolve_device
-from ..utils.logging import log_dist
+from ..utils.logging import log_dist, warning_once
 from ..utils.weights import tree_leaves, tree_map
 from .config import DeepSpeedConfig
 from .fp16 import loss_scaler as ls
@@ -99,6 +100,10 @@ class DeepSpeedEngine:
         self._skipped_steps = 0     # overflow-skipped updates
         self.global_steps = 0       # train_batch calls
         self._generator = torch.Generator(device=self.device).manual_seed(int(seed) + 1)
+        self._seed = int(seed)
+        # the reference-loop shim's state (forward / backward / step)
+        self._pending_batch = None
+        self._backward_called = False
 
         self.micro_batch_size = config.train_micro_batch_size_per_gpu
         self.gradient_accumulation_steps_value = config.gradient_accumulation_steps
@@ -240,17 +245,57 @@ class DeepSpeedEngine:
         return metrics
 
     @torch.no_grad()
-    def eval_batch(self, batch: PyTree) -> torch.Tensor:
-        """Mean eval-mode loss over the batch's ``gas`` micro-batches."""
+    def eval_batch(self, batch: PyTree,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Mean eval-mode loss over the batch's ``gas`` micro-batches
+        (``generator``: the random stream handed to the model, by default
+        the training one)."""
         device_batch = self.shard_batch(batch)
         cparams = _cast(self.params, self.compute_dtype)
         total = torch.zeros((), dtype=torch.float32, device=self.device)
         n = self.gradient_accumulation_steps_value
+        gen = self._generator if generator is None else generator
         for i in range(n):
             micro = tree_map(lambda x: x[i], device_batch)
-            loss, _ = self.module.loss_fn(cparams, micro, self._generator, False)
+            loss, _ = self.module.loss_fn(cparams, micro, gen, False)
             total = total + loss.float()
         return total / n
+
+    # ------------------------------------------------------------------
+    # the reference-loop shim (JAX engine.py:2269-2317)
+    # ------------------------------------------------------------------
+    def forward(self, batch: PyTree) -> torch.Tensor:
+        """Reference-style ``loss = engine(batch)``: stashes the batch for
+        :meth:`step` and returns its EVAL-mode loss (no dropout), computed
+        on a throwaway generator, so the training stream is untouched and a
+        forward / backward / step loop updates the parameters exactly as a
+        ``train_batch`` loop. The update itself runs in :meth:`step`: one
+        extra forward a step against :meth:`train_batch`."""
+        warning_once(
+            "engine.forward/backward/step emulates the reference loop with one extra "
+            "forward per step; engine.train_batch(batch) is the single-call form"
+        )
+        self._pending_batch = batch
+        throwaway = torch.Generator(device=self.device).manual_seed(self._seed + 0x5EED)
+        return self.eval_batch(batch, generator=throwaway)
+
+    __call__ = forward
+
+    def backward(self, loss=None) -> None:
+        """Reference ``engine.backward(loss)``: the gradients are taken in
+        :meth:`step`; this checks the call order only."""
+        if self._pending_batch is None:
+            raise RuntimeError("backward() requires a preceding engine.forward(batch)")
+        self._backward_called = True
+
+    def step(self) -> Dict[str, Any]:
+        """Reference ``engine.step()``: :meth:`train_batch` on the batch
+        stashed by :meth:`forward`."""
+        if self._pending_batch is None or not self._backward_called:
+            raise RuntimeError("step() requires engine.forward(batch) then engine.backward()")
+        batch, self._pending_batch = self._pending_batch, None
+        self._backward_called = False
+        return self.train_batch(batch)
 
     # ------------------------------------------------------------------
     # properties (reference engine property surface)

@@ -1,13 +1,27 @@
 """Optimizer registry: config ``optimizer.type`` → an optimizer over the
 parameter tree (counterpart of ``deepspeed_tpu/runtime/optimizers.py``).
 
-The Adam family (Adam, AdamW, FusedAdam, DeepSpeedCPUAdam) is ported with
-optax's math, as plain tensor ops that update the fp32 master in place:
-bias-corrected moments, ``eps`` outside the square root, decoupled weight
-decay masked to leaves with ``ndim >= 2`` (L2 decay folded into the
-gradient when ``adam_w_mode`` is false), and the learning rate read from the
-schedule at the optimizer's own update count, which starts at 0. Lamb,
-Adagrad and SGD are not ported yet and raise.
+Each optimizer updates the fp32 master in place with optax's math and reads
+the learning rate from the schedule at its own update count, which starts
+at 0. Step count, bias corrections and the learning rate are Python
+numbers: an update reads nothing back from the card.
+
+- Adam, AdamW, FusedAdam, DeepSpeedCPUAdam: optax ``adamw`` with the decay
+  masked to leaves with ``ndim >= 2``, ``chain(add_decayed_weights, adam)``
+  (L2 decay folded into the gradient) when ``adam_w_mode`` is false, or
+  ``adam`` without decay. CUDA masters update through the fused kernel
+  (``ops.fused_adam``), one launch a step; CPU masters through its plain
+  version.
+- Lamb, FusedLamb: optax ``lamb`` (eps 1e-8 unless given, decay on every
+  leaf, the trust ratio per leaf and unclamped): the fused kernel's two
+  launches a step on the card, the plain version on the CPU.
+- Adagrad, DeepSpeedCPUAdagrad: optax ``adagrad`` (accumulator from 0.1),
+  and SGD: optax ``sgd`` (a trace, with decay 0 when ``momentum`` is 0),
+  as plain tensor ops on either device.
+
+OneBitAdam, ZeroOneAdam and OneBitLamb are the 1-bit optimizers of
+``runtime/fp16/onebit/`` in the JAX engine, which compress momentum; they
+are not ported and raise.
 """
 
 from __future__ import annotations
@@ -17,6 +31,7 @@ from typing import Any, Callable, Dict, List, Optional, Union
 
 import torch
 
+from ..ops import fused_adam
 from ..utils.weights import tree_leaves, tree_map
 from .config import NotPortedError
 
@@ -24,8 +39,9 @@ PyTree = Any
 Schedule = Union[float, Callable[[int], float]]
 
 _ADAM_NAMES = ("adam", "adamw", "fusedadam", "deepspeedcpuadam")
-_NOT_PORTED = ("lamb", "fusedlamb", "onebitlamb", "adagrad", "deepspeedcpuadagrad", "sgd",
-               "onebitadam", "zerooneadam")
+_LAMB_NAMES = ("lamb", "fusedlamb")
+_ADAGRAD_NAMES = ("adagrad", "deepspeedcpuadagrad")
+_ONEBIT_NAMES = ("onebitadam", "zerooneadam", "onebitlamb")
 
 
 @dataclass
@@ -35,64 +51,156 @@ class AdamState:
     nu: PyTree
 
 
-class Adam:
-    """optax ``adam`` / ``adamw`` (masked) / ``chain(add_decayed_weights,
-    adam)`` in place on a tree of fp32 tensors."""
+@dataclass
+class AdagradState:
+    count: int
+    sum_of_squares: PyTree
 
-    def __init__(self, learning_rate: Schedule, b1: float = 0.9, b2: float = 0.999,
-                 eps: float = 1e-8, weight_decay: float = 0.0, decoupled: bool = True):
+
+@dataclass
+class SGDState:
+    count: int
+    trace: PyTree
+
+
+class _Optimizer:
+    """The learning rate, read at the optimizer's own update count."""
+
+    def __init__(self, learning_rate: Schedule):
         self.learning_rate = learning_rate
-        self.b1, self.b2, self.eps = float(b1), float(b2), float(eps)
-        self.weight_decay = float(weight_decay)
-        self.decoupled = bool(decoupled)
 
     def lr_at(self, count: int) -> float:
         lr = self.learning_rate
         return float(lr(count)) if callable(lr) else float(lr)
 
+
+class Adam(_Optimizer):
+    """optax ``adam`` / ``adamw`` (masked) / ``chain(add_decayed_weights,
+    adam)`` in place on a tree of fp32 tensors."""
+
+    def __init__(self, learning_rate: Schedule, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8, weight_decay: float = 0.0, decoupled: bool = True):
+        super().__init__(learning_rate)
+        self.b1, self.b2, self.eps = float(b1), float(b2), float(eps)
+        self.weight_decay = float(weight_decay)
+        self.decoupled = bool(decoupled)
+
+    @property
+    def mode(self) -> str:
+        if not self.weight_decay:
+            return "none"
+        return "decoupled" if self.decoupled else "l2"
+
     def init(self, params: PyTree) -> AdamState:
         return AdamState(count=0, mu=tree_map(torch.zeros_like, params),
                          nu=tree_map(torch.zeros_like, params))
 
-    @torch.no_grad()
     def step(self, params: PyTree, grads: List[torch.Tensor], state: AdamState) -> None:
         """One update of every leaf of ``params`` (in place) from ``grads``
-        (f32, in ``tree_leaves`` order); advances ``state``."""
-        b1, b2, eps, wd = self.b1, self.b2, self.eps, self.weight_decay
+        (in ``tree_leaves`` order); advances ``state``."""
+        leaves = tree_leaves(params)
+        # the decay mask of the JAX registry (_default_wd_mask): ndim >= 2
+        wds = [self.weight_decay if p.ndim >= 2 else 0.0 for p in leaves]
+        fused_adam.multi_tensor_adam_(leaves, grads, tree_leaves(state.mu),
+                                      tree_leaves(state.nu), state.count + 1,
+                                      self.lr_at(state.count), (self.b1, self.b2), self.eps,
+                                      wds, self.mode)
+        state.count += 1
+
+
+class Lamb(_Optimizer):
+    """optax ``lamb`` in place: decay on every leaf, the trust ratio
+    ``||p|| / ||u||`` per leaf without a clamp."""
+
+    def __init__(self, learning_rate: Schedule, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-6, weight_decay: float = 0.0):
+        super().__init__(learning_rate)
+        self.b1, self.b2, self.eps = float(b1), float(b2), float(eps)
+        self.weight_decay = float(weight_decay)
+
+    init = Adam.init
+
+    def step(self, params: PyTree, grads: List[torch.Tensor], state: AdamState) -> None:
+        leaves = tree_leaves(params)
+        fused_adam.multi_tensor_lamb_(leaves, grads, tree_leaves(state.mu),
+                                      tree_leaves(state.nu), state.count + 1,
+                                      self.lr_at(state.count), (self.b1, self.b2), self.eps,
+                                      [self.weight_decay] * len(leaves))
+        state.count += 1
+
+
+class Adagrad(_Optimizer):
+    """optax ``adagrad``: ``t += g * g`` (``t`` from
+    ``initial_accumulator_value``), ``p -= lr * where(t > 0, rsqrt(t + eps),
+    0) * g``."""
+
+    def __init__(self, learning_rate: Schedule, eps: float = 1e-7,
+                 initial_accumulator_value: float = 0.1):
+        super().__init__(learning_rate)
+        self.eps = float(eps)
+        self.initial_accumulator_value = float(initial_accumulator_value)
+
+    def init(self, params: PyTree) -> AdagradState:
+        return AdagradState(count=0, sum_of_squares=tree_map(
+            lambda p: torch.full_like(p, self.initial_accumulator_value), params))
+
+    @torch.no_grad()
+    def step(self, params: PyTree, grads: List[torch.Tensor], state: AdagradState) -> None:
         lr = self.lr_at(state.count)
-        count = state.count + 1
-        # bias corrections in f32, as optax computes them
-        f32 = torch.float32
-        bc1 = float(1 - torch.tensor(b1, dtype=f32) ** count)
-        bc2 = float(1 - torch.tensor(b2, dtype=f32) ** count)
-        for p, g, mu, nu in zip(tree_leaves(params), grads, tree_leaves(state.mu),
-                                tree_leaves(state.nu)):
-            decay = wd and p.ndim >= 2
-            if decay and not self.decoupled:
-                g = g + wd * p
-            mu.mul_(b1).add_(g * (1 - b1))
-            nu.mul_(b2).add_(g * g * (1 - b2))
-            u = (mu / bc1) / ((nu / bc2).sqrt() + eps)
-            if decay and self.decoupled:
-                u = u + wd * p
+        for p, g, t in zip(tree_leaves(params), grads, tree_leaves(state.sum_of_squares)):
+            g = g.float()
+            t.add_(g * g)
+            scale = torch.where(t > 0, torch.rsqrt(t + self.eps), torch.zeros_like(t))
+            p.add_(scale * g * -lr)
+        state.count += 1
+
+
+class SGD(_Optimizer):
+    """optax ``sgd``: ``trace = g + momentum * trace``; the update is the
+    trace, or ``g + momentum * trace`` with ``nesterov``; ``p -= lr * u``."""
+
+    def __init__(self, learning_rate: Schedule, momentum: float = 0.0, nesterov: bool = False):
+        super().__init__(learning_rate)
+        self.momentum = float(momentum)
+        self.nesterov = bool(nesterov)
+
+    def init(self, params: PyTree) -> SGDState:
+        return SGDState(count=0, trace=tree_map(torch.zeros_like, params))
+
+    @torch.no_grad()
+    def step(self, params: PyTree, grads: List[torch.Tensor], state: SGDState) -> None:
+        lr = self.lr_at(state.count)
+        for p, g, tr in zip(tree_leaves(params), grads, tree_leaves(state.trace)):
+            g = g.float()
+            tr.mul_(self.momentum).add_(g)
+            u = g + self.momentum * tr if self.nesterov else tr
             p.add_(u * -lr)
-        state.count = count
+        state.count += 1
 
 
 def build_optimizer(opt_type: Optional[str], params_cfg: Optional[Dict[str, Any]] = None,
-                    learning_rate: Optional[Schedule] = None) -> Adam:
+                    learning_rate: Optional[Schedule] = None) -> _Optimizer:
     """The optimizer of a DeepSpeed ``optimizer`` config section."""
     p = dict(params_cfg or {})
     name = (opt_type or "Adam").lower()
     lr = learning_rate if learning_rate is not None else p.get("lr", 1e-3)
+    betas = tuple(p.get("betas", (0.9, 0.999)))
+    eps = float(p.get("eps", 1e-8))
+    wd = float(p.get("weight_decay", 0.0))
     if name in _ADAM_NAMES:
-        betas = tuple(p.get("betas", (0.9, 0.999)))
-        wd = float(p.get("weight_decay", 0.0))
         decoupled = bool(p.get("adam_w_mode", True)) or name == "adamw"
-        return Adam(lr, betas[0], betas[1], float(p.get("eps", 1e-8)), wd, decoupled)
-    if name in _NOT_PORTED:
+        return Adam(lr, betas[0], betas[1], eps, wd, decoupled)
+    if name in _LAMB_NAMES:
+        return Lamb(lr, betas[0], betas[1], eps, wd)
+    if name in _ADAGRAD_NAMES:
+        return Adagrad(lr, eps=float(p.get("eps", 1e-10)))
+    if name == "sgd":
+        return SGD(lr, momentum=float(p.get("momentum", 0.0)),
+                   nesterov=bool(p.get("nesterov", False)))
+    if name in _ONEBIT_NAMES:
         raise NotPortedError(
-            f"optimizer {opt_type!r} is not ported to deepspeed_tpu_torch yet (the Adam "
-            "family is; ROADMAP queue 1 item 5)"
+            f"optimizer {opt_type!r} is a 1-bit optimizer (runtime/fp16/onebit/ in the JAX "
+            "engine, which compresses momentum) and is not ported to deepspeed_tpu_torch yet "
+            "(ROADMAP queue 1 item 13)"
         )
     raise ValueError(f"unknown optimizer type: {opt_type}")

@@ -485,3 +485,186 @@ def test_sparse_bert_on_the_card_matches_the_cpu(card):
     h_cpu, pooled_cpu = bert.forward(cfg, params_from_numpy(tree, "cpu"), ids)
     assert _max_err(h_card.cpu(), h_cpu) <= 1e-4
     assert _max_err(pooled_card.cpu(), pooled_cpu) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# fused AdamW / LAMB (csrc/fused_adam.cu)
+# ---------------------------------------------------------------------------
+
+from deepspeed_tpu_torch.ops import fused_adam as tfa  # noqa: E402
+
+# max abs error over max |ref| of p, m, v after the update(s): the kernel
+# computes in f32 like the plain version (the same operations; the plain
+# version divides by the bias corrections as a multiply by their
+# reciprocal on the card, LAMB's norms are double sums in the kernel)
+ADAM_REL_TOL = 1e-6
+
+
+def _opt_case(shapes, card, seed, gdtype=torch.float32, offset=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+
+    def make(shape, scale=1.0):
+        n = int(torch.tensor(shape).prod()) if shape else 1
+        base = torch.randn(n + offset, generator=g) * scale
+        return base.to(card)[offset:].reshape(shape)
+
+    p = [make(s) for s in shapes]
+    gr = [make(s).to(gdtype) for s in shapes]
+    m = [make(s, 0.1) for s in shapes]
+    v = [make(s, 0.1).abs() for s in shapes]
+    return p, gr, m, v
+
+
+def _clone(ts):
+    return [t.clone() for t in ts]
+
+
+def _rel(got, ref):
+    return max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+               for a, b in zip(got, ref))
+
+
+@pytest.mark.parametrize("mode", ["decoupled", "l2", "none"])
+@pytest.mark.parametrize("shapes,gdtype,offset", [
+    ([(3,)], torch.float32, 0), ([(1000,)], torch.float32, 0), ([(8192,)], torch.float32, 0),
+    ([(1000,)], torch.float32, 1),                      # unaligned views: the scalar path
+    ([(4, 1024, 1024), (1024,), (3,), (65537,)], torch.bfloat16, 0),
+    ([(77, 33), (5,)], torch.float16, 0),
+])
+def test_fused_adam_kernel_matches_plain_version(card, mode, shapes, gdtype, offset):
+    p, g, m, v = _opt_case(shapes, card, 0, gdtype, offset)
+    wds = [0.1 if len(s) >= 2 else 0.0 for s in shapes]
+    ref = [_clone(x) for x in (p, m, v)]
+    before = tfa.LAUNCHES["fused_adamw"]
+    for step in (1, 2, 3):
+        tfa.multi_tensor_adam(p, g, m, v, step, 1e-3, (0.9, 0.95), 1e-8, wds, mode)
+        tfa.multi_tensor_adam_ref_(ref[0], g, ref[1], ref[2], step, 1e-3, (0.9, 0.95), 1e-8,
+                                   wds, mode)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["fused_adamw"] == before + 3
+    for got, want in zip((p, m, v), ref):
+        assert _rel(got, want) <= ADAM_REL_TOL
+
+
+@pytest.mark.parametrize("clamp", [False, True])
+@pytest.mark.parametrize("steps", [1, 5])
+def test_fused_lamb_kernel_matches_plain_version(card, clamp, steps):
+    shapes = [(4, 256, 512), (512,), (3,), (2, 70000), (16, 16)]
+    p, g, m, v = _opt_case(shapes, card, 1)
+    p[4].zero_()  # a zero-norm leaf: trust 1
+    bounds = (0.01, 10.0) if clamp else (None, None)
+    ref = [_clone(x) for x in (p, m, v)]
+    before = tfa.LAUNCHES["fused_lamb"]
+    for step in range(1, steps + 1):
+        tfa.multi_tensor_lamb(p, g, m, v, step, 1e-2, (0.9, 0.999), 1e-6, [0.01] * 5, *bounds)
+        tfa.multi_tensor_lamb_ref_(ref[0], g, ref[1], ref[2], step, 1e-2, (0.9, 0.999), 1e-6,
+                                   [0.01] * 5, *bounds)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["fused_lamb"] == before + 2 * steps
+    for got, want in zip((p, m, v), ref):
+        assert _rel(got, want) <= ADAM_REL_TOL
+
+
+def test_fused_lamb_kernel_repeats_bit_for_bit(card):
+    p, g, m, v = _opt_case([(3, 300000), (7,)], card, 2)
+    runs = []
+    for _ in range(2):
+        pc, mc, vc = _clone(p), _clone(m), _clone(v)
+        tfa.multi_tensor_lamb(pc, g, mc, vc, 1, 1e-2, weight_decays=[0.01, 0.01])
+        runs.append(pc)
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_fused_adam_kernel_splits_long_lists(card):
+    """More tensors than a launch takes: one launch per MAX_TENSORS."""
+    n = tfa.MAX_TENSORS + 5
+    p, g, m, v = _opt_case([(10,)] * n, card, 3)
+    ref = [_clone(x) for x in (p, m, v)]
+    before = tfa.LAUNCHES["fused_adamw"]
+    tfa.multi_tensor_adam(p, g, m, v, 1, 1e-3, weight_decays=[0.1] * n)
+    tfa.multi_tensor_adam_ref_(ref[0], g, ref[1], ref[2], 1, 1e-3, weight_decays=[0.1] * n)
+    assert tfa.LAUNCHES["fused_adamw"] == before + 2
+    assert _rel(p, ref[0]) <= ADAM_REL_TOL
+
+
+def test_fused_adam_kernel_refuses_what_it_does_not_take(card):
+    p, g, m, v = _opt_case([(64, 64)], card, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.multi_tensor_adam([p[0].t()], g, m, v, 1, 1e-3)
+    with pytest.raises(TypeError, match="float32"):
+        tfa.multi_tensor_adam([p[0].half()], g, m, v, 1, 1e-3)
+    with pytest.raises(ValueError, match="on"):
+        tfa.multi_tensor_lamb(p, [g[0].cpu()], m, v, 1, 1e-3)
+
+
+@pytest.mark.parametrize("opt", [
+    {"type": "AdamW", "params": {"lr": 3e-3, "betas": [0.9, 0.95], "weight_decay": 0.1}},
+    {"type": "Lamb", "params": {"lr": 3e-3, "betas": [0.9, 0.999], "eps": 1e-6,
+                                "weight_decay": 0.01}},
+])
+def test_fp32_training_with_the_fused_update_matches_the_cpu(card, opt):
+    """3 fp32 steps of a 2-layer GPT-2 of head dim 64 (the flash kernels'
+    width) on the card, updating through the kernel, against the CPU's
+    plain versions from the same weights."""
+    import numpy as np
+
+    import deepspeed_tpu_torch as dtt
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.utils.weights import params_from_numpy, params_to_numpy, tree_leaves
+
+    cfg = gpt2.get_config("gpt2-tiny", n_embd=128, n_head=2)
+    tree = params_to_numpy(gpt2.init_params(cfg, torch.Generator().manual_seed(0)))
+    conf = {"train_micro_batch_size_per_gpu": 2, "gradient_accumulation_steps": 2,
+            "gradient_clipping": 1.0, "optimizer": opt}
+    batch = {"input_ids": np.random.RandomState(1).randint(0, 512, (4, 128)).astype(np.int32)}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        before = dict(tfa.LAUNCHES)
+        eng, *_ = dtt.initialize(model=gpt2.make_module(cfg), config=conf,
+                                 model_parameters=params_from_numpy(tree, dev), device=dev)
+        losses = [float(eng.train_batch(batch)["loss"]) for _ in range(3)]
+        launched = {k: tfa.LAUNCHES[k] - before[k] for k in before}
+        out[dev] = losses, params_to_numpy(eng.params), launched
+    want = {"fused_adamw": 3, "fused_lamb": 0} if opt["type"] == "AdamW" else \
+        {"fused_adamw": 0, "fused_lamb": 6}
+    assert out["cuda"][2] == want and out["cpu"][2] == {"fused_adamw": 0, "fused_lamb": 0}
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
+    # parameters: within 1e-5, except where a gradient is near 0 and its
+    # card and CPU sums (another order) differ in their last bits, which
+    # Adam's first step divides by their own magnitude; such an element
+    # moves by at most ~lr a step either way
+    diff = np.concatenate([np.abs(a - b).ravel() for a, b in
+                           zip(tree_leaves(out["cuda"][1]), tree_leaves(out["cpu"][1]))])
+    assert (diff > 1e-5).mean() <= 1e-4 and diff.max() <= 2 * 3 * 3e-3, \
+        ((diff > 1e-5).sum(), diff.max())
+
+
+@pytest.mark.parametrize("policy", ["attn", "dots"])
+def test_remat_policies_on_the_card_keep_the_attention_output(card, policy):
+    """fp32 GPT-2 of head dim 64: the selective policies' grads equal the
+    no-remat grads on the card, and the flash forward launches once a block
+    (the backward runs the kept output's backward, no forward again)."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.utils.weights import params_from_numpy, params_to_numpy, tree_leaves
+
+    base = gpt2.get_config("gpt2-tiny", n_embd=128, n_head=2)
+    tree = params_to_numpy(gpt2.init_params(base, torch.Generator().manual_seed(2)))
+    ids = torch.from_numpy(np.random.RandomState(3).randint(0, 512, (2, 128))).to(card)
+    grads = []
+    for cfg in (base, gpt2.get_config("gpt2-tiny", n_embd=128, n_head=2, remat=True,
+                                       remat_policy=policy)):
+        params = params_from_numpy(tree, card)
+        leaves = tree_leaves(params)
+        for leaf in leaves:
+            leaf.requires_grad_(True)
+        before = dict(fa.LAUNCHES)
+        loss, _ = gpt2.lm_loss(cfg, params, {"input_ids": ids}, None, True)
+        grads.append(torch.autograd.grad(loss, leaves))
+        torch.cuda.synchronize()
+        launched = {k: fa.LAUNCHES[k] - before[k] for k in before}
+        assert launched == {"flash_attention_fwd": cfg.n_layer,
+                            "flash_attention_bwd": cfg.n_layer}
+    for a, b in zip(*grads):
+        assert _max_err(a, b) <= 1e-6

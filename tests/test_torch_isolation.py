@@ -142,3 +142,13 @@ def test_cached_and_int8_dispatch_have_no_other_route(kv_dtype):
     pos = torch.zeros(1, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no implementation"):
         paged_cached_attention(q, pool, pool, bt, pos, scales=scales)
+
+
+def test_the_optimizer_slice_modules_are_scanned():
+    """The optimizer slice's modules and its kernel source are part of what
+    the scans above cover."""
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for mod in ("ops/fused_adam.py", "runtime/optimizers.py", "runtime/engine.py",
+                "runtime/activation_checkpointing.py", "models/lm_loss.py"):
+        assert f"deepspeed_tpu_torch/{mod}" in names
+    assert (REPO / "deepspeed_tpu_torch/csrc/fused_adam.cu").is_file()

@@ -14,13 +14,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      a page at scale 0, garbage codes
      in the scratch page, bf16 and fp32 q, GQA H16/KV4, D 64/128/256), and
      the contiguous decode kernel (B8 Smax256 H16 D64 bf16, generate's
-     shape, and Smax 4096, D128, D256, GQA, fp32/fp16, pos 0 / ragged /
-     Smax-1, garbage past pos); each error as max abs and as max abs over
-     max |ref|. Each kernel and mode timed with CUDA events at its main
+     shape, and Smax 4096 and 8192, D128, D256, GQA, fp32/fp16, pos 0 /
+     ragged / Smax-1, garbage past pos); each error as max abs and as max
+     abs over max |ref|. Each kernel and mode timed with CUDA events at its main
      shape (device time, the host's enqueueing hidden behind a device-side
      sleep; and per call with the host's launch path) beside the plain
      version, one PyTorch library call computing the same function, and
-     the bound (bytes moved over 3.35 TB/s, or operations over peak).
+     the bound (bytes moved over 3.35 TB/s, or operations over peak); the
+     contiguous decode also at a long cache (B2 Smax4096 pos 4095) beside
+     SDPA, with its launch plan (heads and warps a block, chunks).
   3  serve: gpt2-medium in bf16 (seeded random weights) through
      init_inference(...).serve() with the default serving section; 16
      requests of mixed lengths must all finish with their full token count
@@ -55,7 +57,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      budget) and S=128, each by max abs error and by max abs error over
      max |ref|; forward and backward timed at the training shape
      beside the plain versions, SDPA as the library yardstick (backward =
-     its forward+backward minus its forward) and the bound.
+     its forward+backward minus its forward) and the bound; the forward
+     also at S128 B8 H16 (generate's prefill bucket) and S8192 B1 H4 beside
+     SDPA.
   6  train gpt2-medium (24 layers, E1024, H16, vocab 50257, S=1024) in bf16
      on an fp32 master through dtt.initialize(...): micro 8 x gas 2, AdamW,
      WarmupLR, clipping 1.0, 12 steps on one seeded token batch. Losses must
@@ -183,6 +187,7 @@ from deepspeed_tpu_torch.tools.profile_training import (
     train_config,
     workload,
 )
+from deepspeed_tpu_torch.tools.time_attention_kernels import time_ms
 from deepspeed_tpu_torch.utils.weights import params_from_numpy, params_to_numpy, tree_leaves
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
@@ -351,45 +356,6 @@ def library_attention(q, k, v, bt, pos, scales=None):
         q.transpose(1, 2), kd, vd, attn_mask=mask[:, None], **gqa
     ).transpose(1, 2)
     return o[:, 0] if one else o
-
-
-def _events_ms(fn, iters, sleep_cycles=0):
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    if sleep_cycles:
-        torch.cuda._sleep(sleep_cycles)
-    start.record()
-    t0 = time.perf_counter()
-    for i in range(iters):
-        fn(i)
-    host_s = time.perf_counter() - t0
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters, host_s
-
-
-def time_ms(fn, iters, warmup=10):
-    """(device ms per call, host-inclusive ms per call). The first is taken
-    with CUDA events around ``iters`` calls enqueued behind a device-side
-    sleep long enough to hide the host's enqueueing, so it counts device
-    execution only; the second is the same loop without the sleep, where a
-    host slower than the device leaves gaps between launches."""
-    for i in range(warmup):
-        fn(i)
-    torch.cuda.synchronize()
-    call_ms, host_s = _events_ms(fn, iters)
-    probe = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    probe[0].record()
-    torch.cuda._sleep(10_000_000)
-    probe[1].record()
-    torch.cuda.synchronize()
-    cycles_per_ms = 10_000_000 / probe[0].elapsed_time(probe[1])
-    sleep_ms = 4 * host_s * 1e3
-    device_ms, host_s2 = _events_ms(fn, iters, int(sleep_ms * cycles_per_ms))
-    if host_s2 * 1e3 > sleep_ms:
-        print(f"note: enqueueing took {host_s2 * 1e3:.2f} ms > the {sleep_ms:.2f} ms sleep; "
-              "the device time includes host gaps")
-    return device_ms, call_ms
 
 
 def bound(q, k_layer, bt, pos, scales=None):
@@ -1220,6 +1186,7 @@ def main() -> int:
         ("fp16 B8 Smax256 H16 D64", (8, 256, 16, 16, 64, torch.float16), 255),
         ("Smax4096 bf16 B2 H16", (2, 4096, 16, 16, 64, torch.bfloat16), 4095),
         ("Smax4096 fp32 B2 H16 ragged", (2, 4096, 16, 16, 64, torch.float32), 3001),
+        ("Smax8192 bf16 B2 H8", (2, 8192, 8, 8, 64, torch.bfloat16), 8191),
         ("D128 bf16 B4 Smax512 H8", (4, 512, 8, 8, 128, torch.bfloat16), 300),
         ("D256 fp32 B2 Smax256 H4", (2, 256, 4, 4, 256, torch.float32), 255),
         ("D256 bf16 B2 Smax256 H4", (2, 256, 4, 4, 256, torch.bfloat16), 0),
@@ -1257,7 +1224,23 @@ def main() -> int:
           f"{d_ms:.4f}, plain {d_plain_ms:.4f}, library (SDPA over rows 0..pos) {d_lib_ms:.4f}, "
           f"bound {d_bound_ms:.5f} ({d_bound_by}), kernel at {d_bound_ms / d_ms:.3f} of bound; "
           f"per call with the host's launch path {d_call_ms:.4f}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print("decode_attention launch (heads a block, warps a block, chunks, rows a chunk): "
+          f"main shape {tda.kernel_plan(8, 16, 16, 64, 2, dec_pos[-1] + 1, sms)}; 1 device "
+          "launch a call (with more than one chunk the last block of a head merges them)")
     del dk, dv
+    torch.cuda.empty_cache()
+    # the long cache at its last row, where the split matters most (4
+    # layers' caches in turn: 134 MB, past L2)
+    lq, lk, lv = decode_case(2, 4096, 16, 16, 64, torch.bfloat16, layers=4, seed=45)
+    dl_ms, _ = time_ms(lambda i: tda.decode_attention(lq, lk[i % 4], lv[i % 4], 4095), 240)
+    dl_lib_ms, _ = time_ms(lambda i: library_decode(lq, lk[i % 4], lv[i % 4], 4095), 96)
+    dl_bound, dl_by = decode_bound(lq, lk[0], 4095)
+    print(f"decode_attention long cache B2 Smax4096 H16 D64 bf16 pos 4095, device ms per call: "
+          f"kernel {dl_ms:.4f}, library (SDPA) {dl_lib_ms:.4f}, bound {dl_bound:.5f} ({dl_by}), "
+          f"kernel at {dl_bound / dl_ms:.3f} of bound; launch "
+          f"{tda.kernel_plan(2, 16, 16, 64, 2, 4096, sms)}")
+    del lq, lk, lv
     torch.cuda.empty_cache()
 
     phase(3, "serve gpt2-medium bf16 (the main path)")
@@ -1527,6 +1510,23 @@ def main() -> int:
           f"{bwd_bound / bwd_ms:.3f} of bound; per call with the host's launch path "
           f"{bwd_call_ms:.4f}")
     del q, k, v, do, o, lse, qt, kt, vt, dot, leaves, lib_o
+    torch.cuda.empty_cache()
+    # the forward at generate's prefill bucket and at one long sequence, each
+    # beside SDPA
+    for label, shape in (("S128 B8 H16 D64", (8, 128, 16, 16, 64)),
+                         ("long B1 H4 S8192 D64", (1, 8192, 4, 4, 64))):
+        q, k, v, _ = flash_case(*shape, torch.bfloat16, seed=30)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        x_ms, _ = time_ms(lambda i: fa.flash_attention_fwd(q, k, v), 60)
+        x_lib_ms, _ = time_ms(
+            lambda i: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), 60)
+        x_bound, x_by = flash_bound(q, k, True, None, backward=False)
+        print(f"flash_attention_fwd {label} bf16 causal, device ms per call: kernel {x_ms:.4f}, "
+              f"library (SDPA forward) {x_lib_ms:.4f}, bound {x_bound:.5f} ({x_by}), kernel at "
+              f"{x_bound / x_ms:.3f} of bound")
+        del q, k, v, qt, kt, vt
+    print(f"flash_attention_fwd: 1 device launch a call; bf16/fp16 at D64/128 a persistent grid "
+          f"of min(B x H x ceil(S / 128), {sms}) blocks of 3 warpgroups (TMA + wgmma)")
     torch.cuda.empty_cache()
 
     phase(6, "train gpt2-medium bf16 through initialize(...) (the slice's path)")
@@ -1818,10 +1818,10 @@ def main() -> int:
                                                                         lists, causal), 3,
                            warmup=1)[0],
         }
-        lib_fwd_ms = time_ms(lib_fwd, 20)[0]
-        lib = {"fwd": lib_fwd_ms,
-               "dq": time_ms(lib_grad(leaves[:1]), 10)[0] - lib_fwd_ms,
-               "dkv": time_ms(lib_grad(leaves[1:]), 10)[0] - lib_fwd_ms}
+        bs_lib_fwd_ms = time_ms(lib_fwd, 20)[0]
+        lib = {"fwd": bs_lib_fwd_ms,
+               "dq": time_ms(lib_grad(leaves[:1]), 10)[0] - bs_lib_fwd_ms,
+               "dkv": time_ms(lib_grad(leaves[1:]), 10)[0] - bs_lib_fwd_ms}
         flash_fwd_ms = time_ms(lambda i: fa.flash_attention_fwd(q, k, v, causal), 40)[0]
         fo, flse = fa.flash_attention_fwd(q, k, v, causal)
         flash_bwd_ms = time_ms(lambda i: fa.flash_attention_bwd(q, k, v, fo, flse, do, causal),

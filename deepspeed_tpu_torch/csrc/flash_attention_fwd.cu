@@ -9,37 +9,66 @@
 // (whole K/V resident in VMEM up to 4 MB, else K/V blocked over the grid);
 // here one kernel streams K/V through shared memory at any length.
 //
-// What bounds it on the card: its flops. At the training shape (B8 H16
-// S1024 D64 bf16, causal) one call does 2 * 2 * B*H*S*S/2*D = 17.2 GFLOP
-// against 67 MB of q/k/v/o, ~255 flops a byte, near the H100's bf16 ridge
-// (~295): 0.017 ms at 989 TFLOP/s against 0.020 ms at 3.35 TB/s.
+// What bounds it on the card: its flops, then its exponentials. At the
+// training shape (B8 H16 S1024 D64 bf16, causal) one call does 2 * 2 *
+// B*H*S*S/2*D = 17.2 GFLOP against 67 MB of q/k/v/o, ~255 flops a byte,
+// near the H100's bf16 ridge (~295): 0.017 ms at 989 TFLOP/s against 0.020
+// ms at 3.35 TB/s. Only wgmma reaches the tensor cores' rate (mma.sync
+// tops out near a third of it). At D64 each (query, key) pair is 4*D = 256
+// flops and one exp2: at 989 TFLOP/s that is ~3.9 T exponentials a second,
+// about all the SMs' MUFU units give, so softmax that does not overlap the
+// products caps the kernel near half the tensor-core rate.
 //
-// What this design does about it:
-//  - bf16/fp16: both products on the tensor cores (mma.sync m16n8k16, f32
-//    accumulate). One block per (batch, head, tile of 64 queries), 4 warps
-//    of 16 query rows (8 warps at D=256, two warps per row group each
-//    owning half of the output columns so the accumulator fits in
-//    registers). The block walks K/V tiles of 64 keys from the window's
-//    first tile to the causal end through a double-buffered cp.async ring,
-//    so the next tile's copy overlaps this tile's products. m, l and the
-//    output accumulator stay in registers; P is rounded to the storage
-//    dtype and fed back to the second product from registers (no shared
-//    memory round trip). Fragments come from shared memory by ldmatrix
-//    (V by its transposing form); the softmax runs in log2 units on exp2;
-//    tiles wholly inside the mask skip the per-element test. The TPU
-//    carried m/l/acc across a sequential grid axis; Hopper's blocks are
-//    unordered, so the key loop is inside the block. Query tiles are
-//    scheduled heaviest (last) first.
-//  - fp32: the same tiling of work on the FMA pipes (no tensor-core path
-//    keeps fp32 exact): 32 queries a block, lane j of a warp owns key j of
-//    a 32-key chunk for the scores and D/32 output columns for the sum.
-// What it does not do yet: wgmma, TMA, warp specialisation, a persistent
-// schedule.
+// What this design does about it (bf16/fp16, D 64 and 128; FlashAttention-
+// 3's shape):
+//  - persistent: min(items, SMs) blocks of three warpgroups, an item being
+//    a tile of BQ = 128 queries of one (batch, head); items are dealt in
+//    rounds, heaviest (last) query tiles first, every other round in
+//    reverse, so the blocks' causal work evens out;
+//  - a producer warp loads Q and K/V tiles of BK = 128 keys with TMA
+//    (tensor maps built on the host through the runtime's driver entry
+//    point, so the library links no libcuda) into a ring of stages that
+//    runs on across items, each load completing on an mbarrier with its
+//    byte count; rows past S arrive zero-filled. At D64 the next item's Q
+//    loads into a second buffer while this one runs;
+//  - two consumer warpgroups each own 64 query rows: S = Q K^T by wgmma
+//    with both operands in shared memory (128-byte swizzled, as TMA wrote
+//    them), the online softmax in registers (log2 units: one FFMA and one
+//    ex2 an element, max and sum as trees, the mask as selects on the
+//    tiles that cross it, O rescaled only when a row's max moved), then
+//    O += P V by wgmma with P from registers (rounded to the storage
+//    dtype, the accumulator's n8 tiles reused as A fragments) and V through
+//    the transposed-B form. m, l and O stay in registers;
+//  - the warpgroups ping-pong on named barriers: each issues its S_j and
+//    its previous tile's P V in its turn and hands the tensor cores to the
+//    other, and runs its softmax of S_j while its P V is in flight; a stage
+//    goes back to the producer (an mbarrier arrival per warpgroup) once its
+//    last product has completed, Q once its last S has;
+//  - setmaxnreg moves registers from the producer (40) to the consumers
+//    (232); at D64 O goes out through shared memory by TMA stores.
+// D 256 keeps the mma.sync design (below: mma.sync m16n8k16 from ldmatrix
+// fragments, a double-buffered cp.async ring, 4 or 8 warps over 64
+// queries): its 64 x 256 f32 accumulator a warpgroup leaves no room for S
+// beside it at BK = 128. fp32 runs on the FMA pipes (no tensor-core path
+// keeps fp32 exact): 32 queries a block, lane j of a warp owns key j of a
+// 32-key chunk for the scores and D/32 output columns for the sum.
+// What it does not do yet: the products and the softmax overlap less than
+// the ping-pong intends (at the training shape each alone takes 65-85% of
+// the whole); an item's first S and last P V run without the other
+// product beside them; on a causal diagonal tile the first warpgroup
+// computes the 64 keys past its rows and masks them.
 //
-// Ragged S: rows and keys past S are zero-filled in shared memory and
-// masked; nothing past S is written.
+// Ragged S: rows and keys past S are zero-filled in shared memory (TMA's
+// out-of-bounds fill on the wgmma path) and masked; nothing past S is
+// written.
+
+#include <cuda.h>
+
+#include <algorithm>
+#include <type_traits>
 
 #include "flash_attention_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -317,6 +346,491 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ---- bf16/fp16 at D 64 and 128: TMA, wgmma, warp specialisation ------------
+
+template <typename T, int D>
+struct WgCfg {
+  static constexpr int BQ = 128;             // 2 consumer warpgroups x 64 rows
+  static constexpr int BK = 128;             // keys a tile
+  // D64: 4 K/V stages, two Q buffers (the next item's Q loads during this
+  // one) and O staged in shared memory for a TMA store (177 KB); D128: 3
+  // stages and one Q buffer fill 225 KB of the 227, O is stored from
+  // registers
+  static constexpr int STAGES = D == 64 ? 4 : 3;
+  static constexpr int NQ = D == 64 ? 2 : 1;
+  static constexpr bool O_TMA = D == 64;
+  static constexpr int NT = 384;             // producer + 2 consumer warpgroups
+  static constexpr int ATOMS = D / 64;       // 128-byte column atoms a row
+  static constexpr uint32_t Q_BYTES = BQ * D * 2;
+  static constexpr uint32_t T_BYTES = BK * D * 2;  // one K or V tile
+  static constexpr uint32_t O_BYTES = O_TMA ? BQ * D * 2 : 0;
+  static constexpr int PRODUCER_REGS = 40;
+  static constexpr int CONSUMER_REGS = 232;
+  // 1024 bytes of slack to align the tiles; Q, the stages, O, the barriers
+  static constexpr size_t SMEM = 1024 + NQ * Q_BYTES + (size_t)STAGES * 2 * T_BYTES + O_BYTES +
+                                 8 * (2 * NQ + 2 * STAGES);
+};
+
+constexpr int kTurnBar = 8;   // named barriers kTurnBar + w: consumer w's turn
+constexpr int kWgBar = 10;    // named barriers kWgBar + w: consumer w alone
+
+// the consumers' turns on the tensor cores (both warpgroups, 256 threads)
+__device__ __forceinline__ void turn_wait(int bar) { hopper::named_sync(bar, 256); }
+__device__ __forceinline__ void turn_pass(int bar) { hopper::named_arrive(bar, 256); }
+
+// S = Q K^T for the warpgroup's 64 rows and a tile of BK keys: D / 16 k16
+// steps, both operands K-major in 128-byte swizzled atoms of 128 rows
+template <typename T, int D, int BK>
+__device__ __forceinline__ void issue_s(float (&s)[BK / 2], uint32_t q_addr, uint32_t k_addr) {
+  using namespace hopper;
+  fence_regs(s);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk / 4) * 128 * 128 + (kk % 4) * 32;  // atom, then 32 B a step
+    wgmma_ss<BK, T>(s, desc_sw128(q_addr + off, 16, 1024), desc_sw128(k_addr + off, 16, 1024),
+                    kk > 0);
+  }
+  wgmma_commit();
+  fence_regs(s);
+}
+
+// O += P V: BK / 16 k16 steps, P's A fragments from registers, V MN-major
+// (64-column atoms BK * 128 bytes apart, 16 rows = 2048 bytes a step)
+template <typename T, int D, int BK>
+__device__ __forceinline__ void issue_pv(float (&acc)[D / 2], uint32_t (&pa)[BK / 16][4],
+                                         uint32_t v_addr) {
+  using namespace hopper;
+  fence_regs(acc);
+  fence_regs(pa);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+    wgmma_rs<D, T>(acc, pa[kk], desc_sw128(v_addr + kk * 2048, BK * 128, 1024));
+  wgmma_commit();
+  fence_regs(acc);
+  fence_regs(pa);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// the max / sum of N registers as a tree (short dependency chains)
+template <int N>
+__device__ __forceinline__ float tree_max(const float* x) {
+  if constexpr (N == 1) {
+    return x[0];
+  } else {
+    return fmaxf(tree_max<N / 2>(x), tree_max<N / 2>(x + N / 2));
+  }
+}
+template <int N>
+__device__ __forceinline__ float tree_sum(const float* x) {
+  if constexpr (N == 1) {
+    return x[0];
+  } else {
+    return tree_sum<N / 2>(x) + tree_sum<N / 2>(x + N / 2);
+  }
+}
+
+// the online softmax of this thread's rows row0 (elements 4n, 4n+1) and
+// row0 + 8 (4n+2, 4n+3) over keys c0 .. c0 + BK - 1, on the raw scores s:
+// masked scores become -inf (only where the tile is not wholly kept), the
+// running max m is kept in log2 units (scale2 = sm_scale * log2 e > 0, so
+// the max of the raw scores scales to the max of the scaled ones), and s
+// becomes P = exp2(s * scale2 - m) by one FFMA and one ex2 an element;
+// corr is the factor for the accumulator; l is per lane (quad-summed at the
+// end). Fully masked rows keep m at its start value and add nothing.
+template <int BK>
+__device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], float (&m)[2], float (&l)[2],
+                                             float (&corr)[2], bool whole, int c0, int row0,
+                                             int t, float scale2, const Params& p) {
+  if (!whole) {
+    // row r keeps the keys [lo_r, hi_r]: two compares and a select each
+    int lo_r[2], hi_r[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + 8 * i;
+      hi_r[i] = row >= p.S ? -1 : (p.causal ? min(row, p.S - 1) : p.S - 1);
+      lo_r[i] = p.causal && p.window > 0 ? row - p.window + 1 : 0;
+    }
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = c0 + n * 8 + 2 * t + (e & 1);
+        const bool ok = col >= lo_r[e >> 1] && col <= hi_r[e >> 1];
+        s[4 * n + e] = ok ? s[4 * n + e] : -INFINITY;
+      }
+    }
+  }
+  float mx[2][BK / 8];
+#pragma unroll
+  for (int n = 0; n < BK / 8; ++n) {
+    mx[0][n] = fmaxf(s[4 * n + 0], s[4 * n + 1]);
+    mx[1][n] = fmaxf(s[4 * n + 2], s[4 * n + 3]);
+  }
+  float mb[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float mn = fmaxf(m[i], quad_max(tree_max<BK / 8>(mx[i])) * scale2);
+    corr[i] = ex2(m[i] - mn);
+    m[i] = mn;
+    mb[i] = -mn;
+  }
+  float sum[2][BK / 8];
+#pragma unroll
+  for (int n = 0; n < BK / 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[4 * n + e] = ex2(fmaf(s[4 * n + e], scale2, mb[e >> 1]));
+    sum[0][n] = s[4 * n + 0] + s[4 * n + 1];
+    sum[1][n] = s[4 * n + 2] + s[4 * n + 3];
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l[i] = fmaf(l[i], corr[i], tree_sum<BK / 8>(sum[i]));
+}
+
+// P rounded to the storage dtype, as the A fragments of the BK / 16 k16
+// steps of P V (n8 tiles 2k and 2k + 1 of S)
+template <typename T, int BK>
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[BK / 16][4], const float (&s)[BK / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    pa[kk][0] = pack2<T>(s[8 * kk + 0], s[8 * kk + 1]);
+    pa[kk][1] = pack2<T>(s[8 * kk + 2], s[8 * kk + 3]);
+    pa[kk][2] = pack2<T>(s[8 * kk + 4], s[8 * kk + 5]);
+    pa[kk][3] = pack2<T>(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+// one work item: a tile of BQ queries of one (batch, head), and the K/V
+// tiles [lo, hi) it attends
+struct Item {
+  int b, h, kvh, q0, lo, hi;
+};
+
+// item i of the schedule: the heaviest query tiles (the last, under causal
+// masking) of every (batch, head) first
+template <int BQ, int BK>
+__device__ __forceinline__ Item item_at(int i, const Params& p) {
+  const int nq = (p.S + BQ - 1) / BQ;
+  const int nbh = p.B * p.H;
+  Item it;
+  const int qt = nq - 1 - i / nbh;
+  const int bh = i % nbh;
+  it.h = bh % p.H;
+  it.b = bh / p.H;
+  it.kvh = it.h / p.rep;
+  it.q0 = qt * BQ;
+  const int nk = (p.S + BK - 1) / BK;
+  it.lo = 0;
+  it.hi = nk;
+  if (p.causal) {
+    it.hi = min((it.q0 + BQ + BK - 1) / BK, nk);
+    if (p.window > 0) it.lo = max(0, it.q0 - p.window + 1) / BK;
+  }
+  return it;
+}
+
+// the item a block takes in round r of the schedule, or -1: rounds of
+// gridDim.x items, walked forwards in even rounds and backwards in odd ones
+// (the heaviest item of a round goes to the block that had the lightest
+// one of the previous round)
+__device__ __forceinline__ int round_item(int r, int n_items) {
+  const int g = gridDim.x;
+  const int i = r * g + ((r & 1) ? g - 1 - (int)blockIdx.x : (int)blockIdx.x);
+  return i < n_items ? i : -1;
+}
+
+// persistent: each block walks its items of the schedule; the K/V ring and
+// its phases run on across items, so the producer loads the next item's Q
+// and first tiles while the consumers finish this one
+template <typename T, int D>
+__global__ void __launch_bounds__(384, 1)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
+                T* __restrict__ o, float* __restrict__ lse, const Params p, int n_items) {
+  using C = WgCfg<T, D>;
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* Qs = base;                      // buffer k: ATOMS atoms of BQ x 64
+  unsigned char* KVs = base + C::NQ * C::Q_BYTES;  // stage s: K at 2s, V at 2s+1
+  unsigned char* Os = KVs + (size_t)C::STAGES * 2 * C::T_BYTES;  // BQ x 64, swizzled
+  uint64_t* bars = reinterpret_cast<uint64_t*>(Os + C::O_BYTES);
+  uint64_t* q_full = bars;
+  uint64_t* q_empty = bars + C::NQ;
+  uint64_t* full = bars + 2 * C::NQ;
+  uint64_t* empty = bars + 2 * C::NQ + C::STAGES;
+
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < C::NQ; ++k) {
+      mbar_init(&q_full[k], 1);
+      mbar_init(&q_empty[k], 2);
+    }
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer: one thread issues every load --------------------------
+    regs_dec<C::PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      int it = 0;  // K/V tiles loaded, over all items
+      for (int r = 0, qi = 0; r * (int)gridDim.x < n_items; ++r) {
+        const int i = round_item(r, n_items);
+        if (i < 0) continue;
+        const Item w = item_at<C::BQ, C::BK>(i, p);
+        // the buffer's previous item has had its last S
+        const int qb = qi % C::NQ;
+        mbar_wait(&q_empty[qb], ((qi / C::NQ) & 1) ^ 1);
+        mbar_arrive_tx(&q_full[qb], C::Q_BYTES);
+        for (int a = 0; a < C::ATOMS; ++a)
+          tma_load_4d(Qs + qb * C::Q_BYTES + a * C::BQ * 128, &tq, &q_full[qb], a * 64, w.h,
+                      w.q0, w.b);
+        for (int j = w.lo; j < w.hi; ++j, ++it) {
+          const int s = it % C::STAGES;
+          mbar_wait(&empty[s], ((it / C::STAGES) & 1) ^ 1);
+          mbar_arrive_tx(&full[s], 2 * C::T_BYTES);
+          unsigned char* Kt = KVs + (size_t)(2 * s) * C::T_BYTES;
+          unsigned char* Vt = Kt + C::T_BYTES;
+          for (int a = 0; a < C::ATOMS; ++a) {
+            tma_load_4d(Kt + a * C::BK * 128, &tk, &full[s], a * 64, w.kvh, j * C::BK, w.b);
+            tma_load_4d(Vt + a * C::BK * 128, &tv, &full[s], a * 64, w.kvh, j * C::BK, w.b);
+          }
+        }
+        ++qi;
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup cw owns query rows q0 + 64 cw .. + 63 -----------
+  regs_inc<C::CONSUMER_REGS>();
+  const int cw = wg - 1;
+  const int tid = threadIdx.x % 128, lane = tid & 31, warp = tid >> 5;
+  const int t = lane & 3;
+  const float scale2 = p.scale * kLog2e;
+  const uint32_t kv_addr = smem_addr(KVs);
+
+  float m[2], l[2];
+  float acc[D / 2];
+  float s[C::BK / 2];
+  uint32_t pa[C::BK / 16][4];
+
+  if (cw == 1) turn_pass(kTurnBar + 0);  // consumer 0 goes first
+  int it = 0;  // K/V tiles consumed, over all items
+  for (int r = 0, qi = 0; r * (int)gridDim.x < n_items; ++r) {
+    const int i = round_item(r, n_items);
+    if (i < 0) continue;
+    const Item w = item_at<C::BQ, C::BK>(i, p);
+    const bool last_item = (r + 1) * (int)gridDim.x >= n_items || round_item(r + 1, n_items) < 0;
+    const int r0 = w.q0 + cw * 64 + warp * 16;  // this warp's first row
+    const int row0 = r0 + (lane >> 2);
+    m[0] = m[1] = kMasked;
+    l[0] = l[1] = 0.f;
+#pragma unroll
+    for (int k = 0; k < D / 2; ++k) acc[k] = 0.f;
+    const int qb = qi % C::NQ;
+    const uint32_t q_addr = smem_addr(Qs) + qb * C::Q_BYTES + cw * 64 * 128;
+    mbar_wait(&q_full[qb], (qi / C::NQ) & 1);
+
+    // the first tile: S only (no P V pending), so no wgmma is issued or
+    // waited for conditionally inside the tile loop
+    int st = it % C::STAGES;
+    mbar_wait(&full[st], (it / C::STAGES) & 1);
+    turn_wait(kTurnBar + cw);
+    issue_s<T, D, C::BK>(s, q_addr, kv_addr + (2 * st) * C::T_BYTES);
+    if (!(cw == 1 && last_item && w.lo == w.hi - 1)) turn_pass(kTurnBar + (cw ^ 1));
+    wgmma_wait<0>();
+    fence_regs(s);
+    if (w.lo == w.hi - 1 && tid == 0) mbar_arrive(&q_empty[qb]);
+    {
+      float corr[2];
+      const int c0 = w.lo * C::BK;
+      softmax_tile<C::BK>(s, m, l, corr, all_kept(r0, r0 + 15, c0, c0 + C::BK - 1, p), c0,
+                          row0, t, scale2, p);
+    }
+    pack_p<T, C::BK>(pa, s);
+    ++it;
+
+    for (int j = w.lo + 1; j < w.hi; ++j, ++it) {
+      const int prev = st;  // the stage whose V the pending P V reads
+      st = it % C::STAGES;
+      mbar_wait(&full[st], (it / C::STAGES) & 1);
+
+      // this warpgroup's turn on the tensor cores: S_j, then P_{j-1} V_{j-1}
+      turn_wait(kTurnBar + cw);
+      issue_s<T, D, C::BK>(s, q_addr, kv_addr + (2 * st) * C::T_BYTES);
+      issue_pv<T, D, C::BK>(acc, pa, kv_addr + (2 * prev + 1) * C::T_BYTES);
+      if (!(cw == 1 && last_item && j == w.hi - 1)) turn_pass(kTurnBar + (cw ^ 1));
+      wgmma_wait<1>();
+      fence_regs(s);
+      if (j == w.hi - 1 && tid == 0) mbar_arrive(&q_empty[qb]);  // Q's last use has run
+      float corr[2];
+      const int c0 = j * C::BK;
+      softmax_tile<C::BK>(s, m, l, corr, all_kept(r0, r0 + 15, c0, c0 + C::BK - 1, p), c0,
+                          row0, t, scale2, p);
+      // P_{j-1} V_{j-1} done: the accumulator is ours again, stage prev free
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(pa);
+      if (tid == 0) mbar_arrive(&empty[prev]);
+      if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {  // a max moved
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          acc[4 * n + 0] *= corr[0];
+          acc[4 * n + 1] *= corr[0];
+          acc[4 * n + 2] *= corr[1];
+          acc[4 * n + 3] *= corr[1];
+        }
+      }
+      pack_p<T, C::BK>(pa, s);
+    }
+
+    // the last tile's P V; its stage goes back to the producer
+    issue_pv<T, D, C::BK>(acc, pa, kv_addr + (2 * st + 1) * C::T_BYTES);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(pa);
+    if (tid == 0) mbar_arrive(&empty[st]);
+
+    float inv[2];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = row0 + 8 * hr;
+      const float lc = fmaxf(quad_sum(l[hr]), 1e-30f);
+      inv[hr] = 1.f / lc;
+      if (t == 0 && row < p.S)
+        lse[((long long)w.b * p.H + w.h) * p.S + row] = m[hr] * kLn2 + logf(lc);
+    }
+    if constexpr (C::O_TMA) {
+      // O through shared memory (the 128-byte swizzle: a quad's 4-byte
+      // writes of 8 rows hit distinct banks) and one TMA store a warpgroup;
+      // rows past S are clipped by the store
+      unsigned char* ot = Os + cw * 64 * 128;
+      if (tid == 0) bulk_wait_read();  // this buffer's previous store has read it
+      named_sync(kWgBar + cw, 128);
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int rl = warp * 16 + (lane >> 2) + 8 * hr;  // row within the warpgroup's 64
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          *reinterpret_cast<uint32_t*>(ot + rl * 128 + ((n ^ (rl & 7)) << 4) + 4 * t) =
+              pack2<T>(acc[4 * n + 2 * hr] * inv[hr], acc[4 * n + 2 * hr + 1] * inv[hr]);
+        }
+      }
+      fence_async_smem();
+      named_sync(kWgBar + cw, 128);
+      if (tid == 0) {
+        tma_store_4d(&to, ot, 0, w.h, w.q0 + cw * 64, w.b);
+        bulk_commit();
+      }
+    } else {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int row = row0 + 8 * hr;
+        if (row >= p.S) continue;
+        T* orow = o + w.b * p.o_sb + row * p.o_ss + w.h * p.o_sh + 2 * t;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          *reinterpret_cast<uint32_t*>(orow + n * 8) =
+              pack2<T>(acc[4 * n + 2 * hr] * inv[hr], acc[4 * n + 2 * hr + 1] * inv[hr]);
+        }
+      }
+    }
+    ++qi;
+  }
+  if constexpr (C::O_TMA) {
+    if (tid == 0) bulk_wait();  // the last store is done before the block exits
+  }
+}
+
+// ---- tensor maps (host) -------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point: the
+// library is loaded with ctypes and links no libcuda
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// the map of a [B, S, heads, D] 16-bit tensor with element strides (sb, ss,
+// sh) and a unit-stride last dim, as dims (D, heads, S, B), boxes of 64
+// columns x 1 head x `rows` rows, 128-byte swizzle, zero fill past the edge
+bool make_map(CUtensorMap* map, bool half, const void* ptr, int B, int S, int heads, int D,
+              long long sb, long long ss, long long sh, int rows) {
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return enc(map, half ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+             const_cast<void*>(ptr), dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the current device's SM count (one persistent block each)
+int sm_count() {
+  static int counts[64] = {0};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) return 132;
+  if (counts[dev] == 0) cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev);
+  return counts[dev] > 0 ? counts[dev] : 132;
+}
+
+template <typename T, int D>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse,
+                         const Params& p, cudaStream_t stream) {
+  using C = WgCfg<T, D>;
+  constexpr bool half = std::is_same<T, __half>::value;
+  CUtensorMap tq, tk, tv, to;
+  if (!make_map(&tq, half, q, p.B, p.S, p.H, D, p.q_sb, p.q_ss, p.q_sh, C::BQ) ||
+      !make_map(&tk, half, k, p.B, p.S, p.KV, D, p.k_sb, p.k_ss, p.k_sh, C::BK) ||
+      !make_map(&tv, half, v, p.B, p.S, p.KV, D, p.v_sb, p.v_ss, p.v_sh, C::BK) ||
+      (C::O_TMA && !make_map(&to, half, o, p.B, p.S, p.H, D, p.o_sb, p.o_ss, p.o_sh, 64))) {
+    return cudaErrorInvalidValue;
+  }
+  if (!C::O_TMA) to = tq;  // unused
+  auto kern = flash_fwd_wgmma<T, D>;
+  cudaError_t err = allow_smem(kern, C::SMEM);
+  if (err != cudaSuccess) return err;
+  const int n_items = p.B * p.H * ((p.S + C::BQ - 1) / C::BQ);
+  const int grid = std::min(n_items, sm_count());
+  kern<<<grid, C::NT, C::SMEM, stream>>>(tq, tk, tv, to, static_cast<T*>(o), lse, p, n_items);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
                    const Params& p, cudaStream_t stream) {
@@ -350,8 +864,12 @@ cudaError_t dispatch_dtype(int dtype, const void* q, const void* k, const void* 
                            float* lse, const Params& p, cudaStream_t s) {
   switch (dtype) {
     case 0: return launch_f32<D>(q, k, v, o, lse, p, s);
-    case 1: return launch<__half, D>(q, k, v, o, lse, p, s);
-    case 2: return launch<__nv_bfloat16, D>(q, k, v, o, lse, p, s);
+    case 1:
+      if constexpr (D <= 128) return launch_wgmma<__half, D>(q, k, v, o, lse, p, s);
+      else return launch<__half, D>(q, k, v, o, lse, p, s);
+    case 2:
+      if constexpr (D <= 128) return launch_wgmma<__nv_bfloat16, D>(q, k, v, o, lse, p, s);
+      else return launch<__nv_bfloat16, D>(q, k, v, o, lse, p, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -6,13 +6,22 @@ The kernel (``csrc/decode_attention.cu``) replaces the Pallas kernel
 ``_decode_kernel``): one query token per (batch, head) attends rows
 ``0..pos`` of its ``[Smax, KV, D]`` cache (one ``pos`` for the batch),
 online softmax in f32; rows past ``pos`` are never read. Offline
-``generate`` runs it once per layer and decode step.
+``generate`` runs it once per layer and decode step. :func:`kernel_plan`
+gives a cache that one 16-warp pass covers (generate's) one block a head;
+a longer one is cut into chunks across blocks (split-K, :func:`plan_splits`)
+and the last block of each head group to finish merges the chunks'
+partial softmax states by their log-sum-exp in chunk order
+(:func:`merge_partials` is the merge's plain form). One device launch a
+call.
 
 :func:`decode_attention_ref` is the plain PyTorch version (the grouped
 einsum with the mask ``s <= pos`` and f32 probabilities, as the JAX
 package's jnp fallback of ``cached_attention`` computes it). The dispatcher
 ``ops.attention.cached_attention`` uses it for CPU tensors; for CUDA tensors
 it calls :func:`decode_attention`, which launches the kernel or raises.
+:func:`decode_attention_split_ref` is the split computation in plain
+PyTorch (per-chunk partials, then the merge); nothing on the card's path
+calls it.
 """
 
 from __future__ import annotations
@@ -24,8 +33,82 @@ import torch
 
 from .paged_decode_attention import DTYPE_CODES, HEAD_DIMS
 
-# kernel launches by this process (the main path's proof that it ran here)
+# kernel launches by this process (the main path's proof that it ran here);
+# one a call
 LAUNCHES = 0
+
+# split-K planning: rows a lane keeps in flight (the kernel's U), the most
+# chunks, and the 4-warp blocks a SM that the chunks aim at
+ROWS_IN_FLIGHT = 4
+SPLIT_MAX = 64
+BLOCKS_PER_SM = 4
+# query heads one block serves: the largest of these dividing H / KV
+HEADS_PER_BLOCK = (8, 4, 2, 1)
+
+
+def heads_per_block(rep: int) -> int:
+    """Query heads of one KV group that one kernel block serves."""
+    return next(g for g in HEADS_PER_BLOCK if rep % g == 0)
+
+
+def rows_per_pass(D: int, itemsize: int, warps: int) -> int:
+    """Cache rows one block reads in one pass: 16-byte loads, a row over
+    min(D / (16 / itemsize), 32) lanes, ROWS_IN_FLIGHT rows a lane."""
+    lanes = min(D // (16 // itemsize), 32)
+    return warps * (32 // lanes) * ROWS_IN_FLIGHT
+
+
+def plan_splits(B: int, KV: int, n_rows: int, sm_count: int, head_blocks: int = 1,
+                rows_pass: int = 64):
+    """``(splits, chunk)``: rows ``0..n_rows-1`` cut into ``splits`` chunks
+    of ``chunk`` rows, a whole number of ``rows_pass`` passes each (the
+    last chunk may be shorter, none is empty): enough chunks that ``B x KV
+    x head_blocks`` blocks a chunk give about ``BLOCKS_PER_SM`` blocks a
+    SM, at most one chunk a pass (so one for a cache one pass covers) and
+    ``SPLIT_MAX`` chunks."""
+    if n_rows <= 0:
+        raise ValueError(f"plan_splits: {n_rows} rows")
+    blocks = max(1, B * KV * head_blocks)
+    fill = -(-BLOCKS_PER_SM * sm_count // blocks)
+    splits = max(1, min(-(-n_rows // rows_pass), fill, SPLIT_MAX))
+    chunk = -(-n_rows // splits)
+    chunk = -(-chunk // rows_pass) * rows_pass  # whole passes
+    return -(-n_rows // chunk), chunk
+
+
+def kernel_plan(B: int, H: int, KV: int, D: int, itemsize: int, n_rows: int, sm_count: int):
+    """The kernel's launch for one call → ``(G, W, splits, chunk)``: heads
+    and warps a block and the rows' chunks. 1 or 2 heads a block over a
+    cache that one 16-warp pass covers: 16 warps, one chunk (no merge);
+    otherwise 4-warp blocks over :func:`plan_splits`' chunks."""
+    G = heads_per_block(H // KV)
+    one_pass = rows_per_pass(D, itemsize, 16)
+    if G <= 2 and n_rows <= one_pass:
+        return G, 16, 1, one_pass
+    splits, chunk = plan_splits(B, KV, n_rows, sm_count, H // KV // G,
+                                rows_per_pass(D, itemsize, 4))
+    return G, 4, splits, chunk
+
+
+_SM_COUNT = {}
+# the merge's arrival counters, zero between calls, per (device, stream)
+_COUNTERS = {}
+
+
+def _counters(device, stream, n: int):
+    key = (device, stream)
+    c = _COUNTERS.get(key)
+    if c is None or c.numel() < n:
+        c = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[key] = c
+    return c
+
+
+def _sm_count(device) -> int:
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SM_COUNT[idx]
 
 
 def _check_shapes(q, k_cache, v_cache):
@@ -59,6 +142,45 @@ def decode_attention_ref(q, k_cache, v_cache, pos: int, sm_scale: Optional[float
     scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
     probs = torch.softmax(scores, dim=-1)
     o = torch.einsum("bgrs,bsgd->bgrd", probs, v_cache.float())
+    return o.reshape(B, H, D).to(q.dtype)
+
+
+def merge_partials(m, l, acc):
+    """Merge chunks' partial softmax states in chunk order → the
+    normalised output in f32: ``m``, ``l`` ``[..., splits]`` (the running
+    max and mass of each chunk), ``acc`` ``[..., splits, D]`` (its
+    unnormalised weighted sum)."""
+    mm = m.amax(dim=-1, keepdim=True)
+    w = torch.exp(m - mm)
+    ll = (l * w).sum(-1)
+    a = (acc * w[..., None]).sum(-2)
+    return a / ll.clamp_min(1e-30)[..., None]
+
+
+def decode_attention_split_ref(q, k_cache, v_cache, pos: int, splits: int,
+                               sm_scale: Optional[float] = None):
+    """Plain PyTorch of the kernel's split computation → ``[B, H, D]`` in
+    ``q.dtype``: rows ``0..pos`` in ``splits`` chunks of ``ceil(n /
+    splits)`` rows (fewer chunks when the last ones would be empty), each
+    chunk's ``(m, l, acc)`` in f32, merged by :func:`merge_partials`."""
+    _check_shapes(q, k_cache, v_cache)
+    B, H, D = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    n = min(int(pos), S - 1) + 1
+    chunk = -(-n // max(1, int(splits)))
+    scale = sm_scale if sm_scale is not None else 1.0 / (D ** 0.5)
+    qg = q.reshape(B, KV, H // KV, D).float()
+    ms, ls, accs = [], [], []
+    for r0 in range(0, n, chunk):
+        kc = k_cache[:, r0:min(r0 + chunk, n)].float()
+        vc = v_cache[:, r0:min(r0 + chunk, n)].float()
+        s = torch.einsum("bgrd,bsgd->bgrs", qg, kc) * scale
+        m = s.amax(-1)
+        p = torch.exp(s - m[..., None])
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("bgrs,bsgd->bgrd", p, vc))
+    o = merge_partials(torch.stack(ms, -1), torch.stack(ls, -1), torch.stack(accs, -2))
     return o.reshape(B, H, D).to(q.dtype)
 
 
@@ -111,11 +233,19 @@ def decode_attention(q, k_cache, v_cache, pos: int, sm_scale: Optional[float] = 
 
     lib = load("decode_attention")
     scale = sm_scale if sm_scale is not None else 1.0 / (D ** 0.5)
+    G, W, splits, chunk = kernel_plan(B, H, KV, D, item, min(pos, S - 1) + 1,
+                                      _sm_count(q.device))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    scratch = []  # held until the launch is enqueued
+    if splits > 1:
+        scratch = [torch.empty(B, H, splits, 2, dtype=torch.float32, device=q.device),
+                   torch.empty(B, H, splits, D, dtype=torch.float32, device=q.device),
+                   _counters(q.device, stream, B * H // G)]
     err = lib.decode_attention_launch(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-        B, S, H, KV, D, pos, *k_cache.stride()[:3], *v_cache.stride()[:3],
-        ctypes.c_float(scale), DTYPE_CODES[q.dtype], DTYPE_CODES[k_cache.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream,
+        *([t.data_ptr() for t in scratch] or [None] * 3),
+        B, S, H, KV, D, pos, splits, chunk, G, W, *k_cache.stride()[:3], *v_cache.stride()[:3],
+        ctypes.c_float(scale), DTYPE_CODES[q.dtype], DTYPE_CODES[k_cache.dtype], stream,
     )
     if err != 0:
         raise RuntimeError(f"decode_attention: kernel launch failed, CUDA error {err}")

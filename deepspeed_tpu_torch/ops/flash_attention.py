@@ -46,6 +46,9 @@ HEAD_DIMS = (64, 128, 256)
 DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 # the JAX kernels' tile (BQ = BK): flash_attention keeps its S % 128 rule
 BLOCK = 128
+# the forward kernel's TMA/wgmma path (the rest: mma.sync at D256, FMA at fp32)
+TMA_DTYPES = (torch.float16, torch.bfloat16)
+TMA_HEAD_DIMS = (64, 128)
 
 
 def validate_kv_heads(H: int, k, v) -> int:
@@ -182,11 +185,20 @@ def flash_attention_fwd(q, k, v, causal: bool = True, sm_scale: Optional[float] 
                         window=None):
     """Launch the forward kernel on ``torch.cuda.current_stream()`` → ``(o
     [B, S, H, D] contiguous in q.dtype, lse [B, H, S] f32)``. Raises on what
-    the kernel does not take (device, dtype, head dim, strides)."""
+    the kernel does not take (device, dtype, head dim, strides; at bf16/fp16
+    and D 64/128 the inputs are read through TMA tensor maps, which also
+    need positive batch, sequence and head strides)."""
     name = "flash_attention_fwd"
     _check_shapes(name, q, k, v)
     _check(name, {"q": q, "k": k, "v": v}, q.device, q.dtype)
     B, S, H, D = q.shape
+    if q.dtype in TMA_DTYPES and D in TMA_HEAD_DIMS:
+        for what, t in (("q", q), ("k", k), ("v", v)):
+            if any(st <= 0 or st * t.element_size() >= 1 << 40 for st in t.stride()[:3]):
+                raise ValueError(
+                    f"{name}: {what} strides {t.stride()} cannot make a TMA tensor map: "
+                    "the batch, sequence and head strides must be positive and under 2^40 bytes"
+                )
     w = _window(causal, window)
     o = torch.empty(B, S, H, D, dtype=q.dtype, device=q.device)
     lse = torch.empty(B, H, S, dtype=torch.float32, device=q.device)

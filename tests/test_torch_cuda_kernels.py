@@ -198,6 +198,67 @@ def test_flash_kernels_refuse_what_they_do_not_take(card):
         fa.flash_attention(q[:, :100], q[:, :100], q[:, :100])
 
 
+def _qkv_views(card, B, S, H, KV, D, dtype, seed):
+    """q, k, v as strided views of one [B, S, (H + 2 KV) D] projection."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    qkv = torch.randn(B, S, (H + 2 * KV) * D, generator=g, device=card).to(dtype)
+    q, k, v = qkv.split([H * D, KV * D, KV * D], dim=-1)
+    return q.unflatten(-1, (H, D)), k.unflatten(-1, (KV, D)), v.unflatten(-1, (KV, D))
+
+
+def _check_forward(q, k, v, causal=True, window=None):
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, None, window)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = fa.flash_attention_fwd_ref(q, k, v, causal, None, window)
+    tol, rel_tol = FLASH_TOL[q.dtype], FLASH_REL_TOL[q.dtype]
+    assert o.shape == o_ref.shape and lse.shape == lse_ref.shape
+    assert torch.isfinite(o.float()).all() and torch.isfinite(lse).all()
+    assert _max_err(o, o_ref) <= tol and _scaled_err(o, o_ref) <= rel_tol
+    assert _max_err(lse, lse_ref) <= max(tol, 1e-4) and _scaled_err(lse, lse_ref) <= LSE_REL_TOL
+    return o, lse
+
+
+@pytest.mark.parametrize("S", [1, 63, 127, 129, 1000])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_forward_on_qkv_views_at_ragged_lengths(card, S, dtype):
+    """The forward's tensor maps read q/k/v through the projection's strides;
+    rows past S arrive zero-filled and nothing past S is written."""
+    _check_forward(*_qkv_views(card, 2, S, 4, 4, 64, dtype, seed=S))
+
+
+@pytest.mark.parametrize("B,S,H,KV,D,dtype,causal,window", [
+    (2, 512, 4, 4, 64, torch.bfloat16, True, 200),   # a window crossing 128-row tiles
+    (1, 640, 2, 2, 64, torch.bfloat16, True, 129),
+    (2, 128, 4, 4, 64, torch.bfloat16, False, None),
+    (2, 512, 4, 4, 64, torch.bfloat16, False, None),
+    (1, 512, 4, 4, 64, torch.float16, False, None),
+    (2, 384, 4, 2, 128, torch.bfloat16, True, None),
+    (1, 300, 4, 4, 128, torch.float16, False, None),
+    (2, 256, 8, 2, 64, torch.bfloat16, True, None),
+])
+def test_flash_forward_cases(card, B, S, H, KV, D, dtype, causal, window):
+    q, k, v, _ = _flash_inputs(card, B, S, H, KV, D, dtype, seed=S + D)
+    _check_forward(q, k, v, causal, window)
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_flash_forward_repeats_bit_for_bit(card, D):
+    q, k, v, _ = _flash_inputs(card, 2, 640, 4, 4, D, torch.bfloat16, seed=7)
+    o1, lse1 = fa.flash_attention_fwd(q, k, v)
+    o2, lse2 = fa.flash_attention_fwd(q, k, v)
+    assert torch.equal(o1, o2) and torch.equal(lse1, lse2)
+
+
+def test_flash_forward_refuses_strides_a_tensor_map_cannot_take(card):
+    q = torch.zeros(2, 128, 2, 64, device=card, dtype=torch.bfloat16)
+    kb = torch.zeros(1, 128, 2, 64, device=card, dtype=torch.bfloat16).expand(2, -1, -1, -1)
+    with pytest.raises(ValueError, match="TMA"):
+        fa.flash_attention_fwd(q, kb, q)
+    with pytest.raises(ValueError, match="strides"):  # a row not a multiple of 16 bytes
+        fa.flash_attention_fwd(torch.zeros(2, 128, 2, 68, device=card,
+                                           dtype=torch.bfloat16)[..., :64], q, q)
+
+
 def test_causal_attention_on_the_card_runs_the_kernels_or_raises(card):
     from deepspeed_tpu_torch.ops.attention import causal_attention
 
@@ -303,6 +364,45 @@ def test_decode_kernel_matches_plain_version(card, dtype, tol, B, S, H, KV, D, p
     assert tda.LAUNCHES == before + 1
     ref = tda.decode_attention_ref(q.float(), k[1].float(), v[1].float(), pos)
     assert (out.float() - ref).abs().max().item() <= tol
+
+
+def _decode_check(card, B, S, H, KV, D, pos, dtype=torch.bfloat16, seed=5):
+    g = torch.Generator(device=card).manual_seed(seed)
+    q = torch.randn(B, H, D, generator=g, device=card).to(dtype)
+    k = torch.randn(3, B, S, KV, D, generator=g, device=card).to(dtype)
+    v = torch.randn(3, B, S, KV, D, generator=g, device=card).to(dtype)
+    k[:, :, pos + 1:], v[:, :, pos + 1:] = 1e4, -1e4
+    out = tda.decode_attention(q, k[2], v[2], pos)  # the layer slice, strided
+    torch.cuda.synchronize()
+    ref = tda.decode_attention_ref(q.float(), k[2].float(), v[2].float(), pos)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    assert (out.float() - ref).abs().max().item() <= tol
+    assert ((out.float() - ref).abs().max() / ref.abs().max()).item() <= tol
+    return q, k[2], v[2], out
+
+
+@pytest.mark.parametrize("B,S,H,KV", [(8, 256, 16, 16), (2, 1024, 16, 4), (1, 600, 8, 1),
+                                      (2, 2048, 16, 16)])
+def test_decode_kernel_at_every_split_edge(card, B, S, H, KV):
+    """pos on both sides of every chunk edge the planner draws, pos 0 and
+    Smax - 1, against the plain version, garbage past pos."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    positions = {0, S - 1}
+    for n in range(1, S + 1, 37):
+        _, _, splits, chunk = tda.kernel_plan(B, H, KV, 64, 2, n, sms)
+        for e in range(1, splits + 1):
+            positions.update({min(e * chunk - 1, S - 1), min(e * chunk, S - 1)})
+    for pos in sorted(positions):
+        _decode_check(card, B, S, H, KV, 64, pos)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_kernel_long_cache_and_repeat(card, dtype):
+    """Smax 8192 at its last row (64 chunks), twice: the merge runs in a
+    fixed order, so the two outputs agree bit for bit."""
+    q, k, v, out = _decode_check(card, 2, 8192, 8, 8, 64, 8191, dtype)
+    again = tda.decode_attention(q, k, v, 8191)
+    assert torch.equal(out, again)
 
 
 def test_decode_kernel_refuses_what_it_does_not_take(card):

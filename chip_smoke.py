@@ -22,7 +22,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      version, one PyTorch library call computing the same function, and
      the bound (bytes moved over 3.35 TB/s, or operations over peak); the
      contiguous decode also at a long cache (B2 Smax4096 pos 4095) beside
-     SDPA, with its launch plan (heads and warps a block, chunks).
+     SDPA, with its launch plan (heads and warps a block, chunks). The
+     paged decode kernel's split-K plan at the 36-page verify shape of
+     3b/3c in both modes: pos on the first and last row of every chunk,
+     inside one page and past the table, each call against the plain
+     version and repeated bit for bit; both modes also timed at a long
+     table (B2, 256 pages of 16, pos 4095) beside the library call and the
+     bound.
   3  serve: gpt2-medium in bf16 (seeded random weights) through
      init_inference(...).serve() with the default serving section; 16
      requests of mixed lengths must all finish with their full token count
@@ -54,12 +60,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      training shape (B8 S1024 H16 D64 bf16 causal) and at fp32, fp16, D128,
      D256, non-causal, GQA H16/KV4, window 256, ragged S=1000, one long
      sequence (B1 H4 S8192), fp32 D256 S4224 (past the TPU's resident
-     budget) and S=128, each by max abs error and by max abs error over
-     max |ref|; forward and backward timed at the training shape
-     beside the plain versions, SDPA as the library yardstick (backward =
-     its forward+backward minus its forward) and the bound; the forward
-     also at S128 B8 H16 (generate's prefill bucket) and S8192 B1 H4 beside
-     SDPA.
+     budget), S=128, D128 fp16 non-causal GQA at ragged S1088 and D128
+     under a window, each by max abs error and by max abs error over max
+     |ref|; forward and backward timed at the training shape beside the
+     plain versions, SDPA as the library yardstick (backward = its
+     forward+backward minus its forward) and the bound, the backward
+     repeated bit for bit; the forward also at S128 B8 H16 (generate's
+     prefill bucket) and S8192 B1 H4 beside SDPA, the backward at D128,
+     S128 (causal and not) and S8192 beside SDPA and the bound.
   6  train gpt2-medium (24 layers, E1024, H16, vocab 50257, S=1024) in bf16
      on an fp32 master through dtt.initialize(...): micro 8 x gas 2, AdamW,
      WarmupLR, clipping 1.0, 12 steps on one seeded token batch. Losses must
@@ -1128,6 +1136,81 @@ def main() -> int:
           f"bound; per call with the host's launch path {i8_call_ms:.4f}")
     del ikq, ivq, isc
 
+    # the paged decode kernel's split-K plan (from shapes alone: B, H, KV, D,
+    # dtype, page, the table's n pages, the SM count), at the verify shape of
+    # 3b/3c (a 36-page table): pos on the first and last row of every chunk,
+    # inside one page, at the table's last row and past it, both modes, each
+    # call against the plain version and repeated bit for bit
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    split_errs, split_plans = {}, {}
+    for mode, itemsize in (("bf16", 2), ("int8", 1)):
+        plan = pda.kernel_plan(8, 16, 16, 64, itemsize, 16, i8_n, sms)
+        split_plans[mode] = plan
+        _, _, splits, chunk = plan
+        edges = sorted({0, 5, 15, i8_n * 16 - 1, i8_n * 16 + 40}
+                       | {e for c in range(1, splits) for e in (c * chunk - 1, c * chunk)})
+        worst = (0.0, 0.0)
+        for c0 in range(0, len(edges), 6):
+            spos = (edges[c0:c0 + 6] + [0] * 6)[:6] + [0, 0]  # slots 6, 7 on scratch
+            if mode == "int8":
+                sq, skq, svq, ssc, sbt, sp = make_int8_case(8, 16, 16, 64, 16, 512, i8_n, spos,
+                                                            torch.bfloat16, inactive=(6, 7),
+                                                            seed=60 + c0)
+                call = lambda: pda.paged_decode_attention(  # noqa: E731
+                    sq, skq[0], svq[0], sbt, sp, scales=ssc[0])
+                ref = pda.paged_decode_attention_ref(sq.float(), skq[0], svq[0], sbt, sp,
+                                                     scales=ssc[0])
+            else:
+                sq, sk, sv, sbt, sp = make_case(8, 16, 16, 64, 16, 512, i8_n, spos,
+                                                torch.bfloat16, inactive=(6, 7), seed=60 + c0)
+                call = lambda: pda.paged_decode_attention(sq, sk[0], sv[0], sbt, sp)  # noqa: E731
+                ref = pda.paged_decode_attention_ref(sq.float(), sk[0].float(), sv[0].float(),
+                                                     sbt, sp)
+            first, again = call(), call()
+            torch.cuda.synchronize()
+            check(torch.equal(first, again), f"paged decode {mode} at pos {spos}: two calls differ")
+            e = errors(first, ref)
+            worst = (max(worst[0], e[0]), max(worst[1], e[1]))
+        split_errs[mode] = worst
+        print(f"paged_decode_attention {mode} split edges (plan: heads a block, warps a block, "
+              f"chunks, rows a chunk = {plan}; pos {edges}): max abs err {worst[0]:.3e}, / max "
+              f"|ref| {worst[1]:.3e}; two calls equal bit for bit")
+        check(worst[0] <= TOL[torch.bfloat16] and worst[1] <= REL_TOL[torch.bfloat16],
+              f"paged decode {mode} split edges: {worst}")
+    print("paged_decode_attention launch plans at the main shapes: bf16 12-page table "
+          f"{pda.kernel_plan(8, 16, 16, 64, 2, 16, 12, sms)}, int8 {i8_n}-page table "
+          f"{split_plans['int8']}; 1 device launch a call (with more than one live chunk the "
+          "last block of a (slot, head group) merges them)")
+    # a long table at its last row: B2, 256 pages of 16, pos 4095, 4 layers
+    # of pools in turn (past L2), both modes
+    paged_long = {}
+    for mode in ("bf16", "int8"):
+        if mode == "int8":
+            lq, lkq, lvq, lsc, lbt, lpos = make_int8_case(2, 16, 16, 64, 16, 520, 256,
+                                                          [4095, 4095], torch.bfloat16,
+                                                          layers=4, seed=70)
+            fn = lambda i: pda.paged_decode_attention(  # noqa: E731
+                lq, lkq[i % 4], lvq[i % 4], lbt, lpos, scales=lsc[i % 4])
+            lib = lambda i: library_attention(lq, lkq[i % 4], lvq[i % 4], lbt, lpos,  # noqa: E731
+                                              lsc[i % 4])
+            lb = bound(lq, lkq[0], lbt, lpos, lsc[0])
+        else:
+            lq, lkq, lvq, lbt, lpos = make_case(2, 16, 16, 64, 16, 520, 256, [4095, 4095],
+                                                torch.bfloat16, layers=4, seed=70)
+            fn = lambda i: pda.paged_decode_attention(lq, lkq[i % 4], lvq[i % 4], lbt,  # noqa: E731
+                                                      lpos)
+            lib = lambda i: library_attention(lq, lkq[i % 4], lvq[i % 4], lbt, lpos)  # noqa: E731
+            lb = bound(lq, lkq[0], lbt, lpos)
+        l_ms, _ = time_ms(fn, 240)
+        l_lib_ms, _ = time_ms(lib, 48)
+        paged_long[mode] = (l_ms, l_lib_ms, lb)
+        print(f"paged_decode_attention {mode} long table B2 H16 D64, 256 pages of 16, pos 4095, "
+              f"device ms per call: kernel {l_ms:.4f}, library {l_lib_ms:.4f}, bound "
+              f"{lb[0]:.5f} ({lb[1]}), kernel at {lb[0] / l_ms:.3f} of bound; launch "
+              f"{pda.kernel_plan(2, 16, 16, 64, 2 if mode == 'bf16' else 1, 16, 256, sms)}")
+        del lq, lkq, lvq
+    torch.cuda.empty_cache()
+
     # the int8 mode of the multi-token kernel at the chunk program's shape
     # of phase 3c (timed over the four chunk starts and 24 layers, as above)
     mq, mkq, mvq, msc, mbt, _ = make_int8_case(1, 16, 16, 64, 16, 512, 36, [0], torch.bfloat16,
@@ -1224,7 +1307,6 @@ def main() -> int:
           f"{d_ms:.4f}, plain {d_plain_ms:.4f}, library (SDPA over rows 0..pos) {d_lib_ms:.4f}, "
           f"bound {d_bound_ms:.5f} ({d_bound_by}), kernel at {d_bound_ms / d_ms:.3f} of bound; "
           f"per call with the host's launch path {d_call_ms:.4f}")
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     print("decode_attention launch (heads a block, warps a block, chunks, rows a chunk): "
           f"main shape {tda.kernel_plan(8, 16, 16, 64, 2, dec_pos[-1] + 1, sms)}; 1 device "
           "launch a call (with more than one chunk the last block of a head merges them)")
@@ -1455,6 +1537,9 @@ def main() -> int:
         ("window 256 bf16 B2 S1024 H16", (2, 1024, 16, 16, 64, torch.bfloat16), True, 256),
         ("ragged S1000 bf16 B2 H16", (2, 1000, 16, 16, 64, torch.bfloat16), True, None),
         ("long B1 H4 S8192 bf16", (1, 8192, 4, 4, 64, torch.bfloat16), True, None),
+        ("D128 fp16 non-causal GQA H8 KV2 ragged S1088 B1", (1, 1088, 8, 2, 128, torch.float16),
+         False, None),
+        ("D128 bf16 window 200 B2 S1024 H8", (2, 1024, 8, 8, 128, torch.bfloat16), True, 200),
         ("fp32 D256 S4224 B1 H2", (1, 4224, 2, 2, 256, torch.float32), True, None),
         ("S128 bf16 B8 H16", (8, 128, 16, 16, 64, torch.bfloat16), True, None),
     ]
@@ -1509,7 +1594,38 @@ def main() -> int:
           f"{lib_bwd_ms:.4f}, bound {bwd_bound:.5f} ({bwd_by}), kernel at "
           f"{bwd_bound / bwd_ms:.3f} of bound; per call with the host's launch path "
           f"{bwd_call_ms:.4f}")
-    del q, k, v, do, o, lse, qt, kt, vt, dot, leaves, lib_o
+    bwd_again = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    bwd_first = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(bwd_first, bwd_again)),
+          "flash backward: two calls differ")
+    print("flash_attention_bwd main shape: two calls equal bit for bit")
+    del q, k, v, do, o, lse, qt, kt, vt, dot, leaves, lib_o, bwd_first, bwd_again
+    torch.cuda.empty_cache()
+    # the backward at D128, BERT's S128 (causal and not) and one long
+    # sequence, each beside SDPA's backward (its forward+backward minus its
+    # forward) and the bound
+    for label, shape, causal in (("B2 S1024 H8 D128 causal", (2, 1024, 8, 8, 128), True),
+                                 ("S128 B8 H16 D64 causal", (8, 128, 16, 16, 64), True),
+                                 ("S128 B8 H16 D64 non-causal", (8, 128, 16, 16, 64), False),
+                                 ("long B1 H4 S8192 D64 causal", (1, 8192, 4, 4, 64), True)):
+        q, k, v, do = flash_case(*shape, torch.bfloat16, seed=31)
+        o, lse = fa.flash_attention_fwd(q, k, v, causal)
+        leaves = [x.detach().transpose(1, 2).requires_grad_(True) for x in (q, k, v)]
+        dot = do.transpose(1, 2)
+
+        def lib_fb(_):
+            out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+            return torch.autograd.grad(out, leaves, dot)
+
+        x_ms, _ = time_ms(lambda i: fa.flash_attention_bwd(q, k, v, o, lse, do, causal), 30)
+        x_lib = time_ms(lib_fb, 30)[0] - time_ms(
+            lambda i: F.scaled_dot_product_attention(*leaves, is_causal=causal), 30)[0]
+        x_bound, x_by = flash_bound(q, k, causal, None, backward=True)
+        print(f"flash_attention_bwd {label} bf16, device ms per call: kernel {x_ms:.4f}, "
+              f"library (SDPA backward) {x_lib:.4f}, bound {x_bound:.5f} ({x_by}), kernel at "
+              f"{x_bound / x_ms:.3f} of bound")
+        del q, k, v, do, o, lse, leaves, dot
     torch.cuda.empty_cache()
     # the forward at generate's prefill bucket and at one long sequence, each
     # beside SDPA
@@ -1527,6 +1643,9 @@ def main() -> int:
         del q, k, v, qt, kt, vt
     print(f"flash_attention_fwd: 1 device launch a call; bf16/fp16 at D64/128 a persistent grid "
           f"of min(B x H x ceil(S / 128), {sms}) blocks of 3 warpgroups (TMA + wgmma)")
+    print("flash_attention_bwd: 3 device launches a call (delta, dk/dv, dq); bf16/fp16 at "
+          f"D64/128 dk/dv and dq persistent grids of min(items, {sms}) blocks of 3 warpgroups "
+          "(TMA + wgmma)")
     torch.cuda.empty_cache()
 
     phase(6, "train gpt2-medium bf16 through initialize(...) (the slice's path)")

@@ -218,6 +218,37 @@ __device__ __forceinline__ void load_rows_f32(float* sm, const float* base, long
   }
 }
 
+// ---- pieces of the TMA + wgmma kernels (forward and backward) ------------
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// an f32 accumulator tile of N columns rounded to T as the A fragments of
+// N / 16 k16 steps (n8 tiles 2k and 2k + 1 are step k's)
+template <typename T, int N>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[N / 16][4], const float (&c)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    a[kk][0] = pack2<T>(c[8 * kk + 0], c[8 * kk + 1]);
+    a[kk][1] = pack2<T>(c[8 * kk + 2], c[8 * kk + 3]);
+    a[kk][2] = pack2<T>(c[8 * kk + 4], c[8 * kk + 5]);
+    a[kk][3] = pack2<T>(c[8 * kk + 6], c[8 * kk + 7]);
+  }
+}
+
+// the item a persistent block takes in round r of the schedule, or -1:
+// rounds of gridDim.x items, walked forwards in even rounds and backwards
+// in odd ones (the heaviest item of a round goes to the block that had the
+// lightest one of the previous round)
+__device__ __forceinline__ int round_item(int r, int n_items) {
+  const int g = gridDim.x;
+  const int i = r * g + ((r & 1) ? g - 1 - (int)blockIdx.x : (int)blockIdx.x);
+  return i < n_items ? i : -1;
+}
+
 // one-time opt-in to more than 48 KB of dynamic shared memory per block
 template <typename K>
 inline cudaError_t allow_smem(K kernel, size_t bytes) {

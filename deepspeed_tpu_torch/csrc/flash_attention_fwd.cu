@@ -385,18 +385,12 @@ __device__ __forceinline__ void issue_s(float (&s)[BK / 2], uint32_t q_addr, uin
   using namespace hopper;
   fence_regs(s);
   wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t off = (kk / 4) * 128 * 128 + (kk % 4) * 32;  // atom, then 32 B a step
-    wgmma_ss<BK, T>(s, desc_sw128(q_addr + off, 16, 1024), desc_sw128(k_addr + off, 16, 1024),
-                    kk > 0);
-  }
+  issue_ss<T, D, BK>(s, q_addr, 128 * 128, k_addr, BK * 128);
   wgmma_commit();
   fence_regs(s);
 }
 
 // O += P V: BK / 16 k16 steps, P's A fragments from registers, V MN-major
-// (64-column atoms BK * 128 bytes apart, 16 rows = 2048 bytes a step)
 template <typename T, int D, int BK>
 __device__ __forceinline__ void issue_pv(float (&acc)[D / 2], uint32_t (&pa)[BK / 16][4],
                                          uint32_t v_addr) {
@@ -404,18 +398,10 @@ __device__ __forceinline__ void issue_pv(float (&acc)[D / 2], uint32_t (&pa)[BK 
   fence_regs(acc);
   fence_regs(pa);
   wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk)
-    wgmma_rs<D, T>(acc, pa[kk], desc_sw128(v_addr + kk * 2048, BK * 128, 1024));
+  issue_rs<T, D, BK>(acc, pa, v_addr);
   wgmma_commit();
   fence_regs(acc);
   fence_regs(pa);
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // the max / sum of N registers as a tree (short dependency chains)
@@ -493,19 +479,6 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], float (&m)[2], 
   for (int i = 0; i < 2; ++i) l[i] = fmaf(l[i], corr[i], tree_sum<BK / 8>(sum[i]));
 }
 
-// P rounded to the storage dtype, as the A fragments of the BK / 16 k16
-// steps of P V (n8 tiles 2k and 2k + 1 of S)
-template <typename T, int BK>
-__device__ __forceinline__ void pack_p(uint32_t (&pa)[BK / 16][4], const float (&s)[BK / 2]) {
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) {
-    pa[kk][0] = pack2<T>(s[8 * kk + 0], s[8 * kk + 1]);
-    pa[kk][1] = pack2<T>(s[8 * kk + 2], s[8 * kk + 3]);
-    pa[kk][2] = pack2<T>(s[8 * kk + 4], s[8 * kk + 5]);
-    pa[kk][3] = pack2<T>(s[8 * kk + 6], s[8 * kk + 7]);
-  }
-}
-
 // one work item: a tile of BQ queries of one (batch, head), and the K/V
 // tiles [lo, hi) it attends
 struct Item {
@@ -533,16 +506,6 @@ __device__ __forceinline__ Item item_at(int i, const Params& p) {
     if (p.window > 0) it.lo = max(0, it.q0 - p.window + 1) / BK;
   }
   return it;
-}
-
-// the item a block takes in round r of the schedule, or -1: rounds of
-// gridDim.x items, walked forwards in even rounds and backwards in odd ones
-// (the heaviest item of a round goes to the block that had the lightest
-// one of the previous round)
-__device__ __forceinline__ int round_item(int r, int n_items) {
-  const int g = gridDim.x;
-  const int i = r * g + ((r & 1) ? g - 1 - (int)blockIdx.x : (int)blockIdx.x);
-  return i < n_items ? i : -1;
 }
 
 // persistent: each block walks its items of the schedule; the K/V ring and
@@ -660,7 +623,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
       softmax_tile<C::BK>(s, m, l, corr, all_kept(r0, r0 + 15, c0, c0 + C::BK - 1, p), c0,
                           row0, t, scale2, p);
     }
-    pack_p<T, C::BK>(pa, s);
+    pack_a<T, C::BK>(pa, s);
     ++it;
 
     for (int j = w.lo + 1; j < w.hi; ++j, ++it) {
@@ -694,7 +657,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
           acc[4 * n + 3] *= corr[1];
         }
       }
-      pack_p<T, C::BK>(pa, s);
+      pack_a<T, C::BK>(pa, s);
     }
 
     // the last tile's P V; its stage goes back to the producer
@@ -755,59 +718,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   }
 }
 
-// ---- tensor maps (host) -------------------------------------------------------
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime's driver entry point: the
-// library is loaded with ctypes and links no libcuda
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
-                                              &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// the map of a [B, S, heads, D] 16-bit tensor with element strides (sb, ss,
-// sh) and a unit-stride last dim, as dims (D, heads, S, B), boxes of 64
-// columns x 1 head x `rows` rows, 128-byte swizzle, zero fill past the edge
-bool make_map(CUtensorMap* map, bool half, const void* ptr, int B, int S, int heads, int D,
-              long long sb, long long ss, long long sh, int rows) {
-  EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t estr[4] = {1, 1, 1, 1};
-  return enc(map, half ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-             const_cast<void*>(ptr), dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// the current device's SM count (one persistent block each)
-int sm_count() {
-  static int counts[64] = {0};
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev < 0 || dev >= 64) return 132;
-  if (counts[dev] == 0) cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev);
-  return counts[dev] > 0 ? counts[dev] : 132;
-}
+using hopper::make_map;
+using hopper::sm_count;
 
 template <typename T, int D>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse,

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks of the warp-specialised kernels: mbarrier
 // waits and arrivals, TMA tile loads and stores on a tensor map, named barriers,
 // register reallocation (setmaxnreg), shared-memory matrix descriptors for
-// 128-byte swizzled tiles, and the warpgroup MMA (wgmma) forms the flash
-// forward uses.
+// 128-byte swizzled tiles, the warpgroup MMA (wgmma) forms the flash
+// kernels use, and (host) the tensor maps TMA reads through.
 //
 // Tiles: a TMA box of 64 columns of a 16-bit type (128 bytes) by R rows,
 // loaded with CU_TENSOR_MAP_SWIZZLE_128B into shared memory aligned to 1024
@@ -24,6 +24,7 @@
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -172,8 +173,11 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_
 template <int N, typename T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db);
 
-// the forms the flash forward uses, written out by shape and type: S =
-// Q K^T as m64n128k16, O += P V as m64n64k16 (D64) and m64n128k16 (D128)
+// the forms the flash kernels use, written out by shape and type: the
+// products with both operands in shared memory (S = Q K^T and its
+// transposes) as m64n128k16 and m64n64k16, those with a register A operand
+// (O += P V, the backward's dV, dK and dQ) as m64n64k16 (D64) and
+// m64n128k16 (D128)
 
 template <>
 __device__ __forceinline__ void wgmma_ss<128, __nv_bfloat16>(float (&d)[64], uint64_t da,
@@ -335,6 +339,139 @@ __device__ __forceinline__ void wgmma_rs<128, __half>(float (&d)[64],
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64, __nv_bfloat16>(float (&d)[32], uint64_t da, uint64_t db,
+                                                  int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64, __half>(float (&d)[32], uint64_t da, uint64_t db,
+                                                  int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// ---- operand walkers of the flash kernels' products --------------------------
+
+// d (f32, 64 rows x N) = A B^T over D / 16 k16 steps, both operands K-major
+// 128-byte swizzled tiles in shared memory: A's column atoms `a_atom`
+// bytes apart, B's `b_atom` (their row counts x 128)
+template <typename T, int D, int N>
+__device__ __forceinline__ void issue_ss(float (&d)[N / 2], uint32_t a_addr, uint32_t a_atom,
+                                         uint32_t b_addr, uint32_t b_atom) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t in_atom = (kk % 4) * 32;
+    wgmma_ss<N, T>(d, desc_sw128(a_addr + (kk / 4) * a_atom + in_atom, 16, 1024),
+                   desc_sw128(b_addr + (kk / 4) * b_atom + in_atom, 16, 1024), kk > 0);
+  }
+}
+
+// d (f32, 64 x D) += A B over K / 16 k16 steps: A from registers (an f32
+// accumulator's n8 tiles rounded and packed), B a K x D tile whose rows are
+// the K dim, MN-major (64-column atoms K * 128 bytes apart, 16 rows = 2048
+// bytes a step)
+template <typename T, int D, int K>
+__device__ __forceinline__ void issue_rs(float (&d)[D / 2], const uint32_t (&a)[K / 16][4],
+                                         uint32_t b_addr) {
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk)
+    wgmma_rs<D, T>(d, a[kk], desc_sw128(b_addr + kk * 2048, K * 128, 1024));
+}
+
+// ---- tensor maps (host) ----------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point: the
+// libraries are loaded with ctypes and link no libcuda
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// a 4-d map: dims innermost first, the byte strides of dims 1..3, the box
+// in elements; zero fill past the edge
+inline bool make_map_4d(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
+                        const cuuint64_t (&dims)[4], const cuuint64_t (&strides)[3],
+                        const cuuint32_t (&box)[4], CUtensorMapSwizzle swizzle) {
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return enc(map, type, 4, const_cast<void*>(ptr), dims, strides, box, estr,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the map of a [B, S, heads, D] 16-bit tensor with element strides (sb, ss,
+// sh) and a unit-stride last dim, as dims (D, heads, S, B), boxes of 64
+// columns x 1 head x `rows` rows, 128-byte swizzle
+inline bool make_map(CUtensorMap* map, bool half, const void* ptr, int B, int S, int heads,
+                     int D, long long sb, long long ss, long long sh, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  return make_map_4d(map, half ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                     ptr, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// the current device's SM count
+inline int sm_count() {
+  static int counts[64] = {0};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) return 132;
+  if (counts[dev] == 0) cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev);
+  return counts[dev] > 0 ? counts[dev] : 132;
 }
 
 }  // namespace hopper

@@ -27,11 +27,15 @@ calls it.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
 
-from .paged_decode_attention import DTYPE_CODES, HEAD_DIMS
+# the C entries' dtype codes (the paged kernels add int8 pools) and the
+# head dims the decode kernels are built for
+DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+HEAD_DIMS = (64, 128, 256)
 
 # kernel launches by this process (the main path's proof that it ran here);
 # one a call
@@ -76,6 +80,7 @@ def plan_splits(B: int, KV: int, n_rows: int, sm_count: int, head_blocks: int = 
     return -(-n_rows // chunk), chunk
 
 
+@functools.lru_cache(maxsize=1024)
 def kernel_plan(B: int, H: int, KV: int, D: int, itemsize: int, n_rows: int, sm_count: int):
     """The kernel's launch for one call → ``(G, W, splits, chunk)``: heads
     and warps a block and the rows' chunks. 1 or 2 heads a block over a
@@ -93,6 +98,9 @@ def kernel_plan(B: int, H: int, KV: int, D: int, itemsize: int, n_rows: int, sm_
 _SM_COUNT = {}
 # the merge's arrival counters, zero between calls, per (device, stream)
 _COUNTERS = {}
+# the chunks' f32 partials, per (device, stream): a call's blocks write and
+# merge them inside its one launch, so calls in stream order share them
+_PARTIALS = {}
 
 
 def _counters(device, stream, n: int):
@@ -102,6 +110,19 @@ def _counters(device, stream, n: int):
         c = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
         _COUNTERS[key] = c
     return c
+
+
+def split_scratch(device, stream, B: int, H: int, splits: int, D: int, G: int):
+    """Pointers of a split launch's scratch: the partials' (m, l) [B, H,
+    splits, 2] and acc [B, H, splits, D] f32, and the counters [B * H /
+    G]; reused across calls on one stream, grown when a call needs more."""
+    n = B * H * splits * (2 + D)
+    buf = _PARTIALS.get((device, stream))
+    if buf is None or buf.numel() < n:
+        buf = torch.empty(max(n, 1 << 16), dtype=torch.float32, device=device)
+        _PARTIALS[(device, stream)] = buf
+    ml = buf.data_ptr()
+    return ml, ml + B * H * splits * 2 * 4, _counters(device, stream, B * H // G).data_ptr()
 
 
 def _sm_count(device) -> int:
@@ -236,14 +257,9 @@ def decode_attention(q, k_cache, v_cache, pos: int, sm_scale: Optional[float] = 
     G, W, splits, chunk = kernel_plan(B, H, KV, D, item, min(pos, S - 1) + 1,
                                       _sm_count(q.device))
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    scratch = []  # held until the launch is enqueued
-    if splits > 1:
-        scratch = [torch.empty(B, H, splits, 2, dtype=torch.float32, device=q.device),
-                   torch.empty(B, H, splits, D, dtype=torch.float32, device=q.device),
-                   _counters(q.device, stream, B * H // G)]
+    scratch = split_scratch(q.device, stream, B, H, splits, D, G) if splits > 1 else (None,) * 3
     err = lib.decode_attention_launch(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-        *([t.data_ptr() for t in scratch] or [None] * 3),
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(), *scratch,
         B, S, H, KV, D, pos, splits, chunk, G, W, *k_cache.stride()[:3], *v_cache.stride()[:3],
         ctypes.c_float(scale), DTYPE_CODES[q.dtype], DTYPE_CODES[k_cache.dtype], stream,
     )

@@ -46,7 +46,7 @@ HEAD_DIMS = (64, 128, 256)
 DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 # the JAX kernels' tile (BQ = BK): flash_attention keeps its S % 128 rule
 BLOCK = 128
-# the forward kernel's TMA/wgmma path (the rest: mma.sync at D256, FMA at fp32)
+# the kernels' TMA/wgmma path (the rest: mma.sync at D256, FMA at fp32)
 TMA_DTYPES = (torch.float16, torch.bfloat16)
 TMA_HEAD_DIMS = (64, 128)
 
@@ -177,6 +177,21 @@ def _check_shapes(name, q, k, v):
         raise ValueError(f"{name}: head dim {D} not in {HEAD_DIMS}")
 
 
+def _check_tma(name, tensors):
+    """At bf16/fp16 and D 64/128 both kernels read their operands through
+    TMA tensor maps, which need positive batch, sequence and head strides
+    under 2^40 bytes."""
+    q = tensors["q"]
+    if q.dtype not in TMA_DTYPES or q.shape[-1] not in TMA_HEAD_DIMS:
+        return
+    for what, t in tensors.items():
+        if any(st <= 0 or st * t.element_size() >= 1 << 40 for st in t.stride()[:3]):
+            raise ValueError(
+                f"{name}: {what} strides {t.stride()} cannot make a TMA tensor map: "
+                "the batch, sequence and head strides must be positive and under 2^40 bytes"
+            )
+
+
 def _strides3(t):
     return [t.stride(0), t.stride(1), t.stride(2)]
 
@@ -190,15 +205,10 @@ def flash_attention_fwd(q, k, v, causal: bool = True, sm_scale: Optional[float] 
     need positive batch, sequence and head strides)."""
     name = "flash_attention_fwd"
     _check_shapes(name, q, k, v)
-    _check(name, {"q": q, "k": k, "v": v}, q.device, q.dtype)
+    tensors = {"q": q, "k": k, "v": v}
+    _check(name, tensors, q.device, q.dtype)
     B, S, H, D = q.shape
-    if q.dtype in TMA_DTYPES and D in TMA_HEAD_DIMS:
-        for what, t in (("q", q), ("k", k), ("v", v)):
-            if any(st <= 0 or st * t.element_size() >= 1 << 40 for st in t.stride()[:3]):
-                raise ValueError(
-                    f"{name}: {what} strides {t.stride()} cannot make a TMA tensor map: "
-                    "the batch, sequence and head strides must be positive and under 2^40 bytes"
-                )
+    _check_tma(name, tensors)
     w = _window(causal, window)
     o = torch.empty(B, S, H, D, dtype=q.dtype, device=q.device)
     lse = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
@@ -224,10 +234,13 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
     """Launch the backward kernels (delta, dk/dv, dq: one C entry) on
     ``torch.cuda.current_stream()`` → ``(dq [B, S, H, D], dk, dv [B, S, KV,
     D])`` contiguous, in q's dtype. ``lse`` is the forward's ``[B, H, S]``
-    f32. Raises on what the kernels do not take."""
+    f32. Raises on what the kernels do not take (as the forward; at
+    bf16/fp16 and D 64/128 q, k, v and dO are read through TMA tensor
+    maps)."""
     name = "flash_attention_bwd"
     _check_shapes(name, q, k, v)
-    _check(name, {"q": q, "k": k, "v": v, "o": o, "do": do}, q.device, q.dtype)
+    tensors = {"q": q, "k": k, "v": v, "o": o, "do": do}
+    _check(name, tensors, q.device, q.dtype)
     B, S, H, D = q.shape
     KV = k.shape[2]
     if o.shape != q.shape or do.shape != q.shape:
@@ -235,13 +248,16 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
     if (lse.dtype != torch.float32 or tuple(lse.shape) != (B, H, S) or not lse.is_contiguous()
             or lse.device != q.device):
         raise ValueError(f"{name}: lse must be a contiguous [B, H, S] float32 tensor on q's device")
+    _check_tma(name, tensors)
     w = _window(causal, window)
     dq = torch.empty(B, S, H, D, dtype=q.dtype, device=q.device)
     dk = torch.empty(B, S, KV, D, dtype=q.dtype, device=q.device)
     dv = torch.empty(B, S, KV, D, dtype=q.dtype, device=q.device)
     if B == 0 or S == 0:
         return dq, dk, dv
-    delta = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
+    # delta's scratch: [B, H, S] on the fp32 and D256 paths; [B, H, 2, Sp]
+    # (lse in log2 units beside delta, Sp = S rounded up to 4) on the TMA path
+    delta = torch.empty(B * H * 2 * (-(-S // 4) * 4), dtype=torch.float32, device=q.device)
     from .op_builder import load
 
     lib = load("flash_attention_bwd")
@@ -293,7 +309,7 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         bwd = _on(q.device, flash_attention_bwd, flash_attention_bwd_ref, "backward")
-        if do.device.type == "cuda" and not _strides_ok(do):
+        if do.device.type == "cuda" and (not _strides_ok(do) or min(do.stride()[:3]) <= 0):
             do = do.contiguous()  # the layout the kernel reads, not another route
         dq, dk, dv = bwd(q, k, v, o, lse, do, *ctx.opts)
         return dq, dk, dv, None, None, None

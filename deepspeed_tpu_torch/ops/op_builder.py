@@ -93,7 +93,9 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "paged_decode_attention": {
         "paged_decode_attention_launch": (
             [_P, _P, _P, _P, _P, _P, _P,       # q, k_pool, v_pool, tables, pos, scales, out
+             _P, _P, _P,                       # part_ml, part_acc, counters
              _I, _I, _I, _I, _I, _I, _I,       # B, H, KV, P, page, n, D
+             _I, _I, _I, _I,                   # splits, chunk, heads and warps a block
              _F, _I, _I, _P],                  # sm_scale, q dtype, kv dtype, stream
             ctypes.c_int,
         ),
@@ -123,6 +125,11 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         ),
     },
 }
+
+# ptxas's warnings that a kernel's wgmmas were serialized (an accumulator
+# read between issue and wait, a wait inside a branch): a build that shows
+# one fails, as a compile error would
+SERIALIZED_WGMMA = ("C7511", "C7514", "C7515")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # name -> {"seconds": build wall time, "log": nvcc's ptxas report}; only
@@ -184,6 +191,10 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
         secs = time.perf_counter() - t0
         if proc.returncode != 0:
             failed.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{log}")
+            continue
+        if any(code in log for code in SERIALIZED_WGMMA):
+            failed.append(f"ptxas serialized wgmmas in {name}.cu:\n{log}")
+            os.remove(tmp)
             continue
         os.replace(tmp, lib)
         out[name] = secs

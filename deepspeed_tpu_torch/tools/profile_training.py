@@ -44,7 +44,7 @@ import torch
 from deepspeed_tpu_torch.utils.profiling import device_time
 
 # the attention kernels of each path, by the names their launches carry
-FLASH_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "flash_delta")
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "flash_bwd_prep", "flash_delta")
 BLOCK_SPARSE_KERNELS = ("bs_fwd", "bs_dq", "bs_dkv")
 # the fused optimizer kernels (csrc/fused_adam.cu)
 OPTIMIZER_KERNELS = ("adam_kernel", "lamb_stage1", "lamb_stage2")

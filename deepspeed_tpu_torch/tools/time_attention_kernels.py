@@ -1,22 +1,27 @@
-"""Device time of the contiguous decode kernel and the flash-attention forward
-at the shapes of offline ``generate`` and GPT-2 training, for comparing two
-trees of this package on one card.
+"""Device time of the port's attention kernels at the shapes of its paths,
+for comparing two trees of this package on one card: the contiguous decode
+kernel (offline ``generate``), the paged decode kernel in both modes
+(serving's decode and verify), and the flash-attention forward and
+backward (GPT-2 and BERT training).
 
 Usage, on a machine with one CUDA card:
 
     PYTHONPATH=<tree> python <this tree>/deepspeed_tpu_torch/tools/time_attention_kernels.py
-        [--label NAME] [--library]
+        [--label NAME] [--library] [--only decode,paged,flash_fwd,flash_bwd]
 
 Run as a file (not with ``-m``), so that ``deepspeed_tpu_torch`` is imported
 from ``<tree>``: an unpacked older commit times that commit's kernels through
 the same public wrappers (``ops.decode_attention.decode_attention``,
-``ops.flash_attention.flash_attention_fwd``), which build its own sources
-into its own ``_build/``. Alternate the trees within one call (older, newer,
-newer, older): calls and cards differ by several percent. Prints one JSON
-line: ms per call (device time, CUDA events, the host's enqueueing hidden
-behind a device-side sleep) for each case, ``--library`` adds SDPA on the
-same inputs. Inputs come from a seeded generator on the card. The time
-function is the one ``chip_smoke.py`` uses.
+``ops.paged_decode_attention.paged_decode_attention``,
+``ops.flash_attention.flash_attention_fwd`` / ``flash_attention_bwd``),
+which build its own sources into its own ``_build/``. Alternate the trees
+within one call (older, newer, newer, older): calls and cards differ by
+several percent. Prints one JSON line: ms per call (device time, CUDA
+events, the host's enqueueing hidden behind a device-side sleep) for each
+case, ``--library`` adds one PyTorch call on the same inputs (SDPA; for the
+paged kernels a page gather and SDPA; for the backward SDPA's
+forward+backward minus its forward). Inputs come from a seeded generator on
+the card. The time function is the one ``chip_smoke.py`` uses.
 """
 
 from __future__ import annotations
@@ -76,6 +81,20 @@ DECODE_CASES = [
     ("decode B8 Smax256 H16 D64 bf16", 8, 256, 16, 16, 64, 24, [128, 160, 192, 224, 254]),
     ("decode B2 Smax4096 H16 D64 bf16 pos 4095", 2, 4096, 16, 16, 64, 4, [4095]),
 ]
+# (label, B, H, KV, D, page, pool pages, table pages, pos, int8): phase 2's
+# decode shape (bf16, two slots inactive on scratch), 3c's verify shape
+# (int8, pos 256..575), and a long cache at its last row; 24 layers of
+# pools, walked in turn, as the decode step does
+PAGED_CASES = [
+    ("paged bf16 B8 H16 D64 page16 12 pages pos<=191", 8, 16, 16, 64, 16, 512, 12,
+     [0, 15, 16, 17, 100, 191, 0, 0], False),
+    ("paged int8 B8 H16 D64 page16 36 pages pos 256..575", 8, 16, 16, 64, 16, 512, 36,
+     [256, 271, 300, 383, 384, 575, 0, 0], True),
+    ("paged bf16 B2 H16 D64 256 pages of 16 pos 4095", 2, 16, 16, 64, 16, 520, 256,
+     [4095, 4095], False),
+    ("paged int8 B2 H16 D64 256 pages of 16 pos 4095", 2, 16, 16, 64, 16, 520, 256,
+     [4095, 4095], True),
+]
 # (label, B, S, H, KV, D, causal): training's shape, generate's prefill
 # bucket, one long sequence, D128
 FLASH_CASES = [
@@ -107,6 +126,46 @@ def time_decode(case, library):
     return out
 
 
+def time_paged(case, library):
+    from deepspeed_tpu_torch.ops import paged_decode_attention as pda
+
+    label, B, H, KV, D, page, P, n, pos, int8 = case
+    L = 24 if P * n < 20000 else 4
+    g = torch.Generator(device="cuda").manual_seed(21)
+    q = torch.randn(B, H, D, generator=g, device="cuda").to(torch.bfloat16)
+    rs = torch.randperm(P - 1, generator=g, device="cuda")[: B * n].add(1)
+    bt = rs.reshape(B, n).int()
+    for b, p in enumerate(pos):
+        if p == 0 and b >= B - 2 and B > 2:
+            bt[b] = 0  # an inactive slot on the scratch page
+    pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    shape = (L, P, KV, page, D)
+    if int8:
+        k = torch.randint(-127, 128, shape, generator=g, device="cuda").to(torch.int8)
+        v = torch.randint(-127, 128, shape, generator=g, device="cuda").to(torch.int8)
+        sc = torch.rand(L, P, KV, 2, generator=g, device="cuda") * 0.02
+        fn = lambda i: pda.paged_decode_attention(q, k[i % L], v[i % L], bt, pos_t,  # noqa: E731
+                                                  scales=sc[i % L])
+    else:
+        k = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+        v = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+        fn = lambda i: pda.paged_decode_attention(q, k[i % L], v[i % L], bt, pos_t)  # noqa: E731
+    out = {label: time_ms(fn, 480)[0]}
+    if library:
+        def lib(i):
+            kd, vd = k[i % L][bt.long()], v[i % L][bt.long()]  # [B, n, KV, page, D]
+            if int8:
+                s = sc[i % L][bt.long()]
+                kd, vd = kd.float() * s[..., 0, None, None], vd.float() * s[..., 1, None, None]
+            kd = kd.to(q.dtype).transpose(2, 3).reshape(B, -1, KV, D).transpose(1, 2)
+            vd = vd.to(q.dtype).transpose(2, 3).reshape(B, -1, KV, D).transpose(1, 2)
+            mask = torch.arange(kd.shape[2], device="cuda")[None, :] <= pos_t.long()[:, None]
+            return F.scaled_dot_product_attention(q[:, :, None], kd, vd,
+                                                  attn_mask=mask[:, None, None])
+        out[label + " library"] = time_ms(lib, 48)[0]
+    return out
+
+
 def time_flash(case, library):
     from deepspeed_tpu_torch.ops import flash_attention as fa
 
@@ -123,23 +182,63 @@ def time_flash(case, library):
     return out
 
 
+# (label, B, S, H, KV, D, causal): training's shape, D128, BERT's S128
+# (non-causal too), one long sequence
+FLASH_BWD_CASES = [
+    ("flash bwd B8 S1024 H16 D64 bf16 causal", 8, 1024, 16, 16, 64, True),
+    ("flash bwd B2 S1024 H8 D128 bf16 causal", 2, 1024, 8, 8, 128, True),
+    ("flash bwd B8 S128 H16 D64 bf16 causal", 8, 128, 16, 16, 64, True),
+    ("flash bwd B8 S128 H16 D64 bf16 non-causal", 8, 128, 16, 16, 64, False),
+    ("flash bwd B1 S8192 H4 D64 bf16 causal", 1, 8192, 4, 4, 64, True),
+]
+
+
+def time_flash_bwd(case, library):
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    label, B, S, H, KV, D, causal = case
+    g = torch.Generator(device="cuda").manual_seed(10)
+    q, k, v = (torch.randn(B, S, h, D, generator=g, device="cuda").to(torch.bfloat16)
+               for h in (H, KV, KV))
+    do = (torch.randn(B, S, H, D, generator=g, device="cuda") * 0.1).to(torch.bfloat16)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal)
+    out = {label: time_ms(lambda i: fa.flash_attention_bwd(q, k, v, o, lse, do, causal), 30)[0]}
+    if library:
+        leaves = [x.detach().transpose(1, 2).requires_grad_(True) for x in (q, k, v)]
+        dot = do.transpose(1, 2)
+
+        def fb(_):
+            o_l = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+            return torch.autograd.grad(o_l, leaves, dot)
+
+        fwd = time_ms(lambda i: F.scaled_dot_product_attention(*leaves, is_causal=causal), 30)[0]
+        out[label + " library"] = time_ms(fb, 30)[0] - fwd
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--label", default="tree")
     ap.add_argument("--library", action="store_true", help="also time SDPA on the same inputs")
+    ap.add_argument("--only", default="decode,paged,flash_fwd,flash_bwd",
+                    help="comma-separated kernels to time")
     args = ap.parse_args(argv)
+    only = set(args.only.split(","))
     if not torch.cuda.is_available():
         print("time_attention_kernels: no CUDA device; the times are the card's", file=sys.stderr)
         return 1
     import deepspeed_tpu_torch
 
     times = {}
-    for case in DECODE_CASES:
-        times.update(time_decode(case, args.library))
-        torch.cuda.empty_cache()
-    for case in FLASH_CASES:
-        times.update(time_flash(case, args.library))
-        torch.cuda.empty_cache()
+    for name, cases, fn in (("decode", DECODE_CASES, time_decode),
+                            ("paged", PAGED_CASES, time_paged),
+                            ("flash_fwd", FLASH_CASES, time_flash),
+                            ("flash_bwd", FLASH_BWD_CASES, time_flash_bwd)):
+        if name not in only:
+            continue
+        for case in cases:
+            times.update(fn(case, args.library))
+            torch.cuda.empty_cache()
     print(json.dumps({"label": args.label, "package": deepspeed_tpu_torch.__file__,
                       "device": torch.cuda.get_device_name(0), "ms": times}))
     return 0

@@ -768,3 +768,144 @@ def test_remat_policies_on_the_card_keep_the_attention_output(card, policy):
                             "flash_attention_bwd": cfg.n_layer}
     for a, b in zip(*grads):
         assert _max_err(a, b) <= 1e-6
+
+
+# ---- the flash backward's TMA + wgmma design (bf16/fp16, D 64 and 128) ------
+
+def _check_backward(q, k, v, do, causal=True, window=None):
+    """The kernels' dq, dk, dv against the plain backward on the kernels'
+    own o and lse, at the tolerances of the forward's checks."""
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, None, window)
+    before = fa.LAUNCHES["flash_attention_bwd"]
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, do, causal, None, window)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention_bwd"] == before + 1
+    refs = fa.flash_attention_bwd_ref(q, k, v, o, lse, do, causal, None, window)
+    tol, rel_tol = FLASH_TOL[q.dtype], FLASH_REL_TOL[q.dtype]
+    for got, ref in zip(grads, refs):
+        assert got.shape == ref.shape and got.dtype == ref.dtype
+        assert torch.isfinite(got.float()).all()
+        assert _max_err(got, ref) <= tol and _scaled_err(got, ref) <= rel_tol
+    return grads
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("B,S,H,KV,D,causal,window", [
+    (2, 1000, 4, 4, 64, True, None),     # ragged S, causal
+    (2, 1088, 4, 2, 64, False, None),    # ragged S, non-causal, GQA
+    (2, 640, 4, 4, 64, True, 200),       # a window crossing 128-query tiles
+    (1, 512, 16, 4, 64, True, 129),      # GQA H16/KV4 under a window
+    (1, 1000, 8, 2, 128, True, None),    # D128: 64-query tiles in dk/dv, 64-key in dq
+    (1, 1088, 4, 4, 128, False, None),
+    (1, 640, 4, 2, 128, True, 200),
+    (1, 64, 2, 2, 64, True, None),       # one tile, mostly padding
+])
+def test_flash_backward_cases(card, dtype, B, S, H, KV, D, causal, window):
+    q, k, v, do = _flash_inputs(card, B, S, H, KV, D, dtype, seed=S + D + H)
+    _check_backward(q, k, v, do, causal, window)
+
+
+@pytest.mark.parametrize("D,KV,causal,S", [(64, 4, True, 1000), (64, 2, False, 1088),
+                                           (128, 4, True, 1088), (128, 2, False, 1000)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_backward_through_qkv_views_and_autograd(card, dtype, D, KV, causal, S):
+    """q, k, v as strided views of one [B, S, (H + 2 KV) D] projection,
+    through ``flash``'s autograd: the grads of the projection match the
+    plain path's (CPU tensors) on the same inputs."""
+    B, H = 2, 4
+    g = torch.Generator(device=card).manual_seed(S + D)
+    qkv = torch.randn(B, S, (H + 2 * KV) * D, generator=g, device=card).to(dtype)
+    w = (torch.randn(B, S, H, D, generator=g, device=card) * 0.1).to(dtype)
+
+    def run(x):
+        q, k, v = x.split([H * D, KV * D, KV * D], dim=-1)
+        o = fa.flash(q.unflatten(-1, (H, D)), k.unflatten(-1, (KV, D)),
+                     v.unflatten(-1, (KV, D)), causal)
+        return (o.float() * w.float()).sum()
+
+    x = qkv.detach().requires_grad_(True)
+    (gk,) = torch.autograd.grad(run(x), x)
+    xr = qkv.detach().cpu().requires_grad_(True)  # CPU tensors: the plain versions
+    w = w.cpu()
+    (gr,) = torch.autograd.grad(run(xr), xr)
+    assert gk.dtype == dtype and torch.isfinite(gk.float()).all()
+    assert _max_err(gk.cpu(), gr) <= FLASH_TOL[dtype]
+    assert _scaled_err(gk.cpu(), gr) <= FLASH_REL_TOL[dtype]
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_backward_repeats_bit_for_bit(card, D):
+    q, k, v, do = _flash_inputs(card, 2, 1000, 8, 2, D, torch.bfloat16, seed=9)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    first = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_flash_backward_refuses_strides_a_tensor_map_cannot_take(card):
+    q, k, v, do = _flash_inputs(card, 2, 128, 2, 2, 64, torch.bfloat16)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    do_b = do[:1].expand(2, -1, -1, -1)  # a zero batch stride
+    with pytest.raises(ValueError, match="TMA"):
+        fa.flash_attention_bwd(q, k, v, o, lse, do_b)
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_attention_bwd(q, k, v, o, lse[:, :, :64], do)
+
+
+# ---- the paged decode kernel's split-K design ----------------------------------
+
+def _paged_split_check(card, B, H, KV, D, page, P, n, pos, qdtype, int8, seed):
+    """The kernel against its plain version (and, at fp32, bit for bit
+    against itself on a second call): pools of random pages (int8: codec
+    codes, the second page of slot 0 at scale 0, garbage codes in the
+    scratch page), the last slot inactive on scratch."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    q = torch.randn(B, H, D, generator=g, device=card).to(qdtype)
+    bt = torch.randperm(P - 2, generator=g, device=card)[: B * n].add(2).reshape(B, n).int()
+    bt[B - 1] = 0
+    posT = torch.tensor(pos, dtype=torch.int32, device=card)
+    if int8:
+        kq, vq, sc = _int8_pools(card, P, KV, page, D, g)
+        bt[0, 1] = 1
+        out = pda.paged_decode_attention(q, kq, vq, bt, posT, scales=sc)
+        again = pda.paged_decode_attention(q, kq, vq, bt, posT, scales=sc)
+        ref = pda.paged_decode_attention_ref(q.float(), kq, vq, bt, posT, scales=sc)
+    else:
+        k = torch.randn(P, KV, page, D, generator=g, device=card).to(qdtype)
+        v = torch.randn(P, KV, page, D, generator=g, device=card).to(qdtype)
+        out = pda.paged_decode_attention(q, k, v, bt, posT)
+        again = pda.paged_decode_attention(q, k, v, bt, posT)
+        ref = pda.paged_decode_attention_ref(q.float(), k.float(), v.float(), bt, posT)
+    torch.cuda.synchronize()
+    tol = 1e-5 if qdtype == torch.float32 else 1e-2
+    assert torch.isfinite(out.float()).all()
+    assert (out.float() - ref).abs().max().item() <= tol
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("B,H,KV,n", [(8, 16, 16, 36), (4, 16, 4, 24), (2, 8, 8, 256)])
+def test_paged_decode_kernel_at_every_split_edge(card, qdtype, int8, B, H, KV, n):
+    """pos at the first and last row of every chunk the plan draws, within
+    one page, at the table's last row and past it, slot by slot."""
+    D, page = 64, 16
+    P = B * n + 2
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    item = 1 if int8 else (4 if qdtype == torch.float32 else 2)
+    _, _, splits, chunk = pda.kernel_plan(B, H, KV, D, item, page, n, sms)
+    rows = n * page
+    edges = sorted({0, 3, page - 1, page, rows - 1, rows + 9}
+                   | {e for s in range(1, splits) for e in (s * chunk - 1, s * chunk)})
+    live = B - 1  # the last slot is inactive
+    for i in range(0, len(edges), live):
+        pos = (edges[i:i + live] + [0] * live)[:live] + [0]
+        _paged_split_check(card, B, H, KV, D, page, P, n, pos, qdtype, int8, seed=i)
+
+
+def test_paged_decode_kernel_refuses_a_page_off_the_row_grid(card):
+    q = torch.zeros(2, 4, 64, device=card)
+    k = torch.zeros(8, 4, 10, 64, device=card)  # page 10: not a multiple of 4
+    bt = torch.ones(2, 2, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        pda.paged_decode_attention(q, k, k, bt, torch.zeros(2, dtype=torch.int32, device=card))

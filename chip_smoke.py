@@ -97,13 +97,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      unbucketed engine, and fp32 greedy tokens at gpt2-medium width and 4
      layers are the CPU's, both except at a tie.
   10 the block-sparse kernels (forward, dq, dk/dv) against their plain
-     versions, chained as training runs them: o, lse, dq, dk, dv at 16
+     versions, chained as training runs them: o, lse, dq, dk, dv at 18
      cases (the GPT-2 and BERT main shapes; fixed, bigbird, bslongformer,
      variable and dense layouts, the dense one also against the flash
      kernel; a custom layout whose first query block sees nothing, whose
      rows must give o = 0 and lse = +1e30; blocks 16/32/64/128, D 64/128,
-     fp32/fp16/bf16, S 128-4096; q/k/v as views of a [B, S, 3E]
-     projection), each by max abs error and max abs error over max |ref|;
+     fp32/fp16/bf16, S 128-4096, so both backward routes, wgmma and
+     mma.sync/FMA; q/k/v as views of a [B, S, 3E] projection), each by max
+     abs error and max abs error over max |ref|, dq/dk/dv repeating bit for
+     bit over two calls;
      each kernel timed at the GPT-2 shape (B2 S4096 H16 D64 bf16, fixed
      unidirectional, block 64) and the BERT shape (B16 S512 H16 D64 bf16,
      fixed bidirectional, block 16) beside its plain version, SDPA with the
@@ -608,12 +610,17 @@ def bs_errors(q, k, v, do, lists, causal):
     against the plain versions chained the same way: max abs error and max
     abs error / max |ref| of o, lse (rows with a finite lse; the poisoned
     rows must be poisoned in both), dq, dk, dv → (abs, scaled, o, poisoned
-    rows)."""
+    rows). A second dq and dk/dv call must repeat the first bit for bit."""
     o, lse = bsa.block_sparse_attention_fwd(q, k, v, lists, causal)
     delta = bsa.block_sparse_delta(o, do)
     dq = bsa.block_sparse_attention_dq(q, k, v, do, lse, delta, lists, causal)
     dk, dv = bsa.block_sparse_attention_dkv(q, k, v, do, lse, delta, lists, causal)
+    again = (bsa.block_sparse_attention_dq(q, k, v, do, lse, delta, lists, causal),
+             *bsa.block_sparse_attention_dkv(q, k, v, do, lse, delta, lists, causal))
     torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again)),
+          "block-sparse dq/dk/dv: a second call differs from the first")
+    del again
     o_r, lse_r = bsa.block_sparse_attention_fwd_ref(q, k, v, lists, causal)
     grads_r = bsa.block_sparse_attention_bwd_ref(q, k, v, o_r, lse_r, do, lists, causal)
     poison = lse_r == 1e30
@@ -1863,6 +1870,10 @@ def main() -> int:
          (1, 256, 2, 64, torch.bfloat16), 16, "custom", True),
         ("fp32 B1 S256 H2 D128 custom fully masked first row blk16",
          (1, 256, 2, 128, torch.float32), 16, "custom", True),
+        ("bf16 B1 S512 H2 D64 custom fully masked first row blk64",
+         (1, 512, 2, 64, torch.bfloat16), 64, "custom", True),
+        ("fp16 B2 S1024 H4 D64 bigbird-uni blk64", (2, 1024, 4, 64, torch.float16), 64, "bigbird",
+         True),
     ]
     bs_errs = {}
     for n, (label, (B, S, H, D, dtype), blk, kind, causal) in enumerate(bs_cases):
@@ -1885,7 +1896,8 @@ def main() -> int:
         print(f"block-sparse {label}: density {sac.layout_density(lists.layout):.4f}; max abs "
               "err " + ", ".join(f"{k} {e:.3e}" for k, e in errs10.items())
               + "; max abs err / max |ref| " + ", ".join(f"{k} {e:.3e}" for k, e in scaled10.items())
-              + f" (tolerance {rel_tol:g}, lse {LSE_REL_TOL:g}){extra}")
+              + f" (tolerance {rel_tol:g}, lse {LSE_REL_TOL:g}); dq/dk/dv repeat bit for bit; "
+              f"backward route {'wgmma' if bsa.wgmma_route(q, blk) else 'mma.sync/FMA'}{extra}")
         check(scaled10["lse"] <= LSE_REL_TOL, f"block-sparse {label}: lse {scaled10['lse']}")
         check(all(e <= rel_tol for k, e in scaled10.items() if k != "lse"),
               f"block-sparse {label}: scaled errors {scaled10} above {rel_tol}")

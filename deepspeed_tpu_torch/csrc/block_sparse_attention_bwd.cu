@@ -7,40 +7,81 @@
 // forward given its lse and delta = rowsum(dO * O) (a torch op outside the
 // kernels, as the JAX entry computes it at :201), with p recomputed as
 // exp(s - lse) inside the visited blocks (0 where the causal rule masks),
-// ds = p * (dp - delta), dq and dk scaled by sm_scale once at the end. A
-// row the forward poisoned (lse = +1e30, o = 0, delta = 0) gives p = 0 and
-// so no contribution.
-//
-//  - dq: a unit of query rows of one (batch, head, query block) walks the
-//    key blocks of its kidx row (as the forward does): s = q k^T, dp =
-//    dO v^T, dq += ds k.
-//  - dk/dv: a unit of key rows of one (batch, head, key block) walks the
-//    query blocks of its row of the transposed lists qidx: s^T = k q^T,
-//    dv += p^T dO, dp^T = v dO^T, dk += ds^T q.
-// Both are deterministic and use no atomics: every output row is written by
-// the one unit that owns it (that is why the JAX package builds qidx).
+// ds = p * (dp - delta), dq and dk scaled by sm_scale once at the end, dv =
+// P^T dO. A row the forward poisoned (lse = +1e30, o = 0, delta = 0) gives
+// p = 0 and so no contribution. dq walks each query block's kidx row, dk/dv
+// each key block's qidx row, so every output row is written by the one
+// unit that owns it: deterministic, no atomics.
 //
 // What bounds them on the card: their flops. dq does 3 products per visited
 // (query, key) pair and dk/dv 4, against the 5 the backward needs (s and dp
-// are recomputed in both): at the GPT-2 shape (B2 S4096 H16 D64 bf16,
-// 10240 of 65536 blocks) ~31 and ~41 GFLOP, 0.031 and 0.041 ms at 989
-// TFLOP/s, above the 0.025 and 0.030 ms their ~84 and ~102 MB of operands
-// take at 3.35 TB/s. At the BERT shape (B16 S512 H16, block 16) the bytes
-// bound them (0.025 and 0.030 ms against 0.009 and 0.012 ms of flops).
-// bf16/fp16 run every product on the tensor cores (mma.sync m16n8k16, f32
-// accumulate): units of R = min(blk, 64) rows, a warp per 16 rows (dk/dv at
-// D128: two warps per 16 keys, each owning 64 of the output columns so the
-// accumulators fit in registers), the streamed operand double-buffered
-// through cp.async as tiles of R rows, fragments by ldmatrix, p and ds
-// rounded to the storage dtype and fed to the next product from registers,
-// p by exp2 in log2 units, the causal test only in tiles that straddle the
-// diagonal (tiles wholly masked are skipped), and 4 or 2 units packed into a
-// thread block for blocks of 16 and 32, each on its own named barrier.
-// fp32 runs the same walks on the FMA pipes (lane j owns row j of a chunk
-// of min(blk, 32) streamed rows). What they do not do yet: wgmma, TMA, one
-// shared recompute of s and dp for dq and dk/dv.
+// are recomputed in both): at the GPT-2 shape (B2 S4096 H16 D64 bf16, fixed
+// unidirectional, block 64: 10240 of 65536 blocks, ~84M computed pairs) ~31
+// and ~41 GFLOP, 0.031 and 0.041 ms at 989 TFLOP/s, above the 0.025 and
+// 0.030 ms their operands take at 3.35 TB/s. At the BERT shape (B16 S512
+// H16, block 16) the bytes bound them (0.025 and 0.030 ms).
+//
+// bf16/fp16 at D 64/128 and blocks of 64/128 (the GPT-2 shape) run the TMA
+// + wgmma kernels, the flash backward's design (flash_attention_bwd.cu) on
+// the host's schedule (ops/block_sparse_attention.py bwd_plan):
+//  - a unit is 64 rows (wgmma's M) of one (head, block): queries for dq,
+//    keys for dk/dv. An item is two units of one (batch, head) whose list
+//    rows share the most 64-row tiles, one a consumer warpgroup; it walks
+//    the union of their tiles after the causal cut, each tile's entry
+//    marking the units that walk it. So every streamed tile is loaded once
+//    for both warpgroups (a lone unit's item of 64 rows streamed its tiles
+//    for one warpgroup: twice the L2 traffic, ~5 TB/s at 0.042 ms of dq);
+//  - persistent: min(items, SMs) blocks deal the plan's items heaviest
+//    first in rounds (the GPT-2 layout lists a global key block under 61
+//    query blocks and a local one under 1-4);
+//  - a producer warp reads an item's entries 32 at a time and loads by TMA
+//    the item's own 128 rows (K/V, or Q/dO) into one of two buffers and the
+//    streamed tiles, two 64-row tiles side by side a step at D64 (N 128),
+//    one at D128 (its registers, as in the flash backward), into a ring of
+//    stages that runs on across items; a tile's coordinates come from its
+//    entry, and a step's missing second tile repeats the first, masked;
+//  - consumer warpgroups: dk/dv S^T = K Q^T and dP^T = V dO^T, dV += P^T
+//    dO, dK += dS^T Q; dq S = Q K^T, dP = dO V^T, dQ += dS K (left running
+//    under the next step's S and dP); P and dS in registers as register A
+//    operands; the mask (a tile the unit does not walk, and the causal rule)
+//    as compares against per-row limits under one warp-uniform branch that
+//    steps with nothing masked skip. Written as a select per element inside
+//    the branch, the mask compiled into a branch and convergence barrier per
+//    element, and ptxas then waited for dQ at the loop's end: dq took 0.131
+//    ms and dk/dv 0.168 (H100 80GB HBM3 at 700 W);
+//  - accumulators stay in registers over the item and are stored once.
+// What holds them back (tools/bsparse_bwd_ablation.py, H100 80GB HBM3 at
+// 700 W): at the GPT-2 shape dq takes ~0.082 ms and dk/dv ~0.118; without
+// the exponentials 0.073 / 0.109; without the last product 0.042 / 0.096.
+// dq without its last product moves its ~217 MB of L2 reads at ~5 TB/s:
+// the loads and the products take turns more than they overlap.
+//
+// Blocks of 16 and 32 (BERT's default is 16) keep the mma.sync kernels
+// below: a wgmma M of 64 rows would span 4 or 2 blocks with lists of their
+// own. Units of R = min(blk, 64) rows, a warp per 16 rows (dk/dv at D128:
+// two warps per 16 keys, each owning 64 of the output columns), the
+// streamed operand double-buffered through cp.async as tiles of R rows,
+// fragments by ldmatrix, m16n8k16 products, p and ds rounded to the storage
+// dtype and fed to the next product from registers, and 4 or 2 units packed
+// into a thread block, each on its own named barrier. fp32 runs the same
+// walks on the FMA pipes (lane j owns row j of a chunk of min(blk, 32)
+// streamed rows). Which kernel a call takes is a rule on shapes alone (the
+// wrapper's wgmma_route); a call never falls back from one to another.
+//
+// Not done yet: one shared recompute of s and dp for dq and dk/dv (5
+// products instead of 7: dq would need a deterministic sum across blocks);
+// wgmma for blocks of 16 and 32 (BERT's rows: 24 of its 31 adjacent query
+// blocks list the same key blocks, so 4 of them could form one 64-row unit);
+// delta and lse in log2 units as one prep pass.
+
+#include <cuda.h>
+
+#include <algorithm>
+#include <climits>
+#include <type_traits>
 
 #include "block_sparse_attention_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -588,6 +629,525 @@ bs_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ---- bf16/fp16 at D 64/128, blocks of 64 and 128: TMA, wgmma, warp specialisation
+
+constexpr int kRows = 64;  // rows of a unit (wgmma's M) and of one listed tile
+
+template <typename T, int D>
+struct WgCfg {
+  static constexpr int TN = D == 64 ? 128 : 64;  // streamed rows a step: two tiles at D64
+  static constexpr int P = TN / kRows;           // tiles a step
+  static constexpr int STAGES = D == 64 ? 4 : 2;
+  static constexpr int NT = 384;                 // producer + 2 consumer warpgroups
+  static constexpr int ATOMS = D / 64;           // 128-byte column atoms a row
+  static constexpr uint32_t SUB_BYTES = kRows * D * 2;    // one 64-row tile of one operand
+  static constexpr uint32_t PAIR_BYTES = 2 * SUB_BYTES;   // an item's two units of one operand
+  static constexpr uint32_t STEP_BYTES = P * SUB_BYTES;   // one operand's tiles of a step
+  static constexpr int AUX_FLOATS = P * 2 * kRows;        // a dk/dv step's lse and delta
+  static constexpr int PRODUCER_REGS = 40;
+  static constexpr int CONSUMER_REGS = 232;
+  // 1024 bytes of slack to align the tiles; two buffers of the item's own
+  // operands (K/V for dk/dv, Q/dO for dq: the next item's load while this
+  // one runs), the streamed stages (and dk/dv's lse/delta), the stages'
+  // tile entries, the barriers
+  static constexpr size_t smem(bool aux) {
+    return 1024 + 4 * (size_t)PAIR_BYTES + (size_t)STAGES * 2 * STEP_BYTES +
+           (aux ? (size_t)STAGES * AUX_FLOATS * 4 : 0) + (STAGES * P + 2) * 4 +
+           8 * (4 + 2 * STAGES);
+  }
+};
+
+// an item: two units (64 rows each: keys for dk/dv, queries for dq) of one
+// (batch, head), the second absent (row -1) when the head's units are odd,
+// and the n entries of the tiles they walk: the union of the units' list
+// rows after the causal cut, ascending, each entry (first row of a 64-row
+// tile) * 4 + (bit c: unit c walks it)
+struct Item {
+  int b, h, r0[2], n;
+  const int* tiles;
+};
+
+// item i of the schedule. The plan (built on the host, one batch row's
+// worth): n_pairs headers (unit 0, unit 1 or -1, offset, tile count),
+// heaviest first, then the tile entries; each header is B items, one a
+// batch row
+__device__ __forceinline__ Item plan_item(int i, const int* __restrict__ plan, int n_pairs,
+                                          const BsParams& p) {
+  Item w;
+  const int* hd = plan + 4 * (i / p.B);
+  w.b = i % p.B;
+  const int nu = p.nblk * (p.blk / kRows);  // units a head
+  const int u0 = __ldg(hd), u1 = __ldg(hd + 1);
+  w.h = u0 / nu;
+  w.r0[0] = (u0 % nu) * kRows;
+  w.r0[1] = u1 < 0 ? -1 : (u1 % nu) * kRows;
+  w.tiles = plan + 4 * n_pairs + __ldg(hd + 2);
+  w.n = __ldg(hd + 3);
+  return w;
+}
+
+// the producer warp's walk over an item's tile entries, P a step: lane l
+// holds entry t0 + l (-1 past the last), and lane 0 writes each step's
+// entries beside its stage and hands the step to issue(stage, first rows)
+// once the stage is free. A step's missing second tile repeats the first
+// tile's rows with no unit's bit set. `it` counts steps over all items
+template <int P, int STAGES, typename Issue>
+__device__ __forceinline__ void stream_steps(const Item& w, int lane, uint64_t* empty,
+                                             int* entries, int& it, Issue issue) {
+  using namespace hopper;
+  for (int t0 = 0; t0 < w.n; t0 += 32) {
+    const int e = t0 + lane < w.n ? __ldg(w.tiles + t0 + lane) : -1;
+    const int cnt = min(32, w.n - t0);
+    for (int j = 0; j < cnt; j += P, ++it) {
+      int r[P];
+#pragma unroll
+      for (int q = 0; q < P; ++q) r[q] = __shfl_sync(0xffffffffu, e, j + q);
+      if (lane == 0) {
+        const int s = it % STAGES;
+        mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+        int row[P];
+#pragma unroll
+        for (int q = 0; q < P; ++q) {
+          entries[s * P + q] = r[q] >= 0 ? r[q] : r[0] & ~3;
+          row[q] = (r[q] >= 0 ? r[q] : r[0]) >> 2;
+        }
+        issue(s, row);
+      }
+    }
+  }
+}
+
+// one unit's 64 x D accumulator rows r0.. to [B, S, H, D], times `mul`
+template <typename T, int D>
+__device__ __forceinline__ void store_rows(T* out, const float (&acc)[D / 2], float mul,
+                                           const BsParams& p, int b, int h, int r0, int lane) {
+  const int t = lane & 3;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = r0 + (lane >> 2) + 8 * hr;
+    T* dst = out + (((long long)b * p.S + row) * p.H + h) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(dst + n * 8) =
+          pack2<T>(acc[4 * n + 2 * hr] * mul, acc[4 * n + 2 * hr + 1] * mul);
+  }
+}
+
+// dk, dv: persistent, min(items, SMs) blocks of three warpgroups walking
+// the plan's items heaviest first, dealt in rounds. A producer warp loads
+// each item's K and V (its two units' 64 keys each, one 128-row tile) by TMA
+// into one of two buffers (the next item's while this one runs), then
+// streams the Q and dO tiles of the item's entries, P tiles a step side by
+// side with their lse and delta slices, through an mbarrier ring that runs
+// on across items. Consumer warpgroup c owns unit c's keys: S^T = K Q^T and
+// dP^T = V dO^T from shared memory, P^T = exp2(S^T scale2 - lse2) and dS^T
+// = P^T (dP^T - delta) in registers (selects to 0 on a tile its unit does
+// not walk and on the pairs the causal rule masks), then dV += P^T dO and
+// dK += dS^T Q with P^T and dS^T as register A operands; dK and dV stay in
+// registers over the item and are stored once
+template <typename T, int D>
+__global__ void __launch_bounds__(384, 1)
+bs_dkv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+             const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+             const __grid_constant__ CUtensorMap tlse, const __grid_constant__ CUtensorMap tdelta,
+             const int* __restrict__ plan, int n_pairs, T* __restrict__ dk, T* __restrict__ dv,
+             const BsParams p, int n_items) {
+  using W = WgCfg<T, D>;
+  constexpr int TN = W::TN, P = W::P, STAGES = W::STAGES;
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* KVs = base;                                  // buffer k: K at 2k, V at 2k + 1
+  unsigned char* Qs = KVs + 4 * W::PAIR_BYTES;                // stage s at s * STEP_BYTES
+  unsigned char* Os = Qs + (size_t)STAGES * W::STEP_BYTES;    // dO, the same
+  float* Aux = reinterpret_cast<float*>(Os + (size_t)STAGES * W::STEP_BYTES);  // [s][tile][2][64]
+  int* entries = reinterpret_cast<int*>(Aux + STAGES * W::AUX_FLOATS);        // [s][tile]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(entries + STAGES * P + (STAGES * P) % 2);
+  uint64_t* kv_full = bars;
+  uint64_t* kv_empty = bars + 2;
+  uint64_t* full = bars + 4;
+  uint64_t* empty = bars + 4 + STAGES;
+
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < 2; ++k) {
+      mbar_init(&kv_full[k], 1);
+      mbar_init(&kv_empty[k], 2);
+    }
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer: warp 0 reads the entries, its lane 0 issues every load --
+    regs_dec<W::PRODUCER_REGS>();
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    const CUtensorMap *mq = &tq, *mdo = &tdo, *mlse = &tlse, *mdelta = &tdelta;
+    int it = 0;  // steps loaded, over all items
+    for (int r = 0, ki = 0; r * (int)gridDim.x < n_items; ++r) {
+      const int i = round_item(r, n_items);
+      if (i < 0) continue;
+      const Item w = plan_item(i, plan, n_pairs, p);
+      const int kb = ki % 2;
+      if (lane == 0) {
+        mbar_wait(&kv_empty[kb], ((ki / 2) & 1) ^ 1);
+        mbar_arrive_tx(&kv_full[kb], 2 * W::PAIR_BYTES);
+        unsigned char* Kt = KVs + (size_t)(2 * kb) * W::PAIR_BYTES;
+        for (int c = 0; c < 2; ++c) {
+          const int row = w.r0[c] >= 0 ? w.r0[c] : w.r0[0];  // no second unit: the first again
+          for (int a = 0; a < W::ATOMS; ++a) {
+            const int off = a * 2 * kRows * 128 + c * kRows * 128;
+            tma_load_4d(Kt + off, &tk, &kv_full[kb], a * 64, w.h, row, w.b);
+            tma_load_4d(Kt + W::PAIR_BYTES + off, &tv, &kv_full[kb], a * 64, w.h, row, w.b);
+          }
+        }
+      }
+      stream_steps<P, STAGES>(w, lane, empty, entries, it, [&](int s, const int (&row)[P]) {
+        mbar_arrive_tx(&full[s], 2 * W::STEP_BYTES + P * 2 * kRows * 4);
+        for (int q = 0; q < P; ++q) {
+          for (int a = 0; a < W::ATOMS; ++a) {
+            const size_t off = (size_t)s * W::STEP_BYTES + a * TN * 128 + q * kRows * 128;
+            tma_load_4d(Qs + off, mq, &full[s], a * 64, w.h, row[q], w.b);
+            tma_load_4d(Os + off, mdo, &full[s], a * 64, w.h, row[q], w.b);
+          }
+          float* aux = Aux + s * W::AUX_FLOATS + q * 2 * kRows;
+          tma_load_4d(aux, mlse, &full[s], row[q], w.h, w.b, 0);
+          tma_load_4d(aux + kRows, mdelta, &full[s], row[q], w.h, w.b, 0);
+        }
+      });
+      ++ki;
+    }
+    return;
+  }
+
+  // ---- consumers ------------------------------------------------------------
+  regs_inc<W::CONSUMER_REGS>();
+  const int cw = wg - 1;
+  const int tid = threadIdx.x % 128, lane = tid & 31, warp = tid >> 5;
+  const int t = lane & 3;
+  const float scale2 = p.scale * kLog2e;
+  const bool causal = p.causal != 0;
+
+  float dka[D / 2], dva[D / 2];
+  float st[TN / 2], dpt[TN / 2];
+  uint32_t pa[TN / 16][4], da[TN / 16][4];
+
+  int it = 0;  // steps consumed, over all items
+  for (int r = 0, ki = 0; r * (int)gridDim.x < n_items; ++r) {
+    const int i = round_item(r, n_items);
+    if (i < 0) continue;
+    const Item w = plan_item(i, plan, n_pairs, p);
+    const int mine0 = cw ? w.r0[1] : w.r0[0];
+    const bool owned = mine0 >= 0;
+    const int kw0 = (owned ? mine0 : w.r0[0]) + warp * 16;  // this warp's first key
+    const int key[2] = {kw0 + (lane >> 2), kw0 + (lane >> 2) + 8};
+    const int kb = ki % 2;
+    const uint32_t k_addr = smem_addr(KVs) + (2 * kb) * W::PAIR_BYTES + cw * kRows * 128;
+    const uint32_t v_addr = k_addr + W::PAIR_BYTES;
+    const int nsteps = (w.n + P - 1) / P;
+#pragma unroll
+    for (int k = 0; k < D / 2; ++k) dka[k] = dva[k] = 0.f;
+    mbar_wait(&kv_full[kb], (ki / 2) & 1);
+
+    for (int u = 0; u < nsteps; ++u, ++it) {
+      const int s = it % STAGES;
+      mbar_wait(&full[s], (it / STAGES) & 1);
+      // tile q keeps query qi for the thread's key row i iff qi >= lo[q][i]:
+      // the key under the causal rule, every query of a tile its unit walks
+      // otherwise, none of a tile it does not walk
+      int q0[P], lo[P][2];
+      bool whole = true;
+#pragma unroll
+      for (int q = 0; q < P; ++q) {
+        const int e = entries[s * P + q];
+        const bool mine = (e >> cw) & 1;
+        q0[q] = e >> 2;
+#pragma unroll
+        for (int i2 = 0; i2 < 2; ++i2) lo[q][i2] = !mine ? INT_MAX : causal ? key[i2] : 0;
+        whole = whole && mine && (!causal || q0[q] >= kw0 + 15);
+      }
+      const uint32_t q_addr = smem_addr(Qs) + s * W::STEP_BYTES;
+      const uint32_t do_addr = smem_addr(Os) + s * W::STEP_BYTES;
+      const float* aux = Aux + s * W::AUX_FLOATS;
+
+      // S^T = K Q^T, then dP^T = V dO^T, two commit groups: P^T's
+      // exponentials run while dP^T is on the tensor cores
+      fence_regs(st);
+      fence_regs(dpt);
+      wgmma_fence();
+      issue_ss<T, D, TN>(st, k_addr, 2 * kRows * 128, q_addr, TN * 128);
+      wgmma_commit();
+      issue_ss<T, D, TN>(dpt, v_addr, 2 * kRows * 128, do_addr, TN * 128);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(st);
+
+      // P^T, then 0 where lo masks (selects; a step with nothing masked skips them)
+#pragma unroll
+      for (int n = 0; n < TN / 8; ++n) {
+        const int q = n / (kRows / 8);
+        const int ql = (n % (kRows / 8)) * 8 + 2 * t;
+        const float2 l = *reinterpret_cast<const float2*>(aux + q * 2 * kRows + ql);
+        const float l2[2] = {l.x * kLog2e, l.y * kLog2e};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[4 * n + e] = ex2(fmaf(st[4 * n + e], scale2, -l2[e & 1]));
+      }
+      if (!whole) {
+#pragma unroll
+        for (int n = 0; n < TN / 8; ++n) {
+          const int q = n / (kRows / 8);
+          const int qi = q0[q] + (n % (kRows / 8)) * 8 + 2 * t;
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            st[4 * n + e] = qi + (e & 1) >= lo[q][e >> 1] ? st[4 * n + e] : 0.f;
+        }
+      }
+      pack_a<T, TN>(pa, st);
+      wgmma_wait<0>();
+      fence_regs(dpt);
+      // dS^T = P^T (dP^T - delta)
+#pragma unroll
+      for (int n = 0; n < TN / 8; ++n) {
+        const int q = n / (kRows / 8);
+        const float2 d2 = *reinterpret_cast<const float2*>(
+            aux + q * 2 * kRows + kRows + (n % (kRows / 8)) * 8 + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dpt[4 * n + e] = st[4 * n + e] * (dpt[4 * n + e] - ((e & 1) ? d2.y : d2.x));
+      }
+      pack_a<T, TN>(da, dpt);
+
+      // dV += P^T dO, dK += dS^T Q
+      fence_regs(dva);
+      fence_regs(dka);
+      fence_regs(pa);
+      fence_regs(da);
+      wgmma_fence();
+      issue_rs<T, D, TN>(dva, pa, do_addr);
+      issue_rs<T, D, TN>(dka, da, q_addr);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dva);
+      fence_regs(dka);
+      fence_regs(pa);
+      fence_regs(da);
+      if (tid == 0) mbar_arrive(&empty[s]);  // the stage's last reads are done
+    }
+    if (tid == 0) mbar_arrive(&kv_empty[kb]);  // K and V's last reads are done
+    if (owned) {
+      store_rows<T, D>(dk, dka, p.scale, p, w.b, w.h, kw0, lane);
+      store_rows<T, D>(dv, dva, 1.f, p, w.b, w.h, kw0, lane);
+    }
+    ++ki;
+  }
+}
+
+// dq: persistent as dk/dv over items of two query units. The producer
+// loads each item's Q and dO (one 128-row tile of each) into one of two
+// buffers and streams the K/V tiles of its entries, P a step; consumer
+// warpgroup c owns unit c's queries: S = Q K^T and dP = dO V^T from shared
+// memory, dS = P (dP - delta) in registers (selects as dk/dv's), dQ += dS K
+// with dS as the register A operand and K MN-major, left running while the
+// next step's S and dP are issued
+template <typename T, int D>
+__global__ void __launch_bounds__(384, 1)
+bs_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+            const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+            const float* __restrict__ lse, const float* __restrict__ delta,
+            const int* __restrict__ plan, int n_pairs, T* __restrict__ dq, const BsParams p,
+            int n_items) {
+  using W = WgCfg<T, D>;
+  constexpr int TN = W::TN, P = W::P, STAGES = W::STAGES;
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* QOs = base;                                  // buffer k: Q at 2k, dO at 2k + 1
+  unsigned char* Ks = QOs + 4 * W::PAIR_BYTES;                // stage s at s * STEP_BYTES
+  unsigned char* Vs = Ks + (size_t)STAGES * W::STEP_BYTES;    // V, the same
+  int* entries = reinterpret_cast<int*>(Vs + (size_t)STAGES * W::STEP_BYTES);  // [s][tile]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(entries + STAGES * P + (STAGES * P) % 2);
+  uint64_t* q_full = bars;
+  uint64_t* q_empty = bars + 2;
+  uint64_t* full = bars + 4;
+  uint64_t* empty = bars + 4 + STAGES;
+
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < 2; ++k) {
+      mbar_init(&q_full[k], 1);
+      mbar_init(&q_empty[k], 2);
+    }
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    regs_dec<W::PRODUCER_REGS>();
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    const CUtensorMap *mk = &tk, *mv = &tv;
+    int it = 0;  // steps loaded, over all items
+    for (int r = 0, ki = 0; r * (int)gridDim.x < n_items; ++r) {
+      const int i = round_item(r, n_items);
+      if (i < 0) continue;
+      const Item w = plan_item(i, plan, n_pairs, p);
+      const int qb = ki % 2;
+      if (lane == 0) {
+        mbar_wait(&q_empty[qb], ((ki / 2) & 1) ^ 1);
+        mbar_arrive_tx(&q_full[qb], 2 * W::PAIR_BYTES);
+        unsigned char* Qt = QOs + (size_t)(2 * qb) * W::PAIR_BYTES;
+        for (int c = 0; c < 2; ++c) {
+          const int row = w.r0[c] >= 0 ? w.r0[c] : w.r0[0];  // no second unit: the first again
+          for (int a = 0; a < W::ATOMS; ++a) {
+            const int off = a * 2 * kRows * 128 + c * kRows * 128;
+            tma_load_4d(Qt + off, &tq, &q_full[qb], a * 64, w.h, row, w.b);
+            tma_load_4d(Qt + W::PAIR_BYTES + off, &tdo, &q_full[qb], a * 64, w.h, row, w.b);
+          }
+        }
+      }
+      stream_steps<P, STAGES>(w, lane, empty, entries, it, [&](int s, const int (&row)[P]) {
+        mbar_arrive_tx(&full[s], 2 * W::STEP_BYTES);
+        for (int q = 0; q < P; ++q) {
+          for (int a = 0; a < W::ATOMS; ++a) {
+            const size_t off = (size_t)s * W::STEP_BYTES + a * TN * 128 + q * kRows * 128;
+            tma_load_4d(Ks + off, mk, &full[s], a * 64, w.h, row[q], w.b);
+            tma_load_4d(Vs + off, mv, &full[s], a * 64, w.h, row[q], w.b);
+          }
+        }
+      });
+      ++ki;
+    }
+    return;
+  }
+
+  regs_inc<W::CONSUMER_REGS>();
+  const int cw = wg - 1;
+  const int tid = threadIdx.x % 128, lane = tid & 31, warp = tid >> 5;
+  const int t = lane & 3;
+  const float scale2 = p.scale * kLog2e;
+  const bool causal = p.causal != 0;
+
+  float dqa[D / 2];
+  float s[TN / 2], dp[TN / 2];
+  uint32_t da[TN / 16][4];
+
+  int it = 0;  // steps consumed, over all items
+  for (int r = 0, ki = 0; r * (int)gridDim.x < n_items; ++r) {
+    const int i = round_item(r, n_items);
+    if (i < 0) continue;
+    const Item w = plan_item(i, plan, n_pairs, p);
+    const int mine0 = cw ? w.r0[1] : w.r0[0];
+    const bool owned = mine0 >= 0;
+    const int rw0 = (owned ? mine0 : w.r0[0]) + warp * 16;  // this warp's first query
+    const int row[2] = {rw0 + (lane >> 2), rw0 + (lane >> 2) + 8};
+    const int qb = ki % 2;
+    const uint32_t q_addr = smem_addr(QOs) + (2 * qb) * W::PAIR_BYTES + cw * kRows * 128;
+    const uint32_t do_addr = q_addr + W::PAIR_BYTES;
+    const long long rowbase = ((long long)w.b * p.H + w.h) * p.S;
+    float lrow[2], drow[2];  // lse in log2 units, delta
+#pragma unroll
+    for (int i2 = 0; i2 < 2; ++i2) {
+      lrow[i2] = __ldg(lse + rowbase + row[i2]) * kLog2e;
+      drow[i2] = __ldg(delta + rowbase + row[i2]);
+    }
+    const int nsteps = (w.n + P - 1) / P;
+#pragma unroll
+    for (int k = 0; k < D / 2; ++k) dqa[k] = 0.f;
+    mbar_wait(&q_full[qb], (ki / 2) & 1);
+
+    int prev = 0;  // the stage of the previous step
+    for (int u = 0; u < nsteps; ++u, ++it) {
+      const int st = it % STAGES;
+      mbar_wait(&full[st], (it / STAGES) & 1);
+      // tile q keeps key col for the thread's query row i iff col <= hi[q][i]:
+      // the row under the causal rule, every key of a tile its unit walks
+      // otherwise, none of a tile it does not walk
+      int c0[P], hi[P][2];
+      bool whole = true;
+#pragma unroll
+      for (int q = 0; q < P; ++q) {
+        const int e = entries[st * P + q];
+        const bool mine = (e >> cw) & 1;
+        c0[q] = e >> 2;
+#pragma unroll
+        for (int i2 = 0; i2 < 2; ++i2) hi[q][i2] = !mine ? -1 : causal ? row[i2] : INT_MAX;
+        whole = whole && mine && (!causal || c0[q] + kRows - 1 <= rw0);
+      }
+      const uint32_t k_addr = smem_addr(Ks) + st * W::STEP_BYTES;
+      const uint32_t v_addr = smem_addr(Vs) + st * W::STEP_BYTES;
+
+      // S = Q K^T, then dP = dO V^T, two commit groups
+      fence_regs(s);
+      fence_regs(dp);
+      wgmma_fence();
+      issue_ss<T, D, TN>(s, q_addr, 2 * kRows * 128, k_addr, TN * 128);
+      wgmma_commit();
+      issue_ss<T, D, TN>(dp, do_addr, 2 * kRows * 128, v_addr, TN * 128);
+      wgmma_commit();
+      wgmma_wait<2>();  // the previous step's dQ product (none on the item's first)
+      fence_regs(dqa);
+      fence_regs(da);
+      if (u > 0 && tid == 0) mbar_arrive(&empty[prev]);
+      wgmma_wait<1>();
+      fence_regs(s);
+
+      // P = exp2(S scale2 - lse2), then 0 where hi masks (selects; a step
+      // with nothing masked skips them)
+#pragma unroll
+      for (int n = 0; n < TN / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[4 * n + e] = ex2(fmaf(s[4 * n + e], scale2, -lrow[e >> 1]));
+      }
+      if (!whole) {
+#pragma unroll
+        for (int n = 0; n < TN / 8; ++n) {
+          const int q = n / (kRows / 8);
+          const int col = c0[q] + (n % (kRows / 8)) * 8 + 2 * t;
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[4 * n + e] = col + (e & 1) <= hi[q][e >> 1] ? s[4 * n + e] : 0.f;
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(dp);
+#pragma unroll
+      for (int n = 0; n < TN / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dp[4 * n + e] = s[4 * n + e] * (dp[4 * n + e] - drow[e >> 1]);
+      }
+      pack_a<T, TN>(da, dp);
+
+      // dQ += dS K, left running into the next step
+      fence_regs(dqa);
+      fence_regs(da);
+      wgmma_fence();
+      issue_rs<T, D, TN>(dqa, da, k_addr);
+      wgmma_commit();
+      prev = st;
+    }
+    wgmma_wait<0>();
+    fence_regs(dqa);
+    fence_regs(da);
+    if (tid == 0) {
+      if (nsteps > 0) mbar_arrive(&empty[prev]);
+      mbar_arrive(&q_empty[qb]);  // Q and dO's last reads are done
+    }
+    if (owned) store_rows<T, D>(dq, dqa, p.scale, p, w.b, w.h, rw0, lane);
+    ++ki;
+  }
+}
+
 // ---- launches ---------------------------------------------------------------
 
 struct Ptrs {
@@ -647,34 +1207,85 @@ cudaError_t launch_dkv_f32(const Ptrs& a, const BsParams& p, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-// which = 0: dq, 1: dk/dv
+// the map of a [B, H, S] f32 row tensor (lse, delta) as dims (S, H, B, 1),
+// boxes of 64 rows of one (batch, head)
+inline bool make_rows_map(CUtensorMap* map, const float* ptr, const BsParams& p) {
+  const cuuint64_t dims[4] = {(cuuint64_t)p.S, (cuuint64_t)p.H, (cuuint64_t)p.B, 1};
+  const cuuint64_t strides[3] = {(cuuint64_t)p.S * 4, (cuuint64_t)p.H * p.S * 4,
+                                 (cuuint64_t)p.B * p.H * p.S * 4};
+  const cuuint32_t box[4] = {(cuuint32_t)kRows, 1, 1, 1};
+  return hopper::make_map_4d(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, ptr, dims, strides, box,
+                             CU_TENSOR_MAP_SWIZZLE_NONE);
+}
+
+// q, k, v, dO through TMA maps of 64-row boxes; which = 0: dq, 1: dk/dv
 template <typename T, int D>
-cudaError_t by_block(int which, const Ptrs& a, const BsParams& p, cudaStream_t s) {
+cudaError_t launch_wgmma(int which, const Ptrs& a, const BsParams& p, const int* plan,
+                         cudaStream_t s) {
+  constexpr bool half = std::is_same<T, __half>::value;
+  using hopper::make_map;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!make_map(&tq, half, a.q, p.B, p.S, p.H, D, p.q_sb, p.q_ss, p.q_sh, kRows) ||
+      !make_map(&tk, half, a.k, p.B, p.S, p.H, D, p.k_sb, p.k_ss, p.k_sh, kRows) ||
+      !make_map(&tv, half, a.v, p.B, p.S, p.H, D, p.v_sb, p.v_ss, p.v_sh, kRows) ||
+      !make_map(&tdo, half, a.dout, p.B, p.S, p.H, D, p.do_sb, p.do_ss, p.do_sh, kRows))
+    return cudaErrorInvalidValue;
+  const int n_pairs = p.H * ((p.nblk * (p.blk / kRows) + 1) / 2);  // the plan's headers
+  const int n_items = p.B * n_pairs;
+  const unsigned grid = (unsigned)std::min(n_items, hopper::sm_count());
+  using W = WgCfg<T, D>;
+  cudaError_t err;
+  if (which) {
+    CUtensorMap tlse, tdelta;
+    if (!make_rows_map(&tlse, a.lse, p) || !make_rows_map(&tdelta, a.delta, p))
+      return cudaErrorInvalidValue;
+    auto kern = bs_dkv_wgmma<T, D>;
+    if ((err = allow_smem(kern, W::smem(true))) != cudaSuccess) return err;
+    kern<<<grid, W::NT, W::smem(true), s>>>(tq, tk, tv, tdo, tlse, tdelta, plan, n_pairs,
+                                            static_cast<T*>(a.dk), static_cast<T*>(a.dv), p,
+                                            n_items);
+  } else {
+    auto kern = bs_dq_wgmma<T, D>;
+    if ((err = allow_smem(kern, W::smem(false))) != cudaSuccess) return err;
+    kern<<<grid, W::NT, W::smem(false), s>>>(tq, tk, tv, tdo, a.lse, a.delta, plan, n_pairs,
+                                             static_cast<T*>(a.dq), p, n_items);
+  }
+  return cudaGetLastError();
+}
+
+// the kernel a shape takes: blocks of 64 and 128 at bf16/fp16 the TMA +
+// wgmma kernels (a plan required: ceil(units a head / 2) headers a head), blocks of 16 and 32 the mma.sync
+// kernels, fp32 the FMA kernels
+template <typename T, int D>
+cudaError_t by_block(int which, const Ptrs& a, const BsParams& p, const int* plan,
+                     cudaStream_t s) {
   switch (p.blk) {
     case 16: return which ? launch_dkv_mma<T, D, 16>(a, p, s) : launch_dq_mma<T, D, 16>(a, p, s);
     case 32: return which ? launch_dkv_mma<T, D, 32>(a, p, s) : launch_dq_mma<T, D, 32>(a, p, s);
-    default: return which ? launch_dkv_mma<T, D, 64>(a, p, s) : launch_dq_mma<T, D, 64>(a, p, s);
+    default:
+      if (plan == nullptr) return cudaErrorInvalidValue;
+      return launch_wgmma<T, D>(which, a, p, plan, s);
   }
 }
 
 template <int D>
 cudaError_t dispatch_dtype(int which, int dtype, const Ptrs& a, const BsParams& p,
-                           cudaStream_t s) {
+                           const int* plan, cudaStream_t s) {
   switch (dtype) {
     case 0:
       if (p.blk == 16) return which ? launch_dkv_f32<D, 16>(a, p, s) : launch_dq_f32<D, 16>(a, p, s);
       return which ? launch_dkv_f32<D, 32>(a, p, s) : launch_dq_f32<D, 32>(a, p, s);
-    case 1: return by_block<__half, D>(which, a, p, s);
-    case 2: return by_block<__nv_bfloat16, D>(which, a, p, s);
+    case 1: return by_block<__half, D>(which, a, p, plan, s);
+    case 2: return by_block<__nv_bfloat16, D>(which, a, p, plan, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 int run(int which, const Ptrs& a, int B, int S, int H, int D, int blk, int maxl, const int* idx,
-        const int* cnt, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
-        long long k_ss, long long k_sh, long long v_sb, long long v_ss, long long v_sh,
-        long long do_sb, long long do_ss, long long do_sh, int causal, float sm_scale,
-        int dtype, void* stream) {
+        const int* cnt, const int* plan, long long q_sb, long long q_ss, long long q_sh,
+        long long k_sb, long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+        long long v_sh, long long do_sb, long long do_ss, long long do_sh, int causal,
+        float sm_scale, int dtype, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || maxl <= 0) return (int)cudaErrorInvalidValue;
   if ((blk != 16 && blk != 32 && blk != 64 && blk != 128) || S % blk != 0)
     return (int)cudaErrorInvalidValue;
@@ -690,8 +1301,8 @@ int run(int which, const Ptrs& a, int B, int S, int H, int D, int blk, int maxl,
   p.scale = sm_scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64: return (int)dispatch_dtype<64>(which, dtype, a, p, s);
-    case 128: return (int)dispatch_dtype<128>(which, dtype, a, p, s);
+    case 64: return (int)dispatch_dtype<64>(which, dtype, a, p, plan, s);
+    case 128: return (int)dispatch_dtype<128>(which, dtype, a, p, plan, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -700,35 +1311,41 @@ int run(int which, const Ptrs& a, int B, int S, int H, int D, int blk, int maxl,
 
 // dtype codes: 0 float32, 1 float16, 2 bfloat16 (every tensor operand but
 // lse and delta shares it). q/k/v/dO strided as documented in the common
-// header; lse and delta [B, H, S] f32 contiguous; dq, dk, dv [B, S, H, D]
-// contiguous. The lists: kidx [H, S/blk, maxK] / kcnt for dq, qidx [H,
-// S/blk, maxQ] / qcnt for dk/dv, int32. Each returns the CUDA error of its
-// launch (0 on success), cudaErrorInvalidValue for shapes the kernels do
-// not take. Asynchronous on `stream`.
+// header (read through TMA maps on the wgmma route: positive strides under
+// 2^40 bytes); lse and delta [B, H, S] f32 contiguous; dq, dk, dv [B, S, H,
+// D] contiguous. The lists: kidx [H, S/blk, maxK] / kcnt for dq, qidx [H,
+// S/blk, maxQ] / qcnt for dk/dv, int32. plan: the wgmma route's schedule
+// (int32: H * ceil(S / 128) headers (unit, unit or -1, offset, tile count),
+// heaviest first, then the tile entries; see plan_item; null on the other
+// routes). Each returns the CUDA error of its launch (0 on
+// success), cudaErrorInvalidValue for shapes the kernels do not take.
+// Asynchronous on `stream`.
 extern "C" int block_sparse_attention_dq_launch(
     const void* q, const void* k, const void* v, const void* dout, const void* lse,
-    const void* delta, void* dq, const void* kidx, const void* kcnt, int B, int S, int H, int D,
-    int blk, int maxK, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
-    long long k_ss, long long k_sh, long long v_sb, long long v_ss, long long v_sh,
-    long long do_sb, long long do_ss, long long do_sh, int causal, float sm_scale, int dtype,
-    void* stream) {
-  Ptrs a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
-         dq, nullptr, nullptr};
-  return run(0, a, B, S, H, D, blk, maxK, static_cast<const int*>(kidx),
-             static_cast<const int*>(kcnt), q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
-             do_sb, do_ss, do_sh, causal, sm_scale, dtype, stream);
-}
-
-extern "C" int block_sparse_attention_dkv_launch(
-    const void* q, const void* k, const void* v, const void* dout, const void* lse,
-    const void* delta, void* dk, void* dv, const void* qidx, const void* qcnt, int B, int S,
-    int H, int D, int blk, int maxQ, long long q_sb, long long q_ss, long long q_sh,
+    const void* delta, void* dq, const void* kidx, const void* kcnt, const void* plan, int B,
+    int S, int H, int D, int blk, int maxK, long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh, long long v_sb, long long v_ss,
     long long v_sh, long long do_sb, long long do_ss, long long do_sh, int causal,
     float sm_scale, int dtype, void* stream) {
   Ptrs a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
+         dq, nullptr, nullptr};
+  return run(0, a, B, S, H, D, blk, maxK, static_cast<const int*>(kidx),
+             static_cast<const int*>(kcnt), static_cast<const int*>(plan), q_sb, q_ss, q_sh,
+             k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss, do_sh, causal, sm_scale, dtype,
+             stream);
+}
+
+extern "C" int block_sparse_attention_dkv_launch(
+    const void* q, const void* k, const void* v, const void* dout, const void* lse,
+    const void* delta, void* dk, void* dv, const void* qidx, const void* qcnt, const void* plan,
+    int B, int S, int H, int D, int blk, int maxQ, long long q_sb, long long q_ss,
+    long long q_sh, long long k_sb, long long k_ss, long long k_sh, long long v_sb,
+    long long v_ss, long long v_sh, long long do_sb, long long do_ss, long long do_sh,
+    int causal, float sm_scale, int dtype, void* stream) {
+  Ptrs a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
          nullptr, dk, dv};
   return run(1, a, B, S, H, D, blk, maxQ, static_cast<const int*>(qidx),
-             static_cast<const int*>(qcnt), q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
-             do_sb, do_ss, do_sh, causal, sm_scale, dtype, stream);
+             static_cast<const int*>(qcnt), static_cast<const int*>(plan), q_sb, q_ss, q_sh,
+             k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss, do_sh, causal, sm_scale, dtype,
+             stream);
 }

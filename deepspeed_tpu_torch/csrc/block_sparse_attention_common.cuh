@@ -17,7 +17,9 @@
 // (a block of 128 is two tiles), streamed through shared memory. A thread
 // block holds G units so that it has at least 4 warps (blocks of 16 and 32
 // would otherwise make thin blocks of 1-2 warps); the units of a block are
-// independent and synchronise on their own named barriers.
+// independent and synchronise on their own named barriers. (The backward's
+// TMA + wgmma kernels at blocks of 64 and 128 walk a host-built schedule
+// of paired 64-row units instead: block_sparse_attention_bwd.cu.)
 
 #pragma once
 

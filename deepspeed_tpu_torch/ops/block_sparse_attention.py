@@ -12,6 +12,14 @@ visits, ascending), and the transposed ``qidx [H, nK, maxQ]`` / ``qcnt``,
 which the dk/dv kernel walks so that both backward kernels write their
 outputs without atomics.
 
+Which kernel a call takes is a rule on shapes alone (:func:`wgmma_route`):
+the backward at bf16/fp16, D 64 or 128 and blocks of 64 or 128 runs the
+TMA + wgmma kernels, whose items (two 64-row units of one head that share
+tiles) are dealt heaviest first by a schedule built here from the layout
+(:func:`bwd_plan`, cached beside the index lists in :class:`IndexLists`);
+blocks of 16 and 32 keep the mma.sync kernels and fp32 the FMA kernels. No
+call falls back from one to another.
+
 Layout: q/k/v ``[B, S, H, D]`` with any batch / sequence / head strides and
 a contiguous last dim (so GPT-2's q, k and v stay views of the ``[B, S,
 3E]`` projection); lse and delta ``[B, H, S]`` f32 (the TPU's 128-lane
@@ -40,13 +48,14 @@ every layer of every step.
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .flash_attention import DTYPE_CODES, _scale, _strides3, _strides_ok
+from .flash_attention import (DTYPE_CODES, TMA_DTYPES, _check_tma, _scale, _strides3,
+                              _strides_ok, _tma_strides_ok)
 
 # kernel launches by this process, per kernel (the main path's proof that
 # it ran here)
@@ -61,6 +70,10 @@ CACHE_STATS = {"hits": 0, "misses": 0}
 BLOCKS = (16, 32, 64, 128)
 HEAD_DIMS = (64, 128)
 NEG_INF = -1e30
+# the backward's TMA + wgmma route: its blocks, and the rows of a unit and
+# of a streamed tile
+WGMMA_BLOCKS = (64, 128)
+TILE = 64
 
 
 def layout_to_index_lists(layout: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
@@ -85,9 +98,92 @@ def layout_to_index_lists(layout: np.ndarray) -> Tuple[np.ndarray, np.ndarray, n
     return kidx, kcnt, qidx, qcnt
 
 
+def _unit_tiles(layout: np.ndarray, block: int, causal: bool, which: str) -> np.ndarray:
+    """``[H, U, U]`` bool, U = S / 64: the 64-row tiles each 64-row unit of
+    kernel ``which`` walks. A unit is 64 rows of one head, queries for "dq"
+    and keys for "dkv" (unit u holds rows ``64 u .. 64 u + 63``); it walks
+    the tiles of its block's list row (kidx for dq, qidx for dk/dv; a listed
+    block of 128 is two tiles) except, under the causal rule, those wholly
+    masked: for dq the tiles starting past the unit's last query, for dk/dv
+    those ending before its first key (the cuts of ``query_unit_tiles`` and
+    ``key_unit_first_tile`` in ``csrc/block_sparse_attention_common.cuh``)."""
+    if block % TILE or which not in ("dq", "dkv"):
+        raise ValueError(f"bwd_plan: block {block} is not a multiple of {TILE}, or kernel "
+                         f"{which!r} is not 'dq' / 'dkv'")
+    layout = np.asarray(layout, bool)
+    per = block // TILE
+    lay = layout if which == "dq" else layout.transpose(0, 2, 1)  # [H, unit block, tile block]
+    walk = lay.repeat(per, axis=1).repeat(per, axis=2)
+    if causal:
+        u, t = np.indices(walk.shape[1:])
+        walk = walk & ((t <= u) if which == "dq" else (t >= u))[None]
+    return walk
+
+
+def _pair_units(walk: np.ndarray):
+    """One head's units (``[U, U]`` bool, :func:`_unit_tiles`) in pairs:
+    each unit in order of tile count (heaviest first, ties by unit) not yet
+    taken takes the free unit it shares the most tiles with (then the fewest
+    unshared, then the nearest); an odd unit out pairs with none (-1)."""
+    n = walk.shape[0]
+    cnt = walk.sum(1)
+    w = walk.astype(np.int32)
+    shared = w @ w.T
+    free = np.ones(n, bool)
+    pairs = []
+    for u in np.lexsort((np.arange(n), -cnt)):
+        if not free[u]:
+            continue
+        free[u] = False
+        cand = np.nonzero(free)[0]
+        if cand.size == 0:
+            pairs.append((int(u), -1))
+            continue
+        o = shared[u, cand]
+        v = int(cand[np.lexsort((np.abs(cand - u), cnt[u] + cnt[cand] - 2 * o, -o))[0]])
+        free[v] = False
+        pairs.append((int(u), v))
+    return pairs
+
+
+def bwd_plan(layout: np.ndarray, block: int, causal: bool, which: str) -> np.ndarray:
+    """The wgmma route's schedule of kernel ``which`` ("dq" or "dkv") for one
+    batch row → flat int32: ``H * ceil(U / 2)`` headers ``(unit 0, unit 1
+    or -1, offset, tile count)``, then the tile entries.
+
+    An item is two units of one head (numbered ``h * U + u``, U = S / 64,
+    paired by :func:`_pair_units` for the tiles they share), the two
+    consumer warpgroups of the kernel's block one unit each: every tile
+    either walks is loaded once for both. Its entries (from the offset on,
+    after the headers) are the union of the units' tiles
+    (:func:`_unit_tiles`), ascending, each ``first row * 4 + (bit c: unit c
+    walks it)``. Headers are sorted by tile count, heaviest first, ties by
+    unit 0. The kernel runs each header once per batch row, the B items of
+    a header one after another, and deals the items to its persistent
+    blocks in that order."""
+    walk = _unit_tiles(layout, block, causal, which)
+    H, U, _ = walk.shape
+    heads, runs = [], []
+    for h in range(H):
+        for a, b in _pair_units(walk[h]):
+            either = walk[h, a] | (walk[h, b] if b >= 0 else False)
+            tiles = np.nonzero(either)[0]
+            bits = walk[h, a, tiles] + (2 * walk[h, b, tiles] if b >= 0 else 0)
+            heads.append((h * U + a, h * U + b if b >= 0 else -1, len(tiles)))
+            runs.append(tiles * TILE * 4 + bits)
+    order = sorted(range(len(heads)), key=lambda i: (-heads[i][2], heads[i][0]))
+    header = np.zeros((len(heads), 4), np.int32)
+    offset = 0
+    for r, i in enumerate(order):
+        header[r] = (heads[i][0], heads[i][1], offset, heads[i][2])
+        offset += heads[i][2]
+    return np.concatenate([header.ravel()] + [runs[i] for i in order]).astype(np.int32)
+
+
 @dataclass(frozen=True, eq=False)
 class IndexLists:
-    """A layout and its index lists on one device."""
+    """A layout and its index lists on one device, and the backward's
+    schedules (:func:`bwd_plan`), built at first use and kept."""
 
     layout: np.ndarray  # [H, nQ, nK] bool, on the host
     block: int
@@ -95,6 +191,19 @@ class IndexLists:
     kcnt: torch.Tensor  # [H, nQ] int32
     qidx: torch.Tensor  # [H, nK, maxQ] int32
     qcnt: torch.Tensor  # [H, nK] int32
+    plans: Dict[tuple, torch.Tensor] = field(default_factory=dict, repr=False)
+
+    def bwd_plan(self, which: str, causal: bool) -> torch.Tensor:
+        """The schedule of kernel ``which`` ("dq" or "dkv") under ``causal``
+        as an int32 tensor on the lists' device: the same tensor on every
+        call."""
+        key = (which, bool(causal))
+        plan = self.plans.get(key)
+        if plan is None:
+            plan = torch.from_numpy(bwd_plan(self.layout, self.block, causal, which))
+            plan = plan.to(self.kidx.device)
+            self.plans[key] = plan
+        return plan
 
     def dense_mask(self, device) -> torch.Tensor:
         """``[H, S, S]`` bool: the layout's element mask (what the plain
@@ -272,6 +381,25 @@ def _check(name, q, lists: IndexLists, tensors):
             )
 
 
+def wgmma_route(q, block: int) -> bool:
+    """The backward kernels' rule on shapes alone: q in bf16/fp16 with head
+    dim 64 or 128 and a sparsity block of 64 or 128 takes the TMA + wgmma
+    kernels (q, k, v and dO read through TMA tensor maps, which need
+    positive batch, sequence and head strides under 2^40 bytes); blocks of
+    16 and 32 take the mma.sync kernels (a wgmma M of 64 would span 4 or 2
+    blocks of unrelated lists), fp32 the FMA kernels."""
+    return q.dtype in TMA_DTYPES and q.shape[-1] in HEAD_DIMS and block in WGMMA_BLOCKS
+
+
+def _plan_ptr(name, which, q, k, v, do, lists: IndexLists, causal) -> int:
+    """The schedule's pointer on the wgmma route (after the TMA maps' stride
+    check), 0 on the others."""
+    if not wgmma_route(q, lists.block):
+        return 0
+    _check_tma(name, {"q": q, "k": k, "v": v, "do": do})
+    return lists.bwd_plan(which, causal).data_ptr()
+
+
 def _check_rows(name, q, **rows):
     B, S, H, _ = q.shape
     for what, t in rows.items():
@@ -315,7 +443,11 @@ def block_sparse_attention_fwd(q, k, v, lists: IndexLists, causal: bool = False,
 
 def block_sparse_attention_dq(q, k, v, do, lse, delta, lists: IndexLists, causal: bool = False,
                               sm_scale: Optional[float] = None):
-    """Launch the dq kernel → dq ``[B, S, H, D]`` contiguous in q's dtype."""
+    """Launch the dq kernel → dq ``[B, S, H, D]`` contiguous in q's dtype.
+    The kernel is the one :func:`wgmma_route` names for the shape; on the
+    wgmma route it walks the cached schedule ``lists.bwd_plan("dq",
+    causal)``. Raises on what the kernels do not take (as the forward, and
+    on the wgmma route strides a TMA map cannot take)."""
     name = "block_sparse_attention_dq"
     _check(name, q, lists, {"q": q, "k": k, "v": v, "do": do})
     _check_rows(name, q, lse=lse, delta=delta)
@@ -323,12 +455,13 @@ def block_sparse_attention_dq(q, k, v, do, lse, delta, lists: IndexLists, causal
     dq = torch.empty(B, S, H, D, dtype=q.dtype, device=q.device)
     if B == 0:
         return dq
+    plan = _plan_ptr(name, "dq", q, k, v, do, lists, causal)
     from .op_builder import load
 
     lib = load("block_sparse_attention_bwd")
     err = lib.block_sparse_attention_dq_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), lists.kidx.data_ptr(), lists.kcnt.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), lists.kidx.data_ptr(), lists.kcnt.data_ptr(), plan,
         B, S, H, D, lists.block, lists.kidx.shape[2],
         *_strides3(q), *_strides3(k), *_strides3(v), *_strides3(do),
         int(bool(causal)), ctypes.c_float(_scale(D, sm_scale)), DTYPE_CODES[q.dtype], _stream(q),
@@ -341,7 +474,8 @@ def block_sparse_attention_dq(q, k, v, do, lse, delta, lists: IndexLists, causal
 
 def block_sparse_attention_dkv(q, k, v, do, lse, delta, lists: IndexLists,
                                causal: bool = False, sm_scale: Optional[float] = None):
-    """Launch the dk/dv kernel → (dk, dv) ``[B, S, H, D]`` contiguous."""
+    """Launch the dk/dv kernel → (dk, dv) ``[B, S, H, D]`` contiguous; the
+    route and its schedule (``lists.bwd_plan("dkv", causal)``) as dq's."""
     name = "block_sparse_attention_dkv"
     _check(name, q, lists, {"q": q, "k": k, "v": v, "do": do})
     _check_rows(name, q, lse=lse, delta=delta)
@@ -350,13 +484,14 @@ def block_sparse_attention_dkv(q, k, v, do, lse, delta, lists: IndexLists,
     dv = torch.empty(B, S, H, D, dtype=q.dtype, device=q.device)
     if B == 0:
         return dk, dv
+    plan = _plan_ptr(name, "dkv", q, k, v, do, lists, causal)
     from .op_builder import load
 
     lib = load("block_sparse_attention_bwd")
     err = lib.block_sparse_attention_dkv_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), lists.qidx.data_ptr(),
-        lists.qcnt.data_ptr(), B, S, H, D, lists.block, lists.qidx.shape[2],
+        lists.qcnt.data_ptr(), plan, B, S, H, D, lists.block, lists.qidx.shape[2],
         *_strides3(q), *_strides3(k), *_strides3(v), *_strides3(do),
         int(bool(causal)), ctypes.c_float(_scale(D, sm_scale)), DTYPE_CODES[q.dtype], _stream(q),
     )
@@ -412,8 +547,11 @@ class BlockSparseAttention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         bwd = _on(q.device, block_sparse_attention_bwd, block_sparse_attention_bwd_ref,
                   "backward")
-        if do.device.type == "cuda" and not _strides_ok(do):
-            do = do.contiguous()  # the layout the kernels read, not another route
+        if do.device.type == "cuda":
+            # the layouts the kernels read (16-byte strides; TMA maps on the
+            # wgmma route), not another route
+            q, k, v, do = (x if _strides_ok(x) and _tma_strides_ok(x) else x.contiguous()
+                           for x in (q, k, v, do))
         dq, dk, dv = bwd(q, k, v, o, lse, do, *ctx.opts)
         return dq, dk, dv, None, None, None
 

@@ -177,15 +177,20 @@ def _check_shapes(name, q, k, v):
         raise ValueError(f"{name}: head dim {D} not in {HEAD_DIMS}")
 
 
+def _tma_strides_ok(t) -> bool:
+    """The batch, sequence and head strides a TMA tensor map takes: positive
+    and under 2^40 bytes."""
+    return all(0 < st and st * t.element_size() < 1 << 40 for st in t.stride()[:3])
+
+
 def _check_tma(name, tensors):
     """At bf16/fp16 and D 64/128 both kernels read their operands through
-    TMA tensor maps, which need positive batch, sequence and head strides
-    under 2^40 bytes."""
+    TMA tensor maps (:func:`_tma_strides_ok`)."""
     q = tensors["q"]
     if q.dtype not in TMA_DTYPES or q.shape[-1] not in TMA_HEAD_DIMS:
         return
     for what, t in tensors.items():
-        if any(st <= 0 or st * t.element_size() >= 1 << 40 for st in t.stride()[:3]):
+        if not _tma_strides_ok(t):
             raise ValueError(
                 f"{name}: {what} strides {t.stride()} cannot make a TMA tensor map: "
                 "the batch, sequence and head strides must be positive and under 2^40 bytes"

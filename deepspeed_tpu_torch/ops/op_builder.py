@@ -65,14 +65,15 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "block_sparse_attention_bwd": {
         "block_sparse_attention_dq_launch": (
-            [_P] * 9                           # q, k, v, do, lse, delta, dq, kidx, kcnt
+            [_P] * 10                          # q, k, v, do, lse, delta, dq, kidx, kcnt, plan
             + [_I] * 6                         # B, S, H, D, block, maxK
             + [_L] * 12                        # q, k, v, do strides (batch, seq, head)
             + [_I, _F, _I, _P],                # causal, sm_scale, dtype, stream
             ctypes.c_int,
         ),
         "block_sparse_attention_dkv_launch": (
-            [_P] * 10                          # q, k, v, do, lse, delta, dk, dv, qidx, qcnt
+            [_P] * 11                          # q, k, v, do, lse, delta, dk, dv, qidx, qcnt,
+                                               # plan
             + [_I] * 6                         # B, S, H, D, block, maxQ
             + [_L] * 12                        # q, k, v, do strides (batch, seq, head)
             + [_I, _F, _I, _P],                # causal, sm_scale, dtype, stream

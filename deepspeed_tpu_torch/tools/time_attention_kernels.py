@@ -1,26 +1,31 @@
 """Device time of the port's attention kernels at the shapes of its paths,
 for comparing two trees of this package on one card: the contiguous decode
 kernel (offline ``generate``), the paged decode kernel in both modes
-(serving's decode and verify), and the flash-attention forward and
-backward (GPT-2 and BERT training).
+(serving's decode and verify), the flash-attention forward and backward
+(GPT-2 and BERT training), and the block-sparse forward, dq and dk/dv at
+``chip_smoke.py`` phase 10's two main shapes (GPT-2 sparse and BERT
+sparse training) and two more.
 
 Usage, on a machine with one CUDA card:
 
     PYTHONPATH=<tree> python <this tree>/deepspeed_tpu_torch/tools/time_attention_kernels.py
-        [--label NAME] [--library] [--only decode,paged,flash_fwd,flash_bwd]
+        [--label NAME] [--library]
+        [--only decode,paged,flash_fwd,flash_bwd,bsparse_fwd,bsparse_dq,bsparse_dkv]
 
 Run as a file (not with ``-m``), so that ``deepspeed_tpu_torch`` is imported
 from ``<tree>``: an unpacked older commit times that commit's kernels through
 the same public wrappers (``ops.decode_attention.decode_attention``,
 ``ops.paged_decode_attention.paged_decode_attention``,
-``ops.flash_attention.flash_attention_fwd`` / ``flash_attention_bwd``),
-which build its own sources into its own ``_build/``. Alternate the trees
+``ops.flash_attention.flash_attention_fwd`` / ``flash_attention_bwd``,
+``ops.block_sparse_attention.block_sparse_attention_fwd`` / ``_dq`` /
+``_dkv`` over ``index_lists``), which build its own sources into its own ``_build/``. Alternate the trees
 within one call (older, newer, newer, older): calls and cards differ by
 several percent. Prints one JSON line: ms per call (device time, CUDA
 events, the host's enqueueing hidden behind a device-side sleep) for each
 case, ``--library`` adds one PyTorch call on the same inputs (SDPA; for the
-paged kernels a page gather and SDPA; for the backward SDPA's
-forward+backward minus its forward). Inputs come from a seeded generator on
+paged kernels a page gather and SDPA; for the block-sparse kernels SDPA
+with the layout's dense boolean mask; for a backward SDPA's
+forward+backward for the same grads minus its forward). Inputs come from a seeded generator on
 the card. The time function is the one ``chip_smoke.py`` uses.
 """
 
@@ -216,6 +221,63 @@ def time_flash_bwd(case, library):
     return out
 
 
+# (label, B, S, H, D, sparse_attention section, causal): chip_smoke.py
+# phase 10's main shapes, GPT-2's section (phase 11) and BERT's default
+# Fixed layout (phase 12), then two shapes off those paths that the
+# backward's wgmma route also takes (D128 with blocks of 128; per-head
+# random layouts)
+BSPARSE_CASES = [
+    ("GPT-2 bf16 B2 S4096 H16 D64 fixed-uni blk64", 2, 4096, 16, 64,
+     {"mode": "fixed", "block": 64, "num_local_blocks": 4, "num_global_blocks": 1,
+      "attention": "unidirectional"}, True),
+    ("BERT bf16 B16 S512 H16 D64 fixed-bi blk16", 16, 512, 16, 64, {"mode": "fixed"}, False),
+    ("bf16 B2 S2048 H16 D128 bslongformer-uni blk128", 2, 2048, 16, 128,
+     {"mode": "bslongformer", "block": 128, "attention": "unidirectional"}, True),
+    ("bf16 B4 S2048 H16 D64 bigbird-bi blk64", 4, 2048, 16, 64,
+     {"mode": "bigbird", "block": 64, "different_layout_per_head": True,
+      "num_random_blocks": 2}, False),
+]
+
+
+def time_bsparse(case, library, which):
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+    from deepspeed_tpu_torch.ops.sparse_attention import from_ds_config
+
+    label, B, S, H, D, section, causal = case
+    lists = bsa.index_lists(from_ds_config(section, H), S, "cuda")
+    g = torch.Generator(device="cuda").manual_seed(40)
+    qkv = torch.randn(B, S, 3 * H * D, generator=g, device="cuda").to(torch.bfloat16)
+    q, k, v = (t.unflatten(-1, (H, D)) for t in qkv.split(H * D, dim=-1))
+    do = (torch.randn(B, S, H, D, generator=g, device="cuda") * 0.1).to(torch.bfloat16)
+    o, lse = bsa.block_sparse_attention_fwd(q, k, v, lists, causal)
+    delta = bsa.block_sparse_delta(o, do)
+    fn = {"fwd": lambda i: bsa.block_sparse_attention_fwd(q, k, v, lists, causal),
+          "dq": lambda i: bsa.block_sparse_attention_dq(q, k, v, do, lse, delta, lists, causal),
+          "dkv": lambda i: bsa.block_sparse_attention_dkv(q, k, v, do, lse, delta, lists,
+                                                          causal)}[which]
+    name = f"bsparse {which} {label}"
+    out = {name: time_ms(fn, 40)[0]}
+    if library:
+        keep = lists.dense_mask("cuda")
+        if causal:
+            keep = keep & torch.ones(S, S, dtype=torch.bool, device="cuda").tril()
+        leaves = [x.detach().transpose(1, 2).requires_grad_(True) for x in (q, k, v)]
+        fwd = time_ms(lambda i: F.scaled_dot_product_attention(*leaves, attn_mask=keep[None]),
+                      20)[0]
+        if which == "fwd":
+            out[name + " library"] = fwd
+        else:
+            wrt = leaves[:1] if which == "dq" else leaves[1:]
+            dot = do.transpose(1, 2)
+
+            def fb(_):
+                o_l = F.scaled_dot_product_attention(*leaves, attn_mask=keep[None])
+                return torch.autograd.grad(o_l, wrt, dot)
+
+            out[name + " library"] = time_ms(fb, 10)[0] - fwd
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--label", default="tree")
@@ -233,7 +295,10 @@ def main(argv=None) -> int:
     for name, cases, fn in (("decode", DECODE_CASES, time_decode),
                             ("paged", PAGED_CASES, time_paged),
                             ("flash_fwd", FLASH_CASES, time_flash),
-                            ("flash_bwd", FLASH_BWD_CASES, time_flash_bwd)):
+                            ("flash_bwd", FLASH_BWD_CASES, time_flash_bwd),
+                            *((f"bsparse_{w}", BSPARSE_CASES,
+                               lambda case, lib, w=w: time_bsparse(case, lib, w))
+                              for w in ("fwd", "dq", "dkv"))):
         if name not in only:
             continue
         for case in cases:

@@ -1,0 +1,284 @@
+"""The block-sparse backward's schedule and walk (the TMA + wgmma route of
+``csrc/block_sparse_attention_bwd.cu``), on the CPU.
+
+- The host plan (``ops.block_sparse_attention.bwd_plan``): every 64-row
+  unit of every head in exactly one item, the two units of an item in one
+  head, headers heaviest first with ties by unit; each unit's tiles (the
+  entries carrying its bit) are the 64-row tiles that hold at least one
+  pair the layout and the causal rule keep, so the kept pairs they hold sum
+  to ``chip_smoke.bs_pairs``'s count; the entries ascend and each is walked
+  by at least one unit of its item. At the GPT-2 layout (phase 11's
+  section at S4096), BERT's Fixed bidirectional layout at the route's
+  blocks (64 and 128), and a custom layout whose first query block lists
+  only the block above the diagonal (an empty dq row under the causal rule).
+- The plan cached in ``IndexLists`` (the same tensor on a second call).
+- A plain PyTorch model of the kernels' walk (:func:`_walk`: the plan's
+  items in order, each unit's tiles 64 rows
+  at a time with the unit's bit and the causal rule as the mask, steps of
+  two tiles at D64 as the kernels take them) against
+  ``block_sparse_attention_{dq,dkv}_ref`` in fp32 (1e-5: sums in another
+  order), and against the JAX package's ``_bwd`` in Pallas interpret mode
+  at block 64, S 512, 2 heads (5e-4, the tolerance of
+  ``tests/test_torch_block_sparse_attention.py``).
+
+The kernels themselves run only on the card (``test_torch_cuda_kernels.py``)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from deepspeed_tpu.ops.pallas import block_sparse_attention as jbsa
+from deepspeed_tpu_torch.ops import block_sparse_attention as tbsa
+from deepspeed_tpu_torch.ops.sparse_attention import from_ds_config
+from deepspeed_tpu_torch.ops.sparse_attention import sparsity_config as tsc
+from deepspeed_tpu_torch.tools.profile_training import GPT2_SPARSE_SECTION
+
+TILE = 64
+WALK_TOL, GRAD_TOL = 1e-5, 5e-4
+
+
+def _custom(H, S, blk):
+    """Causal-lower layout whose first query block lists only block 1."""
+    nb = S // blk
+    layout = np.tril(np.ones((H, nb, nb), bool))
+    layout[:, 0, 0] = False
+    layout[:, 0, 1] = True
+    return layout
+
+
+# label -> (layout, block, causal)
+LAYOUTS = {
+    "gpt2": lambda: (from_ds_config(GPT2_SPARSE_SECTION, 16).make_layout(4096), 64, True),
+    "bert blk64": lambda: (from_ds_config({"mode": "fixed", "block": 64}, 16).make_layout(512),
+                           64, False),
+    "bert blk128": lambda: (from_ds_config({"mode": "fixed", "block": 128}, 4).make_layout(1024),
+                            128, False),
+    "custom blk64": lambda: (_custom(2, 512, 64), 64, True),
+    "bslongformer blk128 causal": lambda: (
+        tsc.BSLongformerSparsityConfig(num_heads=2, block=128,
+                                       attention="unidirectional").make_layout(1024), 128, True),
+}
+
+
+def _items(plan, H, U):
+    """The plan's items in order → [(u0, u1, entries int64 array)]."""
+    n_pairs = H * ((U + 1) // 2)
+    head = plan[: 4 * n_pairs].reshape(n_pairs, 4)
+    body = plan[4 * n_pairs:]
+    return [(int(a), int(b), body[off: off + n].astype(np.int64)) for a, b, off, n in head]
+
+
+def _cells(layout, block, causal, which):
+    """``[H, U, U]``: the pairs the layout and the causal rule keep in each
+    (unit, tile) cell, rows of the kernel's units (queries for dq, keys for
+    dk/dv) against rows of its tiles, counted element by element."""
+    H = layout.shape[0]
+    S = layout.shape[1] * block
+    U = S // TILE
+    out = np.zeros((H, U, U), np.int64)
+    for h in range(H):
+        keep = layout[h].repeat(block, 0).repeat(block, 1)  # [query, key]
+        if causal:
+            keep = keep & np.tril(np.ones((S, S), bool))
+        if which == "dkv":
+            keep = keep.T
+        out[h] = keep.reshape(U, TILE, U, TILE).sum(axis=(1, 3))
+    return out
+
+
+@pytest.mark.parametrize("which", ["dq", "dkv"])
+@pytest.mark.parametrize("name", list(LAYOUTS))
+def test_plan_covers_every_unit_once_heaviest_first(name, which):
+    layout, block, causal = LAYOUTS[name]()
+    H, nb, _ = layout.shape
+    U = nb * block // TILE
+    items = _items(tbsa.bwd_plan(layout, block, causal, which), H, U)
+    units = [u for a, b, _ in items for u in (a, b) if u >= 0]
+    assert sorted(units) == list(range(H * U))  # every unit exactly once
+    for a, b, _ in items:
+        assert b == -1 or a // U == b // U  # one head an item
+    counts = [(len(e), a) for a, _, e in items]
+    assert counts == sorted(counts, key=lambda c: (-c[0], c[1]))  # heaviest first, ties by unit
+    assert sum(b == -1 for _, b, _ in items) == H * (U % 2)
+
+
+@pytest.mark.parametrize("which", ["dq", "dkv"])
+@pytest.mark.parametrize("name", list(LAYOUTS))
+def test_plan_tiles_hold_exactly_the_kept_pairs(name, which):
+    layout, block, causal = LAYOUTS[name]()
+    H, nb, _ = layout.shape
+    S, U = nb * block, nb * block // TILE
+    cell = _cells(layout, block, causal, which)
+    items = _items(tbsa.bwd_plan(layout, block, causal, which), H, U)
+    total = 0
+    for a, b, entries in items:
+        rows, bits = entries >> 2, entries & 3
+        assert np.all(np.diff(rows) > 0) and np.all(rows % TILE == 0) and np.all(rows < S)
+        assert np.all(bits > 0)  # every entry is walked by a unit of the item
+        for c, u in enumerate((a, b)):
+            if u < 0:
+                assert not np.any(bits & 2)
+                continue
+            h, uu = divmod(u, U)
+            mine = rows[(bits >> c) & 1 == 1] // TILE
+            np.testing.assert_array_equal(mine, np.nonzero(cell[h, uu])[0])
+            total += int(cell[h, uu, mine].sum())
+    lists = tbsa.lists_from_layout(layout, block, "cpu")
+    assert total == chip_smoke.bs_pairs(lists, causal)
+
+
+def test_custom_layout_has_an_empty_dq_unit():
+    layout, block, causal = LAYOUTS["custom blk64"]()
+    H, U = layout.shape[0], layout.shape[1] * block // TILE
+    items = _items(tbsa.bwd_plan(layout, block, causal, "dq"), H, U)
+    walked = {u: int(np.sum((e >> c) & 1)) for a, b, e in items
+              for c, u in enumerate((a, b)) if u >= 0}
+    assert walked[0] == 0 and walked[U] == 0  # unit 0 of each head sees nothing
+    assert all(n > 0 for u, n in walked.items() if u % U)
+
+
+def test_plan_is_cached_in_the_index_lists():
+    cfg = from_ds_config(GPT2_SPARSE_SECTION, 4)
+    lists = tbsa.index_lists(cfg, 1024, "cpu")
+    for which in ("dq", "dkv"):
+        plan = lists.bwd_plan(which, True)
+        assert plan.dtype == torch.int32 and plan.device == lists.kidx.device
+        assert lists.bwd_plan(which, True) is plan  # built once, the same tensor after
+        np.testing.assert_array_equal(plan.numpy(),
+                                      tbsa.bwd_plan(lists.layout, 64, True, which))
+    assert lists.bwd_plan("dq", False) is not lists.bwd_plan("dq", True)
+    assert tbsa.index_lists(cfg, 1024, "cpu").bwd_plan("dq", True) is lists.bwd_plan("dq", True)
+
+
+def test_plan_refuses_blocks_the_route_does_not_take():
+    layout = np.ones((1, 8, 8), bool)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        tbsa.bwd_plan(layout, 16, True, "dq")
+
+
+def test_wgmma_route_rule():
+    q = torch.zeros(1, 256, 2, 64, dtype=torch.bfloat16)
+    assert tbsa.wgmma_route(q, 64) and tbsa.wgmma_route(q.half(), 128)
+    assert not tbsa.wgmma_route(q, 16) and not tbsa.wgmma_route(q, 32)
+    assert not tbsa.wgmma_route(q.float(), 64)
+
+
+# ---------------------------------------------------------------------------
+# a plain model of the kernels' walk
+# ---------------------------------------------------------------------------
+
+def _walk(q, k, v, do, lse, delta, lists, causal, sm_scale, which, step_tiles):
+    """The kernels' walk in plain PyTorch: the plan's items in order, each
+    item's entries ``step_tiles`` at a time (two at D64, one at D128), each
+    unit of the item taking the tiles its bit marks, masked by the causal
+    rule inside them, its sums over the item's steps in the kernels' order
+    and one store (dq and dk scaled once). → dq, or (dk, dv), in q's dtype."""
+    B, S, H, D = q.shape
+    U = S // TILE
+    plan = lists.bwd_plan(which, causal).cpu().numpy()
+    dt = q.dtype
+    out = [torch.zeros(B, S, H, D) for _ in range(1 if which == "dq" else 2)]
+    for a, b, entries in _items(plan, H, U):
+        for bb in range(B):
+            for c, u in enumerate((a, b)):
+                if u < 0:
+                    continue
+                h, uu = divmod(u, U)
+                r0 = uu * TILE
+                mine = torch.arange(r0, r0 + TILE)
+                accs = [torch.zeros(TILE, D) for _ in out]
+                for j in range(0, len(entries), step_tiles):
+                    for e in entries[j: j + step_tiles]:
+                        if not (e >> c) & 1:
+                            continue  # the kernels' select to 0
+                        t = torch.arange(e >> 2, (e >> 2) + TILE)
+                        if which == "dq":
+                            rows, cols = mine, t
+                        else:
+                            rows, cols = t, mine
+                        keep = torch.ones(TILE, TILE, dtype=torch.bool) if not causal else \
+                            cols[None, :] <= rows[:, None]  # [query, key]
+                        qr, kr = q[bb, rows, h].float(), k[bb, cols, h].float()
+                        s = qr @ kr.T * sm_scale
+                        p = torch.exp(s - lse[bb, h, rows, None]).masked_fill(~keep, 0.0)
+                        dp = do[bb, rows, h].float() @ v[bb, cols, h].float().T
+                        ds = (p * (dp - delta[bb, h, rows, None])).to(dt).float()
+                        if which == "dq":
+                            accs[0] += ds @ kr
+                        else:
+                            accs[0] += ds.T @ qr
+                            accs[1] += p.to(dt).float().T @ do[bb, rows, h].float()
+                out[0][bb, mine, h] = accs[0] * sm_scale
+                if which == "dkv":
+                    out[1][bb, mine, h] = accs[1]
+    return out[0].to(dt) if which == "dq" else (out[0].to(dt), out[1].to(dt))
+
+
+def _qkv(B, S, H, D, seed):
+    rs = np.random.RandomState(seed)
+    q, k, v, do = (rs.randn(B, S, H, D).astype(np.float32) for _ in range(4))
+    return q, k, v, do * np.float32(0.1)
+
+
+WALK_CASES = {  # label -> (layout maker, block, causal)
+    "gpt2-like fixed blk64 causal": (
+        lambda H, S: from_ds_config(dict(GPT2_SPARSE_SECTION), H).make_layout(S), 64, True),
+    "fixed blk64 bidirectional": (
+        lambda H, S: from_ds_config({"mode": "fixed", "block": 64, "num_local_blocks": 2}, H)
+        .make_layout(S), 64, False),
+    "bigbird per head blk64 causal": (
+        lambda H, S: tsc.BigBirdSparsityConfig(num_heads=H, block=64,
+                                               different_layout_per_head=True,
+                                               num_random_blocks=2,
+                                               attention="unidirectional").make_layout(S),
+        64, True),
+    "custom empty row blk64 causal": (lambda H, S: _custom(H, S, 64), 64, True),
+    "bslongformer blk128 causal": (
+        lambda H, S: tsc.BSLongformerSparsityConfig(num_heads=H, block=128,
+                                                    attention="unidirectional").make_layout(S),
+        128, True),
+}
+
+
+@pytest.mark.parametrize("step_tiles", [2, 1])
+@pytest.mark.parametrize("label", list(WALK_CASES))
+def test_walk_matches_plain_versions(label, step_tiles):
+    make, block, causal = WALK_CASES[label]
+    B, S, H, D = 2, 512, 2, 32
+    lists = tbsa.lists_from_layout(make(H, S), block, "cpu")
+    q, k, v, do = (torch.from_numpy(x) for x in _qkv(B, S, H, D, seed=block + causal))
+    scale = 1.0 / np.sqrt(D)
+    o, lse = tbsa.block_sparse_attention_fwd_ref(q, k, v, lists, causal)
+    delta = tbsa.block_sparse_delta(o, do)
+    dq = _walk(q, k, v, do, lse, delta, lists, causal, scale, "dq", step_tiles)
+    dk, dv = _walk(q, k, v, do, lse, delta, lists, causal, scale, "dkv", step_tiles)
+    dq_r = tbsa.block_sparse_attention_dq_ref(q, k, v, do, lse, delta, lists, causal)
+    dk_r, dv_r = tbsa.block_sparse_attention_dkv_ref(q, k, v, do, lse, delta, lists, causal)
+    for got, ref in ((dq, dq_r), (dk, dk_r), (dv, dv_r)):
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=WALK_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("label", ["gpt2-like fixed blk64 causal", "fixed blk64 bidirectional",
+                                   "custom empty row blk64 causal"])
+def test_walk_matches_pallas_interpret(label):
+    make, block, causal = WALK_CASES[label]
+    B, S, H, D = 1, 512, 2, 32
+    layout = make(H, S)
+    q, k, v, do = _qkv(B, S, H, D, seed=11)
+    scale = 1.0 / np.sqrt(D)
+    to4 = lambda x: jnp.asarray(x).transpose(0, 2, 1, 3)  # noqa: E731
+    kidx, kcnt, qidx, qcnt = map(jnp.asarray, jbsa.layout_to_index_lists(layout))
+    o_j, lse_j = jbsa._fwd(to4(q), to4(k), to4(v), kidx, kcnt, scale, causal, block, True)
+    grads_j = jbsa._bwd(to4(q), to4(k), to4(v), o_j, lse_j, to4(do), kidx, kcnt, qidx, qcnt,
+                        scale, causal, block, True)
+    lists = tbsa.lists_from_layout(layout, block, "cpu")
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    o, lse = tbsa.block_sparse_attention_fwd_ref(tq, tk, tv, lists, causal)
+    delta = tbsa.block_sparse_delta(o, tdo)
+    dq = _walk(tq, tk, tv, tdo, lse, delta, lists, causal, scale, "dq", 2)
+    dk, dv = _walk(tq, tk, tv, tdo, lse, delta, lists, causal, scale, "dkv", 2)
+    back = lambda x: np.asarray(x).transpose(0, 2, 1, 3)  # noqa: E731
+    for got, ref in zip((dq, dk, dv), grads_j):
+        np.testing.assert_allclose(got.numpy(), back(ref), atol=GRAD_TOL, rtol=0)

@@ -544,6 +544,92 @@ def test_block_sparse_kernels_refuse_what_they_do_not_take(card):
         sparse_attention(q, q, q, FixedSparsityConfig(num_heads=2), impl="jnp")
 
 
+# the backward's TMA + wgmma route (bf16/fp16, D 64/128, blocks 64/128)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("kind,B,S,H,D,blk,causal", [
+    ("fixed", 2, 1024, 4, 64, 64, False),
+    ("fixed", 2, 1024, 4, 128, 64, True),
+    ("bslongformer", 1, 2048, 4, 64, 128, True),
+    ("bigbird", 2, 1024, 4, 64, 64, True),
+    ("fixed", 2, 320, 2, 64, 64, True),  # an odd number of 64-row units a head
+])
+def test_block_sparse_wgmma_backward_matches_plain_versions(card, dtype, kind, B, S, H, D, blk,
+                                                            causal):
+    assert bsa.wgmma_route(torch.zeros(1, 1, 1, D, dtype=dtype), blk)
+    q, k, v, do = _flash_inputs(card, B, S, H, H, D, dtype, seed=blk + D + S)
+    _bs_check(q, k, v, do, bsa.index_lists(_bs_config(kind, H, blk, causal), S, card), causal)
+
+
+def _gpt2_lists(card, H, S):
+    from deepspeed_tpu_torch.ops.sparse_attention import from_ds_config
+    from deepspeed_tpu_torch.tools.profile_training import GPT2_SPARSE_SECTION
+
+    return bsa.index_lists(from_ds_config(GPT2_SPARSE_SECTION, H), S, card)
+
+
+def test_block_sparse_gpt2_main_shape_repeats_bit_for_bit(card):
+    """Phase 10's GPT-2 shape (B2 S4096 H16 D64 bf16, q/k/v strided views of
+    one projection): a key block listed by 61 query blocks, the kernels
+    against their plain versions, and dq, dk, dv equal bit for bit over two
+    calls; the schedules are built once and kept."""
+    B, S, H, D = 2, 4096, 16, 64
+    q, k, v = _qkv_views(card, B, S, H, H, D, torch.bfloat16, seed=21)
+    do = (torch.randn(B, S, H, D, generator=torch.Generator(device=card).manual_seed(22),
+                      device=card) * 0.1).to(torch.bfloat16)
+    assert q.stride(1) == 3 * H * D
+    lists = _gpt2_lists(card, H, S)
+    assert int(lists.qcnt.max()) >= 60
+    _bs_check(q, k, v, do, lists, True)
+    plans = (lists.bwd_plan("dq", True), lists.bwd_plan("dkv", True))
+    o, lse = bsa.block_sparse_attention_fwd(q, k, v, lists, True)
+    delta = bsa.block_sparse_delta(o, do)
+    first = (bsa.block_sparse_attention_dq(q, k, v, do, lse, delta, lists, True),
+             *bsa.block_sparse_attention_dkv(q, k, v, do, lse, delta, lists, True))
+    again = (bsa.block_sparse_attention_dq(q, k, v, do, lse, delta, lists, True),
+             *bsa.block_sparse_attention_dkv(q, k, v, do, lse, delta, lists, True))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    assert lists.bwd_plan("dq", True) is plans[0] and lists.bwd_plan("dkv", True) is plans[1]
+
+
+def test_block_sparse_wgmma_fully_masked_row_gives_zeros(card):
+    """The custom layout at block 64: the first query block sees nothing
+    under the causal rule; its o and dq rows are exactly 0."""
+    B, S, H, D, blk = 1, 512, 2, 64, 64
+    nb = S // blk
+    layout = np.tril(np.ones((H, nb, nb), bool))
+    layout[:, 0, 0] = False
+    layout[:, 0, 1] = True
+    q, k, v, do = _flash_inputs(card, B, S, H, H, D, torch.bfloat16, seed=6)
+    o, (dq, _, _) = _bs_check(q, k, v, do, bsa.lists_from_layout(layout, blk, card), True)
+    assert float(o[:, :blk].abs().max()) == 0.0 and float(dq[:, :blk].abs().max()) == 0.0
+
+
+def test_block_sparse_wgmma_refuses_strides_a_tma_map_cannot_take(card):
+    """A batch stride of 0 (an expanded tensor): the wgmma route's TMA maps
+    refuse it, the mma.sync route (block 16) reads it; autograd hands the
+    kernels a contiguous copy."""
+    S, H, D = 256, 2, 64
+    q, k, v, do = _flash_inputs(card, 1, S, H, H, D, torch.bfloat16, seed=8)
+    qe, ke, ve, doe = (x.expand(2, S, H, D) for x in (q, k, v, do))
+    for blk, refused in ((64, True), (16, False)):
+        lists = bsa.index_lists(FixedSparsityConfig(num_heads=H, block=blk,
+                                                    attention="unidirectional"), S, card)
+        o, lse = bsa.block_sparse_attention_fwd(qe, ke, ve, lists, True)
+        delta = bsa.block_sparse_delta(o, doe)
+        for fn in (bsa.block_sparse_attention_dq, bsa.block_sparse_attention_dkv):
+            if refused:
+                with pytest.raises(ValueError, match="TMA"):
+                    fn(qe, ke, ve, doe, lse, delta, lists, True)
+            else:
+                fn(qe, ke, ve, doe, lse, delta, lists, True)
+        leaves = [x.detach().requires_grad_(True) for x in (qe, ke, ve)]
+        grads = torch.autograd.grad(bsa.block_sparse(*leaves, lists, True), leaves, doe)
+        ref = bsa.block_sparse_attention_bwd_ref(qe, ke, ve, o, lse, doe, lists, True)
+        for got, want in zip(grads, ref):
+            assert _scaled_err(got, want) <= FLASH_REL_TOL[torch.bfloat16]
+
+
 def test_bidirectional_attention_on_the_card(card):
     """BERT's dense encoder attention: an unmasked batch runs the non-causal
     flash kernels, a masked one the plain masked path (no kernel has a mask

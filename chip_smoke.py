@@ -28,7 +28,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      inside one page and past the table, each call against the plain
      version and repeated bit for bit; both modes also timed at a long
      table (B2, 256 pages of 16, pos 4095) beside the library call and the
-     bound.
+     bound. The paged multi-token kernel's launch plan (query heads and
+     tokens a unit, units, chunks, rows a chunk) at 3b/3c's chunk shape in
+     both modes, with the unit's last query on the first and last row of
+     every chunk and past the table, each call against the plain version
+     and repeated bit for bit.
   3  serve: gpt2-medium in bf16 (seeded random weights) through
      init_inference(...).serve() with the default serving section; 16
      requests of mixed lengths must all finish with their full token count
@@ -104,8 +108,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      rows must give o = 0 and lse = +1e30; blocks 16/32/64/128, D 64/128,
      fp32/fp16/bf16, S 128-4096, so both backward routes, wgmma and
      mma.sync/FMA; q/k/v as views of a [B, S, 3E] projection), each by max
-     abs error and max abs error over max |ref|, dq/dk/dv repeating bit for
-     bit over two calls;
+     abs error and max abs error over max |ref|, o/lse and dq/dk/dv
+     repeating bit for bit over two calls;
      each kernel timed at the GPT-2 shape (B2 S4096 H16 D64 bf16, fixed
      unidirectional, block 64) and the BERT shape (B16 S512 H16 D64 bf16,
      fixed bidirectional, block 16) beside its plain version, SDPA with the
@@ -368,7 +372,7 @@ def library_attention(q, k, v, bt, pos, scales=None):
     return o[:, 0] if one else o
 
 
-def bound(q, k_layer, bt, pos, scales=None):
+def bound(q, k_layer, bt, pos, scales=None, pv_at_q_rate=False):
     """Least time for one call (``q`` and ``pos`` as in
     :func:`library_attention`): the live K/V rows (keys up to each slot's
     last query, within its table), q, the output, the table and pos each
@@ -377,7 +381,9 @@ def bound(q, k_layer, bt, pos, scales=None):
     query's visible keys at the inputs' peak; the larger wins. An int8
     pool's scores can run at q's rate (its codes are integers that bf16
     holds exactly, and the page's scale factors out of q·k), its weighted
-    sum only at the f32 rate (P is not rounded)."""
+    sum at the f32 rate where P is not rounded (the decode kernel) and at
+    q's rate where it goes to the tensor cores (``pv_at_q_rate``: the
+    multi-token kernel's tensor-core route)."""
     if q.dim() == 3:
         q = q[:, None]
     B, T, H, D = q.shape
@@ -393,6 +399,8 @@ def bound(q, k_layer, bt, pos, scales=None):
     product_flops = int(2 * visible.sum() * H * D)  # each of q·k and P·V
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     score_dt, pv_dt = (k_layer.dtype,) * 2 if scales is None else (q.dtype, torch.float32)
+    if pv_at_q_rate:
+        pv_dt = q.dtype
     t_ops = (product_flops / PEAK_OPS_PER_S[score_dt]
              + product_flops / PEAK_OPS_PER_S[pv_dt]) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -610,8 +618,14 @@ def bs_errors(q, k, v, do, lists, causal):
     against the plain versions chained the same way: max abs error and max
     abs error / max |ref| of o, lse (rows with a finite lse; the poisoned
     rows must be poisoned in both), dq, dk, dv → (abs, scaled, o, poisoned
-    rows). A second dq and dk/dv call must repeat the first bit for bit."""
+    rows). A second forward, dq and dk/dv call must repeat the first bit for
+    bit."""
     o, lse = bsa.block_sparse_attention_fwd(q, k, v, lists, causal)
+    o2, lse2 = bsa.block_sparse_attention_fwd(q, k, v, lists, causal)
+    torch.cuda.synchronize()
+    check(torch.equal(o, o2) and torch.equal(lse, lse2),
+          "block-sparse o/lse: a second call differs from the first")
+    del o2, lse2
     delta = bsa.block_sparse_delta(o, do)
     dq = bsa.block_sparse_attention_dq(q, k, v, do, lse, delta, lists, causal)
     dk, dv = bsa.block_sparse_attention_dkv(q, k, v, do, lse, delta, lists, causal)
@@ -1077,7 +1091,8 @@ def main() -> int:
                                                      mbase[i % nb]), 32)
     mt_lib_ms, mt_lib_call_ms = time_ms(
         lambda i: library_attention(mq, mk[i % L], mv[i % L], mbt, mbase[i % nb]), 32)
-    bounds = [bound(mq, mk[0], mbt, bb) for bb in mbase]
+    bounds = [bound(mq, mk[0], mbt, bb, pv_at_q_rate=pma.tensor_core_route(mq, mk[0]))
+              for bb in mbase]
     mt_bound_ms = sum(b[0] for b in bounds) / nb
     mt_bound_by = max(set(b[1] for b in bounds), key=[b[1] for b in bounds].count)
     print(f"paged_multitoken_attention main shape (mean over chunk starts {mt_bases}), device "
@@ -1254,7 +1269,8 @@ def main() -> int:
         mq, mkq[i % L], mvq[i % L], mbt, mbase[i % nb], scales=msc[i % L]), 32)
     i8mt_lib_ms, _ = time_ms(lambda i: library_attention(
         mq, mkq[i % L], mvq[i % L], mbt, mbase[i % nb], msc[i % L]), 32)
-    i8mt_bounds = [bound(mq, mkq[0], mbt, bb, msc[0]) for bb in mbase]
+    i8mt_bounds = [bound(mq, mkq[0], mbt, bb, msc[0], pma.tensor_core_route(mq, mkq[0]))
+                   for bb in mbase]
     i8mt_bound_ms = sum(b[0] for b in i8mt_bounds) / nb
     i8mt_bound_by = max(set(b[1] for b in i8mt_bounds), key=[b[1] for b in i8mt_bounds].count)
     print(f"paged_multitoken_attention int8 main shape (mean over chunk starts {mt_bases}), "
@@ -1263,6 +1279,47 @@ def main() -> int:
           f"{i8mt_bound_ms / i8mt_ms:.3f} of bound; per call with the host's launch path "
           f"{i8mt_call_ms:.4f}")
     del mkq, mvq, msc
+
+    # the multi-token kernel's split-K plan (from shapes alone: B, T, H, KV,
+    # page, the table's n pages, the SM count) at 3b/3c's chunk shape: the
+    # unit's last query (base + 63) on the first and last row of every
+    # chunk and past the table, both modes, each call against the plain
+    # version and repeated bit for bit
+    mt_plan = pma.kernel_plan(1, 64, 16, 16, 16, 36, sms)
+    _, _, _, mt_splits, mt_chunk = mt_plan
+    mt_edges = sorted({0, 5, 36 * 16 - 64, 36 * 16 - 50}
+                      | {max(0, e - 63) for c in range(1, mt_splits)
+                         for e in (c * mt_chunk - 1, c * mt_chunk)})
+    for mode in ("bf16", "int8"):
+        worst = (0.0, 0.0)
+        if mode == "int8":
+            sq, skq, svq, ssc, sbt, _ = make_int8_case(1, 16, 16, 64, 16, 512, 36, [0],
+                                                       torch.bfloat16, seed=80, T=64)
+        else:
+            sq, skq, svq, sbt, _ = make_case(1, 16, 16, 64, 16, 512, 36, [0], torch.bfloat16,
+                                             seed=80, T=64)
+            ssc = None
+        kw = {} if ssc is None else {"scales": ssc[0]}
+        sk_ref, sv_ref = (skq[0], svq[0]) if mode == "int8" else (skq[0].float(), svq[0].float())
+        for b0 in mt_edges:
+            sb = torch.tensor([b0], dtype=torch.int32, device="cuda")
+            first = pma.paged_multitoken_attention(sq, skq[0], svq[0], sbt, sb, **kw)
+            again = pma.paged_multitoken_attention(sq, skq[0], svq[0], sbt, sb, **kw)
+            torch.cuda.synchronize()
+            check(torch.equal(first, again), f"multitoken {mode} at base {b0}: two calls differ")
+            e = errors(first, pma.paged_multitoken_attention_ref(sq.float(), sk_ref, sv_ref, sbt,
+                                                                 sb, **kw))
+            worst = (max(worst[0], e[0]), max(worst[1], e[1]))
+        print(f"paged_multitoken_attention {mode} split edges (plan: query heads a unit, tokens "
+              f"a unit, units, chunks, rows a chunk = {mt_plan}; bases {mt_edges}): max abs err "
+              f"{worst[0]:.3e}, / max |ref| {worst[1]:.3e}; two calls equal bit for bit")
+        check(worst[0] <= TOL[torch.bfloat16] and worst[1] <= REL_TOL[torch.bfloat16],
+              f"multitoken {mode} split edges: {worst}")
+        del skq, svq
+    print("paged_multitoken_attention launch plans: 3b/3c chunk (B1 T64 H16, 36-page table) "
+          f"{mt_plan}, T1 B8 12-page table {pma.kernel_plan(8, 1, 16, 16, 16, 12, sms)}; "
+          "1 device launch a call (with more than one live chunk the last block of a unit "
+          "merges them)")
 
     # the contiguous decode kernel at phase 9's decode step (B8, a 256-row
     # cache: 128 prompt + 128 new tokens, gpt2-medium heads, bf16, a layer's
@@ -1896,8 +1953,8 @@ def main() -> int:
         print(f"block-sparse {label}: density {sac.layout_density(lists.layout):.4f}; max abs "
               "err " + ", ".join(f"{k} {e:.3e}" for k, e in errs10.items())
               + "; max abs err / max |ref| " + ", ".join(f"{k} {e:.3e}" for k, e in scaled10.items())
-              + f" (tolerance {rel_tol:g}, lse {LSE_REL_TOL:g}); dq/dk/dv repeat bit for bit; "
-              f"backward route {'wgmma' if bsa.wgmma_route(q, blk) else 'mma.sync/FMA'}{extra}")
+              + f" (tolerance {rel_tol:g}, lse {LSE_REL_TOL:g}); o/lse and dq/dk/dv repeat bit "
+              f"for bit; route {'wgmma' if bsa.wgmma_route(q, blk) else 'mma.sync/FMA'}{extra}")
         check(scaled10["lse"] <= LSE_REL_TOL, f"block-sparse {label}: lse {scaled10['lse']}")
         check(all(e <= rel_tol for k, e in scaled10.items() if k != "lse"),
               f"block-sparse {label}: scaled errors {scaled10} above {rel_tol}")

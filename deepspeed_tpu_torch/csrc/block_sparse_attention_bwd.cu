@@ -50,7 +50,7 @@
 //    element, and ptxas then waited for dQ at the loop's end: dq took 0.131
 //    ms and dk/dv 0.168 (H100 80GB HBM3 at 700 W);
 //  - accumulators stay in registers over the item and are stored once.
-// What holds them back (tools/bsparse_bwd_ablation.py, H100 80GB HBM3 at
+// What holds them back (tools/kernel_ablation.py, H100 80GB HBM3 at
 // 700 W): at the GPT-2 shape dq takes ~0.082 ms and dk/dv ~0.118; without
 // the exponentials 0.073 / 0.109; without the last product 0.042 / 0.096.
 // dq without its last product moves its ~217 MB of L2 reads at ~5 TB/s:
@@ -77,11 +77,9 @@
 #include <cuda.h>
 
 #include <algorithm>
-#include <climits>
 #include <type_traits>
 
 #include "block_sparse_attention_common.cuh"
-#include "hopper.cuh"
 
 namespace {
 
@@ -630,108 +628,7 @@ bs_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---- bf16/fp16 at D 64/128, blocks of 64 and 128: TMA, wgmma, warp specialisation
-
-constexpr int kRows = 64;  // rows of a unit (wgmma's M) and of one listed tile
-
-template <typename T, int D>
-struct WgCfg {
-  static constexpr int TN = D == 64 ? 128 : 64;  // streamed rows a step: two tiles at D64
-  static constexpr int P = TN / kRows;           // tiles a step
-  static constexpr int STAGES = D == 64 ? 4 : 2;
-  static constexpr int NT = 384;                 // producer + 2 consumer warpgroups
-  static constexpr int ATOMS = D / 64;           // 128-byte column atoms a row
-  static constexpr uint32_t SUB_BYTES = kRows * D * 2;    // one 64-row tile of one operand
-  static constexpr uint32_t PAIR_BYTES = 2 * SUB_BYTES;   // an item's two units of one operand
-  static constexpr uint32_t STEP_BYTES = P * SUB_BYTES;   // one operand's tiles of a step
-  static constexpr int AUX_FLOATS = P * 2 * kRows;        // a dk/dv step's lse and delta
-  static constexpr int PRODUCER_REGS = 40;
-  static constexpr int CONSUMER_REGS = 232;
-  // 1024 bytes of slack to align the tiles; two buffers of the item's own
-  // operands (K/V for dk/dv, Q/dO for dq: the next item's load while this
-  // one runs), the streamed stages (and dk/dv's lse/delta), the stages'
-  // tile entries, the barriers
-  static constexpr size_t smem(bool aux) {
-    return 1024 + 4 * (size_t)PAIR_BYTES + (size_t)STAGES * 2 * STEP_BYTES +
-           (aux ? (size_t)STAGES * AUX_FLOATS * 4 : 0) + (STAGES * P + 2) * 4 +
-           8 * (4 + 2 * STAGES);
-  }
-};
-
-// an item: two units (64 rows each: keys for dk/dv, queries for dq) of one
-// (batch, head), the second absent (row -1) when the head's units are odd,
-// and the n entries of the tiles they walk: the union of the units' list
-// rows after the causal cut, ascending, each entry (first row of a 64-row
-// tile) * 4 + (bit c: unit c walks it)
-struct Item {
-  int b, h, r0[2], n;
-  const int* tiles;
-};
-
-// item i of the schedule. The plan (built on the host, one batch row's
-// worth): n_pairs headers (unit 0, unit 1 or -1, offset, tile count),
-// heaviest first, then the tile entries; each header is B items, one a
-// batch row
-__device__ __forceinline__ Item plan_item(int i, const int* __restrict__ plan, int n_pairs,
-                                          const BsParams& p) {
-  Item w;
-  const int* hd = plan + 4 * (i / p.B);
-  w.b = i % p.B;
-  const int nu = p.nblk * (p.blk / kRows);  // units a head
-  const int u0 = __ldg(hd), u1 = __ldg(hd + 1);
-  w.h = u0 / nu;
-  w.r0[0] = (u0 % nu) * kRows;
-  w.r0[1] = u1 < 0 ? -1 : (u1 % nu) * kRows;
-  w.tiles = plan + 4 * n_pairs + __ldg(hd + 2);
-  w.n = __ldg(hd + 3);
-  return w;
-}
-
-// the producer warp's walk over an item's tile entries, P a step: lane l
-// holds entry t0 + l (-1 past the last), and lane 0 writes each step's
-// entries beside its stage and hands the step to issue(stage, first rows)
-// once the stage is free. A step's missing second tile repeats the first
-// tile's rows with no unit's bit set. `it` counts steps over all items
-template <int P, int STAGES, typename Issue>
-__device__ __forceinline__ void stream_steps(const Item& w, int lane, uint64_t* empty,
-                                             int* entries, int& it, Issue issue) {
-  using namespace hopper;
-  for (int t0 = 0; t0 < w.n; t0 += 32) {
-    const int e = t0 + lane < w.n ? __ldg(w.tiles + t0 + lane) : -1;
-    const int cnt = min(32, w.n - t0);
-    for (int j = 0; j < cnt; j += P, ++it) {
-      int r[P];
-#pragma unroll
-      for (int q = 0; q < P; ++q) r[q] = __shfl_sync(0xffffffffu, e, j + q);
-      if (lane == 0) {
-        const int s = it % STAGES;
-        mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
-        int row[P];
-#pragma unroll
-        for (int q = 0; q < P; ++q) {
-          entries[s * P + q] = r[q] >= 0 ? r[q] : r[0] & ~3;
-          row[q] = (r[q] >= 0 ? r[q] : r[0]) >> 2;
-        }
-        issue(s, row);
-      }
-    }
-  }
-}
-
-// one unit's 64 x D accumulator rows r0.. to [B, S, H, D], times `mul`
-template <typename T, int D>
-__device__ __forceinline__ void store_rows(T* out, const float (&acc)[D / 2], float mul,
-                                           const BsParams& p, int b, int h, int r0, int lane) {
-  const int t = lane & 3;
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int row = r0 + (lane >> 2) + 8 * hr;
-    T* dst = out + (((long long)b * p.S + row) * p.H + h) * D + 2 * t;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(dst + n * 8) =
-          pack2<T>(acc[4 * n + 2 * hr] * mul, acc[4 * n + 2 * hr + 1] * mul);
-  }
-}
+// (the schedule, the loads and the masks: block_sparse_attention_common.cuh)
 
 // dk, dv: persistent, min(items, SMs) blocks of three warpgroups walking
 // the plan's items heaviest first, dealt in rounds. A producer warp loads
@@ -799,23 +696,14 @@ bs_dkv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
         mbar_wait(&kv_empty[kb], ((ki / 2) & 1) ^ 1);
         mbar_arrive_tx(&kv_full[kb], 2 * W::PAIR_BYTES);
         unsigned char* Kt = KVs + (size_t)(2 * kb) * W::PAIR_BYTES;
-        for (int c = 0; c < 2; ++c) {
-          const int row = w.r0[c] >= 0 ? w.r0[c] : w.r0[0];  // no second unit: the first again
-          for (int a = 0; a < W::ATOMS; ++a) {
-            const int off = a * 2 * kRows * 128 + c * kRows * 128;
-            tma_load_4d(Kt + off, &tk, &kv_full[kb], a * 64, w.h, row, w.b);
-            tma_load_4d(Kt + W::PAIR_BYTES + off, &tv, &kv_full[kb], a * 64, w.h, row, w.b);
-          }
-        }
+        load_pair<W::ATOMS>(Kt, &tk, &kv_full[kb], w);
+        load_pair<W::ATOMS>(Kt + W::PAIR_BYTES, &tv, &kv_full[kb], w);
       }
       stream_steps<P, STAGES>(w, lane, empty, entries, it, [&](int s, const int (&row)[P]) {
         mbar_arrive_tx(&full[s], 2 * W::STEP_BYTES + P * 2 * kRows * 4);
+        load_tiles<P, W::ATOMS>(Qs + (size_t)s * W::STEP_BYTES, mq, &full[s], w, row);
+        load_tiles<P, W::ATOMS>(Os + (size_t)s * W::STEP_BYTES, mdo, &full[s], w, row);
         for (int q = 0; q < P; ++q) {
-          for (int a = 0; a < W::ATOMS; ++a) {
-            const size_t off = (size_t)s * W::STEP_BYTES + a * TN * 128 + q * kRows * 128;
-            tma_load_4d(Qs + off, mq, &full[s], a * 64, w.h, row[q], w.b);
-            tma_load_4d(Os + off, mdo, &full[s], a * 64, w.h, row[q], w.b);
-          }
           float* aux = Aux + s * W::AUX_FLOATS + q * 2 * kRows;
           tma_load_4d(aux, mlse, &full[s], row[q], w.h, w.b, 0);
           tma_load_4d(aux + kRows, mdelta, &full[s], row[q], w.h, w.b, 0);
@@ -941,8 +829,8 @@ bs_dkv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
     }
     if (tid == 0) mbar_arrive(&kv_empty[kb]);  // K and V's last reads are done
     if (owned) {
-      store_rows<T, D>(dk, dka, p.scale, p, w.b, w.h, kw0, lane);
-      store_rows<T, D>(dv, dva, 1.f, p, w.b, w.h, kw0, lane);
+      store_rows<T, D>(dk, dka, {p.scale, p.scale}, p, w.b, w.h, kw0, lane);
+      store_rows<T, D>(dv, dva, {1.f, 1.f}, p, w.b, w.h, kw0, lane);
     }
     ++ki;
   }
@@ -1007,24 +895,13 @@ bs_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
         mbar_wait(&q_empty[qb], ((ki / 2) & 1) ^ 1);
         mbar_arrive_tx(&q_full[qb], 2 * W::PAIR_BYTES);
         unsigned char* Qt = QOs + (size_t)(2 * qb) * W::PAIR_BYTES;
-        for (int c = 0; c < 2; ++c) {
-          const int row = w.r0[c] >= 0 ? w.r0[c] : w.r0[0];  // no second unit: the first again
-          for (int a = 0; a < W::ATOMS; ++a) {
-            const int off = a * 2 * kRows * 128 + c * kRows * 128;
-            tma_load_4d(Qt + off, &tq, &q_full[qb], a * 64, w.h, row, w.b);
-            tma_load_4d(Qt + W::PAIR_BYTES + off, &tdo, &q_full[qb], a * 64, w.h, row, w.b);
-          }
-        }
+        load_pair<W::ATOMS>(Qt, &tq, &q_full[qb], w);
+        load_pair<W::ATOMS>(Qt + W::PAIR_BYTES, &tdo, &q_full[qb], w);
       }
       stream_steps<P, STAGES>(w, lane, empty, entries, it, [&](int s, const int (&row)[P]) {
         mbar_arrive_tx(&full[s], 2 * W::STEP_BYTES);
-        for (int q = 0; q < P; ++q) {
-          for (int a = 0; a < W::ATOMS; ++a) {
-            const size_t off = (size_t)s * W::STEP_BYTES + a * TN * 128 + q * kRows * 128;
-            tma_load_4d(Ks + off, mk, &full[s], a * 64, w.h, row[q], w.b);
-            tma_load_4d(Vs + off, mv, &full[s], a * 64, w.h, row[q], w.b);
-          }
-        }
+        load_tiles<P, W::ATOMS>(Ks + (size_t)s * W::STEP_BYTES, mk, &full[s], w, row);
+        load_tiles<P, W::ATOMS>(Vs + (size_t)s * W::STEP_BYTES, mv, &full[s], w, row);
       });
       ++ki;
     }
@@ -1070,20 +947,8 @@ bs_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
     for (int u = 0; u < nsteps; ++u, ++it) {
       const int st = it % STAGES;
       mbar_wait(&full[st], (it / STAGES) & 1);
-      // tile q keeps key col for the thread's query row i iff col <= hi[q][i]:
-      // the row under the causal rule, every key of a tile its unit walks
-      // otherwise, none of a tile it does not walk
       int c0[P], hi[P][2];
-      bool whole = true;
-#pragma unroll
-      for (int q = 0; q < P; ++q) {
-        const int e = entries[st * P + q];
-        const bool mine = (e >> cw) & 1;
-        c0[q] = e >> 2;
-#pragma unroll
-        for (int i2 = 0; i2 < 2; ++i2) hi[q][i2] = !mine ? -1 : causal ? row[i2] : INT_MAX;
-        whole = whole && mine && (!causal || c0[q] + kRows - 1 <= rw0);
-      }
+      const bool whole = query_limits<P>(entries + st * P, cw, causal, row, rw0, c0, hi);
       const uint32_t k_addr = smem_addr(Ks) + st * W::STEP_BYTES;
       const uint32_t v_addr = smem_addr(Vs) + st * W::STEP_BYTES;
 
@@ -1143,7 +1008,7 @@ bs_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
       if (nsteps > 0) mbar_arrive(&empty[prev]);
       mbar_arrive(&q_empty[qb]);  // Q and dO's last reads are done
     }
-    if (owned) store_rows<T, D>(dq, dqa, p.scale, p, w.b, w.h, rw0, lane);
+    if (owned) store_rows<T, D>(dq, dqa, {p.scale, p.scale}, p, w.b, w.h, rw0, lane);
     ++ki;
   }
 }

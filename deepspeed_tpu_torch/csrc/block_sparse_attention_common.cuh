@@ -17,13 +17,20 @@
 // (a block of 128 is two tiles), streamed through shared memory. A thread
 // block holds G units so that it has at least 4 warps (blocks of 16 and 32
 // would otherwise make thin blocks of 1-2 warps); the units of a block are
-// independent and synchronise on their own named barriers. (The backward's
-// TMA + wgmma kernels at blocks of 64 and 128 walk a host-built schedule
-// of paired 64-row units instead: block_sparse_attention_bwd.cu.)
+// independent and synchronise on their own named barriers.
+//
+// The TMA + wgmma kernels (bf16/fp16, D 64/128, blocks of 64 and 128: the
+// forward in block_sparse_attention_fwd.cu, dq and dk/dv in
+// block_sparse_attention_bwd.cu) walk a host-built schedule of paired
+// 64-row units instead; its decoding, the producer's loads and the
+// query-major masks are at the end of this file.
 
 #pragma once
 
+#include <climits>
+
 #include "flash_attention_common.cuh"
+#include "hopper.cuh"
 
 namespace bsparse {
 
@@ -98,6 +105,165 @@ __device__ __forceinline__ int key_unit_first_tile(const int* lst, int count, in
 
 inline __host__ __device__ long long units(const BsParams& p, int R) {
   return (long long)p.B * p.H * p.nblk * (p.blk / R);
+}
+
+// ---- the TMA + wgmma route's schedule, loads and masks -----------------------
+
+constexpr int kRows = 64;  // rows of a unit (wgmma's M) and of one listed tile
+
+// the route's tile geometry and the backward's ring: TN streamed rows a
+// step (two 64-row tiles side by side at D64, one at D128: its registers)
+template <typename T, int D>
+struct WgCfg {
+  static constexpr int TN = D == 64 ? 128 : 64;  // streamed rows a step
+  static constexpr int P = TN / kRows;           // tiles a step
+  static constexpr int STAGES = D == 64 ? 4 : 2;
+  static constexpr int NT = 384;                 // producer + 2 consumer warpgroups
+  static constexpr int ATOMS = D / 64;           // 128-byte column atoms a row
+  static constexpr uint32_t SUB_BYTES = kRows * D * 2;    // one 64-row tile of one operand
+  static constexpr uint32_t PAIR_BYTES = 2 * SUB_BYTES;   // an item's two units of one operand
+  static constexpr uint32_t STEP_BYTES = P * SUB_BYTES;   // one operand's tiles of a step
+  static constexpr int AUX_FLOATS = P * 2 * kRows;        // a dk/dv step's lse and delta
+  static constexpr int PRODUCER_REGS = 40;
+  static constexpr int CONSUMER_REGS = 232;
+  // 1024 bytes of slack to align the tiles; two buffers of the item's own
+  // operands (K/V for dk/dv, Q/dO for dq: the next item's load while this
+  // one runs), the streamed stages (and dk/dv's lse/delta), the stages'
+  // tile entries, the barriers
+  static constexpr size_t smem(bool aux) {
+    return 1024 + 4 * (size_t)PAIR_BYTES + (size_t)STAGES * 2 * STEP_BYTES +
+           (aux ? (size_t)STAGES * AUX_FLOATS * 4 : 0) + (STAGES * P + 2) * 4 +
+           8 * (4 + 2 * STAGES);
+  }
+};
+
+// an item: two units (64 rows each: keys for dk/dv, queries for the
+// forward and dq) of one (batch, head), the second absent (row -1) when
+// the head's units are odd, and the n entries of the tiles they walk: the
+// union of the units' list rows after the causal cut, ascending, each
+// entry (first row of a 64-row tile) * 4 + (bit c: unit c walks it)
+struct Item {
+  int b, h, r0[2], n;
+  const int* tiles;
+};
+
+// item i of the schedule. The plan (built on the host, one batch row's
+// worth): n_pairs headers (unit 0, unit 1 or -1, offset, tile count),
+// heaviest first, then the tile entries; each header is B items, one a
+// batch row
+__device__ __forceinline__ Item plan_item(int i, const int* __restrict__ plan, int n_pairs,
+                                          const BsParams& p) {
+  Item w;
+  const int* hd = plan + 4 * (i / p.B);
+  w.b = i % p.B;
+  const int nu = p.nblk * (p.blk / kRows);  // units a head
+  const int u0 = __ldg(hd), u1 = __ldg(hd + 1);
+  w.h = u0 / nu;
+  w.r0[0] = (u0 % nu) * kRows;
+  w.r0[1] = u1 < 0 ? -1 : (u1 % nu) * kRows;
+  w.tiles = plan + 4 * n_pairs + __ldg(hd + 2);
+  w.n = __ldg(hd + 3);
+  return w;
+}
+
+// the producer's load of an item's own rows of one operand by TMA: its two
+// units' 64 rows (the first unit's again when there is no second) side by
+// side in each column atom (atom a of unit c at (2a + c) * 64 rows * 128 B)
+template <int ATOMS>
+__device__ __forceinline__ void load_pair(unsigned char* dst, const CUtensorMap* map,
+                                          uint64_t* bar, const Item& w) {
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const int row = w.r0[c] >= 0 ? w.r0[c] : w.r0[0];
+#pragma unroll
+    for (int a = 0; a < ATOMS; ++a)
+      hopper::tma_load_4d(dst + (2 * a + c) * kRows * 128, map, bar, a * 64, w.h, row, w.b);
+  }
+}
+
+// ... and of a step's P streamed 64-row tiles of one operand, starting at
+// rows row[0..P), side by side in each column atom (atom a of tile q at
+// (P a + q) * 64 rows * 128 B)
+template <int P, int ATOMS>
+__device__ __forceinline__ void load_tiles(unsigned char* dst, const CUtensorMap* map,
+                                           uint64_t* bar, const Item& w, const int (&row)[P]) {
+#pragma unroll
+  for (int q = 0; q < P; ++q)
+#pragma unroll
+    for (int a = 0; a < ATOMS; ++a)
+      hopper::tma_load_4d(dst + (P * a + q) * kRows * 128, map, bar, a * 64, w.h, row[q], w.b);
+}
+
+// the producer warp's walk over an item's tile entries, P a step: lane l
+// holds entry t0 + l (-1 past the last), and lane 0 writes each step's
+// entries beside its stage and hands the step to issue(stage, first rows)
+// once the stage is free. A step's missing second tile repeats the first
+// tile's rows with no unit's bit set. `it` counts steps over all items
+template <int P, int STAGES, typename Issue>
+__device__ __forceinline__ void stream_steps(const Item& w, int lane, uint64_t* empty,
+                                             int* entries, int& it, Issue issue) {
+  using namespace hopper;
+  for (int t0 = 0; t0 < w.n; t0 += 32) {
+    const int e = t0 + lane < w.n ? __ldg(w.tiles + t0 + lane) : -1;
+    const int cnt = min(32, w.n - t0);
+    for (int j = 0; j < cnt; j += P, ++it) {
+      int r[P];
+#pragma unroll
+      for (int q = 0; q < P; ++q) r[q] = __shfl_sync(0xffffffffu, e, j + q);
+      if (lane == 0) {
+        const int s = it % STAGES;
+        mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+        int row[P];
+#pragma unroll
+        for (int q = 0; q < P; ++q) {
+          entries[s * P + q] = r[q] >= 0 ? r[q] : r[0] & ~3;
+          row[q] = (r[q] >= 0 ? r[q] : r[0]) >> 2;
+        }
+        issue(s, row);
+      }
+    }
+  }
+}
+
+// the forward's and dq's mask of one step for consumer warpgroup cw (its
+// unit's queries; rw0 the warp's first row, row[i] the thread's two):
+// tile q (first key c0[q]) keeps key col for row i iff col <= hi[q][i],
+// which is the row under the causal rule, every key of a tile the unit
+// walks otherwise, none of a tile it does not walk. → whether the warp's
+// rows keep every key of the step (warp-uniform: the masks can be skipped)
+template <int P>
+__device__ __forceinline__ bool query_limits(const int* entries, int cw, bool causal,
+                                             const int (&row)[2], int rw0, int (&c0)[P],
+                                             int (&hi)[P][2]) {
+  bool whole = true;
+#pragma unroll
+  for (int q = 0; q < P; ++q) {
+    const int e = entries[q];
+    const bool mine = (e >> cw) & 1;
+    c0[q] = e >> 2;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) hi[q][i] = !mine ? -1 : causal ? row[i] : INT_MAX;
+    whole = whole && mine && (!causal || c0[q] + kRows - 1 <= rw0);
+  }
+  return whole;
+}
+
+// one unit's 64 x D accumulator rows r0.. to [B, S, H, D] contiguous, the
+// thread's rows g times mul[0] and g + 8 times mul[1]
+template <typename T, int D>
+__device__ __forceinline__ void store_rows(T* out, const float (&acc)[D / 2],
+                                           const float (&mul)[2], const BsParams& p, int b,
+                                           int h, int r0, int lane) {
+  const int t = lane & 3;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = r0 + (lane >> 2) + 8 * hr;
+    T* dst = out + (((long long)b * p.S + row) * p.H + h) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(dst + n * 8) =
+          pack2<T>(acc[4 * n + 2 * hr] * mul[hr], acc[4 * n + 2 * hr + 1] * mul[hr]);
+  }
 }
 
 }  // namespace bsparse

@@ -12,33 +12,75 @@
 //
 // What bounds it on the card: its flops. At the GPT-2 shape (B2 S4096 H16
 // D64 bf16, the fixed unidirectional layout of block 64: 10240 of 65536
-// blocks active) the two products of the visited pairs are ~21 GFLOP
-// against ~34 MB of q/k/v/o/lse: 0.022 ms at 989 TFLOP/s against 0.010 ms
+// blocks active, ~79.8M computed pairs) the two products are ~20.4 GFLOP
+// against ~34 MB of q/k/v/o/lse: 0.021 ms at 989 TFLOP/s against 0.010 ms
 // at 3.35 TB/s. At the BERT shape (B16 S512 H16 D64 bf16, fixed
 // bidirectional, block 16, density 0.344) it is bound by bytes instead:
 // ~5.9 GFLOP (0.006 ms) against ~68 MB (0.020 ms).
 //
-// What this design does about it:
-//  - bf16/fp16: both products on the tensor cores (mma.sync m16n8k16, f32
-//    accumulate). A unit of R = min(blk, 64) query rows of one (batch,
-//    head, query block), one warp per 16 rows, loads its own kidx row (the
-//    TPU delivered it by scalar prefetch) and streams the listed key blocks
-//    as tiles of R keys through a double-buffered cp.async ring, so the next
-//    tile's copy overlaps this tile's products; m, l and the accumulator
-//    stay in registers, P is rounded to the storage dtype and fed to P·V
-//    from registers, the softmax runs in log2 units on exp2, and the causal
-//    test runs only in tiles that straddle the diagonal (tiles wholly past
-//    it are skipped: they add p = 0). Blocks of 16 and 32 pack 4 and 2 units
-//    into one thread block (4 warps), each unit on its own named barrier.
-//    The TPU carried m/l/acc over a sequential grid axis and used the
-//    sparsity block as its MXU tile; here the loop over the list is inside
-//    the unit and the tile is at most 64 keys.
-//  - fp32: the same walk on the FMA pipes (no tensor-core path keeps fp32
-//    exact): units of min(blk, 32) rows, 8 a warp, lane j owning key j of a
-//    chunk of min(blk, 32) keys for the scores and D/32 output columns for
-//    the sum.
-// What it does not do yet: wgmma, TMA, warp specialisation, a persistent
-// schedule ordered by list length.
+// bf16/fp16 at D 64/128 and blocks of 64/128 (the GPT-2 shape) run the TMA
+// + wgmma kernel below on the dq kernel's schedule: the forward walks the
+// same tiles as dq (a 64-row query unit's kidx row, cut by the causal rule
+// where a tile starts past the unit's last query), so the host plan
+// ops/block_sparse_attention.py bwd_plan("dq", causal) is the forward's
+// too, and the schedule's decoding, the producer's loads and the masks
+// come from block_sparse_attention_common.cuh:
+//  - persistent: min(items, SMs) blocks of three warpgroups deal the plan's
+//    items heaviest first in rounds (the GPT-2 layout lists 1 to 19 key
+//    blocks a query block); an item is two 64-row query units of one
+//    (batch, head) whose rows share the most tiles;
+//  - a producer warp loads by TMA the item's 128 query rows once, into one
+//    of two buffers (the next item's while this one runs), and streams the
+//    K and V tiles of the item's entries, two 64-row tiles a step at D64
+//    and one at D128, through a ring of stages that runs on across items;
+//  - consumer warpgroup c owns unit c's 64 queries: S = Q K^T by wgmma from
+//    shared memory, the online softmax in registers (log2 units on exp2, O
+//    rescaled only when a row's max moved), O += P V by wgmma with P as a
+//    register A operand rounded to the storage dtype and V through the
+//    transposed-B form; S of a step is issued beside the previous step's
+//    P V, so the softmax runs while P V is on the tensor cores, and the two
+//    warpgroups take turns on the tensor cores (named barriers), as in the
+//    flash forward: one's products run while the other's softmax does.
+//    m, l and O stay in registers over the item; O goes out once through
+//    shared memory by TMA stores, lse by the quad's first lane; each row is
+//    stored by the one warpgroup that owns it (no atomics: the result
+//    repeats bit for bit);
+//  - the mask (a tile the unit does not walk: p = 0 and no change of max;
+//    the causal rule on the diagonal) as compares against per-row limits
+//    under one warp-uniform branch that steps with nothing masked skip;
+//  - q, k and v stay strided views of GPT-2's [B, S, 3E] projection, read
+//    through tensor maps.
+// An item none of whose rows walks a tile streams one tile that neither
+// unit walks, so every item has a first step and no wgmma is issued or
+// waited for in a branch.
+//
+// Blocks of 16 and 32 (BERT's default is 16) keep the mma.sync kernel
+// below: a wgmma M of 64 rows would span 4 or 2 blocks with lists of their
+// own. A unit of R = min(blk, 64) query rows of one (batch, head, query
+// block), one warp per 16 rows, loads its own kidx row and streams the
+// listed key blocks as tiles of R keys through a double-buffered cp.async
+// ring; m, l and the accumulator stay in registers, P is rounded to the
+// storage dtype and fed to P V from registers, and the causal test runs
+// only in tiles that straddle the diagonal. Blocks of 16 and 32 pack 4 and 2
+// units into one thread block (4 warps), each unit on its own named
+// barrier. fp32 runs the same walk on the FMA pipes (no tensor-core path
+// keeps fp32 exact): units of min(blk, 32) rows, 8 a warp, lane j owning
+// key j of a chunk of min(blk, 32) keys for the scores and D/32 output
+// columns for the sum. Which kernel a call takes is a rule on shapes alone
+// (the wrapper's wgmma_route); a call never falls back from one to another.
+//
+// What holds it back (tools/kernel_ablation.py, H100 80GB HBM3 at 700 W):
+// at the GPT-2 shape it takes ~0.075 ms, ~0.066 without the exponentials,
+// ~0.070 without its O and lse stores, ~0.083 without the warpgroups'
+// turns; an item is ~5 steps, and its first S and last P V run with no
+// product of the same warpgroup beside them.
+// Not done yet: packing BERT's adjacent query blocks of 16 whose kidx rows
+// are identical (24 of its 31) into one 64-row wgmma unit.
+
+#include <cuda.h>
+
+#include <algorithm>
+#include <type_traits>
 
 #include "block_sparse_attention_common.cuh"
 
@@ -316,6 +358,343 @@ bs_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ---- bf16/fp16 at D 64/128, blocks of 64 and 128: TMA, wgmma, warp specialisation
+
+// the forward's ring: deeper than dq's at D128 (no dO beside Q)
+constexpr int kFwdStages = 4;
+
+template <typename T, int D>
+constexpr size_t fwd_smem() {
+  using W = WgCfg<T, D>;
+  // 1024 bytes of slack to align the tiles; two buffers of the item's Q,
+  // the two warpgroups' O tiles (staged for a TMA store), the K and V
+  // stages, the stages' tile entries, the barriers: 225 KB at D128
+  return 1024 + 2 * (size_t)W::PAIR_BYTES + (size_t)W::PAIR_BYTES +
+         (size_t)kFwdStages * 2 * W::STEP_BYTES + (kFwdStages * W::P + 2) * 4 +
+         8 * (4 + 2 * kFwdStages);
+}
+
+// the entry of a tile that neither unit walks (row 0, no bit): an item with
+// no tiles streams it, so every item has a first step
+__device__ const int kNoTile[1] = {0};
+
+__device__ __forceinline__ Item fwd_item(int i, const int* __restrict__ plan, int n_pairs,
+                                         const BsParams& p) {
+  Item w = plan_item(i, plan, n_pairs, p);
+  if (w.n == 0) {
+    w.tiles = kNoTile;
+    w.n = 1;
+  }
+  return w;
+}
+
+// the online softmax of one step for the thread's rows row0 (elements 4n,
+// 4n+1) and row0 + 8 (4n+2, 4n+3) on the raw scores s of the step's P
+// tiles: masked scores (by the limits of query_limits) become -inf, the
+// running max m is kept in log2 units (scale2 = sm_scale * log2 e > 0), and
+// s becomes P = exp2(s * scale2 - m); corr is the accumulator's factor, l
+// is per lane (quad-summed at the end). A row with nothing kept yet keeps m
+// at -1e30 and adds p = 0.
+template <int TN>
+__device__ __forceinline__ void softmax_step(float (&s)[TN / 2], float (&m)[2], float (&l)[2],
+                                             float (&corr)[2], bool whole,
+                                             const int (&c0)[TN / kRows],
+                                             const int (&hi)[TN / kRows][2], int t,
+                                             float scale2) {
+  if (!whole) {
+#pragma unroll
+    for (int n = 0; n < TN / 8; ++n) {
+      const int q = n / (kRows / 8);
+      const int col = c0[q] + (n % (kRows / 8)) * 8 + 2 * t;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[4 * n + e] = col + (e & 1) <= hi[q][e >> 1] ? s[4 * n + e] : -INFINITY;
+    }
+  }
+  float mx[2][TN / 8];
+#pragma unroll
+  for (int n = 0; n < TN / 8; ++n) {
+    mx[0][n] = fmaxf(s[4 * n + 0], s[4 * n + 1]);
+    mx[1][n] = fmaxf(s[4 * n + 2], s[4 * n + 3]);
+  }
+  float mb[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float mn = fmaxf(m[i], quad_max(tree_max<TN / 8>(mx[i])) * scale2);
+    corr[i] = ex2(m[i] - mn);
+    m[i] = mn;
+    mb[i] = -mn;
+  }
+  float sum[2][TN / 8];
+#pragma unroll
+  for (int n = 0; n < TN / 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[4 * n + e] = ex2(fmaf(s[4 * n + e], scale2, mb[e >> 1]));
+    sum[0][n] = s[4 * n + 0] + s[4 * n + 1];
+    sum[1][n] = s[4 * n + 2] + s[4 * n + 3];
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l[i] = fmaf(l[i], corr[i], tree_sum<TN / 8>(sum[i]));
+}
+
+// S = Q K^T for the warpgroup's 64 rows and a step's TN keys
+template <typename T, int D, int TN>
+__device__ __forceinline__ void issue_s(float (&s)[TN / 2], uint32_t q_addr, uint32_t k_addr) {
+  using namespace hopper;
+  fence_regs(s);
+  wgmma_fence();
+  issue_ss<T, D, TN>(s, q_addr, 2 * kRows * 128, k_addr, TN * 128);
+  wgmma_commit();
+  fence_regs(s);
+}
+
+// O += P V over a step's TN keys: P's A fragments from registers, V MN-major
+template <typename T, int D, int TN>
+__device__ __forceinline__ void issue_pv(float (&acc)[D / 2], uint32_t (&pa)[TN / 16][4],
+                                         uint32_t v_addr) {
+  using namespace hopper;
+  fence_regs(acc);
+  fence_regs(pa);
+  wgmma_fence();
+  issue_rs<T, D, TN>(acc, pa, v_addr);
+  wgmma_commit();
+  fence_regs(acc);
+  fence_regs(pa);
+}
+
+constexpr int kTurnBar = 8;   // named barriers kTurnBar + w: consumer w's turn
+constexpr int kWgBar = 10;    // named barriers kWgBar + w: consumer w alone
+
+// the consumers' turns on the tensor cores (both warpgroups, 256 threads)
+__device__ __forceinline__ void turn_wait(int bar) { hopper::named_sync(bar, 256); }
+__device__ __forceinline__ void turn_pass(int bar) { hopper::named_arrive(bar, 256); }
+
+// persistent over the dq plan's items, dealt heaviest first in rounds. The
+// producer warp loads each item's Q (its two units' 64 rows) into one of
+// two buffers and streams the K and V tiles of its entries, P a step;
+// consumer warpgroup c owns unit c's queries
+template <typename T, int D>
+__global__ void __launch_bounds__(384, 1)
+bs_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+             const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
+             const int* __restrict__ plan, int n_pairs, float* __restrict__ lse, const BsParams p,
+             int n_items) {
+  using W = WgCfg<T, D>;
+  constexpr int TN = W::TN, P = W::P, STAGES = kFwdStages;
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* Qs = base;                                   // buffer k at k * PAIR_BYTES
+  unsigned char* Os = Qs + 2 * W::PAIR_BYTES;                 // warpgroup c at c * SUB_BYTES
+  unsigned char* Ks = Os + W::PAIR_BYTES;                     // stage s at s * STEP_BYTES
+  unsigned char* Vs = Ks + (size_t)STAGES * W::STEP_BYTES;    // V, the same
+  int* entries = reinterpret_cast<int*>(Vs + (size_t)STAGES * W::STEP_BYTES);  // [s][tile]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(entries + STAGES * P + (STAGES * P) % 2);
+  uint64_t* q_full = bars;
+  uint64_t* q_empty = bars + 2;
+  uint64_t* full = bars + 4;
+  uint64_t* empty = bars + 4 + STAGES;
+
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < 2; ++k) {
+      mbar_init(&q_full[k], 1);
+      mbar_init(&q_empty[k], 2);
+    }
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer: warp 0 reads the entries, its lane 0 issues every load --
+    regs_dec<W::PRODUCER_REGS>();
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    int it = 0;  // steps loaded, over all items
+    for (int r = 0, ki = 0; r * (int)gridDim.x < n_items; ++r) {
+      const int i = round_item(r, n_items);
+      if (i < 0) continue;
+      const Item w = fwd_item(i, plan, n_pairs, p);
+      const int qb = ki % 2;
+      if (lane == 0) {
+        mbar_wait(&q_empty[qb], ((ki / 2) & 1) ^ 1);
+        mbar_arrive_tx(&q_full[qb], W::PAIR_BYTES);
+        load_pair<W::ATOMS>(Qs + (size_t)qb * W::PAIR_BYTES, &tq, &q_full[qb], w);
+      }
+      stream_steps<P, STAGES>(w, lane, empty, entries, it, [&](int s, const int (&row)[P]) {
+        mbar_arrive_tx(&full[s], 2 * W::STEP_BYTES);
+        load_tiles<P, W::ATOMS>(Ks + (size_t)s * W::STEP_BYTES, &tk, &full[s], w, row);
+        load_tiles<P, W::ATOMS>(Vs + (size_t)s * W::STEP_BYTES, &tv, &full[s], w, row);
+      });
+      ++ki;
+    }
+    return;
+  }
+
+  // ---- consumers ------------------------------------------------------------
+  regs_inc<W::CONSUMER_REGS>();
+  const int cw = wg - 1;
+  const int tid = threadIdx.x % 128, lane = tid & 31, warp = tid >> 5;
+  const int t = lane & 3;
+  const float scale2 = p.scale * kLog2e;
+  const bool causal = p.causal != 0;
+  const uint32_t k_base = smem_addr(Ks), v_base = smem_addr(Vs);
+
+  float m[2], l[2];
+  float acc[D / 2];
+  float s[TN / 2];
+  uint32_t pa[TN / 16][4];
+
+  if (cw == 1) turn_pass(kTurnBar + 0);  // consumer 0 goes first
+  int it = 0;  // steps consumed, over all items
+  for (int r = 0, ki = 0; r * (int)gridDim.x < n_items; ++r) {
+    const int i = round_item(r, n_items);
+    if (i < 0) continue;
+    const Item w = fwd_item(i, plan, n_pairs, p);
+    const bool last_item = (r + 1) * (int)gridDim.x >= n_items || round_item(r + 1, n_items) < 0;
+    const int mine0 = cw ? w.r0[1] : w.r0[0];
+    const bool owned = mine0 >= 0;
+    const int rw0 = (owned ? mine0 : w.r0[0]) + warp * 16;  // this warp's first query
+    const int row[2] = {rw0 + (lane >> 2), rw0 + (lane >> 2) + 8};
+    const int qb = ki % 2;
+    const uint32_t q_addr = smem_addr(Qs) + qb * W::PAIR_BYTES + cw * kRows * 128;
+    const int nsteps = (w.n + P - 1) / P;  // >= 1
+    m[0] = m[1] = kMasked;
+    l[0] = l[1] = 0.f;
+#pragma unroll
+    for (int k = 0; k < D / 2; ++k) acc[k] = 0.f;
+    mbar_wait(&q_full[qb], (ki / 2) & 1);
+
+    // the first step: S only (no P V pending), so no wgmma is issued or
+    // waited for conditionally inside the step loop
+    int st = it % STAGES;
+    mbar_wait(&full[st], (it / STAGES) & 1);
+    int c0[P], hi[P][2];
+    bool whole = query_limits<P>(entries + st * P, cw, causal, row, rw0, c0, hi);
+    // this warpgroup's turn on the tensor cores
+    turn_wait(kTurnBar + cw);
+    issue_s<T, D, TN>(s, q_addr, k_base + st * W::STEP_BYTES);
+    if (!(cw == 1 && last_item && nsteps == 1)) turn_pass(kTurnBar + (cw ^ 1));
+    wgmma_wait<0>();
+    fence_regs(s);
+    if (nsteps == 1 && tid == 0) mbar_arrive(&q_empty[qb]);  // Q's last S has run
+    float corr[2];
+    softmax_step<TN>(s, m, l, corr, whole, c0, hi, t, scale2);
+    pack_a<T, TN>(pa, s);
+    ++it;
+
+    for (int u = 1; u < nsteps; ++u, ++it) {
+      const int prev = st;  // the stage whose V the pending P V reads
+      st = it % STAGES;
+      mbar_wait(&full[st], (it / STAGES) & 1);
+      whole = query_limits<P>(entries + st * P, cw, causal, row, rw0, c0, hi);
+      // S of this step, then the previous step's P V: the softmax below
+      // runs while P V is on the tensor cores
+      turn_wait(kTurnBar + cw);
+      issue_s<T, D, TN>(s, q_addr, k_base + st * W::STEP_BYTES);
+      issue_pv<T, D, TN>(acc, pa, v_base + prev * W::STEP_BYTES);
+      if (!(cw == 1 && last_item && u == nsteps - 1)) turn_pass(kTurnBar + (cw ^ 1));
+      wgmma_wait<1>();
+      fence_regs(s);
+      if (u == nsteps - 1 && tid == 0) mbar_arrive(&q_empty[qb]);
+      softmax_step<TN>(s, m, l, corr, whole, c0, hi, t, scale2);
+      // P V done: the accumulator is ours again, stage prev free
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(pa);
+      if (tid == 0) mbar_arrive(&empty[prev]);
+      if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {  // a max moved
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          acc[4 * n + 0] *= corr[0];
+          acc[4 * n + 1] *= corr[0];
+          acc[4 * n + 2] *= corr[1];
+          acc[4 * n + 3] *= corr[1];
+        }
+      }
+      pack_a<T, TN>(pa, s);
+    }
+
+    // the last step's P V; its stage goes back to the producer
+    issue_pv<T, D, TN>(acc, pa, v_base + st * W::STEP_BYTES);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(pa);
+    if (tid == 0) mbar_arrive(&empty[st]);
+
+    // a row that kept no score: o = 0, lse = +1e30 (the JAX kernel's poison)
+    float inv[2];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const bool valid = m[hr] > kMasked * 0.5f;
+      const float lc = fmaxf(quad_sum(l[hr]), 1e-30f);
+      inv[hr] = valid ? 1.f / lc : 0.f;
+      if (owned && t == 0)
+        lse[((long long)w.b * p.H + w.h) * p.S + row[hr]] = valid ? m[hr] * kLn2 + logf(lc)
+                                                                  : -kMasked;
+    }
+    if (owned) {
+      // O through shared memory (the 128-byte swizzle: a quad's 4-byte
+      // writes of 8 rows hit distinct banks) and TMA stores, one a column
+      // atom, issued by one thread of the warpgroup
+      unsigned char* ot = Os + cw * W::SUB_BYTES;
+      if (tid == 0) bulk_wait_read();  // this buffer's previous store has read it
+      named_sync(kWgBar + cw, 128);
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int rl = warp * 16 + (lane >> 2) + 8 * hr;  // row within the unit
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          *reinterpret_cast<uint32_t*>(ot + (n / 8) * kRows * 128 + rl * 128 +
+                                       (((n % 8) ^ (rl & 7)) << 4) + 4 * t) =
+              pack2<T>(acc[4 * n + 2 * hr] * inv[hr], acc[4 * n + 2 * hr + 1] * inv[hr]);
+        }
+      }
+      fence_async_smem();
+      named_sync(kWgBar + cw, 128);
+      if (tid == 0) {
+        for (int a = 0; a < W::ATOMS; ++a)
+          tma_store_4d(&to, ot + a * kRows * 128, a * 64, w.h, mine0, w.b);
+        bulk_commit();
+      }
+    }
+    ++ki;
+  }
+  if (tid == 0) bulk_wait();  // the last store is done before the block exits
+}
+
+// q, k, v through TMA maps of 64-row boxes; the plan is dq's (a header a
+// pair of 64-row query units)
+template <typename T, int D>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse,
+                         const int* plan, const BsParams& p, cudaStream_t stream) {
+  constexpr bool half = std::is_same<T, __half>::value;
+  using hopper::make_map;
+  CUtensorMap tq, tk, tv, to;
+  const long long o_ss = (long long)p.H * D;
+  if (plan == nullptr ||
+      !make_map(&tq, half, q, p.B, p.S, p.H, D, p.q_sb, p.q_ss, p.q_sh, kRows) ||
+      !make_map(&tk, half, k, p.B, p.S, p.H, D, p.k_sb, p.k_ss, p.k_sh, kRows) ||
+      !make_map(&tv, half, v, p.B, p.S, p.H, D, p.v_sb, p.v_ss, p.v_sh, kRows) ||
+      !make_map(&to, half, o, p.B, p.S, p.H, D, p.S * o_ss, o_ss, D, kRows))
+    return cudaErrorInvalidValue;
+  const int n_pairs = p.H * ((p.nblk * (p.blk / kRows) + 1) / 2);  // the plan's headers
+  const int n_items = p.B * n_pairs;
+  const unsigned grid = (unsigned)std::min(n_items, hopper::sm_count());
+  auto kern = bs_fwd_wgmma<T, D>;
+  constexpr size_t smem = fwd_smem<T, D>();
+  cudaError_t err = allow_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<grid, WgCfg<T, D>::NT, smem, stream>>>(tq, tk, tv, to, plan, n_pairs, lse, p,
+                                                n_items);
+  return cudaGetLastError();
+}
+
 template <typename T, int D, int TW>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, float* lse,
                        const BsParams& p, cudaStream_t stream) {
@@ -344,25 +723,28 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, flo
   return cudaGetLastError();
 }
 
+// the kernel a shape takes: blocks of 64 and 128 at bf16/fp16 the TMA +
+// wgmma kernel (the dq plan required), blocks of 16 and 32 the mma.sync
+// kernel, fp32 the FMA kernel
 template <typename T, int D>
 cudaError_t by_block(const void* q, const void* k, const void* v, void* o, float* lse,
-                     const BsParams& p, cudaStream_t s) {
+                     const int* plan, const BsParams& p, cudaStream_t s) {
   switch (p.blk) {
     case 16: return launch_mma<T, D, 16>(q, k, v, o, lse, p, s);
     case 32: return launch_mma<T, D, 32>(q, k, v, o, lse, p, s);
-    default: return launch_mma<T, D, 64>(q, k, v, o, lse, p, s);  // 64, 128
+    default: return launch_wgmma<T, D>(q, k, v, o, lse, plan, p, s);  // 64, 128
   }
 }
 
 template <int D>
 cudaError_t dispatch_dtype(int dtype, const void* q, const void* k, const void* v, void* o,
-                           float* lse, const BsParams& p, cudaStream_t s) {
+                           float* lse, const int* plan, const BsParams& p, cudaStream_t s) {
   switch (dtype) {
     case 0:
       return p.blk == 16 ? launch_f32<D, 16>(q, k, v, o, lse, p, s)
                          : launch_f32<D, 32>(q, k, v, o, lse, p, s);
-    case 1: return by_block<__half, D>(q, k, v, o, lse, p, s);
-    case 2: return by_block<__nv_bfloat16, D>(q, k, v, o, lse, p, s);
+    case 1: return by_block<__half, D>(q, k, v, o, lse, plan, p, s);
+    case 2: return by_block<__nv_bfloat16, D>(q, k, v, o, lse, plan, p, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -371,13 +753,18 @@ cudaError_t dispatch_dtype(int dtype, const void* q, const void* k, const void* 
 
 // dtype codes: 0 float32, 1 float16, 2 bfloat16 (q, k, v and o share it).
 // kidx [H, S/blk, maxK] and kcnt [H, S/blk] int32; o [B, S, H, D] and lse
-// [B, H, S] f32 contiguous. Returns the CUDA error of the launch (0 on
-// success), cudaErrorInvalidValue for shapes the kernel does not take
-// (blk outside 16/32/64/128, S not a multiple of blk, D outside 64/128).
-// Asynchronous on `stream`.
+// [B, H, S] f32 contiguous. plan: at bf16/fp16 with blocks of 64 and 128
+// the dq kernel's schedule (int32: H * ceil(S / 128) headers (unit, unit
+// or -1, offset, tile count), heaviest first, then the tile entries; see
+// plan_item), q, k and v then read through TMA maps (positive strides
+// under 2^40 bytes); null on the other routes. Returns the CUDA error of
+// the launch (0 on success), cudaErrorInvalidValue for shapes the kernel
+// does not take (blk outside 16/32/64/128, S not a multiple of blk, D
+// outside 64/128, no plan on the wgmma route). Asynchronous on `stream`.
 extern "C" int block_sparse_attention_fwd_launch(
     const void* q, const void* k, const void* v, void* o, void* lse, const void* kidx,
-    const void* kcnt, int B, int S, int H, int D, int blk, int maxK, long long q_sb,
+    const void* kcnt, const void* plan, int B, int S, int H, int D, int blk, int maxK,
+    long long q_sb,
     long long q_ss, long long q_sh, long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, int causal, float sm_scale, int dtype,
     void* stream) {
@@ -395,9 +782,10 @@ extern "C" int block_sparse_attention_fwd_launch(
   p.scale = sm_scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
+  const int* pl = static_cast<const int*>(plan);
   switch (D) {
-    case 64: return (int)dispatch_dtype<64>(dtype, q, k, v, o, l, p, s);
-    case 128: return (int)dispatch_dtype<128>(dtype, q, k, v, o, l, p, s);
+    case 64: return (int)dispatch_dtype<64>(dtype, q, k, v, o, l, pl, p, s);
+    case 128: return (int)dispatch_dtype<128>(dtype, q, k, v, o, l, pl, p, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

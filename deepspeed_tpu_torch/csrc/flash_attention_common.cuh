@@ -226,6 +226,24 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// the max / sum of N registers as a tree (short dependency chains)
+template <int N>
+__device__ __forceinline__ float tree_max(const float* x) {
+  if constexpr (N == 1) {
+    return x[0];
+  } else {
+    return fmaxf(tree_max<N / 2>(x), tree_max<N / 2>(x + N / 2));
+  }
+}
+template <int N>
+__device__ __forceinline__ float tree_sum(const float* x) {
+  if constexpr (N == 1) {
+    return x[0];
+  } else {
+    return tree_sum<N / 2>(x) + tree_sum<N / 2>(x + N / 2);
+  }
+}
+
 // an f32 accumulator tile of N columns rounded to T as the A fragments of
 // N / 16 k16 steps (n8 tiles 2k and 2k + 1 are step k's)
 template <typename T, int N>

@@ -404,24 +404,6 @@ __device__ __forceinline__ void issue_pv(float (&acc)[D / 2], uint32_t (&pa)[BK 
   fence_regs(pa);
 }
 
-// the max / sum of N registers as a tree (short dependency chains)
-template <int N>
-__device__ __forceinline__ float tree_max(const float* x) {
-  if constexpr (N == 1) {
-    return x[0];
-  } else {
-    return fmaxf(tree_max<N / 2>(x), tree_max<N / 2>(x + N / 2));
-  }
-}
-template <int N>
-__device__ __forceinline__ float tree_sum(const float* x) {
-  if constexpr (N == 1) {
-    return x[0];
-  } else {
-    return tree_sum<N / 2>(x) + tree_sum<N / 2>(x + N / 2);
-  }
-}
-
 // the online softmax of this thread's rows row0 (elements 4n, 4n+1) and
 // row0 + 8 (4n+2, 4n+3) over keys c0 .. c0 + BK - 1, on the raw scores s:
 // masked scores become -inf (only where the tile is not wholly kept), the

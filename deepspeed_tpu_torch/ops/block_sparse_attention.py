@@ -13,12 +13,13 @@ which the dk/dv kernel walks so that both backward kernels write their
 outputs without atomics.
 
 Which kernel a call takes is a rule on shapes alone (:func:`wgmma_route`):
-the backward at bf16/fp16, D 64 or 128 and blocks of 64 or 128 runs the
-TMA + wgmma kernels, whose items (two 64-row units of one head that share
-tiles) are dealt heaviest first by a schedule built here from the layout
-(:func:`bwd_plan`, cached beside the index lists in :class:`IndexLists`);
-blocks of 16 and 32 keep the mma.sync kernels and fp32 the FMA kernels. No
-call falls back from one to another.
+the forward, dq and dk/dv at bf16/fp16, D 64 or 128 and blocks of 64 or
+128 run the TMA + wgmma kernels, whose items (two 64-row units of one head
+that share tiles) are dealt heaviest first by a schedule built here from
+the layout (:func:`bwd_plan`, cached beside the index lists in
+:class:`IndexLists`; the forward walks dq's); blocks of 16 and 32 keep the
+mma.sync kernels and fp32 the FMA kernels. No call falls back from one to
+another.
 
 Layout: q/k/v ``[B, S, H, D]`` with any batch / sequence / head strides and
 a contiguous last dim (so GPT-2's q, k and v stay views of the ``[B, S,
@@ -149,7 +150,10 @@ def _pair_units(walk: np.ndarray):
 def bwd_plan(layout: np.ndarray, block: int, causal: bool, which: str) -> np.ndarray:
     """The wgmma route's schedule of kernel ``which`` ("dq" or "dkv") for one
     batch row → flat int32: ``H * ceil(U / 2)`` headers ``(unit 0, unit 1
-    or -1, offset, tile count)``, then the tile entries.
+    or -1, offset, tile count)``, then the tile entries. The forward walks
+    the same tiles as dq (a query unit's kidx row, cut by the causal rule
+    where a tile starts past the unit's last query), so "dq" is the
+    forward's schedule too: no second plan is built.
 
     An item is two units of one head (numbered ``h * U + u``, U = S / 64,
     paired by :func:`_pair_units` for the tiles they share), the two
@@ -194,9 +198,9 @@ class IndexLists:
     plans: Dict[tuple, torch.Tensor] = field(default_factory=dict, repr=False)
 
     def bwd_plan(self, which: str, causal: bool) -> torch.Tensor:
-        """The schedule of kernel ``which`` ("dq" or "dkv") under ``causal``
-        as an int32 tensor on the lists' device: the same tensor on every
-        call."""
+        """The schedule of kernel ``which`` ("dq", which the forward walks
+        too, or "dkv") under ``causal`` as an int32 tensor on the lists'
+        device: the same tensor on every call."""
         key = (which, bool(causal))
         plan = self.plans.get(key)
         if plan is None:
@@ -382,21 +386,21 @@ def _check(name, q, lists: IndexLists, tensors):
 
 
 def wgmma_route(q, block: int) -> bool:
-    """The backward kernels' rule on shapes alone: q in bf16/fp16 with head
-    dim 64 or 128 and a sparsity block of 64 or 128 takes the TMA + wgmma
-    kernels (q, k, v and dO read through TMA tensor maps, which need
-    positive batch, sequence and head strides under 2^40 bytes); blocks of
-    16 and 32 take the mma.sync kernels (a wgmma M of 64 would span 4 or 2
-    blocks of unrelated lists), fp32 the FMA kernels."""
+    """The kernels' rule on shapes alone (forward, dq and dk/dv alike): q in
+    bf16/fp16 with head dim 64 or 128 and a sparsity block of 64 or 128
+    takes the TMA + wgmma kernels (q, k, v and dO read through TMA tensor
+    maps, which need positive batch, sequence and head strides under 2^40
+    bytes); blocks of 16 and 32 take the mma.sync kernels (a wgmma M of 64
+    would span 4 or 2 blocks of unrelated lists), fp32 the FMA kernels."""
     return q.dtype in TMA_DTYPES and q.shape[-1] in HEAD_DIMS and block in WGMMA_BLOCKS
 
 
-def _plan_ptr(name, which, q, k, v, do, lists: IndexLists, causal) -> int:
+def _plan_ptr(name, which, lists: IndexLists, causal, **tensors) -> int:
     """The schedule's pointer on the wgmma route (after the TMA maps' stride
-    check), 0 on the others."""
-    if not wgmma_route(q, lists.block):
+    check of ``tensors``), 0 on the others."""
+    if not wgmma_route(tensors["q"], lists.block):
         return 0
-    _check_tma(name, {"q": q, "k": k, "v": v, "do": do})
+    _check_tma(name, tensors)
     return lists.bwd_plan(which, causal).data_ptr()
 
 
@@ -416,8 +420,11 @@ def _stream(q) -> int:
 def block_sparse_attention_fwd(q, k, v, lists: IndexLists, causal: bool = False,
                                sm_scale: Optional[float] = None):
     """Launch the forward kernel on ``torch.cuda.current_stream()`` → ``(o
-    [B, S, H, D] contiguous in q.dtype, lse [B, H, S] f32)``. Raises on
-    what the kernel does not take (device, dtype, head dim, block, strides)."""
+    [B, S, H, D] contiguous in q.dtype, lse [B, H, S] f32)``. The kernel is
+    the one :func:`wgmma_route` names for the shape; on the wgmma route it
+    walks dq's cached schedule ``lists.bwd_plan("dq", causal)`` (the same
+    tiles). Raises on what the kernels do not take (device, dtype, head
+    dim, block, strides; on the wgmma route strides a TMA map cannot take)."""
     name = "block_sparse_attention_fwd"
     _check(name, q, lists, {"q": q, "k": k, "v": v})
     B, S, H, D = q.shape
@@ -425,12 +432,13 @@ def block_sparse_attention_fwd(q, k, v, lists: IndexLists, causal: bool = False,
     lse = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
     if B == 0:
         return o, lse
+    plan = _plan_ptr(name, "dq", lists, causal, q=q, k=k, v=v)
     from .op_builder import load
 
     lib = load(name)
     err = lib.block_sparse_attention_fwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        lists.kidx.data_ptr(), lists.kcnt.data_ptr(),
+        lists.kidx.data_ptr(), lists.kcnt.data_ptr(), plan,
         B, S, H, D, lists.block, lists.kidx.shape[2],
         *_strides3(q), *_strides3(k), *_strides3(v),
         int(bool(causal)), ctypes.c_float(_scale(D, sm_scale)), DTYPE_CODES[q.dtype], _stream(q),
@@ -455,7 +463,7 @@ def block_sparse_attention_dq(q, k, v, do, lse, delta, lists: IndexLists, causal
     dq = torch.empty(B, S, H, D, dtype=q.dtype, device=q.device)
     if B == 0:
         return dq
-    plan = _plan_ptr(name, "dq", q, k, v, do, lists, causal)
+    plan = _plan_ptr(name, "dq", lists, causal, q=q, k=k, v=v, do=do)
     from .op_builder import load
 
     lib = load("block_sparse_attention_bwd")
@@ -484,7 +492,7 @@ def block_sparse_attention_dkv(q, k, v, do, lse, delta, lists: IndexLists,
     dv = torch.empty(B, S, H, D, dtype=q.dtype, device=q.device)
     if B == 0:
         return dk, dv
-    plan = _plan_ptr(name, "dkv", q, k, v, do, lists, causal)
+    plan = _plan_ptr(name, "dkv", lists, causal, q=q, k=k, v=v, do=do)
     from .op_builder import load
 
     lib = load("block_sparse_attention_bwd")
@@ -514,6 +522,14 @@ def block_sparse_attention_bwd(q, k, v, o, lse, do, lists: IndexLists, causal: b
 # autograd
 # ---------------------------------------------------------------------------
 
+def _kernel_layouts(*tensors):
+    """The layouts the kernels read (16-byte strides; TMA maps on the wgmma
+    route), not another route: a tensor that has them as it is, else a
+    contiguous copy."""
+    return tuple(x if _strides_ok(x) and _tma_strides_ok(x) else x.contiguous()
+                 for x in tensors)
+
+
 def _on(device, kernel, plain, what):
     if device.type == "cuda":
         return kernel
@@ -537,6 +553,8 @@ class BlockSparseAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, lists, causal, sm_scale):
         fwd = _on(q.device, block_sparse_attention_fwd, block_sparse_attention_fwd_ref,
                   "forward")
+        if q.device.type == "cuda":
+            q, k, v = _kernel_layouts(q, k, v)
         o, lse = fwd(q, k, v, lists, causal, sm_scale)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.opts = (lists, causal, sm_scale)
@@ -548,10 +566,7 @@ class BlockSparseAttention(torch.autograd.Function):
         bwd = _on(q.device, block_sparse_attention_bwd, block_sparse_attention_bwd_ref,
                   "backward")
         if do.device.type == "cuda":
-            # the layouts the kernels read (16-byte strides; TMA maps on the
-            # wgmma route), not another route
-            q, k, v, do = (x if _strides_ok(x) and _tma_strides_ok(x) else x.contiguous()
-                           for x in (q, k, v, do))
+            q, k, v, do = _kernel_layouts(q, k, v, do)
         dq, dk, dv = bwd(q, k, v, o, lse, do, *ctx.opts)
         return dq, dk, dv, None, None, None
 

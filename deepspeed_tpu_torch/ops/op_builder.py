@@ -56,7 +56,7 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "block_sparse_attention_fwd": {
         "block_sparse_attention_fwd_launch": (
-            [_P] * 7                           # q, k, v, o, lse, kidx, kcnt
+            [_P] * 8                           # q, k, v, o, lse, kidx, kcnt, plan
             + [_I] * 6                         # B, S, H, D, block, maxK
             + [_L] * 9                         # q, k, v strides (batch, seq, head)
             + [_I, _F, _I, _P],                # causal, sm_scale, dtype, stream
@@ -104,7 +104,9 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "paged_multitoken_attention": {
         "paged_multitoken_attention_launch": (
             [_P, _P, _P, _P, _P, _P, _P,       # q, k_pool, v_pool, tables, base, scales, out
+             _P, _P, _P,                       # part_ml, part_acc, counters
              _I, _I, _I, _I, _I, _I, _I, _I,   # B, T, H, KV, P, page, n, D
+             _I, _I, _I, _I,                   # heads and tokens a unit, splits, chunk
              _F, _I, _I, _P],                  # sm_scale, q dtype, kv dtype, stream
             ctypes.c_int,
         ),

@@ -1,21 +1,26 @@
 """Device time of the port's attention kernels at the shapes of its paths,
 for comparing two trees of this package on one card: the contiguous decode
 kernel (offline ``generate``), the paged decode kernel in both modes
-(serving's decode and verify), the flash-attention forward and backward
-(GPT-2 and BERT training), and the block-sparse forward, dq and dk/dv at
-``chip_smoke.py`` phase 10's two main shapes (GPT-2 sparse and BERT
-sparse training) and two more.
+(serving's decode and verify), the paged multi-token kernel in both modes
+(serving's chunk program: ``chip_smoke.py`` phase 3b's and 3c's chunk
+shape, the mean over the chunk starts of a 512-token prompt, and one
+longer chunk over a longer cache), the flash-attention forward and
+backward (GPT-2 and BERT training), and the block-sparse forward, dq and
+dk/dv at ``chip_smoke.py`` phase 10's two main shapes (GPT-2 sparse and
+BERT sparse training) and two more.
 
 Usage, on a machine with one CUDA card:
 
     PYTHONPATH=<tree> python <this tree>/deepspeed_tpu_torch/tools/time_attention_kernels.py
         [--label NAME] [--library]
-        [--only decode,paged,flash_fwd,flash_bwd,bsparse_fwd,bsparse_dq,bsparse_dkv]
+        [--only decode,paged,multitoken,multitoken_int8,flash_fwd,flash_bwd,
+                bsparse_fwd,bsparse_dq,bsparse_dkv]
 
 Run as a file (not with ``-m``), so that ``deepspeed_tpu_torch`` is imported
 from ``<tree>``: an unpacked older commit times that commit's kernels through
 the same public wrappers (``ops.decode_attention.decode_attention``,
 ``ops.paged_decode_attention.paged_decode_attention``,
+``ops.paged_multitoken_attention.paged_multitoken_attention``,
 ``ops.flash_attention.flash_attention_fwd`` / ``flash_attention_bwd``,
 ``ops.block_sparse_attention.block_sparse_attention_fwd`` / ``_dq`` /
 ``_dkv`` over ``index_lists``), which build its own sources into its own ``_build/``. Alternate the trees
@@ -23,7 +28,8 @@ within one call (older, newer, newer, older): calls and cards differ by
 several percent. Prints one JSON line: ms per call (device time, CUDA
 events, the host's enqueueing hidden behind a device-side sleep) for each
 case, ``--library`` adds one PyTorch call on the same inputs (SDPA; for the
-paged kernels a page gather and SDPA; for the block-sparse kernels SDPA
+paged kernels a page gather and SDPA, with the position mask for the
+multi-token kernel; for the block-sparse kernels SDPA
 with the layout's dense boolean mask; for a backward SDPA's
 forward+backward for the same grads minus its forward). Inputs come from a seeded generator on
 the card. The time function is the one ``chip_smoke.py`` uses.
@@ -171,6 +177,58 @@ def time_paged(case, library):
     return out
 
 
+# (label, B, T, H, KV, D, page, pool pages, table pages, chunk starts,
+# layers): 3b's and 3c's chunk program (a 64-token chunk of a 512-token
+# prompt against the 36-page table of a 512 + 64-token reservation, 24
+# layers of pools walked in turn, the mean over the chunk starts) and one
+# longer, flop-heavier chunk (512 tokens at 1536 against a 2048-row table)
+MULTITOKEN_CASES = [
+    ("multitoken B1 T64 H16 D64 page16 36 pages, bases 0/64/256/448", 1, 64, 16, 16, 64, 16,
+     512, 36, [0, 64, 256, 448], 24),
+    ("multitoken B1 T512 H16 D64 page16 128 pages, base 1536", 1, 512, 16, 16, 64, 16, 130,
+     128, [1536], 4),
+]
+
+
+def time_multitoken(case, library, int8):
+    from deepspeed_tpu_torch.ops import paged_multitoken_attention as pma
+
+    label, B, T, H, KV, D, page, P, n, bases, L = case
+    label = label.replace("multitoken", "multitoken int8" if int8 else "multitoken bf16")
+    g = torch.Generator(device="cuda").manual_seed(23)
+    q = torch.randn(B, T, H, D, generator=g, device="cuda").to(torch.bfloat16)
+    bt = torch.randperm(P - 1, generator=g, device="cuda")[: B * n].add(1).reshape(B, n).int()
+    base_t = [torch.tensor([b0] * B, dtype=torch.int32, device="cuda") for b0 in bases]
+    nb = len(bases)
+    shape = (L, P, KV, page, D)
+    if int8:
+        k = torch.randint(-127, 128, shape, generator=g, device="cuda").to(torch.int8)
+        v = torch.randint(-127, 128, shape, generator=g, device="cuda").to(torch.int8)
+        sc = torch.rand(L, P, KV, 2, generator=g, device="cuda") * 0.02
+    else:
+        k = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+        v = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+        sc = None
+    kw = (lambda i: {"scales": sc[i % L]}) if int8 else (lambda i: {})
+    out = {label: time_ms(lambda i: pma.paged_multitoken_attention(
+        q, k[i % L], v[i % L], bt, base_t[i % nb], **kw(i)), 480 if T <= 64 else 60)[0]}
+    if library:
+        def lib(i):
+            kd, vd = k[i % L][bt.long()], v[i % L][bt.long()]  # [B, n, KV, page, D]
+            if int8:
+                s = sc[i % L][bt.long()]
+                kd, vd = kd.float() * s[..., 0, None, None], vd.float() * s[..., 1, None, None]
+            kd = kd.to(q.dtype).transpose(2, 3).reshape(B, -1, KV, D).transpose(1, 2)
+            vd = vd.to(q.dtype).transpose(2, 3).reshape(B, -1, KV, D).transpose(1, 2)
+            mask = (torch.arange(kd.shape[2], device="cuda")[None, None, :]
+                    <= base_t[i % nb].long()[:, None, None]
+                    + torch.arange(T, device="cuda")[None, :, None])
+            return F.scaled_dot_product_attention(q.transpose(1, 2), kd, vd,
+                                                  attn_mask=mask[:, None])
+        out[label + " library"] = time_ms(lib, 48 if T <= 64 else 12)[0]
+    return out
+
+
 def time_flash(case, library):
     from deepspeed_tpu_torch.ops import flash_attention as fa
 
@@ -294,6 +352,10 @@ def main(argv=None) -> int:
     times = {}
     for name, cases, fn in (("decode", DECODE_CASES, time_decode),
                             ("paged", PAGED_CASES, time_paged),
+                            ("multitoken", MULTITOKEN_CASES,
+                             lambda case, lib: time_multitoken(case, lib, False)),
+                            ("multitoken_int8", MULTITOKEN_CASES,
+                             lambda case, lib: time_multitoken(case, lib, True)),
                             ("flash_fwd", FLASH_CASES, time_flash),
                             ("flash_bwd", FLASH_BWD_CASES, time_flash_bwd),
                             *((f"bsparse_{w}", BSPARSE_CASES,

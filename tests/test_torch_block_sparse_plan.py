@@ -1,5 +1,7 @@
-"""The block-sparse backward's schedule and walk (the TMA + wgmma route of
-``csrc/block_sparse_attention_bwd.cu``), on the CPU.
+"""The block-sparse kernels' schedule and walks on the TMA + wgmma route
+(``csrc/block_sparse_attention_bwd.cu``: dq, dk/dv;
+``csrc/block_sparse_attention_fwd.cu``: the forward, on dq's schedule), on
+the CPU.
 
 - The host plan (``ops.block_sparse_attention.bwd_plan``): every 64-row
   unit of every head in exactly one item, the two units of an item in one
@@ -20,6 +22,13 @@
   order), and against the JAX package's ``_bwd`` in Pallas interpret mode
   at block 64, S 512, 2 heads (5e-4, the tolerance of
   ``tests/test_torch_block_sparse_attention.py``).
+- A plain model of the forward's walk over dq's plan (:func:`_fwd_walk`:
+  the paired units, each step's tiles masked by the unit's bit and the
+  causal rule with p = 0 and no change of the running max, the online
+  softmax, O and lse stored once) against
+  ``block_sparse_attention_fwd_ref`` in fp32 (1e-5), and against the JAX
+  package's ``_fwd`` in Pallas interpret mode at block 64, S 512, 2 heads,
+  with the custom layout's empty first row (o = 0 and lse = +1e30, exactly).
 
 The kernels themselves run only on the card (``test_torch_cuda_kernels.py``)."""
 
@@ -282,3 +291,94 @@ def test_walk_matches_pallas_interpret(label):
     back = lambda x: np.asarray(x).transpose(0, 2, 1, 3)  # noqa: E731
     for got, ref in zip((dq, dk, dv), grads_j):
         np.testing.assert_allclose(got.numpy(), back(ref), atol=GRAD_TOL, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# a plain model of the forward's walk (on dq's plan)
+# ---------------------------------------------------------------------------
+
+def _fwd_walk(q, k, v, lists, causal, sm_scale, step_tiles):
+    """The forward kernel's walk in plain PyTorch: dq's plan items in order,
+    both units of an item taking each step's ``step_tiles`` tiles, a tile
+    its unit does not walk and the pairs the causal rule drops masked (p = 0,
+    the running max unchanged), the online softmax in f32 from m = -1e30, P
+    rounded to q's dtype for P·V, O and lse stored once; a row that kept no
+    score gets o = 0 and lse = +1e30. → (o in q's dtype, lse)."""
+    B, S, H, D = q.shape
+    U = S // TILE
+    plan = lists.bwd_plan("dq", causal).cpu().numpy()
+    dt = q.dtype
+    o = torch.zeros(B, S, H, D)
+    lse = torch.zeros(B, H, S)
+    for a, b, entries in _items(plan, H, U):
+        for bb in range(B):
+            for c, u in enumerate((a, b)):
+                if u < 0:
+                    continue
+                h, uu = divmod(u, U)
+                rows = torch.arange(uu * TILE, uu * TILE + TILE)
+                qr = q[bb, rows, h].float()
+                m = torch.full((TILE,), -1e30)
+                l = torch.zeros(TILE)
+                acc = torch.zeros(TILE, D)
+                for j in range(0, len(entries), step_tiles):
+                    step = entries[j: j + step_tiles]
+                    cols = torch.cat([torch.arange(e >> 2, (e >> 2) + TILE) for e in step])
+                    mine = torch.cat([torch.full((TILE,), bool((e >> c) & 1)) for e in step])
+                    keep = mine[None, :].expand(TILE, -1)
+                    if causal:
+                        keep = keep & (cols[None, :] <= rows[:, None])
+                    s = (qr @ k[bb, cols, h].float().T * sm_scale).masked_fill(~keep,
+                                                                                float("-inf"))
+                    mn = torch.maximum(m, s.amax(-1))
+                    corr = torch.exp(m - mn)
+                    p = torch.exp(s - mn[:, None])
+                    l = l * corr + p.sum(-1)
+                    acc = acc * corr[:, None] + p.to(dt).float() @ v[bb, cols, h].float()
+                    m = mn
+                valid = m > -0.5e30
+                lc = l.clamp_min(1e-30)
+                o[bb, rows, h] = torch.where(valid[:, None], acc / lc[:, None], 0.0)
+                lse[bb, h, rows] = torch.where(valid, m + torch.log(lc), 1e30)
+    return o.to(dt), lse
+
+
+@pytest.mark.parametrize("step_tiles", [2, 1])
+@pytest.mark.parametrize("label", list(WALK_CASES))
+def test_forward_walk_on_the_dq_plan_matches_the_plain_version(label, step_tiles):
+    make, block, causal = WALK_CASES[label]
+    B, S, H, D = 2, 512, 2, 32
+    lists = tbsa.lists_from_layout(make(H, S), block, "cpu")
+    q, k, v, _ = (torch.from_numpy(x) for x in _qkv(B, S, H, D, seed=block + 3 * causal))
+    o, lse = _fwd_walk(q, k, v, lists, causal, 1.0 / np.sqrt(D), step_tiles)
+    o_r, lse_r = tbsa.block_sparse_attention_fwd_ref(q, k, v, lists, causal)
+    poison = lse_r == 1e30
+    assert torch.equal(lse == 1e30, poison)
+    np.testing.assert_allclose(o.numpy(), o_r.numpy(), atol=WALK_TOL, rtol=0)
+    np.testing.assert_allclose(lse[~poison].numpy(), lse_r[~poison].numpy(), atol=WALK_TOL,
+                               rtol=WALK_TOL)
+
+
+@pytest.mark.parametrize("label", ["gpt2-like fixed blk64 causal", "fixed blk64 bidirectional",
+                                   "custom empty row blk64 causal"])
+def test_forward_walk_matches_pallas_interpret(label):
+    make, block, causal = WALK_CASES[label]
+    B, S, H, D = 1, 512, 2, 32
+    layout = make(H, S)
+    q, k, v, _ = _qkv(B, S, H, D, seed=12)
+    scale = 1.0 / np.sqrt(D)
+    to4 = lambda x: jnp.asarray(x).transpose(0, 2, 1, 3)  # noqa: E731
+    kidx, kcnt, _, _ = map(jnp.asarray, jbsa.layout_to_index_lists(layout))
+    o_j, lse_j = jbsa._fwd(to4(q), to4(k), to4(v), kidx, kcnt, scale, causal, block, True)
+    lists = tbsa.lists_from_layout(layout, block, "cpu")
+    o, lse = _fwd_walk(*(torch.from_numpy(x) for x in (q, k, v)), lists, causal, scale, 2)
+    o_j = np.asarray(o_j).transpose(0, 2, 1, 3)
+    lse_j = np.asarray(lse_j)[..., 0]  # the TPU's 128-lane broadcast
+    np.testing.assert_allclose(o.numpy(), o_j, atol=GRAD_TOL, rtol=0)
+    poison = lse_j >= 1e30
+    np.testing.assert_array_equal(lse.numpy() == 1e30, poison)
+    np.testing.assert_allclose(lse.numpy()[~poison], lse_j[~poison], atol=GRAD_TOL, rtol=0)
+    if label.startswith("custom"):
+        assert poison[:, :, :block].all() and not poison[:, :, block:].any()
+        assert float(o[:, :block].abs().max()) == 0.0
+

@@ -582,6 +582,9 @@ def test_block_sparse_gpt2_main_shape_repeats_bit_for_bit(card):
     _bs_check(q, k, v, do, lists, True)
     plans = (lists.bwd_plan("dq", True), lists.bwd_plan("dkv", True))
     o, lse = bsa.block_sparse_attention_fwd(q, k, v, lists, True)
+    o2, lse2 = bsa.block_sparse_attention_fwd(q, k, v, lists, True)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
     delta = bsa.block_sparse_delta(o, do)
     first = (bsa.block_sparse_attention_dq(q, k, v, do, lse, delta, lists, True),
              *bsa.block_sparse_attention_dkv(q, k, v, do, lse, delta, lists, True))
@@ -590,6 +593,34 @@ def test_block_sparse_gpt2_main_shape_repeats_bit_for_bit(card):
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first, again))
     assert lists.bwd_plan("dq", True) is plans[0] and lists.bwd_plan("dkv", True) is plans[1]
+
+
+# the forward's TMA + wgmma route (bf16/fp16, D 64/128, blocks 64/128) on
+# dq's schedule, q/k/v read as views of one projection
+@pytest.mark.parametrize("kind,B,S,H,D,blk,causal,dtype", [
+    ("fixed", 2, 2048, 4, 64, 128, False, torch.bfloat16),    # blocks of 128, bidirectional
+    ("fixed", 2, 1024, 4, 128, 64, True, torch.float16),      # D128, fp16
+    ("bslongformer", 1, 2048, 4, 128, 128, True, torch.bfloat16),
+    ("bigbird", 2, 1024, 4, 64, 64, False, torch.float16),
+    ("variable", 1, 1024, 4, 64, 64, True, torch.bfloat16),
+    ("fixed", 2, 320, 2, 64, 64, True, torch.bfloat16),       # an odd number of units a head
+])
+def test_block_sparse_wgmma_forward_on_qkv_views(card, kind, B, S, H, D, blk, causal, dtype):
+    q, k, v = _qkv_views(card, B, S, H, H, D, dtype, seed=S + D + blk)
+    assert bsa.wgmma_route(q, blk) and q.stride(1) == 3 * H * D
+    lists = bsa.index_lists(_bs_config(kind, H, blk, causal), S, card)
+    before = bsa.LAUNCHES["block_sparse_attention_fwd"]
+    o, lse = bsa.block_sparse_attention_fwd(q, k, v, lists, causal)
+    o2, lse2 = bsa.block_sparse_attention_fwd(q, k, v, lists, causal)
+    torch.cuda.synchronize()
+    assert bsa.LAUNCHES["block_sparse_attention_fwd"] == before + 2
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)  # bit for bit
+    o_ref, lse_ref = bsa.block_sparse_attention_fwd_ref(q, k, v, lists, causal)
+    poison = lse_ref == 1e30
+    assert torch.equal(lse == 1e30, poison)
+    assert _scaled_err(o, o_ref) <= FLASH_REL_TOL[dtype]
+    assert _scaled_err(lse[~poison], lse_ref[~poison]) <= LSE_REL_TOL
+    assert lists.bwd_plan("dq", causal) is lists.bwd_plan("dq", causal)
 
 
 def test_block_sparse_wgmma_fully_masked_row_gives_zeros(card):
@@ -607,15 +638,21 @@ def test_block_sparse_wgmma_fully_masked_row_gives_zeros(card):
 
 def test_block_sparse_wgmma_refuses_strides_a_tma_map_cannot_take(card):
     """A batch stride of 0 (an expanded tensor): the wgmma route's TMA maps
-    refuse it, the mma.sync route (block 16) reads it; autograd hands the
-    kernels a contiguous copy."""
+    refuse it (the forward's too), the mma.sync route (block 16) reads it;
+    autograd hands the kernels a contiguous copy."""
     S, H, D = 256, 2, 64
     q, k, v, do = _flash_inputs(card, 1, S, H, H, D, torch.bfloat16, seed=8)
     qe, ke, ve, doe = (x.expand(2, S, H, D) for x in (q, k, v, do))
     for blk, refused in ((64, True), (16, False)):
         lists = bsa.index_lists(FixedSparsityConfig(num_heads=H, block=blk,
                                                     attention="unidirectional"), S, card)
-        o, lse = bsa.block_sparse_attention_fwd(qe, ke, ve, lists, True)
+        if refused:
+            with pytest.raises(ValueError, match="TMA"):
+                bsa.block_sparse_attention_fwd(qe, ke, ve, lists, True)
+            o, lse = bsa.block_sparse_attention_fwd(
+                *(x.contiguous() for x in (qe, ke, ve)), lists, True)
+        else:
+            o, lse = bsa.block_sparse_attention_fwd(qe, ke, ve, lists, True)
         delta = bsa.block_sparse_delta(o, doe)
         for fn in (bsa.block_sparse_attention_dq, bsa.block_sparse_attention_dkv):
             if refused:
@@ -995,3 +1032,81 @@ def test_paged_decode_kernel_refuses_a_page_off_the_row_grid(card):
     bt = torch.ones(2, 2, dtype=torch.int32, device=card)
     with pytest.raises(ValueError, match="multiple of 4"):
         pda.paged_decode_attention(q, k, k, bt, torch.zeros(2, dtype=torch.int32, device=card))
+
+
+# ---- the paged multi-token kernel's tensor-core route -----------------------------
+
+def _mt_case(card, B, T, H, KV, D, page, P, n, qdtype, int8, seed):
+    g = torch.Generator(device=card).manual_seed(seed)
+    q = torch.randn(B, T, H, D, generator=g, device=card).to(qdtype)
+    bt = torch.randperm(P - 2, generator=g, device=card)[: B * n].add(2).reshape(B, n).int()
+    if int8:
+        k, v, sc = _int8_pools(card, P, KV, page, D, g)
+        bt[0, 1] = 1  # the fresh page inside slot 0's live range: values 0
+    else:
+        k = torch.randn(P, KV, page, D, generator=g, device=card).to(qdtype)
+        v = torch.randn(P, KV, page, D, generator=g, device=card).to(qdtype)
+        sc = None
+    return q, k, v, sc, bt
+
+
+def _mt_check(q, k, v, sc, bt, base):
+    """The kernel against its plain version, and bit for bit against itself."""
+    kw = {} if sc is None else {"scales": sc}
+    assert pma.tensor_core_route(q, k)
+    out = pma.paged_multitoken_attention(q, k, v, bt, base, **kw)
+    again = pma.paged_multitoken_attention(q, k, v, bt, base, **kw)
+    torch.cuda.synchronize()
+    ref = pma.paged_multitoken_attention_ref(q.float(), k if sc is not None else k.float(),
+                                             v if sc is not None else v.float(), bt, base, **kw)
+    assert torch.isfinite(out.float()).all()
+    assert _max_err(out, ref) <= 1e-2 and _scaled_err(out, ref) <= 1e-2
+    assert torch.equal(out, again)
+    return out
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_paged_multitoken_kernel_at_every_split_edge(card, int8):
+    """3b/3c's chunk shape (B1 T64 H16 D64 bf16, page 16, a 36-page table):
+    the unit's last query on the first and last row of every chunk the plan
+    draws, bases on and off page edges, and past the table."""
+    n, page = 36, 16
+    q, k, v, sc, bt = _mt_case(card, 1, 64, 16, 16, 64, page, 40, n, torch.bfloat16, int8, 11)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    _, _, units, splits, chunk = pma.kernel_plan(1, 64, 16, 16, page, n, sms)
+    assert units * splits >= sms
+    bases = sorted({0, 3, 15, 16, 17, n * page - 64, n * page - 40}
+                   | {max(0, e - 63) for c in range(1, splits) for e in (c * chunk - 1, c * chunk)})
+    for b0 in bases:
+        _mt_check(q, k, v, sc, bt, torch.tensor([b0], dtype=torch.int32, device=card))
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("qdtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("B,T,H,KV,D,page,n", [
+    (4, 5, 16, 4, 64, 16, 8),     # a GQA group stacked: 4 heads x 5 tokens a unit
+    (2, 16, 16, 8, 64, 8, 24),    # page 8
+    (2, 37, 8, 8, 128, 16, 12),   # D128, T off the 16-row grid
+    (2, 100, 8, 2, 128, 32, 12),  # two token tiles a head
+    (3, 20, 4, 4, 64, 48, 6),     # page 48
+])
+def test_paged_multitoken_tensor_core_cases(card, int8, qdtype, B, T, H, KV, D, page, n):
+    P = B * n + 3
+    q, k, v, sc, bt = _mt_case(card, B, T, H, KV, D, page, P, n, qdtype, int8, T + D)
+    bt[B - 1] = 0  # an inactive slot on the scratch page
+    base = torch.tensor([[0, page - 1, page + 3, n * page - T][i % 4] for i in range(B)],
+                        dtype=torch.int32, device=card).clamp_min(0)
+    _mt_check(q, k, v, sc, bt, base)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_paged_multitoken_tensor_core_at_t1_is_the_decode_kernel(card, int8):
+    B, H, KV, D, page, n = 8, 16, 4, 64, 16, 12
+    q, k, v, sc, bt = _mt_case(card, B, 1, H, KV, D, page, 100, n, torch.bfloat16, int8, 9)
+    base = torch.tensor([0, 15, 16, 17, 100, 191, 0, 500], dtype=torch.int32, device=card)
+    mt = _mt_check(q, k, v, sc, bt, base)
+    kw = {} if sc is None else {"scales": sc}
+    st = pda.paged_decode_attention(q[:, 0].contiguous(), k, v, bt, base, **kw)
+    torch.cuda.synchronize()
+    assert _max_err(mt[:, 0], st) <= 1e-2
+

@@ -145,11 +145,43 @@ Phases, in order; any failure raises and the script exits non-zero:
      kernel launched exactly 2 x 10 times, the flash forward and backward
      exactly 24 x 10 each; step ms, tokens/s, peak memory, a profiler pass
      over 2 steps.
-  8  (last, after 15) one JSON line of per-kernel numbers, every kernel and
+  16 the threefry kernel (csrc/threefry.cu) against its plain versions on
+     the card, bit for bit: dropout forward and backward in bf16, fp16 and
+     f32 at phase 6's activation shape [8, 1024, 1024] and at an odd size,
+     rates 0.1 and 0.5; uniform_rows at R1 x n 8*50257 (generate's draw)
+     and R16 x n 50257 (a serving step's), over [0, 1) and [tiny, 1). Each
+     timed with CUDA events beside its plain version, one PyTorch call
+     (F.dropout, torch.rand: other streams of bits, timed only) and the
+     bound (71 instructions an element for dropout, 72 for a uniform, at
+     the card's issue ceiling of 132 x 128 x 1.98e9 a second, against the
+     bytes at 3.35 TB/s).
+  17 phase 6's training at dropout 0.1, 12 steps: losses finite and
+     falling; the dropout launches exactly 2 x (1 + 2 x 24) x gas x 12
+     (derived and printed first), flash and AdamW as in phase 6; step ms
+     beside phase 6's.
+  18 fp32 at gpt2-medium width, 4 layers, dropout 0.1 (phase 7's weights,
+     batch and AdamW): card against CPU, the masks equal bit for bit, so
+     phase 7's tolerance holds.
+  19 weight-only int8: gpt2-medium through init_inference(dtype="int8"),
+     phase 3's 16 requests at 1 group and at quantization_setting 64, and
+     3c's traffic and features with int8 KV pages; every request finished,
+     launches exact, weight bytes against bf16's, decode tokens/s, TPOT and
+     TTFT beside phase 3's and 3c's. Then fp32 compute over int8 codes at 4
+     layers: the codes equal on the card and the CPU, greedy streams (fp32
+     and int8 pages) and generate's tokens equal under phase 4's tie rule.
+  20 sampled streams (temperature 0.8, top-k 50, top-p 0.95): fp32 at 4
+     layers, serving (default; chunked prefill with the prefix cache) and
+     generate, card against CPU, identical except at a tie of the sampler
+     (top-2 margin of gumbel + masked logits / T below 1e-4 at the first
+     differing token); bf16 at full width, 16 sampled requests all
+     finished with one uniform_rows launch a prefill and a decode step, and
+     generate B8 128 + 64 with 64.
+  8  (last, after 20) one JSON line of per-kernel numbers, every kernel and
      mode with its launches on the path that ported it (the block-sparse
-     kernels: phase 11's; fused AdamW: phase 6's; fused LAMB: phase 15's),
-     then the last line {"ok": true, "device": {...}} with "count": 1, the
-     cards the run used.
+     kernels: phase 11's; fused AdamW: phase 6's; fused LAMB: phase 15's;
+     the threefry dropout: phase 17's; uniform_rows: phase 20's bf16
+     serving), then the last line {"ok": true, "device": {...}} with
+     "count": 1, the cards the run used.
 
 Without a CUDA device it exits 1 before printing any result. It imports
 nothing of JAX or of the JAX package.
@@ -173,11 +205,14 @@ import deepspeed_tpu_torch as dtt
 from deepspeed_tpu_torch.models import bert, gpt2
 from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
 from deepspeed_tpu_torch.ops import decode_attention as tda
+from deepspeed_tpu_torch.ops import dropout as tdo
 from deepspeed_tpu_torch.ops import flash_attention as fa
 from deepspeed_tpu_torch.ops import fused_adam as fadam
 from deepspeed_tpu_torch.ops import op_builder
 from deepspeed_tpu_torch.ops import paged_decode_attention as pda
 from deepspeed_tpu_torch.ops import paged_multitoken_attention as pma
+from deepspeed_tpu_torch.ops import prng
+from deepspeed_tpu_torch.ops import sampling as tsamp
 from deepspeed_tpu_torch.ops import sparse_attention as sac
 from deepspeed_tpu_torch.ops.attention import gather_pool_pages
 from deepspeed_tpu_torch.ops.quantizer import quantize_kv_pages
@@ -946,6 +981,470 @@ def optimizer_kernels_phase(device="cuda", gpt_name="gpt2-medium", bert_name="be
     return errs14, times14
 
 
+# ---------------------------------------------------------------------------
+# phase 16-20 helpers
+# ---------------------------------------------------------------------------
+
+# The card's ceiling for 32-bit lane instructions of any kind: 4
+# schedulers an SM each issue one warp instruction a clock, 128 thread
+# instructions a clock on 132 SMs at 1.98 GHz, the f32 peak of 67 TFLOP/s
+# counted as FMAs. No assignment of the threefry kernel's integer work to
+# pipes (the 64 INT32 lanes, adds moved to the FMA pipe as IMAD) beats it.
+ISSUE_OPS_PER_S = PEAK_OPS_PER_S[torch.float32] / 2
+# instructions an element needs, counted from the function: threefry2x32 of
+# one counter pair is 20 rounds x (add, rotate, xor) = 60; the counter plus
+# the key, 2 adds of which x0's folds into round 1's add (a three-input
+# IADD3) = 1; 5 key injections x 2 adds, of which the 4 into x0 before a
+# round fold into its add = 6; the final x0 ^ x1 = 1 -> 68. Loop, index and
+# address arithmetic and 16-bit conversions are not counted (a floor).
+THREEFRY_HASH_OPS = 20 * 3 + 1 + 6 + 1
+# dropout adds the keep test, the quotient and the select; a uniform the
+# mantissa (shift and or, one LEA.HI), the subtract of 1, the fma and the max
+THREEFRY_OPS = {"dropout": THREEFRY_HASH_OPS + 3, "uniform_rows": THREEFRY_HASH_OPS + 4}
+SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.95)
+
+
+def reset_threefry_launches():
+    for k in prng.LAUNCHES:
+        prng.LAUNCHES[k] = 0
+
+
+def threefry_bound(entry, elements, bytes_moved):
+    """(bound ms, what bounds it) for ``elements`` drawn by ``entry``
+    (``THREEFRY_OPS``) and ``bytes_moved`` read and written once."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = elements * THREEFRY_OPS[entry] / ISSUE_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def dropout_launches_per_pass(n_layer):
+    """The dropouts of one GPT-2 forward: the embedding's, then the
+    attention output's and the MLP output's in every layer."""
+    return 1 + 2 * n_layer
+
+
+def sampled_margin(cpu_eng, prefix, key, row=0, rows=1):
+    """The sampler's top-2 margin for the token after ``prefix`` on the CPU
+    engine: its perturbed scores, gumbel(key) + the masked logits / T, row
+    ``row`` of a ``[rows, V]`` draw. A token that differs between two runs
+    is a tie when this margin is below TIE_MARGIN."""
+    logits = cpu_eng.forward({"input_ids": np.asarray(prefix)[None]})[:, -1].float()
+    lg = logits / torch.tensor(SAMPLING["temperature"], dtype=torch.float32)
+    lg = tsamp.top_p_mask(tsamp.top_k_mask(lg, SAMPLING["top_k"]), SAMPLING["top_p"])
+    g = prng.gumbel(key, (rows, lg.shape[-1]))[row]
+    top2 = torch.topk(g + lg[0], 2).values
+    return float(top2[0] - top2[1])
+
+
+def request_key(seed, budget, t):
+    """The key that draws a request's token t (the serving schedule)."""
+    if t == 0:
+        return prng.PRNGKey(seed)
+    return prng.split(prng.fold_in(prng.PRNGKey(seed), 1), budget - 1)[t - 1]
+
+
+def compare_sampled_streams(label, card, cpu, cpu_eng):
+    """Sampled serving streams [(request, budget)] of the card and the CPU:
+    identical, or a tie at the first differing token (the sampler's top-2
+    margin below TIE_MARGIN). → ties."""
+    ties = 0
+    for i, ((a, budget), (b, _)) in enumerate(zip(card, cpu)):
+        if a.tokens == b.tokens:
+            continue
+        t = next(j for j, (x, y) in enumerate(zip(a.tokens, b.tokens)) if x != y)
+        prefix = list(np.asarray(a.prompt)) + a.tokens[:t]
+        margin = sampled_margin(cpu_eng, prefix, request_key(a.seed, budget, t))
+        print(f"{label}: request {i}: streams differ at token {t}, sampler top-2 margin "
+              f"{margin:.3e}")
+        check(margin < TIE_MARGIN, f"{label}: request {i} differs at token {t} with margin "
+                                   f"{margin:.3e} >= {TIE_MARGIN} (not a tie)")
+        ties += 1
+    print(f"{label}: {len(card) - ties} of {len(card)} identical, {ties} ties, "
+          f"{sum(len(r.tokens) for r, _ in card)} tokens compared")
+    return ties
+
+
+def compare_sampled_generated(label, a, b, prompt_len, seed, cpu_eng):
+    """Two sampled ``generate`` outputs ``[B, S + new]`` (one key for the
+    batch a step): rows identical or a tie, as above. → ties."""
+    ties = 0
+    rows, new = a.shape[0], a.shape[1] - prompt_len
+    for r in range(rows):
+        if np.array_equal(a[r], b[r]):
+            continue
+        t = int(np.nonzero(a[r] != b[r])[0][0]) - prompt_len
+        key = (prng.PRNGKey(seed) if t == 0
+               else prng.split(prng.fold_in(prng.PRNGKey(seed), 1), new - 1)[t - 1])
+        margin = sampled_margin(cpu_eng, a[r, :prompt_len + t], key, r, rows)
+        print(f"{label}: row {r}: differs at new token {t}, sampler top-2 margin {margin:.3e}")
+        check(margin < TIE_MARGIN, f"{label}: row {r} differs with margin {margin:.3e} >= "
+                                   f"{TIE_MARGIN} (not a tie)")
+        ties += 1
+    print(f"{label}: {rows - ties} of {rows} rows identical, {ties} ties, {rows * new} tokens "
+          "compared")
+    return ties
+
+
+def tree_bytes(tree):
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def named_leaves(tree, prefix=""):
+    """{path: tensor} of a parameter tree, a quantized weight's fields
+    included."""
+    if isinstance(tree, dict):
+        return {name: leaf for k, v in tree.items()
+                for name, leaf in named_leaves(v, f"{prefix}{k}/").items()}
+    if isinstance(tree, tuple):
+        return {f"{prefix}{f}": v for f, v in zip(tree._fields, tree)}
+    return {prefix[:-1]: tree}
+
+
+def serve_phase(label, eng, section, traffic, vocab):
+    """Serve ``traffic(srv)`` → (stats, requests): every request finished
+    with its budget, no leaked pages (the prefix index released)."""
+    srv = eng.serve(section)
+    reqs = traffic(srv)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = srv.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = srv.stats()
+    check(len(done) == len(reqs), f"{label}: {len(done)} of {len(reqs)} requests completed")
+    for req, budget in reqs:
+        check(req.status == RequestStatus.FINISHED and len(req.tokens) == budget
+              and all(0 <= x < vocab for x in req.tokens),
+              f"{label}: request {req.id}: {req.status} {req.detail}, {len(req.tokens)} of "
+              f"{budget} tokens")
+    srv.check_no_leaks()
+    srv.release_prefix_cache()
+    srv.allocator.check_no_leaks()
+    st["wall_s"] = wall
+    return st, reqs
+
+
+def serving_numbers(st):
+    return (f"decode tokens/s {st['decode_tokens_per_s']:.1f}, TPOT p50 "
+            f"{st['tpot']['p50_s'] * 1e3:.3f} ms, TTFT p50 {st['ttft']['p50_s'] * 1e3:.2f} ms, "
+            f"wall {st['wall_s']:.3f} s")
+
+
+def four_layer_tree(seed=7):
+    """gpt2-medium width at 4 layers, seeded fp32 weights as numpy (phase
+    4's and 9's tree for seed 7)."""
+    cfg4 = gpt2.get_config("gpt2-medium", n_layer=4)
+    return cfg4, params_to_numpy(gpt2.init_params(
+        cfg4, torch.Generator(device="cuda").manual_seed(seed), "cuda", torch.float32))
+
+
+def threefry_kernels_phase():
+    """Phase 16: the dropout kernel (forward and backward) and uniform_rows
+    against their plain versions on the card, bit for bit, then timed. →
+    {"dropout": numbers, "uniform_rows": numbers} at the main shapes."""
+    S16 = (8, 1024, 1024)  # phase 6's activations: micro 8 x S1024 x E1024
+    g = torch.Generator(device="cuda").manual_seed(16)
+    key = prng.fold_in(prng.PRNGKey(1), 16)
+    drop_err = uni_err = 0.0
+    for shape in (S16, (3, 1001, 7)):
+        for dt in (torch.bfloat16, torch.float16, torch.float32):
+            x = torch.randn(shape, generator=g, device="cuda").to(dt)
+            dy = torch.randn(shape, generator=g, device="cuda").to(dt)
+            for rate in (0.1, 0.5):
+                xg = x.clone().requires_grad_(True)
+                y = tdo.dropout(xg, key, rate)
+                (gx,) = torch.autograd.grad(y, xg, dy)
+                y_ref, g_ref = tdo.dropout_ref(x, key, rate), tdo.dropout_ref(dy, key, rate)
+                torch.cuda.synchronize()
+                y = y.detach()
+                drop_err = max(drop_err, float((y.float() - y_ref.float()).abs().max()),
+                               float((gx.float() - g_ref.float()).abs().max()))
+                check(torch.equal(y, y_ref) and torch.equal(gx, g_ref),
+                      f"dropout {shape} {dt} rate {rate}: kernel differs from its plain version "
+                      f"(forward {int((y != y_ref).sum())}, backward {int((gx != g_ref).sum())} "
+                      "elements)")
+                print(f"dropout {shape} {str(dt).replace('torch.', '')} rate {rate}: forward and "
+                      f"backward equal to the plain version bit for bit, kept "
+                      f"{float((y_ref != 0).float().mean()):.5f}")
+    out = {}
+    x = torch.randn(S16, generator=g, device="cuda").to(torch.bfloat16)
+    ms, _ = time_ms(lambda i: prng.dropout_kernel(x, key, 0.1), 50)
+    plain_ms, _ = time_ms(lambda i: tdo.dropout_ref(x, key, 0.1), 5, warmup=2)
+    lib_ms, _ = time_ms(lambda i: F.dropout(x, 0.1, training=True), 50)
+    nbytes = 2 * x.numel() * x.element_size()
+    bound, by = threefry_bound("dropout", x.numel(), nbytes)
+    out["dropout"] = dict(max_abs_err=drop_err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                          bound_by=by, library_ms=lib_ms)
+    print(f"dropout bf16 {S16} rate 0.1, device ms per call: kernel {ms:.4f}, plain "
+          f"{plain_ms:.4f}, library (F.dropout, another stream of bits) {lib_ms:.4f}, bound "
+          f"{bound:.5f} ({by}: {THREEFRY_OPS['dropout']} instructions an element at "
+          f"{ISSUE_OPS_PER_S:.4e}/s; {nbytes} bytes at 3.35 TB/s); kernel at "
+          f"{bound / ms:.3f} of bound")
+    del x
+    V = 50257
+    for R, n in ((1, 8 * V), (16, V)):
+        keys = prng.split(prng.PRNGKey(R), R)
+        for lo in (0.0, prng.TINY_F32):
+            got = prng.uniform_rows_kernel(keys, n, lo, 1.0, "cuda")
+            ref = prng.uniform_rows_ref(keys, n, lo, 1.0, "cuda")
+            uni_err = max(uni_err, float((got - ref).abs().max()))
+            check(torch.equal(got, ref), f"uniform_rows R{R} n{n} min {lo}: kernel differs from "
+                                         f"its plain version ({int((got != ref).sum())} elements)")
+        ms, _ = time_ms(lambda i: prng.uniform_rows_kernel(keys, n, prng.TINY_F32, 1.0, "cuda"), 50)
+        plain_ms, _ = time_ms(lambda i: prng.uniform_rows_ref(keys, n, prng.TINY_F32, 1.0,
+                                                              "cuda"), 5, warmup=2)
+        lib_ms, _ = time_ms(lambda i: torch.rand(R, n, device="cuda"), 50)
+        bound, by = threefry_bound("uniform_rows", R * n, 4 * R * n + 8 * R)
+        if R == 16:  # a serving step's draw at 16 slots: the main shape
+            out["uniform_rows"] = dict(max_abs_err=uni_err, ms=ms, plain_ms=plain_ms,
+                                       bound_ms=bound, bound_by=by, library_ms=lib_ms)
+        print(f"uniform_rows R{R} x n{n} (min 0 and tiny: equal to the plain version bit for "
+              f"bit), device ms per call: kernel {ms:.4f}, plain {plain_ms:.4f}, library "
+              f"(torch.rand, another stream) {lib_ms:.4f}, bound {bound:.5f} ({by}: "
+              f"{THREEFRY_OPS['uniform_rows']} instructions an element); kernel at "
+              f"{bound / ms:.3f} of bound")
+    return out
+
+
+def dropout_training_phase(step_ms_ref=None, steps=12):
+    """Phase 17: phase 6's training at dropout 0.1: losses finite and
+    falling, the dropout launches exact, flash and AdamW as in phase 6. →
+    the dropout launches."""
+    cfg = gpt2.get_config("gpt2-medium", dropout=0.1)
+    conf = train_config(micro=8, gas=2)
+    eng, _, _, _ = dtt.initialize(model=gpt2.make_module(cfg), config=conf, seed=0)
+    S = cfg.n_positions
+    batch = {"input_ids": np.random.RandomState(5).randint(
+        0, cfg.vocab_size, (eng.train_batch_size, S)).astype(np.int32)}  # phase 6's batch
+    gas = eng.gradient_accumulation_steps
+    per_pass = dropout_launches_per_pass(cfg.n_layer)
+    want = 2 * per_pass * gas * steps
+    print(f"expected dropout launches: {per_pass} a micro-batch forward (1 embedding + 2 x "
+          f"{cfg.n_layer} layers), the same in the backward, x {gas} micro-batches x {steps} "
+          f"steps = {want} (no remat: nothing recomputed)")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_flash_launches()
+    reset_optimizer_launches()
+    reset_threefry_launches()
+    losses, step_s = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(eng.train_batch(batch)["loss"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    launches = prng.LAUNCHES["threefry_dropout"]
+    fwd, bwd = fa.LAUNCHES["flash_attention_fwd"], fa.LAUNCHES["flash_attention_bwd"]
+    check_optimizer_launches("phase 17", steps)
+    check(all(np.isfinite(losses)), f"phase 17: non-finite losses {losses}")
+    check(losses[-1] < losses[0], f"phase 17: loss did not fall: {losses}")
+    check(launches == want, f"phase 17: dropout launches {launches} != {want}")
+    check(prng.LAUNCHES["threefry_uniform_rows"] == 0, "phase 17: uniform_rows launched")
+    want_flash = cfg.n_layer * gas * steps
+    check(fwd == want_flash and bwd == want_flash,
+          f"phase 17: flash launches {fwd} / {bwd}, expected {want_flash} each")
+    step_ms = statistics.median(step_s[2:]) * 1e3
+    tokens = eng.train_batch_size * S
+    print("losses " + " ".join(f"{x:.4f}" for x in losses))
+    print(f"dropout launches {launches} (= {want}); flash {fwd} / {bwd} (= {want_flash} each); "
+          f"fused AdamW {steps}")
+    print(f"step ms (median of steps 3-{steps}) {step_ms:.2f} at dropout 0.1"
+          + ("" if step_ms_ref is None else
+             f" against {step_ms_ref:.2f} without (phase 6, this call)")
+          + "; steps " + " ".join(f"{x * 1e3:.1f}" for x in step_s)
+          + f"; tokens/s {tokens / (step_ms / 1e3):.1f}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return launches
+
+
+def dropout_card_cpu_phase():
+    """Phase 18: fp32 at gpt2-medium width, 4 layers, dropout 0.1 (phase 7's
+    weights, batch and AdamW): the card's losses against the CPU's, the
+    masks equal bit for bit, so phase 7's tolerance holds."""
+    cfg = gpt2.get_config("gpt2-medium", n_layer=4, dropout=0.1)
+    _, tree = four_layer_tree(seed=11)
+    batch = {"input_ids": np.random.RandomState(7).randint(
+        0, cfg.vocab_size, (4, 256)).astype(np.int32)}
+    conf = train_config(micro=2, gas=2)
+    conf.pop("bf16")
+    want = 2 * dropout_launches_per_pass(cfg.n_layer) * 2 * 3
+    losses = {}
+    for dev in ("cuda", "cpu"):
+        reset_threefry_launches()
+        eng, _, _, _ = dtt.initialize(model=gpt2.make_module(cfg), config=conf,
+                                      model_parameters=params_from_numpy(tree, dev), device=dev)
+        losses[dev] = [float(eng.train_batch(batch)["loss"]) for _ in range(3)]
+        got = prng.LAUNCHES["threefry_dropout"]
+        check(got == (want if dev == "cuda" else 0),
+              f"phase 18 {dev} run: dropout launches {got}")
+        del eng
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"])]
+    print("losses card " + " ".join(f"{x:.7f}" for x in losses["cuda"]) + ", CPU "
+          + " ".join(f"{x:.7f}" for x in losses["cpu"]) + ", relative differences "
+          + " ".join(f"{x:.3e}" for x in rel) + f"; dropout launches on the card {want}")
+    check(rel[0] <= 1e-5, f"phase 18: step-1 loss card vs CPU: relative {rel[0]} > 1e-5")
+    check(max(rel[1:]) <= 1e-4, f"phase 18: later losses card vs CPU: relative {rel} > 1e-4")
+
+
+def int8_weights_phase(st_3=None, st_3c=None):
+    """Phase 19: weight-only int8 serving at full width (phase 3's traffic
+    at 1 and 64 groups, 3c's features with int8 KV pages), then fp32
+    compute over int8 codes at 4 layers, card against CPU."""
+    cfg = gpt2.get_config("gpt2-medium")
+    spec_k = FEATURES_SECTION["speculative"]["k"]
+    for label, conf in (("1 group", None), ("quantization_setting 64",
+                                            {"quantization_setting": 64})):
+        eng = dtt.init_inference(cfg, dtype="int8", seed=0, config=conf)
+        groups = 1 if conf is None else 64
+        w = eng.params["blocks"]["mlp"]["c_fc_w"]
+        check(eng.quantized and eng.dtype == torch.bfloat16 and w.q.dtype == torch.int8
+              and w.q.shape[1] == groups, f"phase 19 {label}: {w.q.shape}")
+        qbytes = tree_bytes(eng.params)
+        # the bf16 tree: 2 bytes for each code's weight and each other
+        # element; the [L, G, 1, O] scales exist only beside the codes
+        bf16_bytes = sum(t.numel() * 2 for t in tree_leaves(eng.params)
+                         if t.dtype == torch.int8 or t.dim() != 4)
+        pda.LAUNCHES = pda.LAUNCHES_INT8 = 0
+        torch.cuda.reset_peak_memory_stats()
+        st, _ = serve_phase(f"phase 19 {label}", eng, None,
+                            lambda s: mixed_requests(s, 16, cfg.vocab_size, seed=1234),
+                            cfg.vocab_size)
+        check(pda.LAUNCHES == cfg.n_layer * st["decode_steps"],
+              f"phase 19 {label}: decode launches {pda.LAUNCHES} != {cfg.n_layer} x "
+              f"{st['decode_steps']}")
+        print(f"int8 weights, {label}: weight bytes {qbytes} against bf16 {bf16_bytes} "
+              f"({qbytes / bf16_bytes:.4f}); 16 of 16 finished; decode launches {pda.LAUNCHES} "
+              f"(= {cfg.n_layer} x {st['decode_steps']}); " + serving_numbers(st)
+              + ("" if st_3 is None else
+                 f" (phase 3, bf16 weights, this call: {serving_numbers(st_3)})")
+              + f"; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if conf is None:
+            pda.LAUNCHES = pda.LAUNCHES_INT8 = 0
+            pma.LAUNCHES = pma.LAUNCHES_INT8 = 0
+            stc, _ = serve_phase(
+                "phase 19 int8 weights + 3c", eng, dict(FEATURES_SECTION, kv_cache_dtype="int8"),
+                lambda s: shared_prefix_requests(s, cfg.vocab_size, seed=4321, n_shared=8,
+                                                 n_cold=8, system_len=256, tails=(8, 128),
+                                                 cold_lens=(64, 512), budgets=(16, 64)),
+                cfg.vocab_size)
+            check(stc["prefix_hits_partial"] + stc["prefix_hits_full"] > 0
+                  and pma.LAUNCHES_INT8 == cfg.n_layer * stc["chunk_prefills"]
+                  and pda.LAUNCHES_INT8 == cfg.n_layer * (spec_k + 1) * stc["spec_steps"]
+                  and pda.LAUNCHES + pma.LAUNCHES == 0,
+                  f"phase 19 int8 weights + 3c: {stc}, launches {pda.LAUNCHES_INT8} "
+                  f"{pma.LAUNCHES_INT8}")
+            print(f"int8 weights + int8 KV pages + 3c's features: 16 of 16 finished, prefix hits "
+                  f"{stc['prefix_hits_partial'] + stc['prefix_hits_full']}, int8 launches "
+                  f"multitoken {pma.LAUNCHES_INT8} (= {cfg.n_layer} x {stc['chunk_prefills']}), "
+                  f"decode {pda.LAUNCHES_INT8} (= {cfg.n_layer} x {spec_k + 1} x "
+                  f"{stc['spec_steps']}); " + serving_numbers(stc)
+                  + ("" if st_3c is None else f" (3c, bf16 weights: {serving_numbers(st_3c)})"))
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    # fp32 compute over int8 codes (64 groups) at gpt2-medium width, 4
+    # layers: the card's codes equal the CPU's, and the greedy streams
+    # (fp32 and int8 KV pages) and generate's tokens match under the tie rule
+    cfg4, tree = four_layer_tree()
+    engs = {dev: dtt.init_inference(cfg4, params=params_from_numpy(tree, dev),
+                                    dtype=torch.float32, device=dev,
+                                    config={"quantization_setting": 64})
+            for dev in ("cuda", "cpu")}
+    card, cpu = named_leaves(engs["cuda"].params), named_leaves(engs["cpu"].params)
+    check(card.keys() == cpu.keys() and all(torch.equal(card[k].cpu(), cpu[k]) for k in card),
+          "phase 19: the card's int8 codes or scales differ from the CPU's")
+    print(f"int8 codes and scales of {len(card)} leaves equal on the card and the CPU")
+    for kv in (None, "int8"):
+        streams = {}
+        for dev in ("cuda", "cpu"):
+            s = engs[dev].serve(None if kv is None else {"kv_cache_dtype": kv},
+                                track_margins=True)
+            rq = mixed_requests(s, 8, cfg4.vocab_size, seed=99)
+            s.run()
+            s.check_no_leaks()
+            streams[dev] = [r for r, _ in rq]
+        compare_streams(f"int8 weights (64 groups, fp32 compute), KV {kv or 'fp32'}, card vs CPU",
+                        streams["cuda"], streams["cpu"])
+    ids = np.random.RandomState(19).randint(0, cfg4.vocab_size, (4, 100)).astype(np.int32)
+    compare_generated("int8 weights generate, card vs CPU", engs["cpu"],
+                      engs["cuda"].generate(ids, max_new_tokens=32),
+                      engs["cpu"].generate(ids, max_new_tokens=32), 100, TIE_MARGIN)
+
+
+def sampled_phase(st_3=None):
+    """Phase 20: sampled serving and generate, fp32 at 4 layers card
+    against CPU under the sampler's tie rule, then bf16 at full width with
+    exact uniform_rows launches. → the serving run's uniform_rows launches."""
+    cfg4, tree = four_layer_tree()
+    runs, engs = {}, {}
+    for dev in ("cuda", "cpu"):
+        engs[dev] = dtt.init_inference(cfg4, params=params_from_numpy(tree, dev),
+                                       dtype=torch.float32, device=dev)
+        for name, section in (("default", {}), ("chunked + prefix cache",
+                                                {"max_slots": 4, "prefill_chunk_tokens": 32,
+                                                 "prefix_cache": {"enabled": True}})):
+            s = engs[dev].serve(dict(section, **SAMPLING))
+            rq = (mixed_requests(s, 8, cfg4.vocab_size, seed=99) if name == "default" else
+                  shared_prefix_requests(s, cfg4.vocab_size, seed=77, n_shared=4, n_cold=4,
+                                         system_len=64, tails=(1, 64), cold_lens=(8, 128),
+                                         budgets=(16, 64)))
+            s.run()
+            s.check_no_leaks()
+            for req, budget in rq:
+                check(req.status == RequestStatus.FINISHED and len(req.tokens) == budget,
+                      f"phase 20 {dev} {name}: request {req.id} {req.status}")
+            runs[dev, name] = rq
+    for name in ("default", "chunked + prefix cache"):
+        compare_sampled_streams(f"sampled fp32 serving, {name}, card vs CPU",
+                                runs["cuda", name], runs["cpu", name], engs["cpu"])
+    ids = np.random.RandomState(20).randint(0, cfg4.vocab_size, (4, 100)).astype(np.int32)
+    compare_sampled_generated("sampled fp32 generate, card vs CPU",
+                              engs["cuda"].generate(ids, max_new_tokens=32, seed=5, **SAMPLING),
+                              engs["cpu"].generate(ids, max_new_tokens=32, seed=5, **SAMPLING),
+                              100, 5, engs["cpu"])
+    del engs
+    gc.collect()
+    # bf16 at full width: every request finishes; one uniform_rows launch
+    # for each sampled token step (a prefill, a decode step, a generate step)
+    eng = dtt.init_inference("gpt2-medium", seed=0)
+    vocab, L = eng.model_config.vocab_size, eng.model_config.n_layer
+    srv = eng.serve(dict(SAMPLING))
+    reqs = mixed_requests(srv, 16, vocab, seed=1234)  # phase 3's traffic, sampled
+    torch.cuda.synchronize()
+    reset_threefry_launches()
+    pda.LAUNCHES = 0
+    t0 = time.perf_counter()
+    done = srv.run()
+    torch.cuda.synchronize()
+    st = dict(srv.stats(), wall_s=time.perf_counter() - t0)
+    launches = prng.LAUNCHES["threefry_uniform_rows"]
+    check(len(done) == 16 and all(r.status == RequestStatus.FINISHED and len(r.tokens) == b
+                                  and all(0 <= x < vocab for x in r.tokens) for r, b in reqs),
+          f"phase 20: {len(done)} of 16 finished")
+    srv.check_no_leaks()
+    check(launches == st["decode_steps"] + st["prefills"]
+          and pda.LAUNCHES == L * st["decode_steps"] and prng.LAUNCHES["threefry_dropout"] == 0,
+          f"phase 20: uniform_rows launches {launches} != decode steps {st['decode_steps']} + "
+          f"prefills {st['prefills']}; decode {pda.LAUNCHES}")
+    print(f"sampled bf16 serving: 16 of 16 finished; uniform_rows launches {launches} (= "
+          f"{st['decode_steps']} decode steps + {st['prefills']} prefills), decode kernel "
+          f"{pda.LAUNCHES}; " + serving_numbers(st)
+          + ("" if st_3 is None else f" (greedy, phase 3: {serving_numbers(st_3)})"))
+    del srv
+    ids = np.random.RandomState(21).randint(0, vocab, (8, 128)).astype(np.int32)
+    eng.generate(ids, max_new_tokens=64, seed=3, **SAMPLING)  # warm-up
+    reset_threefry_launches()
+    t0 = time.perf_counter()
+    out = eng.generate(ids, max_new_tokens=64, seed=3, **SAMPLING)
+    wall = time.perf_counter() - t0
+    check(out.shape == (8, 192) and prng.LAUNCHES["threefry_uniform_rows"] == 64
+          and ((out[:, 128:] >= 0) & (out[:, 128:] < vocab)).all(),
+          f"phase 20 generate: {out.shape}, launches {prng.LAUNCHES}")
+    print(f"sampled bf16 generate B8 128 + 64: uniform_rows launches 64 (one a token step), "
+          f"{wall * 1e3 / 64:.3f} ms per generated token")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; the port's smoke run needs the card",
@@ -1418,6 +1917,7 @@ def main() -> int:
           f"the token read), tokens/s end to end {st['tokens_per_s']:.1f}, "
           f"TTFT p50 {st['ttft']['p50_s'] * 1e3:.2f} ms, TPOT p50 {st['tpot']['p50_s'] * 1e3:.3f} ms, "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    st_3 = dict(st, wall_s=wall)
     del srv
 
     phase("3b", "serve gpt2-medium bf16 with speculation, the prefix cache and chunked "
@@ -1532,6 +2032,7 @@ def main() -> int:
           f"{st['ttft']['p50_s'] * 1e3:.2f} ms (3b: {st_3b['ttft']['p50_s'] * 1e3:.2f}), TPOT p50 "
           f"{st['tpot']['p50_s'] * 1e3:.3f} ms (3b: {st_3b['tpot']['p50_s'] * 1e3:.3f}), peak "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    st_3c = dict(st, wall_s=wall)
     del srv, eng
 
     phase(4, "fp32 streams: card against CPU, features on against off")
@@ -2082,6 +2583,31 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    phase(16, "the threefry kernel (dropout, uniform_rows) against its plain versions")
+    times16 = threefry_kernels_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase(17, "train gpt2-medium bf16 at dropout 0.1 through initialize(...) (the slice's path)")
+    drop_launches = dropout_training_phase(step_ms6)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase(18, "fp32 training at gpt2-medium width, 4 layers, dropout 0.1: card against CPU")
+    dropout_card_cpu_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase(19, "serve gpt2-medium through init_inference(dtype='int8') (weight-only int8)")
+    int8_weights_phase(st_3, st_3c)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase(20, "sampled streams (temperature 0.8, top-k 50, top-p 0.95)")
+    uni_launches = sampled_phase(st_3)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     phase(8, "summary")
     # launches: each kernel's (and mode's) count on the path of the slice
     # that ported it (the decode kernel: phase 3's default path; the
@@ -2197,7 +2723,22 @@ def main() -> int:
         **times14[kind],
     } for name, line, launches14, case14, kind in (
         ("fused_adamw", 96, adamw_launches, "gpt2-medium tree decoupled", "adam"),
-        ("fused_lamb", 187, counts15["fused_lamb"], "lamb bert-large tree", "lamb"))]}))
+        ("fused_lamb", 187, counts15["fused_lamb"], "lamb bert-large tree", "lamb"))] + [{
+        # no pallas_call: the XLA-fused jax.random draws these replace
+        "name": "threefry_dropout",
+        "route": "cuda",
+        "source": "deepspeed_tpu_torch/csrc/threefry.cu",
+        "replaces": "deepspeed_tpu/models/gpt2.py:251",
+        "launches": drop_launches,
+        **times16["dropout"],
+    }, {
+        "name": "threefry_uniform_rows",
+        "route": "cuda",
+        "source": "deepspeed_tpu_torch/csrc/threefry.cu",
+        "replaces": "deepspeed_tpu/ops/sampling.py:70",
+        "launches": uni_launches,
+        **times16["uniform_rows"],
+    }]}))
     # the run uses one card, whatever the machine holds
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1,

@@ -4,15 +4,19 @@ A second package beside the JAX one, for NVIDIA Hopper (H100). What is
 ported so far: GPT-2 continuous-batching serving on one card (the paged KV
 pool, the scheduler and the serving programs, with speculation, the prefix
 cache, chunked prefill and int8 KV pages), offline GPT-2 generation over a
-contiguous KV cache, and training on one card (the single-device engine:
-bf16/fp16 on an fp32 master, accumulation, clipping, AdamW, LR schedules,
-loss scaling, full remat) of GPT-2, dense or with block-sparse attention
+contiguous KV cache, weight-only int8 inference (``dtype="int8"``), and
+training on one card (the single-device engine: bf16/fp16 on an fp32
+master, accumulation, clipping, the optimizer family, LR schedules, loss
+scaling, remat, dropout) of GPT-2, dense or with block-sparse attention
 (a ``sparse_attention`` section), and of BERT pre-training (MLM + NSP,
-dense or block-sparse). Its attention kernels are hand-written CUDA
-(``csrc/``, built at first use): paged decode and multi-token attention
-(each with an int8 mode) for serving, contiguous decode attention for
-``generate``, flash attention forward and backward and block-sparse
-attention forward, dq and dk/dv for training. It imports torch, numpy and the standard library, and
+dense or block-sparse). Sampled tokens, dropout masks and stochastic
+rounding draw JAX's threefry bits from JAX's key schedules
+(``ops/prng.py``), so they equal the JAX package's. Its kernels are
+hand-written CUDA (``csrc/``, built at first use): paged decode and
+multi-token attention (each with an int8 mode) for serving, contiguous
+decode attention for ``generate``, flash attention forward and backward
+and block-sparse attention forward, dq and dk/dv for training, the fused
+AdamW/LAMB update, and the threefry dropout and uniform draws. It imports torch, numpy and the standard library, and
 nothing of JAX or of ``deepspeed_tpu``.
 
 Entry points: :func:`init_inference`, then ``.serve()``, ``.generate(...)``
@@ -38,14 +42,18 @@ from .runtime.module import ModuleSpec
 
 def init_inference(model_config: Union[GPT2Config, str] = "gpt2",
                    params=None, dtype=None, device=None, seed: int = 0,
-                   config: Optional[Dict] = None) -> InferenceEngine:
+                   config: Optional[Dict] = None, quantize_bits: Optional[int] = None,
+                   quantize_groups: Optional[int] = None) -> InferenceEngine:
     """Build an :class:`InferenceEngine` (counterpart of
     ``deepspeed_tpu.init_inference``): GPT-2 weights from ``params`` (a
     nested dict of tensors in the JAX package's layout) or the seeded
     initialiser, cast to ``dtype`` (bf16 by default) on ``device``
-    (default the CUDA card; raises when there is none)."""
+    (default the CUDA card; raises when there is none). ``dtype="int8"``
+    (or ``quantization_setting`` in ``config``, or ``quantize_bits=8``)
+    serves weight-only int8: codes and per-group scales, bf16 compute."""
     return InferenceEngine(model_config, params=params, dtype=dtype,
-                           device=device, seed=seed, config=config)
+                           device=device, seed=seed, config=config,
+                           quantize_bits=quantize_bits, quantize_groups=quantize_groups)
 
 
 def initialize(model: Optional[ModuleSpec] = None, optimizer: Any = None,

@@ -10,8 +10,16 @@ generation over a contiguous KV cache, prompts padded to length buckets),
 ``device=None`` means the CUDA card: without one the engine raises instead
 of running on the CPU; pass ``device="cpu"`` to ask for the CPU.
 
-Weight-only int8 (``dtype="int8"``, the JAX package's weight quantization)
-is not ported yet and raises :class:`NotPortedError`.
+Weight-only int8 follows the JAX engine (``inference/engine.py:134-149``,
+``:262-271``): ``dtype="int8"`` means 8-bit weights with bf16 compute;
+``quantization_setting`` (groups, or ``(mlp_extra_grouping, groups)``,
+whose last element counts) or ``quantize_bits=8`` turns it on at the given
+dtype; the groups default to 1. The fp32 tree goes through
+``ops.quantizer.quantize_tree``: the stacked block weights become int8
+codes with per-group scales in the compute dtype, every other float leaf
+is cast to it, and the models dequantize at each use. ``generate`` and
+``serve`` run on that tree, with or without int8 KV pages. Sampling draws
+with JAX's keys: ``generate(seed=s)`` uses ``PRNGKey(s)``.
 """
 
 from __future__ import annotations
@@ -24,6 +32,8 @@ import torch
 
 from ..models import gpt2
 from ..models.gpt2 import GPT2Config
+from ..ops import prng
+from ..ops.quantizer import quantize_tree
 from ..runtime.config import DeepSpeedConfigError, NotPortedError
 from ..utils.logging import log_dist
 from ..utils.weights import tree_map
@@ -37,14 +47,11 @@ _DTYPE_NAMES = {
 }
 
 
+def _is_int8(d) -> bool:
+    return d is torch.int8 or str(d).lower().replace("torch.", "") == "int8"
+
+
 def _parse_dtype(d) -> torch.dtype:
-    if d is torch.int8 or str(d).lower().replace("torch.", "") == "int8":
-        raise NotPortedError(
-            "init_inference(dtype=int8): weight-only int8 (the JAX package's "
-            "ops/quantizer.py quantize_tree, maybe_dequantize in the programs) is not "
-            "ported to deepspeed_tpu_torch yet (ROADMAP queue 1 item 3); int8 KV "
-            "pages are: serving.kv_cache_dtype='int8'"
-        )
     if isinstance(d, torch.dtype):
         if d not in _DTYPE_NAMES.values():
             raise ValueError(f"unsupported inference dtype {d}")
@@ -75,9 +82,12 @@ class InferenceEngine:
         device=None,
         seed: int = 0,
         config: Optional[Dict] = None,
+        quantize_bits: Optional[int] = None,
+        quantize_groups: Optional[int] = None,
     ):
         c = dict(config or {})
         cfg_dtype = c.pop("dtype", None)
+        q = c.pop("quantization_setting", None)
         self._serving_config = c.pop("serving", None)
         cfg_max = c.pop("max_out_tokens", c.pop("max_tokens", None))
         self.max_tokens = int(cfg_max if cfg_max is not None else 1024)
@@ -102,21 +112,38 @@ class InferenceEngine:
                 f"{type(model_config).__name__}"
             )
         self.model_config = model_config
-        self.dtype = _parse_dtype(
-            dtype if dtype is not None else (cfg_dtype if cfg_dtype is not None else torch.bfloat16)
-        )
+        dtype = dtype if dtype is not None else (
+            cfg_dtype if cfg_dtype is not None else torch.bfloat16)
+        # quantization_setting: groups, or (mlp_extra_grouping, groups); none
+        # means 1 group (JAX inference/engine.py:134-149)
+        cfg_groups = None if q is None else int(q[-1] if isinstance(q, (tuple, list)) else q)
+        self.quantize_groups = int(quantize_groups if quantize_groups is not None
+                                   else (cfg_groups if cfg_groups is not None else 1))
+        bits = int(quantize_bits if quantize_bits is not None else (8 if q is not None else 0))
+        if _is_int8(dtype):
+            # dtype=int8 means 8-bit weights, bf16 compute
+            bits, dtype = 8, torch.bfloat16
+        if bits not in (0, 8):
+            raise NotPortedError(f"quantize_bits={bits}: weight quantization is 8-bit only "
+                                 "(as in the JAX package)")
+        self.quantized = bits == 8
+        self.dtype = _parse_dtype(dtype)
         self.device = resolve_device(device)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(int(seed))
             params = gpt2.init_params(model_config, gen, self.device, torch.float32)
-        self.params = tree_map(
-            lambda p: p.to(device=self.device, dtype=self.dtype)
-            if p.is_floating_point() else p.to(self.device),
-            params,
-        )
+        params = tree_map(lambda p: p.to(self.device), params)
+        if self.quantized:
+            # from the given (fp32) weights, once, on the device
+            params = quantize_tree(params, groups=self.quantize_groups, dtype=self.dtype)
+        else:
+            params = tree_map(
+                lambda p: p.to(self.dtype) if p.is_floating_point() else p, params)
+        self.params = params
         log_dist(
             f"InferenceEngine: device={self.device} "
-            f"dtype={str(self.dtype).replace('torch.', '')}"
+            f"dtype={str(self.dtype).replace('torch.', '')} quantized={self.quantized}"
+            + (f" (groups {self.quantize_groups})" if self.quantized else "")
         )
 
     def forward(self, batch):
@@ -154,19 +181,19 @@ class InferenceEngine:
         (padded to its bucket unless bucketing is off) prefills once, then
         ``max_new_tokens - 1`` single-token decode steps, each running the
         decode kernel once per layer on the card. Greedy unless
-        ``temperature > 0``; then the draws come from a ``torch.Generator``
-        seeded from ``seed``. → prompt + new tokens, ``[B, S +
-        max_new_tokens]`` numpy, read from the device once at the end."""
+        ``temperature > 0``; then the draws are the JAX engine's under
+        ``PRNGKey(seed)`` (the threefry kernel on the card). → prompt + new
+        tokens, ``[B, S + max_new_tokens]`` numpy, read from the device once
+        at the end."""
         ids_np = np.asarray(input_ids)
         B, S = ids_np.shape
         ids = torch.from_numpy(ids_np.astype(np.int64)).to(self.device)
-        gen = (torch.Generator(device=self.device).manual_seed(int(seed))
-               if temperature and temperature > 0.0 else None)
         bucket = self._prompt_bucket(S, max_new_tokens)
         if bucket is not None and bucket > S:
             ids = torch.cat([ids, ids.new_zeros((B, bucket - S))], dim=1)
         new = gpt2.generate(self.model_config, self.params, ids, max_new_tokens,
-                            temperature=temperature, generator=gen, cache_dtype=self.dtype,
+                            temperature=temperature, rng=prng.PRNGKey(seed),
+                            cache_dtype=self.dtype,
                             top_k=top_k, top_p=top_p, prompt_len=S)
         return np.concatenate([ids_np, new.cpu().numpy().astype(ids_np.dtype)], axis=1)
 

@@ -13,7 +13,12 @@ Attention: ``attn_impl="sparse"`` goes through ``ops.sparse_attention``
 (the block-sparse kernels on the card; a padding mask takes the masked
 dense path); otherwise ``ops.attention.bidirectional_attention`` (the
 non-causal flash kernels on the card for an unmasked batch, the plain
-masked path for a masked one).
+masked path for a masked one). Every block weight goes through
+``ops.quantizer.maybe_dequantize`` at its use, as in the JAX package.
+
+``dropout`` is accepted and applies nothing, as in the JAX package: its
+``pretraining_loss`` calls ``forward`` without a key, and no BERT layer
+reads ``BertConfig.dropout``.
 """
 
 from __future__ import annotations
@@ -26,8 +31,8 @@ import torch.nn.functional as F
 
 from ..ops.attention import bidirectional_attention
 from ..ops.layer_norm import layer_norm
+from ..ops.quantizer import maybe_dequantize as _deq
 from ..ops.sparse_attention import FixedSparsityConfig, sparse_attention
-from ..runtime.config import NotPortedError
 from ..runtime.module import ModuleSpec
 from .gpt2 import _unstack
 
@@ -46,7 +51,7 @@ class BertConfig:
     ffn_dim: int = 3072
     type_vocab_size: int = 2
     layer_norm_epsilon: float = 1e-12
-    dropout: float = 0.0
+    dropout: float = 0.0  # accepted, applied nowhere (as in the JAX package)
     # adds the MLM transform/decoder and NSP heads and a training loss_fn
     pretraining: bool = False
     # auto | pallas (both: the flash kernels on the card) | jnp (CPU
@@ -56,11 +61,6 @@ class BertConfig:
     sparsity_config: object = None
 
     def __post_init__(self):
-        if self.dropout > 0.0:
-            raise NotPortedError(
-                f"dropout={self.dropout}: dropout is not ported to deepspeed_tpu_torch yet "
-                "(its random bits need the JAX key schedule's parity, ROADMAP queue 1 item 4)"
-            )
         if self.attn_impl not in _ATTN_IMPLS:
             raise ValueError(f"unknown attn_impl {self.attn_impl!r}")
 
@@ -135,20 +135,20 @@ def _block(cfg: BertConfig, lp, h, attention_mask):
     H, D = cfg.n_head, cfg.head_dim
     eps = cfg.layer_norm_epsilon
     a = lp["attn"]
-    q = (h @ a["wq"] + a["bq"]).unflatten(-1, (H, D))
-    k = (h @ a["wk"] + a["bk"]).unflatten(-1, (H, D))
-    v = (h @ a["wv"] + a["bv"]).unflatten(-1, (H, D))
+    q = (h @ _deq(a["wq"], h.dtype) + a["bq"]).unflatten(-1, (H, D))
+    k = (h @ _deq(a["wk"], h.dtype) + a["bk"]).unflatten(-1, (H, D))
+    v = (h @ _deq(a["wv"], h.dtype) + a["bv"]).unflatten(-1, (H, D))
     if cfg.attn_impl == "sparse":
         sc = cfg.sparsity_config or FixedSparsityConfig(num_heads=H)
         o = sparse_attention(q, k, v, sc, causal=False, key_mask=attention_mask)
     else:
         o = bidirectional_attention(q, k, v, mask=attention_mask, impl=cfg.attn_impl)
     o = o.reshape(B, S, E)
-    h = layer_norm(h + (o @ a["wo"] + a["bo"]), lp["attn_ln"]["scale"], lp["attn_ln"]["bias"],
-                   eps)
+    h = layer_norm(h + (o @ _deq(a["wo"], o.dtype) + a["bo"]), lp["attn_ln"]["scale"],
+                   lp["attn_ln"]["bias"], eps)
     m = lp["mlp"]
-    y = F.gelu(h @ m["fc_in_w"] + m["fc_in_b"])
-    y = y @ m["fc_out_w"] + m["fc_out_b"]
+    y = F.gelu(h @ _deq(m["fc_in_w"], h.dtype) + m["fc_in_b"])
+    y = y @ _deq(m["fc_out_w"], y.dtype) + m["fc_out_b"]
     return layer_norm(h + y, lp["out_ln"]["scale"], lp["out_ln"]["bias"], eps)
 
 
@@ -168,8 +168,9 @@ def forward(cfg: BertConfig, params: PyTree, input_ids, attention_mask=None,
     return h, pooled
 
 
-def pretraining_loss(cfg: BertConfig, params: PyTree, batch, generator=None, train: bool = True):
-    """Masked-LM + next-sentence-prediction loss → ``(loss, metrics)``.
+def pretraining_loss(cfg: BertConfig, params: PyTree, batch, rng=None, train: bool = True):
+    """Masked-LM + next-sentence-prediction loss → ``(loss, metrics)``
+    (``rng`` and ``train`` are accepted and unused, as in the JAX package).
     Batch: ``input_ids [B, S]``, ``labels [B, S]`` with -100 on unmasked
     positions, optional ``attention_mask`` / ``token_type_ids``, optional
     ``next_sentence_label [B]``. Both log-softmaxes in f32."""
@@ -202,8 +203,8 @@ def make_module(cfg: BertConfig) -> ModuleSpec:
     generator's device."""
     return ModuleSpec(
         init=lambda generator: init_params(cfg, generator),
-        loss_fn=((lambda params, batch, generator, train:
-                  pretraining_loss(cfg, params, batch, generator, train))
+        loss_fn=((lambda params, batch, rng, train:
+                  pretraining_loss(cfg, params, batch, rng, train))
                  if cfg.pretraining else None),
         apply_fn=lambda params, batch: forward(
             cfg, params, batch["input_ids"], batch.get("attention_mask"),

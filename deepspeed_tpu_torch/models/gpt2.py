@@ -17,6 +17,18 @@ with ``attn_impl="sparse"``, through ``ops.sparse_attention`` (the
 block-sparse kernels on the card). The
 cached decode step's attention goes through ``ops.attention.cached_attention``
 (the contiguous decode kernel on the card).
+
+Every weight use goes through ``ops.quantizer.maybe_dequantize``, so one
+forward serves a full-precision tree and a weight-only int8 one (the
+stacked ``[L, G, I/G, O]`` codes and ``[L, G, 1, O]`` scales sliced per
+layer, dequantized into a transient at each use). Training with
+``dropout > 0`` draws JAX's masks from JAX's key schedule (the threefry
+kernel on the card, ``ops/dropout.py``): the embedding's from
+``fold_in(rng, n_layer)``, layer l's from ``split(fold_in(rng, 0),
+n_layer)[l]`` split three ways (the attention output's, MoE routing's,
+unused here, and the MLP output's). ``generate`` samples with JAX's keys:
+the first token with ``rng``, step t with ``split(fold_in(rng, 1), N -
+1)[t - 1]``.
 """
 
 from __future__ import annotations
@@ -31,8 +43,11 @@ import torch.nn.functional as F
 
 from ..ops import block_sparse_attention as bsa
 from ..ops import flash_attention as fa
+from ..ops import prng
+from ..ops.dropout import dropout as _dropout_op
 from ..ops.attention import cached_attention, causal_attention
 from ..ops.layer_norm import layer_norm
+from ..ops.quantizer import maybe_dequantize
 from ..ops.sampling import sample_logits
 from ..ops.sparse_attention import FixedSparsityConfig, from_ds_config, sparse_attention
 from ..runtime.activation_checkpointing import POLICIES, checkpoint, selective_checkpoint
@@ -58,6 +73,7 @@ class GPT2Config:
     # logical vocab everywhere, the logits are sliced back to it. 1 = off.
     pad_vocab_multiple: int = 1
     # training knobs; a value that is not ported raises NotPortedError
+    # (dropout applies when the loss is given a key and train is on)
     dropout: float = 0.0
     remat: bool = False
     remat_policy: str = "full"
@@ -72,11 +88,6 @@ class GPT2Config:
     sparsity: Any = None
 
     def __post_init__(self):
-        if self.dropout > 0.0:
-            raise NotPortedError(
-                f"dropout={self.dropout}: dropout is not ported to deepspeed_tpu_torch yet "
-                "(its random bits need the JAX key schedule's parity, ROADMAP queue 1 item 4)"
-            )
         if self.moe_experts > 0:
             raise NotPortedError(f"moe_experts={self.moe_experts}: MoE is not ported yet "
                                  "(ROADMAP queue 1 item 12)")
@@ -174,8 +185,18 @@ def _layer_norm(x, scale, bias, eps):
 
 
 def _dot(ops, x, w):
-    """``x @ w``; under a selective remat, the policy's ``ops.dot``."""
+    """``x @ w`` (``w`` dequantized when it is int8); under a selective
+    remat, the policy's ``ops.dot``."""
+    w = maybe_dequantize(w, x.dtype)
     return x @ w if ops is None else ops.dot(x, w)
+
+
+def _dropout(x, rate: float, key, train: bool):
+    """JAX's ``_dropout``: ``x`` unchanged unless training at a rate > 0
+    with a key."""
+    if not train or rate <= 0.0 or key is None:
+        return x
+    return _dropout_op(x, key, rate)
 
 
 def _mlp(cfg: GPT2Config, lp, h, ops=None):
@@ -222,12 +243,18 @@ def _attention(cfg: GPT2Config, lp, h, ops=None):
     return _dot(ops, o.reshape(B, S, E), lp["c_proj_w"]) + lp["c_proj_b"]
 
 
-def _block(cfg: GPT2Config, lp, h, ops=None):
+def _block(cfg: GPT2Config, lp, h, ops=None, key=None):
+    """One block; ``key`` (the layer's ``[3, 2]`` split: attention
+    dropout, MoE routing, MLP dropout) turns its dropouts on."""
     eps = cfg.layer_norm_epsilon
-    h = h + _attention(cfg, lp["attn"],
-                       layer_norm(h, lp["ln_1"]["scale"], lp["ln_1"]["bias"], eps), ops)
-    return h + _mlp(cfg, lp["mlp"], layer_norm(h, lp["ln_2"]["scale"], lp["ln_2"]["bias"], eps),
-                    ops)
+    r1 = r3 = None
+    if key is not None:
+        r1, r3 = key[0], key[2]
+    a = _attention(cfg, lp["attn"], layer_norm(h, lp["ln_1"]["scale"], lp["ln_1"]["bias"], eps),
+                   ops)
+    h = h + _dropout(a, cfg.dropout, r1, True)
+    m = _mlp(cfg, lp["mlp"], layer_norm(h, lp["ln_2"]["scale"], lp["ln_2"]["bias"], eps), ops)
+    return h + _dropout(m, cfg.dropout, r3, True)
 
 
 def _unstack(tree, n: int):
@@ -236,44 +263,59 @@ def _unstack(tree, n: int):
     than indexing per layer (whose backward scatters into a zero copy of
     the whole stack, once per layer)."""
     def unbind(t):
-        return {k: unbind(v) for k, v in t.items()} if isinstance(t, dict) else t.unbind(0)
+        if isinstance(t, dict):
+            return {k: unbind(v) for k, v in t.items()}
+        if isinstance(t, tuple):  # a quantized weight: its fields per layer
+            return type(t)(*[unbind(v) for v in t])
+        return t.unbind(0)
 
     def pick(t, i):
-        return {k: pick(v, i) for k, v in t.items()} if isinstance(t, dict) else t[i]
+        if isinstance(t, dict):
+            return {k: pick(v, i) for k, v in t.items()}
+        if isinstance(t, tuple) and hasattr(t, "_fields"):
+            return type(t)(*[pick(v, i) for v in t])
+        return t[i]
 
     u = unbind(tree)
     return [pick(u, i) for i in range(n)]
 
 
 def hidden_with_aux(cfg: GPT2Config, params: PyTree, input_ids, train: bool = False,
-                    generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                    rng=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """``input_ids [B, S]`` → (final-LN hidden states ``[B, S, E]``, the MoE
-    aux loss, 0 for a dense model)."""
+    aux loss, 0 for a dense model). ``rng`` (a ``[2]`` key) with ``train``
+    and ``dropout > 0`` applies dropout with JAX's keys; remat's
+    recomputation draws the same masks from the same keys."""
     B, S = input_ids.shape
+    L = cfg.n_layer
     h = params["wte"][input_ids] + params["wpe"][:S][None, :, :]
-    for lp in _unstack(params["blocks"], cfg.n_layer):
+    keys = [None] * L
+    if train and cfg.dropout > 0.0 and rng is not None:
+        h = _dropout(h, cfg.dropout, prng.fold_in(rng, L), train)
+        keys = list(prng.split(prng.split(prng.fold_in(rng, 0), L), 3))  # [L][3, 2]
+    for lp, key in zip(_unstack(params["blocks"], L), keys):
         if cfg.remat and cfg.remat_policy != "full":
-            h = selective_checkpoint(functools.partial(_block, cfg), cfg.remat_policy, lp, h)
+            h = selective_checkpoint(functools.partial(_block, cfg, key=key), cfg.remat_policy,
+                                     lp, h)
         elif cfg.remat:
-            h = checkpoint(functools.partial(_block, cfg, lp), h)
+            h = checkpoint(functools.partial(_block, cfg, lp, key=key), h)
         else:
-            h = _block(cfg, lp, h)
+            h = _block(cfg, lp, h, key=key)
     h = layer_norm(h, params["ln_f"]["scale"], params["ln_f"]["bias"], cfg.layer_norm_epsilon)
     return h, torch.zeros((), dtype=torch.float32, device=h.device)
 
 
-def forward_with_aux(cfg: GPT2Config, params: PyTree, input_ids, train: bool = False,
-                     generator: Optional[torch.Generator] = None):
+def forward_with_aux(cfg: GPT2Config, params: PyTree, input_ids, train: bool = False, rng=None):
     """``input_ids [B, S]`` → (logits ``[B, S, V]`` over the logical vocab,
     aux loss); the embedding is tied."""
-    h, aux = hidden_with_aux(cfg, params, input_ids, train, generator)
+    h, aux = hidden_with_aux(cfg, params, input_ids, train, rng)
     return (h @ params["wte"].t())[..., : cfg.vocab_size], aux
 
 
-def forward(cfg: GPT2Config, params: PyTree, input_ids, train: bool = False,
-            generator: Optional[torch.Generator] = None):
-    """``input_ids [B, S]`` → logits ``[B, S, V]``."""
-    return forward_with_aux(cfg, params, input_ids, train, generator)[0]
+def forward(cfg: GPT2Config, params: PyTree, input_ids, train: bool = False, rng=None):
+    """``input_ids [B, S]`` → logits ``[B, S, V]``; ``rng`` enables dropout
+    when ``train``."""
+    return forward_with_aux(cfg, params, input_ids, train, rng)[0]
 
 
 def _head_token_loss(cfg: GPT2Config, wte, h, batch):
@@ -281,12 +323,11 @@ def _head_token_loss(cfg: GPT2Config, wte, h, batch):
                            logical_vocab=cfg.vocab_size)
 
 
-def lm_loss(cfg: GPT2Config, params: PyTree, batch: Dict[str, torch.Tensor],
-            generator: Optional[torch.Generator], train: bool):
+def lm_loss(cfg: GPT2Config, params: PyTree, batch: Dict[str, torch.Tensor], rng, train: bool):
     """Next-token cross-entropy → ``(loss, {"ntokens", "moe_aux"})``. batch:
     ``{"input_ids": [B, S]}`` and optional ``"labels"`` (-100 = ignore) /
-    ``"attention_mask"``."""
-    h, aux = hidden_with_aux(cfg, params, batch["input_ids"], train, generator)
+    ``"attention_mask"``; ``rng`` the micro-batch's key (dropout)."""
+    h, aux = hidden_with_aux(cfg, params, batch["input_ids"], train, rng)
     loss, ntokens = _head_token_loss(cfg, params["wte"], h, batch)
     return loss, {"ntokens": ntokens, "moe_aux": aux}
 
@@ -296,7 +337,7 @@ def make_module(cfg: GPT2Config) -> ModuleSpec:
     ``init`` draws on the generator's device."""
     return ModuleSpec(
         init=lambda generator: init_params(cfg, generator),
-        loss_fn=lambda params, batch, generator, train: lm_loss(cfg, params, batch, generator, train),
+        loss_fn=lambda params, batch, rng, train: lm_loss(cfg, params, batch, rng, train),
         apply_fn=lambda params, batch: forward(cfg, params, batch["input_ids"]),
     )
 
@@ -330,7 +371,7 @@ def _attention_cached(cfg: GPT2Config, lp, h, k_cache, v_cache, pos: int):
     1 at decode (``cached_attention``: the decode kernel on the card)."""
     B, S, E = h.shape
     H, D = cfg.n_head, cfg.head_dim
-    qkv = h @ lp["c_attn_w"] + lp["c_attn_b"]
+    qkv = h @ maybe_dequantize(lp["c_attn_w"], h.dtype) + lp["c_attn_b"]
     q, k_, v = qkv.split(E, dim=-1)
     q = q.reshape(B, S, H, D)
     k_cache[:, pos:pos + S] = k_.reshape(B, S, H, D).to(k_cache.dtype)
@@ -352,7 +393,7 @@ def _attention_cached(cfg: GPT2Config, lp, h, k_cache, v_cache, pos: int):
         scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
         probs = torch.softmax(scores, dim=-1).to(v_cache.dtype)
         o = torch.einsum("bhst,bthd->bshd", probs, v_cache).reshape(B, S, E).to(h.dtype)
-    return o @ lp["c_proj_w"] + lp["c_proj_b"]
+    return o @ maybe_dequantize(lp["c_proj_w"], h.dtype) + lp["c_proj_b"]
 
 
 @torch.no_grad()
@@ -381,15 +422,16 @@ def forward_cached(cfg: GPT2Config, params: PyTree, input_ids, cache: KVCache,
 
 @torch.no_grad()
 def generate(cfg: GPT2Config, params: PyTree, input_ids, max_new_tokens: int,
-             temperature: float = 0.0, generator: Optional[torch.Generator] = None,
+             temperature: float = 0.0, rng=None,
              max_len: Optional[int] = None, cache_dtype: torch.dtype = torch.bfloat16,
              top_k: int = 0, top_p: float = 1.0,
              prompt_len: Optional[int] = None) -> torch.Tensor:
     """Autoregressive generation: one prefill, then ``max_new_tokens - 1``
     single-token decode steps over the KV cache → ``[B, max_new_tokens]``
-    on the device. Greedy unless ``temperature > 0``; then the draws come
-    from ``generator`` in order. Tokens are sampled on the device and stay
-    there (no per-step host read).
+    on the device. Greedy unless ``temperature > 0``; then the draws are
+    JAX's: the first token's with ``rng`` (default ``PRNGKey(0)``), step
+    t's with ``split(fold_in(rng, 1), max_new_tokens - 1)[t - 1]``. Tokens
+    are sampled on the device and stay there (no per-step host read).
 
     ``prompt_len``: the true prompt length when ``input_ids`` is
     right-padded to a bucket. The prefill runs over the padded rows, the
@@ -406,13 +448,18 @@ def generate(cfg: GPT2Config, params: PyTree, input_ids, max_new_tokens: int,
             "a shorter cache would silently overwrite KV entries"
         )
     n = S if prompt_len is None else int(prompt_len)
+    if rng is None:
+        rng = prng.PRNGKey(0)
+    keys = (prng.split(prng.fold_in(rng, 1), max_new_tokens - 1)
+            if temperature and temperature > 0.0 and max_new_tokens > 1 else None)
     cache = init_cache(cfg, B, max_len, dtype=cache_dtype, device=input_ids.device)
     logits, cache = forward_cached(cfg, params, input_ids, cache, logits_at=n - 1)
     cache = KVCache(k=cache.k, v=cache.v, pos=n)
-    token = sample_logits(logits, generator, temperature, top_k, top_p)
+    token = sample_logits(logits, rng, temperature, top_k, top_p)
     tokens = [token]
-    for _ in range(max_new_tokens - 1):
+    for t in range(max_new_tokens - 1):
         logits, cache = forward_cached(cfg, params, token[:, None], cache)
-        token = sample_logits(logits, generator, temperature, top_k, top_p)
+        token = sample_logits(logits, None if keys is None else keys[t], temperature, top_k,
+                              top_p)
         tokens.append(token)
     return torch.stack(tokens, dim=1)

@@ -1,0 +1,61 @@
+"""JAX's dropout through the threefry kernel (``csrc/threefry.cu``), with
+its plain version.
+
+:func:`dropout` is ``where(bernoulli(key, 1 - rate, x.shape), x / (1 -
+rate), 0)``, the JAX package's GPT-2 ``_dropout``
+(``deepspeed_tpu/models/gpt2.py:251-256``) bit for bit. ``1 - rate`` is
+rounded to x's dtype before the division (jax's weak Python float), and the
+keep test is ``uniform < f32(1 - rate)``. A ``torch.autograd.Function``
+whose backward is the same draw applied to ``dy`` (the VJP of
+``where(keep, x / c, 0)`` is ``where(keep, dy / c, 0)``): the mask is
+recomputed from the key, never stored, so remat's recomputation gives the
+same mask by construction.
+
+CUDA tensors go to the kernel (``ops/prng.py`` :func:`~.prng.dropout_kernel`,
+counted in ``prng.LAUNCHES["threefry_dropout"]``, one launch for a forward
+and one for a backward), which launches or raises; CPU tensors to the plain
+version; any other device raises.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import prng
+
+
+def dropout_ref(x: torch.Tensor, key, rate: float) -> torch.Tensor:
+    """The plain version: torch ops on x's device, the divisor a tensor of
+    x's dtype there (a CPU scalar would let the card multiply by its
+    reciprocal instead)."""
+    p, c = prng.keep_scale(prng.check_rate(rate), x.dtype)
+    u = prng.uniform_rows_ref(prng.key_words(key), x.numel(), device=x.device)
+    keep = u.reshape(x.shape) < prng.device_scalar(p, x.device)
+    return torch.where(keep, x / prng.device_scalar(c, x.device, x.dtype),
+                       prng.device_scalar(0.0, x.device, x.dtype))
+
+
+def _apply(x: torch.Tensor, key, rate: float) -> torch.Tensor:
+    if x.device.type == "cuda":
+        return prng.dropout_kernel(x.contiguous(), key, rate)
+    if x.device.type == "cpu":
+        return dropout_ref(x, key, rate)
+    raise ValueError(f"dropout: no implementation for device {x.device}")
+
+
+class _Dropout(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, key, rate):
+        ctx.key, ctx.rate = key, rate
+        return _apply(x, key, rate)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _apply(dy, ctx.key, ctx.rate), None, None
+
+
+def dropout(x: torch.Tensor, key, rate: float) -> torch.Tensor:
+    """JAX's dropout of ``x`` under ``key`` (one ``[2]`` key, numpy or a
+    tensor) at ``rate``, differentiable; the kernel on the card."""
+    return _Dropout.apply(x, np.asarray(prng.key_words(key), np.uint32), float(rate))

@@ -35,6 +35,7 @@ NVCC_FLAGS = (
 
 # ctypes signatures of each library's C entries: name -> {fn: (argtypes, restype)}
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+_U = ctypes.c_uint
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "flash_attention_fwd": {
         "flash_attention_fwd_launch": (
@@ -108,6 +109,16 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
              _I, _I, _I, _I, _I, _I, _I, _I,   # B, T, H, KV, P, page, n, D
              _I, _I, _I, _I,                   # heads and tokens a unit, splits, chunk
              _F, _I, _I, _P],                  # sm_scale, q dtype, kv dtype, stream
+            ctypes.c_int,
+        ),
+    },
+    "threefry": {
+        "threefry_dropout_launch": (
+            [_P, _P, _L, _U, _U, _F, _F, _I, _P],  # x, y, n, key words, p, c, dtype, stream
+            ctypes.c_int,
+        ),
+        "threefry_uniform_rows_launch": (
+            [_P, _P, _I, _L, _F, _F, _P],      # keys, out, rows, n, minval, span, stream
             ctypes.c_int,
         ),
     },

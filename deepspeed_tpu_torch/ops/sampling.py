@@ -5,15 +5,18 @@ The masks follow the JAX package's rules exactly: top-k keeps exactly k
 tokens, ties going to the lowest index; top-p keeps the smallest prefix of
 the probability-sorted vocab whose mass reaches ``p``, backed off by a
 relative 1e-6 so a prefix whose mass equals ``p`` does not leak one more
-token. A sampled draw comes from a ``torch.Generator``; it is not the JAX
-package's threefry draw for the same seed.
+token. A sampled draw is the JAX package's ``jax.random.categorical`` over
+the masked f32 logits, bit for bit in its uniforms (``ops/prng.py``; the
+threefry kernel on the card): the same key gives the same token, up to a
+near-tie at the size of one ulp of ``log``.
 """
 
 from __future__ import annotations
 
-from typing import Optional
-
+import numpy as np
 import torch
+
+from . import prng
 
 NEG = -1e30
 
@@ -48,18 +51,27 @@ def top_p_mask(logits: torch.Tensor, p: float) -> torch.Tensor:
 
 def sample_logits(
     logits: torch.Tensor,
-    generator: Optional[torch.Generator] = None,
+    key=None,
     temperature: float = 0.0,
     top_k: int = 0,
     top_p: float = 1.0,
 ) -> torch.Tensor:
     """[N, V] logits → [N] token ids. temperature <= 0 is greedy (argmax,
-    first index on ties); otherwise one draw per row from ``generator``."""
+    first index on ties; ``key`` unused); otherwise
+    ``jax.random.categorical`` of the scaled, masked f32 logits. ``key``
+    is one ``[2]`` key for the whole batch (``generate``: the draw covers
+    the flat ``[N, V]``) or ``[N, 2]``, one key a row (the serving
+    programs' ``vmap`` over per-slot keys)."""
     logits = logits.float()
     if not temperature or temperature <= 0.0:
         return torch.argmax(logits, dim=-1)
-    logits = logits / temperature
+    if key is None:
+        raise ValueError("sample_logits: temperature > 0 needs a key")
+    # a divisor on the logits' device (cached there): the card divides
+    # exactly as the CPU (by a CPU scalar it would multiply by the reciprocal)
+    logits = logits / prng.device_scalar(float(temperature), logits.device)
     logits = top_k_mask(logits, int(top_k))
     logits = top_p_mask(logits, float(top_p))
-    probs = torch.softmax(logits, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[..., 0]
+    if np.ndim(key) == 2:
+        return prng.categorical_rows(key, logits)
+    return prng.categorical(key, logits)

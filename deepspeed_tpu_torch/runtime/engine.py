@@ -20,6 +20,13 @@ eagerly, in the same order (``_make_train_step``, engine.py:1106-1345):
    overflowed: then params and optimizer state stay, ``skipped_steps``
    counts it, and the loss scaler updates either way.
 
+The random keys follow the JAX engine's schedule, on the host: the engine
+key is ``PRNGKey(seed + 1)``; a step's key is ``fold_in(rng, global_step +
+skipped_steps)`` (skipped fp16 steps keep keys unique), micro-batch i's
+``fold_in(step_key, i)``; ``eval_batch`` without a key splits the engine
+key, and ``forward`` evaluates under ``fold_in(rng, 0x5EED)``, leaving the
+training stream untouched.
+
 The fp16 overflow flag is the only value the step reads back on the host;
 bf16 and fp32 steps do not synchronise. ``device=None`` means the CUDA
 card, which must exist; pass ``device="cpu"`` for the CPU.
@@ -33,6 +40,7 @@ import numpy as np
 import torch
 
 from ..inference.engine import resolve_device
+from ..ops import prng
 from ..utils.logging import log_dist, warning_once
 from ..utils.weights import tree_leaves, tree_map
 from .config import DeepSpeedConfig
@@ -99,8 +107,8 @@ class DeepSpeedEngine:
         self.global_step = 0        # applied updates
         self._skipped_steps = 0     # overflow-skipped updates
         self.global_steps = 0       # train_batch calls
-        self._generator = torch.Generator(device=self.device).manual_seed(int(seed) + 1)
-        self._seed = int(seed)
+        # the training stream (JAX engine.py:262-265): a host key
+        self._rng = prng.PRNGKey(int(seed) + 1)
         # the reference-loop shim's state (forward / backward / step)
         self._pending_batch = None
         self._backward_called = False
@@ -163,12 +171,14 @@ class DeepSpeedEngine:
         cparams = tree_map(lambda p: p.detach().to(self.compute_dtype).requires_grad_(True)
                            if p.is_floating_point() else p, self.params)
         leaves = tree_leaves(cparams)
-        # 2. accumulate the micro-batches' grads in grad_accum_dtype
+        # 2. accumulate the micro-batches' grads in grad_accum_dtype; the keys
+        # as the JAX step folds them (engine.py:1212, :1236, :1252)
+        step_rng = prng.fold_in(self._rng, self.global_step + self._skipped_steps)
         acc = None
         loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
         for i in range(gas):
             micro = tree_map(lambda x: x[i], batch)
-            loss, _ = self.module.loss_fn(cparams, micro, self._generator, True)
+            loss, _ = self.module.loss_fn(cparams, micro, prng.fold_in(step_rng, i), True)
             grads = torch.autograd.grad(loss.float() * scale, leaves, allow_unused=True,
                                         materialize_grads=True)
             if predivide:
@@ -245,19 +255,19 @@ class DeepSpeedEngine:
         return metrics
 
     @torch.no_grad()
-    def eval_batch(self, batch: PyTree,
-                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """Mean eval-mode loss over the batch's ``gas`` micro-batches
-        (``generator``: the random stream handed to the model, by default
-        the training one)."""
+    def eval_batch(self, batch: PyTree, rng=None) -> torch.Tensor:
+        """Mean eval-mode loss over the batch's ``gas`` micro-batches.
+        ``rng``: the key handed to the model; without one, a fresh key is
+        split off the engine's (JAX engine.py:2337-2346)."""
         device_batch = self.shard_batch(batch)
         cparams = _cast(self.params, self.compute_dtype)
         total = torch.zeros((), dtype=torch.float32, device=self.device)
         n = self.gradient_accumulation_steps_value
-        gen = self._generator if generator is None else generator
+        if rng is None:
+            self._rng, rng = prng.split(self._rng)
         for i in range(n):
             micro = tree_map(lambda x: x[i], device_batch)
-            loss, _ = self.module.loss_fn(cparams, micro, gen, False)
+            loss, _ = self.module.loss_fn(cparams, micro, rng, False)
             total = total + loss.float()
         return total / n
 
@@ -267,7 +277,8 @@ class DeepSpeedEngine:
     def forward(self, batch: PyTree) -> torch.Tensor:
         """Reference-style ``loss = engine(batch)``: stashes the batch for
         :meth:`step` and returns its EVAL-mode loss (no dropout), computed
-        on a throwaway generator, so the training stream is untouched and a
+        under the derived key ``fold_in(rng, 0x5EED)`` (JAX engine.py:2298),
+        so the training stream is untouched and a
         forward / backward / step loop updates the parameters exactly as a
         ``train_batch`` loop. The update itself runs in :meth:`step`: one
         extra forward a step against :meth:`train_batch`."""
@@ -276,8 +287,7 @@ class DeepSpeedEngine:
             "forward per step; engine.train_batch(batch) is the single-call form"
         )
         self._pending_batch = batch
-        throwaway = torch.Generator(device=self.device).manual_seed(self._seed + 0x5EED)
-        return self.eval_batch(batch, generator=throwaway)
+        return self.eval_batch(batch, rng=prng.fold_in(self._rng, 0x5EED))
 
     __call__ = forward
 

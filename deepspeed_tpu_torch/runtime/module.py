@@ -10,7 +10,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 PyTree = Any
 Batch = Any
 
-# loss_fn(params, batch, generator, train) -> (scalar loss, metrics dict)
+# loss_fn(params, batch, rng, train) -> (scalar loss, metrics dict); rng is
+# a [2] threefry key (ops/prng.py), the micro-batch's in training
 LossFn = Callable[[PyTree, Batch, Any, bool], Tuple[Any, Dict[str, Any]]]
 
 
@@ -20,7 +21,8 @@ class ModuleSpec:
 
     Attributes:
       init: ``generator -> params``, the tree on the generator's device.
-      loss_fn: ``(params, batch, generator, train) -> (loss, metrics)``.
+      loss_fn: ``(params, batch, rng, train) -> (loss, metrics)``, ``rng``
+        the micro-batch's JAX key (dropout).
       apply_fn: optional inference forward ``(params, batch) -> outputs``.
     """
 

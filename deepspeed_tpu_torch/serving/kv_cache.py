@@ -144,9 +144,10 @@ class PageAllocator:
 
 
 class SlotTable:
-    """Host-side per-slot block tables, sequence lengths and last tokens:
-    the inputs of the batched decode step. The scheduler mutates them in
-    place (admission writes a row, finish clears it)."""
+    """Host-side per-slot block tables, sequence lengths, last tokens and
+    sampling keys (``[max_slots, 2]`` uint32): the inputs of the batched
+    decode step. The scheduler mutates them in place (admission writes a
+    row, finish clears it)."""
 
     def __init__(self, max_slots: int, pages_per_slot: int):
         self.max_slots = int(max_slots)
@@ -154,6 +155,7 @@ class SlotTable:
         self.block_tables = np.full((max_slots, pages_per_slot), SCRATCH_PAGE, np.int32)
         self.seq_lens = np.zeros((max_slots,), np.int32)
         self.tokens = np.zeros((max_slots,), np.int32)
+        self.keys = np.zeros((max_slots, 2), np.uint32)
 
     def assign(self, slot: int, pages: List[int]) -> None:
         if len(pages) > self.pages_per_slot:
@@ -168,6 +170,7 @@ class SlotTable:
         self.block_tables[slot, :] = SCRATCH_PAGE
         self.seq_lens[slot] = 0
         self.tokens[slot] = 0
+        self.keys[slot] = 0
 
 
 def pages_for(tokens: int, page_size: int) -> int:

@@ -31,6 +31,13 @@ package threads them through as donated buffers instead, so there too the
 cache never exists twice. Inactive slots ride along pointed at the scratch
 page: their writes land there and their outputs are never read.
 
+Every weight goes through ``ops.quantizer.maybe_dequantize`` at its use
+(a weight-only int8 tree dequantizes layer by layer into transients).
+Sampled tokens are the JAX package's draws: the prefill and chunk
+programs take the request's key (one ``[2]`` key), the decode step one key
+per slot (``[B, 2]``, the JAX programs' ``vmap``), all rows drawn in one
+``uniform_rows`` (the threefry kernel on the card).
+
 Padded key positions contribute exact zeros through the masked softmax
 (``exp(-1e30 - m)`` is 0), and a position past a slot's length is either
 masked or overwritten by the decode write before it is ever attended.
@@ -39,7 +46,7 @@ masked or overwritten by the decode write before it is ever attended.
 from __future__ import annotations
 
 import math
-from typing import Any, List, Optional
+from typing import Any, Optional
 
 import torch
 
@@ -48,6 +55,7 @@ from ..ops.attention import paged_cached_attention, paged_multitoken_cached_atte
 from ..ops.quantizer import (
     dequantize_kv_pages,
     kv_page_scale,
+    maybe_dequantize,
     quantize_kv_pages,
     quantize_kv_token,
 )
@@ -57,17 +65,25 @@ PyTree = Any
 
 
 def _layer_params(params: PyTree, l: int) -> PyTree:
-    """Layer ``l``'s slice of the stacked block params (views, no copy)."""
+    """Layer ``l``'s slice of the stacked block params (views, no copy; a
+    quantized weight's codes and scales sliced alike)."""
     def take(tree):
         if isinstance(tree, dict):
             return {k: take(v) for k, v in tree.items()}
+        if isinstance(tree, tuple):
+            return type(tree)(*[take(v) for v in tree])
         return tree[l]
     return take(params["blocks"])
 
 
 def _proj(o, w, b):
     """The attention output projection."""
-    return o @ w + b
+    return o @ maybe_dequantize(w, o.dtype) + b
+
+
+def _qkv(lp, h):
+    """The attention input projection."""
+    return h @ maybe_dequantize(lp["c_attn_w"], h.dtype) + lp["c_attn_b"]
 
 
 def _write_pool_pages(pool, scales, l, page_ids, chunks, sidx):
@@ -142,7 +158,7 @@ def _attention_prefill_paged(cfg, lp, h, k_pool, v_pool, page_ids, l, scales=Non
     B, Sp, E = h.shape
     H, D = cfg.n_head, cfg.head_dim
     page = k_pool.shape[3]
-    qkv = h @ lp["c_attn_w"] + lp["c_attn_b"]
+    qkv = _qkv(lp, h)
     q, k_, v = qkv.split(H * D, dim=-1)
     q = q.reshape(B, Sp, H, D)
     pool_dt = _pool_dtype(k_pool, scales, h.dtype)
@@ -181,7 +197,7 @@ def paged_prefill(
     k_pool: torch.Tensor,      # [L, P, KV, page, D], written in place
     v_pool: torch.Tensor,
     page_ids: torch.Tensor,    # [Sp // page] slot pages (scratch-padded)
-    generator: Optional[torch.Generator] = None,
+    key=None,                  # [2] the request's key (temperature > 0)
     temperature: float = 0.0,
     top_k: int = 0,
     top_p: float = 1.0,
@@ -205,7 +221,7 @@ def paged_prefill(
         h = h + _mlp(cfg, lp["mlp"], _layer_norm(h, lp["ln_2"]["scale"], lp["ln_2"]["bias"], eps))
 
     logits = _logits(cfg, params, h[:, int(prompt_len) - 1])
-    first = sample_logits(logits, generator, temperature, top_k, top_p)
+    first = sample_logits(logits, key, temperature, top_k, top_p)
     return (first, logits) if return_logits else first
 
 
@@ -221,7 +237,7 @@ def _attention_decode_paged(cfg, lp, h, k_pool, v_pool, block_tables, pos, pidx,
     ``poff[b]``) before attention reads the pool."""
     B, S, E = h.shape  # S == 1
     H, D = cfg.n_head, cfg.head_dim
-    qkv = h @ lp["c_attn_w"] + lp["c_attn_b"]
+    qkv = _qkv(lp, h)
     q, k_, v = qkv.split(H * D, dim=-1)
     q = q.reshape(B, H, D).contiguous()
     pool_dt = _pool_dtype(k_pool, scales, h.dtype)
@@ -244,7 +260,7 @@ def paged_decode_step(
     k_pool: torch.Tensor,        # [L, P, KV, page, D], written in place
     v_pool: torch.Tensor,
     block_tables: torch.Tensor,  # [B, n] int32
-    generators: Optional[List[Optional[torch.Generator]]] = None,
+    keys=None,                   # [B, 2] per-slot keys (temperature > 0)
     temperature: float = 0.0,
     top_k: int = 0,
     top_p: float = 1.0,
@@ -252,8 +268,8 @@ def paged_decode_step(
     scales: Optional[torch.Tensor] = None,  # [L, P, KV, 2] of an int8 pool
 ):
     """→ next tokens ``[B]`` (and the logits ``[B, V]`` when asked). Greedy
-    unless ``temperature > 0``; then slot b draws from ``generators[b]``
-    (a slot without a generator is inactive and takes the argmax)."""
+    unless ``temperature > 0``; then slot b draws with ``keys[b]``, every
+    slot in one draw (an inactive slot's token is never read)."""
     page = k_pool.shape[3]
     eps = cfg.layer_norm_epsilon
     seq_lens = seq_lens.to(torch.int32).contiguous()
@@ -273,14 +289,7 @@ def paged_decode_step(
         h = h + _mlp(cfg, lp["mlp"], _layer_norm(h, lp["ln_2"]["scale"], lp["ln_2"]["bias"], eps))
 
     logits = _logits(cfg, params, h[:, -1])
-    if not temperature or temperature <= 0.0:
-        nxt = torch.argmax(logits.float(), dim=-1)
-    else:
-        nxt = torch.stack([
-            sample_logits(logits[b : b + 1], g, temperature, top_k, top_p)[0]
-            if g is not None else torch.argmax(logits[b].float())
-            for b, g in enumerate(generators)
-        ])
+    nxt = sample_logits(logits, keys, temperature, top_k, top_p)
     return (nxt, logits) if return_logits else nxt
 
 
@@ -338,7 +347,7 @@ def _attention_verify_paged(cfg, lp, h, k_pool, v_pool, block_tables, base, pidx
     write-all-then-attend equals the sequential write/attend interleaving."""
     B, T, E = h.shape
     H, D = cfg.n_head, cfg.head_dim
-    qkv = h @ lp["c_attn_w"] + lp["c_attn_b"]
+    qkv = _qkv(lp, h)
     q, k_, v = qkv.split(H * D, dim=-1)
     q = q.reshape(B, T, H, D)
     pool_dt = _pool_dtype(k_pool, scales, h.dtype)
@@ -419,7 +428,7 @@ def paged_chunk_prefill(
     v_pool: torch.Tensor,
     page_ids: torch.Tensor,      # [C // page] this chunk's slot pages (scratch-padded)
     block_tables: torch.Tensor,  # [1, W] int32 the slot's full table row
-    generator: Optional[torch.Generator] = None,
+    key=None,                    # [2] the request's key (temperature > 0)
     temperature: float = 0.0,
     top_k: int = 0,
     top_p: float = 1.0,
@@ -450,7 +459,7 @@ def paged_chunk_prefill(
         lp = _layer_params(params, l)
         attn = lp["attn"]
         hn = _layer_norm(h, lp["ln_1"]["scale"], lp["ln_1"]["bias"], eps)
-        qkv = hn @ attn["c_attn_w"] + attn["c_attn_b"]
+        qkv = _qkv(attn, hn)
         q, k_, v = qkv.split(H * D, dim=-1)
         q = q.reshape(B, C, H, D)
         # page-granular write, exactly paged_prefill's (the attention below
@@ -468,5 +477,5 @@ def paged_chunk_prefill(
     # the true last prompt position, when it falls inside this chunk
     idx = min(max(int(prompt_len) - 1 - int(start), 0), C - 1)
     logits = _logits(cfg, params, h[:, idx])
-    first = sample_logits(logits, generator, temperature, top_k, top_p)
+    first = sample_logits(logits, key, temperature, top_k, top_p)
     return (first, logits) if return_logits else first

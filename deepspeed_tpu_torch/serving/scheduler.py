@@ -31,6 +31,13 @@ token streams:
   prefill in page-aligned chunks, one chunk per scheduler step, so a long
   prompt does not stall the co-resident decode slots for its whole width.
 
+Sampling (``serving.temperature > 0``) draws what the JAX scheduler draws
+for the same request seed: the prefill (or the final prefill chunk) samples
+with ``PRNGKey(seed)``, and decode step t with ``split(fold_in(PRNGKey(seed),
+1), max_new_tokens - 1)[t - 1]``, the key sequence of ``generate`` for the
+request, computed on the host at admission (``ops/prng.py``). A slot's
+key sits in ``SlotTable.keys`` beside its last token.
+
 Robustness: admission control (queue depth, KV-page budget) rejects at the
 door; per-request deadlines evict mid-flight to a TRUNCATED response; an
 over-long ask is clamped at submit; :meth:`drain` stops admission, finishes
@@ -52,6 +59,7 @@ import numpy as np
 import torch
 
 from ..models.gpt2 import GPT2Config
+from ..ops import prng
 from ..runtime.config import ServingConfig
 from ..utils.logging import log_dist
 from . import model as smodel
@@ -77,7 +85,8 @@ class _Slot:
     request: Optional[Request] = None
     pages: List[int] = field(default_factory=list)  # full row: shared + private
     pos: int = 0    # tokens currently in this slot's cache
-    generator: Optional[torch.Generator] = None  # sampling draws (temperature > 0)
+    # the decode steps' keys (temperature > 0): [max_new_tokens - 1, 2]
+    keys: Optional[np.ndarray] = None
     # True while the prompt prefills chunk by chunk; the main table row then
     # stays scratch (the batched decode must not touch this slot's real,
     # possibly shared, pages) and ``row`` carries the real block table
@@ -364,6 +373,9 @@ class ServingEngine:
                     req.eos_token_id is not None and toks[-1] == req.eos_token_id
                 ):
                     self._finish_slot(i, RequestStatus.FINISHED, "", now)
+                elif slot.keys is not None:
+                    # token t (0-based) was drawn with keys[t - 1]
+                    self.table.keys[i] = slot.keys[len(req.tokens) - 1]
 
         return sum(1 for s in self.slots if s.request is not None)
 
@@ -372,14 +384,13 @@ class ServingEngine:
         None)."""
         pset = self.pset
         dev = self.device
-        gens = [s.generator for s in self.slots] if self._sampling else None
         out = smodel.paged_decode_step(
             self.model_config, pset.params,
             torch.from_numpy(self.table.tokens).to(dev),
             torch.from_numpy(self.table.seq_lens).to(dev),
             pset.k_pool, pset.v_pool,
             torch.from_numpy(self.table.block_tables).to(dev),
-            generators=gens,
+            keys=self.table.keys if self._sampling else None,
             temperature=float(self.config.temperature),
             top_k=int(self.config.top_k), top_p=float(self.config.top_p),
             return_logits=self.track_margins, scales=pset.scales,
@@ -513,10 +524,6 @@ class ServingEngine:
         slot.request = req
         slot.pages = pages
         slot.pos = 0
-        slot.generator = (
-            torch.Generator(device=self.device).manual_seed(req.seed)
-            if self._sampling else None
-        )
         req.prefix_shared_tokens = shared_tokens
         req.cow_forked = cow_page is not None
 
@@ -543,7 +550,7 @@ class ServingEngine:
         out = smodel.paged_prefill(
             self.model_config, pset.params, torch.from_numpy(ids).to(dev),
             req.prompt_len, pset.k_pool, pset.v_pool,
-            torch.from_numpy(page_ids).to(dev), slot.generator,
+            torch.from_numpy(page_ids).to(dev), self._prefill_key(req),
             temperature=float(self.config.temperature),
             top_k=int(self.config.top_k), top_p=float(self.config.top_p),
             return_logits=self.track_margins, scales=pset.scales,
@@ -556,6 +563,11 @@ class ServingEngine:
         if logits is not None:
             req.margins.append(float(_top2_margin(logits)[0]))
         self._start_decoding(slot_i, tok0)
+
+    def _prefill_key(self, req: Request):
+        """The first token's key: ``PRNGKey(seed)`` (JAX
+        ``_host_prng_key``), or None when greedy."""
+        return prng.PRNGKey(req.seed) if self._sampling else None
 
     def _advance_chunk(self, slot_i: int) -> None:
         """One chunk of a prefilling slot's prompt through the chunk
@@ -573,8 +585,8 @@ class ServingEngine:
         page_ids = np.zeros((C // page,), np.int32)  # scratch-padded past the row
         avail = slot.row[0, p0: p0 + C // page]
         page_ids[: len(avail)] = avail
-        # only the final chunk samples: an earlier chunk's token is
-        # discarded, and it must not consume the slot's generator
+        # only the final chunk samples, with the unchunked prefill's key; an
+        # earlier chunk's token is discarded
         final = start + C >= req.prompt_len
         pset = self.pset
         dev = self.device
@@ -582,7 +594,7 @@ class ServingEngine:
             self.model_config, pset.params, torch.from_numpy(ids).to(dev),
             start, req.prompt_len, pset.k_pool, pset.v_pool,
             torch.from_numpy(page_ids).to(dev), torch.from_numpy(slot.row).to(dev),
-            slot.generator if final else None,
+            self._prefill_key(req) if final else None,
             temperature=float(self.config.temperature) if final else 0.0,
             top_k=int(self.config.top_k), top_p=float(self.config.top_p),
             return_logits=self.track_margins and final, scales=pset.scales,
@@ -620,6 +632,12 @@ class ServingEngine:
         self.table.tokens[slot_i] = tok0
         if self.prefix_cache is not None:
             self.prefix_cache.insert(req.prompt, slot.pages)
+        if self._sampling and req.max_new_tokens > 1:
+            # generate's key sequence for this request (JAX
+            # scheduler.py:1963-1975): step t consumes keys[t - 1]
+            slot.keys = prng.split(prng.fold_in(prng.PRNGKey(req.seed), 1),
+                                   req.max_new_tokens - 1)
+            self.table.keys[slot_i] = slot.keys[0]
         if req.max_new_tokens == 1 or (
             req.eos_token_id is not None and tok0 == req.eos_token_id
         ):

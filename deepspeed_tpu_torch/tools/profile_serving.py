@@ -4,7 +4,7 @@ Usage, on a machine with one CUDA card, from the repository root:
 
     python -m deepspeed_tpu_torch.tools.profile_serving [--model gpt2-medium]
         [--requests 16] [--seed 1234] [--top 12] [--features] [--int8]
-        [--timed N]
+        [--sampled] [--timed N]
 
 Serves requests through the model in bf16 with random weights: once to
 warm up (kernel build, cuBLAS handles, allocator), then again under
@@ -14,10 +14,14 @@ default serving section; with ``--features`` it is the shared-prefix
 traffic through :data:`FEATURES_SECTION` (speculation k=4, the prefix
 cache, 64-token chunks), as ``chip_smoke.py`` phase 3b serves it; with
 ``--int8`` the pool holds int8 pages (``kv_cache_dtype="int8"``; with
-``--features`` that is phase 3c's configuration). Prints
+``--features`` that is phase 3c's configuration); with ``--sampled`` the
+requests are sampled at ``chip_smoke.py`` phase 20's temperature 0.8,
+top-k 50, top-p 0.95 (greedy otherwise). Prints
 the device time by kernel (the ``--top`` largest), the paged kernels'
-shares, and the device's busy and idle shares of the profiled run's wall
-time, then one JSON line with the same numbers. The profiler's own host
+shares, the device's busy and idle shares of the profiled run's wall
+time and the host's time in the CUDA runtime calls that take most of it
+(a sync, a blocking copy, the launches), then one JSON line with the same
+numbers. The profiler's own host
 overhead lengthens the wall time, so the idle share it reports is an upper
 bound.
 
@@ -39,7 +43,7 @@ import time
 import numpy as np
 import torch
 
-from deepspeed_tpu_torch.utils.profiling import device_time
+from deepspeed_tpu_torch.utils.profiling import device_time, runtime_calls
 
 # the serving section of the feature path at gpt2-medium's positions
 FEATURES_SECTION = {
@@ -47,6 +51,7 @@ FEATURES_SECTION = {
     "num_pages": 512, "prefill_chunk_tokens": 64, "prefix_cache": {"enabled": True},
     "speculative": {"enabled": True, "k": 4},
 }
+SAMPLED = {"temperature": 0.8, "top_k": 50, "top_p": 0.95}
 
 
 def mixed_requests(srv, n, vocab, seed):
@@ -82,11 +87,14 @@ def shared_prefix_requests(srv, vocab, seed, n_shared=8, n_cold=8, system_len=25
     return reqs
 
 
-def _serve_once(eng, n_requests: int, seed: int, features: bool, int8: bool):
+def _serve_once(eng, n_requests: int, seed: int, features: bool, int8: bool,
+                sampled: bool = False):
     vocab = eng.model_config.vocab_size
     section = dict(FEATURES_SECTION) if features else {}
     if int8:
         section["kv_cache_dtype"] = "int8"
+    if sampled:
+        section.update(SAMPLED)
     srv = eng.serve(section or None)
     if features:
         shared_prefix_requests(srv, vocab, seed, n_shared=n_requests // 2,
@@ -102,7 +110,8 @@ def _serve_once(eng, n_requests: int, seed: int, features: bool, int8: bool):
 def _timed(eng, args) -> int:
     runs = []
     for i in range(args.timed):
-        srv, wall_s = _serve_once(eng, args.requests, args.seed, args.features, args.int8)
+        srv, wall_s = _serve_once(eng, args.requests, args.seed, args.features, args.int8,
+                                  args.sampled)
         st = srv.stats()
         runs.append({"decode_tokens_per_s": st["decode_tokens_per_s"],
                      "tokens_per_s": st["tokens_per_s"],
@@ -116,7 +125,8 @@ def _timed(eng, args) -> int:
 
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "package": deepspeed_tpu_torch.__file__, "features": args.features,
-                      "int8": args.int8, "seed": args.seed, "runs": runs}))
+                      "int8": args.int8, "sampled": args.sampled, "seed": args.seed,
+                      "runs": runs}))
     return 0
 
 
@@ -130,6 +140,8 @@ def main(argv=None) -> int:
                     help="serve the shared-prefix traffic with speculation, the prefix "
                          "cache and chunked prefill on")
     ap.add_argument("--int8", action="store_true", help="int8 KV pages")
+    ap.add_argument("--sampled", action="store_true",
+                    help="sample at temperature 0.8, top-k 50, top-p 0.95")
     ap.add_argument("--timed", type=int, default=0,
                     help="N runs without the profiler, end-to-end numbers only")
     args = ap.parse_args(argv)
@@ -142,11 +154,12 @@ def main(argv=None) -> int:
     import deepspeed_tpu_torch as dtt
 
     eng = dtt.init_inference(args.model, dtype=torch.bfloat16, seed=0)
-    _serve_once(eng, args.requests, args.seed, args.features, args.int8)
+    _serve_once(eng, args.requests, args.seed, args.features, args.int8, args.sampled)
     if args.timed:
         return _timed(eng, args)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        srv, wall_s = _serve_once(eng, args.requests, args.seed, args.features, args.int8)
+        srv, wall_s = _serve_once(eng, args.requests, args.seed, args.features, args.int8,
+                                  args.sampled)
 
     by_name, busy_us = device_time(prof)
     if not by_name:
@@ -171,6 +184,9 @@ def main(argv=None) -> int:
           f"{mt_us / max(chunks, 1):.1f} us per chunk-program call")
     for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[: args.top]:
         print(f"  {t / 1e3:10.3f} ms  {t / total_us:6.3f}  {name[:100]}")
+    host = sorted(runtime_calls(prof).items(), key=lambda kv: -kv[1][0])[:6]
+    print("host time in CUDA runtime calls: " + ", ".join(
+        f"{name} {us / 1e3:.3f} ms / {n}" for name, (us, n) in host))
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "wall_s": wall_s,
         "device_busy_s": busy_us / 1e6, "idle_share": 1 - busy_us / 1e6 / wall_s,
@@ -182,6 +198,7 @@ def main(argv=None) -> int:
         "paged_multitoken_share_of_device": mt_us / total_us,
         "top": [[name, t / 1e6] for name, t in
                 sorted(by_name.items(), key=lambda kv: -kv[1])[: args.top]],
+        "runtime_calls_s": [[name, us / 1e6, n] for name, (us, n) in host],
     }))
     return 0
 

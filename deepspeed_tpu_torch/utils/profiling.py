@@ -25,3 +25,18 @@ def device_time(prof):
     if cur_end is not None:
         busy_us += cur_end - cur_start
     return dict(by_name), busy_us
+
+
+def runtime_calls(prof):
+    """The host side of the CUDA runtime in a ``torch.profiler`` run → {call
+    name: (µs on the host, calls)}: where a host-bound loop waits (a
+    ``cudaStreamSynchronize`` or a blocking ``cudaMemcpyAsync``) or spends
+    its launches."""
+    from torch.autograd import DeviceType
+
+    out = defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name.startswith("cuda"):
+            out[e.name][0] += e.time_range.end - e.time_range.start
+            out[e.name][1] += 1
+    return {name: (us, n) for name, (us, n) in out.items()}

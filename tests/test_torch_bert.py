@@ -177,12 +177,33 @@ def test_sparse_pretraining_loss_falls_on_one_batch():
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
 
 
-def test_config_refusals():
-    with pytest.raises(dtt.NotPortedError):
-        tbert.get_config("bert-tiny", dropout=0.1)
+def test_config_refusals(mesh_single):
+    """``dropout`` is accepted and applies nothing, as in the JAX package
+    (its ``pretraining_loss`` never hands ``forward`` a key): a bert-tiny
+    trajectory at dropout 0.1 equals JAX's, and both equal the run without
+    dropout. An unknown ``attn_impl`` still raises."""
     with pytest.raises(ValueError, match="attn_impl"):
         tbert.get_config("bert-tiny", attn_impl="ring")
     assert tbert.make_module(tbert.get_config("bert-tiny")).loss_fn is None
+    jc, tc = _cfgs("dense", dropout=0.1)
+    _, tc0 = _cfgs("dense")
+    params = _params(6)
+    batches = [_batch(4, 32, seed=20 + i, masked=False) for i in range(3)]
+    jeng = JEngine(jbert.make_module(jc), dict(CONFIG), mesh=mesh_single,
+                   params=jax.tree.map(jnp.asarray, params), seed=0)
+    teng, teng0 = (dtt.initialize(model=tbert.make_module(c), config=dict(CONFIG),
+                                  model_parameters=params_from_numpy(params, "cpu"),
+                                  device="cpu")[0] for c in (tc, tc0))
+    assert tc.dropout == 0.1
+    for i, b in enumerate(batches):
+        lj = float(jeng.train_batch(b)["loss"])
+        lt, lt0 = float(teng.train_batch(b)["loss"]), float(teng0.train_batch(b)["loss"])
+        assert abs(lt - lj) <= TOL * abs(lj), (i, lt, lj)
+        assert lt == lt0
+    pj = _flat(jax.tree.map(np.asarray, jeng.state.params))
+    pt = _flat(params_to_numpy(teng.params))
+    for name in pj:
+        np.testing.assert_allclose(pt[name], pj[name], atol=TOL, rtol=0, err_msg=name)
 
 
 @pytest.mark.parametrize("masked", [False, True])

@@ -1110,3 +1110,31 @@ def test_paged_multitoken_tensor_core_at_t1_is_the_decode_kernel(card, int8):
     torch.cuda.synchronize()
     assert _max_err(mt[:, 0], st) <= 1e-2
 
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 257, 64), (3, 7)])
+def test_threefry_dropout_kernel_is_its_plain_version(card, dtype, rate, shape):
+    """The dropout kernel and its backward (the same launch on dy) equal the
+    plain version on the card bit for bit: integer bits, one IEEE division."""
+    from deepspeed_tpu_torch.ops import dropout, prng
+
+    g = torch.Generator(device=card).manual_seed(3)
+    x = torch.randn(shape, generator=g, device=card).to(dtype).requires_grad_(True)
+    key = prng.fold_in(prng.PRNGKey(11), 2)
+    y = dropout.dropout(x, key, rate)
+    assert torch.equal(y, dropout.dropout_ref(x.detach(), key, rate))
+    dy = torch.randn(shape, generator=g, device=card).to(dtype)
+    (gx,) = torch.autograd.grad(y, x, dy)
+    assert torch.equal(gx, dropout.dropout_ref(dy, key, rate))
+
+
+@pytest.mark.parametrize("R,n,lo", [(1, 50257 * 2, 0.0), (5, 50257, 1.1754943508222875e-38),
+                                    (3, 33, 0.0)])
+def test_threefry_uniform_rows_kernel_is_its_plain_version(card, R, n, lo):
+    from deepspeed_tpu_torch.ops import prng
+
+    keys = prng.split(prng.PRNGKey(R), R)
+    got = prng.uniform_rows_kernel(keys, n, lo, 1.0, card)
+    assert torch.equal(got, prng.uniform_rows_ref(keys, n, lo, 1.0, card))

@@ -8,9 +8,9 @@ same numpy weights in both packages):
   package's ``InferenceEngine.generate``, bucketed and unbucketed, at
   several prompt lengths, and the port's bucketed tokens equal its
   unbucketed ones;
-- the ``max_len`` error, the ``max_new_tokens == 1`` edge, seeded sampled
-  generation, ``forward`` / ``engine(batch)``, the prompt buckets, and
-  weight-only int8 refused."""
+- the ``max_len`` error, the ``max_new_tokens == 1`` edge, sampled
+  generation equal to the JAX engine's, ``forward`` / ``engine(batch)``, the
+  prompt buckets, and weight-only int8 accepted."""
 
 import jax
 import jax.numpy as jnp
@@ -162,7 +162,9 @@ def test_max_len_error_contract(cfg, params):
         tgpt2.generate(cfg, params, torch.zeros(1, 120, dtype=torch.long), 10, prompt_len=100)
 
 
-def test_sampled_generate_is_seeded_and_reproducible(engine):
+def test_sampled_generate_is_seeded_and_reproducible(engine, jax_engine):
+    """Sampled tokens are the JAX engine's for the same seed (its keys:
+    PRNGKey(seed) for the first token, split(fold_in(., 1), N - 1) after)."""
     ids = _ids(6, (2, 5))
     a = engine.generate(ids, max_new_tokens=8, temperature=1.0, seed=3, top_k=40, top_p=0.9)
     b = engine.generate(ids, max_new_tokens=8, temperature=1.0, seed=3, top_k=40, top_p=0.9)
@@ -171,6 +173,10 @@ def test_sampled_generate_is_seeded_and_reproducible(engine):
     assert not np.array_equal(a, c)
     assert a.shape == (2, 13) and (a[:, 5:] < VOCAB).all() and (a[:, 5:] >= 0).all()
     np.testing.assert_array_equal(a[:, :5], ids)
+    for seed, got in ((3, a), (4, c)):
+        want = jax_engine.generate(ids, max_new_tokens=8, temperature=1.0, seed=seed, top_k=40,
+                                   top_p=0.9)
+        np.testing.assert_array_equal(got, np.asarray(want))
 
 
 def test_forward_and_call_match_jax(engine, jax_engine):
@@ -195,15 +201,27 @@ def test_prompt_buckets_match_jax(tree, buckets, S, new):
 
 
 def test_config_keys_and_weight_only_int8(tree):
+    """Weight-only int8 is ported: ``dtype="int8"`` (a string, torch.int8 or
+    the config's dtype) quantizes the block weights with 1 group and
+    computes in bf16; ``quantization_setting`` quantizes at the given dtype
+    with its (last) group count. An unknown config key still raises."""
     eng = dtt.init_inference("gpt2-tiny", params=params_from_numpy(tree, "cpu"), device="cpu",
                              dtype=torch.float32,
                              config={"max_out_tokens": 256, "generate_cache_size": 4,
                                      "prompt_bucket_sizes": [8]})
-    assert eng.max_tokens == 256 and eng._prompt_bucket(5, 4) == 8
-    for d in ("int8", torch.int8):
-        with pytest.raises(NotPortedError, match="weight-only int8"):
-            dtt.init_inference("gpt2-tiny", dtype=d, device="cpu")
-    with pytest.raises(NotPortedError, match="weight-only int8"):
-        dtt.init_inference("gpt2-tiny", device="cpu", config={"dtype": "int8"})
+    assert eng.max_tokens == 256 and eng._prompt_bucket(5, 4) == 8 and not eng.quantized
+    for kw in ({"dtype": "int8"}, {"dtype": torch.int8}, {"config": {"dtype": "int8"}}):
+        e = dtt.init_inference("gpt2-tiny", params=params_from_numpy(tree, "cpu"),
+                               device="cpu", **kw)
+        w = e.params["blocks"]["attn"]["c_attn_w"]
+        assert e.quantized and e.dtype == torch.bfloat16 and e.quantize_groups == 1
+        assert w.q.dtype == torch.int8 and w.q.shape == (2, 1, 64, 192)
+        assert w.scale.dtype == torch.bfloat16 and e.params["wte"].dtype == torch.bfloat16
+    for setting, groups in ((64, 64), ((True, 8), 8)):
+        e = dtt.init_inference("gpt2-tiny", params=params_from_numpy(tree, "cpu"), device="cpu",
+                               dtype=torch.float32, config={"quantization_setting": setting})
+        w = e.params["blocks"]["mlp"]["c_fc_w"]
+        assert e.quantized and e.quantize_groups == groups and e.dtype == torch.float32
+        assert w.q.shape == (2, groups, 64 // groups, 256) and w.scale.dtype == torch.float32
     with pytest.raises(NotPortedError):
-        dtt.init_inference("gpt2-tiny", device="cpu", config={"quantization_setting": 64})
+        dtt.init_inference("gpt2-tiny", device="cpu", config={"telemetry": {}})

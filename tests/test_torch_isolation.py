@@ -152,3 +152,25 @@ def test_the_optimizer_slice_modules_are_scanned():
                 "runtime/activation_checkpointing.py", "models/lm_loss.py"):
         assert f"deepspeed_tpu_torch/{mod}" in names
     assert (REPO / "deepspeed_tpu_torch/csrc/fused_adam.cu").is_file()
+
+
+def test_the_random_streams_slice_modules_are_scanned():
+    """The int8-weights / JAX-random-streams slice's modules and its kernel
+    source are part of what the scans above cover."""
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for mod in ("ops/prng.py", "ops/dropout.py", "ops/sampling.py", "ops/quantizer.py",
+                "models/gpt2.py", "models/bert.py", "runtime/engine.py", "serving/model.py",
+                "serving/scheduler.py", "inference/engine.py", "utils/weights.py"):
+        assert f"deepspeed_tpu_torch/{mod}" in names
+    assert (REPO / "deepspeed_tpu_torch/csrc/threefry.cu").is_file()
+
+
+def test_random_draws_have_no_other_route():
+    """The dropout and uniform dispatch: CPU tensors run the plain
+    versions, CUDA tensors the threefry kernel; any other device raises."""
+    from deepspeed_tpu_torch.ops import dropout, prng
+
+    with pytest.raises(ValueError, match="no implementation"):
+        dropout.dropout(torch.zeros(8, device="meta"), prng.PRNGKey(0), 0.1)
+    with pytest.raises(ValueError, match="no implementation"):
+        prng.uniform_rows(prng.PRNGKey(0)[None], 8, device="meta")

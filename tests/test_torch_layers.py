@@ -1,6 +1,6 @@
 """The port's layer pieces against the JAX package's on the same inputs:
-layer norm, the dense MLP, the top-k / top-p masks and greedy sampling.
-Tolerance 1e-6 (fp32 on the CPU); argmax exact."""
+layer norm, the dense MLP, the top-k / top-p masks, greedy sampling and
+the sampled draw. Tolerance 1e-6 (fp32 on the CPU); tokens exact."""
 
 import jax
 import jax.numpy as jnp
@@ -91,12 +91,22 @@ def test_greedy_sample_is_argmax_first_index_on_ties():
 
 
 def test_sampled_draw_is_seeded_and_respects_the_masks():
-    logits = torch.from_numpy(np.random.RandomState(6).randn(2, 30).astype(np.float32))
-    draws = [
-        tsamp.sample_logits(logits, torch.Generator().manual_seed(9), 0.8, 3, 1.0)
-        for _ in range(2)
-    ]
-    assert torch.equal(draws[0], draws[1])
-    top3 = torch.topk(logits, 3, dim=-1).indices
-    for row in range(2):
-        assert int(draws[0][row]) in top3[row].tolist()
+    """The draw is JAX's for the same key (``jax.random.categorical``), one
+    key for the batch or one a row, and stays inside the top-k mask."""
+    logits_np = np.random.RandomState(6).randn(2, 30).astype(np.float32)
+    logits = torch.from_numpy(logits_np)
+    for seed in range(9, 29):
+        key = jax.random.PRNGKey(seed)
+        want = jsamp.sample_logits(jnp.asarray(logits_np), key, 0.8, 3, 1.0)
+        draws = [tsamp.sample_logits(logits, np.asarray(key), 0.8, 3, 1.0) for _ in range(2)]
+        assert torch.equal(draws[0], draws[1])
+        np.testing.assert_array_equal(draws[0].numpy(), np.asarray(want))
+        row_keys = jax.random.split(key, 2)
+        want_rows = jax.vmap(lambda lg, k: jsamp.sample_logits(lg[None], k, 0.8, 3, 1.0)[0])(
+            jnp.asarray(logits_np), row_keys)
+        got_rows = tsamp.sample_logits(logits, np.asarray(row_keys), 0.8, 3, 1.0)
+        np.testing.assert_array_equal(got_rows.numpy(), np.asarray(want_rows))
+        top3 = torch.topk(logits, 3, dim=-1).indices
+        for row in range(2):
+            assert int(draws[0][row]) in top3[row].tolist()
+            assert int(got_rows[row]) in top3[row].tolist()

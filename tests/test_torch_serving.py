@@ -66,6 +66,12 @@ def tree():
     return jax.tree.map(np.asarray, jgpt2.init_params(cfg, jax.random.PRNGKey(0)))
 
 
+def _jax_engine(tree):
+    cfg = jgpt2.get_config("gpt2-tiny")
+    return JaxInferenceEngine(jgpt2.make_module(cfg), params=jax.tree.map(jnp.asarray, tree),
+                              dtype=jnp.float32)
+
+
 @pytest.fixture(scope="module")
 def jax_srv(tree):
     cfg = jgpt2.get_config("gpt2-tiny")
@@ -205,9 +211,10 @@ class TestTokenIdentity:
         assert req.tokens == ref[:stop_at]
         srv.check_no_leaks()
 
-    def test_sampled_streams_are_seeded_and_batch_independent(self, engine):
+    def test_sampled_streams_are_seeded_and_batch_independent(self, engine, tree):
         """A sampled stream depends on its request's seed only: alone or
-        co-batched with others, the draws are the same."""
+        co-batched with others, the draws are the same, and they are the
+        JAX ServingEngine's draws for the same seeds."""
         cfg = dict(SERVING_CFG, temperature=0.8, top_k=5)
         prompts = _prompts(3, [3, 8, 4, 7])
         alone = []
@@ -221,6 +228,10 @@ class TestTokenIdentity:
         srv.run()
         assert [r.tokens for r in reqs] == alone
         srv.check_no_leaks()
+        jsrv = _jax_engine(tree).serve(cfg)
+        jreqs = [jsrv.submit(p, max_new_tokens=5, seed=100 + i) for i, p in enumerate(prompts)]
+        jsrv.run()
+        assert [list(r.tokens) for r in jreqs] == alone
 
 
 class TestMidFlightAdmission:
@@ -795,15 +806,22 @@ class TestChunkedPrefill:
         assert req.status == RequestStatus.TRUNCATED and req.tokens == []
         srv.check_no_leaks()
 
-    def test_sampled_stream_is_chunking_invariant(self, engine):
-        """Only the final chunk samples, so a sampled first token (and the
-        stream after it) does not depend on the chunk width."""
+    def test_sampled_stream_is_chunking_invariant(self, engine, tree):
+        """Only the final chunk samples, with the unchunked prefill's key, so
+        a sampled first token (and the stream after it) does not depend on
+        the chunk width; both streams are the JAX engine's."""
         prompt = np.random.RandomState(67).randint(0, 512, (12,)).astype(np.int32)
         streams = []
+        jeng = _jax_engine(tree)
         for extra in ({}, {"prefill_chunk_tokens": 4}):
-            srv = engine.serve(dict(SERVING_CFG, temperature=0.8, top_k=5, **extra))
+            conf = dict(SERVING_CFG, temperature=0.8, top_k=5, **extra)
+            srv = engine.serve(conf)
             r = srv.submit(prompt, max_new_tokens=6, seed=5)
             srv.run()
             srv.check_no_leaks()
             streams.append(r.tokens)
+            jsrv = jeng.serve(conf)
+            jr = jsrv.submit(prompt, max_new_tokens=6, seed=5)
+            jsrv.run()
+            assert list(jr.tokens) == r.tokens
         assert streams[0] == streams[1]

@@ -166,12 +166,23 @@ def test_config_sections_at_their_off_values_are_accepted():
         DeepSpeedConfig.load({"train_batch_size": 4, "fp16": {"enabled": True, "scale": 2}})
 
 
-@pytest.mark.parametrize("override", [{"dropout": 0.1}, {"attn_impl": "ulysses"},
+@pytest.mark.parametrize("override", [{"attn_impl": "ulysses"},
                                       {"moe_experts": 4}, {"attn_impl": "ring_flash"},
                                       {"attn_impl": "ring"}])
 def test_unported_model_options_raise(override):
     with pytest.raises(NotPortedError):
         tgpt2.get_config("gpt2-tiny", **override)
+
+
+def test_dropout_option_is_accepted():
+    """Dropout is ported (JAX's masks, tests/test_torch_dropout.py): the
+    option that raised before now configures the model and trains."""
+    cfg = tgpt2.get_config("gpt2-tiny", dropout=0.1)
+    assert cfg.dropout == 0.1
+    eng, *_ = dtt.initialize(model=tgpt2.make_module(cfg), config={"train_batch_size": 2},
+                             device="cpu")
+    ids = np.random.RandomState(0).randint(0, 512, (2, 16)).astype(np.int32)
+    assert np.isfinite(float(eng.train_batch({"input_ids": ids})["loss"]))
 
 
 @pytest.mark.parametrize("opt", ["OneBitAdam", "ZeroOneAdam", "OneBitLamb"])

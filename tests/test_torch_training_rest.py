@@ -23,6 +23,7 @@ from deepspeed_tpu.models import gpt2 as jgpt2
 from deepspeed_tpu_torch.models import gpt2 as tgpt2
 from deepspeed_tpu_torch.models import lm_loss as tlm
 from deepspeed_tpu_torch.ops import flash_attention as tfa
+from deepspeed_tpu_torch.ops import prng
 from deepspeed_tpu_torch.utils.weights import params_from_numpy, params_to_numpy, tree_leaves
 
 TOL = 1e-5
@@ -205,13 +206,15 @@ def test_forward_backward_step_loop_equals_train_batch_loop():
     params = _params(3)
     batches = [_batch(4, 32, seed=20 + i, ignore=False) for i in range(4)]
     a, b = _engine(params), _engine(params)
-    gen_state = b._generator.get_state()
     for batch in batches:
         ma = a.train_batch(batch)
-        expect = b.eval_batch(batch)
+        # an explicit key leaves the training key alone (without one,
+        # eval_batch splits it, as the JAX engine does)
+        expect = b.eval_batch(batch, rng=prng.PRNGKey(0))
+        key = b._rng.copy()
         loss = b(batch)  # __call__ is forward
         assert float(loss) == float(expect)
-        assert torch.equal(b._generator.get_state(), gen_state)  # the training stream untouched
+        np.testing.assert_array_equal(b._rng, key)  # the training stream untouched
         b.backward(loss)
         mb = b.step()
         assert float(mb["loss"]) == float(ma["loss"]) and mb["global_step"] == ma["global_step"]

@@ -106,10 +106,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      variable and dense layouts, the dense one also against the flash
      kernel; a custom layout whose first query block sees nothing, whose
      rows must give o = 0 and lse = +1e30; blocks 16/32/64/128, D 64/128,
-     fp32/fp16/bf16, S 128-4096, so both backward routes, wgmma and
-     mma.sync/FMA; q/k/v as views of a [B, S, 3E] projection), each by max
-     abs error and max abs error over max |ref|, o/lse and dq/dk/dv
-     repeating bit for bit over two calls;
+     fp32/fp16/bf16, S 128-4096, so every route: wgmma for the forward and
+     dq at blocks 64/128 and for dk/dv at every block (grouped units at
+     16/32), mma.sync for the forward and dq at 16/32, FMA at fp32, each
+     case printing each kernel's route; q/k/v as views of a [B, S, 3E]
+     projection), each by max abs error and max abs error over max |ref|,
+     o/lse and dq/dk/dv repeating bit for bit over two calls;
      each kernel timed at the GPT-2 shape (B2 S4096 H16 D64 bf16, fixed
      unidirectional, block 64) and the BERT shape (B16 S512 H16 D64 bf16,
      fixed bidirectional, block 16) beside its plain version, SDPA with the
@@ -144,11 +146,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      DeepSpeed's BERT LAMB recipe). Losses finite and falling; the LAMB
      kernel launched exactly 2 x 10 times, the flash forward and backward
      exactly 24 x 10 each; step ms, tokens/s, peak memory, a profiler pass
-     over 2 steps.
+     over 2 steps; then phase 12's step ms beside phase 15's.
   16 the threefry kernel (csrc/threefry.cu) against its plain versions on
      the card, bit for bit: dropout forward and backward in bf16, fp16 and
-     f32 at phase 6's activation shape [8, 1024, 1024] and at an odd size,
-     rates 0.1 and 0.5; uniform_rows at R1 x n 8*50257 (generate's draw)
+     f32 at phase 6's activation shape [8, 1024, 1024], at an odd size and
+     at 8 k + 1 .. 7 elements (the scalar tail past the 16-byte vectors),
+     rates 0.1 and 0.5, and on a view one element past a 16-byte boundary
+     (into an aligned output and into an equally misaligned one: the
+     scalar walk, and a scalar head before the vectors); uniform_rows at
+     R1 x n 8*50257 (generate's draw)
      and R16 x n 50257 (a serving step's), over [0, 1) and [tiny, 1). Each
      timed with CUDA events beside its plain version, one PyTorch call
      (F.dropout, torch.rand: other streams of bits, timed only) and the
@@ -178,7 +184,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      generate B8 128 + 64 with 64.
   8  (last, after 20) one JSON line of per-kernel numbers, every kernel and
      mode with its launches on the path that ported it (the block-sparse
-     kernels: phase 11's; fused AdamW: phase 6's; fused LAMB: phase 15's;
+     kernels: phase 11's, and dk/dv at blocks 16/32 at BERT's shape with
+     phase 12's; fused AdamW: phase 6's; fused LAMB: phase 15's;
      the threefry dropout: phase 17's; uniform_rows: phase 20's bf16
      serving), then the last line {"ok": true, "device": {...}} with
      "count": 1, the cards the run used.
@@ -688,6 +695,15 @@ def bs_errors(q, k, v, do, lists, causal):
     return out, scaled, o, int(poison.sum())
 
 
+def bs_route(q, blk, which):
+    """The kernel ``which`` takes at this shape: "wgmma" (the TMA + wgmma
+    kernel; dk/dv's grouped units at blocks of 16 and 32), "mma.sync"
+    (bf16/fp16 forward and dq at 16 and 32) or "FMA" (fp32)."""
+    if bsa.wgmma_route(q, blk, which):
+        return "wgmma (grouped units)" if blk < 64 else "wgmma"
+    return "FMA" if q.dtype == torch.float32 else "mma.sync"
+
+
 def bs_pairs(lists, causal):
     """(query, key) pairs one batch row computes over all heads: each active
     block's blk x blk, a diagonal block's blk (blk + 1) / 2 under the causal
@@ -761,6 +777,7 @@ def train_phase(label, module, conf, batch, steps, n_layer, profile_kernels, spa
     S = batch["input_ids"].shape[1]
     tokens = eng.train_batch_size * S
     step_ms = statistics.median(step_s[2:]) * 1e3
+    counts["step_ms"] = step_ms
     print("losses " + " ".join(f"{x:.4f}" for x in losses))
     print(f"{'block-sparse' if sparse else 'flash'} launches: "
           + ", ".join(f"{k} {counts[k]}" for k in mine)
@@ -1146,7 +1163,10 @@ def threefry_kernels_phase():
     g = torch.Generator(device="cuda").manual_seed(16)
     key = prng.fold_in(prng.PRNGKey(1), 16)
     drop_err = uni_err = 0.0
-    for shape in (S16, (3, 1001, 7)):
+    # the main shape, an odd size, and tails past the 16-byte vectors (8 k +
+    # 1 .. 7 elements: the kernel's scalar tail after 8-wide bf16/fp16 and
+    # 4-wide f32 vectors)
+    for shape in (S16, (3, 1001, 7)) + tuple((8 * 1000 + t,) for t in range(1, 8)):
         for dt in (torch.bfloat16, torch.float16, torch.float32):
             x = torch.randn(shape, generator=g, device="cuda").to(dt)
             dy = torch.randn(shape, generator=g, device="cuda").to(dt)
@@ -1166,6 +1186,35 @@ def threefry_kernels_phase():
                 print(f"dropout {shape} {str(dt).replace('torch.', '')} rate {rate}: forward and "
                       f"backward equal to the plain version bit for bit, kept "
                       f"{float((y_ref != 0).float().mean()):.5f}")
+    # a misaligned view (x starts one element past a 16-byte boundary while
+    # its output is aligned: the kernel's scalar walk), and an aligned view
+    # with a head (both one element in)
+    for dt in (torch.bfloat16, torch.float16, torch.float32):
+        base = torch.randn(8 * 4099 + 3, generator=g, device="cuda").to(dt)
+        x = base[1:]
+        check(x.data_ptr() % 16 != 0, "phase 16: the misaligned view is aligned")
+        for rate in (0.1, 0.5):
+            y = prng.dropout_kernel(x, key, rate)
+            y_ref = tdo.dropout_ref(x, key, rate)
+            out_view = torch.empty_like(base)[1:]
+            lib = op_builder.load("threefry")
+            p, c = prng.keep_scale(rate, dt)
+            r, mul = prng.reciprocal_is_exact(rate, dt)
+            k0, k1 = prng.key_words(key)
+            err = lib.threefry_dropout_launch(x.data_ptr(), out_view.data_ptr(), x.numel(), k0, k1,
+                                              prng.keep_threshold(p), c, r, int(mul),
+                                              prng.DTYPES[dt],
+                                              torch.cuda.current_stream().cuda_stream)
+            check(err == 0, f"phase 16: launch into a view failed ({err})")
+            torch.cuda.synchronize()
+            drop_err = max(drop_err, float((y.float() - y_ref.float()).abs().max()))
+            check(torch.equal(y, y_ref) and torch.equal(out_view, y_ref),
+                  f"dropout misaligned view {dt} rate {rate}: kernel differs from its plain "
+                  f"version ({int((y != y_ref).sum())} / {int((out_view != y_ref).sum())} "
+                  "elements)")
+        print(f"dropout {str(dt).replace('torch.', '')}, a view one element past a 16-byte "
+              f"boundary ({x.numel()} elements), into an aligned output and into a view as "
+              "misaligned as x: equal to the plain version bit for bit")
     out = {}
     x = torch.randn(S16, generator=g, device="cuda").to(torch.bfloat16)
     ms, _ = time_ms(lambda i: prng.dropout_kernel(x, key, 0.1), 50)
@@ -2455,7 +2504,8 @@ def main() -> int:
               "err " + ", ".join(f"{k} {e:.3e}" for k, e in errs10.items())
               + "; max abs err / max |ref| " + ", ".join(f"{k} {e:.3e}" for k, e in scaled10.items())
               + f" (tolerance {rel_tol:g}, lse {LSE_REL_TOL:g}); o/lse and dq/dk/dv repeat bit "
-              f"for bit; route {'wgmma' if bsa.wgmma_route(q, blk) else 'mma.sync/FMA'}{extra}")
+              f"for bit; routes " + ", ".join(
+                  f"{w} {bs_route(q, blk, w)}" for w in ("fwd", "dq", "dkv")) + extra)
         check(scaled10["lse"] <= LSE_REL_TOL, f"block-sparse {label}: lse {scaled10['lse']}")
         check(all(e <= rel_tol for k, e in scaled10.items() if k != "lse"),
               f"block-sparse {label}: scaled errors {scaled10} above {rel_tol}")
@@ -2579,6 +2629,9 @@ def main() -> int:
     eng15, counts15 = train_phase("phase 15", module15, conf15, batch15, 10, cfg15.n_layer,
                                   FLASH_KERNELS + OPTIMIZER_KERNELS, sparse=False,
                                   opt_kernel="fused_lamb")
+    print(f"phase 12 (bert-large sparse S512, micro 16, Adam) step ms {counts12['step_ms']:.2f} "
+          f"beside phase 15 (bert-large dense S128, micro 64, LAMB) {counts15['step_ms']:.2f}, "
+          "this call")
     del eng15, batch15
     gc.collect()
     torch.cuda.empty_cache()
@@ -2714,6 +2767,17 @@ def main() -> int:
     } for which, src, line, outputs in (("fwd", "fwd", 176, ("o", "lse")),
                                         ("dq", "bwd", 208, ("dq",)),
                                         ("dkv", "bwd", 226, ("dk", "dv")))] + [{
+        # dk/dv's grouped units at blocks of 16 and 32, at BERT's shape and
+        # with phase 12's launches
+        "name": "block_sparse_attention_dkv (blocks 16/32)",
+        "route": "cuda",
+        "source": "deepspeed_tpu_torch/csrc/block_sparse_attention_bwd.cu",
+        "replaces": "deepspeed_tpu/ops/pallas/block_sparse_attention.py:226",
+        "launches": counts12["block_sparse_attention_dkv"],
+        "max_abs_err": max(bs_errs[bs_cases[1][0]][key] for key in ("dk", "dv")),
+        **{f: bs_times[bs_cases[1][0], "dkv"][f]
+           for f in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+    }] + [{
         "name": name,
         "route": "cuda",
         "source": "deepspeed_tpu_torch/csrc/fused_adam.cu",

@@ -22,8 +22,9 @@
 // H16, block 16) the bytes bound them (0.025 and 0.030 ms).
 //
 // bf16/fp16 at D 64/128 and blocks of 64/128 (the GPT-2 shape) run the TMA
-// + wgmma kernels, the flash backward's design (flash_attention_bwd.cu) on
-// the host's schedule (ops/block_sparse_attention.py bwd_plan):
+// + wgmma kernels (dk/dv at 16/32 too: below), the flash backward's design
+// (flash_attention_bwd.cu) on the host's schedule
+// (ops/block_sparse_attention.py bwd_plan):
 //  - a unit is 64 rows (wgmma's M) of one (head, block): queries for dq,
 //    keys for dk/dv. An item is two units of one (batch, head) whose list
 //    rows share the most 64-row tiles, one a consumer warpgroup; it walks
@@ -56,23 +57,32 @@
 // dq without its last product moves its ~217 MB of L2 reads at ~5 TB/s:
 // the loads and the products take turns more than they overlap.
 //
-// Blocks of 16 and 32 (BERT's default is 16) keep the mma.sync kernels
-// below: a wgmma M of 64 rows would span 4 or 2 blocks with lists of their
-// own. Units of R = min(blk, 64) rows, a warp per 16 rows (dk/dv at D128:
-// two warps per 16 keys, each owning 64 of the output columns), the
-// streamed operand double-buffered through cp.async as tiles of R rows,
-// fragments by ldmatrix, m16n8k16 products, p and ds rounded to the storage
-// dtype and fed to the next product from registers, and 4 or 2 units packed
-// into a thread block, each on its own named barrier. fp32 runs the same
-// walks on the FMA pipes (lane j owns row j of a chunk of min(blk, 32)
-// streamed rows). Which kernel a call takes is a rule on shapes alone (the
-// wrapper's wgmma_route); a call never falls back from one to another.
+// dk/dv at blocks of 16 and 32 (BERT's default is 16) runs the same wgmma
+// kernel on grouped units (ops/block_sparse_attention.py dkv_group_plan):
+// up to 64 / blk key blocks (those whose query lists are equal first) fill
+// a 64-row unit, a TMA box a block, and the union of their lists streams 64
+// rows at a time, one box when the blocks are consecutive, under a mask per
+// (key block, query block). BERT's fixed layout at S512 gives a head 8 units of
+// 3 local blocks (one tile each) and 2 of 4 global blocks (8 tiles, shared):
+// 98,304 scored pairs a head against its 90,112. At B16 S512 H16 D64 bf16
+// it takes 0.0677 ms, where the mma.sync dk/dv it replaced took 0.2246
+// (H100 80GB HBM3, 700 W; chip_smoke.py phase 10).
+//
+// dq at blocks of 16 and 32 keeps the mma.sync kernel below: units of R =
+// blk rows, a warp per 16 rows, the streamed K/V double-buffered through
+// cp.async as tiles of R rows, fragments by ldmatrix, m16n8k16 products, ds
+// rounded to the storage dtype and fed to the next product from registers,
+// 4 or 2 units packed into a thread block, each on its own named barrier.
+// fp32 runs dq and dk/dv on the FMA pipes (lane j owns row j of a chunk of
+// min(blk, 32) streamed rows). Which kernel a call takes is a rule per
+// kernel on shapes alone (the wrapper's wgmma_route); a call never falls
+// back from one to another.
 //
 // Not done yet: one shared recompute of s and dp for dq and dk/dv (5
 // products instead of 7: dq would need a deterministic sum across blocks);
-// wgmma for blocks of 16 and 32 (BERT's rows: 24 of its 31 adjacent query
-// blocks list the same key blocks, so 4 of them could form one 64-row unit);
-// delta and lse in log2 units as one prep pass.
+// dq at blocks of 16 and 32 on wgmma (its query lists group as dk/dv's key
+// lists do: BERT's 4 blocks of a window list the same key blocks); delta
+// and lse in log2 units as one prep pass.
 
 #include <cuda.h>
 
@@ -225,187 +235,6 @@ bs_dq_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     for (int n = 0; n < D / 8; ++n) {
       *reinterpret_cast<uint32_t*>(out + n * 8) =
           pack2<T>(dqa[n][2 * i] * p.scale, dqa[n][2 * i + 1] * p.scale);
-    }
-  }
-}
-
-// ---- dk, dv (bf16 / fp16) -------------------------------------------------
-
-template <typename T, int D, int TW>
-struct DkvCfg {
-  static constexpr int R = TW;           // keys a unit owns
-  static constexpr int DSPLIT = D / 64;  // warps sharing 16 keys, 64 output columns each
-  static constexpr int RG = R / 16;      // row groups of 16 keys
-  static constexpr int UW = RG * DSPLIT;
-  static constexpr int G = UW >= 4 ? 1 : 4 / UW;
-  static constexpr int UT = UW * 32;
-  static constexpr int NT = G * UT;
-  static constexpr int LD = D + 8;
-  static constexpr int DC = 64;
-  // K, V, two Q and two dO tiles, then lse and delta for two tiles
-  static constexpr size_t USMEM = (size_t)(2 * R + 4 * TW) * LD * sizeof(T) + 4 * TW * sizeof(float);
-  static constexpr size_t SMEM = G * USMEM;
-};
-
-template <typename T, int D, int TW>
-__global__ void __launch_bounds__(DkvCfg<T, D, TW>::NT)
-bs_dkv_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-           const T* __restrict__ dout, const float* __restrict__ lse,
-           const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-           const BsParams p) {
-  using C = DkvCfg<T, D, TW>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int unit = threadIdx.x / C::UT;
-  const int ut = threadIdx.x % C::UT, lane = ut & 31, warp = ut >> 5;
-  const int rg = warp % C::RG, part = warp / C::RG;
-  const int qg = lane >> 2, t = lane & 3;
-  Unit U;
-  if (!unit_of((long long)blockIdx.x * C::G + unit, C::R, p, U)) return;
-  T* Ks = reinterpret_cast<T*>(smem_raw + unit * C::USMEM);
-  T* Vs = Ks + C::R * C::LD;
-  T* Qs = Vs + C::R * C::LD;          // two buffers of TW rows
-  T* Os = Qs + 2 * TW * C::LD;        // dO, two buffers of TW rows
-  float* Ls = reinterpret_cast<float*>(Os + 2 * TW * C::LD);  // lse (log2 units), two buffers
-  float* Dl = Ls + 2 * TW;                                      // delta, two buffers
-
-  const int k0 = U.row0;
-  const int* lst = p.idx + ((long long)U.h * p.nblk + U.bi) * p.maxl;
-  const int per = p.blk / TW;
-  const int n_all = p.cnt[U.h * p.nblk + U.bi] * per;
-  const int lo = key_unit_first_tile(lst, p.cnt[U.h * p.nblk + U.bi], k0, p, TW);
-  const T* qb = q + U.b * p.q_sb + U.h * p.q_sh;
-  const T* ob = dout + U.b * p.do_sb + U.h * p.do_sh;
-  const long long rowbase = ((long long)U.b * p.H + U.h) * p.S;
-
-  load_rows_async<T, C::R, D, C::LD, C::UT>(Ks, k + U.b * p.k_sb + U.h * p.k_sh, p.k_ss, k0,
-                                             p.S, ut);
-  load_rows_async<T, C::R, D, C::LD, C::UT>(Vs, v + U.b * p.v_sb + U.h * p.v_sh, p.v_ss, k0,
-                                             p.S, ut);
-  // stream query tile `it` of the list into buffer `buf`
-  auto issue = [&](int it, int buf) {
-    const int c = tile_row0(lst, it, per, p.blk, TW);
-    load_rows_async<T, TW, D, C::LD, C::UT>(Qs + buf * TW * C::LD, qb, p.q_ss, c, p.S, ut);
-    load_rows_async<T, TW, D, C::LD, C::UT>(Os + buf * TW * C::LD, ob, p.do_ss, c, p.S, ut);
-    for (int r = ut; r < TW; r += C::UT) {
-      Ls[buf * TW + r] = lse[rowbase + c + r] * kLog2e;
-      Dl[buf * TW + r] = delta[rowbase + c + r];
-    }
-  };
-  if (lo < n_all) issue(lo, 0);
-  cp_async_commit();
-
-  const int key[2] = {k0 + rg * 16 + qg, k0 + rg * 16 + qg + 8};
-  const float scale2 = p.scale * kLog2e;
-  float dka[C::DC / 8][4], dva[C::DC / 8][4];
-#pragma unroll
-  for (int n = 0; n < C::DC / 8; ++n) {
-    dka[n][0] = dka[n][1] = dka[n][2] = dka[n][3] = 0.f;
-    dva[n][0] = dva[n][1] = dva[n][2] = dva[n][3] = 0.f;
-  }
-
-  for (int it = lo; it < n_all; ++it) {
-    const int buf = (it - lo) & 1;
-    if (it + 1 < n_all) {
-      issue(it + 1, buf ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    unit_sync(unit, C::UT);
-    const T* Qt = Qs + buf * TW * C::LD;
-    const T* Ot = Os + buf * TW * C::LD;
-    const float* Lt = Ls + buf * TW;
-    const float* Dt = Dl + buf * TW;
-    const int c0 = tile_row0(lst, it, per, p.blk, TW);
-
-    // s^T = k q^T: this warp's 16 keys x the tile's TW queries
-    float st[TW / 8][4];
-#pragma unroll
-    for (int n = 0; n < TW / 8; ++n) st[n][0] = st[n][1] = st[n][2] = st[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
-      uint32_t a[4];
-      load_a<T, C::LD>(a, Ks, rg * 16, kk, lane);
-#pragma unroll
-      for (int n = 0; n < TW / 8; n += 2) {
-        uint32_t bb[4];
-        load_b_rows<T, C::LD>(bb, Qt, n * 8, kk, lane);
-        mma16816<T>(st[n], a, bb);
-        mma16816<T>(st[n + 1], a, bb + 2);
-      }
-    }
-    // p^T = exp(s^T * scale - lse[query]) (exp2 in log2 units), 0 where the
-    // causal rule masks (query < key)
-    const bool full = !p.causal || c0 >= k0 + rg * 16 + 15;
-#pragma unroll
-    for (int n = 0; n < TW / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int ql = n * 8 + 2 * t + (e & 1);
-        st[n][e] = full || c0 + ql >= key[e >> 1] ? exp2f(st[n][e] * scale2 - Lt[ql]) : 0.f;
-      }
-    }
-    // dv += P^T dO
-#pragma unroll
-    for (int kk = 0; kk < TW / 16; ++kk) {
-      uint32_t a[4];
-      a_from_c<T>(a, st[2 * kk], st[2 * kk + 1]);
-#pragma unroll
-      for (int n = 0; n < C::DC / 8; n += 2) {
-        uint32_t bb[4];
-        load_b_cols<T, C::LD>(bb, Ot, kk * 16, part * C::DC + n * 8, lane);
-        mma16816<T>(dva[n], a, bb);
-        mma16816<T>(dva[n + 1], a, bb + 2);
-      }
-    }
-    // dp^T = v dO^T
-    float dpt[TW / 8][4];
-#pragma unroll
-    for (int n = 0; n < TW / 8; ++n) dpt[n][0] = dpt[n][1] = dpt[n][2] = dpt[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
-      uint32_t a[4];
-      load_a<T, C::LD>(a, Vs, rg * 16, kk, lane);
-#pragma unroll
-      for (int n = 0; n < TW / 8; n += 2) {
-        uint32_t bb[4];
-        load_b_rows<T, C::LD>(bb, Ot, n * 8, kk, lane);
-        mma16816<T>(dpt[n], a, bb);
-        mma16816<T>(dpt[n + 1], a, bb + 2);
-      }
-    }
-    // ds^T = p^T (dp^T - delta[query])
-#pragma unroll
-    for (int n = 0; n < TW / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[n][e] *= dpt[n][e] - Dt[n * 8 + 2 * t + (e & 1)];
-    }
-    // dk += dS^T q
-#pragma unroll
-    for (int kk = 0; kk < TW / 16; ++kk) {
-      uint32_t a[4];
-      a_from_c<T>(a, st[2 * kk], st[2 * kk + 1]);
-#pragma unroll
-      for (int n = 0; n < C::DC / 8; n += 2) {
-        uint32_t bb[4];
-        load_b_cols<T, C::LD>(bb, Qt, kk * 16, part * C::DC + n * 8, lane);
-        mma16816<T>(dka[n], a, bb);
-        mma16816<T>(dka[n + 1], a, bb + 2);
-      }
-    }
-    unit_sync(unit, C::UT);  // this buffer is consumed before it is refilled
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const long long off = (((long long)U.b * p.S + key[i]) * p.H + U.h) * D + part * C::DC + 2 * t;
-#pragma unroll
-    for (int n = 0; n < C::DC / 8; ++n) {
-      *reinterpret_cast<uint32_t*>(dk + off + n * 8) =
-          pack2<T>(dka[n][2 * i] * p.scale, dka[n][2 * i + 1] * p.scale);
-      *reinterpret_cast<uint32_t*>(dv + off + n * 8) = pack2<T>(dva[n][2 * i], dva[n][2 * i + 1]);
     }
   }
 }
@@ -641,16 +470,31 @@ bs_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
 // = P^T (dP^T - delta) in registers (selects to 0 on a tile its unit does
 // not walk and on the pairs the causal rule masks), then dV += P^T dO and
 // dK += dS^T Q with P^T and dS^T as register A operands; dK and dV stay in
-// registers over the item and are stored once
-template <typename T, int D>
+// registers over the item and are stored once.
+//
+// BLK 64 takes blocks of 64 and 128 (a unit is 64 consecutive keys, a tile
+// 64 consecutive queries: bwd_plan). BLK 16 and 32 take the grouped plan
+// (dkv_group_plan): a unit is up to G = 64 / BLK key blocks (those with
+// equal query lists first), loaded a block a box through the blk-row maps
+// tk / tv; a tile is G query blocks of the union of their lists, one
+// 64-row box through tq / tdo when they are consecutive (BERT's windows and
+// its global list), else a block a box through tqb / tdob, with lse and
+// delta by bulk copies of the same rows. A warp's 16 keys lie in one key
+// block, so a tile entry's bit for that block masks a query block the warp
+// does not list, as a padding slot (a repeated block) and a pair the
+// causal rule drops are masked: p = 0. A padding warp stores nothing
+template <typename T, int D, int BLK>
 __global__ void __launch_bounds__(384, 1)
 bs_dkv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
              const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
              const __grid_constant__ CUtensorMap tlse, const __grid_constant__ CUtensorMap tdelta,
+             const __grid_constant__ CUtensorMap tqb, const __grid_constant__ CUtensorMap tdob,
+             const float* __restrict__ lse, const float* __restrict__ delta,
              const int* __restrict__ plan, int n_pairs, T* __restrict__ dk, T* __restrict__ dv,
              const BsParams p, int n_items) {
   using W = WgCfg<T, D>;
   constexpr int TN = W::TN, P = W::P, STAGES = W::STAGES;
+  constexpr int G = kRows / BLK;  // key blocks a unit, query blocks a tile (1: blocks 64/128)
   using namespace hopper;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
@@ -659,8 +503,9 @@ bs_dkv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
   unsigned char* Qs = KVs + 4 * W::PAIR_BYTES;                // stage s at s * STEP_BYTES
   unsigned char* Os = Qs + (size_t)STAGES * W::STEP_BYTES;    // dO, the same
   float* Aux = reinterpret_cast<float*>(Os + (size_t)STAGES * W::STEP_BYTES);  // [s][tile][2][64]
-  int* entries = reinterpret_cast<int*>(Aux + STAGES * W::AUX_FLOATS);        // [s][tile]
-  uint64_t* bars = reinterpret_cast<uint64_t*>(entries + STAGES * P + (STAGES * P) % 2);
+  int* entries = reinterpret_cast<int*>(Aux + STAGES * W::AUX_FLOATS);        // [s][tile][G]
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(entries + STAGES * P * G + (STAGES * P * G) % 2);
   uint64_t* kv_full = bars;
   uint64_t* kv_empty = bars + 2;
   uint64_t* full = bars + 4;
@@ -690,25 +535,74 @@ bs_dkv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
     for (int r = 0, ki = 0; r * (int)gridDim.x < n_items; ++r) {
       const int i = round_item(r, n_items);
       if (i < 0) continue;
-      const Item w = plan_item(i, plan, n_pairs, p);
       const int kb = ki % 2;
-      if (lane == 0) {
-        mbar_wait(&kv_empty[kb], ((ki / 2) & 1) ^ 1);
-        mbar_arrive_tx(&kv_full[kb], 2 * W::PAIR_BYTES);
-        unsigned char* Kt = KVs + (size_t)(2 * kb) * W::PAIR_BYTES;
-        load_pair<W::ATOMS>(Kt, &tk, &kv_full[kb], w);
-        load_pair<W::ATOMS>(Kt + W::PAIR_BYTES, &tv, &kv_full[kb], w);
-      }
-      stream_steps<P, STAGES>(w, lane, empty, entries, it, [&](int s, const int (&row)[P]) {
-        mbar_arrive_tx(&full[s], 2 * W::STEP_BYTES + P * 2 * kRows * 4);
-        load_tiles<P, W::ATOMS>(Qs + (size_t)s * W::STEP_BYTES, mq, &full[s], w, row);
-        load_tiles<P, W::ATOMS>(Os + (size_t)s * W::STEP_BYTES, mdo, &full[s], w, row);
-        for (int q = 0; q < P; ++q) {
-          float* aux = Aux + s * W::AUX_FLOATS + q * 2 * kRows;
-          tma_load_4d(aux, mlse, &full[s], row[q], w.h, w.b, 0);
-          tma_load_4d(aux + kRows, mdelta, &full[s], row[q], w.h, w.b, 0);
+      unsigned char* Kt = KVs + (size_t)(2 * kb) * W::PAIR_BYTES;
+      if constexpr (G == 1) {
+        const Item w = plan_item(i, plan, n_pairs, p);
+        if (lane == 0) {
+          mbar_wait(&kv_empty[kb], ((ki / 2) & 1) ^ 1);
+          mbar_arrive_tx(&kv_full[kb], 2 * W::PAIR_BYTES);
+          load_pair<W::ATOMS>(Kt, &tk, &kv_full[kb], w);
+          load_pair<W::ATOMS>(Kt + W::PAIR_BYTES, &tv, &kv_full[kb], w);
         }
-      });
+        stream_steps<P, STAGES>(w, lane, empty, entries, it, [&](int s, const int (&row)[P]) {
+          mbar_arrive_tx(&full[s], 2 * W::STEP_BYTES + P * 2 * kRows * 4);
+          load_tiles<P, W::ATOMS>(Qs + (size_t)s * W::STEP_BYTES, mq, &full[s], w, row);
+          load_tiles<P, W::ATOMS>(Os + (size_t)s * W::STEP_BYTES, mdo, &full[s], w, row);
+          for (int q = 0; q < P; ++q) {
+            float* aux = Aux + s * W::AUX_FLOATS + q * 2 * kRows;
+            tma_load_4d(aux, mlse, &full[s], row[q], w.h, w.b, 0);
+            tma_load_4d(aux + kRows, mdelta, &full[s], row[q], w.h, w.b, 0);
+          }
+        });
+      } else {
+        const GroupItem w = group_item<G>(i, plan, n_pairs, p);
+        if (lane == 0) {
+          mbar_wait(&kv_empty[kb], ((ki / 2) & 1) ^ 1);
+          mbar_arrive_tx(&kv_full[kb], 2 * W::PAIR_BYTES);
+          load_group<W::ATOMS, BLK>(Kt, &tk, &kv_full[kb], w);
+          load_group<W::ATOMS, BLK>(Kt + W::PAIR_BYTES, &tv, &kv_full[kb], w);
+        }
+        const long long rows = ((long long)w.b * p.H + w.h) * p.S;  // lse / delta row 0
+        stream_group<P, STAGES, G>(w, lane, empty, entries, it, [&](int s, const int (&t)[P][G]) {
+          mbar_arrive_tx(&full[s], 2 * W::STEP_BYTES + P * 2 * kRows * 4);
+          for (int q = 0; q < P; ++q) {
+            int qb[G];
+            bool run = true;  // G consecutive query blocks: one 64-row box
+#pragma unroll
+            for (int g = 0; g < G; ++g) {
+              qb[g] = (t[q][g] >= 0 ? t[q][g] : t[q][0]) >> 8;
+              run = run && t[q][g] >= 0 && qb[g] == qb[0] + g;
+            }
+            unsigned char* qd = Qs + (size_t)s * W::STEP_BYTES + q * kRows * 128;
+            unsigned char* od = Os + (size_t)s * W::STEP_BYTES + q * kRows * 128;
+            float* aux = Aux + s * W::AUX_FLOATS + q * 2 * kRows;
+            if (run) {
+#pragma unroll
+              for (int a = 0; a < W::ATOMS; ++a) {
+                tma_load_4d(qd + P * a * kRows * 128, mq, &full[s], a * 64, w.h, qb[0] * BLK, w.b);
+                tma_load_4d(od + P * a * kRows * 128, mdo, &full[s], a * 64, w.h, qb[0] * BLK,
+                            w.b);
+              }
+              bulk_load(aux, lse + rows + qb[0] * BLK, kRows * 4, &full[s]);
+              bulk_load(aux + kRows, delta + rows + qb[0] * BLK, kRows * 4, &full[s]);
+            } else {
+#pragma unroll
+              for (int g = 0; g < G; ++g) {
+#pragma unroll
+                for (int a = 0; a < W::ATOMS; ++a) {
+                  tma_load_4d(qd + P * a * kRows * 128 + g * BLK * 128, &tqb, &full[s], a * 64,
+                              w.h, qb[g] * BLK, w.b);
+                  tma_load_4d(od + P * a * kRows * 128 + g * BLK * 128, &tdob, &full[s], a * 64,
+                              w.h, qb[g] * BLK, w.b);
+                }
+                bulk_load(aux + g * BLK, lse + rows + qb[g] * BLK, BLK * 4, &full[s]);
+                bulk_load(aux + kRows + g * BLK, delta + rows + qb[g] * BLK, BLK * 4, &full[s]);
+              }
+            }
+          }
+        });
+      }
       ++ki;
     }
     return;
@@ -730,15 +624,31 @@ bs_dkv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
   for (int r = 0, ki = 0; r * (int)gridDim.x < n_items; ++r) {
     const int i = round_item(r, n_items);
     if (i < 0) continue;
-    const Item w = plan_item(i, plan, n_pairs, p);
-    const int mine0 = cw ? w.r0[1] : w.r0[0];
-    const bool owned = mine0 >= 0;
-    const int kw0 = (owned ? mine0 : w.r0[0]) + warp * 16;  // this warp's first key
+    // the item's batch row, head and tile count; this warp's first key,
+    // whether its 16 keys are real rows of this warpgroup's unit, and (the
+    // grouped plan) the bit of its key block in a tile entry's masks
+    int ib, ih, n_tiles, kw0, kbit = 0;
+    bool owned;
+    if constexpr (G == 1) {
+      const Item w = plan_item(i, plan, n_pairs, p);
+      const int mine0 = cw ? w.r0[1] : w.r0[0];
+      owned = mine0 >= 0;
+      kw0 = (owned ? mine0 : w.r0[0]) + warp * 16;
+      ib = w.b, ih = w.h, n_tiles = w.n;
+    } else {
+      const GroupItem w = group_item<G>(i, plan, n_pairs, p);
+      const int slot = warp * 16 / BLK;
+      const int kblk = __ldg(w.keys + cw * G + slot);
+      owned = kblk >= 0;
+      kw0 = owned ? kblk * BLK + (warp * 16) % BLK : 0;
+      kbit = 4 * cw + slot;
+      ib = w.b, ih = w.h, n_tiles = w.n;
+    }
     const int key[2] = {kw0 + (lane >> 2), kw0 + (lane >> 2) + 8};
     const int kb = ki % 2;
     const uint32_t k_addr = smem_addr(KVs) + (2 * kb) * W::PAIR_BYTES + cw * kRows * 128;
     const uint32_t v_addr = k_addr + W::PAIR_BYTES;
-    const int nsteps = (w.n + P - 1) / P;
+    const int nsteps = (n_tiles + P - 1) / P;
 #pragma unroll
     for (int k = 0; k < D / 2; ++k) dka[k] = dva[k] = 0.f;
     mbar_wait(&kv_full[kb], (ki / 2) & 1);
@@ -746,19 +656,27 @@ bs_dkv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
     for (int u = 0; u < nsteps; ++u, ++it) {
       const int s = it % STAGES;
       mbar_wait(&full[s], (it / STAGES) & 1);
-      // tile q keeps query qi for the thread's key row i iff qi >= lo[q][i]:
-      // the key under the causal rule, every query of a tile its unit walks
-      // otherwise, none of a tile it does not walk
-      int q0[P], lo[P][2];
-      bool whole = true;
+      // column ql of tile q's slot g is query qoff[q][g] + ql, kept for the
+      // thread's key row i iff it is >= lo[i]: the key under the causal rule,
+      // 0 otherwise, INT_MAX on a padding warp; a slot the warp's keys do not
+      // take (or padding) has a qoff below every lo
+      int qoff[P][G], lo[2];
+      bool whole = owned;
+#pragma unroll
+      for (int i2 = 0; i2 < 2; ++i2) lo[i2] = !owned ? INT_MAX : causal ? key[i2] : 0;
 #pragma unroll
       for (int q = 0; q < P; ++q) {
-        const int e = entries[s * P + q];
-        const bool mine = (e >> cw) & 1;
-        q0[q] = e >> 2;
 #pragma unroll
-        for (int i2 = 0; i2 < 2; ++i2) lo[q][i2] = !mine ? INT_MAX : causal ? key[i2] : 0;
-        whole = whole && mine && (!causal || q0[q] >= kw0 + 15);
+        for (int g = 0; g < G; ++g) {
+          const int e = entries[(s * P + q) * G + g];
+          // the slot's first query, and whether this warp's keys take it
+          // (64/128: entry row * 4 + a bit a unit; grouped: block * 256 +
+          // a bit a key block)
+          const bool on = e >= 0 && (G == 1 ? (e >> cw) & 1 : (e >> kbit) & 1);
+          const int row0 = G == 1 ? e >> 2 : (e >> 8) * BLK;
+          qoff[q][g] = on ? row0 - g * BLK : INT_MIN / 2;
+          whole = whole && on && (!causal || row0 >= kw0 + 15);
+        }
       }
       const uint32_t q_addr = smem_addr(Qs) + s * W::STEP_BYTES;
       const uint32_t do_addr = smem_addr(Os) + s * W::STEP_BYTES;
@@ -790,10 +708,11 @@ bs_dkv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
 #pragma unroll
         for (int n = 0; n < TN / 8; ++n) {
           const int q = n / (kRows / 8);
-          const int qi = q0[q] + (n % (kRows / 8)) * 8 + 2 * t;
+          const int ql = (n % (kRows / 8)) * 8;
+          const int qi = qoff[q][ql / BLK % G] + ql + 2 * t;
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            st[4 * n + e] = qi + (e & 1) >= lo[q][e >> 1] ? st[4 * n + e] : 0.f;
+            st[4 * n + e] = qi + (e & 1) >= lo[e >> 1] ? st[4 * n + e] : 0.f;
         }
       }
       pack_a<T, TN>(pa, st);
@@ -829,8 +748,8 @@ bs_dkv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
     }
     if (tid == 0) mbar_arrive(&kv_empty[kb]);  // K and V's last reads are done
     if (owned) {
-      store_rows<T, D>(dk, dka, {p.scale, p.scale}, p, w.b, w.h, kw0, lane);
-      store_rows<T, D>(dv, dva, {1.f, 1.f}, p, w.b, w.h, kw0, lane);
+      store_rows<T, D>(dk, dka, {p.scale, p.scale}, p, ib, ih, kw0, lane);
+      store_rows<T, D>(dv, dva, {1.f, 1.f}, p, ib, ih, kw0, lane);
     }
     ++ki;
   }
@@ -1033,19 +952,6 @@ cudaError_t launch_dq_mma(const Ptrs& a, const BsParams& p, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-template <typename T, int D, int TW>
-cudaError_t launch_dkv_mma(const Ptrs& a, const BsParams& p, cudaStream_t s) {
-  using C = DkvCfg<T, D, TW>;
-  auto kern = bs_dkv_mma<T, D, TW>;
-  cudaError_t err = allow_smem(kern, C::SMEM);
-  if (err != cudaSuccess) return err;
-  kern<<<(unsigned)((units(p, C::R) + C::G - 1) / C::G), C::NT, C::SMEM, s>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(a.dk),
-      static_cast<T*>(a.dv), p);
-  return cudaGetLastError();
-}
-
 template <int D, int NK>
 cudaError_t launch_dq_f32(const Ptrs& a, const BsParams& p, cudaStream_t s) {
   using C = Bwd32<D, NK>;
@@ -1083,71 +989,88 @@ inline bool make_rows_map(CUtensorMap* map, const float* ptr, const BsParams& p)
                              CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
-// q, k, v, dO through TMA maps of 64-row boxes; which = 0: dq, 1: dk/dv
+// q, k, v, dO through TMA maps of 64-row boxes (dk/dv at blocks of 16 and
+// 32: K, V in boxes of a block's rows, Q and dO in both); which = 0: dq, 1:
+// dk/dv over n_pairs headers of its plan
 template <typename T, int D>
 cudaError_t launch_wgmma(int which, const Ptrs& a, const BsParams& p, const int* plan,
-                         cudaStream_t s) {
+                         int n_pairs, cudaStream_t s) {
   constexpr bool half = std::is_same<T, __half>::value;
   using hopper::make_map;
+  const bool grouped = which && p.blk < kRows;
+  // a map's box may not exceed its tensor: below 64 rows only a block's boxes
+  const int wide = p.S >= kRows ? kRows : p.blk;
+  const int kv_rows = grouped ? p.blk : kRows;
   CUtensorMap tq, tk, tv, tdo;
-  if (!make_map(&tq, half, a.q, p.B, p.S, p.H, D, p.q_sb, p.q_ss, p.q_sh, kRows) ||
-      !make_map(&tk, half, a.k, p.B, p.S, p.H, D, p.k_sb, p.k_ss, p.k_sh, kRows) ||
-      !make_map(&tv, half, a.v, p.B, p.S, p.H, D, p.v_sb, p.v_ss, p.v_sh, kRows) ||
-      !make_map(&tdo, half, a.dout, p.B, p.S, p.H, D, p.do_sb, p.do_ss, p.do_sh, kRows))
+  if (!make_map(&tq, half, a.q, p.B, p.S, p.H, D, p.q_sb, p.q_ss, p.q_sh, wide) ||
+      !make_map(&tk, half, a.k, p.B, p.S, p.H, D, p.k_sb, p.k_ss, p.k_sh, kv_rows) ||
+      !make_map(&tv, half, a.v, p.B, p.S, p.H, D, p.v_sb, p.v_ss, p.v_sh, kv_rows) ||
+      !make_map(&tdo, half, a.dout, p.B, p.S, p.H, D, p.do_sb, p.do_ss, p.do_sh, wide))
     return cudaErrorInvalidValue;
-  const int n_pairs = p.H * ((p.nblk * (p.blk / kRows) + 1) / 2);  // the plan's headers
+  const int per_head = p.H * ((p.nblk * (p.blk / kRows) + 1) / 2);  // the 64/128 plan's
+  if (!grouped && n_pairs != per_head) return cudaErrorInvalidValue;
   const int n_items = p.B * n_pairs;
+  if (n_items <= 0) return cudaErrorInvalidValue;
   const unsigned grid = (unsigned)std::min(n_items, hopper::sm_count());
   using W = WgCfg<T, D>;
   cudaError_t err;
   if (which) {
-    CUtensorMap tlse, tdelta;
-    if (!make_rows_map(&tlse, a.lse, p) || !make_rows_map(&tdelta, a.delta, p))
+    CUtensorMap tlse{}, tdelta{}, tqb = tq, tdob = tdo;
+    if (grouped) {
+      if (!make_map(&tqb, half, a.q, p.B, p.S, p.H, D, p.q_sb, p.q_ss, p.q_sh, p.blk) ||
+          !make_map(&tdob, half, a.dout, p.B, p.S, p.H, D, p.do_sb, p.do_ss, p.do_sh, p.blk))
+        return cudaErrorInvalidValue;
+    } else if (!make_rows_map(&tlse, a.lse, p) || !make_rows_map(&tdelta, a.delta, p)) {
       return cudaErrorInvalidValue;
-    auto kern = bs_dkv_wgmma<T, D>;
-    if ((err = allow_smem(kern, W::smem(true))) != cudaSuccess) return err;
-    kern<<<grid, W::NT, W::smem(true), s>>>(tq, tk, tv, tdo, tlse, tdelta, plan, n_pairs,
-                                            static_cast<T*>(a.dk), static_cast<T*>(a.dv), p,
-                                            n_items);
-  } else {
-    auto kern = bs_dq_wgmma<T, D>;
-    if ((err = allow_smem(kern, W::smem(false))) != cudaSuccess) return err;
-    kern<<<grid, W::NT, W::smem(false), s>>>(tq, tk, tv, tdo, a.lse, a.delta, plan, n_pairs,
-                                             static_cast<T*>(a.dq), p, n_items);
+    }
+    auto go = [&](auto kern, int G) {
+      if ((err = allow_smem(kern, W::smem(true, G))) != cudaSuccess) return err;
+      kern<<<grid, W::NT, W::smem(true, G), s>>>(tq, tk, tv, tdo, tlse, tdelta, tqb, tdob, a.lse,
+                                                 a.delta, plan, n_pairs, static_cast<T*>(a.dk),
+                                                 static_cast<T*>(a.dv), p, n_items);
+      return cudaGetLastError();
+    };
+    switch (p.blk) {
+      case 16: return go(bs_dkv_wgmma<T, D, 16>, 4);
+      case 32: return go(bs_dkv_wgmma<T, D, 32>, 2);
+      default: return go(bs_dkv_wgmma<T, D, 64>, 1);
+    }
   }
+  auto kern = bs_dq_wgmma<T, D>;
+  if ((err = allow_smem(kern, W::smem(false))) != cudaSuccess) return err;
+  kern<<<grid, W::NT, W::smem(false), s>>>(tq, tk, tv, tdo, a.lse, a.delta, plan, n_pairs,
+                                           static_cast<T*>(a.dq), p, n_items);
   return cudaGetLastError();
 }
 
-// the kernel a shape takes: blocks of 64 and 128 at bf16/fp16 the TMA +
-// wgmma kernels (a plan required: ceil(units a head / 2) headers a head), blocks of 16 and 32 the mma.sync
-// kernels, fp32 the FMA kernels
+// the kernel a shape takes (the wrapper's wgmma_route): at bf16/fp16 dk/dv
+// the TMA + wgmma kernel at every block (a plan required), dq the wgmma
+// kernel at blocks of 64 and 128 and the mma.sync kernel at 16 and 32; fp32
+// the FMA kernels
 template <typename T, int D>
-cudaError_t by_block(int which, const Ptrs& a, const BsParams& p, const int* plan,
+cudaError_t by_block(int which, const Ptrs& a, const BsParams& p, const int* plan, int n_pairs,
                      cudaStream_t s) {
-  switch (p.blk) {
-    case 16: return which ? launch_dkv_mma<T, D, 16>(a, p, s) : launch_dq_mma<T, D, 16>(a, p, s);
-    case 32: return which ? launch_dkv_mma<T, D, 32>(a, p, s) : launch_dq_mma<T, D, 32>(a, p, s);
-    default:
-      if (plan == nullptr) return cudaErrorInvalidValue;
-      return launch_wgmma<T, D>(which, a, p, plan, s);
-  }
+  if (!which && p.blk == 16) return launch_dq_mma<T, D, 16>(a, p, s);
+  if (!which && p.blk == 32) return launch_dq_mma<T, D, 32>(a, p, s);
+  if (plan == nullptr) return cudaErrorInvalidValue;
+  return launch_wgmma<T, D>(which, a, p, plan, n_pairs, s);
 }
 
 template <int D>
 cudaError_t dispatch_dtype(int which, int dtype, const Ptrs& a, const BsParams& p,
-                           const int* plan, cudaStream_t s) {
+                           const int* plan, int n_pairs, cudaStream_t s) {
   switch (dtype) {
     case 0:
       if (p.blk == 16) return which ? launch_dkv_f32<D, 16>(a, p, s) : launch_dq_f32<D, 16>(a, p, s);
       return which ? launch_dkv_f32<D, 32>(a, p, s) : launch_dq_f32<D, 32>(a, p, s);
-    case 1: return by_block<__half, D>(which, a, p, plan, s);
-    case 2: return by_block<__nv_bfloat16, D>(which, a, p, plan, s);
+    case 1: return by_block<__half, D>(which, a, p, plan, n_pairs, s);
+    case 2: return by_block<__nv_bfloat16, D>(which, a, p, plan, n_pairs, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 int run(int which, const Ptrs& a, int B, int S, int H, int D, int blk, int maxl, const int* idx,
-        const int* cnt, const int* plan, long long q_sb, long long q_ss, long long q_sh,
+        const int* cnt, const int* plan, int n_pairs, long long q_sb, long long q_ss, long long q_sh,
         long long k_sb, long long k_ss, long long k_sh, long long v_sb, long long v_ss,
         long long v_sh, long long do_sb, long long do_ss, long long do_sh, int causal,
         float sm_scale, int dtype, void* stream) {
@@ -1166,8 +1089,8 @@ int run(int which, const Ptrs& a, int B, int S, int H, int D, int blk, int maxl,
   p.scale = sm_scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64: return (int)dispatch_dtype<64>(which, dtype, a, p, plan, s);
-    case 128: return (int)dispatch_dtype<128>(which, dtype, a, p, plan, s);
+    case 64: return (int)dispatch_dtype<64>(which, dtype, a, p, plan, n_pairs, s);
+    case 128: return (int)dispatch_dtype<128>(which, dtype, a, p, plan, n_pairs, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1180,11 +1103,12 @@ int run(int which, const Ptrs& a, int B, int S, int H, int D, int blk, int maxl,
 // 2^40 bytes); lse and delta [B, H, S] f32 contiguous; dq, dk, dv [B, S, H,
 // D] contiguous. The lists: kidx [H, S/blk, maxK] / kcnt for dq, qidx [H,
 // S/blk, maxQ] / qcnt for dk/dv, int32. plan: the wgmma route's schedule
-// (int32: H * ceil(S / 128) headers (unit, unit or -1, offset, tile count),
-// heaviest first, then the tile entries; see plan_item; null on the other
-// routes). Each returns the CUDA error of its launch (0 on
-// success), cudaErrorInvalidValue for shapes the kernels do not take.
-// Asynchronous on `stream`.
+// (int32; null on the other routes): at blocks of 64 and 128 H * ceil(S /
+// 128) headers (unit, unit or -1, offset, tile count), heaviest first, then
+// the tile entries (see plan_item); dk/dv's at blocks of 16 and 32 its
+// n_pairs headers of grouped units, then their tiles (see group_item). Each
+// returns the CUDA error of its launch (0 on success), cudaErrorInvalidValue
+// for shapes the kernels do not take. Asynchronous on `stream`.
 extern "C" int block_sparse_attention_dq_launch(
     const void* q, const void* k, const void* v, const void* dout, const void* lse,
     const void* delta, void* dq, const void* kidx, const void* kcnt, const void* plan, int B,
@@ -1195,7 +1119,8 @@ extern "C" int block_sparse_attention_dq_launch(
   Ptrs a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
          dq, nullptr, nullptr};
   return run(0, a, B, S, H, D, blk, maxK, static_cast<const int*>(kidx),
-             static_cast<const int*>(kcnt), static_cast<const int*>(plan), q_sb, q_ss, q_sh,
+             static_cast<const int*>(kcnt), static_cast<const int*>(plan),
+             H * ((S / blk * (blk / kRows) + 1) / 2), q_sb, q_ss, q_sh,
              k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss, do_sh, causal, sm_scale, dtype,
              stream);
 }
@@ -1203,14 +1128,15 @@ extern "C" int block_sparse_attention_dq_launch(
 extern "C" int block_sparse_attention_dkv_launch(
     const void* q, const void* k, const void* v, const void* dout, const void* lse,
     const void* delta, void* dk, void* dv, const void* qidx, const void* qcnt, const void* plan,
-    int B, int S, int H, int D, int blk, int maxQ, long long q_sb, long long q_ss,
+    int n_pairs, int B, int S, int H, int D, int blk, int maxQ, long long q_sb, long long q_ss,
     long long q_sh, long long k_sb, long long k_ss, long long k_sh, long long v_sb,
     long long v_ss, long long v_sh, long long do_sb, long long do_ss, long long do_sh,
     int causal, float sm_scale, int dtype, void* stream) {
   Ptrs a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
          nullptr, dk, dv};
   return run(1, a, B, S, H, D, blk, maxQ, static_cast<const int*>(qidx),
-             static_cast<const int*>(qcnt), static_cast<const int*>(plan), q_sb, q_ss, q_sh,
+             static_cast<const int*>(qcnt), static_cast<const int*>(plan), n_pairs, q_sb, q_ss,
+             q_sh,
              k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss, do_sh, causal, sm_scale, dtype,
              stream);
 }

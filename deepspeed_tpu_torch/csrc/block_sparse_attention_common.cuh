@@ -19,11 +19,13 @@
 // would otherwise make thin blocks of 1-2 warps); the units of a block are
 // independent and synchronise on their own named barriers.
 //
-// The TMA + wgmma kernels (bf16/fp16, D 64/128, blocks of 64 and 128: the
-// forward in block_sparse_attention_fwd.cu, dq and dk/dv in
+// The TMA + wgmma kernels (bf16/fp16, D 64/128: the forward and dq at
+// blocks of 64 and 128, dk/dv at every block; the forward in
+// block_sparse_attention_fwd.cu, dq and dk/dv in
 // block_sparse_attention_bwd.cu) walk a host-built schedule of paired
 // 64-row units instead; its decoding, the producer's loads and the
-// query-major masks are at the end of this file.
+// query-major masks are at the end of this file, then dk/dv's grouped
+// units at blocks of 16 and 32.
 
 #pragma once
 
@@ -129,10 +131,10 @@ struct WgCfg {
   // 1024 bytes of slack to align the tiles; two buffers of the item's own
   // operands (K/V for dk/dv, Q/dO for dq: the next item's load while this
   // one runs), the streamed stages (and dk/dv's lse/delta), the stages'
-  // tile entries, the barriers
-  static constexpr size_t smem(bool aux) {
+  // tile entries (G ints a tile: dk/dv's grouped plan), the barriers
+  static constexpr size_t smem(bool aux, int G = 1) {
     return 1024 + 4 * (size_t)PAIR_BYTES + (size_t)STAGES * 2 * STEP_BYTES +
-           (aux ? (size_t)STAGES * AUX_FLOATS * 4 : 0) + (STAGES * P + 2) * 4 +
+           (aux ? (size_t)STAGES * AUX_FLOATS * 4 : 0) + (STAGES * P * G + 2) * 4 +
            8 * (4 + 2 * STAGES);
   }
 };
@@ -263,6 +265,98 @@ __device__ __forceinline__ void store_rows(T* out, const float (&acc)[D / 2],
     for (int n = 0; n < D / 8; ++n)
       *reinterpret_cast<uint32_t*>(dst + n * 8) =
           pack2<T>(acc[4 * n + 2 * hr] * mul[hr], acc[4 * n + 2 * hr + 1] * mul[hr]);
+  }
+}
+
+// ---- dk/dv at blocks of 16 and 32: grouped units ----------------------------
+
+// an item of the grouped plan (ops/block_sparse_attention.py
+// dkv_group_plan): two units of one (batch, head), each up to G = 64 / blk
+// key blocks, and the n tiles they walk, each G query blocks. keys: unit
+// 0's G key blocks, then unit 1's (-1 past a unit's last, all -1 when there
+// is no unit 1); a tile: G ints, block * 256 + m1 * 16 + m0, -1 past its
+// last block, bit j of m_c set when key block j of unit c lists it
+struct GroupItem {
+  int b, h, n;
+  const int* keys;
+  const int* tiles;
+};
+
+// item i of the grouped plan: n_pairs headers of 4 + 2 G ints (head,
+// offset, tile count, 0, the units' key blocks), heaviest first, then the
+// tiles; each header is B items, one a batch row
+template <int G>
+__device__ __forceinline__ GroupItem group_item(int i, const int* __restrict__ plan, int n_pairs,
+                                                const BsParams& p) {
+  const int* hd = plan + (4 + 2 * G) * (i / p.B);
+  GroupItem w;
+  w.b = i % p.B;
+  w.h = __ldg(hd);
+  w.tiles = plan + (4 + 2 * G) * n_pairs + G * __ldg(hd + 1);
+  w.n = __ldg(hd + 2);
+  w.keys = hd + 4;
+  return w;
+}
+
+// the producer's load of an item's two units of one operand (K or V) by
+// TMA, one box of blk rows a key block, through a map of blk-row boxes: a
+// unit's 64 rows in each column atom as load_pair lays them (atom a of unit
+// c at (2a + c) * 64 rows * 128 B), block slot j at j * blk rows. A padding
+// slot repeats the unit's first block and a missing unit 1 takes unit 0's
+// blocks, so every row holds finite data (masked in the products)
+template <int ATOMS, int BLK>
+__device__ __forceinline__ void load_group(unsigned char* dst, const CUtensorMap* map,
+                                           uint64_t* bar, const GroupItem& w) {
+  constexpr int G = kRows / BLK;
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      int kb = __ldg(w.keys + c * G + j);
+      if (kb < 0) kb = __ldg(w.keys + c * G);
+      if (kb < 0) kb = __ldg(w.keys);
+#pragma unroll
+      for (int a = 0; a < ATOMS; ++a)
+        hopper::tma_load_4d(dst + (2 * a + c) * kRows * 128 + j * BLK * 128, map, bar, a * 64,
+                            w.h, kb * BLK, w.b);
+    }
+}
+
+// the producer warp's walk over a grouped item's tiles, P a step, as
+// stream_steps: lane l holds tile t0 + l's G ints (-1 past the last tile),
+// and lane 0 writes each step's P x G ints beside its stage and hands the
+// step to issue(stage, tiles) once the stage is free. A step's missing
+// second tile repeats the first tile's blocks with no key block's bit set
+template <int P, int STAGES, int G, typename Issue>
+__device__ __forceinline__ void stream_group(const GroupItem& w, int lane, uint64_t* empty,
+                                             int* entries, int& it, Issue issue) {
+  using namespace hopper;
+  for (int t0 = 0; t0 < w.n; t0 += 32) {
+    int e[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) e[g] = t0 + lane < w.n ? __ldg(w.tiles + (t0 + lane) * G + g) : -1;
+    const int cnt = min(32, w.n - t0);
+    for (int j = 0; j < cnt; j += P, ++it) {
+      int r[P][G];
+#pragma unroll
+      for (int q = 0; q < P; ++q)
+#pragma unroll
+        for (int g = 0; g < G; ++g) r[q][g] = __shfl_sync(0xffffffffu, e[g], j + q);
+      if (lane == 0) {
+        const int s = it % STAGES;
+        mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+#pragma unroll
+        for (int q = 0; q < P; ++q) {
+          const bool missing = r[q][0] < 0;
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            if (missing) r[q][g] = r[0][g] >= 0 ? r[0][g] & ~255 : -1;
+            entries[(s * P + q) * G + g] = r[q][g];
+          }
+        }
+        issue(s, r);
+      }
+    }
   }
 }
 

@@ -84,6 +84,16 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const void* tmap, uint64_
       : "memory");
 }
 
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) of global
+// memory into shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
 // one box of shared memory to a 4-d tensor map at (c0 .. c3), in the
 // executing thread's bulk group; the parts of the box outside the tensor
 // are not written

@@ -32,23 +32,41 @@
 //
 // What bounds it on the card: instructions, not bytes. The hash of element
 // i needs 68: 20 rounds of add, rotate (one funnel shift) and xor (60), the
-// counter's add (x0's folds into round 1's add as a three-input IADD3), 6
-// key-injection adds (the 4 into x0 before a round fold into its add) and
-// the final xor. Dropout adds the keep test, the quotient and the select
-// (71), a uniform the mantissa, the subtract, the fma and the max (72).
-// At the card's issue ceiling, 128 thread instructions a clock an SM
-// (132 SMs x ~1.98 GHz, ~3.35e13/s), 71 take ~2.1e-12 s an element,
-// against ~1.2e-12 s for its 4 bytes (bf16 read and written) at 3.35 TB/s.
-// ptxas adds the loop, the addressing and the conversions
-// (deepspeed_tpu_torch/tools/threefry_sass.py counts what it emits). So
-// the hash is the work, and the
-// design keeps it lean: the key words and the constants arrive by value
-// (no loads), a rotate is one __funnelshift_l, one thread per element (a
-// grid-stride loop past 8448 blocks) with 64-bit indexing, no shared
-// memory.
-// What it does not do yet: draw several elements a thread from one
-// counter's pair of outputs (jax uses x0 ^ x1 for one element, so that
-// cannot halve the hash), vector loads of x.
+// counter's add, 6 key-injection adds and the final xor. At the card's
+// issue ceiling, 128 thread instructions a clock an SM (132 SMs x ~1.98
+// GHz, ~3.35e13/s), dropout's 71 take ~2.1e-12 s an element, against
+// ~1.2e-12 s for its 4 bytes (bf16 read and written) at 3.35 TB/s. But an
+// SM runs integer adds, logic and shifts on one pipe of 64 lanes and
+// multiply-adds on another of 64: ptxas left to itself put 62 of the 99
+// instructions it emitted an element on the integer ALU (IADD3, LOP3, SHF),
+// and at 0.0385 ms for [8, 1024, 1024] bf16 that pipe ran at 0.81 of its
+// rate (H100 80GB HBM3, 700 W; deepspeed_tpu_torch/tools/threefry_sass.py
+// counts what ptxas emits, by pipe). The design:
+//  - adds on the FMA pipe: every add of the hash is written as v * one + w
+//    with v the value that changes (one = 1 arrives by value, so ptxas can
+//    neither fold the product nor hoist it), an IMAD; the ALU keeps the 20
+//    funnel-shift rotates, the 20 xors and the few compares and selects;
+//  - an integer keep test: u < p with u = (bits >> 9) / 2^23 is bits <=
+//    thr, thr = ceil(p 2^23) 2^9 - 1, computed exactly on the host
+//    (ops/prng.py keep_threshold);
+//  - the quotient: bf16/fp16 multiply by r = f32(1 / c) where the host has
+//    proven that rounding x * r to the dtype gives the correctly rounded
+//    quotient for every one of the 65,536 inputs at that rate
+//    (ops/prng.py reciprocal_is_exact), else and in f32 __fdiv_rn;
+//  - work per thread: 8 bf16/fp16 or 4 f32 elements through one 16-byte
+//    load and store, with scalar heads and tails for an unaligned start or
+//    n not a multiple of the vector (a misaligned view of x whose y is
+//    aligned takes the scalar loop throughout); 32-bit indices below 2^31
+//    elements (the counter's high word 0), a 64-bit variant above;
+//  - keys by value for dropout (no load), from a device buffer for
+//    uniform_rows (a serving step's per-slot keys), no shared memory.
+// ptxas now emits 79 instructions an element in the bf16 dropout's vector
+// loop, 44.5 on the ALU (20 SHF, 21 LOP3, the compare and the select) and
+// 33.5 on the FMA pipes, and the kernel takes 0.0274 ms at [8, 1024, 1024]
+// bf16 (H100 80GB HBM3, 700 W; chip_smoke.py phase 16). Moving rotates to the FMA pipe as
+// x * 2^r | umulhi(x, 2^r) (2 to 6 of the 20; ptxas makes each an
+// IMAD.WIDE.U32) balanced the counts (ALU 42.5 to 40.5, FMA 35.5 to 37.9)
+// but ran 1-7% slower (tools/threefry_sass.py --fma-rotates).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -59,29 +77,51 @@ namespace {
 
 constexpr int kThreads = 256;
 
+// a key's words, its parity word and the run-time 1 of the IMAD adds
+struct Key {
+  uint32_t k0, k1, k2, one;
+};
+
+__device__ __forceinline__ Key make_key(uint32_t k0, uint32_t k1, uint32_t one) {
+  return Key{k0, k1, k0 ^ k1 ^ 0x1BD11BDAu, one};
+}
+
+// v + w as v * one + w: an IMAD on the FMA pipe (v the operand that changes)
+__device__ __forceinline__ uint32_t madd(uint32_t v, uint32_t w, uint32_t one) {
+  return v * one + w;
+}
+
 __device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
   return __funnelshift_l(x, x, r);
 }
 
 // threefry2x32 (jax _src/prng.py _threefry2x32_lowering) of the counter
-// pair (hi32(i), lo32(i)), returned as x0 ^ x1
-__device__ __forceinline__ uint32_t threefry_bits(uint32_t k0, uint32_t k1, uint64_t i) {
-  const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
-  uint32_t x0 = static_cast<uint32_t>(i >> 32) + k0;
-  uint32_t x1 = static_cast<uint32_t>(i) + k1;
-#define TF_ROUND(r) x0 += x1; x1 = rotl(x1, r); x1 ^= x0;
+// pair (hi, lo), returned as x0 ^ x1
+__device__ __forceinline__ uint32_t threefry_bits(const Key& k, uint32_t hi, uint32_t lo) {
+  const uint32_t one = k.one;
+  uint32_t x0 = madd(hi, k.k0, one);
+  uint32_t x1 = madd(lo, k.k1, one);
+#define TF_ROUND(r) x0 = madd(x1, x0, one); x1 = rotl(x1, r) ^ x0;
   TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
-  x0 += k1; x1 += k2 + 1u;
+  x0 = madd(x0, k.k1, one); x1 = madd(x1, k.k2 + 1u, one);
   TF_ROUND(17) TF_ROUND(29) TF_ROUND(16) TF_ROUND(24)
-  x0 += k2; x1 += k0 + 2u;
+  x0 = madd(x0, k.k2, one); x1 = madd(x1, k.k0 + 2u, one);
   TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
-  x0 += k0; x1 += k1 + 3u;
+  x0 = madd(x0, k.k0, one); x1 = madd(x1, k.k1 + 3u, one);
   TF_ROUND(17) TF_ROUND(29) TF_ROUND(16) TF_ROUND(24)
-  x0 += k1; x1 += k2 + 4u;
+  x0 = madd(x0, k.k1, one); x1 = madd(x1, k.k2 + 4u, one);
   TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
-  x0 += k2; x1 += k0 + 5u;
+  x0 = madd(x0, k.k2, one); x1 = madd(x1, k.k0 + 5u, one);
 #undef TF_ROUND
   return x0 ^ x1;
+}
+
+// the bits of flat index i (an index type of 32 or 64 bits)
+__device__ __forceinline__ uint32_t bits_at(const Key& k, uint32_t i) {
+  return threefry_bits(k, 0u, i);
+}
+__device__ __forceinline__ uint32_t bits_at(const Key& k, unsigned long long i) {
+  return threefry_bits(k, static_cast<uint32_t>(i >> 32), static_cast<uint32_t>(i));
 }
 
 // f32 in [0, 1) from 32 random bits: the top 23 as the mantissa of [1, 2)
@@ -102,67 +142,137 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(f
   return __float2bfloat16_rn(x);
 }
 
-template <typename T>
+// the dropout's arguments: the keep threshold, and the quotient's divisor c
+// and its reciprocal r (used when MUL)
+struct Drop {
+  uint32_t thr;
+  float c, r;
+};
+
+template <typename T, bool MUL>
+__device__ __forceinline__ T drop_one(T x, uint32_t bits, const Drop& d) {
+  const float xf = to_float(x);
+  const float q = MUL ? xf * d.r : __fdiv_rn(xf, d.c);
+  return from_float<T>(bits <= d.thr ? q : 0.0f);
+}
+
+// Elements [0, head) and [tail, n) one a thread, then vectors of V = 16 /
+// sizeof(T) elements from head, 16-byte aligned in x and y. I: the index
+// type (uint32_t below 2^31 elements, unsigned long long above)
+template <typename T, bool MUL, typename I>
 __global__ void __launch_bounds__(kThreads)
-dropout_kernel(const T* __restrict__ x, T* __restrict__ y, long long n, uint32_t k0,
-               uint32_t k1, float p, float c) {
-  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  for (long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x; i < n;
-       i += stride) {
-    const float u = unit_float(threefry_bits(k0, k1, static_cast<uint64_t>(i)));
-    const float q = __fdiv_rn(to_float(x[i]), c);
-    y[i] = from_float<T>(u < p ? q : 0.0f);
+dropout_kernel(const T* __restrict__ x, T* __restrict__ y, I n, I head, I nvec, uint32_t k0,
+               uint32_t k1, Drop d, uint32_t one) {
+  constexpr int V = 16 / sizeof(T);
+  const Key k = make_key(k0, k1, one);
+  const I stride = static_cast<I>(gridDim.x) * kThreads;
+  const I g = static_cast<I>(blockIdx.x) * kThreads + threadIdx.x;
+  const I tail = head + nvec * V;
+  for (I i = g; i < head; i += stride) y[i] = drop_one<T, MUL>(x[i], bits_at(k, i), d);
+  for (I i = tail + g; i < n; i += stride) y[i] = drop_one<T, MUL>(x[i], bits_at(k, i), d);
+  const uint4* xv = reinterpret_cast<const uint4*>(x + head);
+  uint4* yv = reinterpret_cast<uint4*>(y + head);
+  for (I v = g; v < nvec; v += stride) {
+    const I i0 = head + v * V;
+    uint4 raw = xv[v];
+    T* e = reinterpret_cast<T*>(&raw);
+#pragma unroll
+    for (int j = 0; j < V; ++j) e[j] = drop_one<T, MUL>(e[j], bits_at(k, i0 + j), d);
+    yv[v] = raw;
   }
 }
 
+__device__ __forceinline__ float uniform_one(uint32_t bits, float minval, float span) {
+  return fmaxf(minval, __fmaf_rn(unit_float(bits), span, minval));
+}
+
+// Row r = blockIdx.y under keys[r]: its head (to a 16-byte boundary of out)
+// and tail one a thread, then float4 vectors; I as dropout_kernel's
+template <typename I>
 __global__ void __launch_bounds__(kThreads)
-uniform_rows_kernel(const uint32_t* __restrict__ keys, float* __restrict__ out, long long n,
-                    float minval, float span) {
+uniform_rows_kernel(const uint32_t* __restrict__ keys, float* __restrict__ out, I n,
+                    float minval, float span, uint32_t one) {
   const int r = blockIdx.y;
-  const uint32_t k0 = keys[2 * r], k1 = keys[2 * r + 1];
-  float* row = out + static_cast<long long>(r) * n;
-  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  for (long long j = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x; j < n;
-       j += stride) {
-    const float f = unit_float(threefry_bits(k0, k1, static_cast<uint64_t>(j)));
-    row[j] = fmaxf(minval, __fmaf_rn(f, span, minval));
+  const Key k = make_key(keys[2 * r], keys[2 * r + 1], one);
+  float* row = out + static_cast<unsigned long long>(r) * n;
+  const I mis = static_cast<I>((reinterpret_cast<uintptr_t>(row) / 4) % 4);
+  const I head = mis == 0 ? 0 : (4 - mis < n ? 4 - mis : n);
+  const I nvec = (n - head) / 4;
+  const I tail = head + nvec * 4;
+  const I stride = static_cast<I>(gridDim.x) * kThreads;
+  const I g = static_cast<I>(blockIdx.x) * kThreads + threadIdx.x;
+  for (I j = g; j < head; j += stride) row[j] = uniform_one(bits_at(k, j), minval, span);
+  for (I j = tail + g; j < n; j += stride) row[j] = uniform_one(bits_at(k, j), minval, span);
+  float4* rv = reinterpret_cast<float4*>(row + head);
+  for (I v = g; v < nvec; v += stride) {
+    const I j0 = head + v * 4;
+    rv[v] = make_float4(uniform_one(bits_at(k, j0), minval, span),
+                        uniform_one(bits_at(k, j0 + 1), minval, span),
+                        uniform_one(bits_at(k, j0 + 2), minval, span),
+                        uniform_one(bits_at(k, j0 + 3), minval, span));
   }
 }
 
 // enough blocks to fill the card several times over; each thread strides
-long long grid_for(long long n) {
-  const long long want = (n + kThreads - 1) / kThreads;
+long long grid_for(long long work) {
+  const long long want = (work + kThreads - 1) / kThreads;
   const long long cap = 132LL * 64;
   return want < 1 ? 1 : (want > cap ? cap : want);
 }
 
+template <typename T, bool MUL>
+cudaError_t launch_dropout(const void* x, void* y, long long n, uint32_t k0, uint32_t k1,
+                           const Drop& d, cudaStream_t s) {
+  constexpr int V = 16 / sizeof(T);
+  const uintptr_t xa = reinterpret_cast<uintptr_t>(x), ya = reinterpret_cast<uintptr_t>(y);
+  // vectors only where x and y share their offset in 16 bytes
+  long long head = n, nvec = 0;
+  if ((xa ^ ya) % 16 == 0) {
+    head = static_cast<long long>((16 - xa % 16) % 16 / sizeof(T));
+    head = head < n ? head : n;
+    nvec = (n - head) / V;
+  }
+  const dim3 grid(static_cast<unsigned int>(grid_for(nvec > 0 ? nvec : n)));
+  const T* xp = static_cast<const T*>(x);
+  T* yp = static_cast<T*>(y);
+  if (n < (1LL << 31)) {
+    dropout_kernel<T, MUL, uint32_t><<<grid, kThreads, 0, s>>>(
+        xp, yp, static_cast<uint32_t>(n), static_cast<uint32_t>(head),
+        static_cast<uint32_t>(nvec), k0, k1, d, 1u);
+  } else {
+    dropout_kernel<T, MUL, unsigned long long><<<grid, kThreads, 0, s>>>(
+        xp, yp, static_cast<unsigned long long>(n), static_cast<unsigned long long>(head),
+        static_cast<unsigned long long>(nvec), k0, k1, d, 1u);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// dtype: 0 float32, 1 float16, 2 bfloat16
+// dtype: 0 float32, 1 float16, 2 bfloat16. thr: the keep threshold (keep
+// iff bits <= thr); c: the divisor; r: its f32 reciprocal, and mul = 1 when
+// x * r rounds to the correctly rounded quotient for every input of the
+// dtype (16-bit dtypes only)
 extern "C" int threefry_dropout_launch(const void* x, void* y, long long n, unsigned int k0,
-                                       unsigned int k1, float p, float c, int dtype,
-                                       void* stream) {
+                                       unsigned int k1, unsigned int thr, float c, float r,
+                                       int mul, int dtype, void* stream) {
   if (n <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned int>(grid_for(n)));
+  const Drop d{thr, c, r};
   switch (dtype) {
     case 0:
-      dropout_kernel<float><<<grid, kThreads, 0, s>>>(
-          static_cast<const float*>(x), static_cast<float*>(y), n, k0, k1, p, c);
-      break;
+      if (mul) return static_cast<int>(cudaErrorInvalidValue);
+      return static_cast<int>(launch_dropout<float, false>(x, y, n, k0, k1, d, s));
     case 1:
-      dropout_kernel<__half><<<grid, kThreads, 0, s>>>(
-          static_cast<const __half*>(x), static_cast<__half*>(y), n, k0, k1, p, c);
-      break;
+      return static_cast<int>(mul ? launch_dropout<__half, true>(x, y, n, k0, k1, d, s)
+                                  : launch_dropout<__half, false>(x, y, n, k0, k1, d, s));
     case 2:
-      dropout_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-          static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(y), n, k0, k1, p,
-          c);
-      break;
+      return static_cast<int>(
+          mul ? launch_dropout<__nv_bfloat16, true>(x, y, n, k0, k1, d, s)
+              : launch_dropout<__nv_bfloat16, false>(x, y, n, k0, k1, d, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // keys: [R, 2] uint32 on the device; out: [R, n] f32
@@ -171,8 +281,15 @@ extern "C" int threefry_uniform_rows_launch(const void* keys, void* out, int row
   if (rows <= 0 || n <= 0) return 0;
   if (rows > 65535) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned int>(grid_for(n)), static_cast<unsigned int>(rows));
-  uniform_rows_kernel<<<grid, kThreads, 0, s>>>(static_cast<const uint32_t*>(keys),
-                                                static_cast<float*>(out), n, minval, span);
+  const dim3 grid(static_cast<unsigned int>(grid_for((n + 3) / 4)), static_cast<unsigned int>(rows));
+  const uint32_t* kp = static_cast<const uint32_t*>(keys);
+  float* op = static_cast<float*>(out);
+  if (n < (1LL << 31)) {
+    uniform_rows_kernel<uint32_t><<<grid, kThreads, 0, s>>>(kp, op, static_cast<uint32_t>(n),
+                                                            minval, span, 1u);
+  } else {
+    uniform_rows_kernel<unsigned long long><<<grid, kThreads, 0, s>>>(
+        kp, op, static_cast<unsigned long long>(n), minval, span, 1u);
+  }
   return static_cast<int>(cudaGetLastError());
 }

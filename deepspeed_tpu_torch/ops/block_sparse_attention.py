@@ -12,14 +12,18 @@ visits, ascending), and the transposed ``qidx [H, nK, maxQ]`` / ``qcnt``,
 which the dk/dv kernel walks so that both backward kernels write their
 outputs without atomics.
 
-Which kernel a call takes is a rule on shapes alone (:func:`wgmma_route`):
-the forward, dq and dk/dv at bf16/fp16, D 64 or 128 and blocks of 64 or
-128 run the TMA + wgmma kernels, whose items (two 64-row units of one head
-that share tiles) are dealt heaviest first by a schedule built here from
-the layout (:func:`bwd_plan`, cached beside the index lists in
-:class:`IndexLists`; the forward walks dq's); blocks of 16 and 32 keep the
-mma.sync kernels and fp32 the FMA kernels. No call falls back from one to
-another.
+Which kernel a call takes is a rule per kernel on shapes alone
+(:func:`wgmma_route`): at bf16/fp16 and D 64 or 128, dk/dv runs the TMA +
+wgmma kernel at every block (16, 32, 64, 128), the forward and dq at blocks
+of 64 and 128; the forward and dq at blocks of 16 and 32 keep the mma.sync
+kernels, and fp32 the FMA kernels. The wgmma kernels' items (two 64-row
+units of one head that share tiles) are dealt heaviest first by a schedule
+built here from the layout (:func:`bwd_plan`, cached beside the index lists
+in :class:`IndexLists`; the forward walks dq's). At blocks of 16 and 32 a
+dk/dv unit gathers up to 64 / block key blocks, those whose query lists are
+equal first, and streams the union of their lists 64 rows at a time under
+a mask per (key block, query block) (:func:`dkv_group_plan`). No call
+falls back from one kernel to another.
 
 Layout: q/k/v ``[B, S, H, D]`` with any batch / sequence / head strides and
 a contiguous last dim (so GPT-2's q, k and v stay views of the ``[B, S,
@@ -71,9 +75,9 @@ CACHE_STATS = {"hits": 0, "misses": 0}
 BLOCKS = (16, 32, 64, 128)
 HEAD_DIMS = (64, 128)
 NEG_INF = -1e30
-# the backward's TMA + wgmma route: its blocks, and the rows of a unit and
-# of a streamed tile
-WGMMA_BLOCKS = (64, 128)
+# the TMA + wgmma route: the blocks each kernel takes there, and the rows
+# of a unit and of a streamed tile
+WGMMA_BLOCKS = {"fwd": (64, 128), "dq": (64, 128), "dkv": (16, 32, 64, 128)}
 TILE = 64
 
 
@@ -149,11 +153,13 @@ def _pair_units(walk: np.ndarray):
 
 def bwd_plan(layout: np.ndarray, block: int, causal: bool, which: str) -> np.ndarray:
     """The wgmma route's schedule of kernel ``which`` ("dq" or "dkv") for one
-    batch row → flat int32: ``H * ceil(U / 2)`` headers ``(unit 0, unit 1
-    or -1, offset, tile count)``, then the tile entries. The forward walks
-    the same tiles as dq (a query unit's kidx row, cut by the causal rule
-    where a tile starts past the unit's last query), so "dq" is the
-    forward's schedule too: no second plan is built.
+    batch row → flat int32. At blocks of 16 and 32 it is dk/dv's grouped
+    plan (:func:`dkv_group_plan`; dq does not take these blocks); at 64 and
+    128: ``H * ceil(U / 2)`` headers ``(unit 0, unit 1 or -1, offset, tile
+    count)``, then the tile entries. The forward walks the same tiles as dq
+    (a query unit's kidx row, cut by the causal rule where a tile starts
+    past the unit's last query), so "dq" is the forward's schedule too: no
+    second plan is built.
 
     An item is two units of one head (numbered ``h * U + u``, U = S / 64,
     paired by :func:`_pair_units` for the tiles they share), the two
@@ -165,6 +171,8 @@ def bwd_plan(layout: np.ndarray, block: int, causal: bool, which: str) -> np.nda
     unit 0. The kernel runs each header once per batch row, the B items of
     a header one after another, and deals the items to its persistent
     blocks in that order."""
+    if which == "dkv" and block in GROUP_BLOCKS:
+        return dkv_group_plan(layout, block, causal)[0]
     walk = _unit_tiles(layout, block, causal, which)
     H, U, _ = walk.shape
     heads, runs = [], []
@@ -184,6 +192,112 @@ def bwd_plan(layout: np.ndarray, block: int, causal: bool, which: str) -> np.nda
     return np.concatenate([header.ravel()] + [runs[i] for i in order]).astype(np.int32)
 
 
+# blocks whose dk/dv units gather several key blocks (64 / block of them)
+GROUP_BLOCKS = (16, 32)
+
+
+def _union_tiles(blocks, lists, G: int, causal: bool):
+    """A unit's tiles: the union of its key blocks' query lists, ascending,
+    G query blocks at a time (the last tile short); under the causal rule
+    the query blocks before its first key block are dropped first (every
+    pair of theirs is masked)."""
+    union = sorted(set().union(*(lists[j] for j in blocks)))
+    if causal:
+        union = [qb for qb in union if qb >= min(blocks)]
+    return [tuple(union[t: t + G]) for t in range(0, len(union), G)]
+
+
+def _group_units(layout_h: np.ndarray, block: int, causal: bool):
+    """One head's dk/dv units at a block of 16 or 32 → [key blocks], each
+    list ascending and up to ``G = 64 / block`` long. Key blocks whose query
+    lists (qidx rows) are equal form groups, cut into units of G blocks in
+    order (BERT's fixed layout: its 3 local blocks of a window, 4 of its 8
+    global ones). A short unit left over then takes other short units, the
+    best of the next 8 (the nearest on a tie), while that costs no more tiles
+    than walking them apart (:func:`_union_tiles`: the union of the lists
+    a tile per G query blocks), so layouts whose lists rarely repeat
+    (bigbird's random blocks) still fill their 64-row units. A block no
+    query lists stays in a unit, which stores its zeros."""
+    G = TILE // block
+    lists = [set(np.nonzero(layout_h[:, j])[0].tolist()) for j in range(layout_h.shape[1])]
+    groups: Dict[tuple, list] = {}
+    for j, lst in enumerate(lists):
+        groups.setdefault(tuple(sorted(lst)), []).append(j)
+    full, short = [], []
+    for keys in groups.values():
+        for s in range(0, len(keys), G):
+            (full if len(keys[s: s + G]) == G else short).append(keys[s: s + G])
+    short.sort()
+    units, window = full, 8
+    cost = lambda blocks: len(_union_tiles(blocks, lists, G, causal))  # noqa: E731
+    while short:
+        unit = short.pop(0)
+        while len(unit) < G:
+            best, saving = None, -1
+            for i, other in enumerate(short[:window]):
+                if len(unit) + len(other) <= G:
+                    d = cost(unit) + cost(other) - cost(unit + other)
+                    if d > saving:
+                        best, saving = i, d
+            if best is None:
+                break
+            unit = sorted(unit + short.pop(best))
+        units.append(unit)
+    return [(sorted(u), _union_tiles(u, lists, G, causal)) for u in units], lists
+
+
+def dkv_group_plan(layout: np.ndarray, block: int, causal: bool) -> Tuple[np.ndarray, int]:
+    """dk/dv's schedule at blocks of 16 and 32 for one batch row → (flat
+    int32, the number of headers). A unit is up to ``G = 64 / block`` key
+    blocks of one head (:func:`_group_units`), loaded into one 64-row tile a
+    block at a time; rows past its blocks are padding, masked and never
+    stored. An item is two units of one head paired by :func:`_pair_units`
+    for the tiles they share, each a consumer warpgroup's. A header is ``4 +
+    2 G`` ints: (head, offset, tile count, 0, unit 0's key blocks, unit 1's
+    key blocks), -1 past a unit's blocks and for a missing unit 1; headers
+    heaviest first, ties by head and first block. From the offset on (after
+    the headers), a tile is G ints, its query blocks, ``block * 256 + m1 *
+    16 + m0``, -1 past the last (padding): bit j of ``m_c`` says that key
+    block j of unit c lists this query block (0 where unit c does not walk
+    the tile). The kernel loads a tile whose G blocks are consecutive as one
+    64-row box, any other a block at a time."""
+    if block not in GROUP_BLOCKS:
+        raise ValueError(f"dkv_group_plan: block {block} not in {GROUP_BLOCKS}")
+    layout = np.asarray(layout, bool)
+    G = TILE // block
+    heads, runs = [], []
+    for h in range(layout.shape[0]):
+        units, lists = _group_units(layout[h], block, causal)
+        names = sorted({t for _, tiles in units for t in tiles})
+        walk = np.zeros((len(units), len(names)), bool)
+        for u, (_, tiles) in enumerate(units):
+            walk[u, [names.index(t) for t in tiles]] = True
+        for a, b in _pair_units(walk):
+            either = np.nonzero(walk[a] | (walk[b] if b >= 0 else False))[0]
+            recs = np.full((len(either), G), -1, np.int64)
+            for r, t in enumerate(either):
+                for g, qb in enumerate(names[t]):
+                    masks = [sum(1 << j for j, kb in enumerate(units[u][0]) if qb in lists[kb])
+                             if u >= 0 and walk[u, t] else 0 for u in (a, b)]
+                    recs[r, g] = qb * 256 + masks[1] * 16 + masks[0]
+            keys = np.full(2 * G, -1, np.int64)
+            for c, u in enumerate((a, b)):
+                if u >= 0:
+                    keys[c * G: c * G + len(units[u][0])] = units[u][0]
+            heads.append((h, keys))
+            runs.append(recs)
+    order = sorted(range(len(heads)), key=lambda i: (-len(runs[i]), heads[i][0],
+                                                     heads[i][1][0]))
+    header = np.zeros((len(heads), 4 + 2 * G), np.int64)
+    offset = 0
+    for r, i in enumerate(order):
+        header[r, :3] = (heads[i][0], offset, len(runs[i]))
+        header[r, 4:] = heads[i][1]
+        offset += len(runs[i])
+    body = [runs[i].ravel() for i in order]
+    return np.concatenate([header.ravel()] + body).astype(np.int32), len(heads)
+
+
 @dataclass(frozen=True, eq=False)
 class IndexLists:
     """A layout and its index lists on one device, and the backward's
@@ -195,19 +309,31 @@ class IndexLists:
     kcnt: torch.Tensor  # [H, nQ] int32
     qidx: torch.Tensor  # [H, nK, maxQ] int32
     qcnt: torch.Tensor  # [H, nK] int32
-    plans: Dict[tuple, torch.Tensor] = field(default_factory=dict, repr=False)
+    plans: Dict[tuple, Tuple[torch.Tensor, int]] = field(default_factory=dict, repr=False)
+
+    def _plan(self, which: str, causal: bool) -> Tuple[torch.Tensor, int]:
+        key = (which, bool(causal))
+        hit = self.plans.get(key)
+        if hit is None:
+            if which == "dkv" and self.block in GROUP_BLOCKS:
+                flat, n = dkv_group_plan(self.layout, self.block, causal)
+            else:  # ceil(U / 2) headers a head, U = S / 64
+                flat = bwd_plan(self.layout, self.block, causal, which)
+                H, nb = self.layout.shape[:2]
+                n = H * ((nb * self.block // TILE + 1) // 2)
+            hit = (torch.from_numpy(flat).to(self.kidx.device), n)
+            self.plans[key] = hit
+        return hit
 
     def bwd_plan(self, which: str, causal: bool) -> torch.Tensor:
         """The schedule of kernel ``which`` ("dq", which the forward walks
         too, or "dkv") under ``causal`` as an int32 tensor on the lists'
         device: the same tensor on every call."""
-        key = (which, bool(causal))
-        plan = self.plans.get(key)
-        if plan is None:
-            plan = torch.from_numpy(bwd_plan(self.layout, self.block, causal, which))
-            plan = plan.to(self.kidx.device)
-            self.plans[key] = plan
-        return plan
+        return self._plan(which, causal)[0]
+
+    def plan_items(self, which: str, causal: bool) -> int:
+        """The number of headers of that schedule (items a batch row)."""
+        return self._plan(which, causal)[1]
 
     def dense_mask(self, device) -> torch.Tensor:
         """``[H, S, S]`` bool: the layout's element mask (what the plain
@@ -385,32 +511,35 @@ def _check(name, q, lists: IndexLists, tensors):
             )
 
 
-def wgmma_route(q, block: int) -> bool:
-    """The kernels' rule on shapes alone (forward, dq and dk/dv alike): q in
-    bf16/fp16 with head dim 64 or 128 and a sparsity block of 64 or 128
-    takes the TMA + wgmma kernels (q, k, v and dO read through TMA tensor
-    maps, which need positive batch, sequence and head strides under 2^40
-    bytes); blocks of 16 and 32 take the mma.sync kernels (a wgmma M of 64
-    would span 4 or 2 blocks of unrelated lists), fp32 the FMA kernels."""
-    return q.dtype in TMA_DTYPES and q.shape[-1] in HEAD_DIMS and block in WGMMA_BLOCKS
+def wgmma_route(q, block: int, which: str) -> bool:
+    """The rule of kernel ``which`` ("fwd", "dq" or "dkv") on shapes alone:
+    q in bf16/fp16 with head dim 64 or 128 takes the TMA + wgmma kernel at
+    the blocks ``WGMMA_BLOCKS[which]`` names (q, k, v and dO read through
+    TMA tensor maps, which need positive batch, sequence and head strides
+    under 2^40 bytes): dk/dv at every block, its units gathering key blocks
+    at 16 and 32; the forward and dq at 64 and 128, and the
+    mma.sync kernels at 16 and 32 (a query unit of 64 rows would span blocks
+    with lists of their own). fp32 takes the FMA kernels."""
+    return q.dtype in TMA_DTYPES and q.shape[-1] in HEAD_DIMS and block in WGMMA_BLOCKS[which]
 
 
-def _plan_ptr(name, which, lists: IndexLists, causal, **tensors) -> int:
-    """The schedule's pointer on the wgmma route (after the TMA maps' stride
-    check of ``tensors``), 0 on the others."""
-    if not wgmma_route(tensors["q"], lists.block):
-        return 0
+def _plan_args(name, which, lists: IndexLists, causal, **tensors) -> Tuple[int, int]:
+    """The schedule's pointer and header count on the wgmma route (after the
+    TMA maps' stride check of ``tensors``), (0, 0) on the others. The
+    forward walks dq's schedule."""
+    if not wgmma_route(tensors["q"], lists.block, "dkv" if which == "dkv" else "dq"):
+        return 0, 0
     _check_tma(name, tensors)
-    return lists.bwd_plan(which, causal).data_ptr()
+    return lists.bwd_plan(which, causal).data_ptr(), lists.plan_items(which, causal)
 
 
 def _check_rows(name, q, **rows):
     B, S, H, _ = q.shape
     for what, t in rows.items():
         if (t.dtype != torch.float32 or tuple(t.shape) != (B, H, S) or not t.is_contiguous()
-                or t.device != q.device):
-            raise ValueError(f"{name}: {what} must be a contiguous [B, H, S] float32 tensor "
-                             "on q's device")
+                or t.device != q.device or t.data_ptr() % 16):
+            raise ValueError(f"{name}: {what} must be a contiguous, 16-byte aligned [B, H, S] "
+                             "float32 tensor on q's device")
 
 
 def _stream(q) -> int:
@@ -432,7 +561,7 @@ def block_sparse_attention_fwd(q, k, v, lists: IndexLists, causal: bool = False,
     lse = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
     if B == 0:
         return o, lse
-    plan = _plan_ptr(name, "dq", lists, causal, q=q, k=k, v=v)
+    plan, _ = _plan_args(name, "dq", lists, causal, q=q, k=k, v=v)
     from .op_builder import load
 
     lib = load(name)
@@ -463,7 +592,7 @@ def block_sparse_attention_dq(q, k, v, do, lse, delta, lists: IndexLists, causal
     dq = torch.empty(B, S, H, D, dtype=q.dtype, device=q.device)
     if B == 0:
         return dq
-    plan = _plan_ptr(name, "dq", lists, causal, q=q, k=k, v=v, do=do)
+    plan, _ = _plan_args(name, "dq", lists, causal, q=q, k=k, v=v, do=do)
     from .op_builder import load
 
     lib = load("block_sparse_attention_bwd")
@@ -482,8 +611,11 @@ def block_sparse_attention_dq(q, k, v, do, lse, delta, lists: IndexLists, causal
 
 def block_sparse_attention_dkv(q, k, v, do, lse, delta, lists: IndexLists,
                                causal: bool = False, sm_scale: Optional[float] = None):
-    """Launch the dk/dv kernel → (dk, dv) ``[B, S, H, D]`` contiguous; the
-    route and its schedule (``lists.bwd_plan("dkv", causal)``) as dq's."""
+    """Launch the dk/dv kernel → (dk, dv) ``[B, S, H, D]`` contiguous. The
+    kernel is the one :func:`wgmma_route` names for the shape (the wgmma
+    kernel at every block in bf16/fp16), walking the cached schedule
+    ``lists.bwd_plan("dkv", causal)`` (grouped units at blocks of 16 and
+    32); it raises as dq's."""
     name = "block_sparse_attention_dkv"
     _check(name, q, lists, {"q": q, "k": k, "v": v, "do": do})
     _check_rows(name, q, lse=lse, delta=delta)
@@ -492,14 +624,14 @@ def block_sparse_attention_dkv(q, k, v, do, lse, delta, lists: IndexLists,
     dv = torch.empty(B, S, H, D, dtype=q.dtype, device=q.device)
     if B == 0:
         return dk, dv
-    plan = _plan_ptr(name, "dkv", lists, causal, q=q, k=k, v=v, do=do)
+    plan, n_headers = _plan_args(name, "dkv", lists, causal, q=q, k=k, v=v, do=do)
     from .op_builder import load
 
     lib = load("block_sparse_attention_bwd")
     err = lib.block_sparse_attention_dkv_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), lists.qidx.data_ptr(),
-        lists.qcnt.data_ptr(), plan, B, S, H, D, lists.block, lists.qidx.shape[2],
+        lists.qcnt.data_ptr(), plan, n_headers, B, S, H, D, lists.block, lists.qidx.shape[2],
         *_strides3(q), *_strides3(k), *_strides3(v), *_strides3(do),
         int(bool(causal)), ctypes.c_float(_scale(D, sm_scale)), DTYPE_CODES[q.dtype], _stream(q),
     )

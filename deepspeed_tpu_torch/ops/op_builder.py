@@ -75,7 +75,7 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "block_sparse_attention_dkv_launch": (
             [_P] * 11                          # q, k, v, do, lse, delta, dk, dv, qidx, qcnt,
                                                # plan
-            + [_I] * 6                         # B, S, H, D, block, maxQ
+            + [_I] * 7                         # plan headers, B, S, H, D, block, maxQ
             + [_L] * 12                        # q, k, v, do strides (batch, seq, head)
             + [_I, _F, _I, _P],                # causal, sm_scale, dtype, stream
             ctypes.c_int,
@@ -114,7 +114,8 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "threefry": {
         "threefry_dropout_launch": (
-            [_P, _P, _L, _U, _U, _F, _F, _I, _P],  # x, y, n, key words, p, c, dtype, stream
+            [_P, _P, _L, _U, _U, _U, _F, _F,   # x, y, n, key words, keep threshold, c, 1 / c
+             _I, _I, _P],                      # multiply by 1 / c, dtype, stream
             ctypes.c_int,
         ),
         "threefry_uniform_rows_launch": (

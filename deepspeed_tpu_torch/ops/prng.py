@@ -260,11 +260,47 @@ def keep_scale(rate: float, dtype: torch.dtype):
     return p, c
 
 
+def keep_threshold(p: float) -> int:
+    """The kernel's integer keep test: ``bits <= keep_threshold(p)`` is
+    ``uniform(bits) < p`` for every 32-bit ``bits`` and f32 ``p`` in (0, 1].
+    The uniform is ``m / 2^23`` with ``m = bits >> 9``, so ``u < p`` is ``m
+    < ceil(p 2^23)`` (p 2^23 exact in f64), and that is ``bits <= ceil(p
+    2^23) 2^9 - 1``, at most ``2^32 - 1``."""
+    t = math.ceil(float(np.float32(p)) * 2.0 ** 23)
+    if not 1 <= t <= 2 ** 23:
+        raise ValueError(f"keep_threshold: p {p} is not in (0, 1]")
+    return t * 512 - 1
+
+
+@functools.lru_cache(maxsize=None)
+def reciprocal_is_exact(rate: float, dtype: torch.dtype) -> Tuple[float, bool]:
+    """``(r, exact)``: r = f32(1 / c) for the dropout's divisor c
+    (:func:`keep_scale`), and whether ``dtype(f32(x) * r)`` equals the
+    correctly rounded quotient ``dtype(f32(x) / c)`` for every one of the
+    65,536 values x of a 16-bit ``dtype`` (NaNs aside), checked here
+    exhaustively in numpy's IEEE f32 arithmetic: then the kernel multiplies,
+    else (and for f32) it divides."""
+    _, c = keep_scale(check_rate(rate), dtype)
+    c32 = np.float32(c)
+    r = np.float32(1.0) / c32
+    if dtype not in (torch.float16, torch.bfloat16):
+        return float(r), False
+    x = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32).to(torch.int16).view(dtype)
+    xf = x.float().numpy()
+    with np.errstate(over="ignore", invalid="ignore"):
+        by_mul = torch.from_numpy(xf * r).to(dtype).view(torch.int16)
+        by_div = torch.from_numpy(xf / c32).to(dtype).view(torch.int16)
+    num = ~torch.from_numpy(np.isnan(xf))
+    return float(r), bool(torch.equal(by_mul[num], by_div[num]))
+
+
 def dropout_kernel(x: torch.Tensor, key: Key, rate: float) -> torch.Tensor:
     """Launch the dropout kernel on ``torch.cuda.current_stream()``: ``keep
-    ? x / c : 0`` with ``keep = uniform(key, x.shape) < p`` (``keep_scale``)
-    for x contiguous f32 / fp16 / bf16 on a CUDA device → a new tensor.
-    Raises on anything else."""
+    ? x / c : 0`` with ``keep = uniform(key, x.shape) < p`` (``keep_scale``;
+    in the kernel ``bits <= keep_threshold(p)``, and the quotient ``x * (1 /
+    c)`` where :func:`reciprocal_is_exact` proves it equal) for x contiguous
+    f32 / fp16 / bf16 on a CUDA device → a new tensor. Raises on anything
+    else."""
     if x.device.type != "cuda":
         raise ValueError(f"dropout_kernel: the kernel takes CUDA tensors, not {x.device}")
     if x.dtype not in DTYPES:
@@ -272,13 +308,14 @@ def dropout_kernel(x: torch.Tensor, key: Key, rate: float) -> torch.Tensor:
     if not x.is_contiguous():
         raise ValueError("dropout_kernel: x must be contiguous")
     p, c = keep_scale(check_rate(rate), x.dtype)
+    r, mul = reciprocal_is_exact(rate, x.dtype)
     k0, k1 = key_words(key)
     from .op_builder import load
 
     lib = load("threefry")
     y = torch.empty_like(x)
-    err = lib.threefry_dropout_launch(x.data_ptr(), y.data_ptr(), x.numel(), k0, k1, p, c,
-                                      DTYPES[x.dtype],
+    err = lib.threefry_dropout_launch(x.data_ptr(), y.data_ptr(), x.numel(), k0, k1,
+                                      keep_threshold(p), c, r, int(mul), DTYPES[x.dtype],
                                       torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"dropout_kernel: kernel launch failed, CUDA error {err}")

@@ -6,6 +6,7 @@ Usage, on a machine with one CUDA card, from the repository root:
     python -m deepspeed_tpu_torch.tools.profile_training --sparse
     python -m deepspeed_tpu_torch.tools.profile_training --model bert-large --sparse
     python -m deepspeed_tpu_torch.tools.profile_training --model bert-large --optimizer Lamb
+    python -m deepspeed_tpu_torch.tools.profile_training --dropout 0.1 [--timed 10]
 
 Trains one of ``chip_smoke.py``'s training workloads through
 ``deepspeed_tpu_torch.initialize`` (bf16 on an fp32 master, clipping 1.0,
@@ -19,7 +20,14 @@ WarmupLR, one seeded batch repeated, random weights):
   ``--sparse`` (fixed bidirectional, block 16; phase 12), else dense;
 - ``--model bert-large --optimizer Lamb``: dense BERT-large at S128, micro
   64, LAMB (lr 1e-3, betas 0.9/0.999, eps 1e-6, wd 0.01), the S128 stage of
-  DeepSpeed's BERT LAMB recipe (phase 15).
+  DeepSpeed's BERT LAMB recipe (phase 15);
+- ``--dropout 0.1``: GPT-2 at that dropout rate (phase 17 with the
+  default workload).
+
+``--timed N`` times N steps without the profiler instead (each closed by a
+sync; the median, as ``chip_smoke.py`` reports step ms): run this file by
+path with an older tree first on ``PYTHONPATH`` to time that tree, older
+and newer alternating in one call.
 
 Two steps warm up (kernel build, cuBLAS handles, allocator), then two run
 under ``torch.profiler``. Prints the device time by kernel (the 12
@@ -34,7 +42,9 @@ head GEMMs get aligned leading dimensions).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import statistics
 import sys
 import time
 
@@ -185,6 +195,9 @@ def main(argv=None) -> int:
     ap.add_argument("--optimizer", choices=tuple(OPTIMIZER_PARAMS), default=None,
                     help="the optimizer (default: AdamW for GPT-2, Adam for BERT; Lamb for "
                          "BERT is the S128 stage of the LAMB recipe)")
+    ap.add_argument("--dropout", type=float, default=0.0, help="GPT-2's dropout rate")
+    ap.add_argument("--timed", type=int, default=0,
+                    help="time this many steps without the profiler instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_training: needs a CUDA device", file=sys.stderr)
@@ -194,9 +207,29 @@ def main(argv=None) -> int:
 
     cfg, module, conf, batch = workload(args.model, args.sparse, args.pad_vocab,
                                         optimizer=args.optimizer)
+    if args.dropout:
+        from deepspeed_tpu_torch.models import gpt2
+
+        if args.model != "gpt2-medium":
+            raise SystemExit("profile_training: --dropout applies to GPT-2")
+        module = gpt2.make_module(dataclasses.replace(cfg, dropout=args.dropout))
     eng, *_ = dtt.initialize(model=module, config=conf, seed=0)
     for _ in range(2):
         eng.train_batch(batch)
+    if args.timed:
+        step_s = []
+        for _ in range(args.timed):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.train_batch(batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        print(json.dumps({"device": torch.cuda.get_device_name(0), "model": args.model,
+                          "sparse": args.sparse, "dropout": args.dropout,
+                          "package": dtt.__file__,
+                          "step_ms_median": statistics.median(step_s) * 1e3,
+                          "step_ms": [x * 1e3 for x in step_s]}))
+        return 0
     p = profile_steps(eng, batch, 2, kernels=(BLOCK_SPARSE_KERNELS if args.sparse
                                               else FLASH_KERNELS) + OPTIMIZER_KERNELS)
     S = batch["input_ids"].shape[1]

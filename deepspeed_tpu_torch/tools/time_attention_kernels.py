@@ -1,20 +1,22 @@
-"""Device time of the port's attention kernels at the shapes of its paths,
-for comparing two trees of this package on one card: the contiguous decode
+"""Device time of the port's attention kernels and its threefry kernel at
+the shapes of its paths, for comparing two trees of this package on one
+card: the contiguous decode
 kernel (offline ``generate``), the paged decode kernel in both modes
 (serving's decode and verify), the paged multi-token kernel in both modes
 (serving's chunk program: ``chip_smoke.py`` phase 3b's and 3c's chunk
 shape, the mean over the chunk starts of a 512-token prompt, and one
 longer chunk over a longer cache), the flash-attention forward and
-backward (GPT-2 and BERT training), and the block-sparse forward, dq and
+backward (GPT-2 and BERT training), the block-sparse forward, dq and
 dk/dv at ``chip_smoke.py`` phase 10's two main shapes (GPT-2 sparse and
-BERT sparse training) and two more.
+BERT sparse training) and seven more, and the threefry kernel's dropout and
+uniform_rows at ``chip_smoke.py`` phase 16's shapes.
 
 Usage, on a machine with one CUDA card:
 
     PYTHONPATH=<tree> python <this tree>/deepspeed_tpu_torch/tools/time_attention_kernels.py
         [--label NAME] [--library]
         [--only decode,paged,multitoken,multitoken_int8,flash_fwd,flash_bwd,
-                bsparse_fwd,bsparse_dq,bsparse_dkv]
+                bsparse_fwd,bsparse_dq,bsparse_dkv,dropout,uniform_rows]
 
 Run as a file (not with ``-m``), so that ``deepspeed_tpu_torch`` is imported
 from ``<tree>``: an unpacked older commit times that commit's kernels through
@@ -23,7 +25,9 @@ the same public wrappers (``ops.decode_attention.decode_attention``,
 ``ops.paged_multitoken_attention.paged_multitoken_attention``,
 ``ops.flash_attention.flash_attention_fwd`` / ``flash_attention_bwd``,
 ``ops.block_sparse_attention.block_sparse_attention_fwd`` / ``_dq`` /
-``_dkv`` over ``index_lists``), which build its own sources into its own ``_build/``. Alternate the trees
+``_dkv`` over ``index_lists``, ``ops.prng.dropout_kernel`` /
+``uniform_rows_kernel``), which build its own sources into its own
+``_build/``. Alternate the trees
 within one call (older, newer, newer, older): calls and cards differ by
 several percent. Prints one JSON line: ms per call (device time, CUDA
 events, the host's enqueueing hidden behind a device-side sleep) for each
@@ -31,7 +35,8 @@ case, ``--library`` adds one PyTorch call on the same inputs (SDPA; for the
 paged kernels a page gather and SDPA, with the position mask for the
 multi-token kernel; for the block-sparse kernels SDPA
 with the layout's dense boolean mask; for a backward SDPA's
-forward+backward for the same grads minus its forward). Inputs come from a seeded generator on
+forward+backward for the same grads minus its forward; ``F.dropout`` and
+``torch.rand``, other streams of bits, for the threefry kernel). Inputs come from a seeded generator on
 the card. The time function is the one ``chip_smoke.py`` uses.
 """
 
@@ -281,9 +286,10 @@ def time_flash_bwd(case, library):
 
 # (label, B, S, H, D, sparse_attention section, causal): chip_smoke.py
 # phase 10's main shapes, GPT-2's section (phase 11) and BERT's default
-# Fixed layout (phase 12), then two shapes off those paths that the
-# backward's wgmma route also takes (D128 with blocks of 128; per-head
-# random layouts)
+# Fixed layout (phase 12), then shapes off those paths that the wgmma
+# kernels also take (D128 with blocks of 128; per-head random layouts;
+# dk/dv's grouped units at blocks of 16 and 32 with lists that rarely
+# repeat)
 BSPARSE_CASES = [
     ("GPT-2 bf16 B2 S4096 H16 D64 fixed-uni blk64", 2, 4096, 16, 64,
      {"mode": "fixed", "block": 64, "num_local_blocks": 4, "num_global_blocks": 1,
@@ -294,7 +300,49 @@ BSPARSE_CASES = [
     ("bf16 B4 S2048 H16 D64 bigbird-bi blk64", 4, 2048, 16, 64,
      {"mode": "bigbird", "block": 64, "different_layout_per_head": True,
       "num_random_blocks": 2}, False),
+    ("bf16 B16 S512 H16 D64 bigbird-bi blk16", 16, 512, 16, 64,
+     {"mode": "bigbird", "block": 16, "different_layout_per_head": True,
+      "num_random_blocks": 2}, False),
+    ("bf16 B8 S1024 H16 D64 variable-bi blk32", 8, 1024, 16, 64,
+     {"mode": "variable", "block": 32, "num_random_blocks": 1,
+      "local_window_blocks": [2, 4], "global_block_indices": [0, 5]}, False),
+    # chip_smoke.py phase 10's smaller block-16/32 cases, in bf16
+    ("bf16 B2 S1024 H4 D64 fixed-uni blk16", 2, 1024, 4, 64,
+     {"mode": "fixed", "block": 16, "num_local_blocks": 4, "attention": "unidirectional"}, True),
+    ("bf16 B2 S1024 H8 D64 bigbird-bi blk32", 2, 1024, 8, 64,
+     {"mode": "bigbird", "block": 32, "different_layout_per_head": True,
+      "num_random_blocks": 2}, False),
+    ("bf16 B4 S128 H4 D128 bigbird-uni blk16", 4, 128, 4, 128,
+     {"mode": "bigbird", "block": 16, "different_layout_per_head": True,
+      "num_random_blocks": 2, "attention": "unidirectional"}, True),
 ]
+
+
+def time_threefry(which, library):
+    """The threefry kernel at phase 16's main shapes: dropout of [8, 1024,
+    1024] bf16 at rate 0.1, uniform_rows at R16 x 50257 and R1 x 8 x 50257
+    over [tiny, 1)."""
+    from deepspeed_tpu_torch.ops import prng
+
+    out = {}
+    key = prng.fold_in(prng.PRNGKey(1), 16)
+    if which == "dropout":
+        g = torch.Generator(device="cuda").manual_seed(16)
+        x = torch.randn(8, 1024, 1024, generator=g, device="cuda").to(torch.bfloat16)
+        out["dropout bf16 [8, 1024, 1024] rate 0.1"] = time_ms(
+            lambda i: prng.dropout_kernel(x, key, 0.1), 50)[0]
+        if library:
+            out["dropout bf16 [8, 1024, 1024] rate 0.1 library"] = time_ms(
+                lambda i: F.dropout(x, 0.1, training=True), 50)[0]
+        return out
+    tiny = float(torch.finfo(torch.float32).tiny)
+    for R, n in ((16, 50257), (1, 8 * 50257)):
+        keys = prng.split(prng.PRNGKey(R), R)
+        name = f"uniform_rows R{R} x {n}"
+        out[name] = time_ms(lambda i: prng.uniform_rows_kernel(keys, n, tiny, 1.0, "cuda"), 50)[0]
+        if library:
+            out[name + " library"] = time_ms(lambda i: torch.rand(R, n, device="cuda"), 50)[0]
+    return out
 
 
 def time_bsparse(case, library, which):
@@ -360,7 +408,8 @@ def main(argv=None) -> int:
                             ("flash_bwd", FLASH_BWD_CASES, time_flash_bwd),
                             *((f"bsparse_{w}", BSPARSE_CASES,
                                lambda case, lib, w=w: time_bsparse(case, lib, w))
-                              for w in ("fwd", "dq", "dkv"))):
+                              for w in ("fwd", "dq", "dkv")),
+                            *((w, (w,), time_threefry) for w in ("dropout", "uniform_rows"))):
         if name not in only:
             continue
         for case in cases:

@@ -162,16 +162,33 @@ def test_plan_is_cached_in_the_index_lists():
 
 
 def test_plan_refuses_blocks_the_route_does_not_take():
+    """dq's (and so the forward's) plan takes blocks of 64 and 128 only;
+    dk/dv's takes 16 and 32 too, as its grouped plan, and refuses 8."""
     layout = np.ones((1, 8, 8), bool)
+    for blk in (16, 32):
+        with pytest.raises(ValueError, match="multiple of 64"):
+            tbsa.bwd_plan(layout, blk, True, "dq")
+        plan = tbsa.bwd_plan(layout, blk, True, "dkv")
+        np.testing.assert_array_equal(plan, tbsa.dkv_group_plan(layout, blk, True)[0])
     with pytest.raises(ValueError, match="multiple of 64"):
-        tbsa.bwd_plan(layout, 16, True, "dq")
+        tbsa.bwd_plan(layout, 8, True, "dkv")
+    with pytest.raises(ValueError, match="block 64"):
+        tbsa.dkv_group_plan(layout, 64, True)
 
 
 def test_wgmma_route_rule():
+    """A rule per kernel on shapes alone: dk/dv takes wgmma at blocks
+    16-128, the forward and dq at 64 and 128; fp32 and other head dims
+    never."""
     q = torch.zeros(1, 256, 2, 64, dtype=torch.bfloat16)
-    assert tbsa.wgmma_route(q, 64) and tbsa.wgmma_route(q.half(), 128)
-    assert not tbsa.wgmma_route(q, 16) and not tbsa.wgmma_route(q, 32)
-    assert not tbsa.wgmma_route(q.float(), 64)
+    for which in ("fwd", "dq", "dkv"):
+        assert tbsa.wgmma_route(q, 64, which) and tbsa.wgmma_route(q.half(), 128, which)
+        assert not tbsa.wgmma_route(q.float(), 64, which)
+        assert not tbsa.wgmma_route(q[..., :32], 64, which)
+        assert not tbsa.wgmma_route(q.float(), 16, which)
+    for blk in (16, 32):
+        assert tbsa.wgmma_route(q, blk, "dkv") and tbsa.wgmma_route(q.half(), blk, "dkv")
+        assert not tbsa.wgmma_route(q, blk, "fwd") and not tbsa.wgmma_route(q, blk, "dq")
 
 
 # ---------------------------------------------------------------------------
@@ -382,3 +399,242 @@ def test_forward_walk_matches_pallas_interpret(label):
         assert poison[:, :, :block].all() and not poison[:, :, block:].any()
         assert float(o[:, :block].abs().max()) == 0.0
 
+
+
+# ---------------------------------------------------------------------------
+# dk/dv at blocks of 16 and 32: the grouped plan and a plain model of its walk
+# ---------------------------------------------------------------------------
+
+GROUP_CASES = {  # label -> (layout maker (H, S), block, causal)
+    "bert fixed-bi blk16": (
+        lambda H, S: from_ds_config({"mode": "fixed", "block": 16}, H).make_layout(S), 16, False),
+    "fixed-uni blk16 causal": (
+        lambda H, S: tsc.FixedSparsityConfig(num_heads=H, block=16, num_local_blocks=4,
+                                             attention="unidirectional").make_layout(S),
+        16, True),
+    "bigbird blk16": (
+        lambda H, S: tsc.BigBirdSparsityConfig(num_heads=H, block=16,
+                                               different_layout_per_head=True,
+                                               num_random_blocks=2).make_layout(S), 16, False),
+    "variable blk32": (
+        lambda H, S: tsc.VariableSparsityConfig(num_heads=H, block=32, num_random_blocks=1,
+                                                local_window_blocks=[2, 3],
+                                                global_block_indices=[1]).make_layout(S),
+        32, False),
+    "custom fully masked row blk16 causal": (lambda H, S: _custom(H, S, 16), 16, True),
+}
+
+
+def _group_items(plan, n, block):
+    """The grouped plan's items in order → [(head, unit 0 key blocks, unit 1
+    key blocks, tile records [n, G])]."""
+    G = TILE // block
+    hs = 4 + 2 * G
+    head = plan[: n * hs].reshape(n, hs).astype(np.int64)
+    body = plan[n * hs:].astype(np.int64)
+    return [(int(r[0]), r[4: 4 + G], r[4 + G:], body[r[1] * G: (r[1] + r[2]) * G].reshape(-1, G))
+            for r in head]
+
+
+def _rows(blocks, block, fill):
+    """64 rows of a unit or a tile: each block's rows (a padding slot, -1,
+    repeats ``fill``'s), and whether each row is real."""
+    rows = np.concatenate([np.arange(b, b + 1) * block + np.arange(block) if b >= 0 else
+                           fill * block + np.arange(block) for b in blocks])
+    real = np.repeat(np.asarray(blocks) >= 0, block)
+    return rows, real
+
+
+@pytest.mark.parametrize("label", list(GROUP_CASES))
+def test_group_plan_covers_every_kept_pair_once(label):
+    """Every (query, key) pair the layout and the causal rule keep is
+    computed by exactly one unit, and no other pair: a tile entry's mask bit
+    for a key block is set only where that block lists the query block.
+    Every key block is in exactly one unit, whose padding slots (-1) come
+    last; the two units of an item are one head's; headers are heaviest
+    first; each tile's blocks ascend, padding last, and each real entry is
+    taken by some key block of the item."""
+    make, block, causal = GROUP_CASES[label]
+    H, S = 2, 512
+    G = TILE // block
+    layout = make(H, S)
+    plan, n = tbsa.dkv_group_plan(layout, block, causal)
+    keep = np.repeat(np.repeat(layout, block, 1), block, 2)  # [H, query, key]
+    if causal:
+        keep = keep & np.tril(np.ones((S, S), bool))[None]
+    cover = np.zeros((H, S, S), np.int64)
+    owner = np.zeros((H, S // block), np.int64)
+    counts = []
+    for h, u0, u1, recs in _group_items(plan, n, block):
+        counts.append(len(recs))
+        real = recs >= 0
+        assert u0[0] >= 0 and np.all(real[:, 0]) and np.all(recs[real] & 255)
+        assert np.all(real[:, :-1] | ~real[:, 1:])  # padding only at a tile's end
+        for r, m in zip(recs >> 8, real):
+            assert np.all(np.diff(r[m]) > 0)
+        for c, unit in enumerate((u0, u1)):
+            blocks = unit[unit >= 0]
+            assert np.all(unit[: len(blocks)] >= 0) and len(blocks) <= G  # padding at the end
+            if c == 1 and len(blocks) == 0:
+                assert not np.any(recs[real] & (15 << 4))
+                continue
+            owner[h, blocks] += 1
+            for j, kb in enumerate(blocks):
+                for qb in recs[real & ((recs >> (4 * c + j)) & 1 == 1)] >> 8:
+                    tri = np.tril(np.ones((block, block), np.int64), (qb - kb) * block)
+                    cover[h, qb * block: qb * block + block,
+                          kb * block: kb * block + block] += 1 if not causal else tri
+    np.testing.assert_array_equal(owner, 1)
+    np.testing.assert_array_equal(cover, keep.astype(np.int64))
+    assert counts == sorted(counts, reverse=True)
+
+
+def test_group_plan_at_berts_layout():
+    """BERT's default section at S512 (fixed bidirectional, block 16, 4
+    local blocks, 1 global): a head's 32 key blocks form 8 local units of 3
+    blocks (each walking its window's 4 query blocks, one 64-row tile) and 2
+    global units of 4 (walking all 32 query blocks, 8 tiles); the global
+    units pair and share all 8 tiles, the local ones pair among themselves.
+    98,304 scored pairs a head in 64-row units against the layout's
+    90,112."""
+    cfg = from_ds_config({"mode": "fixed", "block": 16}, 16)
+    layout = cfg.make_layout(512)
+    plan, n = tbsa.dkv_group_plan(layout, 16, False)
+    items = _group_items(plan, n, 16)
+    assert n == 16 * 5 and len(items) == n
+    for h in range(16):
+        mine = [it for it in items if it[0] == h]
+        glob = [it for it in mine if len(it[3]) == 8]
+        assert len(glob) == 1 and np.all(glob[0][3] & 255 == 0xFF)
+        np.testing.assert_array_equal(np.sort(np.r_[glob[0][1], glob[0][2]]), np.arange(3, 32, 4))
+        local = [it for it in mine if len(it[3]) == 2]
+        assert len(local) == 4
+        for _, u0, u1, recs in local:
+            for c, unit in enumerate((u0, u1)):
+                w = unit[0] // 4
+                np.testing.assert_array_equal(unit, [4 * w, 4 * w + 1, 4 * w + 2, -1])
+                (rec,) = recs[(recs[:, 0] >> (4 * c)) & 15 != 0]
+                np.testing.assert_array_equal(rec >> 8, 4 * w + np.arange(4))
+                assert np.all((rec >> (4 * c)) & 15 == 0b0111)
+    scored = sum(64 * 64 * int(np.sum((r[:, 0] >> (4 * c)) & 15 != 0)) for _, u0, u1, r in items
+                 for c, u in enumerate((u0, u1)) if u[0] >= 0)
+    assert scored == 16 * 98304 and int(layout.sum()) * 16 * 16 == 16 * 90112
+
+
+def test_group_plan_fills_units_where_lists_differ():
+    """Bigbird's random blocks rarely share a list: short units merge while
+    that costs no more tiles, so a head's 32 key blocks fill few 64-row
+    units and walk about half the tiles of one unit a block."""
+    layout = tsc.BigBirdSparsityConfig(num_heads=4, block=16, different_layout_per_head=True,
+                                       num_random_blocks=2).make_layout(512)
+    plan, n = tbsa.dkv_group_plan(layout, 16, False)
+    items = _group_items(plan, n, 16)
+    units = [u for _, u0, u1, _ in items for u in (u0, u1) if u[0] >= 0]
+    tiles = sum(int(np.sum(((r[:, 0] >> (4 * c)) & 15) != 0)) for _, u0, u1, r in items
+                for c, u in enumerate((u0, u1)) if u[0] >= 0)
+    lone = sum(-(-int(layout[h, :, j].sum()) // 4) for h in range(4) for j in range(32))
+    assert len(units) <= 4 * 12 and tiles <= 0.6 * lone
+
+
+def test_group_plan_is_cached_in_the_index_lists():
+    cfg = from_ds_config({"mode": "fixed", "block": 16}, 4)
+    lists = tbsa.index_lists(cfg, 512, "cpu")
+    plan = lists.bwd_plan("dkv", False)
+    assert lists.bwd_plan("dkv", False) is plan and plan.dtype == torch.int32
+    flat, n = tbsa.dkv_group_plan(lists.layout, 16, False)
+    np.testing.assert_array_equal(plan.numpy(), flat)
+    assert lists.plan_items("dkv", False) == n == 4 * 5
+    gpt = tbsa.index_lists(from_ds_config(GPT2_SPARSE_SECTION, 4), 1024, "cpu")
+    assert gpt.plan_items("dkv", True) == gpt.plan_items("dq", True) == 4 * 8
+
+
+def _group_walk(q, k, v, do, lse, delta, lists, causal, sm_scale, step_tiles):
+    """The grouped dk/dv kernel's walk in plain PyTorch: the plan's items in
+    order; each unit's 64 key rows (a padding slot repeats the unit's first
+    block), each step's ``step_tiles`` tiles of 64 query rows (a padding
+    slot repeats the tile's first block), a tile its unit does not walk
+    skipped (the kernel's select to 0), a (key block, query block) pair
+    whose mask bit is clear, padding rows and the pairs the causal rule
+    drops masked to p = 0, sums in the kernel's order, and one store of the
+    unit's real rows. → (dk, dv, how often each key row was stored [B, S,
+    H])."""
+    B, S, H, D = q.shape
+    blk = lists.block
+    dt = q.dtype
+    items = _group_items(lists.bwd_plan("dkv", causal).numpy(), lists.plan_items("dkv", causal),
+                         blk)
+    dk, dv = torch.zeros(B, S, H, D), torch.zeros(B, S, H, D)
+    stored = torch.zeros(B, S, H, dtype=torch.int64)
+    for h, u0, u1, recs in items:
+        for bb in range(B):
+            for c, unit in enumerate((u0, u1)):
+                if unit[0] < 0:
+                    continue
+                kr, kreal = _rows(unit, blk, unit[0])
+                kr, kreal = torch.from_numpy(kr), torch.from_numpy(kreal)
+                kt, vt = k[bb, kr, h].float(), v[bb, kr, h].float()
+                adk, adv = torch.zeros(TILE, D), torch.zeros(TILE, D)
+                for j in range(0, len(recs), step_tiles):
+                    for rec in recs[j: j + step_tiles]:
+                        if not (rec[0] >> (4 * c)) & 15:
+                            continue
+                        qr, qreal = _rows([x >> 8 if x >= 0 else -1 for x in rec], blk,
+                                          rec[0] >> 8)
+                        qr, qreal = torch.from_numpy(qr), torch.from_numpy(qreal)
+                        # [query slot, key slot] mask bits, then [query, key] rows
+                        bit = np.array([[x >= 0 and (x >> (4 * c + ks)) & 1 for ks in
+                                         range(len(unit))] for x in rec], bool)
+                        bit = torch.from_numpy(bit.repeat(blk, 0).repeat(blk, 1))
+                        keep = qreal[:, None] & kreal[None, :] & bit  # [query, key]
+                        if causal:
+                            keep = keep & (kr[None, :] <= qr[:, None])
+                        qt, dot = q[bb, qr, h].float(), do[bb, qr, h].float()
+                        p = torch.exp(qt @ kt.T * sm_scale - lse[bb, h, qr, None])
+                        p = p.masked_fill(~keep, 0.0)
+                        ds = (p * (dot @ vt.T - delta[bb, h, qr, None])).to(dt).float()
+                        adv += p.to(dt).float().T @ dot
+                        adk += ds.T @ qt
+                dk[bb, kr[kreal], h] = adk[kreal] * sm_scale
+                dv[bb, kr[kreal], h] = adv[kreal]
+                stored[bb, kr[kreal], h] += 1
+    return dk.to(dt), dv.to(dt), stored
+
+
+@pytest.mark.parametrize("step_tiles", [2, 1])
+@pytest.mark.parametrize("label", list(GROUP_CASES))
+def test_group_walk_matches_plain_versions(label, step_tiles):
+    make, block, causal = GROUP_CASES[label]
+    B, S, H, D = 1, 256, 2, 16
+    lists = tbsa.lists_from_layout(make(H, S), block, "cpu")
+    q, k, v, do = (torch.from_numpy(x) for x in _qkv(B, S, H, D, seed=block + 5 * causal))
+    scale = 1.0 / np.sqrt(D)
+    o, lse = tbsa.block_sparse_attention_fwd_ref(q, k, v, lists, causal)
+    delta = tbsa.block_sparse_delta(o, do)
+    dk, dv, stored = _group_walk(q, k, v, do, lse, delta, lists, causal, scale, step_tiles)
+    assert torch.equal(stored, torch.ones_like(stored))  # every key row once, no padding row
+    dk_r, dv_r = tbsa.block_sparse_attention_dkv_ref(q, k, v, do, lse, delta, lists, causal)
+    for got, ref in ((dk, dk_r), (dv, dv_r)):
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=WALK_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("label", ["bert fixed-bi blk16", "fixed-uni blk16 causal",
+                                   "custom fully masked row blk16 causal"])
+def test_group_walk_matches_pallas_interpret(label):
+    make, block, causal = GROUP_CASES[label]
+    B, S, H, D = 1, 256, 2, 16
+    layout = make(H, S)
+    q, k, v, do = _qkv(B, S, H, D, seed=13)
+    scale = 1.0 / np.sqrt(D)
+    to4 = lambda x: jnp.asarray(x).transpose(0, 2, 1, 3)  # noqa: E731
+    kidx, kcnt, qidx, qcnt = map(jnp.asarray, jbsa.layout_to_index_lists(layout))
+    o_j, lse_j = jbsa._fwd(to4(q), to4(k), to4(v), kidx, kcnt, scale, causal, block, True)
+    grads_j = jbsa._bwd(to4(q), to4(k), to4(v), o_j, lse_j, to4(do), kidx, kcnt, qidx, qcnt,
+                        scale, causal, block, True)
+    lists = tbsa.lists_from_layout(layout, block, "cpu")
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    o, lse = tbsa.block_sparse_attention_fwd_ref(tq, tk, tv, lists, causal)
+    delta = tbsa.block_sparse_delta(o, tdo)
+    dk, dv, _ = _group_walk(tq, tk, tv, tdo, lse, delta, lists, causal, scale, 2)
+    back = lambda x: np.asarray(x).transpose(0, 2, 1, 3)  # noqa: E731
+    for got, ref in zip((dk, dv), grads_j[1:]):
+        np.testing.assert_allclose(got.numpy(), back(ref), atol=GRAD_TOL, rtol=0)

@@ -555,9 +555,36 @@ def test_block_sparse_kernels_refuse_what_they_do_not_take(card):
 ])
 def test_block_sparse_wgmma_backward_matches_plain_versions(card, dtype, kind, B, S, H, D, blk,
                                                             causal):
-    assert bsa.wgmma_route(torch.zeros(1, 1, 1, D, dtype=dtype), blk)
+    assert all(bsa.wgmma_route(torch.zeros(1, 1, 1, D, dtype=dtype), blk, which)
+               for which in ("fwd", "dq", "dkv"))
     q, k, v, do = _flash_inputs(card, B, S, H, H, D, dtype, seed=blk + D + S)
     _bs_check(q, k, v, do, bsa.index_lists(_bs_config(kind, H, blk, causal), S, card), causal)
+
+
+# dk/dv's TMA + wgmma kernel at blocks of 16 and 32 on grouped units (the
+# forward and dq on their mma.sync kernels): against the plain versions, and
+# dk/dv equal bit for bit over two calls
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("kind,B,S,H,D,blk,causal", [
+    ("fixed", 2, 512, 4, 64, 16, False),        # BERT's default section
+    ("fixed", 2, 512, 2, 128, 16, True),
+    ("bigbird", 2, 512, 4, 64, 16, False),
+    ("variable", 1, 1024, 2, 64, 32, True),
+    ("bigbird", 1, 512, 2, 128, 32, True),
+    ("fixed", 1, 32, 2, 64, 16, False),         # shorter than one 64-row tile
+])
+def test_block_sparse_grouped_dkv_matches_plain_versions(card, dtype, kind, B, S, H, D, blk,
+                                                         causal):
+    q, k, v, do = _flash_inputs(card, B, S, H, H, D, dtype, seed=blk + D + S + 1)
+    assert bsa.wgmma_route(q, blk, "dkv") and not bsa.wgmma_route(q, blk, "dq")
+    lists = bsa.index_lists(_bs_config(kind, H, blk, causal), S, card)
+    o, _ = _bs_check(q, k, v, do, lists, causal)
+    lse = bsa.block_sparse_attention_fwd(q, k, v, lists, causal)[1]
+    delta = bsa.block_sparse_delta(o, do)
+    first = bsa.block_sparse_attention_dkv(q, k, v, do, lse, delta, lists, causal)
+    again = bsa.block_sparse_attention_dkv(q, k, v, do, lse, delta, lists, causal)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 def _gpt2_lists(card, H, S):
@@ -607,7 +634,7 @@ def test_block_sparse_gpt2_main_shape_repeats_bit_for_bit(card):
 ])
 def test_block_sparse_wgmma_forward_on_qkv_views(card, kind, B, S, H, D, blk, causal, dtype):
     q, k, v = _qkv_views(card, B, S, H, H, D, dtype, seed=S + D + blk)
-    assert bsa.wgmma_route(q, blk) and q.stride(1) == 3 * H * D
+    assert bsa.wgmma_route(q, blk, "fwd") and q.stride(1) == 3 * H * D
     lists = bsa.index_lists(_bs_config(kind, H, blk, causal), S, card)
     before = bsa.LAUNCHES["block_sparse_attention_fwd"]
     o, lse = bsa.block_sparse_attention_fwd(q, k, v, lists, causal)
@@ -638,15 +665,16 @@ def test_block_sparse_wgmma_fully_masked_row_gives_zeros(card):
 
 def test_block_sparse_wgmma_refuses_strides_a_tma_map_cannot_take(card):
     """A batch stride of 0 (an expanded tensor): the wgmma route's TMA maps
-    refuse it (the forward's too), the mma.sync route (block 16) reads it;
-    autograd hands the kernels a contiguous copy."""
+    refuse it (the forward and dq at block 64, dk/dv at every block), the
+    mma.sync route (the forward and dq at block 16) reads it; autograd hands
+    the kernels a contiguous copy."""
     S, H, D = 256, 2, 64
     q, k, v, do = _flash_inputs(card, 1, S, H, H, D, torch.bfloat16, seed=8)
     qe, ke, ve, doe = (x.expand(2, S, H, D) for x in (q, k, v, do))
-    for blk, refused in ((64, True), (16, False)):
+    for blk in (64, 16):
         lists = bsa.index_lists(FixedSparsityConfig(num_heads=H, block=blk,
                                                     attention="unidirectional"), S, card)
-        if refused:
+        if bsa.wgmma_route(qe, blk, "fwd"):
             with pytest.raises(ValueError, match="TMA"):
                 bsa.block_sparse_attention_fwd(qe, ke, ve, lists, True)
             o, lse = bsa.block_sparse_attention_fwd(
@@ -654,8 +682,9 @@ def test_block_sparse_wgmma_refuses_strides_a_tma_map_cannot_take(card):
         else:
             o, lse = bsa.block_sparse_attention_fwd(qe, ke, ve, lists, True)
         delta = bsa.block_sparse_delta(o, doe)
-        for fn in (bsa.block_sparse_attention_dq, bsa.block_sparse_attention_dkv):
-            if refused:
+        for which, fn in (("dq", bsa.block_sparse_attention_dq),
+                          ("dkv", bsa.block_sparse_attention_dkv)):
+            if bsa.wgmma_route(qe, blk, which):
                 with pytest.raises(ValueError, match="TMA"):
                     fn(qe, ke, ve, doe, lse, delta, lists, True)
             else:

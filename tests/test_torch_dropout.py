@@ -3,13 +3,23 @@
 bit in f32, bf16 and fp16 with its gradient (tolerance 0), the kernel's
 wrappers refusing CPU tensors, every remat policy recomputing the same
 masks, and the engine's eval keys. The training trajectories against
-``DeepSpeedEngine`` are in ``test_torch_dropout_training.py``."""
+``DeepSpeedEngine`` are in ``test_torch_dropout_training.py``.
+
+Then the identities the kernel (``csrc/threefry.cu``) relies on, proven on
+the CPU: the integer keep test ``bits <= keep_threshold(p)`` against the
+plain ``uniform < p`` for all 2^23 mantissas (and random low bits) at the
+rates in use and at random rates; the quotient as a multiply by the f32
+reciprocal against the correctly rounded division for all 65,536 bf16 and
+fp16 inputs; and a numpy model of the kernel's per-thread walk (scalar
+head and tail, 16-byte vectors) drawing element i from counter i."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 import deepspeed_tpu_torch as dtt
 from deepspeed_tpu.models import gpt2 as jgpt2
@@ -143,3 +153,100 @@ def test_eval_and_forward_keys_follow_jax():
     np.testing.assert_array_equal(teng._rng, start)
     teng.eval_batch(b)
     np.testing.assert_array_equal(teng._rng, np.asarray(jax.random.split(jax.random.PRNGKey(1))[0]))
+
+
+# ---------------------------------------------------------------------------
+# the identities the kernel relies on
+# ---------------------------------------------------------------------------
+
+def _keep_test_agrees(rate, seed=0):
+    """Every mantissa m (bits m << 9 plus random low bits): the kernel's
+    ``bits <= thr`` against the plain version's ``uniform(bits) < p``."""
+    p, _ = prng.keep_scale(prng.check_rate(rate), torch.float32)
+    thr = prng.keep_threshold(p)
+    low = np.random.RandomState(seed).randint(0, 512, 2 ** 23)
+    bits = torch.from_numpy((np.arange(2 ** 23, dtype=np.int64) << 9) | low)
+    plain = prng.bits_to_unit_float(bits) < prng.device_scalar(p, torch.device("cpu"))
+    return torch.equal(bits <= thr, plain)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1, 0.5, 0.9, 1 - 2.0 ** -23])
+def test_integer_keep_test_is_the_uniform_compare(rate):
+    assert _keep_test_agrees(rate)
+
+
+@settings(max_examples=12, deadline=None)
+@given(st.floats(min_value=0.0, max_value=1.0, exclude_max=True, allow_subnormal=False))
+def test_integer_keep_test_at_random_rates(rate):
+    assert _keep_test_agrees(rate, seed=1)
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_reciprocal_multiply_is_the_rounded_quotient(dtype, rate):
+    """At the rates in use, ``dtype(f32(x) * r)`` is the plain version's
+    ``x / c`` (``dropout_ref``: torch's division by a ``dtype`` scalar) for
+    every one of the 65,536 inputs, NaNs aside, so the kernel multiplies."""
+    r, exact = prng.reciprocal_is_exact(rate, dtype)
+    assert exact
+    _, c = prng.keep_scale(rate, dtype)
+    x = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32).to(torch.int16).view(dtype)
+    num = ~torch.isnan(x)
+    by_mul = (x.float() * torch.tensor(r, dtype=torch.float32)).to(dtype)
+    plain = x / prng.device_scalar(c, x.device, dtype)
+    assert torch.equal(by_mul[num].view(torch.int16), plain[num].view(torch.int16))
+    assert not prng.reciprocal_is_exact(rate, torch.float32)[1]  # f32 always divides
+
+
+def _dropout_walk(n, x_off, y_off, size, grid=3, threads=4):
+    """A numpy model of ``dropout_kernel``'s loops as ``launch_dropout``
+    sets them up (x and y at byte offsets ``x_off`` / ``y_off`` from a
+    16-byte boundary, ``size``-byte elements; a small grid so that the
+    grid-stride loops turn) → the counter each element was drawn from
+    (-1: none; an element drawn twice fails)."""
+    V = 16 // size
+    head, nvec = n, 0
+    if (x_off - y_off) % 16 == 0:
+        head = min((16 - x_off % 16) % 16 // size, n)
+        nvec = (n - head) // V
+    tail = head + nvec * V
+    counter = np.full(n, -1, np.int64)
+
+    def draw(elements, counters):
+        assert np.all(counter[elements] == -1)
+        counter[elements] = counters
+
+    stride = grid * threads
+    for g in range(stride):
+        draw(np.arange(g, head, stride), np.arange(g, head, stride))
+        draw(np.arange(tail + g, n, stride), np.arange(tail + g, n, stride))
+        for v in range(g, nvec, stride):
+            i0 = head + v * V
+            assert (x_off + i0 * size) % 16 == 0 and (y_off + i0 * size) % 16 == 0
+            draw(np.arange(i0, i0 + V), i0 + np.arange(V))
+    return counter
+
+
+@pytest.mark.parametrize("size", [2, 4])
+@pytest.mark.parametrize("x_el,y_el", [(0, 0), (1, 1), (3, 3), (1, 0)])  # offsets in elements
+@pytest.mark.parametrize("n", [1, 7, 8, 9, 61, 8 * 13 + 5])
+def test_kernel_walk_draws_element_i_from_counter_i(n, x_el, y_el, size):
+    counter = _dropout_walk(n, x_el * size % 16, y_el * size % 16, size)
+    np.testing.assert_array_equal(counter, np.arange(n))
+    key = prng.fold_in(prng.PRNGKey(3), 9)
+    k = [int(w) for w in prng.key_words(key)]
+    lo = counter.astype(np.uint32)
+    y0, y1 = prng.threefry2x32(np.uint32(k[0]), np.uint32(k[1]), np.zeros_like(lo), lo)
+    np.testing.assert_array_equal((y0 ^ y1).astype(np.int64),
+                                  prng.random_bits_rows(key, n)[0].numpy())
+
+
+def test_uniform_rows_walk_draws_element_j_from_counter_j():
+    """``uniform_rows_kernel``: row r of [R, n] f32 starts at 4 r n bytes, so
+    an odd n misaligns every other row; each row's head, float4 body and
+    tail draw element j from counter j under its own key."""
+    R, n = 5, 8 * 3 + 3
+    for r in range(R):
+        off = 4 * r * n % 16
+        counter = _dropout_walk(n, off, off, 4)
+        np.testing.assert_array_equal(counter, np.arange(n))

@@ -106,11 +106,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      variable and dense layouts, the dense one also against the flash
      kernel; a custom layout whose first query block sees nothing, whose
      rows must give o = 0 and lse = +1e30; blocks 16/32/64/128, D 64/128,
-     fp32/fp16/bf16, S 128-4096, so every route: wgmma for the forward and
-     dq at blocks 64/128 and for dk/dv at every block (grouped units at
-     16/32), mma.sync for the forward and dq at 16/32, FMA at fp32, each
-     case printing each kernel's route; q/k/v as views of a [B, S, 3E]
-     projection), each by max abs error and max abs error over max |ref|,
+     fp32/fp16/bf16, S 128-4096, so every route: wgmma for all three
+     kernels at every block (paired 64-row units at 64/128, grouped units
+     of query blocks for the forward and dq and of key blocks for dk/dv at
+     16/32), FMA at fp32, each case printing each kernel's route; q/k/v as
+     views of a [B, S, 3E] projection), each by max abs error and max abs
+     error over max |ref|,
      o/lse and dq/dk/dv repeating bit for bit over two calls;
      each kernel timed at the GPT-2 shape (B2 S4096 H16 D64 bf16, fixed
      unidirectional, block 64) and the BERT shape (B16 S512 H16 D64 bf16,
@@ -184,8 +185,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      generate B8 128 + 64 with 64.
   8  (last, after 20) one JSON line of per-kernel numbers, every kernel and
      mode with its launches on the path that ported it (the block-sparse
-     kernels: phase 11's, and dk/dv at blocks 16/32 at BERT's shape with
-     phase 12's; fused AdamW: phase 6's; fused LAMB: phase 15's;
+     kernels: phase 11's, and the three at blocks 16/32 at BERT's shape
+     with phase 12's; fused AdamW: phase 6's; fused LAMB: phase 15's;
      the threefry dropout: phase 17's; uniform_rows: phase 20's bf16
      serving), then the last line {"ok": true, "device": {...}} with
      "count": 1, the cards the run used.
@@ -695,13 +696,12 @@ def bs_errors(q, k, v, do, lists, causal):
     return out, scaled, o, int(poison.sum())
 
 
-def bs_route(q, blk, which):
-    """The kernel ``which`` takes at this shape: "wgmma" (the TMA + wgmma
-    kernel; dk/dv's grouped units at blocks of 16 and 32), "mma.sync"
-    (bf16/fp16 forward and dq at 16 and 32) or "FMA" (fp32)."""
-    if bsa.wgmma_route(q, blk, which):
+def bs_route(q, blk):
+    """The kernels a shape takes: "wgmma" (the TMA + wgmma kernels;
+    "grouped units" at blocks of 16 and 32) or "FMA" (fp32)."""
+    if bsa.wgmma_route(q):
         return "wgmma (grouped units)" if blk < 64 else "wgmma"
-    return "FMA" if q.dtype == torch.float32 else "mma.sync"
+    return "FMA"
 
 
 def bs_pairs(lists, causal):
@@ -719,6 +719,10 @@ def bs_pairs(lists, causal):
     return below * blk * blk + diag * blk * (blk + 1) // 2
 
 
+# the block-sparse kernels: (kernel, source suffix, pallas_call line of the
+# JAX kernel it replaces, its outputs)
+BS_KERNELS = (("fwd", "fwd", 176, ("o", "lse")), ("dq", "bwd", 208, ("dq",)),
+              ("dkv", "bwd", 226, ("dk", "dv")))
 # per kernel: tensors of q's shape moved (read or written), [B, H, S] f32
 # rows moved, products per computed (query, key) pair
 BS_WORK = {"fwd": (4, 1, 2), "dq": (5, 2, 3), "dkv": (6, 2, 4)}
@@ -2505,7 +2509,7 @@ def main() -> int:
               + "; max abs err / max |ref| " + ", ".join(f"{k} {e:.3e}" for k, e in scaled10.items())
               + f" (tolerance {rel_tol:g}, lse {LSE_REL_TOL:g}); o/lse and dq/dk/dv repeat bit "
               f"for bit; routes " + ", ".join(
-                  f"{w} {bs_route(q, blk, w)}" for w in ("fwd", "dq", "dkv")) + extra)
+                  f"{w} {bs_route(q, blk)}" for w in ("fwd", "dq", "dkv")) + extra)
         check(scaled10["lse"] <= LSE_REL_TOL, f"block-sparse {label}: lse {scaled10['lse']}")
         check(all(e <= rel_tol for k, e in scaled10.items() if k != "lse"),
               f"block-sparse {label}: scaled errors {scaled10} above {rel_tol}")
@@ -2764,20 +2768,18 @@ def main() -> int:
         "bound_ms": bs_times[bs_cases[0][0], which]["bound_ms"],
         "bound_by": bs_times[bs_cases[0][0], which]["bound_by"],
         "library_ms": bs_times[bs_cases[0][0], which]["library_ms"],
-    } for which, src, line, outputs in (("fwd", "fwd", 176, ("o", "lse")),
-                                        ("dq", "bwd", 208, ("dq",)),
-                                        ("dkv", "bwd", 226, ("dk", "dv")))] + [{
-        # dk/dv's grouped units at blocks of 16 and 32, at BERT's shape and
-        # with phase 12's launches
-        "name": "block_sparse_attention_dkv (blocks 16/32)",
+    } for which, src, line, outputs in BS_KERNELS] + [{
+        # the grouped units at blocks of 16 and 32, at BERT's shape and with
+        # phase 12's launches
+        "name": f"block_sparse_attention_{which} (blocks 16/32)",
         "route": "cuda",
-        "source": "deepspeed_tpu_torch/csrc/block_sparse_attention_bwd.cu",
-        "replaces": "deepspeed_tpu/ops/pallas/block_sparse_attention.py:226",
-        "launches": counts12["block_sparse_attention_dkv"],
-        "max_abs_err": max(bs_errs[bs_cases[1][0]][key] for key in ("dk", "dv")),
-        **{f: bs_times[bs_cases[1][0], "dkv"][f]
+        "source": f"deepspeed_tpu_torch/csrc/block_sparse_attention_{src}.cu",
+        "replaces": f"deepspeed_tpu/ops/pallas/block_sparse_attention.py:{line}",
+        "launches": counts12[f"block_sparse_attention_{which}"],
+        "max_abs_err": max(bs_errs[bs_cases[1][0]][key] for key in outputs),
+        **{f: bs_times[bs_cases[1][0], which][f]
            for f in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-    }] + [{
+    } for which, src, line, outputs in BS_KERNELS] + [{
         "name": name,
         "route": "cuda",
         "source": "deepspeed_tpu_torch/csrc/fused_adam.cu",

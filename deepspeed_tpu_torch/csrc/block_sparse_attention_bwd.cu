@@ -21,9 +21,8 @@
 // 0.030 ms their operands take at 3.35 TB/s. At the BERT shape (B16 S512
 // H16, block 16) the bytes bound them (0.025 and 0.030 ms).
 //
-// bf16/fp16 at D 64/128 and blocks of 64/128 (the GPT-2 shape) run the TMA
-// + wgmma kernels (dk/dv at 16/32 too: below), the flash backward's design
-// (flash_attention_bwd.cu) on the host's schedule
+// bf16/fp16 at D 64/128 run the TMA + wgmma kernels at every block, the
+// flash backward's design (flash_attention_bwd.cu) on the host's schedule
 // (ops/block_sparse_attention.py bwd_plan):
 //  - a unit is 64 rows (wgmma's M) of one (head, block): queries for dq,
 //    keys for dk/dv. An item is two units of one (batch, head) whose list
@@ -57,32 +56,33 @@
 // dq without its last product moves its ~217 MB of L2 reads at ~5 TB/s:
 // the loads and the products take turns more than they overlap.
 //
-// dk/dv at blocks of 16 and 32 (BERT's default is 16) runs the same wgmma
-// kernel on grouped units (ops/block_sparse_attention.py dkv_group_plan):
-// up to 64 / blk key blocks (those whose query lists are equal first) fill
-// a 64-row unit, a TMA box a block, and the union of their lists streams 64
-// rows at a time, one box when the blocks are consecutive, under a mask per
-// (key block, query block). BERT's fixed layout at S512 gives a head 8 units of
-// 3 local blocks (one tile each) and 2 of 4 global blocks (8 tiles, shared):
-// 98,304 scored pairs a head against its 90,112. At B16 S512 H16 D64 bf16
-// it takes 0.0677 ms, where the mma.sync dk/dv it replaced took 0.2246
-// (H100 80GB HBM3, 700 W; chip_smoke.py phase 10).
+// At blocks of 16 and 32 (BERT's default is 16) both kernels run on
+// grouped units (ops/block_sparse_attention.py dkv_group_plan): up to 64 /
+// blk blocks (those whose lists are equal first) fill a 64-row unit, a TMA
+// box a block or one 64-row box when they are consecutive, and the union
+// of their lists streams 64 rows at a time under a mask per (unit block,
+// tile block). For dk/dv a unit gathers key blocks: BERT's fixed layout at
+// S512 gives a head 8 units of 3 local blocks (one tile each) and 2 of 4
+// global blocks (8 tiles, shared). For dq (and the forward) a unit gathers
+// query blocks: BERT's 4 blocks of a window list the same 11 key blocks, so
+// a head has 8 full units in 4 items streaming 18 tiles. Both score 98,304
+// pairs a head against the layout's 90,112. At B16 S512 H16 D64 bf16 dk/dv
+// takes ~0.068 ms and dq ~0.054, where the mma.sync kernels they replaced
+// took ~0.225 and ~0.096 (H100 80GB HBM3, 700 W; tools/
+// time_attention_kernels.py). dq's units store their rows by 16-row TMA
+// boxes through shared memory, one query block a warp.
 //
-// dq at blocks of 16 and 32 keeps the mma.sync kernel below: units of R =
-// blk rows, a warp per 16 rows, the streamed K/V double-buffered through
-// cp.async as tiles of R rows, fragments by ldmatrix, m16n8k16 products, ds
-// rounded to the storage dtype and fed to the next product from registers,
-// 4 or 2 units packed into a thread block, each on its own named barrier.
-// fp32 runs dq and dk/dv on the FMA pipes (lane j owns row j of a chunk of
-// min(blk, 32) streamed rows). Which kernel a call takes is a rule per
-// kernel on shapes alone (the wrapper's wgmma_route); a call never falls
-// back from one to another.
+// What holds dq back at the BERT shape (tools/kernel_ablation.py): ~0.039
+// ms without its last product, ~0.052 without the exponentials, ~0.034 for
+// the producer alone: items of ~2.5 steps leave the last dQ product and
+// the per-item loads in the open. fp32 runs dq and dk/dv on the FMA pipes
+// (lane j owns row j of a chunk of min(blk, 32) streamed rows). Which
+// kernel a call takes is a rule on dtype and head dim alone (the wrapper's
+// wgmma_route); a call never falls back from one to another.
 //
 // Not done yet: one shared recompute of s and dp for dq and dk/dv (5
 // products instead of 7: dq would need a deterministic sum across blocks);
-// dq at blocks of 16 and 32 on wgmma (its query lists group as dk/dv's key
-// lists do: BERT's 4 blocks of a window list the same key blocks); delta
-// and lse in log2 units as one prep pass.
+// delta and lse in log2 units as one prep pass.
 
 #include <cuda.h>
 
@@ -94,150 +94,6 @@
 namespace {
 
 using namespace bsparse;
-
-// ---- dq (bf16 / fp16) -----------------------------------------------------
-
-template <typename T, int D, int TW>
-struct DqCfg {
-  static constexpr int R = TW;
-  static constexpr int UW = R / 16;
-  static constexpr int G = UW >= 4 ? 1 : 4 / UW;
-  static constexpr int UT = UW * 32;
-  static constexpr int NT = G * UT;
-  static constexpr int LD = D + 8;
-  static constexpr int USMEM = (2 * R + 4 * TW) * LD;  // Q, dO, two K and two V tiles
-  static constexpr size_t SMEM = (size_t)G * USMEM * sizeof(T);
-};
-
-template <typename T, int D, int TW>
-__global__ void __launch_bounds__(DqCfg<T, D, TW>::NT)
-bs_dq_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-          const T* __restrict__ dout, const float* __restrict__ lse,
-          const float* __restrict__ delta, T* __restrict__ dq, const BsParams p) {
-  using C = DqCfg<T, D, TW>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int unit = threadIdx.x / C::UT;
-  const int ut = threadIdx.x % C::UT, lane = ut & 31, warp = ut >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  Unit U;
-  if (!unit_of((long long)blockIdx.x * C::G + unit, C::R, p, U)) return;
-  T* Qs = reinterpret_cast<T*>(smem_raw) + unit * C::USMEM;
-  T* Os = Qs + C::R * C::LD;      // dO
-  T* Ks = Os + C::R * C::LD;      // two buffers of TW rows
-  T* Vs = Ks + 2 * TW * C::LD;    // two buffers of TW rows
-
-  const int q0 = U.row0;
-  const int* lst = p.idx + ((long long)U.h * p.nblk + U.bi) * p.maxl;
-  const int per = p.blk / TW;
-  const int nt = query_unit_tiles(lst, p.cnt[U.h * p.nblk + U.bi], q0, C::R, p, TW);
-  const T* kb = k + U.b * p.k_sb + U.h * p.k_sh;
-  const T* vb = v + U.b * p.v_sb + U.h * p.v_sh;
-
-  load_rows_async<T, C::R, D, C::LD, C::UT>(Qs, q + U.b * p.q_sb + U.h * p.q_sh, p.q_ss, q0,
-                                             p.S, ut);
-  load_rows_async<T, C::R, D, C::LD, C::UT>(Os, dout + U.b * p.do_sb + U.h * p.do_sh, p.do_ss,
-                                             q0, p.S, ut);
-  if (nt > 0) {
-    const int c = tile_row0(lst, 0, per, p.blk, TW);
-    load_rows_async<T, TW, D, C::LD, C::UT>(Ks, kb, p.k_ss, c, p.S, ut);
-    load_rows_async<T, TW, D, C::LD, C::UT>(Vs, vb, p.v_ss, c, p.S, ut);
-  }
-  cp_async_commit();
-
-  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  const long long rowbase = ((long long)U.b * p.H + U.h) * p.S;
-  const float scale2 = p.scale * kLog2e;
-  float lrow[2], drow[2];  // lse in log2 units, delta
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    lrow[i] = lse[rowbase + row[i]] * kLog2e;
-    drow[i] = delta[rowbase + row[i]];
-  }
-  float dqa[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
-
-  for (int it = 0; it < nt; ++it) {
-    const int buf = it & 1;
-    if (it + 1 < nt) {
-      const int c = tile_row0(lst, it + 1, per, p.blk, TW);
-      load_rows_async<T, TW, D, C::LD, C::UT>(Ks + (buf ^ 1) * TW * C::LD, kb, p.k_ss, c, p.S,
-                                               ut);
-      load_rows_async<T, TW, D, C::LD, C::UT>(Vs + (buf ^ 1) * TW * C::LD, vb, p.v_ss, c, p.S,
-                                               ut);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    unit_sync(unit, C::UT);
-    const T* Kt = Ks + buf * TW * C::LD;
-    const T* Vt = Vs + buf * TW * C::LD;
-    const int c0 = tile_row0(lst, it, per, p.blk, TW);
-
-    // s = q k^T and dp = dO v^T for this warp's 16 rows
-    float s[TW / 8][4], dp[TW / 8][4];
-#pragma unroll
-    for (int n = 0; n < TW / 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
-      uint32_t a[4], ao[4];
-      load_a<T, C::LD>(a, Qs, warp * 16, kk, lane);
-      load_a<T, C::LD>(ao, Os, warp * 16, kk, lane);
-#pragma unroll
-      for (int n = 0; n < TW / 8; n += 2) {
-        uint32_t bk[4], bv[4];
-        load_b_rows<T, C::LD>(bk, Kt, n * 8, kk, lane);
-        load_b_rows<T, C::LD>(bv, Vt, n * 8, kk, lane);
-        mma16816<T>(s[n], a, bk);
-        mma16816<T>(s[n + 1], a, bk + 2);
-        mma16816<T>(dp[n], ao, bv);
-        mma16816<T>(dp[n + 1], ao, bv + 2);
-      }
-    }
-    // ds = p (dp - delta), p = exp(s * scale - lse) (exp2 in log2 units),
-    // 0 where the causal rule masks
-    const bool full = !p.causal || c0 + TW - 1 <= q0 + warp * 16;
-#pragma unroll
-    for (int n = 0; n < TW / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        const int col = c0 + n * 8 + 2 * t + (e & 1);
-        const float pe = full || col <= row[i] ? exp2f(s[n][e] * scale2 - lrow[i]) : 0.f;
-        s[n][e] = pe * (dp[n][e] - drow[i]);
-      }
-    }
-    // dq += dS k
-#pragma unroll
-    for (int kk = 0; kk < TW / 16; ++kk) {
-      uint32_t a[4];
-      a_from_c<T>(a, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int n = 0; n < D / 8; n += 2) {
-        uint32_t bb[4];
-        load_b_cols<T, C::LD>(bb, Kt, kk * 16, n * 8, lane);
-        mma16816<T>(dqa[n], a, bb);
-        mma16816<T>(dqa[n + 1], a, bb + 2);
-      }
-    }
-    unit_sync(unit, C::UT);  // this buffer is consumed before it is refilled
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    T* out = dq + (((long long)U.b * p.S + row[i]) * p.H + U.h) * D + 2 * t;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<uint32_t*>(out + n * 8) =
-          pack2<T>(dqa[n][2 * i] * p.scale, dqa[n][2 * i + 1] * p.scale);
-    }
-  }
-}
 
 // ---- fp32: FMA pipes -------------------------------------------------------
 
@@ -475,8 +331,9 @@ bs_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
 // BLK 64 takes blocks of 64 and 128 (a unit is 64 consecutive keys, a tile
 // 64 consecutive queries: bwd_plan). BLK 16 and 32 take the grouped plan
 // (dkv_group_plan): a unit is up to G = 64 / BLK key blocks (those with
-// equal query lists first), loaded a block a box through the blk-row maps
-// tk / tv; a tile is G query blocks of the union of their lists, one
+// equal query lists first), loaded as load_group does (one 64-row box
+// through tk / tv when consecutive, else a block a box through tkb / tvb);
+// a tile is G query blocks of the union of their lists, one
 // 64-row box through tq / tdo when they are consecutive (BERT's windows and
 // its global list), else a block a box through tqb / tdob, with lse and
 // delta by bulk copies of the same rows. A warp's 16 keys lie in one key
@@ -488,7 +345,8 @@ __global__ void __launch_bounds__(384, 1)
 bs_dkv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
              const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
              const __grid_constant__ CUtensorMap tlse, const __grid_constant__ CUtensorMap tdelta,
-             const __grid_constant__ CUtensorMap tqb, const __grid_constant__ CUtensorMap tdob,
+             const __grid_constant__ CUtensorMap tqb, const __grid_constant__ CUtensorMap tkb,
+             const __grid_constant__ CUtensorMap tvb, const __grid_constant__ CUtensorMap tdob,
              const float* __restrict__ lse, const float* __restrict__ delta,
              const int* __restrict__ plan, int n_pairs, T* __restrict__ dk, T* __restrict__ dv,
              const BsParams p, int n_items) {
@@ -560,42 +418,26 @@ bs_dkv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
         if (lane == 0) {
           mbar_wait(&kv_empty[kb], ((ki / 2) & 1) ^ 1);
           mbar_arrive_tx(&kv_full[kb], 2 * W::PAIR_BYTES);
-          load_group<W::ATOMS, BLK>(Kt, &tk, &kv_full[kb], w);
-          load_group<W::ATOMS, BLK>(Kt + W::PAIR_BYTES, &tv, &kv_full[kb], w);
+          load_group<W::ATOMS, BLK>(Kt, &tk, &tkb, &kv_full[kb], w);
+          load_group<W::ATOMS, BLK>(Kt + W::PAIR_BYTES, &tv, &tvb, &kv_full[kb], w);
         }
         const long long rows = ((long long)w.b * p.H + w.h) * p.S;  // lse / delta row 0
         stream_group<P, STAGES, G>(w, lane, empty, entries, it, [&](int s, const int (&t)[P][G]) {
           mbar_arrive_tx(&full[s], 2 * W::STEP_BYTES + P * 2 * kRows * 4);
           for (int q = 0; q < P; ++q) {
             int qb[G];
-            bool run = true;  // G consecutive query blocks: one 64-row box
-#pragma unroll
-            for (int g = 0; g < G; ++g) {
-              qb[g] = (t[q][g] >= 0 ? t[q][g] : t[q][0]) >> 8;
-              run = run && t[q][g] >= 0 && qb[g] == qb[0] + g;
-            }
-            unsigned char* qd = Qs + (size_t)s * W::STEP_BYTES + q * kRows * 128;
-            unsigned char* od = Os + (size_t)s * W::STEP_BYTES + q * kRows * 128;
+            const bool run = tile_blocks<G>(t[q], qb);
+            load_group_tile<P, W::ATOMS, BLK, G>(Qs + (size_t)s * W::STEP_BYTES, mq, &tqb,
+                                                 &full[s], q, run, qb, w.h, w.b);
+            load_group_tile<P, W::ATOMS, BLK, G>(Os + (size_t)s * W::STEP_BYTES, mdo, &tdob,
+                                                 &full[s], q, run, qb, w.h, w.b);
             float* aux = Aux + s * W::AUX_FLOATS + q * 2 * kRows;
             if (run) {
-#pragma unroll
-              for (int a = 0; a < W::ATOMS; ++a) {
-                tma_load_4d(qd + P * a * kRows * 128, mq, &full[s], a * 64, w.h, qb[0] * BLK, w.b);
-                tma_load_4d(od + P * a * kRows * 128, mdo, &full[s], a * 64, w.h, qb[0] * BLK,
-                            w.b);
-              }
               bulk_load(aux, lse + rows + qb[0] * BLK, kRows * 4, &full[s]);
               bulk_load(aux + kRows, delta + rows + qb[0] * BLK, kRows * 4, &full[s]);
             } else {
 #pragma unroll
               for (int g = 0; g < G; ++g) {
-#pragma unroll
-                for (int a = 0; a < W::ATOMS; ++a) {
-                  tma_load_4d(qd + P * a * kRows * 128 + g * BLK * 128, &tqb, &full[s], a * 64,
-                              w.h, qb[g] * BLK, w.b);
-                  tma_load_4d(od + P * a * kRows * 128 + g * BLK * 128, &tdob, &full[s], a * 64,
-                              w.h, qb[g] * BLK, w.b);
-                }
                 bulk_load(aux + g * BLK, lse + rows + qb[g] * BLK, BLK * 4, &full[s]);
                 bulk_load(aux + kRows + g * BLK, delta + rows + qb[g] * BLK, BLK * 4, &full[s]);
               }
@@ -759,34 +601,51 @@ bs_dkv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
 // loads each item's Q and dO (one 128-row tile of each) into one of two
 // buffers and streams the K/V tiles of its entries, P a step; consumer
 // warpgroup c owns unit c's queries: S = Q K^T and dP = dO V^T from shared
-// memory, dS = P (dP - delta) in registers (selects as dk/dv's), dQ += dS K
-// with dS as the register A operand and K MN-major, left running while the
-// next step's S and dP are issued
-template <typename T, int D>
+// memory, dS = P (dP - delta) in registers (0 where query_masks drops the
+// key), dQ += dS K with dS as the register A operand and K MN-major, left
+// running while the next step's S and dP are issued.
+//
+// BLK 64 takes blocks of 64 and 128 (bwd_plan's paired 64-row units). BLK
+// 16 and 32 take the query side's grouped plan, which the forward walks
+// too (dkv_group_plan(..., "dq")): a unit is up to G = 64 / BLK query
+// blocks, Q and dO loaded by load_group (BERT's 4 blocks of a window as
+// one 64-row box through tq / tdo, others a block a box through tqb /
+// tdob); a tile is G key blocks, one 64-row box through tk / tv when they
+// are consecutive, else a block a box through tkb / tvb; lse and delta of
+// a warp's rows come from global memory, as at 64/128. A warp's 16 queries
+// lie in one query block (the bit of a tile entry's masks it reads); a
+// padding warp stores nothing
+template <typename T, int D, int BLK>
 __global__ void __launch_bounds__(384, 1)
 bs_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
             const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
-            const float* __restrict__ lse, const float* __restrict__ delta,
-            const int* __restrict__ plan, int n_pairs, T* __restrict__ dq, const BsParams p,
-            int n_items) {
+            const __grid_constant__ CUtensorMap tqb, const __grid_constant__ CUtensorMap tkb,
+            const __grid_constant__ CUtensorMap tvb, const __grid_constant__ CUtensorMap tdob,
+            const __grid_constant__ CUtensorMap tdq, const float* __restrict__ lse,
+            const float* __restrict__ delta, const int* __restrict__ plan, int n_pairs,
+            T* __restrict__ dq, const BsParams p, int n_items) {
   using W = WgCfg<T, D>;
+  constexpr int G = kRows / BLK;  // query blocks a unit, key blocks a tile (1: blocks 64/128)
   constexpr int TN = W::TN, P = W::P, STAGES = W::STAGES;
+  constexpr int QB = 2;  // buffers of an item's Q and dO
   using namespace hopper;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   unsigned char* QOs = base;                                  // buffer k: Q at 2k, dO at 2k + 1
-  unsigned char* Ks = QOs + 4 * W::PAIR_BYTES;                // stage s at s * STEP_BYTES
+  unsigned char* Ks = QOs + 2 * QB * W::PAIR_BYTES;           // stage s at s * STEP_BYTES
   unsigned char* Vs = Ks + (size_t)STAGES * W::STEP_BYTES;    // V, the same
-  int* entries = reinterpret_cast<int*>(Vs + (size_t)STAGES * W::STEP_BYTES);  // [s][tile]
-  uint64_t* bars = reinterpret_cast<uint64_t*>(entries + STAGES * P + (STAGES * P) % 2);
+  unsigned char* Ds = Vs + (size_t)STAGES * W::STEP_BYTES;    // grouped: dQ staged, c * SUB_BYTES
+  int* entries = reinterpret_cast<int*>(Ds + (G > 1 ? W::PAIR_BYTES : 0));  // [s][tile][G]
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(entries + STAGES * P * G + (STAGES * P * G) % 2);
   uint64_t* q_full = bars;
-  uint64_t* q_empty = bars + 2;
-  uint64_t* full = bars + 4;
-  uint64_t* empty = bars + 4 + STAGES;
+  uint64_t* q_empty = bars + QB;
+  uint64_t* full = bars + 2 * QB;
+  uint64_t* empty = full + STAGES;
 
   if (threadIdx.x == 0) {
-    for (int k = 0; k < 2; ++k) {
+    for (int k = 0; k < QB; ++k) {
       mbar_init(&q_full[k], 1);
       mbar_init(&q_empty[k], 2);
     }
@@ -808,20 +667,42 @@ bs_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
     for (int r = 0, ki = 0; r * (int)gridDim.x < n_items; ++r) {
       const int i = round_item(r, n_items);
       if (i < 0) continue;
-      const Item w = plan_item(i, plan, n_pairs, p);
-      const int qb = ki % 2;
-      if (lane == 0) {
-        mbar_wait(&q_empty[qb], ((ki / 2) & 1) ^ 1);
-        mbar_arrive_tx(&q_full[qb], 2 * W::PAIR_BYTES);
-        unsigned char* Qt = QOs + (size_t)(2 * qb) * W::PAIR_BYTES;
-        load_pair<W::ATOMS>(Qt, &tq, &q_full[qb], w);
-        load_pair<W::ATOMS>(Qt + W::PAIR_BYTES, &tdo, &q_full[qb], w);
+      const int qb = ki % QB;
+      unsigned char* Qt = QOs + (size_t)(2 * qb) * W::PAIR_BYTES;
+      if constexpr (G == 1) {
+        const Item w = plan_item(i, plan, n_pairs, p);
+        if (lane == 0) {
+          mbar_wait(&q_empty[qb], ((ki / QB) & 1) ^ 1);
+          mbar_arrive_tx(&q_full[qb], 2 * W::PAIR_BYTES);
+          load_pair<W::ATOMS>(Qt, &tq, &q_full[qb], w);
+          load_pair<W::ATOMS>(Qt + W::PAIR_BYTES, &tdo, &q_full[qb], w);
+        }
+        stream_steps<P, STAGES>(w, lane, empty, entries, it, [&](int s, const int (&row)[P]) {
+          mbar_arrive_tx(&full[s], 2 * W::STEP_BYTES);
+          load_tiles<P, W::ATOMS>(Ks + (size_t)s * W::STEP_BYTES, mk, &full[s], w, row);
+          load_tiles<P, W::ATOMS>(Vs + (size_t)s * W::STEP_BYTES, mv, &full[s], w, row);
+        });
+      } else {
+        const GroupItem w = group_item<G>(i, plan, n_pairs, p);
+        if (lane == 0) {
+          mbar_wait(&q_empty[qb], ((ki / QB) & 1) ^ 1);
+          mbar_arrive_tx(&q_full[qb], 2 * W::PAIR_BYTES);
+          load_group<W::ATOMS, BLK>(Qt, &tq, &tqb, &q_full[qb], w);
+          load_group<W::ATOMS, BLK>(Qt + W::PAIR_BYTES, &tdo, &tdob, &q_full[qb], w);
+        }
+        stream_group<P, STAGES, G>(w, lane, empty, entries, it, [&](int s, const int (&t)[P][G]) {
+          mbar_arrive_tx(&full[s], 2 * W::STEP_BYTES);
+#pragma unroll
+          for (int q = 0; q < P; ++q) {
+            int kb[G];
+            const bool run = tile_blocks<G>(t[q], kb);
+            load_group_tile<P, W::ATOMS, BLK, G>(Ks + (size_t)s * W::STEP_BYTES, mk, &tkb,
+                                                 &full[s], q, run, kb, w.h, w.b);
+            load_group_tile<P, W::ATOMS, BLK, G>(Vs + (size_t)s * W::STEP_BYTES, mv, &tvb,
+                                                 &full[s], q, run, kb, w.h, w.b);
+          }
+        });
       }
-      stream_steps<P, STAGES>(w, lane, empty, entries, it, [&](int s, const int (&row)[P]) {
-        mbar_arrive_tx(&full[s], 2 * W::STEP_BYTES);
-        load_tiles<P, W::ATOMS>(Ks + (size_t)s * W::STEP_BYTES, mk, &full[s], w, row);
-        load_tiles<P, W::ATOMS>(Vs + (size_t)s * W::STEP_BYTES, mv, &full[s], w, row);
-      });
       ++ki;
     }
     return;
@@ -842,32 +723,49 @@ bs_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
   for (int r = 0, ki = 0; r * (int)gridDim.x < n_items; ++r) {
     const int i = round_item(r, n_items);
     if (i < 0) continue;
-    const Item w = plan_item(i, plan, n_pairs, p);
-    const int mine0 = cw ? w.r0[1] : w.r0[0];
-    const bool owned = mine0 >= 0;
-    const int rw0 = (owned ? mine0 : w.r0[0]) + warp * 16;  // this warp's first query
+    // the item's batch row, head and tile count; this warp's first query,
+    // whether its 16 queries are real rows of this warpgroup's unit, and
+    // the bit of its query block in a tile entry's masks
+    int ib, ih, n_tiles, rw0, kbit = cw;
+    bool owned;
+    if constexpr (G == 1) {
+      const Item w = plan_item(i, plan, n_pairs, p);
+      const int mine0 = cw ? w.r0[1] : w.r0[0];
+      owned = mine0 >= 0;
+      rw0 = (owned ? mine0 : w.r0[0]) + warp * 16;
+      ib = w.b, ih = w.h, n_tiles = w.n;
+    } else {
+      const GroupItem w = group_item<G>(i, plan, n_pairs, p);
+      const int slot = warp * 16 / BLK;
+      const int qblk = __ldg(w.keys + cw * G + slot);
+      owned = qblk >= 0;
+      rw0 = owned ? qblk * BLK + (warp * 16) % BLK : 0;
+      kbit = 4 * cw + slot;
+      ib = w.b, ih = w.h, n_tiles = w.n;
+    }
     const int row[2] = {rw0 + (lane >> 2), rw0 + (lane >> 2) + 8};
-    const int qb = ki % 2;
+    const int qb = ki % QB;
     const uint32_t q_addr = smem_addr(QOs) + (2 * qb) * W::PAIR_BYTES + cw * kRows * 128;
     const uint32_t do_addr = q_addr + W::PAIR_BYTES;
-    const long long rowbase = ((long long)w.b * p.H + w.h) * p.S;
+    const long long rowbase = ((long long)ib * p.H + ih) * p.S;
     float lrow[2], drow[2];  // lse in log2 units, delta
 #pragma unroll
     for (int i2 = 0; i2 < 2; ++i2) {
       lrow[i2] = __ldg(lse + rowbase + row[i2]) * kLog2e;
       drow[i2] = __ldg(delta + rowbase + row[i2]);
     }
-    const int nsteps = (w.n + P - 1) / P;
+    const int nsteps = (n_tiles + P - 1) / P;
 #pragma unroll
     for (int k = 0; k < D / 2; ++k) dqa[k] = 0.f;
-    mbar_wait(&q_full[qb], (ki / 2) & 1);
+    mbar_wait(&q_full[qb], (ki / QB) & 1);
 
     int prev = 0;  // the stage of the previous step
     for (int u = 0; u < nsteps; ++u, ++it) {
       const int st = it % STAGES;
       mbar_wait(&full[st], (it / STAGES) & 1);
-      int c0[P], hi[P][2];
-      const bool whole = query_limits<P>(entries + st * P, cw, causal, row, rw0, c0, hi);
+      int koff[P][G], hi[2];
+      const bool whole =
+          query_masks<P, G, BLK>(entries + st * P * G, kbit, owned, causal, row, rw0, koff, hi);
       const uint32_t k_addr = smem_addr(Ks) + st * W::STEP_BYTES;
       const uint32_t v_addr = smem_addr(Vs) + st * W::STEP_BYTES;
 
@@ -886,23 +784,14 @@ bs_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
       wgmma_wait<1>();
       fence_regs(s);
 
-      // P = exp2(S scale2 - lse2), then 0 where hi masks (selects; a step
-      // with nothing masked skips them)
+      // P = exp2(S scale2 - lse2), then 0 where the masks drop the key
+      // (selects; a step with nothing masked skips them)
 #pragma unroll
       for (int n = 0; n < TN / 8; ++n) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[4 * n + e] = ex2(fmaf(s[4 * n + e], scale2, -lrow[e >> 1]));
       }
-      if (!whole) {
-#pragma unroll
-        for (int n = 0; n < TN / 8; ++n) {
-          const int q = n / (kRows / 8);
-          const int col = c0[q] + (n % (kRows / 8)) * 8 + 2 * t;
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            s[4 * n + e] = col + (e & 1) <= hi[q][e >> 1] ? s[4 * n + e] : 0.f;
-        }
-      }
+      if (!whole) mask_keys<TN, G>(s, koff, hi, t, 0.f);
       wgmma_wait<0>();
       fence_regs(dp);
 #pragma unroll
@@ -927,9 +816,17 @@ bs_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
       if (nsteps > 0) mbar_arrive(&empty[prev]);
       mbar_arrive(&q_empty[qb]);  // Q and dO's last reads are done
     }
-    if (owned) store_rows<T, D>(dq, dqa, {p.scale, p.scale}, p, w.b, w.h, rw0, lane);
+    if constexpr (G > 1) {
+      // a warp's 16 rows (one query block's) by a 16-row TMA box
+      if (owned)
+        store_warp_rows<T, D>(&tdq, Ds + cw * W::SUB_BYTES, dqa, {p.scale, p.scale}, warp, lane,
+                              ih, rw0, ib);
+    } else if (owned) {
+      store_rows<T, D>(dq, dqa, {p.scale, p.scale}, p, ib, ih, rw0, lane);
+    }
     ++ki;
   }
+  if (G > 1 && lane == 0) bulk_wait();  // the last stores are done before the block exits
 }
 
 // ---- launches ---------------------------------------------------------------
@@ -939,18 +836,6 @@ struct Ptrs {
   const float *lse, *delta;
   void *dq, *dk, *dv;
 };
-
-template <typename T, int D, int TW>
-cudaError_t launch_dq_mma(const Ptrs& a, const BsParams& p, cudaStream_t s) {
-  using C = DqCfg<T, D, TW>;
-  auto kern = bs_dq_mma<T, D, TW>;
-  cudaError_t err = allow_smem(kern, C::SMEM);
-  if (err != cudaSuccess) return err;
-  kern<<<(unsigned)((units(p, C::R) + C::G - 1) / C::G), C::NT, C::SMEM, s>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(a.dq), p);
-  return cudaGetLastError();
-}
 
 template <int D, int NK>
 cudaError_t launch_dq_f32(const Ptrs& a, const BsParams& p, cudaStream_t s) {
@@ -989,23 +874,30 @@ inline bool make_rows_map(CUtensorMap* map, const float* ptr, const BsParams& p)
                              CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
-// q, k, v, dO through TMA maps of 64-row boxes (dk/dv at blocks of 16 and
-// 32: K, V in boxes of a block's rows, Q and dO in both); which = 0: dq, 1:
-// dk/dv over n_pairs headers of its plan
+// q, k, v, dO through TMA maps of 64-row boxes (tq, tk, tv, tdo) and, at
+// blocks of 16 and 32, of a block's rows (tqb, tkb, tvb, tdob): which = 0:
+// dq, 1: dk/dv, over n_pairs headers of its plan
 template <typename T, int D>
 cudaError_t launch_wgmma(int which, const Ptrs& a, const BsParams& p, const int* plan,
                          int n_pairs, cudaStream_t s) {
   constexpr bool half = std::is_same<T, __half>::value;
   using hopper::make_map;
-  const bool grouped = which && p.blk < kRows;
+  if (plan == nullptr) return cudaErrorInvalidValue;
+  const bool grouped = p.blk < kRows;
   // a map's box may not exceed its tensor: below 64 rows only a block's boxes
   const int wide = p.S >= kRows ? kRows : p.blk;
-  const int kv_rows = grouped ? p.blk : kRows;
   CUtensorMap tq, tk, tv, tdo;
   if (!make_map(&tq, half, a.q, p.B, p.S, p.H, D, p.q_sb, p.q_ss, p.q_sh, wide) ||
-      !make_map(&tk, half, a.k, p.B, p.S, p.H, D, p.k_sb, p.k_ss, p.k_sh, kv_rows) ||
-      !make_map(&tv, half, a.v, p.B, p.S, p.H, D, p.v_sb, p.v_ss, p.v_sh, kv_rows) ||
+      !make_map(&tk, half, a.k, p.B, p.S, p.H, D, p.k_sb, p.k_ss, p.k_sh, wide) ||
+      !make_map(&tv, half, a.v, p.B, p.S, p.H, D, p.v_sb, p.v_ss, p.v_sh, wide) ||
       !make_map(&tdo, half, a.dout, p.B, p.S, p.H, D, p.do_sb, p.do_ss, p.do_sh, wide))
+    return cudaErrorInvalidValue;
+  CUtensorMap tqb = tq, tkb = tk, tvb = tv, tdob = tdo;
+  if (grouped &&
+      (!make_map(&tqb, half, a.q, p.B, p.S, p.H, D, p.q_sb, p.q_ss, p.q_sh, p.blk) ||
+       !make_map(&tkb, half, a.k, p.B, p.S, p.H, D, p.k_sb, p.k_ss, p.k_sh, p.blk) ||
+       !make_map(&tvb, half, a.v, p.B, p.S, p.H, D, p.v_sb, p.v_ss, p.v_sh, p.blk) ||
+       !make_map(&tdob, half, a.dout, p.B, p.S, p.H, D, p.do_sb, p.do_ss, p.do_sh, p.blk)))
     return cudaErrorInvalidValue;
   const int per_head = p.H * ((p.nblk * (p.blk / kRows) + 1) / 2);  // the 64/128 plan's
   if (!grouped && n_pairs != per_head) return cudaErrorInvalidValue;
@@ -1015,19 +907,15 @@ cudaError_t launch_wgmma(int which, const Ptrs& a, const BsParams& p, const int*
   using W = WgCfg<T, D>;
   cudaError_t err;
   if (which) {
-    CUtensorMap tlse{}, tdelta{}, tqb = tq, tdob = tdo;
-    if (grouped) {
-      if (!make_map(&tqb, half, a.q, p.B, p.S, p.H, D, p.q_sb, p.q_ss, p.q_sh, p.blk) ||
-          !make_map(&tdob, half, a.dout, p.B, p.S, p.H, D, p.do_sb, p.do_ss, p.do_sh, p.blk))
-        return cudaErrorInvalidValue;
-    } else if (!make_rows_map(&tlse, a.lse, p) || !make_rows_map(&tdelta, a.delta, p)) {
+    CUtensorMap tlse{}, tdelta{};
+    if (!grouped && (!make_rows_map(&tlse, a.lse, p) || !make_rows_map(&tdelta, a.delta, p)))
       return cudaErrorInvalidValue;
-    }
     auto go = [&](auto kern, int G) {
       if ((err = allow_smem(kern, W::smem(true, G))) != cudaSuccess) return err;
-      kern<<<grid, W::NT, W::smem(true, G), s>>>(tq, tk, tv, tdo, tlse, tdelta, tqb, tdob, a.lse,
-                                                 a.delta, plan, n_pairs, static_cast<T*>(a.dk),
-                                                 static_cast<T*>(a.dv), p, n_items);
+      kern<<<grid, W::NT, W::smem(true, G), s>>>(tq, tk, tv, tdo, tlse, tdelta, tqb, tkb, tvb,
+                                                 tdob, a.lse, a.delta, plan, n_pairs,
+                                                 static_cast<T*>(a.dk), static_cast<T*>(a.dv), p,
+                                                 n_items);
       return cudaGetLastError();
     };
     switch (p.blk) {
@@ -1036,26 +924,29 @@ cudaError_t launch_wgmma(int which, const Ptrs& a, const BsParams& p, const int*
       default: return go(bs_dkv_wgmma<T, D, 64>, 1);
     }
   }
-  auto kern = bs_dq_wgmma<T, D>;
-  if ((err = allow_smem(kern, W::smem(false))) != cudaSuccess) return err;
-  kern<<<grid, W::NT, W::smem(false), s>>>(tq, tk, tv, tdo, a.lse, a.delta, plan, n_pairs,
-                                           static_cast<T*>(a.dq), p, n_items);
-  return cudaGetLastError();
+  // dq through 16-row boxes (a warp's rows) on the grouped plan
+  CUtensorMap tdq = tq;
+  const long long dq_ss = (long long)p.H * D;
+  if (grouped && !make_map(&tdq, half, a.dq, p.B, p.S, p.H, D, p.S * dq_ss, dq_ss, D, 16))
+    return cudaErrorInvalidValue;
+  auto go = [&](auto kern, auto g) {
+    constexpr int G = decltype(g)::value;
+    // the grouped kernel stages its dQ rows in shared memory for TMA stores
+    constexpr size_t smem = W::smem(false, G) + (G > 1 ? W::PAIR_BYTES : 0);
+    if ((err = allow_smem(kern, smem)) != cudaSuccess) return err;
+    kern<<<grid, W::NT, smem, s>>>(tq, tk, tv, tdo, tqb, tkb, tvb, tdob, tdq, a.lse, a.delta,
+                                   plan, n_pairs, static_cast<T*>(a.dq), p, n_items);
+    return cudaGetLastError();
+  };
+  switch (p.blk) {
+    case 16: return go(bs_dq_wgmma<T, D, 16>, std::integral_constant<int, 4>());
+    case 32: return go(bs_dq_wgmma<T, D, 32>, std::integral_constant<int, 2>());
+    default: return go(bs_dq_wgmma<T, D, 64>, std::integral_constant<int, 1>());
+  }
 }
 
-// the kernel a shape takes (the wrapper's wgmma_route): at bf16/fp16 dk/dv
-// the TMA + wgmma kernel at every block (a plan required), dq the wgmma
-// kernel at blocks of 64 and 128 and the mma.sync kernel at 16 and 32; fp32
-// the FMA kernels
-template <typename T, int D>
-cudaError_t by_block(int which, const Ptrs& a, const BsParams& p, const int* plan, int n_pairs,
-                     cudaStream_t s) {
-  if (!which && p.blk == 16) return launch_dq_mma<T, D, 16>(a, p, s);
-  if (!which && p.blk == 32) return launch_dq_mma<T, D, 32>(a, p, s);
-  if (plan == nullptr) return cudaErrorInvalidValue;
-  return launch_wgmma<T, D>(which, a, p, plan, n_pairs, s);
-}
-
+// the kernel a shape takes (the wrapper's wgmma_route): bf16/fp16 the TMA +
+// wgmma kernels at every block (a plan required), fp32 the FMA kernels
 template <int D>
 cudaError_t dispatch_dtype(int which, int dtype, const Ptrs& a, const BsParams& p,
                            const int* plan, int n_pairs, cudaStream_t s) {
@@ -1063,8 +954,8 @@ cudaError_t dispatch_dtype(int which, int dtype, const Ptrs& a, const BsParams& 
     case 0:
       if (p.blk == 16) return which ? launch_dkv_f32<D, 16>(a, p, s) : launch_dq_f32<D, 16>(a, p, s);
       return which ? launch_dkv_f32<D, 32>(a, p, s) : launch_dq_f32<D, 32>(a, p, s);
-    case 1: return by_block<__half, D>(which, a, p, plan, n_pairs, s);
-    case 2: return by_block<__nv_bfloat16, D>(which, a, p, plan, n_pairs, s);
+    case 1: return launch_wgmma<__half, D>(which, a, p, plan, n_pairs, s);
+    case 2: return launch_wgmma<__nv_bfloat16, D>(which, a, p, plan, n_pairs, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1103,24 +994,26 @@ int run(int which, const Ptrs& a, int B, int S, int H, int D, int blk, int maxl,
 // 2^40 bytes); lse and delta [B, H, S] f32 contiguous; dq, dk, dv [B, S, H,
 // D] contiguous. The lists: kidx [H, S/blk, maxK] / kcnt for dq, qidx [H,
 // S/blk, maxQ] / qcnt for dk/dv, int32. plan: the wgmma route's schedule
-// (int32; null on the other routes): at blocks of 64 and 128 H * ceil(S /
-// 128) headers (unit, unit or -1, offset, tile count), heaviest first, then
-// the tile entries (see plan_item); dk/dv's at blocks of 16 and 32 its
-// n_pairs headers of grouped units, then their tiles (see group_item). Each
-// returns the CUDA error of its launch (0 on success), cudaErrorInvalidValue
-// for shapes the kernels do not take. Asynchronous on `stream`.
+// (int32; null on the fp32 route) of n_pairs headers: at blocks of 64 and
+// 128 H * ceil(S / 128) headers (unit, unit or -1, offset, tile count),
+// heaviest first, then the tile entries (see plan_item); at blocks of 16
+// and 32 the grouped plan of that side (dq's query units, dk/dv's key
+// units), its headers, then their tiles (see group_item). Each returns the
+// CUDA error of its launch (0 on success), cudaErrorInvalidValue for shapes
+// the kernels do not take. Asynchronous on `stream`.
 extern "C" int block_sparse_attention_dq_launch(
     const void* q, const void* k, const void* v, const void* dout, const void* lse,
-    const void* delta, void* dq, const void* kidx, const void* kcnt, const void* plan, int B,
-    int S, int H, int D, int blk, int maxK, long long q_sb, long long q_ss, long long q_sh,
+    const void* delta, void* dq, const void* kidx, const void* kcnt, const void* plan,
+    int n_pairs, int B, int S, int H, int D, int blk, int maxK, long long q_sb, long long q_ss,
+    long long q_sh,
     long long k_sb, long long k_ss, long long k_sh, long long v_sb, long long v_ss,
     long long v_sh, long long do_sb, long long do_ss, long long do_sh, int causal,
     float sm_scale, int dtype, void* stream) {
   Ptrs a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
          dq, nullptr, nullptr};
   return run(0, a, B, S, H, D, blk, maxK, static_cast<const int*>(kidx),
-             static_cast<const int*>(kcnt), static_cast<const int*>(plan),
-             H * ((S / blk * (blk / kRows) + 1) / 2), q_sb, q_ss, q_sh,
+             static_cast<const int*>(kcnt), static_cast<const int*>(plan), n_pairs, q_sb, q_ss,
+             q_sh,
              k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss, do_sh, causal, sm_scale, dtype,
              stream);
 }

@@ -1,7 +1,8 @@
 // Shared pieces of the block-sparse attention kernels
 // (block_sparse_attention_fwd.cu, block_sparse_attention_bwd.cu) for
-// Hopper (sm_90a). The mma.sync fragments, ldmatrix loads, cp.async copies
-// and the exp2 softmax helpers come from flash_attention_common.cuh.
+// Hopper (sm_90a). The row loads, packing and exp2 softmax helpers come
+// from flash_attention_common.cuh, the TMA, mbarrier and wgmma wrappers
+// from hopper.cuh.
 //
 // Layout: q/k/v/dO [B, S, H, D] with explicit batch / sequence / head
 // strides in elements and a contiguous last dim; o, dq, dk, dv [B, S, H, D]
@@ -11,21 +12,20 @@
 // (the key blocks of each query block), dk/dv gets qidx (the query blocks
 // of each key block).
 //
-// Work is cut into units: R consecutive rows (queries, or keys for dk/dv)
-// of one block of one (batch, head), R = min(blk, 64) (fp32: min(blk, 32)).
-// A unit walks its list row as tiles of TW = R rows of the other operand
-// (a block of 128 is two tiles), streamed through shared memory. A thread
-// block holds G units so that it has at least 4 warps (blocks of 16 and 32
-// would otherwise make thin blocks of 1-2 warps); the units of a block are
-// independent and synchronise on their own named barriers.
+// The fp32 kernels cut work into units: R = min(blk, 32) consecutive rows
+// (queries, or keys for dk/dv) of one block of one (batch, head). A unit
+// walks its list row as tiles of R rows of the other operand, streamed
+// through shared memory. A thread block holds G units so that it has 4
+// warps; the units of a block are independent and synchronise on their own
+// named barriers.
 //
-// The TMA + wgmma kernels (bf16/fp16, D 64/128: the forward and dq at
-// blocks of 64 and 128, dk/dv at every block; the forward in
-// block_sparse_attention_fwd.cu, dq and dk/dv in
+// The TMA + wgmma kernels (bf16/fp16, D 64/128, every block; the forward
+// in block_sparse_attention_fwd.cu, dq and dk/dv in
 // block_sparse_attention_bwd.cu) walk a host-built schedule of paired
 // 64-row units instead; its decoding, the producer's loads and the
-// query-major masks are at the end of this file, then dk/dv's grouped
-// units at blocks of 16 and 32.
+// query-side masks are at the end of this file, then the grouped units of
+// blocks of 16 and 32 (key blocks for dk/dv, query blocks for the forward
+// and dq).
 
 #pragma once
 
@@ -227,27 +227,52 @@ __device__ __forceinline__ void stream_steps(const Item& w, int lane, uint64_t* 
   }
 }
 
-// the forward's and dq's mask of one step for consumer warpgroup cw (its
-// unit's queries; rw0 the warp's first row, row[i] the thread's two):
-// tile q (first key c0[q]) keeps key col for row i iff col <= hi[q][i],
-// which is the row under the causal rule, every key of a tile the unit
-// walks otherwise, none of a tile it does not walk. → whether the warp's
-// rows keep every key of the step (warp-uniform: the masks can be skipped)
-template <int P>
-__device__ __forceinline__ bool query_limits(const int* entries, int cw, bool causal,
-                                             const int (&row)[2], int rw0, int (&c0)[P],
-                                             int (&hi)[P][2]) {
-  bool whole = true;
+// the forward's and dq's mask of one step for a consumer warp whose 16
+// queries (rw0 the first, row[i] the thread's two) are real rows when
+// `owned` and lie in one slot of its unit (kbit: the slot's bit in a tile
+// entry's masks; cw at G 1). A tile holds G slots of 64 / G keys (G = 64 /
+// BLK on the grouped plan, 1 at blocks of 64 and 128); column ql of tile
+// q's slot g is key koff[q][g] + ql, kept for row i iff it is <= hi[i]:
+// the row under the causal rule, every key otherwise, none on a padding
+// warp; a slot the warp's block does not list (a tile its unit does not
+// walk, a padding slot) has a koff past every hi. Entries are G ints a
+// tile: a 64-row tile's first row * 4 + a bit a unit (G 1), or block * 256
+// + a bit a unit block, -1 past the tile's last block. → whether the warp
+// keeps every key of the step (warp-uniform: the masks can be skipped)
+template <int P, int G, int BLK>
+__device__ __forceinline__ bool query_masks(const int* entries, int kbit, bool owned,
+                                            bool causal, const int (&row)[2], int rw0,
+                                            int (&koff)[P][G], int (&hi)[2]) {
+  constexpr int SLOT = kRows / G;
+  bool whole = owned;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) hi[i] = !owned ? -1 : causal ? row[i] : INT_MAX / 4;
 #pragma unroll
   for (int q = 0; q < P; ++q) {
-    const int e = entries[q];
-    const bool mine = (e >> cw) & 1;
-    c0[q] = e >> 2;
 #pragma unroll
-    for (int i = 0; i < 2; ++i) hi[q][i] = !mine ? -1 : causal ? row[i] : INT_MAX;
-    whole = whole && mine && (!causal || c0[q] + kRows - 1 <= rw0);
+    for (int g = 0; g < G; ++g) {
+      const int e = entries[q * G + g];
+      const bool on = e >= 0 && ((e >> kbit) & 1);
+      const int c0 = G == 1 ? e >> 2 : (e >> 8) * BLK;
+      koff[q][g] = on ? c0 - g * SLOT : INT_MAX / 2;
+      whole = whole && on && (!causal || c0 + SLOT - 1 <= rw0);
+    }
   }
   return whole;
+}
+
+// a step's scores or probabilities s (TN keys, P = TN / 64 tiles) set to
+// `fill` where query_masks' limits drop the key
+template <int TN, int G>
+__device__ __forceinline__ void mask_keys(float (&s)[TN / 2], const int (&koff)[TN / kRows][G],
+                                          const int (&hi)[2], int t, float fill) {
+#pragma unroll
+  for (int n = 0; n < TN / 8; ++n) {
+    const int ql = (n % (kRows / 8)) * 8;
+    const int key = koff[n / (kRows / 8)][ql / (kRows / G)] + ql + 2 * t;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[4 * n + e] = key + (e & 1) <= hi[e >> 1] ? s[4 * n + e] : fill;
+  }
 }
 
 // one unit's 64 x D accumulator rows r0.. to [B, S, H, D] contiguous, the
@@ -268,14 +293,48 @@ __device__ __forceinline__ void store_rows(T* out, const float (&acc)[D / 2],
   }
 }
 
-// ---- dk/dv at blocks of 16 and 32: grouped units ----------------------------
+// a warp's 16 accumulator rows (the thread's rows g times mul[0] and g + 8
+// times mul[1]) to global memory: into its rows of a unit's 64-row staging
+// tile ot in shared memory (the 128-byte swizzle: a quad's 4-byte writes
+// of 8 rows hit distinct banks), then out by one 16-row TMA box a column
+// atom through `map`, rows row0.., issued by the warp's first lane, which
+// first waits for its previous stores to have read the tile
+template <typename T, int D>
+__device__ __forceinline__ void store_warp_rows(const CUtensorMap* map, unsigned char* ot,
+                                                const float (&acc)[D / 2], const float (&mul)[2],
+                                                int warp, int lane, int h, int row0, int b) {
+  const int t = lane & 3;
+  if (lane == 0) hopper::bulk_wait_read();
+  __syncwarp();
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int rl = warp * 16 + (lane >> 2) + 8 * hr;  // row within the unit
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(ot + (n / 8) * kRows * 128 + rl * 128 +
+                                   (((n % 8) ^ (rl & 7)) << 4) + 4 * t) =
+          pack2<T>(acc[4 * n + 2 * hr] * mul[hr], acc[4 * n + 2 * hr + 1] * mul[hr]);
+  }
+  hopper::fence_async_smem();
+  __syncwarp();
+  if (lane == 0) {
+#pragma unroll
+    for (int a = 0; a < D / 64; ++a)
+      hopper::tma_store_4d(map, ot + a * kRows * 128 + warp * 16 * 128, a * 64, h, row0, b);
+    hopper::bulk_commit();
+  }
+}
+
+// ---- blocks of 16 and 32: grouped units -----------------------------------
 
 // an item of the grouped plan (ops/block_sparse_attention.py
-// dkv_group_plan): two units of one (batch, head), each up to G = 64 / blk
-// key blocks, and the n tiles they walk, each G query blocks. keys: unit
-// 0's G key blocks, then unit 1's (-1 past a unit's last, all -1 when there
-// is no unit 1); a tile: G ints, block * 256 + m1 * 16 + m0, -1 past its
-// last block, bit j of m_c set when key block j of unit c lists it
+// dkv_group_plan; dk/dv's, or the query side's that the forward and dq
+// walk): two units of one (batch, head), each up to G = 64 / blk blocks
+// (key blocks for dk/dv, query blocks for the forward and dq), and the n
+// tiles they walk, each G blocks of the other side. keys: unit 0's G
+// blocks, then unit 1's (-1 past a unit's last, all -1 when there is no
+// unit 1); a tile: G ints, block * 256 + m1 * 16 + m0, -1 past its last
+// block, bit j of m_c set when block j of unit c lists it
 struct GroupItem {
   int b, h, n;
   const int* keys;
@@ -298,28 +357,44 @@ __device__ __forceinline__ GroupItem group_item(int i, const int* __restrict__ p
   return w;
 }
 
-// the producer's load of an item's two units of one operand (K or V) by
-// TMA, one box of blk rows a key block, through a map of blk-row boxes: a
-// unit's 64 rows in each column atom as load_pair lays them (atom a of unit
-// c at (2a + c) * 64 rows * 128 B), block slot j at j * blk rows. A padding
+// the producer's load of an item's two units of one operand (K or V for
+// dk/dv, Q or dO for the forward and dq) by TMA: a unit whose G blocks are
+// consecutive as one 64-row box a column atom through `wide` (BERT's query
+// units), any other one box of blk rows a block through `narrow`. A unit's
+// 64 rows lie in each column atom as load_pair lays them (atom a of unit c
+// at (2a + c) * 64 rows * 128 B), block slot j at j * blk rows. A padding
 // slot repeats the unit's first block and a missing unit 1 takes unit 0's
 // blocks, so every row holds finite data (masked in the products)
 template <int ATOMS, int BLK>
-__device__ __forceinline__ void load_group(unsigned char* dst, const CUtensorMap* map,
-                                           uint64_t* bar, const GroupItem& w) {
+__device__ __forceinline__ void load_group(unsigned char* dst, const CUtensorMap* wide,
+                                           const CUtensorMap* narrow, uint64_t* bar,
+                                           const GroupItem& w) {
   constexpr int G = kRows / BLK;
 #pragma unroll
-  for (int c = 0; c < 2; ++c)
+  for (int c = 0; c < 2; ++c) {
+    int blk[G];
+    bool run = true;
 #pragma unroll
     for (int j = 0; j < G; ++j) {
-      int kb = __ldg(w.keys + c * G + j);
-      if (kb < 0) kb = __ldg(w.keys + c * G);
-      if (kb < 0) kb = __ldg(w.keys);
+      blk[j] = __ldg(w.keys + c * G + j);
+      run = run && blk[j] >= 0 && (j == 0 || blk[j] == blk[0] + j);
+      if (blk[j] < 0) blk[j] = __ldg(w.keys + c * G);
+      if (blk[j] < 0) blk[j] = __ldg(w.keys);
+    }
+    unsigned char* d = dst + c * kRows * 128;
+    if (run) {
 #pragma unroll
       for (int a = 0; a < ATOMS; ++a)
-        hopper::tma_load_4d(dst + (2 * a + c) * kRows * 128 + j * BLK * 128, map, bar, a * 64,
-                            w.h, kb * BLK, w.b);
+        hopper::tma_load_4d(d + 2 * a * kRows * 128, wide, bar, a * 64, w.h, blk[0] * BLK, w.b);
+    } else {
+#pragma unroll
+      for (int j = 0; j < G; ++j)
+#pragma unroll
+        for (int a = 0; a < ATOMS; ++a)
+          hopper::tma_load_4d(d + 2 * a * kRows * 128 + j * BLK * 128, narrow, bar, a * 64, w.h,
+                              blk[j] * BLK, w.b);
     }
+  }
 }
 
 // the producer warp's walk over a grouped item's tiles, P a step, as
@@ -357,6 +432,42 @@ __device__ __forceinline__ void stream_group(const GroupItem& w, int lane, uint6
         issue(s, r);
       }
     }
+  }
+}
+
+// a grouped tile's G ints → its blocks (a padding slot, -1, takes the first
+// block's rows) and whether they are G consecutive blocks (one 64-row box)
+template <int G>
+__device__ __forceinline__ bool tile_blocks(const int (&t)[G], int (&blk)[G]) {
+  bool run = true;
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    blk[g] = (t[g] >= 0 ? t[g] : t[0]) >> 8;
+    run = run && t[g] >= 0 && blk[g] == blk[0] + g;
+  }
+  return run;
+}
+
+// the producer's load of tile q of a step of one streamed operand by TMA
+// into the stage at dst (atom a of tile q at (P a + q) * 64 rows * 128 B):
+// a 64-row box a column atom through `wide` when the blocks run, else a
+// BLK-row box a block through `narrow`
+template <int P, int ATOMS, int BLK, int G>
+__device__ __forceinline__ void load_group_tile(unsigned char* dst, const CUtensorMap* wide,
+                                                const CUtensorMap* narrow, uint64_t* bar, int q,
+                                                bool run, const int (&blk)[G], int h, int b) {
+  unsigned char* d = dst + q * kRows * 128;
+  if (run) {
+#pragma unroll
+    for (int a = 0; a < ATOMS; ++a)
+      hopper::tma_load_4d(d + P * a * kRows * 128, wide, bar, a * 64, h, blk[0] * BLK, b);
+  } else {
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int a = 0; a < ATOMS; ++a)
+        hopper::tma_load_4d(d + P * a * kRows * 128 + g * BLK * 128, narrow, bar, a * 64, h,
+                            blk[g] * BLK, b);
   }
 }
 

@@ -18,21 +18,28 @@
 // bidirectional, block 16, density 0.344) it is bound by bytes instead:
 // ~5.9 GFLOP (0.006 ms) against ~68 MB (0.020 ms).
 //
-// bf16/fp16 at D 64/128 and blocks of 64/128 (the GPT-2 shape) run the TMA
-// + wgmma kernel below on the dq kernel's schedule: the forward walks the
-// same tiles as dq (a 64-row query unit's kidx row, cut by the causal rule
-// where a tile starts past the unit's last query), so the host plan
-// ops/block_sparse_attention.py bwd_plan("dq", causal) is the forward's
-// too, and the schedule's decoding, the producer's loads and the masks
-// come from block_sparse_attention_common.cuh:
+// bf16/fp16 at D 64/128 run the TMA + wgmma kernel below at every block on
+// the dq kernel's schedule: the forward walks the same tiles as dq (a query
+// unit's kidx rows, cut by the causal rule where a tile starts past the
+// unit's last query), so the host plan ops/block_sparse_attention.py
+// bwd_plan("dq", causal) is the forward's too, and the schedule's decoding,
+// the producer's loads and the masks come from
+// block_sparse_attention_common.cuh:
 //  - persistent: min(items, SMs) blocks of three warpgroups deal the plan's
 //    items heaviest first in rounds (the GPT-2 layout lists 1 to 19 key
 //    blocks a query block); an item is two 64-row query units of one
 //    (batch, head) whose rows share the most tiles;
+//  - a unit: at blocks of 64 and 128, 64 consecutive queries; at 16 and
+//    32, up to 64 / blk query blocks whose kidx rows are equal first (BERT's
+//    fixed layout: the 4 blocks of a window), short units merged while that
+//    costs no more tiles (dkv_group_plan(..., "dq")); a tile is 64
+//    consecutive keys, or 64 / blk key blocks of the union of the unit's
+//    lists under a mask bit per (query block, key block);
 //  - a producer warp loads by TMA the item's 128 query rows once, into one
 //    of two buffers (the next item's while this one runs), and streams the
 //    K and V tiles of the item's entries, two 64-row tiles a step at D64
 //    and one at D128, through a ring of stages that runs on across items;
+//    blocks that are consecutive go as one 64-row box, others a box each;
 //  - consumer warpgroup c owns unit c's 64 queries: S = Q K^T by wgmma from
 //    shared memory, the online softmax in registers (log2 units on exp2, O
 //    rescaled only when a row's max moved), O += P V by wgmma with P as a
@@ -42,40 +49,39 @@
 //    warpgroups take turns on the tensor cores (named barriers), as in the
 //    flash forward: one's products run while the other's softmax does.
 //    m, l and O stay in registers over the item; O goes out once through
-//    shared memory by TMA stores, lse by the quad's first lane; each row is
-//    stored by the one warpgroup that owns it (no atomics: the result
-//    repeats bit for bit);
-//  - the mask (a tile the unit does not walk: p = 0 and no change of max;
-//    the causal rule on the diagonal) as compares against per-row limits
-//    under one warp-uniform branch that steps with nothing masked skip;
+//    shared memory by TMA stores (a warpgroup's 64 rows, or on the grouped
+//    plan a warp's 16 rows of one query block), lse by the quad's first
+//    lane; each row is stored by the one warp that owns it (no atomics: the
+//    result repeats bit for bit);
+//  - the mask (a tile or block the warp's query block does not walk, a
+//    padding slot: -inf and no change of max; the causal rule) as compares
+//    against per-row limits under one warp-uniform branch that steps with
+//    nothing masked skip;
 //  - q, k and v stay strided views of GPT-2's [B, S, 3E] projection, read
 //    through tensor maps.
 // An item none of whose rows walks a tile streams one tile that neither
 // unit walks, so every item has a first step and no wgmma is issued or
-// waited for in a branch.
-//
-// Blocks of 16 and 32 (BERT's default is 16) keep the mma.sync kernel
-// below: a wgmma M of 64 rows would span 4 or 2 blocks with lists of their
-// own. A unit of R = min(blk, 64) query rows of one (batch, head, query
-// block), one warp per 16 rows, loads its own kidx row and streams the
-// listed key blocks as tiles of R keys through a double-buffered cp.async
-// ring; m, l and the accumulator stay in registers, P is rounded to the
-// storage dtype and fed to P V from registers, and the causal test runs
-// only in tiles that straddle the diagonal. Blocks of 16 and 32 pack 4 and 2
-// units into one thread block (4 warps), each unit on its own named
-// barrier. fp32 runs the same walk on the FMA pipes (no tensor-core path
-// keeps fp32 exact): units of min(blk, 32) rows, 8 a warp, lane j owning
-// key j of a chunk of min(blk, 32) keys for the scores and D/32 output
-// columns for the sum. Which kernel a call takes is a rule on shapes alone
-// (the wrapper's wgmma_route); a call never falls back from one to another.
+// waited for in a branch. fp32 runs the same walk on the FMA pipes (no
+// tensor-core path keeps fp32 exact): units of min(blk, 32) rows, 8 a warp,
+// lane j owning key j of a chunk of min(blk, 32) keys for the scores and
+// D/32 output columns for the sum. Which kernel a call takes is a rule on
+// dtype and head dim alone (the wrapper's wgmma_route); a call never falls
+// back from one to another.
 //
 // What holds it back (tools/kernel_ablation.py, H100 80GB HBM3 at 700 W):
 // at the GPT-2 shape it takes ~0.075 ms, ~0.066 without the exponentials,
-// ~0.070 without its O and lse stores, ~0.083 without the warpgroups'
+// ~0.070 without its O and lse stores, ~0.085 without the warpgroups'
 // turns; an item is ~5 steps, and its first S and last P V run with no
-// product of the same warpgroup beside them.
-// Not done yet: packing BERT's adjacent query blocks of 16 whose kidx rows
-// are identical (24 of its 31) into one 64-row wgmma unit.
+// product of the same warpgroup beside them. At the BERT shape (4 items a
+// head, 18 tiles, ~2.5 steps an item) it takes ~0.049 ms, where the
+// mma.sync kernel it replaced (one 16-row query block a unit, K/V tiles by
+// cp.async) took ~0.090: ~0.045 without its stores or its P V, ~0.0475
+// without the exponentials, and the producer alone (the consumers handing
+// each stage straight back) ~0.030, as at the GPT-2 shape with 2.5 times
+// the bytes: the per-item loads of short items set the pace, and one box
+// a tile instead of one a block cuts that only by ~0.005. A deeper ring, a
+// third Q buffer, the boxes issued from 16 lanes and items ordered by head
+// did not move it.
 
 #include <cuda.h>
 
@@ -87,168 +93,6 @@
 namespace {
 
 using namespace bsparse;
-
-template <typename T, int D, int TW>
-struct FwdCfg {
-  static constexpr int R = TW;                   // query rows a unit owns
-  static constexpr int UW = R / 16;              // warps a unit
-  static constexpr int G = UW >= 4 ? 1 : 4 / UW;  // units a block
-  static constexpr int UT = UW * 32;
-  static constexpr int NT = G * UT;
-  static constexpr int LD = D + 8;  // padded row: the fragment reads hit distinct banks
-  static constexpr int USMEM = (R + 4 * TW) * LD;  // elements: Q, two K and two V tiles
-  static constexpr size_t SMEM = (size_t)G * USMEM * sizeof(T);
-};
-
-template <typename T, int D, int TW>
-__global__ void __launch_bounds__(FwdCfg<T, D, TW>::NT)
-bs_fwd_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-           T* __restrict__ o, float* __restrict__ lse, const BsParams p) {
-  using C = FwdCfg<T, D, TW>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int unit = threadIdx.x / C::UT;
-  const int ut = threadIdx.x % C::UT, lane = ut & 31, warp = ut >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  Unit U;
-  if (!unit_of((long long)blockIdx.x * C::G + unit, C::R, p, U)) return;
-  T* Qs = reinterpret_cast<T*>(smem_raw) + unit * C::USMEM;
-  T* Ks = Qs + C::R * C::LD;       // two buffers of TW rows
-  T* Vs = Ks + 2 * TW * C::LD;     // two buffers of TW rows
-
-  const int q0 = U.row0;
-  const int* lst = p.idx + ((long long)U.h * p.nblk + U.bi) * p.maxl;
-  const int per = p.blk / TW;
-  const int nt = query_unit_tiles(lst, p.cnt[U.h * p.nblk + U.bi], q0, C::R, p, TW);
-  const T* kb = k + U.b * p.k_sb + U.h * p.k_sh;
-  const T* vb = v + U.b * p.v_sb + U.h * p.v_sh;
-
-  load_rows_async<T, C::R, D, C::LD, C::UT>(Qs, q + U.b * p.q_sb + U.h * p.q_sh, p.q_ss, q0,
-                                             p.S, ut);
-  if (nt > 0) {
-    const int c = tile_row0(lst, 0, per, p.blk, TW);
-    load_rows_async<T, TW, D, C::LD, C::UT>(Ks, kb, p.k_ss, c, p.S, ut);
-    load_rows_async<T, TW, D, C::LD, C::UT>(Vs, vb, p.v_ss, c, p.S, ut);
-  }
-  cp_async_commit();
-
-  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  // scores and the running max m in log2 units: exp2 is one SFU op
-  const float scale2 = p.scale * kLog2e;
-  float m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f};
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  for (int it = 0; it < nt; ++it) {
-    const int buf = it & 1;
-    if (it + 1 < nt) {
-      const int c = tile_row0(lst, it + 1, per, p.blk, TW);
-      load_rows_async<T, TW, D, C::LD, C::UT>(Ks + (buf ^ 1) * TW * C::LD, kb, p.k_ss, c, p.S,
-                                               ut);
-      load_rows_async<T, TW, D, C::LD, C::UT>(Vs + (buf ^ 1) * TW * C::LD, vb, p.v_ss, c, p.S,
-                                               ut);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    unit_sync(unit, C::UT);
-    const T* Kt = Ks + buf * TW * C::LD;
-    const T* Vt = Vs + buf * TW * C::LD;
-    const int c0 = tile_row0(lst, it, per, p.blk, TW);
-
-    // s = q k^T for this warp's 16 rows and the tile's TW keys
-    float s[TW / 8][4];
-#pragma unroll
-    for (int n = 0; n < TW / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
-      uint32_t a[4];
-      load_a<T, C::LD>(a, Qs, warp * 16, kk, lane);
-#pragma unroll
-      for (int n = 0; n < TW / 8; n += 2) {
-        uint32_t bb[4];
-        load_b_rows<T, C::LD>(bb, Kt, n * 8, kk, lane);
-        mma16816<T>(s[n], a, bb);
-        mma16816<T>(s[n + 1], a, bb + 2);
-      }
-    }
-
-    // scale (to log2 units), the causal mask inside a diagonal tile, online
-    // softmax over rows row[0], row[1]
-    const bool full = !p.causal || c0 + TW - 1 <= q0 + warp * 16;
-    float tmax[2] = {kMasked, kMasked};
-#pragma unroll
-    for (int n = 0; n < TW / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = c0 + n * 8 + 2 * t + (e & 1);
-        const float x = full || col <= row[e >> 1] ? s[n][e] * scale2 : kMasked;
-        s[n][e] = x;
-        tmax[e >> 1] = fmaxf(tmax[e >> 1], x);
-      }
-    }
-    float corr[2], rsum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float mn = fmaxf(m[i], quad_max(tmax[i]));
-      corr[i] = exp2f(m[i] - mn);
-      m[i] = mn;
-    }
-#pragma unroll
-    for (int n = 0; n < TW / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float pe = exp2f(s[n][e] - m[e >> 1]);
-        s[n][e] = pe;
-        rsum[e >> 1] += pe;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + quad_sum(rsum[i]);
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      acc[n][0] *= corr[0];
-      acc[n][1] *= corr[0];
-      acc[n][2] *= corr[1];
-      acc[n][3] *= corr[1];
-    }
-
-    // acc += P v, P rounded to the storage dtype
-#pragma unroll
-    for (int kk = 0; kk < TW / 16; ++kk) {
-      uint32_t a[4];
-      a_from_c<T>(a, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int n = 0; n < D / 8; n += 2) {
-        uint32_t bb[4];
-        load_b_cols<T, C::LD>(bb, Vt, kk * 16, n * 8, lane);
-        mma16816<T>(acc[n], a, bb);
-        mma16816<T>(acc[n + 1], a, bb + 2);
-      }
-    }
-    unit_sync(unit, C::UT);  // this buffer is consumed before it is refilled
-  }
-  cp_async_wait<0>();
-
-  // a row that saw no kept score: o = 0, lse = +1e30 (the JAX kernel's poison)
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const bool valid = m[i] > kMasked * 0.5f;
-    const float lc = fmaxf(l[i], 1e-30f);
-    if (t == 0) {
-      lse[((long long)U.b * p.H + U.h) * p.S + row[i]] =
-          valid ? m[i] * kLn2 + logf(lc) : -kMasked;
-    }
-    const float inv = valid ? 1.f / lc : 0.f;
-    T* orow = o + (((long long)U.b * p.S + row[i]) * p.H + U.h) * D + 2 * t;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<uint32_t*>(orow + n * 8) =
-          pack2<T>(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
-    }
-  }
-}
 
 // ---- fp32: FMA pipes -------------------------------------------------------
 
@@ -358,25 +202,26 @@ bs_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ---- bf16/fp16 at D 64/128, blocks of 64 and 128: TMA, wgmma, warp specialisation
+// ---- bf16/fp16 at D 64/128, every block: TMA, wgmma, warp specialisation
 
 // the forward's ring: deeper than dq's at D128 (no dO beside Q)
 constexpr int kFwdStages = 4;
 
-template <typename T, int D>
+template <typename T, int D, int G>
 constexpr size_t fwd_smem() {
   using W = WgCfg<T, D>;
   // 1024 bytes of slack to align the tiles; two buffers of the item's Q,
-  // the two warpgroups' O tiles (staged for a TMA store), the K and V
-  // stages, the stages' tile entries, the barriers: 225 KB at D128
-  return 1024 + 2 * (size_t)W::PAIR_BYTES + (size_t)W::PAIR_BYTES +
-         (size_t)kFwdStages * 2 * W::STEP_BYTES + (kFwdStages * W::P + 2) * 4 +
-         8 * (4 + 2 * kFwdStages);
+  // the two warpgroups' O tiles (staged for TMA stores), the K and V
+  // stages, the stages' tile entries (G ints a tile), the barriers: 225 KB
+  // at D128
+  return 1024 + 3 * (size_t)W::PAIR_BYTES + (size_t)kFwdStages * 2 * W::STEP_BYTES +
+         (kFwdStages * W::P * G + 2) * 4 + 8 * (4 + 2 * kFwdStages);
 }
 
-// the entry of a tile that neither unit walks (row 0, no bit): an item with
-// no tiles streams it, so every item has a first step
-__device__ const int kNoTile[1] = {0};
+// the entries of a tile that neither unit walks (block or row 0, no bit;
+// the grouped plan's other slots padding): an item with no tiles streams
+// it, so every item has a first step
+__device__ const int kNoTile[4] = {0, -1, -1, -1};
 
 __device__ __forceinline__ Item fwd_item(int i, const int* __restrict__ plan, int n_pairs,
                                          const BsParams& p) {
@@ -388,29 +233,27 @@ __device__ __forceinline__ Item fwd_item(int i, const int* __restrict__ plan, in
   return w;
 }
 
+template <int G>
+__device__ __forceinline__ GroupItem fwd_group_item(int i, const int* __restrict__ plan,
+                                                    int n_pairs, const BsParams& p) {
+  GroupItem w = group_item<G>(i, plan, n_pairs, p);
+  if (w.n == 0) {
+    w.tiles = kNoTile;
+    w.n = 1;
+  }
+  return w;
+}
+
 // the online softmax of one step for the thread's rows row0 (elements 4n,
-// 4n+1) and row0 + 8 (4n+2, 4n+3) on the raw scores s of the step's P
-// tiles: masked scores (by the limits of query_limits) become -inf, the
-// running max m is kept in log2 units (scale2 = sm_scale * log2 e > 0), and
-// s becomes P = exp2(s * scale2 - m); corr is the accumulator's factor, l
-// is per lane (quad-summed at the end). A row with nothing kept yet keeps m
-// at -1e30 and adds p = 0.
+// 4n+1) and row0 + 8 (4n+2, 4n+3) on the raw scores s of the step's TN
+// keys, the masked ones already -inf (mask_keys): the running max m is kept
+// in log2 units (scale2 = sm_scale * log2 e > 0), and s becomes P =
+// exp2(s * scale2 - m); corr is the accumulator's factor, l is per lane
+// (quad-summed at the end). A row with nothing kept yet keeps m at -1e30
+// and adds p = 0.
 template <int TN>
 __device__ __forceinline__ void softmax_step(float (&s)[TN / 2], float (&m)[2], float (&l)[2],
-                                             float (&corr)[2], bool whole,
-                                             const int (&c0)[TN / kRows],
-                                             const int (&hi)[TN / kRows][2], int t,
-                                             float scale2) {
-  if (!whole) {
-#pragma unroll
-    for (int n = 0; n < TN / 8; ++n) {
-      const int q = n / (kRows / 8);
-      const int col = c0[q] + (n % (kRows / 8)) * 8 + 2 * t;
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        s[4 * n + e] = col + (e & 1) <= hi[q][e >> 1] ? s[4 * n + e] : -INFINITY;
-    }
-  }
+                                             float (&corr)[2], float scale2) {
   float mx[2][TN / 8];
 #pragma unroll
   for (int n = 0; n < TN / 8; ++n) {
@@ -472,32 +315,50 @@ __device__ __forceinline__ void turn_pass(int bar) { hopper::named_arrive(bar, 2
 // persistent over the dq plan's items, dealt heaviest first in rounds. The
 // producer warp loads each item's Q (its two units' 64 rows) into one of
 // two buffers and streams the K and V tiles of its entries, P a step;
-// consumer warpgroup c owns unit c's queries
-template <typename T, int D>
+// consumer warpgroup c owns unit c's queries.
+//
+// BLK 64 takes blocks of 64 and 128 (a unit is 64 consecutive queries, a
+// tile 64 consecutive keys: bwd_plan), O goes out through shared memory by
+// a warpgroup's TMA stores of 64-row boxes. BLK 16 and 32 take the query
+// side's grouped plan (dkv_group_plan(..., "dq")): a unit is up to G = 64 /
+// BLK query blocks (those with equal key lists first), loaded by
+// load_group (BERT's 4 blocks of a window as one 64-row box through tq,
+// others a block a box through tqb); a tile is G key blocks of the union
+// of their lists, one 64-row box through tk / tv when they are
+// consecutive, else a block a box through tkb / tvb. A warp's 16 queries
+// lie in one query block, so a tile entry's bit for that block masks a key
+// block the warp does not list, as a padding slot and a pair the causal
+// rule drops are masked (-inf); a warp stores its own 16 rows of O (a
+// 16-row TMA box through `to`) and lse, a padding warp nothing
+template <typename T, int D, int BLK>
 __global__ void __launch_bounds__(384, 1)
 bs_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
              const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
-             const int* __restrict__ plan, int n_pairs, float* __restrict__ lse, const BsParams p,
-             int n_items) {
+             const __grid_constant__ CUtensorMap tqb, const __grid_constant__ CUtensorMap tkb,
+             const __grid_constant__ CUtensorMap tvb, const int* __restrict__ plan, int n_pairs,
+             float* __restrict__ lse, const BsParams p, int n_items) {
   using W = WgCfg<T, D>;
+  constexpr int G = kRows / BLK;  // query blocks a unit, key blocks a tile (1: blocks 64/128)
   constexpr int TN = W::TN, P = W::P, STAGES = kFwdStages;
+  constexpr int QB = 2;  // buffers of an item's Q
   using namespace hopper;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   unsigned char* Qs = base;                                   // buffer k at k * PAIR_BYTES
-  unsigned char* Os = Qs + 2 * W::PAIR_BYTES;                 // warpgroup c at c * SUB_BYTES
+  unsigned char* Os = Qs + QB * W::PAIR_BYTES;                // warpgroup c at c * SUB_BYTES
   unsigned char* Ks = Os + W::PAIR_BYTES;                     // stage s at s * STEP_BYTES
   unsigned char* Vs = Ks + (size_t)STAGES * W::STEP_BYTES;    // V, the same
-  int* entries = reinterpret_cast<int*>(Vs + (size_t)STAGES * W::STEP_BYTES);  // [s][tile]
-  uint64_t* bars = reinterpret_cast<uint64_t*>(entries + STAGES * P + (STAGES * P) % 2);
+  int* entries = reinterpret_cast<int*>(Vs + (size_t)STAGES * W::STEP_BYTES);  // [s][tile][G]
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(entries + STAGES * P * G + (STAGES * P * G) % 2);
   uint64_t* q_full = bars;
-  uint64_t* q_empty = bars + 2;
-  uint64_t* full = bars + 4;
-  uint64_t* empty = bars + 4 + STAGES;
+  uint64_t* q_empty = bars + QB;
+  uint64_t* full = bars + 2 * QB;
+  uint64_t* empty = full + STAGES;
 
   if (threadIdx.x == 0) {
-    for (int k = 0; k < 2; ++k) {
+    for (int k = 0; k < QB; ++k) {
       mbar_init(&q_full[k], 1);
       mbar_init(&q_empty[k], 2);
     }
@@ -519,18 +380,40 @@ bs_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
     for (int r = 0, ki = 0; r * (int)gridDim.x < n_items; ++r) {
       const int i = round_item(r, n_items);
       if (i < 0) continue;
-      const Item w = fwd_item(i, plan, n_pairs, p);
-      const int qb = ki % 2;
-      if (lane == 0) {
-        mbar_wait(&q_empty[qb], ((ki / 2) & 1) ^ 1);
-        mbar_arrive_tx(&q_full[qb], W::PAIR_BYTES);
-        load_pair<W::ATOMS>(Qs + (size_t)qb * W::PAIR_BYTES, &tq, &q_full[qb], w);
+      const int qb = ki % QB;
+      unsigned char* Qt = Qs + (size_t)qb * W::PAIR_BYTES;
+      if constexpr (G == 1) {
+        const Item w = fwd_item(i, plan, n_pairs, p);
+        if (lane == 0) {
+          mbar_wait(&q_empty[qb], ((ki / QB) & 1) ^ 1);
+          mbar_arrive_tx(&q_full[qb], W::PAIR_BYTES);
+          load_pair<W::ATOMS>(Qt, &tq, &q_full[qb], w);
+        }
+        stream_steps<P, STAGES>(w, lane, empty, entries, it, [&](int s, const int (&row)[P]) {
+          mbar_arrive_tx(&full[s], 2 * W::STEP_BYTES);
+          load_tiles<P, W::ATOMS>(Ks + (size_t)s * W::STEP_BYTES, &tk, &full[s], w, row);
+          load_tiles<P, W::ATOMS>(Vs + (size_t)s * W::STEP_BYTES, &tv, &full[s], w, row);
+        });
+      } else {
+        const GroupItem w = fwd_group_item<G>(i, plan, n_pairs, p);
+        if (lane == 0) {
+          mbar_wait(&q_empty[qb], ((ki / QB) & 1) ^ 1);
+          mbar_arrive_tx(&q_full[qb], W::PAIR_BYTES);
+          load_group<W::ATOMS, BLK>(Qt, &tq, &tqb, &q_full[qb], w);
+        }
+        stream_group<P, STAGES, G>(w, lane, empty, entries, it, [&](int s, const int (&t)[P][G]) {
+          mbar_arrive_tx(&full[s], 2 * W::STEP_BYTES);
+#pragma unroll
+          for (int q = 0; q < P; ++q) {
+            int kb[G];
+            const bool run = tile_blocks<G>(t[q], kb);
+            load_group_tile<P, W::ATOMS, BLK, G>(Ks + (size_t)s * W::STEP_BYTES, &tk, &tkb,
+                                                 &full[s], q, run, kb, w.h, w.b);
+            load_group_tile<P, W::ATOMS, BLK, G>(Vs + (size_t)s * W::STEP_BYTES, &tv, &tvb,
+                                                 &full[s], q, run, kb, w.h, w.b);
+          }
+        });
       }
-      stream_steps<P, STAGES>(w, lane, empty, entries, it, [&](int s, const int (&row)[P]) {
-        mbar_arrive_tx(&full[s], 2 * W::STEP_BYTES);
-        load_tiles<P, W::ATOMS>(Ks + (size_t)s * W::STEP_BYTES, &tk, &full[s], w, row);
-        load_tiles<P, W::ATOMS>(Vs + (size_t)s * W::STEP_BYTES, &tv, &full[s], w, row);
-      });
       ++ki;
     }
     return;
@@ -555,27 +438,44 @@ bs_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
   for (int r = 0, ki = 0; r * (int)gridDim.x < n_items; ++r) {
     const int i = round_item(r, n_items);
     if (i < 0) continue;
-    const Item w = fwd_item(i, plan, n_pairs, p);
     const bool last_item = (r + 1) * (int)gridDim.x >= n_items || round_item(r + 1, n_items) < 0;
-    const int mine0 = cw ? w.r0[1] : w.r0[0];
-    const bool owned = mine0 >= 0;
-    const int rw0 = (owned ? mine0 : w.r0[0]) + warp * 16;  // this warp's first query
+    // the item's batch row, head and tile count; this warp's first query,
+    // whether its 16 queries are real rows of this warpgroup's unit, and
+    // the bit of its query block in a tile entry's masks
+    int ib, ih, n_tiles, rw0, kbit = cw, mine0 = 0;
+    bool owned;
+    if constexpr (G == 1) {
+      const Item w = fwd_item(i, plan, n_pairs, p);
+      mine0 = cw ? w.r0[1] : w.r0[0];
+      owned = mine0 >= 0;
+      rw0 = (owned ? mine0 : w.r0[0]) + warp * 16;
+      ib = w.b, ih = w.h, n_tiles = w.n;
+    } else {
+      const GroupItem w = fwd_group_item<G>(i, plan, n_pairs, p);
+      const int slot = warp * 16 / BLK;
+      const int qblk = __ldg(w.keys + cw * G + slot);
+      owned = qblk >= 0;
+      rw0 = owned ? qblk * BLK + (warp * 16) % BLK : 0;
+      kbit = 4 * cw + slot;
+      ib = w.b, ih = w.h, n_tiles = w.n;
+    }
     const int row[2] = {rw0 + (lane >> 2), rw0 + (lane >> 2) + 8};
-    const int qb = ki % 2;
+    const int qb = ki % QB;
     const uint32_t q_addr = smem_addr(Qs) + qb * W::PAIR_BYTES + cw * kRows * 128;
-    const int nsteps = (w.n + P - 1) / P;  // >= 1
+    const int nsteps = (n_tiles + P - 1) / P;  // >= 1
     m[0] = m[1] = kMasked;
     l[0] = l[1] = 0.f;
 #pragma unroll
     for (int k = 0; k < D / 2; ++k) acc[k] = 0.f;
-    mbar_wait(&q_full[qb], (ki / 2) & 1);
+    mbar_wait(&q_full[qb], (ki / QB) & 1);
 
     // the first step: S only (no P V pending), so no wgmma is issued or
     // waited for conditionally inside the step loop
     int st = it % STAGES;
     mbar_wait(&full[st], (it / STAGES) & 1);
-    int c0[P], hi[P][2];
-    bool whole = query_limits<P>(entries + st * P, cw, causal, row, rw0, c0, hi);
+    int koff[P][G], hi[2];
+    bool whole =
+        query_masks<P, G, BLK>(entries + st * P * G, kbit, owned, causal, row, rw0, koff, hi);
     // this warpgroup's turn on the tensor cores
     turn_wait(kTurnBar + cw);
     issue_s<T, D, TN>(s, q_addr, k_base + st * W::STEP_BYTES);
@@ -584,7 +484,8 @@ bs_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
     fence_regs(s);
     if (nsteps == 1 && tid == 0) mbar_arrive(&q_empty[qb]);  // Q's last S has run
     float corr[2];
-    softmax_step<TN>(s, m, l, corr, whole, c0, hi, t, scale2);
+    if (!whole) mask_keys<TN, G>(s, koff, hi, t, -INFINITY);
+    softmax_step<TN>(s, m, l, corr, scale2);
     pack_a<T, TN>(pa, s);
     ++it;
 
@@ -592,7 +493,8 @@ bs_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
       const int prev = st;  // the stage whose V the pending P V reads
       st = it % STAGES;
       mbar_wait(&full[st], (it / STAGES) & 1);
-      whole = query_limits<P>(entries + st * P, cw, causal, row, rw0, c0, hi);
+      whole =
+          query_masks<P, G, BLK>(entries + st * P * G, kbit, owned, causal, row, rw0, koff, hi);
       // S of this step, then the previous step's P V: the softmax below
       // runs while P V is on the tensor cores
       turn_wait(kTurnBar + cw);
@@ -602,7 +504,8 @@ bs_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
       wgmma_wait<1>();
       fence_regs(s);
       if (u == nsteps - 1 && tid == 0) mbar_arrive(&q_empty[qb]);
-      softmax_step<TN>(s, m, l, corr, whole, c0, hi, t, scale2);
+      if (!whole) mask_keys<TN, G>(s, koff, hi, t, -INFINITY);
+      softmax_step<TN>(s, m, l, corr, scale2);
       // P V done: the accumulator is ours again, stage prev free
       wgmma_wait<0>();
       fence_regs(acc);
@@ -635,10 +538,14 @@ bs_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
       const float lc = fmaxf(quad_sum(l[hr]), 1e-30f);
       inv[hr] = valid ? 1.f / lc : 0.f;
       if (owned && t == 0)
-        lse[((long long)w.b * p.H + w.h) * p.S + row[hr]] = valid ? m[hr] * kLn2 + logf(lc)
-                                                                  : -kMasked;
+        lse[((long long)ib * p.H + ih) * p.S + row[hr]] = valid ? m[hr] * kLn2 + logf(lc)
+                                                                : -kMasked;
     }
-    if (owned) {
+    if constexpr (G > 1) {
+      // a warp's 16 rows (one query block's) by a 16-row TMA box
+      if (owned)
+        store_warp_rows<T, D>(&to, Os + cw * W::SUB_BYTES, acc, inv, warp, lane, ih, rw0, ib);
+    } else if (owned) {
       // O through shared memory (the 128-byte swizzle: a quad's 4-byte
       // writes of 8 rows hit distinct banks) and TMA stores, one a column
       // atom, issued by one thread of the warpgroup
@@ -659,54 +566,58 @@ bs_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
       named_sync(kWgBar + cw, 128);
       if (tid == 0) {
         for (int a = 0; a < W::ATOMS; ++a)
-          tma_store_4d(&to, ot + a * kRows * 128, a * 64, w.h, mine0, w.b);
+          tma_store_4d(&to, ot + a * kRows * 128, a * 64, ih, mine0, ib);
         bulk_commit();
       }
     }
     ++ki;
   }
-  if (tid == 0) bulk_wait();  // the last store is done before the block exits
+  if (G == 1 ? tid == 0 : lane == 0) bulk_wait();  // the last stores are done before exit
 }
 
-// q, k, v through TMA maps of 64-row boxes; the plan is dq's (a header a
-// pair of 64-row query units)
+// q, k, v and o through TMA maps: at blocks of 64 and 128 64-row boxes and
+// dq's plan of paired 64-row units (H * ceil(S / 128) headers); at 16 and
+// 32 q, k and v in 64-row and in block boxes (tqb, tkb, tvb), o in 16-row
+// boxes (a warp's rows), and the query side's grouped plan of n_pairs
+// headers
 template <typename T, int D>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse,
-                         const int* plan, const BsParams& p, cudaStream_t stream) {
+                         const int* plan, int n_pairs, const BsParams& p, cudaStream_t stream) {
   constexpr bool half = std::is_same<T, __half>::value;
   using hopper::make_map;
+  const bool grouped = p.blk < kRows;
+  // a map's box may not exceed its tensor: below 64 rows only a block's boxes
+  const int wide = p.S >= kRows ? kRows : p.blk;
   CUtensorMap tq, tk, tv, to;
   const long long o_ss = (long long)p.H * D;
   if (plan == nullptr ||
-      !make_map(&tq, half, q, p.B, p.S, p.H, D, p.q_sb, p.q_ss, p.q_sh, kRows) ||
-      !make_map(&tk, half, k, p.B, p.S, p.H, D, p.k_sb, p.k_ss, p.k_sh, kRows) ||
-      !make_map(&tv, half, v, p.B, p.S, p.H, D, p.v_sb, p.v_ss, p.v_sh, kRows) ||
-      !make_map(&to, half, o, p.B, p.S, p.H, D, p.S * o_ss, o_ss, D, kRows))
+      !make_map(&tq, half, q, p.B, p.S, p.H, D, p.q_sb, p.q_ss, p.q_sh, wide) ||
+      !make_map(&tk, half, k, p.B, p.S, p.H, D, p.k_sb, p.k_ss, p.k_sh, wide) ||
+      !make_map(&tv, half, v, p.B, p.S, p.H, D, p.v_sb, p.v_ss, p.v_sh, wide) ||
+      !make_map(&to, half, o, p.B, p.S, p.H, D, p.S * o_ss, o_ss, D, grouped ? 16 : kRows))
     return cudaErrorInvalidValue;
-  const int n_pairs = p.H * ((p.nblk * (p.blk / kRows) + 1) / 2);  // the plan's headers
+  CUtensorMap tqb = tq, tkb = tk, tvb = tv;
+  if (grouped && (!make_map(&tqb, half, q, p.B, p.S, p.H, D, p.q_sb, p.q_ss, p.q_sh, p.blk) ||
+                  !make_map(&tkb, half, k, p.B, p.S, p.H, D, p.k_sb, p.k_ss, p.k_sh, p.blk) ||
+                  !make_map(&tvb, half, v, p.B, p.S, p.H, D, p.v_sb, p.v_ss, p.v_sh, p.blk)))
+    return cudaErrorInvalidValue;
+  if (!grouped && n_pairs != p.H * ((p.nblk * (p.blk / kRows) + 1) / 2))
+    return cudaErrorInvalidValue;
   const int n_items = p.B * n_pairs;
+  if (n_items <= 0) return cudaErrorInvalidValue;
   const unsigned grid = (unsigned)std::min(n_items, hopper::sm_count());
-  auto kern = bs_fwd_wgmma<T, D>;
-  constexpr size_t smem = fwd_smem<T, D>();
-  cudaError_t err = allow_smem(kern, smem);
-  if (err != cudaSuccess) return err;
-  kern<<<grid, WgCfg<T, D>::NT, smem, stream>>>(tq, tk, tv, to, plan, n_pairs, lse, p,
-                                                n_items);
-  return cudaGetLastError();
-}
-
-template <typename T, int D, int TW>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, float* lse,
-                       const BsParams& p, cudaStream_t stream) {
-  using C = FwdCfg<T, D, TW>;
-  auto kern = bs_fwd_mma<T, D, TW>;
-  cudaError_t err = allow_smem(kern, C::SMEM);
-  if (err != cudaSuccess) return err;
-  const long long blocks = (units(p, C::R) + C::G - 1) / C::G;
-  kern<<<(unsigned)blocks, C::NT, C::SMEM, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, p);
-  return cudaGetLastError();
+  auto go = [&](auto kern, auto smem) {
+    cudaError_t err = allow_smem(kern, smem);
+    if (err != cudaSuccess) return err;
+    kern<<<grid, WgCfg<T, D>::NT, smem, stream>>>(tq, tk, tv, to, tqb, tkb, tvb, plan, n_pairs,
+                                                  lse, p, n_items);
+    return cudaGetLastError();
+  };
+  switch (p.blk) {
+    case 16: return go(bs_fwd_wgmma<T, D, 16>, fwd_smem<T, D, 4>());
+    case 32: return go(bs_fwd_wgmma<T, D, 32>, fwd_smem<T, D, 2>());
+    default: return go(bs_fwd_wgmma<T, D, 64>, fwd_smem<T, D, 1>());  // 64, 128
+  }
 }
 
 template <int D, int NK>
@@ -723,28 +634,18 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, flo
   return cudaGetLastError();
 }
 
-// the kernel a shape takes: blocks of 64 and 128 at bf16/fp16 the TMA +
-// wgmma kernel (the dq plan required), blocks of 16 and 32 the mma.sync
-// kernel, fp32 the FMA kernel
-template <typename T, int D>
-cudaError_t by_block(const void* q, const void* k, const void* v, void* o, float* lse,
-                     const int* plan, const BsParams& p, cudaStream_t s) {
-  switch (p.blk) {
-    case 16: return launch_mma<T, D, 16>(q, k, v, o, lse, p, s);
-    case 32: return launch_mma<T, D, 32>(q, k, v, o, lse, p, s);
-    default: return launch_wgmma<T, D>(q, k, v, o, lse, plan, p, s);  // 64, 128
-  }
-}
-
+// the kernel a shape takes: bf16/fp16 the TMA + wgmma kernel (a plan
+// required), fp32 the FMA kernel
 template <int D>
 cudaError_t dispatch_dtype(int dtype, const void* q, const void* k, const void* v, void* o,
-                           float* lse, const int* plan, const BsParams& p, cudaStream_t s) {
+                           float* lse, const int* plan, int n_pairs, const BsParams& p,
+                           cudaStream_t s) {
   switch (dtype) {
     case 0:
       return p.blk == 16 ? launch_f32<D, 16>(q, k, v, o, lse, p, s)
                          : launch_f32<D, 32>(q, k, v, o, lse, p, s);
-    case 1: return by_block<__half, D>(q, k, v, o, lse, plan, p, s);
-    case 2: return by_block<__nv_bfloat16, D>(q, k, v, o, lse, plan, p, s);
+    case 1: return launch_wgmma<__half, D>(q, k, v, o, lse, plan, n_pairs, p, s);
+    case 2: return launch_wgmma<__nv_bfloat16, D>(q, k, v, o, lse, plan, n_pairs, p, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -753,21 +654,22 @@ cudaError_t dispatch_dtype(int dtype, const void* q, const void* k, const void* 
 
 // dtype codes: 0 float32, 1 float16, 2 bfloat16 (q, k, v and o share it).
 // kidx [H, S/blk, maxK] and kcnt [H, S/blk] int32; o [B, S, H, D] and lse
-// [B, H, S] f32 contiguous. plan: at bf16/fp16 with blocks of 64 and 128
-// the dq kernel's schedule (int32: H * ceil(S / 128) headers (unit, unit
-// or -1, offset, tile count), heaviest first, then the tile entries; see
-// plan_item), q, k and v then read through TMA maps (positive strides
-// under 2^40 bytes); null on the other routes. Returns the CUDA error of
-// the launch (0 on success), cudaErrorInvalidValue for shapes the kernel
-// does not take (blk outside 16/32/64/128, S not a multiple of blk, D
-// outside 64/128, no plan on the wgmma route). Asynchronous on `stream`.
+// [B, H, S] f32 contiguous. plan: at bf16/fp16 the dq kernel's schedule of
+// n_pairs headers (int32; at blocks of 64 and 128 H * ceil(S / 128)
+// headers (unit, unit or -1, offset, tile count), heaviest first, then the
+// tile entries, see plan_item; at 16 and 32 the query side's grouped plan,
+// see group_item), q, k and v then read through TMA maps (positive strides
+// under 2^40 bytes); null on the fp32 route. Returns the CUDA error of the
+// launch (0 on success), cudaErrorInvalidValue for shapes the kernel does
+// not take (blk outside 16/32/64/128, S not a multiple of blk, D outside
+// 64/128, no plan on the wgmma route, a header count that does not fit the
+// plan of blocks of 64 and 128). Asynchronous on `stream`.
 extern "C" int block_sparse_attention_fwd_launch(
     const void* q, const void* k, const void* v, void* o, void* lse, const void* kidx,
-    const void* kcnt, const void* plan, int B, int S, int H, int D, int blk, int maxK,
-    long long q_sb,
-    long long q_ss, long long q_sh, long long k_sb, long long k_ss, long long k_sh,
-    long long v_sb, long long v_ss, long long v_sh, int causal, float sm_scale, int dtype,
-    void* stream) {
+    const void* kcnt, const void* plan, int n_pairs, int B, int S, int H, int D, int blk,
+    int maxK, long long q_sb, long long q_ss, long long q_sh, long long k_sb, long long k_ss,
+    long long k_sh, long long v_sb, long long v_ss, long long v_sh, int causal, float sm_scale,
+    int dtype, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || maxK <= 0) return (int)cudaErrorInvalidValue;
   if ((blk != 16 && blk != 32 && blk != 64 && blk != 128) || S % blk != 0)
     return (int)cudaErrorInvalidValue;
@@ -784,8 +686,8 @@ extern "C" int block_sparse_attention_fwd_launch(
   float* l = static_cast<float*>(lse);
   const int* pl = static_cast<const int*>(plan);
   switch (D) {
-    case 64: return (int)dispatch_dtype<64>(dtype, q, k, v, o, l, pl, p, s);
-    case 128: return (int)dispatch_dtype<128>(dtype, q, k, v, o, l, pl, p, s);
+    case 64: return (int)dispatch_dtype<64>(dtype, q, k, v, o, l, pl, n_pairs, p, s);
+    case 128: return (int)dispatch_dtype<128>(dtype, q, k, v, o, l, pl, n_pairs, p, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -12,18 +12,18 @@ visits, ascending), and the transposed ``qidx [H, nK, maxQ]`` / ``qcnt``,
 which the dk/dv kernel walks so that both backward kernels write their
 outputs without atomics.
 
-Which kernel a call takes is a rule per kernel on shapes alone
-(:func:`wgmma_route`): at bf16/fp16 and D 64 or 128, dk/dv runs the TMA +
-wgmma kernel at every block (16, 32, 64, 128), the forward and dq at blocks
-of 64 and 128; the forward and dq at blocks of 16 and 32 keep the mma.sync
-kernels, and fp32 the FMA kernels. The wgmma kernels' items (two 64-row
-units of one head that share tiles) are dealt heaviest first by a schedule
-built here from the layout (:func:`bwd_plan`, cached beside the index lists
-in :class:`IndexLists`; the forward walks dq's). At blocks of 16 and 32 a
-dk/dv unit gathers up to 64 / block key blocks, those whose query lists are
-equal first, and streams the union of their lists 64 rows at a time under
-a mask per (key block, query block) (:func:`dkv_group_plan`). No call
-falls back from one kernel to another.
+Which kernel a call takes is a rule on dtype and head dim (:func:`wgmma_route`):
+at bf16/fp16 and D 64 or 128 the forward, dq and dk/dv run the TMA + wgmma
+kernels at every block (16, 32, 64, 128), fp32 the FMA kernels. The wgmma
+kernels' items (two 64-row units of one head that share tiles) are dealt
+heaviest first by a schedule built here from the layout (:func:`bwd_plan`,
+cached beside the index lists in :class:`IndexLists`; the forward walks
+dq's). At blocks of 16 and 32 a unit gathers up to 64 / block blocks, those
+whose lists are equal first (key blocks and their query lists for dk/dv,
+query blocks and their key lists for the forward and dq), and streams the
+union of their lists 64 rows at a time under a mask per (unit block, tile
+block) (:func:`dkv_group_plan`). No call falls back from one kernel to
+another.
 
 Layout: q/k/v ``[B, S, H, D]`` with any batch / sequence / head strides and
 a contiguous last dim (so GPT-2's q, k and v stay views of the ``[B, S,
@@ -75,9 +75,7 @@ CACHE_STATS = {"hits": 0, "misses": 0}
 BLOCKS = (16, 32, 64, 128)
 HEAD_DIMS = (64, 128)
 NEG_INF = -1e30
-# the TMA + wgmma route: the blocks each kernel takes there, and the rows
-# of a unit and of a streamed tile
-WGMMA_BLOCKS = {"fwd": (64, 128), "dq": (64, 128), "dkv": (16, 32, 64, 128)}
+# the TMA + wgmma kernels' rows of a unit and of a streamed tile
 TILE = 64
 
 
@@ -153,13 +151,13 @@ def _pair_units(walk: np.ndarray):
 
 def bwd_plan(layout: np.ndarray, block: int, causal: bool, which: str) -> np.ndarray:
     """The wgmma route's schedule of kernel ``which`` ("dq" or "dkv") for one
-    batch row → flat int32. At blocks of 16 and 32 it is dk/dv's grouped
-    plan (:func:`dkv_group_plan`; dq does not take these blocks); at 64 and
-    128: ``H * ceil(U / 2)`` headers ``(unit 0, unit 1 or -1, offset, tile
-    count)``, then the tile entries. The forward walks the same tiles as dq
-    (a query unit's kidx row, cut by the causal rule where a tile starts
-    past the unit's last query), so "dq" is the forward's schedule too: no
-    second plan is built.
+    batch row → flat int32. At blocks of 16 and 32 it is the grouped plan
+    of that side (:func:`dkv_group_plan`); at 64 and 128: ``H * ceil(U /
+    2)`` headers ``(unit 0, unit 1 or -1, offset, tile count)``, then the
+    tile entries. The forward walks the same tiles as dq at every block (a
+    query unit's kidx rows, cut by the causal rule where a tile starts past
+    the unit's last query), so "dq" is the forward's schedule too: no second
+    plan is built.
 
     An item is two units of one head (numbered ``h * U + u``, U = S / 64,
     paired by :func:`_pair_units` for the tiles they share), the two
@@ -171,8 +169,8 @@ def bwd_plan(layout: np.ndarray, block: int, causal: bool, which: str) -> np.nda
     unit 0. The kernel runs each header once per batch row, the B items of
     a header one after another, and deals the items to its persistent
     blocks in that order."""
-    if which == "dkv" and block in GROUP_BLOCKS:
-        return dkv_group_plan(layout, block, causal)[0]
+    if block in GROUP_BLOCKS:
+        return dkv_group_plan(layout, block, causal, which)[0]
     walk = _unit_tiles(layout, block, causal, which)
     H, U, _ = walk.shape
     heads, runs = [], []
@@ -192,44 +190,49 @@ def bwd_plan(layout: np.ndarray, block: int, causal: bool, which: str) -> np.nda
     return np.concatenate([header.ravel()] + [runs[i] for i in order]).astype(np.int32)
 
 
-# blocks whose dk/dv units gather several key blocks (64 / block of them)
+# blocks whose units gather several blocks (64 / block of them): key blocks
+# for dk/dv, query blocks for the forward and dq
 GROUP_BLOCKS = (16, 32)
 
 
-def _union_tiles(blocks, lists, G: int, causal: bool):
-    """A unit's tiles: the union of its key blocks' query lists, ascending,
-    G query blocks at a time (the last tile short); under the causal rule
-    the query blocks before its first key block are dropped first (every
-    pair of theirs is masked)."""
+def _union_tiles(blocks, lists, G: int, causal: bool, which: str):
+    """A unit's tiles: the union of its blocks' lists, ascending, G blocks
+    at a time (the last tile short); under the causal rule the blocks
+    wholly masked for every block of the unit are dropped first: for dk/dv
+    the query blocks before its first key block, for dq the key blocks
+    after its last query block."""
     union = sorted(set().union(*(lists[j] for j in blocks)))
     if causal:
-        union = [qb for qb in union if qb >= min(blocks)]
+        union = ([b for b in union if b >= min(blocks)] if which == "dkv" else
+                 [b for b in union if b <= max(blocks)])
     return [tuple(union[t: t + G]) for t in range(0, len(union), G)]
 
 
-def _group_units(layout_h: np.ndarray, block: int, causal: bool):
-    """One head's dk/dv units at a block of 16 or 32 → [key blocks], each
-    list ascending and up to ``G = 64 / block`` long. Key blocks whose query
-    lists (qidx rows) are equal form groups, cut into units of G blocks in
-    order (BERT's fixed layout: its 3 local blocks of a window, 4 of its 8
-    global ones). A short unit left over then takes other short units, the
-    best of the next 8 (the nearest on a tie), while that costs no more tiles
-    than walking them apart (:func:`_union_tiles`: the union of the lists
-    a tile per G query blocks), so layouts whose lists rarely repeat
-    (bigbird's random blocks) still fill their 64-row units. A block no
-    query lists stays in a unit, which stores its zeros."""
+def _group_units(lists, block: int, causal: bool, which: str):
+    """One head's units at a block of 16 or 32 → [unit blocks], each list
+    ascending and up to ``G = 64 / block`` long, from ``lists[j]``, the
+    blocks that block j walks (for dk/dv key block j's query list, a qidx
+    row; for dq query block j's key list, a kidx row). Blocks whose lists
+    are equal form groups, cut into units of G blocks in order (BERT's fixed
+    layout: for dk/dv the 3 local key blocks of a window and 4 of its 8
+    global ones, for dq the 4 query blocks of a window). A short unit left
+    over then takes other short units, the best of the next 8 (the nearest
+    on a tie), while that costs no more tiles than walking them apart
+    (:func:`_union_tiles`: the union of the lists a tile per G blocks), so
+    layouts whose lists rarely repeat (bigbird's random blocks) still fill
+    their 64-row units. A block with an empty list stays in a unit, which
+    stores its zeros (dk/dv) or its poisoned rows (the forward)."""
     G = TILE // block
-    lists = [set(np.nonzero(layout_h[:, j])[0].tolist()) for j in range(layout_h.shape[1])]
     groups: Dict[tuple, list] = {}
     for j, lst in enumerate(lists):
         groups.setdefault(tuple(sorted(lst)), []).append(j)
     full, short = [], []
-    for keys in groups.values():
-        for s in range(0, len(keys), G):
-            (full if len(keys[s: s + G]) == G else short).append(keys[s: s + G])
+    for blocks in groups.values():
+        for s in range(0, len(blocks), G):
+            (full if len(blocks[s: s + G]) == G else short).append(blocks[s: s + G])
     short.sort()
     units, window = full, 8
-    cost = lambda blocks: len(_union_tiles(blocks, lists, G, causal))  # noqa: E731
+    cost = lambda blocks: len(_union_tiles(blocks, lists, G, causal, which))  # noqa: E731
     while short:
         unit = short.pop(0)
         while len(unit) < G:
@@ -243,31 +246,39 @@ def _group_units(layout_h: np.ndarray, block: int, causal: bool):
                 break
             unit = sorted(unit + short.pop(best))
         units.append(unit)
-    return [(sorted(u), _union_tiles(u, lists, G, causal)) for u in units], lists
+    return [(sorted(u), _union_tiles(u, lists, G, causal, which)) for u in units]
 
 
-def dkv_group_plan(layout: np.ndarray, block: int, causal: bool) -> Tuple[np.ndarray, int]:
-    """dk/dv's schedule at blocks of 16 and 32 for one batch row → (flat
-    int32, the number of headers). A unit is up to ``G = 64 / block`` key
-    blocks of one head (:func:`_group_units`), loaded into one 64-row tile a
+def dkv_group_plan(layout: np.ndarray, block: int, causal: bool,
+                   which: str = "dkv") -> Tuple[np.ndarray, int]:
+    """The grouped schedule at blocks of 16 and 32 for one batch row →
+    (flat int32, the number of headers): dk/dv's (``which`` "dkv"), or the
+    query side's mirror (``which`` "dq"), which dq and the forward both
+    walk. A unit is up to ``G = 64 / block`` blocks of one head (key blocks
+    for dk/dv, query blocks for dq; :func:`_group_units`, on the layout's
+    columns for dk/dv and its rows for dq), loaded into one 64-row tile a
     block at a time; rows past its blocks are padding, masked and never
     stored. An item is two units of one head paired by :func:`_pair_units`
     for the tiles they share, each a consumer warpgroup's. A header is ``4 +
-    2 G`` ints: (head, offset, tile count, 0, unit 0's key blocks, unit 1's
-    key blocks), -1 past a unit's blocks and for a missing unit 1; headers
+    2 G`` ints: (head, offset, tile count, 0, unit 0's blocks, unit 1's
+    blocks), -1 past a unit's blocks and for a missing unit 1; headers
     heaviest first, ties by head and first block. From the offset on (after
-    the headers), a tile is G ints, its query blocks, ``block * 256 + m1 *
-    16 + m0``, -1 past the last (padding): bit j of ``m_c`` says that key
-    block j of unit c lists this query block (0 where unit c does not walk
-    the tile). The kernel loads a tile whose G blocks are consecutive as one
-    64-row box, any other a block at a time."""
-    if block not in GROUP_BLOCKS:
-        raise ValueError(f"dkv_group_plan: block {block} not in {GROUP_BLOCKS}")
+    the headers), a tile is G ints, the blocks of the other side (query
+    blocks for dk/dv, key blocks for dq), ``block * 256 + m1 * 16 + m0``, -1
+    past the last (padding): bit j of ``m_c`` says that block j of unit c
+    lists this block (0 where unit c does not walk the tile). The kernels
+    load a tile whose G blocks are consecutive as one 64-row box, any other
+    a block at a time."""
+    if block not in GROUP_BLOCKS or which not in ("dq", "dkv"):
+        raise ValueError(f"dkv_group_plan: block {block} not in {GROUP_BLOCKS}, or kernel "
+                         f"{which!r} is not 'dq' / 'dkv'")
     layout = np.asarray(layout, bool)
     G = TILE // block
     heads, runs = [], []
     for h in range(layout.shape[0]):
-        units, lists = _group_units(layout[h], block, causal)
+        lay = layout[h] if which == "dkv" else layout[h].T  # [other block, unit block]
+        lists = [set(np.nonzero(lay[:, j])[0].tolist()) for j in range(lay.shape[1])]
+        units = _group_units(lists, block, causal, which)
         names = sorted({t for _, tiles in units for t in tiles})
         walk = np.zeros((len(units), len(names)), bool)
         for u, (_, tiles) in enumerate(units):
@@ -276,15 +287,15 @@ def dkv_group_plan(layout: np.ndarray, block: int, causal: bool) -> Tuple[np.nda
             either = np.nonzero(walk[a] | (walk[b] if b >= 0 else False))[0]
             recs = np.full((len(either), G), -1, np.int64)
             for r, t in enumerate(either):
-                for g, qb in enumerate(names[t]):
-                    masks = [sum(1 << j for j, kb in enumerate(units[u][0]) if qb in lists[kb])
+                for g, ob in enumerate(names[t]):
+                    masks = [sum(1 << j for j, ub in enumerate(units[u][0]) if ob in lists[ub])
                              if u >= 0 and walk[u, t] else 0 for u in (a, b)]
-                    recs[r, g] = qb * 256 + masks[1] * 16 + masks[0]
-            keys = np.full(2 * G, -1, np.int64)
+                    recs[r, g] = ob * 256 + masks[1] * 16 + masks[0]
+            blocks = np.full(2 * G, -1, np.int64)
             for c, u in enumerate((a, b)):
                 if u >= 0:
-                    keys[c * G: c * G + len(units[u][0])] = units[u][0]
-            heads.append((h, keys))
+                    blocks[c * G: c * G + len(units[u][0])] = units[u][0]
+            heads.append((h, blocks))
             runs.append(recs)
     order = sorted(range(len(heads)), key=lambda i: (-len(runs[i]), heads[i][0],
                                                      heads[i][1][0]))
@@ -300,8 +311,9 @@ def dkv_group_plan(layout: np.ndarray, block: int, causal: bool) -> Tuple[np.nda
 
 @dataclass(frozen=True, eq=False)
 class IndexLists:
-    """A layout and its index lists on one device, and the backward's
-    schedules (:func:`bwd_plan`), built at first use and kept."""
+    """A layout and its index lists on one device, and the wgmma kernels'
+    schedules (:func:`bwd_plan`: "dq", which the forward walks too, and
+    "dkv"), built at first use and kept."""
 
     layout: np.ndarray  # [H, nQ, nK] bool, on the host
     block: int
@@ -315,8 +327,8 @@ class IndexLists:
         key = (which, bool(causal))
         hit = self.plans.get(key)
         if hit is None:
-            if which == "dkv" and self.block in GROUP_BLOCKS:
-                flat, n = dkv_group_plan(self.layout, self.block, causal)
+            if self.block in GROUP_BLOCKS:
+                flat, n = dkv_group_plan(self.layout, self.block, causal, which)
             else:  # ceil(U / 2) headers a head, U = S / 64
                 flat = bwd_plan(self.layout, self.block, causal, which)
                 H, nb = self.layout.shape[:2]
@@ -511,23 +523,22 @@ def _check(name, q, lists: IndexLists, tensors):
             )
 
 
-def wgmma_route(q, block: int, which: str) -> bool:
-    """The rule of kernel ``which`` ("fwd", "dq" or "dkv") on shapes alone:
-    q in bf16/fp16 with head dim 64 or 128 takes the TMA + wgmma kernel at
-    the blocks ``WGMMA_BLOCKS[which]`` names (q, k, v and dO read through
-    TMA tensor maps, which need positive batch, sequence and head strides
-    under 2^40 bytes): dk/dv at every block, its units gathering key blocks
-    at 16 and 32; the forward and dq at 64 and 128, and the
-    mma.sync kernels at 16 and 32 (a query unit of 64 rows would span blocks
-    with lists of their own). fp32 takes the FMA kernels."""
-    return q.dtype in TMA_DTYPES and q.shape[-1] in HEAD_DIMS and block in WGMMA_BLOCKS[which]
+def wgmma_route(q) -> bool:
+    """The kernels' rule on q's dtype and head dim alone: bf16/fp16 at head
+    dim 64 or 128 take the TMA + wgmma kernels, the forward, dq and dk/dv
+    alike, at every block (q, k, v and dO read through TMA tensor maps,
+    which need positive batch, sequence and head strides under 2^40 bytes;
+    at blocks of 16 and 32 a unit gathers query blocks for the forward and
+    dq, key blocks for dk/dv, into 64 rows). fp32 takes the FMA kernels;
+    other head dims raise."""
+    return q.dtype in TMA_DTYPES and q.shape[-1] in HEAD_DIMS
 
 
 def _plan_args(name, which, lists: IndexLists, causal, **tensors) -> Tuple[int, int]:
     """The schedule's pointer and header count on the wgmma route (after the
     TMA maps' stride check of ``tensors``), (0, 0) on the others. The
     forward walks dq's schedule."""
-    if not wgmma_route(tensors["q"], lists.block, "dkv" if which == "dkv" else "dq"):
+    if not wgmma_route(tensors["q"]):
         return 0, 0
     _check_tma(name, tensors)
     return lists.bwd_plan(which, causal).data_ptr(), lists.plan_items(which, causal)
@@ -561,13 +572,13 @@ def block_sparse_attention_fwd(q, k, v, lists: IndexLists, causal: bool = False,
     lse = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
     if B == 0:
         return o, lse
-    plan, _ = _plan_args(name, "dq", lists, causal, q=q, k=k, v=v)
+    plan, n_headers = _plan_args(name, "dq", lists, causal, q=q, k=k, v=v)
     from .op_builder import load
 
     lib = load(name)
     err = lib.block_sparse_attention_fwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        lists.kidx.data_ptr(), lists.kcnt.data_ptr(), plan,
+        lists.kidx.data_ptr(), lists.kcnt.data_ptr(), plan, n_headers,
         B, S, H, D, lists.block, lists.kidx.shape[2],
         *_strides3(q), *_strides3(k), *_strides3(v),
         int(bool(causal)), ctypes.c_float(_scale(D, sm_scale)), DTYPE_CODES[q.dtype], _stream(q),
@@ -592,14 +603,14 @@ def block_sparse_attention_dq(q, k, v, do, lse, delta, lists: IndexLists, causal
     dq = torch.empty(B, S, H, D, dtype=q.dtype, device=q.device)
     if B == 0:
         return dq
-    plan, _ = _plan_args(name, "dq", lists, causal, q=q, k=k, v=v, do=do)
+    plan, n_headers = _plan_args(name, "dq", lists, causal, q=q, k=k, v=v, do=do)
     from .op_builder import load
 
     lib = load("block_sparse_attention_bwd")
     err = lib.block_sparse_attention_dq_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), lists.kidx.data_ptr(), lists.kcnt.data_ptr(), plan,
-        B, S, H, D, lists.block, lists.kidx.shape[2],
+        n_headers, B, S, H, D, lists.block, lists.kidx.shape[2],
         *_strides3(q), *_strides3(k), *_strides3(v), *_strides3(do),
         int(bool(causal)), ctypes.c_float(_scale(D, sm_scale)), DTYPE_CODES[q.dtype], _stream(q),
     )

@@ -58,7 +58,7 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "block_sparse_attention_fwd": {
         "block_sparse_attention_fwd_launch": (
             [_P] * 8                           # q, k, v, o, lse, kidx, kcnt, plan
-            + [_I] * 6                         # B, S, H, D, block, maxK
+            + [_I] * 7                         # plan headers, B, S, H, D, block, maxK
             + [_L] * 9                         # q, k, v strides (batch, seq, head)
             + [_I, _F, _I, _P],                # causal, sm_scale, dtype, stream
             ctypes.c_int,
@@ -67,7 +67,7 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "block_sparse_attention_bwd": {
         "block_sparse_attention_dq_launch": (
             [_P] * 10                          # q, k, v, do, lse, delta, dq, kidx, kcnt, plan
-            + [_I] * 6                         # B, S, H, D, block, maxK
+            + [_I] * 7                         # plan headers, B, S, H, D, block, maxK
             + [_L] * 12                        # q, k, v, do strides (batch, seq, head)
             + [_I, _F, _I, _P],                # causal, sm_scale, dtype, stream
             ctypes.c_int,

@@ -14,13 +14,20 @@ turns" compute wrong outputs and exist only to be timed.
 - ``bsparse_fwd`` (``csrc/block_sparse_attention_fwd.cu``): whole; without
   the exponentials (each ``ex2`` call replaced by its argument); without
   the two consumer warpgroups' turns on the tensor cores; without its O
-  and lse stores.
+  and lse stores; without its last product (O += P V); the producer only
+  (the consumers release each stage as it lands: the pace of the loads);
+  on the grouped plan (blocks of 16 and 32) each streamed tile loaded as
+  one 64-row box, whole and producer only (wrong data, the same bytes:
+  whether the count of TMA boxes sets the producer's pace).
 - ``bsparse_bwd`` (``csrc/block_sparse_attention_bwd.cu``): dq and dk/dv
   whole; without the exponentials; without each kernel's last product
-  (dK += dS^T Q in dk/dv, dQ += dS K in dq); without both.
+  (dK += dS^T Q in dk/dv, dQ += dS K in dq); without both; dq's producer
+  only, dq's tiles one box each, and both (dk/dv whole in these three).
   Both block-sparse kernels at ``chip_smoke.py`` phase 10's GPT-2 shape (B2
-  S4096 H16 D64 bf16, fixed unidirectional block 64) and at B1 H4 (an
-  eighth of its work: few items a block, so the time per step shows).
+  S4096 H16 D64 bf16, fixed unidirectional block 64), at B1 H4 (an eighth
+  of its work: few items a block, so the time per step shows), and at its
+  BERT shape (B16 S512 H16 D64 bf16, fixed bidirectional block 16: the
+  grouped units).
 - ``multitoken`` (``csrc/paged_multitoken_attention.cu``, its tensor-core
   route): whole; without its products (every ``mma.sync`` left out, with
   the fragment loads that feed them); without the merge of the split's
@@ -51,6 +58,33 @@ from deepspeed_tpu_torch.tools.time_attention_kernels import time_ms
 EXP = ('#include "block_sparse_attention_common.cuh"\n',
        '#include "block_sparse_attention_common.cuh"\n#ifdef ABLATE_EXP\n#define ex2(x) (x)\n'
        '#endif\n')
+# the grouped forward's and dq's streamed K/V tiles each as one 64-row box
+# (wrong data, the same bytes: whether the boxes' count holds the producer)
+ONEBOX = ("            const bool run = tile_blocks<G>(t[q], kb);\n",
+          "#ifdef ABLATE_ONEBOX\n            const bool run = (tile_blocks<G>(t[q], kb), true);\n"
+          "#else\n            const bool run = tile_blocks<G>(t[q], kb);\n#endif\n")
+
+
+def producer_only(item):
+    """Code put before a consumer's first line: under ABLATE_PRODUCER it
+    waits for each item's own rows and each step's stage and hands them
+    straight back, then returns (``item`` is the tile count of item i)."""
+    return ("#ifdef ABLATE_PRODUCER\n"
+            "  for (int r = 0, ki = 0, it = 0; r * (int)gridDim.x < n_items; ++r) {\n"
+            "    const int i = round_item(r, n_items);\n"
+            "    if (i < 0) continue;\n"
+            "    int n;\n"
+            f"    if constexpr (G == 1) n = {item[0]}; else n = {item[1]};\n"
+            "    mbar_wait(&q_full[ki % QB], (ki / QB) & 1);\n"
+            "    for (int u = 0; u < (n + P - 1) / P; ++u, ++it) {\n"
+            "      mbar_wait(&full[it % STAGES], (it / STAGES) & 1);\n"
+            "      if (threadIdx.x % 128 == 0) mbar_arrive(&empty[it % STAGES]);\n"
+            "    }\n"
+            "    if (threadIdx.x % 128 == 0) mbar_arrive(&q_empty[ki % QB]);\n"
+            "    ++ki;\n"
+            "  }\n"
+            "  return;\n"
+            "#endif\n")
 # per kernel: its source, (text in the source, its replacement) each
 # guarded by a macro, and the variants' macros
 KERNELS = {
@@ -65,17 +99,32 @@ KERNELS = {
                              "{ hopper::named_arrive(bar, 256); }\n",
                              "__device__ __forceinline__ void turn_pass(int bar) "
                              "{ hopper::named_arrive(bar, 256); }\n#endif\n"),
-        "ABLATE_STORE": ("    if (owned) {\n      // O through shared memory",
-                         "#ifdef ABLATE_STORE\n    if (owned && inv[0] == -1.f) {\n#else\n"
-                         "    if (owned) {\n#endif\n      // O through shared memory"),
+        "ABLATE_STORE": ("    } else if (owned) {\n      // O through shared memory",
+                         "#ifdef ABLATE_STORE\n    } else if (owned && inv[0] == -1.f) {\n#else\n"
+                         "    } else if (owned) {\n#endif\n      // O through shared memory"),
+        "ABLATE_STORE_WARP": ("      if (owned)\n        store_warp_rows<T, D>(&to,",
+                              "#ifndef ABLATE_STORE\n      if (owned)\n#else\n"
+                              "      if (owned && inv[0] == -1.f)\n#endif\n"
+                              "        store_warp_rows<T, D>(&to,"),
         "ABLATE_STORE_LSE": ("      if (owned && t == 0)\n",
                              "#ifdef ABLATE_STORE\n      if (owned && t == 0 && inv[hr] == -1.f)\n"
                              "#else\n      if (owned && t == 0)\n#endif\n"),
+        "ABLATE_LAST": ("  issue_rs<T, D, TN>(acc, pa, v_addr);\n",
+                        "#ifndef ABLATE_LAST\n  issue_rs<T, D, TN>(acc, pa, v_addr);\n#endif\n"),
+        "ABLATE_PRODUCER": ("  float m[2], l[2];\n",
+                            producer_only(("fwd_item(i, plan, n_pairs, p).n",
+                                           "fwd_group_item<G>(i, plan, n_pairs, p).n"))
+                            + "  float m[2], l[2];\n"),
+        "ABLATE_ONEBOX": ONEBOX,
     }, {
         "whole": [],
         "no exponentials": ["-DABLATE_EXP"],
         "no turns": ["-DABLATE_TURNS"],
         "no O/lse stores": ["-DABLATE_STORE"],
+        "no last product": ["-DABLATE_LAST"],
+        "producer only": ["-DABLATE_PRODUCER"],
+        "one box a tile": ["-DABLATE_ONEBOX"],
+        "producer only, one box a tile": ["-DABLATE_PRODUCER", "-DABLATE_ONEBOX"],
     }),
     "bsparse_bwd": ("block_sparse_attention_bwd", {
         "ABLATE_EXP": EXP,
@@ -85,11 +134,19 @@ KERNELS = {
         "ABLATE_LAST_DQ": ("      issue_rs<T, D, TN>(dqa, da, k_addr);\n",
                            "#ifndef ABLATE_LAST\n      issue_rs<T, D, TN>(dqa, da, k_addr);\n"
                            "#endif\n"),
+        "ABLATE_PRODUCER": ("  float dqa[D / 2];\n",
+                            producer_only(("plan_item(i, plan, n_pairs, p).n",
+                                           "group_item<G>(i, plan, n_pairs, p).n"))
+                            + "  float dqa[D / 2];\n"),
+        "ABLATE_ONEBOX": ONEBOX,
     }, {
         "whole": [],
         "no exponentials": ["-DABLATE_EXP"],
         "no last product": ["-DABLATE_LAST"],
         "no exponentials, no last product": ["-DABLATE_EXP", "-DABLATE_LAST"],
+        "dq producer only": ["-DABLATE_PRODUCER"],
+        "dq one box a tile": ["-DABLATE_ONEBOX"],
+        "dq producer only, one box a tile": ["-DABLATE_PRODUCER", "-DABLATE_ONEBOX"],
     }),
     "multitoken": ("paged_multitoken_attention", {
         "ABLATE_PRODUCTS": ("// ---- the tensor-core route ---",
@@ -106,7 +163,9 @@ KERNELS = {
         "no merge": ["-DABLATE_MERGE"],
     }),
 }
-SHAPES = [(2, 4096, 16), (1, 4096, 4)]
+# (B, S, H, sparse_attention section, causal): GPT-2's, and BERT's default
+SHAPES = [(2, 4096, 16, GPT2_SPARSE_SECTION, True), (1, 4096, 4, GPT2_SPARSE_SECTION, True),
+          (16, 512, 16, {"mode": "fixed"}, False)]
 MT_BASES = [0, 64, 256, 448]
 
 
@@ -147,24 +206,25 @@ def build_variants(which: str) -> dict:
 
 
 def bsparse_cases():
-    """(label, call) of the block-sparse kernels at the two shapes."""
+    """(label, call) of the block-sparse kernels at the three shapes."""
     D = 64
-    for B, S, H in SHAPES:
+    for B, S, H, section, c in SHAPES:
         g = torch.Generator(device="cuda").manual_seed(0)
         qkv = torch.randn(B, S, 3 * H * D, generator=g, device="cuda").bfloat16()
         q, k, v = (t.unflatten(-1, (H, D)) for t in qkv.split(H * D, dim=-1))
         do = (torch.randn(B, S, H, D, generator=g, device="cuda") * 0.1).bfloat16()
-        lists = bsa.index_lists(from_ds_config(GPT2_SPARSE_SECTION, H), S, "cuda")
-        o, lse = bsa.block_sparse_attention_fwd(q, k, v, lists, True)
+        lists = bsa.index_lists(from_ds_config(section, H), S, "cuda")
+        o, lse = bsa.block_sparse_attention_fwd(q, k, v, lists, c)
         delta = bsa.block_sparse_delta(o, do)
-        yield {"bsparse_fwd": [(f"B{B} S{S} H{H} fwd",
-                                lambda i: bsa.block_sparse_attention_fwd(q, k, v, lists, True))],
-               "bsparse_bwd": [(f"B{B} S{S} H{H} dq",
+        tag = f"B{B} S{S} H{H} blk{lists.block}"
+        yield {"bsparse_fwd": [(f"{tag} fwd",
+                                lambda i: bsa.block_sparse_attention_fwd(q, k, v, lists, c))],
+               "bsparse_bwd": [(f"{tag} dq",
                                 lambda i: bsa.block_sparse_attention_dq(q, k, v, do, lse, delta,
-                                                                        lists, True)),
-                               (f"B{B} S{S} H{H} dkv",
+                                                                        lists, c)),
+                               (f"{tag} dkv",
                                 lambda i: bsa.block_sparse_attention_dkv(q, k, v, do, lse, delta,
-                                                                         lists, True))]}
+                                                                         lists, c))]}
 
 
 def multitoken_cases():

@@ -162,33 +162,35 @@ def test_plan_is_cached_in_the_index_lists():
 
 
 def test_plan_refuses_blocks_the_route_does_not_take():
-    """dq's (and so the forward's) plan takes blocks of 64 and 128 only;
-    dk/dv's takes 16 and 32 too, as its grouped plan, and refuses 8."""
+    """Both sides' plans take blocks of 16 and 32 as grouped plans (dq's,
+    which the forward walks too, the query side's) and 64 and 128 as paired
+    64-row units; both refuse 8."""
     layout = np.ones((1, 8, 8), bool)
     for blk in (16, 32):
+        for which in ("dq", "dkv"):
+            plan = tbsa.bwd_plan(layout, blk, True, which)
+            np.testing.assert_array_equal(plan,
+                                          tbsa.dkv_group_plan(layout, blk, True, which)[0])
+        np.testing.assert_array_equal(tbsa.bwd_plan(layout, blk, True, "dkv"),
+                                      tbsa.dkv_group_plan(layout, blk, True)[0])
+    for which in ("dq", "dkv"):
         with pytest.raises(ValueError, match="multiple of 64"):
-            tbsa.bwd_plan(layout, blk, True, "dq")
-        plan = tbsa.bwd_plan(layout, blk, True, "dkv")
-        np.testing.assert_array_equal(plan, tbsa.dkv_group_plan(layout, blk, True)[0])
-    with pytest.raises(ValueError, match="multiple of 64"):
-        tbsa.bwd_plan(layout, 8, True, "dkv")
+            tbsa.bwd_plan(layout, 8, True, which)
     with pytest.raises(ValueError, match="block 64"):
         tbsa.dkv_group_plan(layout, 64, True)
+    with pytest.raises(ValueError, match="'fwd'"):
+        tbsa.dkv_group_plan(layout, 16, True, "fwd")
 
 
 def test_wgmma_route_rule():
-    """A rule per kernel on shapes alone: dk/dv takes wgmma at blocks
-    16-128, the forward and dq at 64 and 128; fp32 and other head dims
-    never."""
+    """A rule on dtype and head dim alone, the same for the forward, dq and
+    dk/dv at every block (16-128): bf16/fp16 at D 64 or 128 take wgmma;
+    fp32 and other head dims never."""
     q = torch.zeros(1, 256, 2, 64, dtype=torch.bfloat16)
-    for which in ("fwd", "dq", "dkv"):
-        assert tbsa.wgmma_route(q, 64, which) and tbsa.wgmma_route(q.half(), 128, which)
-        assert not tbsa.wgmma_route(q.float(), 64, which)
-        assert not tbsa.wgmma_route(q[..., :32], 64, which)
-        assert not tbsa.wgmma_route(q.float(), 16, which)
-    for blk in (16, 32):
-        assert tbsa.wgmma_route(q, blk, "dkv") and tbsa.wgmma_route(q.half(), blk, "dkv")
-        assert not tbsa.wgmma_route(q, blk, "fwd") and not tbsa.wgmma_route(q, blk, "dq")
+    assert tbsa.wgmma_route(q) and tbsa.wgmma_route(q.half())
+    assert tbsa.wgmma_route(torch.zeros(1, 256, 2, 128, dtype=torch.float16))
+    assert not tbsa.wgmma_route(q.float())
+    assert not tbsa.wgmma_route(q[..., :32]) and not tbsa.wgmma_route(q.float()[..., :32])
 
 
 # ---------------------------------------------------------------------------
@@ -638,3 +640,212 @@ def test_group_walk_matches_pallas_interpret(label):
     back = lambda x: np.asarray(x).transpose(0, 2, 1, 3)  # noqa: E731
     for got, ref in zip((dk, dv), grads_j[1:]):
         np.testing.assert_allclose(got.numpy(), back(ref), atol=GRAD_TOL, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# the forward and dq at blocks of 16 and 32: the query side's grouped plan
+# and plain models of the two kernels' walks on it
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("label", list(GROUP_CASES))
+def test_query_group_plan_covers_every_kept_pair_once(label):
+    """The mirror of dk/dv's check on dq's grouped plan (the forward's too):
+    every (query, key) pair the layout and the causal rule keep is computed
+    by exactly one query unit, and no other pair (a tile entry's bit for a
+    query block is set only where that block lists the key block); every
+    query block is in exactly one unit, padding slots last; the two units
+    of an item are one head's; headers heaviest first; each tile's key
+    blocks ascend, padding last, each real entry taken by a query block of
+    the item; under the causal rule no tile holds a key block past its
+    unit's last query block."""
+    make, block, causal = GROUP_CASES[label]
+    H, S = 2, 512
+    G = TILE // block
+    layout = make(H, S)
+    plan, n = tbsa.dkv_group_plan(layout, block, causal, "dq")
+    keep = np.repeat(np.repeat(layout, block, 1), block, 2)  # [H, query, key]
+    if causal:
+        keep = keep & np.tril(np.ones((S, S), bool))[None]
+    cover = np.zeros((H, S, S), np.int64)
+    owner = np.zeros((H, S // block), np.int64)
+    counts = []
+    for h, u0, u1, recs in _group_items(plan, n, block):
+        counts.append(len(recs))
+        real = recs >= 0
+        assert u0[0] >= 0 and np.all(real[:, 0]) and np.all(recs[real] & 255)
+        assert np.all(real[:, :-1] | ~real[:, 1:])
+        for r, m in zip(recs >> 8, real):
+            assert np.all(np.diff(r[m]) > 0)
+        for c, unit in enumerate((u0, u1)):
+            blocks = unit[unit >= 0]
+            assert np.all(unit[: len(blocks)] >= 0) and len(blocks) <= G
+            if c == 1 and len(blocks) == 0:
+                assert not np.any(recs[real] & (15 << 4))
+                continue
+            owner[h, blocks] += 1
+            walked = recs[real & ((recs >> (4 * c)) & 15 != 0)] >> 8
+            if causal:
+                assert np.all(walked <= blocks.max())
+            for j, qb in enumerate(blocks):
+                for kb in recs[real & ((recs >> (4 * c + j)) & 1 == 1)] >> 8:
+                    tri = np.tril(np.ones((block, block), np.int64), (qb - kb) * block)
+                    cover[h, qb * block: qb * block + block,
+                          kb * block: kb * block + block] += 1 if not causal else tri
+    np.testing.assert_array_equal(owner, 1)
+    np.testing.assert_array_equal(cover, keep.astype(np.int64))
+    assert counts == sorted(counts, reverse=True)
+
+
+def test_query_group_plan_at_berts_layout():
+    """BERT's default section at S512: the 4 query blocks of a window list
+    the same 11 key blocks (the window's 4 and the other 7 global ones), so
+    a head's 32 query blocks form 8 full units with no padding row, paired
+    into 4 items that stream 18 tiles of 64 keys; 98,304 scored pairs a head
+    against the layout's 90,112, as for dk/dv."""
+    layout = from_ds_config({"mode": "fixed", "block": 16}, 16).make_layout(512)
+    plan, n = tbsa.dkv_group_plan(layout, 16, False, "dq")
+    items = _group_items(plan, n, 16)
+    assert n == 16 * 4 and len(items) == n
+    for h in range(16):
+        mine = [it for it in items if it[0] == h]
+        assert sum(len(it[3]) for it in mine) == 18
+        units = [u for _, u0, u1, _ in mine for u in (u0, u1)]
+        assert all(np.all(u >= 0) for u in units)  # no padding slot
+        np.testing.assert_array_equal(np.sort(np.concatenate(units)), np.arange(32))
+        for u in units:
+            np.testing.assert_array_equal(u, 4 * (u[0] // 4) + np.arange(4))
+    scored = sum(64 * 64 * int(np.sum((r[:, 0] >> (4 * c)) & 15 != 0)) for _, u0, u1, r in items
+                 for c, u in enumerate((u0, u1)) if u[0] >= 0)
+    assert scored == 16 * 98304 and int(layout.sum()) * 16 * 16 == 16 * 90112
+
+
+def test_query_group_plan_is_cached_once_for_the_forward_and_dq():
+    """One "dq" plan per causal flag in ``IndexLists``, built at first use:
+    the forward and dq both take ``bwd_plan("dq", causal)`` and its header
+    count, the grouped plan's."""
+    lists = tbsa.index_lists(from_ds_config({"mode": "fixed", "block": 16}, 4), 512, "cpu")
+    plan = lists.bwd_plan("dq", False)
+    assert lists.bwd_plan("dq", False) is plan and plan.dtype == torch.int32
+    flat, n = tbsa.dkv_group_plan(lists.layout, 16, False, "dq")
+    np.testing.assert_array_equal(plan.numpy(), flat)
+    assert lists.plan_items("dq", False) == n == 4 * 4
+    assert lists.plans[("dq", False)][0] is plan and ("fwd", False) not in lists.plans
+    lists.bwd_plan("dkv", False)
+    assert lists.bwd_plan("dq", False) is plan
+
+
+def _query_group_walk(q, k, v, do, lse, delta, lists, causal, sm_scale, step_tiles):
+    """The grouped forward and dq kernels' walks in plain PyTorch: dq's plan
+    items in order; each unit's 64 query rows (a padding slot repeats the
+    unit's first block), each step's ``step_tiles`` tiles of 64 key rows (a
+    padding slot repeats the tile's first block), a (query block, key
+    block) pair whose mask bit is clear, padding keys and the pairs the
+    causal rule drops masked: -inf for the forward's online softmax from m
+    = -1e30 (P rounded to q's dtype for P·V), p = 0 for dq (dS rounded,
+    dQ scaled once); one store of the unit's real rows, a row that kept
+    nothing o = 0 and lse = +1e30. → (o, lse, dq, how often each query row
+    was stored [B, S, H])."""
+    B, S, H, D = q.shape
+    blk = lists.block
+    dt = q.dtype
+    items = _group_items(lists.bwd_plan("dq", causal).numpy(), lists.plan_items("dq", causal),
+                         blk)
+    o, dq = torch.zeros(B, S, H, D), torch.zeros(B, S, H, D)
+    lse_o = torch.zeros(B, H, S)
+    stored = torch.zeros(B, S, H, dtype=torch.int64)
+    for h, u0, u1, recs in items:
+        for bb in range(B):
+            for c, unit in enumerate((u0, u1)):
+                if unit[0] < 0:
+                    continue
+                qr, qreal = (torch.from_numpy(x) for x in _rows(unit, blk, unit[0]))
+                qt, dot = q[bb, qr, h].float(), do[bb, qr, h].float()
+                m = torch.full((TILE,), -1e30)
+                l, acc, adq = torch.zeros(TILE), torch.zeros(TILE, D), torch.zeros(TILE, D)
+                for j in range(0, len(recs), step_tiles):
+                    step = recs[j: j + step_tiles]
+                    kr, kreal, bit = [], [], []
+                    for rec in step:
+                        rows, real = _rows([x >> 8 if x >= 0 else -1 for x in rec], blk,
+                                           rec[0] >> 8)
+                        kr.append(rows)
+                        kreal.append(real)
+                        bit.append(np.array([[x >= 0 and (x >> (4 * c + qs)) & 1 for x in rec]
+                                             for qs in range(len(unit))], bool))
+                    kr, kreal = torch.from_numpy(np.concatenate(kr)), torch.from_numpy(
+                        np.concatenate(kreal))
+                    bit = torch.from_numpy(np.concatenate(bit, 1).repeat(blk, 0).repeat(blk, 1))
+                    keep = qreal[:, None] & kreal[None, :] & bit  # [query, key]
+                    if causal:
+                        keep = keep & (kr[None, :] <= qr[:, None])
+                    kt, vt = k[bb, kr, h].float(), v[bb, kr, h].float()
+                    s = qt @ kt.T * sm_scale
+                    sm = s.masked_fill(~keep, float("-inf"))
+                    mn = torch.maximum(m, sm.amax(-1))
+                    corr = torch.exp(m - mn)
+                    pf = torch.exp(sm - mn[:, None])
+                    l = l * corr + pf.sum(-1)
+                    acc = acc * corr[:, None] + pf.to(dt).float() @ vt
+                    m = mn
+                    p = torch.exp(s - lse[bb, h, qr, None]).masked_fill(~keep, 0.0)
+                    ds = (p * (dot @ vt.T - delta[bb, h, qr, None])).to(dt).float()
+                    adq += ds @ kt
+                valid = m > -0.5e30
+                lc = l.clamp_min(1e-30)
+                rows = qr[qreal]
+                o[bb, rows, h] = torch.where(valid[:, None], acc / lc[:, None], 0.0)[qreal]
+                lse_o[bb, h, rows] = torch.where(valid, m + torch.log(lc), 1e30)[qreal]
+                dq[bb, rows, h] = adq[qreal] * sm_scale
+                stored[bb, rows, h] += 1
+    return o.to(dt), lse_o, dq.to(dt), stored
+
+
+@pytest.mark.parametrize("step_tiles", [2, 1])
+@pytest.mark.parametrize("label", list(GROUP_CASES))
+def test_query_group_walk_matches_plain_versions(label, step_tiles):
+    make, block, causal = GROUP_CASES[label]
+    B, S, H, D = 1, 256, 2, 16
+    lists = tbsa.lists_from_layout(make(H, S), block, "cpu")
+    q, k, v, do = (torch.from_numpy(x) for x in _qkv(B, S, H, D, seed=block + 7 * causal))
+    scale = 1.0 / np.sqrt(D)
+    o_r, lse_r = tbsa.block_sparse_attention_fwd_ref(q, k, v, lists, causal)
+    delta = tbsa.block_sparse_delta(o_r, do)
+    o, lse, dq, stored = _query_group_walk(q, k, v, do, lse_r, delta, lists, causal, scale,
+                                           step_tiles)
+    assert torch.equal(stored, torch.ones_like(stored))  # every query row once, no padding row
+    poison = lse_r == 1e30
+    assert torch.equal(lse == 1e30, poison)
+    np.testing.assert_allclose(o.numpy(), o_r.numpy(), atol=WALK_TOL, rtol=0)
+    np.testing.assert_allclose(lse[~poison].numpy(), lse_r[~poison].numpy(), atol=WALK_TOL,
+                               rtol=WALK_TOL)
+    dq_r = tbsa.block_sparse_attention_dq_ref(q, k, v, do, lse_r, delta, lists, causal)
+    np.testing.assert_allclose(dq.numpy(), dq_r.numpy(), atol=WALK_TOL, rtol=0)
+    if label.startswith("custom"):
+        assert poison[:, :, :block].all() and not poison[:, :, block:].any()
+        assert float(o[:, :block].abs().max()) == 0.0 and float(dq[:, :block].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("label", list(GROUP_CASES))
+def test_query_group_walk_matches_pallas_interpret(label):
+    make, block, causal = GROUP_CASES[label]
+    B, S, H, D = 1, 256, 2, 16
+    layout = make(H, S)
+    q, k, v, do = _qkv(B, S, H, D, seed=14)
+    scale = 1.0 / np.sqrt(D)
+    to4 = lambda x: jnp.asarray(x).transpose(0, 2, 1, 3)  # noqa: E731
+    kidx, kcnt, qidx, qcnt = map(jnp.asarray, jbsa.layout_to_index_lists(layout))
+    o_j, lse_j = jbsa._fwd(to4(q), to4(k), to4(v), kidx, kcnt, scale, causal, block, True)
+    dq_j = jbsa._bwd(to4(q), to4(k), to4(v), o_j, lse_j, to4(do), kidx, kcnt, qidx, qcnt,
+                     scale, causal, block, True)[0]
+    lists = tbsa.lists_from_layout(layout, block, "cpu")
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    lse_jt = torch.from_numpy(np.array(lse_j)[..., 0])  # the TPU's 128-lane broadcast
+    back = lambda x: np.asarray(x).transpose(0, 2, 1, 3)  # noqa: E731
+    delta = tbsa.block_sparse_delta(torch.from_numpy(np.array(back(o_j))), tdo)
+    o, lse, dq, _ = _query_group_walk(tq, tk, tv, tdo, lse_jt, delta, lists, causal, scale, 2)
+    np.testing.assert_allclose(o.numpy(), back(o_j), atol=GRAD_TOL, rtol=0)
+    poison = lse_jt.numpy() >= 1e30
+    np.testing.assert_array_equal(lse.numpy() == 1e30, poison)
+    np.testing.assert_allclose(lse.numpy()[~poison], lse_jt.numpy()[~poison], atol=GRAD_TOL,
+                               rtol=0)
+    np.testing.assert_allclose(dq.numpy(), back(dq_j), atol=GRAD_TOL, rtol=0)

@@ -555,15 +555,15 @@ def test_block_sparse_kernels_refuse_what_they_do_not_take(card):
 ])
 def test_block_sparse_wgmma_backward_matches_plain_versions(card, dtype, kind, B, S, H, D, blk,
                                                             causal):
-    assert all(bsa.wgmma_route(torch.zeros(1, 1, 1, D, dtype=dtype), blk, which)
-               for which in ("fwd", "dq", "dkv"))
+    assert bsa.wgmma_route(torch.zeros(1, 1, 1, D, dtype=dtype))
     q, k, v, do = _flash_inputs(card, B, S, H, H, D, dtype, seed=blk + D + S)
     _bs_check(q, k, v, do, bsa.index_lists(_bs_config(kind, H, blk, causal), S, card), causal)
 
 
-# dk/dv's TMA + wgmma kernel at blocks of 16 and 32 on grouped units (the
-# forward and dq on their mma.sync kernels): against the plain versions, and
-# dk/dv equal bit for bit over two calls
+# the TMA + wgmma kernels at blocks of 16 and 32 on grouped units (dk/dv's
+# key units; the forward's and dq's query units, one plan for both): against
+# the plain versions, and o/lse, dq and dk/dv equal bit for bit over two
+# calls
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("kind,B,S,H,D,blk,causal", [
     ("fixed", 2, 512, 4, 64, 16, False),        # BERT's default section
@@ -576,14 +576,18 @@ def test_block_sparse_wgmma_backward_matches_plain_versions(card, dtype, kind, B
 def test_block_sparse_grouped_dkv_matches_plain_versions(card, dtype, kind, B, S, H, D, blk,
                                                          causal):
     q, k, v, do = _flash_inputs(card, B, S, H, H, D, dtype, seed=blk + D + S + 1)
-    assert bsa.wgmma_route(q, blk, "dkv") and not bsa.wgmma_route(q, blk, "dq")
+    assert bsa.wgmma_route(q)
     lists = bsa.index_lists(_bs_config(kind, H, blk, causal), S, card)
     o, _ = _bs_check(q, k, v, do, lists, causal)
-    lse = bsa.block_sparse_attention_fwd(q, k, v, lists, causal)[1]
+    o1, lse = bsa.block_sparse_attention_fwd(q, k, v, lists, causal)
+    o2, lse2 = bsa.block_sparse_attention_fwd(q, k, v, lists, causal)
     delta = bsa.block_sparse_delta(o, do)
-    first = bsa.block_sparse_attention_dkv(q, k, v, do, lse, delta, lists, causal)
-    again = bsa.block_sparse_attention_dkv(q, k, v, do, lse, delta, lists, causal)
+    first = (bsa.block_sparse_attention_dq(q, k, v, do, lse, delta, lists, causal),
+             *bsa.block_sparse_attention_dkv(q, k, v, do, lse, delta, lists, causal))
+    again = (bsa.block_sparse_attention_dq(q, k, v, do, lse, delta, lists, causal),
+             *bsa.block_sparse_attention_dkv(q, k, v, do, lse, delta, lists, causal))
     torch.cuda.synchronize()
+    assert torch.equal(o, o1) and torch.equal(o1, o2) and torch.equal(lse, lse2)
     assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
@@ -634,7 +638,7 @@ def test_block_sparse_gpt2_main_shape_repeats_bit_for_bit(card):
 ])
 def test_block_sparse_wgmma_forward_on_qkv_views(card, kind, B, S, H, D, blk, causal, dtype):
     q, k, v = _qkv_views(card, B, S, H, H, D, dtype, seed=S + D + blk)
-    assert bsa.wgmma_route(q, blk, "fwd") and q.stride(1) == 3 * H * D
+    assert bsa.wgmma_route(q) and q.stride(1) == 3 * H * D
     lists = bsa.index_lists(_bs_config(kind, H, blk, causal), S, card)
     before = bsa.LAUNCHES["block_sparse_attention_fwd"]
     o, lse = bsa.block_sparse_attention_fwd(q, k, v, lists, causal)
@@ -665,8 +669,7 @@ def test_block_sparse_wgmma_fully_masked_row_gives_zeros(card):
 
 def test_block_sparse_wgmma_refuses_strides_a_tma_map_cannot_take(card):
     """A batch stride of 0 (an expanded tensor): the wgmma route's TMA maps
-    refuse it (the forward and dq at block 64, dk/dv at every block), the
-    mma.sync route (the forward and dq at block 16) reads it; autograd hands
+    refuse it (all three kernels, at blocks of 64 and of 16); autograd hands
     the kernels a contiguous copy."""
     S, H, D = 256, 2, 64
     q, k, v, do = _flash_inputs(card, 1, S, H, H, D, torch.bfloat16, seed=8)
@@ -674,20 +677,14 @@ def test_block_sparse_wgmma_refuses_strides_a_tma_map_cannot_take(card):
     for blk in (64, 16):
         lists = bsa.index_lists(FixedSparsityConfig(num_heads=H, block=blk,
                                                     attention="unidirectional"), S, card)
-        if bsa.wgmma_route(qe, blk, "fwd"):
-            with pytest.raises(ValueError, match="TMA"):
-                bsa.block_sparse_attention_fwd(qe, ke, ve, lists, True)
-            o, lse = bsa.block_sparse_attention_fwd(
-                *(x.contiguous() for x in (qe, ke, ve)), lists, True)
-        else:
-            o, lse = bsa.block_sparse_attention_fwd(qe, ke, ve, lists, True)
+        assert bsa.wgmma_route(qe)
+        with pytest.raises(ValueError, match="TMA"):
+            bsa.block_sparse_attention_fwd(qe, ke, ve, lists, True)
+        o, lse = bsa.block_sparse_attention_fwd(*(x.contiguous() for x in (qe, ke, ve)), lists,
+                                                True)
         delta = bsa.block_sparse_delta(o, doe)
-        for which, fn in (("dq", bsa.block_sparse_attention_dq),
-                          ("dkv", bsa.block_sparse_attention_dkv)):
-            if bsa.wgmma_route(qe, blk, which):
-                with pytest.raises(ValueError, match="TMA"):
-                    fn(qe, ke, ve, doe, lse, delta, lists, True)
-            else:
+        for fn in (bsa.block_sparse_attention_dq, bsa.block_sparse_attention_dkv):
+            with pytest.raises(ValueError, match="TMA"):
                 fn(qe, ke, ve, doe, lse, delta, lists, True)
         leaves = [x.detach().requires_grad_(True) for x in (qe, ke, ve)]
         grads = torch.autograd.grad(bsa.block_sparse(*leaves, lists, True), leaves, doe)

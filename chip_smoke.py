@@ -37,7 +37,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      init_inference(...).serve() with the default serving section; 16
      requests of mixed lengths must all finish with their full token count
      and no leaked pages, and the decode kernel must have launched exactly
-     n_layer times per decode step.
+     n_layer times per decode step (the serving programs replay as
+     captured CUDA graphs here and in every later serving phase; a replay
+     adds its capture's launches to the counts, which phase 21 holds
+     against the kernels a profiler trace sees).
   3b serve gpt2-medium bf16 with speculative decode (k=4), the prefix cache
      and chunked prefill (64-token chunks) on: 16 requests, 8 sharing a
      256-token system prompt, 8 cold up to 512 tokens. All must finish with
@@ -95,8 +98,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      on the card (the same gradients): losses within 1e-6 relative.
   9  offline generate: gpt2-medium bf16 through
      init_inference(...).generate(ids [8, 128], max_new_tokens=128): one
-     warm-up, then 3 timed calls (ms per generated token, tokens/s); the
-     decode kernel must have launched exactly 24 x 127 times in the first.
+     warm-up, then 3 timed calls (ms per generated token, tokens/s; the
+     entry's prefill and decode step replay as CUDA graphs); the decode
+     kernel must have launched exactly 24 x 127 times in the first.
      A 100-token prompt (bucketed to 128) gives the tokens of the
      unbucketed engine, and fp32 greedy tokens at gpt2-medium width and 4
      layers are the CPU's, both except at a tie.
@@ -183,7 +187,27 @@ Phases, in order; any failure raises and the script exits non-zero:
      differing token); bf16 at full width, 16 sampled requests all
      finished with one uniform_rows launch a prefill and a decode step, and
      generate B8 128 + 64 with 64.
-  8  (last, after 20) one JSON line of per-kernel numbers, every kernel and
+  21 captured programs (utils/graphs.py), against the same programs run
+     eagerly (the private switch graphs._EAGER), in one process: generate
+     on gpt2-medium bf16, B8, prompts of 128 and 100 tokens (one 128
+     bucket, one cache entry), 128 new tokens, greedy and sampled: tokens
+     identical, launches exact and equal (decode 24 x 127, uniform_rows 128
+     sampled), ms a generated token and tokens/s each side, the graphs'
+     capture ms, the device's idle share each side (profile_generate); the
+     LRU at generate_cache_size 2 driven as TestGenerateCacheLRU drives it,
+     then one more call, whose eviction must give back the evicted KV
+     cache's bytes (memory_allocated); then phases 3, 3b, 3c and 20's
+     serving traffic, eager then captured: streams identical, launches
+     exact and equal, len(executables) == expected_executables, decode
+     tokens/s, TPOT p50/p99 and TTFT p50 each side. The counts are checked
+     against the trace: in profiled runs (profile_generate greedy each
+     side; profile_serving's 3c and sampled traffic captured) each
+     program kernel's events in torch.profiler's
+     trace must equal the launches counted over the same run (decode 24 x
+     127 a generate call, and so on). Every phase before it
+     runs the captured programs (phase 4's fp32 card runs among them, card
+     against CPU), with each number beside the card's name and power limit.
+  8  (last, after 21) one JSON line of per-kernel numbers, every kernel and
      mode with its launches on the path that ported it (the block-sparse
      kernels: phase 11's, and the three at blocks 16/32 at BERT's shape
      with phase 12's; fused AdamW: phase 6's; fused LAMB: phase 15's;
@@ -223,6 +247,7 @@ from deepspeed_tpu_torch.ops import prng
 from deepspeed_tpu_torch.ops import sampling as tsamp
 from deepspeed_tpu_torch.ops import sparse_attention as sac
 from deepspeed_tpu_torch.ops.attention import gather_pool_pages
+from deepspeed_tpu_torch.ops.launches import LAUNCHES, counts, reset
 from deepspeed_tpu_torch.ops.quantizer import quantize_kv_pages
 from deepspeed_tpu_torch.ops.sparse_attention import from_ds_config
 from deepspeed_tpu_torch.runtime.config import SparseAttentionConfig
@@ -231,6 +256,7 @@ from deepspeed_tpu_torch.serving.kv_cache import pages_for
 from deepspeed_tpu_torch.tools.profile_serving import (
     FEATURES_SECTION,
     mixed_requests,
+    profile_serve,
     shared_prefix_requests,
 )
 from deepspeed_tpu_torch.tools.profile_training import (
@@ -244,7 +270,9 @@ from deepspeed_tpu_torch.tools.profile_training import (
     train_config,
     workload,
 )
+from deepspeed_tpu_torch.tools.profile_generate import profile_generate
 from deepspeed_tpu_torch.tools.time_attention_kernels import time_ms
+from deepspeed_tpu_torch.utils import graphs
 from deepspeed_tpu_torch.utils.weights import params_from_numpy, params_to_numpy, tree_leaves
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
@@ -268,6 +296,9 @@ FLASH_TOL = {torch.float32: 1e-5, torch.float16: 2e-2, torch.bfloat16: 2e-2}
 # about 5e-2. lse is f32 at every dtype.
 FLASH_REL_TOL = {torch.float32: 1e-5, torch.float16: 1.5e-2, torch.bfloat16: 1.5e-2}
 LSE_REL_TOL = 1e-5
+# the decode-path kernels' entries in the launch registry (ops/launches.py)
+K_DECODE, K_PAGED, K_PAGED8 = tda.KERNELS + pda.KERNELS
+K_MT, K_MT8 = pma.KERNELS
 
 
 def check(cond, msg):
@@ -358,13 +389,19 @@ def decode_case(B, S, H, KV, D, dtype, layers=1, seed=0):
     return q, k, v
 
 
+def device_pos(pos):
+    """``pos`` as the contiguous decode kernel reads it: int32 ``[1]`` on
+    the card."""
+    return torch.full((1,), pos, dtype=torch.int32, device="cuda")
+
+
 def decode_error(q, k, v, pos):
     """:func:`errors` of the contiguous decode kernel against its plain
     version, with huge garbage in every row past ``pos`` (which the kernel
     must never read and the plain version masks)."""
     k, v = k.clone(), v.clone()
     k[:, pos + 1:], v[:, pos + 1:] = 1e4, -1e4
-    out = tda.decode_attention(q, k, v, pos)
+    out = tda.decode_attention(q, k, v, device_pos(pos))
     torch.cuda.synchronize()
     check(out.shape == q.shape and out.dtype == q.dtype, "decode kernel output shape/dtype")
     return errors(out, tda.decode_attention_ref(q.float(), k.float(), v.float(), pos))
@@ -567,13 +604,11 @@ def flash_bound(q, k, causal, window, backward):
 
 
 def reset_flash_launches():
-    for key in fa.LAUNCHES:
-        fa.LAUNCHES[key] = 0
+    reset(fa.KERNELS)
 
 
 def reset_optimizer_launches():
-    for key in fadam.LAUNCHES:
-        fadam.LAUNCHES[key] = 0
+    reset(fadam.KERNELS)
 
 
 @contextlib.contextmanager
@@ -594,10 +629,10 @@ def check_optimizer_launches(label, steps, kernel="fused_adamw"):
     """The fused optimizer's launches since the last reset: once a step for
     AdamW, twice for LAMB, and none of the other."""
     per = 2 if kernel == "fused_lamb" else 1
-    want = {k: (per * steps if k == kernel else 0) for k in fadam.LAUNCHES}
-    check(fadam.LAUNCHES == want, f"{label}: fused optimizer launches {fadam.LAUNCHES}, "
-          f"expected {want}")
-    return fadam.LAUNCHES[kernel]
+    want = {k: (per * steps if k == kernel else 0) for k in fadam.KERNELS}
+    check(counts(fadam.KERNELS) == want, f"{label}: fused optimizer launches "
+          f"{counts(fadam.KERNELS)}, expected {want}")
+    return LAUNCHES[kernel]
 
 
 # ---------------------------------------------------------------------------
@@ -605,8 +640,7 @@ def check_optimizer_launches(label, steps, kernel="fused_adamw"):
 # ---------------------------------------------------------------------------
 
 def reset_block_sparse_counts():
-    for key in bsa.LAUNCHES:
-        bsa.LAUNCHES[key] = 0
+    reset(bsa.KERNELS)
     for key in bsa.DENSE_CALLS:
         bsa.DENSE_CALLS[key] = 0
 
@@ -763,37 +797,38 @@ def train_phase(label, module, conf, batch, steps, n_layer, profile_kernels, spa
         losses.append(float(m["loss"]))
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
-    counts = dict(bsa.LAUNCHES, **bsa.DENSE_CALLS, **fa.LAUNCHES,
-                  flash=sum(fa.LAUNCHES.values()), sparse=sum(bsa.LAUNCHES.values()))
-    counts[opt_kernel] = check_optimizer_launches(label, steps, opt_kernel)
+    sparse_n, flash_n = counts(bsa.KERNELS), counts(fa.KERNELS)
+    n = dict(sparse_n, **bsa.DENSE_CALLS, **flash_n, flash=sum(flash_n.values()),
+             sparse=sum(sparse_n.values()))
+    n[opt_kernel] = check_optimizer_launches(label, steps, opt_kernel)
     peak = torch.cuda.max_memory_allocated()
     gas = eng.gradient_accumulation_steps
     want = n_layer * gas * steps
     check(all(np.isfinite(losses)), f"{label}: non-finite losses {losses}")
     check(losses[-1] < losses[0], f"{label}: loss did not fall: {losses}")
-    mine, other = (bsa.LAUNCHES, "flash") if sparse else (fa.LAUNCHES, "sparse")
-    check(all(counts[k] == want for k in mine),
-          f"{label}: attention launches {counts}, expected {want} each "
+    mine, other = (bsa.KERNELS, "flash") if sparse else (fa.KERNELS, "sparse")
+    check(all(n[k] == want for k in mine),
+          f"{label}: attention launches {n}, expected {want} each "
           f"(= {n_layer} x {gas} x {steps})")
-    check(counts[other] == 0 and counts["sparse_attention_dense"] == 0,
-          f"{label}: {other} launches {counts[other]}, dense calls "
-          f"{counts['sparse_attention_dense']}, expected 0")
+    check(n[other] == 0 and n["sparse_attention_dense"] == 0,
+          f"{label}: {other} launches {n[other]}, dense calls "
+          f"{n['sparse_attention_dense']}, expected 0")
     S = batch["input_ids"].shape[1]
     tokens = eng.train_batch_size * S
     step_ms = statistics.median(step_s[2:]) * 1e3
-    counts["step_ms"] = step_ms
+    n["step_ms"] = step_ms
     print("losses " + " ".join(f"{x:.4f}" for x in losses))
     print(f"{'block-sparse' if sparse else 'flash'} launches: "
-          + ", ".join(f"{k} {counts[k]}" for k in mine)
-          + f" (= {n_layer} x {gas} x {steps} each); {other} launches {counts[other]}, dense "
-          f"masked calls {counts['sparse_attention_dense']}; {opt_kernel} launches "
-          f"{counts[opt_kernel]} ({2 if opt_kernel == 'fused_lamb' else 1} x {steps})")
+          + ", ".join(f"{k} {n[k]}" for k in mine)
+          + f" (= {n_layer} x {gas} x {steps} each); {other} launches {n[other]}, dense "
+          f"masked calls {n['sparse_attention_dense']}; {opt_kernel} launches "
+          f"{n[opt_kernel]} ({2 if opt_kernel == 'fused_lamb' else 1} x {steps})")
     print(f"step ms (median of steps 3-{steps}, each closed by a sync) {step_ms:.2f}, steps "
           + " ".join(f"{x * 1e3:.1f}" for x in step_s)
           + f"; tokens/s {tokens / (step_ms / 1e3):.1f} ({tokens} tokens a step); peak memory "
           f"{peak / 2**30:.2f} GiB")
     print_profile(profile_steps(eng, batch, 2, kernels=profile_kernels))
-    return eng, counts
+    return eng, n
 
 
 def cpu_card_losses(label, module, conf, tree, batch, n_layer, steps=3):
@@ -810,11 +845,11 @@ def cpu_card_losses(label, module, conf, tree, batch, n_layer, steps=3):
         losses[dev] = [float(eng.train_batch(batch)["loss"]) for _ in range(steps)]
         if dev == "cuda":
             want = n_layer * eng.gradient_accumulation_steps * steps
-            check(all(bsa.LAUNCHES[k] == want for k in bsa.LAUNCHES)
-                  and sum(fa.LAUNCHES.values()) == 0
+            check(all(LAUNCHES[k] == want for k in bsa.KERNELS)
+                  and not any(LAUNCHES[k] for k in fa.KERNELS)
                   and bsa.DENSE_CALLS["sparse_attention_dense"] == 0,
-                  f"{label} card run: launches {bsa.LAUNCHES}, flash {fa.LAUNCHES}, "
-                  f"dense {bsa.DENSE_CALLS}")
+                  f"{label} card run: launches {counts(bsa.KERNELS)}, flash "
+                  f"{counts(fa.KERNELS)}, dense {bsa.DENSE_CALLS}")
             check_optimizer_launches(f"{label} card run", steps)
         else:
             check_optimizer_launches(f"{label} CPU run", 0)
@@ -1026,8 +1061,7 @@ SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.95)
 
 
 def reset_threefry_launches():
-    for k in prng.LAUNCHES:
-        prng.LAUNCHES[k] = 0
+    reset(prng.KERNELS)
 
 
 def threefry_bound(entry, elements, bytes_moved):
@@ -1286,13 +1320,13 @@ def dropout_training_phase(step_ms_ref=None, steps=12):
         losses.append(float(eng.train_batch(batch)["loss"]))
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
-    launches = prng.LAUNCHES["threefry_dropout"]
-    fwd, bwd = fa.LAUNCHES["flash_attention_fwd"], fa.LAUNCHES["flash_attention_bwd"]
+    launches = LAUNCHES["threefry_dropout"]
+    fwd, bwd = LAUNCHES["flash_attention_fwd"], LAUNCHES["flash_attention_bwd"]
     check_optimizer_launches("phase 17", steps)
     check(all(np.isfinite(losses)), f"phase 17: non-finite losses {losses}")
     check(losses[-1] < losses[0], f"phase 17: loss did not fall: {losses}")
     check(launches == want, f"phase 17: dropout launches {launches} != {want}")
-    check(prng.LAUNCHES["threefry_uniform_rows"] == 0, "phase 17: uniform_rows launched")
+    check(LAUNCHES["threefry_uniform_rows"] == 0, "phase 17: uniform_rows launched")
     want_flash = cfg.n_layer * gas * steps
     check(fwd == want_flash and bwd == want_flash,
           f"phase 17: flash launches {fwd} / {bwd}, expected {want_flash} each")
@@ -1327,7 +1361,7 @@ def dropout_card_cpu_phase():
         eng, _, _, _ = dtt.initialize(model=gpt2.make_module(cfg), config=conf,
                                       model_parameters=params_from_numpy(tree, dev), device=dev)
         losses[dev] = [float(eng.train_batch(batch)["loss"]) for _ in range(3)]
-        got = prng.LAUNCHES["threefry_dropout"]
+        got = LAUNCHES["threefry_dropout"]
         check(got == (want if dev == "cuda" else 0),
               f"phase 18 {dev} run: dropout launches {got}")
         del eng
@@ -1357,23 +1391,23 @@ def int8_weights_phase(st_3=None, st_3c=None):
         # element; the [L, G, 1, O] scales exist only beside the codes
         bf16_bytes = sum(t.numel() * 2 for t in tree_leaves(eng.params)
                          if t.dtype == torch.int8 or t.dim() != 4)
-        pda.LAUNCHES = pda.LAUNCHES_INT8 = 0
+        LAUNCHES[K_PAGED] = LAUNCHES[K_PAGED8] = 0
         torch.cuda.reset_peak_memory_stats()
         st, _ = serve_phase(f"phase 19 {label}", eng, None,
                             lambda s: mixed_requests(s, 16, cfg.vocab_size, seed=1234),
                             cfg.vocab_size)
-        check(pda.LAUNCHES == cfg.n_layer * st["decode_steps"],
-              f"phase 19 {label}: decode launches {pda.LAUNCHES} != {cfg.n_layer} x "
+        check(LAUNCHES[K_PAGED] == cfg.n_layer * st["decode_steps"],
+              f"phase 19 {label}: decode launches {LAUNCHES[K_PAGED]} != {cfg.n_layer} x "
               f"{st['decode_steps']}")
         print(f"int8 weights, {label}: weight bytes {qbytes} against bf16 {bf16_bytes} "
-              f"({qbytes / bf16_bytes:.4f}); 16 of 16 finished; decode launches {pda.LAUNCHES} "
+              f"({qbytes / bf16_bytes:.4f}); 16 of 16 finished; decode launches {LAUNCHES[K_PAGED]} "
               f"(= {cfg.n_layer} x {st['decode_steps']}); " + serving_numbers(st)
               + ("" if st_3 is None else
                  f" (phase 3, bf16 weights, this call: {serving_numbers(st_3)})")
               + f"; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         if conf is None:
-            pda.LAUNCHES = pda.LAUNCHES_INT8 = 0
-            pma.LAUNCHES = pma.LAUNCHES_INT8 = 0
+            LAUNCHES[K_PAGED] = LAUNCHES[K_PAGED8] = 0
+            LAUNCHES[K_MT] = LAUNCHES[K_MT8] = 0
             stc, _ = serve_phase(
                 "phase 19 int8 weights + 3c", eng, dict(FEATURES_SECTION, kv_cache_dtype="int8"),
                 lambda s: shared_prefix_requests(s, cfg.vocab_size, seed=4321, n_shared=8,
@@ -1381,15 +1415,15 @@ def int8_weights_phase(st_3=None, st_3c=None):
                                                  cold_lens=(64, 512), budgets=(16, 64)),
                 cfg.vocab_size)
             check(stc["prefix_hits_partial"] + stc["prefix_hits_full"] > 0
-                  and pma.LAUNCHES_INT8 == cfg.n_layer * stc["chunk_prefills"]
-                  and pda.LAUNCHES_INT8 == cfg.n_layer * (spec_k + 1) * stc["spec_steps"]
-                  and pda.LAUNCHES + pma.LAUNCHES == 0,
-                  f"phase 19 int8 weights + 3c: {stc}, launches {pda.LAUNCHES_INT8} "
-                  f"{pma.LAUNCHES_INT8}")
+                  and LAUNCHES[K_MT8] == cfg.n_layer * stc["chunk_prefills"]
+                  and LAUNCHES[K_PAGED8] == cfg.n_layer * (spec_k + 1) * stc["spec_steps"]
+                  and LAUNCHES[K_PAGED] + LAUNCHES[K_MT] == 0,
+                  f"phase 19 int8 weights + 3c: {stc}, launches {LAUNCHES[K_PAGED8]} "
+                  f"{LAUNCHES[K_MT8]}")
             print(f"int8 weights + int8 KV pages + 3c's features: 16 of 16 finished, prefix hits "
                   f"{stc['prefix_hits_partial'] + stc['prefix_hits_full']}, int8 launches "
-                  f"multitoken {pma.LAUNCHES_INT8} (= {cfg.n_layer} x {stc['chunk_prefills']}), "
-                  f"decode {pda.LAUNCHES_INT8} (= {cfg.n_layer} x {spec_k + 1} x "
+                  f"multitoken {LAUNCHES[K_MT8]} (= {cfg.n_layer} x {stc['chunk_prefills']}), "
+                  f"decode {LAUNCHES[K_PAGED8]} (= {cfg.n_layer} x {spec_k + 1} x "
                   f"{stc['spec_steps']}); " + serving_numbers(stc)
                   + ("" if st_3c is None else f" (3c, bf16 weights: {serving_numbers(st_3c)})"))
         del eng
@@ -1465,23 +1499,23 @@ def sampled_phase(st_3=None):
     reqs = mixed_requests(srv, 16, vocab, seed=1234)  # phase 3's traffic, sampled
     torch.cuda.synchronize()
     reset_threefry_launches()
-    pda.LAUNCHES = 0
+    LAUNCHES[K_PAGED] = 0
     t0 = time.perf_counter()
     done = srv.run()
     torch.cuda.synchronize()
     st = dict(srv.stats(), wall_s=time.perf_counter() - t0)
-    launches = prng.LAUNCHES["threefry_uniform_rows"]
+    launches = LAUNCHES["threefry_uniform_rows"]
     check(len(done) == 16 and all(r.status == RequestStatus.FINISHED and len(r.tokens) == b
                                   and all(0 <= x < vocab for x in r.tokens) for r, b in reqs),
           f"phase 20: {len(done)} of 16 finished")
     srv.check_no_leaks()
     check(launches == st["decode_steps"] + st["prefills"]
-          and pda.LAUNCHES == L * st["decode_steps"] and prng.LAUNCHES["threefry_dropout"] == 0,
+          and LAUNCHES[K_PAGED] == L * st["decode_steps"] and LAUNCHES["threefry_dropout"] == 0,
           f"phase 20: uniform_rows launches {launches} != decode steps {st['decode_steps']} + "
-          f"prefills {st['prefills']}; decode {pda.LAUNCHES}")
+          f"prefills {st['prefills']}; decode {LAUNCHES[K_PAGED]}")
     print(f"sampled bf16 serving: 16 of 16 finished; uniform_rows launches {launches} (= "
           f"{st['decode_steps']} decode steps + {st['prefills']} prefills), decode kernel "
-          f"{pda.LAUNCHES}; " + serving_numbers(st)
+          f"{LAUNCHES[K_PAGED]}; " + serving_numbers(st)
           + ("" if st_3 is None else f" (greedy, phase 3: {serving_numbers(st_3)})"))
     del srv
     ids = np.random.RandomState(21).randint(0, vocab, (8, 128)).astype(np.int32)
@@ -1490,12 +1524,259 @@ def sampled_phase(st_3=None):
     t0 = time.perf_counter()
     out = eng.generate(ids, max_new_tokens=64, seed=3, **SAMPLING)
     wall = time.perf_counter() - t0
-    check(out.shape == (8, 192) and prng.LAUNCHES["threefry_uniform_rows"] == 64
+    check(out.shape == (8, 192) and LAUNCHES["threefry_uniform_rows"] == 64
           and ((out[:, 128:] >= 0) & (out[:, 128:] < vocab)).all(),
-          f"phase 20 generate: {out.shape}, launches {prng.LAUNCHES}")
+          f"phase 20 generate: {out.shape}, launches {counts(prng.KERNELS)}")
     print(f"sampled bf16 generate B8 128 + 64: uniform_rows launches 64 (one a token step), "
           f"{wall * 1e3 / 64:.3f} ms per generated token")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 21 helpers
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def eager_programs(on=True):
+    """Programs built inside run uncaptured: the private switch of
+    ``utils/graphs.py``, for the capture-against-eager comparison only."""
+    prev, graphs._EAGER = graphs._EAGER, on
+    try:
+        yield
+    finally:
+        graphs._EAGER = prev
+
+
+# the kernels that run inside the inference programs
+PROGRAM_KERNELS = (K_DECODE, K_PAGED, K_PAGED8, K_MT, K_MT8, "threefry_uniform_rows")
+
+
+def program_counts():
+    """The launch counts of the programs' kernels now, by name."""
+    return counts(PROGRAM_KERNELS)
+
+
+def reset_program_counts():
+    reset(PROGRAM_KERNELS)
+
+
+def check_traced(label, traced):
+    """A profiled run's program kernels: each one's events in the trace
+    equal the launches its wrapper counted in that run (a replay adds its
+    capture's count), so the counts phase 21 prints are kernels that ran →
+    a summary for the printout."""
+    check(any(counted for _, _, counted in traced) and
+          all(seen == counted for _, seen, counted in traced),
+          f"phase 21 {label}: kernels in the trace against launches counted {traced}")
+    return f"{label}: " + ", ".join(f"{name.strip(':<_')} {seen} = {counted}"
+                                    for name, seen, counted in traced if counted)
+
+
+def generate_sides(engines, ids_by_len, new, kw):
+    """``generate`` on the captured and the eager engine: per side, a call
+    a prompt length to warm up (the captured side a second, which captures
+    its entry), then one timed call a length → {side: {length: (tokens,
+    wall s, counts)}}."""
+    out = {}
+    for side, eng in engines.items():
+        with eager_programs(side == "eager"):
+            for _ in range(1 if side == "eager" else 2):
+                for ids in ids_by_len.values():
+                    eng.generate(ids, max_new_tokens=new, **kw)
+            out[side] = {}
+            for n, ids in ids_by_len.items():
+                torch.cuda.synchronize()
+                reset_program_counts()
+                t0 = time.perf_counter()
+                toks = eng.generate(ids, max_new_tokens=new, **kw)
+                out[side][n] = (toks, time.perf_counter() - t0, program_counts())
+    return out
+
+
+def entry_programs(eng):
+    return [p for entry in eng._generate_cache.values() for p in entry.programs]
+
+
+def serve_sides(eng, section, traffic):
+    """One serving engine a side over ``traffic``, eager first → {side:
+    (stats, [tokens per request], launch counts, the engine's programs)}."""
+    out = {}
+    for side in ("eager", "captured"):
+        with eager_programs(side == "eager"):
+            srv = eng.serve(section)
+        reqs = traffic(srv)
+        torch.cuda.synchronize()
+        reset_program_counts()
+        t0 = time.perf_counter()
+        srv.run()
+        torch.cuda.synchronize()
+        st = dict(srv.stats(), wall_s=time.perf_counter() - t0)
+        n = program_counts()
+        for req, budget in reqs:
+            check(req.status == RequestStatus.FINISHED and len(req.tokens) == budget,
+                  f"phase 21 {side}: request {req.id} {req.status}, {len(req.tokens)} of {budget}")
+        srv.check_no_leaks()
+        srv.release_prefix_cache()
+        srv.allocator.check_no_leaks()
+        check(len(srv.executables) == srv.expected_executables,
+              f"phase 21 {side}: {len(srv.executables)} programs, expected "
+              f"{srv.expected_executables}")
+        out[side] = (st, [list(r.tokens) for r, _ in reqs], n, list(srv.executables))
+        del srv
+    return out
+
+
+def captured_programs_phase(smi):
+    """Phase 21: the compiled-program contract on the card, captured CUDA
+    graphs against the same programs run eagerly, in one process."""
+    eng = dtt.init_inference("gpt2-medium", seed=0)
+    cfg = eng.model_config
+    L, vocab = cfg.n_layer, cfg.vocab_size
+    engines = {"captured": eng, "eager": dtt.init_inference(cfg, params=eng.params)}
+    ids = np.random.RandomState(21).randint(0, vocab, (8, 128)).astype(np.int32)
+    by_len = {128: ids, 100: ids[:, :100]}
+    new = 128
+    gen = {}
+    for mode, kw in (("greedy", {}), ("sampled", dict(SAMPLING, seed=3))):
+        res = generate_sides(engines, by_len, new, kw)
+        for n in by_len:
+            (tc, wc, cc), (te, we, ce) = res["captured"][n], res["eager"][n]
+            check(np.array_equal(tc, te), f"phase 21 generate {mode} prompt {n}: captured "
+                  f"tokens differ from eager in {int((tc != te).sum())} places")
+            want = {K_DECODE: L * (new - 1),
+                    "threefry_uniform_rows": new if mode == "sampled" else 0}
+            for side, c in (("captured", cc), ("eager", ce)):
+                check(all(c[k] == v for k, v in want.items()) and c[K_PAGED] == 0,
+                      f"phase 21 generate {mode} {side} prompt {n}: launches {c}, want {want}")
+            gen[mode, n] = (wc, we)
+            print(f"generate {mode} B8 prompt {n} (bucket 128) + {new}: tokens identical "
+                  f"captured / eager; launches equal ({cc[K_DECODE]} decode = {L} x "
+                  f"{new - 1}, {cc['threefry_uniform_rows']} uniform_rows); ms per generated token "
+                  f"captured {wc * 1e3 / new:.3f} / eager {we * 1e3 / new:.3f}, tokens/s "
+                  f"{8 * new / wc:.1f} / {8 * new / we:.1f} ({smi})")
+    progs = entry_programs(eng)
+    check(len(eng._generate_cache) == 2 and all(p.graph is not None for p in progs),
+          f"phase 21: {len(eng._generate_cache)} generate entries (want one a sampling key, "
+          "both prompt lengths in the 128 bucket's), graphs "
+          f"{[p.graph is not None for p in progs]}")
+    check(not any(p.graph is not None for p in entry_programs(engines["eager"])),
+          "phase 21: the eager engine captured a graph")
+    print(f"generate cache: {len(eng._generate_cache)} entries (greedy, sampled), "
+          f"{len(progs)} graphs, capture ms " + ", ".join(
+              f"{p.name} {p.capture_ms:.1f}" for p in progs)
+          + f"; replays {sum(p.replays for p in progs)}")
+    # idle share of the device, each side (profile_generate, B8 128 + 128)
+    idle = {side: profile_generate(e, ids, new, eager=side == "eager")
+            for side, e in engines.items()}
+    print("generate under torch.profiler: " + "; ".join(
+        f"{side} wall {r['wall_s'] * 1e3:.1f} ms, device busy {r['device_busy_s'] * 1e3:.1f} "
+        f"ms, idle share {r['idle_share']:.3f}, {r['graphs']} graphs"
+        for side, r in idle.items()) + f" ({smi})")
+    traced = [check_traced(f"generate greedy {side}", r["traced"]) for side, r in idle.items()]
+    del engines["eager"]
+
+    # the LRU cap, as TestGenerateCacheLRU drives it, and the memory an
+    # eviction gives back
+    lru = dtt.init_inference(cfg, params=eng.params, config={"generate_cache_size": 2})
+    for m in (1, 2, 1, 3):
+        lru.generate(ids, max_new_tokens=m)
+    check(len(lru._generate_cache) == 2 and lru.generate_cache_evictions == 1
+          and {k[1] for k in lru._generate_cache} == {1, 3},
+          f"phase 21 LRU: keys {list(lru._generate_cache)}, evictions "
+          f"{lru.generate_cache_evictions}")
+    out2 = lru.generate(ids, max_new_tokens=2)
+    check(out2.shape == (8, 130) and lru.generate_cache_evictions == 2,
+          f"phase 21 LRU: {out2.shape}, evictions {lru.generate_cache_evictions}")
+    victim = next(iter(lru._generate_cache.values()))
+    victim_bytes = sum(t.numel() * t.element_size()
+                       for t in (victim.state.cache.k, victim.state.cache.v))
+    del victim
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    lru.generate(ids[:1, :4], max_new_tokens=1)  # evicts the least recent entry
+    m1 = torch.cuda.memory_allocated()
+    check(lru.generate_cache_evictions == 3 and m1 <= m0 - 0.9 * victim_bytes,
+          f"phase 21 LRU: memory {m0} -> {m1} bytes after evicting a {victim_bytes}-byte cache")
+    print(f"generate_cache_size 2: keys (max_new) {sorted(k[1] for k in lru._generate_cache)}"
+          f", evictions {lru.generate_cache_evictions} (TestGenerateCacheLRU's sequence, then "
+          f"one more); memory_allocated {m0 / 2**20:.1f} -> {m1 / 2**20:.1f} MiB after "
+          f"evicting an entry with a {victim_bytes / 2**20:.1f} MiB KV cache")
+    del lru
+
+    # the logits, through the margins track_margins records for every token
+    # (top-1 minus top-2 of its step's logits): the same kernels in the same
+    # order, so captured and eager should agree bit for bit
+    margins = {}
+    for side in ("eager", "captured"):
+        with eager_programs(side == "eager"):
+            srv = eng.serve(None, track_margins=True)
+        reqs = mixed_requests(srv, 8, vocab, seed=77)
+        srv.run()
+        margins[side] = [(list(r.tokens), list(r.margins)) for r, _ in reqs]
+        del srv
+    check([t for t, _ in margins["captured"]] == [t for t, _ in margins["eager"]],
+          "phase 21: captured and eager streams differ under track_margins")
+    diff = max(abs(a - b) for (_, ma), (_, mb) in zip(margins["captured"], margins["eager"])
+               for a, b in zip(ma, mb))
+    print(f"serving logits, captured against eager (the top-2 margin of every token of 8 "
+          f"requests): max difference {diff:.3e}" + (" (bit for bit)" if diff == 0 else ""))
+
+    # serving: phases 3, 3b, 3c and 20's traffic, eager then captured
+    spec_k = FEATURES_SECTION["speculative"]["k"]
+    shared = lambda s: shared_prefix_requests(  # noqa: E731
+        s, vocab, seed=4321, n_shared=8, n_cold=8, system_len=256, tails=(8, 128),
+        cold_lens=(64, 512), budgets=(16, 64))
+    mixed = lambda s: mixed_requests(s, 16, vocab, seed=1234)  # noqa: E731
+    serving = {}
+    for label, section, traffic in (
+            ("3 default", None, mixed),
+            ("3b features", FEATURES_SECTION, shared),
+            ("3c int8 features", dict(FEATURES_SECTION, kv_cache_dtype="int8"), shared),
+            ("20 sampled", dict(SAMPLING), mixed)):
+        res = serve_sides(eng, section, traffic)
+        (sc, tc, cc, pc), (se, te, ce, pe) = res["captured"], res["eager"]
+        check(tc == te, f"phase 21 {label}: captured streams differ from eager in "
+              f"{sum(a != b for a, b in zip(tc, te))} requests")
+        check(cc == ce, f"phase 21 {label}: launches captured {cc} != eager {ce}")
+        if "features" in label:
+            kind = K_PAGED8 if "int8" in label else K_PAGED
+            mt = K_MT8 if "int8" in label else K_MT
+            check(cc[kind] == L * (spec_k + 1) * sc["spec_steps"]
+                  and cc[mt] == L * sc["chunk_prefills"],
+                  f"phase 21 {label}: launches {cc}, verify steps {sc['spec_steps']}, "
+                  f"chunks {sc['chunk_prefills']}")
+        else:
+            check(cc[K_PAGED] == L * sc["decode_steps"],
+                  f"phase 21 {label}: launches {cc}, decode steps {sc['decode_steps']}")
+        check(all(p.graph is not None for p in pc if p.calls >= 2)
+              and not any(p.graph is not None for p in pe),
+              f"phase 21 {label}: graphs captured {[p.graph is not None for p in pc]}, "
+              f"eager {[p.graph is not None for p in pe]}")
+        serving[label] = (sc, se)
+        print(f"serve {label}: streams identical captured / eager, launches equal {cc}; "
+              f"{len(pc)} programs = expected ({', '.join(p.name for p in pc)}), capture ms "
+              + ", ".join(f"{p.capture_ms:.1f}" for p in pc if p.capture_ms is not None)
+              + f", replays {sum(p.replays for p in pc)}")
+        for side, st in (("captured", sc), ("eager", se)):
+            print(f"  {side}: decode tokens/s {st['decode_tokens_per_s']:.1f}, TPOT p50 "
+                  f"{st['tpot']['p50_s'] * 1e3:.3f} ms, p99 {st['tpot']['p99_s'] * 1e3:.3f} ms, "
+                  f"TTFT p50 {st['ttft']['p50_s'] * 1e3:.2f} ms, wall {st['wall_s']:.3f} s "
+                  f"({smi})")
+    # the counts above against the kernels a trace sees in captured runs of
+    # the same traffic kinds (profile_serving's warm-up run, then a
+    # profiled one): 3c's has the paged decode and multi-token kernels
+    # (the int8 instances; bf16's are held to eager's counts above), 20's
+    # the paged decode and uniform_rows
+    for label, kw in (("serve 3c int8 features captured", dict(features=True, int8=True)),
+                      ("serve 20 sampled captured", dict(sampled=True))):
+        r = profile_serve(eng, 16, 4321 if kw.get("features") else 1234, **kw)
+        traced.append(check_traced(label, r["traced"]))
+        del r
+    print("kernels in the profiler's trace = launches counted: " + "; ".join(traced))
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return gen, idle, serving
 
 
 def main() -> int:
@@ -1886,6 +2167,9 @@ def main() -> int:
         ("Smax4096 bf16 B2 H16", (2, 4096, 16, 16, 64, torch.bfloat16), 4095),
         ("Smax4096 fp32 B2 H16 ragged", (2, 4096, 16, 16, 64, torch.float32), 3001),
         ("Smax8192 bf16 B2 H8", (2, 8192, 8, 8, 64, torch.bfloat16), 8191),
+        # chunks planned from Smax: all but the first chunks empty
+        ("Smax4096 bf16 B2 H16 pos 100", (2, 4096, 16, 16, 64, torch.bfloat16), 100),
+        ("Smax8192 fp32 B2 H8 pos 0", (2, 8192, 8, 8, 64, torch.float32), 0),
         ("D128 bf16 B4 Smax512 H8", (4, 512, 8, 8, 128, torch.bfloat16), 300),
         ("D256 fp32 B2 Smax256 H4", (2, 256, 4, 4, 256, torch.float32), 255),
         ("D256 bf16 B2 Smax256 H4", (2, 256, 4, 4, 256, torch.bfloat16), 0),
@@ -1910,8 +2194,9 @@ def main() -> int:
     # layers), so each number is a mean per call over a generation
     dec_pos = [128, 160, 192, 224, 254]
     npos = len(dec_pos)
+    dec_pos_t = [device_pos(p) for p in dec_pos]
     d_ms, d_call_ms = time_ms(lambda i: tda.decode_attention(dq, dk[i % L], dv[i % L],
-                                                             dec_pos[i % npos]), 480)
+                                                             dec_pos_t[i % npos]), 480)
     d_plain_ms, _ = time_ms(lambda i: tda.decode_attention_ref(dq, dk[i % L], dv[i % L],
                                                                dec_pos[i % npos]), 32)
     d_lib_ms, _ = time_ms(lambda i: library_decode(dq, dk[i % L], dv[i % L], dec_pos[i % npos]),
@@ -1924,14 +2209,16 @@ def main() -> int:
           f"bound {d_bound_ms:.5f} ({d_bound_by}), kernel at {d_bound_ms / d_ms:.3f} of bound; "
           f"per call with the host's launch path {d_call_ms:.4f}")
     print("decode_attention launch (heads a block, warps a block, chunks, rows a chunk): "
-          f"main shape {tda.kernel_plan(8, 16, 16, 64, 2, dec_pos[-1] + 1, sms)}; 1 device "
-          "launch a call (with more than one chunk the last block of a head merges them)")
+          f"main shape {tda.kernel_plan(8, 16, 16, 64, 2, 256, sms)}, planned from Smax "
+          "alone, pos read on the card; 1 device launch a call (with more than one chunk the "
+          "last block of a head merges the live ones)")
     del dk, dv
     torch.cuda.empty_cache()
     # the long cache at its last row, where the split matters most (4
     # layers' caches in turn: 134 MB, past L2)
     lq, lk, lv = decode_case(2, 4096, 16, 16, 64, torch.bfloat16, layers=4, seed=45)
-    dl_ms, _ = time_ms(lambda i: tda.decode_attention(lq, lk[i % 4], lv[i % 4], 4095), 240)
+    pos4095 = device_pos(4095)
+    dl_ms, _ = time_ms(lambda i: tda.decode_attention(lq, lk[i % 4], lv[i % 4], pos4095), 240)
     dl_lib_ms, _ = time_ms(lambda i: library_decode(lq, lk[i % 4], lv[i % 4], 4095), 96)
     dl_bound, dl_by = decode_bound(lq, lk[0], 4095)
     print(f"decode_attention long cache B2 Smax4096 H16 D64 bf16 pos 4095, device ms per call: "
@@ -1948,12 +2235,12 @@ def main() -> int:
     reqs = mixed_requests(srv, 16, cfg.vocab_size, seed=1234)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    pda.LAUNCHES = 0
+    LAUNCHES[K_PAGED] = 0
     t0 = time.perf_counter()
     done = srv.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = pda.LAUNCHES
+    launches = LAUNCHES[K_PAGED]
     st = srv.stats()
     check(len(done) == 16, f"{len(done)} of 16 requests completed")
     for req, budget in reqs:
@@ -1982,13 +2269,13 @@ def main() -> int:
                                   budgets=(16, 64))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    pda.LAUNCHES = 0
-    pma.LAUNCHES = 0
+    LAUNCHES[K_PAGED] = 0
+    LAUNCHES[K_MT] = 0
     t0 = time.perf_counter()
     done = srv.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    dec_launches_3b, mt_launches = pda.LAUNCHES, pma.LAUNCHES
+    dec_launches_3b, mt_launches = LAUNCHES[K_PAGED], LAUNCHES[K_MT]
     st = srv.stats()
     check(len(done) == 16, f"{len(done)} of 16 requests completed")
     for req, budget in reqs:
@@ -2030,14 +2317,14 @@ def main() -> int:
                                   budgets=(16, 64))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    pda.LAUNCHES = pda.LAUNCHES_INT8 = 0
-    pma.LAUNCHES = pma.LAUNCHES_INT8 = 0
+    LAUNCHES[K_PAGED] = LAUNCHES[K_PAGED8] = 0
+    LAUNCHES[K_MT] = LAUNCHES[K_MT8] = 0
     t0 = time.perf_counter()
     done = srv.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    dec8_launches, mt8_launches = pda.LAUNCHES_INT8, pma.LAUNCHES_INT8
-    fp_launches = pda.LAUNCHES + pma.LAUNCHES
+    dec8_launches, mt8_launches = LAUNCHES[K_PAGED8], LAUNCHES[K_MT8]
+    fp_launches = LAUNCHES[K_PAGED] + LAUNCHES[K_MT]
     st = srv.stats()
     check(len(done) == 16, f"{len(done)} of 16 requests completed")
     for req, budget in reqs:
@@ -2109,7 +2396,7 @@ def main() -> int:
     runs["int8 features"] = (dict(feat_cfg, kv_cache_dtype="int8"), runs["features"][1])
     runs["int8 features off"] = ({"max_slots": 4, "kv_cache_dtype": "int8"},
                                  runs["features"][1])
-    streams = {}
+    streams, captured4 = {}, {}
     for dev in ("cuda", "cpu"):
         e = dtt.init_inference(cfg4, params=params_from_numpy(tree, dev),
                                dtype=torch.float32, device=dev)
@@ -2129,7 +2416,15 @@ def main() -> int:
                 check(st4["prefix_hits_partial"] + st4["prefix_hits_full"] > 0
                       and st4["chunk_prefills"] > 0 and st4["spec_steps"] > 0,
                       f"{dev}: the features did not run: {st4}")
+            if dev == "cuda":
+                # the card's streams come from captured graphs (a program
+                # called twice or more replays)
+                check(all(p.graph is not None for p in s.executables if p.calls >= 2),
+                      f"phase 4 {name}: a program ran uncaptured")
+                captured4[name] = sum(p.replays for p in s.executables)
             streams[dev, name] = [r for r, _ in rq]
+    print("the card's programs ran as captured CUDA graphs; replays by run: "
+          + ", ".join(f"{k} {v}" for k, v in captured4.items()))
     compare_streams("default path, card vs CPU", streams["cuda", "default"],
                     streams["cpu", "default"])
     compare_streams("features on, card vs CPU", streams["cuda", "features"],
@@ -2286,8 +2581,8 @@ def main() -> int:
         gnorms6.append(float(m6["grad_norm"]))
         torch.cuda.synchronize()
         step_s6.append(time.perf_counter() - t0)
-    fwd_launches = fa.LAUNCHES["flash_attention_fwd"]
-    bwd_launches = fa.LAUNCHES["flash_attention_bwd"]
+    fwd_launches = LAUNCHES["flash_attention_fwd"]
+    bwd_launches = LAUNCHES["flash_attention_bwd"]
     adamw_launches = check_optimizer_launches("phase 6", 12)
     peak6 = torch.cuda.max_memory_allocated()
     check(all(np.isfinite(losses6)) and all(np.isfinite(gnorms6)), f"non-finite: {losses6}")
@@ -2329,7 +2624,7 @@ def main() -> int:
             losses6b.append(float(eng6b.train_batch(batch6)["loss"]))
             torch.cuda.synchronize()
             step_s6b.append(time.perf_counter() - t0)
-        f6b, b6b = fa.LAUNCHES["flash_attention_fwd"], fa.LAUNCHES["flash_attention_bwd"]
+        f6b, b6b = LAUNCHES["flash_attention_fwd"], LAUNCHES["flash_attention_bwd"]
         check_optimizer_launches(f"remat {policy}", 2)
         check(all(np.isfinite(losses6b)), f"remat {policy} losses {losses6b}")
         # full: the backward re-runs each block's forward; attn and dots keep
@@ -2370,9 +2665,9 @@ def main() -> int:
                 losses7[dev] = [float(eng7.train_batch(batch7)["loss"]) for _ in range(3)]
             params7[dev] = params_to_numpy(eng7.params)
             if dev == "cuda":
-                check(fa.LAUNCHES["flash_attention_fwd"] == 4 * 2 * 3
-                      and fa.LAUNCHES["flash_attention_bwd"] == 4 * 2 * 3,
-                      f"fp32 card run: flash launches {fa.LAUNCHES}")
+                check(LAUNCHES["flash_attention_fwd"] == 4 * 2 * 3
+                      and LAUNCHES["flash_attention_bwd"] == 4 * 2 * 3,
+                      f"fp32 card run: flash launches {counts(fa.KERNELS)}")
                 check_optimizer_launches(f"fp32 {opt7} card run", 3, kernel7)
             else:
                 check_optimizer_launches(f"fp32 {opt7} {dev} run", 0)
@@ -2409,13 +2704,13 @@ def main() -> int:
     walls9 = []
     for i in range(3):
         if i == 0:
-            tda.LAUNCHES = 0
-            pda.LAUNCHES = pda.LAUNCHES_INT8 = 0
+            LAUNCHES[K_DECODE] = 0
+            LAUNCHES[K_PAGED] = LAUNCHES[K_PAGED8] = 0
         t0 = time.perf_counter()
         o9 = eng9.generate(ids9, max_new_tokens=new9)  # reads the tokens: a sync
         walls9.append(time.perf_counter() - t0)
         if i == 0:
-            gen_launches, gen_paged = tda.LAUNCHES, pda.LAUNCHES + pda.LAUNCHES_INT8
+            gen_launches, gen_paged = LAUNCHES[K_DECODE], LAUNCHES[K_PAGED] + LAUNCHES[K_PAGED8]
             repeat9 = np.array_equal(o9, out9)
     check(gen_launches == cfg9.n_layer * (new9 - 1) and gen_paged == 0,
           f"decode kernel launches {gen_launches} != {cfg9.n_layer} x {new9 - 1} "
@@ -2664,6 +2959,10 @@ def main() -> int:
     uni_launches = sampled_phase(st_3)
     gc.collect()
     torch.cuda.empty_cache()
+
+    phase(21, "captured programs: generate's LRU-bounded graphs and the serving program set, "
+              "against eager")
+    captured_programs_phase(smi)
 
     phase(8, "summary")
     # launches: each kernel's (and mode's) count on the path of the slice

@@ -7,7 +7,10 @@
 // (pos inclusive, one pos for the whole batch), online softmax in f32,
 // output acc / max(l, 1e-30) in the query's dtype. GQA: query head h reads
 // kv head h / (H / KV). Offline generate runs it once per layer and decode
-// step, on a layer's slice of the [L, B, Smax, H, D] cache.
+// step, on a layer's slice of the [L, B, Smax, H, D] cache. pos is read from
+// device memory (an int32 [1] tensor), as the TPU kernel takes it by scalar
+// prefetch: a launch depends on shapes alone, so a captured CUDA graph
+// replays it at every step of a generation.
 //
 // What bounds it on the card: HBM bytes. Each live key and value row is
 // read once and used for 2*D flops per query head, ~1 flop per byte; the
@@ -23,10 +26,13 @@
 //    covers 256 rows in one pass at D64 bf16, with 64 KB of K and V in
 //    flight: generate's cache (<= 256 rows) takes one block a head and no
 //    merge;
-//  - split-K for longer caches: the rows 0..pos are cut into `splits`
+//  - split-K for longer caches: the rows 0..Smax-1 are cut into `splits`
 //    chunks of `chunk` rows (ops/decode_attention.py kernel_plan: 4-warp
-//    blocks, whole passes, about 4 blocks a SM), one block per (chunk,
-//    batch, head group); a 4096-row cache at B2 H16 takes 16 chunks;
+//    blocks, whole passes, about 4 blocks a SM, planned from Smax alone),
+//    one block per (chunk, batch, head group); a 4096-row cache at B2 H16
+//    takes 16 chunks. A chunk wholly past pos reads nothing and leaves an
+//    empty partial (m = -1e30, l = 0, acc = 0), which the merge weighs by
+//    exp2(-1e30 - max) = 0 (no branch: the merge's loads stay pipelined);
 //  - the dot products of the U rows reduce across their TPR lanes together
 //    (independent shuffles), and the online softmax runs once per U rows in
 //    log2 units on exp2;
@@ -145,7 +151,8 @@ decode_split_kernel(const TQ* __restrict__ q,     // [B, H, D] contiguous
                     float* __restrict__ part_ml,  // [B, H, splits, 2]
                     float* __restrict__ part_acc, // [B, H, splits, D]
                     int* __restrict__ counters,   // [head blocks], zero between calls
-                    int H, int KV, int n_rows, int chunk, int splits,
+                    const int* __restrict__ pos,  // [1] the last live row
+                    int H, int KV, int S, int chunk, int splits,
                     long long k_sb, long long k_ss, long long k_sh,
                     long long v_sb, long long v_ss, long long v_sh, float scale2) {
   using L = Lay<TKV, D, W>;
@@ -161,6 +168,9 @@ decode_split_kernel(const TQ* __restrict__ q,     // [B, H, D] contiguous
   const int sub = lane % L::TPR;           // which E columns of the row
   const int rgrp = lane / L::TPR;          // which row of the warp's RPW
   const int col = sub * E;
+  // rows 0..min(pos, S-1) are live; a chunk past them is empty (its loop
+  // does not run: m = -1e30, l = 0, acc = 0)
+  const int n_rows = min(max(__ldg(pos), 0), S - 1) + 1;
   const int r0 = split * chunk;
   const int r1 = min(r0 + chunk, n_rows);
 
@@ -305,9 +315,10 @@ decode_split_kernel(const TQ* __restrict__ q,     // [B, H, D] contiguous
   }
   if (splits == 1) return;
 
-  // the last of the head block's chunks to finish merges all of them, in
-  // chunk order (the result does not depend on which block is last), and
-  // resets the counter for the next call
+  // the last of the head block's chunks to finish merges them, in chunk
+  // order (the result does not depend on which block is last), and resets
+  // the counter for the next call; an empty chunk's weight is 0 (chunk 0
+  // always holds row 0, so the max is finite)
   __shared__ bool last;
   __threadfence();
   __syncthreads();
@@ -341,7 +352,8 @@ struct Args {
   float* part_ml;
   float* part_acc;
   int* counters;
-  int B, H, KV, n_rows, chunk, splits, G, warps;
+  const int* pos;
+  int B, H, KV, S, chunk, splits, G, warps;
   long long k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
   float scale2;
   cudaStream_t stream;
@@ -352,7 +364,7 @@ cudaError_t launch(const Args& a) {
   const dim3 grid(a.splits, a.B * a.KV * (a.H / a.KV / G));
   decode_split_kernel<TQ, TKV, D, G, W><<<grid, W * 32, 0, a.stream>>>(
       static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.k), static_cast<const TKV*>(a.v),
-      static_cast<TQ*>(a.out), a.part_ml, a.part_acc, a.counters, a.H, a.KV, a.n_rows, a.chunk,
+      static_cast<TQ*>(a.out), a.part_ml, a.part_acc, a.counters, a.pos, a.H, a.KV, a.S, a.chunk,
       a.splits, a.k_sb, a.k_ss, a.k_sh, a.v_sb, a.v_ss, a.v_sh, a.scale2);
   return cudaGetLastError();
 }
@@ -404,38 +416,40 @@ cudaError_t dispatch_kv(int kv_dtype, int D, const Args& a) {
 }  // namespace
 
 // dtype codes: 0 float32, 1 float16, 2 bfloat16. Strides in elements; the
-// head dim is unit-stride. The live rows 0..min(pos, S-1) are cut into
-// `splits` chunks of `chunk` rows (every chunk non-empty); with splits > 1
-// part_ml [B, H, splits, 2] and part_acc [B, H, splits, D] are f32 scratch
-// and counters [B * H / G] int32 zeros (left zero by every call).
+// head dim is unit-stride. pos is an int32 [1] in device memory (the last
+// live row; below 0 it counts as 0, past S-1 as S-1), never read on the
+// host. The rows 0..S-1 are cut into `splits` chunks of `chunk` rows (every
+// chunk holds a row of the cache; those past pos are empty at run time);
+// with splits > 1 part_ml [B, H, splits, 2] and part_acc [B, H, splits, D]
+// are f32 scratch and counters [B * H / G] int32 zeros (left zero by every
+// call).
 // G query heads a block (1, 2, 4 or 8, dividing H / KV), `warps` warps a
 // block (4, or 16 for G <= 2). Returns the CUDA
 // error of the launch (0 on success); cudaErrorInvalidValue for shapes or
 // dtypes the kernel does not take. Asynchronous on `stream`.
 extern "C" int decode_attention_launch(const void* q, const void* k_cache,
                                        const void* v_cache, void* out, void* part_ml,
-                                       void* part_acc, void* counters, int B, int S, int H,
-                                       int KV, int D, int pos, int splits, int chunk, int G,
+                                       void* part_acc, void* counters, const void* pos, int B,
+                                       int S, int H, int KV, int D, int splits, int chunk, int G,
                                        int warps,
                                        long long k_sb, long long k_ss, long long k_sh,
                                        long long v_sb, long long v_ss, long long v_sh,
                                        float sm_scale,
                                        int q_dtype, int kv_dtype, void* stream) {
-  if (B < 0 || S <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || pos < 0 || G <= 0 ||
+  if (B < 0 || S <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || !pos || G <= 0 ||
       G > kMaxG || (H / KV) % G != 0) {
     return (int)cudaErrorInvalidValue;
   }
   if (B == 0) return 0;
-  const int n_rows = (pos < S ? pos : S - 1) + 1;
-  // every chunk holds at least one row and together they hold exactly n_rows
-  if (splits <= 0 || chunk <= 0 || (long long)splits * chunk < n_rows ||
-      (long long)(splits - 1) * chunk >= n_rows ||
+  // every chunk holds at least one row and together they hold exactly S
+  if (splits <= 0 || chunk <= 0 || (long long)splits * chunk < S ||
+      (long long)(splits - 1) * chunk >= S ||
       (splits > 1 && (!part_ml || !part_acc || !counters))) {
     return (int)cudaErrorInvalidValue;
   }
   const Args a{q, k_cache, v_cache, out, static_cast<float*>(part_ml),
-               static_cast<float*>(part_acc), static_cast<int*>(counters), B, H, KV, n_rows,
-               chunk, splits, G, warps,
+               static_cast<float*>(part_acc), static_cast<int*>(counters),
+               static_cast<const int*>(pos), B, H, KV, S, chunk, splits, G, warps,
                k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, sm_scale * kLog2e,
                static_cast<cudaStream_t>(stream)};
   switch (q_dtype) {

@@ -5,8 +5,19 @@ Builds the parameters from the seeded initialiser or takes a given tree,
 casts the floating leaves to ``dtype`` (bf16 by default, as the JAX package
 does) and places them on ``device``. Then: :meth:`generate` (offline
 generation over a contiguous KV cache, prompts padded to length buckets),
-:meth:`forward` / ``engine(batch)`` (the logits of a batch), and
+:meth:`forward` / ``engine(batch)`` (the logits of a batch, eager), and
 :meth:`serve` (a continuous-batching :class:`ServingEngine`).
+
+``generate`` keeps the JAX engine's compiled-generate contract
+(``deepspeed_tpu/inference/engine.py:176-184``, ``:426-460``): one entry a
+key ``((B, bucket or S), max_new_tokens, temperature, top_k, top_p)`` in
+the LRU ``_generate_cache``, capped by ``generate_cache_size`` (default
+16), ``generate_cache_evictions`` counting what the cap pushed out. An
+entry (:class:`GenerateProgram`) holds the KV cache, the static buffers
+and two programs of ``utils/graphs.py``, the prefill and the decode step,
+captured CUDA graphs on the card; a prompt bucketed to the key's width
+reuses its entry at any true length, which is a device input, as JAX
+traces it. An evicted entry frees its cache and its graphs' pools.
 ``device=None`` means the CUDA card: without one the engine raises instead
 of running on the CPU; pass ``device="cpu"`` to ask for the CPU.
 
@@ -25,6 +36,7 @@ with JAX's keys: ``generate(seed=s)`` uses ``PRNGKey(s)``.
 from __future__ import annotations
 
 import time
+from collections import OrderedDict
 from typing import Any, Dict, Optional, Union
 
 import numpy as np
@@ -35,6 +47,7 @@ from ..models.gpt2 import GPT2Config
 from ..ops import prng
 from ..ops.quantizer import quantize_tree
 from ..runtime.config import DeepSpeedConfigError, NotPortedError
+from ..utils.graphs import CapturedProgram, StaticInputs
 from ..utils.logging import log_dist
 from ..utils.weights import tree_map
 
@@ -94,11 +107,12 @@ class InferenceEngine:
         # None: power-of-two prompt buckets; a list pins the sizes; [] or
         # False turns bucketing off
         self._prompt_buckets = c.pop("prompt_bucket_sizes", None)
-        # generate_cache_size caps the JAX package's compiled-generate
-        # executables; this eager engine keeps none (captured CUDA graphs
-        # would be what it bounds), so the key is accepted with nothing to
-        # bound yet
-        c.pop("generate_cache_size", None)
+        # the compiled-generate cache, LRU-bounded as the JAX engine's: an
+        # entry holds a KV cache and two captured graphs
+        cache_size = c.pop("generate_cache_size", None)
+        self._generate_cache: "OrderedDict[tuple, GenerateProgram]" = OrderedDict()
+        self._generate_cache_cap = max(1, int(cache_size if cache_size is not None else 16))
+        self.generate_cache_evictions = 0
         if c:
             raise NotPortedError(
                 f"init_inference: config keys {sorted(c)} are not ported to "
@@ -180,22 +194,34 @@ class InferenceEngine:
         """Autoregressive generation over a contiguous KV cache: the prompt
         (padded to its bucket unless bucketing is off) prefills once, then
         ``max_new_tokens - 1`` single-token decode steps, each running the
-        decode kernel once per layer on the card. Greedy unless
-        ``temperature > 0``; then the draws are the JAX engine's under
-        ``PRNGKey(seed)`` (the threefry kernel on the card). → prompt + new
-        tokens, ``[B, S + max_new_tokens]`` numpy, read from the device once
-        at the end."""
+        decode kernel once per layer on the card; both are programs of this
+        key's cache entry (captured graphs on the card, replayed). Greedy
+        unless ``temperature > 0``; then the draws are the JAX engine's
+        under ``PRNGKey(seed)`` (the threefry kernel on the card). → prompt
+        + new tokens, ``[B, S + max_new_tokens]`` numpy, read from the
+        device once at the end."""
         ids_np = np.asarray(input_ids)
         B, S = ids_np.shape
-        ids = torch.from_numpy(ids_np.astype(np.int64)).to(self.device)
+        if S + int(max_new_tokens) > int(self.model_config.n_positions):
+            raise ValueError(
+                f"prompt ({S}) + max_new_tokens ({max_new_tokens}) exceeds n_positions "
+                f"{self.model_config.n_positions}")
         bucket = self._prompt_bucket(S, max_new_tokens)
-        if bucket is not None and bucket > S:
-            ids = torch.cat([ids, ids.new_zeros((B, bucket - S))], dim=1)
-        new = gpt2.generate(self.model_config, self.params, ids, max_new_tokens,
-                            temperature=temperature, rng=prng.PRNGKey(seed),
-                            cache_dtype=self.dtype,
-                            top_k=top_k, top_p=top_p, prompt_len=S)
-        return np.concatenate([ids_np, new.cpu().numpy().astype(ids_np.dtype)], axis=1)
+        shape_key = (B, bucket) if bucket is not None else (B, S)
+        key = (shape_key, int(max_new_tokens), float(temperature), int(top_k), float(top_p))
+        prog = self._generate_cache.get(key)
+        if prog is not None:
+            self._generate_cache.move_to_end(key)  # LRU freshness
+        else:
+            prog = GenerateProgram(self, B, shape_key[1], int(max_new_tokens),
+                                   float(temperature), int(top_k), float(top_p))
+            self._generate_cache[key] = prog
+            while len(self._generate_cache) > self._generate_cache_cap:
+                _, old = self._generate_cache.popitem(last=False)  # the LRU entry
+                old.free()
+                self.generate_cache_evictions += 1
+        new = prog(ids_np, seed)
+        return np.concatenate([ids_np, new.astype(ids_np.dtype)], axis=1)
 
     def serve(self, serving_config=None, clock=None, track_margins: bool = False):
         """Continuous-batching server over this engine (a
@@ -209,3 +235,66 @@ class InferenceEngine:
             self, cfg, clock=clock if clock is not None else time.monotonic,
             track_margins=track_margins,
         )
+
+
+class GenerateProgram:
+    """One entry of ``InferenceEngine._generate_cache``: for a batch ``B``,
+    a prompt width (the bucket, or the prompt length when bucketing is
+    off), ``max_new_tokens`` and the sampling settings, the KV cache
+    ``[L, B, width + max_new_tokens, H, D]``, the static inputs
+    (``gpt2.generate_input_shapes``) and two programs: the prefill and one
+    decode step, replayed ``max_new_tokens - 1`` times a call. Tokens go to
+    a static ``[B, max_new_tokens]`` buffer the host reads once."""
+
+    def __init__(self, engine: InferenceEngine, batch: int, width: int, max_new_tokens: int,
+                 temperature: float, top_k: int, top_p: float):
+        cfg, dev = engine.model_config, engine.device
+        self.width = int(width)
+        self.max_new_tokens = int(max_new_tokens)
+        self.sampled = temperature > 0.0
+        self.inputs = StaticInputs(gpt2.generate_input_shapes(batch, width, max_new_tokens),
+                                   dev)
+        self.state = gpt2.init_generate_state(cfg, batch, self.width + self.max_new_tokens,
+                                              self.max_new_tokens, engine.dtype, dev)
+        sample = dict(temperature=temperature, top_k=top_k, top_p=top_p)
+        params, state, inputs = engine.params, self.state, self.inputs.dev
+
+        def prefill():
+            with torch.no_grad():
+                gpt2.generate_prefill(cfg, params, state, inputs, **sample)
+
+        def step():
+            with torch.no_grad():
+                gpt2.generate_step(cfg, params, state, inputs, **sample)
+
+        self.prefill = CapturedProgram("generate_prefill", prefill, dev, self.inputs)
+        self.step = CapturedProgram("generate_step", step, dev)
+
+    @property
+    def programs(self):
+        return (self.prefill, self.step)
+
+    def __call__(self, ids: np.ndarray, seed: int) -> np.ndarray:
+        """Prompts ``ids [B, S]`` (S <= width; the rest is padding) → the
+        new tokens ``[B, max_new_tokens]`` as numpy."""
+        S = ids.shape[1]
+        st = self.inputs.staging()
+        st["ids"][:] = 0
+        st["ids"][:, :S] = ids
+        st["plen"][0] = S
+        if self.sampled:
+            rng = prng.PRNGKey(seed)
+            st["key"][:] = rng.view(np.int32)
+            if self.max_new_tokens > 1:
+                keys = prng.split(prng.fold_in(rng, 1), self.max_new_tokens - 1)
+                st["keys"][:] = keys.view(np.int32)
+        self.prefill()
+        for _ in range(self.max_new_tokens - 1):
+            self.step()
+        return self.state.out.cpu().numpy()
+
+    def free(self) -> None:
+        """Release the graphs, their pools, the cache and the buffers."""
+        for p in self.programs:
+            p.free()
+        self.state = self.inputs = None

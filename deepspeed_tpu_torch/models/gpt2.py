@@ -347,35 +347,54 @@ def make_module(cfg: GPT2Config) -> ModuleSpec:
 # ---------------------------------------------------------------------------
 
 class KVCache(NamedTuple):
-    """Per-layer stacked KV cache; ``pos`` is the filled length (a Python
-    int, so a decode step needs no device read to know it)."""
+    """Per-layer stacked KV cache; ``pos`` is the filled length: an int32
+    ``[1]`` tensor on the cache's device (the kernels and every index read
+    it there; a captured step advances it in place)."""
 
-    k: torch.Tensor  # [L, B, Smax, H, D]
-    v: torch.Tensor  # [L, B, Smax, H, D]
-    pos: int
+    k: torch.Tensor    # [L, B, Smax, H, D]
+    v: torch.Tensor    # [L, B, Smax, H, D]
+    pos: torch.Tensor  # [1] int32
 
 
 def init_cache(cfg: GPT2Config, batch_size: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16, device=None) -> KVCache:
     shape = (cfg.n_layer, batch_size, max_len, cfg.n_head, cfg.head_dim)
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
-                   v=torch.zeros(shape, dtype=dtype, device=device), pos=0)
+                   v=torch.zeros(shape, dtype=dtype, device=device),
+                   pos=torch.zeros(1, dtype=torch.int32, device=device))
 
 
-def _attention_cached(cfg: GPT2Config, lp, h, k_cache, v_cache, pos: int):
+def device_int(x, device) -> torch.Tensor:
+    """``x`` (a Python int or a one-element tensor) as an int32 ``[1]``
+    tensor on ``device``: an int is filled there (no host copy), a tensor
+    is never read on the host."""
+    if isinstance(x, torch.Tensor):
+        return x.reshape(1).to(device=device, dtype=torch.int32)
+    return torch.full((1,), int(x), dtype=torch.int32, device=device)
+
+
+def row_at(h: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``h[:, idx]`` for a device index ``idx`` (``[1]``) → ``[B, E]``."""
+    return h.index_select(1, idx.long())[:, 0]
+
+
+def _attention_cached(cfg: GPT2Config, lp, h, k_cache, v_cache, pos: torch.Tensor):
     """Attention of ``h [B, S, E]`` against a layer's cache ``[B, Smax, H,
-    D]``: this chunk's K/V is written at ``[pos, pos + S)`` (in place), then
-    query i (at position ``pos + i``) attends keys ``<= pos + i``. S is the
-    prompt length at prefill (the dense masked einsum with probabilities in
-    the cache dtype, as the JAX package computes it outside any kernel) and
-    1 at decode (``cached_attention``: the decode kernel on the card)."""
+    D]``: this chunk's K/V is written at rows ``pos .. pos + S - 1`` (in
+    place, ``pos`` an int32 ``[1]`` tensor), then query i (at position
+    ``pos + i``) attends keys ``<= pos + i``. S is the prompt length at
+    prefill (the dense masked einsum with probabilities in the cache dtype,
+    as the JAX package computes it outside any kernel) and 1 at decode
+    (``cached_attention``: the decode kernel on the card, reading ``pos``
+    there)."""
     B, S, E = h.shape
     H, D = cfg.n_head, cfg.head_dim
     qkv = h @ maybe_dequantize(lp["c_attn_w"], h.dtype) + lp["c_attn_b"]
     q, k_, v = qkv.split(E, dim=-1)
     q = q.reshape(B, S, H, D)
-    k_cache[:, pos:pos + S] = k_.reshape(B, S, H, D).to(k_cache.dtype)
-    v_cache[:, pos:pos + S] = v.reshape(B, S, H, D).to(v_cache.dtype)
+    rows = pos.long() + torch.arange(S, device=h.device)  # [S]
+    k_cache.index_copy_(1, rows, k_.reshape(B, S, H, D).to(k_cache.dtype))
+    v_cache.index_copy_(1, rows, v.reshape(B, S, H, D).to(v_cache.dtype))
     scale = 1.0 / math.sqrt(D)
     # "jnp" names the plain version, which the card never runs:
     # cached_attention refuses it for CUDA tensors
@@ -388,8 +407,7 @@ def _attention_cached(cfg: GPT2Config, lp, h, k_cache, v_cache, pos: int):
     else:
         Smax = k_cache.shape[1]
         scores = torch.einsum("bshd,bthd->bhst", q.float(), k_cache.float()) * scale
-        mask = (torch.arange(Smax, device=h.device)[None, :]
-                <= pos + torch.arange(S, device=h.device)[:, None])  # [S, Smax]
+        mask = torch.arange(Smax, device=h.device)[None, :] <= rows[:, None]  # [S, Smax]
         scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
         probs = torch.softmax(scores, dim=-1).to(v_cache.dtype)
         o = torch.einsum("bhst,bthd->bshd", probs, v_cache).reshape(B, S, E).to(h.dtype)
@@ -398,26 +416,104 @@ def _attention_cached(cfg: GPT2Config, lp, h, k_cache, v_cache, pos: int):
 
 @torch.no_grad()
 def forward_cached(cfg: GPT2Config, params: PyTree, input_ids, cache: KVCache,
-                   logits_at: Optional[int] = None) -> Tuple[torch.Tensor, KVCache]:
+                   logits_at=None) -> Tuple[torch.Tensor, KVCache]:
     """``input_ids [B, S]`` (S tokens starting at ``cache.pos``) → (the last
     token's logits ``[B, V]``, the cache advanced by S). One function serves
     prefill (S = prompt) and decode (S = 1); the cache tensors are written
-    in place. ``logits_at``: read the head at this in-chunk position instead
-    of the last (the right-padded bucket's true last prompt token)."""
+    in place, and the positions, the ``wpe`` rows and the head's row come
+    from ``cache.pos`` by device indexing (a tensor ``pos`` is never read
+    on the host). ``logits_at``: read the head at this in-chunk position
+    instead of the last (the right-padded bucket's true last prompt token;
+    a one-element tensor, or an int that :func:`device_int` fills on the
+    device)."""
     B, S = input_ids.shape
-    pos = int(cache.pos)
+    pos = cache.pos
+    rows = pos.long() + torch.arange(S, device=input_ids.device)
     eps = cfg.layer_norm_epsilon
-    h = params["wte"][input_ids] + params["wpe"][pos:pos + S][None, :, :]
+    h = params["wte"][input_ids.long()] + params["wpe"].index_select(0, rows)[None, :, :]
     for l, lp in enumerate(_unstack(params["blocks"], cfg.n_layer)):
         h = h + _attention_cached(
             cfg, lp["attn"], layer_norm(h, lp["ln_1"]["scale"], lp["ln_1"]["bias"], eps),
             cache.k[l], cache.v[l], pos,
         )
         h = h + _mlp(cfg, lp["mlp"], layer_norm(h, lp["ln_2"]["scale"], lp["ln_2"]["bias"], eps))
-    h = h[:, -1] if logits_at is None else h[:, int(logits_at)]
+    h = h[:, -1] if logits_at is None else row_at(h, device_int(logits_at, h.device))
     h = layer_norm(h, params["ln_f"]["scale"], params["ln_f"]["bias"], eps)
     logits = (h @ params["wte"].t())[..., : cfg.vocab_size]
-    return logits, KVCache(k=cache.k, v=cache.v, pos=pos + S)
+    return logits, KVCache(k=cache.k, v=cache.v, pos=cache.pos + S)
+
+
+# -- generate's two programs over static buffers ------------------------------
+
+class GenerateState(NamedTuple):
+    """What ``generate``'s programs update in place on the device: the
+    cache (``pos`` an int32 ``[1]``), the tokens ``[B, max_new]`` (int64,
+    read by the host once at the end) and ``step`` (int32 ``[1]``, the
+    tokens made so far)."""
+
+    cache: KVCache
+    out: torch.Tensor
+    step: torch.Tensor
+
+
+def generate_input_shapes(batch: int, width: int, max_new_tokens: int):
+    """The int32 inputs of ``generate``'s programs, all uploaded with the
+    prefill: the right-padded prompt, its true length, the first token's
+    key and the decode steps' keys (step t's at row t - 1)."""
+    return {"ids": (batch, width), "plen": (1,), "key": (2,),
+            "keys": (max(int(max_new_tokens) - 1, 1), 2)}
+
+
+def init_generate_state(cfg: GPT2Config, batch: int, max_len: int, max_new_tokens: int,
+                        cache_dtype: torch.dtype, device) -> GenerateState:
+    return GenerateState(
+        cache=init_cache(cfg, batch, max_len, dtype=cache_dtype, device=device),
+        out=torch.zeros((batch, int(max_new_tokens)), dtype=torch.int64, device=device),
+        step=torch.zeros(1, dtype=torch.int32, device=device))
+
+
+def generate_inputs(input_ids: torch.Tensor, prompt_len: int, rng, max_new_tokens: int):
+    """Eager callers' inputs (``generate_input_shapes``) on ``input_ids``'
+    device: the host values copied up once."""
+    dev = input_ids.device
+    keys = prng.split(prng.fold_in(rng, 1), max(max_new_tokens - 1, 1))
+    return {"ids": input_ids.to(torch.int32),
+            "plen": torch.full((1,), int(prompt_len), dtype=torch.int32, device=dev),
+            "key": prng.device_keys(rng, dev), "keys": prng.device_keys(keys, dev)}
+
+
+def _sampled(temperature: float) -> bool:
+    return bool(temperature) and temperature > 0.0
+
+
+def generate_prefill(cfg: GPT2Config, params: PyTree, state: GenerateState, inputs,
+                     temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0) -> None:
+    """The prefill program: the prompt ``inputs["ids"]`` (right-padded)
+    into rows ``0..width-1`` of the cache, the head at ``plen - 1``, the
+    first token into ``out[:, 0]``; then ``pos = plen`` (decode overwrites
+    the padding's K/V before attending it) and ``step = 1``."""
+    cache = state.cache
+    cache.pos.zero_()
+    plen = inputs["plen"]
+    logits, _ = forward_cached(cfg, params, inputs["ids"], cache, logits_at=plen - 1)
+    cache.pos.copy_(plen)
+    state.out[:, 0] = sample_logits(logits, inputs["key"] if _sampled(temperature) else None,
+                                    temperature, top_k, top_p)
+    state.step.fill_(1)
+
+
+def generate_step(cfg: GPT2Config, params: PyTree, state: GenerateState, inputs,
+                  temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0) -> None:
+    """The decode-step program: token ``out[:, step - 1]`` at ``pos`` → the
+    next into ``out[:, step]`` (drawn with ``keys[step - 1]``); then ``pos``
+    and ``step`` advance by one, on the device."""
+    t = state.step.long()
+    token = state.out.index_select(1, t - 1)  # [B, 1]
+    logits, _ = forward_cached(cfg, params, token, state.cache)
+    key = inputs["keys"].index_select(0, t - 1)[0] if _sampled(temperature) else None
+    state.out.index_copy_(1, t, sample_logits(logits, key, temperature, top_k, top_p)[:, None])
+    state.cache.pos.add_(1)
+    state.step.add_(1)
 
 
 @torch.no_grad()
@@ -431,7 +527,9 @@ def generate(cfg: GPT2Config, params: PyTree, input_ids, max_new_tokens: int,
     on the device. Greedy unless ``temperature > 0``; then the draws are
     JAX's: the first token's with ``rng`` (default ``PRNGKey(0)``), step
     t's with ``split(fold_in(rng, 1), max_new_tokens - 1)[t - 1]``. Tokens
-    are sampled on the device and stay there (no per-step host read).
+    are sampled on the device and stay there (no per-step host read). The
+    eager form of the programs ``InferenceEngine.generate`` captures
+    (:func:`generate_prefill`, :func:`generate_step`).
 
     ``prompt_len``: the true prompt length when ``input_ids`` is
     right-padded to a bucket. The prefill runs over the padded rows, the
@@ -450,16 +548,10 @@ def generate(cfg: GPT2Config, params: PyTree, input_ids, max_new_tokens: int,
     n = S if prompt_len is None else int(prompt_len)
     if rng is None:
         rng = prng.PRNGKey(0)
-    keys = (prng.split(prng.fold_in(rng, 1), max_new_tokens - 1)
-            if temperature and temperature > 0.0 and max_new_tokens > 1 else None)
-    cache = init_cache(cfg, B, max_len, dtype=cache_dtype, device=input_ids.device)
-    logits, cache = forward_cached(cfg, params, input_ids, cache, logits_at=n - 1)
-    cache = KVCache(k=cache.k, v=cache.v, pos=n)
-    token = sample_logits(logits, rng, temperature, top_k, top_p)
-    tokens = [token]
-    for t in range(max_new_tokens - 1):
-        logits, cache = forward_cached(cfg, params, token[:, None], cache)
-        token = sample_logits(logits, None if keys is None else keys[t], temperature, top_k,
-                              top_p)
-        tokens.append(token)
-    return torch.stack(tokens, dim=1)
+    state = init_generate_state(cfg, B, max_len, max_new_tokens, cache_dtype, input_ids.device)
+    inputs = generate_inputs(input_ids, n, rng, max_new_tokens)
+    sample = dict(temperature=temperature, top_k=top_k, top_p=top_p)
+    generate_prefill(cfg, params, state, inputs, **sample)
+    for _ in range(max_new_tokens - 1):
+        generate_step(cfg, params, state, inputs, **sample)
+    return state.out

@@ -51,12 +51,14 @@ def _check_scales(name, k_pool, scales):
         )
 
 
-def cached_attention(q, k_cache, v_cache, pos: int, impl: str = "auto",
+def cached_attention(q, k_cache, v_cache, pos, impl: str = "auto",
                      sm_scale: Optional[float] = None):
     """Single-token decode attention against a contiguous KV cache: ``q
     [B, H, D]``, caches ``[B, Smax, KV, D]`` (any strides with a unit last
     one, e.g. a layer's slice of ``KVCache.k``), ``pos`` the highest valid
-    index for the whole batch → ``[B, H, D]``.
+    index for the whole batch → ``[B, H, D]``. ``pos`` is an int32
+    one-element tensor on q's device, which the kernel reads (the plain
+    version also takes a Python int).
 
     CUDA tensors go to the hand-written kernel (which raises on what it does
     not take); CPU tensors to its plain version. There is no other route:

@@ -61,11 +61,12 @@ import torch
 
 from .flash_attention import (DTYPE_CODES, TMA_DTYPES, _check_tma, _scale, _strides3,
                               _strides_ok, _tma_strides_ok)
+from .launches import LAUNCHES, register
 
-# kernel launches by this process, per kernel (the main path's proof that
-# it ran here)
-LAUNCHES = {"block_sparse_attention_fwd": 0, "block_sparse_attention_dq": 0,
-            "block_sparse_attention_dkv": 0}
+# its launches in the registry, per kernel (the main path's proof that it
+# ran here)
+KERNELS = register("block_sparse_attention_fwd", "block_sparse_attention_dq",
+                   "block_sparse_attention_dkv")
 # calls of the masked-dense path (sparse_attention with a key_mask, or
 # impl="jnp"), which materializes [B, H, S, S] scores: a kernel run shows 0
 DENSE_CALLS = {"sparse_attention_dense": 0}

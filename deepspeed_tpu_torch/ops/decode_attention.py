@@ -5,18 +5,23 @@ The kernel (``csrc/decode_attention.cu``) replaces the Pallas kernel
 ``deepspeed_tpu/ops/pallas/decode_attention.py`` ``decode_attention`` (body
 ``_decode_kernel``): one query token per (batch, head) attends rows
 ``0..pos`` of its ``[Smax, KV, D]`` cache (one ``pos`` for the batch),
-online softmax in f32; rows past ``pos`` are never read. Offline
+online softmax in f32; rows past ``pos`` are never read. ``pos`` is an
+int32 ``[1]`` tensor on the card, read by the kernel, as the Pallas kernel
+takes it by scalar prefetch: a launch depends on shapes alone, so a
+captured CUDA graph replays one decode step at every position. Offline
 ``generate`` runs it once per layer and decode step. :func:`kernel_plan`
 gives a cache that one 16-warp pass covers (generate's) one block a head;
-a longer one is cut into chunks across blocks (split-K, :func:`plan_splits`)
-and the last block of each head group to finish merges the chunks'
-partial softmax states by their log-sum-exp in chunk order
-(:func:`merge_partials` is the merge's plain form). One device launch a
-call.
+a longer one is cut into chunks across blocks (split-K, :func:`plan_splits`
+over all ``Smax`` rows; a chunk past ``pos`` is empty at run time) and the
+last block of each head group to finish merges the live chunks' partial
+softmax states by their log-sum-exp in chunk order (:func:`merge_partials`
+is the merge's plain form). One device launch a call.
 
 :func:`decode_attention_ref` is the plain PyTorch version (the grouped
 einsum with the mask ``s <= pos`` and f32 probabilities, as the JAX
-package's jnp fallback of ``cached_attention`` computes it). The dispatcher
+package's jnp fallback of ``cached_attention`` computes it); it and
+:func:`decode_attention_split_ref` take ``pos`` as a Python int or a
+tensor, and never read a tensor ``pos`` on the host. The dispatcher
 ``ops.attention.cached_attention`` uses it for CPU tensors; for CUDA tensors
 it calls :func:`decode_attention`, which launches the kernel or raises.
 :func:`decode_attention_split_ref` is the split computation in plain
@@ -32,14 +37,17 @@ from typing import Optional
 
 import torch
 
+from ..utils.graphs import hold
+from .launches import LAUNCHES, register
+
 # the C entries' dtype codes (the paged kernels add int8 pools) and the
 # head dims the decode kernels are built for
 DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 HEAD_DIMS = (64, 128, 256)
 
-# kernel launches by this process (the main path's proof that it ran here);
+# its launches in the registry (the main path's proof that it ran here);
 # one a call
-LAUNCHES = 0
+KERNELS = register("decode_attention")
 
 # split-K planning: rows a lane keeps in flight (the kernel's U), the most
 # chunks, and the 4-warp blocks a SM that the chunks aim at
@@ -109,19 +117,20 @@ def _counters(device, stream, n: int):
     if c is None or c.numel() < n:
         c = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
         _COUNTERS[key] = c
-    return c
+    return hold(c)
 
 
 def split_scratch(device, stream, B: int, H: int, splits: int, D: int, G: int):
     """Pointers of a split launch's scratch: the partials' (m, l) [B, H,
     splits, 2] and acc [B, H, splits, D] f32, and the counters [B * H /
-    G]; reused across calls on one stream, grown when a call needs more."""
+    G]; reused across calls on one stream, grown when a call needs more
+    (a graph being captured holds what it points at: ``utils.graphs.hold``)."""
     n = B * H * splits * (2 + D)
     buf = _PARTIALS.get((device, stream))
     if buf is None or buf.numel() < n:
         buf = torch.empty(max(n, 1 << 16), dtype=torch.float32, device=device)
         _PARTIALS[(device, stream)] = buf
-    ml = buf.data_ptr()
+    ml = hold(buf).data_ptr()
     return ml, ml + B * H * splits * 2 * 4, _counters(device, stream, B * H // G).data_ptr()
 
 
@@ -149,15 +158,24 @@ def _check_shapes(q, k_cache, v_cache):
         raise ValueError(f"q heads {H} must divide by KV heads {KV}")
 
 
-def decode_attention_ref(q, k_cache, v_cache, pos: int, sm_scale: Optional[float] = None):
+def _live_rows(pos, S: int, device):
+    """``[S]`` bool: rows ``0..pos`` (``pos`` a Python int or a one-element
+    tensor, compared on the device; never read on the host)."""
+    if isinstance(pos, torch.Tensor):
+        pos = pos.reshape(-1)[:1].to(device)
+    return torch.arange(S, device=device) <= pos
+
+
+def decode_attention_ref(q, k_cache, v_cache, pos, sm_scale: Optional[float] = None):
     """Plain PyTorch decode attention → ``[B, H, D]`` in ``q.dtype``;
     scores, softmax and the probability-weighted sum in f32, keys past
-    ``pos`` masked (their contents never reach the output)."""
+    ``pos`` (an int or a one-element tensor) masked (their contents never
+    reach the output)."""
     _check_shapes(q, k_cache, v_cache)
     B, H, D = q.shape
     S, KV = k_cache.shape[1], k_cache.shape[2]
     scale = sm_scale if sm_scale is not None else 1.0 / (D ** 0.5)
-    mask = torch.arange(S, device=q.device) <= int(pos)  # [S]
+    mask = _live_rows(pos, S, q.device)  # [S]
     qg = q.reshape(B, KV, H // KV, D)
     scores = torch.einsum("bgrd,bsgd->bgrs", qg.float(), k_cache.float()) * scale
     scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
@@ -178,25 +196,30 @@ def merge_partials(m, l, acc):
     return a / ll.clamp_min(1e-30)[..., None]
 
 
-def decode_attention_split_ref(q, k_cache, v_cache, pos: int, splits: int,
+def decode_attention_split_ref(q, k_cache, v_cache, pos, splits: int,
                                sm_scale: Optional[float] = None):
     """Plain PyTorch of the kernel's split computation → ``[B, H, D]`` in
-    ``q.dtype``: rows ``0..pos`` in ``splits`` chunks of ``ceil(n /
+    ``q.dtype``: the ``Smax`` rows in ``splits`` chunks of ``ceil(Smax /
     splits)`` rows (fewer chunks when the last ones would be empty), each
-    chunk's ``(m, l, acc)`` in f32, merged by :func:`merge_partials`."""
+    chunk's ``(m, l, acc)`` in f32 over its rows ``<= pos`` (a chunk past
+    ``pos`` is empty: m = -1e30, l = 0, acc = 0), merged by
+    :func:`merge_partials`. ``pos`` an int or a one-element tensor, never
+    read on the host."""
     _check_shapes(q, k_cache, v_cache)
     B, H, D = q.shape
     S, KV = k_cache.shape[1], k_cache.shape[2]
-    n = min(int(pos), S - 1) + 1
-    chunk = -(-n // max(1, int(splits)))
+    chunk = -(-S // max(1, int(splits)))
     scale = sm_scale if sm_scale is not None else 1.0 / (D ** 0.5)
     qg = q.reshape(B, KV, H // KV, D).float()
+    live = _live_rows(pos, S, q.device)
     ms, ls, accs = [], [], []
-    for r0 in range(0, n, chunk):
-        kc = k_cache[:, r0:min(r0 + chunk, n)].float()
-        vc = v_cache[:, r0:min(r0 + chunk, n)].float()
+    for r0 in range(0, S, chunk):
+        r1 = min(r0 + chunk, S)
+        kc = k_cache[:, r0:r1].float()
+        vc = torch.where(live[r0:r1, None, None], v_cache[:, r0:r1].float(), 0.0)
         s = torch.einsum("bgrd,bsgd->bgrs", qg, kc) * scale
-        m = s.amax(-1)
+        s = torch.where(live[r0:r1], s, float("-inf"))
+        m = s.amax(-1).clamp_min(-1e30)
         p = torch.exp(s - m[..., None])
         ms.append(m)
         ls.append(p.sum(-1))
@@ -205,14 +228,14 @@ def decode_attention_split_ref(q, k_cache, v_cache, pos: int, splits: int,
     return o.reshape(B, H, D).to(q.dtype)
 
 
-def decode_attention(q, k_cache, v_cache, pos: int, sm_scale: Optional[float] = None):
+def decode_attention(q, k_cache, v_cache, pos, sm_scale: Optional[float] = None):
     """Launch the CUDA kernel on ``torch.cuda.current_stream()`` → a new
     ``[B, H, D]`` tensor in ``q.dtype``. q contiguous, the caches any
     strides with a unit-stride head dim and 16-byte aligned rows, all on
     one CUDA device, float32, float16 or bfloat16 (the caches one dtype);
-    ``pos`` a Python int, ``pos >= 0`` (past ``Smax - 1`` it means every
-    row). Raises on anything else."""
-    global LAUNCHES
+    ``pos`` an int32 tensor of one element on the same device (the last
+    live row; past ``Smax - 1`` it means every row), read by the kernel and
+    never on the host. Raises on anything else."""
     _check_shapes(q, k_cache, v_cache)
     tensors = {"q": q, "k_cache": k_cache, "v_cache": v_cache}
     for name, t in tensors.items():
@@ -234,11 +257,10 @@ def decode_attention(q, k_cache, v_cache, pos: int, sm_scale: Optional[float] = 
     S, KV = k_cache.shape[1], k_cache.shape[2]
     if D not in HEAD_DIMS:
         raise ValueError(f"decode_attention: head dim {D} not in {HEAD_DIMS}")
-    if isinstance(pos, torch.Tensor):
-        raise TypeError("decode_attention: pos must be a Python int (no device read per call)")
-    pos = int(pos)
-    if pos < 0:
-        raise ValueError(f"decode_attention: pos {pos} < 0")
+    if (not isinstance(pos, torch.Tensor) or pos.dtype != torch.int32 or pos.numel() != 1
+            or pos.device != q.device):
+        raise TypeError("decode_attention: pos must be an int32 tensor of one element on "
+                        f"{q.device} (the kernel reads it; no host value per call)")
     item = k_cache.element_size()
     for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
         if t.stride(3) != 1:
@@ -254,16 +276,16 @@ def decode_attention(q, k_cache, v_cache, pos: int, sm_scale: Optional[float] = 
 
     lib = load("decode_attention")
     scale = sm_scale if sm_scale is not None else 1.0 / (D ** 0.5)
-    G, W, splits, chunk = kernel_plan(B, H, KV, D, item, min(pos, S - 1) + 1,
-                                      _sm_count(q.device))
+    G, W, splits, chunk = kernel_plan(B, H, KV, D, item, S, _sm_count(q.device))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     scratch = split_scratch(q.device, stream, B, H, splits, D, G) if splits > 1 else (None,) * 3
     err = lib.decode_attention_launch(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(), *scratch,
-        B, S, H, KV, D, pos, splits, chunk, G, W, *k_cache.stride()[:3], *v_cache.stride()[:3],
+        pos.data_ptr(), B, S, H, KV, D, splits, chunk, G, W,
+        *k_cache.stride()[:3], *v_cache.stride()[:3],
         ctypes.c_float(scale), DTYPE_CODES[q.dtype], DTYPE_CODES[k_cache.dtype], stream,
     )
     if err != 0:
         raise RuntimeError(f"decode_attention: kernel launch failed, CUDA error {err}")
-    LAUNCHES += 1
+    LAUNCHES["decode_attention"] += 1
     return out

@@ -12,9 +12,9 @@ recomputed from the key, never stored, so remat's recomputation gives the
 same mask by construction.
 
 CUDA tensors go to the kernel (``ops/prng.py`` :func:`~.prng.dropout_kernel`,
-counted in ``prng.LAUNCHES["threefry_dropout"]``, one launch for a forward
-and one for a backward), which launches or raises; CPU tensors to the plain
-version; any other device raises.
+counted in ``ops/launches.py``'s ``LAUNCHES["threefry_dropout"]``, one launch
+for a forward and one for a backward), which launches or raises; CPU tensors
+to the plain version; any other device raises.
 """
 
 from __future__ import annotations

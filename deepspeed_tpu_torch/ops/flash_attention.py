@@ -38,9 +38,11 @@ from typing import Optional
 
 import torch
 
-# kernel launches by this process, per wrapper (the main path's proof that
-# it ran here)
-LAUNCHES = {"flash_attention_fwd": 0, "flash_attention_bwd": 0}
+from .launches import LAUNCHES, register
+
+# its launches in the registry, per wrapper (the main path's proof that it
+# ran here)
+KERNELS = register("flash_attention_fwd", "flash_attention_bwd")
 
 HEAD_DIMS = (64, 128, 256)
 DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}

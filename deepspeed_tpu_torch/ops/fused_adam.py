@@ -35,10 +35,11 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from ..utils.weights import tree_leaves, tree_map
+from .launches import LAUNCHES, register
 
-# kernel launches by this process (the main path's proof that it ran here);
+# its launches in the registry (the main path's proof that it ran here);
 # LAMB launches twice a call
-LAUNCHES = {"fused_adamw": 0, "fused_lamb": 0}
+KERNELS = register("fused_adamw", "fused_lamb")
 
 MAX_TENSORS = 48  # tensors a launch takes (csrc/fused_adam.cu kMaxTensors)
 CHUNK = 65536     # elements a block updates (kChunk): LAMB's partial sums

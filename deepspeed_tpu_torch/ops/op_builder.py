@@ -83,9 +83,9 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "decode_attention": {
         "decode_attention_launch": (
-            [_P, _P, _P, _P, _P, _P, _P,       # q, k_cache, v_cache, out, part_ml, part_acc,
-                                               # counters
-             _I, _I, _I, _I, _I, _I,           # B, Smax, H, KV, D, pos
+            [_P, _P, _P, _P, _P, _P, _P, _P,   # q, k_cache, v_cache, out, part_ml, part_acc,
+                                               # counters, pos (int32 [1] on the device)
+             _I, _I, _I, _I, _I,               # B, Smax, H, KV, D
              _I, _I, _I, _I]                   # splits, chunk, heads and warps a block
             + [_L] * 6                         # k, v strides (batch, seq, head)
             + [_F, _I, _I, _P],                # sm_scale, q dtype, kv dtype, stream

@@ -39,11 +39,11 @@ from .decode_attention import (
     rows_per_pass,
     split_scratch,
 )
+from .launches import LAUNCHES, register
 
-# kernel launches by this process (the main path's proof that it ran
-# here): full-precision pools, and the int8 mode
-LAUNCHES = 0
-LAUNCHES_INT8 = 0
+# its launches in the registry (the main path's proof that it ran here):
+# full-precision pools, and the int8 mode
+KERNELS = register("paged_decode_attention", "paged_decode_attention_int8")
 
 KV_DTYPE_CODES = {**DTYPE_CODES, torch.int8: 3}
 PAGE_RANGE = (8, 64)
@@ -195,7 +195,6 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, pos,
     of those or int8 (then with ``scales [P, KV, 2]`` float32),
     ``block_tables [B, n]`` and ``pos [B]`` int32; the page a multiple of 4
     rows. Raises on anything else. ``pos`` is never read on the host."""
-    global LAUNCHES, LAUNCHES_INT8
     _check_shapes(q, k_pool, v_pool, block_tables, pos)
     tensors = {"q": q, "k_pool": k_pool, "v_pool": v_pool,
                "block_tables": block_tables, "pos": pos}
@@ -254,8 +253,5 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, pos,
     )
     if err != 0:
         raise RuntimeError(f"paged_decode_attention: kernel launch failed, CUDA error {err}")
-    if scales is not None:
-        LAUNCHES_INT8 += 1
-    else:
-        LAUNCHES += 1
+    LAUNCHES[KERNELS[scales is not None]] += 1
     return out

@@ -61,11 +61,11 @@ from .paged_decode_attention import (
     PAGE_RANGE,
     check_scales_tensor,
 )
+from .launches import LAUNCHES, register
 
-# kernel launches by this process (the main path's proof that it ran
-# here): full-precision pools, and the int8 mode
-LAUNCHES = 0
-LAUNCHES_INT8 = 0
+# its launches in the registry (the main path's proof that it ran here):
+# full-precision pools, and the int8 mode
+KERNELS = register("paged_multitoken_attention", "paged_multitoken_attention_int8")
 
 MAX_T = 1024
 # the tensor-core route: query rows of a unit (4 warps x 16), keys of a
@@ -245,7 +245,6 @@ def paged_multitoken_attention(q, k_pool, v_pool, block_tables, base,
     int8 (then with ``scales [P, KV, 2]`` float32), ``block_tables [B, n]``
     and ``base [B]`` int32 (``base >= 0``), ``1 <= T <= 1024``. Raises on
     anything else. ``base`` is never read on the host."""
-    global LAUNCHES, LAUNCHES_INT8
     _check_shapes(q, k_pool, v_pool, block_tables, base)
     tensors = {"q": q, "k_pool": k_pool, "v_pool": v_pool,
                "block_tables": block_tables, "base": base}
@@ -311,8 +310,5 @@ def paged_multitoken_attention(q, k_pool, v_pool, block_tables, base,
         raise RuntimeError(
             f"paged_multitoken_attention: kernel launch failed, CUDA error {err}"
         )
-    if scales is not None:
-        LAUNCHES_INT8 += 1
-    else:
-        LAUNCHES += 1
+    LAUNCHES[KERNELS[scales is not None]] += 1
     return out

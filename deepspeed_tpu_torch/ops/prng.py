@@ -30,14 +30,18 @@ where the key schedules run (a key derivation is a handful of elements and
 costs no device work), or int64 tensors on any device. A key function
 returns the kind it was given. Key functions take a batch of keys
 ``[..., 2]`` where JAX takes one (``split`` of ``[L, 2]`` keys is JAX's
-``vmap`` of ``split``).
+``vmap`` of ``split``). The draws (:func:`uniform_rows` and what is built
+on it) also take *device keys*: an int32 tensor ``[R, 2]`` (``[2]`` for one
+key) holding the keys' 32-bit patterns, which a captured program keeps in
+a static buffer; they are used where they lie, with no copy and no host
+read (:func:`device_keys` makes them from host keys).
 
 The plain version of the bits is torch int64 arithmetic masked to 32 bits
 (PyTorch's uint32 lacks shifts and xor on CUDA); the host's key math is
 numpy uint32. This module also binds the hand-written kernel of
 ``csrc/threefry.cu``: :func:`uniform_rows_kernel` and
 :func:`dropout_kernel` (``ops/dropout.py`` builds the differentiable
-dropout on it), counted in :data:`LAUNCHES`. On the card,
+dropout on it), counted in ``LAUNCHES`` (``ops/launches.py``). On the card,
 :func:`uniform_rows` (and so :func:`uniform`, :func:`bernoulli`,
 :func:`gumbel`, :func:`categorical`) launches the kernel, which launches or
 raises; on the CPU it runs the plain version; any other device raises.
@@ -52,6 +56,9 @@ from typing import Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from ..utils.graphs import hold
+from .launches import LAUNCHES, register
+
 MASK32 = 0xFFFFFFFF
 KS_PARITY = 0x1BD11BDA
 ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -61,13 +68,22 @@ Key = Union[np.ndarray, torch.Tensor]
 
 
 @functools.lru_cache(maxsize=256)
+def _device_scalar(value: float, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    return torch.full((), value, dtype=dtype, device=device)
+
+
 def device_scalar(value: float, device: torch.device,
                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """``value`` as a 0-d ``dtype`` tensor on ``device``, made once and
     reused (read only): an operand on the other operand's device, so the
     card divides exactly as the CPU does (by a CPU scalar it multiplies by
-    the reciprocal), and no call pays a host-to-device copy."""
-    return torch.full((), value, dtype=dtype, device=device)
+    the reciprocal), and no call pays a host-to-device copy. A graph being
+    captured holds the tensor (``utils.graphs.hold``): the cache may drop
+    it, the graph still reads it."""
+    return hold(_device_scalar(value, device, dtype))
+
+
+device_scalar.cache_clear = _device_scalar.cache_clear
 
 
 def threefry2x32(k0, k1, x0, x1):
@@ -170,6 +186,20 @@ def fold_in(key: Key, data: int) -> Key:
     return back(np.stack(np.broadcast_arrays(y0, y1), axis=-1).astype(np.uint32))
 
 
+def is_device_key(key) -> bool:
+    """An int32 tensor of keys' bit patterns (the draws' no-copy form)."""
+    return isinstance(key, torch.Tensor) and key.dtype == torch.int32
+
+
+def device_keys(keys: Key, device=None) -> torch.Tensor:
+    """Host keys ``[..., 2]`` as device keys: an int32 tensor of the same
+    bits on ``device`` (one copy; a captured program instead refills a
+    static buffer)."""
+    arr, _ = _as_np(keys)
+    return torch.from_numpy(np.ascontiguousarray(arr).view(np.int32)).to(
+        torch.device("cpu" if device is None else device))
+
+
 def key_words(key: Key) -> Tuple[int, int]:
     """One key as two Python ints (the kernel's by-value arguments)."""
     arr, _ = _as_np(key)
@@ -184,11 +214,14 @@ def key_words(key: Key) -> Tuple[int, int]:
 
 def random_bits_rows(keys: Key, n: int, device=None) -> torch.Tensor:
     """Row r: ``random_bits(keys[r], (n,))`` → int64 ``[R, n]`` of 32-bit
-    values (the plain version; torch ops on ``device``)."""
-    arr, _ = _as_np(keys)
-    arr = arr.reshape(-1, 2)
+    values (the plain version; torch ops on ``device``). Device keys are
+    widened on their device, never read on the host."""
     dev = torch.device("cpu" if device is None else device)
-    k = torch.from_numpy(arr.astype(np.int64)).to(dev)
+    if is_device_key(keys):
+        k = keys.reshape(-1, 2).to(dev).long() & MASK32
+    else:
+        arr, _ = _as_np(keys)
+        k = torch.from_numpy(arr.reshape(-1, 2).astype(np.int64)).to(dev)
     idx = torch.arange(int(n), dtype=torch.int64, device=dev)[None, :]
     y0, y1 = threefry2x32(k[:, :1], k[:, 1:], idx >> 32, idx & MASK32)
     return y0 ^ y1
@@ -237,8 +270,8 @@ def uniform_rows_ref(keys: Key, n: int, minval: float = 0.0, maxval: float = 1.0
 # the kernel (csrc/threefry.cu): its two wrappers
 # ---------------------------------------------------------------------------
 
-# kernel launches by this process (the main path's proof that it ran here)
-LAUNCHES = {"threefry_dropout": 0, "threefry_uniform_rows": 0}
+# its launches in the registry (the main path's proof that it ran here)
+KERNELS = register("threefry_dropout", "threefry_uniform_rows")
 
 DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
@@ -326,15 +359,22 @@ def dropout_kernel(x: torch.Tensor, key: Key, rate: float) -> torch.Tensor:
 def uniform_rows_kernel(keys: Key, n: int, minval: float = 0.0, maxval: float = 1.0,
                         device=None) -> torch.Tensor:
     """Launch the uniform kernel: ``keys [R, 2]`` (at most 65535 rows) →
-    f32 ``[R, n]`` on the CUDA ``device``, one launch. Raises on any other
-    device."""
+    f32 ``[R, n]`` on the CUDA ``device``, one launch. Device keys on
+    ``device`` are read by the kernel where they lie (no copy); host keys
+    are copied up first. Raises on any other device."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type != "cuda":
         raise ValueError(f"uniform_rows_kernel: the kernel takes a CUDA device, not {dev}")
-    arr, _ = _as_np(keys)
-    arr = np.ascontiguousarray(arr.reshape(-1, 2))
-    R = arr.shape[0]
-    k = torch.from_numpy(arr.view(np.int32)).to(dev, non_blocking=True)
+    if is_device_key(keys):
+        k = keys.reshape(-1, 2)
+        if k.device != dev or not k.is_contiguous():
+            raise ValueError(f"uniform_rows_kernel: device keys must be contiguous on {dev}, "
+                             f"got {k.device}")
+    else:
+        arr, _ = _as_np(keys)
+        k = torch.from_numpy(np.ascontiguousarray(arr.reshape(-1, 2)).view(np.int32)).to(
+            dev, non_blocking=True)
+    R = k.shape[0]
     out = torch.empty((R, int(n)), dtype=torch.float32, device=dev)
     lo, span = _range_f32(minval, maxval)
     from .op_builder import load
@@ -369,8 +409,8 @@ def uniform(key: Key, shape, minval: float = 0.0, maxval: float = 1.0,
             device=None) -> torch.Tensor:
     """``jax.random.uniform(key, shape, f32, minval, maxval)``."""
     shape = tuple(shape)
-    return uniform_rows(key_words(key), math.prod(shape), minval, maxval,
-                        device).reshape(shape)
+    row = key.reshape(1, 2) if is_device_key(key) else key_words(key)
+    return uniform_rows(row, math.prod(shape), minval, maxval, device).reshape(shape)
 
 
 def bernoulli(key: Key, p: float, shape, device=None) -> torch.Tensor:

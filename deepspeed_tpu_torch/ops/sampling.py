@@ -61,7 +61,9 @@ def sample_logits(
     ``jax.random.categorical`` of the scaled, masked f32 logits. ``key``
     is one ``[2]`` key for the whole batch (``generate``: the draw covers
     the flat ``[N, V]``) or ``[N, 2]``, one key a row (the serving
-    programs' ``vmap`` over per-slot keys)."""
+    programs' ``vmap`` over per-slot keys): host keys, or device keys
+    (``prng.device_keys``: an int32 tensor, drawn from where it lies, as a
+    captured program's static key buffer is)."""
     logits = logits.float()
     if not temperature or temperature <= 0.0:
         return torch.argmax(logits, dim=-1)

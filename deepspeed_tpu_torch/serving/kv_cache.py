@@ -147,15 +147,35 @@ class SlotTable:
     """Host-side per-slot block tables, sequence lengths, last tokens and
     sampling keys (``[max_slots, 2]`` uint32): the inputs of the batched
     decode step. The scheduler mutates them in place (admission writes a
-    row, finish clears it)."""
+    row, finish clears it).
 
-    def __init__(self, max_slots: int, pages_per_slot: int):
+    ``staging`` (optional): int32 arrays to hold them instead of fresh ones,
+    by name (``block_tables``, ``seq_lens``, ``tokens``, ``keys``; any
+    subset). The scheduler passes the decode (or verify) program's pinned
+    staging arrays, so the table is what one copy uploads each step."""
+
+    def __init__(self, max_slots: int, pages_per_slot: int, staging=None):
         self.max_slots = int(max_slots)
         self.pages_per_slot = int(pages_per_slot)
-        self.block_tables = np.full((max_slots, pages_per_slot), SCRATCH_PAGE, np.int32)
-        self.seq_lens = np.zeros((max_slots,), np.int32)
-        self.tokens = np.zeros((max_slots,), np.int32)
-        self.keys = np.zeros((max_slots, 2), np.uint32)
+        shapes = {"block_tables": (max_slots, pages_per_slot), "seq_lens": (max_slots,),
+                  "tokens": (max_slots,), "keys": (max_slots, 2)}
+        arrays = {}
+        for name, shape in shapes.items():
+            a = (staging or {}).get(name)
+            if a is None:
+                a = np.zeros(shape, np.int32)
+            elif a.shape != shape or a.dtype != np.int32:
+                raise ValueError(f"SlotTable: staging {name} {a.shape} {a.dtype}, expected "
+                                 f"{shape} int32")
+            arrays[name] = a
+        self.block_tables = arrays["block_tables"]
+        self.block_tables[:] = SCRATCH_PAGE
+        self.seq_lens = arrays["seq_lens"]
+        self.seq_lens[:] = 0
+        self.tokens = arrays["tokens"]
+        self.tokens[:] = 0
+        self.keys = arrays["keys"].view(np.uint32)
+        self.keys[:] = 0
 
     def assign(self, slot: int, pages: List[int]) -> None:
         if len(pages) > self.pages_per_slot:

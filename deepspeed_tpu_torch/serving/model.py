@@ -31,6 +31,13 @@ package threads them through as donated buffers instead, so there too the
 cache never exists twice. Inactive slots ride along pointed at the scratch
 page: their writes land there and their outputs are never read.
 
+Each program bakes no host value into an op: the prompt length and a
+chunk's start are int32 ``[1]`` tensors on the device (``device_int``
+normalises them once at a program's top), and the positions, the chunk's
+``base``, the head's row and every write target come from device
+arithmetic and indexing. So the scheduler captures each program once as a CUDA graph
+(``utils/graphs.py``) and replays it on refilled static inputs.
+
 Every weight goes through ``ops.quantizer.maybe_dequantize`` at its use
 (a weight-only int8 tree dequantizes layer by layer into transients).
 Sampled tokens are the JAX package's draws: the prefill and chunk
@@ -50,7 +57,7 @@ from typing import Any, Optional
 
 import torch
 
-from ..models.gpt2 import GPT2Config, _layer_norm, _mlp
+from ..models.gpt2 import GPT2Config, _layer_norm, _mlp, device_int, row_at
 from ..ops.attention import paged_cached_attention, paged_multitoken_cached_attention
 from ..ops.quantizer import (
     dequantize_kv_pages,
@@ -193,7 +200,7 @@ def paged_prefill(
     cfg: GPT2Config,
     params: PyTree,
     input_ids: torch.Tensor,   # [1, Sp] right-padded to the prefill width
-    prompt_len: int,           # true prompt length
+    prompt_len,                # true prompt length: int32 [1] on the device
     k_pool: torch.Tensor,      # [L, P, KV, page, D], written in place
     v_pool: torch.Tensor,
     page_ids: torch.Tensor,    # [Sp // page] slot pages (scratch-padded)
@@ -207,8 +214,9 @@ def paged_prefill(
     """→ first token ``[1]`` (and its logits ``[1, V]`` when asked)."""
     B, Sp = input_ids.shape
     eps = cfg.layer_norm_epsilon
+    prompt_len = device_int(prompt_len, input_ids.device)
     positions = torch.arange(Sp, device=input_ids.device)
-    h = params["wte"][input_ids] + params["wpe"][positions][None, :, :]
+    h = params["wte"][input_ids.long()] + params["wpe"][positions][None, :, :]
     page_ids = page_ids.long()
 
     for l in range(cfg.n_layer):
@@ -220,7 +228,7 @@ def paged_prefill(
         )
         h = h + _mlp(cfg, lp["mlp"], _layer_norm(h, lp["ln_2"]["scale"], lp["ln_2"]["bias"], eps))
 
-    logits = _logits(cfg, params, h[:, int(prompt_len) - 1])
+    logits = _logits(cfg, params, row_at(h, prompt_len - 1))
     first = sample_logits(logits, key, temperature, top_k, top_p)
     return (first, logits) if return_logits else first
 
@@ -422,8 +430,8 @@ def paged_chunk_prefill(
     cfg: GPT2Config,
     params: PyTree,
     input_ids: torch.Tensor,     # [1, C] one chunk, right-padded past the prompt
-    start: int,                  # position of input_ids[0, 0] (page-aligned)
-    prompt_len: int,             # the request's true prompt length
+    start,                       # position of input_ids[0, 0] (page-aligned): int32 [1]
+    prompt_len,                  # the request's true prompt length: int32 [1]
     k_pool: torch.Tensor,        # [L, P, KV, page, D], written in place
     v_pool: torch.Tensor,
     page_ids: torch.Tensor,      # [C // page] this chunk's slot pages (scratch-padded)
@@ -449,11 +457,12 @@ def paged_chunk_prefill(
     eps = cfg.layer_norm_epsilon
     H, D = cfg.n_head, cfg.head_dim
     dev = input_ids.device
-    positions = (int(start) + torch.arange(C, device=dev)).clamp(max=cfg.n_positions - 1)
+    start, prompt_len = device_int(start, dev), device_int(prompt_len, dev)
+    positions = (start.long() + torch.arange(C, device=dev)).clamp(max=cfg.n_positions - 1)
     h = params["wte"][input_ids.long()] + params["wpe"][positions][None, :, :]
     page_ids = page_ids.long()
     block_tables = block_tables.to(torch.int32).contiguous()
-    base = torch.full((B,), int(start), dtype=torch.int32, device=dev)
+    base = start.expand(B).contiguous()
 
     for l in range(cfg.n_layer):
         lp = _layer_params(params, l)
@@ -475,7 +484,7 @@ def paged_chunk_prefill(
         h = h + _mlp(cfg, lp["mlp"], _layer_norm(h, lp["ln_2"]["scale"], lp["ln_2"]["bias"], eps))
 
     # the true last prompt position, when it falls inside this chunk
-    idx = min(max(int(prompt_len) - 1 - int(start), 0), C - 1)
-    logits = _logits(cfg, params, h[:, idx])
+    idx = (prompt_len - 1 - start).clamp(0, C - 1)
+    logits = _logits(cfg, params, row_at(h, idx))
     first = sample_logits(logits, key, temperature, top_k, top_p)
     return (first, logits) if return_logits else first

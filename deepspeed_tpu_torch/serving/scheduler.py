@@ -31,6 +31,23 @@ token streams:
   prefill in page-aligned chunks, one chunk per scheduler step, so a long
   prompt does not stall the co-resident decode slots for its whole width.
 
+The programs are the JAX engine's fixed, config-derived set
+(``deepspeed_tpu/serving/scheduler.py:1-12``, ``:651-664``): one prefill,
+ONE decode-shaped program (the verify step REPLACES the decode step when
+speculation is on) and the chunk program when chunking or the prefix cache
+needs it, built once in :meth:`ServingEngine._build_programs` and listed in
+``executables`` (``expected_executables`` is JAX's formula over the ported
+features). Each is a ``utils.graphs.CapturedProgram``: a captured CUDA
+graph on the card over static device buffers (tokens, sequence lengths,
+block tables ``[max_slots, pages_per_slot]``, verify tokens ``[max_slots,
+spec_k + 1]``, keys ``[max_slots, 2]``; the prefill's and the chunk's own
+inputs), refilled each step by one copy from pinned host memory and
+replayed; on the CPU the same programs run their step functions. The
+decode (or verify) program's staging arrays are the :class:`SlotTable`'s.
+``track_margins`` and the sampling settings are fixed per engine; the
+chunk program always samples (the final chunk's token is the request's
+first, an earlier chunk's is discarded), as the JAX program does.
+
 Sampling (``serving.temperature > 0``) draws what the JAX scheduler draws
 for the same request seed: the prefill (or the final prefill chunk) samples
 with ``PRNGKey(seed)``, and decode step t with ``split(fold_in(PRNGKey(seed),
@@ -61,6 +78,7 @@ import torch
 from ..models.gpt2 import GPT2Config
 from ..ops import prng
 from ..runtime.config import ServingConfig
+from ..utils.graphs import CapturedProgram, StaticInputs
 from ..utils.logging import log_dist
 from . import model as smodel
 from .kv_cache import (
@@ -159,7 +177,6 @@ class ServingEngine:
                 f"max-size request ({self.pages_per_slot} pages of {page} "
                 "tokens; page 0 is scratch)"
             )
-        self.table = SlotTable(self.max_slots, self.pages_per_slot)
         self.slots: List[_Slot] = [_Slot() for _ in range(self.max_slots)]
         self.queue: Deque[Request] = deque()
         self.completed: List[Request] = []
@@ -186,6 +203,7 @@ class ServingEngine:
         else:
             self.chunk_width = 0
         self.chunk_width = min(self.chunk_width, self.prefill_width)
+        self._build_programs()
 
         self._status_counts: dict = {}
         self._step_count = 0
@@ -219,6 +237,78 @@ class ServingEngine:
             f"spec_k={self.spec_k} prefix_cache={self.prefix_cache is not None} "
             f"dtype={str(self.cache_dtype).replace('torch.', '')} device={self.device}"
         )
+
+    # ------------------------------------------------------------------
+    # the programs: a fixed, config-derived set, captured on the card
+    # ------------------------------------------------------------------
+    def _build_programs(self) -> None:
+        """The prefill, the decode or verify step and (with chunks) the
+        chunk program, each over its static inputs → ``executables``; the
+        slot table lives in the decode-shaped program's staging arrays."""
+        mcfg, pset, dev = self.model_config, self.pset, self.device
+        S, pps = self.max_slots, self.pages_per_slot
+        sample = dict(temperature=float(self.config.temperature),
+                      top_k=int(self.config.top_k), top_p=float(self.config.top_p))
+        common = dict(return_logits=self.track_margins, scales=pset.scales)
+        sampling = self._sampling
+        sfx = "_int8" if pset.scales is not None else ""
+
+        def program(name, shapes, fn):
+            inputs = StaticInputs(shapes, dev)
+
+            def step():
+                with torch.no_grad():
+                    return fn(inputs.dev)
+
+            return CapturedProgram(name + sfx, step, dev, inputs)
+
+        self._prefill_prog = program(
+            "serving_prefill",
+            {"ids": (1, self.prefill_width), "plen": (1,), "page_ids": (self.prefill_pages,),
+             "key": (2,)},
+            lambda x: smodel.paged_prefill(
+                mcfg, pset.params, x["ids"], x["plen"], pset.k_pool, pset.v_pool,
+                x["page_ids"], x["key"] if sampling else None, **sample, **common))
+        self.executables: List[CapturedProgram] = [self._prefill_prog]
+        if self.spec_enabled:
+            self._step_prog = program(
+                "serving_verify",
+                {"tokens": (S, self.spec_k + 1), "seq_lens": (S,), "block_tables": (S, pps)},
+                lambda x: smodel.paged_verify_step(
+                    mcfg, pset.params, x["tokens"], x["seq_lens"], pset.k_pool, pset.v_pool,
+                    x["block_tables"], **common))
+        else:
+            self._step_prog = program(
+                "serving_decode",
+                {"tokens": (S,), "seq_lens": (S,), "block_tables": (S, pps), "keys": (S, 2)},
+                lambda x: smodel.paged_decode_step(
+                    mcfg, pset.params, x["tokens"], x["seq_lens"], pset.k_pool, pset.v_pool,
+                    x["block_tables"], x["keys"] if sampling else None, **sample, **common))
+        self.executables.append(self._step_prog)
+        staged = self._step_prog.inputs.staging()
+        self.table = SlotTable(S, pps, staging={
+            k: v for k, v in staged.items() if not (self.spec_enabled and k == "tokens")})
+        self._chunk_prog = None
+        if self.chunk_width > 0:
+            C = self.chunk_width
+            self._chunk_prog = program(
+                "serving_chunk_prefill",
+                {"ids": (1, C), "start": (1,), "plen": (1,), "page_ids": (C // self.page_size,),
+                 "row": (1, pps), "key": (2,)},
+                lambda x: smodel.paged_chunk_prefill(
+                    mcfg, pset.params, x["ids"], x["start"], x["plen"], pset.k_pool,
+                    pset.v_pool, x["page_ids"], x["row"], x["key"] if sampling else None,
+                    **sample, **common))
+            self.executables.append(self._chunk_prog)
+
+    @property
+    def expected_executables(self) -> int:
+        """The static-shapes contract of the JAX engine over the ported
+        features: one prefill program, ONE decode-shaped program (verify
+        replaces decode) and the chunk program when chunking or the prefix
+        cache needs it (disaggregation and the host tier are not ported:
+        the config refuses them)."""
+        return 2 + (1 if self.chunk_width > 0 else 0)
 
     @property
     def allocator(self):
@@ -381,23 +471,12 @@ class ServingEngine:
 
     def _decode(self, active):
         """One batched decode step → ([(slot, [token])], margins [B, 1] or
-        None)."""
-        pset = self.pset
-        dev = self.device
-        out = smodel.paged_decode_step(
-            self.model_config, pset.params,
-            torch.from_numpy(self.table.tokens).to(dev),
-            torch.from_numpy(self.table.seq_lens).to(dev),
-            pset.k_pool, pset.v_pool,
-            torch.from_numpy(self.table.block_tables).to(dev),
-            keys=self.table.keys if self._sampling else None,
-            temperature=float(self.config.temperature),
-            top_k=int(self.config.top_k), top_p=float(self.config.top_p),
-            return_logits=self.track_margins, scales=pset.scales,
-        )
+        None). The slot table is the program's staging: one upload."""
+        out = self._step_prog()
         nxt, logits = out if self.track_margins else (out, None)
         # the one deliberate sync of the slot loop: the scheduler must read
-        # the sampled tokens to retire or advance slots
+        # the sampled tokens to retire or advance slots (and it leaves the
+        # staged table free to write)
         out_np = nxt.cpu().numpy()
         margins = _top2_margin(logits)[:, None] if logits is not None else None
         return [(i, [int(out_np[i])]) for i in active], margins
@@ -406,21 +485,14 @@ class ServingEngine:
         """One speculative verify step: ``[max_slots, k+1]`` tokens (last
         emitted + the drafts) → ([(slot, accepted tokens)], margins
         [B, k+1] or None)."""
-        pset = self.pset
-        dev = self.device
-        vt = np.zeros((self.max_slots, self.spec_k + 1), np.int32)
+        vt = self._step_prog.inputs.staging()["tokens"]
+        vt[:] = 0
         vt[:, 0] = self.table.tokens
         drafts = {}
         for i in active:
             drafts[i] = self._draft(self.slots[i].request)
             vt[i, 1:] = drafts[i]
-        out = smodel.paged_verify_step(
-            self.model_config, pset.params, torch.from_numpy(vt).to(dev),
-            torch.from_numpy(self.table.seq_lens).to(dev),
-            pset.k_pool, pset.v_pool,
-            torch.from_numpy(self.table.block_tables).to(dev),
-            return_logits=self.track_margins, scales=pset.scales,
-        )
+        out = self._step_prog()
         greedy, logits = out if self.track_margins else (out, None)
         out_np = greedy.cpu().numpy()  # the step's one deliberate sync
         margins = _top2_margin(logits) if logits is not None else None
@@ -542,19 +614,13 @@ class ServingEngine:
 
         self.table.assign(slot_i, pages)
 
-        dev = self.device
-        ids = np.zeros((1, self.prefill_width), np.int64)
-        ids[0, : req.prompt_len] = req.prompt
-        page_ids = self.table.block_tables[slot_i, : self.prefill_pages]
-        pset = self.pset
-        out = smodel.paged_prefill(
-            self.model_config, pset.params, torch.from_numpy(ids).to(dev),
-            req.prompt_len, pset.k_pool, pset.v_pool,
-            torch.from_numpy(page_ids).to(dev), self._prefill_key(req),
-            temperature=float(self.config.temperature),
-            top_k=int(self.config.top_k), top_p=float(self.config.top_p),
-            return_logits=self.track_margins, scales=pset.scales,
-        )
+        x = self._prefill_prog.inputs.staging()
+        x["ids"][:] = 0
+        x["ids"][0, : req.prompt_len] = req.prompt
+        x["plen"][0] = req.prompt_len
+        x["page_ids"][:] = self.table.block_tables[slot_i, : self.prefill_pages]
+        x["key"][:] = self._prefill_key(req)
+        out = self._prefill_prog()
         first, logits = out if self.track_margins else (out, None)
         self._prefills += 1
         # deliberate sync: TTFT is defined by the first token reaching the
@@ -564,10 +630,10 @@ class ServingEngine:
             req.margins.append(float(_top2_margin(logits)[0]))
         self._start_decoding(slot_i, tok0)
 
-    def _prefill_key(self, req: Request):
-        """The first token's key: ``PRNGKey(seed)`` (JAX
-        ``_host_prng_key``), or None when greedy."""
-        return prng.PRNGKey(req.seed) if self._sampling else None
+    def _prefill_key(self, req: Request) -> np.ndarray:
+        """The first token's key as int32 staging: ``PRNGKey(seed)`` (JAX
+        ``_host_prng_key``; unread when greedy)."""
+        return prng.PRNGKey(req.seed).view(np.int32)
 
     def _advance_chunk(self, slot_i: int) -> None:
         """One chunk of a prefilling slot's prompt through the chunk
@@ -578,27 +644,22 @@ class ServingEngine:
         C = self.chunk_width
         page = self.page_size
         start = slot.prefill_pos
-        ids = np.zeros((1, C), np.int64)
+        x = self._chunk_prog.inputs.staging()
         seg = req.prompt[start: start + C]
-        ids[0, : len(seg)] = seg
+        x["ids"][:] = 0
+        x["ids"][0, : len(seg)] = seg
+        x["start"][0] = start
+        x["plen"][0] = req.prompt_len
         p0 = start // page
-        page_ids = np.zeros((C // page,), np.int32)  # scratch-padded past the row
         avail = slot.row[0, p0: p0 + C // page]
-        page_ids[: len(avail)] = avail
-        # only the final chunk samples, with the unchunked prefill's key; an
-        # earlier chunk's token is discarded
+        x["page_ids"][:] = 0  # scratch-padded past the row
+        x["page_ids"][: len(avail)] = avail
+        x["row"][:] = slot.row
+        # every chunk samples with the unchunked prefill's key (JAX's chunk
+        # program); only the final chunk's token is kept
+        x["key"][:] = self._prefill_key(req)
         final = start + C >= req.prompt_len
-        pset = self.pset
-        dev = self.device
-        out = smodel.paged_chunk_prefill(
-            self.model_config, pset.params, torch.from_numpy(ids).to(dev),
-            start, req.prompt_len, pset.k_pool, pset.v_pool,
-            torch.from_numpy(page_ids).to(dev), torch.from_numpy(slot.row).to(dev),
-            self._prefill_key(req) if final else None,
-            temperature=float(self.config.temperature) if final else 0.0,
-            top_k=int(self.config.top_k), top_p=float(self.config.top_p),
-            return_logits=self.track_margins and final, scales=pset.scales,
-        )
+        out = self._chunk_prog()
         self._chunks += 1
         slot.prefill_pos = start + C
         if not final:

@@ -91,11 +91,13 @@ def time_ms(fn, iters, warmup=10):
 
 
 # (label, B, Smax, H, KV, D, layers, positions): generate's decode step
-# (a layer's slice of a 24-layer cache, over positions its steps pass) and
-# a long cache at its last row
+# (a layer's slice of a 24-layer cache, over positions its steps pass), and
+# a long cache at its last row and early in a generation (the kernel plans
+# its chunks from Smax; a tree from before device pos planned them from pos)
 DECODE_CASES = [
     ("decode B8 Smax256 H16 D64 bf16", 8, 256, 16, 16, 64, 24, [128, 160, 192, 224, 254]),
     ("decode B2 Smax4096 H16 D64 bf16 pos 4095", 2, 4096, 16, 16, 64, 4, [4095]),
+    ("decode B2 Smax4096 H16 D64 bf16 pos 100", 2, 4096, 16, 16, 64, 4, [100]),
 ]
 # (label, B, H, KV, D, page, pool pages, table pages, pos, int8): phase 2's
 # decode shape (bf16, two slots inactive on scratch), 3c's verify shape
@@ -130,8 +132,15 @@ def time_decode(case, library):
     k = torch.randn(L, B, S, KV, D, generator=g, device="cuda").to(torch.bfloat16)
     v = torch.randn(L, B, S, KV, D, generator=g, device="cuda").to(torch.bfloat16)
     n = len(positions)
+    # pos as the kernel reads it: an int32 [1] tensor on the card (a tree
+    # older than that takes a Python int)
+    pos = [torch.full((1,), p, dtype=torch.int32, device="cuda") for p in positions]
+    try:
+        tda.decode_attention(q, k[0], v[0], pos[0])
+    except TypeError:
+        pos = positions
     out = {label: time_ms(lambda i: tda.decode_attention(q, k[i % L], v[i % L],
-                                                         positions[i % n]), 480)[0]}
+                                                         pos[i % n]), 480)[0]}
     if library:
         def lib(i):
             p = positions[i % n]

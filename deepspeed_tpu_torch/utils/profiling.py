@@ -40,3 +40,28 @@ def runtime_calls(prof):
             out[e.name][0] += e.time_range.end - e.time_range.start
             out[e.name][1] += 1
     return {name: (us, n) for name, (us, n) in out.items()}
+
+
+# the inference programs' kernels in a trace (their csrc entry points'
+# names), each with the registry entries that count its launches
+# (ops/launches.py)
+PROGRAM_KERNEL_EVENTS = (
+    ("::decode_split_kernel<", ("decode_attention",)),
+    ("::paged_split_kernel<", ("paged_decode_attention", "paged_decode_attention_int8")),
+    ("::paged_multitoken_", ("paged_multitoken_attention",
+                             "paged_multitoken_attention_int8")),
+    ("uniform_rows_kernel<", ("threefry_uniform_rows",)),
+)
+
+
+def traced_launches(prof, launched):
+    """The programs' kernels that a ``torch.profiler`` run saw on the device
+    against the launches the registry counted over the same run
+    (``launched``: entry → launches; a captured graph's replay adds its
+    capture's count, and the trace sees each of its kernel nodes) →
+    ``[(kernel name, kernels in the trace, launches counted)]``."""
+    from torch.autograd import DeviceType
+
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return [(pattern, sum(pattern in n for n in names), sum(launched.get(k, 0) for k in entries))
+            for pattern, entries in PROGRAM_KERNEL_EVENTS]

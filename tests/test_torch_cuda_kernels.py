@@ -10,6 +10,7 @@ import torch
 
 from deepspeed_tpu_torch.ops import paged_decode_attention as pda
 from deepspeed_tpu_torch.ops import paged_multitoken_attention as pma
+from deepspeed_tpu_torch.ops.launches import counts
 
 pytestmark = pytest.mark.cuda
 
@@ -34,10 +35,10 @@ def test_paged_decode_kernel_matches_plain_version(card, dtype, tol, H, KV, D, p
     bt = torch.randperm(P - 1, generator=g, device=card)[: B * n].add(1).reshape(B, n).int()
     bt[3] = 0  # an inactive slot on the scratch page
     pos = torch.tensor([0, page - 1, page, n * page + 7], dtype=torch.int32, device=card)
-    before = pda.LAUNCHES
+    before = pda.LAUNCHES["paged_decode_attention"]
     out = pda.paged_decode_attention(q, k, v, bt, pos)
     torch.cuda.synchronize()
-    assert pda.LAUNCHES == before + 1
+    assert pda.LAUNCHES["paged_decode_attention"] == before + 1
     ref = pda.paged_decode_attention_ref(q.float(), k.float(), v.float(), bt, pos)
     assert (out.float() - ref).abs().max().item() <= tol
 
@@ -66,10 +67,10 @@ def test_paged_multitoken_kernel_matches_plain_version(card, dtype, tol, T, H, K
     bt = torch.randperm(P - 1, generator=g, device=card)[: B * n].add(1).reshape(B, n).int()
     bt[3] = 0  # an inactive slot on the scratch page
     base = torch.tensor([0, page - 1, page + 3, n * page - 2], dtype=torch.int32, device=card)
-    before = pma.LAUNCHES
+    before = pma.LAUNCHES["paged_multitoken_attention"]
     out = pma.paged_multitoken_attention(q, k, v, bt, base)
     torch.cuda.synchronize()
-    assert pma.LAUNCHES == before + 1
+    assert pma.LAUNCHES["paged_multitoken_attention"] == before + 1
     ref = pma.paged_multitoken_attention_ref(q.float(), k.float(), v.float(), bt, base)
     assert (out.float() - ref).abs().max().item() <= tol
 
@@ -300,10 +301,12 @@ def test_int8_paged_decode_kernel_matches_plain_version(card, qdtype, tol, H, KV
     bt[3] = 0  # an inactive slot on the scratch page
     pos = torch.tensor([page + 3, page - 1, 3 * page, n * page + 7], dtype=torch.int32,
                        device=card)
-    before = (pda.LAUNCHES, pda.LAUNCHES_INT8)
+    before = counts(pda.KERNELS)
     out = pda.paged_decode_attention(q, kq, vq, bt, pos, scales=sc)
     torch.cuda.synchronize()
-    assert (pda.LAUNCHES, pda.LAUNCHES_INT8) == (before[0], before[1] + 1)
+    assert counts(pda.KERNELS) == {"paged_decode_attention": before["paged_decode_attention"],
+                                   "paged_decode_attention_int8":
+                                   before["paged_decode_attention_int8"] + 1}
     ref = pda.paged_decode_attention_ref(q.float(), kq, vq, bt, pos, scales=sc)
     assert (out.float() - ref).abs().max().item() <= tol
 
@@ -321,10 +324,10 @@ def test_int8_paged_multitoken_kernel_matches_plain_version(card, qdtype, tol, T
     bt[0, 0] = 1
     bt[3] = 0
     base = torch.tensor([0, page - 1, page + 3, n * page - 2], dtype=torch.int32, device=card)
-    before = pma.LAUNCHES_INT8
+    before = pma.LAUNCHES["paged_multitoken_attention_int8"]
     out = pma.paged_multitoken_attention(q, kq, vq, bt, base, scales=sc)
     torch.cuda.synchronize()
-    assert pma.LAUNCHES_INT8 == before + 1
+    assert pma.LAUNCHES["paged_multitoken_attention_int8"] == before + 1
     ref = pma.paged_multitoken_attention_ref(q.float(), kq, vq, bt, base, scales=sc)
     assert (out.float() - ref).abs().max().item() <= tol
 
@@ -358,12 +361,17 @@ def test_decode_kernel_matches_plain_version(card, dtype, tol, B, S, H, KV, D, p
     k = torch.randn(2, B, S, KV, D, generator=g, device=card).to(dtype)
     v = torch.randn(2, B, S, KV, D, generator=g, device=card).to(dtype)
     k[:, :, pos + 1:], v[:, :, pos + 1:] = 1e4, -1e4
-    before = tda.LAUNCHES
-    out = tda.decode_attention(q, k[1], v[1], pos)
+    before = tda.LAUNCHES["decode_attention"]
+    out = tda.decode_attention(q, k[1], v[1], _dpos(pos, card))
     torch.cuda.synchronize()
-    assert tda.LAUNCHES == before + 1
+    assert tda.LAUNCHES["decode_attention"] == before + 1
     ref = tda.decode_attention_ref(q.float(), k[1].float(), v[1].float(), pos)
     assert (out.float() - ref).abs().max().item() <= tol
+
+
+def _dpos(pos, card):
+    """``pos`` as the kernel reads it: int32 ``[1]`` on the card."""
+    return torch.full((1,), pos, dtype=torch.int32, device=card)
 
 
 def _decode_check(card, B, S, H, KV, D, pos, dtype=torch.bfloat16, seed=5):
@@ -372,7 +380,7 @@ def _decode_check(card, B, S, H, KV, D, pos, dtype=torch.bfloat16, seed=5):
     k = torch.randn(3, B, S, KV, D, generator=g, device=card).to(dtype)
     v = torch.randn(3, B, S, KV, D, generator=g, device=card).to(dtype)
     k[:, :, pos + 1:], v[:, :, pos + 1:] = 1e4, -1e4
-    out = tda.decode_attention(q, k[2], v[2], pos)  # the layer slice, strided
+    out = tda.decode_attention(q, k[2], v[2], _dpos(pos, card))  # the layer slice, strided
     torch.cuda.synchronize()
     ref = tda.decode_attention_ref(q.float(), k[2].float(), v[2].float(), pos)
     tol = 1e-5 if dtype == torch.float32 else 1e-2
@@ -384,14 +392,14 @@ def _decode_check(card, B, S, H, KV, D, pos, dtype=torch.bfloat16, seed=5):
 @pytest.mark.parametrize("B,S,H,KV", [(8, 256, 16, 16), (2, 1024, 16, 4), (1, 600, 8, 1),
                                       (2, 2048, 16, 16)])
 def test_decode_kernel_at_every_split_edge(card, B, S, H, KV):
-    """pos on both sides of every chunk edge the planner draws, pos 0 and
-    Smax - 1, against the plain version, garbage past pos."""
+    """pos on both sides of every chunk edge the planner draws (from Smax
+    alone: chunks past pos are empty), pos 0 and Smax - 1, every 37th row,
+    against the plain version, garbage past pos."""
     sms = torch.cuda.get_device_properties(card).multi_processor_count
-    positions = {0, S - 1}
-    for n in range(1, S + 1, 37):
-        _, _, splits, chunk = tda.kernel_plan(B, H, KV, 64, 2, n, sms)
-        for e in range(1, splits + 1):
-            positions.update({min(e * chunk - 1, S - 1), min(e * chunk, S - 1)})
+    positions = {0, S - 1} | set(range(1, S, 37))
+    _, _, splits, chunk = tda.kernel_plan(B, H, KV, 64, 2, S, sms)
+    for e in range(1, splits + 1):
+        positions.update({min(e * chunk - 1, S - 1), min(e * chunk, S - 1)})
     for pos in sorted(positions):
         _decode_check(card, B, S, H, KV, 64, pos)
 
@@ -401,24 +409,156 @@ def test_decode_kernel_long_cache_and_repeat(card, dtype):
     """Smax 8192 at its last row (64 chunks), twice: the merge runs in a
     fixed order, so the two outputs agree bit for bit."""
     q, k, v, out = _decode_check(card, 2, 8192, 8, 8, 64, 8191, dtype)
-    again = tda.decode_attention(q, k, v, 8191)
+    again = tda.decode_attention(q, k, v, _dpos(8191, card))
     assert torch.equal(out, again)
 
 
 def test_decode_kernel_refuses_what_it_does_not_take(card):
     q = torch.zeros(2, 4, 32, device=card)  # head dim 32 is not built
     k = torch.zeros(2, 16, 4, 32, device=card)
+    pos = _dpos(3, card)
     with pytest.raises(ValueError, match="head dim"):
-        tda.decode_attention(q, k, k, 3)
+        tda.decode_attention(q, k, k, pos)
     q, k = torch.zeros(2, 4, 64, device=card), torch.zeros(2, 16, 4, 64, device=card)
-    with pytest.raises(TypeError, match="Python int"):
-        tda.decode_attention(q, k, k, torch.tensor(3, device=card))
+    for bad in (3, pos.long(), pos.cpu(), torch.zeros(2, dtype=torch.int32, device=card)):
+        with pytest.raises(TypeError, match="int32 tensor"):
+            tda.decode_attention(q, k, k, bad)
     with pytest.raises(ValueError, match="unit-stride"):
-        tda.decode_attention(q, k.transpose(1, 3).contiguous().transpose(1, 3), k, 3)
+        tda.decode_attention(q, k.transpose(1, 3).contiguous().transpose(1, 3), k, pos)
     with pytest.raises(ValueError, match="jnp"):
         from deepspeed_tpu_torch.ops.attention import cached_attention
 
         cached_attention(q, k, k, 3, impl="jnp")
+
+
+def test_decode_kernel_reads_pos_on_the_device(card):
+    """One launch captured in a CUDA graph, replayed with pos rewritten in
+    place: each replay attends rows 0..pos, as the plain version does (a
+    long cache, so most of the Smax-planned chunks are empty)."""
+    g = torch.Generator(device=card).manual_seed(6)
+    q = torch.randn(2, 16, 64, generator=g, device=card).bfloat16()
+    k = torch.randn(2, 2048, 16, 64, generator=g, device=card).bfloat16()
+    v = torch.randn(2, 2048, 16, 64, generator=g, device=card).bfloat16()
+    pos = _dpos(0, card)
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        tda.decode_attention(q, k, v, pos)  # warm-up: the split scratch of s
+    torch.cuda.current_stream().wait_stream(s)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=s):
+        out = tda.decode_attention(q, k, v, pos)
+    for p in (0, 1, 255, 256, 1000, 2047, 7):
+        pos.fill_(p)
+        graph.replay()
+        torch.cuda.synchronize()
+        ref = tda.decode_attention_ref(q.float(), k.float(), v.float(), p)
+        assert (out.float() - ref).abs().max().item() <= 1e-2, p
+
+
+# ---- captured programs against eager ----------------------------------------
+
+def _eager(on):
+    from deepspeed_tpu_torch.utils import graphs
+
+    prev, graphs._EAGER = graphs._EAGER, on
+    return prev
+
+
+def test_captured_generate_matches_eager(card):
+    """gpt2 (12 layers, D64) bf16, B2, prompts of 20 and 17 tokens (one 32
+    bucket): captured graphs and the same programs run eagerly give the same
+    tokens; under replay the decode kernel's count is exactly n_layer x
+    (new - 1) a call and uniform_rows' one a token when sampling."""
+    import deepspeed_tpu_torch as dtt
+    from deepspeed_tpu_torch.ops import prng
+    from deepspeed_tpu_torch.utils import graphs
+
+    cap = dtt.init_inference("gpt2", seed=0)
+    ids = np.random.RandomState(0).randint(0, 50257, (2, 20)).astype(np.int32)
+    L, new = cap.model_config.n_layer, 16
+    for kw in ({}, {"temperature": 0.8, "top_k": 50, "top_p": 0.95, "seed": 2}):
+        prev = _eager(True)
+        try:
+            eager = dtt.init_inference(cap.model_config, params=cap.params)
+            want = {n: eager.generate(ids[:, :n], max_new_tokens=new, **kw) for n in (20, 17)}
+        finally:
+            graphs._EAGER = prev
+        for n in (20, 17, 20):  # warm-up, capture, replay
+            tda.LAUNCHES["decode_attention"] = 0
+            prng.LAUNCHES["threefry_uniform_rows"] = 0
+            got = cap.generate(ids[:, :n], max_new_tokens=new, **kw)
+            np.testing.assert_array_equal(got, want[n])
+            assert tda.LAUNCHES["decode_attention"] == L * (new - 1)
+            assert prng.LAUNCHES["threefry_uniform_rows"] == (new if kw else 0)
+    entries = list(cap._generate_cache.values())
+    assert len(entries) == 2 and all(p.graph is not None for e in entries for p in e.programs)
+
+
+def test_captured_generate_outlives_the_caches_it_read(card):
+    """A captured sampled generate reads the temperature divisor (a cached
+    device scalar) and, over a 536-row cache, the decode kernel's split
+    scratch by address. Its graph holds both, so clearing the scalar cache,
+    replacing the scratch with a larger one and allocating junk over what
+    was given back changes no token of the next replay."""
+    import deepspeed_tpu_torch as dtt
+    from deepspeed_tpu_torch.ops import prng
+    from deepspeed_tpu_torch.utils import graphs
+
+    eng = dtt.init_inference("gpt2", seed=0)
+    ids = np.random.RandomState(3).randint(0, 50257, (2, 300)).astype(np.int32)
+    kw = {"temperature": 0.8, "top_k": 50, "top_p": 0.95, "seed": 2}
+    want = [eng.generate(ids, max_new_tokens=24, **kw) for _ in range(2)]  # warm-up, capture
+    np.testing.assert_array_equal(want[0], want[1])
+    (entry,) = eng._generate_cache.values()
+    assert all(p.graph is not None for p in entry.programs)
+    assert tda.kernel_plan(2, 12, 12, 64, 2, 512 + 24, tda._sm_count(card))[2] > 1  # split
+    prng.device_scalar.cache_clear()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    stream = graphs.capture_stream(dev)
+    old = tda._PARTIALS[dev, stream.cuda_stream]
+    with torch.cuda.stream(stream):
+        # 5 chunks of B8 H16 D256: 165,120 floats of partials, more than
+        # the generate's scratch holds
+        q = torch.randn(8, 16, 256, device=card, dtype=torch.bfloat16)
+        kv = torch.randn(8, 8192, 16, 256, device=card, dtype=torch.bfloat16)
+        tda.decode_attention(q, kv, kv, _dpos(8191, card))
+    torch.cuda.synchronize()
+    assert tda._PARTIALS[dev, stream.cuda_stream] is not old  # replaced by a larger one
+    del old
+    junk = [torch.full((n,), float("nan"), device=card) for n in (1,) * 4096 + (1 << 22,) * 8]
+    got = eng.generate(ids, max_new_tokens=24, **kw)
+    del junk
+    np.testing.assert_array_equal(got, want[0])
+
+
+def test_captured_serving_decode_matches_eager(card):
+    """The default serving section at gpt2 bf16: captured and eager streams
+    identical, the paged decode kernel launched n_layer x decode steps on
+    both, the program set JAX's (prefill + decode), both captured."""
+    import deepspeed_tpu_torch as dtt
+    from deepspeed_tpu_torch.utils import graphs
+
+    eng = dtt.init_inference("gpt2", seed=0)
+    rs = np.random.RandomState(1)
+    prompts = [rs.randint(0, 50257, int(n)) for n in rs.randint(4, 60, 6)]
+    runs = {}
+    for side in ("eager", "captured"):
+        prev = _eager(side == "eager")
+        try:
+            srv = eng.serve({"max_slots": 4})
+        finally:
+            graphs._EAGER = prev
+        reqs = [srv.submit(p, max_new_tokens=12, seed=i) for i, p in enumerate(prompts)]
+        pda.LAUNCHES["paged_decode_attention"] = 0
+        srv.run()
+        srv.check_no_leaks()
+        steps = srv.stats()["decode_steps"]
+        assert pda.LAUNCHES["paged_decode_attention"] == eng.model_config.n_layer * steps
+        assert len(srv.executables) == srv.expected_executables == 2
+        assert all((p.graph is not None) == (side == "captured") for p in srv.executables)
+        runs[side] = ([list(r.tokens) for r in reqs], pda.LAUNCHES["paged_decode_attention"])
+    assert runs["captured"] == runs["eager"]
 
 
 # ---- block-sparse attention (forward, dq, dk/dv) ----------------------------
@@ -453,11 +593,11 @@ def _bs_config(kind, H, blk, causal):
 
 def _bs_check(q, k, v, do, lists, causal):
     """The three kernels against their plain versions on the same inputs."""
-    before = dict(bsa.LAUNCHES)
+    before = counts(bsa.KERNELS)
     o, lse = bsa.block_sparse_attention_fwd(q, k, v, lists, causal)
     dq, dk, dv = bsa.block_sparse_attention_bwd(q, k, v, o, lse, do, lists, causal)
     torch.cuda.synchronize()
-    assert all(bsa.LAUNCHES[n] == before[n] + 1 for n in bsa.LAUNCHES)
+    assert all(bsa.LAUNCHES[n] == before[n] + 1 for n in bsa.KERNELS)
     o_ref, lse_ref = bsa.block_sparse_attention_fwd_ref(q, k, v, lists, causal)
     grads_ref = bsa.block_sparse_attention_bwd_ref(q, k, v, o_ref, lse_ref, do, lists, causal)
     rel_tol = FLASH_REL_TOL[q.dtype]
@@ -868,7 +1008,7 @@ def test_fp32_training_with_the_fused_update_matches_the_cpu(card, opt):
     batch = {"input_ids": np.random.RandomState(1).randint(0, 512, (4, 128)).astype(np.int32)}
     out = {}
     for dev in ("cuda", "cpu"):
-        before = dict(tfa.LAUNCHES)
+        before = counts(tfa.KERNELS)
         eng, *_ = dtt.initialize(model=gpt2.make_module(cfg), config=conf,
                                  model_parameters=params_from_numpy(tree, dev), device=dev)
         losses = [float(eng.train_batch(batch)["loss"]) for _ in range(3)]
@@ -908,7 +1048,7 @@ def test_remat_policies_on_the_card_keep_the_attention_output(card, policy):
         leaves = tree_leaves(params)
         for leaf in leaves:
             leaf.requires_grad_(True)
-        before = dict(fa.LAUNCHES)
+        before = counts(fa.KERNELS)
         loss, _ = gpt2.lm_loss(cfg, params, {"input_ids": ids}, None, True)
         grads.append(torch.autograd.grad(loss, leaves))
         torch.cuda.synchronize()

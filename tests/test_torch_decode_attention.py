@@ -106,7 +106,7 @@ def test_decode_wrapper_refuses_cpu_tensors_and_dispatch_launches_nothing():
     with pytest.raises(ValueError, match="unknown"):
         cached_attention(t(q), t(k), t(v), 3, impl="xla")
     cached_attention(t(q), t(k), t(v), 3, impl="jnp")  # the plain version by name: CPU only
-    assert tda.LAUNCHES == 0
+    assert tda.LAUNCHES["decode_attention"] == 0
 
 
 # ---- int8 modes of the paged kernels ---------------------------------------
@@ -210,4 +210,4 @@ def test_int8_kernel_wrappers_refuse_cpu_tensors():
                                        scales=t(sc))
     with pytest.raises(ValueError, match="needs its scales"):
         pda.paged_decode_attention(t(q), t(kq), t(vq), t(bt), pos)
-    assert pda.LAUNCHES == pda.LAUNCHES_INT8 == pma.LAUNCHES_INT8 == 0
+    assert not any(pda.LAUNCHES[k] for k in pda.KERNELS + pma.KERNELS)

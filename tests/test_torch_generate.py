@@ -108,7 +108,7 @@ def test_generate_greedy_matches_recompute(cfg, params):
         lg = tgpt2.forward(cfg, params, ref)[:, -1]
         ref = torch.cat([ref, lg.argmax(-1)[:, None]], dim=1)
     assert torch.equal(out, ref[:, 6:])
-    assert tda.LAUNCHES == 0  # the CPU runs the plain version
+    assert tda.LAUNCHES["decode_attention"] == 0  # the CPU runs the plain version
 
 
 # ---- InferenceEngine.generate against the JAX package's -----------------------

@@ -130,7 +130,7 @@ def test_cpu_dispatch_runs_the_plain_version_and_launches_nothing():
         t(q), t(kp), t(vp), t(bt), t(np.asarray(base, np.int32))
     )
     np.testing.assert_array_equal(got.numpy(), _port(q, kp, vp, bt, base))
-    assert pma.LAUNCHES == 0
+    assert pma.LAUNCHES["paged_multitoken_attention"] == 0
 
 
 def test_kernel_wrapper_refuses_cpu_tensors_and_int8_scales():
@@ -148,4 +148,4 @@ def test_kernel_wrapper_refuses_cpu_tensors_and_int8_scales():
     kq = torch.zeros(24, 4, 8, 64, dtype=torch.int8)
     with pytest.raises(ValueError, match="CUDA"):
         pma.paged_multitoken_attention(args[0], kq, kq, *args[3:], scales=torch.ones(24, 4, 2))
-    assert pma.LAUNCHES == pma.LAUNCHES_INT8 == 0
+    assert not any(pma.LAUNCHES[k] for k in pma.KERNELS)

@@ -97,13 +97,13 @@ def test_bad_head_ratio_raises():
 
 
 def test_cpu_dispatch_runs_the_plain_version_and_launches_nothing():
-    before = pda.LAUNCHES
+    before = pda.LAUNCHES["paged_decode_attention"]
     q, kp, vp, bt = _setup(seed=3)
     t = torch.from_numpy
     pos = t(np.asarray([2, 17, 30], np.int32))
     got = paged_cached_attention(t(q), t(kp), t(vp), t(bt), pos)
     np.testing.assert_array_equal(got.numpy(), _port(q, kp, vp, bt, [2, 17, 30]))
-    assert pda.LAUNCHES == before == 0
+    assert pda.LAUNCHES["paged_decode_attention"] == before == 0
 
 
 def test_kernel_wrapper_refuses_cpu_tensors_and_int8_scales():
@@ -119,4 +119,4 @@ def test_kernel_wrapper_refuses_cpu_tensors_and_int8_scales():
     kq = torch.zeros(16, 4, 8, 64, dtype=torch.int8)
     with pytest.raises(ValueError, match="CUDA"):
         pda.paged_decode_attention(args[0], kq, kq, *args[3:], scales=torch.ones(16, 4, 2))
-    assert pda.LAUNCHES == pda.LAUNCHES_INT8 == 0
+    assert not any(pda.LAUNCHES[k] for k in pda.KERNELS)

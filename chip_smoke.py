@@ -207,7 +207,33 @@ Phases, in order; any failure raises and the script exits non-zero:
      127 a generate call, and so on). Every phase before it
      runs the captured programs (phase 4's fp32 card runs among them, card
      against CPU), with each number beside the card's name and power limit.
-  8  (last, after 21) one JSON line of per-kernel numbers, every kernel and
+  22 the telemetry plane on the serving path (deepspeed_tpu_torch/telemetry):
+     22a gpt2-medium bf16 with phase 3's traffic, 22b with 3b's
+     (speculation k=4, the prefix cache, 64-token chunks), each served
+     captured twice, with the plane off and then with the whole plane on
+     (telemetry config: trace and Prometheus files in a temporary
+     directory, the request trace, the KV heat tracer, the metrics
+     journal, the watchdog with straggler_factor 3), two SLO classes and
+     two tenants: streams identical on and off, launches exact and equal,
+     len(executables) == expected_executables, one terminal record a
+     request, the trace's TTFT/TPOT quantiles and the journal's
+     quantile_over_time equal to stats(), the heat ledger reconciled with
+     the allocator and the prefix index at drain (22b: prefix registers
+     and hits in the ledger), the Prometheus file parsed, hbm_bytes_in_use
+     above 0 and at most hbm_bytes_limit, jit_compiles_total equal to the
+     graphs captured. 22c: generate B8 128 + 32 on the plane, twice: the
+     records' compiled_cache_hit false then true, the tokens those of the
+     engine without the plane. 22d: the plane's cost, alternating off /
+     on / on / off twice on 22a's and 22b's traffic (each a warm run, then
+     4 timed runs on the same engine): decode tokens/s, TPOT p50/p99
+     (exact percentiles over the timed requests) and the host's wall time
+     a scheduler step (µs, median and mean; the host sets the pace); then
+     the plane's cost a step, paired: an engine with the plane and one
+     without serve the same traffic in lockstep, a step each in turn, and
+     the mean and median of the per-step differences (on minus off, with
+     the standard error) are printed, each beside the card's name and
+     power limit.
+  8  (last, after 22) one JSON line of per-kernel numbers, every kernel and
      mode with its launches on the path that ported it (the block-sparse
      kernels: phase 11's, and the three at blocks 16/32 at BERT's shape
      with phase 12's; fused AdamW: phase 6's; fused LAMB: phase 15's;
@@ -223,7 +249,9 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import itertools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -253,6 +281,8 @@ from deepspeed_tpu_torch.ops.sparse_attention import from_ds_config
 from deepspeed_tpu_torch.runtime.config import SparseAttentionConfig
 from deepspeed_tpu_torch.serving import RequestStatus
 from deepspeed_tpu_torch.serving.kv_cache import pages_for
+from deepspeed_tpu_torch.serving.scheduler import exact_percentiles
+from deepspeed_tpu_torch.telemetry.request_trace import load_request_records, score_requests
 from deepspeed_tpu_torch.tools.profile_serving import (
     FEATURES_SECTION,
     mixed_requests,
@@ -1165,7 +1195,7 @@ def serve_phase(label, eng, section, traffic, vocab):
     done = srv.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    st = srv.stats()
+    st = exact_stats(srv)
     check(len(done) == len(reqs), f"{label}: {len(done)} of {len(reqs)} requests completed")
     for req, budget in reqs:
         check(req.status == RequestStatus.FINISHED and len(req.tokens) == budget
@@ -1179,8 +1209,17 @@ def serve_phase(label, eng, section, traffic, vocab):
     return st, reqs
 
 
+def exact_stats(srv):
+    """``srv.stats()`` with its ``ttft`` and ``tpot`` entries replaced by
+    exact percentiles over the completed requests (each request's TTFT
+    and mean TPOT): ``stats()`` interpolates over histogram buckets, as the
+    JAX engine does, and between 2.5 and 5 ms a bucket is as coarse as
+    the TPOT it would report. The printouts name them exact."""
+    return dict(srv.stats(), **exact_percentiles(srv.completed))
+
+
 def serving_numbers(st):
-    return (f"decode tokens/s {st['decode_tokens_per_s']:.1f}, TPOT p50 "
+    return (f"decode tokens/s {st['decode_tokens_per_s']:.1f}, (exact percentiles) TPOT p50 "
             f"{st['tpot']['p50_s'] * 1e3:.3f} ms, TTFT p50 {st['ttft']['p50_s'] * 1e3:.2f} ms, "
             f"wall {st['wall_s']:.3f} s")
 
@@ -1503,7 +1542,7 @@ def sampled_phase(st_3=None):
     t0 = time.perf_counter()
     done = srv.run()
     torch.cuda.synchronize()
-    st = dict(srv.stats(), wall_s=time.perf_counter() - t0)
+    st = dict(exact_stats(srv), wall_s=time.perf_counter() - t0)
     launches = LAUNCHES["threefry_uniform_rows"]
     check(len(done) == 16 and all(r.status == RequestStatus.FINISHED and len(r.tokens) == b
                                   and all(0 <= x < vocab for x in r.tokens) for r, b in reqs),
@@ -1610,7 +1649,7 @@ def serve_sides(eng, section, traffic):
         t0 = time.perf_counter()
         srv.run()
         torch.cuda.synchronize()
-        st = dict(srv.stats(), wall_s=time.perf_counter() - t0)
+        st = dict(exact_stats(srv), wall_s=time.perf_counter() - t0)
         n = program_counts()
         for req, budget in reqs:
             check(req.status == RequestStatus.FINISHED and len(req.tokens) == budget,
@@ -1758,7 +1797,7 @@ def captured_programs_phase(smi):
               + ", ".join(f"{p.capture_ms:.1f}" for p in pc if p.capture_ms is not None)
               + f", replays {sum(p.replays for p in pc)}")
         for side, st in (("captured", sc), ("eager", se)):
-            print(f"  {side}: decode tokens/s {st['decode_tokens_per_s']:.1f}, TPOT p50 "
+            print(f"  {side}: decode tokens/s {st['decode_tokens_per_s']:.1f}, (exact) TPOT p50 "
                   f"{st['tpot']['p50_s'] * 1e3:.3f} ms, p99 {st['tpot']['p99_s'] * 1e3:.3f} ms, "
                   f"TTFT p50 {st['ttft']['p50_s'] * 1e3:.2f} ms, wall {st['wall_s']:.3f} s "
                   f"({smi})")
@@ -1777,6 +1816,296 @@ def captured_programs_phase(smi):
     gc.collect()
     torch.cuda.empty_cache()
     return gen, idle, serving
+
+
+# ---------------------------------------------------------------------------
+# phase 22: the telemetry plane on the serving path
+# ---------------------------------------------------------------------------
+
+TENANTS = ("acme", "globex")
+SLO_SECTION = {"classes": {"chat": {"ttft_target_s": 0.5, "tpot_target_s": 0.01},
+                           "batch": {"ttft_target_s": 5.0}},
+               "default_class": "batch"}
+
+
+def telemetry_plane(root):
+    """The whole plane of ``deepspeed_tpu_torch.telemetry`` under ``root``."""
+    return {"telemetry": {
+        "enabled": True, "trace_path": root, "prometheus_path": os.path.join(root, "serving.prom"),
+        "watchdog": {"enabled": True, "straggler_factor": 3.0,
+                     "capture_dir": os.path.join(root, "anomalies")},
+        "request_trace": {"enabled": True}, "kv_heat": {"enabled": True},
+        "timeseries": {"enabled": True, "interval_s": 0.05}}}
+
+
+def tagged(srv):
+    """``srv`` whose submits carry a tenant and an SLO class, alternating."""
+    submit, n = srv.submit, itertools.count()
+
+    def tagged_submit(*args, **kw):
+        i = next(n)
+        return submit(*args, tenant=TENANTS[i % 2], slo_class=("chat", "batch")[i // 2 % 2],
+                      **kw)
+
+    srv.submit = tagged_submit
+    return srv
+
+
+def parse_prometheus(path):
+    """{name{labels}: value} of a Prometheus text file; raises on a line
+    that is not a comment or ``name value``."""
+    out = {}
+    with open(path) as fh:
+        for line in fh:
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            name, value = line.rsplit(" ", 1)
+            out[name] = float(value)
+    return out
+
+
+def telemetry_serve(label, eng, section, traffic, L, spec_k):
+    """One captured serving run of ``traffic`` with the plane off (``eng``
+    has none) or on → (tokens per request, launch counts, stats, engine)."""
+    srv = tagged(eng.serve(dict(section or {}, slo=SLO_SECTION)))
+    reqs = traffic(srv)
+    torch.cuda.synchronize()
+    reset_program_counts()
+    srv.run()
+    torch.cuda.synchronize()
+    n = program_counts()
+    st = srv.stats()
+    for req, budget in reqs:
+        check(req.status == RequestStatus.FINISHED and len(req.tokens) == budget,
+              f"phase {label}: request {req.id} {req.status} {req.detail}, "
+              f"{len(req.tokens)} of {budget}")
+    srv.check_no_leaks()
+    check(len(srv.executables) == srv.expected_executables,
+          f"phase {label}: {len(srv.executables)} programs, expected {srv.expected_executables}")
+    if section:
+        want = {K_PAGED: L * (spec_k + 1) * st["spec_steps"], K_MT: L * st["chunk_prefills"]}
+    else:
+        want = {K_PAGED: L * st["decode_steps"], K_MT: 0}
+    check(all(n[k] == v for k, v in want.items()),
+          f"phase {label}: launches {n}, want {want}")
+    return [list(r.tokens) for r, _ in reqs], n, st, srv
+
+
+def check_plane(label, eng, srv, st, n_requests, features):
+    """The plane's records against the engine: → a summary for the printout."""
+    tel = eng.telemetry
+    reg = tel.registry
+    # the heat ledger against the allocator and the index, before the drain
+    # releases anything
+    led = srv._heat_decode
+    err = led.reconcile(srv.allocator, srv.prefix_cache)
+    check(err is None, f"phase {label}: heat ledger against the allocator: {err}")
+    if features:
+        check(led.prefix_registered > 0 and led.prefix_hits > 0,
+              f"phase {label}: heat ledger registers {led.prefix_registered}, hits "
+              f"{led.prefix_hits}")
+    srv.drain()  # flushes the request trace
+    recs = load_request_records(srv.tracer.file_path)
+    check(len(recs) == n_requests and len({r["id"] for r in recs}) == n_requests,
+          f"phase {label}: {len(recs)} trace records for {n_requests} requests")
+    score = score_requests(recs)["overall"]
+    for metric in ("ttft", "tpot"):
+        for q in ("p50", "p99"):
+            check(score[f"{metric}_{q}_s"] == st[metric][f"{q}_s"],
+                  f"phase {label}: trace {metric} {q} {score[f'{metric}_{q}_s']} != stats() "
+                  f"{st[metric][f'{q}_s']}")
+    j = srv._journal
+    j.snapshot(srv.clock())
+    for metric, fam in (("ttft", "serving_ttft_seconds"), ("tpot", "serving_tpot_seconds")):
+        for q, key in ((0.5, "p50_s"), (0.99, "p99_s")):
+            got = j.quantile_over_time(fam, q)
+            check(got == st[metric][key],
+                  f"phase {label}: journal {fam} q{q} {got} != stats() {st[metric][key]}")
+    captured = sum(p.graph is not None for p in srv.executables)
+    compiles = reg.get("jit_compiles_total").value()
+    check(compiles == captured,
+          f"phase {label}: jit_compiles_total {compiles} != graphs captured {captured}")
+    in_use, limit = (reg.get("hbm_bytes_in_use").value(), reg.get("hbm_bytes_limit").value())
+    check(0 < in_use <= limit, f"phase {label}: hbm_bytes_in_use {in_use}, limit {limit}")
+    tel.flush()
+    prom = parse_prometheus(tel.config.prometheus_path)
+    check(prom.get('serving_requests_total{status="finished"}') == n_requests
+          and "serving_ttft_seconds_count" in prom,
+          f"phase {label}: Prometheus file {len(prom)} samples")
+    classes = st["slo"]["classes"]
+    return (f"{len(recs)} trace records (one a request), trace and journal TTFT/TPOT "
+            f"p50/p99 = stats() ({st['ttft']['p50_s'] * 1e3:.3f} / "
+            f"{st['tpot']['p50_s'] * 1e3:.3f} ms, bucket-interpolated), heat ledger reconciled "
+            f"(registers {led.prefix_registered}, hits {led.prefix_hits}, "
+            f"{st['kv_heat']['records']} records), journal {st['timeseries']['snapshots']} "
+            f"snapshots, Prometheus {len(prom)} samples, hbm_bytes_in_use "
+            f"{in_use / 2**30:.2f} of {limit / 2**30:.2f} GiB, jit_compiles_total "
+            f"{compiles:.0f} = graphs; SLO attainment " + ", ".join(
+                f"{c} {v['met']}/{v['evaluated']}" for c, v in classes.items())
+            + f"; stragglers {st['stragglers']}")
+
+
+def timed_serve(eng, section, traffic, reps=4):
+    """A warm run of ``traffic`` (the programs capture), then ``reps``
+    timed runs of it on the same engine, each scheduler step timed on the
+    host clock → the numbers over the timed steps and requests."""
+    srv = tagged(eng.serve(dict(section or {}, slo=SLO_SECTION)))
+    traffic(srv)
+    srv.run()
+    tok0, sec0 = srv._decode_tokens, srv._h_step.stats()[0]  # decode tokens, step seconds
+    torch.cuda.synchronize()
+    step_s, reqs = [], []
+    for _ in range(reps):
+        reqs += [r for r, _ in traffic(srv)]
+        while srv.queue or any(sl.request is not None for sl in srv.slots):
+            t0 = time.perf_counter()
+            srv.step()
+            step_s.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    ex = exact_percentiles(reqs)
+    out = {"decode_tokens_per_s": (srv._decode_tokens - tok0) / (srv._h_step.stats()[0] - sec0),
+           "tpot_p50_ms": ex["tpot"]["p50_s"] * 1e3, "tpot_p99_ms": ex["tpot"]["p99_s"] * 1e3,
+           "step_us_median": statistics.median(step_s) * 1e6,
+           "step_us_mean": statistics.mean(step_s) * 1e6, "steps": len(step_s),
+           "step_s": step_s}
+    srv.release_prefix_cache()
+    del srv
+    return out
+
+
+def busy(srv):
+    return bool(srv.queue) or any(sl.request is not None for sl in srv.slots)
+
+
+def paired_steps(off_eng, on_eng, section, traffic, reps=4):
+    """The plane's host cost a step, paired: an engine without the plane
+    and one with it serve the same traffic in lockstep, one scheduler step
+    each in turn (the order swapped every step), after a warm run each.
+    Their decisions are the same step for step (the streams are), so step
+    i of one is step i of the other → the per-step wall times of each."""
+    srvs = {side: tagged(eng.serve(dict(section or {}, slo=SLO_SECTION)))
+            for side, eng in (("off", off_eng), ("on", on_eng))}
+    for srv in srvs.values():
+        traffic(srv)
+        srv.run()
+    torch.cuda.synchronize()
+    times = {"off": [], "on": []}
+    reqs = {"off": [], "on": []}
+    for _ in range(reps):
+        for side, srv in srvs.items():
+            reqs[side] += [r for r, _ in traffic(srv)]
+        i = 0
+        while busy(srvs["off"]) or busy(srvs["on"]):
+            for side in (("off", "on") if i % 2 == 0 else ("on", "off")):
+                t0 = time.perf_counter()
+                srvs[side].step()
+                times[side].append(time.perf_counter() - t0)
+            i += 1
+    check([r.tokens for r in reqs["on"]] == [r.tokens for r in reqs["off"]],
+          "phase 22d: lockstep streams differ on / off")
+    for srv in srvs.values():
+        srv.release_prefix_cache()
+    del srvs
+    return times
+
+
+def telemetry_phase(smi):
+    """Phase 22: the telemetry plane on the serving path (22a-22d)."""
+    import tempfile
+
+    base = dtt.init_inference("gpt2-medium", seed=0)
+    cfg = base.model_config
+    L, vocab = cfg.n_layer, cfg.vocab_size
+    spec_k = FEATURES_SECTION["speculative"]["k"]
+    shared = lambda s: shared_prefix_requests(  # noqa: E731
+        s, vocab, seed=4321, n_shared=8, n_cold=8, system_len=256, tails=(8, 128),
+        cold_lens=(64, 512), budgets=(16, 64))
+    mixed = lambda s: mixed_requests(s, 16, vocab, seed=1234)  # noqa: E731
+    cells = (("22a", None, mixed), ("22b", FEATURES_SECTION, shared))
+    engines = {}
+    with tempfile.TemporaryDirectory(prefix="telemetry-") as root:
+        for label, section, traffic in cells:
+            phase(label, f"serve gpt2-medium bf16 ({'3b' if section else '3'}'s traffic) with "
+                         "the telemetry plane off, then on")
+            off = dtt.init_inference(cfg, params=base.params)
+            toks_off, n_off, _, srv = telemetry_serve(label, off, section, traffic, L, spec_k)
+            del srv
+            on = dtt.init_inference(cfg, params=base.params,
+                                    config=telemetry_plane(os.path.join(root, label)))
+            toks_on, n_on, st, srv = telemetry_serve(label, on, section, traffic, L, spec_k)
+            check(toks_on == toks_off, f"phase {label}: streams with the plane on differ from "
+                  f"off in {sum(a != b for a, b in zip(toks_on, toks_off))} requests")
+            check(n_on == n_off, f"phase {label}: launches on {n_on} != off {n_off}")
+            summary = check_plane(label, on, srv, st, len(toks_on), section is not None)
+            srv.release_prefix_cache()
+            del srv
+            print(f"streams identical on / off, launches equal {n_on}; {summary} ({smi})")
+            engines[label] = (off, on)
+
+        phase("22c", "generate B8 128 + 32 on the plane: compiled_cache_hit false, then true")
+        ids = np.random.RandomState(22).randint(0, vocab, (8, 128)).astype(np.int32)
+        off, on = engines["22a"]
+        want = off.generate(ids, max_new_tokens=32)
+        before = on.telemetry.registry.get("jit_compiles_total").value()
+        got = [on.generate(ids, max_new_tokens=32) for _ in range(2)]
+        check(all(np.array_equal(g, want) for g in got), "phase 22c: tokens differ from the "
+              "engine without the plane")
+        on.telemetry.flush()
+        with open(on.telemetry.tracer.file_path) as fh:
+            recs = [json.loads(ln) for ln in fh if '"inference_step"' in ln]
+        check([r["compiled_cache_hit"] for r in recs] == [False, True]
+              and all(r["hbm"]["bytes_in_use"] > 0 for r in recs),
+              f"phase 22c: records {[(r['compiled_cache_hit'], r['hbm']) for r in recs]}")
+        reg = on.telemetry.registry
+        compiles = reg.get("jit_compiles_total").value() - before
+        check(compiles == 2 and reg.get("generate_cache_size").value() == 1,
+              f"phase 22c: {compiles} captures, cache size "
+              f"{reg.get('generate_cache_size').value()}")
+        print(f"generate records: compiled_cache_hit {[r['compiled_cache_hit'] for r in recs]}, "
+              f"{[round(r['tokens_per_sec'], 1) for r in recs]} tokens/s, "
+              f"hbm_bytes_in_use {recs[-1]['hbm']['bytes_in_use'] / 2**30:.2f} GiB, 2 graphs "
+              f"captured (jit_compiles_total), tokens = the engine without the plane ({smi})")
+
+        phase("22d", "the plane's cost: off / on / on / off, twice, on 22a's and 22b's traffic")
+        cost = {}
+        for label, section, traffic in cells:
+            off, on = engines[label]
+            runs = {"off": [], "on": []}
+            for side in ("off", "on", "on", "off", "off", "on", "on", "off"):
+                r = timed_serve(on if side == "on" else off, section, traffic)
+                runs[side].append(r)
+                gc.collect()
+                print(f"{label} {side}: decode tokens/s {r['decode_tokens_per_s']:.1f}, "
+                      f"(exact) TPOT p50 {r['tpot_p50_ms']:.3f} ms, p99 "
+                      f"{r['tpot_p99_ms']:.3f} ms; a scheduler step {r['step_us_median']:.1f} us "
+                      f"median, {r['step_us_mean']:.1f} mean ({r['steps']} steps) ({smi})",
+                      flush=True)
+            pooled = {side: [t for r in rs for t in r["step_s"]] for side, rs in runs.items()}
+            d_med = (statistics.median(pooled["on"]) - statistics.median(pooled["off"])) * 1e6
+            d_mean = (statistics.mean(pooled["on"]) - statistics.mean(pooled["off"])) * 1e6
+            spread = [r["step_us_median"] for r in runs["off"]]
+            print(f"{label}: runs on minus off: median step {d_med:.1f} us, mean {d_mean:.1f} "
+                  f"us; the off runs' medians span {min(spread):.1f}-{max(spread):.1f} us "
+                  f"({smi})")
+            times = paired_steps(off, on, section, traffic)
+            diff = [(a - b) * 1e6 for a, b in zip(times["on"], times["off"])]
+            se = statistics.stdev(diff) / len(diff) ** 0.5
+            cost[label] = {"paired_us_median": statistics.median(diff),
+                           "paired_us_mean": statistics.mean(diff), "paired_us_se": se,
+                           "runs_us_median": d_med, "runs_us_mean": d_mean}
+            print(f"{label}: the plane costs {statistics.mean(diff):.1f} +- {se:.1f} us a "
+                  f"scheduler step (mean +- standard error of {len(diff)} paired steps in "
+                  f"lockstep, on minus off; median {statistics.median(diff):.1f} us; a step "
+                  f"{statistics.median(times['off']) * 1e6:.1f} us median off, "
+                  f"{statistics.median(times['on']) * 1e6:.1f} on) ({smi})", flush=True)
+        for _, on in engines.values():
+            on.telemetry.close()  # its files go with the directory
+        del engines
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+    return cost
 
 
 def main() -> int:
@@ -2241,7 +2570,7 @@ def main() -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = LAUNCHES[K_PAGED]
-    st = srv.stats()
+    st = exact_stats(srv)
     check(len(done) == 16, f"{len(done)} of 16 requests completed")
     for req, budget in reqs:
         check(req.status == RequestStatus.FINISHED, f"request {req.id}: {req.status} {req.detail}")
@@ -2255,7 +2584,7 @@ def main() -> int:
           f"(= {cfg.n_layer} x {steps}), wall {wall:.3f} s")
     print(f"decode tokens/s {st['decode_tokens_per_s']:.1f} (host clock over steps ending in "
           f"the token read), tokens/s end to end {st['tokens_per_s']:.1f}, "
-          f"TTFT p50 {st['ttft']['p50_s'] * 1e3:.2f} ms, TPOT p50 {st['tpot']['p50_s'] * 1e3:.3f} ms, "
+          f"(exact) TTFT p50 {st['ttft']['p50_s'] * 1e3:.2f} ms, TPOT p50 {st['tpot']['p50_s'] * 1e3:.3f} ms, "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     st_3 = dict(st, wall_s=wall)
     del srv
@@ -2276,7 +2605,7 @@ def main() -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     dec_launches_3b, mt_launches = LAUNCHES[K_PAGED], LAUNCHES[K_MT]
-    st = srv.stats()
+    st = exact_stats(srv)
     check(len(done) == 16, f"{len(done)} of 16 requests completed")
     for req, budget in reqs:
         check(req.status == RequestStatus.FINISHED, f"request {req.id}: {req.status} {req.detail}")
@@ -2303,7 +2632,7 @@ def main() -> int:
     print(f"prefix hit rate {st['prefix_hit_rate']:.4f}, mean accept length "
           f"{st['spec_accept_len_mean']:.4f} tokens per slot-step, decode tokens/s "
           f"{st['decode_tokens_per_s']:.1f}, tokens/s end to end {st['tokens_per_s']:.1f}, "
-          f"TTFT p50 {st['ttft']['p50_s'] * 1e3:.2f} ms, TPOT p50 {st['tpot']['p50_s'] * 1e3:.3f} ms, "
+          f"(exact) TTFT p50 {st['ttft']['p50_s'] * 1e3:.2f} ms, TPOT p50 {st['tpot']['p50_s'] * 1e3:.3f} ms, "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     st_3b = st
     bf16_pool_bytes = sum(t.numel() * t.element_size() for t in (srv.k_pool, srv.v_pool))
@@ -2325,7 +2654,7 @@ def main() -> int:
     wall = time.perf_counter() - t0
     dec8_launches, mt8_launches = LAUNCHES[K_PAGED8], LAUNCHES[K_MT8]
     fp_launches = LAUNCHES[K_PAGED] + LAUNCHES[K_MT]
-    st = srv.stats()
+    st = exact_stats(srv)
     check(len(done) == 16, f"{len(done)} of 16 requests completed")
     for req, budget in reqs:
         check(req.status == RequestStatus.FINISHED, f"request {req.id}: {req.status} {req.detail}")
@@ -2368,7 +2697,7 @@ def main() -> int:
     print(f"prefix hit rate {st['prefix_hit_rate']:.4f}, mean accept length "
           f"{st['spec_accept_len_mean']:.4f}, decode tokens/s {st['decode_tokens_per_s']:.1f} "
           f"(3b, bf16 pages: {st_3b['decode_tokens_per_s']:.1f}), tokens/s end to end "
-          f"{st['tokens_per_s']:.1f} (3b: {st_3b['tokens_per_s']:.1f}), TTFT p50 "
+          f"{st['tokens_per_s']:.1f} (3b: {st_3b['tokens_per_s']:.1f}), (exact) TTFT p50 "
           f"{st['ttft']['p50_s'] * 1e3:.2f} ms (3b: {st_3b['ttft']['p50_s'] * 1e3:.2f}), TPOT p50 "
           f"{st['tpot']['p50_s'] * 1e3:.3f} ms (3b: {st_3b['tpot']['p50_s'] * 1e3:.3f}), peak "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -2963,6 +3292,10 @@ def main() -> int:
     phase(21, "captured programs: generate's LRU-bounded graphs and the serving program set, "
               "against eager")
     captured_programs_phase(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    telemetry_phase(smi)
 
     phase(8, "summary")
     # launches: each kernel's (and mode's) count on the path of the slice

@@ -31,6 +31,17 @@ codes with per-group scales in the compute dtype, every other float leaf
 is cast to it, and the models dequantize at each use. ``generate`` and
 ``serve`` run on that tree, with or without int8 KV pages. Sampling draws
 with JAX's keys: ``generate(seed=s)`` uses ``PRNGKey(s)``.
+
+Telemetry follows the JAX engine (``inference/engine.py:114``,
+``:191-203``, ``:316``, ``:361-390``, ``:455-470``): a ``telemetry``
+section in ``config`` builds the plane (``deepspeed_tpu_torch.telemetry``)
+as ``self.telemetry``; ``forward`` counts ``inference_forward_total``, each
+``generate`` call emits one ``inference_step`` record with its
+``compiled_cache_hit`` flag (timed on ``time.perf_counter`` around a call
+that already ends in its one device read), the LRU counts
+``generate_cache_evictions_total`` and sets ``generate_cache_size``, and
+``serve`` hands the plane (or the ``tracer``/``heat_tracer``/``journal``
+given) to the serving engine.
 """
 
 from __future__ import annotations
@@ -46,7 +57,9 @@ from ..models import gpt2
 from ..models.gpt2 import GPT2Config
 from ..ops import prng
 from ..ops.quantizer import quantize_tree
-from ..runtime.config import DeepSpeedConfigError, NotPortedError
+from ..runtime.config import DeepSpeedConfigError, NotPortedError, TelemetryConfig
+from ..telemetry import device_hbm_stats
+from ..telemetry import from_config as telemetry_from_config
 from ..utils.graphs import CapturedProgram, StaticInputs
 from ..utils.logging import log_dist
 from ..utils.weights import tree_map
@@ -113,6 +126,15 @@ class InferenceEngine:
         self._generate_cache: "OrderedDict[tuple, GenerateProgram]" = OrderedDict()
         self._generate_cache_cap = max(1, int(cache_size if cache_size is not None else 16))
         self.generate_cache_evictions = 0
+        # the telemetry plane (the same TelemetryConfig schema as the JAX
+        # package's): registry, step records, the serving planes
+        cfg_tel = c.pop("telemetry", None)
+        self.telemetry = None
+        self._infer_steps = 0
+        if cfg_tel is not None:
+            tcfg = (TelemetryConfig.from_dict(cfg_tel) if isinstance(cfg_tel, dict)
+                    else cfg_tel)
+            self.telemetry = telemetry_from_config(tcfg)
         if c:
             raise NotPortedError(
                 f"init_inference: config keys {sorted(c)} are not ported to "
@@ -167,6 +189,10 @@ class InferenceEngine:
         if not isinstance(ids, torch.Tensor):
             ids = torch.from_numpy(np.asarray(ids))
         ids = ids.to(self.device).long()
+        if self.telemetry is not None:
+            # a count only: nothing reads the device
+            self.telemetry.registry.counter(
+                "inference_forward_total", "compiled forward calls").inc()
         with torch.no_grad():
             return gpt2.forward(self.model_config, self.params, ids)
 
@@ -201,6 +227,7 @@ class InferenceEngine:
         + new tokens, ``[B, S + max_new_tokens]`` numpy, read from the
         device once at the end."""
         ids_np = np.asarray(input_ids)
+        t_gen0 = time.perf_counter() if self.telemetry is not None else 0.0
         B, S = ids_np.shape
         if S + int(max_new_tokens) > int(self.model_config.n_positions):
             raise ValueError(
@@ -210,7 +237,8 @@ class InferenceEngine:
         shape_key = (B, bucket) if bucket is not None else (B, S)
         key = (shape_key, int(max_new_tokens), float(temperature), int(top_k), float(top_p))
         prog = self._generate_cache.get(key)
-        if prog is not None:
+        was_cached = prog is not None
+        if was_cached:
             self._generate_cache.move_to_end(key)  # LRU freshness
         else:
             prog = GenerateProgram(self, B, shape_key[1], int(max_new_tokens),
@@ -220,20 +248,61 @@ class InferenceEngine:
                 _, old = self._generate_cache.popitem(last=False)  # the LRU entry
                 old.free()
                 self.generate_cache_evictions += 1
+                if self.telemetry is not None:
+                    self.telemetry.registry.counter(
+                        "generate_cache_evictions_total",
+                        "compiled-generate executables evicted by the LRU cap",
+                    ).inc()
+            if self.telemetry is not None:
+                self.telemetry.registry.gauge(
+                    "generate_cache_size", "live compiled-generate executables"
+                ).set(len(self._generate_cache))
         new = prog(ids_np, seed)
-        return np.concatenate([ids_np, new.astype(ids_np.dtype)], axis=1)
+        result = np.concatenate([ids_np, new.astype(ids_np.dtype)], axis=1)
+        if self.telemetry is not None:
+            self._telemetry_generate(time.perf_counter() - t_gen0, B, S,
+                                     int(max_new_tokens), was_cached)
+        return result
 
-    def serve(self, serving_config=None, clock=None, track_margins: bool = False):
+    def _telemetry_generate(self, duration_s: float, batch: int, prompt_len: int,
+                            new_tokens: int, cached: bool) -> None:
+        """One ``inference_step`` record and registry fold a ``generate``
+        call (the call already ended in its device read, so this adds no
+        synchronisation; the memory numbers are the allocator's counters)."""
+        self._infer_steps += 1
+        tel = self.telemetry
+        if not tel.should_sample(self._infer_steps):
+            return
+        tok_s = batch * new_tokens / duration_s if duration_s > 0 else 0.0
+        tel.record_step(
+            "inference",
+            step=self._infer_steps,
+            duration_s=duration_s,
+            scalars={
+                "batch": batch,
+                "prompt_tokens": prompt_len,
+                "new_tokens": new_tokens,
+                "tokens_per_sec": round(tok_s, 3),
+            },
+            spans=[("generate", duration_s * 1e3)],
+            hbm=device_hbm_stats(self.device),
+            extra={"compiled_cache_hit": bool(cached)},
+        )
+
+    def serve(self, serving_config=None, clock=None, track_margins: bool = False,
+              tracer=None, heat_tracer=None, journal=None):
         """Continuous-batching server over this engine (a
         :class:`~deepspeed_tpu_torch.serving.ServingEngine`).
         ``serving_config`` (dict or :class:`ServingConfig`) overrides the
-        ``serving`` section given to ``init_inference``."""
+        ``serving`` section given to ``init_inference``; ``tracer``,
+        ``heat_tracer`` and ``journal`` override the telemetry plane's."""
         from ..serving.scheduler import ServingEngine
 
         cfg = serving_config if serving_config is not None else self._serving_config
         return ServingEngine(
             self, cfg, clock=clock if clock is not None else time.monotonic,
-            track_margins=track_margins,
+            track_margins=track_margins, tracer=tracer, heat_tracer=heat_tracer,
+            journal=journal,
         )
 
 

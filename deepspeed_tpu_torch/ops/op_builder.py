@@ -11,6 +11,10 @@ repository are compiled; a failed build raises with the compiler's output.
 Pointers and the stream cross the C boundary as ``ctypes.c_void_p``; every
 C entry returns the CUDA error of its launch (0 on success) and the
 caller raises when it is not 0.
+
+Each library :func:`build` finds already built counts one
+``jit_cache_hits_total`` in the telemetry plane, each it compiles one
+``jit_cache_misses_total`` (``telemetry/compile_stats.py``).
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
+
+from ..telemetry import compile_stats
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -191,6 +197,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     out: Dict[str, float] = {}
     for name in names:
         lib = library_path(name)
+        compile_stats.note_build(hit=lib.is_file())
         if lib.is_file():
             out[name] = 0.0
             continue

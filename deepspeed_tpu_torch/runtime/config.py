@@ -3,13 +3,21 @@
 Counterpart of ``deepspeed_tpu/runtime/config.py``. ``ServingConfig``: the
 same fields, defaults and validation for the continuous-batching path
 (paged KV pool, admission control, deadlines, drain), its int8 KV pages
-(``kv_cache_dtype="int8"``) and its three hot-path features: speculative
+(``kv_cache_dtype="int8"``), its three hot-path features: speculative
 decode (``speculative``), shared-prefix KV reuse (``prefix_cache``) and
-chunked prefill (``prefill_chunk_tokens``). The sections of the features
-that have not been ported yet (tensor parallelism, the host tier, the
-fleet, SLO classes, retries) are
-accepted only at their off values: turning one on raises
-:class:`NotPortedError` instead of being silently ignored.
+chunked prefill (``prefill_chunk_tokens``), and its SLO classes
+(``slo``). The sections of the features that have not been ported yet
+(tensor parallelism, the host tier, the fleet, retries) are accepted only
+at their off values: turning one on raises :class:`NotPortedError`
+instead of being silently ignored.
+
+``TelemetryConfig``: the ``telemetry`` section of ``init_inference``'s
+config (the same fields, defaults and errors as the JAX package's), with
+its watchdog, request-trace, kv-heat and time-series sections.
+``telemetry.introspection.enabled`` and ``watchdog.policy="rollback"``
+raise :class:`NotPortedError`. ``SLOAlertsConfig`` is the fleet's
+burn-rate section, used standalone by ``telemetry.slo_budget`` while the
+fleet is not ported.
 
 ``DeepSpeedConfig``: the single-device training subset (the batch triple,
 ``fp16``/``bf16``, ``gradient_clipping``, ``optimizer``, ``scheduler``,
@@ -23,7 +31,9 @@ turns something on raises :class:`NotPortedError`.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import typing
 from dataclasses import dataclass, field, fields
 from typing import Any, Dict, List, Optional
 
@@ -49,7 +59,6 @@ _UNPORTED_SECTIONS: Dict[str, Dict[str, Any]] = {
     },
     "tiering": {"enabled": lambda v: not v},
     "fleet": {"enabled": lambda v: not v},
-    "slo": {"classes": lambda v: not v},
 }
 
 
@@ -122,6 +131,380 @@ class PrefixCacheConfig:
             )
 
 
+# ---------------------------------------------------------------------------
+# telemetry and SLO sections: dict → dataclass as the JAX package's
+# DSConfigModel does (nested sections from dicts, scalars coerced, unknown
+# keys warned about and ignored)
+# ---------------------------------------------------------------------------
+
+def _unwrap_optional(typ):
+    args = typing.get_args(typ)
+    if args and type(None) in args:
+        rest = [a for a in args if a is not type(None)]
+        if len(rest) == 1:
+            return rest[0]
+    return typ
+
+
+def _coerce(value: Any, typ: Any) -> Any:
+    if value is None:
+        return None
+    typ = _unwrap_optional(typ)
+    if typing.get_origin(typ) is not None:
+        return value
+    try:
+        if typ is int and not isinstance(value, bool):
+            return int(float(value))
+        if typ is float:
+            return float(value)
+        if typ is bool:
+            return bool(value)
+    except (TypeError, ValueError):
+        return value
+    return value
+
+
+@dataclass
+class _ConfigModel:
+    """A section built from a (possibly partial) dict, as the JAX package's
+    ``runtime/config_utils.DSConfigModel`` builds it."""
+
+    @classmethod
+    def from_dict(cls, d: Optional[Dict[str, Any]], warn_unknown: bool = True):
+        from ..utils.logging import logger
+
+        hints = typing.get_type_hints(cls)
+        known = {f.name for f in fields(cls)}
+        kwargs = {}
+        for key, value in dict(d or {}).items():
+            if key in known:
+                typ = _unwrap_optional(hints.get(key, Any))
+                if dataclasses.is_dataclass(typ) and isinstance(value, dict):
+                    kwargs[key] = typ.from_dict(value, warn_unknown=warn_unknown)
+                else:
+                    kwargs[key] = _coerce(value, typ)
+            elif warn_unknown:
+                logger.warning(f"{cls.__name__}: ignoring unknown config key '{key}'")
+        return cls(**kwargs)
+
+
+@dataclass
+class IntrospectionConfig(_ConfigModel):
+    """``telemetry.introspection``: the JAX package's HLO cost / MFU
+    analyzer, driven by its training engine. Not ported (ROADMAP queue 1
+    item 15); ``TelemetryConfig.from_dict`` refuses a section that turns it
+    on."""
+
+    enabled: bool = True
+    peak_tflops: float = 0.0
+
+
+@dataclass
+class WatchdogConfig(_ConfigModel):
+    """``telemetry.watchdog``: in-run anomaly detection
+    (``telemetry/watchdog.py``): EMA z-score spikes on watched scalars
+    after ``warmup_steps`` observations, bounded ``torch.profiler``
+    captures under ``capture_dir``, and the serving straggler detector
+    (``straggler_factor`` × max_new_tokens × EMA decode step time).
+    ``policy``: ``continue`` or ``kill``; ``rollback`` raises
+    :class:`NotPortedError` (ROADMAP queue 1 item 8). ``nan_check`` is the
+    training engine's in-step flag, which waits for item 6b."""
+
+    enabled: bool = False
+    nan_check: bool = True
+    zscore: float = 6.0
+    ema_alpha: float = 0.05
+    min_rel_std: float = 0.02  # std floor as a fraction of |mean|
+    warmup_steps: int = 20
+    check_every: int = 1
+    policy: str = "continue"  # continue | kill | rollback
+    capture_dir: str = "./telemetry/anomalies"
+    max_captures: int = 3
+    straggler_factor: float = 3.0
+
+    def __post_init__(self):
+        if self.policy not in ("continue", "kill", "rollback"):
+            raise DeepSpeedConfigError(
+                f"telemetry.watchdog.policy must be 'continue', 'kill' or "
+                f"'rollback', got {self.policy!r}"
+            )
+        if self.zscore <= 0:
+            raise DeepSpeedConfigError("telemetry.watchdog.zscore must be positive")
+        if not 0.0 < self.ema_alpha <= 1.0:
+            raise DeepSpeedConfigError(
+                "telemetry.watchdog.ema_alpha must be in (0, 1]"
+            )
+        if self.enabled and self.policy == "rollback":
+            raise NotPortedError(
+                "telemetry.watchdog.policy='rollback' is not ported to "
+                "deepspeed_tpu_torch yet: it restores the resilience snapshots "
+                "(ROADMAP queue 1 item 8)"
+            )
+
+
+@dataclass
+class RequestTraceConfig(_ConfigModel):
+    """``telemetry.request_trace``: one ``dstpu-reqtrace-v1`` JSONL record
+    per terminal serving request (``telemetry/request_trace.py``). ``path``
+    "" puts ``requests.jsonl`` under ``telemetry.trace_path``;
+    ``max_events_per_request`` bounds one request's event list."""
+
+    enabled: bool = False
+    path: str = ""  # "" = <telemetry.trace_path>/requests.jsonl
+    flush_interval: int = 20
+    max_mb: int = 64  # 0 = unbounded
+    max_events_per_request: int = 4096
+
+    def __post_init__(self):
+        if int(self.max_events_per_request) < 1:
+            raise DeepSpeedConfigError(
+                "telemetry.request_trace.max_events_per_request must be "
+                f">= 1, got {self.max_events_per_request}"
+            )
+        if int(self.flush_interval) < 1:
+            raise DeepSpeedConfigError(
+                "telemetry.request_trace.flush_interval must be >= 1, got "
+                f"{self.flush_interval}"
+            )
+
+
+@dataclass
+class KVHeatConfig(_ConfigModel):
+    """``telemetry.kv_heat``: page-lifetime / session-heat tracing
+    (``telemetry/kv_heat.py``), ``dstpu-kvheat-v1`` segment records off the
+    engine's clock. ``path`` "" puts ``kv_heat.jsonl`` under
+    ``telemetry.trace_path``; ``segment_events`` is the seal threshold;
+    ``idle_thresholds_s`` the cold-page gauges' thresholds (ascending)."""
+
+    enabled: bool = False
+    path: str = ""  # "" = <telemetry.trace_path>/kv_heat.jsonl
+    flush_interval: int = 20
+    max_mb: int = 64  # 0 = unbounded
+    segment_events: int = 256
+    idle_thresholds_s: tuple = (1.0, 5.0, 30.0)
+
+    def __post_init__(self):
+        if int(self.flush_interval) < 1:
+            raise DeepSpeedConfigError(
+                "telemetry.kv_heat.flush_interval must be >= 1, got "
+                f"{self.flush_interval}"
+            )
+        if int(self.segment_events) < 1:
+            raise DeepSpeedConfigError(
+                "telemetry.kv_heat.segment_events must be >= 1, got "
+                f"{self.segment_events}"
+            )
+        ths = tuple(float(t) for t in self.idle_thresholds_s)
+        if not ths:
+            raise DeepSpeedConfigError(
+                "telemetry.kv_heat.idle_thresholds_s must be non-empty"
+            )
+        if any(t <= 0.0 for t in ths) or list(ths) != sorted(ths):
+            raise DeepSpeedConfigError(
+                "telemetry.kv_heat.idle_thresholds_s must be positive and "
+                f"ascending, got {self.idle_thresholds_s}"
+            )
+        self.idle_thresholds_s = ths
+
+
+@dataclass
+class TimeseriesConfig(_ConfigModel):
+    """``telemetry.timeseries``: the metrics journal
+    (``telemetry/timeseries.py``): the registry snapshotted every
+    ``interval_s`` seconds of the engine's clock into ``dstpu-tsdb-v1``
+    delta records. ``path`` "" puts ``metrics_tsdb.jsonl`` under
+    ``telemetry.trace_path``; ``retention_s`` bounds the in-memory query
+    window (0 = auto, min 1 h)."""
+
+    enabled: bool = False
+    path: str = ""  # "" = <telemetry.trace_path>/metrics_tsdb.jsonl
+    interval_s: float = 1.0
+    flush_interval: int = 20
+    max_mb: int = 64  # 0 = unbounded
+    retention_s: float = 0.0  # 0 = auto (largest alert window, min 3600)
+
+    def __post_init__(self):
+        if float(self.interval_s) <= 0.0:
+            raise DeepSpeedConfigError(
+                "telemetry.timeseries.interval_s must be > 0, got "
+                f"{self.interval_s}"
+            )
+        if int(self.flush_interval) < 1:
+            raise DeepSpeedConfigError(
+                "telemetry.timeseries.flush_interval must be >= 1, got "
+                f"{self.flush_interval}"
+            )
+        if float(self.retention_s) < 0.0:
+            raise DeepSpeedConfigError(
+                "telemetry.timeseries.retention_s must be >= 0, got "
+                f"{self.retention_s}"
+            )
+
+
+@dataclass
+class TelemetryConfig(_ConfigModel):
+    """``telemetry``: the plane of ``deepspeed_tpu_torch/telemetry``.
+    ``trace_path`` receives the step records (``generate`` calls here);
+    ``prometheus_path`` (optional) an atomically replaced ``.prom``
+    snapshot; ``sample_every`` thins records; ``flush_interval`` is records
+    per file append / Prometheus rewrite; ``trace_max_mb`` caps each trace
+    file (one rolled generation, 0 disables). Disabled ⇒ nothing is
+    constructed. The introspection analyzer is not ported (ROADMAP queue 1
+    item 15): an enabled plane whose section asks for it
+    (``"introspection": {"enabled": true}``) raises
+    :class:`NotPortedError`; left at its default it runs nothing, as in
+    the JAX package's inference engine, which never drives it."""
+
+    enabled: bool = False
+    trace_path: str = "./telemetry"
+    prometheus_path: str = ""  # "" = no Prometheus snapshot
+    flush_interval: int = 20
+    sample_every: int = 1
+    trace_max_mb: int = 64  # 0 = unbounded
+    introspection: IntrospectionConfig = field(default_factory=IntrospectionConfig)
+    watchdog: WatchdogConfig = field(default_factory=WatchdogConfig)
+    request_trace: RequestTraceConfig = field(default_factory=RequestTraceConfig)
+    kv_heat: KVHeatConfig = field(default_factory=KVHeatConfig)
+    timeseries: TimeseriesConfig = field(default_factory=TimeseriesConfig)
+
+    @classmethod
+    def from_dict(cls, d: Optional[Dict[str, Any]], warn_unknown: bool = True):
+        intro = (d or {}).get("introspection")
+        if (d or {}).get("enabled") and isinstance(intro, dict) and intro.get("enabled"):
+            raise NotPortedError(
+                "telemetry.introspection.enabled is not ported to "
+                "deepspeed_tpu_torch yet (the HLO cost / MFU analyzer, ROADMAP "
+                "queue 1 item 15)"
+            )
+        return super().from_dict(d, warn_unknown=warn_unknown)
+
+
+@dataclass
+class SLOConfig(_ConfigModel):
+    """``serving.slo``: per-class latency targets for goodput and SLO
+    attainment. ``classes`` maps a class name to ``{"ttft_target_s": x,
+    "tpot_target_s": y}`` (0 or omitted = no target on that axis); a
+    request submitted with ``slo_class=None`` or an unknown class lands in
+    ``default_class`` ("" = the first declared class). A FINISHED request
+    meets its SLO when TTFT ≤ ``ttft_target_s`` and mean TPOT ≤
+    ``tpot_target_s``; every other terminal status misses.
+    ``goodput_window_s`` > 0 computes the goodput gauge over that trailing
+    window (0 = the whole span since the first submit)."""
+
+    classes: Dict[str, Dict[str, float]] = field(default_factory=dict)
+    default_class: str = ""  # "" = first declared class
+    goodput_window_s: float = 0.0
+
+    def __post_init__(self):
+        if float(self.goodput_window_s) < 0.0:
+            raise DeepSpeedConfigError(
+                "serving.slo.goodput_window_s must be >= 0, got "
+                f"{self.goodput_window_s}"
+            )
+        for name, targets in (self.classes or {}).items():
+            if not isinstance(targets, dict):
+                raise DeepSpeedConfigError(
+                    f"serving.slo.classes[{name!r}] must be a dict of "
+                    f"targets, got {type(targets).__name__}"
+                )
+            for k, v in targets.items():
+                if k not in ("ttft_target_s", "tpot_target_s"):
+                    raise DeepSpeedConfigError(
+                        f"serving.slo.classes[{name!r}]: unknown target "
+                        f"{k!r} (ttft_target_s | tpot_target_s)"
+                    )
+                if float(v) < 0:
+                    raise DeepSpeedConfigError(
+                        f"serving.slo.classes[{name!r}].{k} must be >= 0, "
+                        f"got {v}"
+                    )
+        if self.default_class and self.default_class not in (self.classes or {}):
+            raise DeepSpeedConfigError(
+                f"serving.slo.default_class {self.default_class!r} is not a "
+                f"declared class ({sorted(self.classes or {})})"
+            )
+
+    def resolve_class(self, name: Optional[str]) -> str:
+        """The class a request lands in: its own when declared, else the
+        default (explicit ``default_class`` or the first declared class),
+        else ""."""
+        if name and name in (self.classes or {}):
+            return name
+        if self.default_class:
+            return self.default_class
+        return next(iter(self.classes), "") if self.classes else ""
+
+    def targets(self, name: str) -> Dict[str, float]:
+        """{"ttft_target_s": x, "tpot_target_s": y} for a class (0 = no
+        target on that axis; unknown class = no targets)."""
+        t = (self.classes or {}).get(name, {})
+        return {
+            "ttft_target_s": float(t.get("ttft_target_s", 0.0) or 0.0),
+            "tpot_target_s": float(t.get("tpot_target_s", 0.0) or 0.0),
+        }
+
+
+@dataclass
+class SLOAlertsConfig(_ConfigModel):
+    """``serving.fleet.slo_alerts`` in the JAX package: per-SLO-class error
+    budget and multi-window burn-rate alerting over the metrics journal
+    (``telemetry/slo_budget.py``). With an attainment ``objective`` the
+    error budget is the ``1 - objective`` miss fraction; the burn rate over
+    a window is the observed miss fraction over the budget fraction. Two
+    rules per class, each needing its short AND long window over threshold:
+    ``fast`` (5m/1h at 14.4x) and ``slow`` (6h/3d at 1.0x) by default, in
+    seconds of the journal's clock. ``for_s`` is the dwell before pending
+    promotes to firing. The fleet (``serving.fleet``) is not ported, so
+    ``backpressure`` has nothing to drive here; the section builds a
+    standalone ``SLOBudgetEngine``."""
+
+    enabled: bool = False
+    objective: float = 0.99
+    fast_short_s: float = 300.0
+    fast_long_s: float = 3600.0
+    fast_burn_threshold: float = 14.4
+    slow_short_s: float = 21600.0
+    slow_long_s: float = 259200.0
+    slow_burn_threshold: float = 1.0
+    for_s: float = 0.0  # dwell before a pending alert promotes to firing
+    backpressure: bool = False  # firing alerts drive fleet admission shedding
+
+    def __post_init__(self):
+        if not 0.0 < float(self.objective) < 1.0:
+            raise DeepSpeedConfigError(
+                "serving.fleet.slo_alerts.objective must be in (0, 1), got "
+                f"{self.objective}"
+            )
+        for key in ("fast_short_s", "fast_long_s", "slow_short_s",
+                    "slow_long_s"):
+            if float(getattr(self, key)) <= 0.0:
+                raise DeepSpeedConfigError(
+                    f"serving.fleet.slo_alerts.{key} must be > 0"
+                )
+        for short, long in (("fast_short_s", "fast_long_s"),
+                            ("slow_short_s", "slow_long_s")):
+            if float(getattr(self, short)) >= float(getattr(self, long)):
+                raise DeepSpeedConfigError(
+                    f"serving.fleet.slo_alerts.{short} must be < {long} "
+                    f"({getattr(self, short)} >= {getattr(self, long)})"
+                )
+        for key in ("fast_burn_threshold", "slow_burn_threshold"):
+            if float(getattr(self, key)) <= 0.0:
+                raise DeepSpeedConfigError(
+                    f"serving.fleet.slo_alerts.{key} must be > 0"
+                )
+        if float(self.for_s) < 0.0:
+            raise DeepSpeedConfigError(
+                f"serving.fleet.slo_alerts.for_s must be >= 0, got "
+                f"{self.for_s}"
+            )
+
+    def max_window_s(self) -> float:
+        """The widest window any rule evaluates — the journal's minimum
+        useful in-memory retention."""
+        return max(float(self.fast_long_s), float(self.slow_long_s))
+
+
 @dataclass
 class ServingConfig:
     """See ``deepspeed_tpu.runtime.config.ServingConfig`` for what each
@@ -152,6 +535,7 @@ class ServingConfig:
     prefill_chunk_tokens: int = 0
     speculative: SpeculativeConfig = field(default_factory=SpeculativeConfig)
     prefix_cache: PrefixCacheConfig = field(default_factory=PrefixCacheConfig)
+    slo: SLOConfig = field(default_factory=SLOConfig)
 
     def __post_init__(self):
         for key in ("max_slots", "page_size", "num_pages", "max_prompt_len",
@@ -180,6 +564,8 @@ class ServingConfig:
         if isinstance(self.prefix_cache, dict):
             self.prefix_cache = _section_from_dict(PrefixCacheConfig, "prefix_cache",
                                                    self.prefix_cache)
+        if isinstance(self.slo, dict):
+            self.slo = SLOConfig.from_dict(self.slo)
         if self.speculative.enabled and float(self.temperature) > 0.0:
             raise DeepSpeedConfigError(
                 "serving.speculative requires temperature == 0 (greedy): the "
@@ -199,7 +585,7 @@ class ServingConfig:
             raise DeepSpeedConfigError(f"serving: unknown config keys {unknown}")
         kwargs = {}
         for key, value in d.items():
-            if key in ("speculative", "prefix_cache"):
+            if key in ("speculative", "prefix_cache", "slo"):
                 kwargs[key] = value  # a section: __post_init__ builds it
             else:
                 typ = type(getattr(cls, key))  # every other field is a scalar
@@ -356,6 +742,13 @@ class DeepSpeedConfig:
     def from_dict(cls, d: Dict[str, Any]) -> "DeepSpeedConfig":
         d = dict(d or {})
         for key in sorted(set(d) - set(_TRAINING_KEYS)):
+            if key == "telemetry" and not _is_off(d[key]):
+                raise NotPortedError(
+                    f"config section 'telemetry'={d[key]!r} is not ported to the "
+                    "training path of deepspeed_tpu_torch yet (the engine's step "
+                    "records, watchdog and timers: ROADMAP queue 1 item 6b); "
+                    "init_inference takes the section"
+                )
             if key == "mesh" and all(int(d[key].get(a, 1)) <= 1 for a in ("tp", "pp", "ep", "sp")) \
                     and int(d[key].get("dp", -1)) in (-1, 1):
                 continue  # one device is the mesh the port runs

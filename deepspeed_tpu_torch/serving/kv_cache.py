@@ -45,6 +45,9 @@ class PageAllocator:
         self._free: List[int] = list(range(self.num_pages - 1, 0, -1))
         self._refs: Dict[int, int] = {}  # page -> refcount (in-use pages only)
         self.cow_forks_total = 0  # bumped by the scheduler's copy-on-write path
+        # optional KVHeatLedger (telemetry/kv_heat.py): its hooks fire after
+        # each mutation (one None check when heat tracing is off)
+        self.heat = None
 
     @property
     def capacity(self) -> int:
@@ -66,6 +69,11 @@ class PageAllocator:
     def refcount(self, page: int) -> int:
         return self._refs.get(int(page), 0)
 
+    def refcounts(self) -> Dict[int, int]:
+        """A copy of the page → refcount table (seeds a heat ledger that
+        attaches mid-run)."""
+        return dict(self._refs)
+
     def alloc(self, n: int) -> List[int]:
         if n < 0:
             raise ValueError(f"alloc({n})")
@@ -77,6 +85,8 @@ class PageAllocator:
         pages = [self._free.pop() for _ in range(n)]
         for p in pages:
             self._refs[p] = 1
+        if self.heat is not None:
+            self.heat.alloc(pages)
         return pages
 
     def retain(self, pages: Sequence[int]) -> None:
@@ -88,6 +98,8 @@ class PageAllocator:
                 raise PageAllocatorError(f"retain of free/foreign page {p}")
         for p in pages:
             self._refs[int(p)] += 1
+        if self.heat is not None:
+            self.heat.retain(pages)
 
     def free(self, pages: Sequence[int]) -> None:
         for p in pages:
@@ -102,6 +114,8 @@ class PageAllocator:
             if self._refs[p] == 0:
                 del self._refs[p]
                 self._free.append(p)
+        if self.heat is not None:
+            self.heat.free(pages)
 
     def check_consistent(self) -> Optional[str]:
         """None when the free list and the refcount table partition the
@@ -236,8 +250,8 @@ def scales_bytes(n_layer: int, num_pages: int, n_kv_head: int) -> int:
 class PrefixCache:
     """Chained-hash index over FULL prompt pages: key (parent key, the
     page's tokens) → the pool page holding that page's K/V (counterpart of
-    ``deepspeed_tpu/serving/kv_cache.py`` ``PrefixCache`` without the host
-    tier and heat hooks).
+    ``deepspeed_tpu/serving/kv_cache.py`` ``PrefixCache``, with its heat
+    hooks, without the host tier's demote and adopt hooks).
 
     After a prompt prefills, each of its full pages is registered here (the
     index ``retain``s the page, so it outlives the request); a later prompt
@@ -268,6 +282,8 @@ class PrefixCache:
         self.hits_partial = 0
         self.misses = 0
         self.evictions = 0
+        # optional KVHeatLedger (register/hit/evict hooks)
+        self.heat = None
 
     def __len__(self) -> int:
         return len(self._entries)
@@ -320,6 +336,9 @@ class PrefixCache:
             self.hits_partial += 1
         else:
             self.misses += 1
+        if self.heat is not None and (pages or cow_page is not None):
+            hit_pages = pages + ([cow_page] if cow_page is not None else [])
+            self.heat.hit(hit_pages, "full" if cow_page is not None else "partial")
         return pages, len(pages) * page, cow_page
 
     def probe(self, prompt) -> int:
@@ -337,6 +356,7 @@ class PrefixCache:
         plen = int(np.asarray(prompt).shape[-1])
         parent: Optional[Tuple] = None
         added = 0
+        new_pages: List[int] = []
         for j in range(min(plen // page, len(pages))):
             key = self._key(parent, prompt[j * page:(j + 1) * page])
             if key in self._entries:
@@ -350,7 +370,10 @@ class PrefixCache:
                 if parent is not None:
                     self._children[parent] += 1
                 added += 1
+                new_pages.append(pid)
             parent = key
+        if self.heat is not None and new_pages:
+            self.heat.register(new_pages)
         if self.max_pages > 0:
             self.evict(keep=self.max_pages)
         return added
@@ -366,6 +389,8 @@ class PrefixCache:
         if parent is not None and parent in self._children:
             self._children[parent] -= 1
         self.allocator.free([pid])
+        if self.heat is not None:
+            self.heat.evict(pid)
         self.evictions += 1
         return True
 
@@ -387,3 +412,13 @@ class PrefixCache:
     def clear(self) -> int:
         """Release every index reference (teardown, leak accounting)."""
         return self.evict(keep=0)
+
+    def host_metadata_bytes(self) -> int:
+        """Rough host-side footprint of the index structures (the JAX
+        package's estimate, so ``stats()`` reports the same number)."""
+        import sys
+
+        total = sys.getsizeof(self._entries)
+        for key in self._entries:
+            total += sys.getsizeof(key) + 2 * len(key[1] or ()) * 28
+        return total

@@ -1,8 +1,9 @@
 """Serving request lifecycle: QUEUED → RUNNING → FINISHED/TRUNCATED, or
 REJECTED at the door / TIMED_OUT while still queued / PREEMPTED by a drain /
 FAILED when admission could not reserve its pages
-(counterpart of ``deepspeed_tpu/serving/request.py``, without the SLO,
-tenancy, retry and fleet fields of the features not ported).
+(counterpart of ``deepspeed_tpu/serving/request.py``, with its SLO and
+tenancy fields, without the fault-injection and fleet fields of the
+features not ported).
 """
 
 from __future__ import annotations
@@ -43,6 +44,16 @@ class Request:
     # original ask when admission clamped max_new_tokens; None = not clamped
     requested_new_tokens: Optional[int] = None
 
+    # -- SLO / tenancy --------------------------------------------------
+    # tenant is a free-form accounting dimension (per-tenant counters and
+    # trace records); slo_class names a ``serving.slo.classes`` entry (the
+    # scheduler resolves unknown/empty to the configured default)
+    tenant: str = "default"
+    slo_class: str = ""
+    # serving retries are not ported (serving.retry_max raises), so a
+    # request is admitted once; the trace records carry the count
+    retries: int = 0
+
     # -- prefix cache ---------------------------------------------------
     # prompt tokens served from shared prefix-index pages at admission
     # (0 = cold); the tail past this point was prefilled
@@ -56,8 +67,14 @@ class Request:
     tokens: List[int] = field(default_factory=list)
     detail: str = ""            # why rejected/truncated
     t_submit: float = 0.0
+    t_admit: Optional[float] = None   # queue wait ends: slot assigned
+    t_requeue: Optional[float] = None  # a retry's re-queue (never set here)
     t_first_token: Optional[float] = None
     t_finish: Optional[float] = None
+    # one timestamp per emitted token (parallel to ``tokens``): a verify
+    # step emits its accepted run at one instant, so entries repeat, as a
+    # streaming client sees them; the TPOT histogram observes their gaps
+    t_emissions: List[float] = field(default_factory=list)
     # top-1 minus top-2 logit of each emitted token's step, when the engine
     # records them (ServingEngine(track_margins=True)): how close each
     # greedy choice was to a tie
@@ -94,8 +111,25 @@ class Request:
         return self.t_first_token - self.t_submit
 
     @property
+    def queue_wait_s(self) -> Optional[float]:
+        """Enqueue → slot assignment; None while queued or rejected at the
+        door."""
+        if self.t_admit is None:
+            return None
+        return self.t_admit - (self.t_requeue if self.t_requeue is not None else self.t_submit)
+
+    @property
     def tpot_s(self) -> Optional[float]:
         """Mean time per output token after the first (decode cadence)."""
         if self.t_finish is None or self.t_first_token is None or len(self.tokens) < 2:
             return None
         return (self.t_finish - self.t_first_token) / (len(self.tokens) - 1)
+
+    @property
+    def inter_token_gaps_s(self) -> List[float]:
+        """Per-token arrival deltas from the emission timestamps (tokens a
+        verify step emitted together have gap 0): what
+        ``serving_tpot_seconds`` observes."""
+        from ..telemetry.request_trace import inter_token_gaps
+
+        return inter_token_gaps(self.t_emissions)

@@ -1,6 +1,6 @@
 """Continuous-batching scheduler: slot-based decode over the paged KV pool
 (counterpart of ``deepspeed_tpu/serving/scheduler.py`` without TP,
-disaggregation, the host tier, retries and telemetry).
+disaggregation, the host tier and retries).
 
 A fixed array of ``max_slots`` decode slots advances one token per step
 through ONE batched decode step, while finished sequences vacate their slot
@@ -61,6 +61,21 @@ over-long ask is clamped at submit; :meth:`drain` stops admission, finishes
 in-flight work up to a deadline and preempts the rest. A stuck request can
 never wedge the batch.
 
+Telemetry, as the JAX engine's: ``self.metrics`` is the owning engine's
+registry (``init_inference(config={"telemetry": ...})``) or a private one,
+carrying every serving instrument under JAX's family names; the request
+tracer, the KV heat tracer and the metrics journal come from the plane or
+from the constructor's arguments, and the plane's watchdog flags
+stragglers. ``submit`` takes a ``tenant`` and an ``slo_class``
+(``serving.slo``): every terminal request is judged against its class's
+targets for attainment and goodput. Every hook is host-side: it records
+values the scheduler already holds on the host (the token read is still
+the step's one device read), the decode-step events stay columnar, and
+wall times come from ``self.clock`` after that read. :meth:`stats`
+reports the JAX engine's numbers: TTFT/TPOT/decode-step/queue-wait
+quantiles interpolated over the histograms' ``LATENCY_BUCKETS``
+(:func:`exact_percentiles` gives exact ones over a set of requests).
+
 Single-threaded by design: ``submit``/``step``/``drain``/``stats`` mutate
 the queue, slots and counters without a lock and must run on one thread.
 """
@@ -78,6 +93,9 @@ import torch
 from ..models.gpt2 import GPT2Config
 from ..ops import prng
 from ..runtime.config import ServingConfig
+from ..telemetry import device_hbm_stats
+from ..telemetry.registry import MetricsRegistry
+from ..telemetry.request_trace import LATENCY_BUCKETS
 from ..utils.graphs import CapturedProgram, StaticInputs
 from ..utils.logging import log_dist
 from . import model as smodel
@@ -96,6 +114,24 @@ _CACHE_DTYPES = {
     "bfloat16": torch.bfloat16, "float16": torch.float16, "float32": torch.float32,
     "int8": torch.int8,
 }
+
+
+def exact_percentiles(requests, qs=(50, 95, 99)) -> dict:
+    """Exact TTFT and TPOT percentiles (``np.percentile``, linear) over
+    ``requests`` (each request's TTFT and its mean TPOT, requests without
+    one left out): {"ttft": {"count", "p50_s", ...}, "tpot": {...}}. The
+    engine's :meth:`ServingEngine.stats` interpolates over histogram
+    buckets instead, as the JAX engine does, so a printout that wants the
+    precise number takes this one."""
+    out = {}
+    for name, vals in (("ttft", [r.ttft_s for r in requests]),
+                       ("tpot", [r.tpot_s for r in requests])):
+        vals = [v for v in vals if v is not None]
+        entry = {"count": len(vals)}
+        for q in qs:
+            entry[f"p{q}_s"] = float(np.percentile(vals, q)) if vals else None
+        out[name] = entry
+    return out
 
 
 @dataclass
@@ -127,10 +163,18 @@ class ServingEngine:
     injectable for deterministic timeout tests. ``track_margins`` records,
     for every emitted token, the top-1 minus top-2 logit of its step in
     ``Request.margins`` (one extra top-2 reduction and device read per
-    step)."""
+    step).
+
+    ``tracer``, ``heat_tracer`` and ``journal`` (a
+    :class:`~deepspeed_tpu_torch.telemetry.request_trace.RequestTracer`, a
+    :class:`~deepspeed_tpu_torch.telemetry.kv_heat.KVHeatTracer`, a
+    :class:`~deepspeed_tpu_torch.telemetry.timeseries.MetricsJournal`)
+    win over the owning engine's telemetry plane; with neither, that plane
+    is off and each hook costs one None check."""
 
     def __init__(self, engine, config=None, clock=time.monotonic,
-                 track_margins: bool = False):
+                 track_margins: bool = False, tracer=None, heat_tracer=None,
+                 journal=None):
         if config is None:
             config = ServingConfig()
         elif isinstance(config, dict):
@@ -138,6 +182,9 @@ class ServingEngine:
         self.config = config
         self.clock = clock
         self.track_margins = bool(track_margins)
+        telemetry = getattr(engine, "telemetry", None)
+        self.tracer = (tracer if tracer is not None
+                       else getattr(telemetry, "request_tracer", None))
         mcfg = engine.model_config
         if not isinstance(mcfg, GPT2Config):
             raise ValueError(
@@ -205,18 +252,17 @@ class ServingEngine:
         self.chunk_width = min(self.chunk_width, self.prefill_width)
         self._build_programs()
 
+        # SLO classes and per-tenant accounting: class -> [met, evaluated];
+        # tenant -> its counts. The terminal-status counts are this
+        # engine's own (a plane shared by two engines mixes its counters)
+        self._slo = config.slo
+        self._slo_enabled = bool(self._slo.classes)
+        self._slo_counts: dict = {}
+        self.tenants: dict = {}
+        self._slo_good_tokens = 0
         self._status_counts: dict = {}
         self._step_count = 0
-        self._prefills = 0
-        self._timeouts = 0
-        self._decode_tokens = 0
-        self._decode_seconds = 0.0
-        self._chunks = 0
-        self._spec_steps = 0
-        self._spec_drafted = 0
-        self._spec_accepted = 0
-        self._spec_emitted = 0  # tokens emitted by verify steps (accept lengths summed)
-        self._spec_runs = 0     # slot-steps of verify (accept lengths counted)
+        self._decode_tokens = 0  # tokens the decode / verify steps emitted
         self._t_first_submit: Optional[float] = None
         self._t_last_finish: Optional[float] = None
         quantized = self.pset.scales is not None
@@ -228,6 +274,7 @@ class ServingEngine:
             scales_bytes(mcfg.n_layer, int(config.num_pages), mcfg.n_head)
             if quantized else 0
         )
+        self._init_metrics(telemetry, heat_tracer, journal)
         log_dist(
             f"ServingEngine: slots={self.max_slots} page={page} "
             f"pages={config.num_pages} (pool {self.kv_pool_bytes / 1e6:.1f} MB"
@@ -237,6 +284,285 @@ class ServingEngine:
             f"spec_k={self.spec_k} prefix_cache={self.prefix_cache is not None} "
             f"dtype={str(self.cache_dtype).replace('torch.', '')} device={self.device}"
         )
+
+    # ------------------------------------------------------------------
+    # telemetry: the JAX engine's instruments, tracers and journal
+    # ------------------------------------------------------------------
+    def _init_metrics(self, telemetry, heat_tracer, journal) -> None:
+        """Declare the serving instruments in the plane's registry (or a
+        private one), under the JAX engine's family names and help strings,
+        and attach the plane's watchdog, heat tracer and journal."""
+        self.metrics: MetricsRegistry = (
+            telemetry.registry if telemetry is not None else MetricsRegistry())
+        m = self.metrics
+        self._h_ttft = m.histogram(
+            "serving_ttft_seconds", "submit → first token", buckets=LATENCY_BUCKETS)
+        self._h_tpot = m.histogram(
+            "serving_tpot_seconds",
+            "inter-token emission latency, streaming-client view (one "
+            "observation per gap; a speculative accepted run lands at one "
+            "instant, so its intra-run gaps are 0)",
+            buckets=LATENCY_BUCKETS,
+        )
+        self._h_qwait = m.histogram(
+            "serving_queue_wait_seconds", "submit → slot admission",
+            buckets=LATENCY_BUCKETS)
+        self._h_step = m.histogram(
+            "serving_decode_step_seconds", "one batched decode step",
+            buckets=LATENCY_BUCKETS)
+        self._c_requests = m.counter(
+            "serving_requests_total", "requests by terminal status", labelnames=("status",))
+        self._c_tokens = m.counter("serving_tokens_total", "generated tokens")
+        self._c_prefills = m.counter("serving_prefills_total", "prefill insertions")
+        self._c_steps = m.counter("serving_decode_steps_total", "batched decode steps")
+        self._c_timeouts = m.counter(
+            "serving_timeout_evictions_total", "requests evicted mid-flight by deadline")
+        self._g_queue = m.gauge("serving_queue_depth", "waiting requests")
+        self._g_util = m.gauge("serving_slot_utilization", "active slots / max_slots")
+        self._g_pages = m.gauge("serving_kv_pages_in_use", "allocated KV pages")
+        self._g_occ = m.gauge("serving_kv_page_occupancy", "allocated / allocatable KV pages")
+        self._g_quant = m.gauge(
+            "serving_latency_quantile_seconds",
+            "TTFT/TPOT/decode-step quantiles estimated from the histograms",
+            labelnames=("metric", "q"),
+        )
+        self._c_stragglers = m.counter(
+            "serving_stragglers_total",
+            "requests flagged resident in a slot far beyond their decode budget",
+        )
+        self._c_drained = m.counter(
+            "serving_drained_requests_total",
+            "requests preempted by a graceful drain (queued + in-flight)",
+        )
+        self._c_retries = m.counter(
+            "serving_retried_requests_total",
+            "transient slot failures re-enqueued with backoff",
+        )
+        self._h_accept = m.histogram(
+            "serving_spec_accept_length",
+            "tokens emitted per slot per speculative verify step "
+            "(1 = no draft accepted, k+1 = full accept)",
+            buckets=tuple(float(i) for i in range(1, max(2, self.spec_k) + 2)),
+        )
+        self._c_spec_steps = m.counter(
+            "serving_spec_steps_total", "batched speculative verify steps")
+        self._c_spec_drafted = m.counter(
+            "serving_spec_drafted_total", "draft tokens proposed (host-side)")
+        self._c_spec_accepted = m.counter(
+            "serving_spec_accepted_total", "draft tokens accepted by verify")
+        self._c_prefix_hits = m.counter(
+            "serving_prefix_hits_total", "prefix-cache admission lookups by outcome",
+            labelnames=("kind",),  # full | partial | miss
+        )
+        self._g_prefix_rate = m.gauge(
+            "serving_prefix_hit_rate", "lookups that mapped >= 1 shared page")
+        self._c_pages_reused = m.counter(
+            "serving_prefix_pages_reused_total",
+            "KV pages mapped from the prefix index instead of prefilled",
+        )
+        self._g_pages_shared = m.gauge(
+            "serving_kv_pages_shared", "in-use pages with refcount > 1")
+        self._c_cow = m.counter(
+            "serving_kv_cow_forks_total",
+            "shared pages forked copy-on-write at a full-prefix hit",
+        )
+        self._c_chunks = m.counter(
+            "serving_chunk_prefills_total", "chunk-prefill program invocations")
+        self._g_index_pages = m.gauge(
+            "serving_prefix_index_pages", "pages held live by the prefix index")
+        self._g_slo = m.gauge(
+            "serving_slo_attainment", "SLO-met / SLO-evaluated terminal requests per class",
+            labelnames=("slo_class",),
+        )
+        self._g_goodput = m.gauge(
+            "serving_goodput_tokens_per_sec",
+            "tokens from SLO-met requests per second — over the trailing "
+            "serving.slo.goodput_window_s window when set, else over the "
+            "whole span since first submit",
+        )
+        # the monotone per-class counters a burn-rate engine windows over
+        self._c_slo_eval = m.counter(
+            "serving_slo_evaluated_total", "SLO-evaluated terminal requests per class",
+            labelnames=("slo_class",),
+        )
+        self._c_slo_met = m.counter(
+            "serving_slo_met_total", "SLO-met terminal requests per class",
+            labelnames=("slo_class",),
+        )
+        self._c_good_tokens = m.counter(
+            "serving_slo_good_tokens_total",
+            "tokens generated by SLO-met requests (windowed goodput source)",
+        )
+        self._goodput_window_s = float(self._slo.goodput_window_s or 0.0)
+        # without a journal: (t, tokens) of each SLO-met completion,
+        # trimmed to the window on read
+        self._good_events: Deque[tuple] = deque()
+        self._c_tenant_requests = m.counter(
+            "serving_tenant_requests_total",
+            "terminal requests by tenant and status (tenant cardinality is "
+            "the caller's responsibility)",
+            labelnames=("tenant", "status"),
+        )
+        self._c_tenant_tokens = m.counter(
+            "serving_tenant_tokens_total", "generated tokens by tenant",
+            labelnames=("tenant",),
+        )
+        # one device, no tensor parallelism: every program's all-reduce
+        # payload is 0, as the JAX engine reports at tp = 1
+        g_coll = m.gauge(
+            "serving_tp_collective_bytes",
+            "per-invocation all-reduce payload of a TP-sharded serving "
+            "program (2 psums/layer over the [batch, width, n_embd] partial "
+            "products; 0 = program not TP-sharded)",
+            labelnames=("program",),
+        )
+        for prog in self.executables:
+            g_coll.set(0, program=prog.name)
+        m.counter("serving_kv_handoffs_total",
+                  "prefill→decode KV page handoffs (disaggregated placements)")
+        m.counter("serving_kv_handoff_bytes_total",
+                  "logical KV bytes moved prefill→decode by page handoffs")
+        m.histogram("serving_kv_handoff_seconds",
+                    "one gather → device_put → scatter KV handoff, dispatch to installed",
+                    buckets=LATENCY_BUCKETS)
+        # the plane's watchdog flags stragglers on the decode-step EMA
+        self.watchdog = telemetry.watchdog if telemetry is not None else None
+        self._ema_step_s = 0.0
+        self._heat = None            # the KVHeatTracer
+        self._heat_decode = None     # the pool's ledger
+        ht = (heat_tracer if heat_tracer is not None
+              else getattr(telemetry, "kv_heat_tracer", None))
+        if ht is not None:
+            self.attach_heat(ht)
+        self._journal = None
+        mj = (journal if journal is not None
+              else getattr(telemetry, "metrics_journal", None))
+        if mj is not None:
+            self.attach_journal(mj)
+
+    def attach_heat(self, tracer) -> None:
+        """Attach a :class:`~deepspeed_tpu_torch.telemetry.kv_heat.KVHeatTracer`:
+        the pool's ledger, seeded from the allocator's current refcounts
+        and the prefix index's pages (attaching mid-run reconciles from the
+        first event), hooks installed on the allocator and the prefix index,
+        the derived gauges bound to this engine's registry. Idempotent for
+        the same tracer."""
+        if tracer is self._heat:
+            return
+        tracer.bind_registry(self.metrics)
+        mc = self.model_config
+        page_b = pool_bytes(mc.n_layer, 1, mc.n_head, self.page_size, mc.head_dim,
+                            self.pset.k_pool.element_size())
+        now = self.clock()
+        alloc = self.allocator
+        led = tracer.pool("shared", alloc.capacity, page_size=self.page_size,
+                          page_bytes=page_b, clock=self.clock)
+        held = ([int(p) for p in self.prefix_cache.held_pages]
+                if self.prefix_cache is not None else [])
+        led.seed(alloc.refcounts(), held, now)
+        alloc.heat = led
+        if self.prefix_cache is not None:
+            self.prefix_cache.heat = led
+        self._heat_decode = led
+        self._heat = tracer
+
+    def detach_heat(self) -> None:
+        """Uninstall every heat hook (the tracer and its records survive)."""
+        self.allocator.heat = None
+        if self.prefix_cache is not None:
+            self.prefix_cache.heat = None
+        self._heat = None
+        self._heat_decode = None
+
+    def attach_journal(self, journal) -> None:
+        """Attach a :class:`~deepspeed_tpu_torch.telemetry.timeseries.MetricsJournal`:
+        bound to this engine's registry and clock, snapshotted on the step
+        cadence. Idempotent for the same journal."""
+        if journal is self._journal:
+            return
+        journal.bind(self.metrics, clock=self.clock)
+        self._journal = journal
+
+    def detach_journal(self) -> None:
+        """Stop snapshotting (the journal and its file survive)."""
+        self._journal = None
+
+    def _goodput_now(self, now: float) -> tuple:
+        """(windowed, cumulative) goodput in tokens/s: SLO-met tokens over
+        the trailing ``goodput_window_s`` (the journal's ``increase()``
+        when attached, the ring of completions when not) over the window
+        capped at the span; with no window both are the whole-span
+        number."""
+        if self._t_first_submit is None:
+            return 0.0, 0.0
+        span = max(now - self._t_first_submit, 1e-12)
+        cumulative = self._slo_good_tokens / span
+        w = self._goodput_window_s
+        if w <= 0.0:
+            return cumulative, cumulative
+        if self._journal is not None and self._journal.last_t is not None:
+            good = self._journal.increase("serving_slo_good_tokens_total", now - w, now)
+            # snapshots trail the live counter by up to interval_s: fold in
+            # the not-yet-journaled tail
+            live = self._c_good_tokens.value()
+            latest = self._journal.latest("serving_slo_good_tokens_total")
+            good += live - (latest if latest is not None else 0.0)
+        else:
+            ring = self._good_events
+            while ring and ring[0][0] < now - w:
+                ring.popleft()
+            good = float(sum(tok for _t, tok in ring))
+        eff = min(w, span)
+        return good / max(eff, 1e-12), cumulative
+
+    def draft_index_bytes(self) -> int:
+        """Host bytes held by live slots' n-gram drafter state (the JAX
+        engine's estimate)."""
+        import sys
+
+        total = 0
+        for slot in self.slots:
+            st = slot.request.draft_state if slot.request is not None else None
+            if not st:
+                continue
+            ctx, index, _watermark = st
+            total += sys.getsizeof(ctx) + 28 * len(ctx)
+            total += sys.getsizeof(index)
+            total += len(index) * (28 * (self.spec_ngram + 1) + 56)
+        return total
+
+    def host_metadata_breakdown(self) -> dict:
+        """Host-side (RSS) metadata: the prefix index, the drafter indexes
+        and the heat ledgers (the host tier is not ported: 0)."""
+        prefix_b = (self.prefix_cache.host_metadata_bytes()
+                    if self.prefix_cache is not None else 0)
+        draft_b = self.draft_index_bytes()
+        heat_b = self._heat.ledger_bytes() if self._heat is not None else 0
+        return {
+            "prefix_index_bytes": prefix_b,
+            "draft_index_bytes": draft_b,
+            "heat_ledger_bytes": heat_b,
+            "kv_host_tier_bytes": 0,
+            "total_bytes": prefix_b + draft_b + heat_b,
+        }
+
+    def slo_snapshot(self) -> dict:
+        """The goodput / attainment numbers behind the gauges, without the
+        quantile sweep of :meth:`stats`."""
+        met = sum(c[0] for c in self._slo_counts.values())
+        evaluated = sum(c[1] for c in self._slo_counts.values())
+        now = self.clock()
+        span = now - self._t_first_submit if self._t_first_submit is not None else 0.0
+        windowed, cumulative = self._goodput_now(now)
+        return {
+            "good_tokens": int(self._slo_good_tokens),
+            "met": int(met),
+            "evaluated": int(evaluated),
+            "attainment": (met / evaluated) if evaluated else None,
+            "goodput_tokens_per_sec": windowed,
+            "goodput_cumulative_tokens_per_sec": cumulative,
+            "span_s": span,
+        }
 
     # ------------------------------------------------------------------
     # the programs: a fixed, config-derived set, captured on the card
@@ -332,18 +658,28 @@ class ServingEngine:
     # ------------------------------------------------------------------
     def submit(self, prompt, max_new_tokens: Optional[int] = None, seed: int = 0,
                eos_token_id: Optional[int] = None,
-               deadline_s: Optional[float] = None) -> Request:
+               deadline_s: Optional[float] = None, tenant: str = "default",
+               slo_class: Optional[str] = None) -> Request:
         """Enqueue one request. Backpressure REJECTS at the door (queue
         depth, or a prompt that can never fit); an over-long
         ``max_new_tokens`` is clamped and the response marked TRUNCATED at
-        finish."""
+        finish. ``tenant`` is a free-form accounting dimension;
+        ``slo_class`` names a ``serving.slo.classes`` entry (unknown or
+        None → the configured default: SLO accounting observes, it never
+        admits or rejects)."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         mnt = int(self.config.max_new_tokens if max_new_tokens is None else max_new_tokens)
-        req = Request(prompt=prompt, max_new_tokens=mnt, seed=int(seed),
-                      eos_token_id=eos_token_id, deadline_s=deadline_s)
+        req = Request(
+            prompt=prompt, max_new_tokens=mnt, seed=int(seed), eos_token_id=eos_token_id,
+            deadline_s=deadline_s, tenant=str(tenant),
+            slo_class=(self._slo.resolve_class(slo_class) if self._slo_enabled
+                       else (slo_class or "")),
+        )
         req.t_submit = self.clock()
         if self._t_first_submit is None:
             self._t_first_submit = req.t_submit
+        if self.tracer is not None:
+            self.tracer.submit(req, req.t_submit)
         plen = req.prompt_len
         if plen < 1 or plen > int(self.config.max_prompt_len):
             return self._reject(
@@ -360,16 +696,21 @@ class ServingEngine:
             req.max_new_tokens = cap
             req.detail = f"max_new_tokens clamped {mnt} -> {cap}"
         if self._draining:
-            return self._reject(req, "engine draining (admission stopped)")
+            return self._reject(req, "engine draining (admission stopped)", cause="draining")
         if len(self.queue) >= int(self.config.max_queue_depth):
-            return self._reject(req, f"queue full ({self.config.max_queue_depth})")
+            return self._reject(req, f"queue full ({self.config.max_queue_depth})",
+                                cause="queue_depth")
         self.queue.append(req)
+        self._g_queue.set(len(self.queue))
         return req
 
-    def _reject(self, req: Request, why: str) -> Request:
+    def _reject(self, req: Request, why: str, cause: str = "invalid") -> Request:
         req.status = RequestStatus.REJECTED
         req.detail = why
         req.t_finish = self.clock()
+        self._c_requests.inc(status=RequestStatus.REJECTED)
+        if self.tracer is not None:
+            self.tracer.event(req, "reject", req.t_finish, cause=cause)
         self._req_terminal(req, req.t_finish)
         return req
 
@@ -396,7 +737,7 @@ class ServingEngine:
                 continue
             dl = self._deadline(slot.request)
             if dl is not None and now > dl:
-                self._timeouts += 1
+                self._c_timeouts.inc()
                 self._finish_slot(i, RequestStatus.TRUNCATED, "deadline exceeded", now)
         if self.queue:
             keep: Deque[Request] = deque()
@@ -406,6 +747,7 @@ class ServingEngine:
                     req.status = RequestStatus.TIMED_OUT
                     req.detail = "deadline exceeded while queued"
                     req.t_finish = now
+                    self._c_requests.inc(status=RequestStatus.TIMED_OUT)
                     self._req_terminal(req, now)
                 else:
                     keep.append(req)
@@ -416,18 +758,24 @@ class ServingEngine:
         # (the head of line blocks until finishing slots free pages). Under
         # pool pressure the index yields cold entries first, and the need is
         # re-probed: the eviction may have dropped pages the probe counted.
-        # A drain stops admission.
+        # A drain stops admission. The tracer attributes each step the head
+        # of line waits to its cause.
         while self.queue and not self._draining:
             free = next((i for i, s in enumerate(self.slots) if s.request is None), None)
             if free is None:
+                if self.tracer is not None:
+                    self.tracer.note_wait(self.queue[0], "no_free_slot")
                 break
             req = self.queue[0]
             need = self._pages_needed(req)
             if need > self.allocator.free_pages:
                 if self.prefix_cache is not None and len(self.prefix_cache):
                     self.prefix_cache.evict(need_free=need)
+                    self._g_index_pages.set(len(self.prefix_cache))
                     need = self._pages_needed(req)
                 if need > self.allocator.free_pages:
+                    if self.tracer is not None:
+                        self.tracer.note_wait(req, "page_budget")
                     break
             self.queue.popleft()
             self._admit(free, req)
@@ -448,13 +796,49 @@ class ServingEngine:
                                 else self._decode(active))
             now = self.clock()
             self._step_count += 1
-            self._decode_seconds += now - t0
+            dt = now - t0
+            self._h_step.observe(dt)
+            self._c_steps.inc()
+            self._ema_step_s = dt if self._ema_step_s == 0.0 else 0.8 * self._ema_step_s + 0.2 * dt
+            # pass 1: tokens and this step's trace and heat events for every
+            # slot, each plane fed once, before any retirement below folds a
+            # request's events into its terminal record
+            ev_batch: list = []
+            heat_batch: list = []
+            heat = self._heat_decode
+            page = self.page_size
             for i, toks in emitted:
                 slot = self.slots[i]
                 req = slot.request
                 req.tokens.extend(toks)
                 if margins is not None:
                     req.margins.extend(float(m) for m in margins[i][: len(toks)])
+                if heat is not None:
+                    # the step's KV write landed in the page of the last
+                    # emitted position; the slot attends its block-table prefix
+                    pos_after = slot.pos + len(toks)
+                    heat_batch.append((i, int(self.table.block_tables[i, (pos_after - 1) // page]),
+                                       pages_for(pos_after, page)))
+                # one emission time a token: a verify step's accepted run
+                # lands at one instant
+                req.t_emissions.extend([now] * len(toks))
+                if self.tracer is not None:
+                    ev_batch.append((req.id, {
+                        "e": "verify", "t": now, "step": self._step_count, "slot": i,
+                        "emitted": len(toks), "drafted": self.spec_k,
+                        "accepted": len(toks) - 1, "total": len(req.tokens),
+                    } if self.spec_enabled else (now, self._step_count, i)))
+            if ev_batch:
+                if self.spec_enabled:
+                    self.tracer.step_events(ev_batch)
+                else:
+                    self.tracer.decode_events(ev_batch)
+            if heat_batch:
+                heat.touch_step(now, self._step_count, heat_batch)
+            # pass 2: advance or retire the slots
+            for i, toks in emitted:
+                slot = self.slots[i]
+                req = slot.request
                 self._decode_tokens += len(toks)
                 slot.pos += len(toks)
                 self.table.seq_lens[i] = slot.pos
@@ -467,7 +851,38 @@ class ServingEngine:
                     # token t (0-based) was drawn with keys[t - 1]
                     self.table.keys[i] = slot.keys[len(req.tokens) - 1]
 
-        return sum(1 for s in self.slots if s.request is not None)
+        # straggler detection: a request resident in its slot far beyond its
+        # decode budget (straggler_factor x max_new_tokens x the EMA step
+        # time) is flagged once
+        if self.watchdog is not None and self._ema_step_s > 0.0:
+            factor = float(getattr(self.watchdog.config, "straggler_factor", 3.0))
+            now = self.clock()
+            for slot in self.slots:
+                req = slot.request
+                if req is None or req.t_first_token is None:
+                    continue
+                budget = factor * max(1, req.max_new_tokens) * self._ema_step_s
+                elapsed = now - req.t_first_token
+                if elapsed > budget and self.watchdog.observe_straggler(
+                    self._step_count, req.id,
+                    f"slot residence {elapsed:.3f}s > {budget:.3f}s "
+                    f"({len(req.tokens)}/{req.max_new_tokens} tokens)",
+                ):
+                    self._c_stragglers.inc()
+
+        n_active = sum(1 for s in self.slots if s.request is not None)
+        self._g_queue.set(len(self.queue))
+        self._g_util.set(n_active / self.max_slots)
+        self._g_pages.set(self.allocator.pages_in_use)
+        self._g_occ.set(self.allocator.pages_in_use / self.allocator.capacity)
+        self._g_pages_shared.set(self.allocator.pages_shared)
+        if self.prefix_cache is not None:
+            self._g_index_pages.set(len(self.prefix_cache))
+        if self._step_count and self._step_count % 32 == 0:
+            self.stats()  # refresh the quantile gauges for textfile scrapes
+        if self._journal is not None:
+            self._journal.maybe_snapshot(self.clock())
+        return n_active
 
     def _decode(self, active):
         """One batched decode step → ([(slot, [token])], margins [B, 1] or
@@ -496,8 +911,8 @@ class ServingEngine:
         greedy, logits = out if self.track_margins else (out, None)
         out_np = greedy.cpu().numpy()  # the step's one deliberate sync
         margins = _top2_margin(logits) if logits is not None else None
-        self._spec_steps += 1
-        self._spec_drafted += self.spec_k * len(active)
+        self._c_spec_steps.inc()
+        self._c_spec_drafted.inc(self.spec_k * len(active))
         return [(i, self._accept_tokens(self.slots[i].request, drafts[i], out_np[i]))
                 for i in active], margins
 
@@ -549,9 +964,8 @@ class ServingEngine:
         toks = [int(t) for t in greedy[:emit]]
         if req.eos_token_id is not None and req.eos_token_id in toks:
             toks = toks[: toks.index(req.eos_token_id) + 1]
-        self._spec_accepted += len(toks) - 1
-        self._spec_emitted += len(toks)
-        self._spec_runs += 1
+        self._c_spec_accepted.inc(len(toks) - 1)
+        self._h_accept.observe(len(toks))
         return toks
 
     def _pages_needed(self, req: Request) -> int:
@@ -565,6 +979,11 @@ class ServingEngine:
         return total - self.prefix_cache.probe(req.prompt)
 
     def _admit(self, slot_i: int, req: Request) -> None:
+        # queue wait ends here: the request owns a slot
+        req.t_admit = self.clock()
+        qw = req.queue_wait_s
+        if qw is not None:
+            self._h_qwait.observe(qw)
         total = pages_for(req.prompt_len + req.max_new_tokens, self.page_size)
         # prefix-cache lookup: map every indexed full page of the prompt. A
         # full-prefix hit also finds the LAST prompt page indexed; that page
@@ -574,12 +993,21 @@ class ServingEngine:
         shared: List[int] = []
         shared_tokens = 0
         cow_page = None
+        kind = None
         if self.prefix_cache is not None:
-            shared, shared_tokens, cow_page = self.prefix_cache.lookup(req.prompt)
+            pc = self.prefix_cache
+            shared, shared_tokens, cow_page = pc.lookup(req.prompt)
+            kind = "full" if cow_page is not None else ("partial" if shared else "miss")
+            self._c_prefix_hits.inc(kind=kind)
+            lookups = pc.hits_full + pc.hits_partial + pc.misses
+            if lookups:
+                self._g_prefix_rate.set((pc.hits_full + pc.hits_partial) / lookups)
             if shared:
                 self.allocator.retain(shared)
+                self._c_pages_reused.inc(len(shared))
             if cow_page is not None:
                 self.allocator.cow_forks_total += 1
+                self._c_cow.inc()
         try:
             pages = shared + self.allocator.alloc(total - len(shared))
         except PageAllocatorError as e:
@@ -590,6 +1018,7 @@ class ServingEngine:
             req.status = RequestStatus.FAILED
             req.detail = f"admission reservation failed: {e}"
             req.t_finish = self.clock()
+            self._c_requests.inc(status=RequestStatus.FAILED)
             self._req_terminal(req, req.t_finish)
             return
         slot = self.slots[slot_i]
@@ -598,6 +1027,16 @@ class ServingEngine:
         slot.pos = 0
         req.prefix_shared_tokens = shared_tokens
         req.cow_forked = cow_page is not None
+        if self._heat_decode is not None:
+            # the full reservation is taken here, so the session's page
+            # list is the slot's whole footprint
+            self._heat_decode.session_start(req.t_admit, slot_i, req.id, req.tenant, pages)
+        if self.tracer is not None:
+            self.tracer.event(
+                req, "admit", req.t_admit, step=self._step_count, slot=slot_i,
+                queue_wait_s=qw, pages=total, shared_pages=len(shared),
+                shared_tokens=shared_tokens, prefix_kind=kind, retries=req.retries,
+            )
 
         if self.chunk_width > 0 and (
             shared_tokens > 0 or (self._chunk_cold and req.prompt_len > self.chunk_width)
@@ -622,10 +1061,14 @@ class ServingEngine:
         x["key"][:] = self._prefill_key(req)
         out = self._prefill_prog()
         first, logits = out if self.track_margins else (out, None)
-        self._prefills += 1
+        self._c_prefills.inc()
         # deliberate sync: TTFT is defined by the first token reaching the
         # host, and an at-admission EOS must retire the slot before decode
         tok0 = int(first[0].item())
+        if self.tracer is not None:
+            self.tracer.event(req, "prefill", self.clock(), step=self._step_count,
+                              slot=slot_i, width=self.prefill_width,
+                              prompt_len=req.prompt_len)
         if logits is not None:
             req.margins.append(float(_top2_margin(logits)[0]))
         self._start_decoding(slot_i, tok0)
@@ -660,12 +1103,15 @@ class ServingEngine:
         x["key"][:] = self._prefill_key(req)
         final = start + C >= req.prompt_len
         out = self._chunk_prog()
-        self._chunks += 1
+        self._c_chunks.inc()
         slot.prefill_pos = start + C
+        if self.tracer is not None:
+            self.tracer.event(req, "prefill_chunk", self.clock(), step=self._step_count,
+                              slot=slot_i, start=start, width=C, final=final)
         if not final:
             return  # more chunks; the decode batch advances meanwhile
         first, logits = out if self.track_margins else (out, None)
-        self._prefills += 1
+        self._c_prefills.inc()
         # deliberate sync, as in _admit: the final chunk's sample is the
         # request's first token
         tok0 = int(first[0].item())
@@ -686,13 +1132,21 @@ class ServingEngine:
             slot.prefilling = False
             slot.row = None
         req.status = RequestStatus.RUNNING
+        # TTFT: the first sampled token reaching the host (after a chunked
+        # prefill, the last chunk's)
         req.t_first_token = now
+        self._h_ttft.observe(now - req.t_submit)
         req.tokens.append(tok0)
+        req.t_emissions.append(now)
+        if self.tracer is not None:
+            self.tracer.event(req, "first_token", now, step=self._step_count, slot=slot_i,
+                              ttft_s=now - req.t_submit)
         slot.pos = req.prompt_len
         self.table.seq_lens[slot_i] = slot.pos
         self.table.tokens[slot_i] = tok0
         if self.prefix_cache is not None:
             self.prefix_cache.insert(req.prompt, slot.pages)
+            self._g_index_pages.set(len(self.prefix_cache))
         if self._sampling and req.max_new_tokens > 1:
             # generate's key sequence for this request (JAX
             # scheduler.py:1963-1975): step t consumes keys[t - 1]
@@ -723,15 +1177,72 @@ class ServingEngine:
         if detail:
             req.detail = detail
         req.t_finish = now
+        # the streaming client's inter-token gaps, not the per-request mean:
+        # a verify step's accepted run arrives at once (0-gaps) after the
+        # step's whole latency
+        for gap in req.inter_token_gaps_s:
+            self._h_tpot.observe(gap)
+        self._c_requests.inc(status=status)
+        self._c_tokens.inc(len(req.tokens))
+        if self._heat_decode is not None:
+            self._heat_decode.session_end(now, slot_i)
         self.allocator.free(slot.pages)
         self.table.clear(slot_i)
         self.slots[slot_i] = _Slot()
         self._req_terminal(req, now)
 
+    def _slo_verdict(self, req: Request) -> Optional[dict]:
+        """The request's SLO outcome against its class's targets, or None
+        when no SLO accounting applies (no classes, or a class without
+        targets). Only a FINISHED request can meet; a request without a
+        TPOT (< 2 tokens) passes that axis."""
+        if not self._slo_enabled:
+            return None
+        t = self._slo.targets(req.slo_class)
+        if t["ttft_target_s"] <= 0 and t["tpot_target_s"] <= 0:
+            return None
+        met = req.status == RequestStatus.FINISHED
+        if met and t["ttft_target_s"] > 0:
+            met = req.ttft_s is not None and req.ttft_s <= t["ttft_target_s"]
+        if met and t["tpot_target_s"] > 0:
+            tp = req.tpot_s
+            met = tp is None or tp <= t["tpot_target_s"]
+        return {"class": req.slo_class, **t, "met": bool(met)}
+
     def _req_terminal(self, req: Request, now: float) -> None:
-        """Every terminal transition funnels here."""
+        """Every terminal transition funnels here: the engine's status
+        counts, the SLO verdict and goodput ledger, the tenant accounting
+        and the trace record (``req.t_finish`` is already set)."""
         self._status_counts[req.status] = self._status_counts.get(req.status, 0) + 1
         self._t_last_finish = now
+        verdict = self._slo_verdict(req)
+        if verdict is not None:
+            cnt = self._slo_counts.setdefault(req.slo_class, [0, 0])
+            cnt[1] += 1
+            self._c_slo_eval.inc(slo_class=req.slo_class)
+            if verdict["met"]:
+                cnt[0] += 1
+                self._slo_good_tokens += len(req.tokens)
+                self._c_slo_met.inc(slo_class=req.slo_class)
+                if req.tokens:
+                    self._c_good_tokens.inc(len(req.tokens))
+                    if self._goodput_window_s > 0.0:
+                        self._good_events.append((now, len(req.tokens)))
+            self._g_slo.set(cnt[0] / cnt[1], slo_class=req.slo_class)
+        ten = self.tenants.setdefault(req.tenant, {
+            "requests": 0, "tokens": 0, "slo_met": 0, "slo_evaluated": 0,
+        })
+        ten["requests"] += 1
+        ten["tokens"] += len(req.tokens)
+        if verdict is not None:
+            ten["slo_evaluated"] += 1
+            ten["slo_met"] += int(verdict["met"])
+        self._c_tenant_requests.inc(tenant=req.tenant, status=req.status)
+        if req.tokens:
+            self._c_tenant_tokens.inc(len(req.tokens), tenant=req.tenant)
+        if self.tracer is not None:
+            self.tracer.finish(req, req.t_finish if req.t_finish is not None else now,
+                               slo=verdict)
         self.completed.append(req)
 
     def drain(self, deadline_s: Optional[float] = None) -> dict:
@@ -751,6 +1262,8 @@ class ServingEngine:
             req.status = RequestStatus.PREEMPTED
             req.detail = "drained before admission"
             req.t_finish = start
+            self._c_requests.inc(status=RequestStatus.PREEMPTED)
+            self._c_drained.inc()
             self._req_terminal(req, start)
             preempted += 1
         finished = 0
@@ -763,8 +1276,15 @@ class ServingEngine:
         for i, s in enumerate(self.slots):
             if s.request is not None:
                 deadline_hit = True
+                self._c_drained.inc()
                 self._finish_slot(i, RequestStatus.PREEMPTED, "drained at deadline", now)
                 preempted += 1
+        self._g_queue.set(0)
+        self._g_util.set(0.0)
+        self._g_pages.set(self.allocator.pages_in_use)
+        if self.tracer is not None:
+            # every request is terminal now: make the records durable
+            self.tracer.flush()
         log_dist(
             f"serving drain complete in {now - start:.3f}s: "
             f"{finished} finished in-flight, {preempted} preempted"
@@ -808,75 +1328,157 @@ class ServingEngine:
     # observability
     # ------------------------------------------------------------------
     def stats(self) -> dict:
-        """Counts by terminal status, TTFT/TPOT quantiles over the completed
-        requests, decode-step counts and rates, and current load. Times are
-        on the engine's clock; rates divide host-clock spans that end in the
-        step's token read (a device sync)."""
-        def quantiles(vals):
-            vals = [v for v in vals if v is not None]
-            out = {"count": len(vals)}
-            for q, label in ((50, "p50"), (95, "p95"), (99, "p99")):
-                out[f"{label}_s"] = float(np.percentile(vals, q)) if vals else None
-            return out
-
-        done = self.completed
-        tokens = sum(len(r.tokens) for r in done)
-        span = (
-            self._t_last_finish - self._t_first_submit
-            if self._t_first_submit is not None and self._t_last_finish is not None
-            else 0.0
-        )
-        out = {
-            "by_status": dict(self._status_counts),
-            "ttft": quantiles(r.ttft_s for r in done),
-            "tpot": quantiles(r.tpot_s for r in done),
-            "queue_depth": len(self.queue),
-            "active_slots": sum(1 for s in self.slots if s.request is not None),
-            "kv_pages_in_use": self.allocator.pages_in_use,
-            "completed": len(done),
-            "prefills": self._prefills,
-            "timeout_evictions": self._timeouts,
-            "decode_steps": self._step_count,
-            "decode_tokens_per_s": (
-                self._decode_tokens / self._decode_seconds
-                if self._decode_seconds > 0 else None
-            ),
-            "tokens_per_s": tokens / span if span > 0 else None,
-            "kv_pages_shared": self.allocator.pages_shared,
-            "kv_cow_forks": self.allocator.cow_forks_total,
-            "chunk_prefills": self._chunks,
-            "kv_cache_dtype": str(self.cache_dtype).replace("torch.", ""),
-            "kv_pool_bytes": self.kv_pool_bytes,
-            "kv_scales_bytes": self.kv_scales_bytes,
+        """The JAX engine's ``stats()``: p50/p95/p99, mean and count of
+        TTFT, TPOT (inter-token gaps), decode-step latency and queue wait,
+        estimated from the histograms (the ``histogram_quantile``
+        interpolation over ``LATENCY_BUCKETS``, so a quantile is as fine as
+        its bucket), current load, the SLO and tenant accounting, the
+        tracers' and journal's health and the feature counters; refreshes
+        the ``serving_latency_quantile_seconds{metric,q}`` gauges, the
+        goodput gauge, the heat gauges and the ``hbm_*`` gauges (the card's
+        allocator counters; no synchronisation). Keys of features not ported
+        read as the JAX engine's with the feature off. Beside them, this
+        engine's own: ``prefills``, ``timeout_evictions``,
+        ``decode_tokens_per_s`` (tokens over the summed decode-step clock
+        spans, each ending in the step's token read) and ``tokens_per_s``
+        (over first submit → last finish). :func:`exact_percentiles` gives
+        exact quantiles over a set of requests."""
+        out: dict = {}
+        for name, hist in (
+            ("ttft", self._h_ttft), ("tpot", self._h_tpot),
+            ("decode_step", self._h_step), ("queue_wait", self._h_qwait),
+        ):
+            total, n = hist.stats()
+            entry = {"count": n, "mean_s": (total / n) if n else None}
+            for q, label in ((0.5, "p50"), (0.95, "p95"), (0.99, "p99")):
+                v = hist.quantile(q)
+                entry[f"{label}_s"] = v
+                if v is not None:
+                    self._g_quant.set(v, metric=name, q=label)
+            out[name] = entry
+        out["queue_depth"] = len(self.queue)
+        out["active_slots"] = sum(1 for s in self.slots if s.request is not None)
+        out["kv_pages_in_use"] = self.allocator.pages_in_use
+        out["completed"] = len(self.completed)
+        out["decode_steps"] = self._step_count
+        out["stragglers"] = int(self._c_stragglers.value())
+        out["drained"] = int(self._c_drained.value())
+        out["retried"] = int(self._c_retries.value())
+        out["draining"] = self._draining
+        out["by_status"] = dict(self._status_counts)
+        now = self.clock()
+        if self._slo_enabled and self._t_first_submit is not None:
+            windowed, cumulative = self._goodput_now(now)
+            self._g_goodput.set(windowed)
+            out["slo"] = {
+                "goodput_tokens_per_sec": windowed,
+                "goodput_cumulative_tokens_per_sec": cumulative,
+                "goodput_window_s": self._goodput_window_s,
+                "classes": {
+                    cls: {"met": met, "evaluated": ev,
+                          "attainment": (met / ev) if ev else None}
+                    for cls, (met, ev) in sorted(self._slo_counts.items())
+                },
+            }
+        if self.tenants:
+            out["tenants"] = {t: dict(v) for t, v in sorted(self.tenants.items())}
+        if self.tracer is not None:
+            out["request_trace"] = {
+                "path": self.tracer.file_path,
+                "records": self.tracer.records_emitted,
+                "live": self.tracer.live_requests,
+                "rotations": self.tracer.rotations,
+                "events_dropped": self.tracer.events_dropped,
+                "records_lost": self.tracer.records_lost,
+            }
+            if self.tracer.encode_error is not None:
+                out["request_trace"]["encode_error"] = self.tracer.encode_error
+        out["host_metadata"] = self.host_metadata_breakdown()
+        if self._heat is not None:
+            self._heat.refresh_gauges(now)
+            out["kv_heat"] = {
+                "path": self._heat.file_path,
+                "records": self._heat.records_emitted,
+                "rotations": self._heat.rotations,
+                "records_lost": self._heat.records_lost,
+                "ledger_bytes": self._heat.ledger_bytes(),
+                "pools": {name: led.occupancy(now, self._heat.idle_thresholds_s)
+                          for name, led in self._heat.ledgers.items()},
+            }
+            if self._heat.encode_error is not None:
+                out["kv_heat"]["encode_error"] = self._heat.encode_error
+        if self._journal is not None:
+            out["timeseries"] = {
+                "path": self._journal.file_path,
+                "snapshots": self._journal.snapshots,
+                "records": self._journal.records_emitted,
+                "rotations": self._journal.rotations,
+                "last_t": self._journal.last_t,
+            }
+            if self._journal.encode_error is not None:
+                out["timeseries"]["encode_error"] = self._journal.encode_error
+        out["kv_pages_shared"] = self.allocator.pages_shared
+        out["kv_cow_forks"] = self.allocator.cow_forks_total
+        out["kv_cache_dtype"] = str(self.cache_dtype).replace("torch.", "")
+        out["kv_pool_bytes"] = self.kv_pool_bytes
+        out["kv_scales_bytes"] = self.kv_scales_bytes
+        # one placement on one device: the JAX engine's section at tp = 1
+        out["placement"] = {
+            "tp": 1,
+            "disaggregated": False,
+            "placements": {"shared": {
+                "tp": 1,
+                "devices": [str(self.device)],
+                "num_pages": self.pset.num_pages,
+                "pages_in_use": self.allocator.pages_in_use,
+                "per_device_pool_bytes": self.kv_pool_bytes,
+                "per_device_scales_bytes": self.kv_scales_bytes,
+            }},
         }
+        out["chunk_prefills"] = int(self._c_chunks.value())
         if self.prefix_cache is not None:
             pc = self.prefix_cache
             lookups = pc.hits_full + pc.hits_partial + pc.misses
-            out.update({
-                "prefix_index_pages": len(pc),
-                "prefix_hits_full": pc.hits_full,
-                "prefix_hits_partial": pc.hits_partial,
-                "prefix_misses": pc.misses,
-                "prefix_evictions": pc.evictions,
-                "prefix_hit_rate": (
-                    (pc.hits_full + pc.hits_partial) / lookups if lookups else None
-                ),
-            })
+            out["prefix_index_pages"] = len(pc)
+            out["prefix_hits_full"] = pc.hits_full
+            out["prefix_hits_partial"] = pc.hits_partial
+            out["prefix_misses"] = pc.misses
+            out["prefix_evictions"] = pc.evictions
+            out["prefix_hit_rate"] = (
+                (pc.hits_full + pc.hits_partial) / lookups if lookups else None)
+            out["prefix_host_metadata_bytes"] = pc.host_metadata_bytes()
+            out["prefix_demotions"] = 0
+            out["prefix_adoptions"] = 0
         if self.spec_enabled:
-            out.update({
-                "spec_steps": self._spec_steps,
-                "spec_drafted": self._spec_drafted,
-                "spec_accepted": self._spec_accepted,
-                "spec_accept_len_mean": (
-                    self._spec_emitted / self._spec_runs if self._spec_runs else None
-                ),
-            })
+            total, n = self._h_accept.stats()
+            out["spec_steps"] = int(self._c_spec_steps.value())
+            out["spec_drafted"] = int(self._c_spec_drafted.value())
+            out["spec_accepted"] = int(self._c_spec_accepted.value())
+            out["spec_accept_len_mean"] = (total / n) if n else None
+        # this engine's own rates and counts
+        span = (self._t_last_finish - self._t_first_submit
+                if self._t_first_submit is not None and self._t_last_finish is not None
+                else 0.0)
+        tokens = sum(len(r.tokens) for r in self.completed)
+        decode_s, _ = self._h_step.stats()
+        out["prefills"] = int(self._c_prefills.value())
+        out["timeout_evictions"] = int(self._c_timeouts.value())
+        out["decode_tokens_per_s"] = (self._decode_tokens / decode_s
+                                      if decode_s > 0 else None)
+        out["tokens_per_s"] = tokens / span if span > 0 else None
+        for k, v in device_hbm_stats(self.device).items():
+            self.metrics.gauge(f"hbm_{k}", "device 0 HBM (memory_stats)").set(v)
         return out
 
     def release_prefix_cache(self) -> int:
         """Drop every prefix-index reference (teardown, tests): afterwards a
         drained engine's allocator is fully free. → pages released."""
-        return self.prefix_cache.clear() if self.prefix_cache is not None else 0
+        if self.prefix_cache is None:
+            return 0
+        n = self.prefix_cache.clear()
+        self._g_index_pages.set(len(self.prefix_cache))
+        self._g_pages_shared.set(self.allocator.pages_shared)
+        return n
 
     def check_no_leaks(self) -> None:
         """Drain invariant: every page either back on the free list or held

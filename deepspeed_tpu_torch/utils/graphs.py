@@ -36,6 +36,11 @@ holds.
 On the CPU (asked for explicitly, as the tests do) the same program calls
 its step function on the same buffers at every call.
 
+The telemetry plane's compile families count these compiles
+(``telemetry/compile_stats.py``): a capture is one ``jit_compiles_total``
+and its wall time ``jit_compile_seconds_total``; the warm-up step's wall
+time is ``jit_trace_seconds_total``.
+
 ``_EAGER`` is private and never a config key: programs built while it is
 true run their step functions eagerly on the card too. It exists for the
 capture-against-eager comparisons of ``chip_smoke.py`` phase 21 and the
@@ -51,6 +56,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from ..ops.launches import LAUNCHES
+from ..telemetry import compile_stats
 
 _EAGER = False
 
@@ -164,10 +170,12 @@ class CapturedProgram:
         """One eager step on the capture stream."""
         cur = torch.cuda.current_stream(self.device)
         s = capture_stream(self.device)
+        t0 = time.perf_counter()
         s.wait_stream(cur)
         with torch.cuda.stream(s):
             out = self.fn()
         cur.wait_stream(s)
+        compile_stats.note_warmup(time.perf_counter() - t0)
         return out
 
     def _capture(self) -> None:
@@ -189,6 +197,7 @@ class CapturedProgram:
             held, _HELD = _HELD, None
         cur.wait_stream(s)
         self.capture_ms = (time.perf_counter() - t0) * 1e3
+        compile_stats.note_capture(self.capture_ms / 1e3)
         self._delta = {k: n - before.get(k, 0) for k, n in after.items()
                        if n != before.get(k, 0)}
         self.graph, self._out, self._held = graph, out, held

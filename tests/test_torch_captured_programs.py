@@ -21,7 +21,11 @@
   replay: a ``TorchDispatchMode`` that fails on ``aten::_local_scalar_dense``,
   ``nonzero``, ``masked_select``, a boolean index, ``lift_fresh`` (a tensor
   from host data) and a copy across devices, with ``Tensor.cpu``,
-  ``numpy``, ``tolist`` and ``__array__`` refused while it is on;
+  ``numpy``, ``tolist`` and ``__array__`` refused while it is on; the
+  same with the whole telemetry plane attached (step trace, watchdog,
+  request trace, KV heat, metrics journal, SLO classes), whose hooks add
+  no read of tensor data to a scheduler step (the same count of host
+  reads, the token reads, with the plane on and off);
 - the launch registry every wrapper counts in, and the tensors a capture
   holds for its graph (the device scalars, the split scratch).
 
@@ -283,6 +287,30 @@ def test_generate_steps_have_no_host_traffic(tree, case):
     assert [p.calls for p in entry.programs] == [2, 6]
 
 
+def _plane(root):
+    """The whole telemetry plane: step trace, Prometheus file, watchdog,
+    request trace, KV heat, metrics journal."""
+    return {"telemetry": {
+        "enabled": True, "trace_path": str(root), "prometheus_path": str(root / "m.prom"),
+        "watchdog": {"enabled": True, "capture_dir": str(root / "cap")},
+        "request_trace": {"enabled": True}, "kv_heat": {"enabled": True},
+        "timeseries": {"enabled": True, "interval_s": 0.001}}}
+
+
+@pytest.mark.parametrize("case", ["greedy", "sampled"])
+def test_generate_steps_have_no_host_traffic_with_the_plane(tree, case, tmp_path):
+    eng = _engine(tree, config=_plane(tmp_path))
+    kw = dict(SAMPLING, seed=1) if case == "sampled" else {}
+    ids = _ids(3, (2, 6))
+    want = eng.generate(ids, max_new_tokens=4, **kw)
+    (entry,) = eng._generate_cache.values()
+    _guard(entry.programs)
+    prng.device_scalar.cache_clear()
+    np.testing.assert_array_equal(eng.generate(ids, max_new_tokens=4, **kw), want)
+    eng.telemetry.flush()
+    assert eng.telemetry.registry.get("generate_cache_size").value() == 1
+
+
 SERVING_CASES = {
     "greedy": ({}, torch.float32),
     "sampled": (SAMPLING, torch.float32),
@@ -294,10 +322,13 @@ SERVING_CASES = {
 }
 
 
-@pytest.mark.parametrize("case", list(SERVING_CASES))
-def test_serving_steps_have_no_host_traffic(tree, case):
-    section, dtype = SERVING_CASES[case]
-    srv = _engine(tree, dtype=dtype).serve(dict(SERVING, **section))
+@pytest.mark.parametrize("case", list(SERVING_CASES) + ["features int8 pages, telemetry plane"])
+def test_serving_steps_have_no_host_traffic(tree, case, tmp_path):
+    plane = case.endswith("telemetry plane")
+    section, dtype = SERVING_CASES[case.split(", telemetry")[0]]
+    section = dict(section, slo={"classes": {"a": {"ttft_target_s": 1.0}}}) if plane else section
+    srv = _engine(tree, config=_plane(tmp_path) if plane else None,
+                  dtype=dtype).serve(dict(SERVING, **section))
     _guard(srv.executables)
     prng.device_scalar.cache_clear()
     rs = np.random.RandomState(8)
@@ -308,6 +339,68 @@ def test_serving_steps_have_no_host_traffic(tree, case):
     done = srv.run()
     assert len(done) == 4 and all(len(r.tokens) == 5 for r in done)
     assert all(p.calls > 0 for p in srv.executables)
+    if plane:
+        st = srv.stats()
+        assert st["request_trace"]["records"] == 4 and st["timeseries"]["snapshots"] > 0
+        assert "kv_heat" in st and st["slo"]["classes"]["a"]["evaluated"] == 4
+
+
+class _CountHostReads(TorchDispatchMode):
+    """Counts, over whole scheduler steps, the reads of tensor data on the
+    host: ``_local_scalar_dense`` (``item``/``int``) and ``Tensor.cpu`` /
+    ``numpy`` / ``tolist`` calls."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.overloadpacket.__name__ == "_local_scalar_dense":
+            self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+def _count_host_reads(srv):
+    counter = _CountHostReads()
+    saved = {m: getattr(torch.Tensor, m) for m in ("cpu", "numpy", "tolist")}
+
+    def counted(m):
+        def f(self, *a, **k):
+            counter.n += 1
+            return saved[m](self, *a, **k)
+        return f
+
+    for m in saved:
+        setattr(torch.Tensor, m, counted(m))
+    try:
+        with counter:
+            while srv.queue or any(s.request is not None for s in srv.slots):
+                srv.step()
+    finally:
+        for m, f in saved.items():
+            setattr(torch.Tensor, m, f)
+    return counter.n
+
+
+@pytest.mark.parametrize("section", [{}, {"speculative": {"enabled": True, "k": 3},
+                                          "prefix_cache": {"enabled": True},
+                                          "prefill_chunk_tokens": 4}],
+                         ids=["default", "features"])
+def test_the_plane_adds_no_host_read_to_a_step(tree, section, tmp_path):
+    """The only reads of tensor data in a step are the token reads: the
+    same count with the whole plane on as with it off, and the same
+    streams."""
+    counts, streams = {}, {}
+    for on in (False, True):
+        srv = _engine(tree, config=_plane(tmp_path / str(on)) if on else None).serve(
+            dict(SERVING, **section))
+        rs = np.random.RandomState(8)
+        reqs = [srv.submit(rs.randint(0, VOCAB, n), max_new_tokens=5, seed=i)
+                for i, n in enumerate((2, 3, 9, 4, 7))]
+        counts[on] = _count_host_reads(srv)
+        streams[on] = [list(r.tokens) for r in reqs]
+    assert counts[True] == counts[False] > 0
+    assert streams[True] == streams[False]
 
 
 def test_captured_program_on_the_cpu_runs_its_step():

@@ -224,4 +224,5 @@ def test_config_keys_and_weight_only_int8(tree):
         assert e.quantized and e.quantize_groups == groups and e.dtype == torch.float32
         assert w.q.shape == (2, groups, 64 // groups, 256) and w.scale.dtype == torch.float32
     with pytest.raises(NotPortedError):
-        dtt.init_inference("gpt2-tiny", device="cpu", config={"telemetry": {}})
+        dtt.init_inference("gpt2-tiny", device="cpu", config={
+            "telemetry": {"enabled": True, "introspection": {"enabled": True}}})

@@ -174,3 +174,16 @@ def test_random_draws_have_no_other_route():
         dropout.dropout(torch.zeros(8, device="meta"), prng.PRNGKey(0), 0.1)
     with pytest.raises(ValueError, match="no implementation"):
         prng.uniform_rows(prng.PRNGKey(0)[None], 8, device="meta")
+
+
+def test_the_telemetry_slice_modules_are_scanned():
+    """The telemetry slice's modules (the plane and its serving hooks) are
+    part of what the scans above cover."""
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for mod in ("telemetry/__init__.py", "telemetry/registry.py", "telemetry/tracer.py",
+                "telemetry/exporters.py", "telemetry/compile_stats.py",
+                "telemetry/watchdog.py", "telemetry/request_trace.py", "telemetry/kv_heat.py",
+                "telemetry/timeseries.py", "telemetry/slo_budget.py",
+                "serving/scheduler.py", "serving/kv_cache.py", "serving/request.py",
+                "inference/engine.py", "runtime/config.py", "utils/graphs.py"):
+        assert f"deepspeed_tpu_torch/{mod}" in names

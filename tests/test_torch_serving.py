@@ -348,7 +348,7 @@ class TestTimeoutEviction:
     {"placement": {"disaggregate": True}},
     {"tiering": {"enabled": True}},
     {"fleet": {"enabled": True}},
-    {"slo": {"classes": {"chat": {"ttft_target_s": 1.0}}}},
+    {"placement": {"device_base": 1}},
     {"retry_max": 2},
 ])
 def test_unported_features_raise(section, engine):

@@ -83,7 +83,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      exactly once a step. Step ms (median of steps 3-12), tokens/s, MFU
      from the analytic flops, peak memory, then a torch.profiler pass over
      2 steps (device idle share, top kernels, the flash and optimizer
-     kernels' shares).
+     kernels' shares). Every training phase runs the step as one captured
+     CUDA graph (the first step eagerly, the second captures, later ones
+     replay; a replay adds its capture's launches), its loss scale, LR,
+     optimizer count and dropout keys on the card; phase 23 holds it
+     against the same program run eagerly.
   6b the same model with remat on, 2 steps for each policy: "full",
      forward launches == 2 x backward launches (the backward re-runs each
      block's forward); "attn" and "dots", forward launches == backward
@@ -233,7 +237,34 @@ Phases, in order; any failure raises and the script exits non-zero:
      the mean and median of the per-step differences (on minus off, with
      the standard error) are printed, each beside the card's name and
      power limit.
-  8  (last, after 22) one JSON line of per-kernel numbers, every kernel and
+  23 the training step as one captured program against the same program
+     run eagerly (utils/graphs.py's private switch), in one process, each
+     run's sides from the same weights and batches, every step closed by a
+     sync: phase 6's, 12's and 17's configurations (6 steps a side; step
+     ms, tokens/s, capture ms, peak memory, and the device idle share of a
+     torch.profiler pass over 2 steps, each side; in a profiled captured
+     step each training kernel's events in the trace equal the launches
+     counted);
+     fp16 with a dynamic scale from 2^19 and hysteresis 1 at gpt2-medium
+     width, 4 layers, micro 1 x S32 (6 steps): the overflow steps
+     skipped on the same steps captured and eager, and on the CPU through
+     the first applied step; fp32 at gpt2-medium width, 4
+     layers with dropout 0.1 and AdamW, and bert-large 4 layers
+     block-sparse S512 with LAMB (4 steps): losses and parameters captured
+     = eager bit for bit, and in a profiled captured step each training
+     kernel's events in the trace equal the launches counted; bf16 losses
+     printed side by side; launches equal
+     in every run. Then InferenceEngine.forward (B8 S512 bf16): one program
+     an input shape, logits captured = eager bit for bit, ms a call.
+  24 phase 6's training with the training telemetry plane on (step trace
+     and Prometheus file in a temporary directory, sample_every 1, the
+     watchdog): one train_step record a step (losses those train_batch
+     returned, prepare/dispatch/sync spans, hbm, samples/s, comm_bytes {}
+     on one device), the Prometheus file parsed (steps_total,
+     jit_step_cache_size 1, step_seconds, throughput), no anomaly; then
+     the plane's cost a step: an engine with it off and one with it on
+     step in lockstep (off / on, then on / off), medians of each.
+  8  (last, after 24) one JSON line of per-kernel numbers, every kernel and
      mode with its launches on the path that ported it (the block-sparse
      kernels: phase 11's, and the three at blocks 16/32 at BERT's shape
      with phase 12's; fused AdamW: phase 6's; fused LAMB: phase 15's;
@@ -255,6 +286,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -297,6 +329,7 @@ from deepspeed_tpu_torch.tools.profile_training import (
     analytic_train_flops_per_token,
     print_profile,
     profile_steps,
+    traced_step,
     train_config,
     workload,
 )
@@ -1037,6 +1070,35 @@ def optimizer_kernels_phase(device="cuda", gpt_name="gpt2-medium", bert_name="be
         runs.append(p14)
     check(all(torch.equal(a, b) for a, b in zip(*runs)), "LAMB kernel runs differ")
     del case, runs, p14
+    # the device block: a device count and lr give the Python numbers' bits,
+    # and a skipped step (the fp16 overflow flag) writes nothing, in the
+    # kernels and in their plain versions
+    for kind, leaves in (("adam", gpt_leaves[:4]), ("lamb", bert_leaves[:4])):
+        kernel, plain, kw = ((fadam.multi_tensor_adam, fadam.multi_tensor_adam_ref_,
+                              dict(adam_kw, weight_decays=[0.1] * 4)) if kind == "adam" else
+                             (fadam.multi_tensor_lamb, fadam.multi_tensor_lamb_ref_,
+                              dict(lamb_kw, weight_decays=[0.01] * 4)))
+        lr = kw.pop("lr")
+        case = opt_case(leaves, 10)
+        for fn in (kernel, plain):
+            host = [[t.clone() for t in ts] for ts in (case[0], case[2], case[3])]
+            dev = [[t.clone() for t in ts] for ts in (case[0], case[2], case[3])]
+            fn(host[0], case[1], host[1], host[2], 3, lr, **kw)
+            fn(dev[0], case[1], dev[1], dev[2], torch.full((), 3, dtype=torch.int32,
+                                                           device=device),
+               torch.full((), lr, dtype=torch.float32, device=device), **kw)
+            skipped = [[t.clone() for t in ts] for ts in (case[0], case[2], case[3])]
+            fn(skipped[0], case[1], skipped[1], skipped[2], 3, lr,
+               skip=torch.ones((), dtype=torch.bool, device=device), **kw)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for x, y in zip(host, dev) for a, b in zip(x, y)),
+                  f"phase 14 {kind} {fn.__name__}: device count / lr differ from Python ones")
+            check(all(torch.equal(a, b) for x, y in zip(skipped, (case[0], case[2], case[3]))
+                      for a, b in zip(x, y)),
+                  f"phase 14 {kind} {fn.__name__}: a skipped step changed p, m or v")
+        print(f"{kind}: the device block (int32 count, f32 lr) equal to Python numbers bit for "
+              "bit, and skip=True leaves p, m and v bit for bit, kernel and plain version")
+        del case, host, dev, skipped
     # each kernel timed at its main tree, in place (each call one more step)
     times14 = {}
     for kind, leaves in (("adam", gpt_leaves), ("lamb", bert_leaves)):
@@ -1049,11 +1111,17 @@ def optimizer_kernels_phase(device="cuda", gpt_name="gpt2-medium", bert_name="be
             kernel, plain = fadam.multi_tensor_lamb, fadam.multi_tensor_lamb_ref_
             kw = dict(lamb_kw, weight_decays=[0.01] * len(leaves))
             flops = 19  # as AdamW, and the two squares-and-adds of the norms
-        ms_k, call_k = time_ms(lambda i: kernel(ps, gs, ms, vs, 1 + i, **kw), 20, warmup=3)
-        ms_p, _ = time_ms(lambda i: plain(ps, gs, ms, vs, 1 + i, **kw), 5, warmup=2)
+        # as the training step calls it: the count and lr device scalars, the
+        # device block's one-element ops before each launch included
+        lr_t = torch.full((), kw.pop("lr"), dtype=torch.float32, device=device)
+        count = torch.ones((), dtype=torch.int32, device=device)
+        ms_k, call_k = time_ms(lambda i: kernel(ps, gs, ms, vs, count, lr_t, **kw), 20,
+                               warmup=3)
+        ms_p, _ = time_ms(lambda i: plain(ps, gs, ms, vs, count, lr_t, **kw), 5, warmup=2)
         lib = None
         if kind == "adam":
             lib, _ = time_ms(library_adamw(ps, gs, ms, vs, gpt_wds, **adam_kw), 20, warmup=3)
+        del lr_t, count
         (bnd, by), nbytes = opt_bound(ps, gs, flops)
         n = sum(p.numel() for p in ps)
         times14[kind] = dict(ms=ms_k, plain_ms=ms_p, library_ms=lib, bound_ms=bnd, bound_by=by)
@@ -1263,6 +1331,24 @@ def threefry_kernels_phase():
                 print(f"dropout {shape} {str(dt).replace('torch.', '')} rate {rate}: forward and "
                       f"backward equal to the plain version bit for bit, kept "
                       f"{float((y_ref != 0).float().mean()):.5f}")
+    # the kernel reads its key from device memory: a device key (a slot of a
+    # training step's key table) and a host key (copied up) draw the same
+    # bits, and a slot rewritten in place is read anew
+    dkey = prng.device_keys(key, "cuda")
+    table = prng.device_keys(np.stack([prng.PRNGKey(0), key]), "cuda")
+    x = torch.randn(S16, generator=g, device="cuda").to(torch.bfloat16)
+    y_host = prng.dropout_kernel(x, key, 0.1)
+    y_dev = prng.dropout_kernel(x, dkey, 0.1)
+    y_slot = prng.dropout_kernel(x, table[1], 0.1)
+    table[1].copy_(table[0])
+    y_other = prng.dropout_kernel(x, table[1], 0.1)
+    torch.cuda.synchronize()
+    check(torch.equal(y_host, y_dev) and torch.equal(y_host, y_slot)
+          and torch.equal(y_other, tdo.dropout_ref(x, prng.PRNGKey(0), 0.1)),
+          "phase 16: the dropout kernel's device keys draw other bits than its host keys")
+    print("dropout keys from device memory: a device key, a key-table slot and a host key "
+          "draw the same mask, and a rewritten slot draws its new key's (bit for bit)")
+    del x, y_host, y_dev, y_slot, y_other, table
     # a misaligned view (x starts one element past a 16-byte boundary while
     # its output is aligned: the kernel's scalar walk), and an aligned view
     # with a head (both one element in)
@@ -1277,9 +1363,9 @@ def threefry_kernels_phase():
             lib = op_builder.load("threefry")
             p, c = prng.keep_scale(rate, dt)
             r, mul = prng.reciprocal_is_exact(rate, dt)
-            k0, k1 = prng.key_words(key)
-            err = lib.threefry_dropout_launch(x.data_ptr(), out_view.data_ptr(), x.numel(), k0, k1,
-                                              prng.keep_threshold(p), c, r, int(mul),
+            err = lib.threefry_dropout_launch(x.data_ptr(), out_view.data_ptr(), x.numel(),
+                                              dkey.data_ptr(), prng.keep_threshold(p), c, r,
+                                              int(mul),
                                               prng.DTYPES[dt],
                                               torch.cuda.current_stream().cuda_stream)
             check(err == 0, f"phase 16: launch into a view failed ({err})")
@@ -1294,8 +1380,8 @@ def threefry_kernels_phase():
               "misaligned as x: equal to the plain version bit for bit")
     out = {}
     x = torch.randn(S16, generator=g, device="cuda").to(torch.bfloat16)
-    ms, _ = time_ms(lambda i: prng.dropout_kernel(x, key, 0.1), 50)
-    plain_ms, _ = time_ms(lambda i: tdo.dropout_ref(x, key, 0.1), 5, warmup=2)
+    ms, _ = time_ms(lambda i: prng.dropout_kernel(x, dkey, 0.1), 50)
+    plain_ms, _ = time_ms(lambda i: tdo.dropout_ref(x, dkey, 0.1), 5, warmup=2)
     lib_ms, _ = time_ms(lambda i: F.dropout(x, 0.1, training=True), 50)
     nbytes = 2 * x.numel() * x.element_size()
     bound, by = threefry_bound("dropout", x.numel(), nbytes)
@@ -1599,6 +1685,21 @@ def reset_program_counts():
     reset(PROGRAM_KERNELS)
 
 
+def until_traced(run, attempts=3):
+    """``run()`` → a profiled run's numbers with ``traced``; up to
+    ``attempts`` runs, the first whose every kernel's events equal its
+    launches counted (the trace can lose a device record, at its start and
+    in a long process mid-run: PERF.md's PR 16 findings; a kernel a program
+    lacks is missing from every trace) → that run's numbers, with
+    ``attempts``."""
+    for n in range(1, attempts + 1):
+        r = run()
+        if all(seen == counted for _, seen, counted in r["traced"]):
+            break
+    r["attempts"] = n
+    return r
+
+
 def check_traced(label, traced):
     """A profiled run's program kernels: each one's events in the trace
     equal the launches its wrapper counted in that run (a replay adds its
@@ -1705,13 +1806,14 @@ def captured_programs_phase(smi):
               f"{p.name} {p.capture_ms:.1f}" for p in progs)
           + f"; replays {sum(p.replays for p in progs)}")
     # idle share of the device, each side (profile_generate, B8 128 + 128)
-    idle = {side: profile_generate(e, ids, new, eager=side == "eager")
-            for side, e in engines.items()}
+    idle = {side: until_traced(lambda e=e, side=side: profile_generate(
+        e, ids, new, eager=side == "eager")) for side, e in engines.items()}
     print("generate under torch.profiler: " + "; ".join(
         f"{side} wall {r['wall_s'] * 1e3:.1f} ms, device busy {r['device_busy_s'] * 1e3:.1f} "
         f"ms, idle share {r['idle_share']:.3f}, {r['graphs']} graphs"
         for side, r in idle.items()) + f" ({smi})")
-    traced = [check_traced(f"generate greedy {side}", r["traced"]) for side, r in idle.items()]
+    traced = [check_traced(f"generate greedy {side} (profiled calls {r['attempts']})",
+                           r["traced"]) for side, r in idle.items()]
     del engines["eager"]
 
     # the LRU cap, as TestGenerateCacheLRU drives it, and the memory an
@@ -1808,8 +1910,9 @@ def captured_programs_phase(smi):
     # the paged decode and uniform_rows
     for label, kw in (("serve 3c int8 features captured", dict(features=True, int8=True)),
                       ("serve 20 sampled captured", dict(sampled=True))):
-        r = profile_serve(eng, 16, 4321 if kw.get("features") else 1234, **kw)
-        traced.append(check_traced(label, r["traced"]))
+        r = until_traced(lambda kw=kw: profile_serve(
+            eng, 16, 4321 if kw.get("features") else 1234, **kw))
+        traced.append(check_traced(f"{label} (profiled runs {r['attempts']})", r["traced"]))
         del r
     print("kernels in the profiler's trace = launches counted: " + "; ".join(traced))
     del eng
@@ -2012,8 +2115,6 @@ def paired_steps(off_eng, on_eng, section, traffic, reps=4):
 
 def telemetry_phase(smi):
     """Phase 22: the telemetry plane on the serving path (22a-22d)."""
-    import tempfile
-
     base = dtt.init_inference("gpt2-medium", seed=0)
     cfg = base.model_config
     L, vocab = cfg.n_layer, cfg.vocab_size
@@ -2106,6 +2207,324 @@ def telemetry_phase(smi):
     gc.collect()
     torch.cuda.empty_cache()
     return cost
+
+
+# ---------------------------------------------------------------------------
+# phase 23: the training step as one captured program, against eager
+# ---------------------------------------------------------------------------
+
+# every kernel a training step can launch, by its registry entry
+TRAINING_COUNTED = fa.KERNELS + bsa.KERNELS + fadam.KERNELS + ("threefry_dropout",)
+
+
+def train_sides(label, module, conf, batch, steps, tree=None, profile=False, sides=None,
+                cpu_steps=None):
+    """The same training run on each side ("eager": the step's program
+    uncaptured; "captured": a CUDA graph; "cpu": the plain versions, for
+    ``cpu_steps(results so far)`` steps), each from the same weights
+    (``tree``, else the seed), every step closed by a sync → {side:
+    numbers}; the captured side's "traced" is a profiled step's kernel
+    events against its launches, ``profile`` adds a 2-step profile a side."""
+    out = {}
+    for side in sides or ("eager", "captured"):
+        dev = "cpu" if side == "cpu" else "cuda"
+        n_steps = cpu_steps(out) if side == "cpu" else steps
+        with eager_programs(side == "eager"):
+            eng, _, _, _ = dtt.initialize(
+                model=module, config=conf, seed=0, device=dev,
+                model_parameters=None if tree is None else params_from_numpy(tree, dev))
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            reset(TRAINING_COUNTED)
+            losses, flags, step_s = [], [], []
+            for _ in range(n_steps):
+                t0 = time.perf_counter()
+                m = eng.train_batch(batch)
+                losses.append(float(m["loss"]))
+                flags.append(bool(m["overflow"]))
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+        prog = next(p for sig, p in eng._programs.items() if sig[0] == "train")
+        r = dict(losses=losses, flags=flags, counts=training_counts(),
+                 step_ms=statistics.median(step_s[2:] or step_s) * 1e3, step_s=step_s,
+                 peak=torch.cuda.max_memory_allocated() if dev == "cuda" else 0,
+                 params=params_to_numpy(eng.params), graph=prog.graph is not None,
+                 capture_ms=prog.capture_ms, programs=eng.jit_step_cache_size,
+                 tokens=eng.train_batch_size * batch["input_ids"].shape[1],
+                 skipped=eng.skipped_steps, global_step=eng.get_global_step())
+        check(all(np.isfinite(x) for x, f in zip(losses, flags) if not f),
+              f"phase 23 {label} {side}: non-finite losses {losses}")
+        check(r["programs"] == 1 and r["graph"] == (side == "captured"),
+              f"phase 23 {label} {side}: {r['programs']} training programs, graph {r['graph']}")
+        if profile and dev == "cuda":
+            r["profile"] = profile_steps(eng, batch, 2, kernels=TRAINING_PROFILE_KERNELS)
+        if side == "captured":
+            r["traced"] = until_traced(lambda: {"traced": traced_step(eng, batch)})["traced"]
+        out[side] = r
+        del eng, prog
+        gc.collect()
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+TRAINING_PROFILE_KERNELS = FLASH_KERNELS + BLOCK_SPARSE_KERNELS + OPTIMIZER_KERNELS
+
+
+def check_trained_trace(label, traced):
+    """A profiled captured step's training kernels: each one's events in the
+    trace equal the launches counted (``profile_training.traced_step``)."""
+    check(any(counted for _, _, counted in traced)
+          and all(seen == counted for _, seen, counted in traced),
+          f"phase 23 {label}: kernels in the trace against launches counted {traced}")
+    print("  captured, a profiled step: kernels in the trace = launches counted: "
+          + ", ".join(f"{n.strip(':<_')} {s} = {c}" for n, s, c in traced if c))
+
+
+def training_counts():
+    return counts(TRAINING_COUNTED)
+
+
+def compare_sides(label, res, bitwise, smi):
+    """Captured against eager: launches equal, losses (and with
+    ``bitwise`` the parameters) equal bit for bit or printed side by side,
+    the overflow flags equal; each side's numbers printed → the largest
+    relative loss difference."""
+    c, e = res["captured"], res["eager"]
+    check(c["counts"] == e["counts"] and any(c["counts"].values()),
+          f"phase 23 {label}: launches captured {c['counts']} != eager {e['counts']}")
+    check(c["flags"] == e["flags"],
+          f"phase 23 {label}: overflow steps captured {c['flags']} != eager {e['flags']}")
+    rel = max(abs(a - b) / abs(b) for a, b, f in zip(c["losses"], e["losses"], e["flags"])
+              if not f) if not all(e["flags"]) else 0.0
+    if bitwise:
+        check(c["losses"] == e["losses"], f"phase 23 {label}: losses captured {c['losses']} "
+              f"!= eager {e['losses']}")
+        same = all(np.array_equal(a, b) for a, b in zip(tree_leaves(c["params"]),
+                                                        tree_leaves(e["params"])))
+        check(same, f"phase 23 {label}: parameters captured != eager after "
+              f"{len(c['losses'])} steps")
+    else:
+        check(rel <= 2e-2, f"phase 23 {label}: losses captured {c['losses']} against eager "
+              f"{e['losses']}: relative {rel}")
+    n = {k: v for k, v in c["counts"].items() if v}
+    print(f"{label}: launches equal captured / eager {n}; losses "
+          + ("equal bit for bit, parameters equal bit for bit" if bitwise else
+             f"side by side (max relative difference {rel:.3e})"))
+    print("  captured " + " ".join(f"{x:.6f}" for x in c["losses"]))
+    print("  eager    " + " ".join(f"{x:.6f}" for x in e["losses"]))
+    for side, r in (("captured", c), ("eager", e)):
+        extra = ""
+        if "profile" in r:
+            p = r["profile"]
+            extra = (f", idle share {p['idle_share']:.4f} (profiled 2 steps: wall "
+                     f"{p['wall_s'] * 1e3:.2f} ms, device busy {p['device_busy_s'] * 1e3:.2f} ms)")
+        print(f"  {side}: step ms {r['step_ms']:.3f} (median of steps 3-{len(r['step_s'])}; "
+              + " ".join(f"{x * 1e3:.1f}" for x in r["step_s"])
+              + f"), tokens/s {r['tokens'] / (r['step_ms'] / 1e3):.1f}, peak memory "
+              f"{r['peak'] / 2**30:.2f} GiB"
+              + (f", capture ms {r['capture_ms']:.1f}" if r["capture_ms"] is not None else "")
+              + extra + f" ({smi})")
+    return rel
+
+
+def captured_training_phase(smi):
+    """Phase 23: the training step's program captured against the same
+    program run eagerly, in one process, at phase 6's, 12's and 17's
+    configurations, fp16 with overflows (and the CPU's overflow steps),
+    fp32 bit for bit; then InferenceEngine.forward. → {run: (captured,
+    eager) numbers}."""
+    out = {}
+    cfg6 = gpt2.get_config("gpt2-medium")
+    conf6 = train_config(micro=8, gas=2)
+    batch6 = {"input_ids": np.random.RandomState(5).randint(
+        0, cfg6.vocab_size, (16, cfg6.n_positions)).astype(np.int32)}  # phase 6's batch
+    _, module12, conf12, batch12 = workload("bert-large", sparse=True)
+    cfg17 = gpt2.get_config("gpt2-medium", dropout=0.1)
+    runs = (("6: gpt2-medium bf16, micro 8 x gas 2 x S1024, AdamW", gpt2.make_module(cfg6),
+             conf6, batch6),
+            ("12: bert-large bf16 block-sparse S512, micro 16, Adam", module12, conf12, batch12),
+            ("17: gpt2-medium bf16 at dropout 0.1", gpt2.make_module(cfg17), conf6, batch6))
+    for label, module, conf, batch in runs:
+        res = train_sides(label, module, conf, batch, 6, profile=True)
+        compare_sides(label, res, bitwise=False, smi=smi)
+        check_trained_trace(label, res["captured"]["traced"])
+        out[label] = (res["captured"], res["eager"])
+        del res
+    # fp16, dynamic scale from 2^19 with hysteresis 1: the first steps
+    # overflow and are skipped (the scale halves each time), on the same
+    # steps captured, eager and on the CPU. A CPU without half-precision
+    # GEMMs runs the fp16 products slowly (20-50 s a step at 32 tokens), so
+    # the rows are short and the CPU side runs through the card's first
+    # applied step.
+    cfg4 = gpt2.get_config("gpt2-medium", n_layer=4)
+    _, tree4 = four_layer_tree(seed=11)
+    batch16 = {"input_ids": np.random.RandomState(16).randint(
+        0, cfg4.vocab_size, (1, 32)).astype(np.int32)}
+    conf16 = train_config(micro=1, gas=1)
+    conf16.pop("bf16")
+    conf16["fp16"] = {"enabled": True, "loss_scale": 0, "initial_scale_power": 19,
+                      "hysteresis": 1}
+    label = "fp16 dynamic (2^19, hysteresis 1), gpt2-medium width, 4 layers, micro 1 x S32"
+
+    def through_first_applied(out):
+        flags = out["captured"]["flags"]
+        return min(len(flags), (flags.index(False) + 1) if False in flags else len(flags))
+
+    res = train_sides(label, gpt2.make_module(cfg4), conf16, batch16, 6, tree=tree4,
+                      sides=("eager", "captured", "cpu"), cpu_steps=through_first_applied)
+    compare_sides(label, res, bitwise=False, smi=smi)
+    flags, cpu_flags = res["captured"]["flags"], res["cpu"]["flags"]
+    check(cpu_flags == flags[:len(cpu_flags)] and any(flags) and not all(flags),
+          f"phase 23 fp16: overflow steps captured {flags}, CPU {cpu_flags}")
+    check(res["captured"]["skipped"] == sum(flags)
+          and res["captured"]["global_step"] == len(flags) - sum(flags),
+          f"phase 23 fp16: skipped {res['captured']['skipped']}, global step "
+          f"{res['captured']['global_step']}, flags {flags}")
+    rel_cpu = max(abs(a - b) / abs(b) for a, b in zip(res["cpu"]["losses"],
+                                                      res["captured"]["losses"]))
+    print("  overflow steps (1 = skipped) captured / eager: "
+          + "".join(str(int(f)) for f in flags) + ", CPU (through the first applied step): "
+          + "".join(str(int(f)) for f in cpu_flags) + f"; skipped_steps "
+          f"{res['captured']['skipped']}, global_step {res['captured']['global_step']}; CPU "
+          f"losses within {rel_cpu:.3e} relative of the card's, "
+          f"{statistics.mean(res['cpu']['step_s']):.1f} s a CPU step")
+    out[label] = (res["captured"], res["eager"])
+    # fp32: the captured step equal to eager bit for bit, losses and
+    # parameters (phase 18's dropout run; a 4-layer bert-large sparse LAMB)
+    conf32 = train_config(micro=2, gas=2)
+    conf32.pop("bf16")
+    batch18 = {"input_ids": np.random.RandomState(7).randint(
+        0, cfg4.vocab_size, (4, 256)).astype(np.int32)}  # phase 18's batch
+    cfg18 = gpt2.get_config("gpt2-medium", n_layer=4, dropout=0.1)
+    _, module13, conf13, batch13 = workload("bert-large", sparse=True, n_layer=4, micro=4,
+                                            optimizer="Lamb", seq=512)
+    conf13.pop("bf16")
+    for label, module, conf, batch, tree in (
+            ("fp32 gpt2-medium width, 4 layers, dropout 0.1, AdamW (phase 18's)",
+             gpt2.make_module(cfg18), conf32, batch18, tree4),
+            ("fp32 bert-large, 4 layers, block-sparse S512, LAMB", module13, conf13, batch13,
+             None)):
+        res = train_sides(label, module, conf, batch, 4, tree=tree)
+        compare_sides(label, res, bitwise=True, smi=smi)
+        check_trained_trace(label, res["captured"]["traced"])
+        out[label] = (res["captured"], res["eager"])
+        del res
+    # InferenceEngine.forward: one program an input shape, captured = eager
+    eng = dtt.init_inference("gpt2-medium", seed=0)
+    with eager_programs():
+        eager = dtt.init_inference(eng.model_config, params=eng.params)
+    ids = np.random.RandomState(23).randint(0, eng.model_config.vocab_size, (8, 512))
+    logits, fwd_ms = {}, {}
+    for side, e in (("eager", eager), ("captured", eng)):
+        with eager_programs(side == "eager"):
+            for _ in range(2):
+                e({"input_ids": ids})
+            reset(fa.KERNELS)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                logits[side] = e({"input_ids": ids})
+            torch.cuda.synchronize()
+            fwd_ms[side] = (time.perf_counter() - t0) / 5 * 1e3
+            check(LAUNCHES["flash_attention_fwd"] == 5 * eng.model_config.n_layer,
+                  f"phase 23 forward {side}: flash launches {counts(fa.KERNELS)}")
+    prog = eng._forward_programs[ids.shape]
+    check(torch.equal(logits["captured"], logits["eager"]) and prog.graph is not None,
+          "phase 23: InferenceEngine.forward logits captured != eager")
+    print(f"InferenceEngine.forward B8 S512 bf16: logits captured = eager bit for bit, flash "
+          f"launches {5 * eng.model_config.n_layer} a side (= 5 x {eng.model_config.n_layer}); "
+          f"ms a call captured {fwd_ms['captured']:.3f} / eager {fwd_ms['eager']:.3f}, capture "
+          f"ms {prog.capture_ms:.1f} ({smi})")
+    del eng, eager, logits, prog
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 24: the training telemetry plane
+# ---------------------------------------------------------------------------
+
+def training_plane(root, sample_every=1):
+    return {"enabled": True, "trace_path": root, "prometheus_path": os.path.join(root, "m.prom"),
+            "sample_every": sample_every, "flush_interval": 1,
+            "watchdog": {"enabled": True, "capture_dir": os.path.join(root, "cap")}}
+
+
+def training_telemetry_phase(smi, steps=6):
+    """Phase 24: phase 6's training with the telemetry plane on (step trace,
+    Prometheus file, sample_every 1, the watchdog): one train_step record a
+    step, the file parsed, no anomaly; then the plane's cost a step, an
+    engine with the plane off and one with it on in lockstep."""
+    cfg = gpt2.get_config("gpt2-medium")
+    conf = train_config(micro=8, gas=2)
+    batch = {"input_ids": np.random.RandomState(5).randint(
+        0, cfg.vocab_size, (16, cfg.n_positions)).astype(np.int32)}
+    module = gpt2.make_module(cfg)
+    with tempfile.TemporaryDirectory(prefix="train-telemetry-") as root:
+        eng, _, _, _ = dtt.initialize(model=module, seed=0,
+                                      config=dict(conf, telemetry=training_plane(root)))
+        losses = [float(eng.train_batch(batch)["loss"]) for _ in range(steps)]
+        tel = eng.telemetry
+        tel.flush()
+        with open(tel.tracer.file_path) as fh:
+            recs = [json.loads(ln) for ln in fh]
+        train = [r for r in recs if r["kind"] == "train_step"]
+        check([r["step"] for r in train] == list(range(1, steps + 1))
+              and [r["loss"] for r in train] == losses,
+              f"phase 24: train_step records {[r['step'] for r in train]}, losses "
+              f"{[r.get('loss') for r in train]} against {losses}")
+        last = train[-1]
+        check(set(last["spans"]["children"]) == {"prepare", "dispatch", "sync"}
+              and last["hbm"]["bytes_in_use"] > 0 and last["comm_bytes"] == {}
+              and last["samples_per_sec"] > 0 and last["overflow"] == 0.0,
+              f"phase 24: the last record {last}")
+        check(not [r for r in recs if r["kind"] == "anomaly"] and not eng._watchdog.anomalies,
+              f"phase 24: anomalies {eng._watchdog.anomalies}")
+        prom = parse_prometheus(tel.config.prometheus_path)
+        n_steps = prom.get('steps_total{kind="train"}')
+        check(n_steps == steps
+              and prom.get("jit_step_cache_size") == 1
+              and prom.get('step_seconds_count{kind="train"}') == steps
+              and "train_loss" in prom and prom.get("throughput_samples_per_sec", 0) > 0,
+              f"phase 24: Prometheus file {prom}")
+        print(f"{steps} steps: {len(train)} train_step records (steps 1-{steps}, losses equal "
+              f"to train_batch's), spans {last['spans']}, samples/s "
+              f"{last['samples_per_sec']}, hbm in use "
+              f"{last['hbm']['bytes_in_use'] / 2**30:.2f} GiB, comm_bytes {{}} (one device); "
+              f"Prometheus {len(prom)} samples (steps_total {n_steps:.0f}, jit_step_cache_size {prom['jit_step_cache_size']:.0f}, "
+              f"throughput_samples_per_sec {prom['throughput_samples_per_sec']:.2f}); no anomaly "
+              f"({smi})")
+        del eng, tel
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the plane's cost: engines off and on in lockstep, each pair of steps
+        # in the order off, on, on, off (as 22d pairs serving steps)
+        off, _, _, _ = dtt.initialize(model=module, config=conf, seed=0)
+        on, _, _, _ = dtt.initialize(model=module, seed=0,
+                                     config=dict(conf, telemetry=training_plane(
+                                         os.path.join(root, "paired"))))
+        times = {"off": [], "on": []}
+        for i in range(2 + 2 * steps):
+            for side in (("off", "on") if i % 2 == 0 else ("on", "off")):
+                e = off if side == "off" else on
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                e.train_batch(batch)
+                torch.cuda.synchronize()
+                if i >= 2:
+                    times[side].append(time.perf_counter() - t0)
+        ms = {k: statistics.median(v) * 1e3 for k, v in times.items()}
+        print(f"the plane's cost a step (phase 6's step, {len(times['on'])} paired steps, "
+              f"off / on alternating): off {ms['off']:.3f} ms, on {ms['on']:.3f} ms (median), "
+              f"on - off {ms['on'] - ms['off']:.3f} ms ({smi})")
+        del off, on
+        gc.collect()
+        torch.cuda.empty_cache()
+    return ms
 
 
 def main() -> int:
@@ -3296,6 +3715,14 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     telemetry_phase(smi)
+
+    phase(23, "the training step as one captured program, against eager: phases 6, 12 and "
+              "17's configurations, fp16 with overflows, fp32 bit for bit, forward()")
+    captured_training_phase(smi)
+
+    phase(24, "train gpt2-medium bf16 with the training telemetry plane on (trace, "
+              "Prometheus, watchdog)")
+    training_telemetry_phase(smi)
 
     phase(8, "summary")
     # launches: each kernel's (and mode's) count on the path of the slice

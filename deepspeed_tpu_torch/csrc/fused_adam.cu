@@ -15,6 +15,13 @@
 // weight decays (the decay mask) goes in the kernel's parameters, so the
 // launch needs no device copy and no host sync.
 //
+// What changes from step to step is read from device memory: a block of
+// four floats {lr, 1 - b1^t, 1 - b2^t, skip} that torch ops fill before the
+// launch from the optimizer's device count, the schedule and the fp16
+// overflow flag. A captured training step replays with the current values,
+// and a step whose skip word is nonzero writes nothing (parameters, m and
+// v stay bit for bit; LAMB's stage 1 writes no partials and stage 2 no p).
+//
 // What bounds it on the card: HBM bytes. AdamW reads p, g, m, v and writes
 // p, m, v once (28 B a parameter with f32 grads) and does ~15 flops a
 // parameter. LAMB needs the norms of the whole tensor before any p can be
@@ -73,6 +80,18 @@ struct Scalars {
   float min_trust, max_trust;  // LAMB's clamp; [0, inf] is none
   int mode;
 };
+
+// the device block: lr, the two bias corrections, the skip flag
+enum Block { kLr = 0, kBc1 = 1, kBc2 = 2, kSkip = 3 };
+
+// s with this step's lr and bias corrections from blk; false on a skipped step
+__device__ __forceinline__ bool step_scalars(Scalars& s, const float* __restrict__ blk) {
+  if (blk[kSkip] != 0.0f) return false;
+  s.lr = blk[kLr];
+  s.bc1 = blk[kBc1];
+  s.bc2 = blk[kBc2];
+  return true;
+}
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
@@ -142,7 +161,9 @@ __device__ __forceinline__ double2 block_sum(double a, double b) {
 }
 
 template <typename TG>
-__global__ void __launch_bounds__(kThreads) adam_kernel(Table t, int count, Scalars s) {
+__global__ void __launch_bounds__(kThreads)
+adam_kernel(Table t, int count, Scalars s, const float* __restrict__ blk) {
+  if (!step_scalars(s, blk)) return;
   const int chunk = blockIdx.x;
   const int ti = find_tensor(t, count, chunk);
   const long long n = t.n[ti];
@@ -198,7 +219,9 @@ __global__ void __launch_bounds__(kThreads) adam_kernel(Table t, int count, Scal
 // partials[chunk]
 template <typename TG>
 __global__ void __launch_bounds__(kThreads)
-lamb_stage1_kernel(Table t, int count, Scalars s, double2* __restrict__ partials) {
+lamb_stage1_kernel(Table t, int count, Scalars s, const float* __restrict__ blk,
+                   double2* __restrict__ partials) {
+  if (!step_scalars(s, blk)) return;
   const int chunk = blockIdx.x;
   const int ti = find_tensor(t, count, chunk);
   const long long n = t.n[ti];
@@ -264,7 +287,9 @@ lamb_stage1_kernel(Table t, int count, Scalars s, double2* __restrict__ partials
 // stage 2: each block sums its tensor's partials (a fixed order), forms the
 // trust ratio and writes p - lr * trust * u
 __global__ void __launch_bounds__(kThreads)
-lamb_stage2_kernel(Table t, int count, Scalars s, const double2* __restrict__ partials) {
+lamb_stage2_kernel(Table t, int count, Scalars s, const float* __restrict__ blk,
+                   const double2* __restrict__ partials) {
+  if (!step_scalars(s, blk)) return;
   const int chunk = blockIdx.x;
   const int ti = find_tensor(t, count, chunk);
   double a = 0.0, b = 0.0;
@@ -354,26 +379,29 @@ int grad_bytes(int g_dtype) { return g_dtype == 0 ? 4 : (g_dtype == 1 || g_dtype
 // gradient (mode 2) or without decay (mode 0) over `count` (<= 48) f32
 // tensors p, m, v and grads g of dtype g_dtype (0 f32, 1 f16, 2 bf16), n[i]
 // elements each (contiguous), weight decay wd[i] per tensor: one launch,
-// in place. bc1 / bc2 are 1 - b1^t / 1 - b2^t. Returns the CUDA error of
-// the launch (0 on success), cudaErrorInvalidValue for arguments it does
-// not take. The launch is asynchronous on `stream`.
+// in place. block: 4 floats in device memory, {lr, 1 - b1^t, 1 - b2^t,
+// skip}, read by the kernel. Returns the CUDA error of the launch (0 on
+// success), cudaErrorInvalidValue for arguments it does not take. The
+// launch is asynchronous on `stream`.
 extern "C" int fused_adam_launch(void* const* p, const void* const* g, void* const* m,
                                  void* const* v, const long long* n, const float* wd, int count,
-                                 int g_dtype, int mode, float lr, float b1, float b2,
-                                 float one_minus_b1, float one_minus_b2, float eps, float bc1,
-                                 float bc2, void* stream) {
+                                 int g_dtype, int mode, float b1, float b2, float one_minus_b1,
+                                 float one_minus_b2, float eps, const void* block,
+                                 void* stream) {
   const int gb = grad_bytes(g_dtype);
-  if (gb == 0 || mode < kNoDecay || mode > kL2) return (int)cudaErrorInvalidValue;
+  if (gb == 0 || mode < kNoDecay || mode > kL2 || block == nullptr)
+    return (int)cudaErrorInvalidValue;
   Table t;
   const int chunks = fill_table(t, p, g, m, v, n, wd, count, gb);
   if (chunks < 0) return (int)cudaErrorInvalidValue;
   if (chunks == 0) return 0;
-  Scalars s{lr, b1, b2, one_minus_b1, one_minus_b2, eps, bc1, bc2, 0.f, 0.f, mode};
+  Scalars s{0.f, b1, b2, one_minus_b1, one_minus_b2, eps, 1.f, 1.f, 0.f, 0.f, mode};
+  const float* blk = static_cast<const float*>(block);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (g_dtype) {
-    case 0: adam_kernel<float><<<chunks, kThreads, 0, st>>>(t, count, s); break;
-    case 1: adam_kernel<__half><<<chunks, kThreads, 0, st>>>(t, count, s); break;
-    default: adam_kernel<__nv_bfloat16><<<chunks, kThreads, 0, st>>>(t, count, s); break;
+    case 0: adam_kernel<float><<<chunks, kThreads, 0, st>>>(t, count, s, blk); break;
+    case 1: adam_kernel<__half><<<chunks, kThreads, 0, st>>>(t, count, s, blk); break;
+    default: adam_kernel<__nv_bfloat16><<<chunks, kThreads, 0, st>>>(t, count, s, blk); break;
   }
   return (int)cudaGetLastError();
 }
@@ -381,31 +409,35 @@ extern "C" int fused_adam_launch(void* const* p, const void* const* g, void* con
 // LAMB (decoupled decay wd[i] per tensor) over the same table: stage 1 and
 // stage 2, two launches. `workspace` holds at least `workspace_chunks`
 // double2 (one per chunk of kChunk elements of every tensor); the trust
-// ratio is clamped to [min_trust, max_trust] ([0, inf] for none). Returns
-// the first CUDA error of the two launches (0 on success).
+// ratio is clamped to [min_trust, max_trust] ([0, inf] for none); block
+// as fused_adam_launch's. Returns the first CUDA error of the two launches
+// (0 on success).
 extern "C" int fused_lamb_launch(void* const* p, const void* const* g, void* const* m,
                                  void* const* v, const long long* n, const float* wd, int count,
-                                 int g_dtype, float lr, float b1, float b2, float one_minus_b1,
-                                 float one_minus_b2, float eps, float bc1, float bc2,
-                                 float min_trust, float max_trust, void* workspace,
-                                 long long workspace_chunks, void* stream) {
+                                 int g_dtype, float b1, float b2, float one_minus_b1,
+                                 float one_minus_b2, float eps, float min_trust, float max_trust,
+                                 const void* block, void* workspace, long long workspace_chunks,
+                                 void* stream) {
   const int gb = grad_bytes(g_dtype);
-  if (gb == 0) return (int)cudaErrorInvalidValue;
+  if (gb == 0 || block == nullptr) return (int)cudaErrorInvalidValue;
   Table t;
   const int chunks = fill_table(t, p, g, m, v, n, wd, count, gb);
   if (chunks < 0 || chunks > workspace_chunks) return (int)cudaErrorInvalidValue;
   if (chunks == 0) return 0;
-  Scalars s{lr, b1, b2, one_minus_b1, one_minus_b2, eps, bc1, bc2, min_trust, max_trust,
+  Scalars s{0.f, b1, b2, one_minus_b1, one_minus_b2, eps, 1.f, 1.f, min_trust, max_trust,
             kDecoupled};
+  const float* blk = static_cast<const float*>(block);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   double2* part = static_cast<double2*>(workspace);
   switch (g_dtype) {
-    case 0: lamb_stage1_kernel<float><<<chunks, kThreads, 0, st>>>(t, count, s, part); break;
-    case 1: lamb_stage1_kernel<__half><<<chunks, kThreads, 0, st>>>(t, count, s, part); break;
-    default: lamb_stage1_kernel<__nv_bfloat16><<<chunks, kThreads, 0, st>>>(t, count, s, part); break;
+    case 0: lamb_stage1_kernel<float><<<chunks, kThreads, 0, st>>>(t, count, s, blk, part); break;
+    case 1: lamb_stage1_kernel<__half><<<chunks, kThreads, 0, st>>>(t, count, s, blk, part); break;
+    default:
+      lamb_stage1_kernel<__nv_bfloat16><<<chunks, kThreads, 0, st>>>(t, count, s, blk, part);
+      break;
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  lamb_stage2_kernel<<<chunks, kThreads, 0, st>>>(t, count, s, part);
+  lamb_stage2_kernel<<<chunks, kThreads, 0, st>>>(t, count, s, blk, part);
   return (int)cudaGetLastError();
 }

@@ -58,8 +58,9 @@
 //    n not a multiple of the vector (a misaligned view of x whose y is
 //    aligned takes the scalar loop throughout); 32-bit indices below 2^31
 //    elements (the counter's high word 0), a 64-bit variant above;
-//  - keys by value for dropout (no load), from a device buffer for
-//    uniform_rows (a serving step's per-slot keys), no shared memory.
+//  - keys from a device buffer, for dropout (the two words of a training
+//    step's key table slot, which a captured step refills every step) and
+//    for uniform_rows (a serving step's per-slot keys); no shared memory.
 // ptxas now emits 79 instructions an element in the bf16 dropout's vector
 // loop, 44.5 on the ALU (20 SHF, 21 LOP3, the compare and the select) and
 // 33.5 on the FMA pipes, and the kernel takes 0.0274 ms at [8, 1024, 1024]
@@ -161,10 +162,10 @@ __device__ __forceinline__ T drop_one(T x, uint32_t bits, const Drop& d) {
 // type (uint32_t below 2^31 elements, unsigned long long above)
 template <typename T, bool MUL, typename I>
 __global__ void __launch_bounds__(kThreads)
-dropout_kernel(const T* __restrict__ x, T* __restrict__ y, I n, I head, I nvec, uint32_t k0,
-               uint32_t k1, Drop d, uint32_t one) {
+dropout_kernel(const T* __restrict__ x, T* __restrict__ y, I n, I head, I nvec,
+               const uint32_t* __restrict__ key, Drop d, uint32_t one) {
   constexpr int V = 16 / sizeof(T);
-  const Key k = make_key(k0, k1, one);
+  const Key k = make_key(key[0], key[1], one);
   const I stride = static_cast<I>(gridDim.x) * kThreads;
   const I g = static_cast<I>(blockIdx.x) * kThreads + threadIdx.x;
   const I tail = head + nvec * V;
@@ -221,7 +222,7 @@ long long grid_for(long long work) {
 }
 
 template <typename T, bool MUL>
-cudaError_t launch_dropout(const void* x, void* y, long long n, uint32_t k0, uint32_t k1,
+cudaError_t launch_dropout(const void* x, void* y, long long n, const uint32_t* key,
                            const Drop& d, cudaStream_t s) {
   constexpr int V = 16 / sizeof(T);
   const uintptr_t xa = reinterpret_cast<uintptr_t>(x), ya = reinterpret_cast<uintptr_t>(y);
@@ -238,38 +239,41 @@ cudaError_t launch_dropout(const void* x, void* y, long long n, uint32_t k0, uin
   if (n < (1LL << 31)) {
     dropout_kernel<T, MUL, uint32_t><<<grid, kThreads, 0, s>>>(
         xp, yp, static_cast<uint32_t>(n), static_cast<uint32_t>(head),
-        static_cast<uint32_t>(nvec), k0, k1, d, 1u);
+        static_cast<uint32_t>(nvec), key, d, 1u);
   } else {
     dropout_kernel<T, MUL, unsigned long long><<<grid, kThreads, 0, s>>>(
         xp, yp, static_cast<unsigned long long>(n), static_cast<unsigned long long>(head),
-        static_cast<unsigned long long>(nvec), k0, k1, d, 1u);
+        static_cast<unsigned long long>(nvec), key, d, 1u);
   }
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 float16, 2 bfloat16. thr: the keep threshold (keep
-// iff bits <= thr); c: the divisor; r: its f32 reciprocal, and mul = 1 when
-// x * r rounds to the correctly rounded quotient for every input of the
-// dtype (16-bit dtypes only)
-extern "C" int threefry_dropout_launch(const void* x, void* y, long long n, unsigned int k0,
-                                       unsigned int k1, unsigned int thr, float c, float r,
-                                       int mul, int dtype, void* stream) {
+// dtype: 0 float32, 1 float16, 2 bfloat16. key: the key's two uint32 words
+// on the device. thr: the keep threshold (keep iff bits <= thr); c: the
+// divisor; r: its f32 reciprocal, and mul = 1 when x * r rounds to the
+// correctly rounded quotient for every input of the dtype (16-bit dtypes
+// only)
+extern "C" int threefry_dropout_launch(const void* x, void* y, long long n, const void* key,
+                                       unsigned int thr, float c, float r, int mul, int dtype,
+                                       void* stream) {
   if (n <= 0) return 0;
+  if (key == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Drop d{thr, c, r};
+  const uint32_t* k = static_cast<const uint32_t*>(key);
   switch (dtype) {
     case 0:
       if (mul) return static_cast<int>(cudaErrorInvalidValue);
-      return static_cast<int>(launch_dropout<float, false>(x, y, n, k0, k1, d, s));
+      return static_cast<int>(launch_dropout<float, false>(x, y, n, k, d, s));
     case 1:
-      return static_cast<int>(mul ? launch_dropout<__half, true>(x, y, n, k0, k1, d, s)
-                                  : launch_dropout<__half, false>(x, y, n, k0, k1, d, s));
+      return static_cast<int>(mul ? launch_dropout<__half, true>(x, y, n, k, d, s)
+                                  : launch_dropout<__half, false>(x, y, n, k, d, s));
     case 2:
       return static_cast<int>(
-          mul ? launch_dropout<__nv_bfloat16, true>(x, y, n, k0, k1, d, s)
-              : launch_dropout<__nv_bfloat16, false>(x, y, n, k0, k1, d, s));
+          mul ? launch_dropout<__nv_bfloat16, true>(x, y, n, k, d, s)
+              : launch_dropout<__nv_bfloat16, false>(x, y, n, k, d, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -5,7 +5,9 @@ Builds the parameters from the seeded initialiser or takes a given tree,
 casts the floating leaves to ``dtype`` (bf16 by default, as the JAX package
 does) and places them on ``device``. Then: :meth:`generate` (offline
 generation over a contiguous KV cache, prompts padded to length buckets),
-:meth:`forward` / ``engine(batch)`` (the logits of a batch, eager), and
+:meth:`forward` / ``engine(batch)`` (the logits of a batch: one compiled
+program per input shape, as the JAX engine jits ``apply_fn``,
+``inference/engine.py:308``; a captured graph on the card), and
 :meth:`serve` (a continuous-batching :class:`ServingEngine`).
 
 ``generate`` keeps the JAX engine's compiled-generate contract
@@ -126,6 +128,8 @@ class InferenceEngine:
         self._generate_cache: "OrderedDict[tuple, GenerateProgram]" = OrderedDict()
         self._generate_cache_cap = max(1, int(cache_size if cache_size is not None else 16))
         self.generate_cache_evictions = 0
+        # the compiled forward: one program per input shape
+        self._forward_programs: Dict[tuple, CapturedProgram] = {}
         # the telemetry plane (the same TelemetryConfig schema as the JAX
         # package's): registry, step records, the serving planes
         cfg_tel = c.pop("telemetry", None)
@@ -183,18 +187,31 @@ class InferenceEngine:
         )
 
     def forward(self, batch):
-        """The logits ``[B, S, V]`` of ``batch["input_ids"] [B, S]`` (a
-        tensor or array; the flash kernels on the card)."""
+        """The logits ``[B, S, V]`` of ``batch["input_ids"] [B, S]`` (a host
+        tensor or array): the program of its shape in ``_forward_programs``
+        (built at first use; on the card a captured graph over the flash
+        kernels, replayed), its ids uploaded in one copy; the logits are
+        the caller's (a device copy of the program's output)."""
         ids = batch["input_ids"]
-        if not isinstance(ids, torch.Tensor):
-            ids = torch.from_numpy(np.asarray(ids))
-        ids = ids.to(self.device).long()
+        ids = (ids.detach().cpu().numpy() if isinstance(ids, torch.Tensor)
+               else np.asarray(ids))
+        prog = self._forward_programs.get(ids.shape)
+        if prog is None:
+            inputs = StaticInputs({"input_ids": (ids.shape, torch.int64)}, self.device)
+            dev_ids = inputs.dev["input_ids"]
+
+            @torch.no_grad()
+            def step():
+                return gpt2.forward(self.model_config, self.params, dev_ids)
+
+            prog = CapturedProgram("forward", step, self.device, inputs, copy_outputs=True)
+            self._forward_programs[ids.shape] = prog
         if self.telemetry is not None:
             # a count only: nothing reads the device
             self.telemetry.registry.counter(
                 "inference_forward_total", "compiled forward calls").inc()
-        with torch.no_grad():
-            return gpt2.forward(self.model_config, self.params, ids)
+        np.copyto(prog.inputs.staging()["input_ids"], ids, casting="unsafe")
+        return prog()
 
     __call__ = forward
 

@@ -26,7 +26,11 @@ layer, dequantized into a transient at each use). Training with
 kernel on the card, ``ops/dropout.py``): the embedding's from
 ``fold_in(rng, n_layer)``, layer l's from ``split(fold_in(rng, 0),
 n_layer)[l]`` split three ways (the attention output's, MoE routing's,
-unused here, and the MLP output's). ``generate`` samples with JAX's keys:
+unused here, and the MLP output's). :func:`dropout_key_table` derives all
+of a key's dropout keys on the host as one ``[1 + 3 n_layer, 2]`` table;
+the training engine uploads each step's tables in one copy and hands the
+loss the device table, whose rows the dropout kernel reads where they lie.
+``generate`` samples with JAX's keys:
 the first token with ``rng``, step t with ``split(fold_in(rng, 1), N -
 1)[t - 1]``.
 """
@@ -37,6 +41,8 @@ import functools
 import math
 from dataclasses import dataclass
 from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
 
 import torch
 import torch.nn.functional as F
@@ -280,19 +286,43 @@ def _unstack(tree, n: int):
     return [pick(u, i) for i in range(n)]
 
 
+def dropout_key_table(cfg: GPT2Config, rng) -> np.ndarray:
+    """Every dropout key of a forward under ``rng`` (a host ``[2]`` key), as
+    JAX derives them (``deepspeed_tpu/models/gpt2.py`` ``_hidden``): row 0
+    the embedding's, ``fold_in(rng, n_layer)``; rows ``1 + 3 l .. 3 + 3 l``
+    layer l's ``split(split(fold_in(rng, 0), n_layer)[l], 3)`` → uint32
+    ``[1 + 3 n_layer, 2]``."""
+    L = cfg.n_layer
+    layers = prng.split(prng.split(prng.fold_in(rng, 0), L), 3).reshape(3 * L, 2)
+    return np.concatenate([prng.fold_in(rng, L)[None], layers]).astype(np.uint32)
+
+
+def _is_key_table(cfg: GPT2Config, rng) -> bool:
+    if not prng.is_device_key(rng):
+        return False
+    if tuple(rng.shape) != (1 + 3 * cfg.n_layer, 2):
+        raise ValueError(f"a device key table for {cfg.n_layer} layers is "
+                         f"[{1 + 3 * cfg.n_layer}, 2] int32; got {tuple(rng.shape)}")
+    return True
+
+
 def hidden_with_aux(cfg: GPT2Config, params: PyTree, input_ids, train: bool = False,
                     rng=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """``input_ids [B, S]`` → (final-LN hidden states ``[B, S, E]``, the MoE
-    aux loss, 0 for a dense model). ``rng`` (a ``[2]`` key) with ``train``
-    and ``dropout > 0`` applies dropout with JAX's keys; remat's
-    recomputation draws the same masks from the same keys."""
+    aux loss, 0 for a dense model). ``rng`` with ``train`` and ``dropout >
+    0`` applies dropout with JAX's keys: a host ``[2]`` key (its table is
+    derived and copied up once), or the device table of
+    :func:`dropout_key_table` (read where it lies). Remat's recomputation
+    draws the same masks from the same device keys."""
     B, S = input_ids.shape
     L = cfg.n_layer
     h = params["wte"][input_ids] + params["wpe"][:S][None, :, :]
     keys = [None] * L
     if train and cfg.dropout > 0.0 and rng is not None:
-        h = _dropout(h, cfg.dropout, prng.fold_in(rng, L), train)
-        keys = list(prng.split(prng.split(prng.fold_in(rng, 0), L), 3))  # [L][3, 2]
+        table = rng if _is_key_table(cfg, rng) else prng.device_keys(
+            dropout_key_table(cfg, rng), h.device)
+        h = _dropout(h, cfg.dropout, table[0], train)
+        keys = list(table[1:].reshape(L, 3, 2))  # [L][3, 2]
     for lp, key in zip(_unstack(params["blocks"], L), keys):
         if cfg.remat and cfg.remat_policy != "full":
             h = selective_checkpoint(functools.partial(_block, cfg, key=key), cfg.remat_policy,
@@ -339,6 +369,7 @@ def make_module(cfg: GPT2Config) -> ModuleSpec:
         init=lambda generator: init_params(cfg, generator),
         loss_fn=lambda params, batch, rng, train: lm_loss(cfg, params, batch, rng, train),
         apply_fn=lambda params, batch: forward(cfg, params, batch["input_ids"]),
+        key_table=(functools.partial(dropout_key_table, cfg) if cfg.dropout > 0.0 else None),
     )
 
 

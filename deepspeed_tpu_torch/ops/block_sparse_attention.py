@@ -62,6 +62,7 @@ import torch
 from .flash_attention import (DTYPE_CODES, TMA_DTYPES, _check_tma, _scale, _strides3,
                               _strides_ok, _tma_strides_ok)
 from .launches import LAUNCHES, register
+from ..utils.graphs import hold
 
 # its launches in the registry, per kernel (the main path's proof that it
 # ran here)
@@ -336,6 +337,7 @@ class IndexLists:
                 n = H * ((nb * self.block // TILE + 1) // 2)
             hit = (torch.from_numpy(flat).to(self.kidx.device), n)
             self.plans[key] = hit
+        hold(hit[0])
         return hit
 
     def bwd_plan(self, which: str, causal: bool) -> torch.Tensor:
@@ -350,9 +352,15 @@ class IndexLists:
 
     def dense_mask(self, device) -> torch.Tensor:
         """``[H, S, S]`` bool: the layout's element mask (what the plain
-        versions and the library yardstick use)."""
-        lay = torch.from_numpy(self.layout).to(device)
-        return lay.repeat_interleave(self.block, 1).repeat_interleave(self.block, 2)
+        versions and the library yardstick use), built once a device and
+        kept (a step function reads it with no copy from the host)."""
+        key = ("dense_mask", str(torch.device(device)))
+        hit = self.plans.get(key)
+        if hit is None:
+            lay = torch.from_numpy(self.layout).to(device)
+            hit = self.plans[key] = (lay.repeat_interleave(self.block, 1)
+                                     .repeat_interleave(self.block, 2), 0)
+        return hold(hit[0])
 
 
 _CACHE: Dict[tuple, IndexLists] = {}
@@ -362,18 +370,26 @@ def _freeze(x):
     return tuple(_freeze(v) for v in x) if isinstance(x, (list, tuple)) else x
 
 
+def _held(lists: IndexLists) -> IndexLists:
+    """``lists``, its tensors kept by the program being captured, if any
+    (``utils.graphs.hold``): a graph reads them by address."""
+    for t in (lists.kidx, lists.kcnt, lists.qidx, lists.qcnt):
+        hold(t)
+    return lists
+
+
 def _lists(key, make_layout, block: int, device) -> IndexLists:
     hit = _CACHE.get(key)
     if hit is not None:
         CACHE_STATS["hits"] += 1
-        return hit
+        return _held(hit)
     CACHE_STATS["misses"] += 1
     layout = np.asarray(make_layout(), bool)
     kidx, kcnt, qidx, qcnt = (torch.from_numpy(a).to(device)
                               for a in layout_to_index_lists(layout))
     lists = IndexLists(layout, int(block), kidx, kcnt, qidx, qcnt)
     _CACHE[key] = lists
-    return lists
+    return _held(lists)
 
 
 def index_lists(sparsity_config, seq_len: int, device) -> IndexLists:

@@ -15,6 +15,10 @@ CUDA tensors go to the kernel (``ops/prng.py`` :func:`~.prng.dropout_kernel`,
 counted in ``ops/launches.py``'s ``LAUNCHES["threefry_dropout"]``, one launch
 for a forward and one for a backward), which launches or raises; CPU tensors
 to the plain version; any other device raises.
+
+The key is a device key (an int32 ``[2]`` tensor of the key's bits, read
+where it lies: a training step's key table slot, which a captured step
+refills every step) or a host key (copied up at each call).
 """
 
 from __future__ import annotations
@@ -28,9 +32,11 @@ from . import prng
 def dropout_ref(x: torch.Tensor, key, rate: float) -> torch.Tensor:
     """The plain version: torch ops on x's device, the divisor a tensor of
     x's dtype there (a CPU scalar would let the card multiply by its
-    reciprocal instead)."""
+    reciprocal instead); a device key is widened there, never read on the
+    host."""
     p, c = prng.keep_scale(prng.check_rate(rate), x.dtype)
-    u = prng.uniform_rows_ref(prng.key_words(key), x.numel(), device=x.device)
+    row = key.reshape(1, 2) if prng.is_device_key(key) else prng.key_words(key)
+    u = prng.uniform_rows_ref(row, x.numel(), device=x.device)
     keep = u.reshape(x.shape) < prng.device_scalar(p, x.device)
     return torch.where(keep, x / prng.device_scalar(c, x.device, x.dtype),
                        prng.device_scalar(0.0, x.device, x.dtype))
@@ -56,6 +62,9 @@ class _Dropout(torch.autograd.Function):
 
 
 def dropout(x: torch.Tensor, key, rate: float) -> torch.Tensor:
-    """JAX's dropout of ``x`` under ``key`` (one ``[2]`` key, numpy or a
-    tensor) at ``rate``, differentiable; the kernel on the card."""
-    return _Dropout.apply(x, np.asarray(prng.key_words(key), np.uint32), float(rate))
+    """JAX's dropout of ``x`` under ``key`` (one ``[2]`` key: a device key,
+    or a host key as numpy or an int64 tensor) at ``rate``, differentiable;
+    the kernel on the card."""
+    if not prng.is_device_key(key):
+        key = np.asarray(prng.key_words(key), np.uint32)
+    return _Dropout.apply(x, key, float(rate))

@@ -19,8 +19,20 @@ tensor of a list (at most :data:`MAX_TENSORS` a launch), in place:
 The ``*_ref_`` functions are the plain versions, optax's f32 arithmetic as
 PyTorch ops in the same order. The dispatchers take them for CPU tensors;
 CUDA tensors go to the kernel, which launches or raises; any other device
-raises. ``step`` (1-based), ``lr`` and the hyperparameters are Python
-numbers, so an update reads nothing back from the card.
+raises.
+
+The per-step scalars live on the device, so a captured training step reads
+nothing on the host and replays with the current values: ``step`` (the
+1-based update count) is an int32 tensor, ``lr`` an f32 tensor and
+``skip`` (the fp16 overflow flag) a bool tensor, all on the operands'
+device (a Python ``step`` / ``lr`` is made into one first). Both the
+kernel and the plain version read them through one f32 ``[4]`` device
+block, ``{lr, 1 - b1^step, 1 - b2^step, skip}`` (:func:`device_block`):
+the bias corrections are a one-element torch op on the count before the
+launch, the same op for both. On ``skip`` the kernel writes nothing, and
+the plain version writes back the values it read: parameters and moments
+stay bit for bit. The betas, eps, decays and trust bounds are fixed for a
+run and go by value.
 
 ``fused_adamw_flat``, ``fused_adamw_tree`` and ``fused_lamb_flat`` keep the
 JAX entries' signatures and defaults and return new tensors.
@@ -47,20 +59,32 @@ MODES = {"none": 0, "decoupled": 1, "l2": 2}
 GRAD_DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 
-def bias_corrections(betas: Tuple[float, float], step: int) -> Tuple[float, float]:
-    """``(1 - b1**step, 1 - b2**step)`` in f32, as optax computes them."""
-    f32 = torch.float32
-    return tuple(float(1 - torch.tensor(float(b), dtype=f32) ** int(step)) for b in betas)
+def _scalar(x, dtype, device, what):
+    """``x`` as a 0-d ``dtype`` tensor on ``device``: a Python number is
+    filled there (no host copy); a tensor must already be one."""
+    if isinstance(x, torch.Tensor):
+        if x.dtype != dtype or x.device != device or x.numel() != 1:
+            raise TypeError(f"{what} must be a Python number or a one-element {dtype} tensor "
+                            f"on {device} (got {x.dtype}, {tuple(x.shape)} on {x.device})")
+        return x.reshape(())
+    return torch.full((), x, dtype=dtype, device=device)
 
 
-def _scalars(step, lr, betas, eps):
-    if isinstance(step, torch.Tensor) or isinstance(lr, torch.Tensor):
-        raise TypeError("step and lr must be Python numbers (no device read per update)")
-    if int(step) < 1:
+def device_block(step, lr, skip, betas, device) -> torch.Tensor:
+    """The kernel's f32 ``[4]`` block on ``device``: ``{lr, 1 - b1^step, 1 -
+    b2^step, skip}``. ``step``: the 1-based count (int or int32 tensor),
+    ``lr``: float or f32 tensor, ``skip``: None or a bool tensor. Device
+    ops only: nothing is read on the host."""
+    device = torch.device(device)
+    if not isinstance(step, torch.Tensor) and int(step) < 1:
         raise ValueError(f"step {step} must be >= 1 (the 1-based update count)")
-    b1, b2 = float(betas[0]), float(betas[1])
-    bc1, bc2 = bias_corrections((b1, b2), step)
-    return float(lr), b1, b2, float(eps), bc1, bc2
+    count = _scalar(step, torch.int32, device, "step").to(torch.float32)
+    lr = _scalar(lr, torch.float32, device, "lr")
+    skip = (torch.zeros((), dtype=torch.float32, device=device) if skip is None
+            else _scalar(skip, torch.bool, device, "skip").to(torch.float32))
+    bc1 = 1 - torch.pow(float(betas[0]), count)
+    bc2 = 1 - torch.pow(float(betas[1]), count)
+    return torch.stack([lr, bc1, bc2, skip])
 
 
 def _check_lists(name, params, grads, mus, nus, weight_decays):
@@ -78,54 +102,73 @@ def _check_lists(name, params, grads, mus, nus, weight_decays):
 # plain versions
 # ---------------------------------------------------------------------------
 
+def _keep(skip, old, new):
+    """``new``, or ``old`` where the step is skipped (the same bits back)."""
+    return new if skip is None else torch.where(skip, old, new)
+
+
 @torch.no_grad()
-def multi_tensor_adam_ref_(params, grads, mus, nus, step: int, lr: float,
-                           betas=(0.9, 0.999), eps: float = 1e-8,
-                           weight_decays: Optional[Sequence[float]] = None,
-                           mode: str = "decoupled") -> None:
+def multi_tensor_adam_ref_(params, grads, mus, nus, step, lr, betas=(0.9, 0.999),
+                           eps: float = 1e-8, weight_decays: Optional[Sequence[float]] = None,
+                           mode: str = "decoupled", skip=None) -> None:
     """Plain Adam over the lists, in place (optax's ``adam``, ``adamw``
-    and ``chain(add_decayed_weights, adam)``)."""
+    and ``chain(add_decayed_weights, adam)``), reading lr and the bias
+    corrections from the device block; nothing changes where ``skip``."""
     weight_decays = [0.0] * len(params) if weight_decays is None else list(weight_decays)
     _check_lists("multi_tensor_adam_ref_", params, grads, mus, nus, weight_decays)
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r} ({'|'.join(MODES)})")
-    lr, b1, b2, eps, bc1, bc2 = _scalars(step, lr, betas, eps)
+    if not params:
+        return
+    blk = device_block(step, lr, skip, betas, params[0].device)
+    lr, bc1, bc2 = blk[0], blk[1], blk[2]
+    sk = None if skip is None else blk[3] != 0
+    b1, b2, eps = float(betas[0]), float(betas[1]), float(eps)
     for p, g, mu, nu, wd in zip(params, grads, mus, nus, weight_decays):
         g = g.float()
         decay = mode != "none" and wd != 0.0
         if decay and mode == "l2":
             g = g + wd * p
-        mu.mul_(b1).add_(g * (1 - b1))
-        nu.mul_(b2).add_(g * g * (1 - b2))
-        u = (mu / bc1) / ((nu / bc2).sqrt() + eps)
+        m2 = mu * b1 + g * (1 - b1)
+        v2 = nu * b2 + g * g * (1 - b2)
+        u = (m2 / bc1) / ((v2 / bc2).sqrt() + eps)
         if decay and mode == "decoupled":
             u = u + wd * p
-        p.add_(u * -lr)
+        p.copy_(_keep(sk, p, p + u * -lr))
+        mu.copy_(_keep(sk, mu, m2))
+        nu.copy_(_keep(sk, nu, v2))
 
 
 @torch.no_grad()
-def multi_tensor_lamb_ref_(params, grads, mus, nus, step: int, lr: float,
-                           betas=(0.9, 0.999), eps: float = 1e-6,
-                           weight_decays: Optional[Sequence[float]] = None,
+def multi_tensor_lamb_ref_(params, grads, mus, nus, step, lr, betas=(0.9, 0.999),
+                           eps: float = 1e-6, weight_decays: Optional[Sequence[float]] = None,
                            min_trust: Optional[float] = None,
-                           max_trust: Optional[float] = None) -> None:
+                           max_trust: Optional[float] = None, skip=None) -> None:
     """Plain LAMB over the lists, in place (optax's ``lamb``: the trust
-    ratio per tensor, unclamped when ``min_trust``/``max_trust`` are None)."""
+    ratio per tensor, unclamped when ``min_trust``/``max_trust`` are None),
+    from the device block; nothing changes where ``skip``."""
     weight_decays = [0.0] * len(params) if weight_decays is None else list(weight_decays)
     _check_lists("multi_tensor_lamb_ref_", params, grads, mus, nus, weight_decays)
-    lr, b1, b2, eps, bc1, bc2 = _scalars(step, lr, betas, eps)
+    if not params:
+        return
+    blk = device_block(step, lr, skip, betas, params[0].device)
+    lr, bc1, bc2 = blk[0], blk[1], blk[2]
+    sk = None if skip is None else blk[3] != 0
+    b1, b2, eps = float(betas[0]), float(betas[1]), float(eps)
     for p, g, mu, nu, wd in zip(params, grads, mus, nus, weight_decays):
         g = g.float()
-        mu.mul_(b1).add_(g * (1 - b1))
-        nu.mul_(b2).add_(g * g * (1 - b2))
-        u = (mu / bc1) / ((nu / bc2).sqrt() + eps) + wd * p
+        m2 = mu * b1 + g * (1 - b1)
+        v2 = nu * b2 + g * g * (1 - b2)
+        u = (m2 / bc1) / ((v2 / bc2).sqrt() + eps) + wd * p
         pn = torch.linalg.vector_norm(p)
         un = torch.linalg.vector_norm(u)
         ratio = pn / un
         if min_trust is not None or max_trust is not None:
             ratio = ratio.clamp(min_trust, max_trust)
         trust = torch.where((pn > 0) & (un > 0), ratio, torch.ones_like(ratio))
-        p.add_(u * trust * -lr)
+        p.copy_(_keep(sk, p, p + u * trust * -lr))
+        mu.copy_(_keep(sk, mu, m2))
+        nu.copy_(_keep(sk, nu, v2))
 
 
 # ---------------------------------------------------------------------------
@@ -163,14 +206,15 @@ def _groups(k: int):
     return [(i, min(i + MAX_TENSORS, k)) for i in range(0, k, MAX_TENSORS)]
 
 
-def multi_tensor_adam(params, grads, mus, nus, step: int, lr: float, betas=(0.9, 0.999),
+def multi_tensor_adam(params, grads, mus, nus, step, lr, betas=(0.9, 0.999),
                       eps: float = 1e-8, weight_decays: Optional[Sequence[float]] = None,
-                      mode: str = "decoupled") -> None:
+                      mode: str = "decoupled", skip=None) -> None:
     """Launch the AdamW kernel on ``torch.cuda.current_stream()``: every
-    tensor of the lists updated in place, one launch for each
-    :data:`MAX_TENSORS` of them. p, m, v float32 and the grads float32,
-    float16 or bfloat16 (one dtype), all contiguous on one CUDA device.
-    Raises on anything else."""
+    tensor of the lists updated in place (none where ``skip``), one launch
+    for each :data:`MAX_TENSORS` of them, reading lr, the bias corrections
+    and the skip flag from the device block. p, m, v float32 and the grads
+    float32, float16 or bfloat16 (one dtype), all contiguous on one CUDA
+    device. Raises on anything else."""
     weight_decays = [0.0] * len(params) if weight_decays is None else list(weight_decays)
     _check_lists("multi_tensor_adam", params, grads, mus, nus, weight_decays)
     if mode not in MODES:
@@ -180,7 +224,8 @@ def multi_tensor_adam(params, grads, mus, nus, step: int, lr: float, betas=(0.9,
     dev, gcode = _check_cuda("multi_tensor_adam", params, grads, mus, nus)
     if dev.type != "cuda":
         raise ValueError(f"multi_tensor_adam: the kernel takes CUDA tensors, not {dev}")
-    lr, b1, b2, eps, bc1, bc2 = _scalars(step, lr, betas, eps)
+    blk = device_block(step, lr, skip, betas, dev)
+    b1, b2 = float(betas[0]), float(betas[1])
     from .op_builder import load
 
     lib = load("fused_adam")
@@ -188,21 +233,22 @@ def multi_tensor_adam(params, grads, mus, nus, step: int, lr: float, betas=(0.9,
     for lo, hi in _groups(len(params)):
         (p, g, m, v), n, wd = _tables(params[lo:hi], grads[lo:hi], mus[lo:hi], nus[lo:hi],
                                       weight_decays[lo:hi])
-        err = lib.fused_adam_launch(p, g, m, v, n, wd, hi - lo, gcode, MODES[mode], lr, b1, b2,
-                                    1 - b1, 1 - b2, eps, bc1, bc2, stream)
+        err = lib.fused_adam_launch(p, g, m, v, n, wd, hi - lo, gcode, MODES[mode], b1, b2,
+                                    1 - b1, 1 - b2, float(eps), blk.data_ptr(), stream)
         if err != 0:
             raise RuntimeError(f"multi_tensor_adam: kernel launch failed, CUDA error {err}")
         LAUNCHES["fused_adamw"] += 1
 
 
-def multi_tensor_lamb(params, grads, mus, nus, step: int, lr: float, betas=(0.9, 0.999),
+def multi_tensor_lamb(params, grads, mus, nus, step, lr, betas=(0.9, 0.999),
                       eps: float = 1e-6, weight_decays: Optional[Sequence[float]] = None,
                       min_trust: Optional[float] = None,
-                      max_trust: Optional[float] = None) -> None:
+                      max_trust: Optional[float] = None, skip=None) -> None:
     """Launch the LAMB kernel's two stages on ``torch.cuda.current_stream()``
-    (two launches for each :data:`MAX_TENSORS` tensors), in place; the
-    operands as :func:`multi_tensor_adam`'s. The partial sums of the norms
-    go to a workspace of one double pair per :data:`CHUNK` elements."""
+    (two launches for each :data:`MAX_TENSORS` tensors), in place, from the
+    device block; the operands as :func:`multi_tensor_adam`'s. The partial
+    sums of the norms go to a workspace of one double pair per
+    :data:`CHUNK` elements."""
     weight_decays = [0.0] * len(params) if weight_decays is None else list(weight_decays)
     _check_lists("multi_tensor_lamb", params, grads, mus, nus, weight_decays)
     if not params:
@@ -210,7 +256,8 @@ def multi_tensor_lamb(params, grads, mus, nus, step: int, lr: float, betas=(0.9,
     dev, gcode = _check_cuda("multi_tensor_lamb", params, grads, mus, nus)
     if dev.type != "cuda":
         raise ValueError(f"multi_tensor_lamb: the kernel takes CUDA tensors, not {dev}")
-    lr, b1, b2, eps, bc1, bc2 = _scalars(step, lr, betas, eps)
+    blk = device_block(step, lr, skip, betas, dev)
+    b1, b2 = float(betas[0]), float(betas[1])
     lo_t = 0.0 if min_trust is None else float(min_trust)
     hi_t = math.inf if max_trust is None else float(max_trust)
     from .op_builder import load
@@ -222,9 +269,9 @@ def multi_tensor_lamb(params, grads, mus, nus, step: int, lr: float, betas=(0.9,
         work = torch.empty(max(chunks, 1) * 2, dtype=torch.float64, device=dev)
         (p, g, m, v), n, wd = _tables(params[lo:hi], grads[lo:hi], mus[lo:hi], nus[lo:hi],
                                       weight_decays[lo:hi])
-        err = lib.fused_lamb_launch(p, g, m, v, n, wd, hi - lo, gcode, lr, b1, b2, 1 - b1,
-                                    1 - b2, eps, bc1, bc2, lo_t, hi_t, work.data_ptr(),
-                                    max(chunks, 1), stream)
+        err = lib.fused_lamb_launch(p, g, m, v, n, wd, hi - lo, gcode, b1, b2, 1 - b1,
+                                    1 - b2, float(eps), lo_t, hi_t, blk.data_ptr(),
+                                    work.data_ptr(), max(chunks, 1), stream)
         if err != 0:
             raise RuntimeError(f"multi_tensor_lamb: kernel launch failed, CUDA error {err}")
         LAUNCHES["fused_lamb"] += 2
@@ -243,23 +290,24 @@ def _route(params, kernel, plain, name):
     raise ValueError(f"{name}: no implementation for device {dev}")
 
 
-def multi_tensor_adam_(params, grads, mus, nus, step: int, lr: float, betas=(0.9, 0.999),
+def multi_tensor_adam_(params, grads, mus, nus, step, lr, betas=(0.9, 0.999),
                        eps: float = 1e-8, weight_decays: Optional[Sequence[float]] = None,
-                       mode: str = "decoupled") -> None:
+                       mode: str = "decoupled", skip=None) -> None:
     """Adam over the lists, in place: the kernel for CUDA tensors, the plain
     version for CPU tensors."""
     fn = _route(params, multi_tensor_adam, multi_tensor_adam_ref_, "multi_tensor_adam_")
-    fn(params, grads, mus, nus, step, lr, betas, eps, weight_decays, mode)
+    fn(params, grads, mus, nus, step, lr, betas, eps, weight_decays, mode, skip)
 
 
-def multi_tensor_lamb_(params, grads, mus, nus, step: int, lr: float, betas=(0.9, 0.999),
+def multi_tensor_lamb_(params, grads, mus, nus, step, lr, betas=(0.9, 0.999),
                        eps: float = 1e-6, weight_decays: Optional[Sequence[float]] = None,
                        min_trust: Optional[float] = None,
-                       max_trust: Optional[float] = None) -> None:
+                       max_trust: Optional[float] = None, skip=None) -> None:
     """LAMB over the lists, in place: the kernel for CUDA tensors, the plain
     version for CPU tensors."""
     fn = _route(params, multi_tensor_lamb, multi_tensor_lamb_ref_, "multi_tensor_lamb_")
-    fn(params, grads, mus, nus, step, lr, betas, eps, weight_decays, min_trust, max_trust)
+    fn(params, grads, mus, nus, step, lr, betas, eps, weight_decays, min_trust, max_trust,
+       skip)
 
 
 # ---------------------------------------------------------------------------

@@ -120,7 +120,7 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "threefry": {
         "threefry_dropout_launch": (
-            [_P, _P, _L, _U, _U, _U, _F, _F,   # x, y, n, key words, keep threshold, c, 1 / c
+            [_P, _P, _L, _P, _U, _F, _F,       # x, y, n, device key, keep threshold, c, 1 / c
              _I, _I, _P],                      # multiply by 1 / c, dtype, stream
             ctypes.c_int,
         ),
@@ -133,15 +133,15 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "fused_adam_launch": (
             [_P] * 6                           # p, g, m, v pointer tables; n; wd
             + [_I, _I, _I]                     # count, grad dtype, mode
-            + [_F] * 8                         # lr, b1, b2, 1-b1, 1-b2, eps, bc1, bc2
-            + [_P],                            # stream
+            + [_F] * 5                         # b1, b2, 1-b1, 1-b2, eps
+            + [_P, _P],                        # device block {lr, bc1, bc2, skip}, stream
             ctypes.c_int,
         ),
         "fused_lamb_launch": (
             [_P] * 6                           # p, g, m, v pointer tables; n; wd
             + [_I, _I]                         # count, grad dtype
-            + [_F] * 10                        # lr, b1, b2, 1-b1, 1-b2, eps, bc1, bc2, min/max trust
-            + [_P, _L, _P],                    # workspace, its chunks, stream
+            + [_F] * 7                         # b1, b2, 1-b1, 1-b2, eps, min/max trust
+            + [_P, _P, _L, _P],                # device block, workspace, its chunks, stream
             ctypes.c_int,
         ),
     },

@@ -332,8 +332,10 @@ def dropout_kernel(x: torch.Tensor, key: Key, rate: float) -> torch.Tensor:
     ? x / c : 0`` with ``keep = uniform(key, x.shape) < p`` (``keep_scale``;
     in the kernel ``bits <= keep_threshold(p)``, and the quotient ``x * (1 /
     c)`` where :func:`reciprocal_is_exact` proves it equal) for x contiguous
-    f32 / fp16 / bf16 on a CUDA device → a new tensor. Raises on anything
-    else."""
+    f32 / fp16 / bf16 on a CUDA device → a new tensor. The kernel reads the
+    key's two words where they lie: a device key (int32 ``[2]``, contiguous
+    on x's device; a captured step's key table slot) is used as it is, a
+    host key is copied up first. Raises on anything else."""
     if x.device.type != "cuda":
         raise ValueError(f"dropout_kernel: the kernel takes CUDA tensors, not {x.device}")
     if x.dtype not in DTYPES:
@@ -342,12 +344,17 @@ def dropout_kernel(x: torch.Tensor, key: Key, rate: float) -> torch.Tensor:
         raise ValueError("dropout_kernel: x must be contiguous")
     p, c = keep_scale(check_rate(rate), x.dtype)
     r, mul = reciprocal_is_exact(rate, x.dtype)
-    k0, k1 = key_words(key)
+    if is_device_key(key):
+        if key.numel() != 2 or key.device != x.device or not key.is_contiguous():
+            raise ValueError(f"dropout_kernel: a device key must be one contiguous [2] int32 "
+                             f"key on {x.device}, got {tuple(key.shape)} on {key.device}")
+    else:
+        key = device_keys(np.asarray(key_words(key), np.uint32), x.device)
     from .op_builder import load
 
     lib = load("threefry")
     y = torch.empty_like(x)
-    err = lib.threefry_dropout_launch(x.data_ptr(), y.data_ptr(), x.numel(), k0, k1,
+    err = lib.threefry_dropout_launch(x.data_ptr(), y.data_ptr(), x.numel(), key.data_ptr(),
                                       keep_threshold(p), c, r, int(mul), DTYPES[x.dtype],
                                       torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:

@@ -34,7 +34,10 @@ POLICIES = ("full", "dots", "attn")
 
 def checkpoint(fn, *args):
     """``fn(*args)`` whose activations are recomputed in backward."""
-    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    # no RNG state to stash: dropout draws from threefry keys, and a captured
+    # step cannot read the generator's state
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                             preserve_rng_state=False)
 
 
 class _Record:

@@ -11,8 +11,9 @@ chunked prefill (``prefill_chunk_tokens``), and its SLO classes
 at their off values: turning one on raises :class:`NotPortedError`
 instead of being silently ignored.
 
-``TelemetryConfig``: the ``telemetry`` section of ``init_inference``'s
-config (the same fields, defaults and errors as the JAX package's), with
+``TelemetryConfig``: the ``telemetry`` section of ``init_inference``'s and
+``initialize``'s configs (the same fields, defaults and errors as the JAX
+package's), with
 its watchdog, request-trace, kv-heat and time-series sections.
 ``telemetry.introspection.enabled`` and ``watchdog.policy="rollback"``
 raise :class:`NotPortedError`. ``SLOAlertsConfig`` is the fleet's
@@ -23,7 +24,8 @@ fleet is not ported.
 ``fp16``/``bf16``, ``gradient_clipping``, ``optimizer``, ``scheduler``,
 ``prescale_gradients``/``gradient_predivide_factor``,
 ``data_types.grad_accum_dtype``, ``zero_optimization.stage == 0``,
-``steps_per_print``, and the typed ``sparse_attention`` section that a
+``steps_per_print``, ``wall_clock_breakdown``, ``memory_breakdown``, the
+``telemetry`` section, and the typed ``sparse_attention`` section that a
 model config reads through ``ops.sparse_attention.from_ds_config``) with
 the JAX package's key names and defaults. Any other section at a value that
 turns something on raises :class:`NotPortedError`.
@@ -207,8 +209,9 @@ class WatchdogConfig(_ConfigModel):
     captures under ``capture_dir``, and the serving straggler detector
     (``straggler_factor`` × max_new_tokens × EMA decode step time).
     ``policy``: ``continue`` or ``kill``; ``rollback`` raises
-    :class:`NotPortedError` (ROADMAP queue 1 item 8). ``nan_check`` is the
-    training engine's in-step flag, which waits for item 6b."""
+    :class:`NotPortedError` (ROADMAP queue 1 item 8). ``nan_check``: the
+    training step computes its ``anomaly_flags`` (the loss's and the
+    gradient norm's non-finite bits) for the watchdog."""
 
     enabled: bool = False
     nan_check: bool = True
@@ -679,8 +682,10 @@ _TRAINING_KEYS = (
     "train_batch_size", "train_micro_batch_size_per_gpu", "gradient_accumulation_steps",
     "steps_per_print", "optimizer", "scheduler", "fp16", "bf16", "zero_optimization",
     "data_types", "gradient_clipping", "prescale_gradients", "gradient_predivide_factor",
-    "sparse_attention",
+    "sparse_attention", "telemetry", "wall_clock_breakdown", "memory_breakdown",
 )
+# the monitor backends (JAX monitor/): ROADMAP queue 1 item 14
+_MONITOR_KEYS = ("tensorboard", "wandb", "csv_monitor")
 
 
 @dataclass
@@ -736,18 +741,19 @@ class DeepSpeedConfig:
     prescale_gradients: bool = False
     gradient_predivide_factor: float = 1.0
     sparse_attention: Optional[SparseAttentionConfig] = None
+    telemetry: Optional["TelemetryConfig"] = None
+    wall_clock_breakdown: bool = False
+    memory_breakdown: bool = False
     _user_batch: Optional[tuple] = None
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "DeepSpeedConfig":
         d = dict(d or {})
         for key in sorted(set(d) - set(_TRAINING_KEYS)):
-            if key == "telemetry" and not _is_off(d[key]):
+            if key in _MONITOR_KEYS and not _is_off(d[key]):
                 raise NotPortedError(
-                    f"config section 'telemetry'={d[key]!r} is not ported to the "
-                    "training path of deepspeed_tpu_torch yet (the engine's step "
-                    "records, watchdog and timers: ROADMAP queue 1 item 6b); "
-                    "init_inference takes the section"
+                    f"config section {key!r}={d[key]!r}: the monitor backends are not "
+                    "ported to deepspeed_tpu_torch yet (ROADMAP queue 1 item 14)"
                 )
             if key == "mesh" and all(int(d[key].get(a, 1)) <= 1 for a in ("tp", "pp", "ep", "sp")) \
                     and int(d[key].get("dp", -1)) in (-1, 1):
@@ -784,6 +790,10 @@ class DeepSpeedConfig:
             sparse_attention=(None if d.get("sparse_attention") is None
                               else _typed_section(SparseAttentionConfig, "sparse_attention",
                                                   d["sparse_attention"])),
+            telemetry=(None if d.get("telemetry") is None
+                       else TelemetryConfig.from_dict(d["telemetry"])),
+            wall_clock_breakdown=bool(d.get("wall_clock_breakdown", False)),
+            memory_breakdown=bool(d.get("memory_breakdown", False)),
         )
         if cfg.fp16.enabled and cfg.bf16.enabled:
             raise DeepSpeedConfigError("fp16 and bf16 cannot both be enabled")

@@ -2,9 +2,14 @@
 parameter tree (counterpart of ``deepspeed_tpu/runtime/optimizers.py``).
 
 Each optimizer updates the fp32 master in place with optax's math and reads
-the learning rate from the schedule at its own update count, which starts
-at 0. Step count, bias corrections and the learning rate are Python
-numbers: an update reads nothing back from the card.
+the learning rate from the schedule's tensor form
+(``lr_schedules.tensor_form``) at its own update count, which starts at 0.
+The count is an int32 scalar on the parameters' device, as optax's is an
+array in the optimizer state: an update reads nothing on the host, so it
+runs inside the engine's captured step. ``step(..., skip=)`` takes the fp16
+overflow flag (a device bool): a skipped update leaves parameters, moments
+and the count bit for bit as they were, as the JAX step's
+``_tree_select(~overflow, ...)``.
 
 - Adam, AdamW, FusedAdam, DeepSpeedCPUAdam: optax ``adamw`` with the decay
   masked to leaves with ``ndim >= 2``, ``chain(add_decayed_weights, adam)``
@@ -34,6 +39,7 @@ import torch
 from ..ops import fused_adam
 from ..utils.weights import tree_leaves, tree_map
 from .config import NotPortedError
+from .lr_schedules import tensor_form
 
 PyTree = Any
 Schedule = Union[float, Callable[[int], float]]
@@ -46,32 +52,51 @@ _ONEBIT_NAMES = ("onebitadam", "zerooneadam", "onebitlamb")
 
 @dataclass
 class AdamState:
-    count: int  # applied updates (optax's count)
+    count: torch.Tensor  # int32 []: applied updates (optax's count)
     mu: PyTree
     nu: PyTree
 
 
 @dataclass
 class AdagradState:
-    count: int
+    count: torch.Tensor
     sum_of_squares: PyTree
 
 
 @dataclass
 class SGDState:
-    count: int
+    count: torch.Tensor
     trace: PyTree
 
 
+def _count(params: PyTree) -> torch.Tensor:
+    leaves = tree_leaves(params)
+    dev = leaves[0].device if leaves else torch.device("cpu")
+    return torch.zeros((), dtype=torch.int32, device=dev)
+
+
+def _advance(count: torch.Tensor, skip) -> None:
+    """count + 1 in place, unless the step is skipped."""
+    if skip is None:
+        count.add_(1)
+    else:
+        count.copy_(torch.where(skip, count, count + 1))
+
+
+def _keep(skip, old, new):
+    return new if skip is None else torch.where(skip, old, new)
+
+
 class _Optimizer:
-    """The learning rate, read at the optimizer's own update count."""
+    """The learning rate, read at the optimizer's own device count."""
 
     def __init__(self, learning_rate: Schedule):
         self.learning_rate = learning_rate
+        self._lr = tensor_form(learning_rate)
 
-    def lr_at(self, count: int) -> float:
-        lr = self.learning_rate
-        return float(lr(count)) if callable(lr) else float(lr)
+    def lr_at(self, count: torch.Tensor) -> torch.Tensor:
+        """The schedule at the int32 ``count`` → an f32 0-d tensor there."""
+        return self._lr(count)
 
 
 class Adam(_Optimizer):
@@ -92,20 +117,22 @@ class Adam(_Optimizer):
         return "decoupled" if self.decoupled else "l2"
 
     def init(self, params: PyTree) -> AdamState:
-        return AdamState(count=0, mu=tree_map(torch.zeros_like, params),
+        return AdamState(count=_count(params), mu=tree_map(torch.zeros_like, params),
                          nu=tree_map(torch.zeros_like, params))
 
-    def step(self, params: PyTree, grads: List[torch.Tensor], state: AdamState) -> None:
+    def step(self, params: PyTree, grads: List[torch.Tensor], state: AdamState,
+             skip: Optional[torch.Tensor] = None) -> None:
         """One update of every leaf of ``params`` (in place) from ``grads``
-        (in ``tree_leaves`` order); advances ``state``."""
+        (in ``tree_leaves`` order); advances ``state``. Nothing changes where
+        ``skip`` (a device bool) is true."""
         leaves = tree_leaves(params)
         # the decay mask of the JAX registry (_default_wd_mask): ndim >= 2
         wds = [self.weight_decay if p.ndim >= 2 else 0.0 for p in leaves]
         fused_adam.multi_tensor_adam_(leaves, grads, tree_leaves(state.mu),
                                       tree_leaves(state.nu), state.count + 1,
                                       self.lr_at(state.count), (self.b1, self.b2), self.eps,
-                                      wds, self.mode)
-        state.count += 1
+                                      wds, self.mode, skip)
+        _advance(state.count, skip)
 
 
 class Lamb(_Optimizer):
@@ -120,13 +147,14 @@ class Lamb(_Optimizer):
 
     init = Adam.init
 
-    def step(self, params: PyTree, grads: List[torch.Tensor], state: AdamState) -> None:
+    def step(self, params: PyTree, grads: List[torch.Tensor], state: AdamState,
+             skip: Optional[torch.Tensor] = None) -> None:
         leaves = tree_leaves(params)
         fused_adam.multi_tensor_lamb_(leaves, grads, tree_leaves(state.mu),
                                       tree_leaves(state.nu), state.count + 1,
                                       self.lr_at(state.count), (self.b1, self.b2), self.eps,
-                                      [self.weight_decay] * len(leaves))
-        state.count += 1
+                                      [self.weight_decay] * len(leaves), skip=skip)
+        _advance(state.count, skip)
 
 
 class Adagrad(_Optimizer):
@@ -141,18 +169,20 @@ class Adagrad(_Optimizer):
         self.initial_accumulator_value = float(initial_accumulator_value)
 
     def init(self, params: PyTree) -> AdagradState:
-        return AdagradState(count=0, sum_of_squares=tree_map(
+        return AdagradState(count=_count(params), sum_of_squares=tree_map(
             lambda p: torch.full_like(p, self.initial_accumulator_value), params))
 
     @torch.no_grad()
-    def step(self, params: PyTree, grads: List[torch.Tensor], state: AdagradState) -> None:
-        lr = self.lr_at(state.count)
+    def step(self, params: PyTree, grads: List[torch.Tensor], state: AdagradState,
+             skip: Optional[torch.Tensor] = None) -> None:
+        neg_lr = -self.lr_at(state.count)
         for p, g, t in zip(tree_leaves(params), grads, tree_leaves(state.sum_of_squares)):
             g = g.float()
-            t.add_(g * g)
-            scale = torch.where(t > 0, torch.rsqrt(t + self.eps), torch.zeros_like(t))
-            p.add_(scale * g * -lr)
-        state.count += 1
+            t2 = t + g * g
+            scale = torch.where(t2 > 0, torch.rsqrt(t2 + self.eps), torch.zeros_like(t2))
+            p.copy_(_keep(skip, p, p + scale * g * neg_lr))
+            t.copy_(_keep(skip, t, t2))
+        _advance(state.count, skip)
 
 
 class SGD(_Optimizer):
@@ -165,17 +195,19 @@ class SGD(_Optimizer):
         self.nesterov = bool(nesterov)
 
     def init(self, params: PyTree) -> SGDState:
-        return SGDState(count=0, trace=tree_map(torch.zeros_like, params))
+        return SGDState(count=_count(params), trace=tree_map(torch.zeros_like, params))
 
     @torch.no_grad()
-    def step(self, params: PyTree, grads: List[torch.Tensor], state: SGDState) -> None:
-        lr = self.lr_at(state.count)
+    def step(self, params: PyTree, grads: List[torch.Tensor], state: SGDState,
+             skip: Optional[torch.Tensor] = None) -> None:
+        neg_lr = -self.lr_at(state.count)
         for p, g, tr in zip(tree_leaves(params), grads, tree_leaves(state.trace)):
             g = g.float()
-            tr.mul_(self.momentum).add_(g)
-            u = g + self.momentum * tr if self.nesterov else tr
-            p.add_(u * -lr)
-        state.count += 1
+            tr2 = tr * self.momentum + g
+            u = g + self.momentum * tr2 if self.nesterov else tr2
+            p.copy_(_keep(skip, p, p + u * neg_lr))
+            tr.copy_(_keep(skip, tr, tr2))
+        _advance(state.count, skip)
 
 
 def build_optimizer(opt_type: Optional[str], params_cfg: Optional[Dict[str, Any]] = None,

@@ -20,7 +20,8 @@ Everything is opt-in via the ``telemetry`` config section
 config constructs nothing — the engine holds ``telemetry=None`` and pays
 only a None check per step. ``telemetry.introspection.enabled`` (the HLO
 cost / MFU analyzer) is not ported (ROADMAP queue 1 item 15) and raises.
-The training engine's telemetry hooks are ROADMAP queue 1 item 6b.
+The training engine records its sampled steps (``train_step`` records)
+and drives the watchdog from ``train_batch``.
 """
 
 from __future__ import annotations

@@ -19,10 +19,10 @@ Detectors
   its expected budget (``straggler_factor`` × max_new_tokens × EMA decode
   step time) — see ``ServingEngine.step``.
 
-The serving engine drives the straggler detector; the training engine's
-hooks (``nan_check``, ``observe_step`` in ``train_batch``) are not ported
-yet (ROADMAP queue 1 item 6b), so ``observe_step`` runs only when a caller
-drives it.
+The serving engine drives the straggler detector; the training engine
+calls ``observe_step`` in ``train_batch`` with the step's loss, gradient
+norm and time on the ``check_every`` cadence, and with the in-step
+``anomaly_flags`` (``nan_check``) every step.
 
 On trip
 -------

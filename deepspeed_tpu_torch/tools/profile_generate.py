@@ -8,8 +8,10 @@ Usage, on a machine with one CUDA card, from the repository root:
 Builds the model in bf16 with random weights, runs
 ``InferenceEngine.generate`` twice to warm up (kernel build, cuBLAS
 handles, allocator; the first call runs the generate entry's programs
-eagerly, the second captures them as CUDA graphs), then once more under
-``torch.profiler``, replaying the graphs. Prints the device time by kernel
+eagerly, the second captures them as CUDA graphs), then under
+``torch.profiler`` once, a marker kernel and the profiled call, replaying
+the graphs (the numbers are the device events after the marker: the
+trace's start loses records). Prints the device time by kernel
 (the ``--top`` largest), the contiguous decode kernel's share and its time
 per decode step, the device's busy and idle shares of the profiled call's
 wall time, the entry's graphs and their capture ms, each program kernel's
@@ -32,16 +34,19 @@ import torch
 
 from deepspeed_tpu_torch.ops.launches import LAUNCHES
 from deepspeed_tpu_torch.utils import graphs
-from deepspeed_tpu_torch.utils.profiling import device_time, traced_launches
+from deepspeed_tpu_torch.utils.profiling import MARKER, device_time, mark, traced_launches
 
 
 def profile_generate(eng, ids, new: int, eager: bool = False, **sampling) -> dict:
     """Two warm-up calls of ``eng.generate(ids, max_new_tokens=new,
-    **sampling)``, then one under ``torch.profiler`` → the numbers of the
-    JSON line (device time by kernel in ``by_name``, µs; ``traced``: each
-    program kernel's events in the trace against the launches counted in
-    the profiled call, ``utils.profiling.traced_launches``). ``eager``
-    builds the entry's programs uncaptured."""
+    **sampling)``, then under ``torch.profiler`` a third, the marker and
+    the profiled call → the numbers of the JSON line, from the device
+    events after the marker (the trace's start loses records:
+    ``utils/profiling.py``): device time by kernel in ``by_name``, µs;
+    ``traced``: each program kernel's events in the trace against the
+    launches counted in the profiled call,
+    ``utils.profiling.traced_launches``. ``eager`` builds the entry's
+    programs uncaptured."""
     from torch.profiler import ProfilerActivity, profile
 
     prev, graphs._EAGER = graphs._EAGER, eager
@@ -49,8 +54,11 @@ def profile_generate(eng, ids, new: int, eager: bool = False, **sampling) -> dic
         for _ in range(2):
             eng.generate(ids, max_new_tokens=new, **sampling)
         torch.cuda.synchronize()
-        before = dict(LAUNCHES)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            eng.generate(ids, max_new_tokens=new, **sampling)
+            torch.cuda.synchronize()
+            before = dict(LAUNCHES)
+            mark()
             t0 = time.perf_counter()
             eng.generate(ids, max_new_tokens=new, **sampling)
             torch.cuda.synchronize()
@@ -59,12 +67,12 @@ def profile_generate(eng, ids, new: int, eager: bool = False, **sampling) -> dic
         graphs._EAGER = prev
     launched = {k: n - before.get(k, 0) for k, n in LAUNCHES.items()}
     progs = [p for entry in eng._generate_cache.values() for p in entry.programs]
-    by_name, busy_us = device_time(prof)
+    by_name, busy_us = device_time(prof, since=MARKER)
     return {"wall_s": wall_s, "by_name": by_name, "device_busy_s": busy_us / 1e6,
             "idle_share": 1 - busy_us / 1e6 / wall_s, "eager": eager,
             "graphs": sum(p.graph is not None for p in progs),
             "capture_ms": sum(p.capture_ms or 0.0 for p in progs),
-            "traced": traced_launches(prof, launched)}
+            "traced": traced_launches(prof, launched, since=MARKER)}
 
 
 def main(argv=None) -> int:

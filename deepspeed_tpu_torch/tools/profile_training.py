@@ -27,10 +27,13 @@ WarmupLR, one seeded batch repeated, random weights):
 ``--timed N`` times N steps without the profiler instead (each closed by a
 sync; the median, as ``chip_smoke.py`` reports step ms): run this file by
 path with an older tree first on ``PYTHONPATH`` to time that tree, older
-and newer alternating in one call.
+and newer alternating in one call. ``--eager`` runs the training step's
+program uncaptured (``utils/graphs.py``'s private switch), the A/B against
+the captured step (an older tree's training step is eager either way).
 
-Two steps warm up (kernel build, cuBLAS handles, allocator), then two run
-under ``torch.profiler``. Prints the device time by kernel (the 12
+Two steps warm up (kernel build, cuBLAS handles, allocator; the first
+runs the step eagerly, the second captures it), then two run under
+``torch.profiler``. Prints the device time by kernel (the 12
 largest), the attention and optimizer kernels' shares, and the device's
 busy and idle shares of the profiled wall time, then one JSON line with the same numbers.
 The profiler's own host overhead lengthens the wall time, so the idle share
@@ -51,7 +54,9 @@ import time
 import numpy as np
 import torch
 
-from deepspeed_tpu_torch.utils.profiling import device_time
+from deepspeed_tpu_torch.ops.launches import LAUNCHES
+from deepspeed_tpu_torch.utils.profiling import (MARKER, TRAINING_KERNEL_EVENTS, device_time,
+                                                 mark, traced_launches)
 
 # the attention kernels of each path, by the names their launches carry
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "flash_bwd_prep", "flash_delta")
@@ -175,6 +180,26 @@ def profile_steps(engine, batch, steps: int, top: int = 12,
     }
 
 
+def traced_step(engine, batch) -> list:
+    """Each training kernel's events in a ``torch.profiler`` trace of one
+    step against the launches counted over that step (a replay adds its
+    capture's count): ``utils.profiling.traced_launches``, counted after
+    the marker that follows a first, uncounted step (the trace's start
+    loses records: ``utils/profiling.py``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        engine.train_batch(batch)
+        torch.cuda.synchronize()
+        before = dict(LAUNCHES)
+        mark()
+        engine.train_batch(batch)
+        torch.cuda.synchronize()
+    launched = {k: n - before.get(k, 0) for k, n in LAUNCHES.items()}
+    return traced_launches(prof, launched, TRAINING_KERNEL_EVENTS, since=MARKER)
+
+
 def print_profile(p: dict) -> None:
     print(f"profiled {p['steps']} steps: wall {p['wall_s']:.4f} s, device busy "
           f"{p['device_busy_s']:.4f} s, idle share {p['idle_share']:.4f} (an upper bound: the "
@@ -198,6 +223,8 @@ def main(argv=None) -> int:
     ap.add_argument("--dropout", type=float, default=0.0, help="GPT-2's dropout rate")
     ap.add_argument("--timed", type=int, default=0,
                     help="time this many steps without the profiler instead")
+    ap.add_argument("--eager", action="store_true",
+                    help="run the training step uncaptured (the A/B against the graph)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_training: needs a CUDA device", file=sys.stderr)
@@ -214,6 +241,10 @@ def main(argv=None) -> int:
             raise SystemExit("profile_training: --dropout applies to GPT-2")
         module = gpt2.make_module(dataclasses.replace(cfg, dropout=args.dropout))
     eng, *_ = dtt.initialize(model=module, config=conf, seed=0)
+    if args.eager:
+        from deepspeed_tpu_torch.utils import graphs
+
+        graphs._EAGER = True  # the programs built below run uncaptured
     for _ in range(2):
         eng.train_batch(batch)
     if args.timed:
@@ -226,6 +257,7 @@ def main(argv=None) -> int:
             step_s.append(time.perf_counter() - t0)
         print(json.dumps({"device": torch.cuda.get_device_name(0), "model": args.model,
                           "sparse": args.sparse, "dropout": args.dropout,
+                          "eager": args.eager,
                           "package": dtt.__file__,
                           "step_ms_median": statistics.median(step_s) * 1e3,
                           "step_ms": [x * 1e3 for x in step_s]}))

@@ -1,19 +1,29 @@
 """Compiled programs on the card: captured CUDA graphs over static buffers.
 
-The JAX package never runs its inference paths op by op: ``generate`` is
-one compiled executable per key (``deepspeed_tpu/inference/engine.py``
-``_generate_cache``) and the serving engine runs a fixed, config-derived
-set of compiled programs (``deepspeed_tpu/serving/scheduler.py``
-``ServingEngine.executables``). Here each such executable is a
-:class:`CapturedProgram`: a step function and the static buffers it reads
-and writes.
+The JAX package never runs its paths op by op: ``generate`` is one
+compiled executable per key (``deepspeed_tpu/inference/engine.py``
+``_generate_cache``), the serving engine runs a fixed, config-derived set
+of compiled programs (``deepspeed_tpu/serving/scheduler.py``
+``ServingEngine.executables``), and the training engine jits one step
+program and one eval program (``deepspeed_tpu/runtime/engine.py``
+``_train_step``, ``_eval_step``; ``InferenceEngine.forward`` jits
+``apply_fn``). Here each such executable is a :class:`CapturedProgram`: a
+step function and the static buffers it reads and writes. A training
+step is one program too: the forward passes, ``torch.autograd.grad`` over
+the micro-batches, the unscale, the overflow flag, the norm, the clipping,
+the optimizer's update and the loss-scale transition, all captured in one
+graph whose scalars (the scale, the counts, the learning rate, the skip
+flag, the dropout keys) live in device memory.
 
-- Inputs: :class:`StaticInputs`, named int32 arrays packed in one device
-  tensor. The host writes a staging copy (pinned memory on the card) and
-  each call refills the device tensor by one asynchronous copy.
+- Inputs: :class:`StaticInputs`, named arrays (int32 unless another dtype
+  is given) packed in one device buffer. The host writes a staging copy
+  (pinned memory on the card) and each call refills the device buffer by
+  one asynchronous copy.
 - Outputs: what the step function returns when it is captured, rewritten
-  by every replay (read them before the next call), plus whatever state
-  the function updates in place (KV caches, positions, token buffers).
+  by every replay (read them before the next call, or build the program
+  with ``copy_outputs`` to get fresh copies), plus whatever state the
+  function updates in place (KV caches, positions, token buffers; a
+  training step's parameters, optimizer state and loss scale).
 
 On a CUDA device the first call runs the step function eagerly on the
 program's capture stream: the warm-up, a real step, in which the kernels'
@@ -27,7 +37,8 @@ records the registry's increase during the capture, restores it (a capture
 launches nothing) and adds the increase on every replay: the counts equal
 an eager run's. A graph reads its buffers by address, so tensors that a
 cache of the ops hands to the step function (the device scalars of
-``ops/prng.py``, the kernels' split scratch) are passed through
+``ops/prng.py``, the kernels' split scratch, the block-sparse index lists
+and schedules) are passed through
 :func:`hold` and the program keeps them for its lifetime: a cache that
 drops or replaces one frees nothing a graph still reads.
 :meth:`CapturedProgram.free` releases the graph, its pool and what it
@@ -51,8 +62,9 @@ from __future__ import annotations
 
 import math
 import time
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from ..ops.launches import LAUNCHES
@@ -85,28 +97,41 @@ def capture_stream(device: torch.device) -> "torch.cuda.Stream":
     return s
 
 
-class StaticInputs:
-    """A program's inputs: named int32 arrays of fixed shapes in one device
-    tensor (each 16-byte aligned), with a host staging copy of the same
-    layout (pinned on the card). Write the arrays of :meth:`staging`, then
-    :meth:`upload` copies all of them in one asynchronous copy; ``dev``
-    holds the device views the step function reads."""
+# the dtypes a staging array can take (numpy's views of the pinned buffer)
+_NP_DTYPES = {torch.int32: np.int32, torch.int64: np.int64, torch.float32: np.float32,
+              torch.float64: np.float64, torch.float16: np.float16, torch.uint8: np.uint8,
+              torch.int8: np.int8, torch.int16: np.int16, torch.bool: np.bool_}
 
-    def __init__(self, shapes: Dict[str, Tuple[int, ...]], device):
+
+class StaticInputs:
+    """A program's inputs: named arrays of fixed shapes in one device
+    buffer (each 16-byte aligned), with a host staging copy of the same
+    layout (pinned on the card). ``shapes`` maps a name to a shape (int32)
+    or to ``(shape, dtype)``. Write the arrays of :meth:`staging` (numpy
+    views), then :meth:`upload` copies all of them in one asynchronous
+    copy; ``dev`` holds the device views the step function reads."""
+
+    def __init__(self, shapes: Dict[str, Any], device):
         self.device = torch.device(device)
         cuda = self.device.type == "cuda"
         spans, n = {}, 0
-        for name, shape in shapes.items():
-            size = math.prod(shape)
-            spans[name] = (n, size, tuple(shape))
-            n += -(-size // 4) * 4
-        self._dev = torch.zeros(n, dtype=torch.int32, device=self.device)
-        self._host = torch.zeros(n, dtype=torch.int32, pin_memory=cuda)
+        for name, spec in shapes.items():
+            shape, dtype = ((spec[0], spec[1]) if len(spec) == 2
+                            and isinstance(spec[1], torch.dtype) else (spec, torch.int32))
+            if dtype not in _NP_DTYPES:
+                raise TypeError(f"StaticInputs: {name} has dtype {dtype} (one of "
+                                f"{sorted(map(str, _NP_DTYPES))})")
+            shape = tuple(int(d) for d in shape)
+            nbytes = math.prod(shape) * dtype.itemsize
+            spans[name] = (n, nbytes, shape, dtype)
+            n += -(-nbytes // 16) * 16
+        self._dev = torch.zeros(max(n, 16), dtype=torch.uint8, device=self.device)
+        self._host = torch.zeros(max(n, 16), dtype=torch.uint8, pin_memory=cuda)
         flat = self._host.numpy()
-        self._arrays = {name: flat[o:o + size].reshape(shape)
-                        for name, (o, size, shape) in spans.items()}
-        self.dev = {name: self._dev[o:o + size].view(shape)
-                    for name, (o, size, shape) in spans.items()}
+        self._arrays = {name: flat[o:o + nb].view(_NP_DTYPES[dt]).reshape(shape)
+                        for name, (o, nb, shape, dt) in spans.items()}
+        self.dev = {name: self._dev[o:o + nb].view(dt).view(shape)
+                    for name, (o, nb, shape, dt) in spans.items()}
         self._copy = None
 
     def staging(self):
@@ -126,18 +151,31 @@ class StaticInputs:
             self._copy.record(torch.cuda.current_stream(self.device))
 
 
+def _clone(out):
+    if isinstance(out, torch.Tensor):
+        return out.clone()
+    if isinstance(out, dict):
+        return {k: _clone(v) for k, v in out.items()}
+    if isinstance(out, (tuple, list)):
+        return type(out)(_clone(v) for v in out)
+    return out
+
+
 class CapturedProgram:
     """One compiled program: ``fn()`` → outputs, over static buffers the
     closure holds (``inputs``' device views among them), captured on the
     card (module docstring), run directly on the CPU. Call it after
     writing the inputs' staging arrays; it uploads them (a program without
-    host inputs uploads nothing) and runs one step."""
+    host inputs uploads nothing) and runs one step. ``copy_outputs``: a
+    replay returns copies of the graph's outputs (device copies, no sync),
+    which the next replay leaves alone, as a JAX call returns new arrays."""
 
     def __init__(self, name: str, fn: Callable[[], Any], device,
-                 inputs: Optional[StaticInputs] = None):
+                 inputs: Optional[StaticInputs] = None, copy_outputs: bool = False):
         self.name = name
         self.fn = fn
         self.inputs = inputs
+        self.copy_outputs = bool(copy_outputs)
         self.device = torch.device(device)
         self.captures = self.device.type == "cuda" and not _EAGER
         self.graph: Optional[torch.cuda.CUDAGraph] = None
@@ -164,7 +202,7 @@ class CapturedProgram:
         for name, n in self._delta.items():
             LAUNCHES[name] += n
         self.replays += 1
-        return self._out
+        return _clone(self._out) if self.copy_outputs else self._out
 
     def _warm_up(self):
         """One eager step on the capture stream."""

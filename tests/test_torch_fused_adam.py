@@ -227,8 +227,12 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_host_reads():
         tfa.multi_tensor_adam(p, p, z, z, 1, 1e-3)
     with pytest.raises(ValueError, match="CUDA"):
         tfa.multi_tensor_lamb(p, p, z, z, 1, 1e-3)
-    with pytest.raises(TypeError, match="Python numbers"):
+    # the step scalars are Python numbers or tensors already on the operands'
+    # device in the block's dtypes: nothing is converted or copied per update
+    with pytest.raises(TypeError, match="one-element torch.int32 tensor on cpu"):
         tfa.multi_tensor_adam_(p, p, z, z, torch.tensor(1), 1e-3)
+    with pytest.raises(TypeError, match="one-element torch.float32 tensor on cpu"):
+        tfa.multi_tensor_adam_(p, p, z, z, 1, torch.tensor(1e-3, dtype=torch.float64))
     with pytest.raises(ValueError, match="shapes"):
         tfa.multi_tensor_adam_(p, [torch.ones(5)], z, z, 1, 1e-3)
     with pytest.raises(ValueError, match="mode"):
@@ -236,10 +240,13 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_host_reads():
 
 
 def test_bias_corrections_are_optax_f32():
-    """f32 bias corrections: equal to optax's at the first steps; later
-    within 1e-5 relative (XLA's f32 pow and torch's round b**t differently
-    by an ulp or two of b**t, which 1 - b**t magnifies)."""
-    for t in (1, 2, 10, 1000):
-        got = tfa.bias_corrections((0.9, 0.999), t)
-        want = [float(1 - b ** jnp.asarray(t, jnp.int32)) for b in (0.9, 0.999)]
-        assert got == pytest.approx(want, rel=1e-5 if t > 2 else 0, abs=0)
+    """f32 bias corrections, now the device block's (1 - b^t from the int32
+    device count): equal to optax's at the first steps; over 2000 steps
+    within 1e-6 relative (XLA's f32 pow and torch's round b**t apart by an
+    ulp at a few counts, which 1 - b**t magnifies)."""
+    bc = jax.jit(lambda c: jnp.stack([1 - 0.9 ** c, 1 - 0.999 ** c]))
+    for t in [1, 2] + list(range(3, 2001, 7)):
+        got = tfa.device_block(torch.tensor(t, dtype=torch.int32), 1.0, None, (0.9, 0.999),
+                               "cpu")[1:3].numpy()
+        np.testing.assert_allclose(got, np.asarray(bc(jnp.int32(t))),
+                                   rtol=1e-6 if t > 2 else 0, atol=0)

@@ -432,9 +432,23 @@ def test_refusals_name_their_roadmap_item():
                                            "watchdog": {"enabled": True, "policy": "rollback"}})
     with pytest.raises(NotPortedError, match="item 8"):
         twatchdog.AnomalyWatchdog(jconfig.WatchdogConfig(enabled=True, policy="rollback"))
-    with pytest.raises(NotPortedError, match="item 6b"):
+    # the training config takes the section (item 6b landed) and refuses
+    # what stays unported in it, and the monitor backends (item 14)
+    cfg = tconfig.DeepSpeedConfig.from_dict({"train_batch_size": 8,
+                                             "telemetry": {"enabled": True, "sample_every": 3},
+                                             "wall_clock_breakdown": True,
+                                             "memory_breakdown": True})
+    assert cfg.telemetry.enabled and cfg.telemetry.sample_every == 3
+    assert cfg.wall_clock_breakdown and cfg.memory_breakdown
+    with pytest.raises(NotPortedError, match="item 8"):
+        tconfig.DeepSpeedConfig.from_dict({"train_batch_size": 8, "telemetry": {
+            "enabled": True, "watchdog": {"enabled": True, "policy": "rollback"}}})
+    with pytest.raises(NotPortedError, match="item 15"):
+        tconfig.DeepSpeedConfig.from_dict({"train_batch_size": 8, "telemetry": {
+            "enabled": True, "introspection": {"enabled": True}}})
+    with pytest.raises(NotPortedError, match="item 14"):
         tconfig.DeepSpeedConfig.from_dict({"train_batch_size": 8,
-                                           "telemetry": {"enabled": True}})
+                                           "tensorboard": {"enabled": True}})
     # an off section is accepted by the training config, and the fleet stays refused
     tconfig.DeepSpeedConfig.from_dict({"train_batch_size": 8, "telemetry": {"enabled": False}})
     with pytest.raises(NotPortedError, match="fleet"):

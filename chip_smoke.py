@@ -197,7 +197,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      bucket, one cache entry), 128 new tokens, greedy and sampled: tokens
      identical, launches exact and equal (decode 24 x 127, uniform_rows 128
      sampled), ms a generated token and tokens/s each side, the graphs'
-     capture ms, the device's idle share each side (profile_generate); the
+     capture ms, the device's idle share each side (profile_generate over
+     a 32-token call: the profiler's processing of the eager call set
+     this phase's pace on a slow host, 6.2 min of 1071 s); the
      LRU at generate_cache_size 2 driven as TestGenerateCacheLRU drives it,
      then one more call, whose eviction must give back the evicted KV
      cache's bytes (memory_allocated); then phases 3, 3b, 3c and 20's
@@ -208,7 +210,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      side; profile_serving's 3c and sampled traffic captured) each
      program kernel's events in torch.profiler's
      trace must equal the launches counted over the same run (decode 24 x
-     127 a generate call, and so on). Every phase before it
+     31 in the profiled generate call, and so on). Every phase before it
      runs the captured programs (phase 4's fp32 card runs among them, card
      against CPU), with each number beside the card's name and power limit.
   22 the telemetry plane on the serving path (deepspeed_tpu_torch/telemetry):
@@ -246,7 +248,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      step each training kernel's events in the trace equal the launches
      counted);
      fp16 with a dynamic scale from 2^19 and hysteresis 1 at gpt2-medium
-     width, 4 layers, micro 1 x S32 (6 steps): the overflow steps
+     width, 2 layers, micro 1 x S32 (6 steps): the overflow steps
      skipped on the same steps captured and eager, and on the CPU through
      the first applied step; fp32 at gpt2-medium width, 4
      layers with dropout 0.1 and AdamW, and bert-large 4 layers
@@ -264,7 +266,41 @@ Phases, in order; any failure raises and the script exits non-zero:
      jit_step_cache_size 1, step_seconds, throughput), no anomaly; then
      the plane's cost a step: an engine with it off and one with it on
      step in lockstep (off / on, then on / off), medians of each.
-  8  (last, after 24) one JSON line of per-kernel numbers, every kernel and
+  25 the host KV tier on the serving path (serving/tiering.py): gpt2-medium
+     bf16, captured, 3b's features at 4 slots, over 3 rounds of 16
+     requests (4 distinct 256-token system prompts, each re-hit by 4
+     requests with tails of 8-128 tokens a round, budgets 16-64): a roomy
+     512-page pool without the tier (the reference), a 128-page pool with
+     it (host budget 256 pages; LRU demotes each idle prompt's chain while
+     the next is served, and the next round restores it through the
+     serving_kv_restore program) and the 128-page pool without it (the
+     prefixes recomputed): the tiered streams equal the reference's,
+     launches exact (decode n_layer x (k+1) x verify steps, multitoken
+     n_layer x chunk calls) in every run, spills at least half the
+     traffic's distinct prefix pages, restores > 0, no crc failure,
+     len(executables) == expected_executables == 4 with the restore
+     program, the heat ledger reconciled with the allocator, the index and
+     the host store at drain, check_no_leaks across both tiers; one
+     corrupted host buffer a cold miss with the same stream. The same with
+     int8 pages (codes and scales spill). Prints the restore's device ms a
+     page (CUDA events around the call) and wall ms, the bytes a page,
+     TTFT p50 of restored hits beside recomputed prefixes', decode tokens/s
+     and TPOT p50 beside phase 3b's.
+  26 resilience (resilience/, checkpoint/, elasticity/preemption.py):
+     phase 6's training captured, 4 steps, a resilient async save at step
+     2, then a new engine whose step program is captured first loads the
+     tag and replays steps 3-4: losses and every state leaf equal the
+     uninterrupted run bit for bit, the state tensors the same objects;
+     the snapshot's step-path ms, the write's seconds and GB/s (crc32 and
+     fsync) and the load's seconds. At gpt2-medium width, 2 layers, micro
+     2 x S256: crash_saves leaves the previous tag loadable bit for bit; a
+     corrupted newest tag walks back; nan_loss under the watchdog's
+     rollback equals the clean run without the poisoned batch bit for bit;
+     SIGTERM through a PreemptionGuard checkpoints and the resume is equal.
+     Then phase 3's traffic with serving_stall at admissions 1, 6 and 11
+     and retry_max 2: every request finished with the clean stream,
+     retried 3, no leaks.
+  8  (last, after 26) one JSON line of per-kernel numbers, every kernel and
      mode with its launches on the path that ported it (the block-sparse
      kernels: phase 11's, and the three at blocks 16/32 at BERT's shape
      with phase 12's; fused AdamW: phase 6's; fused LAMB: phase 15's;
@@ -1805,9 +1841,11 @@ def captured_programs_phase(smi):
           f"{len(progs)} graphs, capture ms " + ", ".join(
               f"{p.name} {p.capture_ms:.1f}" for p in progs)
           + f"; replays {sum(p.replays for p in progs)}")
-    # idle share of the device, each side (profile_generate, B8 128 + 128)
+    # idle share of the device, each side (profile_generate, B8 128 + 32:
+    # the profiler's processing of an eager call's events sets the pace
+    # on a slow host, so the profiled call is 32 tokens long)
     idle = {side: until_traced(lambda e=e, side=side: profile_generate(
-        e, ids, new, eager=side == "eager")) for side, e in engines.items()}
+        e, ids, 32, eager=side == "eager")) for side, e in engines.items()}
     print("generate under torch.profiler: " + "; ".join(
         f"{side} wall {r['wall_s'] * 1e3:.1f} ms, device busy {r['device_busy_s'] * 1e3:.1f} "
         f"ms, idle share {r['idle_share']:.3f}, {r['graphs']} graphs"
@@ -2357,23 +2395,25 @@ def captured_training_phase(smi):
     # overflow and are skipped (the scale halves each time), on the same
     # steps captured, eager and on the CPU. A CPU without half-precision
     # GEMMs runs the fp16 products slowly (20-50 s a step at 32 tokens), so
-    # the rows are short and the CPU side runs through the card's first
-    # applied step.
+    # the rows are short, the depth 2 layers, and the CPU side runs through
+    # the card's first applied step.
     cfg4 = gpt2.get_config("gpt2-medium", n_layer=4)
-    _, tree4 = four_layer_tree(seed=11)
+    cfg2 = gpt2.get_config("gpt2-medium", n_layer=2)
+    tree2 = params_to_numpy(gpt2.init_params(
+        cfg2, torch.Generator(device="cuda").manual_seed(11), "cuda", torch.float32))
     batch16 = {"input_ids": np.random.RandomState(16).randint(
         0, cfg4.vocab_size, (1, 32)).astype(np.int32)}
     conf16 = train_config(micro=1, gas=1)
     conf16.pop("bf16")
     conf16["fp16"] = {"enabled": True, "loss_scale": 0, "initial_scale_power": 19,
                       "hysteresis": 1}
-    label = "fp16 dynamic (2^19, hysteresis 1), gpt2-medium width, 4 layers, micro 1 x S32"
+    label = "fp16 dynamic (2^19, hysteresis 1), gpt2-medium width, 2 layers, micro 1 x S32"
 
     def through_first_applied(out):
         flags = out["captured"]["flags"]
         return min(len(flags), (flags.index(False) + 1) if False in flags else len(flags))
 
-    res = train_sides(label, gpt2.make_module(cfg4), conf16, batch16, 6, tree=tree4,
+    res = train_sides(label, gpt2.make_module(cfg2), conf16, batch16, 6, tree=tree2,
                       sides=("eager", "captured", "cpu"), cpu_steps=through_first_applied)
     compare_sides(label, res, bitwise=False, smi=smi)
     flags, cpu_flags = res["captured"]["flags"], res["cpu"]["flags"]
@@ -2396,6 +2436,7 @@ def captured_training_phase(smi):
     # parameters (phase 18's dropout run; a 4-layer bert-large sparse LAMB)
     conf32 = train_config(micro=2, gas=2)
     conf32.pop("bf16")
+    _, tree4 = four_layer_tree(seed=11)
     batch18 = {"input_ids": np.random.RandomState(7).randint(
         0, cfg4.vocab_size, (4, 256)).astype(np.int32)}  # phase 18's batch
     cfg18 = gpt2.get_config("gpt2-medium", n_layer=4, dropout=0.1)
@@ -2525,6 +2566,466 @@ def training_telemetry_phase(smi, steps=6):
         gc.collect()
         torch.cuda.empty_cache()
     return ms
+
+
+# ---------------------------------------------------------------------------
+# phase 25-26 helpers: the host KV tier and the resilience plane
+# ---------------------------------------------------------------------------
+
+def tier_rounds(vocab, seed, rounds=3, n_prompts=4, per_prompt=4, system_len=256,
+                tails=(8, 128), budgets=(16, 64)):
+    """Phase 25's traffic, 3b's shape: ``n_prompts`` distinct
+    ``system_len``-token system prompts, each re-hit in every round by
+    ``per_prompt`` requests (the prompt + a tail of its own), grouped by
+    prompt, so the pool serves the prompts in turn → [[(prompt, budget)]]
+    a round, drawn from ``seed``."""
+    rs = np.random.RandomState(seed)
+    systems = [rs.randint(0, vocab, system_len) for _ in range(n_prompts)]
+    out = []
+    for _ in range(rounds):
+        rnd = []
+        for system in systems:
+            for _ in range(per_prompt):
+                tail = rs.randint(0, vocab, int(rs.randint(tails[0], tails[1] + 1)))
+                rnd.append((np.concatenate([system, tail]).astype(np.int32),
+                            int(rs.randint(budgets[0], budgets[1] + 1))))
+        out.append(rnd)
+    return out
+
+
+def prefix_page_count(rounds, page):
+    """The distinct full prompt pages of the traffic: what the prefix index
+    registers over the run (one chain key a page)."""
+    keys = set()
+    for rnd in rounds:
+        for prompt, _ in rnd:
+            parent = None
+            for j in range(len(prompt) // page):
+                parent = (parent, tuple(int(t) for t in prompt[j * page:(j + 1) * page]))
+                keys.add(parent)
+    return len(keys)
+
+
+def serve_rounds(srv, rounds, kernels, n_layer, spec_k, label):
+    """Serve each round to its end (``run()``), then the next → (streams,
+    stats, requests a round). Every request finishes with its budget;
+    the kernels' launches are reset before and read after, and must equal
+    n_layer x the calls of the programs that launch them."""
+    for k in kernels:
+        LAUNCHES[k] = 0
+    reqs = []
+    t0 = time.perf_counter()
+    for r, rnd in enumerate(rounds):
+        subs = [srv.submit(p, max_new_tokens=b, seed=100 * r + i) for i, (p, b) in enumerate(rnd)]
+        srv.run()
+        reqs.append(subs)
+    sync()
+    wall = time.perf_counter() - t0
+    st = dict(exact_stats(srv), wall_s=wall)
+    dec, mt = (LAUNCHES[k] for k in kernels)
+    for subs, rnd in zip(reqs, rounds):
+        for req, (_, budget) in zip(subs, rnd):
+            check(req.status == RequestStatus.FINISHED and len(req.tokens) == budget,
+                  f"{label}: request {req.id}: {req.status} {req.detail}, {len(req.tokens)} of "
+                  f"{budget} tokens")
+    check(dec > 0 and mt > 0 and dec == n_layer * (spec_k + 1) * st["spec_steps"]
+          and mt == n_layer * st["chunk_prefills"],
+          f"{label}: launches decode {dec}, multitoken {mt}; verify steps {st['spec_steps']}, "
+          f"chunk calls {st['chunk_prefills']}")
+    streams = [[list(q.tokens) for q in subs] for subs in reqs]
+    return streams, dict(st, launches=(dec, mt)), reqs
+
+
+def sync():
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def host_tier_phase(smi, ref_3b=None, model="gpt2-medium", dtype=torch.bfloat16, device=None,
+                    overrides=None, tight_pages=128, host_pages=256):
+    """Phase 25: gpt2-medium bf16, captured, with the prefix cache and the
+    host tier on. The same rounds served by a roomy pool without the tier
+    (the reference), by a tight pool with it (LRU demotes each prompt's
+    idle chain while the others are served, and the next round restores
+    it) and by the tight pool without it (the prefix recomputed): the
+    tiered streams equal the reference's, launches per program equal, the
+    spills at least half the traffic's prefix pages, restores > 0,
+    len(executables) == expected_executables with the restore program, no
+    leaks at drain across the allocator, the index, the host store and the
+    heat ledger; the same with int8 pages (codes and scales spill); one
+    corrupted host buffer is a cold miss with the same stream. Prints the
+    restore's device and wall ms a page, the bytes a page, TTFT p50 of a
+    restored hit beside a recomputed prefix's, and decode tokens/s and
+    TPOT p50 beside phase 3b's. → (the paged decode and multi-token
+    launches of the tiered bf16 run, of the int8 one)."""
+    from deepspeed_tpu_torch.telemetry.kv_heat import KVHeatTracer
+
+    cfg = gpt2.get_config(model, **(overrides or {}))
+    eng = dtt.init_inference(cfg, dtype=dtype, seed=0, device=device)
+    spec_k = FEATURES_SECTION["speculative"]["k"]
+    page = FEATURES_SECTION["page_size"]
+    rounds = tier_rounds(cfg.vocab_size, seed=2525)
+    n_prefix = prefix_page_count(rounds, page)
+    tiered = {"enabled": True, "host_budget_pages": host_pages}
+    out = {}
+    for kv in ("bf16", "int8"):
+        # 4 slots: one prompt's requests at a time, so an idle prompt's
+        # chain is the index's LRU when the next prompt's admissions need
+        # pages (held only by the index, it demotes rather than drops)
+        base = dict(FEATURES_SECTION, max_slots=4,
+                    **({"kv_cache_dtype": "int8"} if kv == "int8" else {}))
+        kernels = (K_PAGED8, K_MT8) if kv == "int8" else (K_PAGED, K_MT)
+        ref, st_ref, ref_reqs = serve_rounds(eng.serve(base), rounds, kernels, cfg.n_layer,
+                                             spec_k, f"phase 25 {kv} roomy, no tier")
+        with tempfile.TemporaryDirectory(prefix="kv-tier-") as root:
+            heat = KVHeatTracer(os.path.join(root, "heat.jsonl"))
+            srv = eng.serve(dict(base, num_pages=tight_pages, tiering=tiered), heat_tracer=heat)
+            tier = srv.tiering
+            # measurement hooks: each restore's device span (CUDA events
+            # around the program call) and wall time, and the requests
+            # whose admission restored pages
+            spans, restored_ids = [], set()
+            restore_exec, prefetch = tier._restore_exec, srv._tier_prefetch
+
+            def timed_restore(k, v, s, pid):
+                ev = ((torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                      if srv.device.type == "cuda" else None)
+                t0 = time.perf_counter()
+                if ev:
+                    ev[0].record()
+                restore_exec(k, v, s, pid)
+                if ev:
+                    ev[1].record()
+                spans.append((ev, time.perf_counter() - t0))
+
+            def traced_prefetch(req, now):
+                n = tier.restores
+                busy = prefetch(req, now)
+                if tier.restores > n:
+                    restored_ids.add(req.id)
+                return busy
+
+            tier._restore_exec, srv._tier_prefetch = timed_restore, traced_prefetch
+            got, st, reqs = serve_rounds(srv, rounds, kernels, cfg.n_layer, spec_k,
+                                         f"phase 25 {kv} tiered")
+            ts = st["kv_tiering"]
+            check(got == ref, f"phase 25 {kv}: tiered streams differ from the reference in "
+                  f"{sum(a != b for ra, rb in zip(got, ref) for a, b in zip(ra, rb))} requests")
+            check(ts["spills"] >= n_prefix / 2 and ts["restores"] > 0 and ts["crc_failures"] == 0
+                  and ts["restore_misses"] == 0,
+                  f"phase 25 {kv}: spills {ts['spills']} (prefix pages {n_prefix}), restores "
+                  f"{ts['restores']}, misses {ts['restore_misses']}, crc {ts['crc_failures']}")
+            check(len(srv.executables) == srv.expected_executables == 4
+                  and srv.executables[-1].name.startswith("serving_kv_restore"),
+                  f"phase 25 {kv}: executables {[p.name for p in srv.executables]}, expected "
+                  f"{srv.expected_executables}")
+            per = {s: (x[0] / (cfg.n_layer * (spec_k + 1) * x[2]), x[1] / (cfg.n_layer * x[3]))
+                   for s, x in (("ref", st_ref["launches"] + (st_ref["spec_steps"],
+                                                            st_ref["chunk_prefills"])),
+                                ("tier", st["launches"] + (st["spec_steps"], st["chunk_prefills"])))}
+            check(per["ref"] == per["tier"], f"phase 25 {kv}: launches per program {per}")
+            # one corrupted host buffer: a cold miss, the same stream
+            pc, store = srv.prefix_cache, tier.store
+            victim = next((i for i, (p, _) in enumerate(rounds[0])
+                           if pc.chain_keys(p)[0] in store), None)
+            if victim is None:
+                pc.evict(keep=0)  # every chain to the host tier
+                tier.flush()
+                victim = 0
+            p0, b0 = rounds[0][victim]
+            key = pc.chain_keys(p0)[0]
+            tier.flush()
+            page_k = store.k_codes[store._entries[key].slot]
+            page_k.view({1: torch.int8, 2: torch.int16, 4: torch.int32}[page_k.element_size()]
+                        ).view(-1)[0] ^= 1  # one bit of one value
+            misses, crcs = ts["restore_misses"], ts["crc_failures"]
+            r = srv.submit(p0, max_new_tokens=b0, seed=victim)
+            srv.run()
+            ts2 = tier.stats()
+            check(list(r.tokens) == ref[0][victim] and ts2["crc_failures"] == crcs + 1
+                  and ts2["restore_misses"] >= misses + 1,
+                  f"phase 25 {kv}: corrupted buffer: tokens equal "
+                  f"{list(r.tokens) == ref[0][victim]}, crc {ts2['crc_failures']}, misses "
+                  f"{ts2['restore_misses']}")
+            srv.drain()
+            led = srv._heat_decode
+            err = led.reconcile(srv.allocator, pc, host_store=store)
+            check(err is None, f"phase 25 {kv}: heat ledger at drain: {err}")
+            srv.check_no_leaks()
+            srv.release_prefix_cache()
+            srv.allocator.check_no_leaks()
+            check(led.reconcile(srv.allocator, pc, host_store=store) is None,
+                  f"phase 25 {kv}: heat ledger after release")
+            srv.detach_heat()
+            heat.close()
+            tier.close()
+        sync()
+        dev_ms = [e[0].elapsed_time(e[1]) for e, _ in spans if e]
+        wall_ms = [w * 1e3 for _, w in spans]
+        # the requests whose admission restored pages, by (round, index)
+        restored = [(r, i) for r, subs in enumerate(reqs) for i, q in enumerate(subs)
+                    if q.id in restored_ids]
+        # the tight pool without the tier: the demoted prefixes recompute
+        off_streams, st_off, off_reqs = serve_rounds(
+            eng.serve(dict(base, num_pages=tight_pages)), rounds, kernels, cfg.n_layer, spec_k,
+            f"phase 25 {kv} tight, no tier")
+        recomputed = sum(off_reqs[r][i].prefix_shared_tokens < reqs[r][i].prefix_shared_tokens
+                         for r, i in restored)
+        same = sum(a == b for ra, rb in zip(off_streams, ref) for a, b in zip(ra, rb))
+
+        def ttft(run):
+            return (statistics.median(run[r][i].ttft_s for r, i in restored) * 1e3
+                    if restored else float("nan"))
+        print(f"{kv}: spills {ts['spills']} ({n_prefix} distinct prefix pages in the traffic), "
+              f"restores {ts['restores']}, host evictions {ts['host_evictions']}, orphan drops "
+              f"{ts['orphan_drops']}; 4 slots, pool {tight_pages} pages (roomy "
+              f"{FEATURES_SECTION['num_pages']}), host budget {host_pages} pages; launches "
+              f"decode / multitoken {st['launches']} tiered, {st_ref['launches']} roomy "
+              f"(per program equal: {per['tier']}); executables "
+              f"{len(srv.executables)}")
+        dev = statistics.median(dev_ms) if dev_ms else float("nan")
+        print(f"{kv}: restore a page: device {dev:.4f} ms (CUDA events around the call: the "
+              f"page's upload from pinned memory + the scatter; median of {len(dev_ms)}; "
+              f"{store.page_bytes / dev / 1e6:.2f} GB/s), "
+              f"wall {statistics.median(wall_ms):.4f} ms (the call, host side), "
+              f"{store.page_bytes} bytes a page ({store.page_bytes / 2**20:.3f} MiB); "
+              f"{smi}")
+        print(f"{kv}: TTFT p50 of the {len(restored)} requests whose admission restored pages: "
+              f"{ttft(reqs):.2f} ms with the tier, {ttft(off_reqs):.2f} ms the same requests "
+              f"in the tight pool without it ({recomputed} of them recomputed part of their "
+              f"prefix; its streams equal the reference's in {same} of "
+              f"{sum(len(x) for x in ref)}), {ttft(ref_reqs):.2f} ms in the roomy pool (a "
+              f"device hit); {smi}")
+        line = (f"{kv}: tiered decode tokens/s {st['decode_tokens_per_s']:.1f}, (exact) TPOT p50 "
+                f"{st['tpot']['p50_s'] * 1e3:.3f} ms; roomy without the tier "
+                f"{st_ref['decode_tokens_per_s']:.1f}, {st_ref['tpot']['p50_s'] * 1e3:.3f} ms")
+        if ref_3b is not None and kv == "bf16":
+            line += (f"; phase 3b {ref_3b['decode_tokens_per_s']:.1f}, "
+                     f"{ref_3b['tpot']['p50_s'] * 1e3:.3f} ms")
+        print(line + f"; {smi}")
+        out[kv] = st["launches"]
+    del eng
+    gc.collect()
+    return out
+
+
+def state_equal(a, b):
+    """Every state leaf of two engines equal bit for bit."""
+    sa, sb = a.state_leaves(), b.state_leaves()
+    return sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k]) for k in sa)
+
+
+def host_state(eng):
+    return {k: v.detach().cpu().clone() for k, v in eng.state_leaves().items()}
+
+
+def state_is(eng, host):
+    return all(torch.equal(v.cpu(), host[k]) for k, v in eng.state_leaves().items())
+
+
+def resilience_phase(smi, model="gpt2-medium", device=None, fault_layers=2, fault_seq=256,
+                     main_micro=8, main_seq=None, overrides=None):
+    """Phase 26: (a) phase 6's training (captured) with a resilient async
+    save at step 2 and a new engine that loads the tag after its own program
+    is captured and replays steps 3-4: losses and every state leaf equal the
+    uninterrupted run bit for bit; (b) at gpt2-medium width, 2 layers:
+    ``crash_saves`` leaves the previous tag loadable, a corrupted newest tag
+    walks back, ``nan_loss`` under the watchdog's rollback equals the clean
+    run without the poisoned batch bit for bit, SIGTERM through a
+    PreemptionGuard checkpoints and the resume is equal; (c) the serving
+    stall at retry_max 2 finishes every request with the clean stream and
+    leaks nothing. Prints the snapshot's step-path ms, the write's seconds
+    and GB/s and the load's seconds. → launches (flash forward, backward,
+    fused AdamW) of (a)."""
+    from deepspeed_tpu_torch.elasticity.preemption import PreemptionGuard
+    from deepspeed_tpu_torch.resilience import FaultInjected, FaultInjector, find_latest_valid
+    from deepspeed_tpu_torch.runtime.config import FaultInjectionConfig
+    from deepspeed_tpu_torch.serving.scheduler import ServingEngine
+
+    def engine(cfg, conf, seed=0):
+        e, _, _, _ = dtt.initialize(model=gpt2.make_module(cfg), config=conf, seed=seed,
+                                    device=device)
+        return e
+
+    def batches(cfg, rows, S, n, seed):
+        rs = np.random.RandomState(seed)
+        return [{"input_ids": rs.randint(0, cfg.vocab_size, (rows, S)).astype(np.int32)}
+                for _ in range(n)]
+
+    with tempfile.TemporaryDirectory(prefix="resilience-") as root:
+        # (a) resume at full size
+        cfg = gpt2.get_config(model, **(overrides or {}))
+        S = main_seq or cfg.n_positions
+        conf = dict(train_config(micro=main_micro, gas=2), resilience={"enabled": True})
+        bs = batches(cfg, 2 * main_micro, S, 6, seed=26)
+        e1 = engine(cfg, conf)
+        reset_flash_launches()
+        reset_optimizer_launches()
+        l1 = [float(e1.train_batch(b)["loss"]) for b in bs[:2]]
+        sync()
+        d = os.path.join(root, "resume")
+        t0 = time.perf_counter()
+        e1.save_checkpoint(d)
+        snap_ms = e1.last_snapshot_s * 1e3
+        e1.flush_checkpoints()
+        write_s = time.perf_counter() - t0 - e1.last_snapshot_s
+        writer = next(iter(e1._ckpt_writers.values()))
+        check(writer.last_error is None and writer.saves_committed == 1,
+              f"phase 26: the async save failed: {writer.last_error}")
+        # a later save's snapshot reuses the pinned buffers (the first one
+        # allocated them): the same copy again, timed alone
+        from deepspeed_tpu_torch.resilience.writer import snapshot_to_host
+
+        t0 = time.perf_counter()
+        snapshot_to_host(e1.state_leaves(), out=e1._snap_bufs)
+        resnap_ms = (time.perf_counter() - t0) * 1e3
+        nbytes = sum(v.numel() * v.element_size() for v in e1.state_leaves().values())
+        l1 += [float(e1.train_batch(b)["loss"]) for b in bs[2:4]]
+        launches = (LAUNCHES["flash_attention_fwd"], LAUNCHES["flash_attention_bwd"],
+                    LAUNCHES["fused_adamw"])
+        check(device == "cpu" or all(n > 0 for n in launches),
+              f"phase 26: launches flash / AdamW {launches}")
+        e2 = engine(cfg, conf, seed=1)
+        for b in bs[4:6]:  # its program warmed up and captured before the load
+            e2.train_batch(b)
+        prog = next(iter(e2._programs.values()))
+        check(device == "cpu" or prog.graph is not None, "phase 26: e2's step is not captured")
+        held = dict(e2.state_leaves())
+        sync()
+        t0 = time.perf_counter()
+        e2.load_checkpoint(d)
+        sync()
+        load_s = time.perf_counter() - t0
+        check(all(v is held[k] for k, v in e2.state_leaves().items()),
+              "phase 26: the load rebound state tensors")
+        replays = prog.replays
+        l2 = [float(e2.train_batch(b)["loss"]) for b in bs[2:4]]
+        check(device == "cpu" or prog.replays == replays + 2,
+              f"phase 26: the resumed steps did not replay ({prog.replays - replays})")
+        check(l2 == l1[2:] and state_equal(e1, e2),
+              f"phase 26: resumed losses {l2} against {l1[2:]}, states equal "
+              f"{state_equal(e1, e2)}")
+        print(f"resume: losses {' '.join(f'{x:.6f}' for x in l1)}; resumed steps 3-4 "
+              f"{' '.join(f'{x:.6f}' for x in l2)} (bit for bit, every state leaf too); "
+              f"launches flash fwd / bwd / AdamW {launches}")
+        print(f"checkpoint of {nbytes / 1e9:.3f} GB ({len(e1.state_leaves())} leaves: fp32 master, "
+              f"two moments, counters): snapshot on the step path {snap_ms:.1f} ms (the "
+              f"first save, pinned buffers allocated; {resnap_ms:.1f} ms into them again, "
+              f"{nbytes / resnap_ms / 1e6:.2f} GB/s), write "
+              f"{write_s:.3f} s ({nbytes / write_s / 1e9:.3f} GB/s, crc32 + fsync, async), load "
+              f"{load_s:.3f} s (validate + read + copy in place); {smi}")
+        del e1, e2, prog, held
+        gc.collect()
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+
+        # (b) the fault cases at gpt2-medium width, few layers
+        cfgf = gpt2.get_config(model, **dict(overrides or {}, n_layer=fault_layers))
+        base = train_config(micro=2, gas=1)
+        fb = batches(cfgf, 2, fault_seq, 4, seed=27)
+
+        def res(**kw):
+            return dict(base, resilience={"enabled": True, **kw})
+
+        # crash mid-save: the previous tag stays loadable
+        d = os.path.join(root, "crash")
+        e = engine(cfgf, res(fault_injection={"enabled": True, "crash_saves": [2]}))
+        e.train_batch(fb[0])
+        after1 = host_state(e)
+        e.save_checkpoint(d, tag="s1")
+        e.train_batch(fb[1])
+        e.save_checkpoint(d, tag="s2")
+        e.flush_checkpoints()
+        w = next(iter(e._ckpt_writers.values()))
+        e2 = engine(cfgf, res(), seed=1)
+        e2.load_checkpoint(d)
+        check(isinstance(w.last_error, FaultInjected) and os.path.isdir(d + "/s2.tmp")
+              and e2.get_global_step() == 1 and state_is(e2, after1),
+              f"phase 26 crash_saves: error {w.last_error!r}, global step {e2.get_global_step()}")
+        # a corrupted newest tag walks back
+        d = os.path.join(root, "walk")
+        ew = engine(cfgf, res(async_checkpoint=False))
+        ew.train_batch(fb[0])
+        ew.save_checkpoint(d, tag="t1")
+        after1 = host_state(ew)
+        ew.train_batch(fb[1])
+        ew.save_checkpoint(d, tag="t2")
+        with open(os.path.join(d, "t2", "00000.bin"), "r+b") as fh:
+            word = fh.read(4)
+            fh.seek(0)
+            fh.write(bytes(x ^ 0xFF for x in word))
+        e3 = engine(cfgf, res(), seed=1)
+        e3.load_checkpoint(d)
+        check(find_latest_valid(d)[0] == "t1" and e3.get_global_step() == 1
+              and state_is(e3, after1),
+              f"phase 26 walk-back: tag {find_latest_valid(d)}, global step {e3.get_global_step()}")
+        print("crash_saves: the torn s2.tmp skipped, s1 loaded bit for bit; a corrupted newest "
+              "tag t2 walked back to t1 bit for bit")
+        del e, e2, e3, ew
+        # nan_loss under the rollback: the clean run minus the poisoned batch
+        plane = {"enabled": True, "trace_path": os.path.join(root, "tel"),
+                 "watchdog": {"enabled": True, "policy": "rollback", "warmup_steps": 100,
+                              "capture_dir": os.path.join(root, "anomalies")}}
+        ef = engine(cfgf, dict(res(snapshot_every=1, fault_injection={
+            "enabled": True, "nan_loss_steps": [2]}), telemetry=plane))
+        held = dict(ef.state_leaves())
+        outf = [ef.train_batch(b) for b in fb]
+        ec = engine(cfgf, dict(res(snapshot_every=1), telemetry=plane))
+        outc = [ec.train_batch(b) for b in (fb[0], fb[2], fb[3])]
+        lf = [float(outf[i]["loss"]) for i in (0, 2, 3)]
+        lc = [float(m["loss"]) for m in outc]
+        check(outf[1].get("rolled_back") is True and lf == lc and state_equal(ef, ec)
+              and ef.global_steps == 3 and ef.get_global_step() == 3
+              and all(v is held[k] for k, v in ef.state_leaves().items()),
+              f"phase 26 rollback: rolled back {outf[1].get('rolled_back')}, losses {lf} "
+              f"against {lc}, states equal {state_equal(ef, ec)}")
+        print(f"nan_loss at call 2 under rollback: losses {' '.join(f'{x:.6f}' for x in lf)} = "
+              f"the clean run without the poisoned batch, bit for bit (every state leaf too)")
+        del ef, ec, outf, outc, held
+        # SIGTERM through a PreemptionGuard: checkpoint, then an equal resume
+        d = os.path.join(root, "preempt")
+        e = engine(cfgf, res(fault_injection={"enabled": True, "sigterm_steps": [2]}))
+        stopped = None
+        with PreemptionGuard(e, d) as guard:
+            for i, b in enumerate(fb):
+                e.train_batch(b)
+                if guard.should_stop():
+                    path = guard.checkpoint_and_log()
+                    stopped = i
+                    break
+        e2 = engine(cfgf, res(), seed=1)
+        e2.load_checkpoint(d)
+        la = [float(e.train_batch(b)["loss"]) for b in fb[2:]]
+        lb = [float(e2.train_batch(b)["loss"]) for b in fb[2:]]
+        check(stopped == 1 and la == lb and state_equal(e, e2),
+              f"phase 26 SIGTERM: stopped after call {stopped}, losses {la} against {lb}")
+        print(f"SIGTERM after call 2: checkpointed at {os.path.basename(path)}, the resumed run "
+              f"equal bit for bit ({' '.join(f'{x:.6f}' for x in lb)})")
+        del e, e2
+        gc.collect()
+
+    # (c) the serving stall with retries
+    cfgs = gpt2.get_config(model, **(overrides or {}))
+    eng = dtt.init_inference(cfgs, dtype=torch.bfloat16, seed=0, device=device)
+    clean = eng.serve()
+    creqs = mixed_requests(clean, 16, cfgs.vocab_size, seed=1234)
+    clean.run()
+    inj = FaultInjector(FaultInjectionConfig(enabled=True, stall_requests=[1, 6, 11]))
+    srv = ServingEngine(eng, {"retry_max": 2, "retry_backoff_s": 0.0}, fault_injector=inj)
+    LAUNCHES[K_PAGED] = 0
+    sreqs = mixed_requests(srv, 16, cfgs.vocab_size, seed=1234)
+    srv.run()
+    st = srv.stats()
+    ok = all(a.status == b.status == RequestStatus.FINISHED and a.tokens == b.tokens
+             for (a, _), (b, _) in zip(creqs, sreqs))
+    check(ok and st["retried"] == 3 and sum(r.retries for r, _ in sreqs) == 3
+          and (device == "cpu" or LAUNCHES[K_PAGED] > 0),
+          f"phase 26 serving stall: streams equal {ok}, retried {st['retried']}")
+    srv.check_no_leaks()
+    print(f"serving_stall at admissions 1, 6, 11 with retry_max 2: 16/16 finished with the "
+          f"clean streams, retried {st['retried']}, decode launches {LAUNCHES[K_PAGED]}, no "
+          f"leaks")
+    return launches
 
 
 def main() -> int:
@@ -3723,6 +4224,20 @@ def main() -> int:
     phase(24, "train gpt2-medium bf16 with the training telemetry plane on (trace, "
               "Prometheus, watchdog)")
     training_telemetry_phase(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase(25, "serve gpt2-medium bf16 with the prefix cache and the host KV tier (the slice's "
+              "path), bf16 and int8 pages")
+    host_tier_phase(smi, st_3b)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase(26, "resilience: resume from an async resilient save, crash mid-save, walk-back, "
+              "rollback, SIGTERM, serving retries (the slice's path)")
+    resilience_phase(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     phase(8, "summary")
     # launches: each kernel's (and mode's) count on the path of the slice

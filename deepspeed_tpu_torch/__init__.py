@@ -9,7 +9,10 @@ training on one card (the single-device engine: bf16/fp16 on an fp32
 master, accumulation, clipping, the optimizer family, LR schedules, loss
 scaling, remat, dropout) of GPT-2, dense or with block-sparse attention
 (a ``sparse_attention`` section), and of BERT pre-training (MLM + NSP,
-dense or block-sparse). Sampled tokens, dropout masks and stochastic
+dense or block-sparse), with checkpoints that load in either package
+(the ``resilience`` section's crc manifest), rollback, fault injection
+and preemption, and a host-DRAM KV tier for the serving prefix cache.
+Sampled tokens, dropout masks and stochastic
 rounding draw JAX's threefry bits from JAX's key schedules
 (``ops/prng.py``), so they equal the JAX package's. Its kernels are
 hand-written CUDA (``csrc/``, built at first use): paged decode and

@@ -6,17 +6,19 @@ same fields, defaults and validation for the continuous-batching path
 (``kv_cache_dtype="int8"``), its three hot-path features: speculative
 decode (``speculative``), shared-prefix KV reuse (``prefix_cache``) and
 chunked prefill (``prefill_chunk_tokens``), and its SLO classes
-(``slo``). The sections of the features that have not been ported yet
-(tensor parallelism, the host tier, the fleet, retries) are accepted only
-at their off values: turning one on raises :class:`NotPortedError`
-instead of being silently ignored.
+(``slo``), the host KV tier (``tiering``) and retries with backoff
+(``retry_max``). The sections of the features that have not been ported
+yet (tensor parallelism and disaggregation, the fleet) are accepted only at
+their off values: turning one on raises :class:`NotPortedError` instead of
+being silently ignored.
 
 ``TelemetryConfig``: the ``telemetry`` section of ``init_inference``'s and
 ``initialize``'s configs (the same fields, defaults and errors as the JAX
 package's), with
 its watchdog, request-trace, kv-heat and time-series sections.
-``telemetry.introspection.enabled`` and ``watchdog.policy="rollback"``
-raise :class:`NotPortedError`. ``SLOAlertsConfig`` is the fleet's
+``telemetry.introspection.enabled`` raises :class:`NotPortedError`;
+``watchdog.policy="rollback"`` restores the resilience plane's snapshots.
+``SLOAlertsConfig`` is the fleet's
 burn-rate section, used standalone by ``telemetry.slo_budget`` while the
 fleet is not ported.
 
@@ -25,7 +27,8 @@ fleet is not ported.
 ``prescale_gradients``/``gradient_predivide_factor``,
 ``data_types.grad_accum_dtype``, ``zero_optimization.stage == 0``,
 ``steps_per_print``, ``wall_clock_breakdown``, ``memory_breakdown``, the
-``telemetry`` section, and the typed ``sparse_attention`` section that a
+``telemetry``, ``resilience`` and ``checkpoint`` sections, and the typed
+``sparse_attention`` section that a
 model config reads through ``ops.sparse_attention.from_ds_config``) with
 the JAX package's key names and defaults. Any other section at a value that
 turns something on raises :class:`NotPortedError`.
@@ -59,15 +62,19 @@ _UNPORTED_SECTIONS: Dict[str, Dict[str, Any]] = {
         "disaggregate": lambda v: not v,
         "device_base": lambda v: int(v) == 0,
     },
-    "tiering": {"enabled": lambda v: not v},
     "fleet": {"enabled": lambda v: not v},
 }
 
 
-def _not_ported(what: str) -> NotPortedError:
+# the ROADMAP queue 1 item that ports each refused serving section
+_UNPORTED_ITEMS = {"placement": 11, "fleet": 9}
+
+
+def _not_ported(what: str, item: int) -> NotPortedError:
     return NotPortedError(
-        f"serving.{what} is not ported to deepspeed_tpu_torch yet (the "
-        "default continuous-batching path is); use deepspeed_tpu for it"
+        f"serving.{what} is not ported to deepspeed_tpu_torch yet (ROADMAP "
+        f"queue 1 item {item}; the default continuous-batching path is); use "
+        "deepspeed_tpu for it"
     )
 
 
@@ -80,7 +87,7 @@ def _check_unported_section(name: str, value) -> None:
         )
     for key, is_off in _UNPORTED_SECTIONS[name].items():
         if key in value and not is_off(value[key]):
-            raise _not_ported(f"{name}.{key}={value[key]!r}")
+            raise _not_ported(f"{name}.{key}={value[key]!r}", _UNPORTED_ITEMS[name])
 
 
 def _section_from_dict(cls, name: str, d: Dict[str, Any]):
@@ -130,6 +137,44 @@ class PrefixCacheConfig:
             raise DeepSpeedConfigError(
                 "serving.prefix_cache.max_pages must be >= 0, got "
                 f"{self.max_pages}"
+            )
+
+
+@dataclass
+class TieringConfig:
+    """``serving.tiering``: the host-DRAM second tier for cold KV pages
+    (``serving/tiering.py``). With it on (it needs ``prefix_cache``), a
+    prefix-index leaf evicted as the index's last reference is demoted to
+    pinned host buffers instead of dropped, and a later prompt re-hitting
+    the chain restores the page through the width-1 ``serving_kv_restore``
+    program at admission (a ``kv_restore`` queue wait in the request trace)
+    instead of recomputing it. ``host_budget_pages``: host slots (0 = the
+    device pool's capacity); ``policy``: the spill-victim order (one of
+    ``telemetry.kv_heat.SPILL_POLICIES``); ``prefetch_depth``: pages
+    restored per admission attempt; ``crc``: crc32 every spilled buffer and
+    treat a mismatch at restore as a cold miss."""
+
+    enabled: bool = False
+    host_budget_pages: int = 0
+    policy: str = "idle_lru"
+    prefetch_depth: int = 4
+    crc: bool = True
+
+    def __post_init__(self):
+        if self.policy not in ("idle_lru", "prefix_aware", "slot_priority"):
+            raise DeepSpeedConfigError(
+                "serving.tiering.policy must be one of 'idle_lru', "
+                f"'prefix_aware', 'slot_priority'; got {self.policy!r}"
+            )
+        if int(self.host_budget_pages) < 0:
+            raise DeepSpeedConfigError(
+                "serving.tiering.host_budget_pages must be >= 0, got "
+                f"{self.host_budget_pages}"
+            )
+        if int(self.prefetch_depth) < 1:
+            raise DeepSpeedConfigError(
+                "serving.tiering.prefetch_depth must be >= 1, got "
+                f"{self.prefetch_depth}"
             )
 
 
@@ -208,8 +253,9 @@ class WatchdogConfig(_ConfigModel):
     after ``warmup_steps`` observations, bounded ``torch.profiler``
     captures under ``capture_dir``, and the serving straggler detector
     (``straggler_factor`` × max_new_tokens × EMA decode step time).
-    ``policy``: ``continue`` or ``kill``; ``rollback`` raises
-    :class:`NotPortedError` (ROADMAP queue 1 item 8). ``nan_check``: the
+    ``policy``: ``continue``, ``kill`` or ``rollback`` (the training
+    engine restores its last clean-step snapshot; it needs the
+    ``resilience`` section with ``snapshot_every > 0``). ``nan_check``: the
     training step computes its ``anomaly_flags`` (the loss's and the
     gradient norm's non-finite bits) for the watchdog."""
 
@@ -236,12 +282,6 @@ class WatchdogConfig(_ConfigModel):
         if not 0.0 < self.ema_alpha <= 1.0:
             raise DeepSpeedConfigError(
                 "telemetry.watchdog.ema_alpha must be in (0, 1]"
-            )
-        if self.enabled and self.policy == "rollback":
-            raise NotPortedError(
-                "telemetry.watchdog.policy='rollback' is not ported to "
-                "deepspeed_tpu_torch yet: it restores the resilience snapshots "
-                "(ROADMAP queue 1 item 8)"
             )
 
 
@@ -539,6 +579,7 @@ class ServingConfig:
     speculative: SpeculativeConfig = field(default_factory=SpeculativeConfig)
     prefix_cache: PrefixCacheConfig = field(default_factory=PrefixCacheConfig)
     slo: SLOConfig = field(default_factory=SLOConfig)
+    tiering: TieringConfig = field(default_factory=TieringConfig)
 
     def __post_init__(self):
         for key in ("max_slots", "page_size", "num_pages", "max_prompt_len",
@@ -569,13 +610,22 @@ class ServingConfig:
                                                    self.prefix_cache)
         if isinstance(self.slo, dict):
             self.slo = SLOConfig.from_dict(self.slo)
+        if isinstance(self.tiering, dict):
+            self.tiering = _section_from_dict(TieringConfig, "tiering", self.tiering)
+        if self.tiering.enabled and not self.prefix_cache.enabled:
+            raise DeepSpeedConfigError(
+                "serving.tiering requires serving.prefix_cache (demotion "
+                "spills prefix-index pages; there is nothing to tier "
+                "without the index)"
+            )
         if self.speculative.enabled and float(self.temperature) > 0.0:
             raise DeepSpeedConfigError(
                 "serving.speculative requires temperature == 0 (greedy): the "
                 "verify step accepts drafts by argmax comparison"
             )
-        if int(self.retry_max) > 0:
-            raise _not_ported(f"retry_max={self.retry_max}")
+        if int(self.retry_max) < 0:
+            raise DeepSpeedConfigError(
+                f"serving.retry_max must be >= 0, got {self.retry_max}")
 
     @classmethod
     def from_dict(cls, d: Optional[Dict[str, Any]]) -> "ServingConfig":
@@ -588,7 +638,7 @@ class ServingConfig:
             raise DeepSpeedConfigError(f"serving: unknown config keys {unknown}")
         kwargs = {}
         for key, value in d.items():
-            if key in ("speculative", "prefix_cache", "slo"):
+            if key in ("speculative", "prefix_cache", "slo", "tiering"):
                 kwargs[key] = value  # a section: __post_init__ builds it
             else:
                 typ = type(getattr(cls, key))  # every other field is a scalar
@@ -670,6 +720,93 @@ class DataTypesConfig:
             )
 
 
+@dataclass
+class CheckpointConfig:
+    """``checkpoint`` (the reference's checkpoint keys). ``tag_validation``
+    (Ignore | Warn | Fail) checks that every process saves under the same
+    tag: with one process there is nothing to compare. ``load_universal``,
+    ``use_node_local_storage``, ``parallel_write`` and ``async_save`` are
+    accepted as the JAX package accepts them; the non-resilient path writes
+    synchronously (the resilient path's ``resilience.async_checkpoint`` is
+    the asynchronous one)."""
+
+    tag_validation: str = "Warn"
+    load_universal: bool = False
+    use_node_local_storage: bool = False
+    parallel_write: Dict[str, Any] = field(default_factory=dict)
+    async_save: bool = False
+
+    def __post_init__(self):
+        if str(self.tag_validation).lower() not in ("ignore", "warn", "fail"):
+            raise DeepSpeedConfigError(
+                "checkpoint.tag_validation must be Ignore, Warn or Fail; got "
+                f"{self.tag_validation!r}"
+            )
+
+
+@dataclass
+class FaultInjectionConfig:
+    """``resilience.fault_injection`` (``resilience/faults.py``): seeded
+    deterministic faults. ``nan_loss_steps`` / ``sigterm_steps`` index the
+    engine's ``train_batch`` calls (1-based, monotonic: NOT
+    ``global_steps``, which a rollback rewinds), ``crash_saves`` a
+    writer's saves (1-based), ``stall_requests`` the serving admissions
+    (1-based). ``probability`` adds a chaos mode: each (site, index) fires
+    with probability p, from a stable hash of (seed, site, index)."""
+
+    enabled: bool = False
+    seed: int = 0
+    nan_loss_steps: List[int] = field(default_factory=list)
+    sigterm_steps: List[int] = field(default_factory=list)
+    crash_saves: List[int] = field(default_factory=list)
+    stall_requests: List[int] = field(default_factory=list)
+    probability: float = 0.0
+
+    def __post_init__(self):
+        if not 0.0 <= self.probability <= 1.0:
+            raise DeepSpeedConfigError(
+                "resilience.fault_injection.probability must be in [0, 1], "
+                f"got {self.probability}"
+            )
+
+
+@dataclass
+class ResilienceConfig:
+    """``resilience``: the fault-tolerance plane (``resilience/``). On,
+    the engine's checkpoints use the integrity-checked manifest format
+    (per-array crc32 and a config fingerprint, ``<tag>.tmp`` → fsync →
+    rename → atomic ``latest``; the JAX package's format, byte for byte)
+    and ``load_checkpoint`` walks back across corrupt and torn tags.
+    ``async_checkpoint`` moves the disk write to a background thread (the
+    step path pays the device-to-host snapshot). ``snapshot_every``: the
+    cadence of the last-clean-state host snapshot (0 = off) that the
+    watchdog's ``rollback`` policy restores, bounded by ``max_rollbacks``
+    (snapshots are taken only under that policy). ``grace_window_s``: the
+    PreemptionGuard's budget for flushing an in-flight async save.
+    ``fault_injection``: see :class:`FaultInjectionConfig`."""
+
+    enabled: bool = False
+    async_checkpoint: bool = True
+    snapshot_every: int = 1
+    max_rollbacks: int = 8
+    grace_window_s: float = 30.0
+    fault_injection: FaultInjectionConfig = field(default_factory=FaultInjectionConfig)
+
+    def __post_init__(self):
+        if isinstance(self.fault_injection, dict):
+            self.fault_injection = _typed_section(
+                FaultInjectionConfig, "resilience.fault_injection", self.fault_injection)
+        if self.snapshot_every < 0:
+            raise DeepSpeedConfigError(
+                f"resilience.snapshot_every must be >= 0, got {self.snapshot_every}")
+        if self.max_rollbacks < 0:
+            raise DeepSpeedConfigError(
+                f"resilience.max_rollbacks must be >= 0, got {self.max_rollbacks}")
+        if self.grace_window_s < 0:
+            raise DeepSpeedConfigError(
+                f"resilience.grace_window_s must be >= 0, got {self.grace_window_s}")
+
+
 # zero_optimization keys that turn on something not ported; the others tune
 # ZeRO's collectives, which stage 0 does not run
 _ZERO_OFF = {
@@ -683,6 +820,7 @@ _TRAINING_KEYS = (
     "steps_per_print", "optimizer", "scheduler", "fp16", "bf16", "zero_optimization",
     "data_types", "gradient_clipping", "prescale_gradients", "gradient_predivide_factor",
     "sparse_attention", "telemetry", "wall_clock_breakdown", "memory_breakdown",
+    "resilience", "checkpoint",
 )
 # the monitor backends (JAX monitor/): ROADMAP queue 1 item 14
 _MONITOR_KEYS = ("tensorboard", "wandb", "csv_monitor")
@@ -744,6 +882,8 @@ class DeepSpeedConfig:
     telemetry: Optional["TelemetryConfig"] = None
     wall_clock_breakdown: bool = False
     memory_breakdown: bool = False
+    resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
+    checkpoint: CheckpointConfig = field(default_factory=CheckpointConfig)
     _user_batch: Optional[tuple] = None
 
     @classmethod
@@ -794,6 +934,10 @@ class DeepSpeedConfig:
                        else TelemetryConfig.from_dict(d["telemetry"])),
             wall_clock_breakdown=bool(d.get("wall_clock_breakdown", False)),
             memory_breakdown=bool(d.get("memory_breakdown", False)),
+            resilience=_typed_section(ResilienceConfig, "resilience",
+                                      d.get("resilience") or {}),
+            checkpoint=_typed_section(CheckpointConfig, "checkpoint",
+                                      d.get("checkpoint") or {}),
         )
         if cfg.fp16.enabled and cfg.bf16.enabled:
             raise DeepSpeedConfigError("fp16 and bf16 cannot both be enabled")

@@ -55,10 +55,30 @@ norm and its in-step ``anomaly_flags`` (bit 0 the loss, bit 1 the norm),
 which the step computes when the watchdog is on and which is popped before
 the metrics reach the caller. ``device=None`` means the CUDA card, which
 must exist; pass ``device="cpu"`` for the CPU.
+
+Checkpoints (JAX engine.py:2472-2760): :meth:`save_checkpoint` /
+:meth:`load_checkpoint`. With the ``resilience`` section on, a tag is the
+crc manifest of ``resilience/manifest.py`` (the JAX package's format, byte
+for byte), its leaves named as the JAX engine's ``TrainState`` flattens
+(:meth:`state_leaves`: ``params/...``, ``opt_state/...`` as optax's chain
+names them, ``loss_scale/...``, ``global_step``, ``skipped_steps``), plus
+``__rng__``; the client state carries ``global_steps`` and the resilience
+counters. So a tag written by either package loads in the other. The
+write runs on a background thread (``resilience.async_checkpoint``); the
+step path pays the snapshot to pinned host memory. Without the section the
+state goes to ``checkpoint/engine.py``'s torch-native file. Either way a
+load, and the watchdog's ``rollback`` (the last clean step's host
+snapshot, restored when a step trips it), write INTO the tensors the
+captured programs read: a program replayed after a load trains the loaded
+values. A restored ``global_step + skipped_steps`` is the step count the
+dropout keys fold, so the resumed run draws the keys it would have drawn.
+The fault injector's ``nan_loss`` and ``sigterm`` sites fire after a
+step, as in the JAX engine.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
@@ -76,7 +96,7 @@ from .config import DeepSpeedConfig
 from .fp16 import loss_scaler as ls
 from .lr_schedules import get_lr_schedule, tensor_form
 from .module import ModuleSpec
-from .optimizers import build_optimizer
+from .optimizers import build_optimizer, optax_state_paths
 
 PyTree = Any
 
@@ -182,6 +202,37 @@ class DeepSpeedEngine:
         self.wall_clock_breakdown = config.wall_clock_breakdown
         self.telemetry = _telemetry.from_config(config.telemetry)
         self._watchdog = self.telemetry.watchdog if self.telemetry is not None else None
+        # --- the resilience plane (JAX engine.py:306-345): the fault
+        # injector, the rollback snapshots, the async checkpoint writers.
+        # All None/empty when off: the step path pays two None checks
+        rcfg = config.resilience
+        self.fault_injector = None
+        self._rollback = None
+        self._ckpt_writers: Dict[str, Any] = {}
+        self._snap_bufs: Dict[str, torch.Tensor] = {}  # pinned staging of the last save
+        self._train_batch_count = 0  # the nan_loss / sigterm injection index
+        self._preemption_guard = None
+        self.last_snapshot_s = None  # the last resilient save's step-path seconds
+        if rcfg.enabled:
+            from ..resilience import faults as _faults
+
+            self.fault_injector = _faults.from_config(rcfg.fault_injection)
+        if self._watchdog is not None and self._watchdog.policy == "rollback":
+            if not (rcfg.enabled and rcfg.snapshot_every > 0):
+                raise ValueError(
+                    "telemetry.watchdog.policy='rollback' requires "
+                    "resilience.enabled with resilience.snapshot_every > 0 "
+                    "(the rollback restores the resilience plane's in-memory "
+                    "snapshot)"
+                )
+            from ..resilience.recovery import RollbackManager
+
+            # only when the policy can consume it: a snapshot copies the
+            # whole state to the host every snapshot_every steps
+            self._rollback = RollbackManager(
+                max_rollbacks=rcfg.max_rollbacks,
+                registry=self.telemetry.registry if self.telemetry is not None else None,
+            )
 
         self.training_dataloader = None
         self._data_iterator = None
@@ -424,12 +475,36 @@ class DeepSpeedEngine:
         # the card runs asynchronously, so stopping at dispatch would count
         # the host's time only
         self.tput_timer.stop(sync_tree=metrics)
-        if wd is not None:
-            self._watchdog_step(wd, metrics, t_start)
+        # the train_batch ordinal: the fault-injection index. NOT
+        # global_steps, which a rollback rewinds (a scheduled fault would
+        # re-fire on every step after the rollback)
+        self._train_batch_count += 1
+        inj = self.fault_injector
+        if inj is not None and inj.fire("nan_loss", self._train_batch_count):
+            # poison this step's loss on the host, so the watchdog's
+            # non-finite detector (and the policy behind it) runs for real;
+            # the program is untouched
+            metrics["loss"] = float("nan")
+            metrics["fault_injected"] = "nan_loss"
+            if wd is not None:
+                # through the in-step flags too: an off-cadence step skips
+                # the scalar judgement, and a fault it can miss tests nothing
+                metrics["anomaly_flags"] = 1  # the loss's non-finite bit
+        tripped = self._watchdog_step(wd, metrics, t_start) if wd is not None else []
+        if self._rollback is not None:
+            if tripped and wd.policy == "rollback":
+                self._apply_rollback(metrics)
+            elif not tripped and self.global_steps % self.config.resilience.snapshot_every == 0:
+                # judged clean: refresh the last-known-good host snapshot
+                # (the outputs are already waited for)
+                self._rollback.snapshot(self.state_leaves(), self.global_steps)
         if sampled:
             self._telemetry_step(tel, metrics, t_start, t_prepared, t_dispatched)
+        if inj is not None and inj.fire("sigterm", self._train_batch_count):
+            inj.deliver_sigterm()
         if self.global_steps % self.steps_per_print == 0:
-            host = {k: float(v) for k, v in metrics.items() if k != "overflow"}
+            host = {k: float(v) for k, v in metrics.items()
+                    if k not in ("overflow", "fault_injected", "rolled_back")}
             log_dist(
                 f"step={int(host['global_step'])} loss={host['loss']:.4f} "
                 f"lr={host['lr']:.3e} gnorm={host['grad_norm']:.3f} "
@@ -450,7 +525,7 @@ class DeepSpeedEngine:
     def _telemetry_step(self, tel, metrics, t_start, t_prepared, t_dispatched) -> None:
         """One sampled step's record: reading the scalars synchronises (the
         cost of sampling, which ``telemetry.sample_every`` amortizes)."""
-        scalars = {k: float(v) for k, v in metrics.items()}
+        scalars = {k: float(v) for k, v in metrics.items() if not isinstance(v, str)}
         t_synced = time.perf_counter()
         spans = [
             ("prepare", (t_prepared - t_start) * 1e3),
@@ -497,6 +572,253 @@ class DeepSpeedEngine:
         memory_allocated/cached printout) from the allocator's counters;
         logged each ``steps_per_print`` when ``memory_breakdown`` is on."""
         return _telemetry.device_hbm_stats(self.device)
+
+    # ------------------------------------------------------------------
+    # the state, by the JAX TrainState's path names
+    # ------------------------------------------------------------------
+    def state_leaves(self) -> Dict[str, torch.Tensor]:
+        """The training state as ``{path: tensor}`` in the order and under
+        the names of ``jax.tree_util.tree_flatten_with_path`` over the JAX
+        engine's ``TrainState`` (``utils/pytree.py`` ``path_str``):
+        ``params/<leaf>``, ``opt_state/<optax chain path>``,
+        ``loss_scale/{cur_scale, cur_hysteresis, last_overflow_iter,
+        iteration}``, ``global_step``, ``skipped_steps``. The tensors are the
+        engine's own, the ones its programs read (an optimizer count the
+        chain holds twice appears under both names)."""
+        out: Dict[str, torch.Tensor] = {}
+        for path, leaf in _flatten(self.params):
+            out["/".join(("params",) + tuple(str(k) for k in path))] = leaf
+        for path, leaf in optax_state_paths(self.optimizer, self.opt_state):
+            out[f"opt_state/{path}"] = leaf
+        lss = self.loss_scale_state
+        for f in ("cur_scale", "cur_hysteresis", "last_overflow_iter", "iteration"):
+            out[f"loss_scale/{f}"] = getattr(lss, f)
+        out["global_step"] = self._global_step
+        out["skipped_steps"] = self._skipped
+        return out
+
+    def _write_state(self, host: Dict[str, torch.Tensor]) -> None:
+        """Copy host tensors into the engine's state tensors IN PLACE (a
+        captured program reads them by address; rebinding would leave it
+        on the old ones), then derive the step count the keys fold from the
+        restored counters. A leaf held under two names must get the same
+        value from both."""
+        leaves = self.state_leaves()
+        seen: Dict[int, Tuple[str, torch.Tensor]] = {}
+        with torch.no_grad():
+            for name, src in host.items():
+                dst = leaves[name]
+                prev = seen.get(id(dst))
+                if prev is not None:
+                    if not torch.equal(prev[1], src):
+                        raise ValueError(f"state leaves {prev[0]!r} and {name!r} are one "
+                                         "counter here and differ in the checkpoint")
+                    continue
+                seen[id(dst)] = (name, src)
+                dst.copy_(src)
+        g = host.get("global_step", self._global_step)
+        k = host.get("skipped_steps", self._skipped)
+        self._steps_run = int(g) + int(k)
+
+    def _apply_rollback(self, metrics) -> bool:
+        """The watchdog's ``rollback`` policy (JAX engine.py:1901): restore
+        the last clean host snapshot into the state tensors and discard
+        this step's (poisoned) update. Raises ``RollbackLimitError`` past
+        ``resilience.max_rollbacks``; False when no snapshot exists yet."""
+        rb = self._rollback
+        if rb is None or not rb.can_restore:
+            warning_once("watchdog rollback requested before the first clean-step "
+                         "snapshot — continuing without rollback")
+            return False
+        host_state, steps = rb.restore()
+        self._write_state(host_state)
+        self.global_steps = steps
+        metrics["rolled_back"] = True
+        if self.telemetry is not None:
+            self.telemetry.record_event("rollback", 0.0,
+                                        {"restored_step": steps, "rollbacks": rb.rollbacks})
+        log_dist(f"watchdog rollback: restored in-memory snapshot of step {steps} "
+                 f"(rollback {rb.rollbacks}/{rb.max_rollbacks}); poisoned batch skipped")
+        return True
+
+    @property
+    def preempted(self) -> bool:
+        """True once a PreemptionGuard attached to this engine has seen a
+        termination signal: poll at step boundaries to checkpoint and exit
+        inside the grace window."""
+        guard = self._preemption_guard
+        return bool(guard is not None and guard.should_stop())
+
+    # ------------------------------------------------------------------
+    # checkpoints (JAX engine.py:2455-2760)
+    # ------------------------------------------------------------------
+    def _config_fingerprint(self) -> str:
+        """Hex digest of the resolved config, stamped into every manifest
+        so a resume under another config is visible (a warning; the
+        arrays still restore when their shapes agree)."""
+        import dataclasses
+        import hashlib
+        import json
+
+        doc = {k: v for k, v in dataclasses.asdict(self.config).items()
+               if not k.startswith("_")}
+        blob = json.dumps(doc, sort_keys=True, default=str).encode()
+        return hashlib.sha256(blob + str(self.device.type).encode()).hexdigest()
+
+    def _checkpoint_writer(self, save_dir: str):
+        """One AsyncCheckpointWriter per save directory, made at first use."""
+        from ..resilience.writer import AsyncCheckpointWriter
+
+        key = os.path.abspath(save_dir)
+        w = self._ckpt_writers.get(key)
+        if w is None:
+            w = AsyncCheckpointWriter(
+                key, fingerprint=self._config_fingerprint(),
+                registry=self.telemetry.registry if self.telemetry is not None else None,
+                injector=self.fault_injector, telemetry=self.telemetry)
+            self._ckpt_writers[key] = w
+        return w
+
+    def flush_checkpoints(self, timeout: Optional[float] = None) -> bool:
+        """Drain every pending async checkpoint write (the PreemptionGuard's
+        grace-window hook) → True when everything landed in time (a write
+        that died lands too: its writer's ``last_error`` says so).
+        ``timeout`` is ONE deadline across all writers."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        ok = True
+        for w in self._ckpt_writers.values():
+            left = None if deadline is None else max(0.0, deadline - time.monotonic())
+            ok = w.wait(timeout=left) and ok
+        return ok
+
+    def _resilience_counter_values(self) -> Dict[str, float]:
+        """The resilience counters, carried in the manifest's client state
+        so a restart resumes the counts."""
+        if self.telemetry is None:
+            return {}
+        out = {}
+        for name in ("rolled_back_steps_total", "checkpoint_writes_total"):
+            m = self.telemetry.registry.get(name)
+            if m is not None:
+                out[name] = float(m.value())
+        return out
+
+    def save_checkpoint(self, save_dir: str, tag: Optional[str] = None,
+                        client_state: Optional[Dict] = None, save_latest: bool = True,
+                        blocking: Optional[bool] = None) -> str:
+        """Save the training state under ``<save_dir>/<tag>`` (default
+        ``global_step<N>``) → the tag directory. Resilient (the section on):
+        snapshot to pinned host memory, then the manifest write on the
+        directory's background writer unless ``blocking`` (default: not
+        ``resilience.async_checkpoint``). Otherwise the torch-native state
+        file, written before this returns."""
+        t0 = time.perf_counter()
+        tag = tag or f"global_step{self.get_global_step()}"
+        # checkpoint.tag_validation compares the tag across processes: one
+        # process has nothing to compare (the JAX engine's process_count() == 1)
+        if self.config.resilience.enabled:
+            return self._save_checkpoint_resilient(save_dir, tag, client_state, save_latest,
+                                                   blocking, t0)
+        from ..checkpoint.engine import save_train_state
+
+        path = save_train_state(
+            save_dir, tag, self.state_leaves(),
+            client_state={**(client_state or {}), "global_steps": self.global_steps},
+            save_latest=save_latest)
+        log_dist(f"saved checkpoint: {path}")
+        if self.telemetry is not None:
+            self.telemetry.record_event("checkpoint_save", time.perf_counter() - t0,
+                                        {"step": self.global_steps, "tag": tag,
+                                         "path": str(path)})
+        return path
+
+    def _save_checkpoint_resilient(self, save_dir, tag, client_state, save_latest, blocking,
+                                   t0) -> str:
+        from ..resilience.writer import snapshot_to_host
+
+        rcfg = self.config.resilience
+        writer = self._checkpoint_writer(save_dir)
+        # the snapshot is the step path's whole cost: pinned host copies,
+        # reused across saves once the writer is done with the last one
+        idle = all(w.in_flight == 0 for w in self._ckpt_writers.values())
+        reuse = self._snap_bufs if idle else None
+        arrays = snapshot_to_host(self.state_leaves(), out=reuse,
+                                  extra={"__rng__": np.asarray(self._rng, np.uint32)})
+        self._snap_bufs = {k: v for k, v in arrays.items() if isinstance(v, torch.Tensor)
+                           and v.is_pinned()}
+        self.last_snapshot_s = time.perf_counter() - t0
+        client = {**(client_state or {}), "global_steps": self.global_steps,
+                  "resilience_counters": self._resilience_counter_values()}
+        block = (not rcfg.async_checkpoint) if blocking is None else bool(blocking)
+        path = writer.save(tag, arrays, client_state=client, step=self.global_steps,
+                           save_latest=save_latest, blocking=block)
+        log_dist(f"{'committed' if block else 'enqueued async'} resilient checkpoint: {path}")
+        if self.telemetry is not None:
+            self.telemetry.record_event("checkpoint_save", time.perf_counter() - t0,
+                                        {"step": self.global_steps, "tag": tag,
+                                         "path": str(path), "async": not block})
+        return path
+
+    def load_checkpoint(self, load_dir: str, tag: Optional[str] = None,
+                        load_optimizer_states: bool = True,
+                        load_lr_scheduler_states: bool = True) -> Tuple[str, Dict]:
+        """Restore ``<load_dir>/<tag>`` (``latest`` when None) into the
+        engine's state tensors, in place → ``(load_dir, client_state)``.
+        Manifest-format tags (either package's) restore with validation
+        and the walk-back past corrupt or torn tags, whatever this engine's
+        ``resilience`` setting; ``load_optimizer_states=False`` keeps this
+        engine's optimizer state. The learning rate is the schedule at the
+        restored count, so ``load_lr_scheduler_states`` changes nothing."""
+        from ..resilience.recovery import is_resilient_dir
+
+        if is_resilient_dir(load_dir, tag):
+            return self._load_checkpoint_resilient(load_dir, tag, load_optimizer_states)
+        from ..checkpoint.engine import load_train_state
+
+        t0 = time.perf_counter()
+        state, client_state = load_train_state(load_dir, tag, self.state_leaves(),
+                                               load_optimizer_states=load_optimizer_states)
+        self._write_state(state)
+        self.global_steps = int(client_state.get("global_steps", self.get_global_step()))
+        log_dist(f"loaded checkpoint from {load_dir} (tag={tag or 'latest'})")
+        if self.telemetry is not None:
+            self.telemetry.record_event("checkpoint_load", time.perf_counter() - t0,
+                                        {"step": self.global_steps, "tag": tag or "latest",
+                                         "path": load_dir})
+        return load_dir, client_state
+
+    def _load_checkpoint_resilient(self, load_dir, tag, load_optimizer_states):
+        from ..resilience.manifest import read_manifest
+        from ..resilience.recovery import load_resilient_state
+
+        t0 = time.perf_counter()
+        registry = self.telemetry.registry if self.telemetry is not None else None
+        state, client_state, tag_used, extras = load_resilient_state(
+            load_dir, tag, self.state_leaves(), load_optimizer_states=load_optimizer_states,
+            registry=registry)
+        self._write_state(state)
+        rng = extras.get("__rng__")
+        if rng is not None:
+            self._rng = np.asarray(rng.numpy(), np.uint32)
+        self.global_steps = int(client_state.get("global_steps", self.get_global_step()))
+        if registry is not None:
+            # resume the counters a previous run accumulated
+            for name, v in (client_state.get("resilience_counters") or {}).items():
+                m = registry.get(name)
+                cur = float(m.value()) if m is not None else None
+                if cur is not None and v > cur:
+                    m.inc(v - cur)
+        saved_fp = read_manifest(os.path.join(os.path.abspath(load_dir), tag_used)).get(
+            "fingerprint", "")
+        if saved_fp and saved_fp != self._config_fingerprint():
+            warning_once(f"checkpoint tag {tag_used!r} was saved under a different config "
+                         "fingerprint — resuming anyway (shapes matched)")
+        log_dist(f"loaded resilient checkpoint from {load_dir} (tag={tag_used})")
+        if self.telemetry is not None:
+            self.telemetry.record_event("checkpoint_load", time.perf_counter() - t0,
+                                        {"step": self.global_steps, "tag": tag_used,
+                                         "path": load_dir})
+        return load_dir, client_state
 
     # ------------------------------------------------------------------
     # evaluation

@@ -210,6 +210,48 @@ class SGD(_Optimizer):
         _advance(state.count, skip)
 
 
+def _tree_paths(tree: PyTree, prefix: str) -> List[tuple]:
+    """``(prefix/path, leaf)`` of a nested dict in sorted key order (a
+    pytree's flatten order)."""
+    if isinstance(tree, dict):
+        out = []
+        for k in sorted(tree):
+            out += _tree_paths(tree[k], f"{prefix}/{k}")
+        return out
+    return [(prefix, tree)]
+
+
+def optax_state_paths(opt: _Optimizer, state) -> List[tuple]:
+    """The optimizer state as ``(path, tensor)`` under the names optax's
+    chain gives the JAX engine's ``opt_state`` (``tree_flatten_with_path``
+    order, ``opt_state/`` omitted): ``adam`` is ``chain(scale_by_adam,
+    scale_by_learning_rate)``, ``adamw`` puts the masked decay between them
+    (an empty state), L2 Adam is ``chain(add_decayed_weights, adam)``,
+    ``lamb`` is ``chain(scale_by_adam, add_decayed_weights,
+    scale_by_trust_ratio, scale_by_learning_rate)``, ``adagrad``
+    ``chain(scale_by_rss, ...)`` and ``sgd`` ``chain(trace, ...)``. The
+    schedule's own count (present when the learning rate is a schedule)
+    is the same tensor as the optimizer's count: both advance on every
+    applied update."""
+    sched = callable(opt.learning_rate)
+    if isinstance(opt, (Adam, Lamb)):
+        if isinstance(opt, Lamb):
+            base, sched_slot = "0", "3"
+        elif opt.mode == "l2":
+            base, sched_slot = "1/0", "1/1"
+        else:
+            base, sched_slot = "0", "2" if opt.mode == "decoupled" else "1"
+        out = [(f"{base}/count", state.count)]
+        out += _tree_paths(state.mu, f"{base}/mu") + _tree_paths(state.nu, f"{base}/nu")
+    elif isinstance(opt, Adagrad):
+        out, sched_slot = _tree_paths(state.sum_of_squares, "0/sum_of_squares"), "1"
+    else:
+        out, sched_slot = _tree_paths(state.trace, "0/trace"), "1"
+    if sched:
+        out.append((f"{sched_slot}/count", state.count))
+    return out
+
+
 def build_optimizer(opt_type: Optional[str], params_cfg: Optional[Dict[str, Any]] = None,
                     learning_rate: Optional[Schedule] = None) -> _Optimizer:
     """The optimizer of a DeepSpeed ``optimizer`` config section."""

@@ -1,6 +1,7 @@
 """Continuous-batching serving over a paged KV pool, with speculative
-decode, shared-prefix KV reuse, chunked prefill and int8 KV pages (the port's counterpart
-of ``deepspeed_tpu.serving``)."""
+decode, shared-prefix KV reuse, chunked prefill, int8 KV pages, the
+host-DRAM KV tier and retries (the port's counterpart of
+``deepspeed_tpu.serving``)."""
 
 from .kv_cache import (
     SCRATCH_PAGE,
@@ -15,9 +16,18 @@ from .kv_cache import (
 )
 from .request import Request, RequestStatus
 from .scheduler import ServingEngine
+from .tiering import (
+    TIERING_POLICIES,
+    HostPageStore,
+    HostTierError,
+    KVTieringEngine,
+    policy_victim_key,
+    replay_live_tier,
+)
 
 __all__ = [
     "SCRATCH_PAGE", "PageAllocator", "PageAllocatorError", "PrefixCache", "SlotTable",
     "init_pools", "pages_for", "pool_bytes", "Request", "RequestStatus", "scales_bytes",
-    "ServingEngine",
+    "ServingEngine", "HostPageStore", "HostTierError", "KVTieringEngine", "TIERING_POLICIES",
+    "policy_victim_key", "replay_live_tier",
 ]

@@ -251,7 +251,7 @@ class PrefixCache:
     """Chained-hash index over FULL prompt pages: key (parent key, the
     page's tokens) → the pool page holding that page's K/V (counterpart of
     ``deepspeed_tpu/serving/kv_cache.py`` ``PrefixCache``, with its heat
-    hooks, without the host tier's demote and adopt hooks).
+    hooks and the host tier's demote and adopt hooks).
 
     After a prompt prefills, each of its full pages is registered here (the
     index ``retain``s the page, so it outlives the request); a later prompt
@@ -268,7 +268,15 @@ class PrefixCache:
 
     Eviction: LRU among LEAF entries only (evicting a parent would orphan
     its descendants). ``max_pages`` caps the index; the scheduler also
-    evicts on pool pressure."""
+    evicts on pool pressure.
+
+    The host tier's hooks: ``demote_sink`` (a
+    :class:`~.tiering.KVTieringEngine`) receives ``(key, pid)`` BEFORE an
+    evicted leaf's device page frees, when the index holds the page's last
+    reference: the page moves to the host tier instead of vanishing.
+    ``victim_order`` ranks the evictable leaves (``[(key, pid)]`` → the
+    chosen pair) under the spill policy; None keeps the LRU order.
+    :meth:`adopt` re-inserts a restored page under its chain key."""
 
     def __init__(self, allocator: PageAllocator, page_size: int, max_pages: int = 0):
         self.allocator = allocator
@@ -284,6 +292,11 @@ class PrefixCache:
         self.evictions = 0
         # optional KVHeatLedger (register/hit/evict hooks)
         self.heat = None
+        # the host tier's hooks (class docstring)
+        self.demote_sink = None
+        self.victim_order = None
+        self.demotions = 0
+        self.adoptions = 0
 
     def __len__(self) -> int:
         return len(self._entries)
@@ -379,20 +392,76 @@ class PrefixCache:
         return added
 
     def _evict_one(self) -> bool:
-        """Release the LRU leaf entry. → False if there is none."""
-        key = next((k for k in self._entries if self._children.get(k, 0) == 0), None)
-        if key is None:
+        """Release one evictable LEAF entry: the LRU one, unless a
+        ``victim_order`` policy reranks the candidates. → False if none.
+
+        With a ``demote_sink`` wired and the index holding the page's LAST
+        reference (a still-shared page stays live with its other holder:
+        a host copy would fork ownership), the sink copies the page to the
+        host tier FIRST: its ledger D event lands before the F/E pair
+        below, so no trace prefix shows the page in neither tier."""
+        leaves = [(key, pid) for key, pid in self._entries.items()
+                  if self._children.get(key, 0) == 0]
+        if not leaves:
             return False
-        pid = self._entries.pop(key)
+        key, pid = (self.victim_order(leaves) if self.victim_order is not None
+                    else leaves[0])  # insertion (recency) order = LRU
+        self._entries.pop(key)
         parent = self._parent.pop(key)
         self._children.pop(key, None)
         if parent is not None and parent in self._children:
             self._children[parent] -= 1
+        demoted = False
+        if self.demote_sink is not None and self.allocator.refcount(pid) == 1:
+            if self.demote_sink.demote_begin(key, pid) is not None:
+                self.demotions += 1
+                demoted = True
         self.allocator.free([pid])
         if self.heat is not None:
             self.heat.evict(pid)
         self.evictions += 1
+        if not demoted and self.demote_sink is not None:
+            # the key left the device index WITHOUT reaching the host tier
+            # (a shared page, or the sink declined): its host-held children
+            # just became unreachable; drop them now (ledger V events,
+            # after the F/E pair)
+            self.demote_sink.drop_orphans()
         return True
+
+    def adopt(self, key: Tuple, pid: int) -> None:
+        """Re-insert a host-restored page under its chain ``key`` (the
+        restore path). The caller hands over a freshly allocated refcount-1
+        page whose K/V was just restored: ownership moves to the index (no
+        extra retain), undoing what demotion's free released. The parent
+        link must already be resident (restores walk the chain root to
+        leaf)."""
+        parent = key[0]
+        if key in self._entries:
+            raise PageAllocatorError(f"prefix key already resident: {key!r}")
+        if parent is not None and parent not in self._entries:
+            raise PageAllocatorError("adopt out of chain order: parent key not resident")
+        self._entries[key] = int(pid)
+        self._parent[key] = parent
+        self._children[key] = 0
+        if parent is not None:
+            self._children[parent] += 1
+        if self.heat is not None:
+            self.heat.register([int(pid)])
+        self.adoptions += 1
+
+    def chain_keys(self, prompt) -> List[Tuple]:
+        """The prompt's chain keys root to leaf (the ``(plen-1)//page`` cap
+        of :meth:`lookup`), resident or not: the restore prefetch walks
+        this list checking each tier."""
+        plen = int(np.asarray(prompt).shape[-1])
+        page = self.page_size
+        keys: List[Tuple] = []
+        parent: Optional[Tuple] = None
+        for j in range(max(0, (plen - 1) // page)):
+            key = self._key(parent, prompt[j * page:(j + 1) * page])
+            keys.append(key)
+            parent = key
+        return keys
 
     def evict(self, keep: Optional[int] = None, need_free: int = 0) -> int:
         """Evict LRU leaves until the index holds at most ``keep`` entries

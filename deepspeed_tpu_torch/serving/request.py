@@ -1,9 +1,9 @@
 """Serving request lifecycle: QUEUED → RUNNING → FINISHED/TRUNCATED, or
 REJECTED at the door / TIMED_OUT while still queued / PREEMPTED by a drain /
-FAILED when admission could not reserve its pages
-(counterpart of ``deepspeed_tpu/serving/request.py``, with its SLO and
-tenancy fields, without the fault-injection and fleet fields of the
-features not ported).
+FAILED when admission could not reserve its pages or a transient slot
+failure spent its retries (counterpart of
+``deepspeed_tpu/serving/request.py``, with its SLO, tenancy and retry
+fields, without the fleet fields of the features not ported).
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ class RequestStatus:
     TIMED_OUT = "timed_out"     # deadline passed before ever reaching a slot
     REJECTED = "rejected"       # backpressure: queue full / can never fit
     PREEMPTED = "preempted"     # graceful drain evicted it
-    FAILED = "failed"           # admission could not reserve its pages
+    FAILED = "failed"           # no pages at admission, or retries spent
 
     TERMINAL = (FINISHED, TRUNCATED, TIMED_OUT, REJECTED, PREEMPTED, FAILED)
 
@@ -50,9 +50,15 @@ class Request:
     # scheduler resolves unknown/empty to the configured default)
     tenant: str = "default"
     slo_class: str = ""
-    # serving retries are not ported (serving.retry_max raises), so a
-    # request is admitted once; the trace records carry the count
+
+    # -- resilience -----------------------------------------------------
+    # transient-failure retries consumed (the scheduler's retry with backoff)
     retries: int = 0
+    # earliest re-admission time after a backoff (the scheduler's clock)
+    not_before: float = 0.0
+    # fault injection: fail this slot transiently once it has emitted this
+    # many tokens (None = healthy); set by the scheduler at admission
+    stall_after: Optional[int] = None
 
     # -- prefix cache ---------------------------------------------------
     # prompt tokens served from shared prefix-index pages at admission
@@ -68,7 +74,7 @@ class Request:
     detail: str = ""            # why rejected/truncated
     t_submit: float = 0.0
     t_admit: Optional[float] = None   # queue wait ends: slot assigned
-    t_requeue: Optional[float] = None  # a retry's re-queue (never set here)
+    t_requeue: Optional[float] = None  # a retry's re-queue
     t_first_token: Optional[float] = None
     t_finish: Optional[float] = None
     # one timestamp per emitted token (parallel to ``tokens``): a verify
@@ -95,6 +101,10 @@ class Request:
     @property
     def prompt_len(self) -> int:
         return int(np.asarray(self.prompt).shape[-1])
+
+    @property
+    def done(self) -> bool:
+        return self.status in RequestStatus.TERMINAL
 
     @property
     def output(self) -> np.ndarray:

@@ -1,6 +1,6 @@
 """Continuous-batching scheduler: slot-based decode over the paged KV pool
-(counterpart of ``deepspeed_tpu/serving/scheduler.py`` without TP,
-disaggregation, the host tier and retries).
+(counterpart of ``deepspeed_tpu/serving/scheduler.py`` without TP and
+disaggregation).
 
 A fixed array of ``max_slots`` decode slots advances one token per step
 through ONE batched decode step, while finished sequences vacate their slot
@@ -58,8 +58,22 @@ key sits in ``SlotTable.keys`` beside its last token.
 Robustness: admission control (queue depth, KV-page budget) rejects at the
 door; per-request deadlines evict mid-flight to a TRUNCATED response; an
 over-long ask is clamped at submit; :meth:`drain` stops admission, finishes
-in-flight work up to a deadline and preempts the rest. A stuck request can
-never wedge the batch.
+in-flight work up to a deadline and preempts the rest. A transient slot
+failure (the fault injector's ``serving_stall``) or a failed reservation
+frees the slot and its pages and re-queues the request with exponential
+backoff (``serving.retry_max`` times, from ``serving.retry_backoff_s``;
+generation restarts from scratch) before it fails terminally. A stuck
+request can never wedge the batch.
+
+The host KV tier (``serving.tiering``, ``serving/tiering.py``): a
+prefix-index leaf evicted as the last reference to its page is demoted to
+pinned host memory; at admission the prompt's chain is walked and every
+host-held link restored into a fresh page by the ``serving_kv_restore``
+program (a width-1 scatter into the pools, k/v and the int8 scales) and
+re-adopted by the index, so the lookup right after maps it as a plain hit;
+a crc mismatch or a broken chain stops the walk and the rest recomputes.
+When the pool's free list drops under an eighth of its pages, cold leaves
+are demoted ahead of the admissions that would need them.
 
 Telemetry, as the JAX engine's: ``self.metrics`` is the owning engine's
 registry (``init_inference(config={"telemetry": ...})``) or a private one,
@@ -109,6 +123,7 @@ from .kv_cache import (
 )
 from .placement import ProgramSet
 from .request import Request, RequestStatus
+from .tiering import HostPageStore, KVTieringEngine
 
 _CACHE_DTYPES = {
     "bfloat16": torch.bfloat16, "float16": torch.float16, "float32": torch.float32,
@@ -174,7 +189,7 @@ class ServingEngine:
 
     def __init__(self, engine, config=None, clock=time.monotonic,
                  track_margins: bool = False, tracer=None, heat_tracer=None,
-                 journal=None):
+                 journal=None, fault_injector=None):
         if config is None:
             config = ServingConfig()
         elif isinstance(config, dict):
@@ -229,6 +244,13 @@ class ServingEngine:
         self.completed: List[Request] = []
         self._sampling = float(config.temperature) > 0.0
         self._draining = False
+        # the resilience plane: an injector from the caller or the engine
+        # (serving_stall), the admission ordinal it indexes, and whether a
+        # retried request may be waiting out its backoff
+        self.fault_injector = (fault_injector if fault_injector is not None
+                               else getattr(engine, "fault_injector", None))
+        self._admissions = 0
+        self._backoff_pending = False
 
         spec = config.speculative
         self.spec_enabled = bool(spec.enabled)
@@ -241,6 +263,25 @@ class ServingEngine:
             PrefixCache(self.allocator, page, max_pages=int(pcfg.max_pages))
             if pcfg.enabled else None
         )
+        # the host tier for cold prefix pages (JAX scheduler.py:346-385):
+        # evicted leaves spill to pinned host buffers, and a later prompt
+        # re-hitting the chain restores them through serving_kv_restore
+        tcfg = config.tiering
+        self.tiering_enabled = bool(tcfg.enabled and self.prefix_cache is not None)
+        self.tiering: Optional[KVTieringEngine] = None
+        if self.tiering_enabled:
+            budget = int(tcfg.host_budget_pages) or self.allocator.capacity
+            store = HostPageStore(
+                budget, n_layer=mcfg.n_layer, n_kv_head=mcfg.n_head, page_size=page,
+                head_dim=mcfg.head_dim, dtype=self.cache_dtype,
+                quantized=self.pset.scales is not None, crc=bool(tcfg.crc),
+                pin=self.device.type == "cuda")
+            self.tiering = KVTieringEngine(store, self.pset, policy=str(tcfg.policy),
+                                           prefetch_depth=int(tcfg.prefetch_depth),
+                                           clock=self.clock)
+            self.prefix_cache.demote_sink = self.tiering
+            self.prefix_cache.victim_order = self.tiering.select_leaf
+            self.tiering.device_resident = self.prefix_cache._entries.__contains__
         cw = int(config.prefill_chunk_tokens)
         self._chunk_cold = cw > 0  # chunk long cold prompts too
         if cw > 0:
@@ -463,6 +504,9 @@ class ServingEngine:
         alloc.heat = led
         if self.prefix_cache is not None:
             self.prefix_cache.heat = led
+        if self.tiering is not None:
+            # the tier's D/U/V events and its victim keys read the pool's ledger
+            self.tiering.ledger = led
         self._heat_decode = led
         self._heat = tracer
 
@@ -471,6 +515,8 @@ class ServingEngine:
         self.allocator.heat = None
         if self.prefix_cache is not None:
             self.prefix_cache.heat = None
+        if self.tiering is not None:
+            self.tiering.ledger = None
         self._heat = None
         self._heat_decode = None
 
@@ -532,18 +578,19 @@ class ServingEngine:
         return total
 
     def host_metadata_breakdown(self) -> dict:
-        """Host-side (RSS) metadata: the prefix index, the drafter indexes
-        and the heat ledgers (the host tier is not ported: 0)."""
+        """Host-side (RSS) metadata: the prefix index, the drafter indexes,
+        the heat ledgers and the host tier's page buffers."""
         prefix_b = (self.prefix_cache.host_metadata_bytes()
                     if self.prefix_cache is not None else 0)
         draft_b = self.draft_index_bytes()
         heat_b = self._heat.ledger_bytes() if self._heat is not None else 0
+        tier_b = self.tiering.store.host_bytes() if self.tiering is not None else 0
         return {
             "prefix_index_bytes": prefix_b,
             "draft_index_bytes": draft_b,
             "heat_ledger_bytes": heat_b,
-            "kv_host_tier_bytes": 0,
-            "total_bytes": prefix_b + draft_b + heat_b,
+            "kv_host_tier_bytes": tier_b,
+            "total_bytes": prefix_b + draft_b + heat_b + tier_b,
         }
 
     def slo_snapshot(self) -> dict:
@@ -626,15 +673,59 @@ class ServingEngine:
                     pset.v_pool, x["page_ids"], x["row"], x["key"] if sampling else None,
                     **sample, **common))
             self.executables.append(self._chunk_prog)
+        self._restore_prog = None
+        if self.tiering is not None:
+            self._build_restore_program(program)
+
+    def _build_restore_program(self, program) -> None:
+        """The host tier's restore program (JAX scheduler.py:1044-1085): a
+        width-1 scatter of one page of every layer, k and v (and the int8
+        scales), from the program's device source buffers into page ``dst``
+        of the pools, in place. Its only host input is ``dst``; the page
+        goes up by one asynchronous copy a buffer, straight from the host
+        store's pinned slot into the source buffers, ahead of the replay
+        on the same stream."""
+        mcfg, pset = self.model_config, self.pset
+        page_shape = (mcfg.n_layer, mcfg.n_head, self.page_size, mcfg.head_dim)
+        src = {"k": torch.empty(page_shape, dtype=self.cache_dtype, device=self.device),
+               "v": torch.empty(page_shape, dtype=self.cache_dtype, device=self.device)}
+        if pset.scales is not None:
+            src["s"] = torch.empty((mcfg.n_layer, mcfg.n_head, 2), dtype=torch.float32,
+                                   device=self.device)
+        self._restore_src = src
+
+        def restore(x):
+            dst = x["dst"].long()
+            pset.k_pool.index_copy_(1, dst, src["k"].unsqueeze(1))
+            pset.v_pool.index_copy_(1, dst, src["v"].unsqueeze(1))
+            if pset.scales is not None:
+                pset.scales.index_copy_(1, dst, src["s"].unsqueeze(1))
+
+        self._restore_prog = program("serving_kv_restore", {"dst": (1,)}, restore)
+        self.executables.append(self._restore_prog)
+        self.tiering.bind_restore_exec(self._restore_page)
+
+    def _restore_page(self, k, v, s, pid: int) -> None:
+        """One restore: the host page (views of the store's slot) up into
+        the source buffers, then the program (its one upload, the
+        scatter)."""
+        x = self._restore_prog.inputs.staging()
+        x["dst"][0] = pid
+        cuda = self.device.type == "cuda"
+        for name, host in (("k", k), ("v", v), ("s", s)):
+            if host is not None:
+                self._restore_src[name].copy_(host, non_blocking=cuda)
+        self._restore_prog()
 
     @property
     def expected_executables(self) -> int:
         """The static-shapes contract of the JAX engine over the ported
-        features: one prefill program, ONE decode-shaped program (verify
-        replaces decode) and the chunk program when chunking or the prefix
-        cache needs it (disaggregation and the host tier are not ported:
-        the config refuses them)."""
-        return 2 + (1 if self.chunk_width > 0 else 0)
+        features (JAX scheduler.py:651-662): one prefill program, ONE
+        decode-shaped program (verify replaces decode), the chunk program
+        when chunking or the prefix cache needs it, and the host tier's
+        ``serving_kv_restore`` (disaggregation is not ported: the config
+        refuses it)."""
+        return 2 + (1 if self.chunk_width > 0 else 0) + (1 if self.tiering_enabled else 0)
 
     @property
     def allocator(self):
@@ -753,20 +844,47 @@ class ServingEngine:
                     keep.append(req)
             self.queue = keep
 
+        # a request waiting out its retry backoff waits on itself, not on
+        # capacity: note it once a step (the loop below attributes the
+        # capacity causes); the flag spares the scan when no retry is out
+        if self.tracer is not None and self._backoff_pending:
+            waiting = False
+            for r in self.queue:
+                if r.not_before > now:
+                    self.tracer.note_wait(r, "backoff")
+                    waiting = True
+            if not waiting:
+                self._backoff_pending = False
+
         # 2. prefill insertions: FIFO admission into free slots, gated by the
         # KV-page budget net of the prefix-index pages the prompt can map
         # (the head of line blocks until finishing slots free pages). Under
         # pool pressure the index yields cold entries first, and the need is
         # re-probed: the eviction may have dropped pages the probe counted.
-        # A drain stops admission. The tracer attributes each step the head
-        # of line waits to its cause.
+        # A drain stops admission; a retried request inside its backoff
+        # window is passed over, not a head-of-line blocker. The tracer
+        # attributes each step the head of line waits to its cause.
         while self.queue and not self._draining:
             free = next((i for i, s in enumerate(self.slots) if s.request is None), None)
             if free is None:
                 if self.tracer is not None:
-                    self.tracer.note_wait(self.queue[0], "no_free_slot")
+                    idx = next((j for j, r in enumerate(self.queue) if r.not_before <= now),
+                               None)
+                    if idx is not None:
+                        self.tracer.note_wait(self.queue[idx], "no_free_slot")
                 break
-            req = self.queue[0]
+            idx = next((j for j, r in enumerate(self.queue) if r.not_before <= now), None)
+            if idx is None:
+                break
+            req = self.queue[idx]
+            # restore the prompt's demoted prefix pages from the host tier
+            # before costing the reservation (each restore turns a page to
+            # recompute into a mapped hit); depth-bounded a step, so a long
+            # host-held chain keeps the request queued under a kv_restore wait
+            if self.tiering is not None and self._tier_prefetch(req, now):
+                if self.tracer is not None:
+                    self.tracer.note_wait(req, "kv_restore")
+                break
             need = self._pages_needed(req)
             if need > self.allocator.free_pages:
                 if self.prefix_cache is not None and len(self.prefix_cache):
@@ -777,7 +895,7 @@ class ServingEngine:
                     if self.tracer is not None:
                         self.tracer.note_wait(req, "page_budget")
                     break
-            self.queue.popleft()
+            del self.queue[idx]
             self._admit(free, req)
 
         # 2b. chunked prefill: every prefilling slot advances one chunk, and
@@ -847,6 +965,10 @@ class ServingEngine:
                     req.eos_token_id is not None and toks[-1] == req.eos_token_id
                 ):
                     self._finish_slot(i, RequestStatus.FINISHED, "", now)
+                elif req.stall_after is not None and len(req.tokens) >= req.stall_after:
+                    # an injected transient slot failure: evict, then the
+                    # retry-with-backoff path
+                    self._fail_slot(i, "injected slot stall", now)
                 elif slot.keys is not None:
                     # token t (0-based) was drawn with keys[t - 1]
                     self.table.keys[i] = slot.keys[len(req.tokens) - 1]
@@ -878,6 +1000,8 @@ class ServingEngine:
         self._g_pages_shared.set(self.allocator.pages_shared)
         if self.prefix_cache is not None:
             self._g_index_pages.set(len(self.prefix_cache))
+        if self.tiering is not None:
+            self._tier_pump()
         if self._step_count and self._step_count % 32 == 0:
             self.stats()  # refresh the quantile gauges for textfile scrapes
         if self._journal is not None:
@@ -978,12 +1102,74 @@ class ServingEngine:
             return total
         return total - self.prefix_cache.probe(req.prompt)
 
+    # ------------------------------------------------------------------
+    # the host tier: restore prefetch and spill pump (JAX scheduler.py:1523-1577)
+    # ------------------------------------------------------------------
+    def _tier_prefetch(self, req: Request, now: float) -> bool:
+        """Walk ``req``'s prefix chain root to leaf and restore every link
+        the host tier holds into a freshly allocated page (the
+        ``serving_kv_restore`` program), re-adopting each into the index so
+        the admission probe right after maps it as a plain hit. → True when
+        the restore budget (``tiering.prefetch_depth``) ran out with
+        host-held links left: the caller keeps the request queued under a
+        ``kv_restore`` wait and goes on next step. A broken chain, a crc
+        failure or an exhausted pool stops the walk: the rest re-prefills
+        through the normal (chunked) path."""
+        pc = self.prefix_cache
+        tier = self.tiering
+        alloc = self.allocator
+        restored = 0
+        for key in pc.chain_keys(req.prompt):
+            if key in pc._entries:
+                continue  # device-resident
+            if key not in tier.store:
+                break  # the chain is cold from this link on
+            if restored >= tier.prefetch_depth:
+                return True  # budget spent, the host still holds links
+            try:
+                pids = alloc.alloc(1)
+            except PageAllocatorError:
+                break  # pool pressure: the relief valve takes over
+            t0 = self.clock()
+            if not tier.restore(key, pids[0]):
+                alloc.free(pids)  # a cold miss: recompute
+                break
+            pc.adopt(key, pids[0])
+            restored += 1
+            if self.tracer is not None:
+                t1 = self.clock()
+                self.tracer.event(req, "kv_restore", t1, page=int(pids[0]),
+                                  bytes=tier.store.page_bytes, dur_s=t1 - t0)
+        return False
+
+    def _tier_pump(self) -> None:
+        """Keep free-page headroom by demoting cold index leaves to the host
+        BEFORE admissions hit the relief valve: when the free list drops
+        under an eighth of the pool, evict (= demote: the sink is wired)
+        enough leaves to climb back. The copies are queued here; the
+        worker waits for them off the step path."""
+        pc = self.prefix_cache
+        if pc is None or not len(pc):
+            return
+        alloc = self.allocator
+        low = max(1, alloc.capacity // 8)
+        if alloc.free_pages >= low:
+            return
+        pc.evict(need_free=low)
+        self._g_index_pages.set(len(pc))
+
     def _admit(self, slot_i: int, req: Request) -> None:
+        self._admissions += 1
         # queue wait ends here: the request owns a slot
         req.t_admit = self.clock()
         qw = req.queue_wait_s
         if qw is not None:
             self._h_qwait.observe(qw)
+        if (req.stall_after is None and self.fault_injector is not None
+                and self.fault_injector.fire("serving_stall", self._admissions)):
+            # fail once the request is mid-decode: pages held, tokens
+            # emitted, and the retry must rewind all of it
+            req.stall_after = max(1, req.max_new_tokens // 2)
         total = pages_for(req.prompt_len + req.max_new_tokens, self.page_size)
         # prefix-cache lookup: map every indexed full page of the prompt. A
         # full-prefix hit also finds the LAST prompt page indexed; that page
@@ -1015,11 +1201,7 @@ class ServingEngine:
             # prefix retains
             if shared:
                 self.allocator.free(shared)
-            req.status = RequestStatus.FAILED
-            req.detail = f"admission reservation failed: {e}"
-            req.t_finish = self.clock()
-            self._c_requests.inc(status=RequestStatus.FAILED)
-            self._req_terminal(req, req.t_finish)
+            self._retry_or_fail(req, f"admission reservation failed: {e}", self.clock())
             return
         slot = self.slots[slot_i]
         slot.request = req
@@ -1191,6 +1373,54 @@ class ServingEngine:
         self.slots[slot_i] = _Slot()
         self._req_terminal(req, now)
 
+    def _fail_slot(self, slot_i: int, why: str, now: float) -> None:
+        """A transient slot failure: reclaim the slot and its pages at
+        once, then retry with backoff or fail terminally."""
+        slot = self.slots[slot_i]
+        req = slot.request
+        if self._heat_decode is not None:
+            self._heat_decode.session_end(now, slot_i)
+        self.allocator.free(slot.pages)
+        self.table.clear(slot_i)
+        self.slots[slot_i] = _Slot()
+        self._retry_or_fail(req, why, now)
+
+    def _retry_or_fail(self, req: Request, why: str, now: float) -> None:
+        """Re-queue with exponential backoff (``serving.retry_max`` retries,
+        the first after ``serving.retry_backoff_s``; generation restarts
+        from scratch), or fail terminally, a request whose slot and pages
+        are already reclaimed. Makes no allocator call."""
+        retry_max = int(self.config.retry_max)
+        if not self._draining and req.retries < retry_max:
+            req.retries += 1
+            req.stall_after = None  # the injected fault is one-shot
+            req.tokens = []
+            # the retry regenerates: drop the drafter index over the
+            # discarded output, and the emission / admission timeline (queue
+            # wait and TPOT are measured again from the re-admission)
+            req.draft_state = None
+            req.margins = []
+            req.status = RequestStatus.QUEUED
+            req.t_first_token = None
+            req.t_admit = None
+            req.t_requeue = now
+            req.t_emissions = []
+            req.not_before = now + float(self.config.retry_backoff_s) * (2 ** (req.retries - 1))
+            req.detail = f"retry {req.retries}/{retry_max}: {why}"
+            self._c_retries.inc()
+            self._backoff_pending = True
+            if self.tracer is not None:
+                self.tracer.event(req, "retry", now, cause=why, retries=req.retries,
+                                  not_before=req.not_before)
+            self.queue.append(req)
+            self._g_queue.set(len(self.queue))
+        else:
+            req.status = RequestStatus.FAILED
+            req.detail = why if req.retries == 0 else f"{why} (retry budget {retry_max} spent)"
+            req.t_finish = now
+            self._c_requests.inc(status=RequestStatus.FAILED)
+            self._req_terminal(req, now)
+
     def _slo_verdict(self, req: Request) -> Optional[dict]:
         """The request's SLO outcome against its class's targets, or None
         when no SLO accounting applies (no classes, or a class without
@@ -1282,6 +1512,9 @@ class ServingEngine:
         self._g_queue.set(0)
         self._g_util.set(0.0)
         self._g_pages.set(self.allocator.pages_in_use)
+        if self.tiering is not None:
+            # land every in-flight spill before callers audit the tiers
+            self.tiering.flush()
         if self.tracer is not None:
             # every request is terminal now: make the records durable
             self.tracer.flush()
@@ -1447,8 +1680,10 @@ class ServingEngine:
             out["prefix_hit_rate"] = (
                 (pc.hits_full + pc.hits_partial) / lookups if lookups else None)
             out["prefix_host_metadata_bytes"] = pc.host_metadata_bytes()
-            out["prefix_demotions"] = 0
-            out["prefix_adoptions"] = 0
+            out["prefix_demotions"] = pc.demotions
+            out["prefix_adoptions"] = pc.adoptions
+        if self.tiering is not None:
+            out["kv_tiering"] = {"enabled": True, **self.tiering.stats()}
         if self.spec_enabled:
             total, n = self._h_accept.stats()
             out["spec_steps"] = int(self._c_spec_steps.value())
@@ -1483,10 +1718,18 @@ class ServingEngine:
     def check_no_leaks(self) -> None:
         """Drain invariant: every page either back on the free list or held
         by exactly the prefix index (refcount 1), every slot empty, every
-        block-table entry pointing at scratch."""
+        block-table entry pointing at scratch; with the host tier, the
+        store, the heat ledger's handles and the index reconcile."""
         self.allocator.check_no_leaks(
             allowed=self.prefix_cache.held_pages if self.prefix_cache is not None else None
         )
         assert all(s.request is None for s in self.slots)
         assert (self.table.block_tables == 0).all()
         assert (self.table.seq_lens == 0).all()
+        if self.tiering is not None:
+            # the host tier: internally consistent, agreeing with the heat
+            # ledger's handles, and never holding a key the device index
+            # also holds (exactly one tier)
+            self.tiering.flush()
+            err = self.tiering.check_consistent(self.prefix_cache)
+            assert err is None, f"host tier inconsistent at drain: {err}"

@@ -3,7 +3,7 @@ KV tiering (counterpart of ``deepspeed_tpu/telemetry/kv_heat.py``; the same
 ``dstpu-kvheat-v1`` records, so either package's replay reads the other's
 files).
 
-The host KV tier (ROADMAP queue 1 item 7) needs a signal nothing else
+The host KV tier (``serving/tiering.py``) needs a signal nothing else
 measures: which pages are *hot*, which sessions are *idle*, and how big the
 true working set is versus the resident set. This module records a per-page
 lifecycle event stream and derives the cold-fraction / idle-age curves the
@@ -67,8 +67,9 @@ under candidate eviction policies (idle-age LRU / prefix-aware /
 slot-priority), reporting the restore stalls and host traffic each policy
 would have cost. The JAX package's CLI (``tools/kv_heat.py``) renders
 reports, page timelines, pool heatmaps, diffs and gates from the same
-records. The host-tier events (``D``/``U``/``V``) and hooks are here for
-the record format; this package emits them once item 7 lands.
+records. The host tier emits its events through the hooks: ``D`` (a page
+demoted to a host handle, before the page's F/E pair), ``U`` (a handle
+restored into a page) and ``V`` (a handle dropped from the host).
 """
 
 from __future__ import annotations

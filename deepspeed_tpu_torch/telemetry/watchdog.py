@@ -35,9 +35,11 @@ On trip
    right after detection. The directory is bounded: ``max_captures``
    total, oldest pruned;
 3. ``policy`` decides what happens to the run: ``"continue"`` (default —
-   log and keep going) or ``"kill"`` (raise :class:`AnomalyError`).
-   ``"rollback"`` needs the resilience snapshots, which are not ported
-   (ROADMAP queue 1 item 8): it raises ``NotPortedError``.
+   log and keep going), ``"kill"`` (raise :class:`AnomalyError`), or
+   ``"rollback"`` (the training engine restores the last clean-step host
+   snapshot in place and skips the poisoned batch: the watchdog only
+   detects and records; the restore lives in ``runtime/engine.py`` and
+   ``resilience/recovery.py``).
 
 A disabled watchdog config constructs nothing: the engine holds
 ``watchdog=None`` and the step path pays one ``None`` check.
@@ -106,14 +108,6 @@ class AnomalyWatchdog:
         self.registry = registry
         self.tracer = tracer
         self.policy = str(getattr(config, "policy", "continue")).lower()
-        if self.policy == "rollback":
-            from ..runtime.config import NotPortedError
-
-            raise NotPortedError(
-                "telemetry.watchdog.policy='rollback' is not ported to "
-                "deepspeed_tpu_torch yet: it restores the resilience "
-                "snapshots (ROADMAP queue 1 item 8)"
-            )
         self.zscore = float(config.zscore)
         self.warmup = int(config.warmup_steps)
         self.check_every = max(1, int(config.check_every))

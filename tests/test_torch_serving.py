@@ -346,10 +346,10 @@ class TestTimeoutEviction:
     {"placement": {"tp": 2, "disaggregate": True}},
     {"placement": {"tp": 2}},
     {"placement": {"disaggregate": True}},
-    {"tiering": {"enabled": True}},
+    {"fleet": {"enabled": True, "replicas": 2}},
     {"fleet": {"enabled": True}},
     {"placement": {"device_base": 1}},
-    {"retry_max": 2},
+    {"placement": {"tp": 4}},
 ])
 def test_unported_features_raise(section, engine):
     with pytest.raises(NotPortedError, match="not ported"):
@@ -379,9 +379,13 @@ def test_feature_sections_parse_and_validate():
         ServingConfig.from_dict(dict(SERVING_CFG, prefix_cache={"max_pages": -1}))
     with pytest.raises(DeepSpeedConfigError, match="unknown"):
         ServingConfig.from_dict(dict(SERVING_CFG, prefix_cache={"enabld": True}))
-    # the host tier stays unported, with or without the prefix cache
-    with pytest.raises(NotPortedError):
-        ServingConfig.from_dict(dict(PREFIX_CFG, tiering={"enabled": True}))
+    # the host tier and retries are ported: the tier needs the prefix cache
+    cfg = ServingConfig.from_dict(dict(PREFIX_CFG, tiering={"enabled": True}, retry_max=2))
+    assert cfg.tiering.enabled and cfg.tiering.policy == "idle_lru" and cfg.retry_max == 2
+    with pytest.raises(DeepSpeedConfigError, match="prefix_cache"):
+        ServingConfig.from_dict(dict(SERVING_CFG, tiering={"enabled": True}))
+    with pytest.raises(DeepSpeedConfigError, match="policy"):
+        ServingConfig.from_dict(dict(PREFIX_CFG, tiering={"enabled": True, "policy": "oracle"}))
 
 
 # ---------------------------------------------------------------------------

@@ -427,11 +427,12 @@ def test_refusals_name_their_roadmap_item():
     with pytest.raises(NotPortedError, match="item 15"):
         tconfig.TelemetryConfig.from_dict({"enabled": True,
                                            "introspection": {"enabled": True}})
-    with pytest.raises(NotPortedError, match="item 8"):
-        tconfig.TelemetryConfig.from_dict({"enabled": True,
-                                           "watchdog": {"enabled": True, "policy": "rollback"}})
-    with pytest.raises(NotPortedError, match="item 8"):
-        twatchdog.AnomalyWatchdog(jconfig.WatchdogConfig(enabled=True, policy="rollback"))
+    # the rollback policy landed with the resilience plane (item 8)
+    assert tconfig.TelemetryConfig.from_dict(
+        {"enabled": True, "watchdog": {"enabled": True, "policy": "rollback"}}
+    ).watchdog.policy == "rollback"
+    assert twatchdog.AnomalyWatchdog(
+        jconfig.WatchdogConfig(enabled=True, policy="rollback")).policy == "rollback"
     # the training config takes the section (item 6b landed) and refuses
     # what stays unported in it, and the monitor backends (item 14)
     cfg = tconfig.DeepSpeedConfig.from_dict({"train_batch_size": 8,
@@ -440,9 +441,10 @@ def test_refusals_name_their_roadmap_item():
                                              "memory_breakdown": True})
     assert cfg.telemetry.enabled and cfg.telemetry.sample_every == 3
     assert cfg.wall_clock_breakdown and cfg.memory_breakdown
-    with pytest.raises(NotPortedError, match="item 8"):
-        tconfig.DeepSpeedConfig.from_dict({"train_batch_size": 8, "telemetry": {
-            "enabled": True, "watchdog": {"enabled": True, "policy": "rollback"}}})
+    cfg = tconfig.DeepSpeedConfig.from_dict({"train_batch_size": 8, "telemetry": {
+        "enabled": True, "watchdog": {"enabled": True, "policy": "rollback"}},
+        "resilience": {"enabled": True}})
+    assert cfg.telemetry.watchdog.policy == "rollback" and cfg.resilience.enabled
     with pytest.raises(NotPortedError, match="item 15"):
         tconfig.DeepSpeedConfig.from_dict({"train_batch_size": 8, "telemetry": {
             "enabled": True, "introspection": {"enabled": True}}})
@@ -451,5 +453,7 @@ def test_refusals_name_their_roadmap_item():
                                            "tensorboard": {"enabled": True}})
     # an off section is accepted by the training config, and the fleet stays refused
     tconfig.DeepSpeedConfig.from_dict({"train_batch_size": 8, "telemetry": {"enabled": False}})
-    with pytest.raises(NotPortedError, match="fleet"):
+    with pytest.raises(NotPortedError, match="item 9"):
         tconfig.ServingConfig.from_dict({"fleet": {"enabled": True}})
+    with pytest.raises(NotPortedError, match="item 11"):
+        tconfig.ServingConfig.from_dict({"placement": {"tp": 2}})

@@ -300,7 +300,26 @@ Phases, in order; any failure raises and the script exits non-zero:
      Then phase 3's traffic with serving_stall at admissions 1, 6 and 11
      and retry_max 2: every request finished with the clean stream,
      retried 3, no leaks.
-  8  (last, after 26) one JSON line of per-kernel numbers, every kernel and
+  27 the serving fleet and the trace-replay harness (serving/fleet.py,
+     serving/replay.py): gpt2-medium bf16, 25's section at 4 slots with the
+     host tier on; the seeded workload (24 requests, 3 Zipf tenants sharing
+     system prompts, lognormal prompts median 128 clipped to 512, 64 new
+     tokens) under a ReplayClock. (a) one engine under replay(), bf16 then
+     int8 pages; (b) a 2-replica FleetRouter over the same InferenceEngine
+     under replay_fleet(), the most loaded replica preempted at the last
+     arrival with live decode sessions: >= 1 ok migration, every stream
+     equal to (a)'s (or a tie at the bf16 margin, counted), every request
+     finished, no leak on either replica, executables as expected, the
+     paged decode and multi-token launches equal to 3b's formulas summed
+     over the replicas, the migration row buffers freed with the replicas;
+     (c) the first migration payload corrupted: crc_failed counted, the
+     session requeued and finished with (a)'s stream; (d) a SIGTERM from
+     FaultInjector.deliver_sigterm on the router's handler: the victim
+     drains, every request finishes, nothing leaks. Prints migrations by
+     status, bytes a migration, the blackout by part (export, manifest
+     write, validate, load, adopt), TTFT/TPOT p50/p99 of the fleet against
+     the single engine (wall time at step resolution) and stats().
+  8  (last, after 27) the script's total seconds, then one JSON line of per-kernel numbers, every kernel and
      mode with its launches on the path that ported it (the block-sparse
      kernels: phase 11's, and the three at blocks 16/32 at BERT's shape
      with phase 12's; fused AdamW: phase 6's; fused LAMB: phase 15's;
@@ -319,6 +338,7 @@ import gc
 import itertools
 import json
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -3028,11 +3048,395 @@ def resilience_phase(smi, model="gpt2-medium", device=None, fault_layers=2, faul
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 27: the serving fleet and the seeded trace-replay harness
+# ---------------------------------------------------------------------------
+
+# the replay harness's traffic: 24 requests from 3 Zipf tenants sharing
+# system prompts, lognormal prompts (median 128, clipped to 512), 64 new
+# tokens each, under a virtual clock advancing FLEET_STEP_S a step
+FLEET_WORKLOAD = dict(n_requests=24, seed=2727, n_tenants=3, tenant_zipf_s=1.1,
+                      prompt_len_median=128.0, max_prompt_len=512, prefix_fraction=0.5,
+                      max_new_tokens=64, base_interarrival_s=0.05)
+FLEET_STEP_S = 0.01
+
+
+def wall_marks(obj):
+    """Wrap ``obj.step`` (a serving engine's or a fleet's, under a
+    ``ReplayClock``) to record each step's wall start and end, after the
+    device's work, by the virtual time it ran at → {t: [start, end]}."""
+    marks = {}
+    step = obj.step
+
+    def timed():
+        t = obj.clock()
+        t0 = time.perf_counter()
+        out = step()
+        sync()
+        marks.setdefault(t, [t0, None])[1] = time.perf_counter()
+        return out
+
+    obj.step = timed
+    return marks
+
+
+def wall_latency(reqs, marks):
+    """Each request's TTFT (its submit step's start to the end of the step
+    that emitted its first token) and mean TPOT (the end of its first
+    emitting step to the end of its last, over the gaps) in wall time at
+    step resolution → {"ttft": {p50_s, p99_s}, "tpot": {...}} (exact
+    percentiles)."""
+    ttft, tpot = [], []
+    for r in reqs:
+        ttft.append(marks[r.t_first_token][1] - marks[r.t_submit][0])
+        if len(r.t_emissions) > 1:
+            tpot.append((marks[r.t_emissions[-1]][1] - marks[r.t_emissions[0]][1])
+                        / (len(r.t_emissions) - 1))
+    return {name: {f"p{q}_s": float(np.percentile(v, q)) for q in (50, 99)}
+            for name, v in (("ttft", ttft), ("tpot", tpot))}
+
+
+def compare_tie_streams(label, eng, ref, got, margin_limit):
+    """Two runs' requests, in order: each stream identical, or a tie: at
+    the first differing token the top-2 margin of ``eng``'s logits for the
+    reference's prefix before it is below ``margin_limit`` (phase 4's rule
+    at the bf16 margin). → the number of ties."""
+    ties = 0
+    for i, (a, b) in enumerate(zip(ref, got)):
+        if a.tokens == b.tokens:
+            continue
+        t = next(j for j, (x, y) in enumerate(zip(a.tokens, b.tokens)) if x != y)
+        ids = np.concatenate([np.asarray(a.prompt, np.int32),
+                              np.asarray(a.tokens[:t], np.int32)])[None]
+        top2 = torch.topk(eng.forward({"input_ids": ids})[0, -1].float(), 2).values
+        margin = float(top2[0] - top2[1])
+        print(f"{label}: request {i}: streams differ at token {t}, top-2 logit margin "
+              f"{margin:.3e}")
+        check(margin < margin_limit, f"{label}: request {i} differs at token {t} with margin "
+                                     f"{margin:.3e} >= {margin_limit} (not a tie)")
+        ties += 1
+    print(f"{label}: {len(ref) - ties} of {len(ref)} streams bit-identical, {ties} ties "
+          f"(margin < {margin_limit}), {sum(len(r.tokens) for r in ref)} tokens compared")
+    return ties
+
+
+@contextlib.contextmanager
+def migration_parts(fleet):
+    """Time every migration of ``fleet`` by part: export (the gather and
+    the host copies), the manifest write (crc32, fsync), validate, load
+    (the manifest and the arrays read back), adopt (the upload and the
+    scatter, synchronized), and the whole ``_migrate_session`` call →
+    yields the list of {part: s} dicts, one a migration."""
+    from deepspeed_tpu_torch.serving import fleet as fleet_mod
+
+    parts, cur = [], {}
+
+    def timed(name, fn, synced=False):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            if synced:
+                sync()
+            cur[name] = cur.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return call
+
+    saved = {n: getattr(fleet_mod, n)
+             for n in ("write_tag", "validate_tag", "read_manifest", "load_arrays")}
+    for n, part in (("write_tag", "write"), ("validate_tag", "validate"),
+                    ("read_manifest", "load"), ("load_arrays", "load")):
+        setattr(fleet_mod, n, timed(part, saved[n]))
+    for rep in fleet.replicas:
+        rep.srv.export_session = timed("export", rep.srv.export_session)
+        rep.srv.adopt_session = timed("adopt", rep.srv.adopt_session, synced=True)
+    migrate = fleet._migrate_session
+
+    def timed_migrate(src, slot_i, now):
+        cur.clear()
+        t0 = time.perf_counter()
+        ok = migrate(src, slot_i, now)
+        parts.append(dict(cur, total=time.perf_counter() - t0, ok=ok))
+        return ok
+
+    fleet._migrate_session = timed_migrate
+    try:
+        yield parts
+    finally:
+        for n, fn in saved.items():
+            setattr(fleet_mod, n, fn)
+
+
+def fleet_launch_check(label, fleet, kernels, n_layer, spec_k):
+    """The paged decode and multi-token launches of a fleet run against the
+    sum over the replicas of phase 3b's per-program formulas (the
+    migration programs launch no attention kernel) → (dec, mt)."""
+    dec, mt = (LAUNCHES[k] for k in kernels)
+    steps = sum(r.srv.stats()["spec_steps"] for r in fleet.replicas)
+    chunks = sum(r.srv.stats()["chunk_prefills"] for r in fleet.replicas)
+    check(dec > 0 and mt > 0 and dec == n_layer * (spec_k + 1) * steps
+          and mt == n_layer * chunks,
+          f"{label}: launches decode {dec}, multitoken {mt}; verify steps {steps}, chunk "
+          f"calls {chunks} over the replicas")
+    return dec, mt
+
+
+def close_fleet(label, fleet):
+    """Drain, audit every replica, close the router and the replicas' host
+    tiers, and drop them: the migration programs' static row buffers must
+    be freed with their replica (weak references die)."""
+    import weakref
+
+    fleet.drain()
+    fleet.check_no_leaks()
+    for rep in fleet.replicas:
+        check(len(rep.srv.executables) == rep.srv.expected_executables
+              and not any(p.name.startswith(("serving_kv_gather", "serving_kv_scatter"))
+                          for p in rep.srv.executables),
+              f"{label} {rep.rid}: executables {[p.name for p in rep.srv.executables]}, "
+              f"expected {rep.srv.expected_executables}")
+    rows = [weakref.ref(t) for rep in fleet.replicas for t in rep.srv._migrate_rows]
+    fleet.close()
+    for rep in fleet.replicas:
+        rep.srv.release_prefix_cache()
+        rep.srv.allocator.check_no_leaks()
+        rep.srv.tiering.close()
+    return rows
+
+
+def fleet_phase(smi, model="gpt2-medium", dtype=torch.bfloat16, device=None, overrides=None):
+    """Phase 27: the serving fleet and the replay harness at full width.
+    (a) one un-migrated engine under ``replay`` of the seeded workload, bf16
+    then int8 pages; (b) a 2-replica ``FleetRouter`` over the same engine
+    under ``replay_fleet`` with the most loaded replica preempted at the last
+    arrival, holding live decode sessions: migrations ``ok``, every stream
+    equal to (a)'s or a tie, every request finished, no leak on either
+    replica, executables as expected, launches exact, the row buffers freed
+    with the replicas; (c) the first payload corrupted: counted
+    ``crc_failed``, requeued, finished with (a)'s stream; (d) a SIGTERM from
+    the fault injector on the router's handler: the victim drains, every
+    request finishes, nothing leaks. Prints the migrations by status, the
+    bytes and the blackout a migration by part, TTFT/TPOT of the fleet
+    against the single engine and the fleet's ``stats()``."""
+    import glob
+
+    from deepspeed_tpu_torch.resilience import FaultInjector
+    from deepspeed_tpu_torch.runtime.config import FaultInjectionConfig
+    from deepspeed_tpu_torch.serving import (
+        FleetRouter, ReplayClock, WorkloadSpec, generate_workload, replay, replay_fleet,
+    )
+
+    cfg = gpt2.get_config(model, **(overrides or {}))
+    eng = dtt.init_inference(cfg, dtype=dtype, seed=0, device=device)
+    spec_k = FEATURES_SECTION["speculative"]["k"]
+    L = cfg.n_layer
+    items = generate_workload(WorkloadSpec(vocab_size=cfg.vocab_size, **FLEET_WORKLOAD))
+    # two thirds into the arrivals: the replicas hold decode sessions and,
+    # below saturation, the peer has free slots to adopt them
+    preempt_at = items[2 * len(items) // 3].t_arrival
+    budget = FLEET_WORKLOAD["max_new_tokens"]
+    base = dict(FEATURES_SECTION, max_slots=4, tiering={"enabled": True})
+    fleet_cfg = {"enabled": True, "replicas": 2}
+    plens = [len(it.prompt) for it in items]
+    print(f"workload: {len(items)} requests, tenants "
+          f"{sorted(set(it.tenant for it in items))}, prompt lengths {min(plens)}..{max(plens)} "
+          f"(median {statistics.median(plens):.0f}), {budget} new tokens each, arrivals over "
+          f"{items[-1].t_arrival:.3f} s of virtual time at {FLEET_STEP_S} s a step; 4 slots a "
+          f"replica; preemption at t={preempt_at:.3f}")
+
+    def finished(label, reqs):
+        for r in reqs:
+            check(r.status == RequestStatus.FINISHED and len(r.tokens) == budget
+                  and all(0 <= x < cfg.vocab_size for x in r.tokens),
+                  f"{label}: request {r.id}: {r.status} {r.detail}, {len(r.tokens)} of "
+                  f"{budget} tokens")
+
+    refs = {}
+    out = {}
+    for kv in ("bf16", "int8"):
+        section = dict(base, **({"kv_cache_dtype": "int8"} if kv == "int8" else {}))
+        kernels = (K_PAGED8, K_MT8) if kv == "int8" else (K_PAGED, K_MT)
+
+        # (a) the reference: one engine, nothing migrates
+        srv = eng.serve(section, clock=ReplayClock())
+        marks = wall_marks(srv)
+        for k in kernels:
+            LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        res = replay(srv, items, step_dt=FLEET_STEP_S)
+        sync()
+        wall_ref = time.perf_counter() - t0
+        ref = res["requests"]
+        finished(f"phase 27 {kv} single engine", ref)
+        st = srv.stats()
+        dec, mt = (LAUNCHES[k] for k in kernels)
+        check(dec == L * (spec_k + 1) * st["spec_steps"] and mt == L * st["chunk_prefills"],
+              f"phase 27 {kv} single engine: launches {dec}, {mt}, verify steps "
+              f"{st['spec_steps']}, chunks {st['chunk_prefills']}")
+        lat_ref = wall_latency(ref, marks)
+        srv.drain()
+        srv.check_no_leaks()
+        srv.release_prefix_cache()
+        srv.tiering.close()
+        del srv
+        refs[kv] = ref
+
+        # (b) the fleet, the most loaded replica preempted at the last arrival
+        fleet = FleetRouter(eng, dict(section, fleet=fleet_cfg), clock=ReplayClock())
+        marks = wall_marks(fleet)
+        live, free = [], []
+        preempt = fleet._preempt_replica
+
+        def counted_preempt(rep, preempt=preempt, live=live, fleet=fleet):
+            live.append(sum(1 for s in rep.srv.slots if s.request is not None
+                            and not s.prefilling and s.request.tokens))
+            free.extend(sum(1 for s in r.srv.slots if s.request is None)
+                        for r in fleet.replicas if r is not rep)
+            preempt(rep)
+
+        fleet._preempt_replica = counted_preempt
+        for k in kernels:
+            LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        with migration_parts(fleet) as parts:
+            res = replay_fleet(fleet, items, step_dt=FLEET_STEP_S, preempt_at=preempt_at)
+        sync()
+        wall_fleet = time.perf_counter() - t0
+        got = res["requests"]
+        fst = fleet.stats()
+        finished(f"phase 27 {kv} fleet", got)
+        check(len(live) == 1 and live[0] >= 1 and fst["fleet"]["alive"] == 1,
+              f"phase 27 {kv}: the victim held {live} live decode sessions, {fst['fleet']}")
+        check(fst["fleet"]["migrations_ok"] >= 1 and fst["fleet"]["migrations_crc_failed"] == 0,
+              f"phase 27 {kv}: migrations {fst['fleet']}")
+        dec, mt = fleet_launch_check(f"phase 27 {kv} fleet", fleet, kernels, L, spec_k)
+        ties = compare_tie_streams(f"phase 27 {kv} fleet against the single engine", eng, ref,
+                                   got, BF16_TIE_MARGIN)
+        lat = wall_latency(got, marks)
+        ok_parts = [p for p in parts if p["ok"]]
+        n_ok = int(fst["fleet"]["migrations_ok"])
+        mig_bytes = fst["fleet"]["migration_bytes"] / max(n_ok, 1)
+        victim = next(r for r in fleet.replicas if not r.alive)
+        dest = next(r for r in fleet.replicas if r.alive)
+        calls = (getattr(victim.srv._migrate_gather, "calls", 0),
+                 getattr(dest.srv._migrate_scatter, "calls", 0))
+        check(calls == (len(parts), n_ok),
+              f"phase 27 {kv}: gather / scatter calls {calls}, migrations {len(parts)} "
+              f"({n_ok} ok)")
+        print(f"{kv}: fleet of 2 over one engine: replicas {[r.rid for r in fleet.replicas]}, "
+              f"routed {[r.routed for r in fleet.replicas]}, victim {victim.rid} with {live[0]} "
+              f"live decode sessions at t={preempt_at:.3f} (the peer {free[0]} free slots); "
+              f"migrations ok {n_ok}, crc_failed "
+              f"{fst['fleet']['migrations_crc_failed']:.0f}, no_capacity "
+              f"{fst['fleet']['migrations_no_capacity']:.0f}, requeues "
+              f"{fst['fleet']['requeues']:.0f}; streams bit-identical to the single engine "
+              f"{len(ref) - ties} of {len(ref)}, ties {ties}")
+        print(f"{kv}: launches decode {dec} = {L} x {spec_k + 1} x verify steps summed over the "
+              f"replicas, multitoken {mt} = {L} x chunk calls summed (the migration programs "
+              f"launch no attention kernel); executables a replica "
+              f"{[len(r.srv.executables) for r in fleet.replicas]} = expected "
+              f"{fleet.replicas[0].srv.expected_executables}; gather {victim.srv._migrate_gather.name} "
+              f"captured {victim.srv._migrate_gather.graph is not None}")
+
+        def q(key):
+            v = [p.get(key, 0.0) * 1e3 for p in ok_parts]
+            return f"{key} p50 {statistics.median(v):.2f} / max {max(v):.2f}" if v else key
+        print(f"{kv}: a migration moves {mig_bytes:.0f} bytes ({mig_bytes / 2**20:.3f} MiB: "
+              f"k and v rows of {victim.srv.pages_per_slot} pages"
+              + (" + the int8 scales" if kv == "int8" else "") + "); blackout ms: "
+              + ", ".join(q(k) for k in ("total", "export", "write", "validate", "load", "adopt"))
+              + f" (wall, {len(ok_parts)} migrations; {smi})")
+        print(f"{kv}: TTFT p50 / p99 (wall, step resolution) fleet "
+              f"{lat['ttft']['p50_s'] * 1e3:.2f} / {lat['ttft']['p99_s'] * 1e3:.2f} ms against the "
+              f"single engine {lat_ref['ttft']['p50_s'] * 1e3:.2f} / "
+              f"{lat_ref['ttft']['p99_s'] * 1e3:.2f} ms; TPOT p50 / p99 fleet "
+              f"{lat['tpot']['p50_s'] * 1e3:.3f} / {lat['tpot']['p99_s'] * 1e3:.3f} ms against "
+              f"{lat_ref['tpot']['p50_s'] * 1e3:.3f} / {lat_ref['tpot']['p99_s'] * 1e3:.3f} ms; "
+              f"replay wall {wall_fleet:.3f} s against {wall_ref:.3f} s ({smi})")
+        print(f"{kv}: fleet stats() {json.dumps(fst, default=str)}")
+        rows = close_fleet(f"phase 27 {kv}", fleet)
+        del fleet, victim, dest, res, got, parts, ok_parts, counted_preempt, preempt, marks
+        gc.collect()
+        check(rows and all(r() is None for r in rows),
+              f"phase 27 {kv}: {sum(r() is not None for r in rows)} of {len(rows)} migration "
+              "row buffers outlived their replica")
+        out[kv] = (dec, mt)
+
+    # (c) the first payload corrupted after its crc was recorded
+    sub = items[:12]
+    flipped = []
+
+    def corrupt(tag_dir, req):
+        if flipped:
+            return
+        fname = sorted(glob.glob(os.path.join(tag_dir, "*.bin")))[0]
+        with open(fname, "r+b") as fh:
+            b = fh.read(1)
+            fh.seek(0)
+            fh.write(bytes([b[0] ^ 0xFF]))
+        flipped.append(req.id)
+
+    fleet = FleetRouter(eng, dict(base, fleet=fleet_cfg), clock=ReplayClock())
+    fleet.on_migration_payload = corrupt
+    res = replay_fleet(fleet, sub, step_dt=FLEET_STEP_S, preempt_at=sub[-1].t_arrival)
+    fst = fleet.stats()["fleet"]
+    finished("phase 27 corrupted payload", res["requests"])
+    check(len(flipped) == 1 and fst["migrations_crc_failed"] == 1 and fst["requeues"] >= 1,
+          f"phase 27 corrupted payload: flipped {flipped}, {fst}")
+    hit = next(r for r in res["requests"] if r.id == flipped[0])
+    ref_hit = refs["bf16"][next(i for i, r in enumerate(res["requests"]) if r is hit)]
+    compare_tie_streams("phase 27 corrupted payload's session against the single engine", eng,
+                        [ref_hit], [hit], BF16_TIE_MARGIN)
+    compare_tie_streams("phase 27 (c) every stream against the single engine", eng,
+                        refs["bf16"][:len(sub)], res["requests"], BF16_TIE_MARGIN)
+    print(f"corrupted payload (request {flipped[0]}): fleet_migrations_total"
+          f"{{status=\"crc_failed\"}} {fst['migrations_crc_failed']:.0f}, ok "
+          f"{fst['migrations_ok']:.0f}, requeues {fst['requeues']:.0f}; requeued on "
+          f"{hit.replica} and finished with {len(hit.tokens)} tokens")
+    close_fleet("phase 27 (c)", fleet)
+    del fleet, res, hit
+
+    # (d) a SIGTERM from the fault injector on the router's handler
+    inj = FaultInjector(FaultInjectionConfig(enabled=True, sigterm_steps=[12]))
+    fleet = FleetRouter(eng, dict(base, fleet=dict(fleet_cfg, install_sigterm=True)))
+    prev = None
+    try:
+        subs = [fleet.submit(it.prompt, max_new_tokens=it.max_new_tokens, seed=it.seed,
+                             tenant=it.tenant, slo_class=it.slo_class) for it in sub]
+        steps = 0
+        while (any(rep.srv.queue or any(s.request is not None for s in rep.srv.slots)
+                   for rep in fleet.alive()) or fleet._pending_preemption()):
+            if inj.fire("sigterm", steps):
+                check(inj.deliver_sigterm(), "phase 27 (d): no SIGTERM handler installed")
+            fleet.step()
+            steps += 1
+            check(steps < 4000, "phase 27 (d): the fleet did not drain")
+        fst = fleet.stats()["fleet"]
+        finished("phase 27 SIGTERM", subs)
+        check(inj.counts().get("sigterm") == 1 and fst["alive"] == 1
+              and fst["migrations_ok"] + fst["requeues"] >= 1,
+              f"phase 27 (d): sigterm {inj.counts()}, {fst}")
+        compare_tie_streams("phase 27 (d) SIGTERM streams against the single engine", eng,
+                            refs["bf16"][:len(sub)], subs, BF16_TIE_MARGIN)
+        print(f"SIGTERM at fleet step 12: victim "
+              f"{next(r.rid for r in fleet.replicas if not r.alive)} drained, migrations ok "
+              f"{fst['migrations_ok']:.0f}, requeues {fst['requeues']:.0f}, {len(subs)} of "
+              f"{len(sub)} finished, {steps} steps")
+    finally:
+        prev = signal.getsignal(signal.SIGTERM)
+        close_fleet("phase 27 (d)", fleet)
+    check(signal.getsignal(signal.SIGTERM) is not prev,
+          "phase 27 (d): close() left the router's SIGTERM handler installed")
+    del fleet, eng
+    gc.collect()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; the port's smoke run needs the card",
               file=sys.stderr)
         return 1
+    t_script = time.perf_counter()
 
     phase(0, "card")
     smi = subprocess.run(
@@ -4239,7 +4643,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    phase(27, "the serving fleet (2 replicas, live session migration over the crc manifest) "
+              "under the seeded trace-replay harness (the slice's path), bf16 and int8 pages")
+    fleet_phase(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     phase(8, "summary")
+    print(f"chip_smoke.py total {time.perf_counter() - t_script:.1f} s (builds included; {smi})")
     # launches: each kernel's (and mode's) count on the path of the slice
     # that ported it (the decode kernel: phase 3's default path; the
     # multi-token kernel: phase 3b's feature path; their int8 modes: phase

@@ -6,11 +6,12 @@ same fields, defaults and validation for the continuous-batching path
 (``kv_cache_dtype="int8"``), its three hot-path features: speculative
 decode (``speculative``), shared-prefix KV reuse (``prefix_cache``) and
 chunked prefill (``prefill_chunk_tokens``), and its SLO classes
-(``slo``), the host KV tier (``tiering``) and retries with backoff
-(``retry_max``). The sections of the features that have not been ported
-yet (tensor parallelism and disaggregation, the fleet) are accepted only at
-their off values: turning one on raises :class:`NotPortedError` instead of
-being silently ignored.
+(``slo``), the host KV tier (``tiering``), retries with backoff
+(``retry_max``) and the multi-replica fleet (``fleet``, read by
+``serving/fleet.py``'s ``FleetRouter``). The section of the features that
+have not been ported yet (tensor parallelism and disaggregation,
+``placement``) is accepted only at its off values: turning one on raises
+:class:`NotPortedError` instead of being silently ignored.
 
 ``TelemetryConfig``: the ``telemetry`` section of ``init_inference``'s and
 ``initialize``'s configs (the same fields, defaults and errors as the JAX
@@ -19,8 +20,8 @@ its watchdog, request-trace, kv-heat and time-series sections.
 ``telemetry.introspection.enabled`` raises :class:`NotPortedError`;
 ``watchdog.policy="rollback"`` restores the resilience plane's snapshots.
 ``SLOAlertsConfig`` is the fleet's
-burn-rate section, used standalone by ``telemetry.slo_budget`` while the
-fleet is not ported.
+burn-rate section (``serving.fleet.slo_alerts``), which
+``telemetry.slo_budget`` also takes standalone.
 
 ``DeepSpeedConfig``: the single-device training subset (the batch triple,
 ``fp16``/``bf16``, ``gradient_clipping``, ``optimizer``, ``scheduler``,
@@ -62,12 +63,11 @@ _UNPORTED_SECTIONS: Dict[str, Dict[str, Any]] = {
         "disaggregate": lambda v: not v,
         "device_base": lambda v: int(v) == 0,
     },
-    "fleet": {"enabled": lambda v: not v},
 }
 
 
 # the ROADMAP queue 1 item that ports each refused serving section
-_UNPORTED_ITEMS = {"placement": 11, "fleet": 9}
+_UNPORTED_ITEMS = {"placement": 11}
 
 
 def _not_ported(what: str, item: int) -> NotPortedError:
@@ -497,9 +497,9 @@ class SLOAlertsConfig(_ConfigModel):
     rules per class, each needing its short AND long window over threshold:
     ``fast`` (5m/1h at 14.4x) and ``slow`` (6h/3d at 1.0x) by default, in
     seconds of the journal's clock. ``for_s`` is the dwell before pending
-    promotes to firing. The fleet (``serving.fleet``) is not ported, so
-    ``backpressure`` has nothing to drive here; the section builds a
-    standalone ``SLOBudgetEngine``."""
+    promotes to firing. With ``backpressure`` on, a firing alert sheds
+    the fleet's admissions (``FleetRouter._should_shed``); the section
+    also builds a standalone ``SLOBudgetEngine``."""
 
     enabled: bool = False
     objective: float = 0.99
@@ -549,6 +549,72 @@ class SLOAlertsConfig(_ConfigModel):
 
 
 @dataclass
+class FleetConfig(_ConfigModel):
+    """``serving.fleet``: the multi-replica router with live session
+    migration (JAX ``runtime/config.py`` ``FleetConfig``; the same fields,
+    defaults and errors). ``serving/fleet.py``'s ``FleetRouter`` fronts
+    ``replicas`` serving engines over one set of weights and routes by
+    per-tenant SLO-class affinity, prefix locality (the prefix index and
+    the host tier) and load. With ``admit_attainment_floor`` > 0 it sheds
+    new requests (REJECTED) only while every replica's SLO attainment sits
+    below the floor; with ``slo_alerts.backpressure`` only while a
+    burn-rate alert fires. A preempted replica migrates its live decode
+    sessions to a peer through the crc-checked manifest; a corrupt payload
+    is a counted failure that re-queues the session. ``spread_devices``
+    gives each replica its own placement window in the JAX package; the
+    port has no placements (``placement`` is refused), so every replica
+    runs on the engine's one device."""
+
+    enabled: bool = False
+    replicas: int = 2
+    # "affinity" (SLO-class affinity -> prefix locality -> load; the
+    # default), "round_robin", "least_loaded"
+    policy: str = "affinity"
+    spread_devices: bool = True
+    # migrate live sessions on preemption; off = restart them on a peer
+    migrate_sessions: bool = True
+    # where migration manifests land; "" = a temporary directory a router
+    migration_dir: str = ""
+    # shed new sessions while EVERY replica's attainment (over >=
+    # min_slo_samples verdicts) sits below this floor; 0 = never
+    admit_attainment_floor: float = 0.0
+    min_slo_samples: int = 8
+    # a real SIGTERM handler on the router: a delivery preempts ONE
+    # replica, chosen by preempt_policy
+    install_sigterm: bool = False
+    preempt_policy: str = "most_loaded"   # most_loaded | first
+    slo_alerts: SLOAlertsConfig = field(default_factory=SLOAlertsConfig)
+
+    def __post_init__(self):
+        if isinstance(self.slo_alerts, dict):
+            self.slo_alerts = SLOAlertsConfig.from_dict(self.slo_alerts)
+        if int(self.replicas) < 1:
+            raise DeepSpeedConfigError(
+                f"serving.fleet.replicas must be >= 1, got {self.replicas}"
+            )
+        if self.policy not in ("affinity", "round_robin", "least_loaded"):
+            raise DeepSpeedConfigError(
+                "serving.fleet.policy must be one of 'affinity', "
+                f"'round_robin', 'least_loaded'; got {self.policy!r}"
+            )
+        if self.preempt_policy not in ("most_loaded", "first"):
+            raise DeepSpeedConfigError(
+                "serving.fleet.preempt_policy must be 'most_loaded' or "
+                f"'first'; got {self.preempt_policy!r}"
+            )
+        if not 0.0 <= float(self.admit_attainment_floor) <= 1.0:
+            raise DeepSpeedConfigError(
+                "serving.fleet.admit_attainment_floor must be in [0, 1], "
+                f"got {self.admit_attainment_floor}"
+            )
+        if int(self.min_slo_samples) < 1:
+            raise DeepSpeedConfigError(
+                "serving.fleet.min_slo_samples must be >= 1, got "
+                f"{self.min_slo_samples}"
+            )
+
+
+@dataclass
 class ServingConfig:
     """See ``deepspeed_tpu.runtime.config.ServingConfig`` for what each
     field means; the sizing rules are the same: ``num_pages`` pages of
@@ -580,6 +646,7 @@ class ServingConfig:
     prefix_cache: PrefixCacheConfig = field(default_factory=PrefixCacheConfig)
     slo: SLOConfig = field(default_factory=SLOConfig)
     tiering: TieringConfig = field(default_factory=TieringConfig)
+    fleet: FleetConfig = field(default_factory=FleetConfig)
 
     def __post_init__(self):
         for key in ("max_slots", "page_size", "num_pages", "max_prompt_len",
@@ -612,6 +679,8 @@ class ServingConfig:
             self.slo = SLOConfig.from_dict(self.slo)
         if isinstance(self.tiering, dict):
             self.tiering = _section_from_dict(TieringConfig, "tiering", self.tiering)
+        if isinstance(self.fleet, dict):
+            self.fleet = FleetConfig.from_dict(self.fleet)
         if self.tiering.enabled and not self.prefix_cache.enabled:
             raise DeepSpeedConfigError(
                 "serving.tiering requires serving.prefix_cache (demotion "
@@ -638,7 +707,7 @@ class ServingConfig:
             raise DeepSpeedConfigError(f"serving: unknown config keys {unknown}")
         kwargs = {}
         for key, value in d.items():
-            if key in ("speculative", "prefix_cache", "slo", "tiering"):
+            if key in ("speculative", "prefix_cache", "slo", "tiering", "fleet"):
                 kwargs[key] = value  # a section: __post_init__ builds it
             else:
                 typ = type(getattr(cls, key))  # every other field is a scalar

@@ -2,8 +2,8 @@
 REJECTED at the door / TIMED_OUT while still queued / PREEMPTED by a drain /
 FAILED when admission could not reserve its pages or a transient slot
 failure spent its retries (counterpart of
-``deepspeed_tpu/serving/request.py``, with its SLO, tenancy and retry
-fields, without the fleet fields of the features not ported).
+``deepspeed_tpu/serving/request.py``, with its SLO, tenancy, retry and
+fleet fields).
 """
 
 from __future__ import annotations
@@ -50,6 +50,11 @@ class Request:
     # scheduler resolves unknown/empty to the configured default)
     tenant: str = "default"
     slo_class: str = ""
+    # -- fleet ----------------------------------------------------------
+    # the replica serving this request: stamped by the FleetRouter when it
+    # routes and again when a session migrates or restarts on a peer ("" =
+    # no fleet); the terminal trace record carries it (--by replica)
+    replica: str = ""
 
     # -- resilience -----------------------------------------------------
     # transient-failure retries consumed (the scheduler's retry with backoff)

@@ -75,6 +75,19 @@ a crc mismatch or a broken chain stops the walk and the rest recomputes.
 When the pool's free list drops under an eighth of its pages, cold leaves
 are demoted ahead of the admissions that would need them.
 
+Live session migration, for the fleet (``serving/fleet.py``; JAX
+scheduler.py:2236-2490): :meth:`export_session` packs a decoding slot's
+whole ``pages_per_slot``-wide page row, k and v (and the int8 scales), with
+the request and slot state; :meth:`release_slot` frees the slot without
+terminal accounting; :meth:`adopt_session` rebuilds the session in a free
+slot of another engine and decoding resumes where it stopped;
+:meth:`takeover_queue` / :meth:`adopt_request` move queued requests. The
+transport is two captured programs built on first use over one pair of
+static row buffers (``serving_kv_gather`` fills them from the pools,
+``serving_kv_scatter`` writes them into the pools; pad entries address
+the scratch page), kept out of ``executables`` as the JAX engine keeps its
+migration programs out of its set.
+
 Telemetry, as the JAX engine's: ``self.metrics`` is the owning engine's
 registry (``init_inference(config={"telemetry": ...})``) or a private one,
 carrying every serving instrument under JAX's family names; the request
@@ -154,6 +167,7 @@ class _Slot:
     request: Optional[Request] = None
     pages: List[int] = field(default_factory=list)  # full row: shared + private
     pos: int = 0    # tokens currently in this slot's cache
+    step: int = 0   # decode (or verify) steps completed
     # the decode steps' keys (temperature > 0): [max_new_tokens - 1, 2]
     keys: Optional[np.ndarray] = None
     # True while the prompt prefills chunk by chunk; the main table row then
@@ -676,6 +690,9 @@ class ServingEngine:
         self._restore_prog = None
         if self.tiering is not None:
             self._build_restore_program(program)
+        # the migration transport, built by the first export or adoption
+        self._migrate_gather = self._migrate_scatter = None
+        self._migrate_rows: List[torch.Tensor] = []
 
     def _build_restore_program(self, program) -> None:
         """The host tier's restore program (JAX scheduler.py:1044-1085): a
@@ -716,6 +733,47 @@ class ServingEngine:
             if host is not None:
                 self._restore_src[name].copy_(host, non_blocking=cuda)
         self._restore_prog()
+
+    def _ensure_migration_programs(self) -> None:
+        """The migration transport (JAX scheduler.py:2236-2300), built on
+        first use: static row buffers ``[L, pages_per_slot, KV, page, D]``
+        for k and v (and ``[L, pages_per_slot, KV, 2]`` for the int8
+        scales); ``serving_kv_gather`` fills them from the pools at a
+        slot's page ids, ``serving_kv_scatter`` writes them into the pools
+        at freshly allocated ones. Page-id lists are padded to the static
+        width with the scratch page, which no live slot reads, so each
+        program is one captured graph an engine. Neither is in
+        ``executables``."""
+        if self._migrate_gather is not None:
+            return
+        pset, dev, W = self.pset, self.device, self.pages_per_slot
+        sfx = "_int8" if pset.scales is not None else ""
+
+        def pools():
+            return [pset.k_pool, pset.v_pool] + ([pset.scales] if pset.scales is not None else [])
+
+        rows = [torch.empty((p.shape[0], W) + tuple(p.shape[2:]), dtype=p.dtype, device=dev)
+                for p in pools()]
+        src_ids = StaticInputs({"ids": (W,)}, dev)
+        dst_ids = StaticInputs({"dst": (W,)}, dev)
+
+        def gather():
+            # the source's pools are read, not written: its row stays live
+            # until the peer's adoption has validated the payload
+            ids = src_ids.dev["ids"].long()
+            with torch.no_grad():
+                for pool, row in zip(pools(), rows):
+                    torch.index_select(pool, 1, ids, out=row)
+
+        def scatter():
+            dst = dst_ids.dev["dst"].long()
+            with torch.no_grad():
+                for pool, row in zip(pools(), rows):
+                    pool.index_copy_(1, dst, row)
+
+        self._migrate_rows = rows
+        self._migrate_gather = CapturedProgram("serving_kv_gather" + sfx, gather, dev, src_ids)
+        self._migrate_scatter = CapturedProgram("serving_kv_scatter" + sfx, scatter, dev, dst_ids)
 
     @property
     def expected_executables(self) -> int:
@@ -959,6 +1017,7 @@ class ServingEngine:
                 req = slot.request
                 self._decode_tokens += len(toks)
                 slot.pos += len(toks)
+                slot.step += 1
                 self.table.seq_lens[i] = slot.pos
                 self.table.tokens[i] = toks[-1]
                 if len(req.tokens) >= req.max_new_tokens or (
@@ -1704,6 +1763,196 @@ class ServingEngine:
         for k, v in device_hbm_stats(self.device).items():
             self.metrics.gauge(f"hbm_{k}", "device 0 HBM (memory_stats)").set(v)
         return out
+
+    # ------------------------------------------------------------------
+    # live session migration (the fleet's hooks; JAX scheduler.py:2302-2490)
+    # ------------------------------------------------------------------
+    def export_session(self, slot_i: int):
+        """Slot ``slot_i``'s live decode session for migration →
+        ``(state, arrays)``: the JSON-able request and slot state, and the
+        page row gathered by ``serving_kv_gather`` as CPU tensors
+        (``k_pages``, ``v_pages``, ``kv_scales`` with int8 pages) plus the
+        sampling keys (``keys``, uint32 ``[max_new_tokens - 1, 2]``), the
+        JAX engine's names, shapes and dtypes. The slot is untouched: pair
+        with :meth:`release_slot` once the payload is written."""
+        slot = self.slots[slot_i]
+        req = slot.request
+        if req is None:
+            raise ValueError(f"slot {slot_i} is empty")
+        if slot.prefilling:
+            raise ValueError(
+                f"slot {slot_i} is still prefilling — nothing emitted yet; "
+                "requeue it instead of migrating"
+            )
+        self._ensure_migration_programs()
+        n = len(slot.pages)
+        ids = self._migrate_gather.inputs.staging()["ids"]
+        ids[:] = 0
+        ids[:n] = slot.pages
+        self._migrate_gather()
+        # the export's one device read: host copies of the row buffers,
+        # which the next gather rewrites
+        packed = [row.to("cpu", copy=True) for row in self._migrate_rows]
+        arrays = {"k_pages": packed[0], "v_pages": packed[1]}
+        if self.pset.scales is not None:
+            arrays["kv_scales"] = packed[2]
+        if slot.keys is not None:
+            arrays["keys"] = np.asarray(slot.keys, np.uint32)
+        state = {
+            "kind": "migration",
+            "id": int(req.id),
+            "prompt": [int(t) for t in req.prompt_list],
+            "tokens": [int(t) for t in req.tokens],
+            "seed": int(req.seed),
+            "max_new_tokens": int(req.max_new_tokens),
+            "requested_new_tokens": req.requested_new_tokens,
+            "eos_token_id": req.eos_token_id,
+            "deadline_s": req.deadline_s,
+            "retries": int(req.retries),
+            "tenant": req.tenant,
+            "slo_class": req.slo_class,
+            "prefix_shared_tokens": int(req.prefix_shared_tokens),
+            "cow_forked": bool(req.cow_forked),
+            "t_submit": req.t_submit,
+            "t_admit": req.t_admit,
+            "t_requeue": req.t_requeue,
+            "t_first_token": req.t_first_token,
+            "t_emissions": [float(t) for t in req.t_emissions],
+            "pos": int(slot.pos),
+            "step": int(slot.step),
+            "n_pages": n,
+            "last_token": int(self.table.tokens[slot_i]),
+        }
+        return state, arrays
+
+    def release_slot(self, slot_i: int, now: Optional[float] = None) -> Request:
+        """Free a migrated-out session's slot WITHOUT terminal accounting:
+        pages back to the allocator, table row cleared, the request handed
+        back still RUNNING (it finishes on the peer). This engine can never
+        emit for the session again."""
+        slot = self.slots[slot_i]
+        req = slot.request
+        if req is None:
+            raise ValueError(f"slot {slot_i} is empty")
+        if now is None:
+            now = self.clock()
+        if self._heat_decode is not None:
+            self._heat_decode.session_end(now, slot_i)
+        self.allocator.free(slot.pages)
+        self.table.clear(slot_i)
+        self.slots[slot_i] = _Slot()
+        return req
+
+    def adopt_session(self, state: dict, arrays: dict, request: Optional[Request] = None):
+        """Rebuild a migrated decode session from a validated payload: a
+        private page row, the KV written by ``serving_kv_scatter``, and
+        decoding resumes where the source stopped (the drafter's index
+        rebuilds from prompt + tokens; the sampling keys ride the payload).
+        → the live request, or None when this engine cannot host it (no
+        free slot or pages; the router requeues elsewhere). ``request``
+        re-binds the caller's handle; without it the request is rebuilt
+        from ``state`` (a payload from another process or package).
+        ``arrays`` may hold numpy arrays or CPU tensors."""
+        if self._draining:
+            return None
+        slot_i = next((i for i, s in enumerate(self.slots) if s.request is None), None)
+        if slot_i is None:
+            return None
+        n = int(state["n_pages"])
+        if n > self.pages_per_slot:
+            raise ValueError(
+                f"migration payload needs {n} pages/slot, this engine "
+                f"holds {self.pages_per_slot}"
+            )
+        self._ensure_migration_programs()
+        names = ("k_pages", "v_pages") + (("kv_scales",) if self.pset.scales is not None else ())
+        payload = [torch.as_tensor(arrays[name]) for name in names]
+        for name, src, row in zip(names, payload, self._migrate_rows):
+            if tuple(src.shape) != tuple(row.shape) or src.dtype != row.dtype:
+                raise ValueError(
+                    f"migration payload {name} is {tuple(src.shape)} {src.dtype}, this "
+                    f"engine's row is {tuple(row.shape)} {row.dtype}"
+                )
+        if n > self.allocator.free_pages and self.prefix_cache is not None:
+            self.prefix_cache.evict(need_free=n)
+            self._g_index_pages.set(len(self.prefix_cache))
+        try:
+            pages = self.allocator.alloc(n)
+        except PageAllocatorError:
+            return None
+        if request is not None:
+            req = request
+            if int(req.id) != int(state["id"]):
+                self.allocator.free(pages)
+                raise ValueError(
+                    f"migration payload id {state['id']} does not match "
+                    f"request {req.id}"
+                )
+        else:
+            req = Request(
+                prompt=np.asarray(state["prompt"], np.int32),
+                max_new_tokens=int(state["max_new_tokens"]),
+                seed=int(state["seed"]),
+                eos_token_id=state["eos_token_id"],
+                deadline_s=state["deadline_s"],
+                tenant=state["tenant"],
+                slo_class=state["slo_class"],
+            )
+            req.id = int(state["id"])
+            req.requested_new_tokens = state["requested_new_tokens"]
+            req.retries = int(state["retries"])
+            req.prefix_shared_tokens = int(state["prefix_shared_tokens"])
+            req.cow_forked = bool(state["cow_forked"])
+            req.t_submit = state["t_submit"]
+            req.t_admit = state["t_admit"]
+            req.t_requeue = state["t_requeue"]
+            req.t_first_token = state["t_first_token"]
+        req.tokens = [int(t) for t in state["tokens"]]
+        req.t_emissions = [float(t) for t in state["t_emissions"]]
+        req.status = RequestStatus.RUNNING
+        req.draft_state = None
+        dst = self._migrate_scatter.inputs.staging()["dst"]
+        dst[:] = 0
+        dst[:n] = pages
+        for src, row in zip(payload, self._migrate_rows):
+            row.copy_(src)
+        self._migrate_scatter()
+        slot = self.slots[slot_i]
+        slot.request = req
+        slot.pages = list(pages)
+        slot.pos = int(state["pos"])
+        slot.step = int(state["step"])
+        slot.prefilling = False
+        keys = arrays.get("keys")
+        if keys is not None:
+            slot.keys = np.asarray(keys, np.uint32)
+        self.table.assign(slot_i, slot.pages)
+        self.table.seq_lens[slot_i] = slot.pos
+        self.table.tokens[slot_i] = int(state["last_token"])
+        if slot.keys is not None and slot.step < len(slot.keys):
+            self.table.keys[slot_i] = slot.keys[slot.step]
+        return req
+
+    def takeover_queue(self) -> List[Request]:
+        """Hand the whole waiting queue to the caller (the router reroutes
+        a draining replica's backlog). The requests stay QUEUED; this
+        engine forgets them."""
+        out = list(self.queue)
+        self.queue.clear()
+        self._g_queue.set(0)
+        return out
+
+    def adopt_request(self, req: Request) -> bool:
+        """Enqueue a request rerouted from a peer replica (validated at its
+        original submit; only the live gates apply). False = this engine
+        cannot take it (draining, or the queue is full)."""
+        if self._draining:
+            return False
+        if len(self.queue) >= int(self.config.max_queue_depth):
+            return False
+        self.queue.append(req)
+        self._g_queue.set(len(self.queue))
+        return True
 
     def release_prefix_cache(self) -> int:
         """Drop every prefix-index reference (teardown, tests): afterwards a

@@ -348,7 +348,12 @@ class KVTieringEngine:
                 if self._closed and not self._queue:
                     return
                 batch, self._queue = self._queue, []
-                self._wake.clear()
+                if not self._closed:
+                    # once closed the wake stays set, so the loop drains
+                    # what close() found queued and returns; clearing it
+                    # here would leave the worker waiting for a wake that
+                    # close() already spent
+                    self._wake.clear()
             for hid, event in batch:
                 try:
                     if event is not None:

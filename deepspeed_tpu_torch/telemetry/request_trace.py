@@ -28,6 +28,14 @@ TTFT blew its SLO". The :class:`RequestTracer` records the full timeline:
 - ``retry`` — a transient failure evicted the slot and re-queued the
   request (deadline timeouts and drain preemptions emit no event; they
   land as the terminal record's ``status``),
+- ``migration`` — the fleet moved a live decode session between
+  replicas (``serving/fleet.py``): ``src``, ``dst``, ``pages``, ``bytes``
+  and ``blackout_s`` when it landed; ``src``, ``dst`` ("" with no peer),
+  ``status`` (``crc_failed`` | ``no_capacity``) and ``reason`` when it
+  failed and the session restarted,
+- ``requeue`` — the fleet restarted (or rerouted) the request on a peer:
+  ``cause`` and the adopting ``replica``; ``cause`` alone when no replica
+  could take it and it went PREEMPTED,
 - ``kv_handoff`` — disaggregated serving (not ported yet; the JAX
   package's records may carry it): the prompt KV copied from the prefill
   placement's pool into the decode placement's,
@@ -45,7 +53,8 @@ tensor ops — cheap enough to run always-on.
 Scoring (:func:`score_requests`) turns a set of records into per-tenant /
 per-SLO-class **goodput** (tokens from SLO-met requests per second of wall
 clock) and **SLO attainment** (fraction of completed requests meeting both
-TTFT and TPOT targets). The JAX package's CLI (``tools/request_trace.py``)
+TTFT and TPOT targets). The CLI (``tools/request_trace.py``, with
+:func:`request_phases` and :func:`time_binned`)
 renders waterfalls, aggregate reports and diffs from the same records.
 """
 
@@ -242,9 +251,9 @@ class RequestTracer:
             "id": req.id,
             "tenant": req.tenant,
             "slo_class": req.slo_class,
-            # fleet replica that finished the request ("" = no fleet, the
-            # only case in this package)
-            "replica": getattr(req, "replica", ""),
+            # fleet replica that finished the request ("" = no fleet): the
+            # router stamps it when it routes and restamps it on migration
+            "replica": req.replica,
             "status": req.status,
             "detail": req.detail,
             "prompt_len": req.prompt_len,
@@ -531,6 +540,25 @@ def histogram_quantile(
     return quantile_from_buckets(bs, counts, len(values), q)
 
 
+def request_phases(rec: Dict[str, Any]) -> Dict[str, Optional[float]]:
+    """One record's queue / prefill / decode phase durations (seconds).
+    ``prefill`` = admission → first sampled token (chunked prefill included:
+    every chunk is prefill work); ``decode`` = first token → finish. A
+    retried request's queue phase measures from its re-queue (the failed
+    attempt's service time is not admission pressure — the phases then sum
+    short of ``total_s`` by exactly that attempt's span)."""
+    ts, ta = rec.get("t_submit"), rec.get("t_admit")
+    tf, te = rec.get("t_first_token"), rec.get("t_finish")
+    tq = rec.get("t_requeue")
+    q0 = tq if tq is not None else ts
+    return {
+        "queue_s": (ta - q0) if ta is not None and q0 is not None else None,
+        "prefill_s": (tf - ta) if tf is not None and ta is not None else None,
+        "decode_s": (te - tf) if te is not None and tf is not None else None,
+        "total_s": (te - ts) if te is not None and ts is not None else None,
+    }
+
+
 def slo_met(rec: Dict[str, Any]) -> Optional[bool]:
     """The record's embedded SLO verdict; None when the run had no SLO
     config (nothing to attain) or the request never completed cleanly."""
@@ -647,3 +675,41 @@ def score_requests(
         "overall": overall,
     }
 
+
+def time_binned(
+    records: Sequence[Dict[str, Any]], bins: int = 10
+) -> List[Dict[str, Any]]:
+    """Bin records by submit time into ``bins`` equal windows; per bin the
+    mean queue/prefill/decode split and the arrival count — the bursty
+    replay workload's load/latency shape at a glance."""
+    recs = [r for r in records if r.get("t_submit") is not None]
+    if not recs:
+        return []
+    t0 = min(r["t_submit"] for r in recs)
+    t1 = max(r["t_submit"] for r in recs)
+    width = max((t1 - t0) / max(1, bins), 1e-12)
+    out = []
+    for b in range(bins):
+        lo, hi = t0 + b * width, t0 + (b + 1) * width
+        # the last bin is closed above by ">= lo" alone: recomputing its
+        # upper edge as t0 + bins*width can land a float ulp BELOW the true
+        # max submit time, which would silently drop the latest arrival
+        last = b == bins - 1
+        sel = [
+            r for r in recs
+            if (r["t_submit"] >= lo if last else lo <= r["t_submit"] < hi)
+        ]
+        phases = [request_phases(r) for r in sel]
+
+        def _mean(k):
+            vals = [p[k] for p in phases if p[k] is not None]
+            return (sum(vals) / len(vals)) if vals else None
+        out.append({
+            "t_start": lo,
+            "t_end": hi,
+            "arrivals": len(sel),
+            "queue_mean_s": _mean("queue_s"),
+            "prefill_mean_s": _mean("prefill_s"),
+            "decode_mean_s": _mean("decode_s"),
+        })
+    return out

@@ -27,10 +27,11 @@ and bump ``slo_alerts_total{slo_class,rule,state}``; every evaluation
 refreshes ``slo_error_budget_remaining{slo_class}`` and
 ``slo_burn_rate{slo_class,window}`` gauges.
 
-The fleet hook: in the JAX package :meth:`SLOBudgetEngine.firing` feeds
-``FleetRouter._should_shed`` when ``serving.fleet.slo_alerts.backpressure``
-is on; the fleet is not ported yet (ROADMAP queue 1 item 9), so here the
-engine runs standalone over a journal.
+The fleet hook: :meth:`SLOBudgetEngine.firing` feeds
+``serving/fleet.py``'s ``FleetRouter._should_shed`` when
+``serving.fleet.slo_alerts.backpressure`` is on, and the router's step
+calls :meth:`maybe_evaluate`; the engine also runs standalone over a
+journal.
 
 Counter sources (written by the scheduler's ``_req_terminal`` funnel):
 ``serving_slo_evaluated_total{slo_class}`` /

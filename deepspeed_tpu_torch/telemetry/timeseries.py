@@ -42,8 +42,9 @@ Record kinds::
 
 Consumers: ``ServingEngine`` (step-cadence ``maybe_snapshot`` hook +
 journal-backed windowed goodput), ``telemetry/slo_budget.py`` (error
-budget / burn-rate alerting over the in-memory mirror) and the JAX
-package's ``tools/fleet_dash.py`` (offline :func:`load_journal` + the query
+budget / burn-rate alerting over the in-memory mirror), the fleet router
+(``serving/fleet.py``: its per-replica gauges, one snapshot a fleet step)
+and ``tools/fleet_dash.py`` (offline :func:`load_journal` + the query
 API).
 """
 

@@ -30,8 +30,10 @@ program's capture stream: the warm-up, a real step, in which the kernels'
 libraries, cuBLAS handles, the kernels' split scratch and the cached
 device scalars are made outside any graph's pool. The second call captures
 the function into a ``torch.cuda.CUDAGraph`` with a private memory pool
-and replays it; later calls replay. A capture that fails raises: nothing
-falls back to eager. The kernel wrappers count their launches in one
+and replays it; later calls replay. Python's cyclic garbage collector is
+off during a capture (a graph collected there would reset inside it). A
+capture that fails raises: nothing falls back to eager. The kernel
+wrappers count their launches in one
 registry (``ops/launches.py``), which a replay skips, so the program
 records the registry's increase during the capture, restores it (a capture
 launches nothing) and adds the increase on every replay: the counts equal
@@ -60,6 +62,7 @@ profiling tools' ``--eager``.
 
 from __future__ import annotations
 
+import gc
 import math
 import time
 from typing import Any, Callable, Dict, List, Optional
@@ -225,10 +228,18 @@ class CapturedProgram:
         t0 = time.perf_counter()
         s.wait_stream(cur)
         _HELD = []
+        # no cyclic garbage collection while capturing: a dead engine's
+        # programs (a replica, an engine dropped by its caller) sit in
+        # reference cycles, and a graph destroyed mid-capture resets inside
+        # the capture, which invalidates it; they are collected after
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph, pool=torch.cuda.graph_pool_handle(), stream=s):
                 out = self.fn()
         finally:
+            if collecting:
+                gc.enable()
             after = dict(LAUNCHES)
             for name in after:
                 LAUNCHES[name] = before.get(name, 0)

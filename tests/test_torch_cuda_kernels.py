@@ -1304,3 +1304,46 @@ def test_threefry_uniform_rows_kernel_is_its_plain_version(card, R, n, lo):
     keys = prng.split(prng.PRNGKey(R), R)
     got = prng.uniform_rows_kernel(keys, n, lo, 1.0, card)
     assert torch.equal(got, prng.uniform_rows_ref(keys, n, lo, 1.0, card))
+
+
+def test_capture_survives_a_dead_program_collected_during_it(card):
+    """A captured program whose last reference sits in a young dead cycle
+    (a dropped serving replica's), collected while another program
+    captures, must not reset its graph inside that capture: the collector
+    is off while a capture runs."""
+    import gc
+
+    from deepspeed_tpu_torch.utils.graphs import CapturedProgram
+
+    x = torch.zeros(16, device=card)
+    dead = CapturedProgram("dead", lambda: x.add_(1), card)
+    dead()
+    dead()  # the warm-up, then the capture
+    assert dead.graph is not None
+    owner = [dead]  # the one reference to the program
+    del dead
+    y = torch.zeros(16, device=card)
+    calls = [0]
+
+    def fn():
+        calls[0] += 1
+        if calls[0] == 2:  # inside the capture
+            box = [owner.pop()]
+            box.append(box)  # a new cycle holds the program's last reference
+            del box
+            junk = [[i] for i in range(2000)]  # allocations that run the collector
+            assert len(junk) == 2000
+        return y + 1
+
+    live = CapturedProgram("live", fn, card)
+    live()
+    threshold = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        out = live()
+    finally:
+        gc.set_threshold(*threshold)
+    assert live.graph is not None and not owner
+    gc.collect()  # the dead program goes here, outside any capture
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.ones(16, device=card))

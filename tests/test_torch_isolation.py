@@ -75,6 +75,16 @@ def test_the_slice_modules_are_scanned():
     assert (REPO / "deepspeed_tpu_torch/csrc/paged_multitoken_attention.cu").is_file()
 
 
+def test_the_fleet_modules_are_scanned():
+    """The fleet, the replay harness and their CLIs are part of what the
+    scans above cover."""
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for mod in ("serving/fleet.py", "serving/replay.py", "tools/request_trace.py",
+                "tools/fleet_dash.py", "telemetry/request_trace.py", "resilience/manifest.py",
+                "elasticity/preemption.py"):
+        assert f"deepspeed_tpu_torch/{mod}" in names
+
+
 def test_multitoken_dispatch_has_no_other_route():
     """CPU tensors run the plain version, CUDA tensors the kernel; any other
     device raises instead of finding a fallback."""

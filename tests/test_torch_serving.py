@@ -346,8 +346,9 @@ class TestTimeoutEviction:
     {"placement": {"tp": 2, "disaggregate": True}},
     {"placement": {"tp": 2}},
     {"placement": {"disaggregate": True}},
-    {"fleet": {"enabled": True, "replicas": 2}},
-    {"fleet": {"enabled": True}},
+    # the fleet is ported: beside it, a placement still raises
+    {"fleet": {"enabled": True, "replicas": 2}, "placement": {"tp": 2}},
+    {"fleet": {"enabled": True}, "placement": {"decode_tp": 2}},
     {"placement": {"device_base": 1}},
     {"placement": {"tp": 4}},
 ])

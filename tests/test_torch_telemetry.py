@@ -451,9 +451,11 @@ def test_refusals_name_their_roadmap_item():
     with pytest.raises(NotPortedError, match="item 14"):
         tconfig.DeepSpeedConfig.from_dict({"train_batch_size": 8,
                                            "tensorboard": {"enabled": True}})
-    # an off section is accepted by the training config, and the fleet stays refused
+    # an off section is accepted by the training config; the fleet (item 9)
+    # is ported, and the placement beside it stays refused
     tconfig.DeepSpeedConfig.from_dict({"train_batch_size": 8, "telemetry": {"enabled": False}})
-    with pytest.raises(NotPortedError, match="item 9"):
-        tconfig.ServingConfig.from_dict({"fleet": {"enabled": True}})
+    assert tconfig.ServingConfig.from_dict({"fleet": {"enabled": True}}).fleet.enabled
+    with pytest.raises(NotPortedError, match="item 11"):
+        tconfig.ServingConfig.from_dict({"fleet": {"enabled": True}, "placement": {"tp": 2}})
     with pytest.raises(NotPortedError, match="item 11"):
         tconfig.ServingConfig.from_dict({"placement": {"tp": 2}})

@@ -392,6 +392,47 @@ def test_stats_and_host_metadata_itemize_host_bytes(engine):
     _finish(srv)
 
 
+def test_close_with_spills_queued_ends_the_worker(engine):
+    """close() while the spill worker is busy with one batch and a second
+    batch waits behind it: the worker drains both and exits, and close()
+    returns without waiting out its join timeout (the worker used to
+    clear the wake close() had set and wait forever)."""
+    import threading
+    import time
+
+    srv = _tiered(engine)
+    rs = np.random.RandomState(37)
+    for i in range(3):
+        srv.submit(rs.randint(0, VOCAB, (12,)).astype(np.int32), max_new_tokens=4, seed=i)
+    srv.run()
+    tier, pc = srv.tiering, srv.prefix_cache
+    assert len(pc) >= 2
+    entered, gate = threading.Event(), threading.Event()
+    seal = tier.store.seal
+
+    def held_seal(hid):
+        entered.set()
+        gate.wait()
+        seal(hid)
+
+    tier.store.seal = held_seal
+    pc.evict(keep=len(pc) - 1)  # batch 1: the worker takes it and holds
+    assert entered.wait(5.0)
+    pc.evict(keep=0)            # batch 2: queued behind it
+    closer = threading.Thread(target=tier.close)
+    t0 = time.perf_counter()
+    closer.start()
+    gate.set()
+    closer.join(10.0)
+    assert not closer.is_alive() and not tier._worker.is_alive()
+    assert time.perf_counter() - t0 < 4.0
+    assert tier.stats()["spills"] == srv.stats()["prefix_demotions"] >= 2
+    tier.store.seal = seal
+    srv.drain()
+    srv.release_prefix_cache()
+    srv.check_no_leaks()
+
+
 # ---------------------------------------------------------------------------
 # D lands before the F/E pair: a seeded lockstep fuzz
 # ---------------------------------------------------------------------------

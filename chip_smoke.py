@@ -169,7 +169,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      (F.dropout, torch.rand: other streams of bits, timed only) and the
      bound (71 instructions an element for dropout, 72 for a uniform, at
      the card's issue ceiling of 132 x 128 x 1.98e9 a second, against the
-     bytes at 3.35 TB/s).
+     bytes at 3.35 TB/s). Then phase 28's (e) (below).
   17 phase 6's training at dropout 0.1, 12 steps: losses finite and
      falling; the dropout launches exactly 2 x (1 + 2 x 24) x gas x 12
      (derived and printed first), flash and AdamW as in phase 6; step ms
@@ -319,7 +319,26 @@ Phases, in order; any failure raises and the script exits non-zero:
      status, bytes a migration, the blackout by part (export, manifest
      write, validate, load, adopt), TTFT/TPOT p50/p99 of the fleet against
      the single engine (wall time at step resolution) and stats().
-  8  (last, after 27) the script's total seconds, then one JSON line of per-kernel numbers, every kernel and
+  28 comm/ on NCCL and ZeRO stages 1-3 at world 1 (comm/, parallel/,
+     runtime/zero/): a world-1 NCCL group from RANK/WORLD_SIZE/MASTER_ADDR
+     and a free MASTER_PORT. (a) every collective on CUDA tensors equals
+     its input, the comms logger's records carry each op's count and bytes,
+     measure() prints its table. (b) phase 6's run (gpt2-medium bf16, micro
+     8 x gas 2, AdamW, WarmupLR, clipping 1.0) at zero_optimization.stage
+     0, 1, 2 and 3 with mesh {dp: -1}, 4 steps each (the first eager, the
+     second captured, then replays): stages 1-3's losses and final master
+     equal stage 0's bit for bit, flash launches 24 x 2 x 4 each way and
+     fused AdamW 4, the collectives of step 1 by kind equal to the stage's
+     plan; step ms (median of steps 3-4) and memory_breakdown() by stage.
+     (c) phase 15's LAMB run (bert-large) at stage 2 against stage 0, 3
+     steps: equal bit for bit, LAMB launches 2 a step. (d) a resilient save
+     at stage 3 (gpt2-medium width, 4 layers) loaded into a stage-0 engine:
+     the next step's loss and master equal the unbroken run's bit for bit.
+     (e), in phase 16: the dropout kernel at element offset numel / 2 (a
+     [4] key with shard 1) equals the second half of the full draw bit for
+     bit and its plain version; offsets past 2^32 against the plain
+     version; timed beside the offset-0 kernel.
+  8  (last, after 28) the script's total seconds, then one JSON line of per-kernel numbers, every kernel and
      mode with its launches on the path that ported it (the block-sparse
      kernels: phase 11's, and the three at blocks 16/32 at BERT's shape
      with phase 12's; fused AdamW: phase 6's; fused LAMB: phase 15's;
@@ -1422,7 +1441,7 @@ def threefry_kernels_phase():
             err = lib.threefry_dropout_launch(x.data_ptr(), out_view.data_ptr(), x.numel(),
                                               dkey.data_ptr(), prng.keep_threshold(p), c, r,
                                               int(mul),
-                                              prng.DTYPES[dt],
+                                              prng.DTYPES[dt], 2,
                                               torch.cuda.current_stream().cuda_stream)
             check(err == 0, f"phase 16: launch into a view failed ({err})")
             torch.cuda.synchronize()
@@ -1448,7 +1467,38 @@ def threefry_kernels_phase():
           f"{bound:.5f} ({by}: {THREEFRY_OPS['dropout']} instructions an element at "
           f"{ISSUE_OPS_PER_S:.4e}/s; {nbytes} bytes at 3.35 TB/s); kernel at "
           f"{bound / ms:.3f} of bound")
-    del x
+    # 28e, the element offset (a data-parallel rank's slice of the global
+    # draw): a [4] device key with shard s draws elements [s n, (s + 1) n)
+    full = prng.dropout_kernel(x, key, 0.1)
+    n_half = x.numel() // 2
+    for s_idx, part in ((0, x[:4]), (1, x[4:])):
+        skey = prng.device_keys(prng.shard_key(key, s_idx), "cuda")
+        y = prng.dropout_kernel(part, skey, 0.1)
+        y_ref = tdo.dropout_ref(part, skey, 0.1)
+        torch.cuda.synchronize()
+        check(torch.equal(y, full[4 * s_idx:4 * s_idx + 4]) and torch.equal(y, y_ref),
+              f"28e: dropout at element offset {s_idx * n_half} differs from the full draw's "
+              f"slice ({int((y != full[4 * s_idx:4 * s_idx + 4]).sum())}) or from its plain "
+              f"version ({int((y != y_ref).sum())})")
+    # offsets past 2^32 (the counter's high word) and a slice whose counters
+    # cross 2^32 (the kernel's 64-bit walk), against the plain version
+    small = torch.randn(8000 + 3, generator=g, device="cuda").to(torch.bfloat16)
+    for s_idx in (2 ** 32 // small.numel(), 2 ** 32 // small.numel() + 1, 3 * 2 ** 20 + 7):
+        skey = prng.device_keys(prng.shard_key(key, s_idx), "cuda")
+        y, y_ref = prng.dropout_kernel(small, skey, 0.1), tdo.dropout_ref(small, skey, 0.1)
+        torch.cuda.synchronize()
+        check(torch.equal(y, y_ref), f"28e: dropout at shard {s_idx} (offset "
+                                     f"{s_idx * small.numel()}) differs from its plain version")
+    skey = prng.device_keys(prng.shard_key(key, 1), "cuda")
+    ms_off, _ = time_ms(lambda i: prng.dropout_kernel(x, skey, 0.1), 50)
+    ms_0, _ = time_ms(lambda i: prng.dropout_kernel(x, dkey, 0.1), 50)
+    print(f"28e: dropout at element offset {n_half} (shard 1 of [4, 1024, 1024]) equals the "
+          "second half of the full draw bit for bit, and shard 0 the first; offsets past 2^32 "
+          "and a slice across 2^32 equal the plain version. Device ms per call at "
+          f"{S16}: offset {x.numel()} (shard 1) {ms_off:.4f}, offset 0 (a [2] key) {ms_0:.4f}, "
+          f"the same call's ratio {ms_off / ms_0:.4f}")
+    out["dropout_offset_ms"] = ms_off
+    del x, full, small
     V = 50257
     for R, n in ((1, 8 * V), (16, V)):
         keys = prng.split(prng.PRNGKey(R), R)
@@ -3431,6 +3481,195 @@ def fleet_phase(smi, model="gpt2-medium", dtype=torch.bfloat16, device=None, ove
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 28: comm/ on NCCL and ZeRO stages 1-3 at world 1
+# ---------------------------------------------------------------------------
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def zero_run(label, module, conf, batch, steps, stage, extra=None):
+    """``steps`` steps of ``conf`` at ZeRO ``stage`` over ``mesh: {dp: -1}``
+    with the counts at 0 (step 1 eager, 2 captured, then replays, each
+    closed by a sync) → (engine, losses, step seconds, the comms logger's
+    calls of step 1 by kind, the training kernels' launches)."""
+    from deepspeed_tpu_torch import comm
+
+    c = dict(conf, mesh={"dp": -1}, zero_optimization={"stage": stage}, **(extra or {}))
+    eng, *_ = dtt.initialize(model=module, config=c, seed=0)
+    check(eng.distributed and eng.zero_optimization_stage() == stage,
+          f"{label}: the engine is not on the process group at stage {stage}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_flash_launches()
+    reset_optimizer_launches()
+    losses, step_s, step_comms = [], [], {}
+    for i in range(steps):
+        comm.comms_logger.reset()
+        t0 = time.perf_counter()
+        m = eng.train_batch(batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        if i == 0:
+            step_comms = comm.comms_logger.counts()
+    launches = dict(counts(fa.KERNELS), **counts(fadam.KERNELS))
+    return eng, losses, step_s, step_comms, launches
+
+
+def zero_phase(smi):
+    """Phase 28: the collectives on NCCL at world 1, then ZeRO stages 1-3
+    against stage 0 bit for bit on the captured training step (GPT-2 with
+    AdamW, BERT with LAMB), a stage-3 resilient tag loaded at stage 0, and
+    the collectives a step against each stage's plan."""
+    from deepspeed_tpu_torch import comm
+
+    t_phase = time.perf_counter()
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(free_port()))
+    comm.init_distributed(dist_backend="nccl", verbose=False)
+    check(torch.distributed.get_backend() == "nccl" and comm.get_world_size() == 1,
+          "28a: the process group is not NCCL at world 1")
+    comm.comms_logger.configure(enabled=True)
+    comm.comms_logger.reset()
+    phase("28a", "collectives on NCCL at world 1: each equals its input, the logger's records")
+    x = torch.randn(64, 48, device="cuda", generator=torch.Generator(device="cuda").manual_seed(28))
+    outs = {
+        "all_reduce sum": comm.all_reduce(x.clone()), "all_reduce mean": comm.all_reduce(
+            x.clone(), op="mean"), "all_reduce max": comm.all_reduce(x.clone(), op="max"),
+        "all_gather dim 0": comm.all_gather(x), "all_gather dim 1": comm.all_gather(
+            x, gather_dim=1), "reduce_scatter dim 1": comm.reduce_scatter(x, scatter_dim=1),
+        "all_to_all": comm.all_to_all(x, split_dim=0, concat_dim=1),
+        "broadcast": comm.broadcast(x.clone()), "ppermute": comm.ppermute(x, perm=[(0, 0)]),
+        "ring_shift": comm.ring_shift(x)}
+    comm.barrier()
+    torch.cuda.synchronize()
+    for name, y in outs.items():
+        check(torch.equal(y, x), f"28a: {name} at world 1 differs from its input")
+    recs = comm.comms_logger.comms_dict
+    want = {("all_reduce", "world"): (3, 3 * x.numel() * 4),
+            ("all_gather", "world"): (2, 2 * x.numel() * 4),
+            ("reduce_scatter", "world"): (1, x.numel() * 4),
+            ("all_to_all", "world"): (1, x.numel() * 4), ("broadcast", "world"): (1, x.numel() * 4),
+            ("ppermute", "world"): (1, x.numel() * 4)}
+    got = {k: (r["count"], r["bytes"]) for k, r in recs.items()}
+    check(got == want, f"28a: comms logger records {got}, expected {want}")
+    print("every collective equal to its input bit for bit (sum, mean, max, gather along dims 0 "
+          "and 1, reduce-scatter along dim 1, all-to-all, broadcast, ppermute, ring_shift); the "
+          f"logger's records (op, axis) -> (count, bytes): {got}")
+    comm.comms_logger.measure(iters=20)
+    print(comm.log_summary())
+    comm.comms_logger.reset()
+
+    phase("28b", "gpt2-medium bf16 (phase 6's run) at ZeRO stages 0-3 on the process group, "
+                 "4 steps each: stages 1-3 against stage 0 bit for bit")
+    cfg = gpt2.get_config("gpt2-medium")
+    conf = train_config(micro=8, gas=2)
+    batch = {"input_ids": np.random.RandomState(5).randint(
+        0, cfg.vocab_size, (16, cfg.n_positions)).astype(np.int32)}
+    steps = 4
+    base = None
+    for stage in range(4):
+        eng, losses, step_s, step_comms, launches = zero_run(
+            f"28b stage {stage}", gpt2.make_module(cfg), conf, batch, steps, stage)
+        master = [t.detach().clone() for t in tree_leaves(eng.full_params())]
+        plan = {k: v for k, v in eng.collective_plan().items() if v}
+        want_flash = cfg.n_layer * eng.gradient_accumulation_steps * steps
+        check(launches["flash_attention_fwd"] == want_flash == launches["flash_attention_bwd"],
+              f"28b stage {stage}: flash launches {launches}, expected {want_flash} each")
+        check(launches["fused_adamw"] == steps and launches["fused_lamb"] == 0,
+              f"28b stage {stage}: fused optimizer launches {launches}")
+        check(step_comms == plan, f"28b stage {stage}: collectives a step {step_comms}, the "
+                                  f"stage's plan {plan}")
+        check(all(np.isfinite(losses)), f"28b stage {stage}: losses {losses}")
+        mem = eng.memory_breakdown()
+        step_ms = statistics.median(step_s[2:]) * 1e3
+        if base is None:
+            base = (losses, master)
+        else:
+            check(losses == base[0], f"28b stage {stage}: losses {losses} != stage 0's {base[0]}")
+            check(all(torch.equal(a, b) for a, b in zip(master, base[1])),
+                  f"28b stage {stage}: the final master differs from stage 0's")
+        print(f"stage {stage}: losses " + " ".join(f"{v:.6f}" for v in losses)
+              + (" (stage 0's, bit for bit; the final master too)" if stage else "")
+              + f"; flash launches {want_flash} each way (= {cfg.n_layer} x "
+              f"{eng.gradient_accumulation_steps} x {steps}), fused AdamW {steps}; collectives a "
+              f"step {step_comms} (the stage's plan); step ms (median of steps 3-4) "
+              f"{step_ms:.2f}, steps " + " ".join(f"{v * 1e3:.1f}" for v in step_s)
+              + f"; master {mem['param_bytes'] / 2**30:.3f} GiB, optimizer state "
+              f"{mem['optimizer_state_bytes'] / 2**30:.3f} GiB, in use "
+              f"{mem['bytes_in_use'] / 2**30:.2f} GiB, peak {mem['peak_bytes_in_use'] / 2**30:.2f}"
+              f" GiB ({smi})")
+        del eng, master
+        gc.collect()
+        torch.cuda.empty_cache()
+    del base
+
+    phase("28c", "bert-large LAMB (phase 15's run) at ZeRO stage 2 against stage 0, 3 steps")
+    cfg15, module15, conf15, batch15 = workload("bert-large", optimizer="Lamb")
+    runs = {}
+    for stage in (0, 2):
+        eng, losses, step_s, step_comms, launches = zero_run(
+            f"28c stage {stage}", module15, conf15, batch15, 3, stage)
+        check(launches["fused_lamb"] == 2 * 3 and launches["fused_adamw"] == 0,
+              f"28c stage {stage}: LAMB launches {launches}, expected 2 x 3")
+        plan = {k: v for k, v in eng.collective_plan().items() if v}
+        check(step_comms == plan, f"28c stage {stage}: collectives {step_comms}, plan {plan}")
+        runs[stage] = (losses, [t.detach().clone() for t in tree_leaves(eng.full_params())])
+        print(f"stage {stage}: losses " + " ".join(f"{v:.6f}" for v in losses)
+              + f"; LAMB launches 6 (= 2 x 3); collectives a step {step_comms}; step ms "
+              f"(step 3) {step_s[2] * 1e3:.2f} ({smi})")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(runs[2][0] == runs[0][0] and all(torch.equal(a, b) for a, b in zip(runs[2][1],
+                                                                             runs[0][1])),
+          "28c: LAMB at stage 2 differs from stage 0")
+    print("LAMB at stage 2 (its sharded leaves' norm partials all-reduced between the two "
+          "launches) equals stage 0 bit for bit: losses and the final master")
+    del runs, batch15
+
+    phase("28d", "a resilient save at stage 3 loaded into a stage-0 engine: the next step bit "
+                 "for bit (gpt2-medium width, 4 layers)")
+    cfg_d = gpt2.get_config("gpt2-medium", n_layer=4)
+    conf_d = dict(train_config(micro=4, gas=2),
+                  resilience={"enabled": True, "async_checkpoint": False})
+    batch_d = {"input_ids": np.random.RandomState(6).randint(
+        0, cfg_d.vocab_size, (8, cfg_d.n_positions)).astype(np.int32)}
+    with tempfile.TemporaryDirectory() as d:
+        eng3, _, _, _, _ = zero_run("28d stage 3", gpt2.make_module(cfg_d), conf_d, batch_d, 3, 3)
+        t0 = time.perf_counter()
+        eng3.save_checkpoint(d, tag="z3")
+        save_s = time.perf_counter() - t0
+        want_loss = float(eng3.train_batch(batch_d)["loss"])
+        want = [t.detach().clone() for t in tree_leaves(eng3.full_params())]
+        del eng3
+        c0 = dict(conf_d, mesh={"dp": -1}, zero_optimization={"stage": 0})
+        eng0, *_ = dtt.initialize(model=gpt2.make_module(cfg_d), config=c0, seed=1)
+        t0 = time.perf_counter()
+        eng0.load_checkpoint(d, tag="z3")
+        load_s = time.perf_counter() - t0
+        got_loss = float(eng0.train_batch(batch_d)["loss"])
+        got = tree_leaves(eng0.full_params())
+        check(got_loss == want_loss and all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"28d: the stage-0 resume ({got_loss}) differs from the unbroken stage-3 run "
+              f"({want_loss})")
+        print(f"stage-3 tag (save {save_s:.2f} s, load {load_s:.2f} s) loaded at stage 0: the "
+              f"next loss {got_loss:.6f} and the master equal the unbroken run's bit for bit")
+        del eng0, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    comm.comms_logger.configure(enabled=False)
+    comm.comms_logger.reset()
+    comm.destroy_process_group()
+    print(f"phase 28: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; the port's smoke run needs the card",
@@ -4646,6 +4885,11 @@ def main() -> int:
     phase(27, "the serving fleet (2 replicas, live session migration over the crc manifest) "
               "under the seeded trace-replay harness (the slice's path), bf16 and int8 pages")
     fleet_phase(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase(28, "comm/ on NCCL and ZeRO stages 1-3 at world 1 (the slice's path)")
+    zero_phase(smi)
     gc.collect()
     torch.cuda.empty_cache()
 

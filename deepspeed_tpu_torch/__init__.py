@@ -5,9 +5,9 @@ ported so far: GPT-2 continuous-batching serving on one card (the paged KV
 pool, the scheduler and the serving programs, with speculation, the prefix
 cache, chunked prefill and int8 KV pages), offline GPT-2 generation over a
 contiguous KV cache, weight-only int8 inference (``dtype="int8"``), and
-training on one card (the single-device engine: bf16/fp16 on an fp32
-master, accumulation, clipping, the optimizer family, LR schedules, loss
-scaling, remat, dropout) of GPT-2, dense or with block-sparse attention
+training (bf16/fp16 on an fp32 master, accumulation, clipping, the
+optimizer family, LR schedules, loss scaling, remat, dropout; data
+parallel over ``torch.distributed`` with ZeRO stages 0-3, ``comm/``) of GPT-2, dense or with block-sparse attention
 (a ``sparse_attention`` section), and of BERT pre-training (MLM + NSP,
 dense or block-sparse), with checkpoints that load in either package
 (the ``resilience`` section's crc manifest), rollback, fault injection

@@ -1,7 +1,9 @@
 """Checkpointing (counterpart of ``deepspeed_tpu/checkpoint/``): the
-pluggable engine and the non-resilient save/load. The TP/dp regridding
-(``reshape``, ``universal_checkpoint``, ``deepspeed_checkpoint``) waits for
-ROADMAP queue 1 item 10, and ``megatron_loader`` for item 12."""
+pluggable engine, the non-resilient save/load and the Megatron TP/PP
+regridding of numpy state dicts (``reshape``). The universal and reference
+checkpoint readers (``universal_checkpoint``, ``deepspeed_checkpoint``,
+Orbax readers in the JAX package) wait for ROADMAP queue 1 item 10b, and
+``megatron_loader`` for item 12."""
 
 from .engine import (
     CheckpointEngine,
@@ -10,6 +12,14 @@ from .engine import (
     read_latest_tag,
     save_train_state,
 )
+from .reshape import (
+    merge_pp_state_dicts,
+    merge_tp_state_dicts,
+    reshape_2d,
+    reshape_tp,
+    split_pp_state_dict,
+    split_tp_state_dict,
+)
 
 __all__ = [
     "CheckpointEngine",
@@ -17,4 +27,10 @@ __all__ = [
     "load_train_state",
     "read_latest_tag",
     "save_train_state",
+    "merge_pp_state_dicts",
+    "merge_tp_state_dicts",
+    "reshape_2d",
+    "reshape_tp",
+    "split_pp_state_dict",
+    "split_tp_state_dict",
 ]

@@ -406,18 +406,22 @@ extern "C" int fused_adam_launch(void* const* p, const void* const* g, void* con
   return (int)cudaGetLastError();
 }
 
-// LAMB (decoupled decay wd[i] per tensor) over the same table: stage 1 and
-// stage 2, two launches. `workspace` holds at least `workspace_chunks`
-// double2 (one per chunk of kChunk elements of every tensor); the trust
-// ratio is clamped to [min_trust, max_trust] ([0, inf] for none); block
-// as fused_adam_launch's. Returns the first CUDA error of the two launches
-// (0 on success).
-extern "C" int fused_lamb_launch(void* const* p, const void* const* g, void* const* m,
-                                 void* const* v, const long long* n, const float* wd, int count,
-                                 int g_dtype, float b1, float b2, float one_minus_b1,
-                                 float one_minus_b2, float eps, float min_trust, float max_trust,
-                                 const void* block, void* workspace, long long workspace_chunks,
-                                 void* stream) {
+// LAMB (decoupled decay wd[i] per tensor) over the same table, in two
+// launches: fused_lamb_stage1_launch writes each chunk's partial sums of
+// p^2 and u^2 into `workspace` (at least `workspace_chunks` double2, one per
+// chunk of kChunk elements of every tensor, in table order), and
+// fused_lamb_stage2_launch sums a tensor's partials in chunk order, clamps
+// the trust ratio to [min_trust, max_trust] ([0, inf] for none) and applies
+// the update. Both take the same arguments; block as fused_adam_launch's. A
+// caller whose tensors are shards of larger ones (ZeRO) sums the shards'
+// partials over the ranks between the two (the workspace is laid out alike
+// on every rank), so that stage 2 takes each whole tensor's norms. Each
+// returns its launch's CUDA error (0 on success).
+static int lamb_launch(int stage, void* const* p, const void* const* g, void* const* m,
+                       void* const* v, const long long* n, const float* wd, int count,
+                       int g_dtype, float b1, float b2, float one_minus_b1, float one_minus_b2,
+                       float eps, float min_trust, float max_trust, const void* block,
+                       void* workspace, long long workspace_chunks, void* stream) {
   const int gb = grad_bytes(g_dtype);
   if (gb == 0 || block == nullptr) return (int)cudaErrorInvalidValue;
   Table t;
@@ -429,6 +433,10 @@ extern "C" int fused_lamb_launch(void* const* p, const void* const* g, void* con
   const float* blk = static_cast<const float*>(block);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   double2* part = static_cast<double2*>(workspace);
+  if (stage == 2) {
+    lamb_stage2_kernel<<<chunks, kThreads, 0, st>>>(t, count, s, blk, part);
+    return (int)cudaGetLastError();
+  }
   switch (g_dtype) {
     case 0: lamb_stage1_kernel<float><<<chunks, kThreads, 0, st>>>(t, count, s, blk, part); break;
     case 1: lamb_stage1_kernel<__half><<<chunks, kThreads, 0, st>>>(t, count, s, blk, part); break;
@@ -436,8 +444,27 @@ extern "C" int fused_lamb_launch(void* const* p, const void* const* g, void* con
       lamb_stage1_kernel<__nv_bfloat16><<<chunks, kThreads, 0, st>>>(t, count, s, blk, part);
       break;
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  lamb_stage2_kernel<<<chunks, kThreads, 0, st>>>(t, count, s, blk, part);
   return (int)cudaGetLastError();
+}
+
+extern "C" int fused_lamb_stage1_launch(void* const* p, const void* const* g, void* const* m,
+                                        void* const* v, const long long* n, const float* wd,
+                                        int count, int g_dtype, float b1, float b2,
+                                        float one_minus_b1, float one_minus_b2, float eps,
+                                        float min_trust, float max_trust, const void* block,
+                                        void* workspace, long long workspace_chunks,
+                                        void* stream) {
+  return lamb_launch(1, p, g, m, v, n, wd, count, g_dtype, b1, b2, one_minus_b1, one_minus_b2,
+                     eps, min_trust, max_trust, block, workspace, workspace_chunks, stream);
+}
+
+extern "C" int fused_lamb_stage2_launch(void* const* p, const void* const* g, void* const* m,
+                                        void* const* v, const long long* n, const float* wd,
+                                        int count, int g_dtype, float b1, float b2,
+                                        float one_minus_b1, float one_minus_b2, float eps,
+                                        float min_trust, float max_trust, const void* block,
+                                        void* workspace, long long workspace_chunks,
+                                        void* stream) {
+  return lamb_launch(2, p, g, m, v, n, wd, count, g_dtype, b1, b2, one_minus_b1, one_minus_b2,
+                     eps, min_trust, max_trust, block, workspace, workspace_chunks, stream);
 }

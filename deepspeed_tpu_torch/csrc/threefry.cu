@@ -157,20 +157,42 @@ __device__ __forceinline__ T drop_one(T x, uint32_t bits, const Drop& d) {
   return from_float<T>(bits <= d.thr ? q : 0.0f);
 }
 
+// The counter of element i of x in the draw: base + i, with base = shard
+// * n the element offset of x's slice (0 for a whole draw). Narrow: base +
+// n does not carry out of the low word, so hi is base's high word for every
+// element and lo = base_lo + i in 32 bits (hi and base_lo are invariant
+// over a thread's loop; the add goes into the vector's index). Wide: the
+// 64-bit sum, split.
+struct NarrowCtr {
+  uint32_t hi, lo;
+  __device__ __forceinline__ uint32_t bits(const Key& k, uint32_t i) const {
+    return threefry_bits(k, hi, lo + i);
+  }
+  __device__ __forceinline__ uint32_t bits(const Key& k, unsigned long long i) const {
+    return threefry_bits(k, hi, lo + static_cast<uint32_t>(i));
+  }
+};
+struct WideCtr {
+  unsigned long long base;
+  template <typename I>
+  __device__ __forceinline__ uint32_t bits(const Key& k, I i) const {
+    return bits_at(k, base + static_cast<unsigned long long>(i));
+  }
+};
+
 // Elements [0, head) and [tail, n) one a thread, then vectors of V = 16 /
 // sizeof(T) elements from head, 16-byte aligned in x and y. I: the index
 // type (uint32_t below 2^31 elements, unsigned long long above)
-template <typename T, bool MUL, typename I>
-__global__ void __launch_bounds__(kThreads)
-dropout_kernel(const T* __restrict__ x, T* __restrict__ y, I n, I head, I nvec,
-               const uint32_t* __restrict__ key, Drop d, uint32_t one) {
+template <typename T, bool MUL, typename I, typename C>
+__device__ __forceinline__ void drop_range(const T* __restrict__ x, T* __restrict__ y, I n,
+                                           I head, I nvec, const Key& k, const C& ctr,
+                                           const Drop& d) {
   constexpr int V = 16 / sizeof(T);
-  const Key k = make_key(key[0], key[1], one);
   const I stride = static_cast<I>(gridDim.x) * kThreads;
   const I g = static_cast<I>(blockIdx.x) * kThreads + threadIdx.x;
   const I tail = head + nvec * V;
-  for (I i = g; i < head; i += stride) y[i] = drop_one<T, MUL>(x[i], bits_at(k, i), d);
-  for (I i = tail + g; i < n; i += stride) y[i] = drop_one<T, MUL>(x[i], bits_at(k, i), d);
+  for (I i = g; i < head; i += stride) y[i] = drop_one<T, MUL>(x[i], ctr.bits(k, i), d);
+  for (I i = tail + g; i < n; i += stride) y[i] = drop_one<T, MUL>(x[i], ctr.bits(k, i), d);
   const uint4* xv = reinterpret_cast<const uint4*>(x + head);
   uint4* yv = reinterpret_cast<uint4*>(y + head);
   for (I v = g; v < nvec; v += stride) {
@@ -178,8 +200,29 @@ dropout_kernel(const T* __restrict__ x, T* __restrict__ y, I n, I head, I nvec,
     uint4 raw = xv[v];
     T* e = reinterpret_cast<T*>(&raw);
 #pragma unroll
-    for (int j = 0; j < V; ++j) e[j] = drop_one<T, MUL>(e[j], bits_at(k, i0 + j), d);
+    for (int j = 0; j < V; ++j) e[j] = drop_one<T, MUL>(e[j], ctr.bits(k, i0 + j), d);
     yv[v] = raw;
+  }
+}
+
+// key: the key's two words, then (key_words 4) the shard index s as two
+// words (low, high): x is elements [s * n, (s + 1) * n) of the draw, as a
+// rank's slice of a batch split over data parallelism
+template <typename T, bool MUL, typename I>
+__global__ void __launch_bounds__(kThreads)
+dropout_kernel(const T* __restrict__ x, T* __restrict__ y, I n, I head, I nvec,
+               const uint32_t* __restrict__ key, int key_words, Drop d, uint32_t one) {
+  const Key k = make_key(key[0], key[1], one);
+  unsigned long long base = 0;
+  if (key_words == 4)
+    base = ((static_cast<unsigned long long>(key[3]) << 32) | key[2]) *
+           static_cast<unsigned long long>(n);
+  if (sizeof(I) == 4 && (base & 0xFFFFFFFFull) + static_cast<unsigned long long>(n) <= (1ull << 32)) {
+    drop_range<T, MUL, I>(x, y, n, head, nvec, k,
+                          NarrowCtr{static_cast<uint32_t>(base >> 32), static_cast<uint32_t>(base)},
+                          d);
+  } else {
+    drop_range<T, MUL, I>(x, y, n, head, nvec, k, WideCtr{base}, d);
   }
 }
 
@@ -223,7 +266,7 @@ long long grid_for(long long work) {
 
 template <typename T, bool MUL>
 cudaError_t launch_dropout(const void* x, void* y, long long n, const uint32_t* key,
-                           const Drop& d, cudaStream_t s) {
+                           int key_words, const Drop& d, cudaStream_t s) {
   constexpr int V = 16 / sizeof(T);
   const uintptr_t xa = reinterpret_cast<uintptr_t>(x), ya = reinterpret_cast<uintptr_t>(y);
   // vectors only where x and y share their offset in 16 bytes
@@ -239,41 +282,44 @@ cudaError_t launch_dropout(const void* x, void* y, long long n, const uint32_t* 
   if (n < (1LL << 31)) {
     dropout_kernel<T, MUL, uint32_t><<<grid, kThreads, 0, s>>>(
         xp, yp, static_cast<uint32_t>(n), static_cast<uint32_t>(head),
-        static_cast<uint32_t>(nvec), key, d, 1u);
+        static_cast<uint32_t>(nvec), key, key_words, d, 1u);
   } else {
     dropout_kernel<T, MUL, unsigned long long><<<grid, kThreads, 0, s>>>(
         xp, yp, static_cast<unsigned long long>(n), static_cast<unsigned long long>(head),
-        static_cast<unsigned long long>(nvec), key, d, 1u);
+        static_cast<unsigned long long>(nvec), key, key_words, d, 1u);
   }
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 float16, 2 bfloat16. key: the key's two uint32 words
-// on the device. thr: the keep threshold (keep iff bits <= thr); c: the
+// dtype: 0 float32, 1 float16, 2 bfloat16. key: key_words uint32 words on
+// the device, the key's two, then (key_words 4) the 64-bit shard index s of
+// x's slice of the draw, low word first (element i draws counter s * n +
+// i). thr: the keep threshold (keep iff bits <= thr); c: the
 // divisor; r: its f32 reciprocal, and mul = 1 when x * r rounds to the
 // correctly rounded quotient for every input of the dtype (16-bit dtypes
 // only)
 extern "C" int threefry_dropout_launch(const void* x, void* y, long long n, const void* key,
                                        unsigned int thr, float c, float r, int mul, int dtype,
-                                       void* stream) {
+                                       int key_words, void* stream) {
   if (n <= 0) return 0;
-  if (key == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (key == nullptr || (key_words != 2 && key_words != 4))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Drop d{thr, c, r};
   const uint32_t* k = static_cast<const uint32_t*>(key);
   switch (dtype) {
     case 0:
       if (mul) return static_cast<int>(cudaErrorInvalidValue);
-      return static_cast<int>(launch_dropout<float, false>(x, y, n, k, d, s));
+      return static_cast<int>(launch_dropout<float, false>(x, y, n, k, key_words, d, s));
     case 1:
-      return static_cast<int>(mul ? launch_dropout<__half, true>(x, y, n, k, d, s)
-                                  : launch_dropout<__half, false>(x, y, n, k, d, s));
+      return static_cast<int>(mul ? launch_dropout<__half, true>(x, y, n, k, key_words, d, s)
+                                  : launch_dropout<__half, false>(x, y, n, k, key_words, d, s));
     case 2:
       return static_cast<int>(
-          mul ? launch_dropout<__nv_bfloat16, true>(x, y, n, k, d, s)
-              : launch_dropout<__nv_bfloat16, false>(x, y, n, k, d, s));
+          mul ? launch_dropout<__nv_bfloat16, true>(x, y, n, k, key_words, d, s)
+              : launch_dropout<__nv_bfloat16, false>(x, y, n, k, key_words, d, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -26,6 +26,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -185,16 +186,28 @@ def pretraining_loss(cfg: BertConfig, params: PyTree, batch, rng=None, train: bo
     safe = torch.where(labels == -100, torch.zeros_like(labels), labels)
     logp = torch.log_softmax(logits, dim=-1)
     tok_ll = logp.gather(-1, safe[..., None].long())[..., 0]
-    mlm_loss = -(tok_ll * mask).sum() / mask.sum().clamp_min(1.0)
+    # under data parallelism: the global masked count and rows (the
+    # engine's "__norm__", from :func:`loss_norm`), as JAX's loss over the
+    # whole batch divides
+    norm = batch.get("__norm__")
+    mlm_loss = -(tok_ll * mask).sum() / (mask.sum().clamp_min(1.0) if norm is None else norm[0])
     metrics = {"mlm_loss": mlm_loss}
     loss = mlm_loss
     nsl = batch.get("next_sentence_label")
     if nsl is not None:
         cls_logits = (pooled @ params["nsp"]["w"] + params["nsp"]["b"]).float()
-        nsp_loss = -torch.log_softmax(cls_logits, dim=-1).gather(-1, nsl[:, None].long()).mean()
+        nsp_ll = torch.log_softmax(cls_logits, dim=-1).gather(-1, nsl[:, None].long())
+        nsp_loss = -(nsp_ll.mean() if norm is None else nsp_ll.sum() / norm[1])
         metrics["nsp_loss"] = nsp_loss
         loss = loss + nsp_loss
     return loss, metrics
+
+
+def loss_norm(batch) -> np.ndarray:
+    """The global denominators of :func:`pretraining_loss` over a host
+    micro-batch (numpy leaves): ``[max(masked count, 1), rows]``."""
+    masked = float((np.asarray(batch["labels"]) != -100).sum())
+    return np.asarray([max(masked, 1.0), len(batch["labels"])], np.float32)
 
 
 def make_module(cfg: BertConfig) -> ModuleSpec:
@@ -209,4 +222,5 @@ def make_module(cfg: BertConfig) -> ModuleSpec:
         apply_fn=lambda params, batch: forward(
             cfg, params, batch["input_ids"], batch.get("attention_mask"),
             batch.get("token_type_ids"))[0],
+        loss_norm=loss_norm if cfg.pretraining else None,
     )

@@ -59,7 +59,7 @@ from ..ops.sparse_attention import FixedSparsityConfig, from_ds_config, sparse_a
 from ..runtime.activation_checkpointing import POLICIES, checkpoint, selective_checkpoint
 from ..runtime.config import NotPortedError
 from ..runtime.module import ModuleSpec
-from .lm_loss import head_token_loss
+from .lm_loss import head_token_loss, loss_count
 
 PyTree = Any
 
@@ -298,11 +298,14 @@ def dropout_key_table(cfg: GPT2Config, rng) -> np.ndarray:
 
 
 def _is_key_table(cfg: GPT2Config, rng) -> bool:
+    """A device key table: ``[1 + 3 n_layer, 2]`` int32, or ``[.., 4]``
+    with each row's shard index (``prng.shard_key``: a data-parallel
+    rank's slice of each draw)."""
     if not prng.is_device_key(rng):
         return False
-    if tuple(rng.shape) != (1 + 3 * cfg.n_layer, 2):
+    if rng.dim() != 2 or rng.shape[0] != 1 + 3 * cfg.n_layer or rng.shape[1] not in (2, 4):
         raise ValueError(f"a device key table for {cfg.n_layer} layers is "
-                         f"[{1 + 3 * cfg.n_layer}, 2] int32; got {tuple(rng.shape)}")
+                         f"[{1 + 3 * cfg.n_layer}, 2 or 4] int32; got {tuple(rng.shape)}")
     return True
 
 
@@ -322,7 +325,7 @@ def hidden_with_aux(cfg: GPT2Config, params: PyTree, input_ids, train: bool = Fa
         table = rng if _is_key_table(cfg, rng) else prng.device_keys(
             dropout_key_table(cfg, rng), h.device)
         h = _dropout(h, cfg.dropout, table[0], train)
-        keys = list(table[1:].reshape(L, 3, 2))  # [L][3, 2]
+        keys = list(table[1:].reshape(L, 3, table.shape[1]))  # [L][3, 2 or 4]
     for lp, key in zip(_unstack(params["blocks"], L), keys):
         if cfg.remat and cfg.remat_policy != "full":
             h = selective_checkpoint(functools.partial(_block, cfg, key=key), cfg.remat_policy,
@@ -370,6 +373,7 @@ def make_module(cfg: GPT2Config) -> ModuleSpec:
         loss_fn=lambda params, batch, rng, train: lm_loss(cfg, params, batch, rng, train),
         apply_fn=lambda params, batch: forward(cfg, params, batch["input_ids"]),
         key_table=(functools.partial(dropout_key_table, cfg) if cfg.dropout > 0.0 else None),
+        loss_norm=lambda batch: np.asarray([max(loss_count(batch), 1.0)], np.float32),
     )
 
 

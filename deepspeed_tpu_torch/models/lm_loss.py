@@ -2,10 +2,13 @@
 ``deepspeed_tpu/models/lm_loss.py``): one shift/mask convention for every
 LM loss path, full-logits or sequence-chunked (``ce_chunk > 0``), which
 never holds more than one chunk's ``[B, C, V]`` logits: each chunk's logits
-are recomputed in backward."""
+are recomputed in backward. The mean's denominator is the batch's token
+count, or under data parallelism the global micro-batch's
+(:func:`loss_count`), which the engine passes as ``batch["__norm__"]``."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..runtime.activation_checkpointing import checkpoint
@@ -33,6 +36,25 @@ def mask_pad_vocab(logits, logical_vocab):
     return logits.masked_fill(col >= int(logical_vocab), -1e30)
 
 
+def loss_count(batch) -> float:
+    """The loss's token count of a host batch (numpy leaves): the sum of
+    :func:`shift_labels_mask`'s mask, in f32. Under data parallelism the
+    engine takes it over the global micro-batch, so every rank divides by
+    the global count, as JAX's loss over the whole batch does."""
+    labels = np.asarray(batch.get("labels", batch["input_ids"]))[:, 1:]
+    mask = (labels != -100).astype(np.float32)
+    if "attention_mask" in batch:
+        mask = mask * np.asarray(batch["attention_mask"])[:, 1:].astype(np.float32)
+    return float(mask.sum(dtype=np.float32))
+
+
+def _denominator(batch, ntokens):
+    """``max(ntokens, 1)``, or the global count the engine put in the
+    batch (``"__norm__"``, already at least 1)."""
+    norm = batch.get("__norm__")
+    return ntokens.clamp_min(1.0) if norm is None else norm[0]
+
+
 def token_loss(logits_full, batch, logical_vocab=None):
     """Shifted CE from full logits ``[B, S, V]`` → ``(mean nll, ntokens)``,
     in f32."""
@@ -43,7 +65,7 @@ def token_loss(logits_full, batch, logical_vocab=None):
     gold = lf.gather(-1, labels[..., None].long())[..., 0]
     nll = (logz - gold) * mask
     ntokens = mask.sum()
-    return nll.sum() / ntokens.clamp_min(1.0), ntokens
+    return nll.sum() / _denominator(batch, ntokens), ntokens
 
 
 def chunked_token_loss(project, h, batch, ce_chunk: int, logical_vocab=None):
@@ -69,7 +91,7 @@ def chunked_token_loss(project, h, batch, ce_chunk: int, logical_vocab=None):
         total = total + checkpoint(chunk_nll, h[:, i:i + C], labels[:, i:i + C],
                                    mask[:, i:i + C])
     ntokens = mask.sum()
-    return total / ntokens.clamp_min(1.0), ntokens
+    return total / _denominator(batch, ntokens), ntokens
 
 
 def head_token_loss(project, h, batch, ce_chunk: int = 0, logical_vocab=None):

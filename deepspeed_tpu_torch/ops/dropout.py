@@ -18,12 +18,15 @@ to the plain version; any other device raises.
 
 The key is a device key (an int32 ``[2]`` tensor of the key's bits, read
 where it lies: a training step's key table slot, which a captured step
-refills every step) or a host key (copied up at each call).
+refills every step) or a host key (copied up at each call). A ``[4]`` key
+(``prng.shard_key``) adds a shard index s: x is then elements ``[s n, (s +
+1) n)`` of the draw, the slice a data-parallel rank holds of JAX's draw
+over the global batch (``jax_threefry_partitionable``: element i's counter
+is its flat index in the global shape).
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from . import prng
@@ -35,8 +38,12 @@ def dropout_ref(x: torch.Tensor, key, rate: float) -> torch.Tensor:
     reciprocal instead); a device key is widened there, never read on the
     host."""
     p, c = prng.keep_scale(prng.check_rate(rate), x.dtype)
-    row = key.reshape(1, 2) if prng.is_device_key(key) else prng.key_words(key)
-    u = prng.uniform_rows_ref(row, x.numel(), device=x.device)
+    if not prng.is_device_key(key):
+        key = prng.device_keys(prng.host_dropout_key(key), x.device)
+    key = key.reshape(-1)
+    offset = prng.shard_offset(key.to(x.device), x.numel()) if key.numel() == 4 else None
+    row = key[:2].reshape(1, 2)
+    u = prng.uniform_rows_ref(row, x.numel(), device=x.device, offset=offset)
     keep = u.reshape(x.shape) < prng.device_scalar(p, x.device)
     return torch.where(keep, x / prng.device_scalar(c, x.device, x.dtype),
                        prng.device_scalar(0.0, x.device, x.dtype))
@@ -66,5 +73,5 @@ def dropout(x: torch.Tensor, key, rate: float) -> torch.Tensor:
     or a host key as numpy or an int64 tensor) at ``rate``, differentiable;
     the kernel on the card."""
     if not prng.is_device_key(key):
-        key = np.asarray(prng.key_words(key), np.uint32)
+        key = prng.host_dropout_key(key)
     return _Dropout.apply(x, key, float(rate))

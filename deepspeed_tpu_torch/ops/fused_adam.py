@@ -14,7 +14,9 @@ tensor of a list (at most :data:`MAX_TENSORS` a launch), in place:
 - :func:`multi_tensor_lamb_`: LAMB, ``u = m^ / (sqrt(v^) + eps) + wd * p``
   and ``p - lr * trust * u`` with ``trust = ||p|| / ||u||`` per tensor (1
   when either norm is 0), clamped to ``[min_trust, max_trust]`` when they
-  are given; two launches.
+  are given; two launches. Under ZeRO a rank holds shards of some tensors:
+  a :class:`NormReduce` sums their norms' partial sums over the ranks
+  between the two launches, so each trust ratio is the whole tensor's.
 
 The ``*_ref_`` functions are the plain versions, optax's f32 arithmetic as
 PyTorch ops in the same order. The dispatchers take them for CPU tensors;
@@ -42,7 +44,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Any, Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -143,10 +145,13 @@ def multi_tensor_adam_ref_(params, grads, mus, nus, step, lr, betas=(0.9, 0.999)
 def multi_tensor_lamb_ref_(params, grads, mus, nus, step, lr, betas=(0.9, 0.999),
                            eps: float = 1e-6, weight_decays: Optional[Sequence[float]] = None,
                            min_trust: Optional[float] = None,
-                           max_trust: Optional[float] = None, skip=None) -> None:
+                           max_trust: Optional[float] = None, skip=None,
+                           norm_reduce: Optional["NormReduce"] = None) -> None:
     """Plain LAMB over the lists, in place (optax's ``lamb``: the trust
     ratio per tensor, unclamped when ``min_trust``/``max_trust`` are None),
-    from the device block; nothing changes where ``skip``."""
+    from the device block; nothing changes where ``skip``. With
+    ``norm_reduce``, the norms of the tensors it marks sharded are the
+    square roots of their f64 sums of squares summed over the ranks."""
     weight_decays = [0.0] * len(params) if weight_decays is None else list(weight_decays)
     _check_lists("multi_tensor_lamb_ref_", params, grads, mus, nus, weight_decays)
     if not params:
@@ -155,13 +160,27 @@ def multi_tensor_lamb_ref_(params, grads, mus, nus, step, lr, betas=(0.9, 0.999)
     lr, bc1, bc2 = blk[0], blk[1], blk[2]
     sk = None if skip is None else blk[3] != 0
     b1, b2, eps = float(betas[0]), float(betas[1]), float(eps)
+    sharded = [False] * len(params) if norm_reduce is None else list(norm_reduce.sharded)
+    updates = []
     for p, g, mu, nu, wd in zip(params, grads, mus, nus, weight_decays):
         g = g.float()
         m2 = mu * b1 + g * (1 - b1)
         v2 = nu * b2 + g * g * (1 - b2)
-        u = (m2 / bc1) / ((v2 / bc2).sqrt() + eps) + wd * p
-        pn = torch.linalg.vector_norm(p)
-        un = torch.linalg.vector_norm(u)
+        updates.append((m2, v2, (m2 / bc1) / ((v2 / bc2).sqrt() + eps) + wd * p))
+    norms = [None] * len(params)
+    if any(sharded):
+        idx = [i for i, s in enumerate(sharded) if s]
+        sq = torch.stack([torch.stack([params[i].double().square().sum(),
+                                       updates[i][2].double().square().sum()]) for i in idx])
+        norm_reduce.fn(sq)
+        for j, i in enumerate(idx):
+            norms[i] = sq[j].sqrt().float()
+    for i, (p, mu, nu) in enumerate(zip(params, mus, nus)):
+        m2, v2, u = updates[i]
+        if norms[i] is None:
+            pn, un = torch.linalg.vector_norm(p), torch.linalg.vector_norm(u)
+        else:
+            pn, un = norms[i][0], norms[i][1]
         ratio = pn / un
         if min_trust is not None or max_trust is not None:
             ratio = ratio.clamp(min_trust, max_trust)
@@ -169,6 +188,18 @@ def multi_tensor_lamb_ref_(params, grads, mus, nus, step, lr, betas=(0.9, 0.999)
         p.copy_(_keep(sk, p, p + u * trust * -lr))
         mu.copy_(_keep(sk, mu, m2))
         nu.copy_(_keep(sk, nu, v2))
+
+
+class NormReduce:
+    """LAMB over shards (ZeRO): ``sharded[i]`` marks the tensors that are
+    this rank's shards of larger ones, whose norms are their sums of squares
+    summed over the ranks by ``fn`` (an in-place SUM all-reduce of a f64
+    tensor). Tensors not marked are whole on every rank and keep their own
+    norms: summing them too would count them once a rank."""
+
+    def __init__(self, fn: Callable[[torch.Tensor], Any], sharded: Sequence[bool]):
+        self.fn = fn
+        self.sharded = list(sharded)
 
 
 # ---------------------------------------------------------------------------
@@ -243,12 +274,16 @@ def multi_tensor_adam(params, grads, mus, nus, step, lr, betas=(0.9, 0.999),
 def multi_tensor_lamb(params, grads, mus, nus, step, lr, betas=(0.9, 0.999),
                       eps: float = 1e-6, weight_decays: Optional[Sequence[float]] = None,
                       min_trust: Optional[float] = None,
-                      max_trust: Optional[float] = None, skip=None) -> None:
+                      max_trust: Optional[float] = None, skip=None,
+                      norm_reduce: Optional[NormReduce] = None) -> None:
     """Launch the LAMB kernel's two stages on ``torch.cuda.current_stream()``
     (two launches for each :data:`MAX_TENSORS` tensors), in place, from the
     device block; the operands as :func:`multi_tensor_adam`'s. The partial
     sums of the norms go to a workspace of one double pair per
-    :data:`CHUNK` elements."""
+    :data:`CHUNK` elements. With ``norm_reduce`` the tensors it marks
+    sharded go first in each launch's table, and between the two launches
+    ``norm_reduce.fn`` sums their partials (a prefix of the workspace) over
+    the ranks, so that stage 2 takes the whole tensors' norms."""
     weight_decays = [0.0] * len(params) if weight_decays is None else list(weight_decays)
     _check_lists("multi_tensor_lamb", params, grads, mus, nus, weight_decays)
     if not params:
@@ -260,18 +295,31 @@ def multi_tensor_lamb(params, grads, mus, nus, step, lr, betas=(0.9, 0.999),
     b1, b2 = float(betas[0]), float(betas[1])
     lo_t = 0.0 if min_trust is None else float(min_trust)
     hi_t = math.inf if max_trust is None else float(max_trust)
+    sharded = [False] * len(params) if norm_reduce is None else list(norm_reduce.sharded)
+    # the sharded tensors first (a stable order): their chunks are a
+    # prefix of each launch's workspace
+    order = sorted(range(len(params)), key=lambda i: not sharded[i])
+    params, grads, mus, nus = ([ts[i] for i in order] for ts in (params, grads, mus, nus))
+    weight_decays = [weight_decays[i] for i in order]
+    sharded = [sharded[i] for i in order]
     from .op_builder import load
 
     lib = load("fused_adam")
     stream = torch.cuda.current_stream(dev).cuda_stream
     for lo, hi in _groups(len(params)):
         chunks = sum(-(-t.numel() // CHUNK) for t in params[lo:hi])
+        shard_chunks = sum(-(-t.numel() // CHUNK) for t, s in zip(params[lo:hi], sharded[lo:hi])
+                           if s)
         work = torch.empty(max(chunks, 1) * 2, dtype=torch.float64, device=dev)
         (p, g, m, v), n, wd = _tables(params[lo:hi], grads[lo:hi], mus[lo:hi], nus[lo:hi],
                                       weight_decays[lo:hi])
-        err = lib.fused_lamb_launch(p, g, m, v, n, wd, hi - lo, gcode, b1, b2, 1 - b1,
-                                    1 - b2, float(eps), lo_t, hi_t, blk.data_ptr(),
-                                    work.data_ptr(), max(chunks, 1), stream)
+        args = (p, g, m, v, n, wd, hi - lo, gcode, b1, b2, 1 - b1, 1 - b2, float(eps), lo_t,
+                hi_t, blk.data_ptr(), work.data_ptr(), max(chunks, 1))
+        err = lib.fused_lamb_stage1_launch(*args, stream)
+        if err == 0:
+            if shard_chunks:
+                norm_reduce.fn(work[:2 * shard_chunks])
+            err = lib.fused_lamb_stage2_launch(*args, stream)
         if err != 0:
             raise RuntimeError(f"multi_tensor_lamb: kernel launch failed, CUDA error {err}")
         LAUNCHES["fused_lamb"] += 2
@@ -302,12 +350,13 @@ def multi_tensor_adam_(params, grads, mus, nus, step, lr, betas=(0.9, 0.999),
 def multi_tensor_lamb_(params, grads, mus, nus, step, lr, betas=(0.9, 0.999),
                        eps: float = 1e-6, weight_decays: Optional[Sequence[float]] = None,
                        min_trust: Optional[float] = None,
-                       max_trust: Optional[float] = None, skip=None) -> None:
+                       max_trust: Optional[float] = None, skip=None,
+                       norm_reduce: Optional[NormReduce] = None) -> None:
     """LAMB over the lists, in place: the kernel for CUDA tensors, the plain
     version for CPU tensors."""
     fn = _route(params, multi_tensor_lamb, multi_tensor_lamb_ref_, "multi_tensor_lamb_")
     fn(params, grads, mus, nus, step, lr, betas, eps, weight_decays, min_trust, max_trust,
-       skip)
+       skip, norm_reduce)
 
 
 # ---------------------------------------------------------------------------

@@ -121,7 +121,7 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "threefry": {
         "threefry_dropout_launch": (
             [_P, _P, _L, _P, _U, _F, _F,       # x, y, n, device key, keep threshold, c, 1 / c
-             _I, _I, _P],                      # multiply by 1 / c, dtype, stream
+             _I, _I, _I, _P],                  # multiply by 1 / c, dtype, key words, stream
             ctypes.c_int,
         ),
         "threefry_uniform_rows_launch": (
@@ -137,7 +137,14 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
             + [_P, _P],                        # device block {lr, bc1, bc2, skip}, stream
             ctypes.c_int,
         ),
-        "fused_lamb_launch": (
+        "fused_lamb_stage1_launch": (
+            [_P] * 6                           # p, g, m, v pointer tables; n; wd
+            + [_I, _I]                         # count, grad dtype
+            + [_F] * 7                         # b1, b2, 1-b1, 1-b2, eps, min/max trust
+            + [_P, _P, _L, _P],                # device block, workspace, its chunks, stream
+            ctypes.c_int,
+        ),
+        "fused_lamb_stage2_launch": (
             [_P] * 6                           # p, g, m, v pointer tables; n; wd
             + [_I, _I]                         # count, grad dtype
             + [_F] * 7                         # b1, b2, 1-b1, 1-b2, eps, min/max trust

@@ -212,10 +212,12 @@ def key_words(key: Key) -> Tuple[int, int]:
 # bits and distributions: plain versions (torch int64, any device)
 # ---------------------------------------------------------------------------
 
-def random_bits_rows(keys: Key, n: int, device=None) -> torch.Tensor:
+def random_bits_rows(keys: Key, n: int, device=None, offset=None) -> torch.Tensor:
     """Row r: ``random_bits(keys[r], (n,))`` → int64 ``[R, n]`` of 32-bit
     values (the plain version; torch ops on ``device``). Device keys are
-    widened on their device, never read on the host."""
+    widened on their device, never read on the host. ``offset``: an int64
+    element offset into the draw (an int, or a 0-d tensor on ``device``):
+    the row holds elements ``[offset, offset + n)``."""
     dev = torch.device("cpu" if device is None else device)
     if is_device_key(keys):
         k = keys.reshape(-1, 2).to(dev).long() & MASK32
@@ -223,6 +225,8 @@ def random_bits_rows(keys: Key, n: int, device=None) -> torch.Tensor:
         arr, _ = _as_np(keys)
         k = torch.from_numpy(arr.reshape(-1, 2).astype(np.int64)).to(dev)
     idx = torch.arange(int(n), dtype=torch.int64, device=dev)[None, :]
+    if offset is not None:
+        idx = idx + offset
     y0, y1 = threefry2x32(k[:, :1], k[:, 1:], idx >> 32, idx & MASK32)
     return y0 ^ y1
 
@@ -260,10 +264,39 @@ def scale_unit(f: torch.Tensor, minval: float, maxval: float) -> torch.Tensor:
 
 
 def uniform_rows_ref(keys: Key, n: int, minval: float = 0.0, maxval: float = 1.0,
-                     device=None) -> torch.Tensor:
+                     device=None, offset=None) -> torch.Tensor:
     """Plain version of the kernel's ``uniform_rows``: row r is
-    ``uniform(keys[r], (n,), f32, minval, maxval)`` → f32 ``[R, n]``."""
-    return scale_unit(bits_to_unit_float(random_bits_rows(keys, n, device)), minval, maxval)
+    ``uniform(keys[r], (n,), f32, minval, maxval)`` (from element
+    ``offset`` of the draw) → f32 ``[R, n]``."""
+    return scale_unit(bits_to_unit_float(random_bits_rows(keys, n, device, offset)), minval,
+                      maxval)
+
+
+def shard_key(key, shard: int) -> np.ndarray:
+    """A dropout key with a shard index: uint32 ``[4]``, the key's two
+    words then ``shard`` as a 64-bit word pair (low, high). A dropout of an
+    ``n``-element x under it draws elements ``[shard n, (shard + 1) n)`` of
+    the key's draw: rank ``shard``'s slice of a batch split over data
+    parallelism (``jax_threefry_partitionable``'s counters)."""
+    k0, k1 = key_words(key)
+    s = int(shard)
+    return np.asarray([k0, k1, s & 0xFFFFFFFF, s >> 32], np.uint32)
+
+
+def host_dropout_key(key) -> np.ndarray:
+    """A host dropout key (numpy or an int64 tensor) as uint32 ``[2]`` or,
+    with a shard index, ``[4]``."""
+    arr = _as_np(key)[0].reshape(-1)
+    if arr.size not in (2, 4):
+        raise ValueError(f"a dropout key has 2 words (or 4 with a shard index), got {arr.size}")
+    return arr
+
+
+def shard_offset(key: torch.Tensor, n: int) -> torch.Tensor:
+    """A ``[4]`` device key's element offset ``shard * n``, an int64 0-d
+    tensor on its device (torch ops: nothing is read on the host)."""
+    w = key.reshape(4).long() & MASK32
+    return (w[2] | (w[3] << 32)) * int(n)
 
 
 # ---------------------------------------------------------------------------
@@ -333,9 +366,11 @@ def dropout_kernel(x: torch.Tensor, key: Key, rate: float) -> torch.Tensor:
     in the kernel ``bits <= keep_threshold(p)``, and the quotient ``x * (1 /
     c)`` where :func:`reciprocal_is_exact` proves it equal) for x contiguous
     f32 / fp16 / bf16 on a CUDA device → a new tensor. The kernel reads the
-    key's two words where they lie: a device key (int32 ``[2]``, contiguous
-    on x's device; a captured step's key table slot) is used as it is, a
-    host key is copied up first. Raises on anything else."""
+    key's words where they lie: a device key (int32 ``[2]``, or ``[4]`` with
+    a shard index, :func:`shard_key`; contiguous on x's device; a captured
+    step's key table slot) is used as it is, a host key is copied up first.
+    With a shard index s, x is elements ``[s n, (s + 1) n)`` of the draw.
+    Raises on anything else."""
     if x.device.type != "cuda":
         raise ValueError(f"dropout_kernel: the kernel takes CUDA tensors, not {x.device}")
     if x.dtype not in DTYPES:
@@ -345,18 +380,19 @@ def dropout_kernel(x: torch.Tensor, key: Key, rate: float) -> torch.Tensor:
     p, c = keep_scale(check_rate(rate), x.dtype)
     r, mul = reciprocal_is_exact(rate, x.dtype)
     if is_device_key(key):
-        if key.numel() != 2 or key.device != x.device or not key.is_contiguous():
-            raise ValueError(f"dropout_kernel: a device key must be one contiguous [2] int32 "
-                             f"key on {x.device}, got {tuple(key.shape)} on {key.device}")
+        if key.numel() not in (2, 4) or key.device != x.device or not key.is_contiguous():
+            raise ValueError(f"dropout_kernel: a device key must be one contiguous [2] (or "
+                             f"[4], with a shard index) int32 key on {x.device}, got "
+                             f"{tuple(key.shape)} on {key.device}")
     else:
-        key = device_keys(np.asarray(key_words(key), np.uint32), x.device)
+        key = device_keys(host_dropout_key(key), x.device)
     from .op_builder import load
 
     lib = load("threefry")
     y = torch.empty_like(x)
     err = lib.threefry_dropout_launch(x.data_ptr(), y.data_ptr(), x.numel(), key.data_ptr(),
                                       keep_threshold(p), c, r, int(mul), DTYPES[x.dtype],
-                                      torch.cuda.current_stream(x.device).cuda_stream)
+                                      key.numel(), torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"dropout_kernel: kernel launch failed, CUDA error {err}")
     LAUNCHES["threefry_dropout"] += 1

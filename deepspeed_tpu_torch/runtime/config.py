@@ -23,10 +23,11 @@ its watchdog, request-trace, kv-heat and time-series sections.
 burn-rate section (``serving.fleet.slo_alerts``), which
 ``telemetry.slo_budget`` also takes standalone.
 
-``DeepSpeedConfig``: the single-device training subset (the batch triple,
-``fp16``/``bf16``, ``gradient_clipping``, ``optimizer``, ``scheduler``,
+``DeepSpeedConfig``: the training subset (the batch triple over ``dp``
+ranks, ``fp16``/``bf16``, ``gradient_clipping``, ``optimizer``, ``scheduler``,
 ``prescale_gradients``/``gradient_predivide_factor``,
-``data_types.grad_accum_dtype``, ``zero_optimization.stage == 0``,
+``data_types.grad_accum_dtype``, ``zero_optimization`` at stages 0-3, the
+``mesh`` section's ``dp`` axis, ``comms_logger``,
 ``steps_per_print``, ``wall_clock_breakdown``, ``memory_breakdown``, the
 ``telemetry``, ``resilience`` and ``checkpoint`` sections, and the typed
 ``sparse_attention`` section that a
@@ -876,21 +877,97 @@ class ResilienceConfig:
                 f"resilience.grace_window_s must be >= 0, got {self.grace_window_s}")
 
 
-# zero_optimization keys that turn on something not ported; the others tune
-# ZeRO's collectives, which stage 0 does not run
-_ZERO_OFF = {
-    "stage": lambda v: int(v) == 0,
-    "offload_param": lambda v: not v or str(v.get("device", "none")) in ("none", "None"),
-    "offload_optimizer": lambda v: not v or str(v.get("device", "none")) in ("none", "None"),
-}
+@dataclass
+class ZeroConfig:
+    """``zero_optimization`` (JAX ``ZeroConfig``, the reference's
+    zero/config.py): the same fields and defaults. ``stage`` 0-3 over the
+    ``dp`` axis; ``stage3_param_persistence_threshold`` sets stage 3's
+    parameter threshold (``max(2, value)`` elements, as the JAX engine
+    builds its policy); ``stage3_gather_16bit_weights_on_model_save``
+    makes ``save_checkpoint`` export ``pytorch_model.npz``. The bucket,
+    overlap and prefetch keys tune the reference's hand-rolled NCCL
+    pipeline and are accepted as the JAX package accepts them.
+    ``offload_param`` / ``offload_optimizer`` with a device raise
+    :class:`NotPortedError` (ROADMAP queue 1 item 13)."""
+
+    stage: int = 0
+    contiguous_gradients: bool = True
+    reduce_scatter: bool = True
+    reduce_bucket_size: int = 500_000_000
+    allgather_partitions: bool = True
+    allgather_bucket_size: int = 500_000_000
+    overlap_comm: bool = True
+    offload_param: Optional[Dict[str, Any]] = None
+    offload_optimizer: Optional[Dict[str, Any]] = None
+    sub_group_size: int = 1_000_000_000
+    stage3_max_live_parameters: int = 1_000_000_000
+    stage3_max_reuse_distance: int = 1_000_000_000
+    stage3_prefetch_bucket_size: int = 50_000_000
+    stage3_param_persistence_threshold: int = 100_000
+    stage3_gather_16bit_weights_on_model_save: bool = False
+    zero_hpz_partition_size: int = 1
+    round_robin_gradients: bool = False
+    ignore_unused_parameters: bool = True
+    legacy_stage1: bool = False
+    cpu_offload: Optional[bool] = None  # deprecated alias of offload_optimizer cpu
+
+    def __post_init__(self):
+        if not 0 <= int(self.stage) <= 3:
+            raise DeepSpeedConfigError(f"zero_optimization.stage must be 0-3, got {self.stage}")
+        offload = {"offload_param": self.offload_param,
+                   "offload_optimizer": self.offload_optimizer}
+        if self.cpu_offload:
+            offload["cpu_offload"] = {"device": "cpu"}
+        for key, v in offload.items():
+            if v and str(v.get("device", "none")) not in ("none", "None"):
+                raise NotPortedError(
+                    f"zero_optimization.{key}={v!r}: ZeRO-Offload / Infinity is not ported to "
+                    "deepspeed_tpu_torch yet (ROADMAP queue 1 item 13)")
+        if int(self.zero_hpz_partition_size) > 1:
+            raise NotPortedError(
+                "zero_optimization.zero_hpz_partition_size > 1 (a secondary partition) is not "
+                "ported to deepspeed_tpu_torch yet (ROADMAP queue 1 item 12)")
+
+
+@dataclass
+class MeshConfig:
+    """``mesh``: named-axis sizes, -1 = the ranks left (JAX ``MeshConfig``).
+    Only ``dp`` may exceed 1 in the port; tp, pp, ep and sp > 1 raise
+    :class:`NotPortedError` (ROADMAP queue 1 items 11 and 12)."""
+
+    dp: int = -1
+    tp: int = 1
+    pp: int = 1
+    ep: int = 1
+    sp: int = 1
+
+    def __post_init__(self):
+        for axis, item in (("tp", 11), ("pp", 12), ("ep", 12), ("sp", 12)):
+            if int(getattr(self, axis)) > 1:
+                raise NotPortedError(
+                    f"mesh.{axis}={getattr(self, axis)}: only the dp axis is ported to "
+                    f"deepspeed_tpu_torch (ROADMAP queue 1 item {item})")
+
+
+@dataclass
+class CommsLoggerConfig:
+    enabled: bool = False
+    verbose: bool = False
+    prof_all: bool = True
+    debug: bool = False
+    prof_ops: List[str] = field(default_factory=list)
+
+
 # top-level sections of the JAX document that the training path reads
 _TRAINING_KEYS = (
     "train_batch_size", "train_micro_batch_size_per_gpu", "gradient_accumulation_steps",
     "steps_per_print", "optimizer", "scheduler", "fp16", "bf16", "zero_optimization",
     "data_types", "gradient_clipping", "prescale_gradients", "gradient_predivide_factor",
     "sparse_attention", "telemetry", "wall_clock_breakdown", "memory_breakdown",
-    "resilience", "checkpoint",
+    "resilience", "checkpoint", "mesh", "comms_logger",
 )
+# sections still refused, each with the ROADMAP queue 1 item that ports it
+_REFUSED_ITEMS = {"comm_compression": "12/13"}
 # the monitor backends (JAX monitor/): ROADMAP queue 1 item 14
 _MONITOR_KEYS = ("tensorboard", "wandb", "csv_monitor")
 
@@ -953,7 +1030,11 @@ class DeepSpeedConfig:
     memory_breakdown: bool = False
     resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
     checkpoint: CheckpointConfig = field(default_factory=CheckpointConfig)
+    zero_optimization: ZeroConfig = field(default_factory=ZeroConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    comms_logger: CommsLoggerConfig = field(default_factory=CommsLoggerConfig)
     _user_batch: Optional[tuple] = None
+    _dp_world_size: int = 1
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "DeepSpeedConfig":
@@ -964,22 +1045,12 @@ class DeepSpeedConfig:
                     f"config section {key!r}={d[key]!r}: the monitor backends are not "
                     "ported to deepspeed_tpu_torch yet (ROADMAP queue 1 item 14)"
                 )
-            if key == "mesh" and all(int(d[key].get(a, 1)) <= 1 for a in ("tp", "pp", "ep", "sp")) \
-                    and int(d[key].get("dp", -1)) in (-1, 1):
-                continue  # one device is the mesh the port runs
             if not _is_off(d[key]):
+                item = _REFUSED_ITEMS.get(key)
                 raise NotPortedError(
                     f"config section {key!r}={d[key]!r} is not ported to deepspeed_tpu_torch "
-                    "yet (its training path is the single-device subset; ROADMAP queue 1 "
-                    "names the item that ports each section)"
-                )
-        zero = d.get("zero_optimization") or {}
-        for key, is_off in _ZERO_OFF.items():
-            if key in zero and not is_off(zero[key]):
-                raise NotPortedError(
-                    f"zero_optimization.{key}={zero[key]!r} is not ported to "
-                    "deepspeed_tpu_torch yet: ZeRO stages 1-3 and offload need comm/ on "
-                    "NCCL (ROADMAP queue 1 item 10)"
+                    "yet (" + (f"ROADMAP queue 1 item {item}" if item else
+                               "ROADMAP queue 1 names the item that ports each section") + ")"
                 )
         cfg = cls(
             train_batch_size=d.get("train_batch_size"),
@@ -1007,15 +1078,21 @@ class DeepSpeedConfig:
                                       d.get("resilience") or {}),
             checkpoint=_typed_section(CheckpointConfig, "checkpoint",
                                       d.get("checkpoint") or {}),
+            zero_optimization=_typed_section(ZeroConfig, "zero_optimization",
+                                             d.get("zero_optimization") or {}),
+            mesh=_typed_section(MeshConfig, "mesh", d.get("mesh") or {}),
+            comms_logger=_typed_section(CommsLoggerConfig, "comms_logger",
+                                        d.get("comms_logger") or {}),
         )
         if cfg.fp16.enabled and cfg.bf16.enabled:
             raise DeepSpeedConfigError("fp16 and bf16 cannot both be enabled")
         return cfg
 
     @staticmethod
-    def load(config: Any) -> "DeepSpeedConfig":
+    def load(config: Any, dp_world_size: Optional[int] = 1) -> "DeepSpeedConfig":
         """A dict, a JSON string, a path to a JSON file or a config →
-        the config, with the batch triple finalized for one device."""
+        the config, with the batch triple finalized for ``dp_world_size``
+        ranks (None: not yet; the engine finalizes against its mesh)."""
         if isinstance(config, DeepSpeedConfig):
             cfg = config
         elif isinstance(config, dict):
@@ -1028,41 +1105,44 @@ class DeepSpeedConfig:
                     cfg = DeepSpeedConfig.from_dict(json.load(fh))
         else:
             raise DeepSpeedConfigError(f"unsupported config type {type(config)}")
-        cfg.finalize(1)
+        if dp_world_size is not None:
+            cfg.finalize(dp_world_size)
         return cfg
 
     def finalize(self, dp_world_size: int = 1) -> None:
         """Derive and validate the batch triple train_batch_size = micro *
-        gas * dp (reference ``_configure_train_batch_size``); idempotent."""
-        if int(dp_world_size) != 1:
-            raise NotPortedError(
-                f"data-parallel world size {dp_world_size}: deepspeed_tpu_torch trains on "
-                "one device (ROADMAP queue 1 item 10)"
-            )
+        gas * dp (reference ``_configure_train_batch_size``); idempotent
+        across dp sizes: the triple the user wrote is kept once and
+        re-derived from."""
+        dp = self._dp_world_size = max(1, int(dp_world_size))
         if self._user_batch is None:
             self._user_batch = (self.train_batch_size, self.train_micro_batch_size_per_gpu,
                                 self.gradient_accumulation_steps)
         tb, mb, gas = (None if x is None else int(x) for x in self._user_batch)
         if tb is not None and mb is not None and gas is not None:
-            if tb != mb * gas:
+            if tb != mb * gas * dp:
                 raise DeepSpeedConfigError(
-                    f"train_batch_size {tb} != micro_batch {mb} * gas {gas} * dp 1"
+                    f"train_batch_size {tb} != micro_batch {mb} * gas {gas} * dp {dp}"
                 )
         elif tb is not None and mb is not None:
-            if tb % mb:
+            if tb % (mb * dp):
                 raise DeepSpeedConfigError(
-                    f"train_batch_size {tb} not divisible by micro_batch {mb} * dp 1"
+                    f"train_batch_size {tb} not divisible by micro_batch {mb} * dp {dp}"
                 )
-            gas = tb // mb
+            gas = tb // (mb * dp)
         elif tb is not None and gas is not None:
-            if tb % gas:
-                raise DeepSpeedConfigError(f"train_batch_size {tb} not divisible by gas {gas} * dp 1")
-            mb = tb // gas
+            if tb % (gas * dp):
+                raise DeepSpeedConfigError(
+                    f"train_batch_size {tb} not divisible by gas {gas} * dp {dp}")
+            mb = tb // (gas * dp)
         elif mb is not None:
             gas = gas or 1
-            tb = mb * gas
+            tb = mb * gas * dp
         elif tb is not None:
-            gas, mb = 1, tb
+            gas = 1
+            if tb % dp:
+                raise DeepSpeedConfigError(f"train_batch_size {tb} not divisible by dp {dp}")
+            mb = tb // dp
         else:
             raise DeepSpeedConfigError(
                 "one of train_batch_size / train_micro_batch_size_per_gpu must be set"

@@ -1,6 +1,6 @@
-"""DeepSpeedEngine — the single-device training engine (counterpart of
-``deepspeed_tpu/runtime/engine.py`` ``DeepSpeedEngine`` on a one-device
-mesh with ZeRO stage 0).
+"""DeepSpeedEngine — the training engine (counterpart of
+``deepspeed_tpu/runtime/engine.py`` ``DeepSpeedEngine`` on a dp mesh, ZeRO
+stages 0-3).
 
 The JAX engine compiles the whole step into one XLA program
 (``_make_train_step``, engine.py:1106-1345, jitted at :577) and the eval
@@ -47,6 +47,29 @@ device. ``eval_batch`` without a key splits the engine key, and ``forward``
 evaluates under ``fold_in(rng, 0x5EED)``, leaving the training stream
 untouched.
 
+Data parallelism and ZeRO (JAX engine.py:102-143, ``runtime/zero/``): with
+a process group (``comm.init_distributed``) the ``mesh`` section's ``dp``
+axis is its ranks (``parallel/topology.py`` ``ProcessGroups``), one
+process a rank, and without one the engine trains alone and communicates
+nothing. Every rank takes the global host batch, as JAX's single
+controller does, and keeps its rows ``[r micro, (r + 1) micro)`` of each
+micro-batch; the loss divides by the global micro-batch's token count
+(``ModuleSpec.loss_norm``, taken on the host), so the ranks' losses and
+gradients sum to JAX's; each dropout draws the rank's slice of JAX's draw
+over the global batch (the key table's shard index). ``ZeroLayout`` says
+which leaves a rank stores as shards (JAX's policy, dim for dim): stage 1
+the optimizer state (each rank updates its shard of the master, then
+all-gathers it), stage 2 also the gradient accumulation (a reduce-scatter
+at each micro-batch), stage 3 also the fp32 master, gathered in the
+compute dtype at each micro-batch's use (``GatherAtUse``, whose backward
+reduce-scatters in the gradient-accumulation dtype, as stages 0-2
+reduce). Whole gradients are all-reduced; the norm sums squares over
+shards (a whole leaf counted once), the fp16 overflow is a MAX over the
+ranks, LAMB sums its shards' norms between its two launches. All of
+it runs inside the step's one program: on the card the NCCL collectives
+are captured with it (the engine runs one eager collective first, so the
+communicator exists before any capture).
+
 The telemetry plane (``telemetry`` section) records a sampled step as the
 JAX engine's ``_telemetry_step`` does: prepare/dispatch/sync spans, the
 step's scalars, ``samples_per_sec`` from the throughput timer, ``hbm``,
@@ -85,8 +108,10 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import comm as dscomm
 from .. import telemetry as _telemetry
 from ..inference.engine import resolve_device
+from ..parallel.topology import MeshSpec
 from ..ops import prng
 from ..utils import graphs
 from ..utils.logging import log_dist, warning_once
@@ -96,7 +121,8 @@ from .config import DeepSpeedConfig
 from .fp16 import loss_scaler as ls
 from .lr_schedules import get_lr_schedule, tensor_form
 from .module import ModuleSpec
-from .optimizers import build_optimizer, optax_state_paths
+from .optimizers import Lamb, build_optimizer, optax_state_paths
+from .zero.partitioning import GatherAtUse, ZeroLayout
 
 PyTree = Any
 
@@ -140,8 +166,35 @@ class DeepSpeedEngine:
                  collate_fn=None, device=None):
         self.module = model
         self.device = resolve_device(device)
-        config = DeepSpeedConfig.load(config)
+        config = DeepSpeedConfig.load(config, dp_world_size=None)
+        # --- topology (JAX engine.py:102-114): the mesh's process groups.
+        # With no process group the engine trains alone and communicates
+        # nothing; with one (comm.init_distributed) it runs the stage's
+        # collectives over dp, at any world size, one rank included
+        m = config.mesh
+        want = m.dp if m.dp > 0 else None
+        world = torch.distributed.get_world_size() if torch.distributed.is_initialized() else 1
+        if want is not None and want != world:
+            raise RuntimeError(
+                f"mesh dp={want} needs a process group of {want} ranks and this process has "
+                + (f"one of {world}" if torch.distributed.is_initialized() else
+                   "none: call deepspeed_tpu_torch.comm.init_distributed first")
+                + " (the engine never trains at a narrower dp than asked)")
+        self.mesh = MeshSpec(dp=m.dp, tp=m.tp, pp=m.pp, ep=m.ep, sp=m.sp).build_mesh()
+        self.distributed = self.mesh.distributed
+        self.dp_world_size = self.mesh.size("dp")
+        self.dp_rank = self.mesh.axis_rank("dp")
+        self._dp_group = self.mesh.group("dp") if self.distributed else None
+        if self.distributed:
+            backend = torch.distributed.get_backend()
+            if (backend == "nccl") != (self.device.type == "cuda"):
+                raise RuntimeError(
+                    f"the process group's backend is {backend} and the engine's device is "
+                    f"{self.device}: nccl trains on the card, gloo on the CPU")
+        config.finalize(self.dp_world_size)
         self.config = config
+        if config.comms_logger.enabled:
+            dscomm.configure(config=config)
 
         # --- precision
         self.fp16_enabled = config.fp16.enabled
@@ -149,7 +202,8 @@ class DeepSpeedEngine:
         self.compute_dtype = config.compute_dtype
         self.dynamic_loss_scale = config.fp16.enabled and config.fp16.dynamic_loss_scale
         self.grad_accum_dtype = _ACC_DTYPES[config.data_types.grad_accum_dtype]
-        self.zero_stage = 0
+        zcfg = config.zero_optimization
+        self.zero_stage = int(zcfg.stage)
 
         # --- lr schedule + optimizer (JAX engine.py:145-182)
         opt_cfg, sched_cfg = config.optimizer, config.scheduler
@@ -168,13 +222,39 @@ class DeepSpeedEngine:
         # state, loss scale, and the counts of applied and skipped updates
         if params is None:
             params = model.init(torch.Generator(device=self.device).manual_seed(int(seed)))
-        self.params = tree_map(
+        full = tree_map(
             lambda p: p.detach().to(device=self.device,
                                     dtype=torch.float32 if p.is_floating_point() else p.dtype,
                                     copy=True),
             params,
         )
-        self.opt_state = self.optimizer.init(self.params)
+        # --- ZeRO (JAX engine.py:136-143, zero/partitioning.py): which
+        # leaves this rank holds as shards. Every rank builds the same tree
+        # (the same seed or the caller's params) and keeps its shards: the
+        # master's at stage 3, the optimizer state's from stage 1
+        items = _flatten(full)
+        self._leaf_paths = [p for p, _ in items]
+        self.layout = ZeroLayout(
+            [tuple(v.shape) for _, v in items], self.zero_stage if self.distributed else 0,
+            self.dp_world_size,
+            param_min_size=max(2, int(zcfg.stage3_param_persistence_threshold))
+            if self.zero_stage >= 3 else 2**14)
+        self.params = _unflatten([(p, self._shard(v, d)) for (p, v), d
+                                  in zip(items, self.layout.param)])
+        del full, items
+        self.opt_state = self.optimizer.init(self._update_tree(tree_leaves(self.params)))
+        # the shard dim of every state tensor a shard is kept of, by identity
+        self._shard_dims = {id(t): d for t, d in zip(tree_leaves(self.params),
+                                                      self.layout.param) if d is not None}
+        for f in vars(self.opt_state).values():
+            if isinstance(f, dict):
+                self._shard_dims.update({id(t): d for t, d in zip(tree_leaves(f),
+                                                                   self.layout.opt)
+                                         if d is not None})
+        if self.distributed:
+            # the communicator exists before any capture: one eager
+            # collective on the group
+            dscomm.all_reduce(torch.zeros(1, device=self.device), self._dp_group)
         self.loss_scale_state = ls.from_config(config.fp16, device=self.device)
         self._global_step = torch.zeros((), dtype=torch.int32, device=self.device)
         self._skipped = torch.zeros((), dtype=torch.int32, device=self.device)
@@ -240,19 +320,61 @@ class DeepSpeedEngine:
             self.training_dataloader = self.deepspeed_io(training_data, collate_fn=collate_fn)
         precision = "fp16" if self.fp16_enabled else ("bf16" if self.bf16_enabled else "fp32")
         log_dist(
-            f"DeepSpeedEngine initialized: device={self.device} zero_stage=0 "
-            f"precision={precision} batch=({self.train_batch_size_value}="
-            f"{self.micro_batch_size}x{self.gradient_accumulation_steps_value}x1)"
+            f"DeepSpeedEngine initialized: device={self.device} mesh={self.mesh.shape} "
+            f"zero_stage={self.zero_stage} precision={precision} "
+            f"batch=({self.train_batch_size_value}={self.micro_batch_size}x"
+            f"{self.gradient_accumulation_steps_value}x{self.dp_world_size})"
         )
+
+    # ------------------------------------------------------------------
+    # ZeRO shards
+    # ------------------------------------------------------------------
+    def _shard(self, t: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
+        """This rank's chunk of ``t`` along ``dim`` (owned, contiguous), or
+        ``t`` itself when ``dim`` is None."""
+        if dim is None:
+            return t
+        c = t.shape[dim] // self.dp_world_size
+        return t.narrow(dim, self.dp_rank * c, c).clone(memory_format=torch.contiguous_format)
+
+    def _update_tree(self, master: List[torch.Tensor]) -> PyTree:
+        """The tree the optimizer updates: each leaf on its ``opt`` layout
+        (this rank's shard of a whole master leaf is a copy)."""
+        return _unflatten([(p, m if (d is None or pd is not None) else self._shard(m, d))
+                           for p, m, d, pd in zip(self._leaf_paths, master, self.layout.opt,
+                                                  self.layout.param)])
+
+    def _gather(self, t: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
+        return t if dim is None else dscomm.all_gather(t, self._dp_group, gather_dim=dim)
+
+    def full_params(self) -> PyTree:
+        """The fp32 master as whole tensors on every rank (stage 3 gathers
+        its shards: a collective every rank calls)."""
+        return _unflatten([(p, self._gather(t, d)) for p, t, d in
+                           zip(self._leaf_paths, tree_leaves(self.params), self.layout.param)])
+
+    def collective_plan(self) -> Dict[str, int]:
+        """The collectives one training step issues, by kind (none without
+        a process group)."""
+        if not self.distributed:
+            return {"all_reduce": 0, "reduce_scatter": 0, "all_gather": 0}
+        return self.layout.plan(self.gradient_accumulation_steps_value, self.fp16_enabled,
+                                isinstance(self.optimizer, Lamb))
 
     # ------------------------------------------------------------------
     # data plumbing
     # ------------------------------------------------------------------
-    def _host_batch(self, batch: PyTree) -> List[Tuple[Tuple, np.ndarray]]:
+    def _host_batch(self, batch: PyTree, norms: bool = False):
         """A host batch ``[train_batch_size, ...]`` → its leaves as numpy
-        ``[gas, micro, ...]`` (integer leaves as int64, the index dtype)."""
+        ``[gas, micro, ...]`` (integer leaves as int64, the index dtype):
+        this rank's rows ``[r micro, (r + 1) micro)`` of each ``[micro *
+        dp]`` micro-batch, as JAX's ``reshape(gas, -1, ...)`` shards the
+        micro dim over dp (JAX engine.py:1572-1620). With ``norms`` (and a
+        process group) also the loss's global denominators of each
+        micro-batch (``ModuleSpec.loss_norm``), f32 ``[gas, k]``, or None."""
         gas = self.gradient_accumulation_steps_value
-        out = []
+        mb, r = self.micro_batch_size, self.dp_rank
+        out, glob = [], []
         for path, x in _flatten(batch):
             a = x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
             if a.shape[0] != self.train_batch_size_value:
@@ -261,8 +383,24 @@ class DeepSpeedEngine:
                 )
             if not np.issubdtype(a.dtype, np.floating):
                 a = a.astype(np.int64)
-            out.append((path, a.reshape(gas, -1, *a.shape[1:])))
-        return out
+            a = a.reshape(gas, -1, *a.shape[1:])
+            glob.append((path, a))
+            out.append((path, a[:, r * mb:(r + 1) * mb] if self.dp_world_size > 1 else a))
+        if not norms:
+            return out
+        return out, self._loss_norms(glob) if self.distributed else None
+
+    def _loss_norms(self, glob) -> np.ndarray:
+        """The global micro-batches' loss denominators, ``[gas, k]`` f32: the
+        model's ``loss_norm``, or ``[dp]`` (the per-rank loss divided by the
+        rank count) without one."""
+        fn = self.module.loss_norm
+        rows = []
+        for i in range(self.gradient_accumulation_steps_value):
+            micro = _unflatten([(p, a[i]) for p, a in glob])
+            rows.append(np.asarray(fn(micro), np.float32) if fn is not None
+                        else np.asarray([self.dp_world_size], np.float32))
+        return np.stack(rows)
 
     def shard_batch(self, batch: PyTree) -> PyTree:
         """Host batch ``[train_batch_size, ...]`` → device tensors ``[gas,
@@ -282,22 +420,33 @@ class DeepSpeedEngine:
     # ------------------------------------------------------------------
     def _key_rows(self, key: np.ndarray) -> np.ndarray:
         """A micro-batch key → the rows its loss reads (the model's key
-        table, or the key itself), uint32 ``[T, 2]``."""
+        table, or the key itself), uint32 ``[T, 2]``; with a process group
+        ``[T, 4]``, each row with this rank's shard index
+        (``prng.shard_key``): the rank draws its slice of each global
+        draw, as JAX's dropout over the global batch does."""
         kt = self.module.key_table
-        return np.asarray(kt(key) if kt is not None else key[None], np.uint32)
+        rows = np.asarray(kt(key) if kt is not None else key[None], np.uint32)
+        if self.distributed:
+            rows = np.stack([prng.shard_key(k, self.dp_rank) for k in rows])
+        return rows
 
-    def _program(self, kind: str, leaves, n_keys: int) -> graphs.CapturedProgram:
-        sig = (kind, n_keys, tuple((p, a.shape, a.dtype.str) for p, a in leaves))
+    def _program(self, kind: str, leaves, n_keys: int, norms) -> graphs.CapturedProgram:
+        sig = (kind, n_keys, tuple((p, a.shape, a.dtype.str) for p, a in leaves),
+               None if norms is None else norms.shape)
         prog = self._programs.get(sig)
         if prog is None:
-            T = len(self._key_rows(self._rng))
+            T, W = self._key_rows(self._rng).shape
             shapes = {str(i): (a.shape, torch.from_numpy(a[:0]).dtype)
                       for i, (_, a) in enumerate(leaves)}
-            shapes["keys"] = (n_keys, T, 2)
+            shapes["keys"] = (n_keys, T, W)
+            if norms is not None:
+                shapes["norm"] = (norms.shape, torch.float32)
             inputs = graphs.StaticInputs(shapes, self.device)
             batch = _unflatten([(p, inputs.dev[str(i)]) for i, (p, _) in enumerate(leaves)])
+            if norms is not None:
+                batch["__norm__"] = inputs.dev["norm"]
             keys = inputs.dev["keys"] if self.module.key_table is not None \
-                else inputs.dev["keys"][:, 0]
+                else inputs.dev["keys"][:, 0, :2]
             fn = (self._train_fn if kind == "train" else self._eval_fn)(batch, keys)
             prog = graphs.CapturedProgram(f"{kind}_step", fn, self.device, inputs,
                                           copy_outputs=True)
@@ -311,8 +460,10 @@ class DeepSpeedEngine:
 
     def _train_fn(self, batch: PyTree, keys: torch.Tensor) -> Callable[[], Dict]:
         """The step function over the program's static inputs: ``batch``'s
-        leaves ``[gas, micro, ...]`` and ``keys [gas, T, 2]`` (or ``[gas,
-        2]``) on the device → the metrics as device tensors."""
+        leaves ``[gas, micro, ...]`` and ``keys [gas, T, 2 or 4]`` (or
+        ``[gas, 2]``) on the device → the metrics as device tensors. With a
+        process group, the ZeRO stage's collectives over dp run inside it
+        (module docstring)."""
         cfg = self.config
         gas = self.gradient_accumulation_steps_value
         fp16 = self.fp16_enabled
@@ -321,52 +472,88 @@ class DeepSpeedEngine:
         # the watchdog's in-step bitmask (JAX engine.py:132-134)
         flags = self._watchdog is not None and bool(cfg.telemetry.watchdog.nan_check)
         lss = self.loss_scale_state
+        dist_on, grp = self.distributed, self._dp_group
+        lay = self.layout
+        sharded_grads = any(d is not None for d in lay.grad)
+        # a whole gradient's share of the norm: counted on rank 0 only
+        whole_weight = 1.0 if self.dp_rank == 0 else 0.0
 
         def step():
             scale = lss.cur_scale if fp16 else 1.0
-            # 1. one cast of the master per step; its leaves are what autograd
-            # differentiates (d loss / d master is the upcast of these grads)
-            cparams = tree_map(lambda p: p.detach().to(self.compute_dtype).requires_grad_(True)
-                               if p.is_floating_point() else p, self.params)
-            leaves = tree_leaves(cparams)
+            master = tree_leaves(self.params)
+            # 1. one cast of the master per step; its leaves are what
+            # autograd differentiates. A stage-3 shard stays in
+            # grad_accum_dtype: GatherAtUse casts it at each use, and
+            # reduce-scatters its gradient in that dtype
+            leaves = [p.detach().to(self.compute_dtype if d is None
+                                    else self.grad_accum_dtype).requires_grad_(True)
+                      if p.is_floating_point() else p for p, d in zip(master, lay.param)]
             # 2. accumulate the micro-batches' grads in grad_accum_dtype, each
-            # under its key rows (JAX engine.py:1212, :1236, :1252)
+            # under its key rows (JAX engine.py:1212, :1236, :1252); stage 3
+            # gathers its sharded leaves at each micro-batch's use, and their
+            # backward reduce-scatters; stage 2 reduce-scatters the others
             acc = None
             loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
             for i in range(gas):
                 micro = tree_map(lambda x: x[i], batch)
+                used = [GatherAtUse.apply(t, grp, d, self.compute_dtype) if d is not None
+                        else t for t, d in zip(leaves, lay.param)]
+                cparams = _unflatten(list(zip(self._leaf_paths, used)))
                 loss, _ = self.module.loss_fn(cparams, micro, keys[i], True)
+                if dist_on and self.module.loss_norm is None:
+                    loss = loss / self.dp_world_size
                 grads = torch.autograd.grad(loss.float() * scale, leaves, allow_unused=True,
                                             materialize_grads=True)
+                del cparams, used
                 if predivide:
                     grads = [g / factor for g in grads]
                 grads = [g.to(self.grad_accum_dtype) for g in grads]
+                grads = [dscomm.reduce_scatter(g, grp, scatter_dim=d)
+                         if d is not None and pd is None else g
+                         for g, d, pd in zip(grads, lay.grad, lay.param)]
                 if acc is None:
                     acc = grads
                 else:
                     for a, g in zip(acc, grads):
                         a.add_(g)
                 loss_sum = loss_sum + loss.detach().float()
-            del cparams, leaves
+            del leaves
+            if dist_on:
+                # the whole gradients are summed over the ranks; so is the
+                # loss, each rank's share of the global mean
+                for a, d in zip(acc, lay.grad):
+                    if d is None:
+                        dscomm.all_reduce(a, grp)
+                dscomm.all_reduce(loss_sum, grp)
             # 3. unscale and average over gas in f32
             inv = 1.0 / (scale * gas) if fp16 else 1.0 / gas
             grads = [g.float() * inv for g in acc]
             if predivide and factor != 1.0:
                 grads = [g * factor for g in grads]
-            # 4. overflow (fp16 only), a device flag: zero the gradients
+            # 4. overflow (fp16 only), a device flag: zero the gradients. A
+            # shard's overflow is every rank's (a MAX over dp)
             overflow = (ls.has_inf_or_nan(grads) if fp16
                         else torch.zeros((), dtype=torch.bool, device=self.device))
+            if fp16 and sharded_grads:
+                flag = dscomm.all_reduce(overflow.to(torch.int32), grp, op="max")
+                overflow = flag > 0
             if fp16:
                 grads = [torch.where(overflow, 0.0, g) for g in grads]
-            # 5. global norm and clipping
-            gnorm = global_norm(grads)
+            # 5. global norm and clipping: over shards, one sum of squares
+            # over dp (a whole gradient counted once)
+            if sharded_grads:
+                sq = torch.stack([g.float().square().sum() * (1.0 if d is not None
+                                                              else whole_weight)
+                                  for g, d in zip(grads, lay.grad)]).sum()
+                gnorm = torch.sqrt(dscomm.all_reduce(sq, grp))
+            else:
+                gnorm = global_norm(grads)
             if clip > 0.0:
                 coef = torch.clamp(clip / (gnorm + 1e-6), max=1.0)
                 grads = [g * coef for g in grads]
             # 6. the update, skipped on overflow; the scale and the counts
             lr = self._lr_at(self._global_step)
-            self.optimizer.step(self.params, grads, self.opt_state,
-                                skip=overflow if fp16 else None)
+            self._update(master, grads, overflow if fp16 else None)
             scale_now = lss.cur_scale.clone()
             ls.assign(lss, ls.update(lss, overflow, dynamic=self.dynamic_loss_scale,
                                      scale_window=cfg.fp16.loss_scale_window,
@@ -385,31 +572,69 @@ class DeepSpeedEngine:
 
         return step
 
+    def _update(self, master: List[torch.Tensor], grads: List[torch.Tensor], skip) -> None:
+        """The optimizer's update of the master from ``grads`` (each on its
+        ``grad`` layout). From stage 1 each rank updates its shard of every
+        sharded leaf (the gradient's chunk at stage 1, where the gradients
+        are whole), then all-gathers the updated master where it keeps it
+        whole (stages 1-2; stage 3's sharded master is updated in place).
+        LAMB sums its sharded leaves' norms over dp between its launches."""
+        lay = self.layout
+        if not any(d is not None for d in lay.opt):
+            self.optimizer.step(self.params, grads, self.opt_state, skip=skip)
+            return
+        upd = tree_leaves(self._update_tree(master))
+        gs = [self._shard(g, d) if d is not None and gd is None else g
+              for g, d, gd in zip(grads, lay.opt, lay.grad)]
+        kw = {}
+        if isinstance(self.optimizer, Lamb):
+            from ..ops.fused_adam import NormReduce
+
+            grp = self._dp_group
+            kw["norm_reduce"] = NormReduce(lambda t: dscomm.all_reduce(t, grp),
+                                           [d is not None for d in lay.opt])
+        self.optimizer.step(upd, gs, self.opt_state, skip=skip, **kw)
+        with torch.no_grad():
+            for m, u, d, pd in zip(master, upd, lay.opt, lay.param):
+                if d is not None and pd is None:
+                    m.copy_(dscomm.all_gather(u, self._dp_group, gather_dim=d))
+
     def _eval_fn(self, batch: PyTree, keys: torch.Tensor) -> Callable[[], torch.Tensor]:
         """The eval step over the program's inputs: the mean eval-mode loss
-        of the ``gas`` micro-batches, each under ``keys[0]``."""
+        of the ``gas`` micro-batches, each under ``keys[0]`` (over dp: each
+        rank's share, summed)."""
         n = self.gradient_accumulation_steps_value
 
         @torch.no_grad()
         def step():
             cparams = _cast(self.params, self.compute_dtype)
+            if self.zero_stage >= 3:
+                cparams = _unflatten([(p, self._gather(t, d)) for p, t, d in zip(
+                    self._leaf_paths, tree_leaves(cparams), self.layout.param)])
             total = torch.zeros((), dtype=torch.float32, device=self.device)
             for i in range(n):
                 micro = tree_map(lambda x: x[i], batch)
                 loss, _ = self.module.loss_fn(cparams, micro, keys[0], False)
+                if self.distributed and self.module.loss_norm is None:
+                    loss = loss / self.dp_world_size
                 total = total + loss.float()
+            if self.distributed:
+                dscomm.all_reduce(total, self._dp_group)
             return total / n
 
         return step
 
     def _stage(self, kind: str, batch: PyTree, keys: List[np.ndarray]):
         """The program for ``batch``'s signature, its staging arrays filled
-        with the batch and the key rows of ``keys`` (one key a row)."""
-        leaves = self._host_batch(batch)
-        prog = self._program(kind, leaves, len(keys))
+        with the batch, the loss's global denominators (with a process
+        group) and the key rows of ``keys`` (one key a row)."""
+        leaves, norms = self._host_batch(batch, norms=True)
+        prog = self._program(kind, leaves, len(keys), norms)
         staging = prog.inputs.staging()
         for i, (_, a) in enumerate(leaves):
             np.copyto(staging[str(i)], a, casting="unsafe")
+        if norms is not None:
+            staging["norm"][...] = norms
         rows = np.stack([self._key_rows(k) for k in keys])
         staging["keys"][...] = rows.reshape(staging["keys"].shape).view(np.int32)
         return prog
@@ -542,8 +767,8 @@ class DeepSpeedEngine:
             duration_s=t_synced - t_start,
             scalars=scalars,
             spans=spans,
-            hbm=self.memory_breakdown(),
-            comm_bytes={},  # one device: no collective (a one-device mesh's record)
+            hbm=_telemetry.device_hbm_stats(self.device),
+            comm_bytes={},  # the step's collectives are comm.comms_logger's to count
             extra={"samples_per_sec": round(self.tput_timer.avg_samples_per_sec(), 3)},
         )
 
@@ -570,8 +795,20 @@ class DeepSpeedEngine:
     def memory_breakdown(self) -> Dict[str, int]:
         """The card's memory (JAX engine.py:674, the reference's
         memory_allocated/cached printout) from the allocator's counters;
-        logged each ``steps_per_print`` when ``memory_breakdown`` is on."""
-        return _telemetry.device_hbm_stats(self.device)
+        logged each ``steps_per_print`` when ``memory_breakdown`` is on.
+        Under ZeRO or a process group also this rank's bytes of the fp32
+        master (``param_bytes``) and of the optimizer state
+        (``optimizer_state_bytes``): its shards."""
+        out = _telemetry.device_hbm_stats(self.device)
+        if self.zero_stage > 0 or self.distributed:
+            master = tree_leaves(self.params)
+            ids = {id(t) for t in master}
+            opt = [t for t in self.state_leaves().values()
+                   if t.dim() > 0 and id(t) not in ids]
+            out.update(param_bytes=sum(t.numel() * t.element_size() for t in master),
+                       optimizer_state_bytes=sum(t.numel() * t.element_size() for t in opt),
+                       zero_stage=self.zero_stage, dp_world_size=self.dp_world_size)
+        return out
 
     # ------------------------------------------------------------------
     # the state, by the JAX TrainState's path names
@@ -597,17 +834,38 @@ class DeepSpeedEngine:
         out["skipped_steps"] = self._skipped
         return out
 
-    def _write_state(self, host: Dict[str, torch.Tensor]) -> None:
+    def full_state_leaves(self) -> Dict[str, torch.Tensor]:
+        """:meth:`state_leaves` with every shard all-gathered into its whole
+        leaf (a collective every rank calls): what a checkpoint holds."""
+        return {k: self._gather(t, self._shard_dims.get(id(t)))
+                for k, t in self.state_leaves().items()}
+
+    def _full_like(self) -> Dict[str, torch.Tensor]:
+        """The whole state leaves' shapes and dtypes, as meta tensors."""
+        out = {}
+        for k, t in self.state_leaves().items():
+            shape = list(t.shape)
+            d = self._shard_dims.get(id(t))
+            if d is not None:
+                shape[d] *= self.dp_world_size
+            out[k] = torch.empty(shape, dtype=t.dtype, device="meta")
+        return out
+
+    def _write_state(self, host: Dict[str, torch.Tensor], whole: bool = True) -> None:
         """Copy host tensors into the engine's state tensors IN PLACE (a
         captured program reads them by address; rebinding would leave it
         on the old ones), then derive the step count the keys fold from the
-        restored counters. A leaf held under two names must get the same
-        value from both."""
+        restored counters. ``whole``: the tensors are whole leaves (a
+        checkpoint's), of which each rank takes its shards; else this
+        rank's own (a rollback snapshot). A leaf held under two names must
+        get the same value from both."""
         leaves = self.state_leaves()
         seen: Dict[int, Tuple[str, torch.Tensor]] = {}
         with torch.no_grad():
             for name, src in host.items():
                 dst = leaves[name]
+                if whole:
+                    src = self._shard(src, self._shard_dims.get(id(dst)))
                 prev = seen.get(id(dst))
                 if prev is not None:
                     if not torch.equal(prev[1], src):
@@ -631,7 +889,7 @@ class DeepSpeedEngine:
                          "snapshot — continuing without rollback")
             return False
         host_state, steps = rb.restore()
-        self._write_state(host_state)
+        self._write_state(host_state, whole=False)
         self.global_steps = steps
         metrics["rolled_back"] = True
         if self.telemetry is not None:
@@ -711,25 +969,65 @@ class DeepSpeedEngine:
         snapshot to pinned host memory, then the manifest write on the
         directory's background writer unless ``blocking`` (default: not
         ``resilience.async_checkpoint``). Otherwise the torch-native state
-        file, written before this returns."""
+        file, written before this returns. Under ZeRO the leaves are
+        gathered whole (every rank calls this) and rank 0 writes them, as
+        JAX's writer writes whole arrays, so a tag loads at any dp width
+        and stage; with more than one rank the write is blocking and the
+        ranks leave together, the tag on disk. With
+        ``stage3_gather_16bit_weights_on_model_save`` at stage 3 the tag
+        also gets :meth:`save_16bit_model`'s export."""
         t0 = time.perf_counter()
         tag = tag or f"global_step{self.get_global_step()}"
-        # checkpoint.tag_validation compares the tag across processes: one
-        # process has nothing to compare (the JAX engine's process_count() == 1)
+        # checkpoint.tag_validation compares the tag across processes: every
+        # rank saves under the tag its caller gave, which is the same one
         if self.config.resilience.enabled:
-            return self._save_checkpoint_resilient(save_dir, tag, client_state, save_latest,
+            path = self._save_checkpoint_resilient(save_dir, tag, client_state, save_latest,
                                                    blocking, t0)
-        from ..checkpoint.engine import save_train_state
+        else:
+            from ..checkpoint.engine import save_train_state
 
-        path = save_train_state(
-            save_dir, tag, self.state_leaves(),
-            client_state={**(client_state or {}), "global_steps": self.global_steps},
-            save_latest=save_latest)
-        log_dist(f"saved checkpoint: {path}")
-        if self.telemetry is not None:
-            self.telemetry.record_event("checkpoint_save", time.perf_counter() - t0,
-                                        {"step": self.global_steps, "tag": tag,
-                                         "path": str(path)})
+            state = self.full_state_leaves()
+            client = {**(client_state or {}), "global_steps": self.global_steps}
+            path = os.path.join(os.path.abspath(save_dir), str(tag))
+            if self.dp_rank == 0:
+                path = save_train_state(save_dir, tag, state, client_state=client,
+                                        save_latest=save_latest)
+            log_dist(f"saved checkpoint: {path}")
+            if self.telemetry is not None:
+                self.telemetry.record_event("checkpoint_save", time.perf_counter() - t0,
+                                            {"step": self.global_steps, "tag": tag,
+                                             "path": str(path)})
+        zcfg = self.config.zero_optimization
+        if zcfg.stage3_gather_16bit_weights_on_model_save and self.zero_stage >= 3:
+            self.flush_checkpoints()
+            self.save_16bit_model(str(path))
+        if self.dp_world_size > 1:
+            dscomm.barrier(self._dp_group)
+        return path
+
+    def save_16bit_model(self, save_dir: str, output_file: str = "pytorch_model.npz") -> str:
+        """The whole parameters in the 16-bit compute dtype (bf16 when the
+        run is fp32) as ONE flat ``.npz`` (JAX engine.py:2676-2700, the
+        reference's ``save_16bit_model``): the stage-3 shards gathered,
+        keys the leaves' ``/``-joined paths, and bf16, which npz lacks,
+        stored as its uint16 words beside a ``__bf16__<key>`` tag. Every
+        rank calls it; rank 0 writes. → the file's path."""
+        dtype = self.compute_dtype if (self.bf16_enabled or self.fp16_enabled) \
+            else torch.bfloat16
+        path = os.path.join(save_dir, output_file)
+        out = {}
+        for p, leaf in _flatten(self.full_params()):
+            key = "/".join(str(k) for k in p)
+            t = leaf.detach().to(dtype).cpu()
+            if t.dtype == torch.bfloat16:
+                out[key] = t.view(torch.int16).numpy().view(np.uint16)
+                out[f"__bf16__{key}"] = np.asarray(True)
+            else:
+                out[key] = t.numpy()
+        if self.dp_rank == 0:
+            os.makedirs(save_dir, exist_ok=True)
+            np.savez(path, **out)
+            log_dist(f"saved 16-bit model: {path}")
         return path
 
     def _save_checkpoint_resilient(self, save_dir, tag, client_state, save_latest, blocking,
@@ -737,19 +1035,24 @@ class DeepSpeedEngine:
         from ..resilience.writer import snapshot_to_host
 
         rcfg = self.config.resilience
+        state = self.full_state_leaves()
+        if self.dp_rank != 0:
+            return os.path.join(os.path.abspath(save_dir), str(tag))
         writer = self._checkpoint_writer(save_dir)
         # the snapshot is the step path's whole cost: pinned host copies,
         # reused across saves once the writer is done with the last one
         idle = all(w.in_flight == 0 for w in self._ckpt_writers.values())
         reuse = self._snap_bufs if idle else None
-        arrays = snapshot_to_host(self.state_leaves(), out=reuse,
+        arrays = snapshot_to_host(state, out=reuse,
                                   extra={"__rng__": np.asarray(self._rng, np.uint32)})
+        del state
         self._snap_bufs = {k: v for k, v in arrays.items() if isinstance(v, torch.Tensor)
                            and v.is_pinned()}
         self.last_snapshot_s = time.perf_counter() - t0
         client = {**(client_state or {}), "global_steps": self.global_steps,
                   "resilience_counters": self._resilience_counter_values()}
         block = (not rcfg.async_checkpoint) if blocking is None else bool(blocking)
+        block = block or self.dp_world_size > 1
         path = writer.save(tag, arrays, client_state=client, step=self.global_steps,
                            save_latest=save_latest, blocking=block)
         log_dist(f"{'committed' if block else 'enqueued async'} resilient checkpoint: {path}")
@@ -767,8 +1070,10 @@ class DeepSpeedEngine:
         Manifest-format tags (either package's) restore with validation
         and the walk-back past corrupt or torn tags, whatever this engine's
         ``resilience`` setting; ``load_optimizer_states=False`` keeps this
-        engine's optimizer state. The learning rate is the schedule at the
-        restored count, so ``load_lr_scheduler_states`` changes nothing."""
+        engine's optimizer state. A tag holds whole leaves: each rank takes
+        its shards, so a tag saved at any dp width and stage loads at any
+        other. The learning rate is the schedule at the restored count, so
+        ``load_lr_scheduler_states`` changes nothing."""
         from ..resilience.recovery import is_resilient_dir
 
         if is_resilient_dir(load_dir, tag):
@@ -776,7 +1081,7 @@ class DeepSpeedEngine:
         from ..checkpoint.engine import load_train_state
 
         t0 = time.perf_counter()
-        state, client_state = load_train_state(load_dir, tag, self.state_leaves(),
+        state, client_state = load_train_state(load_dir, tag, self._full_like(),
                                                load_optimizer_states=load_optimizer_states)
         self._write_state(state)
         self.global_steps = int(client_state.get("global_steps", self.get_global_step()))
@@ -794,7 +1099,7 @@ class DeepSpeedEngine:
         t0 = time.perf_counter()
         registry = self.telemetry.registry if self.telemetry is not None else None
         state, client_state, tag_used, extras = load_resilient_state(
-            load_dir, tag, self.state_leaves(), load_optimizer_states=load_optimizer_states,
+            load_dir, tag, self._full_like(), load_optimizer_states=load_optimizer_states,
             registry=registry)
         self._write_state(state)
         rng = extras.get("__rng__")

@@ -37,3 +37,4 @@ class ModuleSpec:
     loss_fn: LossFn
     apply_fn: Optional[Callable] = None
     key_table: Optional[Callable[[Any], Any]] = None
+    loss_norm: Optional[Callable[[Any], Any]] = None

@@ -148,12 +148,16 @@ class Lamb(_Optimizer):
     init = Adam.init
 
     def step(self, params: PyTree, grads: List[torch.Tensor], state: AdamState,
-             skip: Optional[torch.Tensor] = None) -> None:
+             skip: Optional[torch.Tensor] = None,
+             norm_reduce: Optional[fused_adam.NormReduce] = None) -> None:
+        """``norm_reduce``: the leaves that are this rank's ZeRO shards, whose
+        trust-ratio norms are summed over the ranks (``ops.fused_adam``)."""
         leaves = tree_leaves(params)
         fused_adam.multi_tensor_lamb_(leaves, grads, tree_leaves(state.mu),
                                       tree_leaves(state.nu), state.count + 1,
                                       self.lr_at(state.count), (self.b1, self.b2), self.eps,
-                                      [self.weight_decay] * len(leaves), skip=skip)
+                                      [self.weight_decay] * len(leaves), skip=skip,
+                                      norm_reduce=norm_reduce)
         _advance(state.count, skip)
 
 

@@ -169,7 +169,7 @@ def fma_rotate_variants(counts) -> dict:
     want = dropout.dropout_ref(x, key, 0.1)
     p, c = prng.keep_scale(0.1, x.dtype)
     r, mul = prng.reciprocal_is_exact(0.1, x.dtype)
-    k0, k1 = prng.key_words(key)
+    dkey = prng.device_keys(key, "cuda")
     stream = torch.cuda.current_stream().cuda_stream
     smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
                             "--format=csv,noheader,nounits", "-lms", "250"],
@@ -179,8 +179,9 @@ def fma_rotate_variants(counts) -> dict:
             y = torch.empty_like(x)
 
             def call(_, lib=libs[k], y=y):
-                lib.threefry_dropout_launch(x.data_ptr(), y.data_ptr(), x.numel(), k0, k1,
-                                            prng.keep_threshold(p), c, r, int(mul), 2, stream)
+                lib.threefry_dropout_launch(x.data_ptr(), y.data_ptr(), x.numel(),
+                                            dkey.data_ptr(), prng.keep_threshold(p), c, r,
+                                            int(mul), 2, 2, stream)
 
             result[k]["ms"].append(time_ms(call, 200)[0])
             torch.cuda.synchronize()

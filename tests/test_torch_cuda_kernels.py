@@ -964,6 +964,30 @@ def test_fused_lamb_kernel_repeats_bit_for_bit(card):
     assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
+@pytest.mark.parametrize("sharded", [(True, False, True), (False, False, False),
+                                     (True, True, True)])
+def test_fused_lamb_norm_reduce_between_the_launches(card, sharded):
+    """ZeRO's LAMB: the sharded leaves' partials summed between the two
+    launches. An identity sum (one rank) equals the unsplit launch bit for
+    bit; a doubling sum (two ranks holding the same shard) equals the plain
+    version under the same reduce."""
+    p, g, m, v = _opt_case([(3, 70000), (257,), (64, 64)], card, 4)
+    runs = {}
+    for name, fn in (("none", None), ("identity", lambda t: t),
+                     ("double", lambda t: t.mul_(2.0))):
+        pc, mc, vc = _clone(p), _clone(m), _clone(v)
+        nr = None if fn is None else tfa.NormReduce(fn, sharded)
+        tfa.multi_tensor_lamb(pc, g, mc, vc, 1, 1e-2, weight_decays=[0.01] * 3, norm_reduce=nr)
+        runs[name] = pc
+        if name == "double":
+            ref = [_clone(x) for x in (p, m, v)]
+            tfa.multi_tensor_lamb_ref_(ref[0], g, ref[1], ref[2], 1, 1e-2,
+                                       weight_decays=[0.01] * 3, norm_reduce=nr)
+            assert _rel(pc, ref[0]) <= ADAM_REL_TOL
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(runs["none"], runs["identity"]))
+
+
 def test_fused_adam_kernel_splits_long_lists(card):
     """More tensors than a launch takes: one launch per MAX_TENSORS."""
     n = tfa.MAX_TENSORS + 5
@@ -1294,6 +1318,28 @@ def test_threefry_dropout_kernel_is_its_plain_version(card, dtype, rate, shape):
     dy = torch.randn(shape, generator=g, device=card).to(dtype)
     (gx,) = torch.autograd.grad(y, x, dy)
     assert torch.equal(gx, dropout.dropout_ref(dy, key, rate))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_threefry_dropout_shard_offsets(card, dtype):
+    """A [4] key's shard index s: the kernel draws elements [s n, (s + 1) n)
+    of the key's draw (halves of a full draw, bit for bit), and offsets past
+    2^32 and a slice across it equal the plain version."""
+    from deepspeed_tpu_torch.ops import dropout, prng
+
+    g = torch.Generator(device=card).manual_seed(5)
+    x = torch.randn(4, 257, 64, generator=g, device=card).to(dtype)
+    key = prng.fold_in(prng.PRNGKey(12), 3)
+    full = prng.dropout_kernel(x, key, 0.1)
+    for s_idx in (0, 1):
+        skey = prng.device_keys(prng.shard_key(key, s_idx), card)
+        assert torch.equal(prng.dropout_kernel(x[2 * s_idx:2 * s_idx + 2], skey, 0.1),
+                           full[2 * s_idx:2 * s_idx + 2])
+    small = torch.randn(1003, generator=g, device=card).to(dtype)
+    for s_idx in (2 ** 32 // 1003, 2 ** 32 // 1003 + 1, 2 ** 33 // 1003):
+        skey = prng.device_keys(prng.shard_key(key, s_idx), card)
+        assert torch.equal(prng.dropout_kernel(small, skey, 0.1),
+                           dropout.dropout_ref(small, skey, 0.1))
 
 
 @pytest.mark.parametrize("R,n,lo", [(1, 50257 * 2, 0.0), (5, 50257, 1.1754943508222875e-38),

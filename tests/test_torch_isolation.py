@@ -197,3 +197,34 @@ def test_the_telemetry_slice_modules_are_scanned():
                 "serving/scheduler.py", "serving/kv_cache.py", "serving/request.py",
                 "inference/engine.py", "runtime/config.py", "utils/graphs.py"):
         assert f"deepspeed_tpu_torch/{mod}" in names
+
+
+def test_the_zero_slice_modules_are_scanned():
+    """The comm/, parallel/ and ZeRO slice's modules (and the rank helper
+    of the CPU tests, which a spawned rank imports) are part of what the
+    scans above cover, and the helper imports neither JAX nor the JAX
+    package either."""
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for mod in ("comm/__init__.py", "comm/backend.py", "comm/torch.py", "comm/comm.py",
+                "parallel/__init__.py", "parallel/topology.py", "runtime/zero/__init__.py",
+                "runtime/zero/partitioning.py", "runtime/zero/tiling.py",
+                "utils/init_on_device.py", "utils/zero_to_fp32.py", "checkpoint/reshape.py"):
+        assert f"deepspeed_tpu_torch/{mod}" in names
+    test_no_import_of_jax_or_the_jax_package(REPO / "tests" / "torch_dist.py")
+
+
+def test_distributed_init_defaults_to_the_card():
+    """``init_distributed`` takes NCCL, which needs the card, unless the
+    caller asks for gloo; ``initialize`` still resolves the card."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models import gpt2
+
+    model = gpt2.make_module(gpt2.get_config("gpt2-tiny"))
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the refusals are what the CPU shows")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        comm.init_distributed(verbose=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dtt.initialize(model=model, config={"train_batch_size": 2,
+                                            "zero_optimization": {"stage": 3}})
+    assert not comm.is_initialized()

@@ -141,7 +141,7 @@ def test_batch_triple_matches_jax(triple):
 
 
 @pytest.mark.parametrize("section", [
-    {"zero_optimization": {"stage": 2}},
+    {"zero_optimization": {"stage": 2, "offload_param": {"device": "cpu"}}},
     {"zero_optimization": {"stage": 0, "offload_optimizer": {"device": "cpu"}}},
     {"tensorboard": {"enabled": True}},
     {"activation_checkpointing": {"partition_activations": True}},

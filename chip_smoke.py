@@ -338,7 +338,20 @@ Phases, in order; any failure raises and the script exits non-zero:
      [4] key with shard 1) equals the second half of the full draw bit for
      bit and its plain version; offsets past 2^32 against the plain
      version; timed beside the offset-0 kernel.
-  8  (last, after 28) the script's total seconds, then one JSON line of per-kernel numbers, every kernel and
+  29 the serving placements (serving/placement.py): (a) gpt2 (124M) bf16
+     at world 1 over NCCL, 3b's features at bf16 and int8 pages on 12
+     requests: an explicit placement {tp: 1} equals the default engine
+     (streams, program names, launches, captured replays), stats()'s
+     placement printed; (b) two processes sharing the card over gloo
+     (NCCL refuses two ranks on one card; `chip_smoke.py --phase29-rank`,
+     started after phase 1 built the kernels): tp 2 (6 heads a rank,
+     eager: a gloo group's all-reduces cannot be captured) and
+     disaggregated at tp 1 (captured), bf16 and int8 pages: both ranks'
+     streams equal, and (a)'s under the bf16 tie rule; per-rank pool bytes
+     half of (a)'s at tp 2; the paged kernels' launches per rank exact;
+     12 handoffs; TPOT per rank, handoff bytes and mean ms, and the comms
+     logger's calls with their measured latency.
+  8  (last, after 29) the script's total seconds, then one JSON line of per-kernel numbers, every kernel and
      mode with its launches on the path that ported it (the block-sparse
      kernels: phase 11's, and the three at blocks 16/32 at BERT's shape
      with phase 12's; fused AdamW: phase 6's; fused LAMB: phase 15's;
@@ -363,6 +376,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -628,9 +642,10 @@ def bound(q, k_layer, bt, pos, scales=None, pv_at_q_rate=False):
 # phase 3/4 helpers
 # ---------------------------------------------------------------------------
 
-def compare_streams(label, a_reqs, b_reqs):
-    """Greedy streams identical, except at a tie (top-2 margin < TIE_MARGIN
-    in either run at the first differing token). → ties."""
+def compare_streams(label, a_reqs, b_reqs, margin_limit=TIE_MARGIN):
+    """Greedy streams identical, except at a tie (top-2 margin below
+    ``margin_limit``, TIE_MARGIN by default, in either run at the first
+    differing token). → ties."""
     ties = 0
     for i, (a, b) in enumerate(zip(a_reqs, b_reqs)):
         if a.tokens == b.tokens:
@@ -639,9 +654,9 @@ def compare_streams(label, a_reqs, b_reqs):
         margin = min(a.margins[t], b.margins[t])
         print(f"{label}: request {i}: streams differ at token {t}, top-2 logit margin "
               f"{margin:.3e}")
-        check(margin < TIE_MARGIN, f"{label}: request {i} differs at token {t} with margin "
-                                   f"{margin:.3e} >= {TIE_MARGIN} (not a tie)")
-        print(f"{label}: request {i}: a tie (margin < {TIE_MARGIN}), not a fault")
+        check(margin < margin_limit, f"{label}: request {i} differs at token {t} with margin "
+                                     f"{margin:.3e} >= {margin_limit} (not a tie)")
+        print(f"{label}: request {i}: a tie (margin < {margin_limit}), not a fault")
         ties += 1
     n_tok = sum(len(r.tokens) for r in a_reqs)
     print(f"{label}: {len(a_reqs) - ties} of {len(a_reqs)} identical, {ties} ties, "
@@ -3670,6 +3685,237 @@ def zero_phase(smi):
     print(f"phase 28: {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 29: tensor-parallel and disaggregated serving placements
+# ---------------------------------------------------------------------------
+
+# gpt2 (124M) serves phase 29: at tp 2 each rank holds 6 of its 12 heads
+PHASE29_MODEL = "gpt2"
+PHASE29_SECTIONS = {"bf16": FEATURES_SECTION, "int8": dict(FEATURES_SECTION, kv_cache_dtype="int8")}
+PHASE29_PLACEMENTS = {"tp2": {"tp": 2}, "disaggregated": {"disaggregate": True}}
+
+
+def phase29_traffic(srv, vocab):
+    """3b/3c's traffic, shorter: 12 requests, 6 sharing a 256-token system
+    prompt, 6 cold up to 384 tokens, budgets 16-48."""
+    return shared_prefix_requests(srv, vocab, seed=2929, n_shared=6, n_cold=6, system_len=256,
+                                  tails=(8, 96), cold_lens=(64, 384), budgets=(16, 48))
+
+
+def phase29_serve(eng, section, vocab, comms=False):
+    """One served run of ``section`` with margins, the paged kernels'
+    counts at 0 just before and read just after → a JSON-able record.
+    ``comms``: the comms logger on for the run, then each recorded op's
+    latency measured at its size on its group (``measure``: host tensors
+    on gloo, so the host copies of a CUDA tensor are not in it)."""
+    from deepspeed_tpu_torch import comm
+
+    srv = eng.serve(section, track_margins=True)
+    reqs = phase29_traffic(srv, vocab)
+    for k in (K_PAGED, K_PAGED8, K_MT, K_MT8):
+        LAUNCHES[k] = 0
+    if comms:
+        comm.comms_logger.configure(enabled=True)
+        comm.comms_logger.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = srv.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: LAUNCHES[k] for k in (K_PAGED, K_PAGED8, K_MT, K_MT8)}
+    log = {}
+    if comms:
+        comm.comms_logger.configure(enabled=False)
+        comm.comms_logger.measure(groups={"tp": srv.decode_placement.group}, iters=20)
+        log = {f"{op} {axis}": {"count": r["count"], "bytes": r["bytes"], "ms": r["time_ms"]}
+               for (op, axis), r in sorted(comm.comms_logger.comms_dict.items())}
+        comm.comms_logger.reset()
+    st = srv.stats()
+    ex = exact_percentiles(srv.completed)
+    rec = {
+        "done": len(done),
+        "requests": [{"tokens": list(map(int, r.tokens)), "margins": [float(m) for m in r.margins],
+                      "status": r.status, "budget": int(b)} for r, b in reqs],
+        "launches": launches, "wall_s": wall, "comms": log,
+        "names": [p.name for p in srv.executables], "expected": srv.expected_executables,
+        "captures": [p.captures for p in srv.executables],
+        "replays": sum(p.replays for p in srv.executables),
+        "pool_bytes": {ps.placement.name: sum(t.numel() * t.element_size() for t in ps.pools())
+                       for ps in (srv.decode_set, srv.prefill_set)},
+        "tpot_p50_s": ex["tpot"]["p50_s"], "ttft_p50_s": ex["ttft"]["p50_s"],
+        "stats": {k: st.get(k) for k in ("placement", "decode_steps", "spec_steps",
+                                         "chunk_prefills", "kv_handoffs", "kv_handoff_bytes",
+                                         "kv_handoff_latency_mean_s", "decode_tokens_per_s")},
+    }
+    srv.drain()
+    srv.release_prefix_cache()
+    srv.check_no_leaks()
+    del srv
+    return rec
+
+
+def phase29_rank(rank: int, world: int, port: int, out_dir: str) -> None:
+    """One of phase 29b's ranks (``chip_smoke.py --phase29-rank``): a gloo
+    process group on the card it shares with the other rank, gpt2 bf16
+    from seed 0, every placement of :data:`PHASE29_PLACEMENTS` at bf16 and
+    int8 pages; the records to ``out_dir/rank{rank}.json``."""
+    from deepspeed_tpu_torch import comm
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # two ranks share the host's cores: one intra-op thread each (the card
+    # does the compute), so neither spins on the other's cores
+    torch.set_num_threads(1)
+    comm.init_distributed(dist_backend="gloo", init_method=f"tcp://127.0.0.1:{port}",
+                          rank=rank, world_size=world, verbose=False)
+    cfg = gpt2.get_config(PHASE29_MODEL)
+    eng = dtt.init_inference(cfg, dtype=torch.bfloat16, seed=0)
+    out = {}
+    for plc_name, plc in PHASE29_PLACEMENTS.items():
+        for kv, section in PHASE29_SECTIONS.items():
+            out[f"{plc_name} {kv}"] = phase29_serve(eng, dict(section, placement=plc),
+                                                    cfg.vocab_size, comms=True)
+            gc.collect()
+            torch.cuda.empty_cache()
+    comm.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def as_requests(rec):
+    return [types.SimpleNamespace(tokens=r["tokens"], margins=r["margins"])
+            for r in rec["requests"]]
+
+
+def placement_phase(smi):
+    """Phase 29: (a) gpt2 bf16 at world 1 over NCCL, the default engine
+    against an explicit ``placement: {tp: 1}``; (b) two processes sharing
+    the card over gloo, at tp 2 and disaggregated, against (a)."""
+    from deepspeed_tpu_torch import comm
+
+    t_phase = time.perf_counter()
+    phase("29a", "gpt2 bf16 at world 1 over NCCL: the default engine against an explicit "
+                 "placement {tp: 1}, all features, bf16 and int8 pages")
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(free_port()))
+    comm.init_distributed(dist_backend="nccl", verbose=False)
+    check(torch.distributed.get_backend() == "nccl" and comm.get_world_size() == 1,
+          "29a: the process group is not NCCL at world 1")
+    cfg = gpt2.get_config(PHASE29_MODEL)
+    L, spec_k = cfg.n_layer, FEATURES_SECTION["speculative"]["k"]
+    eng = dtt.init_inference(cfg, dtype=torch.bfloat16, seed=0)
+    ref = {kv: phase29_serve(eng, section, cfg.vocab_size)
+           for kv, section in PHASE29_SECTIONS.items()}
+    tp1 = phase29_serve(eng, dict(PHASE29_SECTIONS["int8"], placement={"tp": 1}), cfg.vocab_size)
+    want = ref["int8"]
+    for key in ("names", "launches", "replays", "expected", "captures"):
+        check(tp1[key] == want[key], f"29a: {key} {tp1[key]} != the default engine's {want[key]}")
+    check([r["tokens"] for r in tp1["requests"]] == [r["tokens"] for r in want["requests"]],
+          "29a: the explicit tp-1 placement's streams differ from the default engine's")
+    for kv, rec in ref.items():
+        for r in rec["requests"]:
+            check(r["status"] == RequestStatus.FINISHED and len(r["tokens"]) == r["budget"],
+                  f"29a {kv}: a request {r['status']} with {len(r['tokens'])} tokens")
+        st = rec["stats"]
+        ld = rec["launches"][K_PAGED8 if kv == "int8" else K_PAGED]
+        lm = rec["launches"][K_MT8 if kv == "int8" else K_MT]
+        check(ld == L * (spec_k + 1) * st["spec_steps"] and lm == L * st["chunk_prefills"]
+              and rec["replays"] > 0, f"29a {kv}: launches {rec['launches']}, {st}")
+        print(f"29a {kv} pages: {rec['done']} requests, programs {rec['names']} (captured, "
+              f"{rec['replays']} replays), decode launches {ld} (= {L} x {spec_k + 1} x "
+              f"{st['spec_steps']}), multitoken {lm} (= {L} x {st['chunk_prefills']}); TPOT p50 "
+              f"{rec['tpot_p50_s'] * 1e3:.3f} ms, TTFT p50 {rec['ttft_p50_s'] * 1e3:.2f} ms "
+              f"(exact), wall {rec['wall_s']:.3f} s ({smi})")
+    print(f"29a: placement {{tp: 1}} = the default engine: streams, program names, launches "
+          f"{tp1['launches']}, captured replays {tp1['replays']}; stats()['placement'] "
+          f"{json.dumps(tp1['stats']['placement'])}")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    comm.destroy_process_group()
+
+    phase("29b", "two processes sharing the card over gloo (NCCL refuses two ranks on one "
+                 "card): gpt2 bf16 at tp 2 (6 local heads) and disaggregated at tp 1, bf16 and "
+                 "int8 pages, against 29a")
+    with tempfile.TemporaryDirectory() as d:
+        port = free_port()
+        logs = [open(os.path.join(d, f"log{r}.txt"), "w") for r in range(2)]
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--phase29-rank",
+                                   str(r), "2", str(port), d], stdout=logs[r], stderr=logs[r])
+                 for r in range(2)]
+        try:
+            for p in procs:
+                p.wait(timeout=300)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.close()
+        for r, p in enumerate(procs):
+            if p.returncode != 0:
+                print(open(os.path.join(d, f"log{r}.txt")).read()[-6000:])
+            check(p.returncode == 0, f"29b: rank {r} exited {p.returncode}")
+        got = [json.load(open(os.path.join(d, f"rank{r}.json"))) for r in range(2)]
+    ref_pool = {kv: ref[kv]["pool_bytes"]["shared"] for kv in ref}
+    for key in got[0]:
+        plc_name, kv = key.split()
+        a, b = got
+        check([r["tokens"] for r in a[key]["requests"]] == [r["tokens"] for r in b[key]["requests"]],
+              f"29b {key}: the ranks' streams differ")
+        for r in a[key]["requests"]:
+            check(r["status"] == RequestStatus.FINISHED and len(r["tokens"]) == r["budget"],
+                  f"29b {key}: a request {r['status']} with {len(r['tokens'])} tokens")
+        # tp 2 sums each row-parallel product in another order: bf16 ties
+        # may flip. Disaggregation runs 29a's programs on another rank, so
+        # its streams are 29a's bit for bit: no tie is excused
+        ties = compare_streams(f"29b {key} against 29a", as_requests(ref[kv]), as_requests(a[key]),
+                               BF16_TIE_MARGIN if plc_name == "tp2" else TIE_MARGIN)
+        check(plc_name == "tp2" or ties == 0,
+              f"29b {key}: {ties} streams differ from 29a's, which they equal bit for bit")
+        kd, km = (K_PAGED8, K_MT8) if kv == "int8" else (K_PAGED, K_MT)
+        st = a[key]["stats"]
+        steps, chunks = st["spec_steps"], st["chunk_prefills"]
+        if plc_name == "tp2":
+            for r, rec in enumerate(got):
+                check(rec[key]["pool_bytes"]["shared"] * 2 == ref_pool[kv],
+                      f"29b {key} rank {r}: pool bytes {rec[key]['pool_bytes']} against 29a's "
+                      f"{ref_pool[kv]}")
+                check(rec[key]["launches"][kd] == L * (spec_k + 1) * steps
+                      and rec[key]["launches"][km] == L * chunks,
+                      f"29b {key} rank {r}: launches {rec[key]['launches']}")
+                check(not any(rec[key]["captures"]), f"29b {key}: a gloo tp program captured")
+        else:
+            dec, pre = got[0][key]["launches"], got[1][key]["launches"]
+            check(dec[kd] == L * (spec_k + 1) * steps and dec[km] == 0
+                  and pre[km] == L * chunks and pre[kd] == 0,
+                  f"29b {key}: decode rank launches {dec}, prefill rank {pre}")
+            check(st["kv_handoffs"] == len(a[key]["requests"]) and st["kv_handoff_bytes"] > 0,
+                  f"29b {key}: handoffs {st}")
+            check(all(all(rec[key]["captures"]) for rec in got)
+                  and all(rec[key]["replays"] > 0 for rec in got),
+                  f"29b {key}: tp-1 placements' programs not captured")
+        print(f"29b {key}: {len(a[key]['requests'])} requests on 2 ranks, streams equal across "
+              f"ranks, {ties} ties against 29a; programs {a[key]['names']} (captured "
+              f"{a[key]['captures']})")
+        for r, rec in enumerate(got):
+            x = rec[key]
+            print(f"  rank {r}: paged kernel launches {x['launches']}, pool bytes "
+                  f"{x['pool_bytes']} (29a's {ref_pool[kv]}), TPOT p50 {x['tpot_p50_s'] * 1e3:.3f}"
+                  f" ms, TTFT p50 {x['ttft_p50_s'] * 1e3:.2f} ms (exact), decode steps "
+                  f"{x['stats']['decode_steps']}, wall {x['wall_s']:.3f} s ({smi})")
+        print("  collectives of the run on rank 0 (op axis: calls, bytes, measured ms a call "
+              "on host tensors): " + ", ".join(
+                  f"{k}: {v['count']}, {v['bytes']}, "
+                  + (f"{v['ms']:.4f}" if v["ms"] is not None else "not measured")
+                  for k, v in a[key]["comms"].items()))
+        if plc_name == "disaggregated":
+            print(f"  handoffs {st['kv_handoffs']}, {st['kv_handoff_bytes']} bytes (logical), "
+                  f"mean {st['kv_handoff_latency_mean_s'] * 1e3:.3f} ms a handoff ({smi})")
+    print(f"phase 29: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; the port's smoke run needs the card",
@@ -3725,6 +3971,9 @@ def main() -> int:
                                   pos=[63, 64, 255], dtype=torch.float16)),
         ("page8 fp32 long + pos past table", dict(B=2, H=4, KV=4, D=64, page=8, P=160,
                                                    n=64, pos=[511, 1000], dtype=torch.float32)),
+        # gpt2's 12 heads at tp 2: each rank's 6 local heads (phase 29b)
+        ("H6 bf16 (gpt2 at tp 2)", dict(B=8, H=6, KV=6, D=64, page=16, P=128, n=12,
+                                        pos=main_pos, dtype=torch.bfloat16, inactive=(6, 7))),
     ]
     for label, c in cases:
         dtype = c["dtype"]
@@ -3779,6 +4028,8 @@ def main() -> int:
                                        pos=[0, 100], dtype=torch.float16)),
         ("D256 fp32 page64", dict(B=2, T=9, H=4, KV=2, D=256, page=64, P=16, n=4,
                                   pos=[60, 130], dtype=torch.float32)),
+        ("H6 bf16 T64 (gpt2 at tp 2)", dict(B=1, T=64, H=6, KV=6, D=64, page=16, P=128,
+                                            n=36, pos=[64], dtype=torch.bfloat16)),
     ]
     for label, c in mt_cases:
         cq, ck, cv, cbt, cbase = make_case(**c, seed=4)
@@ -3857,6 +4108,8 @@ def main() -> int:
                                   pos=[63, 64, 255], dtype=torch.float32)),
         ("D256 bf16 page64", dict(B=3, H=4, KV=2, D=256, page=64, P=16, n=4,
                                   pos=[63, 64, 255], dtype=torch.bfloat16)),
+        ("H6 bf16 (gpt2 at tp 2)", dict(B=8, H=6, KV=6, D=64, page=16, P=320, n=i8_n,
+                                        pos=i8_pos, dtype=torch.bfloat16, inactive=(6, 7))),
     ]
     for label, c in i8_cases:
         cq, ckq, cvq, csc, cbt, cpos = make_int8_case(**c, seed=22)
@@ -3978,6 +4231,8 @@ def main() -> int:
                            pos=[0, 33], dtype=torch.bfloat16)),
         ("D256 fp32 page64", dict(B=2, T=9, H=4, KV=2, D=256, page=64, P=16, n=4,
                                   pos=[60, 130], dtype=torch.float32)),
+        ("H6 bf16 T64 (gpt2 at tp 2)", dict(B=1, T=64, H=6, KV=6, D=64, page=16, P=128,
+                                            n=36, pos=[64], dtype=torch.bfloat16)),
     ]
     for label, c in i8mt_cases:
         cq, ckq, cvq, csc, cbt, cbase = make_int8_case(**c, seed=24)
@@ -4893,6 +5148,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    phase(29, "tensor-parallel and disaggregated serving placements (the slice's path)")
+    placement_phase(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     phase(8, "summary")
     print(f"chip_smoke.py total {time.perf_counter() - t_script:.1f} s (builds included; {smi})")
     # launches: each kernel's (and mode's) count on the path of the slice
@@ -5042,4 +5302,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 1 and sys.argv[1] == "--phase29-rank":
+        # one of phase 29b's two ranks, started by placement_phase
+        phase29_rank(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5])
+        sys.exit(0)
     sys.exit(main())

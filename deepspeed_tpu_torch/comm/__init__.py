@@ -29,4 +29,6 @@ from .comm import (
     record,
     reduce_scatter,
     ring_shift,
+    send_recv,
+    subgroup,
 )

@@ -38,6 +38,8 @@ from .torch import (  # noqa: F401  (re-exported primitives)
     ppermute,
     reduce_scatter,
     ring_shift,
+    send_recv,
+    subgroup,
 )
 
 cdb: Optional[Backend] = None  # "communication data backend", the reference's name

@@ -20,6 +20,20 @@ Primitive mapping (``xla.py`` → here):
 - ``ppermute`` / ``ring_shift`` (``lax.ppermute``) → ``batch_isend_irecv``;
 - ``barrier`` → ``dist.barrier``.
 
+Beyond JAX's primitives, the serving placements need :func:`send_recv`
+(a batch of point-to-point moves between global ranks: the disaggregated
+KV handoff, where the JAX package calls ``device_put`` across placements) and
+:func:`subgroup` (the process group of a rank list, made once a process).
+
+Gloo moves host memory. Its ``all_reduce`` and ``broadcast`` take CUDA
+tensors themselves (gloo stages them through pinned buffers, ordered
+with the current stream), so :func:`all_reduce` and :func:`broadcast`
+hand them over as they are. Its send and receive do not:
+:func:`send_recv` sends a CUDA tensor on a gloo group from a pinned host
+copy and receives it into a pinned host buffer. That is a property of
+the transport, not a fallback: a CUDA tensor on a gloo group always
+takes it, and nothing else does.
+
 A dim other than 0 is moved to the front (one contiguous copy) so that the
 collective's flat layout is rank-major, as ``tiled`` JAX collectives lay
 out their shards. Each call records its input's bytes in the comms logger
@@ -92,6 +106,7 @@ class TorchBackend(Backend):
         if dist.is_initialized():
             dist.destroy_process_group()
         _GROUP_NAMES.clear()
+        _SUBGROUPS.clear()
         self.initialized = False
 
 
@@ -110,6 +125,12 @@ def _record(op_name: str, group, x) -> None:
 
 _TORCH_OPS = {"sum": dist.ReduceOp.SUM, "mean": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
               "min": dist.ReduceOp.MIN, "prod": dist.ReduceOp.PRODUCT}
+
+
+def _through_host(x: torch.Tensor, group) -> bool:
+    """A CUDA tensor on a gloo group: a point-to-point move goes through a
+    pinned host copy (gloo's send and receive read host memory)."""
+    return x.is_cuda and dist.get_backend(group) == "gloo"
 
 
 def all_reduce(x: torch.Tensor, group=None, op: str = "sum") -> torch.Tensor:
@@ -189,6 +210,61 @@ def broadcast(x: torch.Tensor, group=None, root: int = 0) -> torch.Tensor:
     src = root if group is None else dist.get_global_rank(group, root)
     dist.broadcast(x, src=src, group=group)
     return x
+
+
+def send_recv(sends: Sequence[Tuple[torch.Tensor, int]] = (),
+              recvs: Sequence[Tuple[torch.Tensor, int]] = (), group=None) -> None:
+    """Point to point between global ranks, in one batch: each ``(x,
+    peer)`` of ``sends`` goes to ``peer``, each ``(y, peer)`` of ``recvs``
+    is filled from ``peer`` (in place). Every rank of the move calls it
+    with its own lists; the sender's and the receiver's tensors of one
+    pair have one shape and dtype. Recorded as ``send_recv`` with the
+    bytes this rank sends. Over gloo, CUDA tensors travel through pinned
+    host buffers."""
+    for x, _peer in sends:
+        _record("send_recv", group, x)
+    staged = []
+    ops = []
+    for x, peer in sends:
+        x = x.contiguous()
+        if _through_host(x, group):
+            x = x.to("cpu").pin_memory()
+        ops.append(dist.P2POp(dist.isend, x, int(peer), group))
+    for y, peer in recvs:
+        buf = y
+        if _through_host(y, group) or not y.is_contiguous():
+            buf = torch.empty(y.shape, dtype=y.dtype,
+                              device="cpu" if _through_host(y, group) else y.device,
+                              pin_memory=_through_host(y, group))
+            staged.append((y, buf))
+        ops.append(dist.P2POp(dist.irecv, buf, int(peer), group))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    for y, buf in staged:
+        y.copy_(buf)
+
+
+# (rank list, backend) -> its process group, per default group (made once
+# a process)
+_SUBGROUPS: Dict[Tuple[Tuple[int, ...], Optional[str]], object] = {}
+
+
+def subgroup(ranks: Sequence[int], name: Optional[str] = None,
+             backend: Optional[str] = None):
+    """The process group of global ``ranks`` (on ``backend``, the default
+    group's when None), made on first use and kept for the process: every
+    later call with the same ranks and backend returns it. Making one is
+    collective over the default group (``dist.new_group``), so every rank
+    calls this in the same order, member or not. ``name`` files its
+    collectives in the comms logger."""
+    key = (tuple(int(r) for r in ranks), backend)
+    g = _SUBGROUPS.get(key)
+    if g is None:
+        g = _SUBGROUPS[key] = dist.new_group(list(key[0]), backend=backend)
+    if name is not None:
+        name_group(g, name)
+    return g
 
 
 def ppermute(x: torch.Tensor, group=None,

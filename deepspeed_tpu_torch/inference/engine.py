@@ -312,7 +312,11 @@ class InferenceEngine:
         :class:`~deepspeed_tpu_torch.serving.ServingEngine`).
         ``serving_config`` (dict or :class:`ServingConfig`) overrides the
         ``serving`` section given to ``init_inference``; ``tracer``,
-        ``heat_tracer`` and ``journal`` override the telemetry plane's."""
+        ``heat_tracer`` and ``journal`` override the telemetry plane's. A
+        ``placement`` over more than one rank (``tp > 1``, ``disaggregate``)
+        serves on the ranks of the default process group: call ``serve`` and
+        every method of the engine it returns on every rank, in the same
+        order (``serving/placement.py``)."""
         from ..serving.scheduler import ServingEngine
 
         cfg = serving_config if serving_config is not None else self._serving_config

@@ -47,6 +47,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..comm.torch import all_reduce
 from ..ops import block_sparse_attention as bsa
 from ..ops import flash_attention as fa
 from ..ops import prng
@@ -205,12 +206,23 @@ def _dropout(x, rate: float, key, train: bool):
     return _dropout_op(x, key, rate)
 
 
-def _mlp(cfg: GPT2Config, lp, h, ops=None):
+def _mlp(cfg: GPT2Config, lp, h, ops=None, tp_group=None):
     """Dense FFN: ``gelu_tanh(h @ c_fc_w + c_fc_b) @ c_proj_w + c_proj_b``
-    (the tanh GELU matches ``jax.nn.gelu(approximate=True)``)."""
+    (the tanh GELU matches ``jax.nn.gelu(approximate=True)``).
+
+    ``tp_group``: a tensor-parallel serving placement's group (JAX's
+    ``tp_axis``). The weights are then this rank's column-parallel
+    ``c_fc`` and row-parallel ``c_proj`` slices, and the partial product
+    is all-reduced over the group in the compute dtype BEFORE the
+    replicated bias is added once (a bias added on every rank would count
+    tp times). None, the default and every training caller, is the plain
+    graph."""
     x = _dot(ops, h, lp["c_fc_w"]) + lp["c_fc_b"]
     x = F.gelu(x, approximate="tanh")
-    return _dot(ops, x, lp["c_proj_w"]) + lp["c_proj_b"]
+    out = _dot(ops, x, lp["c_proj_w"])
+    if tp_group is not None:
+        out = all_reduce(out, tp_group)
+    return out + lp["c_proj_b"]
 
 
 # ---------------------------------------------------------------------------

@@ -7,11 +7,14 @@ same fields, defaults and validation for the continuous-batching path
 decode (``speculative``), shared-prefix KV reuse (``prefix_cache``) and
 chunked prefill (``prefill_chunk_tokens``), and its SLO classes
 (``slo``), the host KV tier (``tiering``), retries with backoff
-(``retry_max``) and the multi-replica fleet (``fleet``, read by
-``serving/fleet.py``'s ``FleetRouter``). The section of the features that
-have not been ported yet (tensor parallelism and disaggregation,
-``placement``) is accepted only at its off values: turning one on raises
-:class:`NotPortedError` instead of being silently ignored.
+(``retry_max``), the multi-replica fleet (``fleet``, read by
+``serving/fleet.py``'s ``FleetRouter``) and the placements (``placement``:
+tensor-parallel and disaggregated serving over the ranks of the default
+process group, ``serving/placement.py``). What is not ported yet raises
+:class:`NotPortedError` instead of being silently ignored: a
+``placement.device_base`` other than 0, and a fleet beside a placement
+that is on (the fleet's per-replica rank windows, ROADMAP queue 1 item
+11c).
 
 ``TelemetryConfig``: the ``telemetry`` section of ``init_inference``'s and
 ``initialize``'s configs (the same fields, defaults and errors as the JAX
@@ -53,42 +56,12 @@ class NotPortedError(DeepSpeedConfigError, NotImplementedError):
     """A config value asks for a feature this package does not have yet."""
 
 
-# section -> the keys that switch its feature on, each with its off test.
-# Every other key of such a section sizes the feature and is harmless while
-# the feature is off.
-_UNPORTED_SECTIONS: Dict[str, Dict[str, Any]] = {
-    "placement": {
-        "tp": lambda v: int(v) <= 1,
-        "decode_tp": lambda v: int(v) <= 1,
-        "prefill_tp": lambda v: int(v) <= 1,
-        "disaggregate": lambda v: not v,
-        "device_base": lambda v: int(v) == 0,
-    },
-}
-
-
-# the ROADMAP queue 1 item that ports each refused serving section
-_UNPORTED_ITEMS = {"placement": 11}
-
-
-def _not_ported(what: str, item: int) -> NotPortedError:
+def _not_ported(what: str, item) -> NotPortedError:
     return NotPortedError(
         f"serving.{what} is not ported to deepspeed_tpu_torch yet (ROADMAP "
         f"queue 1 item {item}; the default continuous-batching path is); use "
         "deepspeed_tpu for it"
     )
-
-
-def _check_unported_section(name: str, value) -> None:
-    if value is None:
-        return
-    if not isinstance(value, dict):
-        raise DeepSpeedConfigError(
-            f"serving.{name} must be a dict, got {type(value).__name__}"
-        )
-    for key, is_off in _UNPORTED_SECTIONS[name].items():
-        if key in value and not is_off(value[key]):
-            raise _not_ported(f"{name}.{key}={value[key]!r}", _UNPORTED_ITEMS[name])
 
 
 def _section_from_dict(cls, name: str, d: Dict[str, Any]):
@@ -562,9 +535,9 @@ class FleetConfig(_ConfigModel):
     burn-rate alert fires. A preempted replica migrates its live decode
     sessions to a peer through the crc-checked manifest; a corrupt payload
     is a counted failure that re-queues the session. ``spread_devices``
-    gives each replica its own placement window in the JAX package; the
-    port has no placements (``placement`` is refused), so every replica
-    runs on the engine's one device."""
+    gives each replica its own placement window in the JAX package; a
+    fleet over placements is not ported (ROADMAP queue 1 item 11c), so
+    every replica runs on the engine's one device."""
 
     enabled: bool = False
     replicas: int = 2
@@ -616,6 +589,50 @@ class FleetConfig(_ConfigModel):
 
 
 @dataclass
+class PlacementConfig:
+    """``serving.placement``: tensor-parallel and disaggregated program
+    placement (JAX ``runtime/config.py`` ``PlacementConfig``; the same
+    fields, defaults and errors), over the ranks of the default process
+    group (``serving/placement.py``: one rank is one device).
+
+    ``tp`` > 1 shards the paged KV pools (and the int8 scales), the
+    attention heads and the MLP over ``tp`` ranks through the committed
+    spec table (``serving/placement.py`` ``GPT2_SERVING_RULES``): per-rank
+    KV bytes drop ``1/tp``, and greedy streams stay token-identical to the
+    single-device engine. ``disaggregate`` splits prefill from decode:
+    decode and verify own the main pool on ranks ``[0, decode_tp)``; the
+    prefill and chunk programs run on the next ``prefill_tp`` ranks with
+    their own ``prefill_num_pages``-page pool, and a finished prompt's KV
+    moves to the decode ranks by the gather → send/recv → scatter handoff.
+    ``decode_tp`` / ``prefill_tp`` default to ``tp`` (and are read only
+    with ``disaggregate``); ``prefill_num_pages`` defaults to ``max_slots``
+    prompts twice over plus scratch. ``device_base`` (a fleet replica's
+    first device) is not ported: a value other than 0 raises
+    (ROADMAP queue 1 item 11c)."""
+
+    tp: int = 1
+    disaggregate: bool = False
+    decode_tp: int = 0       # 0 = tp
+    prefill_tp: int = 0      # 0 = tp
+    prefill_num_pages: int = 0  # 0 = auto-size from max_slots * prompt pages
+    device_base: int = 0
+
+    def __post_init__(self):
+        for key in ("tp", "decode_tp", "prefill_tp", "prefill_num_pages", "device_base"):
+            if int(getattr(self, key)) < 0:
+                raise DeepSpeedConfigError(f"serving.placement.{key} must be >= 0")
+        if int(self.tp) < 1:
+            raise DeepSpeedConfigError(f"serving.placement.tp must be >= 1, got {self.tp}")
+        if int(self.device_base) != 0:
+            raise _not_ported(f"placement.device_base={self.device_base!r}", "11c")
+
+    @property
+    def on(self) -> bool:
+        """More than one device: tp > 1, or disaggregation."""
+        return int(self.tp) > 1 or bool(self.disaggregate)
+
+
+@dataclass
 class ServingConfig:
     """See ``deepspeed_tpu.runtime.config.ServingConfig`` for what each
     field means; the sizing rules are the same: ``num_pages`` pages of
@@ -648,6 +665,7 @@ class ServingConfig:
     slo: SLOConfig = field(default_factory=SLOConfig)
     tiering: TieringConfig = field(default_factory=TieringConfig)
     fleet: FleetConfig = field(default_factory=FleetConfig)
+    placement: PlacementConfig = field(default_factory=PlacementConfig)
 
     def __post_init__(self):
         for key in ("max_slots", "page_size", "num_pages", "max_prompt_len",
@@ -682,6 +700,13 @@ class ServingConfig:
             self.tiering = _section_from_dict(TieringConfig, "tiering", self.tiering)
         if isinstance(self.fleet, dict):
             self.fleet = FleetConfig.from_dict(self.fleet)
+        if isinstance(self.placement, dict):
+            self.placement = _section_from_dict(PlacementConfig, "placement", self.placement)
+        # decode_tp / prefill_tp are read only under disaggregate (JAX's
+        # reading): a placement that is off leaves the fleet on one device
+        if self.fleet.enabled and self.placement.on:
+            raise _not_ported(
+                "fleet beside serving.placement (each replica on its own ranks)", "11c")
         if self.tiering.enabled and not self.prefix_cache.enabled:
             raise DeepSpeedConfigError(
                 "serving.tiering requires serving.prefix_cache (demotion "
@@ -700,15 +725,13 @@ class ServingConfig:
     @classmethod
     def from_dict(cls, d: Optional[Dict[str, Any]]) -> "ServingConfig":
         d = dict(d or {})
-        for name in _UNPORTED_SECTIONS:
-            _check_unported_section(name, d.pop(name, None))
         known = {f.name: f for f in fields(cls)}
         unknown = sorted(set(d) - set(known))
         if unknown:
             raise DeepSpeedConfigError(f"serving: unknown config keys {unknown}")
         kwargs = {}
         for key, value in d.items():
-            if key in ("speculative", "prefix_cache", "slo", "tiering", "fleet"):
+            if key in ("speculative", "prefix_cache", "slo", "tiering", "fleet", "placement"):
                 kwargs[key] = value  # a section: __post_init__ builds it
             else:
                 typ = type(getattr(cls, key))  # every other field is a scalar

@@ -1,8 +1,10 @@
 """Continuous-batching serving over a paged KV pool, with speculative
 decode, shared-prefix KV reuse, chunked prefill, int8 KV pages, the
 host-DRAM KV tier and retries, the multi-replica fleet with live session
-migration (``fleet``) and the seeded trace-replay harness (``replay``)
-(the port's counterpart of ``deepspeed_tpu.serving``)."""
+migration (``fleet``), the seeded trace-replay harness (``replay``) and
+the tensor-parallel and disaggregated placements over the ranks of the
+default process group (``placement``) (the port's counterpart of
+``deepspeed_tpu.serving``)."""
 
 from .fleet import FleetError, FleetReplica, FleetRouter, replay_fleet
 

@@ -45,6 +45,14 @@ programs take the request's key (one ``[2]`` key), the decode step one key
 per slot (``[B, 2]``, the JAX programs' ``vmap``), all rows drawn in one
 ``uniform_rows`` (the threefry kernel on the card).
 
+Under a tensor-parallel placement (``serving/placement.py``) every
+program takes the placement's process group as ``tp_group`` and the
+per-rank config (``n_embd`` and ``n_head`` divided by tp) with this rank's
+slices of the weights and its ``KV/tp`` pool heads: attention runs over the
+local heads, and the attention and MLP output projections all-reduce their
+partial products over the group before the replicated bias (JAX's
+``tp_axis`` psums). ``tp_group=None`` is the plain graph.
+
 Padded key positions contribute exact zeros through the masked softmax
 (``exp(-1e30 - m)`` is 0), and a position past a slot's length is either
 masked or overwritten by the decode write before it is ever attended.
@@ -57,6 +65,7 @@ from typing import Any, Optional
 
 import torch
 
+from ..comm.torch import all_reduce
 from ..models.gpt2 import GPT2Config, _layer_norm, _mlp, device_int, row_at
 from ..ops.attention import paged_cached_attention, paged_multitoken_cached_attention
 from ..ops.quantizer import (
@@ -83,9 +92,16 @@ def _layer_params(params: PyTree, l: int) -> PyTree:
     return take(params["blocks"])
 
 
-def _proj(o, w, b):
-    """The attention output projection."""
-    return o @ maybe_dequantize(w, o.dtype) + b
+def _proj(o, w, b, tp_group=None):
+    """The attention output projection. Under a tensor-parallel placement
+    (``tp_group``, JAX's ``tp_axis``) ``w`` is this rank's row-parallel
+    slice: the partial product is all-reduced over the group BEFORE the
+    replicated bias is added once. With ``tp_group=None`` it is the plain
+    ``o @ w + b``."""
+    out = o @ maybe_dequantize(w, o.dtype)
+    if tp_group is not None:
+        out = all_reduce(out, tp_group)
+    return out + b
 
 
 def _qkv(lp, h):
@@ -155,7 +171,8 @@ def _logits(cfg: GPT2Config, params, h_last):
 # paged prefill (one request into one slot's pages)
 # ---------------------------------------------------------------------------
 
-def _attention_prefill_paged(cfg, lp, h, k_pool, v_pool, page_ids, l, scales=None):
+def _attention_prefill_paged(cfg, lp, h, k_pool, v_pool, page_ids, l, scales=None,
+                             tp_group=None):
     """Causal self-attention over the prompt, its K/V written to layer
     ``l``'s pages. The prompt starts at position 0 of a fresh slot, so the
     cache is the prompt itself: the attention is a dense causal
@@ -192,7 +209,7 @@ def _attention_prefill_paged(cfg, lp, h, k_pool, v_pool, page_ids, l, scales=Non
     probs = torch.softmax(scores, dim=-1).to(v_c.dtype)
     o = torch.einsum("bhst,bthd->bshd", probs, v_c)
     o = o.reshape(B, Sp, H * D).to(h.dtype)
-    return _proj(o, lp["c_proj_w"], lp["c_proj_b"])
+    return _proj(o, lp["c_proj_w"], lp["c_proj_b"], tp_group)
 
 
 @torch.no_grad()
@@ -210,6 +227,7 @@ def paged_prefill(
     top_p: float = 1.0,
     return_logits: bool = False,
     scales: Optional[torch.Tensor] = None,  # [L, P, KV, 2] of an int8 pool
+    tp_group=None,             # a tensor-parallel placement's group
 ):
     """→ first token ``[1]`` (and its logits ``[1, V]`` when asked)."""
     B, Sp = input_ids.shape
@@ -224,9 +242,10 @@ def paged_prefill(
         h = h + _attention_prefill_paged(
             cfg, lp["attn"],
             _layer_norm(h, lp["ln_1"]["scale"], lp["ln_1"]["bias"], eps),
-            k_pool, v_pool, page_ids, l, scales,
+            k_pool, v_pool, page_ids, l, scales, tp_group,
         )
-        h = h + _mlp(cfg, lp["mlp"], _layer_norm(h, lp["ln_2"]["scale"], lp["ln_2"]["bias"], eps))
+        h = h + _mlp(cfg, lp["mlp"], _layer_norm(h, lp["ln_2"]["scale"], lp["ln_2"]["bias"], eps),
+                     tp_group=tp_group)
 
     logits = _logits(cfg, params, row_at(h, prompt_len - 1))
     first = sample_logits(logits, key, temperature, top_k, top_p)
@@ -238,12 +257,12 @@ def paged_prefill(
 # ---------------------------------------------------------------------------
 
 def _attention_decode_paged(cfg, lp, h, k_pool, v_pool, block_tables, pos, pidx, poff, l,
-                            scales=None):
+                            scales=None, tp_group=None):
     """One-token attention per slot against its paged cache (layer ``l``).
     ``pos[b]`` = tokens already cached for slot b = the new token's
     position; the new K/V is written at (page ``pidx[b]``, offset
     ``poff[b]``) before attention reads the pool."""
-    B, S, E = h.shape  # S == 1
+    B, S, _ = h.shape  # S == 1
     H, D = cfg.n_head, cfg.head_dim
     qkv = _qkv(lp, h)
     q, k_, v = qkv.split(H * D, dim=-1)
@@ -255,8 +274,8 @@ def _attention_decode_paged(cfg, lp, h, k_pool, v_pool, block_tables, pos, pidx,
         q, k_pool[l], v_pool[l], block_tables, pos, sm_scale=1.0 / math.sqrt(D),
         scales=scales[l] if scales is not None else None,
     )
-    o = o.reshape(B, S, E).to(h.dtype)
-    return _proj(o, lp["c_proj_w"], lp["c_proj_b"])
+    o = o.reshape(B, S, H * D).to(h.dtype)
+    return _proj(o, lp["c_proj_w"], lp["c_proj_b"], tp_group)
 
 
 @torch.no_grad()
@@ -274,6 +293,7 @@ def paged_decode_step(
     top_p: float = 1.0,
     return_logits: bool = False,
     scales: Optional[torch.Tensor] = None,  # [L, P, KV, 2] of an int8 pool
+    tp_group=None,               # a tensor-parallel placement's group
 ):
     """→ next tokens ``[B]`` (and the logits ``[B, V]`` when asked). Greedy
     unless ``temperature > 0``; then slot b draws with ``keys[b]``, every
@@ -292,9 +312,10 @@ def paged_decode_step(
         h = h + _attention_decode_paged(
             cfg, lp["attn"],
             _layer_norm(h, lp["ln_1"]["scale"], lp["ln_1"]["bias"], eps),
-            k_pool, v_pool, block_tables, seq_lens, pidx, poff, l, scales,
+            k_pool, v_pool, block_tables, seq_lens, pidx, poff, l, scales, tp_group,
         )
-        h = h + _mlp(cfg, lp["mlp"], _layer_norm(h, lp["ln_2"]["scale"], lp["ln_2"]["bias"], eps))
+        h = h + _mlp(cfg, lp["mlp"], _layer_norm(h, lp["ln_2"]["scale"], lp["ln_2"]["bias"], eps),
+                     tp_group=tp_group)
 
     logits = _logits(cfg, params, h[:, -1])
     nxt = sample_logits(logits, keys, temperature, top_k, top_p)
@@ -320,15 +341,15 @@ def paged_decode_step(
 def _attend_multitoken_paged(cfg, h, q, k_pool_l, v_pool_l, block_tables, base,
                              scales_l=None):
     """Attention of the chunk program: ``q [B, T, H, D]`` against the
-    (already written) paged cache, masked per query → ``[B, T, E]``; the
-    caller applies the output projection."""
-    B, T, E = h.shape
-    D = cfg.head_dim
+    (already written) paged cache, masked per query → ``[B, T, H * D]``;
+    the caller applies the output projection."""
+    B, T, _ = h.shape
+    H, D = cfg.n_head, cfg.head_dim
     o = paged_multitoken_cached_attention(
         q.contiguous(), k_pool_l, v_pool_l, block_tables, base,
         sm_scale=1.0 / math.sqrt(D), scales=scales_l,
     )
-    return o.reshape(B, T, E).to(h.dtype)
+    return o.reshape(B, T, H * D).to(h.dtype)
 
 
 def _verify_write_targets(seq_lens, block_tables, page: int, T: int):
@@ -346,14 +367,14 @@ def _verify_write_targets(seq_lens, block_tables, page: int, T: int):
 
 
 def _attention_verify_paged(cfg, lp, h, k_pool, v_pool, block_tables, base, pidx, poff, l,
-                            scales=None):
+                            scales=None, tp_group=None):
     """T-token attention per slot: write every token's K/V to layer ``l`` at
     (``pidx[b, t]``, ``poff[b, t]``), then attend query t at position
     ``base + t`` through the block table with one single-token call each.
     Query t's mask (key <= base + t) hides the K/V already written for the
     queries after it, exactly as it hides any stale cache content, so
     write-all-then-attend equals the sequential write/attend interleaving."""
-    B, T, E = h.shape
+    B, T, _ = h.shape
     H, D = cfg.n_head, cfg.head_dim
     qkv = _qkv(lp, h)
     q, k_, v = qkv.split(H * D, dim=-1)
@@ -371,10 +392,10 @@ def _attention_verify_paged(cfg, lp, h, k_pool, v_pool, block_tables, base, pidx
         paged_cached_attention(
             q[:, t].contiguous(), k_pool[l], v_pool[l], block_tables,
             base + t, sm_scale=scale, scales=scales_l,
-        ).reshape(B, 1, E).to(h.dtype)
+        ).reshape(B, 1, H * D).to(h.dtype)
         for t in range(T)
     ], dim=1)
-    return _proj(o, lp["c_proj_w"], lp["c_proj_b"])
+    return _proj(o, lp["c_proj_w"], lp["c_proj_b"], tp_group)
 
 
 @torch.no_grad()
@@ -388,6 +409,7 @@ def paged_verify_step(
     block_tables: torch.Tensor,  # [B, W] int32
     return_logits: bool = False,
     scales: Optional[torch.Tensor] = None,  # [L, P, KV, 2] of an int8 pool
+    tp_group=None,               # a tensor-parallel placement's group
 ):
     """Self-speculative verify: score T = k+1 tokens per slot in one pass →
     ``greedy [B, T]`` (and the logits ``[B, T, V]`` when asked).
@@ -416,9 +438,10 @@ def paged_verify_step(
         h = h + _attention_verify_paged(
             cfg, lp["attn"],
             _layer_norm(h, lp["ln_1"]["scale"], lp["ln_1"]["bias"], eps),
-            k_pool, v_pool, block_tables, seq_lens, pidx, poff, l, scales,
+            k_pool, v_pool, block_tables, seq_lens, pidx, poff, l, scales, tp_group,
         )
-        h = h + _mlp(cfg, lp["mlp"], _layer_norm(h, lp["ln_2"]["scale"], lp["ln_2"]["bias"], eps))
+        h = h + _mlp(cfg, lp["mlp"], _layer_norm(h, lp["ln_2"]["scale"], lp["ln_2"]["bias"], eps),
+                     tp_group=tp_group)
 
     logits = _logits(cfg, params, h)
     greedy = torch.argmax(logits.float(), dim=-1)
@@ -442,6 +465,7 @@ def paged_chunk_prefill(
     top_p: float = 1.0,
     return_logits: bool = False,
     scales: Optional[torch.Tensor] = None,  # [L, P, KV, 2] of an int8 pool
+    tp_group=None,               # a tensor-parallel placement's group
 ):
     """One chunk of an incremental prefill → token ``[1]`` (and its logits
     ``[1, V]`` when asked), sampled at the true last prompt position; only
@@ -480,8 +504,9 @@ def paged_chunk_prefill(
                           v.to(pool_dt).reshape(n_cp, page, H, D).transpose(1, 2), 1)
         o = _attend_multitoken_paged(cfg, hn, q, k_pool[l], v_pool[l], block_tables, base,
                                      scales[l] if scales is not None else None)
-        h = h + _proj(o, attn["c_proj_w"], attn["c_proj_b"])
-        h = h + _mlp(cfg, lp["mlp"], _layer_norm(h, lp["ln_2"]["scale"], lp["ln_2"]["bias"], eps))
+        h = h + _proj(o, attn["c_proj_w"], attn["c_proj_b"], tp_group)
+        h = h + _mlp(cfg, lp["mlp"], _layer_norm(h, lp["ln_2"]["scale"], lp["ln_2"]["bias"], eps),
+                     tp_group=tp_group)
 
     # the true last prompt position, when it falls inside this chunk
     idx = (prompt_len - 1 - start).clamp(0, C - 1)

@@ -1,6 +1,5 @@
 """Continuous-batching scheduler: slot-based decode over the paged KV pool
-(counterpart of ``deepspeed_tpu/serving/scheduler.py`` without TP and
-disaggregation).
+(counterpart of ``deepspeed_tpu/serving/scheduler.py``).
 
 A fixed array of ``max_slots`` decode slots advances one token per step
 through ONE batched decode step, while finished sequences vacate their slot
@@ -103,8 +102,23 @@ reports the JAX engine's numbers: TTFT/TPOT/decode-step/queue-wait
 quantiles interpolated over the histograms' ``LATENCY_BUCKETS``
 (:func:`exact_percentiles` gives exact ones over a set of requests).
 
+Placements (``serving.placement``, ``serving/placement.py``, whose
+docstring sets out the process model): with ``tp > 1`` every program runs
+head-parallel over ``tp`` ranks of the default process group (the
+``_tp{n}`` program names, ``serving_tp_collective_bytes`` per program as
+JAX computes it); with ``disaggregate`` the prefill and chunk programs run
+on a prefill placement with its own pool and allocator, and a finished
+prompt's KV moves to the decode placement by the ``serving_kv_gather`` /
+``serving_kv_scatter`` handoff pair (``_complete_handoff``; the
+``serving_kv_handoff*`` families, the ``kv_handoff`` span). Every rank
+runs this scheduler; a program runs on its placement's ranks, and what the
+host reads from it reaches the other ranks by one broadcast. At tp 1
+without disaggregation none of this exists: no process group, no
+collective, the same programs and launches.
+
 Single-threaded by design: ``submit``/``step``/``drain``/``stats`` mutate
-the queue, slots and counters without a lock and must run on one thread.
+the queue, slots and counters without a lock and must run on one thread
+(and, across placements, be called on every rank in the same order).
 """
 
 from __future__ import annotations
@@ -116,10 +130,12 @@ from typing import Deque, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..comm import torch as comm
 from ..models.gpt2 import GPT2Config
 from ..ops import prng
-from ..runtime.config import ServingConfig
+from ..runtime.config import NotPortedError, ServingConfig
 from ..telemetry import device_hbm_stats
 from ..telemetry.registry import MetricsRegistry
 from ..telemetry.request_trace import LATENCY_BUCKETS
@@ -134,7 +150,7 @@ from .kv_cache import (
     pool_bytes,
     scales_bytes,
 )
-from .placement import ProgramSet
+from .placement import Placement, ProgramSet
 from .request import Request, RequestStatus
 from .tiering import HostPageStore, KVTieringEngine
 
@@ -176,11 +192,55 @@ class _Slot:
     prefilling: bool = False
     prefill_pos: int = 0               # prompt tokens prefilled so far
     row: Optional[np.ndarray] = None   # [1, pages_per_slot] real block table
+    # disaggregated placements: the prompt's pages in the PREFILL pool
+    # (shared + private), freed by the handoff into ``pages``; and the
+    # first token, read at the prefill, that the handoff is waiting to emit
+    prefill_pages: List[int] = field(default_factory=list)
+    pending_tok: Optional[int] = None
 
 
 def _top2_margin(logits: torch.Tensor) -> np.ndarray:
     top2 = torch.topk(logits.float(), 2, dim=-1).values
     return (top2[..., 0] - top2[..., 1]).cpu().numpy()
+
+
+class _AgreedClock:
+    """The serving ranks' one clock: rank 0's reading, broadcast over the
+    host group (gloo on host memory, so the card is not synchronised for
+    it) at every call. Only the scheduler's decisions read it, at points
+    that every rank reaches in the same order (the scheduler is SPMD, and
+    what steers it is checked equal on every rank at construction), so
+    every decision that reads the time is the same on every rank.
+
+    :meth:`local` is this rank's own reading moved onto rank 0's by the
+    offset of the last agreed reading, with no collective: what only the
+    telemetry records (the request tracer, the journal, the watchdog's
+    straggler scan) reads it, so a plane attached on some ranks only
+    changes no rank's sequence of collectives. :meth:`last` is the last
+    agreed reading itself, the same on every rank with no collective: the
+    heat ledger stamps its page events with it (they happen between
+    decisions, and their times order the tier's victims)."""
+
+    def __init__(self, clock, group):
+        self.clock = clock
+        self.group = group
+        self.root = dist.get_rank() == 0
+        self.offset = 0.0
+        self.agreed = None
+
+    def __call__(self) -> float:
+        mine = self.clock()
+        t = torch.tensor([mine if self.root else 0.0], dtype=torch.float64)
+        comm.broadcast(t, self.group, 0)
+        self.agreed = float(t.item())
+        self.offset = self.agreed - mine
+        return self.agreed
+
+    def last(self) -> float:
+        return self() if self.agreed is None else self.agreed
+
+    def local(self) -> float:
+        return self.clock() + self.offset
 
 
 class ServingEngine:
@@ -243,15 +303,18 @@ class ServingEngine:
         )
         self.max_slots = int(config.max_slots)
         self.device = engine.device
-        self.pset = ProgramSet(
-            mcfg, int(config.num_pages), page, self.cache_dtype, engine.params,
-            self.device,
-        )
+        self.engine_dtype = engine.dtype
+        self._init_placements(engine, config)
         if self.pages_per_slot > self.allocator.capacity:
             raise ValueError(
                 f"serving.num_pages={config.num_pages} cannot hold even one "
                 f"max-size request ({self.pages_per_slot} pages of {page} "
                 "tokens; page 0 is scratch)"
+            )
+        if self.disaggregated and self.prefill_pages > self.prefill_set.allocator.capacity:
+            raise ValueError(
+                f"serving.placement.prefill_num_pages={self.prefill_set.num_pages} "
+                f"cannot hold one max-size prompt ({self.prefill_pages} pages)"
             )
         self.slots: List[_Slot] = [_Slot() for _ in range(self.max_slots)]
         self.queue: Deque[Request] = deque()
@@ -272,9 +335,12 @@ class ServingEngine:
         self.spec_ngram = int(spec.ngram) if self.spec_enabled else 2
         if self.spec_enabled and self._sampling:
             raise ValueError("serving.speculative requires temperature == 0 (greedy)")
+        # the prefix index lives beside the pool the prefill WRITES: under
+        # disaggregation the prefill placement's (decode-side pages are
+        # always private copies)
         pcfg = config.prefix_cache
         self.prefix_cache: Optional[PrefixCache] = (
-            PrefixCache(self.allocator, page, max_pages=int(pcfg.max_pages))
+            PrefixCache(self.prefill_set.allocator, page, max_pages=int(pcfg.max_pages))
             if pcfg.enabled else None
         )
         # the host tier for cold prefix pages (JAX scheduler.py:346-385):
@@ -284,13 +350,17 @@ class ServingEngine:
         self.tiering_enabled = bool(tcfg.enabled and self.prefix_cache is not None)
         self.tiering: Optional[KVTieringEngine] = None
         if self.tiering_enabled:
-            budget = int(tcfg.host_budget_pages) or self.allocator.capacity
+            # on the prefill placement's pool (the index's); each rank's
+            # store holds its own KV heads of a page (none on a rank
+            # outside the placement, whose store keeps the bookkeeping)
+            pset = self.prefill_set
+            budget = int(tcfg.host_budget_pages) or pset.allocator.capacity
             store = HostPageStore(
-                budget, n_layer=mcfg.n_layer, n_kv_head=mcfg.n_head, page_size=page,
-                head_dim=mcfg.head_dim, dtype=self.cache_dtype,
-                quantized=self.pset.scales is not None, crc=bool(tcfg.crc),
+                budget, n_layer=mcfg.n_layer, n_kv_head=int(pset.k_pool.shape[2]),
+                page_size=page, head_dim=mcfg.head_dim, dtype=self.cache_dtype,
+                quantized=pset.scales is not None, crc=bool(tcfg.crc),
                 pin=self.device.type == "cuda")
-            self.tiering = KVTieringEngine(store, self.pset, policy=str(tcfg.policy),
+            self.tiering = KVTieringEngine(store, pset, policy=str(tcfg.policy),
                                            prefetch_depth=int(tcfg.prefetch_depth),
                                            clock=self.clock)
             self.prefix_cache.demote_sink = self.tiering
@@ -323,12 +393,14 @@ class ServingEngine:
         quantized = self.pset.scales is not None
         self.kv_pool_bytes = pool_bytes(
             mcfg.n_layer, int(config.num_pages), mcfg.n_head, page, mcfg.head_dim,
-            self.pset.k_pool.element_size(),
+            self._itemsize,
         )
         self.kv_scales_bytes = (
             scales_bytes(mcfg.n_layer, int(config.num_pages), mcfg.n_head)
             if quantized else 0
         )
+        self._check_steering(heat_tracer if heat_tracer is not None
+                             else getattr(telemetry, "kv_heat_tracer", None))
         self._init_metrics(telemetry, heat_tracer, journal)
         log_dist(
             f"ServingEngine: slots={self.max_slots} page={page} "
@@ -338,7 +410,98 @@ class ServingEngine:
             f"prefill_width={self.prefill_width} chunk_width={self.chunk_width} "
             f"spec_k={self.spec_k} prefix_cache={self.prefix_cache is not None} "
             f"dtype={str(self.cache_dtype).replace('torch.', '')} device={self.device}"
+            + (f" placement={self.decode_placement!r}" if self._spmd else "")
+            + (f" disaggregated(prefill={self.prefill_placement!r}, "
+               f"prefill_pages={self.prefill_set.num_pages})" if self.disaggregated else "")
         )
+
+    def _init_placements(self, engine, config) -> None:
+        """The placements and their program sets (JAX scheduler.py:224-303):
+        one shared placement by default; with ``disaggregate`` a decode
+        placement on ranks ``[0, decode_tp)`` and a prefill placement on the
+        next ``prefill_tp``, with its own auto-sized pool and allocator. A
+        placement of more than one rank needs the default process group
+        (``comm.init_distributed``); then the engine's clock becomes rank
+        0's, and every call on it is collective. Otherwise this process
+        serves alone, as rank 0 of its placement, whatever its rank in a
+        process group of its own job: no collective at all."""
+        mcfg, page = self.model_config, self.page_size
+        plc = config.placement
+        tp = int(plc.tp)
+        self.tp = tp
+        self.disaggregated = bool(plc.disaggregate)
+        decode_tp = prefill_tp = tp
+        if self.disaggregated:
+            decode_tp = int(plc.decode_tp) or tp
+            prefill_tp = int(plc.prefill_tp) or tp
+        if max(decode_tp, prefill_tp) > 1 and getattr(engine, "quantized", False):
+            raise ValueError(
+                "serving.placement.tp > 1 requires unquantized weights (the "
+                "rank-major QKV permute operates on the plain tree); int8 KV "
+                "pages (serving.kv_cache_dtype) shard fine"
+            )
+        n = decode_tp + (prefill_tp if self.disaggregated else 0)
+        want = (f"serving.placement needs {n} devices, one rank each (decode_tp={decode_tp}"
+                + (f" + prefill_tp={prefill_tp}" if self.disaggregated else "") + ")")
+        # more than one rank: every rank of the default group runs this
+        # scheduler (SPMD); a rank past the placements mirrors the host side
+        self._spmd = n > 1
+        # the host reads outputs that some rank did not compute: broadcast
+        self._bcast = False
+        # the serving ranks' host-side agreement (the clock, the outputs the
+        # host reads, the checks): the default group when it is gloo, else a
+        # gloo group of the same ranks, so that none of it syncs the card
+        self._host_group = None
+        self._trace_clock = self.clock  # what only the telemetry records reads
+        self._ledger_clock = self.clock  # the heat ledger's page-event stamps
+        rank = 0
+        if self._spmd:
+            if not dist.is_initialized():
+                raise ValueError(f"{want}, and no process group is initialised "
+                                 "(comm.init_distributed)")
+            world = dist.get_world_size()
+            if n > world:
+                raise ValueError(f"{want}, only {world} visible (the ranks of the default "
+                                 "process group)")
+            rank = dist.get_rank()
+            self._bcast = self.disaggregated or n < world
+            d_group = comm.subgroup(range(decode_tp), "tp") if decode_tp > 1 else None
+            p_group = None
+            if self.disaggregated and prefill_tp > 1:
+                p_group = comm.subgroup(range(decode_tp, n), "tp")
+            if dist.get_backend() != "gloo":
+                self._host_group = comm.subgroup(range(world), "host", backend="gloo")
+            self.clock = _AgreedClock(self.clock, self._host_group)
+            self._trace_clock = self.clock.local
+            self._ledger_clock = self.clock.last
+            names = [None] * world
+            dist.all_gather_object(names, str(self.device), group=self._host_group)
+            self._rank_devices = names
+        else:
+            d_group = p_group = None
+            self._rank_devices = [str(self.device)]
+        self.decode_placement = Placement(
+            "decode" if self.disaggregated else "shared", range(decode_tp), decode_tp,
+            d_group, self.device, rank=rank)
+        self.decode_placement.local_model_config(mcfg)  # fail fast on divisibility
+        self.decode_set = ProgramSet(self.decode_placement, mcfg, int(config.num_pages), page,
+                                     self.cache_dtype, engine.params)
+        self.pset = self.decode_set
+        if self.disaggregated:
+            # the prefill pool only ever holds PROMPT pages: auto-size it to
+            # max_slots prompts twice over plus scratch
+            pnp = int(plc.prefill_num_pages)
+            if pnp <= 0:
+                pnp = min(int(config.num_pages), 2 * self.max_slots * self.prefill_pages + 1)
+            self.prefill_placement = Placement("prefill", range(decode_tp, n), prefill_tp,
+                                               p_group, self.device, rank=rank)
+            self.prefill_placement.local_model_config(mcfg)
+            self.prefill_set = ProgramSet(self.prefill_placement, mcfg, pnp, page,
+                                          self.cache_dtype, engine.params)
+        else:
+            self.prefill_placement = self.decode_placement
+            self.prefill_set = self.decode_set
+        self._itemsize = torch.empty((), dtype=self.cache_dtype).element_size()
 
     # ------------------------------------------------------------------
     # telemetry: the JAX engine's instruments, tracers and journal
@@ -462,29 +625,30 @@ class ServingEngine:
             "serving_tenant_tokens_total", "generated tokens by tenant",
             labelnames=("tenant",),
         )
-        # one device, no tensor parallelism: every program's all-reduce
-        # payload is 0, as the JAX engine reports at tp = 1
-        g_coll = m.gauge(
+        self._g_tp_coll = m.gauge(
             "serving_tp_collective_bytes",
             "per-invocation all-reduce payload of a TP-sharded serving "
             "program (2 psums/layer over the [batch, width, n_embd] partial "
             "products; 0 = program not TP-sharded)",
             labelnames=("program",),
         )
-        for prog in self.executables:
-            g_coll.set(0, program=prog.name)
-        m.counter("serving_kv_handoffs_total",
-                  "prefill→decode KV page handoffs (disaggregated placements)")
-        m.counter("serving_kv_handoff_bytes_total",
-                  "logical KV bytes moved prefill→decode by page handoffs")
-        m.histogram("serving_kv_handoff_seconds",
-                    "one gather → device_put → scatter KV handoff, dispatch to installed",
-                    buckets=LATENCY_BUCKETS)
+        self._set_collective_gauges()
+        self._c_handoffs = m.counter(
+            "serving_kv_handoffs_total",
+            "prefill→decode KV page handoffs (disaggregated placements)")
+        self._c_handoff_bytes = m.counter(
+            "serving_kv_handoff_bytes_total",
+            "logical KV bytes moved prefill→decode by page handoffs")
+        self._h_handoff = m.histogram(
+            "serving_kv_handoff_seconds",
+            "one gather → device_put → scatter KV handoff, dispatch to installed",
+            buckets=LATENCY_BUCKETS)
         # the plane's watchdog flags stragglers on the decode-step EMA
         self.watchdog = telemetry.watchdog if telemetry is not None else None
         self._ema_step_s = 0.0
         self._heat = None            # the KVHeatTracer
-        self._heat_decode = None     # the pool's ledger
+        self._heat_decode = None     # the decode (or shared) pool's ledger
+        self._heat_prefill = None    # the prefill pool's (the decode one when shared)
         ht = (heat_tracer if heat_tracer is not None
               else getattr(telemetry, "kv_heat_tracer", None))
         if ht is not None:
@@ -495,44 +659,77 @@ class ServingEngine:
         if mj is not None:
             self.attach_journal(mj)
 
+    def _check_steering(self, heat_tracer) -> None:
+        """Under placements, raise before anything is attached unless what
+        steers the host scheduler is the same on every rank: the heat
+        tracer (the host tier's victim keys read its ledger) and the fault
+        injector's schedule. Ranks that decide differently would part ways
+        in their collectives. The rest of the telemetry plane only records,
+        and may differ (a request tracer on rank 0 alone, say)."""
+        if not self._spmd:
+            return
+        fi = self.fault_injector
+        mine = {"heat tracer": heat_tracer is not None,
+                "fault injector": None if fi is None else (
+                    fi.seed, fi.probability, sorted(fi._sched["serving_stall"]))}
+        got = [None] * dist.get_world_size()
+        dist.all_gather_object(got, mine, group=self._host_group)
+        for key in mine:
+            if any(g[key] != got[0][key] for g in got):
+                raise ValueError(
+                    f"serving.placement: the {key} differs across the serving ranks "
+                    f"({[g[key] for g in got]}); it steers the scheduler that every "
+                    "rank runs, so give every rank the same one")
+
     def attach_heat(self, tracer) -> None:
         """Attach a :class:`~deepspeed_tpu_torch.telemetry.kv_heat.KVHeatTracer`:
-        the pool's ledger, seeded from the allocator's current refcounts
-        and the prefix index's pages (attaching mid-run reconciles from the
-        first event), hooks installed on the allocator and the prefix index,
-        the derived gauges bound to this engine's registry. Idempotent for
-        the same tracer."""
+        one ledger per placement pool, keyed by the placement's name (JAX's),
+        seeded from the allocator's current refcounts and the prefix index's
+        pages (attaching mid-run reconciles from the first event), hooks
+        installed on the allocators and the prefix index, the derived gauges
+        bound to this engine's registry. Idempotent for the same tracer.
+        Under placements it steers the host tier's victims: attach (and
+        detach) it on every rank, as every call on the engine is made."""
         if tracer is self._heat:
             return
         tracer.bind_registry(self.metrics)
         mc = self.model_config
         page_b = pool_bytes(mc.n_layer, 1, mc.n_head, self.page_size, mc.head_dim,
-                            self.pset.k_pool.element_size())
-        now = self.clock()
-        alloc = self.allocator
-        led = tracer.pool("shared", alloc.capacity, page_size=self.page_size,
-                          page_bytes=page_b, clock=self.clock)
+                            self._itemsize)
+        now = self._ledger_clock()
         held = ([int(p) for p in self.prefix_cache.held_pages]
                 if self.prefix_cache is not None else [])
-        led.seed(alloc.refcounts(), held, now)
-        alloc.heat = led
+
+        def ledger(pset, prefix_held):
+            alloc = pset.allocator
+            led = tracer.pool(pset.placement.name, alloc.capacity, page_size=self.page_size,
+                              page_bytes=page_b, clock=self._ledger_clock)
+            led.seed(alloc.refcounts(), prefix_held, now)
+            alloc.heat = led
+            return led
+
+        self._heat_decode = ledger(self.decode_set, [] if self.disaggregated else held)
+        self._heat_prefill = (ledger(self.prefill_set, held) if self.disaggregated
+                              else self._heat_decode)
+        # the index and the host tier live on the prefill placement's pool
         if self.prefix_cache is not None:
-            self.prefix_cache.heat = led
+            self.prefix_cache.heat = self._heat_prefill
         if self.tiering is not None:
-            # the tier's D/U/V events and its victim keys read the pool's ledger
-            self.tiering.ledger = led
-        self._heat_decode = led
+            # the tier's D/U/V events and its victim keys read that ledger
+            self.tiering.ledger = self._heat_prefill
         self._heat = tracer
 
     def detach_heat(self) -> None:
         """Uninstall every heat hook (the tracer and its records survive)."""
-        self.allocator.heat = None
+        self.decode_set.allocator.heat = None
+        self.prefill_set.allocator.heat = None
         if self.prefix_cache is not None:
             self.prefix_cache.heat = None
         if self.tiering is not None:
             self.tiering.ledger = None
         self._heat = None
         self._heat_decode = None
+        self._heat_prefill = None
 
     def attach_journal(self, journal) -> None:
         """Attach a :class:`~deepspeed_tpu_torch.telemetry.timeseries.MetricsJournal`:
@@ -540,7 +737,7 @@ class ServingEngine:
         cadence. Idempotent for the same journal."""
         if journal is self._journal:
             return
-        journal.bind(self.metrics, clock=self.clock)
+        journal.bind(self.metrics, clock=self._trace_clock)
         self._journal = journal
 
     def detach_journal(self) -> None:
@@ -630,47 +827,63 @@ class ServingEngine:
     # ------------------------------------------------------------------
     def _build_programs(self) -> None:
         """The prefill, the decode or verify step and (with chunks) the
-        chunk program, each over its static inputs → ``executables``; the
-        slot table lives in the decode-shaped program's staging arrays."""
-        mcfg, pset, dev = self.model_config, self.pset, self.device
+        chunk program, each over its static inputs and for its placement
+        (the placement's per-rank config, its tp group, its ``_tp{n}``
+        name suffix; eager on a gloo group) → ``executables``; the slot
+        table lives in the decode-shaped program's staging arrays. Every
+        rank builds every program; only a placement's ranks run its
+        programs."""
         S, pps = self.max_slots, self.pages_per_slot
+        dev = self.device
         sample = dict(temperature=float(self.config.temperature),
                       top_k=int(self.config.top_k), top_p=float(self.config.top_p))
-        common = dict(return_logits=self.track_margins, scales=pset.scales)
         sampling = self._sampling
-        sfx = "_int8" if pset.scales is not None else ""
+        sfx = "_int8" if self.pset.scales is not None else ""
+        self._program_info = {}
+        dset, pset = self.decode_set, self.prefill_set
+        dcfg = self.decode_placement.local_model_config(self.model_config)
+        pcfg = self.prefill_placement.local_model_config(self.model_config)
 
-        def program(name, shapes, fn):
+        def common(ps):
+            return dict(return_logits=self.track_margins, scales=ps.scales,
+                        tp_group=ps.placement.group)
+
+        def program(name, ps, kind, shapes, fn):
+            plc = ps.placement
             inputs = StaticInputs(shapes, dev)
 
             def step():
                 with torch.no_grad():
                     return fn(inputs.dev)
 
-            return CapturedProgram(name + sfx, step, dev, inputs)
+            prog = CapturedProgram(name + sfx + plc.suffix(), step, dev, inputs,
+                                   capture=plc.captures)
+            self._program_info[prog.name] = (kind, plc)
+            return prog
 
         self._prefill_prog = program(
-            "serving_prefill",
+            "serving_prefill", pset, "prefill",
             {"ids": (1, self.prefill_width), "plen": (1,), "page_ids": (self.prefill_pages,),
              "key": (2,)},
             lambda x: smodel.paged_prefill(
-                mcfg, pset.params, x["ids"], x["plen"], pset.k_pool, pset.v_pool,
-                x["page_ids"], x["key"] if sampling else None, **sample, **common))
+                pcfg, pset.params, x["ids"], x["plen"], pset.k_pool, pset.v_pool,
+                x["page_ids"], x["key"] if sampling else None, **sample, **common(pset)))
         self.executables: List[CapturedProgram] = [self._prefill_prog]
         if self.spec_enabled:
             self._step_prog = program(
-                "serving_verify",
+                "serving_verify", dset, "verify",
                 {"tokens": (S, self.spec_k + 1), "seq_lens": (S,), "block_tables": (S, pps)},
                 lambda x: smodel.paged_verify_step(
-                    mcfg, pset.params, x["tokens"], x["seq_lens"], pset.k_pool, pset.v_pool,
-                    x["block_tables"], **common))
+                    dcfg, dset.params, x["tokens"], x["seq_lens"], dset.k_pool, dset.v_pool,
+                    x["block_tables"], **common(dset)))
         else:
             self._step_prog = program(
-                "serving_decode",
+                "serving_decode", dset, "decode",
                 {"tokens": (S,), "seq_lens": (S,), "block_tables": (S, pps), "keys": (S, 2)},
                 lambda x: smodel.paged_decode_step(
-                    mcfg, pset.params, x["tokens"], x["seq_lens"], pset.k_pool, pset.v_pool,
-                    x["block_tables"], x["keys"] if sampling else None, **sample, **common))
+                    dcfg, dset.params, x["tokens"], x["seq_lens"], dset.k_pool, dset.v_pool,
+                    x["block_tables"], x["keys"] if sampling else None, **sample,
+                    **common(dset)))
         self.executables.append(self._step_prog)
         staged = self._step_prog.inputs.staging()
         self.table = SlotTable(S, pps, staging={
@@ -679,14 +892,26 @@ class ServingEngine:
         if self.chunk_width > 0:
             C = self.chunk_width
             self._chunk_prog = program(
-                "serving_chunk_prefill",
+                "serving_chunk_prefill", pset, "chunk",
                 {"ids": (1, C), "start": (1,), "plen": (1,), "page_ids": (C // self.page_size,),
                  "row": (1, pps), "key": (2,)},
                 lambda x: smodel.paged_chunk_prefill(
-                    mcfg, pset.params, x["ids"], x["start"], x["plen"], pset.k_pool,
+                    pcfg, pset.params, x["ids"], x["start"], x["plen"], pset.k_pool,
                     pset.v_pool, x["page_ids"], x["row"], x["key"] if sampling else None,
-                    **sample, **common))
+                    **sample, **common(pset)))
             self.executables.append(self._chunk_prog)
+        if self.disaggregated:
+            # the handoff pair (JAX scheduler.py:970-1040): the gather on
+            # the prefill placement, the scatter on the decode placement,
+            # each over the static prefill_pages width
+            self._gather_prog, self._scatter_prog, self._hg_rows, self._hs_rows = (
+                self._row_programs(pset, dset, self.prefill_pages,
+                                   "serving_kv_gather" + sfx + pset.placement.suffix(),
+                                   "serving_kv_scatter" + sfx + dset.placement.suffix()))
+            for prog, kind, ps in ((self._gather_prog, "gather", pset),
+                                   (self._scatter_prog, "scatter", dset)):
+                self._program_info[prog.name] = (kind, ps.placement)
+                self.executables.append(prog)
         self._restore_prog = None
         if self.tiering is not None:
             self._build_restore_program(program)
@@ -694,21 +919,35 @@ class ServingEngine:
         self._migrate_gather = self._migrate_scatter = None
         self._migrate_rows: List[torch.Tensor] = []
 
+    def _set_collective_gauges(self) -> None:
+        """``serving_tp_collective_bytes`` per program (JAX
+        scheduler.py:1095-1108): the head-parallel programs all-reduce the
+        ``[B, width, n_embd]`` partial product twice a layer, in the
+        engine's dtype; 0 for a program of a tp-1 placement and for the
+        handoff and restore programs."""
+        mc = self.model_config
+        it = torch.empty((), dtype=self.engine_dtype).element_size()
+        widths = {"prefill": (1, self.prefill_width), "decode": (self.max_slots, 1),
+                  "verify": (self.max_slots, self.spec_k + 1), "chunk": (1, self.chunk_width)}
+        for name, (kind, plc) in self._program_info.items():
+            bs = widths.get(kind)
+            nbytes = (2 * mc.n_layer * bs[0] * bs[1] * mc.n_embd * it
+                      if bs is not None and plc.tp > 1 else 0)
+            self._g_tp_coll.set(nbytes, program=name)
+
     def _build_restore_program(self, program) -> None:
         """The host tier's restore program (JAX scheduler.py:1044-1085): a
         width-1 scatter of one page of every layer, k and v (and the int8
         scales), from the program's device source buffers into page ``dst``
-        of the pools, in place. Its only host input is ``dst``; the page
-        goes up by one asynchronous copy a buffer, straight from the host
-        store's pinned slot into the source buffers, ahead of the replay
-        on the same stream."""
-        mcfg, pset = self.model_config, self.pset
-        page_shape = (mcfg.n_layer, mcfg.n_head, self.page_size, mcfg.head_dim)
-        src = {"k": torch.empty(page_shape, dtype=self.cache_dtype, device=self.device),
-               "v": torch.empty(page_shape, dtype=self.cache_dtype, device=self.device)}
+        of the prefill placement's pools (this rank's heads), in place. Its
+        only host input is ``dst``; the page goes up by one asynchronous
+        copy a buffer, straight from the host store's pinned slot into the
+        source buffers, ahead of the replay on the same stream."""
+        pset = self.prefill_set
+        src = {"k": torch.empty_like(pset.k_pool[:, 0]),
+               "v": torch.empty_like(pset.v_pool[:, 0])}
         if pset.scales is not None:
-            src["s"] = torch.empty((mcfg.n_layer, mcfg.n_head, 2), dtype=torch.float32,
-                                   device=self.device)
+            src["s"] = torch.empty_like(pset.scales[:, 0])
         self._restore_src = src
 
         def restore(x):
@@ -718,14 +957,17 @@ class ServingEngine:
             if pset.scales is not None:
                 pset.scales.index_copy_(1, dst, src["s"].unsqueeze(1))
 
-        self._restore_prog = program("serving_kv_restore", {"dst": (1,)}, restore)
+        self._restore_prog = program("serving_kv_restore", pset, "restore", {"dst": (1,)},
+                                     restore)
         self.executables.append(self._restore_prog)
         self.tiering.bind_restore_exec(self._restore_page)
 
     def _restore_page(self, k, v, s, pid: int) -> None:
         """One restore: the host page (views of the store's slot) up into
         the source buffers, then the program (its one upload, the
-        scatter)."""
+        scatter). Only the prefill placement's ranks hold the pool."""
+        if not self.prefill_placement.member:
+            return
         x = self._restore_prog.inputs.staging()
         x["dst"][0] = pid
         cuda = self.device.type == "cuda"
@@ -734,73 +976,83 @@ class ServingEngine:
                 self._restore_src[name].copy_(host, non_blocking=cuda)
         self._restore_prog()
 
-    def _ensure_migration_programs(self) -> None:
-        """The migration transport (JAX scheduler.py:2236-2300), built on
-        first use: static row buffers ``[L, pages_per_slot, KV, page, D]``
-        for k and v (and ``[L, pages_per_slot, KV, 2]`` for the int8
-        scales); ``serving_kv_gather`` fills them from the pools at a
-        slot's page ids, ``serving_kv_scatter`` writes them into the pools
-        at freshly allocated ones. Page-id lists are padded to the static
-        width with the scratch page, which no live slot reads, so each
-        program is one captured graph an engine. Neither is in
-        ``executables``."""
-        if self._migrate_gather is not None:
-            return
-        pset, dev, W = self.pset, self.device, self.pages_per_slot
-        sfx = "_int8" if pset.scales is not None else ""
+    def _row_programs(self, src, dst, width: int, gather_name: str, scatter_name: str):
+        """A gather/scatter pair over static row buffers of ``width`` pages
+        (``[L, width, KV, page, D]`` for k and v of this rank's heads, and
+        ``[L, width, KV, 2]`` for the int8 scales): the gather fills its
+        rows from ``src``'s pools at the staged page ids, the scatter
+        writes its rows into ``dst``'s pools at the staged ones. Page-id
+        lists are padded with the scratch page, which no live slot reads,
+        so each program is one captured graph an engine. With ``src is
+        dst`` the two share their rows. → (gather, scatter, gather rows,
+        scatter rows)."""
+        dev = self.device
 
-        def pools():
-            return [pset.k_pool, pset.v_pool] + ([pset.scales] if pset.scales is not None else [])
+        def rows_for(ps):
+            return [torch.empty((p.shape[0], width) + tuple(p.shape[2:]), dtype=p.dtype,
+                                device=dev) for p in ps.pools()]
 
-        rows = [torch.empty((p.shape[0], W) + tuple(p.shape[2:]), dtype=p.dtype, device=dev)
-                for p in pools()]
-        src_ids = StaticInputs({"ids": (W,)}, dev)
-        dst_ids = StaticInputs({"dst": (W,)}, dev)
+        g_rows = rows_for(src)
+        s_rows = g_rows if dst is src else rows_for(dst)
+        src_ids = StaticInputs({"ids": (width,)}, dev)
+        dst_ids = StaticInputs({"dst": (width,)}, dev)
 
         def gather():
-            # the source's pools are read, not written: its row stays live
-            # until the peer's adoption has validated the payload
+            # the source's pools are read, not written
             ids = src_ids.dev["ids"].long()
             with torch.no_grad():
-                for pool, row in zip(pools(), rows):
+                for pool, row in zip(src.pools(), g_rows):
                     torch.index_select(pool, 1, ids, out=row)
 
         def scatter():
-            dst = dst_ids.dev["dst"].long()
+            ids = dst_ids.dev["dst"].long()
             with torch.no_grad():
-                for pool, row in zip(pools(), rows):
-                    pool.index_copy_(1, dst, row)
+                for pool, row in zip(dst.pools(), s_rows):
+                    pool.index_copy_(1, ids, row)
 
-        self._migrate_rows = rows
-        self._migrate_gather = CapturedProgram("serving_kv_gather" + sfx, gather, dev, src_ids)
-        self._migrate_scatter = CapturedProgram("serving_kv_scatter" + sfx, scatter, dev, dst_ids)
+        return (CapturedProgram(gather_name, gather, dev, src_ids),
+                CapturedProgram(scatter_name, scatter, dev, dst_ids), g_rows, s_rows)
+
+    def _ensure_migration_programs(self) -> None:
+        """The migration transport (JAX scheduler.py:2236-2300), built on
+        first use: :meth:`_row_programs` over the pool at ``pages_per_slot``
+        pages; ``serving_kv_gather`` fills the rows from a slot's page ids,
+        ``serving_kv_scatter`` writes them into freshly allocated ones.
+        Neither is in ``executables``."""
+        if self._migrate_gather is not None:
+            return
+        sfx = "_int8" if self.pset.scales is not None else ""
+        self._migrate_gather, self._migrate_scatter, self._migrate_rows, _ = self._row_programs(
+            self.pset, self.pset, self.pages_per_slot, "serving_kv_gather" + sfx,
+            "serving_kv_scatter" + sfx)
 
     @property
     def expected_executables(self) -> int:
-        """The static-shapes contract of the JAX engine over the ported
-        features (JAX scheduler.py:651-662): one prefill program, ONE
-        decode-shaped program (verify replaces decode), the chunk program
-        when chunking or the prefix cache needs it, and the host tier's
-        ``serving_kv_restore`` (disaggregation is not ported: the config
-        refuses it)."""
-        return 2 + (1 if self.chunk_width > 0 else 0) + (1 if self.tiering_enabled else 0)
+        """The static-shapes contract of the JAX engine (JAX
+        scheduler.py:651-662): one prefill program, ONE decode-shaped
+        program (verify replaces decode), the chunk program when chunking
+        or the prefix cache needs it, the handoff pair under disaggregated
+        placements, and the host tier's ``serving_kv_restore``."""
+        return (2 + (1 if self.chunk_width > 0 else 0) + (2 if self.disaggregated else 0)
+                + (1 if self.tiering_enabled else 0))
 
     @property
     def allocator(self):
-        return self.pset.allocator
+        """The decode (or shared) placement's page allocator."""
+        return self.decode_set.allocator
 
     @property
     def k_pool(self):
-        return self.pset.k_pool
+        return self.decode_set.k_pool
 
     @property
     def v_pool(self):
-        return self.pset.v_pool
+        return self.decode_set.v_pool
 
     @property
     def kv_scales(self):
         """The int8 pool's ``[L, P, KV, 2]`` scales (None otherwise)."""
-        return self.pset.scales
+        return self.decode_set.scales
 
     # ------------------------------------------------------------------
     # admission control
@@ -943,13 +1195,23 @@ class ServingEngine:
                 if self.tracer is not None:
                     self.tracer.note_wait(req, "kv_restore")
                 break
+            # under disaggregation BOTH placements gate admission: the
+            # decode pool must hold the full private reservation, the
+            # prefill pool the prompt's pages net of prefix hits (the index
+            # holds prefill-side pages, so eviction relieves that side)
             need = self._pages_needed(req)
-            if need > self.allocator.free_pages:
+            p_alloc = self.prefill_set.allocator
+            p_need = self._prefill_pages_needed(req) if self.disaggregated else need
+            if need > self.allocator.free_pages or (
+                    self.disaggregated and p_need > p_alloc.free_pages):
                 if self.prefix_cache is not None and len(self.prefix_cache):
-                    self.prefix_cache.evict(need_free=need)
+                    self.prefix_cache.evict(need_free=p_need)
                     self._g_index_pages.set(len(self.prefix_cache))
                     need = self._pages_needed(req)
-                if need > self.allocator.free_pages:
+                    if self.disaggregated:
+                        p_need = self._prefill_pages_needed(req)
+                if need > self.allocator.free_pages or (
+                        self.disaggregated and p_need > p_alloc.free_pages):
                     if self.tracer is not None:
                         self.tracer.note_wait(req, "page_budget")
                     break
@@ -957,10 +1219,21 @@ class ServingEngine:
             self._admit(free, req)
 
         # 2b. chunked prefill: every prefilling slot advances one chunk, and
-        # the decode batch below still runs
+        # the decode batch below still runs. A slot whose first token is
+        # read (pending_tok, disaggregated) waits on the handoff instead
         for i, slot in enumerate(self.slots):
-            if slot.request is not None and slot.prefilling:
+            if slot.request is not None and slot.prefilling and slot.pending_tok is None:
                 self._advance_chunk(i)
+
+        # 2c. disaggregated handoff completion (JAX scheduler.py:1322-1342):
+        # a slot whose prefill placement has sampled the first token moves
+        # its prompt KV into the decode pool and joins the decode batch.
+        # The token was read at the prefill, so the handoff runs in the
+        # same step on every rank
+        if self.disaggregated:
+            for i, slot in enumerate(self.slots):
+                if slot.request is not None and slot.pending_tok is not None:
+                    self._complete_handoff(i)
 
         # 3. one batched decode (or speculative verify) step for every slot
         # past its prefill
@@ -1037,7 +1310,7 @@ class ServingEngine:
         # time) is flagged once
         if self.watchdog is not None and self._ema_step_s > 0.0:
             factor = float(getattr(self.watchdog.config, "straggler_factor", 3.0))
-            now = self.clock()
+            now = self._trace_clock()
             for slot in self.slots:
                 req = slot.request
                 if req is None or req.t_first_token is None:
@@ -1064,19 +1337,18 @@ class ServingEngine:
         if self._step_count and self._step_count % 32 == 0:
             self.stats()  # refresh the quantile gauges for textfile scrapes
         if self._journal is not None:
-            self._journal.maybe_snapshot(self.clock())
+            self._journal.maybe_snapshot(self._trace_clock())
         return n_active
 
     def _decode(self, active):
         """One batched decode step → ([(slot, [token])], margins [B, 1] or
         None). The slot table is the program's staging: one upload."""
-        out = self._step_prog()
-        nxt, logits = out if self.track_margins else (out, None)
+        out = self._run(self._step_prog, self.decode_placement)
         # the one deliberate sync of the slot loop: the scheduler must read
         # the sampled tokens to retire or advance slots (and it leaves the
         # staged table free to write)
-        out_np = nxt.cpu().numpy()
-        margins = _top2_margin(logits)[:, None] if logits is not None else None
+        out_np, margins = self._host_outputs(self.decode_placement, out, (self.max_slots,))
+        margins = margins[:, None] if margins is not None else None
         return [(i, [int(out_np[i])]) for i in active], margins
 
     def _verify(self, active):
@@ -1090,10 +1362,10 @@ class ServingEngine:
         for i in active:
             drafts[i] = self._draft(self.slots[i].request)
             vt[i, 1:] = drafts[i]
-        out = self._step_prog()
-        greedy, logits = out if self.track_margins else (out, None)
-        out_np = greedy.cpu().numpy()  # the step's one deliberate sync
-        margins = _top2_margin(logits) if logits is not None else None
+        out = self._run(self._step_prog, self.decode_placement)
+        # the step's one deliberate sync
+        out_np, margins = self._host_outputs(self.decode_placement, out,
+                                             (self.max_slots, self.spec_k + 1))
         self._c_spec_steps.inc()
         self._c_spec_drafted.inc(self.spec_k * len(active))
         return [(i, self._accept_tokens(self.slots[i].request, drafts[i], out_np[i]))
@@ -1151,15 +1423,57 @@ class ServingEngine:
         self._h_accept.observe(len(toks))
         return toks
 
+    def _run(self, prog: CapturedProgram, plc: Placement):
+        """``prog()`` on its placement's ranks → its outputs (None on a rank
+        outside the placement)."""
+        return prog() if plc.member else None
+
+    def _host_outputs(self, plc: Placement, out, shape: tuple):
+        """What the host reads of a program's outputs → (tokens as int64
+        numpy of ``shape``, margins of the same shape or None): read on a
+        rank of the placement; when some rank is outside it
+        (disaggregation, or ranks past the placements) broadcast from the
+        placement's first rank to every rank, tokens and margins in one
+        float64 buffer (exact for token ids)."""
+        tok = margins = None
+        if plc.member:
+            tok, logits = out if self.track_margins else (out, None)
+            if not self._bcast:
+                return (tok.cpu().numpy().reshape(shape),
+                        _top2_margin(logits).reshape(shape) if logits is not None else None)
+        n = int(np.prod(shape))
+        buf = torch.zeros((2 if self.track_margins else 1) * n, dtype=torch.float64)
+        if plc.member:
+            buf[:n] = tok.reshape(-1).to("cpu", torch.float64)
+            if self.track_margins:
+                top2 = torch.topk(logits.float(), 2, dim=-1).values
+                buf[n:] = (top2[..., 0] - top2[..., 1]).reshape(-1).to("cpu", torch.float64)
+        comm.broadcast(buf, self._host_group, plc.root)
+        host = buf.numpy()
+        tok = host[:n].astype(np.int64).reshape(shape)
+        if self.track_margins:
+            margins = host[n:].astype(np.float32).reshape(shape)
+        return tok, margins
+
     def _pages_needed(self, req: Request) -> int:
-        """Net new pages an admission allocates: the request's full
-        reservation minus the pages the prefix index can map (a probe that
-        counts nothing and refreshes nothing: the gate runs it every step
-        while a request heads the queue)."""
+        """Net new DECODE-pool pages an admission allocates: the request's
+        full reservation minus the pages the prefix index can map (a probe
+        that counts nothing and refreshes nothing: the gate runs it every
+        step while a request heads the queue). Under disaggregation the
+        decode reservation is all private (the handoff scatters the shared
+        prompt KV into it), so nothing nets out."""
         total = pages_for(req.prompt_len + req.max_new_tokens, self.page_size)
-        if self.prefix_cache is None:
+        if self.prefix_cache is None or self.disaggregated:
             return total
         return total - self.prefix_cache.probe(req.prompt)
+
+    def _prefill_pages_needed(self, req: Request) -> int:
+        """Prefill-pool pages a disaggregated admission allocates: the
+        prompt's pages net of prefix-index hits."""
+        pp = pages_for(req.prompt_len, self.page_size)
+        if self.prefix_cache is None:
+            return pp
+        return pp - self.prefix_cache.probe(req.prompt)
 
     # ------------------------------------------------------------------
     # the host tier: restore prefetch and spill pump (JAX scheduler.py:1523-1577)
@@ -1176,7 +1490,7 @@ class ServingEngine:
         through the normal (chunked) path."""
         pc = self.prefix_cache
         tier = self.tiering
-        alloc = self.allocator
+        alloc = self.prefill_set.allocator
         restored = 0
         for key in pc.chain_keys(req.prompt):
             if key in pc._entries:
@@ -1189,14 +1503,23 @@ class ServingEngine:
                 pids = alloc.alloc(1)
             except PageAllocatorError:
                 break  # pool pressure: the relief valve takes over
-            t0 = self.clock()
-            if not tier.restore(key, pids[0]):
+            t0 = self._trace_clock()
+            ok = tier.restore(key, pids[0])
+            if self._spmd:
+                # each rank restores its own heads: a miss on one (a crc
+                # mismatch) is a miss on every rank, so all decide alike
+                flag = torch.tensor([int(ok)], dtype=torch.int32)
+                agreed = bool(comm.all_reduce(flag, self._host_group, "min").item())
+                if ok and not agreed:
+                    tier.drop_orphans()  # the key left this store too: sweep as the miss did
+                ok = agreed
+            if not ok:
                 alloc.free(pids)  # a cold miss: recompute
                 break
             pc.adopt(key, pids[0])
             restored += 1
             if self.tracer is not None:
-                t1 = self.clock()
+                t1 = self._trace_clock()
                 self.tracer.event(req, "kv_restore", t1, page=int(pids[0]),
                                   bytes=tier.store.page_bytes, dur_s=t1 - t0)
         return False
@@ -1210,7 +1533,7 @@ class ServingEngine:
         pc = self.prefix_cache
         if pc is None or not len(pc):
             return
-        alloc = self.allocator
+        alloc = self.prefill_set.allocator
         low = max(1, alloc.capacity // 8)
         if alloc.free_pages >= low:
             return
@@ -1247,24 +1570,40 @@ class ServingEngine:
             lookups = pc.hits_full + pc.hits_partial + pc.misses
             if lookups:
                 self._g_prefix_rate.set((pc.hits_full + pc.hits_partial) / lookups)
+            # refcounts live with the pool that holds the pages: the
+            # prefill allocator under disaggregation (the decode one else)
             if shared:
-                self.allocator.retain(shared)
+                self.prefill_set.allocator.retain(shared)
                 self._c_pages_reused.inc(len(shared))
             if cow_page is not None:
-                self.allocator.cow_forks_total += 1
+                self.prefill_set.allocator.cow_forks_total += 1
                 self._c_cow.inc()
+        p_priv: List[int] = []
         try:
-            pages = shared + self.allocator.alloc(total - len(shared))
+            if self.disaggregated:
+                # two reservations: the prompt's pages on the prefill
+                # placement (shared + private; the handoff reads, then frees
+                # them), the FULL reservation as private pages on the decode
+                # placement (the handoff scatters the prompt KV in)
+                p_priv = self.prefill_set.allocator.alloc(
+                    pages_for(req.prompt_len, self.page_size) - len(shared))
+                prefill_pages = shared + p_priv
+                pages = self.allocator.alloc(total)
+            else:
+                prefill_pages = []
+                pages = shared + self.allocator.alloc(total - len(shared))
         except PageAllocatorError as e:
             # all or nothing: a failed reservation must not strand the
-            # prefix retains
-            if shared:
-                self.allocator.free(shared)
+            # prefix retains or the other pool's reservation
+            rollback = p_priv + shared
+            if rollback:
+                self.prefill_set.allocator.free(rollback)
             self._retry_or_fail(req, f"admission reservation failed: {e}", self.clock())
             return
         slot = self.slots[slot_i]
         slot.request = req
         slot.pages = pages
+        slot.prefill_pages = prefill_pages
         slot.pos = 0
         req.prefix_shared_tokens = shared_tokens
         req.cow_forked = cow_page is not None
@@ -1283,35 +1622,51 @@ class ServingEngine:
             shared_tokens > 0 or (self._chunk_cold and req.prompt_len > self.chunk_width)
         ):
             # chunked (tail) prefill: the real block table lives on the slot,
-            # the main table row stays scratch until the prompt is in
+            # the main table row stays scratch until the prompt is in. Under
+            # disaggregation the chunk program runs on the prefill
+            # placement, so the row addresses the prefill pool's pages
             row = np.zeros((1, self.pages_per_slot), np.int32)
-            row[0, : len(pages)] = pages
+            src = prefill_pages if self.disaggregated else pages
+            row[0, : len(src)] = src
             slot.row = row
             slot.prefilling = True
             slot.prefill_pos = shared_tokens
             req.status = RequestStatus.RUNNING
             return
 
-        self.table.assign(slot_i, pages)
-
         x = self._prefill_prog.inputs.staging()
         x["ids"][:] = 0
         x["ids"][0, : req.prompt_len] = req.prompt
         x["plen"][0] = req.prompt_len
-        x["page_ids"][:] = self.table.block_tables[slot_i, : self.prefill_pages]
+        if self.disaggregated:
+            # the whole prefill on the PREFILL placement: its page ids
+            # address the prefill pool
+            x["page_ids"][:] = 0
+            x["page_ids"][: len(prefill_pages)] = prefill_pages
+        else:
+            self.table.assign(slot_i, pages)
+            x["page_ids"][:] = self.table.block_tables[slot_i, : self.prefill_pages]
         x["key"][:] = self._prefill_key(req)
-        out = self._prefill_prog()
-        first, logits = out if self.track_margins else (out, None)
+        out = self._run(self._prefill_prog, self.prefill_placement)
         self._c_prefills.inc()
         # deliberate sync: TTFT is defined by the first token reaching the
         # host, and an at-admission EOS must retire the slot before decode
-        tok0 = int(first[0].item())
+        first, margins = self._host_outputs(self.prefill_placement, out, (1,))
+        tok0 = int(first[0])
         if self.tracer is not None:
-            self.tracer.event(req, "prefill", self.clock(), step=self._step_count,
+            self.tracer.event(req, "prefill", self._trace_clock(), step=self._step_count,
                               slot=slot_i, width=self.prefill_width,
                               prompt_len=req.prompt_len)
-        if logits is not None:
-            req.margins.append(float(_top2_margin(logits)[0]))
+        if margins is not None:
+            req.margins.append(float(margins[0]))
+        if self.disaggregated:
+            # the handoff (step phase 2c) emits the token and joins the slot
+            # to the decode batch
+            slot.pending_tok = tok0
+            slot.prefilling = True
+            slot.prefill_pos = req.prompt_len
+            req.status = RequestStatus.RUNNING
+            return
         self._start_decoding(slot_i, tok0)
 
     def _prefill_key(self, req: Request) -> np.ndarray:
@@ -1343,22 +1698,112 @@ class ServingEngine:
         # program); only the final chunk's token is kept
         x["key"][:] = self._prefill_key(req)
         final = start + C >= req.prompt_len
-        out = self._chunk_prog()
+        out = self._run(self._chunk_prog, self.prefill_placement)
         self._c_chunks.inc()
         slot.prefill_pos = start + C
         if self.tracer is not None:
-            self.tracer.event(req, "prefill_chunk", self.clock(), step=self._step_count,
+            self.tracer.event(req, "prefill_chunk", self._trace_clock(), step=self._step_count,
                               slot=slot_i, start=start, width=C, final=final)
         if not final:
             return  # more chunks; the decode batch advances meanwhile
-        first, logits = out if self.track_margins else (out, None)
         self._c_prefills.inc()
         # deliberate sync, as in _admit: the final chunk's sample is the
         # request's first token
-        tok0 = int(first[0].item())
-        if logits is not None:
-            req.margins.append(float(_top2_margin(logits)[0]))
+        first, margins = self._host_outputs(self.prefill_placement, out, (1,))
+        tok0 = int(first[0])
+        if margins is not None:
+            req.margins.append(float(margins[0]))
+        if self.disaggregated:
+            slot.pending_tok = tok0  # the handoff of step phase 2c follows
+            return
         self._start_decoding(slot_i, tok0)
+
+    def _complete_handoff(self, slot_i: int) -> None:
+        """Finish a disaggregated prefill (JAX scheduler.py:1858-1920): move
+        the prompt KV from the prefill placement's pool into the slot's
+        private decode-pool reservation (:meth:`_handoff`), register the
+        prompt in the prefix index (PREFILL-side pages: admissions compute
+        there), free the prefill-side pages, and join the decode batch with
+        the first token. A prefill-terminal request (``max_new_tokens ==
+        1`` or EOS on the first token) skips the move: it finishes without
+        decoding. ``kv_handoff_bytes`` counts JAX's logical bytes: the
+        packed global payload over the static width, on every rank."""
+        slot = self.slots[slot_i]
+        req = slot.request
+        tok0 = slot.pending_tok
+        slot.pending_tok = None
+        pset = self.prefill_set
+        if req.max_new_tokens == 1 or (req.eos_token_id is not None
+                                       and tok0 == req.eos_token_id):
+            if self.prefix_cache is not None:
+                self.prefix_cache.insert(req.prompt, slot.prefill_pages)
+                self._g_index_pages.set(len(self.prefix_cache))
+            pset.allocator.free(slot.prefill_pages)
+            slot.prefill_pages = []
+            self._start_decoding(slot_i, tok0)
+            return
+        t0 = self.clock()
+        n = len(slot.prefill_pages)
+        # scratch-padded to the static width; pad entries hit scratch page 0
+        src = np.zeros((self.prefill_pages,), np.int32)
+        src[:n] = slot.prefill_pages
+        dst = np.zeros((self.prefill_pages,), np.int32)
+        dst[:n] = slot.pages[:n]
+        self._handoff(src, dst)
+        now = self.clock()
+        mc = self.model_config
+        nbytes = pool_bytes(mc.n_layer, self.prefill_pages, mc.n_head, self.page_size,
+                            mc.head_dim, self._itemsize)
+        if pset.scales is not None:
+            nbytes += scales_bytes(mc.n_layer, self.prefill_pages, mc.n_head)
+        self._c_handoffs.inc()
+        self._c_handoff_bytes.inc(nbytes)
+        self._h_handoff.observe(now - t0)
+        if self.tracer is not None:
+            self.tracer.event(req, "kv_handoff", now, step=self._step_count, slot=slot_i,
+                              pages=n, bytes=nbytes, latency_s=now - t0)
+        # prefix insert BEFORE the free: insert retains the prompt's full
+        # pages, so only the private non-full tail is released
+        if self.prefix_cache is not None:
+            self.prefix_cache.insert(req.prompt, slot.prefill_pages)
+            self._g_index_pages.set(len(self.prefix_cache))
+        pset.allocator.free(slot.prefill_pages)
+        slot.prefill_pages = []
+        self._start_decoding(slot_i, tok0)
+
+    def _handoff(self, src: np.ndarray, dst: np.ndarray) -> None:
+        """One KV handoff: the prefill ranks gather the pages ``src`` of
+        their pools (their KV heads, with the int8 scales) into the static
+        rows; each sends every decode rank the heads both hold
+        (``comm.send_recv``: heads ``[h0, h1)`` re-sharded when
+        ``decode_tp != prefill_tp``); the decode ranks scatter what they
+        received into pages ``dst``, and the copy is synchronized (the
+        latency covers the move, not its dispatch)."""
+        pp, dp = self.prefill_placement, self.decode_placement
+        if pp.member:
+            self._gather_prog.inputs.staging()["ids"][:] = src
+            self._gather_prog()
+        if dp.member:
+            self._scatter_prog.inputs.staging()["dst"][:] = dst
+        kv = self.model_config.n_head
+        me = dist.get_rank()
+        sends, recvs = [], []
+        for i, src_rank in enumerate(pp.ranks):
+            a0, a1 = pp.kv_heads(kv, i)
+            for j, dst_rank in enumerate(dp.ranks):
+                b0, b1 = dp.kv_heads(kv, j)
+                lo, hi = max(a0, b0), min(a1, b1)
+                if lo >= hi:
+                    continue
+                if src_rank == me:
+                    sends += [(row[:, :, lo - a0:hi - a0], dst_rank) for row in self._hg_rows]
+                if dst_rank == me:
+                    recvs += [(row[:, :, lo - b0:hi - b0], src_rank) for row in self._hs_rows]
+        comm.send_recv(sends, recvs)
+        if dp.member:
+            self._scatter_prog()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def _start_decoding(self, slot_i: int, tok0: int) -> None:
         """Post-prefill transition: install the real block table (after a
@@ -1368,7 +1813,13 @@ class ServingEngine:
         slot = self.slots[slot_i]
         req = slot.request
         now = self.clock()
-        if slot.row is not None:
+        if self.disaggregated:
+            # the slot decodes against its private decode-pool reservation;
+            # whatever row the prefill used addressed the OTHER pool
+            self.table.assign(slot_i, slot.pages)
+            slot.prefilling = False
+            slot.row = None
+        elif slot.row is not None:
             self.table.block_tables[slot_i, :] = slot.row[0]
             slot.prefilling = False
             slot.row = None
@@ -1385,7 +1836,8 @@ class ServingEngine:
         slot.pos = req.prompt_len
         self.table.seq_lens[slot_i] = slot.pos
         self.table.tokens[slot_i] = tok0
-        if self.prefix_cache is not None:
+        if self.prefix_cache is not None and not self.disaggregated:
+            # disaggregated: _complete_handoff indexed the PREFILL-side pages
             self.prefix_cache.insert(req.prompt, slot.pages)
             self._g_index_pages.set(len(self.prefix_cache))
         if self._sampling and req.max_new_tokens > 1:
@@ -1425,24 +1877,27 @@ class ServingEngine:
             self._h_tpot.observe(gap)
         self._c_requests.inc(status=status)
         self._c_tokens.inc(len(req.tokens))
-        if self._heat_decode is not None:
-            self._heat_decode.session_end(now, slot_i)
-        self.allocator.free(slot.pages)
-        self.table.clear(slot_i)
-        self.slots[slot_i] = _Slot()
+        self._release(slot_i, now)
         self._req_terminal(req, now)
 
     def _fail_slot(self, slot_i: int, why: str, now: float) -> None:
         """A transient slot failure: reclaim the slot and its pages at
         once, then retry with backoff or fail terminally."""
+        req = self.slots[slot_i].request
+        self._release(slot_i, now)
+        self._retry_or_fail(req, why, now)
+
+    def _release(self, slot_i: int, now: float) -> None:
+        """Free slot ``slot_i``: its pages (and, evicted before its handoff,
+        its prefill-side pages), its table row, its heat session."""
         slot = self.slots[slot_i]
-        req = slot.request
         if self._heat_decode is not None:
             self._heat_decode.session_end(now, slot_i)
         self.allocator.free(slot.pages)
+        if slot.prefill_pages:
+            self.prefill_set.allocator.free(slot.prefill_pages)
         self.table.clear(slot_i)
         self.slots[slot_i] = _Slot()
-        self._retry_or_fail(req, why, now)
 
     def _retry_or_fail(self, req: Request, why: str, now: float) -> None:
         """Re-queue with exponential backoff (``serving.retry_max`` retries,
@@ -1658,7 +2113,8 @@ class ServingEngine:
         out["retried"] = int(self._c_retries.value())
         out["draining"] = self._draining
         out["by_status"] = dict(self._status_counts)
-        now = self.clock()
+        # a report, not a decision: no collective, so one rank may ask alone
+        now = self._trace_clock()
         if self._slo_enabled and self._t_first_submit is not None:
             windowed, cumulative = self._goodput_now(now)
             self._g_goodput.set(windowed)
@@ -1714,19 +2170,30 @@ class ServingEngine:
         out["kv_cache_dtype"] = str(self.cache_dtype).replace("torch.", "")
         out["kv_pool_bytes"] = self.kv_pool_bytes
         out["kv_scales_bytes"] = self.kv_scales_bytes
-        # one placement on one device: the JAX engine's section at tp = 1
+        # where the programs run and what each rank holds (JAX
+        # scheduler.py:2873-2898): per-rank pool bytes drop 1/tp
+        psets = {self.decode_placement.name: self.decode_set,
+                 self.prefill_placement.name: self.prefill_set}
         out["placement"] = {
-            "tp": 1,
-            "disaggregated": False,
-            "placements": {"shared": {
-                "tp": 1,
-                "devices": [str(self.device)],
-                "num_pages": self.pset.num_pages,
-                "pages_in_use": self.allocator.pages_in_use,
-                "per_device_pool_bytes": self.kv_pool_bytes,
-                "per_device_scales_bytes": self.kv_scales_bytes,
-            }},
+            "tp": self.tp,
+            "disaggregated": self.disaggregated,
+            "placements": {
+                name: {
+                    "tp": ps.placement.tp,
+                    "devices": [self._rank_devices[r] for r in ps.placement.ranks],
+                    "num_pages": ps.num_pages,
+                    "pages_in_use": ps.allocator.pages_in_use,
+                    "per_device_pool_bytes": ps.local_pool_bytes(),
+                    "per_device_scales_bytes": ps.local_scales_bytes(),
+                }
+                for name, ps in psets.items()
+            },
         }
+        if self.disaggregated:
+            out["kv_handoffs"] = int(self._c_handoffs.value())
+            out["kv_handoff_bytes"] = int(self._c_handoff_bytes.value())
+            total, n = self._h_handoff.stats()
+            out["kv_handoff_latency_mean_s"] = (total / n) if n else None
         out["chunk_prefills"] = int(self._c_chunks.value())
         if self.prefix_cache is not None:
             pc = self.prefix_cache
@@ -1784,6 +2251,7 @@ class ServingEngine:
                 f"slot {slot_i} is still prefilling — nothing emitted yet; "
                 "requeue it instead of migrating"
             )
+        self._refuse_migration_across_ranks()
         self._ensure_migration_programs()
         n = len(slot.pages)
         ids = self._migrate_gather.inputs.staging()["ids"]
@@ -1836,11 +2304,7 @@ class ServingEngine:
             raise ValueError(f"slot {slot_i} is empty")
         if now is None:
             now = self.clock()
-        if self._heat_decode is not None:
-            self._heat_decode.session_end(now, slot_i)
-        self.allocator.free(slot.pages)
-        self.table.clear(slot_i)
-        self.slots[slot_i] = _Slot()
+        self._release(slot_i, now)
         return req
 
     def adopt_session(self, state: dict, arrays: dict, request: Optional[Request] = None):
@@ -1864,6 +2328,7 @@ class ServingEngine:
                 f"migration payload needs {n} pages/slot, this engine "
                 f"holds {self.pages_per_slot}"
             )
+        self._refuse_migration_across_ranks()
         self._ensure_migration_programs()
         names = ("k_pages", "v_pages") + (("kv_scales",) if self.pset.scales is not None else ())
         payload = [torch.as_tensor(arrays[name]) for name in names]
@@ -1933,6 +2398,16 @@ class ServingEngine:
             self.table.keys[slot_i] = slot.keys[slot.step]
         return req
 
+    def _refuse_migration_across_ranks(self) -> None:
+        """A migration payload holds every KV head of a page row; an engine
+        over several ranks holds its heads spread over them (ROADMAP queue
+        1 item 11c: the fleet over placements)."""
+        if self._spmd:
+            raise NotPortedError(
+                "live session migration of an engine over several ranks "
+                "(serving.placement tp > 1 or disaggregate) is not ported to "
+                "deepspeed_tpu_torch yet (ROADMAP queue 1 item 11c)")
+
     def takeover_queue(self) -> List[Request]:
         """Hand the whole waiting queue to the caller (the router reroutes
         a draining replica's backlog). The requests stay QUEUED; this
@@ -1968,11 +2443,18 @@ class ServingEngine:
         """Drain invariant: every page either back on the free list or held
         by exactly the prefix index (refcount 1), every slot empty, every
         block-table entry pointing at scratch; with the host tier, the
-        store, the heat ledger's handles and the index reconcile."""
-        self.allocator.check_no_leaks(
-            allowed=self.prefix_cache.held_pages if self.prefix_cache is not None else None
-        )
+        store, the heat ledger's handles and the index reconcile. Under
+        disaggregation the index lives on the PREFILL allocator and the
+        decode pool drains completely (a page left there is a leaked
+        handoff reservation)."""
+        held = self.prefix_cache.held_pages if self.prefix_cache is not None else None
+        if self.disaggregated:
+            self.prefill_set.allocator.check_no_leaks(allowed=held)
+            self.decode_set.allocator.check_no_leaks(allowed=None)
+        else:
+            self.allocator.check_no_leaks(allowed=held)
         assert all(s.request is None for s in self.slots)
+        assert all(not s.prefill_pages for s in self.slots)
         assert (self.table.block_tables == 0).all()
         assert (self.table.seq_lens == 0).all()
         if self.tiering is not None:

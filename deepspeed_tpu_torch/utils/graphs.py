@@ -171,16 +171,20 @@ class CapturedProgram:
     writing the inputs' staging arrays; it uploads them (a program without
     host inputs uploads nothing) and runs one step. ``copy_outputs``: a
     replay returns copies of the graph's outputs (device copies, no sync),
-    which the next replay leaves alone, as a JAX call returns new arrays."""
+    which the next replay leaves alone, as a JAX call returns new arrays.
+    ``capture=False`` builds the program eager on the card: a serving
+    placement whose collectives run on a gloo group, which a CUDA graph
+    cannot hold, asks for that when it builds the program."""
 
     def __init__(self, name: str, fn: Callable[[], Any], device,
-                 inputs: Optional[StaticInputs] = None, copy_outputs: bool = False):
+                 inputs: Optional[StaticInputs] = None, copy_outputs: bool = False,
+                 capture: bool = True):
         self.name = name
         self.fn = fn
         self.inputs = inputs
         self.copy_outputs = bool(copy_outputs)
         self.device = torch.device(device)
-        self.captures = self.device.type == "cuda" and not _EAGER
+        self.captures = self.device.type == "cuda" and not _EAGER and bool(capture)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self._out: Any = None
         self._delta: Dict[str, int] = {}

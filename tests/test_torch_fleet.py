@@ -3,7 +3,8 @@
 ``tests/unit/test_timeseries.py`` are the oracle):
 
 - ``serving.fleet``: defaults, coercion and every rejection with JAX's
-  message; ``placement`` still refused, naming its ROADMAP item;
+  message; a ``placement`` beside the fleet still refused, naming its
+  ROADMAP item (11c: the fleet over placements);
 - the 16-request mixed suite with every feature (speculation, prefix
   sharing, chunked prefill, int8 pages, the host tier) on 2 replicas with
   a forced mid-stream preemption, through both packages under one stepped
@@ -244,7 +245,7 @@ def test_fleet_builds_and_placement_still_refused(engine):
         assert fleet._visible_devices() == 1
     finally:
         fleet.close()
-    with pytest.raises(tconfig.NotPortedError, match="item 11"):
+    with pytest.raises(tconfig.NotPortedError, match="item 11c"):
         FleetRouter(engine, dict(BASE, **FLEET2, placement={"tp": 2}))
 
 

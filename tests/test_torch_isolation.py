@@ -13,7 +13,10 @@ import torch
 import deepspeed_tpu_torch as dtt
 
 REPO = Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((REPO / "deepspeed_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+# the port, the card's smoke run, and the rank bodies the CPU tests run
+# in their gloo processes (which must not import JAX either)
+PORT_FILES = sorted((REPO / "deepspeed_tpu_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py", REPO / "tests" / "torch_dist.py"]
 
 
 def test_imports_without_jax_or_the_jax_package():
@@ -228,3 +231,15 @@ def test_distributed_init_defaults_to_the_card():
         dtt.initialize(model=model, config={"train_batch_size": 2,
                                             "zero_optimization": {"stage": 3}})
     assert not comm.is_initialized()
+
+
+def test_the_placement_slice_modules_are_scanned():
+    """The tensor-parallel / disaggregated slice's modules, and the rank
+    bodies that serve on gloo ranks, are part of what the scans above
+    cover."""
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for mod in ("module_inject/__init__.py", "module_inject/tp_shard.py",
+                "serving/placement.py", "serving/scheduler.py", "serving/model.py",
+                "models/gpt2.py", "comm/torch.py", "runtime/config.py", "utils/graphs.py"):
+        assert f"deepspeed_tpu_torch/{mod}" in names
+    assert "tests/torch_dist.py" in names

@@ -452,10 +452,12 @@ def test_refusals_name_their_roadmap_item():
         tconfig.DeepSpeedConfig.from_dict({"train_batch_size": 8,
                                            "tensorboard": {"enabled": True}})
     # an off section is accepted by the training config; the fleet (item 9)
-    # is ported, and the placement beside it stays refused
+    # and the placements (item 11) are ported, and a fleet over placements
+    # (device_base, item 11c) stays refused
     tconfig.DeepSpeedConfig.from_dict({"train_batch_size": 8, "telemetry": {"enabled": False}})
     assert tconfig.ServingConfig.from_dict({"fleet": {"enabled": True}}).fleet.enabled
-    with pytest.raises(NotPortedError, match="item 11"):
+    with pytest.raises(NotPortedError, match="item 11c"):
         tconfig.ServingConfig.from_dict({"fleet": {"enabled": True}, "placement": {"tp": 2}})
-    with pytest.raises(NotPortedError, match="item 11"):
-        tconfig.ServingConfig.from_dict({"placement": {"tp": 2}})
+    assert tconfig.ServingConfig.from_dict({"placement": {"tp": 2}}).placement.tp == 2
+    with pytest.raises(NotPortedError, match="item 11c"):
+        tconfig.ServingConfig.from_dict({"placement": {"device_base": 1}})

@@ -84,6 +84,7 @@ def test_port_dp2_stage3_tag_loads_into_jax_single_device(run, devices):
     conf = dict(S3, zero_optimization={"stage": 0}, train_micro_batch_size_per_gpu=4)
     jeng = JEngine(jgpt2.make_module(jgpt2.get_config("gpt2-tiny")), conf, mesh=mesh,
                    params=jax.tree.map(jnp.asarray, run["params"]), seed=5)
+    run["ranks"].results()  # the ranks write the tag: wait for them to end
     jeng.load_checkpoint(str(run["root"] / "port"), tag="t")
     got = float(jeng.train_batch(_next_batch())["loss"])
     want = run["ranks"][0]["save"]["next_loss"]
@@ -95,6 +96,7 @@ def test_port_dp2_stage3_tag_loads_into_the_port_alone(run):
     eng, *_ = dtt.initialize(model=tgpt2.make_module(tgpt2.get_config("gpt2-tiny")),
                              config=conf, device="cpu", seed=7)
     assert not eng.distributed
+    run["ranks"].results()  # the ranks write the tag: wait for them to end
     eng.load_checkpoint(str(run["root"] / "port"), tag="t")
     master = _flat(run["ranks"][0]["save"]["master"])
     for name, t in _flat({k: v.numpy() for k, v in _flat_torch(eng.params).items()}).items():

@@ -264,3 +264,149 @@ def train(rank: int, world: int, cases: list) -> dict:
             res["after_load"] = float(eng2.train_batch(opts["next_batch"])["loss"])
         out[name] = res
     return out
+
+
+def _flat_shapes(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat_shapes(v, f"{prefix}/{k}" if prefix else k))
+        return out
+    return {prefix: tuple(tree.shape)}
+
+
+def _serve_case(eng, rank, conf, reqs, opts, tmpdir):
+    """One serving case at this rank (see :func:`serve`)."""
+    import json
+
+    from deepspeed_tpu_torch.telemetry.kv_heat import KVHeatTracer
+    from deepspeed_tpu_torch.telemetry.request_trace import RequestTracer
+
+    res = {}
+    if opts.get("refuse"):
+        target = eng
+        kw = {}
+        if opts["refuse"] == "int8_weights":
+            import deepspeed_tpu_torch as dtt
+
+            target = dtt.init_inference(dtt.get_config("gpt2-tiny"), dtype=torch.float32,
+                                        device="cpu", quantize_bits=8)
+        if opts["refuse"] == "heat_rank0" and rank == 0:
+            kw["heat_tracer"] = KVHeatTracer(str(Path(tmpdir) / "refused_heat.jsonl"))
+        try:
+            target.serve(conf, **kw)
+        except Exception as e:  # noqa: BLE001  (the refusal is the result)
+            res["error"] = (type(e).__name__, str(e))
+        return res
+    base = Path(tmpdir) / f"{opts.get('tag', 'case')}_r{rank}"
+    base.mkdir(parents=True, exist_ok=True)
+    # "solo": a request tracer, a metrics journal and stats() calls on rank 0
+    # alone (they only record: the other ranks' collectives do not change)
+    solo = opts.get("solo") and rank == 0
+    tracer = (RequestTracer(str(base / "trace.jsonl")) if opts.get("trace") or solo
+              else None)
+    heat = KVHeatTracer(str(base / "heat.jsonl")) if opts.get("heat") else None
+    journal = None
+    if solo:
+        from deepspeed_tpu_torch.telemetry.timeseries import MetricsJournal
+
+        journal = MetricsJournal(str(base / "journal.jsonl"), interval_s=0.0)
+    srv = eng.serve(conf, tracer=tracer, heat_tracer=heat, journal=journal)
+    res["names"] = [p.name for p in srv.executables]
+    res["expected"] = srv.expected_executables
+    res["captures"] = [p.captures for p in srv.executables]
+    res["gauge"] = {p.name: srv._g_tp_coll.value(program=p.name) for p in srv.executables}
+    res["pools"] = {ps.placement.name: (tuple(ps.k_pool.shape), None if ps.scales is None
+                                        else tuple(ps.scales.shape), ps.placement.member)
+                    for ps in (srv.decode_set, srv.prefill_set)}
+    res["params"] = {ps.placement.name: _flat_shapes(ps.params) if ps.params is not None
+                     else None for ps in (srv.decode_set, srv.prefill_set)}
+    if opts.get("drain_mid_load"):
+        rs = np.random.RandomState(11)
+        for i in range(12):
+            srv.submit(rs.randint(0, 512, (6 + (i % 5),)).astype(np.int32),
+                       max_new_tokens=8, seed=i)
+        srv.step()
+        srv.step()
+        res["drain"] = srv.drain(deadline_s=0.0)["preempted"]
+        srv.release_prefix_cache()
+        srv.check_no_leaks()
+        return res
+
+    def streams(seed0=0):
+        subs = [srv.submit(p, max_new_tokens=n, seed=seed0 + i) for i, (p, n) in enumerate(reqs)]
+        if solo:
+            while srv.queue or any(s.request is not None for s in srv.slots):
+                srv.step()
+                srv.stats()
+        else:
+            srv.run()
+        return [list(r.tokens) for r in subs]
+
+    res["streams"] = streams()
+    if opts.get("demote"):
+        srv.prefix_cache.evict(keep=0)
+        srv.tiering.flush()
+        res["spills"] = srv.tiering.spills
+        if opts.get("corrupt_rank") == rank:
+            # one flipped code in this rank's heads of the first host-held
+            # chain root: its restore misses here and lands on the others
+            store = srv.tiering.store
+            key = next(k for p, _ in reqs for k in srv.prefix_cache.chain_keys(p)[:1]
+                       if k in store)
+            store.k_codes[store._entries[key].slot, 0, 0, 0, 0] += 1
+        res["streams2"] = streams()
+        res["tier"] = {k: srv.tiering.stats()[k] for k in ("restores", "crc_failures",
+                                                            "restore_misses")}
+    st = srv.stats()
+    res["stats"] = {k: st[k] for k in ("placement", "kv_handoffs", "kv_handoff_bytes",
+                                       "kv_handoff_latency_mean_s", "kv_pool_bytes",
+                                       "kv_scales_bytes", "spec_steps", "chunk_prefills",
+                                       "prefills", "completed") if k in st}
+    if heat is not None:
+        res["heat"] = {name: led.reconcile(
+            srv.decode_set.allocator if name != "prefill" else srv.prefill_set.allocator,
+            srv.prefix_cache if name != "decode" else None)
+            for name, led in heat.ledgers.items()}
+    srv.drain()
+    srv.release_prefix_cache()
+    srv.check_no_leaks()
+    if heat is not None:
+        heat.close()
+    if tracer is not None:
+        tracer.flush()
+        recs = [json.loads(x) for x in open(tracer.file_path)]
+        res["trace_records"] = len(recs)
+        res["handoff_spans"] = [e for r in recs for e in r.get("events", [])
+                                if e.get("e") == "kv_handoff"]
+    if journal is not None:
+        journal.close()
+        res["journal_records"] = journal.records_emitted
+    return res
+
+
+def serve(rank: int, world: int, tree: dict, cases: list, tmpdir: str) -> dict:
+    """Each case ``(name, n, config, requests, opts)`` served through
+    ``init_inference(gpt2-tiny, tree, fp32, cpu).serve(config)`` on every
+    rank (the placements take ranks ``[0, n)``; a rank past them mirrors
+    the host side): the program names, captures and
+    collective gauges, the placements' pool and parameter shapes, the
+    greedy streams of ``requests`` ((prompt, max_new_tokens), seed = index),
+    the stats' placement and handoff keys, and, where ``opts`` asks, a
+    second round after demoting every prefix page to the host tier
+    (``demote``; ``corrupt_rank``: a host page corrupted on that rank
+    only), the heat ledgers' reconciliation (``heat``), the
+    ``kv_handoff`` spans of the request trace (``trace``), a mid-load drain
+    (``drain_mid_load``), the request tracer, a metrics journal and a
+    ``stats()`` after every step on rank 0 alone (``solo``) or the error a
+    refused config raises (``refuse``; ``heat_rank0``: a heat tracer on
+    rank 0 alone). Each served engine drains leak-free."""
+    import deepspeed_tpu_torch as dtt
+    from deepspeed_tpu_torch.utils.weights import params_from_numpy
+
+    eng = dtt.init_inference(dtt.get_config("gpt2-tiny"), params=params_from_numpy(tree, "cpu"),
+                             dtype=torch.float32, device="cpu")
+    out = {}
+    for name, _n, conf, reqs, opts in cases:
+        out[name] = _serve_case(eng, rank, conf, reqs, dict(opts, tag=name), tmpdir)
+    return out

@@ -351,12 +351,36 @@ Phases, in order; any failure raises and the script exits non-zero:
      half of (a)'s at tp 2; the paged kernels' launches per rank exact;
      12 handoffs; TPOT per rank, handoff bytes and mean ms, and the comms
      logger's calls with their measured latency.
-  8  (last, after 29) the script's total seconds, then one JSON line of per-kernel numbers, every kernel and
+  29c the fleet over placements (serving/fleet.py over serving.placement
+     windows): the single-engine reference (gpt2 124M fp32, no placement)
+     on the card, then four processes sharing the card over gloo
+     (`chip_smoke.py --phase29c-rank`) run a FleetRouter of 2 replicas x
+     placement {tp: 2} (windows ranks [0, 2) and [2, 4), 6 of 12 KV heads a
+     rank) under a ReplayClock: 8 requests routed to r0 by affinity, 4
+     rounds, r0 preempted and its live sessions migrated to r1 (every KV
+     head gathered from r0's window, re-sharded over r1's): every rank's
+     streams token-identical to the reference with 0 ties, paged decode
+     launches on every rank, each migration's ms.
+  30 the decoder at the Mistral-7B v0.1 shape (vocab 32000, E 4096, H 32,
+     KV 8, D 128, F 14336 SwiGLU, RMSNorm, rope theta 10000, sliding
+     window 4096, untied head; PHASE30_LAYERS of its 32 layers), bf16
+     weights drawn on the card from a seeded generator: row 1 at B1 S8192
+     with the window biting and GQA, and row 6 at H32 KV8 D128 over a
+     544-row cache, each against its plain version and timed beside it,
+     SDPA and the bound; then init_inference(DecoderConfig, params): a
+     full-sequence forward at B1 S8192 (flash launches = 3 x layers) and
+     greedy generate of 32 tokens from a 512-token prompt (decode launches
+     = 3 x 31 x layers), forward ms and decode tokens/s; the forward's next
+     token against generate's first (or a bf16 tie); when transformers
+     imports, a tiny random LLaMA injected at fp32 against HF's logits and
+     greedy stream (else one line saying that step did not run and why).
+  8  (last, after 30) the script's total seconds, then one JSON line of per-kernel numbers, every kernel and
      mode with its launches on the path that ported it (the block-sparse
      kernels: phase 11's, and the three at blocks 16/32 at BERT's shape
      with phase 12's; fused AdamW: phase 6's; fused LAMB: phase 15's;
      the threefry dropout: phase 17's; uniform_rows: phase 20's bf16
-     serving), then the last line {"ok": true, "device": {...}} with
+     serving; rows 1 and 6 again at the decoder's shapes with phase 30's
+     launches), then the last line {"ok": true, "device": {...}} with
      "count": 1, the cards the run used.
 
 Without a CUDA device it exits 1 before printing any result. It imports
@@ -3706,8 +3730,9 @@ def phase29_serve(eng, section, vocab, comms=False):
     """One served run of ``section`` with margins, the paged kernels'
     counts at 0 just before and read just after → a JSON-able record.
     ``comms``: the comms logger on for the run, then each recorded op's
-    latency measured at its size on its group (``measure``: host tensors
-    on gloo, so the host copies of a CUDA tensor are not in it)."""
+    latency measured at its size on its group (``measure``: on the device
+    its tensors lay on, so a CUDA tensor handed to gloo is timed with its
+    host staging, as the run paid it)."""
     from deepspeed_tpu_torch import comm
 
     srv = eng.serve(section, track_margins=True)
@@ -3906,7 +3931,7 @@ def placement_phase(smi):
                   f" ms, TTFT p50 {x['ttft_p50_s'] * 1e3:.2f} ms (exact), decode steps "
                   f"{x['stats']['decode_steps']}, wall {x['wall_s']:.3f} s ({smi})")
         print("  collectives of the run on rank 0 (op axis: calls, bytes, measured ms a call "
-              "on host tensors): " + ", ".join(
+              "on the recorded tensors' device): " + ", ".join(
                   f"{k}: {v['count']}, {v['bytes']}, "
                   + (f"{v['ms']:.4f}" if v["ms"] is not None else "not measured")
                   for k, v in a[key]["comms"].items()))
@@ -3914,6 +3939,385 @@ def placement_phase(smi):
             print(f"  handoffs {st['kv_handoffs']}, {st['kv_handoff_bytes']} bytes (logical), "
                   f"mean {st['kv_handoff_latency_mean_s'] * 1e3:.3f} ms a handoff ({smi})")
     print(f"phase 29: {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 29c: the fleet over placements
+# ---------------------------------------------------------------------------
+
+# 2 replicas x placement {tp: 2} of gpt2 (124M) at fp32 (a tp-2 all-reduce
+# sums in another order; fp32 keeps greedy streams clear of bf16 ties)
+PHASE29C_SECTION = {"max_slots": 4, "page_size": 16, "num_pages": 128, "max_prompt_len": 128,
+                    "max_new_tokens": 32}
+PHASE29C_FLEET = {"fleet": {"enabled": True, "replicas": 2}, "placement": {"tp": 2}}
+PHASE29C_STEPS = 4  # rounds before replica r0 is preempted
+
+
+def phase29c_requests(vocab):
+    """8 requests, prompts of 16-112 tokens, 24 new tokens each."""
+    rs = np.random.RandomState(2929)
+    return [(rs.randint(0, vocab, (n,)).astype(np.int32), 24)
+            for n in (16, 40, 64, 112, 24, 88, 56, 32)]
+
+
+def phase29c_rank(rank: int, world: int, port: int, out_dir: str) -> None:
+    """One of phase 29c's four ranks (``chip_smoke.py --phase29c-rank``): a
+    gloo process group on the shared card, gpt2 fp32 from seed 0, a
+    ``FleetRouter`` of two tp-2 replicas (windows ranks [0, 2) and [2, 4))
+    under a ``ReplayClock``; the requests, ``PHASE29C_STEPS`` rounds, r0
+    preempted (its live sessions migrate to r1, each timed), rounds to the
+    end; the record to ``out_dir/rank{rank}.json``."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.serving import FleetRouter, ReplayClock
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(1)
+    comm.init_distributed(dist_backend="gloo", init_method=f"tcp://127.0.0.1:{port}",
+                          rank=rank, world_size=world, verbose=False)
+    cfg = gpt2.get_config(PHASE29_MODEL)
+    eng = dtt.init_inference(cfg, dtype=torch.float32, seed=0)
+    clock = ReplayClock()
+    fleet = FleetRouter(eng, dict(PHASE29C_SECTION, **PHASE29C_FLEET), clock=clock)
+    mig_ms = []
+    migrate = fleet._migrate_session
+
+    def timed_migration(*a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ok = migrate(*a)
+        torch.cuda.synchronize()
+        mig_ms.append((time.perf_counter() - t0) * 1e3)
+        return ok
+
+    fleet._migrate_session = timed_migration
+    reqs = phase29c_requests(cfg.vocab_size)
+    for k in (K_PAGED, K_MT):
+        LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    subs = [fleet.submit(p, max_new_tokens=n, seed=i) for i, (p, n) in enumerate(reqs)]
+    for _ in range(PHASE29C_STEPS):
+        fleet.step()
+        clock.advance(0.01)
+    live = sum(1 for s in fleet.replica("r0").srv.slots
+               if s.request is not None and not s.prefilling and s.request.tokens)
+    fleet.preempt("r0")
+    while not (fleet._idle() and not fleet._pending_preemption()):
+        fleet.step()
+        clock.advance(0.01)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = fleet.stats()["fleet"]
+    out = {"tokens": [list(map(int, r.tokens)) for r in subs],
+           "status": [r.status for r in subs], "replicas": [r.replica for r in subs],
+           "live_at_preempt": live, "migration_ms": mig_ms, "wall_s": wall,
+           "launches": {k: LAUNCHES[k] for k in (K_PAGED, K_MT)},
+           "windows": [r.srv.decode_placement.ranks for r in fleet.replicas],
+           "heads": [int(r.srv.k_pool.shape[2]) for r in fleet.replicas],
+           "fleet": {k: st[k] for k in ("migrations_ok", "migrations_crc_failed",
+                                        "migrations_no_capacity", "migration_bytes", "requeues")}}
+    fleet.drain()
+    fleet.check_no_leaks()
+    fleet.close()
+    comm.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def fleet_placement_phase(smi):
+    """Phase 29c: the single-engine reference on the card (gpt2 fp32, no
+    placement), then four processes sharing the card over gloo run the
+    fleet of two tp-2 replicas with r0's live sessions migrated to r1:
+    every rank's streams token-identical to the reference with 0 ties."""
+    t_phase = time.perf_counter()
+    cfg = gpt2.get_config(PHASE29_MODEL)
+    eng = dtt.init_inference(cfg, dtype=torch.float32, seed=0)
+    srv = eng.serve(dict(PHASE29C_SECTION), track_margins=True)
+    reqs = phase29c_requests(cfg.vocab_size)
+    ref = [srv.submit(p, max_new_tokens=n, seed=i) for i, (p, n) in enumerate(reqs)]
+    srv.run()
+    srv.drain()
+    srv.check_no_leaks()
+    del srv, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    world = 4
+    with tempfile.TemporaryDirectory() as d:
+        port = free_port()
+        logs = [open(os.path.join(d, f"log{r}.txt"), "w") for r in range(world)]
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--phase29c-rank",
+                                   str(r), str(world), str(port), d], stdout=logs[r],
+                                  stderr=logs[r]) for r in range(world)]
+        try:
+            for p in procs:
+                p.wait(timeout=300)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.close()
+        for r, p in enumerate(procs):
+            if p.returncode != 0:
+                print(open(os.path.join(d, f"log{r}.txt")).read()[-6000:])
+            check(p.returncode == 0, f"29c: rank {r} exited {p.returncode}")
+        got = [json.load(open(os.path.join(d, f"rank{r}.json"))) for r in range(world)]
+    ref_tokens = [list(map(int, r.tokens)) for r in ref]
+    for r, rec in enumerate(got):
+        check(rec["windows"] == [[0, 1], [2, 3]], f"29c rank {r}: windows {rec['windows']}")
+        check(rec["heads"] == [6 if i == r // 2 else 0 for i in range(2)],
+              f"29c rank {r}: pool heads {rec['heads']}")
+        check(rec["live_at_preempt"] >= 1 and rec["fleet"]["migrations_ok"] >= 1
+              and rec["fleet"]["migrations_crc_failed"] == 0,
+              f"29c rank {r}: live {rec['live_at_preempt']}, {rec['fleet']}")
+        check(all(s == RequestStatus.FINISHED for s in rec["status"]),
+              f"29c rank {r}: statuses {rec['status']}")
+        check(rec["launches"][K_PAGED] > 0, f"29c rank {r}: paged decode launches "
+                                            f"{rec['launches']}")
+        diff = [i for i, (a, b) in enumerate(zip(ref_tokens, rec["tokens"])) if a != b]
+        check(not diff, f"29c rank {r}: streams {diff} differ from the single engine's (0 ties "
+                        "allowed)")
+    a = got[0]
+    print(f"29c: 4 ranks, windows {a['windows']} (6 of 12 KV heads a rank), {len(reqs)} "
+          f"requests routed to r0 by affinity, {a['live_at_preempt']} live at r0's preemption; "
+          f"migrations ok {a['fleet']['migrations_ok']}, bytes {a['fleet']['migration_bytes']}, "
+          f"requeues {a['fleet']['requeues']}; every rank's streams token-identical to the "
+          f"single engine's, 0 ties; replicas {a['replicas']}")
+    for r, rec in enumerate(got):
+        ms = rec["migration_ms"]
+        print(f"  rank {r}: paged decode launches {rec['launches'][K_PAGED]}, migration ms "
+              f"{', '.join(f'{x:.2f}' for x in ms)} (mean {statistics.mean(ms):.2f}), fleet wall "
+              f"{rec['wall_s']:.3f} s ({smi})")
+    print(f"phase 29c: {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 30: the decoder family at full width
+# ---------------------------------------------------------------------------
+
+# Mistral-7B v0.1's published config.json: vocab 32000, hidden 4096, 32
+# heads, 8 KV heads, intermediate 14336 (SwiGLU), RMSNorm eps 1e-5, rope
+# theta 10000, sliding window 4096, untied head; 32 layers
+MISTRAL_7B = dict(vocab_size=32000, n_positions=32768, n_embd=4096, n_layer=32, n_head=32,
+                  ffn_dim=14336, layer_norm_epsilon=1e-5, pos_emb="rope", rope_style="neox",
+                  rope_theta=10000.0, norm="rmsnorm", mlp_type="swiglu", n_kv_head=8,
+                  tie_embeddings=False)
+PHASE30_LAYERS = 32
+PHASE30_WINDOW = 4096
+PHASE30_SEQ = 8192  # the full-sequence forward: the window bites
+PHASE30_PROMPT, PHASE30_NEW = 512, 32
+
+
+def mistral_params(cfg, seed=0, dtype=torch.bfloat16):
+    """Random weights of ``cfg`` drawn on the card from a seeded
+    ``torch.Generator`` in ``dtype``: normal(0, 0.02) matrices, unit norm
+    scales."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    L, E, F_, KVD = cfg.n_layer, cfg.n_embd, cfg.ffn_dim, cfg.kv_heads * cfg.head_dim
+
+    def nrm(*shape):
+        return torch.randn(shape, generator=g, device="cuda", dtype=dtype).mul_(0.02)
+
+    def ones(*shape):
+        return torch.ones(shape, device="cuda", dtype=dtype)
+
+    return {"wte": nrm(cfg.vocab_size, E), "lm_head_w": nrm(E, cfg.vocab_size),
+            "ln_f": {"scale": ones(E)},
+            "blocks": {"ln_1": {"scale": ones(L, E)}, "ln_2": {"scale": ones(L, E)},
+                       "attn": {"wq": nrm(L, E, E), "wk": nrm(L, E, KVD), "wv": nrm(L, E, KVD),
+                                "wo": nrm(L, E, E)},
+                       "mlp": {"fc_gate_w": nrm(L, E, F_), "fc_in_w": nrm(L, E, F_),
+                               "fc_out_w": nrm(L, F_, E)}}}
+
+
+def phase30_flash(window):
+    """Row 1 at phase 30's forward shape (B1 S8192 H32 KV8 D128 bf16, the
+    window): the kernel against its plain version, timed beside the plain
+    version, SDPA with the band as a mask and the bound. The plain version
+    runs a KV group (4 query heads) at a time, which bounds its [S, S]
+    scores' memory: the same function, 8 calls."""
+    q, k, v, _ = flash_case(1, PHASE30_SEQ, 32, 8, 128, torch.bfloat16, seed=300)
+    o, lse = fa.flash_attention_fwd(q, k, v, True, None, window)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(o).all()), "30: flash output not finite")
+    err, scaled, rep = 0.0, 0.0, 4
+    for g in range(8):
+        o_r, lse_r = fa.flash_attention_fwd_ref(q[:, :, g * rep:(g + 1) * rep], k[:, :, g:g + 1],
+                                                v[:, :, g:g + 1], True, None, window)
+        got = o[:, :, g * rep:(g + 1) * rep]
+        err = max(err, float((got.float() - o_r.float()).abs().max()),
+                  float((lse[:, g * rep:(g + 1) * rep] - lse_r).abs().max()))
+        scaled = max(scaled, scaled_error(got, o_r))
+        del o_r, lse_r
+    torch.cuda.empty_cache()
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    i = torch.arange(PHASE30_SEQ, device="cuda")
+    band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+    ms, _ = time_ms(lambda _: fa.flash_attention_fwd(q, k, v, True, None, window), 20, warmup=3)
+
+    def plain(_):  # the plain version over the 8 KV groups, one after another
+        for g in range(8):
+            fa.flash_attention_fwd_ref(q[:, :, g * rep:(g + 1) * rep], k[:, :, g:g + 1],
+                                       v[:, :, g:g + 1], True, None, window)
+
+    plain_ms, _ = time_ms(plain, 2, warmup=1)
+    lib_ms, _ = time_ms(lambda _: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band,
+                                                                 enable_gqa=True), 5, warmup=2)
+    bnd, by = flash_bound(q, k, True, window, backward=False)
+    del q, k, v, o, lse, qt, kt, vt, band
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, scaled=scaled, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bnd, bound_by=by)
+
+
+def phase30_decode():
+    """Row 6 at phase 30's decode shape (B1, a 544-row cache, H32 KV8 D128
+    bf16, a layer's slice of a 32-layer cache): the kernel against its
+    plain version at the first and last decode positions, timed over the
+    layers at pos 543 beside the plain version, SDPA and the bound."""
+    S = PHASE30_PROMPT + PHASE30_NEW
+    L = PHASE30_LAYERS
+    q, k, v = decode_case(1, S, 32, 8, 128, torch.bfloat16, layers=L, seed=301)
+    errs = [decode_error(q, k[0], v[0], p) for p in (PHASE30_PROMPT, S - 1)]
+    err, rel = max(e for e, _ in errs), max(r for _, r in errs)
+    pos = S - 1
+    dpos = device_pos(pos)
+    ms, _ = time_ms(lambda i: tda.decode_attention(q, k[i % L], v[i % L], dpos), 320)
+    plain_ms, _ = time_ms(lambda i: tda.decode_attention_ref(q, k[i % L], v[i % L], pos), 32)
+    lib_ms, _ = time_ms(lambda i: library_decode(q, k[i % L], v[i % L], pos), 64)
+    bnd, by = decode_bound(q, k[0], pos)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, scaled=rel, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bnd, bound_by=by)
+
+
+def phase30_llama_injection(smi):
+    """A tiny random LLaMA (GQA, 2 layers, D64) from its transformers
+    config class, injected on the card at fp32 through
+    ``init_inference(model=...)``: logits within 5e-3 of HF's on the CPU
+    (the plain route) and HF's greedy stream."""
+    try:
+        import transformers
+    except ImportError as e:
+        print(f"30: the HF injection step did not run: transformers does not import here ({e})")
+        return
+    torch.manual_seed(0)
+    hf = transformers.LlamaForCausalLM(transformers.LlamaConfig(
+        hidden_size=256, num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+        intermediate_size=512, vocab_size=512, max_position_embeddings=256,
+        tie_word_embeddings=False)).eval()
+    eng = dtt.init_inference(model=hf, dtype=torch.float32)
+    ids = np.random.RandomState(30).randint(0, 512, (1, 48))
+    with torch.no_grad():
+        ref = hf(torch.tensor(ids)).logits.numpy()
+        ref_gen = hf.generate(torch.tensor(ids), max_new_tokens=8, do_sample=False,
+                              pad_token_id=0).numpy()
+    reset(fa.KERNELS + tda.KERNELS)
+    got = eng({"input_ids": ids}).cpu().numpy()
+    gen = eng.generate(ids, max_new_tokens=8)
+    lc = counts(fa.KERNELS + tda.KERNELS)
+    err = float(np.abs(got - ref).max())
+    check(err < 5e-3, f"30: injected LLaMA logits {err} from HF's")
+    check(np.array_equal(gen, ref_gen), "30: injected LLaMA's greedy stream differs from HF's")
+    check(lc["flash_attention_fwd"] > 0 and lc["decode_attention"] > 0,
+          f"30: injected LLaMA launches {lc}")
+    print(f"30: HF LlamaForCausalLM (transformers {transformers.__version__}) injected on the card "
+          f"at fp32: logits max abs err {err:.3e} against HF on the CPU (tolerance 5e-3), greedy "
+          f"stream equal to HF's; launches {lc} ({smi})")
+
+
+def decoder_phase(smi):
+    """Phase 30: rows 1 and 6 against their plain versions at the
+    Mistral-7B shapes; then the decoder at Mistral-7B v0.1's width through
+    ``init_inference(DecoderConfig, params)``: a full-sequence forward at
+    B1 S8192 (the flash kernel with the 4096 window biting, GQA 32/8) and
+    greedy ``generate`` of 32 tokens from a 512-token prompt (the decode
+    kernel at H32 KV8 D128), the kernels' counts at 0 just before each and
+    read just after; the HF injection step when transformers imports."""
+    from deepspeed_tpu_torch.models import decoder
+
+    t_phase = time.perf_counter()
+    flash30 = phase30_flash(PHASE30_WINDOW)
+    check(flash30["max_abs_err"] <= FLASH_TOL[torch.bfloat16]
+          and flash30["scaled"] <= FLASH_REL_TOL[torch.bfloat16],
+          f"30: flash against its plain version {flash30}")
+    dec30 = phase30_decode()
+    check(dec30["max_abs_err"] <= TOL[torch.bfloat16] and dec30["scaled"] <= REL_TOL[torch.bfloat16],
+          f"30: decode kernel against its plain version {dec30}")
+    for name, r in (("flash_attention_fwd B1 S8192 H32 KV8 D128 window 4096", flash30),
+                    ("decode_attention B1 S544 pos 543 H32 KV8 D128", dec30)):
+        print(f"30 {name} bf16: max abs err {r['max_abs_err']:.3e}; device ms per call: kernel "
+              f"{r['ms']:.4f}, plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f}, bound "
+              f"{r['bound_ms']:.5f} ({r['bound_by']}), kernel at {r['bound_ms'] / r['ms']:.3f} "
+              f"of bound ({smi})")
+    cfg = decoder.DecoderConfig(**dict(MISTRAL_7B, n_layer=PHASE30_LAYERS,
+                                       local_windows=(PHASE30_WINDOW,) * PHASE30_LAYERS))
+    params = mistral_params(cfg)
+    nparams = sum(t.numel() for t in tree_leaves(params))
+    eng = dtt.init_inference(cfg, params=params, dtype=torch.bfloat16)
+    print(f"30: the Mistral-7B v0.1 shape at {cfg.n_layer} of its 32 layers, {nparams / 1e9:.3f}B "
+          f"parameters, bf16 weights drawn on the card from seed 0")
+    rs = np.random.RandomState(30)
+    ids = rs.randint(0, cfg.vocab_size, (1, PHASE30_SEQ))
+    reset(fa.KERNELS + tda.KERNELS)
+    fwd_times = []
+    for _ in range(3):  # eager, capture, replay
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = eng({"input_ids": ids})
+        torch.cuda.synchronize()
+        fwd_times.append((time.perf_counter() - t0) * 1e3)
+    fwd_launches = counts(fa.KERNELS)["flash_attention_fwd"]
+    check(tuple(logits.shape) == (1, PHASE30_SEQ, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), "30: forward logits shape or values")
+    check(fwd_launches == 3 * cfg.n_layer, f"30: flash launches {fwd_launches} for 3 forwards")
+    del logits
+    torch.cuda.empty_cache()
+    prompt = ids[:, :PHASE30_PROMPT]
+    reset(fa.KERNELS + tda.KERNELS)
+    gen_times = []
+    for _ in range(3):  # eager, captured, replayed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.generate(prompt, max_new_tokens=PHASE30_NEW)
+        gen_times.append(time.perf_counter() - t0)
+    gen30 = counts(tda.KERNELS)["decode_attention"]
+    check(gen30 == 3 * (PHASE30_NEW - 1) * cfg.n_layer
+          and counts(fa.KERNELS)["flash_attention_fwd"] == 0,
+          f"30: generate launches decode {gen30}, flash {counts(fa.KERNELS)}")
+    new = out[:, PHASE30_PROMPT:]
+    check(out.shape == (1, PHASE30_PROMPT + PHASE30_NEW) and (new >= 0).all()
+          and (new < cfg.vocab_size).all(), "30: generated tokens")
+    # the prompt's last logits two ways: the forward's flash route (the
+    # window inert at 512) and generate's prefill (the plain route): the
+    # first token agrees unless the top-2 margin is a bf16 tie
+    last = eng({"input_ids": prompt})[0, -1].float()
+    top2 = torch.topk(last, 2).values
+    margin = float(top2[0] - top2[1])
+    check(int(last.argmax()) == int(new[0, 0]) or margin < BF16_TIE_MARGIN,
+          f"30: the forward's next token {int(last.argmax())} != generate's {int(new[0, 0])} "
+          f"(margin {margin})")
+    fwd_ms = statistics.mean(fwd_times[2:])
+    print(f"30: forward B1 S{PHASE30_SEQ} (flash, window {PHASE30_WINDOW} biting, GQA 32/8): "
+          f"ms {', '.join(f'{t:.1f}' for t in fwd_times)} (eager, capture, replay), "
+          f"{PHASE30_SEQ / fwd_ms * 1e3:.0f} tokens/s on the replay; flash launches "
+          f"{fwd_launches} (= 3 x {cfg.n_layer}) ({smi})")
+    print(f"30: generate {PHASE30_NEW} tokens from a {PHASE30_PROMPT}-token prompt: "
+          f"{', '.join(f'{t:.3f}' for t in gen_times)} s (eager, capture, replay), "
+          f"{PHASE30_NEW / gen_times[-1]:.1f} tokens/s replayed (prefill included), decode "
+          f"launches {gen30} (= 3 x {PHASE30_NEW - 1} x {cfg.n_layer}); the forward's next "
+          f"token {'equals' if int(last.argmax()) == int(new[0, 0]) else 'ties'} generate's "
+          f"(margin {margin:.3f}) ({smi})")
+    del eng, params, out, last
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase30_llama_injection(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 30: {time.perf_counter() - t_phase:.1f} s")
+    return (dict(flash30, launches=fwd_launches), dict(dec30, launches=gen30))
 
 
 def main() -> int:
@@ -5153,6 +5557,19 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    phase("29c", "the fleet over placements: 2 replicas x placement {tp: 2} of gpt2 fp32 in 4 "
+                 "processes sharing the card over gloo, r0's live sessions migrated to r1 "
+                 "(the slice's path)")
+    fleet_placement_phase(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase(30, "the decoder at Mistral-7B v0.1's width: a forward at S8192 with the sliding "
+              "window and greedy generate, GQA 32/8 (the slice's path)")
+    flash30, dec30 = decoder_phase(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     phase(8, "summary")
     print(f"chip_smoke.py total {time.perf_counter() - t_script:.1f} s (builds included; {smi})")
     # launches: each kernel's (and mode's) count on the path of the slice
@@ -5246,6 +5663,19 @@ def main() -> int:
         "bound_by": bwd_by,
         "library_ms": lib_bwd_ms,
     }] + [{
+        # the decoder's shapes (phase 30): row 1 with GQA 32/8 and the
+        # 4096 window at S8192, row 6 at H32 KV8 D128, with phase 30's launches
+        "name": name,
+        "route": "cuda",
+        "source": f"deepspeed_tpu_torch/csrc/{src}.cu",
+        "replaces": replaces,
+        **{f: r[f] for f in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms")},
+    } for name, src, replaces, r in (
+        ("flash_attention_fwd (decoder GQA 32/8 D128, window 4096)", "flash_attention_fwd",
+         "deepspeed_tpu/ops/pallas/flash_attention.py:262", flash30),
+        ("decode_attention (decoder GQA 32/8 D128)", "decode_attention",
+         "deepspeed_tpu/ops/pallas/decode_attention.py:97", dec30))] + [{
         "name": f"block_sparse_attention_{which}",
         "route": "cuda",
         "source": f"deepspeed_tpu_torch/csrc/block_sparse_attention_{src}.cu",
@@ -5305,5 +5735,9 @@ if __name__ == "__main__":
     if len(sys.argv) > 1 and sys.argv[1] == "--phase29-rank":
         # one of phase 29b's two ranks, started by placement_phase
         phase29_rank(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5])
+        sys.exit(0)
+    if len(sys.argv) > 1 and sys.argv[1] == "--phase29c-rank":
+        # one of phase 29c's four ranks, started by fleet_placement_phase
+        phase29c_rank(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5])
         sys.exit(0)
     sys.exit(main())

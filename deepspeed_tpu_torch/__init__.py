@@ -1,7 +1,10 @@
 """deepspeed_tpu_torch: the PyTorch/CUDA port of deepspeed_tpu.
 
 A second package beside the JAX one, for NVIDIA Hopper (H100). What is
-ported so far: GPT-2 continuous-batching serving on one card (the paged KV
+ported so far: inference for GPT-2, the decoder family (OPT, BLOOM, GPT-J,
+GPT-Neo, NeoX, LLaMA, Mistral) and BERT, from configs with weights, HF
+modules (the injection policies) or streamed checkpoint directories;
+GPT-2 continuous-batching serving (the paged KV
 pool, the scheduler and the serving programs, with speculation, the prefix
 cache, chunked prefill and int8 KV pages), offline GPT-2 generation over a
 contiguous KV cache, weight-only int8 inference (``dtype="int8"``), and
@@ -32,6 +35,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 from .inference.engine import InferenceEngine
 from .models.bert import BertConfig
+from .models.decoder import DecoderConfig
 from .models.gpt2 import GPT2Config, get_config
 from .runtime.config import (
     DeepSpeedConfig,
@@ -43,20 +47,29 @@ from .runtime.engine import DeepSpeedEngine
 from .runtime.module import ModuleSpec
 
 
-def init_inference(model_config: Union[GPT2Config, str] = "gpt2",
+def init_inference(model_config: Union[GPT2Config, DecoderConfig, BertConfig, str, Any] = "gpt2",
                    params=None, dtype=None, device=None, seed: int = 0,
                    config: Optional[Dict] = None, quantize_bits: Optional[int] = None,
-                   quantize_groups: Optional[int] = None) -> InferenceEngine:
+                   quantize_groups: Optional[int] = None, model: Any = None,
+                   injection_policy: Optional[type] = None,
+                   checkpoint: Optional[str] = None) -> InferenceEngine:
     """Build an :class:`InferenceEngine` (counterpart of
-    ``deepspeed_tpu.init_inference``): GPT-2 weights from ``params`` (a
-    nested dict of tensors in the JAX package's layout) or the seeded
-    initialiser, cast to ``dtype`` (bf16 by default) on ``device``
-    (default the CUDA card; raises when there is none). ``dtype="int8"``
-    (or ``quantization_setting`` in ``config``, or ``quantize_bits=8``)
-    serves weight-only int8: codes and per-group scales, bf16 compute."""
+    ``deepspeed_tpu.init_inference``) from one source: a ``GPT2Config``
+    (or preset name), ``DecoderConfig`` or ``BertConfig`` with ``params``
+    (a nested dict of tensors or numpy arrays in the JAX package's layout;
+    GPT-2 and BERT draw from the seeded initialiser without it); an HF
+    torch module (``model=``, or as the first argument) converted through
+    its injection policy (``injection_policy`` picks one); or an HF
+    checkpoint directory (``checkpoint=``) streamed layer by layer. The
+    weights are cast to ``dtype`` (bf16 by default) on ``device`` (default
+    the CUDA card; raises when there is none). ``dtype="int8"`` (or
+    ``quantization_setting`` in ``config``, or ``quantize_bits=8``) serves
+    weight-only int8: codes and per-group scales, bf16 compute."""
     return InferenceEngine(model_config, params=params, dtype=dtype,
                            device=device, seed=seed, config=config,
-                           quantize_bits=quantize_bits, quantize_groups=quantize_groups)
+                           quantize_bits=quantize_bits, quantize_groups=quantize_groups,
+                           model=model, injection_policy=injection_policy,
+                           checkpoint=checkpoint)
 
 
 def initialize(model: Optional[ModuleSpec] = None, optimizer: Any = None,
@@ -89,6 +102,7 @@ def initialize(model: Optional[ModuleSpec] = None, optimizer: Any = None,
     return engine, engine.optimizer, engine.training_dataloader, engine.lr_schedule
 
 
-__all__ = ["BertConfig", "DeepSpeedConfig", "DeepSpeedConfigError", "DeepSpeedEngine",
+__all__ = ["BertConfig", "DecoderConfig", "DeepSpeedConfig", "DeepSpeedConfigError",
+           "DeepSpeedEngine",
            "GPT2Config", "InferenceEngine", "ModuleSpec", "NotPortedError",
            "SparseAttentionConfig", "get_config", "init_inference", "initialize"]

@@ -69,21 +69,26 @@ class CommsLogger:
             self.debug = debug
 
     def append(self, op_name: str, axis, nbytes: int, wire_bytes: Optional[int] = None,
-               world: Optional[int] = None):
+               world: Optional[int] = None, device: Optional[str] = None):
         """Record one collective: ``nbytes`` is the logical payload,
         ``wire_bytes`` the on-wire volume (``nbytes`` unless a compressed
-        layer shrank it), ``world`` the group's size."""
+        layer shrank it), ``world`` the group's size, ``device`` the type of
+        the device its tensor lay on (``"cuda"`` or ``"cpu"``), which
+        :meth:`measure` times on."""
         if not self.enabled:
             return
         key = (op_name, str(axis))
         rec = self.comms_dict.setdefault(
-            key, {"count": 0, "bytes": 0, "wire_bytes": 0, "time_ms": None, "world": None}
+            key, {"count": 0, "bytes": 0, "wire_bytes": 0, "time_ms": None, "world": None,
+                  "device": None}
         )
         rec["count"] += 1
         rec["bytes"] += nbytes
         rec["wire_bytes"] += wire_bytes if wire_bytes is not None else nbytes
         if rec["world"] is None and world is not None:
             rec["world"] = int(world)
+        if rec["device"] is None and device is not None:
+            rec["device"] = str(device)
         if self.verbose:
             log_dist(f"comm op: {op_name} | axis: {axis} | bytes: {nbytes}")
 
@@ -105,17 +110,32 @@ class CommsLogger:
         """Fill the measured latency of every recorded ``(op, axis)`` by
         running that collective ``iters`` times at the recorded per-call
         size on the axis's group (``groups``: axis name → process group;
-        ``"world"`` is the default group) and timing it: CUDA events on the
-        card, the wall clock on the CPU. The measurement records nothing."""
+        ``"world"`` is the default group) and timing it. It runs on the
+        device the recorded tensors lay on (``device`` overrides), so a
+        CUDA tensor handed to gloo is timed with gloo's host staging, as
+        the program ran it: CUDA events on an NCCL group, the wall clock
+        around a synchronised run otherwise. ``send_recv`` is timed as a
+        ring (each rank sends to the next and receives from the one
+        before); a group of one rank has no peer and leaves it unmeasured.
+        Collective over each group: its ranks first agree on the rows any
+        of them recorded (a ``send_recv`` is recorded by its sender only)
+        and each row's largest per-call size, then every rank runs every
+        row. The measurement records nothing."""
         from . import torch as _t
 
         groups = dict(groups or {})
         groups.setdefault("world", None)
-        dev = torch.device(device if device is not None else
-                           ("cuda" if dist.get_backend() == "nccl" else "cpu"))
+        default = "cuda" if dist.get_backend() == "nccl" else "cpu"
 
         def _a2a(x, g):
             return _t.all_to_all(x, g, split_dim=0, concat_dim=0)
+
+        def _ring(x, g):
+            ranks = dist.get_process_group_ranks(g) if g is not None else list(
+                range(dist.get_world_size()))
+            i = ranks.index(dist.get_rank())
+            _t.send_recv([(x, ranks[(i + 1) % len(ranks)])],
+                         [(torch.empty_like(x), ranks[i - 1])], g)
 
         fns = {
             "all_reduce": lambda x, g: _t.all_reduce(x, g),
@@ -124,35 +144,53 @@ class CommsLogger:
             "all_to_all": _a2a,
             "broadcast": lambda x, g: _t.broadcast(x, g),
             "ppermute": lambda x, g: _t.ring_shift(x, g),
+            "send_recv": _ring,
         }
         prev_enabled, self.enabled = self.enabled, False
         try:
-            for (op, axis), rec in sorted(self.comms_dict.items()):
-                fn = fns.get(op)
-                if fn is None or axis not in groups:
-                    continue
+            for axis in sorted(groups):
                 g = groups[axis]
                 n = dist.get_world_size(g)
-                per_call = max(4, (rec.get("wire_bytes") or rec["bytes"]) // max(1, rec["count"]))
-                nelem = -(-max(1, per_call // 4) // n) * n  # divisible by the group
-                x = torch.zeros((nelem,), dtype=torch.float32, device=dev)
-                fn(x, g)  # warm-up (the communicator's first use)
-                if dev.type == "cuda":
-                    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
-                        enable_timing=True)
-                    t0.record()
-                    for _ in range(iters):
-                        fn(x, g)
-                    t1.record()
-                    t1.synchronize()
-                    ms = t0.elapsed_time(t1) / iters
-                else:
-                    t = time.perf_counter()
-                    for _ in range(iters):
-                        fn(x, g)
-                    ms = (time.perf_counter() - t) / iters * 1e3
-                rec["time_ms"] = ms
-                rec["world"] = n
+                mine = {op: max(4, (rec.get("wire_bytes") or rec["bytes"])
+                                // max(1, rec["count"]))
+                        for (op, ax), rec in self.comms_dict.items() if ax == axis and op in fns}
+                every = [None] * n
+                dist.all_gather_object(every, mine, group=g)
+                rows: Dict[str, int] = {}
+                for d in every:
+                    for op, per_call in d.items():
+                        rows[op] = max(rows.get(op, 0), per_call)
+                for op in sorted(rows):
+                    if op == "send_recv" and n < 2:
+                        continue
+                    rec = self.comms_dict.get((op, axis))
+                    dev = torch.device(device if device is not None else
+                                       ((rec or {}).get("device") or default))
+                    nelem = -(-max(1, rows[op] // 4) // n) * n  # divisible by the group
+                    x = torch.zeros((nelem,), dtype=torch.float32, device=dev)
+                    fn = fns[op]
+                    fn(x, g)  # warm-up (the communicator's first use)
+                    if dev.type == "cuda" and dist.get_backend(g) == "nccl":
+                        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                            enable_timing=True)
+                        t0.record()
+                        for _ in range(iters):
+                            fn(x, g)
+                        t1.record()
+                        t1.synchronize()
+                        ms = t0.elapsed_time(t1) / iters
+                    else:
+                        if dev.type == "cuda":
+                            torch.cuda.synchronize(dev)
+                        t = time.perf_counter()
+                        for _ in range(iters):
+                            fn(x, g)
+                        if dev.type == "cuda":
+                            torch.cuda.synchronize(dev)
+                        ms = (time.perf_counter() - t) / iters * 1e3
+                    if rec is not None:
+                        rec["time_ms"] = ms
+                        rec["world"] = n
         finally:
             self.enabled = prev_enabled
 
@@ -241,7 +279,8 @@ def record(op_name: str, axis, tensor, world: Optional[int] = None) -> None:
         nbytes = int(tensor.numel()) * tensor.element_size()
     except AttributeError:
         nbytes = 0
-    comms_logger.append(op_name, axis, nbytes, world=world)
+    device = getattr(getattr(tensor, "device", None), "type", None)
+    comms_logger.append(op_name, axis, nbytes, world=world, device=device)
 
 
 def log_summary():

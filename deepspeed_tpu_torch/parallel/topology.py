@@ -13,7 +13,7 @@ Canonical axis names (any subset may be present, sizes default to 1):
 ``pp`` pipeline stages, ``dp`` data parallel (ZeRO shards over it), ``tp``
 tensor parallel, ``ep`` expert parallel, ``sp`` sequence parallel. Only
 ``dp`` may exceed 1 here: the others raise :class:`NotPortedError`
-(ROADMAP queue 1 items 11 and 12).
+(ROADMAP queue 1 items 11b for tp, 12b pp, 12c sp, 12d ep).
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ from ..runtime.config import NotPortedError
 CANONICAL_AXIS_ORDER = ("pp", "dp", "ep", "sp", "tp")
 
 # the ROADMAP queue 1 item that ports each axis beyond size 1
-_AXIS_ITEMS = {"tp": 11, "pp": 12, "ep": 12, "sp": 12}
+_AXIS_ITEMS = {"tp": "11b", "pp": "12b", "sp": "12c", "ep": "12d"}
 
 
 class ProcessTopology:
@@ -134,7 +134,7 @@ class ProcessGroups:
             if axis != "dp" and d > 1:
                 raise NotPortedError(
                     f"mesh axis {axis}={d}: only the dp axis is ported to deepspeed_tpu_torch "
-                    f"(ROADMAP queue 1 item {_AXIS_ITEMS.get(axis, 11)})")
+                    f"(ROADMAP queue 1 item {_AXIS_ITEMS.get(axis, '11b')})")
         self.topology = topology
         self.axis_names = tuple(topology.axes)
         self.shape = dict(zip(topology.axes, topology.dims))

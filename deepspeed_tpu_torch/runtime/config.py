@@ -10,11 +10,8 @@ chunked prefill (``prefill_chunk_tokens``), and its SLO classes
 (``retry_max``), the multi-replica fleet (``fleet``, read by
 ``serving/fleet.py``'s ``FleetRouter``) and the placements (``placement``:
 tensor-parallel and disaggregated serving over the ranks of the default
-process group, ``serving/placement.py``). What is not ported yet raises
-:class:`NotPortedError` instead of being silently ignored: a
-``placement.device_base`` other than 0, and a fleet beside a placement
-that is on (the fleet's per-replica rank windows, ROADMAP queue 1 item
-11c).
+process group, ``serving/placement.py``; a fleet over placements gives
+each replica its own window of ranks, ``placement.device_base``).
 
 ``TelemetryConfig``: the ``telemetry`` section of ``init_inference``'s and
 ``initialize``'s configs (the same fields, defaults and errors as the JAX
@@ -535,9 +532,9 @@ class FleetConfig(_ConfigModel):
     burn-rate alert fires. A preempted replica migrates its live decode
     sessions to a peer through the crc-checked manifest; a corrupt payload
     is a counted failure that re-queues the session. ``spread_devices``
-    gives each replica its own placement window in the JAX package; a
-    fleet over placements is not ported (ROADMAP queue 1 item 11c), so
-    every replica runs on the engine's one device."""
+    gives each replica of a placement that is on its own window of ranks
+    (``placement.device_base = i * per``, JAX's device windows), sharing
+    rank 0's window when the ranks run out."""
 
     enabled: bool = False
     replicas: int = 2
@@ -606,9 +603,9 @@ class PlacementConfig:
     moves to the decode ranks by the gather → send/recv → scatter handoff.
     ``decode_tp`` / ``prefill_tp`` default to ``tp`` (and are read only
     with ``disaggregate``); ``prefill_num_pages`` defaults to ``max_slots``
-    prompts twice over plus scratch. ``device_base`` (a fleet replica's
-    first device) is not ported: a value other than 0 raises
-    (ROADMAP queue 1 item 11c)."""
+    prompts twice over plus scratch. ``device_base`` is the first rank of
+    the placements' window (a fleet replica's, JAX's first device); one
+    rank serving alone ignores it."""
 
     tp: int = 1
     disaggregate: bool = False
@@ -623,8 +620,6 @@ class PlacementConfig:
                 raise DeepSpeedConfigError(f"serving.placement.{key} must be >= 0")
         if int(self.tp) < 1:
             raise DeepSpeedConfigError(f"serving.placement.tp must be >= 1, got {self.tp}")
-        if int(self.device_base) != 0:
-            raise _not_ported(f"placement.device_base={self.device_base!r}", "11c")
 
     @property
     def on(self) -> bool:
@@ -702,11 +697,6 @@ class ServingConfig:
             self.fleet = FleetConfig.from_dict(self.fleet)
         if isinstance(self.placement, dict):
             self.placement = _section_from_dict(PlacementConfig, "placement", self.placement)
-        # decode_tp / prefill_tp are read only under disaggregate (JAX's
-        # reading): a placement that is off leaves the fleet on one device
-        if self.fleet.enabled and self.placement.on:
-            raise _not_ported(
-                "fleet beside serving.placement (each replica on its own ranks)", "11c")
         if self.tiering.enabled and not self.prefix_cache.enabled:
             raise DeepSpeedConfigError(
                 "serving.tiering requires serving.prefix_cache (demotion "
@@ -955,8 +945,8 @@ class ZeroConfig:
 @dataclass
 class MeshConfig:
     """``mesh``: named-axis sizes, -1 = the ranks left (JAX ``MeshConfig``).
-    Only ``dp`` may exceed 1 in the port; tp, pp, ep and sp > 1 raise
-    :class:`NotPortedError` (ROADMAP queue 1 items 11 and 12)."""
+    Only ``dp`` may exceed 1 in the port; tp, pp, sp and ep > 1 raise
+    :class:`NotPortedError` (ROADMAP queue 1 items 11b, 12b, 12c and 12d)."""
 
     dp: int = -1
     tp: int = 1
@@ -965,7 +955,7 @@ class MeshConfig:
     sp: int = 1
 
     def __post_init__(self):
-        for axis, item in (("tp", 11), ("pp", 12), ("ep", 12), ("sp", 12)):
+        for axis, item in (("tp", "11b"), ("pp", "12b"), ("ep", "12d"), ("sp", "12c")):
             if int(getattr(self, axis)) > 1:
                 raise NotPortedError(
                     f"mesh.{axis}={getattr(self, axis)}: only the dp axis is ported to "
@@ -990,7 +980,11 @@ _TRAINING_KEYS = (
     "resilience", "checkpoint", "mesh", "comms_logger",
 )
 # sections still refused, each with the ROADMAP queue 1 item that ports it
-_REFUSED_ITEMS = {"comm_compression": "12/13"}
+_REFUSED_ITEMS = {
+    "comm_compression": "12/13", "activation_checkpointing": "11b", "aio": "13",
+    "flops_profiler": "14", "elasticity": "14", "curriculum_learning": "14",
+    "progressive_layer_drop": "14", "eigenvalue": "14", "debug": "14", "analysis": "15",
+}
 # the monitor backends (JAX monitor/): ROADMAP queue 1 item 14
 _MONITOR_KEYS = ("tensorboard", "wandb", "csv_monitor")
 

@@ -5,9 +5,18 @@ shedding, migration protocol, metric families and ``stats()``).
 * N :class:`~deepspeed_tpu_torch.serving.scheduler.ServingEngine`
   replicas over ONE :class:`InferenceEngine` (one set of weights; each
   replica its own page pools and captured programs), all driven by one
-  injectable clock so fleet runs replay deterministically. The port has
-  no placements, so every replica runs on the engine's device: with fewer
-  devices than replicas the JAX router shares device 0 the same way.
+  injectable clock so fleet runs replay deterministically. A replica at
+  tp 1 runs on the engine's device. With a placement that is on (``tp >
+  1`` or ``disaggregate``) and ``spread_devices``, replica i serves from
+  its own window of ``per`` ranks of the default process group, from
+  ``device_base = i * per`` (JAX's device windows; ``per`` = decode_tp +
+  prefill_tp when disaggregated), and shares rank 0's window when the
+  ranks run out, as JAX shares device 0's. The router runs on every rank
+  and keeps every replica's host state there (the replicas' schedulers
+  are SPMD over the world: a rank runs the programs of the replica whose
+  window holds it, and each program's outputs reach every rank), so
+  every rank routes, sheds and migrates alike from the same submissions
+  and clock: call every method on every rank in the same order.
 * Routing by per-tenant SLO-class **affinity** (a tenant's sessions keep
   landing where its prefix working set is warm), **prefix locality** (the
   prefix index's ``probe`` plus the host tier's chain links) and load as
@@ -23,6 +32,10 @@ shedding, migration protocol, metric families and ``stats()``).
   ``serving_kv_gather`` → crc-checked manifest (``resilience/manifest``)
   → ``serving_kv_scatter`` transport, so a corrupt payload is a counted
   failure that restarts the session on a peer, never a wedged request.
+  Between windows the export gathers every KV head of the session's
+  pages from the source window to every rank and the adoption re-shards
+  them over the destination's; each rank writes and validates its own
+  copy of the manifest, and the outcome is agreed over the ranks.
   Migrated streams are the un-migrated ones: the pair copies pool bytes
   verbatim, the sampling keys ride the payload and the speculative
   drafter's index rebuilds from prompt + tokens.
@@ -36,6 +49,7 @@ A migration's blackout is the wall time the session emits nothing (export
 from __future__ import annotations
 
 import copy
+import os
 import shutil
 import tempfile
 import time
@@ -44,6 +58,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..elasticity.preemption import PreemptionGuard
 from ..resilience.manifest import load_arrays, read_manifest, validate_tag, write_tag
@@ -94,23 +109,35 @@ class FleetRouter:
         self.clock = clock if clock is not None else time.monotonic
         self.fault_injector = fault_injector
         self._mig_dir = self.fcfg.migration_dir or tempfile.mkdtemp(prefix="dstt-fleet-mig-")
+        if self.fcfg.migration_dir and dist.is_initialized() and dist.get_world_size() > 1:
+            # every rank writes its own copy of each payload
+            self._mig_dir = os.path.join(self._mig_dir, f"rank{dist.get_rank()}")
         # test hook: runs with (tag_dir, request) after the migration
         # payload is written and before it validates
         self.on_migration_payload: Optional[Callable[[str, Request], None]] = None
 
         # -- replicas ---------------------------------------------------
         self.replicas: List[FleetReplica] = []
+        n_avail = self._visible_devices()
         for i in range(int(self.fcfg.replicas)):
             rcfg = copy.deepcopy(serving_config)
             rcfg.fleet.enabled = False  # replicas never nest fleets
+            plc = rcfg.placement
+            if plc.on and self.fcfg.spread_devices:
+                per = int(plc.decode_tp or plc.tp) + (
+                    int(plc.prefill_tp or plc.tp) if plc.disaggregate else 0)
+                base = i * per
+                # too few ranks for a window of its own: share rank 0's
+                plc.device_base = base if base + per <= n_avail else 0
             srv = engine.serve(serving_config=rcfg, clock=self.clock, tracer=tracer,
                                journal=journal)
             if fault_injector is not None:
                 srv.fault_injector = fault_injector
             guard = PreemptionGuard(install=False, grace_window_s=0.0)
             self.replicas.append(FleetReplica(f"r{i}", srv, guard))
-        log_dist(f"fleet: {len(self.replicas)} replicas on {self._visible_devices()} "
-                 f"visible device(s), all on {engine.device}, policy {self.fcfg.policy}")
+        log_dist(f"fleet: {len(self.replicas)} replicas on {n_avail} visible device(s), "
+                 f"windows {[r.srv.decode_placement.ranks for r in self.replicas]}, "
+                 f"policy {self.fcfg.policy}")
         self.tracer = self.replicas[0].srv.tracer
         self.metrics = self.replicas[0].srv.metrics
 
@@ -197,8 +224,11 @@ class FleetRouter:
     # -- small accessors ------------------------------------------------
 
     def _visible_devices(self) -> int:
-        """Devices the replicas could spread over: the card's count on the
+        """Devices the replicas could spread over: with a process group up,
+        its ranks (one device each); otherwise the card's count on the
         card, 1 on the CPU (every replica runs on the engine's device)."""
+        if dist.is_initialized():
+            return dist.get_world_size()
         return torch.cuda.device_count() if self.engine.device.type == "cuda" else 1
 
     def alive(self) -> List[FleetReplica]:
@@ -485,6 +515,9 @@ class FleetRouter:
                 payload = load_arrays(tag_dir, man)
             except Exception as e:  # a torn payload surfaces as a failure
                 ok, reason = False, f"{type(e).__name__}: {e}"
+        # each rank read its own copy: a failure on one is a failure on all
+        if not srv.agree(ok):
+            ok, reason = False, reason or "the payload failed on another rank"
         if ok and dst is not None:
             # outside the try: a transport that fails to build or run
             # raises, it is never counted as a bad payload and requeued

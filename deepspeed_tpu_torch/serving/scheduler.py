@@ -112,9 +112,15 @@ prompt's KV moves to the decode placement by the ``serving_kv_gather`` /
 ``serving_kv_scatter`` handoff pair (``_complete_handoff``; the
 ``serving_kv_handoff*`` families, the ``kv_handoff`` span). Every rank
 runs this scheduler; a program runs on its placement's ranks, and what the
-host reads from it reaches the other ranks by one broadcast. At tp 1
-without disaggregation none of this exists: no process group, no
-collective, the same programs and launches.
+host reads from it reaches the other ranks by one broadcast. A fleet's
+replicas take windows of ranks (``placement.device_base``): each replica's
+collectives stay on its window, while every rank keeps every replica's
+host state, so the router decides alike everywhere; a live migration
+between windows gathers every KV head of the session's pages from the
+source window to every rank and re-shards them over the destination
+window (:meth:`export_session`, :meth:`adopt_session`). At tp 1 without
+disaggregation none of this exists: no process group, no collective, the
+same programs and launches.
 
 Single-threaded by design: ``submit``/``step``/``drain``/``stats`` mutate
 the queue, slots and counters without a lock and must run on one thread
@@ -135,7 +141,7 @@ import torch.distributed as dist
 from ..comm import torch as comm
 from ..models.gpt2 import GPT2Config
 from ..ops import prng
-from ..runtime.config import NotPortedError, ServingConfig
+from ..runtime.config import ServingConfig
 from ..telemetry import device_hbm_stats
 from ..telemetry.registry import MetricsRegistry
 from ..telemetry.request_trace import LATENCY_BUCKETS
@@ -418,8 +424,10 @@ class ServingEngine:
     def _init_placements(self, engine, config) -> None:
         """The placements and their program sets (JAX scheduler.py:224-303):
         one shared placement by default; with ``disaggregate`` a decode
-        placement on ranks ``[0, decode_tp)`` and a prefill placement on the
-        next ``prefill_tp``, with its own auto-sized pool and allocator. A
+        placement on ranks ``[base, base + decode_tp)`` and a prefill
+        placement on the next ``prefill_tp``, with its own auto-sized pool
+        and allocator; ``base`` is ``placement.device_base`` (a fleet
+        replica's window, JAX's device offset, here in ranks). A
         placement of more than one rank needs the default process group
         (``comm.init_distributed``); then the engine's clock becomes rank
         0's, and every call on it is collective. Otherwise this process
@@ -427,6 +435,7 @@ class ServingEngine:
         process group of its own job: no collective at all."""
         mcfg, page = self.model_config, self.page_size
         plc = config.placement
+        base = int(plc.device_base)
         tp = int(plc.tp)
         self.tp = tp
         self.disaggregated = bool(plc.disaggregate)
@@ -442,7 +451,8 @@ class ServingEngine:
             )
         n = decode_tp + (prefill_tp if self.disaggregated else 0)
         want = (f"serving.placement needs {n} devices, one rank each (decode_tp={decode_tp}"
-                + (f" + prefill_tp={prefill_tp}" if self.disaggregated else "") + ")")
+                + (f" + prefill_tp={prefill_tp}" if self.disaggregated else "")
+                + (f" from device_base={base}" if base else "") + ")")
         # more than one rank: every rank of the default group runs this
         # scheduler (SPMD); a rank past the placements mirrors the host side
         self._spmd = n > 1
@@ -460,15 +470,16 @@ class ServingEngine:
                 raise ValueError(f"{want}, and no process group is initialised "
                                  "(comm.init_distributed)")
             world = dist.get_world_size()
-            if n > world:
-                raise ValueError(f"{want}, only {world} visible (the ranks of the default "
-                                 "process group)")
+            if base + n > world:
+                raise ValueError(f"{want}, only {world - base} visible (the ranks of the "
+                                 "default process group)")
             rank = dist.get_rank()
             self._bcast = self.disaggregated or n < world
-            d_group = comm.subgroup(range(decode_tp), "tp") if decode_tp > 1 else None
+            d_group = (comm.subgroup(range(base, base + decode_tp), "tp") if decode_tp > 1
+                       else None)
             p_group = None
             if self.disaggregated and prefill_tp > 1:
-                p_group = comm.subgroup(range(decode_tp, n), "tp")
+                p_group = comm.subgroup(range(base + decode_tp, base + n), "tp")
             if dist.get_backend() != "gloo":
                 self._host_group = comm.subgroup(range(world), "host", backend="gloo")
             self.clock = _AgreedClock(self.clock, self._host_group)
@@ -480,9 +491,11 @@ class ServingEngine:
         else:
             d_group = p_group = None
             self._rank_devices = [str(self.device)]
+        if not self._spmd:
+            base = 0  # one rank serving alone: its window is itself
         self.decode_placement = Placement(
-            "decode" if self.disaggregated else "shared", range(decode_tp), decode_tp,
-            d_group, self.device, rank=rank)
+            "decode" if self.disaggregated else "shared", range(base, base + decode_tp),
+            decode_tp, d_group, self.device, rank=rank)
         self.decode_placement.local_model_config(mcfg)  # fail fast on divisibility
         self.decode_set = ProgramSet(self.decode_placement, mcfg, int(config.num_pages), page,
                                      self.cache_dtype, engine.params)
@@ -493,8 +506,8 @@ class ServingEngine:
             pnp = int(plc.prefill_num_pages)
             if pnp <= 0:
                 pnp = min(int(config.num_pages), 2 * self.max_slots * self.prefill_pages + 1)
-            self.prefill_placement = Placement("prefill", range(decode_tp, n), prefill_tp,
-                                               p_group, self.device, rank=rank)
+            self.prefill_placement = Placement("prefill", range(base + decode_tp, base + n),
+                                               prefill_tp, p_group, self.device, rank=rank)
             self.prefill_placement.local_model_config(mcfg)
             self.prefill_set = ProgramSet(self.prefill_placement, mcfg, pnp, page,
                                           self.cache_dtype, engine.params)
@@ -2241,7 +2254,9 @@ class ServingEngine:
         (``k_pages``, ``v_pages``, ``kv_scales`` with int8 pages) plus the
         sampling keys (``keys``, uint32 ``[max_new_tokens - 1, 2]``), the
         JAX engine's names, shapes and dtypes. The slot is untouched: pair
-        with :meth:`release_slot` once the payload is written."""
+        with :meth:`release_slot` once the payload is written. Over several
+        ranks it is collective: the payload holds every KV head, gathered
+        from the session's window to every rank."""
         slot = self.slots[slot_i]
         req = slot.request
         if req is None:
@@ -2251,16 +2266,13 @@ class ServingEngine:
                 f"slot {slot_i} is still prefilling — nothing emitted yet; "
                 "requeue it instead of migrating"
             )
-        self._refuse_migration_across_ranks()
         self._ensure_migration_programs()
         n = len(slot.pages)
         ids = self._migrate_gather.inputs.staging()["ids"]
         ids[:] = 0
         ids[:n] = slot.pages
-        self._migrate_gather()
-        # the export's one device read: host copies of the row buffers,
-        # which the next gather rewrites
-        packed = [row.to("cpu", copy=True) for row in self._migrate_rows]
+        self._run(self._migrate_gather, self.decode_placement)
+        packed = self._full_rows()
         arrays = {"k_pages": packed[0], "v_pages": packed[1]}
         if self.pset.scales is not None:
             arrays["kv_scales"] = packed[2]
@@ -2316,7 +2328,9 @@ class ServingEngine:
         free slot or pages; the router requeues elsewhere). ``request``
         re-binds the caller's handle; without it the request is rebuilt
         from ``state`` (a payload from another process or package).
-        ``arrays`` may hold numpy arrays or CPU tensors."""
+        ``arrays`` may hold numpy arrays or CPU tensors, with every KV
+        head; over several ranks every rank adopts the same payload and
+        each member of the window scatters its own heads."""
         if self._draining:
             return None
         slot_i = next((i for i, s in enumerate(self.slots) if s.request is None), None)
@@ -2328,15 +2342,15 @@ class ServingEngine:
                 f"migration payload needs {n} pages/slot, this engine "
                 f"holds {self.pages_per_slot}"
             )
-        self._refuse_migration_across_ranks()
         self._ensure_migration_programs()
         names = ("k_pages", "v_pages") + (("kv_scales",) if self.pset.scales is not None else ())
         payload = [torch.as_tensor(arrays[name]) for name in names]
         for name, src, row in zip(names, payload, self._migrate_rows):
-            if tuple(src.shape) != tuple(row.shape) or src.dtype != row.dtype:
+            want = self._full_row_shape(row)
+            if tuple(src.shape) != want or src.dtype != row.dtype:
                 raise ValueError(
                     f"migration payload {name} is {tuple(src.shape)} {src.dtype}, this "
-                    f"engine's row is {tuple(row.shape)} {row.dtype}"
+                    f"engine's row is {want} {row.dtype}"
                 )
         if n > self.allocator.free_pages and self.prefix_cache is not None:
             self.prefix_cache.evict(need_free=n)
@@ -2379,9 +2393,13 @@ class ServingEngine:
         dst = self._migrate_scatter.inputs.staging()["dst"]
         dst[:] = 0
         dst[:n] = pages
-        for src, row in zip(payload, self._migrate_rows):
-            row.copy_(src)
-        self._migrate_scatter()
+        plc = self.decode_placement
+        if plc.member:
+            # this rank's heads of the full payload: the re-shard
+            h0, h1 = plc.kv_heads(self.model_config.n_head)
+            for src, row in zip(payload, self._migrate_rows):
+                row.copy_(src[:, :, h0:h1])
+            self._migrate_scatter()
         slot = self.slots[slot_i]
         slot.request = req
         slot.pages = list(pages)
@@ -2398,15 +2416,48 @@ class ServingEngine:
             self.table.keys[slot_i] = slot.keys[slot.step]
         return req
 
-    def _refuse_migration_across_ranks(self) -> None:
-        """A migration payload holds every KV head of a page row; an engine
-        over several ranks holds its heads spread over them (ROADMAP queue
-        1 item 11c: the fleet over placements)."""
-        if self._spmd:
-            raise NotPortedError(
-                "live session migration of an engine over several ranks "
-                "(serving.placement tp > 1 or disaggregate) is not ported to "
-                "deepspeed_tpu_torch yet (ROADMAP queue 1 item 11c)")
+    def _full_row_shape(self, row: torch.Tensor) -> tuple:
+        """A migration row's shape with every KV head (this rank's row holds
+        its window's share of them)."""
+        return (row.shape[0], row.shape[1], self.model_config.n_head) + tuple(row.shape[3:])
+
+    def _full_rows(self) -> List[torch.Tensor]:
+        """The gathered migration rows with every KV head, as CPU tensors
+        (the export's one device read). Over several ranks each member of
+        the session's window holds heads ``[h0, h1)`` and sends them to
+        every other rank (``comm.send_recv`` over the host group), so every
+        rank ends with the whole payload, as the disaggregated handoff
+        moves heads between placements."""
+        if not self._spmd:
+            return [row.to("cpu", copy=True) for row in self._migrate_rows]
+        plc, kv = self.decode_placement, self.model_config.n_head
+        full = [torch.empty(self._full_row_shape(r), dtype=r.dtype) for r in self._migrate_rows]
+        if plc.member:
+            h0, h1 = plc.kv_heads(kv)
+            for f, r in zip(full, self._migrate_rows):
+                f[:, :, h0:h1].copy_(r)
+        me, world = dist.get_rank(), dist.get_world_size()
+        sends, recvs = [], []
+        for i, src in enumerate(plc.ranks):
+            a0, a1 = plc.kv_heads(kv, i)
+            for peer in range(world):
+                if peer == src:
+                    continue
+                if src == me:
+                    sends += [(f[:, :, a0:a1], peer) for f in full]
+                if peer == me:
+                    recvs += [(f[:, :, a0:a1], src) for f in full]
+        comm.send_recv(sends, recvs, self._host_group)
+        return full
+
+    def agree(self, flag: bool) -> bool:
+        """``flag`` on every serving rank (the min over the host group): a
+        fleet's decision that a rank takes alone (a migration payload's
+        validation) made the same on every rank. Alone: ``flag``."""
+        if not self._spmd:
+            return bool(flag)
+        t = torch.tensor([int(bool(flag))], dtype=torch.int32)
+        return bool(comm.all_reduce(t, self._host_group, "min").item())
 
     def takeover_queue(self) -> List[Request]:
         """Hand the whole waiting queue to the caller (the router reroutes

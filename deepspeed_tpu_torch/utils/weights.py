@@ -55,7 +55,10 @@ def params_from_numpy(tree: PyTree, device, dtype: Optional[torch.dtype] = None)
     """Nested dict of array-likes → the same dict of tensors on ``device``;
     floating leaves are cast to ``dtype`` when it is given. Quantized
     leaves become ``ops.quantizer`` named tuples, their codes and scales
-    as given (never cast)."""
+    as given (never cast). A None leaf (an injected BERT's absent pooler)
+    stays None."""
+    if tree is None:
+        return None
     fields = _quantized_fields(tree)
     if fields is not None:
         from ..ops.quantizer import AsymQuantizedWeight, QuantizedWeight
@@ -74,6 +77,8 @@ def params_to_numpy(params: PyTree) -> PyTree:
     float32 value), since numpy has no bfloat16."""
     if isinstance(params, dict):
         return {k: params_to_numpy(v) for k, v in params.items()}
+    if params is None:
+        return None
     if _is_namedtuple(params):
         return type(params)(*[params_to_numpy(v) for v in params])
     t = params.detach().cpu()
@@ -88,7 +93,10 @@ def _is_namedtuple(x) -> bool:
 
 def tree_map(fn, tree: PyTree) -> PyTree:
     """``fn`` over the leaves of a nested dict; a named tuple (a quantized
-    weight) is a node whose fields are leaves."""
+    weight) is a node whose fields are leaves; None (an absent subtree)
+    stays None."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     if _is_namedtuple(tree):

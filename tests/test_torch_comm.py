@@ -214,7 +214,7 @@ def test_logger_summary_and_measure_columns():
         comm.all_gather(torch.ones(8, 4), gather_dim=1)
         rec = comm.comms_logger.comms_dict[("all_reduce", "world")]
         assert rec == {"count": 1, "bytes": 4096, "wire_bytes": 4096, "time_ms": None,
-                       "world": 1}
+                       "world": 1, "device": "cpu"}
         est = comm.log_summary()
         assert "~" in est and est.splitlines()[1].split() == [
             "op", "axis", "count", "world", "msg", "size", "wire", "size", "ratio", "avg",
@@ -229,6 +229,45 @@ def test_logger_summary_and_measure_columns():
         comm.comms_logger.reset()
         comm.destroy_process_group()
     assert not comm.is_initialized() and not torch.distributed.is_initialized()
+
+
+def test_measure_runs_on_the_recorded_device(monkeypatch):
+    """``measure`` times each row on the device its recorded tensors lay
+    on (a CUDA tensor handed to gloo is timed as a CUDA tensor, with the
+    host staging the program paid), ``device=`` overrides it, and a
+    ``send_recv`` row is kept apart: at one rank it has no peer and stays
+    unmeasured (the ring at two ranks is timed in
+    ``tests/test_torch_fleet_placement.py``)."""
+    from deepspeed_tpu_torch.comm import torch as ctorch
+
+    comm.init_distributed(dist_backend="gloo", verbose=False)
+    seen = []
+
+    def spy(x, group=None, op="sum"):
+        seen.append(x.device.type)
+        return x
+
+    try:
+        comm.comms_logger.configure(enabled=True)
+        comm.comms_logger.reset()
+        comm.all_reduce(torch.ones(256))
+        comm.send_recv([], [])
+        comm.comms_logger.append("send_recv", "world", 1024, world=1, device="cpu")
+        assert comm.comms_logger.comms_dict[("all_reduce", "world")]["device"] == "cpu"
+        # a row recorded from tensors on another device is timed there
+        comm.comms_logger.comms_dict[("all_reduce", "world")]["device"] = "meta"
+        monkeypatch.setattr(ctorch, "all_reduce", spy)
+        comm.comms_logger.measure(iters=2)
+        assert seen == ["meta"] * 3
+        seen.clear()
+        comm.comms_logger.measure(iters=2, device="cpu")
+        assert seen == ["cpu"] * 3
+        assert comm.comms_logger.comms_dict[("all_reduce", "world")]["time_ms"] > 0
+        assert comm.comms_logger.comms_dict[("send_recv", "world")]["time_ms"] is None
+    finally:
+        comm.comms_logger.configure(enabled=False)
+        comm.comms_logger.reset()
+        comm.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------

@@ -3,8 +3,8 @@
 ``tests/unit/test_timeseries.py`` are the oracle):
 
 - ``serving.fleet``: defaults, coercion and every rejection with JAX's
-  message; a ``placement`` beside the fleet still refused, naming its
-  ROADMAP item (11c: the fleet over placements);
+  message; a tp-2 ``placement`` beside the fleet needs a process group
+  (the fleet over placements is ``tests/test_torch_fleet_placement.py``);
 - the 16-request mixed suite with every feature (speculation, prefix
   sharing, chunked prefill, int8 pages, the host tier) on 2 replicas with
   a forced mid-stream preemption, through both packages under one stepped
@@ -245,7 +245,10 @@ def test_fleet_builds_and_placement_still_refused(engine):
         assert fleet._visible_devices() == 1
     finally:
         fleet.close()
-    with pytest.raises(tconfig.NotPortedError, match="item 11c"):
+    # a placement beside the fleet is ported (each replica on its own rank
+    # window, tests/test_torch_fleet_placement.py); without a process group
+    # a tp-2 replica has no ranks to serve on
+    with pytest.raises(ValueError, match="no process group"):
         FleetRouter(engine, dict(BASE, **FLEET2, placement={"tp": 2}))
 
 

@@ -17,11 +17,7 @@ import torch
 import deepspeed_tpu_torch as dtt
 from deepspeed_tpu.inference.engine import InferenceEngine as JaxInferenceEngine
 from deepspeed_tpu.models import gpt2 as jgpt2
-from deepspeed_tpu_torch.runtime.config import (
-    DeepSpeedConfigError,
-    NotPortedError,
-    ServingConfig,
-)
+from deepspeed_tpu_torch.runtime.config import DeepSpeedConfigError, ServingConfig
 from deepspeed_tpu_torch.serving import (
     PageAllocator,
     PageAllocatorError,
@@ -339,33 +335,28 @@ class TestTimeoutEviction:
         srv.check_no_leaks()
 
 
-# what each placement section does now: "11c" raises NotPortedError naming
-# ROADMAP queue 1 item 11c at parse; "group" parses and raises at serve,
-# where no process group is initialised; "tp1" parses and serves at tp 1
-# (decode_tp and prefill_tp are read only with disaggregate, as JAX reads
-# them, so beside a fleet they leave the placement off too)
+# what each placement section does now: "group" parses and raises at
+# serve, where no process group is initialised; "tp1" parses and serves at
+# tp 1 (decode_tp and prefill_tp are read only with disaggregate, as JAX
+# reads them, so beside a fleet they leave the placement off too; a
+# device_base, a fleet replica's rank window, is ignored by one rank
+# serving alone)
 @pytest.mark.parametrize("section,outcome", [
     ({"placement": {"decode_tp": 2}}, "tp1"),
-    ({"placement": {"device_base": 1}}, "11c"),
+    ({"placement": {"device_base": 1}}, "tp1"),
     ({"placement": {"prefill_tp": 2}}, "tp1"),
     ({"placement": {"tp": 2, "disaggregate": True}}, "group"),
     ({"placement": {"tp": 2}}, "group"),
     ({"placement": {"disaggregate": True}}, "group"),
     # a fleet beside a placement that is on: each replica on its own ranks
-    ({"fleet": {"enabled": True, "replicas": 2}, "placement": {"tp": 2}}, "11c"),
+    ({"fleet": {"enabled": True, "replicas": 2}, "placement": {"tp": 2}}, "group"),
     ({"fleet": {"enabled": True}, "placement": {"decode_tp": 2}}, "tp1"),
-    ({"placement": {"device_base": 1}}, "11c"),
+    ({"placement": {"device_base": 1, "tp": 2}}, "group"),
     # parses for gpt2-tiny (4 heads); serving it needs 4 ranks
     ({"placement": {"tp": 4}}, "group"),
 ], ids=[f"section{i}" for i in range(10)])
 def test_unported_features_raise(section, outcome, engine):
     cfg = dict(SERVING_CFG, **section)
-    if outcome == "11c":
-        with pytest.raises(NotPortedError, match="item 11c"):
-            ServingConfig.from_dict(cfg)
-        with pytest.raises(NotPortedError, match="item 11c"):
-            engine.serve(cfg)
-        return
     parsed = ServingConfig.from_dict(cfg)
     for key, value in section["placement"].items():
         assert getattr(parsed.placement, key) == value

@@ -451,13 +451,13 @@ def test_refusals_name_their_roadmap_item():
     with pytest.raises(NotPortedError, match="item 14"):
         tconfig.DeepSpeedConfig.from_dict({"train_batch_size": 8,
                                            "tensorboard": {"enabled": True}})
-    # an off section is accepted by the training config; the fleet (item 9)
-    # and the placements (item 11) are ported, and a fleet over placements
-    # (device_base, item 11c) stays refused
+    # an off section is accepted by the training config; the fleet (item 9),
+    # the placements (item 11) and the fleet over placements (device_base,
+    # item 11c) are ported
     tconfig.DeepSpeedConfig.from_dict({"train_batch_size": 8, "telemetry": {"enabled": False}})
     assert tconfig.ServingConfig.from_dict({"fleet": {"enabled": True}}).fleet.enabled
-    with pytest.raises(NotPortedError, match="item 11c"):
-        tconfig.ServingConfig.from_dict({"fleet": {"enabled": True}, "placement": {"tp": 2}})
+    both = tconfig.ServingConfig.from_dict({"fleet": {"enabled": True}, "placement": {"tp": 2}})
+    assert both.fleet.enabled and both.placement.tp == 2
     assert tconfig.ServingConfig.from_dict({"placement": {"tp": 2}}).placement.tp == 2
-    with pytest.raises(NotPortedError, match="item 11c"):
-        tconfig.ServingConfig.from_dict({"placement": {"device_base": 1}})
+    assert tconfig.ServingConfig.from_dict(
+        {"placement": {"device_base": 1}}).placement.device_base == 1

@@ -11,8 +11,9 @@ the live-tier replay against the what-if simulator.
 gpt2-tiny, fp32 and int8 pages, from the same numpy weights. Streams are
 compared token for token and the tier's counters exactly.
 
-Waiting for other items: the TP=2 mixed suite (ROADMAP queue 1 item 11),
-Engine G's tiered protocol model (item 15) and the ``tools/kv_heat``
+The TP=2 mixed suite with the tier on is
+``tests/test_torch_serving_tp.py::test_host_tier_at_tp2``. Waiting for
+other items: Engine G's tiered protocol model (item 15) and the ``tools/kv_heat``
 ``--policy`` CLI (item 14); the live-tier replay is held against the
 simulator's dict directly."""
 

@@ -23,6 +23,8 @@ elementwise update on shards); stages 2-3 sum each micro-batch's
 reduce-scatter into the sharded accumulation, a different order, and are
 held to stage 0 as to JAX."""
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -425,20 +427,44 @@ def test_zero_stages_and_dp_mesh_are_accepted(stage):
         assert t.zero_optimization.stage3_param_persistence_threshold == 64
 
 
+# each case names its ROADMAP item exactly ("item 11b", not a prefix of
+# it); the ids are the cases' first names, kept when the items were split
 @pytest.mark.parametrize("section,item", [
-    ({"zero_optimization": {"stage": 2, "offload_optimizer": {"device": "cpu"}}}, "13"),
-    ({"zero_optimization": {"stage": 3, "offload_param": {"device": "nvme"}}}, "13"),
-    ({"comm_compression": {"enabled": True}}, "12/13"),
-    ({"mesh": {"dp": -1, "tp": 2}}, "11"),
-    ({"mesh": {"dp": -1, "pp": 2}}, "12"),
-    ({"mesh": {"dp": -1, "ep": 2}}, "12"),
-    ({"mesh": {"dp": -1, "sp": 2}}, "12"),
+    pytest.param({"zero_optimization": {"stage": 2, "offload_optimizer": {"device": "cpu"}}},
+                 "13", id="section0-13"),
+    pytest.param({"zero_optimization": {"stage": 3, "offload_param": {"device": "nvme"}}},
+                 "13", id="section1-13"),
+    pytest.param({"comm_compression": {"enabled": True}}, "12/13", id="section2-12/13"),
+    pytest.param({"mesh": {"dp": -1, "tp": 2}}, "11b", id="section3-11"),
+    pytest.param({"mesh": {"dp": -1, "pp": 2}}, "12b", id="section4-12"),
+    pytest.param({"mesh": {"dp": -1, "ep": 2}}, "12d", id="section5-12"),
+    pytest.param({"mesh": {"dp": -1, "sp": 2}}, "12c", id="section6-12"),
 ])
 def test_remaining_gaps_still_raise(section, item):
     from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig, NotPortedError
 
-    with pytest.raises(NotPortedError, match=f"item {item}"):
+    with pytest.raises(NotPortedError, match=rf"item {re.escape(item)}\)"):
         DeepSpeedConfig.load({"train_batch_size": 4, **section})
+
+
+@pytest.mark.parametrize("section,item", [
+    ("activation_checkpointing", "11b"), ("aio", "13"), ("flops_profiler", "14"),
+    ("elasticity", "14"), ("curriculum_learning", "14"), ("progressive_layer_drop", "14"),
+    ("eigenvalue", "14"), ("debug", "14"), ("analysis", "15"),
+])
+def test_refused_sections_name_their_item(section, item):
+    """Every top-level JAX section the port does not read yet is refused
+    naming the ROADMAP queue 1 item that ports it; an off section passes."""
+    from deepspeed_tpu_torch.parallel.topology import ProcessGroups, ProcessTopology
+    from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig, NotPortedError
+
+    with pytest.raises(NotPortedError, match=rf"item {item}\)"):
+        DeepSpeedConfig.load({"train_batch_size": 4, section: {"enabled": True}})
+    DeepSpeedConfig.load({"train_batch_size": 4, section: {"enabled": False}})
+    axis = {"11b": "tp", "13": None, "14": None, "15": None}[item]
+    if axis is not None:
+        with pytest.raises(NotPortedError, match=r"item 11b\)"):
+            ProcessGroups(ProcessTopology([axis, "dp"], [2, 1]))
 
 
 @pytest.mark.parametrize("world", [2, 4])

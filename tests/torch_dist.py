@@ -410,3 +410,61 @@ def serve(rank: int, world: int, tree: dict, cases: list, tmpdir: str) -> dict:
     for name, _n, conf, reqs, opts in cases:
         out[name] = _serve_case(eng, rank, conf, reqs, dict(opts, tag=name), tmpdir)
     return out
+
+
+def fleet(rank: int, world: int, tree: dict, cases: list, tmpdir: str) -> dict:
+    """Each case ``(name, config, requests, steps)`` through a
+    ``FleetRouter`` over ``init_inference(gpt2-tiny, tree, fp32, cpu)`` on
+    every rank, under a stepped clock: submit every request, ``steps``
+    rounds, then replica r0 preempted (its live sessions migrate), then
+    rounds to the end → the streams, each request's replica, the fleet's
+    counters, each replica's rank window and this rank's pool heads, and
+    the leak audit. Then one ``send_recv`` from rank 0 to rank 1, which
+    only rank 0's comms logger records, and ``measure`` on every rank."""
+    import deepspeed_tpu_torch as dtt
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.serving import FleetRouter
+    from deepspeed_tpu_torch.utils.weights import params_from_numpy
+
+    eng = dtt.init_inference(dtt.get_config("gpt2-tiny"), params=params_from_numpy(tree, "cpu"),
+                             dtype=torch.float32, device="cpu")
+    clock = {"t": 0.0}
+    out = {}
+    for name, conf, reqs, steps in cases:
+        fl = FleetRouter(eng, conf, clock=lambda: clock["t"])
+        subs = [fl.submit(p, max_new_tokens=n, seed=i) for i, (p, n) in enumerate(reqs)]
+        for _ in range(steps):
+            fl.step()
+            clock["t"] += 0.01
+        live = sum(1 for s in fl.replica("r0").srv.slots
+                   if s.request is not None and not s.prefilling and s.request.tokens)
+        fl.preempt("r0")
+        for _ in range(400):
+            if fl._idle() and not fl._pending_preemption():
+                break
+            fl.step()
+            clock["t"] += 0.01
+        st = fl.stats()["fleet"]
+        res = {"streams": [list(r.tokens) for r in subs], "replicas": [r.replica for r in subs],
+               "status": [r.status for r in subs], "live_at_preempt": live,
+               "fleet": {k: st[k] for k in ("alive", "migrations_ok", "migrations_crc_failed",
+                                            "migrations_no_capacity", "migration_bytes",
+                                            "requeues")},
+               "windows": [r.srv.decode_placement.ranks for r in fl.replicas],
+               "heads": [tuple(r.srv.k_pool.shape) for r in fl.replicas]}
+        fl.drain()
+        fl.check_no_leaks()
+        fl.close()
+        out[name] = res
+    comm.comms_logger.configure(enabled=True)
+    comm.comms_logger.reset()
+    x = torch.full((256,), 7.0)
+    y = torch.zeros_like(x)
+    comm.send_recv([(x, 1)] if rank == 0 else [], [(y, 0)] if rank == 1 else [])
+    comm.comms_logger.measure(iters=2)
+    rec = comm.comms_logger.comms_dict.get(("send_recv", "world"))
+    out["send_recv"] = {"got": float(y[0]), "row": None if rec is None else (
+        rec["device"], rec["time_ms"])}
+    comm.comms_logger.configure(enabled=False)
+    comm.comms_logger.reset()
+    return out

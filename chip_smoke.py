@@ -374,13 +374,34 @@ Phases, in order; any failure raises and the script exits non-zero:
      token against generate's first (or a bf16 tie); when transformers
      imports, a tiny random LLaMA injected at fp32 against HF's logits and
      greedy stream (else one line saying that step did not run and why).
-  8  (last, after 30) the script's total seconds, then one JSON line of per-kernel numbers, every kernel and
+  31 training over the sp and tp mesh axes (parallel/sequence.py,
+     ops/ring_flash_attention.py, the engine's mesh): (a) at world 1 over
+     NCCL, gpt2-medium's width at 4 layers, bf16, mesh {sp: 1, tp: 1}
+     against the default engine: losses and launches bit for bit,
+     captured; (b) the one-process dense run (gpt2-medium, 24 layers, B4
+     S1024 bf16, vocab padded to 128, 3 steps, captured), then two
+     processes sharing the card over gloo (`chip_smoke.py --phase31-rank`):
+     ring flash at B4 S1024 H16 D64 bf16 (S_loc 512), forward and
+     backward, against its plain version and against the one-process flash
+     kernels on the whole sequence (bf16 tolerance), 2 (rank + 1) flash
+     launches a call; then dp 1 x sp 2 with ring flash and with Ulysses,
+     and dp 1 x tp 2 with partitioned activation checkpoints, 3 steps
+     each, eager (gloo), losses within 5e-3 relative of the dense run's,
+     launches exact, step ms with gloo's staging apart; the ring's kernels
+     timed at the slowest rank's steps beside their plain versions, SDPA
+     and the bound. (c), in phase 16: the dropout kernel under a [6] key
+     (shard and row stride): each rank's rows and sequence columns at dp 2
+     x sp 2 of [8, 1024, 1024] bf16 equal the full draw's block bit for
+     bit and the plain version; [3, 7, 5] bf16 and f32 against the plain
+     version.
+  8  (last, after 31) the script's total seconds, then one JSON line of per-kernel numbers, every kernel and
      mode with its launches on the path that ported it (the block-sparse
      kernels: phase 11's, and the three at blocks 16/32 at BERT's shape
      with phase 12's; fused AdamW: phase 6's; fused LAMB: phase 15's;
      the threefry dropout: phase 17's; uniform_rows: phase 20's bf16
      serving; rows 1 and 6 again at the decoder's shapes with phase 30's
-     launches), then the last line {"ok": true, "device": {...}} with
+     launches; the ring with phase 31b's flash launches on the slowest
+     rank), then the last line {"ok": true, "device": {...}} with
      "count": 1, the cards the run used.
 
 Without a CUDA device it exits 1 before printing any result. It imports
@@ -1478,7 +1499,7 @@ def threefry_kernels_phase():
             p, c = prng.keep_scale(rate, dt)
             r, mul = prng.reciprocal_is_exact(rate, dt)
             err = lib.threefry_dropout_launch(x.data_ptr(), out_view.data_ptr(), x.numel(),
-                                              dkey.data_ptr(), prng.keep_threshold(p), c, r,
+                                              1, dkey.data_ptr(), prng.keep_threshold(p), c, r,
                                               int(mul),
                                               prng.DTYPES[dt], 2,
                                               torch.cuda.current_stream().cuda_stream)
@@ -1537,6 +1558,30 @@ def threefry_kernels_phase():
           f"{S16}: offset {x.numel()} (shard 1) {ms_off:.4f}, offset 0 (a [2] key) {ms_0:.4f}, "
           f"the same call's ratio {ms_off / ms_0:.4f}")
     out["dropout_offset_ms"] = ms_off
+    # 31c, the row stride (a rank's rows and sequence columns of the global
+    # draw): at dp 2 x sp 2 over x [8, 1024, 1024], rank (d, s) holds rows
+    # [4 d, 4 d + 4) and columns [512 s, 512 s + 512) under a [6] key with
+    # shard 4 d 2 + s and stride 2; a row of 35 odd bytes takes the scalar path
+    for d_idx in (0, 1):
+        for s_idx in (0, 1):
+            part = x[4 * d_idx:4 * d_idx + 4, 512 * s_idx:512 * s_idx + 512].contiguous()
+            skey = prng.device_keys(prng.shard_key(key, 8 * d_idx + s_idx, stride=2), "cuda")
+            y = prng.dropout_kernel(part, skey, 0.1)
+            want = full[4 * d_idx:4 * d_idx + 4, 512 * s_idx:512 * s_idx + 512]
+            torch.cuda.synchronize()
+            check(torch.equal(y, want) and torch.equal(y, tdo.dropout_ref(part, skey, 0.1)),
+                  f"31c: dropout of rank (dp {d_idx}, sp {s_idx})'s rows and columns under a "
+                  f"row stride differs from the full draw's block "
+                  f"({int((y != want).sum())} elements) or from its plain version")
+    for dt in (torch.bfloat16, torch.float32):
+        odd = torch.randn(3, 7, 5, generator=g, device="cuda").to(dt)
+        skey = prng.device_keys(prng.shard_key(key, 5, stride=3), "cuda")
+        check(torch.equal(prng.dropout_kernel(odd, skey, 0.1), tdo.dropout_ref(odd, skey, 0.1)),
+              f"31c: dropout {dt} [3, 7, 5] under a row stride differs from its plain version")
+    print("31c: dropout under a [6] key (shard and row stride) at dp 2 x sp 2 of [8, 1024, "
+          "1024] bf16: each rank's rows and sequence columns equal the full draw's block bit "
+          "for bit and the plain version; [3, 7, 5] bf16 and f32 (odd rows) equal the plain "
+          "version")
     del x, full, small
     V = 50257
     for R, n in ((1, 8 * V), (16, V)):
@@ -4320,6 +4365,373 @@ def decoder_phase(smi):
     return (dict(flash30, launches=fwd_launches), dict(dec30, launches=gen30))
 
 
+# ---------------------------------------------------------------------------
+# phase 31: training over the sp and tp mesh axes
+# ---------------------------------------------------------------------------
+
+# gpt2-medium at full width and depth, bf16, the vocab padded to 128 (tp 2
+# cuts the embedding's rows in two), 4 sequences of 1024 tokens a step
+PHASE31_MODEL = "gpt2-medium"
+PHASE31_SEQ, PHASE31_MICRO, PHASE31_STEPS = 1024, 4, 3
+PHASE31_CONF = {"train_micro_batch_size_per_gpu": PHASE31_MICRO,
+                "gradient_accumulation_steps": 1, "bf16": {"enabled": True},
+                "gradient_clipping": 1.0, "steps_per_print": 1000,
+                "optimizer": {"type": "AdamW", "params": {"lr": 1e-4, "weight_decay": 0.01}}}
+# (name, model overrides, extra config): the sp ring (ring flash on the
+# card), Ulysses, and tp with partitioned activation checkpoints (turned on
+# by the config's section alone; the model's own field stays off)
+PHASE31_RUNS = (
+    ("sp2 ring_flash", {"attn_impl": "ring_flash"}, {"mesh": {"dp": 1, "sp": 2}}),
+    ("sp2 ulysses", {"attn_impl": "ulysses"}, {"mesh": {"dp": 1, "sp": 2}}),
+    ("tp2 partition_activations", {"remat": True},
+     {"mesh": {"dp": 1, "tp": 2}, "activation_checkpointing": {"partition_activations": True}}),
+)
+# the ring's attention check: gpt2-medium's heads over the whole sequence
+PHASE31_ATTN = dict(B=PHASE31_MICRO, S=PHASE31_SEQ, H=16, D=64)
+# relative, each step's loss and grad norm of the bf16 trajectories: ~3x
+# the worst readings on an H100 (loss 3.5e-4, grad norm 3.1e-3, tp 2); a
+# dropped sp or tp reduction moves a grad norm by ~0.4
+PHASE31_LOSS_TOL = 1e-3
+PHASE31_GNORM_TOL = 1e-2
+
+
+def phase31_config(n_layer=None, **overrides):
+    kw = dict(pad_vocab_multiple=128, **overrides)
+    if n_layer is not None:
+        kw["n_layer"] = n_layer
+    return gpt2.get_config(PHASE31_MODEL, **kw)
+
+
+def phase31_batch(vocab, rows, seq):
+    rs = np.random.RandomState(31)
+    return {"input_ids": rs.randint(0, vocab, (rows, seq)).astype(np.int32)}
+
+
+def phase31_train(label, cfg, conf, batch, steps):
+    """``steps`` steps through ``initialize`` with the counts at 0 →
+    (losses, step seconds, launches, staging seconds, programs captured,
+    peak GiB, grad norms)."""
+    from deepspeed_tpu_torch.comm import torch as ctorch
+
+    eng, *_ = dtt.initialize(model=gpt2.make_module(cfg), config=dict(conf), seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    ctorch.reset_staging()
+    losses, step_s, norms = [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        m = eng.train_batch(batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    staged = dict(ctorch.STAGING)
+    captured = [p.captures for p in eng._programs.values()]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(all(np.isfinite(losses)), f"{label}: non-finite losses {losses}")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, step_s, launches, staged, captured, peak, norms
+
+
+def phase31_rank(rank: int, world: int, port: int, out_dir: str) -> None:
+    """One of phase 31b's ranks (``chip_smoke.py --phase31-rank``): a gloo
+    group on the card it shares with the other rank. (a) ring flash at
+    gpt2-medium's attention shape, forward and backward, against its plain
+    version and against the one-process flash kernels on the whole
+    sequence; (b) the three training runs of :data:`PHASE31_RUNS`. The
+    records to ``out_dir/rank{rank}.json``."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.comm import torch as ctorch
+    from deepspeed_tpu_torch.ops import ring_flash_attention as rfa
+    from deepspeed_tpu_torch.parallel import MeshSpec
+    from deepspeed_tpu_torch.parallel.sequence import sequence_parallel_attention
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(1)
+    comm.init_distributed(dist_backend="gloo", init_method=f"tcp://127.0.0.1:{port}",
+                          rank=rank, world_size=world, verbose=False)
+    out = {}
+    # (a) the ring against its plain version and the one-process kernels
+    mesh = MeshSpec(dp=1, sp=world).build_mesh()
+    group = mesh.group("sp")
+    a = PHASE31_ATTN
+    q, k, v, do = flash_case(a["B"], a["S"], a["H"], a["H"], a["D"], torch.bfloat16, seed=31)
+    c = a["S"] // world
+    sl = slice(rank * c, (rank + 1) * c)
+    qs, ks, vs, dos = (x[:, sl].contiguous() for x in (q, k, v, do))
+    scale = 1.0 / a["D"] ** 0.5
+    leaves = [x.detach().requires_grad_(True) for x in (qs, ks, vs)]
+    before = LAUNCHES["ring_flash_attention"]
+    o = rfa.ring_flash_attention(*leaves, group)
+    grads = torch.autograd.grad(o, leaves, dos)
+    out["ring_launches_a_call"] = LAUNCHES["ring_flash_attention"] - before
+    po, plse = rfa._ring_fwd(qs, ks, vs, group, scale, True, fwd=fa.flash_attention_fwd_ref)
+    pgrads = rfa._ring_bwd(qs, ks, vs, po.to(qs.dtype), plse, dos, group, scale, True,
+                           bwd=fa.flash_attention_bwd_ref)
+    fo, flse = fa.flash_attention_fwd(q, k, v)
+    fgrads = fa.flash_attention_bwd(q, k, v, fo, flse, do)
+    err = lambda x, y: float((x.detach().float() - y.float()).abs().max())
+    out["err_plain"] = {n: err(x, y) for n, x, y in zip(("o", "dq", "dk", "dv"),
+                                                        (o, *grads), (po, *pgrads))}
+    out["err_one_process"] = {n: err(x, y[:, sl]) for n, x, y in zip(
+        ("o", "dq", "dk", "dv"), (o, *grads), (fo, *fgrads))}
+    out["scale_one_process"] = {n: float(y[:, sl].float().abs().max()) for n, y in zip(
+        ("o", "dq", "dk", "dv"), (fo, *fgrads))}
+    # a ring call's time on this rank: CUDA events around forward and
+    # backward (both ranks run it together), the gloo staging on the host
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    reps, fwd_ms, fb_ms = 5, [], []
+    ctorch.reset_staging()
+    for _ in range(reps):
+        comm.barrier()
+        ev[0].record()
+        o = rfa.ring_flash_attention(*leaves, group)
+        ev[1].record()
+        torch.autograd.grad(o, leaves, dos)
+        ev[2].record()
+        torch.cuda.synchronize()
+        fwd_ms.append(ev[0].elapsed_time(ev[1]))
+        fb_ms.append(ev[0].elapsed_time(ev[2]))
+    out["ring_call_ms"] = {"fwd": statistics.median(fwd_ms), "fwd_bwd": statistics.median(fb_ms)}
+    out["staging_a_call"] = {"calls": ctorch.STAGING["calls"] / reps,
+                             "ms": ctorch.STAGING["seconds"] * 1e3 / reps}
+    # "ring" at a ragged shard (S_loc 200, no multiple of the 128 tile)
+    # runs the flash kernels too, against the plain ring; a head dim the
+    # kernels lack raises on the card
+    rq, rk, rv, rdo = flash_case(2, 200 * world, 16, 16, a["D"], torch.bfloat16, seed=33)
+    rsl = slice(rank * 200, (rank + 1) * 200)
+    rleaves = [x[:, rsl].contiguous().requires_grad_(True) for x in (rq, rk, rv)]
+    rdos = rdo[:, rsl].contiguous()
+    before = LAUNCHES["ring_flash_attention"]
+    ro = sequence_parallel_attention(*rleaves, mesh, impl="ring")
+    rgrads = torch.autograd.grad(ro, rleaves, rdos)
+    out["ragged_launches"] = LAUNCHES["ring_flash_attention"] - before
+    rpo, rplse = rfa._ring_fwd(*(x.detach() for x in rleaves), group, scale, True,
+                               fwd=fa.flash_attention_fwd_ref)
+    rpg = rfa._ring_bwd(*(x.detach() for x in rleaves), rpo, rplse, rdos, group, scale, True,
+                        bwd=fa.flash_attention_bwd_ref)
+    out["err_ragged"] = {n: err(x, y) for n, x, y in zip(("o", "dq", "dk", "dv"),
+                                                         (ro, *rgrads), (rpo, *rpg))}
+    try:
+        z = torch.zeros(1, 128, 2, 48, dtype=torch.bfloat16, device="cuda")
+        sequence_parallel_attention(z, z, z, mesh, impl="ring")
+        out["d48_raises"] = False
+    except ValueError:
+        out["d48_raises"] = True
+    del rq, rk, rv, rdo, rleaves, rdos, ro, rgrads, rpo, rpg
+    del q, k, v, do, fo, fgrads, leaves, o, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (b) training over sp and tp
+    batch = phase31_batch(50257, PHASE31_MICRO, PHASE31_SEQ)
+    for name, overrides, extra in PHASE31_RUNS:
+        losses, step_s, launches, staged, captured, peak, norms = phase31_train(
+            f"31b {name}", phase31_config(**overrides), dict(PHASE31_CONF, **extra), batch,
+            PHASE31_STEPS)
+        out[name] = {"losses": losses, "step_s": step_s, "launches": launches,
+                     "staging": staged, "captured": captured, "peak_gib": peak,
+                     "grad_norms": norms}
+    comm.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def flash_bound_parts(q, causal, backward):
+    """(bytes ms, operations ms) of one flash call (:func:`flash_bound`'s
+    two times)."""
+    B, S, H, D = q.shape
+    it = q.element_size()
+    qo = B * S * H * D * it
+    nbytes = (8 * qo if backward else 4 * qo) + B * H * S * 4
+    flops = 2 * D * (5 if backward else 2) * B * H * visible_pairs(S, causal, None)
+    return nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_OPS_PER_S[q.dtype] * 1e3
+
+
+def sp_tp_phase(smi):
+    """Phase 31: (a) world 1 over NCCL, ``mesh {sp: 1, tp: 1}`` against the
+    default engine bit for bit, captured; (b) two processes sharing the card
+    over gloo: ring flash at gpt2-medium's attention shape, then gpt2-medium
+    training at dp 1 x sp 2 (ring flash, Ulysses) and dp 1 x tp 2
+    (partitioned activation checkpoints) against the one-process dense run.
+    → the ring's entry of the kernels line."""
+    from deepspeed_tpu_torch import comm
+
+    t_phase = time.perf_counter()
+    phase("31a", "world 1 over NCCL: mesh {sp: 1, tp: 1} against the default engine, "
+                 "gpt2-medium width (4 layers) bf16, captured")
+    cfg4 = phase31_config(n_layer=4)
+    batch4 = phase31_batch(cfg4.vocab_size, PHASE31_MICRO, 512)
+    ref = phase31_train("31a default", cfg4, PHASE31_CONF, batch4, PHASE31_STEPS)
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(free_port()))
+    comm.init_distributed(dist_backend="nccl", verbose=False)
+    one = phase31_train("31a mesh", cfg4, dict(PHASE31_CONF, mesh={"sp": 1, "tp": 1}), batch4,
+                        PHASE31_STEPS)
+    comm.destroy_process_group()
+    check(one[0] == ref[0], f"31a: losses {one[0]} != the default engine's {ref[0]}")
+    check(all(one[4]) and all(ref[4]), f"31a: programs not captured ({one[4]}, {ref[4]})")
+    check(one[2] == ref[2], f"31a: launches {one[2]} != {ref[2]}")
+    print(f"31a: mesh {{sp: 1, tp: 1}} over NCCL = the default engine bit for bit: losses "
+          f"{one[0]}, launches {one[2]}, captured {one[4]}; step ms {one[1][-1] * 1e3:.1f} "
+          f"(default {ref[1][-1] * 1e3:.1f}) ({smi})")
+
+    phase("31b", "two processes sharing the card over gloo: ring flash at gpt2-medium's "
+                 "attention shape; gpt2-medium bf16 training at dp 1 x sp 2 (ring flash, "
+                 "Ulysses) and dp 1 x tp 2 (partitioned activation checkpoints), against the "
+                 "one-process dense run")
+    cfg = phase31_config()
+    batch = phase31_batch(50257, PHASE31_MICRO, PHASE31_SEQ)
+    dense = phase31_train("31b dense", cfg, PHASE31_CONF, batch, PHASE31_STEPS)
+    print(f"31b dense (one process, captured): {cfg.n_layer} layers (full depth, no cut), "
+          f"S{PHASE31_SEQ} x {PHASE31_MICRO}, losses {dense[0]}, grad norms {dense[6]}, "
+          f"step ms "
+          f"{dense[1][-1] * 1e3:.1f}, peak {dense[5]:.2f} GiB ({smi})")
+    with tempfile.TemporaryDirectory() as d:
+        port = free_port()
+        logs = [open(os.path.join(d, f"log{r}.txt"), "w") for r in range(2)]
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--phase31-rank",
+                                   str(r), "2", str(port), d], stdout=logs[r], stderr=logs[r])
+                 for r in range(2)]
+        try:
+            for p in procs:
+                p.wait(timeout=420)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.close()
+        for r, p in enumerate(procs):
+            if p.returncode != 0:
+                print(open(os.path.join(d, f"log{r}.txt")).read()[-6000:])
+            check(p.returncode == 0, f"31b: rank {r} exited {p.returncode}")
+        got = [json.load(open(os.path.join(d, f"rank{r}.json"))) for r in range(2)]
+    ring_err = 0.0
+    for r, rec in enumerate(got):
+        for n, e in rec["err_plain"].items():
+            check(e <= FLASH_TOL[torch.bfloat16], f"31b rank {r}: ring {n} against its plain "
+                                                  f"version {e}")
+            ring_err = max(ring_err, e)
+        for n, e in rec["err_one_process"].items():
+            check(e <= FLASH_TOL[torch.bfloat16]
+                  and e <= FLASH_REL_TOL[torch.bfloat16] * max(rec["scale_one_process"][n], 1e-3),
+                  f"31b rank {r}: ring {n} against the one-process kernels {e}")
+        check(rec["ring_launches_a_call"] == 2 * (r + 1),
+              f"31b rank {r}: {rec['ring_launches_a_call']} flash launches a ring call, "
+              f"expected {2 * (r + 1)}")
+        for n, e in rec["err_ragged"].items():
+            check(e <= FLASH_TOL[torch.bfloat16], f"31b rank {r}: ragged ring {n} against "
+                                                  f"the plain ring {e}")
+        check(rec["ragged_launches"] == 2 * (r + 1),
+              f"31b rank {r}: the ragged ring made {rec['ragged_launches']} flash launches, "
+              f"expected {2 * (r + 1)}")
+        check(rec["d48_raises"], f"31b rank {r}: the ring at D48 on the card did not raise")
+        print(f"31b rank {r} ring flash B{PHASE31_ATTN['B']} S{PHASE31_ATTN['S']} (S_loc "
+              f"{PHASE31_ATTN['S'] // 2}) H16 D64 bf16: max abs err against its plain version "
+              + ", ".join(f"{n} {e:.3e}" for n, e in rec["err_plain"].items())
+              + "; against the one-process kernels on the whole sequence "
+              + ", ".join(f"{n} {e:.3e}" for n, e in rec["err_one_process"].items())
+              + f"; {rec['ring_launches_a_call']} flash launches a call (forward + backward); "
+              f"a call {rec['ring_call_ms']['fwd']:.3f} ms forward, "
+              f"{rec['ring_call_ms']['fwd_bwd']:.3f} ms forward + backward (CUDA events), of "
+              f"which gloo staging {rec['staging_a_call']['ms']:.3f} ms in "
+              f"{rec['staging_a_call']['calls']:.0f} staged moves (host clock, from the "
+              f"card's queue drained: copies, transfer and the wait on the peer) ({smi})")
+        print(f"31b rank {r} \"ring\" at a ragged shard (B2 S_loc 200 H16 D64 bf16): "
+              f"{rec['ragged_launches']} flash launches, max abs err against the plain ring "
+              + ", ".join(f"{n} {e:.3e}" for n, e in rec["err_ragged"].items())
+              + "; the ring at D48 on the card raises ValueError")
+    ring_launches = 0
+    for name, _, _ in PHASE31_RUNS:
+        for r, rec in enumerate(got):
+            x = rec[name]
+            dl = max(abs(a - b) / abs(b) for a, b in zip(x["losses"], dense[0]))
+            check(dl <= PHASE31_LOSS_TOL,
+                  f"31b {name} rank {r}: losses {x['losses']} against the dense run's "
+                  f"{dense[0]}: relative {dl:.2e} > {PHASE31_LOSS_TOL}")
+            dn = max(abs(a - b) / abs(b) for a, b in zip(x["grad_norms"], dense[6]))
+            check(dn <= PHASE31_GNORM_TOL,
+                  f"31b {name} rank {r}: grad norms {x['grad_norms']} against the dense "
+                  f"run's {dense[6]}: relative {dn:.2e} > {PHASE31_GNORM_TOL}")
+            check(not any(x["captured"]), f"31b {name}: a gloo program captured")
+            L = cfg.n_layer
+            want = {"fused_adamw": PHASE31_STEPS}
+            if name.startswith("sp2 ring"):
+                want["ring_flash_attention"] = PHASE31_STEPS * L * 2 * (r + 1)
+                ring_launches = max(ring_launches, x["launches"].get("ring_flash_attention", 0))
+            else:
+                # Ulysses: the whole sequence of its 8 heads; tp: its 8 heads,
+                # the forward twice under full remat
+                fwd = L * (2 if "tp2" in name else 1)
+                want["flash_attention_fwd"] = PHASE31_STEPS * fwd
+                want["flash_attention_bwd"] = PHASE31_STEPS * L
+            for kname, n in want.items():
+                check(x["launches"].get(kname, 0) == n,
+                      f"31b {name} rank {r}: {kname} launches {x['launches'].get(kname, 0)}, "
+                      f"expected {n}")
+            st = x["staging"]
+            print(f"31b {name} rank {r}: losses {[round(v, 5) for v in x['losses']]} (dense "
+                  f"{[round(v, 5) for v in dense[0]]}, max relative {dl:.2e}), grad norms "
+                  f"{[round(v, 5) for v in x['grad_norms']]} (dense "
+                  f"{[round(v, 5) for v in dense[6]]}, max relative {dn:.2e}), eager (gloo "
+                  f"group: no capture), step ms {[round(t * 1e3, 1) for t in x['step_s']]}, of "
+                  f"which gloo staging {st['seconds'] * 1e3 / PHASE31_STEPS:.1f} ms a step in "
+                  f"{st['calls'] / PHASE31_STEPS:.0f} moves, launches {x['launches']}, peak "
+                  f"{x['peak_gib']:.2f} GiB ({smi})")
+    # the ring's kernels at this run's per-step shapes on the slowest rank
+    # (rank 1 of 2: the diagonal step, causal, and one full step, non-causal,
+    # each forward and backward), device time by CUDA events
+    B, S, H, D = (PHASE31_ATTN[k] for k in ("B", "S", "H", "D"))
+    q, k, v, do = flash_case(B, S // 2, H, H, D, torch.bfloat16, seed=32)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    parts = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0, "ops": 0.0}
+    for causal in (True, False):
+        o, lse = fa.flash_attention_fwd(q, k, v, causal)
+        parts["ms"] += time_ms(lambda i: fa.flash_attention_fwd(q, k, v, causal), 40)[0]
+        parts["ms"] += time_ms(lambda i: fa.flash_attention_bwd(q, k, v, o, lse, do, causal),
+                               20)[0]
+        parts["plain_ms"] += time_ms(lambda i: fa.flash_attention_fwd_ref(q, k, v, causal), 4,
+                                     warmup=1)[0]
+        parts["plain_ms"] += time_ms(lambda i: fa.flash_attention_bwd_ref(
+            q, k, v, o, lse, do, causal), 4, warmup=1)[0]
+
+        def lib(_, causal=causal):
+            out = F.scaled_dot_product_attention(*(x.transpose(1, 2) for x in leaves),
+                                                 is_causal=causal)
+            return torch.autograd.grad(out, leaves, do.transpose(1, 2))
+
+        parts["library_ms"] += time_ms(lib, 20)[0]
+        for backward in (False, True):
+            tb, to = flash_bound_parts(q, causal, backward)
+            parts["bytes"] += tb
+            parts["ops"] += to
+    bound_ms = max(parts["bytes"], parts["ops"])
+    bound_by = "bytes" if parts["bytes"] >= parts["ops"] else "operations"
+    del q, k, v, do, leaves, qt, kt, vt
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"ring_flash_attention, one call's flash launches on the slowest rank (diagonal + "
+          f"one full step, forward + backward, B{B} S_loc {S // 2} H{H} D{D} bf16), device ms: "
+          f"kernels {parts['ms']:.4f}, plain {parts['plain_ms']:.4f}, library (SDPA forward + "
+          f"backward at the same steps) {parts['library_ms']:.4f}, bound {bound_ms:.5f} "
+          f"({bound_by}), kernels at {bound_ms / parts['ms']:.3f} of bound; gloo staging of a "
+          f"call beside them {got[1]['staging_a_call']['ms']:.3f} ms ({smi})")
+    print(f"phase 31: {time.perf_counter() - t_phase:.1f} s")
+    return {"name": "ring_flash_attention", "route": "cuda",
+            "source": "deepspeed_tpu_torch/ops/ring_flash_attention.py",
+            "replaces": "deepspeed_tpu/ops/pallas/ring_flash_attention.py:172",
+            "launches": ring_launches, "max_abs_err": ring_err, "ms": parts["ms"],
+            "plain_ms": parts["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": parts["library_ms"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; the port's smoke run needs the card",
@@ -5570,6 +5982,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    phase(31, "training over the sp and tp mesh axes: ring flash, Ulysses and tensor "
+              "parallelism with partitioned activation checkpoints, gpt2-medium (the slice's "
+              "path)")
+    ring31 = sp_tp_phase(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     phase(8, "summary")
     print(f"chip_smoke.py total {time.perf_counter() - t_script:.1f} s (builds included; {smi})")
     # launches: each kernel's (and mode's) count on the path of the slice
@@ -5723,7 +6142,7 @@ def main() -> int:
         "replaces": "deepspeed_tpu/ops/sampling.py:70",
         "launches": uni_launches,
         **times16["uniform_rows"],
-    }]}))
+    }, ring31]}))
     # the run uses one card, whatever the machine holds
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1,
@@ -5735,6 +6154,10 @@ if __name__ == "__main__":
     if len(sys.argv) > 1 and sys.argv[1] == "--phase29-rank":
         # one of phase 29b's two ranks, started by placement_phase
         phase29_rank(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5])
+        sys.exit(0)
+    if len(sys.argv) > 1 and sys.argv[1] == "--phase31-rank":
+        # one of phase 31b's two ranks, started by sp_tp_phase
+        phase31_rank(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5])
         sys.exit(0)
     if len(sys.argv) > 1 and sys.argv[1] == "--phase29c-rank":
         # one of phase 29c's four ranks, started by fleet_placement_phase

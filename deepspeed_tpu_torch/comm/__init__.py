@@ -10,12 +10,14 @@ from .comm import (
     all_gather,
     all_reduce,
     all_to_all,
+    all_to_all_grad,
     axis_index,
     axis_size,
     barrier,
     broadcast,
     comms_logger,
     configure,
+    copy_to_group,
     destroy_process_group,
     get_local_rank,
     get_rank,
@@ -28,6 +30,7 @@ from .comm import (
     ppermute,
     record,
     reduce_scatter,
+    reduce_from_group,
     ring_shift,
     send_recv,
     subgroup,

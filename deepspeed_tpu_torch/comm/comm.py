@@ -29,13 +29,16 @@ from .torch import (  # noqa: F401  (re-exported primitives)
     all_gather,
     all_reduce,
     all_to_all,
+    all_to_all_grad,
     axis_index,
     axis_size,
     barrier,
     broadcast,
+    copy_to_group,
     group_name,
     name_group,
     ppermute,
+    reduce_from_group,
     reduce_scatter,
     ring_shift,
     send_recv,

@@ -28,11 +28,29 @@ KV handoff, where the JAX package calls ``device_put`` across placements) and
 Gloo moves host memory. Its ``all_reduce`` and ``broadcast`` take CUDA
 tensors themselves (gloo stages them through pinned buffers, ordered
 with the current stream), so :func:`all_reduce` and :func:`broadcast`
-hand them over as they are. Its send and receive do not:
-:func:`send_recv` sends a CUDA tensor on a gloo group from a pinned host
-copy and receives it into a pinned host buffer. That is a property of
-the transport, not a fallback: a CUDA tensor on a gloo group always
-takes it, and nothing else does.
+hand them over as they are. Its send, receive, all-gather,
+reduce-scatter and all-to-all do not: :func:`send_recv`,
+:func:`ppermute` / :func:`ring_shift`, :func:`all_gather`,
+:func:`reduce_scatter` and :func:`all_to_all` move a CUDA tensor on a
+gloo group from a pinned host copy into a pinned host buffer, then back
+to the card. That is a property of the transport, not a fallback: a CUDA
+tensor on a gloo group always takes it, and nothing else does. Each
+staged call adds its seconds to :data:`STAGING` (the host copies, the
+transfer and the wait on the peers, timed on the host from the moment
+the card's queued work is done: the caller's measure of what loopback
+costs beside the kernels).
+
+Training differentiates through some collectives. :func:`all_to_all_grad`
+(backward: the all-to-all with split and concat swapped), and Megatron's
+pair for tensor parallelism, :func:`copy_to_group` (identity forward,
+all-reduce backward: a column-parallel layer's input) and
+:func:`reduce_from_group` (all-reduce forward, identity backward: a
+row-parallel layer's output), are ``torch.autograd.Function`` forms of
+the calls above. Autograd runs a collective's backward only where the
+rank's graph used its output, so every rank's graph must use it alike;
+the sequence-parallel rings, whose causal masks skip blocks by rank, are
+whole Functions with explicit backward rings instead of a differentiable
+``ring_shift``.
 
 A dim other than 0 is moved to the front (one contiguous copy) so that the
 collective's flat layout is rank-major, as ``tiled`` JAX collectives lay
@@ -42,6 +60,7 @@ out their shards. Each call records its input's bytes in the comms logger
 
 from __future__ import annotations
 
+import time
 import warnings
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -128,9 +147,37 @@ _TORCH_OPS = {"sum": dist.ReduceOp.SUM, "mean": dist.ReduceOp.SUM, "max": dist.R
 
 
 def _through_host(x: torch.Tensor, group) -> bool:
-    """A CUDA tensor on a gloo group: a point-to-point move goes through a
-    pinned host copy (gloo's send and receive read host memory)."""
+    """A CUDA tensor on a gloo group: a point-to-point move, an all-gather,
+    a reduce-scatter or an all-to-all goes through a pinned host copy
+    (gloo's send, receive and those collectives read host memory)."""
     return x.is_cuda and dist.get_backend(group) == "gloo"
+
+
+# the host staging of CUDA tensors on gloo groups: calls and seconds
+STAGING = {"calls": 0, "seconds": 0.0}
+
+
+def reset_staging() -> None:
+    STAGING.update(calls=0, seconds=0.0)
+
+
+def _staged(x: torch.Tensor, group, fn):
+    """``fn(x)`` for a collective that reads and writes host memory: a CUDA
+    tensor on a gloo group goes down to a pinned host copy and the result
+    comes back to x's device (timed into :data:`STAGING`: from the moment
+    the device's queued work is done, so it holds the copies, the
+    transfer and the wait on the peers inside gloo, not this rank's
+    compute); anything else is handed over as it is."""
+    if not _through_host(x, group):
+        return fn(x)
+    torch.cuda.current_stream(x.device).synchronize()
+    t0 = time.perf_counter()
+    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    host.copy_(x)
+    out = fn(host).to(x.device)
+    STAGING["calls"] += 1
+    STAGING["seconds"] += time.perf_counter() - t0
+    return out
 
 
 def all_reduce(x: torch.Tensor, group=None, op: str = "sum") -> torch.Tensor:
@@ -167,9 +214,13 @@ def all_gather(x: torch.Tensor, group=None, *, gather_dim: int = 0,
     stacked in a new dim there → a new tensor."""
     _record("all_gather", group, x)
     n = dist.get_world_size(group)
-    out = x.new_empty((n * x.numel(),))
-    dist.all_gather_into_tensor(out, x.contiguous().view(-1), group=group)
-    rows = out.view((n,) + tuple(x.shape))
+
+    def gather(t):
+        out = t.new_empty((n * t.numel(),))
+        dist.all_gather_into_tensor(out, t.contiguous().view(-1), group=group)
+        return out
+
+    rows = _staged(x, group, gather).view((n,) + tuple(x.shape))
     if not tiled:
         return rows.movedim(0, gather_dim % (x.dim() + 1))
     return _from_front(rows, gather_dim)
@@ -184,9 +235,13 @@ def reduce_scatter(x: torch.Tensor, group=None, *, scatter_dim: int = 0,
     _record("reduce_scatter", group, x)
     n = dist.get_world_size(group)
     rows = _to_front(x, scatter_dim, n)
-    out = x.new_empty((rows[0].numel(),))
-    dist.reduce_scatter_tensor(out, rows.view(-1), op=dist.ReduceOp.SUM, group=group)
-    return out.view(rows.shape[1:])
+
+    def scatter(t):
+        out = t.new_empty((t[0].numel(),))
+        dist.reduce_scatter_tensor(out, t.view(-1), op=dist.ReduceOp.SUM, group=group)
+        return out
+
+    return _staged(rows, group, scatter).view(rows.shape[1:])
 
 
 def all_to_all(x: torch.Tensor, group=None, *, split_dim: int, concat_dim: int,
@@ -199,9 +254,13 @@ def all_to_all(x: torch.Tensor, group=None, *, split_dim: int, concat_dim: int,
     _record("all_to_all", group, x)
     n = dist.get_world_size(group)
     rows = _to_front(x, split_dim, n)
-    out = torch.empty_like(rows)
-    dist.all_to_all_single(out, rows, group=group)
-    return _from_front(out, concat_dim)
+
+    def exchange(t):
+        out = torch.empty_like(t)
+        dist.all_to_all_single(out, t, group=group)
+        return out
+
+    return _from_front(_staged(rows, group, exchange), concat_dim)
 
 
 def broadcast(x: torch.Tensor, group=None, root: int = 0) -> torch.Tensor:
@@ -277,25 +336,30 @@ def ppermute(x: torch.Tensor, group=None,
 
 
 def _permute(x: torch.Tensor, group, perm) -> torch.Tensor:
+    """The moves of ``perm`` (a CUDA tensor on gloo through pinned host
+    buffers, :func:`_staged`)."""
     me = dist.get_rank(group)
-    out = torch.zeros_like(x)
-    x = x.contiguous()
 
     def glob(r):
         return r if group is None else dist.get_global_rank(group, r)
 
-    ops = []
-    for src, dst in perm:
-        if src == me and dst == me:
-            out.copy_(x)
-        elif src == me:
-            ops.append(dist.P2POp(dist.isend, x, glob(dst), group))
-        elif dst == me:
-            ops.append(dist.P2POp(dist.irecv, out, glob(src), group))
-    if ops:
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-    return out
+    def move(t):
+        t = t.contiguous()
+        out = torch.zeros_like(t)
+        ops = []
+        for src, dst in perm:
+            if src == me and dst == me:
+                out.copy_(t)
+            elif src == me:
+                ops.append(dist.P2POp(dist.isend, t, glob(dst), group))
+            elif dst == me:
+                ops.append(dist.P2POp(dist.irecv, out, glob(src), group))
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        return out
+
+    return _staged(x, group, move)
 
 
 def ring_shift(x: torch.Tensor, group=None, shift: int = 1,
@@ -304,6 +368,65 @@ def ring_shift(x: torch.Tensor, group=None, shift: int = 1,
     ``ring_shift`` goes to ``lax.ppermute`` directly."""
     n = axis_size if axis_size is not None else dist.get_world_size(group)
     return _permute(x, group, [(i, (i + shift) % n) for i in range(n)])
+
+
+# ---------------------------------------------------------------------------
+# differentiable forms (training through a collective)
+# ---------------------------------------------------------------------------
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_dim, concat_dim):
+        ctx.group, ctx.dims = group, (split_dim, concat_dim)
+        return all_to_all(x, group, split_dim=split_dim, concat_dim=concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim = ctx.dims
+        return all_to_all(g.contiguous(), ctx.group, split_dim=concat_dim,
+                          concat_dim=split_dim), None, None, None
+
+
+def all_to_all_grad(x: torch.Tensor, group=None, *, split_dim: int,
+                    concat_dim: int) -> torch.Tensor:
+    """:func:`all_to_all` (tiled) whose backward is the all-to-all with the
+    split and concat dims swapped."""
+    return _AllToAll.apply(x, group, int(split_dim), int(concat_dim))
+
+
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.group), None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's ``f``: ``x`` itself forward, the gradient all-reduced
+    (summed) over ``group`` backward: the replicated input of a
+    column-parallel layer, whose ranks each see a part of its gradient."""
+    return _CopyToGroup.apply(x, group)
+
+
+def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's ``g``: ``x`` all-reduced (summed) over ``group`` forward,
+    the gradient as it is backward: a row-parallel layer's partial
+    products, whose sum every rank then holds."""
+    return _ReduceFromGroup.apply(x, group)
 
 
 def axis_index(group=None) -> int:

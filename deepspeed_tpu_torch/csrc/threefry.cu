@@ -207,16 +207,24 @@ __device__ __forceinline__ void drop_range(const T* __restrict__ x, T* __restric
 
 // key: the key's two words, then (key_words 4) the shard index s as two
 // words (low, high): x is elements [s * n, (s + 1) * n) of the draw, as a
-// rank's slice of a batch split over data parallelism
+// rank's slice of a batch split over data parallelism; then (key_words 6)
+// a row stride t: x is gridDim.y rows of n elements, row r = blockIdx.y at
+// elements [(r t + s) n, (r t + s + 1) n), a rank's slice of rows whose
+// columns are also split over sequence parallelism
 template <typename T, bool MUL, typename I>
 __global__ void __launch_bounds__(kThreads)
 dropout_kernel(const T* __restrict__ x, T* __restrict__ y, I n, I head, I nvec,
                const uint32_t* __restrict__ key, int key_words, Drop d, uint32_t one) {
   const Key k = make_key(key[0], key[1], one);
+  const unsigned long long row = blockIdx.y;
+  x += row * static_cast<unsigned long long>(n);
+  y += row * static_cast<unsigned long long>(n);
   unsigned long long base = 0;
-  if (key_words == 4)
-    base = ((static_cast<unsigned long long>(key[3]) << 32) | key[2]) *
-           static_cast<unsigned long long>(n);
+  if (key_words >= 4) {
+    const unsigned long long s = (static_cast<unsigned long long>(key[3]) << 32) | key[2];
+    const unsigned long long t = key_words == 6 ? key[4] : 0ull;
+    base = (row * t + s) * static_cast<unsigned long long>(n);
+  }
   if (sizeof(I) == 4 && (base & 0xFFFFFFFFull) + static_cast<unsigned long long>(n) <= (1ull << 32)) {
     drop_range<T, MUL, I>(x, y, n, head, nvec, k,
                           NarrowCtr{static_cast<uint32_t>(base >> 32), static_cast<uint32_t>(base)},
@@ -265,18 +273,22 @@ long long grid_for(long long work) {
 }
 
 template <typename T, bool MUL>
-cudaError_t launch_dropout(const void* x, void* y, long long n, const uint32_t* key,
+cudaError_t launch_dropout(const void* x, void* y, long long n, int rows, const uint32_t* key,
                            int key_words, const Drop& d, cudaStream_t s) {
   constexpr int V = 16 / sizeof(T);
   const uintptr_t xa = reinterpret_cast<uintptr_t>(x), ya = reinterpret_cast<uintptr_t>(y);
-  // vectors only where x and y share their offset in 16 bytes
+  // vectors only where x and y share their offset in 16 bytes (in every
+  // row: a row's bytes a multiple of 16 when there are several)
   long long head = n, nvec = 0;
-  if ((xa ^ ya) % 16 == 0) {
+  if ((xa ^ ya) % 16 == 0 && (rows == 1 || (n * static_cast<long long>(sizeof(T))) % 16 == 0)) {
     head = static_cast<long long>((16 - xa % 16) % 16 / sizeof(T));
     head = head < n ? head : n;
     nvec = (n - head) / V;
   }
-  const dim3 grid(static_cast<unsigned int>(grid_for(nvec > 0 ? nvec : n)));
+  // grid_for's blocks a row, at most its cap over all rows
+  long long per_row = grid_for(nvec > 0 ? nvec : n);
+  if (per_row * rows > 132LL * 64) per_row = (132LL * 64) / rows > 0 ? (132LL * 64) / rows : 1;
+  const dim3 grid(static_cast<unsigned int>(per_row), static_cast<unsigned int>(rows));
   const T* xp = static_cast<const T*>(x);
   T* yp = static_cast<T*>(y);
   if (n < (1LL << 31)) {
@@ -293,18 +305,20 @@ cudaError_t launch_dropout(const void* x, void* y, long long n, const uint32_t* 
 
 }  // namespace
 
-// dtype: 0 float32, 1 float16, 2 bfloat16. key: key_words uint32 words on
-// the device, the key's two, then (key_words 4) the 64-bit shard index s of
-// x's slice of the draw, low word first (element i draws counter s * n +
-// i). thr: the keep threshold (keep iff bits <= thr); c: the
-// divisor; r: its f32 reciprocal, and mul = 1 when x * r rounds to the
-// correctly rounded quotient for every input of the dtype (16-bit dtypes
-// only)
-extern "C" int threefry_dropout_launch(const void* x, void* y, long long n, const void* key,
-                                       unsigned int thr, float c, float r, int mul, int dtype,
-                                       int key_words, void* stream) {
-  if (n <= 0) return 0;
-  if (key == nullptr || (key_words != 2 && key_words != 4))
+// dtype: 0 float32, 1 float16, 2 bfloat16. x: rows * n elements. key:
+// key_words uint32 words on the device, the key's two, then (key_words 4)
+// the 64-bit shard index s of x's slice of the draw, low word first
+// (element i draws counter s * n + i, rows 1), then (key_words 6) a row
+// stride t (element i of row r draws counter (r t + s) n + i). thr: the
+// keep threshold (keep iff bits <= thr); c: the divisor; r: its f32
+// reciprocal, and mul = 1 when x * r rounds to the correctly rounded
+// quotient for every input of the dtype (16-bit dtypes only)
+extern "C" int threefry_dropout_launch(const void* x, void* y, long long n, int rows,
+                                       const void* key, unsigned int thr, float c, float r,
+                                       int mul, int dtype, int key_words, void* stream) {
+  if (n <= 0 || rows <= 0) return 0;
+  if (key == nullptr || (key_words != 2 && key_words != 4 && key_words != 6) ||
+      rows > 65535 || (rows > 1 && key_words != 6))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Drop d{thr, c, r};
@@ -312,14 +326,14 @@ extern "C" int threefry_dropout_launch(const void* x, void* y, long long n, cons
   switch (dtype) {
     case 0:
       if (mul) return static_cast<int>(cudaErrorInvalidValue);
-      return static_cast<int>(launch_dropout<float, false>(x, y, n, k, key_words, d, s));
+      return static_cast<int>(launch_dropout<float, false>(x, y, n, rows, k, key_words, d, s));
     case 1:
-      return static_cast<int>(mul ? launch_dropout<__half, true>(x, y, n, k, key_words, d, s)
-                                  : launch_dropout<__half, false>(x, y, n, k, key_words, d, s));
+      return static_cast<int>(mul ? launch_dropout<__half, true>(x, y, n, rows, k, key_words, d, s)
+                                  : launch_dropout<__half, false>(x, y, n, rows, k, key_words, d, s));
     case 2:
       return static_cast<int>(
-          mul ? launch_dropout<__nv_bfloat16, true>(x, y, n, k, key_words, d, s)
-              : launch_dropout<__nv_bfloat16, false>(x, y, n, k, key_words, d, s));
+          mul ? launch_dropout<__nv_bfloat16, true>(x, y, n, rows, k, key_words, d, s)
+              : launch_dropout<__nv_bfloat16, false>(x, y, n, rows, k, key_words, d, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -33,10 +33,32 @@ loss the device table, whose rows the dropout kernel reads where they lie.
 ``generate`` samples with JAX's keys:
 the first token with ``rng``, step t with ``split(fold_in(rng, 1), N -
 1)[t - 1]``.
+
+Sequence and tensor parallelism (the ``sp`` and ``tp`` axes of the engine's
+mesh, active while its step runs). GSPMD did three
+things for the JAX trunk that this one does explicitly under ``sp``: rank r
+embeds positions ``[r S_loc, (r + 1) S_loc)``; the labels arrive shifted on
+the whole host batch (the engine's ``"__labels__"`` leaf, from
+:func:`next_token_labels`), so a shard's last position is labelled by the
+next shard's first token; and the loss divides by the global token count.
+``attn_impl`` "ring", "ring_flash" and "ulysses" go through
+``parallel.sequence.sequence_parallel_attention``. Under ``tp`` each rank
+holds its Megatron slices (:func:`logical_axes` under the rules of
+``runtime.zero.partitioning``, the fused QKV regrouped so that a slice is
+``[Q_r | K_r | V_r]``): the vocab-parallel embedding (a masked lookup,
+then an all-reduce) and tied head with its cross-entropy (the max, the
+exp-sum and the target logit each reduced over tp), column-parallel
+``c_attn`` and ``c_fc`` behind ``comm.copy_to_group``, row-parallel
+``c_proj`` reduced by ``comm.reduce_from_group``, attention over the local
+heads. ``partition_activations`` keeps each remat block's saved input as
+this rank's ``1/tp`` slice of E (all-gathered in backward) and
+``cpu_checkpointing`` keeps it in pinned host memory
+(``runtime.activation_checkpointing.boundary_checkpoint``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 from dataclasses import dataclass
@@ -47,25 +69,32 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..comm.torch import all_reduce
+from ..comm.torch import all_gather, all_reduce, copy_to_group, reduce_from_group
 from ..ops import block_sparse_attention as bsa
 from ..ops import flash_attention as fa
 from ..ops import prng
 from ..ops.dropout import dropout as _dropout_op
 from ..ops.attention import cached_attention, causal_attention
 from ..ops.layer_norm import layer_norm
+from ..ops import ring_flash_attention as rfa
 from ..ops.quantizer import maybe_dequantize
 from ..ops.sampling import sample_logits
 from ..ops.sparse_attention import FixedSparsityConfig, from_ds_config, sparse_attention
-from ..runtime.activation_checkpointing import POLICIES, checkpoint, selective_checkpoint
+from ..parallel import sequence as seqp
+from ..parallel.topology import current_mesh
+from ..runtime.activation_checkpointing import (
+    POLICIES,
+    boundary_checkpoint,
+    checkpoint,
+    selective_checkpoint,
+)
 from ..runtime.config import NotPortedError
 from ..runtime.module import ModuleSpec
-from .lm_loss import head_token_loss, loss_count
+from .lm_loss import head_token_loss, loss_count, next_token_labels
 
 PyTree = Any
 
-_ATTN_IMPLS = ("auto", "pallas", "jnp", "sparse")
-_UNPORTED_ATTN_IMPLS = ("ring", "ring_flash", "ulysses")
+_ATTN_IMPLS = ("auto", "pallas", "jnp", "sparse", "ring", "ring_flash", "ulysses")
 
 
 @dataclass(frozen=True)
@@ -93,13 +122,15 @@ class GPT2Config:
     # n_head), built from a config's ``sparse_attention`` section by
     # get_config(..., sparse_attention=section)
     sparsity: Any = None
+    # activation checkpointing (JAX's fields of the same names): under
+    # remat, keep each block's saved input as this rank's 1/tp slice of E
+    # (all-gathered in backward) and/or in pinned host memory
+    partition_activations: bool = False
+    cpu_checkpointing: bool = False
 
     def __post_init__(self):
         if self.moe_experts > 0:
             raise NotPortedError(f"moe_experts={self.moe_experts}: MoE is not ported yet "
-                                 "(ROADMAP queue 1 item 12)")
-        if self.attn_impl in _UNPORTED_ATTN_IMPLS:
-            raise NotPortedError(f"attn_impl={self.attn_impl!r} is not ported yet "
                                  "(ROADMAP queue 1 item 12)")
         if self.attn_impl not in _ATTN_IMPLS:
             raise ValueError(f"unknown attn_impl {self.attn_impl!r}")
@@ -206,7 +237,7 @@ def _dropout(x, rate: float, key, train: bool):
     return _dropout_op(x, key, rate)
 
 
-def _mlp(cfg: GPT2Config, lp, h, ops=None, tp_group=None):
+def _mlp(cfg: GPT2Config, lp, h, ops=None, tp_group=None, par=None):
     """Dense FFN: ``gelu_tanh(h @ c_fc_w + c_fc_b) @ c_proj_w + c_proj_b``
     (the tanh GELU matches ``jax.nn.gelu(approximate=True)``).
 
@@ -215,13 +246,18 @@ def _mlp(cfg: GPT2Config, lp, h, ops=None, tp_group=None):
     ``c_fc`` and row-parallel ``c_proj`` slices, and the partial product
     is all-reduced over the group in the compute dtype BEFORE the
     replicated bias is added once (a bias added on every rank would count
-    tp times). None, the default and every training caller, is the plain
-    graph."""
+    tp times). ``par``: the training trunk's :class:`_Parallel`; under tp
+    the same slices, with Megatron's differentiable pair around them. None
+    for both is the plain graph."""
+    if par is not None and par.tp_group is not None:
+        h = copy_to_group(h, par.tp_group)
     x = _dot(ops, h, lp["c_fc_w"]) + lp["c_fc_b"]
     x = F.gelu(x, approximate="tanh")
     out = _dot(ops, x, lp["c_proj_w"])
     if tp_group is not None:
         out = all_reduce(out, tp_group)
+    if par is not None and par.tp_group is not None:
+        out = reduce_from_group(out, par.tp_group)
     return out + lp["c_proj_b"]
 
 
@@ -229,12 +265,60 @@ def _mlp(cfg: GPT2Config, lp, h, ops=None, tp_group=None):
 # training trunk
 # ---------------------------------------------------------------------------
 
-def _attention_parts(cfg: GPT2Config, q):
+class _Parallel(NamedTuple):
+    """The trunk's view of the mesh: the sp and tp groups (None at size 1
+    or without a process group), this rank's coordinates and the sizes."""
+
+    mesh: Any
+    sp_group: Any
+    sp_rank: int
+    sp: int
+    tp_group: Any
+    tp_rank: int
+    tp: int
+
+
+_SERIAL = _Parallel(None, None, 0, 1, None, 0, 1)
+
+
+def _parallel(cfg: GPT2Config) -> _Parallel:
+    """The sp and tp groups of the mesh the trunk runs in: the engine's,
+    active while its step runs (JAX's models read ``cfg.mesh``)."""
+    mesh = current_mesh()
+    if mesh is None:
+        return _SERIAL
+    sp_g, tp_g = mesh.group_or_none("sp"), mesh.group_or_none("tp")
+    if tp_g is not None:
+        for what, n in (("n_head", cfg.n_head), ("4 n_embd", 4 * cfg.n_embd),
+                        ("padded_vocab_size", cfg.padded_vocab_size)):
+            if n % mesh.size("tp"):
+                raise ValueError(f"tp={mesh.size('tp')} must divide {what} ({n})"
+                                 + ("; set pad_vocab_multiple" if "vocab" in what else ""))
+    return _Parallel(mesh, sp_g, mesh.axis_rank("sp") if sp_g is not None else 0,
+                     mesh.size("sp") if sp_g is not None else 1,
+                     tp_g, mesh.axis_rank("tp") if tp_g is not None else 0,
+                     mesh.size("tp") if tp_g is not None else 1)
+
+
+def _attention_parts(cfg: GPT2Config, q, par: _Parallel = _SERIAL):
     """The trunk's attention for q's device as ``(forward, backward,
     options)``, which a selective remat calls apart: the flash or
-    block-sparse kernels on the card, their plain versions on the CPU."""
+    block-sparse kernels on the card, their plain versions on the CPU; under
+    sp the ring of flash steps (of their plain versions on the CPU). None:
+    Ulysses, which the remat then recomputes whole."""
     if q.device.type == "cuda" and cfg.attn_impl == "jnp":
         raise ValueError("attn_impl='jnp' (the plain version) does not run on the card")
+    if cfg.attn_impl in seqp.IMPLS and par.sp_group is not None:
+        impl = seqp.resolve_impl(cfg.attn_impl, q.shape[2], par.sp)
+        if impl == "ulysses":
+            return None
+        if impl == "ring_flash":
+            rfa.check_flash_shard(q.shape[1], q.shape[3])
+        elif q.is_cuda and q.shape[3] not in fa.HEAD_DIMS:
+            raise ValueError(f"ring attention on the card runs the flash kernels, which take "
+                             f"D in {fa.HEAD_DIMS} (got D={q.shape[3]})")
+        return (rfa._ring_fwd, rfa._ring_bwd,
+                (par.sp_group, 1.0 / math.sqrt(q.shape[3]), True))
     if cfg.attn_impl == "sparse":
         B, S, H, D = q.shape
         lists = bsa.index_lists(cfg.sparsity or FixedSparsityConfig(num_heads=H), S, q.device)
@@ -242,26 +326,36 @@ def _attention_parts(cfg: GPT2Config, q):
     return (*fa.forward_backward(q.device), (True, None, None))
 
 
-def _attention(cfg: GPT2Config, lp, h, ops=None):
+def _attention(cfg: GPT2Config, lp, h, ops=None, par: _Parallel = _SERIAL):
     """Causal self-attention of ``h [B, S, E]``: q, k and v are strided
     views of the ``[B, S, 3E]`` projection (no copies on the way into the
-    kernel)."""
+    kernel). Under tp, this rank's heads (``[Q_r | K_r | V_r]`` columns)
+    and its row slice of ``c_proj``, reduced over tp before the bias."""
     B, S, E = h.shape
-    H, D = cfg.n_head, cfg.head_dim
+    H, D = cfg.n_head // par.tp, cfg.head_dim
+    El = H * D
+    if par.tp_group is not None:
+        h = copy_to_group(h, par.tp_group)
     qkv = _dot(ops, h, lp["c_attn_w"]) + lp["c_attn_b"]
-    q, k, v = (x.unflatten(-1, (H, D)) for x in qkv.split(E, dim=-1))
-    if ops is not None:
+    q, k, v = (x.unflatten(-1, (H, D)) for x in qkv.split(El, dim=-1))
+    parts = _attention_parts(cfg, q, par) if ops is not None else None
+    if parts is not None:
         # the attention output, kept by every selective policy (JAX: "attn_out")
-        o = ops.attention(q, k, v, *_attention_parts(cfg, q))
+        o = ops.attention(q, k, v, *parts)
+    elif cfg.attn_impl in seqp.IMPLS:
+        o = seqp.sequence_parallel_attention(q, k, v, par.mesh, impl=cfg.attn_impl)
     elif cfg.attn_impl == "sparse":
         o = sparse_attention(q, k, v, cfg.sparsity or FixedSparsityConfig(num_heads=H),
                              causal=True)
     else:
         o = causal_attention(q, k, v, impl=cfg.attn_impl)
-    return _dot(ops, o.reshape(B, S, E), lp["c_proj_w"]) + lp["c_proj_b"]
+    out = _dot(ops, o.reshape(B, S, El), lp["c_proj_w"])
+    if par.tp_group is not None:
+        out = reduce_from_group(out, par.tp_group)
+    return out + lp["c_proj_b"]
 
 
-def _block(cfg: GPT2Config, lp, h, ops=None, key=None):
+def _block(cfg: GPT2Config, lp, h, ops=None, key=None, par: _Parallel = _SERIAL):
     """One block; ``key`` (the layer's ``[3, 2]`` split: attention
     dropout, MoE routing, MLP dropout) turns its dropouts on."""
     eps = cfg.layer_norm_epsilon
@@ -269,9 +363,10 @@ def _block(cfg: GPT2Config, lp, h, ops=None, key=None):
     if key is not None:
         r1, r3 = key[0], key[2]
     a = _attention(cfg, lp["attn"], layer_norm(h, lp["ln_1"]["scale"], lp["ln_1"]["bias"], eps),
-                   ops)
+                   ops, par)
     h = h + _dropout(a, cfg.dropout, r1, True)
-    m = _mlp(cfg, lp["mlp"], layer_norm(h, lp["ln_2"]["scale"], lp["ln_2"]["bias"], eps), ops)
+    m = _mlp(cfg, lp["mlp"], layer_norm(h, lp["ln_2"]["scale"], lp["ln_2"]["bias"], eps), ops,
+             par=par)
     return h + _dropout(m, cfg.dropout, r3, True)
 
 
@@ -311,13 +406,13 @@ def dropout_key_table(cfg: GPT2Config, rng) -> np.ndarray:
 
 def _is_key_table(cfg: GPT2Config, rng) -> bool:
     """A device key table: ``[1 + 3 n_layer, 2]`` int32, or ``[.., 4]``
-    with each row's shard index (``prng.shard_key``: a data-parallel
-    rank's slice of each draw)."""
+    / ``[.., 6]`` with each row's shard words (``prng.shard_key``: a
+    rank's slice of each draw over the global batch)."""
     if not prng.is_device_key(rng):
         return False
-    if rng.dim() != 2 or rng.shape[0] != 1 + 3 * cfg.n_layer or rng.shape[1] not in (2, 4):
+    if rng.dim() != 2 or rng.shape[0] != 1 + 3 * cfg.n_layer or rng.shape[1] not in (2, 4, 6):
         raise ValueError(f"a device key table for {cfg.n_layer} layers is "
-                         f"[{1 + 3 * cfg.n_layer}, 2 or 4] int32; got {tuple(rng.shape)}")
+                         f"[{1 + 3 * cfg.n_layer}, 2, 4 or 6] int32; got {tuple(rng.shape)}")
     return True
 
 
@@ -331,30 +426,62 @@ def hidden_with_aux(cfg: GPT2Config, params: PyTree, input_ids, train: bool = Fa
     draws the same masks from the same device keys."""
     B, S = input_ids.shape
     L = cfg.n_layer
-    h = params["wte"][input_ids] + params["wpe"][:S][None, :, :]
+    par = _parallel(cfg)
+    if par.sp_group is None and par.tp_group is None:
+        h = params["wte"][input_ids] + params["wpe"][:S][None, :, :]
+    else:
+        # rank r of sp embeds the positions of its columns
+        p0 = par.sp_rank * S
+        h = _embed(params["wte"], input_ids, par) + params["wpe"][p0:p0 + S][None, :, :]
     keys = [None] * L
     if train and cfg.dropout > 0.0 and rng is not None:
         table = rng if _is_key_table(cfg, rng) else prng.device_keys(
             dropout_key_table(cfg, rng), h.device)
         h = _dropout(h, cfg.dropout, table[0], train)
-        keys = list(table[1:].reshape(L, 3, table.shape[1]))  # [L][3, 2 or 4]
-    for lp, key in zip(_unstack(params["blocks"], L), keys):
-        if cfg.remat and cfg.remat_policy != "full":
-            h = selective_checkpoint(functools.partial(_block, cfg, key=key), cfg.remat_policy,
-                                     lp, h)
+        keys = list(table[1:].reshape(L, 3, table.shape[1]))  # [L][3, 2, 4 or 6]
+    boundary = cfg.remat and (cfg.cpu_checkpointing or (cfg.partition_activations
+                                                        and par.tp_group is not None))
+    for layer, (lp, key) in enumerate(zip(_unstack(params["blocks"], L), keys)):
+        if boundary:
+            part = ((par.tp_group, par.tp_rank, par.tp)
+                    if cfg.partition_activations and par.tp_group is not None else None)
+            h = boundary_checkpoint(functools.partial(_block, cfg, key=key, par=par), lp, h,
+                                    partition=part, offload=cfg.cpu_checkpointing,
+                                    slot=("gpt2", layer))
+        elif cfg.remat and cfg.remat_policy != "full":
+            h = selective_checkpoint(functools.partial(_block, cfg, key=key, par=par),
+                                     cfg.remat_policy, lp, h)
         elif cfg.remat:
-            h = checkpoint(functools.partial(_block, cfg, lp, key=key), h)
+            h = checkpoint(functools.partial(_block, cfg, lp, key=key, par=par), h)
         else:
-            h = _block(cfg, lp, h, key=key)
+            h = _block(cfg, lp, h, key=key, par=par)
     h = layer_norm(h, params["ln_f"]["scale"], params["ln_f"]["bias"], cfg.layer_norm_epsilon)
     return h, torch.zeros((), dtype=torch.float32, device=h.device)
+
+
+def _embed(wte, ids, par: _Parallel):
+    """``wte[ids]``; under tp the vocab-parallel lookup: this rank's rows
+    ``[r V/tp, (r + 1) V/tp)`` answer the ids they hold, the others give 0,
+    and the sum over tp is the embedding."""
+    if par.tp_group is None:
+        return wte[ids]
+    Vl = wte.shape[0]
+    local = ids - par.tp_rank * Vl
+    inside = (local >= 0) & (local < Vl)
+    e = wte[local.clamp(0, Vl - 1)]
+    e = torch.where(inside[..., None], e, torch.zeros((), dtype=e.dtype, device=e.device))
+    return reduce_from_group(e, par.tp_group)
 
 
 def forward_with_aux(cfg: GPT2Config, params: PyTree, input_ids, train: bool = False, rng=None):
     """``input_ids [B, S]`` → (logits ``[B, S, V]`` over the logical vocab,
     aux loss); the embedding is tied."""
     h, aux = hidden_with_aux(cfg, params, input_ids, train, rng)
-    return (h @ params["wte"].t())[..., : cfg.vocab_size], aux
+    par = _parallel(cfg)
+    if par.tp_group is None:
+        return (h @ params["wte"].t())[..., : cfg.vocab_size], aux
+    logits = all_gather(h @ params["wte"].t(), par.tp_group, gather_dim=-1)
+    return logits[..., : cfg.vocab_size], aux
 
 
 def forward(cfg: GPT2Config, params: PyTree, input_ids, train: bool = False, rng=None):
@@ -364,8 +491,14 @@ def forward(cfg: GPT2Config, params: PyTree, input_ids, train: bool = False, rng
 
 
 def _head_token_loss(cfg: GPT2Config, wte, h, batch):
-    return head_token_loss(lambda x: x @ wte.t(), h, batch, cfg.ce_chunk,
-                           logical_vocab=cfg.vocab_size)
+    par = _parallel(cfg)
+    if par.tp_group is None:
+        return head_token_loss(lambda x: x @ wte.t(), h, batch, cfg.ce_chunk,
+                               logical_vocab=cfg.vocab_size)
+    g = par.tp_group
+    return head_token_loss(lambda x: copy_to_group(x, g) @ wte.t(), h, batch, cfg.ce_chunk,
+                           logical_vocab=cfg.vocab_size,
+                           vocab_parallel=(g, par.tp_rank * wte.shape[0]))
 
 
 def lm_loss(cfg: GPT2Config, params: PyTree, batch: Dict[str, torch.Tensor], rng, train: bool):
@@ -377,6 +510,33 @@ def lm_loss(cfg: GPT2Config, params: PyTree, batch: Dict[str, torch.Tensor], rng
     return loss, {"ntokens": ntokens, "moe_aux": aux}
 
 
+def logical_axes(cfg: Optional[GPT2Config] = None) -> PyTree:
+    """Logical-axis names per parameter (JAX's ``logical_axes``, dense MLP),
+    which ``runtime.zero.partitioning.DEFAULT_LOGICAL_RULES`` map onto the
+    mesh: vocab, qkv, mlp and heads over tp."""
+    return {
+        "wte": ("vocab", "embed"),
+        "wpe": (None, "embed"),
+        "ln_f": {"scale": ("embed",), "bias": ("embed",)},
+        "blocks": {
+            "ln_1": {"scale": ("layers", "embed"), "bias": ("layers", "embed")},
+            "ln_2": {"scale": ("layers", "embed"), "bias": ("layers", "embed")},
+            "attn": {
+                "c_attn_w": ("layers", "embed", "qkv"),
+                "c_attn_b": ("layers", "qkv"),
+                "c_proj_w": ("layers", "heads", "embed"),
+                "c_proj_b": ("layers", "embed"),
+            },
+            "mlp": {
+                "c_fc_w": ("layers", "embed", "mlp"),
+                "c_fc_b": ("layers", "mlp"),
+                "c_proj_w": ("layers", "mlp", "embed"),
+                "c_proj_b": ("layers", "embed"),
+            },
+        },
+    }
+
+
 def make_module(cfg: GPT2Config) -> ModuleSpec:
     """GPT-2 as a :class:`ModuleSpec` for ``deepspeed_tpu_torch.initialize``;
     ``init`` draws on the generator's device."""
@@ -386,7 +546,23 @@ def make_module(cfg: GPT2Config) -> ModuleSpec:
         apply_fn=lambda params, batch: forward(cfg, params, batch["input_ids"]),
         key_table=(functools.partial(dropout_key_table, cfg) if cfg.dropout > 0.0 else None),
         loss_norm=lambda batch: np.asarray([max(loss_count(batch), 1.0)], np.float32),
+        logical_axes=logical_axes(cfg),
+        seq_labels=next_token_labels,
+        checkpointing=functools.partial(_with_checkpointing, cfg),
     )
+
+
+def _with_checkpointing(cfg: GPT2Config, partition_activations: bool,
+                        cpu_checkpointing: bool) -> ModuleSpec:
+    """GPT-2 under the engine's ``activation_checkpointing`` section: its
+    two options turned on beside the config's own fields of the same
+    names. They act on the blocks that ``remat`` recomputes."""
+    if not cfg.remat:
+        raise ValueError("activation_checkpointing: partition_activations and cpu_checkpointing "
+                         "act on the blocks GPT-2 recomputes; set the model's remat=True")
+    return make_module(dataclasses.replace(
+        cfg, partition_activations=cfg.partition_activations or partition_activations,
+        cpu_checkpointing=cfg.cpu_checkpointing or cpu_checkpointing))
 
 
 # ---------------------------------------------------------------------------

@@ -53,6 +53,23 @@ def permute_qkv_for_tp(w: torch.Tensor, b: torch.Tensor, tp: int):
     return regroup(w), regroup(b)
 
 
+def regroup_qkv(x: torch.Tensor, tp: int, inverse: bool = False) -> torch.Tensor:
+    """One tensor's fused-QKV columns (its last dim) regrouped role-major
+    ``(3, tp, Hl*D)`` -> rank-major ``(tp, 3, Hl*D)``, or back with
+    ``inverse`` (a whole leaf gathered from rank-major slices)."""
+    tp = int(tp)
+    if tp <= 1:
+        return x
+    three_e = int(x.shape[-1])
+    if three_e % (3 * tp):
+        raise ValueError(f"fused QKV width {three_e} not divisible by 3*tp={3 * tp}")
+    chunk = three_e // (3 * tp)
+    lead = tuple(x.shape[:-1])
+    n = len(lead)
+    src = (tp, 3, chunk) if inverse else (3, tp, chunk)
+    return x.reshape(lead + src).transpose(n, n + 1).reshape(lead + (three_e,))
+
+
 def tp_shard_serving_params(params: PyTree, tp: int) -> PyTree:
     """The gpt2 serving tree, QKV-permuted for a ``tp``-way placement: a
     layout transform only (values equal up to column order), so the tp = 1

@@ -22,7 +22,11 @@ refills every step) or a host key (copied up at each call). A ``[4]`` key
 (``prng.shard_key``) adds a shard index s: x is then elements ``[s n, (s +
 1) n)`` of the draw, the slice a data-parallel rank holds of JAX's draw
 over the global batch (``jax_threefry_partitionable``: element i's counter
-is its flat index in the global shape).
+is its flat index in the global shape). A ``[6]`` key adds a row stride:
+each row of x's dim 0 is a contiguous run of the global draw at its own
+offset, the slice a rank holds when the rows' columns are also split over
+sequence parallelism (``prng.shard_key``). Tensor parallelism needs no
+offset: GPT-2's dropouts act on tensors every tp rank holds whole.
 """
 
 from __future__ import annotations
@@ -41,7 +45,11 @@ def dropout_ref(x: torch.Tensor, key, rate: float) -> torch.Tensor:
     if not prng.is_device_key(key):
         key = prng.device_keys(prng.host_dropout_key(key), x.device)
     key = key.reshape(-1)
-    offset = prng.shard_offset(key.to(x.device), x.numel()) if key.numel() == 4 else None
+    offset = None
+    if key.numel() == 4:
+        offset = prng.shard_offset(key.to(x.device), x.numel())
+    elif key.numel() == 6:
+        offset = prng.row_offsets(key.to(x.device), int(x.shape[0]), x.numel())
     row = key[:2].reshape(1, 2)
     u = prng.uniform_rows_ref(row, x.numel(), device=x.device, offset=offset)
     keep = u.reshape(x.shape) < prng.device_scalar(p, x.device)

@@ -120,7 +120,8 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "threefry": {
         "threefry_dropout_launch": (
-            [_P, _P, _L, _P, _U, _F, _F,       # x, y, n, device key, keep threshold, c, 1 / c
+            [_P, _P, _L, _I, _P, _U, _F, _F,   # x, y, n a row, rows, device key, keep
+                                               # threshold, c, 1 / c
              _I, _I, _I, _P],                  # multiply by 1 / c, dtype, key words, stream
             ctypes.c_int,
         ),

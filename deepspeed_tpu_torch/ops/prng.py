@@ -51,7 +51,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Sequence, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -272,23 +272,35 @@ def uniform_rows_ref(keys: Key, n: int, minval: float = 0.0, maxval: float = 1.0
                       maxval)
 
 
-def shard_key(key, shard: int) -> np.ndarray:
+def shard_key(key, shard: int, stride: Optional[int] = None) -> np.ndarray:
     """A dropout key with a shard index: uint32 ``[4]``, the key's two
     words then ``shard`` as a 64-bit word pair (low, high). A dropout of an
     ``n``-element x under it draws elements ``[shard n, (shard + 1) n)`` of
     the key's draw: rank ``shard``'s slice of a batch split over data
-    parallelism (``jax_threefry_partitionable``'s counters)."""
+    parallelism (``jax_threefry_partitionable``'s counters).
+
+    With ``stride``: uint32 ``[6]``, the same four words then ``stride``
+    and 0. x's dim 0 is then R rows of ``m = n / R`` elements each, row r
+    at elements ``[(r stride + shard) m, (r stride + shard + 1) m)`` of the
+    draw: a rank's slice of a batch whose rows are also split into
+    ``stride`` column blocks (sequence parallelism: ``stride`` is sp and
+    ``shard`` the rank's first global block, ``dp_rank * rows * sp +
+    sp_rank``)."""
     k0, k1 = key_words(key)
     s = int(shard)
-    return np.asarray([k0, k1, s & 0xFFFFFFFF, s >> 32], np.uint32)
+    words = [k0, k1, s & 0xFFFFFFFF, s >> 32]
+    if stride is not None:
+        words += [int(stride), 0]
+    return np.asarray(words, np.uint32)
 
 
 def host_dropout_key(key) -> np.ndarray:
     """A host dropout key (numpy or an int64 tensor) as uint32 ``[2]`` or,
-    with a shard index, ``[4]``."""
+    with a shard index, ``[4]`` (``[6]`` with a row stride)."""
     arr = _as_np(key)[0].reshape(-1)
-    if arr.size not in (2, 4):
-        raise ValueError(f"a dropout key has 2 words (or 4 with a shard index), got {arr.size}")
+    if arr.size not in (2, 4, 6):
+        raise ValueError("a dropout key has 2 words (4 with a shard index, 6 with a row "
+                         f"stride), got {arr.size}")
     return arr
 
 
@@ -297,6 +309,17 @@ def shard_offset(key: torch.Tensor, n: int) -> torch.Tensor:
     tensor on its device (torch ops: nothing is read on the host)."""
     w = key.reshape(4).long() & MASK32
     return (w[2] | (w[3] << 32)) * int(n)
+
+
+def row_offsets(key: torch.Tensor, rows: int, n: int) -> torch.Tensor:
+    """A ``[6]`` device key's counter offsets for x of ``rows`` rows and
+    ``n`` elements: int64 ``[n]``, element i's counter minus i
+    (:func:`shard_key` with a stride), on the key's device."""
+    w = key.reshape(6).long() & MASK32
+    shard, stride = w[2] | (w[3] << 32), w[4]
+    m = n // rows
+    r = torch.arange(n, dtype=torch.int64, device=key.device) // m
+    return (r * stride + shard) * m - r * m
 
 
 # ---------------------------------------------------------------------------
@@ -367,9 +390,11 @@ def dropout_kernel(x: torch.Tensor, key: Key, rate: float) -> torch.Tensor:
     c)`` where :func:`reciprocal_is_exact` proves it equal) for x contiguous
     f32 / fp16 / bf16 on a CUDA device → a new tensor. The kernel reads the
     key's words where they lie: a device key (int32 ``[2]``, or ``[4]`` with
-    a shard index, :func:`shard_key`; contiguous on x's device; a captured
-    step's key table slot) is used as it is, a host key is copied up first.
-    With a shard index s, x is elements ``[s n, (s + 1) n)`` of the draw.
+    a shard index, :func:`shard_key`; ``[6]`` with a row stride; contiguous
+    on x's device; a captured step's key table slot) is used as it is, a
+    host key is copied up first. With a shard index s, x is elements ``[s
+    n, (s + 1) n)`` of the draw; with a row stride, each row of x's dim 0
+    at its own offset (one launch, a grid row a row of x).
     Raises on anything else."""
     if x.device.type != "cuda":
         raise ValueError(f"dropout_kernel: the kernel takes CUDA tensors, not {x.device}")
@@ -380,19 +405,24 @@ def dropout_kernel(x: torch.Tensor, key: Key, rate: float) -> torch.Tensor:
     p, c = keep_scale(check_rate(rate), x.dtype)
     r, mul = reciprocal_is_exact(rate, x.dtype)
     if is_device_key(key):
-        if key.numel() not in (2, 4) or key.device != x.device or not key.is_contiguous():
+        if key.numel() not in (2, 4, 6) or key.device != x.device or not key.is_contiguous():
             raise ValueError(f"dropout_kernel: a device key must be one contiguous [2] (or "
-                             f"[4], with a shard index) int32 key on {x.device}, got "
+                             f"[4] / [6], with shard words) int32 key on {x.device}, got "
                              f"{tuple(key.shape)} on {key.device}")
     else:
         key = device_keys(host_dropout_key(key), x.device)
+    # a [6] key draws row by row (x's dim 0), each row at its own offset
+    rows = int(x.shape[0]) if key.numel() == 6 and x.dim() > 0 and x.numel() else 1
+    if rows > 65535:
+        raise ValueError(f"dropout_kernel: a [6] key takes at most 65535 rows, got {rows}")
     from .op_builder import load
 
     lib = load("threefry")
     y = torch.empty_like(x)
-    err = lib.threefry_dropout_launch(x.data_ptr(), y.data_ptr(), x.numel(), key.data_ptr(),
-                                      keep_threshold(p), c, r, int(mul), DTYPES[x.dtype],
-                                      key.numel(), torch.cuda.current_stream(x.device).cuda_stream)
+    err = lib.threefry_dropout_launch(x.data_ptr(), y.data_ptr(), x.numel() // rows, rows,
+                                      key.data_ptr(), keep_threshold(p), c, r, int(mul),
+                                      DTYPES[x.dtype], key.numel(),
+                                      torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"dropout_kernel: kernel launch failed, CUDA error {err}")
     LAUNCHES["threefry_dropout"] += 1

@@ -19,6 +19,7 @@ tensor parallel, ``ep`` expert parallel, ``sp`` sequence parallel. Only
 from __future__ import annotations
 
 import collections
+import contextlib
 import itertools
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -30,8 +31,8 @@ from ..runtime.config import NotPortedError
 
 CANONICAL_AXIS_ORDER = ("pp", "dp", "ep", "sp", "tp")
 
-# the ROADMAP queue 1 item that ports each axis beyond size 1
-_AXIS_ITEMS = {"tp": "11b", "pp": "12b", "sp": "12c", "ep": "12d"}
+# the ROADMAP queue 1 item that ports each axis still refused beyond size 1
+_AXIS_ITEMS = {"pp": "12b", "ep": "12d"}
 
 
 class ProcessTopology:
@@ -131,10 +132,10 @@ class ProcessGroups:
 
     def __init__(self, topology: ProcessTopology):
         for axis, d in zip(topology.axes, topology.dims):
-            if axis != "dp" and d > 1:
+            if axis in _AXIS_ITEMS and d > 1:
                 raise NotPortedError(
-                    f"mesh axis {axis}={d}: only the dp axis is ported to deepspeed_tpu_torch "
-                    f"(ROADMAP queue 1 item {_AXIS_ITEMS.get(axis, '11b')})")
+                    f"mesh axis {axis}={d}: only the dp, sp and tp axes are ported to "
+                    f"deepspeed_tpu_torch (ROADMAP queue 1 item {_AXIS_ITEMS[axis]})")
         self.topology = topology
         self.axis_names = tuple(topology.axes)
         self.shape = dict(zip(topology.axes, topology.dims))
@@ -159,6 +160,11 @@ class ProcessGroups:
     def group(self, axis: str):
         """This rank's group along ``axis`` (KeyError without one)."""
         return self._groups[axis]
+
+    def group_or_none(self, axis: str):
+        """This rank's group along ``axis`` when the axis exceeds 1 and a
+        process group exists, else None (nothing to communicate)."""
+        return self._groups.get(axis) if self.size(axis) > 1 else None
 
     def size(self, axis: str) -> int:
         return self.shape.get(axis, 1)
@@ -216,6 +222,25 @@ def mesh_axis_size(mesh, axis: str) -> int:
 def dp_axis_names(mesh) -> Tuple[str, ...]:
     """Axes grads are averaged over: dp (and sp — batch is also split over sp)."""
     return tuple(a for a in ("dp", "sp") if a in mesh.axis_names)
+
+
+_ACTIVE: List[object] = []
+
+
+@contextlib.contextmanager
+def active_mesh(mesh):
+    """Make ``mesh`` the :func:`current_mesh` inside the block (the engine
+    wraps each training and eval step's loss in its mesh)."""
+    _ACTIVE.append(mesh)
+    try:
+        yield mesh
+    finally:
+        _ACTIVE.pop()
+
+
+def current_mesh():
+    """The innermost :func:`active_mesh`, or None."""
+    return _ACTIVE[-1] if _ACTIVE else None
 
 
 def single_device_mesh() -> ProcessGroups:

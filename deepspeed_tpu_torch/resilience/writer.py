@@ -14,6 +14,14 @@ One writer per (engine, save_dir). ``save(..., blocking=True)`` bypasses the
 worker and writes in the caller's thread: the PreemptionGuard's forced
 fresh snapshot when an in-flight async write overruns the grace window, or
 died.
+
+The ``latest`` pointer moves in the order the jobs were saved, not the
+order their writes end: a job commits its tag, then swaps ``latest`` only
+if no later job (by ``save``'s ordinal) has swapped it already, under the
+writer's lock. So an async write that lands after a later blocking save
+(the guard's ``preempt-final``) leaves ``latest`` on the later tag. A
+failed later write never swaps, and the walk-back still finds the older
+good tag.
 """
 
 from __future__ import annotations
@@ -82,6 +90,7 @@ class AsyncCheckpointWriter:
         self._thread: Optional[threading.Thread] = None
         self._lock = threading.Lock()
         self.saves_started = 0  # the checkpoint_crash injection index
+        self._latest_ordinal = 0  # the newest job that swapped ``latest``
         self.saves_committed = 0
         self.errors: list = []  # (tag, exception), newest last
         if registry is not None:
@@ -179,6 +188,16 @@ class AsyncCheckpointWriter:
                 if self._g_inflight is not None:
                     self._g_inflight.set(self.in_flight)
 
+    def _swap_latest(self, tag, ordinal: int) -> None:
+        """Point ``latest`` at ``tag`` unless a later job already did (the
+        swap is monotone in the jobs' order)."""
+        with self._lock:
+            if ordinal <= self._latest_ordinal:
+                return
+            mf.atomic_write_text(os.path.join(os.path.abspath(self.save_dir), mf.LATEST_FILE),
+                                 str(tag))
+            self._latest_ordinal = ordinal
+
     def _write(self, tag, arrays, client_state, step, save_latest, ordinal) -> str:
         crash = bool(self.injector is not None
                      and self.injector.fire("checkpoint_crash", ordinal))
@@ -186,7 +205,9 @@ class AsyncCheckpointWriter:
         try:
             path = mf.write_tag(self.save_dir, tag, arrays, client_state=client_state,
                                 fingerprint=self.fingerprint, step=step,
-                                save_latest=save_latest, crash_before_manifest=crash)
+                                save_latest=False, crash_before_manifest=crash)
+            if save_latest:
+                self._swap_latest(tag, ordinal)
         except BaseException as e:
             # _write runs on the worker AND (blocking) on the caller's
             # thread: the error ledger mutates under the lock

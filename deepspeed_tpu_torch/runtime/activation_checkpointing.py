@@ -19,7 +19,17 @@ The block body is written against an ``ops`` object with two methods,
 ``dot(x, w)`` and ``attention(q, k, v, forward, backward, options)``; the
 forward pass records what the policy keeps, the backward pass replays the
 body with the kept tensors standing in for the matmuls and the attention.
-Partitioned and CPU checkpointing are not ported.
+
+Partitioned and CPU checkpointing (JAX ``partition_activations``,
+``cpu_checkpointing``; the reference's ``checkpointing.py:367, :480``):
+:func:`boundary_checkpoint` keeps a block's input, the one tensor full
+remat saves, as this rank's ``1/tp`` slice of its last dim (all-gathered
+over tp in backward, where the reference calls
+``gather_partitioned_activations``) and/or in pinned host memory (copied
+back in backward), and recomputes the rest. Either way the gradients are
+those of full remat. GPT-2 turns them on from its own config's fields
+of the same names, as JAX's does, or from the engine's
+``activation_checkpointing`` section (``ModuleSpec.checkpointing``).
 """
 
 from __future__ import annotations
@@ -151,3 +161,87 @@ def selective_checkpoint(fn, policy: str, params, h):
         return fn(_rebuild(params, iter(ls)), h, ops)
 
     return _SelectiveRemat.apply(body, policy == "dots", h, *leaves)
+
+
+# ---------------------------------------------------------------------------
+# partitioned and CPU checkpointing of a block's saved input
+# ---------------------------------------------------------------------------
+
+# (device, shape, dtype, slot) -> the pinned host buffer a slot's saved
+# input lives in between its forward and backward. Made at the slot's first
+# use (a captured step's eager first run), then reused: a capture records
+# only the copies. A micro-batch's backward reads its slots before the
+# next forward writes them, on one stream.
+_HOST_SLOTS = {}
+
+
+def _host_buffer(like: torch.Tensor, slot) -> torch.Tensor:
+    if slot is None or not like.is_cuda:
+        return torch.empty(like.shape, dtype=like.dtype, pin_memory=like.is_cuda)
+    key = (like.device, tuple(like.shape), like.dtype, slot)
+    buf = _HOST_SLOTS.get(key)
+    if buf is None:
+        buf = _HOST_SLOTS[key] = torch.empty(like.shape, dtype=like.dtype, pin_memory=True)
+    return buf
+
+
+class _Boundary(torch.autograd.Function):
+    """Full remat of ``body(h, *leaves)`` whose saved ``h`` is kept as
+    :func:`boundary_checkpoint` says."""
+
+    @staticmethod
+    def forward(ctx, body, partition, offload, slot, h, *leaves):
+        with torch.no_grad():
+            out = body(h, *leaves)
+        kept = h.detach()
+        if partition is not None:
+            group, rank, n = partition
+            c = kept.shape[-1] // n
+            kept = kept.narrow(-1, rank * c, c)
+        if offload:
+            host = _host_buffer(kept, slot)
+            host.copy_(kept, non_blocking=kept.is_cuda)
+            kept = host
+        else:
+            kept = kept.contiguous()
+        ctx.body, ctx.partition, ctx.device, ctx.n = body, partition, h.device, len(leaves)
+        ctx.kept = kept
+        ctx.save_for_backward(*leaves)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        from ..comm.torch import all_gather
+
+        h = ctx.kept.to(ctx.device, non_blocking=True)
+        if ctx.partition is not None:
+            h = all_gather(h, ctx.partition[0], gather_dim=-1)
+        ctx.kept = None
+        leaves = ctx.saved_tensors
+        with torch.enable_grad():
+            inputs = [h.detach().requires_grad_(True)] + [
+                t.detach().requires_grad_(t.requires_grad) for t in leaves]
+            out = ctx.body(*inputs)
+        want = [x for x in inputs if x.requires_grad]
+        got = iter(torch.autograd.grad(out, want, dout, allow_unused=True))
+        grads = [next(got) if x.requires_grad else None for x in inputs]
+        return (None, None, None, None, *grads)
+
+
+def boundary_checkpoint(fn, params, h, partition=None, offload: bool = False, slot=None):
+    """``fn(params, h)`` (``params`` a nested dict of tensors) under full
+    remat, its saved input ``h [..., E]`` kept as this rank's slice
+    ``[r E/n, (r + 1) E/n)`` of the last dim when ``partition`` is ``(tp
+    group, r, n)`` (gathered over the group in backward) and in pinned host
+    memory when ``offload`` (on the card in the pinned buffer of ``slot``,
+    a hashable the caller keeps distinct for each block of a forward, e.g.
+    the layer index; None: a new buffer each call)."""
+    if partition is not None and h.shape[-1] % partition[2]:
+        raise ValueError(f"partition_activations: the last dim {h.shape[-1]} of the block "
+                         f"input is not divisible by tp={partition[2]}")
+    leaves = tree_leaves(params)
+
+    def body(h, *ls):
+        return fn(_rebuild(params, iter(ls)), h)
+
+    return _Boundary.apply(body, partition, bool(offload), slot, h, *leaves)

@@ -27,7 +27,8 @@ burn-rate section (``serving.fleet.slo_alerts``), which
 ranks, ``fp16``/``bf16``, ``gradient_clipping``, ``optimizer``, ``scheduler``,
 ``prescale_gradients``/``gradient_predivide_factor``,
 ``data_types.grad_accum_dtype``, ``zero_optimization`` at stages 0-3, the
-``mesh`` section's ``dp`` axis, ``comms_logger``,
+``mesh`` section's ``dp``, ``sp`` and ``tp`` axes, ``comms_logger``,
+``activation_checkpointing``,
 ``steps_per_print``, ``wall_clock_breakdown``, ``memory_breakdown``, the
 ``telemetry``, ``resilience`` and ``checkpoint`` sections, and the typed
 ``sparse_attention`` section that a
@@ -945,8 +946,8 @@ class ZeroConfig:
 @dataclass
 class MeshConfig:
     """``mesh``: named-axis sizes, -1 = the ranks left (JAX ``MeshConfig``).
-    Only ``dp`` may exceed 1 in the port; tp, pp, sp and ep > 1 raise
-    :class:`NotPortedError` (ROADMAP queue 1 items 11b, 12b, 12c and 12d)."""
+    dp, sp and tp may exceed 1 in the port; pp and ep > 1 raise
+    :class:`NotPortedError` (ROADMAP queue 1 items 12b and 12d)."""
 
     dp: int = -1
     tp: int = 1
@@ -955,11 +956,31 @@ class MeshConfig:
     sp: int = 1
 
     def __post_init__(self):
-        for axis, item in (("tp", "11b"), ("pp", "12b"), ("ep", "12d"), ("sp", "12c")):
+        for axis, item in (("pp", "12b"), ("ep", "12d")):
             if int(getattr(self, axis)) > 1:
                 raise NotPortedError(
-                    f"mesh.{axis}={getattr(self, axis)}: only the dp axis is ported to "
-                    f"deepspeed_tpu_torch (ROADMAP queue 1 item {item})")
+                    f"mesh.{axis}={getattr(self, axis)}: only the dp, sp and tp axes are "
+                    f"ported to deepspeed_tpu_torch (ROADMAP queue 1 item {item})")
+
+
+@dataclass
+class ActivationCheckpointingConfig:
+    """``activation_checkpointing`` (JAX ``ActivationCheckpointingConfig``,
+    the reference's ``activation_checkpointing/config.py``), read and
+    typed. The engine hands ``partition_activations`` and
+    ``cpu_checkpointing`` to the model (``ModuleSpec.checkpointing``):
+    GPT-2 turns on its config's fields of the same names, and a model
+    without the hook refuses either option on. (The JAX engine hands them
+    to a process-global policy that only its ``checkpoint_wrapper`` reads;
+    its GPT-2 reads only its own fields.) The other four fields are read
+    and kept, as JAX keeps them."""
+
+    partition_activations: bool = False
+    contiguous_memory_optimization: bool = False
+    cpu_checkpointing: bool = False
+    number_checkpoints: Optional[int] = None
+    synchronize_checkpoint_boundary: bool = False
+    profile: bool = False
 
 
 @dataclass
@@ -977,11 +998,11 @@ _TRAINING_KEYS = (
     "steps_per_print", "optimizer", "scheduler", "fp16", "bf16", "zero_optimization",
     "data_types", "gradient_clipping", "prescale_gradients", "gradient_predivide_factor",
     "sparse_attention", "telemetry", "wall_clock_breakdown", "memory_breakdown",
-    "resilience", "checkpoint", "mesh", "comms_logger",
+    "resilience", "checkpoint", "mesh", "comms_logger", "activation_checkpointing",
 )
 # sections still refused, each with the ROADMAP queue 1 item that ports it
 _REFUSED_ITEMS = {
-    "comm_compression": "12/13", "activation_checkpointing": "11b", "aio": "13",
+    "comm_compression": "12/13", "aio": "13",
     "flops_profiler": "14", "elasticity": "14", "curriculum_learning": "14",
     "progressive_layer_drop": "14", "eigenvalue": "14", "debug": "14", "analysis": "15",
 }
@@ -1050,6 +1071,8 @@ class DeepSpeedConfig:
     zero_optimization: ZeroConfig = field(default_factory=ZeroConfig)
     mesh: MeshConfig = field(default_factory=MeshConfig)
     comms_logger: CommsLoggerConfig = field(default_factory=CommsLoggerConfig)
+    activation_checkpointing: ActivationCheckpointingConfig = field(
+        default_factory=ActivationCheckpointingConfig)
     _user_batch: Optional[tuple] = None
     _dp_world_size: int = 1
 
@@ -1100,6 +1123,9 @@ class DeepSpeedConfig:
             mesh=_typed_section(MeshConfig, "mesh", d.get("mesh") or {}),
             comms_logger=_typed_section(CommsLoggerConfig, "comms_logger",
                                         d.get("comms_logger") or {}),
+            activation_checkpointing=_typed_section(
+                ActivationCheckpointingConfig, "activation_checkpointing",
+                d.get("activation_checkpointing") or {}),
         )
         if cfg.fp16.enabled and cfg.bf16.enabled:
             raise DeepSpeedConfigError("fp16 and bf16 cannot both be enabled")

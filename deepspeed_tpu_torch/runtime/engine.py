@@ -47,6 +47,25 @@ device. ``eval_batch`` without a key splits the engine key, and ``forward``
 evaluates under ``fold_in(rng, 0x5EED)``, leaving the training stream
 untouched.
 
+Sequence and tensor parallelism (the ``mesh`` section's ``sp`` and ``tp``
+axes, JAX's GSPMD placements made explicit). The engine's mesh is the
+model's while a step runs (``parallel.topology.active_mesh``). Under sp
+each rank takes its columns of every leaf's sequence dim (dim 1), after the
+model's ``seq_labels`` shifted the labels on the whole host batch (the
+``"__labels__"`` leaf); parameters are replicated over sp, so their
+gradients and the loss sum over sp before ZeRO's dp reduction, and each
+dropout draws the rank's rows and columns of JAX's global draw (a ``[6]``
+key: ``prng.shard_key`` with a row stride). Under tp each rank holds its
+slices of the leaves the model's ``logical_axes`` put on tp
+(``runtime.zero.partitioning.logical_to_spec``; the fused QKV regrouped so
+a slice is its heads' ``[Q | K | V]``), and ZeRO partitions those slices
+over dp; the model runs Megatron's column/row-parallel pair. The norm sums
+the tp slices' squares over tp (a replicated leaf counted once), the fp16
+overflow is a MAX over tp too, and a checkpoint gathers the slices into
+whole leaves, so a tag is mesh-independent. On the card over NCCL the step
+is captured with its collectives; over gloo (ranks sharing one card) it
+runs eagerly, since a CUDA graph cannot hold gloo's calls.
+
 Data parallelism and ZeRO (JAX engine.py:102-143, ``runtime/zero/``): with
 a process group (``comm.init_distributed``) the ``mesh`` section's ``dp``
 axis is its ranks (``parallel/topology.py`` ``ProcessGroups``), one
@@ -111,18 +130,18 @@ import torch
 from .. import comm as dscomm
 from .. import telemetry as _telemetry
 from ..inference.engine import resolve_device
-from ..parallel.topology import MeshSpec
+from ..parallel.topology import MeshSpec, active_mesh
 from ..ops import prng
 from ..utils import graphs
 from ..utils.logging import log_dist, warning_once
 from ..utils.timer import TRAIN_BATCH_TIMER, SynchronizedWallClockTimer, ThroughputTimer
 from ..utils.weights import tree_leaves, tree_map
-from .config import DeepSpeedConfig
+from .config import DeepSpeedConfig, NotPortedError
 from .fp16 import loss_scaler as ls
 from .lr_schedules import get_lr_schedule, tensor_form
 from .module import ModuleSpec
 from .optimizers import Lamb, build_optimizer, optax_state_paths
-from .zero.partitioning import GatherAtUse, ZeroLayout
+from .zero.partitioning import GatherAtUse, ZeroLayout, logical_to_spec
 
 PyTree = Any
 
@@ -164,33 +183,77 @@ class DeepSpeedEngine:
     def __init__(self, model: ModuleSpec, config, params: Optional[PyTree] = None,
                  lr_schedule: Optional[Callable] = None, seed: int = 0, training_data=None,
                  collate_fn=None, device=None):
-        self.module = model
         self.device = resolve_device(device)
         config = DeepSpeedConfig.load(config, dp_world_size=None)
+        ac = config.activation_checkpointing
+        if ac.partition_activations or ac.cpu_checkpointing:
+            if model.checkpointing is None:
+                raise ValueError(
+                    "activation_checkpointing: partition_activations and cpu_checkpointing "
+                    "act on a model's recomputed blocks, and this model has none that take "
+                    "them (ModuleSpec.checkpointing; GPT-2's blocks do)")
+            model = model.checkpointing(ac.partition_activations, ac.cpu_checkpointing)
+        self.module = model
         # --- topology (JAX engine.py:102-114): the mesh's process groups.
         # With no process group the engine trains alone and communicates
         # nothing; with one (comm.init_distributed) it runs the stage's
         # collectives over dp, at any world size, one rank included
         m = config.mesh
-        want = m.dp if m.dp > 0 else None
+        if m.tp > 1 and model.logical_axes is None:
+            raise NotPortedError(
+                f"mesh.tp={m.tp}: the model has no logical_axes, so it has no tensor-parallel "
+                "plan in deepspeed_tpu_torch (GPT-2's is ported; BERT's and the decoder's "
+                "training over tp wait: ROADMAP queue 1 item 11b)")
+        if m.sp > 1 and model.seq_labels is None:
+            raise NotPortedError(
+                f"mesh.sp={m.sp}: the model has no seq_labels, so its sequence-parallel "
+                "training is not ported to deepspeed_tpu_torch (GPT-2's is; BERT's and the "
+                "decoder's wait: ROADMAP queue 1 item 12c)")
+        opt_type = (config.optimizer.type if config.optimizer else "Adam").lower()
+        if m.tp > 1 and opt_type in ("lamb", "fusedlamb"):
+            raise NotPortedError(
+                "optimizer Lamb at mesh.tp > 1: its trust ratios need each leaf's norm over "
+                "tp and dp slices at once, which the port's LAMB does not reduce yet "
+                "(ROADMAP queue 1 item 11b)")
+        fixed = max(1, m.sp) * max(1, m.tp)
+        want = m.dp * fixed if m.dp > 0 else (fixed if fixed > 1 else None)
         world = torch.distributed.get_world_size() if torch.distributed.is_initialized() else 1
-        if want is not None and want != world:
+        if want is not None and (want != world if m.dp > 0 else world % want):
             raise RuntimeError(
-                f"mesh dp={want} needs a process group of {want} ranks and this process has "
+                f"mesh dp={m.dp} sp={m.sp} tp={m.tp} needs a process group of "
+                + (f"{want}" if m.dp > 0 else f"a multiple of {want}")
+                + " ranks and this process has "
                 + (f"one of {world}" if torch.distributed.is_initialized() else
                    "none: call deepspeed_tpu_torch.comm.init_distributed first")
-                + " (the engine never trains at a narrower dp than asked)")
+                + " (the engine never trains at a narrower mesh than asked)")
         self.mesh = MeshSpec(dp=m.dp, tp=m.tp, pp=m.pp, ep=m.ep, sp=m.sp).build_mesh()
         self.distributed = self.mesh.distributed
         self.dp_world_size = self.mesh.size("dp")
         self.dp_rank = self.mesh.axis_rank("dp")
-        self._dp_group = self.mesh.group("dp") if self.distributed else None
+        # no dp axis in the mesh when dp is 1 beside sp or tp (a size-1 axis
+        # is dropped, as JAX's MeshSpec drops it)
+        self._dp_group = (self.mesh.group("dp") if self.distributed
+                          and "dp" in self.mesh.axis_names else None)
+        self.sp_world_size, self.sp_rank = self.mesh.size("sp"), self.mesh.axis_rank("sp")
+        self.tp_world_size, self.tp_rank = self.mesh.size("tp"), self.mesh.axis_rank("tp")
+        self._sp_group = self.mesh.group_or_none("sp")
+        self._tp_group = self.mesh.group_or_none("tp")
+        self._rank0 = self.mesh.rank == 0
+        # a dp group of one rank beside sp or tp ranks reduces nothing: its
+        # collectives are skipped (a dp-only mesh keeps them at any width)
+        self._dp_trivial = self.dp_world_size == 1 and (m.sp > 1 or m.tp > 1)
+        self._world = world
+        self._captures = True
         if self.distributed:
             backend = torch.distributed.get_backend()
-            if (backend == "nccl") != (self.device.type == "cuda"):
+            if backend == "nccl" and self.device.type != "cuda":
                 raise RuntimeError(
-                    f"the process group's backend is {backend} and the engine's device is "
-                    f"{self.device}: nccl trains on the card, gloo on the CPU")
+                    f"the process group's backend is nccl and the engine's device is "
+                    f"{self.device}: nccl trains on the card, gloo on the CPU (or on a card "
+                    "that several ranks share)")
+            # a CUDA graph cannot hold gloo's calls: ranks that share a card
+            # over gloo run their programs eagerly
+            self._captures = backend == "nccl"
         config.finalize(self.dp_world_size)
         self.config = config
         if config.comms_logger.enabled:
@@ -232,10 +295,15 @@ class DeepSpeedEngine:
         # leaves this rank holds as shards. Every rank builds the same tree
         # (the same seed or the caller's params) and keeps its shards: the
         # master's at stage 3, the optimizer state's from stage 1
+        # tensor parallelism first: each leaf the model's logical axes put
+        # on tp is cut to this rank's slice (JAX: the tp entry of its spec)
         items = _flatten(full)
         self._leaf_paths = [p for p, _ in items]
+        self._tp_plan = self._tp_specs(model, items)
+        items = [(p, self._tp_slice(v, plan)) for (p, v), plan in zip(items, self._tp_plan)]
         self.layout = ZeroLayout(
-            [tuple(v.shape) for _, v in items], self.zero_stage if self.distributed else 0,
+            [tuple(v.shape) for _, v in items],
+            self.zero_stage if self.distributed and not self._dp_trivial else 0,
             self.dp_world_size,
             param_min_size=max(2, int(zcfg.stage3_param_persistence_threshold))
             if self.zero_stage >= 3 else 2**14)
@@ -246,15 +314,23 @@ class DeepSpeedEngine:
         # the shard dim of every state tensor a shard is kept of, by identity
         self._shard_dims = {id(t): d for t, d in zip(tree_leaves(self.params),
                                                       self.layout.param) if d is not None}
+        # the tp slice of every state tensor cut over tp, by identity
+        self._tp_dims = {id(t): plan for t, plan in zip(tree_leaves(self.params),
+                                                         self._tp_plan) if plan is not None}
         for f in vars(self.opt_state).values():
             if isinstance(f, dict):
                 self._shard_dims.update({id(t): d for t, d in zip(tree_leaves(f),
                                                                    self.layout.opt)
                                          if d is not None})
+                self._tp_dims.update({id(t): plan for t, plan in zip(tree_leaves(f),
+                                                                      self._tp_plan)
+                                      if plan is not None})
         if self.distributed:
-            # the communicator exists before any capture: one eager
-            # collective on the group
-            dscomm.all_reduce(torch.zeros(1, device=self.device), self._dp_group)
+            # the communicators exist before any capture: one eager
+            # collective on each group
+            for g in (self._dp_group, self._sp_group, self._tp_group):
+                if g is not None:
+                    dscomm.all_reduce(torch.zeros(1, device=self.device), g)
         self.loss_scale_state = ls.from_config(config.fp16, device=self.device)
         self._global_step = torch.zeros((), dtype=torch.int32, device=self.device)
         self._skipped = torch.zeros((), dtype=torch.int32, device=self.device)
@@ -327,8 +403,54 @@ class DeepSpeedEngine:
         )
 
     # ------------------------------------------------------------------
-    # ZeRO shards
+    # tensor-parallel slices and ZeRO shards
     # ------------------------------------------------------------------
+    def _tp_specs(self, model: ModuleSpec, items) -> List[Optional[Tuple[int, bool]]]:
+        """Per leaf ``(dim, qkv)``, the dim its spec puts on tp and whether it
+        is a fused QKV projection (regrouped before the cut), or None."""
+        if self.tp_world_size <= 1:
+            return [None] * len(items)
+        axes = dict(_flatten(model.logical_axes))
+        plan = []
+        for path, v in items:
+            names = tuple(axes[path])
+            spec = logical_to_spec(names, mesh=self.mesh)
+            if "tp" not in spec:
+                plan.append(None)
+                continue
+            d = spec.index("tp")
+            if v.shape[d] % self.tp_world_size:
+                raise ValueError(f"tp={self.tp_world_size} does not divide dim {d} of "
+                                 f"{'/'.join(path)} {tuple(v.shape)}")
+            qkv = names[d] == "qkv"
+            if qkv and d != v.dim() - 1:
+                raise ValueError(f"a fused QKV axis must be the last dim of {'/'.join(path)}")
+            plan.append((d, qkv))
+        return plan
+
+    def _tp_slice(self, t: torch.Tensor, plan) -> torch.Tensor:
+        """This rank's tp slice of a whole leaf (owned, contiguous), or the
+        leaf itself."""
+        if plan is None:
+            return t
+        from ..module_inject.tp_shard import regroup_qkv
+
+        d, qkv = plan
+        if qkv:
+            t = regroup_qkv(t, self.tp_world_size)
+        c = t.shape[d] // self.tp_world_size
+        return t.narrow(d, self.tp_rank * c, c).clone(memory_format=torch.contiguous_format)
+
+    def _tp_whole(self, t: torch.Tensor, plan) -> torch.Tensor:
+        """The whole leaf from this rank's tp slice (a collective over tp)."""
+        if plan is None:
+            return t
+        from ..module_inject.tp_shard import regroup_qkv
+
+        d, qkv = plan
+        t = dscomm.all_gather(t.contiguous(), self._tp_group, gather_dim=d)
+        return regroup_qkv(t, self.tp_world_size, inverse=True) if qkv else t
+
     def _shard(self, t: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
         """This rank's chunk of ``t`` along ``dim`` (owned, contiguous), or
         ``t`` itself when ``dim`` is None."""
@@ -349,17 +471,28 @@ class DeepSpeedEngine:
 
     def full_params(self) -> PyTree:
         """The fp32 master as whole tensors on every rank (stage 3 gathers
-        its shards: a collective every rank calls)."""
-        return _unflatten([(p, self._gather(t, d)) for p, t, d in
-                           zip(self._leaf_paths, tree_leaves(self.params), self.layout.param)])
+        its shards, tp its slices: a collective every rank calls)."""
+        return _unflatten([(p, self._tp_whole(self._gather(t, d), plan)) for p, t, d, plan in
+                           zip(self._leaf_paths, tree_leaves(self.params), self.layout.param,
+                               self._tp_plan)])
 
     def collective_plan(self) -> Dict[str, int]:
         """The collectives one training step issues, by kind (none without
         a process group)."""
+        none = {"all_reduce": 0, "reduce_scatter": 0, "all_gather": 0}
         if not self.distributed:
-            return {"all_reduce": 0, "reduce_scatter": 0, "all_gather": 0}
-        return self.layout.plan(self.gradient_accumulation_steps_value, self.fp16_enabled,
-                                isinstance(self.optimizer, Lamb))
+            return none
+        plan = none if self._dp_trivial else self.layout.plan(
+            self.gradient_accumulation_steps_value, self.fp16_enabled,
+            isinstance(self.optimizer, Lamb))
+        if self._sp_group is not None:
+            # every gradient and the loss summed over sp
+            plan["all_reduce"] += len(self._leaf_paths) + 1
+        if self._tp_group is not None:
+            # the norm's sum of squares (and fp16's overflow flag) over tp;
+            # the model's own tp collectives are not the engine's
+            plan["all_reduce"] += 1 + int(self.fp16_enabled)
+        return plan
 
     # ------------------------------------------------------------------
     # data plumbing
@@ -374,7 +507,7 @@ class DeepSpeedEngine:
         micro-batch (``ModuleSpec.loss_norm``), f32 ``[gas, k]``, or None."""
         gas = self.gradient_accumulation_steps_value
         mb, r = self.micro_batch_size, self.dp_rank
-        out, glob = [], []
+        glob = []
         for path, x in _flatten(batch):
             a = x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
             if a.shape[0] != self.train_batch_size_value:
@@ -383,11 +516,29 @@ class DeepSpeedEngine:
                 )
             if not np.issubdtype(a.dtype, np.floating):
                 a = a.astype(np.int64)
-            a = a.reshape(gas, -1, *a.shape[1:])
-            glob.append((path, a))
-            out.append((path, a[:, r * mb:(r + 1) * mb] if self.dp_world_size > 1 else a))
+            glob.append((path, a.reshape(gas, -1, *a.shape[1:])))
+        n = self.sp_world_size
+        if n > 1:
+            # the next-token labels, shifted on the whole sequence before the
+            # cut (GSPMD's shift across shards), as one more leaf
+            labels = np.stack([np.asarray(self.module.seq_labels(
+                _unflatten([(p, a[i]) for p, a in glob])), np.int64) for i in range(gas)])
+            glob = [(("__labels__",), labels)] + glob
+        out = []
+        for path, a in glob:
+            if self.dp_world_size > 1:
+                a = a[:, r * mb:(r + 1) * mb]
+            if n > 1 and a.ndim >= 3:
+                if a.shape[2] % n == 0:
+                    c = a.shape[2] // n
+                    a = a[:, :, self.sp_rank * c:(self.sp_rank + 1) * c]
+                else:
+                    warning_once(f"batch leaf {'/'.join(map(str, path))} dim {a.shape[2]} is "
+                                 f"not divisible by sp ({n}); replicating it over sp")
+            out.append((path, a))
         if not norms:
             return out
+        glob = [(p, a) for p, a in glob if p != ("__labels__",)]
         return out, self._loss_norms(glob) if self.distributed else None
 
     def _loss_norms(self, glob) -> np.ndarray:
@@ -426,7 +577,13 @@ class DeepSpeedEngine:
         draw, as JAX's dropout over the global batch does."""
         kt = self.module.key_table
         rows = np.asarray(kt(key) if kt is not None else key[None], np.uint32)
-        if self.distributed:
+        if self.sp_world_size > 1:
+            # row b of this rank's micro-batch is global row dp_rank * micro
+            # + b, of which it holds column block sp_rank of sp
+            n, mb = self.sp_world_size, self.micro_batch_size
+            rows = np.stack([prng.shard_key(k, self.dp_rank * mb * n + self.sp_rank, stride=n)
+                             for k in rows])
+        elif self.distributed:
             rows = np.stack([prng.shard_key(k, self.dp_rank) for k in rows])
         return rows
 
@@ -449,7 +606,7 @@ class DeepSpeedEngine:
                 else inputs.dev["keys"][:, 0, :2]
             fn = (self._train_fn if kind == "train" else self._eval_fn)(batch, keys)
             prog = graphs.CapturedProgram(f"{kind}_step", fn, self.device, inputs,
-                                          copy_outputs=True)
+                                          copy_outputs=True, capture=self._captures)
             self._programs[sig] = prog
         return prog
 
@@ -472,13 +629,29 @@ class DeepSpeedEngine:
         # the watchdog's in-step bitmask (JAX engine.py:132-134)
         flags = self._watchdog is not None and bool(cfg.telemetry.watchdog.nan_check)
         lss = self.loss_scale_state
-        dist_on, grp = self.distributed, self._dp_group
+        dist_on, grp = self.distributed and not self._dp_trivial, self._dp_group
+        sp_grp, tp_grp = self._sp_group, self._tp_group
+        data_world = self.dp_world_size * self.sp_world_size
         lay = self.layout
         sharded_grads = any(d is not None for d in lay.grad)
-        # a whole gradient's share of the norm: counted on rank 0 only
-        whole_weight = 1.0 if self.dp_rank == 0 else 0.0
+        # each gradient's share of the norm's sum of squares: a leaf whole
+        # over dp (tp) is counted on dp (tp) rank 0 only, when the sum is
+        # taken over dp (tp)
+        weights = []
+        for d, plan in zip(lay.grad, self._tp_plan):
+            w = 1.0
+            if sharded_grads and d is None and self.dp_rank != 0:
+                w = 0.0
+            if tp_grp is not None and plan is None and self.tp_rank != 0:
+                w = 0.0
+            weights.append(w)
+        mesh = self.mesh
 
         def step():
+            with active_mesh(mesh):
+                return _step()
+
+        def _step():
             scale = lss.cur_scale if fp16 else 1.0
             master = tree_leaves(self.params)
             # 1. one cast of the master per step; its leaves are what
@@ -500,8 +673,8 @@ class DeepSpeedEngine:
                         else t for t, d in zip(leaves, lay.param)]
                 cparams = _unflatten(list(zip(self._leaf_paths, used)))
                 loss, _ = self.module.loss_fn(cparams, micro, keys[i], True)
-                if dist_on and self.module.loss_norm is None:
-                    loss = loss / self.dp_world_size
+                if self.distributed and self.module.loss_norm is None:
+                    loss = loss / data_world
                 grads = torch.autograd.grad(loss.float() * scale, leaves, allow_unused=True,
                                             materialize_grads=True)
                 del cparams, used
@@ -518,6 +691,12 @@ class DeepSpeedEngine:
                         a.add_(g)
                 loss_sum = loss_sum + loss.detach().float()
             del leaves
+            if sp_grp is not None:
+                # parameters are replicated over sp: every gradient (whole or
+                # a dp shard) and the loss sum over sp first
+                for a in acc:
+                    dscomm.all_reduce(a, sp_grp)
+                dscomm.all_reduce(loss_sum, sp_grp)
             if dist_on:
                 # the whole gradients are summed over the ranks; so is the
                 # loss, each rank's share of the global mean
@@ -534,18 +713,25 @@ class DeepSpeedEngine:
             # shard's overflow is every rank's (a MAX over dp)
             overflow = (ls.has_inf_or_nan(grads) if fp16
                         else torch.zeros((), dtype=torch.bool, device=self.device))
-            if fp16 and sharded_grads:
-                flag = dscomm.all_reduce(overflow.to(torch.int32), grp, op="max")
+            if fp16 and (sharded_grads or tp_grp is not None):
+                flag = overflow.to(torch.int32)
+                if sharded_grads:
+                    flag = dscomm.all_reduce(flag, grp, op="max")
+                if tp_grp is not None:
+                    flag = dscomm.all_reduce(flag, tp_grp, op="max")
                 overflow = flag > 0
             if fp16:
                 grads = [torch.where(overflow, 0.0, g) for g in grads]
-            # 5. global norm and clipping: over shards, one sum of squares
-            # over dp (a whole gradient counted once)
-            if sharded_grads:
-                sq = torch.stack([g.float().square().sum() * (1.0 if d is not None
-                                                              else whole_weight)
-                                  for g, d in zip(grads, lay.grad)]).sum()
-                gnorm = torch.sqrt(dscomm.all_reduce(sq, grp))
+            # 5. global norm and clipping: over shards and tp slices, one sum
+            # of squares over dp and tp (a whole gradient counted once)
+            if sharded_grads or tp_grp is not None:
+                sq = torch.stack([g.float().square().sum() * w
+                                  for g, w in zip(grads, weights)]).sum()
+                if sharded_grads:
+                    sq = dscomm.all_reduce(sq, grp)
+                if tp_grp is not None:
+                    sq = dscomm.all_reduce(sq, tp_grp)
+                gnorm = torch.sqrt(sq)
             else:
                 gnorm = global_norm(grads)
             if clip > 0.0:
@@ -607,20 +793,23 @@ class DeepSpeedEngine:
 
         @torch.no_grad()
         def step():
-            cparams = _cast(self.params, self.compute_dtype)
-            if self.zero_stage >= 3:
-                cparams = _unflatten([(p, self._gather(t, d)) for p, t, d in zip(
-                    self._leaf_paths, tree_leaves(cparams), self.layout.param)])
-            total = torch.zeros((), dtype=torch.float32, device=self.device)
-            for i in range(n):
-                micro = tree_map(lambda x: x[i], batch)
-                loss, _ = self.module.loss_fn(cparams, micro, keys[0], False)
-                if self.distributed and self.module.loss_norm is None:
-                    loss = loss / self.dp_world_size
-                total = total + loss.float()
-            if self.distributed:
-                dscomm.all_reduce(total, self._dp_group)
-            return total / n
+            with active_mesh(self.mesh):
+                cparams = _cast(self.params, self.compute_dtype)
+                if self.zero_stage >= 3:
+                    cparams = _unflatten([(p, self._gather(t, d)) for p, t, d in zip(
+                        self._leaf_paths, tree_leaves(cparams), self.layout.param)])
+                total = torch.zeros((), dtype=torch.float32, device=self.device)
+                for i in range(n):
+                    micro = tree_map(lambda x: x[i], batch)
+                    loss, _ = self.module.loss_fn(cparams, micro, keys[0], False)
+                    if self.distributed and self.module.loss_norm is None:
+                        loss = loss / (self.dp_world_size * self.sp_world_size)
+                    total = total + loss.float()
+                if self._sp_group is not None:
+                    dscomm.all_reduce(total, self._sp_group)
+                if self.distributed and not self._dp_trivial:
+                    dscomm.all_reduce(total, self._dp_group)
+                return total / n
 
         return step
 
@@ -835,9 +1024,11 @@ class DeepSpeedEngine:
         return out
 
     def full_state_leaves(self) -> Dict[str, torch.Tensor]:
-        """:meth:`state_leaves` with every shard all-gathered into its whole
-        leaf (a collective every rank calls): what a checkpoint holds."""
-        return {k: self._gather(t, self._shard_dims.get(id(t)))
+        """:meth:`state_leaves` with every ZeRO shard and tp slice
+        all-gathered into its whole leaf (a collective every rank calls):
+        what a checkpoint holds, the same at any mesh."""
+        return {k: self._tp_whole(self._gather(t, self._shard_dims.get(id(t))),
+                                  self._tp_dims.get(id(t)))
                 for k, t in self.state_leaves().items()}
 
     def _full_like(self) -> Dict[str, torch.Tensor]:
@@ -848,6 +1039,9 @@ class DeepSpeedEngine:
             d = self._shard_dims.get(id(t))
             if d is not None:
                 shape[d] *= self.dp_world_size
+            plan = self._tp_dims.get(id(t))
+            if plan is not None:
+                shape[plan[0]] *= self.tp_world_size
             out[k] = torch.empty(shape, dtype=t.dtype, device="meta")
         return out
 
@@ -865,7 +1059,8 @@ class DeepSpeedEngine:
             for name, src in host.items():
                 dst = leaves[name]
                 if whole:
-                    src = self._shard(src, self._shard_dims.get(id(dst)))
+                    src = self._shard(self._tp_slice(src, self._tp_dims.get(id(dst))),
+                                      self._shard_dims.get(id(dst)))
                 prev = seen.get(id(dst))
                 if prev is not None:
                     if not torch.equal(prev[1], src):
@@ -989,7 +1184,7 @@ class DeepSpeedEngine:
             state = self.full_state_leaves()
             client = {**(client_state or {}), "global_steps": self.global_steps}
             path = os.path.join(os.path.abspath(save_dir), str(tag))
-            if self.dp_rank == 0:
+            if self._rank0:
                 path = save_train_state(save_dir, tag, state, client_state=client,
                                         save_latest=save_latest)
             log_dist(f"saved checkpoint: {path}")
@@ -1001,8 +1196,8 @@ class DeepSpeedEngine:
         if zcfg.stage3_gather_16bit_weights_on_model_save and self.zero_stage >= 3:
             self.flush_checkpoints()
             self.save_16bit_model(str(path))
-        if self.dp_world_size > 1:
-            dscomm.barrier(self._dp_group)
+        if self._world > 1:
+            dscomm.barrier()
         return path
 
     def save_16bit_model(self, save_dir: str, output_file: str = "pytorch_model.npz") -> str:
@@ -1024,7 +1219,7 @@ class DeepSpeedEngine:
                 out[f"__bf16__{key}"] = np.asarray(True)
             else:
                 out[key] = t.numpy()
-        if self.dp_rank == 0:
+        if self._rank0:
             os.makedirs(save_dir, exist_ok=True)
             np.savez(path, **out)
             log_dist(f"saved 16-bit model: {path}")
@@ -1036,7 +1231,7 @@ class DeepSpeedEngine:
 
         rcfg = self.config.resilience
         state = self.full_state_leaves()
-        if self.dp_rank != 0:
+        if not self._rank0:
             return os.path.join(os.path.abspath(save_dir), str(tag))
         writer = self._checkpoint_writer(save_dir)
         # the snapshot is the step path's whole cost: pinned host copies,
@@ -1052,7 +1247,7 @@ class DeepSpeedEngine:
         client = {**(client_state or {}), "global_steps": self.global_steps,
                   "resilience_counters": self._resilience_counter_values()}
         block = (not rcfg.async_checkpoint) if blocking is None else bool(blocking)
-        block = block or self.dp_world_size > 1
+        block = block or self._world > 1
         path = writer.save(tag, arrays, client_state=client, step=self.global_steps,
                            save_latest=save_latest, blocking=block)
         log_dist(f"{'committed' if block else 'enqueued async'} resilient checkpoint: {path}")

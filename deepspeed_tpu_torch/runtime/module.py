@@ -31,6 +31,23 @@ class ModuleSpec:
         one copy, and calls ``loss_fn`` with the device table (int32 ``[T,
         2]``). Without one the loss gets the micro-batch key itself as a
         device key (int32 ``[2]``).
+      loss_norm: optional ``host batch -> f32 [k]``, the loss's global
+        denominator, taken by the engine over a whole micro-batch of every
+        rank (JAX's loss over the global batch).
+      logical_axes: optional tree matching params, each leaf a tuple of
+        logical axis names (JAX's field): the engine's tensor-parallel
+        placement (``runtime.zero.partitioning``). A model without it
+        refuses ``mesh.tp > 1``.
+      seq_labels: optional ``host batch -> int64 [B, S]``, the next-token
+        labels at every position (-100: nothing predicted), taken on the
+        whole host batch before the engine cuts its sequence over ``sp``
+        (the shift GSPMD did across shards); handed to the loss as the
+        batch leaf ``"__labels__"``. A model without it refuses
+        ``mesh.sp > 1``.
+      checkpointing: optional ``(partition_activations, cpu_checkpointing)
+        -> ModuleSpec``, the model with the ``activation_checkpointing``
+        section's two options turned on (beside its own). A model without
+        it refuses the section with either option on.
     """
 
     init: Callable[[Any], PyTree]
@@ -38,3 +55,6 @@ class ModuleSpec:
     apply_fn: Optional[Callable] = None
     key_table: Optional[Callable[[Any], Any]] = None
     loss_norm: Optional[Callable[[Any], Any]] = None
+    logical_axes: Optional[PyTree] = None
+    seq_labels: Optional[Callable[[Any], Any]] = None
+    checkpointing: Optional[Callable[[bool, bool], "ModuleSpec"]] = None

@@ -179,7 +179,7 @@ def fma_rotate_variants(counts) -> dict:
             y = torch.empty_like(x)
 
             def call(_, lib=libs[k], y=y):
-                lib.threefry_dropout_launch(x.data_ptr(), y.data_ptr(), x.numel(),
+                lib.threefry_dropout_launch(x.data_ptr(), y.data_ptr(), x.numel(), 1,
                                             dkey.data_ptr(), prng.keep_threshold(p), c, r,
                                             int(mul), 2, 2, stream)
 

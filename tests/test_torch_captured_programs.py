@@ -423,12 +423,12 @@ def test_every_kernel_module_registers_its_launches():
     module names its entries in KERNELS, and the CPU launches none."""
     from deepspeed_tpu_torch.ops import (block_sparse_attention, flash_attention, fused_adam,
                                          launches, paged_decode_attention,
-                                         paged_multitoken_attention)
+                                         paged_multitoken_attention, ring_flash_attention)
 
     mods = (tda, paged_decode_attention, paged_multitoken_attention, prng, flash_attention,
-            block_sparse_attention, fused_adam)
+            block_sparse_attention, fused_adam, ring_flash_attention)
     names = [k for m in mods for k in m.KERNELS]
-    assert len(set(names)) == len(names) == 14 and set(names) == set(launches.LAUNCHES)
+    assert len(set(names)) == len(names) == 15 and set(names) == set(launches.LAUNCHES)
     assert all(m.LAUNCHES is launches.LAUNCHES for m in mods)
     saved = dict(launches.LAUNCHES)
     try:

@@ -85,10 +85,14 @@ def test_mesh_spec_resolve_matches_jax(spec, n, devices):
 
 
 def test_process_groups_refuse_other_axes_and_dp_alone():
-    """Only the dp axis is ported: tp/pp/ep/sp > 1 name their items; dp
-    without a process group is one rank and no groups."""
-    for axis, item in (("tp", 11), ("pp", 12), ("ep", 12), ("sp", 12)):
+    """The dp, sp and tp axes are ported: pp and ep > 1 name their items,
+    sp and tp > 1 need as many ranks as they cover; dp without a process
+    group is one rank and no groups."""
+    for axis, item in (("pp", "12b"), ("ep", "12d")):
         with pytest.raises(NotPortedError, match=f"item {item}"):
+            ttopo.ProcessTopology(axes=["dp", axis], dims=[1, 2]).get_mesh()
+    for axis in ("tp", "sp"):
+        with pytest.raises(ValueError, match="covers 2 ranks"):
             ttopo.ProcessTopology(axes=["dp", axis], dims=[1, 2]).get_mesh()
     mesh = ttopo.MeshSpec(dp=-1).build_mesh()
     assert not mesh.distributed and mesh.shape == {"dp": 1} and mesh.axis_rank("dp") == 0

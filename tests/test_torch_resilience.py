@@ -567,6 +567,61 @@ def test_failed_or_overrun_async_write_forces_blocking_snapshot(tree, tmp_path, 
     assert find_latest_valid(d)[0] == "preempt-final"
 
 
+def test_async_write_landing_after_the_blocking_final_keeps_latest(tree, tmp_path,
+                                                                     monkeypatch):
+    """The overrun branch with the race forced: the async write of
+    ``global_step1`` (job 1) waits on an event until the guard's blocking
+    ``preempt-final`` (job 2) has committed, then lands. ``latest`` stays on
+    job 2's tag, and job 1's tag is committed and valid beside it."""
+    import threading
+
+    d = str(tmp_path / "race")
+    e = _teng(tree, _conf({}))
+    e.train_batch(_batches(1)[0])
+    writer = e._checkpoint_writer(d)
+    gate = threading.Event()
+    write = writer._write
+
+    def gated(*job):
+        if threading.current_thread() is not threading.main_thread():
+            assert gate.wait(30.0)
+        return write(*job)
+
+    monkeypatch.setattr(writer, "_write", gated)
+    monkeypatch.setattr(e, "flush_checkpoints", lambda timeout=None: False)
+    with PreemptionGuard(e, d, grace_window_s=0.01) as guard:
+        guard.request_stop()
+        path = guard.checkpoint_and_log()
+    assert path.endswith("preempt-final")
+    assert not os.path.isdir(os.path.join(d, "global_step1"))  # job 1 still queued
+    gate.set()
+    assert writer.wait(30.0)
+    assert validate_tag(os.path.join(d, "global_step1"))[0]
+    assert open(os.path.join(d, mf.LATEST_FILE)).read() == "preempt-final"
+    assert find_latest_valid(d)[0] == "preempt-final"
+
+
+def test_latest_swap_is_monotone_in_job_order(tmp_path):
+    """The writer alone: a job saved earlier and committed later leaves
+    ``latest`` alone; a later job whose write dies never swaps it, and the
+    walk-back then finds the older good tag."""
+    d = str(tmp_path / "mono")
+    w = AsyncCheckpointWriter(d)
+    arrays = {"x": np.arange(4, dtype=np.float32)}
+    w._write("a", arrays, {}, 1, True, 2)
+    w._write("b", arrays, {}, 0, True, 1)  # job 1 lands after job 2
+    assert open(os.path.join(d, mf.LATEST_FILE)).read() == "a"
+    assert validate_tag(os.path.join(d, "b"))[0]
+    d2 = str(tmp_path / "dies")
+    inj = FaultInjector(FaultInjectionConfig(enabled=True, crash_saves=[2]))
+    w2 = AsyncCheckpointWriter(d2, injector=inj)
+    w2.save("old", arrays)                       # job 1 (async) commits
+    with pytest.raises(FaultInjected):
+        w2.save("new", arrays, blocking=True)    # job 2 dies before its manifest
+    assert w2.wait(30.0)
+    assert find_latest_valid(d2)[0] == "old"
+
+
 # ---------------------------------------------------------------------------
 # serving: drain and retries under injected faults
 # ---------------------------------------------------------------------------

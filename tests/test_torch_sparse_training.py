@@ -77,9 +77,13 @@ def test_engine_exposes_the_section():
 
 
 def test_unported_attention_impls_still_raise():
+    """The sequence-parallel impls are ported (``parallel/sequence.py``):
+    they configure the model, and an explicit ``attn_impl`` wins over a
+    ``sparse_attention`` section as before. The moe section still
+    raises."""
     for impl in ("ring", "ring_flash", "ulysses"):
-        with pytest.raises(NotPortedError):
-            tgpt2.get_config("gpt2-tiny", attn_impl=impl)
+        cfg = tgpt2.get_config("gpt2-tiny", attn_impl=impl, sparse_attention=SECTION)
+        assert cfg.attn_impl == impl
     with pytest.raises(NotPortedError):
         dtt.DeepSpeedConfig.from_dict(dict(CONFIG, moe={"enabled": True}))
 

@@ -144,8 +144,10 @@ def test_batch_triple_matches_jax(triple):
     {"zero_optimization": {"stage": 2, "offload_param": {"device": "cpu"}}},
     {"zero_optimization": {"stage": 0, "offload_optimizer": {"device": "cpu"}}},
     {"tensorboard": {"enabled": True}},
-    {"activation_checkpointing": {"partition_activations": True}},
-    {"mesh": {"dp": 1, "tp": 2}},
+    # the activation_checkpointing section and mesh.tp are ported (GPT-2
+    # over a dp x tp mesh): the mesh axes still refused take their places
+    {"mesh": {"dp": 1, "pp": 2}},
+    {"mesh": {"dp": 1, "ep": 2}},
 ])
 def test_unported_config_sections_raise(section):
     with pytest.raises(NotPortedError):
@@ -170,8 +172,21 @@ def test_config_sections_at_their_off_values_are_accepted():
                                       {"moe_experts": 4}, {"attn_impl": "ring_flash"},
                                       {"attn_impl": "ring"}])
 def test_unported_model_options_raise(override):
-    with pytest.raises(NotPortedError):
-        tgpt2.get_config("gpt2-tiny", **override)
+    """MoE still raises. The sequence-parallel impls are ported: without a
+    mesh (or at sp 1) they fall back to the dense causal attention, as
+    JAX's ``sequence_parallel_attention`` does, so the loss is the dense
+    model's."""
+    if "moe_experts" in override:
+        with pytest.raises(NotPortedError):
+            tgpt2.get_config("gpt2-tiny", **override)
+        return
+    cfg = tgpt2.get_config("gpt2-tiny", **override)
+    params = tgpt2.init_params(cfg, torch.Generator().manual_seed(0))
+    ids = torch.from_numpy(np.random.RandomState(0).randint(0, 512, (2, 16)))
+    got = tgpt2.lm_loss(cfg, params, {"input_ids": ids}, None, True)[0]
+    want = tgpt2.lm_loss(tgpt2.get_config("gpt2-tiny"), params, {"input_ids": ids}, None,
+                         True)[0]
+    assert torch.equal(got, want)
 
 
 def test_dropout_option_is_accepted():

@@ -441,10 +441,24 @@ def test_zero_stages_and_dp_mesh_are_accepted(stage):
     pytest.param({"mesh": {"dp": -1, "sp": 2}}, "12c", id="section6-12"),
 ])
 def test_remaining_gaps_still_raise(section, item):
+    """What the port still refuses names its item. ``mesh.tp`` and
+    ``mesh.sp`` are accepted since GPT-2 trains over them; they remain
+    refused for a model without a tensor- or sequence-parallel plan
+    (BERT), which the engine refuses naming 11b and 12c."""
     from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig, NotPortedError
 
+    config = {"train_batch_size": 4, **section}
+    if item in ("11b", "12c"):
+        DeepSpeedConfig.load(dict(config))
+        import deepspeed_tpu_torch as dtt
+
+        with pytest.raises(NotPortedError, match=rf"item {re.escape(item)}\)"):
+            dtt.initialize(model=tbert.make_module(tbert.get_config("bert-tiny",
+                                                                   pretraining=True)),
+                           config=config, device="cpu")
+        return
     with pytest.raises(NotPortedError, match=rf"item {re.escape(item)}\)"):
-        DeepSpeedConfig.load({"train_batch_size": 4, **section})
+        DeepSpeedConfig.load(config)
 
 
 @pytest.mark.parametrize("section,item", [
@@ -454,17 +468,32 @@ def test_remaining_gaps_still_raise(section, item):
 ])
 def test_refused_sections_name_their_item(section, item):
     """Every top-level JAX section the port does not read yet is refused
-    naming the ROADMAP queue 1 item that ports it; an off section passes."""
+    naming the ROADMAP queue 1 item that ports it; an off section passes.
+    Item 11b's section, ``activation_checkpointing``, is read since it
+    landed: its fields load as JAX's and an engine of a recomputing GPT-2
+    takes it; a mesh axis
+    still refused (pp) names its item."""
     from deepspeed_tpu_torch.parallel.topology import ProcessGroups, ProcessTopology
     from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig, NotPortedError
 
+    if item == "11b":
+        doc = {"partition_activations": True, "cpu_checkpointing": False,
+               "contiguous_memory_optimization": True, "number_checkpoints": 4,
+               "synchronize_checkpoint_boundary": True, "profile": True}
+        cfg = DeepSpeedConfig.load({"train_batch_size": 4, section: doc})
+        assert vars(getattr(cfg, section)) == doc
+        import deepspeed_tpu_torch as dtt
+
+        eng, *_ = dtt.initialize(
+            model=tgpt2.make_module(tgpt2.get_config("gpt2-tiny", remat=True)),
+            config={"train_batch_size": 4, section: doc}, device="cpu")
+        assert vars(eng.config.activation_checkpointing) == doc
+        with pytest.raises(NotPortedError, match=r"item 12b\)"):
+            ProcessGroups(ProcessTopology(["pp", "dp"], [2, 1]))
+        return
     with pytest.raises(NotPortedError, match=rf"item {item}\)"):
         DeepSpeedConfig.load({"train_batch_size": 4, section: {"enabled": True}})
     DeepSpeedConfig.load({"train_batch_size": 4, section: {"enabled": False}})
-    axis = {"11b": "tp", "13": None, "14": None, "15": None}[item]
-    if axis is not None:
-        with pytest.raises(NotPortedError, match=r"item 11b\)"):
-            ProcessGroups(ProcessTopology([axis, "dp"], [2, 1]))
 
 
 @pytest.mark.parametrize("world", [2, 4])

@@ -468,3 +468,104 @@ def fleet(rank: int, world: int, tree: dict, cases: list, tmpdir: str) -> dict:
     comm.comms_logger.configure(enabled=False)
     comm.comms_logger.reset()
     return out
+
+
+def sequence_tp(rank: int, world: int, attn_cases: list, train_cases: list) -> dict:
+    """Sequence- and tensor-parallel cases on this rank (the bodies of
+    ``tests/test_torch_sequence_parallel.py`` and
+    ``tests/test_torch_train_tp.py``, one job for both).
+
+    ``attn_cases``: ``(name, mesh, impl, causal, q, k, v)`` with whole
+    ``[B, S, H, D]`` numpy inputs → this rank's output of
+    ``sequence_parallel_attention`` on its shards (``shard_sequence``) and
+    the gradients of ``sum(o ** 2)`` summed over the ranks' shards, placed
+    back at their rows and columns (zeros elsewhere): a rank-summed
+    array is the whole gradient; under ``"attn:<name>"``.
+
+    ``train_cases``: ``(name, gpt2 overrides, config, params, batches,
+    opts)`` trained through ``initialize`` at this rank → the losses, the
+    grad norms, the mesh; with ``opts["grads"]`` (a batch) first the
+    gradients of the training loss on it (the engine's loss under its mesh,
+    its tp slices gathered whole, on rank 0) and, under ``"boundary"``,
+    each ``boundary_checkpoint`` that loss made as ``[tp slices, offload]``;
+    with ``opts["eval"]`` the
+    eval loss after training; with ``opts["save"]`` the tag written there
+    and ``full_state_leaves`` (numpy, rank 0) to hold a world-1 load
+    against."""
+    import deepspeed_tpu_torch as dtt
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.parallel import MeshSpec
+    from deepspeed_tpu_torch.parallel.sequence import sequence_parallel_attention, shard_sequence
+    from deepspeed_tpu_torch.utils.weights import params_from_numpy
+
+    calls = []
+    boundary = gpt2.boundary_checkpoint
+
+    def recording(fn, params, h, partition=None, offload=False, slot=None):
+        calls.append([partition[2] if partition is not None else 1, bool(offload)])
+        return boundary(fn, params, h, partition=partition, offload=offload, slot=slot)
+
+    gpt2.boundary_checkpoint = recording
+    out = {}
+    for name, mesh_shape, impl, causal, *qkv in attn_cases:
+        mesh = MeshSpec(**mesh_shape).build_mesh()
+        loc = [torch.from_numpy(np.asarray(shard_sequence(x, mesh))).requires_grad_(True)
+               for x in qkv]
+        o = sequence_parallel_attention(*loc, mesh, impl=impl, causal=causal)
+        (o.float() ** 2).sum().backward()
+        grads = []
+        for x, t in zip(qkv, loc):
+            g = np.zeros(np.asarray(x).shape, np.float32)
+            B, S = t.shape[:2]
+            b0 = mesh.axis_rank("dp") * B if mesh.size("dp") > 1 else 0
+            s0 = mesh.axis_rank("sp") * S
+            g[b0:b0 + B, s0:s0 + S] = t.grad.numpy()
+            grads.append(g)
+        out[f"attn:{name}"] = {"o": o.detach().numpy(), "grads": grads,
+                     "coords": (mesh.axis_rank("dp"), mesh.axis_rank("sp"))}
+    for name, overrides, conf, params, batches, opts in train_cases:
+        cfg = gpt2.get_config("gpt2-tiny", **overrides)
+        eng, *_ = dtt.initialize(model=gpt2.make_module(cfg), config=dict(conf),
+                                 model_parameters=params_from_numpy(params, "cpu"),
+                                 device="cpu")
+        res = {"loss": [], "grad_norm": [], "mesh": dict(eng.mesh.shape)}
+        if opts.get("grads") is not None:
+            calls.clear()
+            res["grads"] = _engine_grads(eng, opts["grads"], rank)
+            res["boundary"] = list(calls)
+        for b in batches:
+            m = eng.train_batch(b)
+            res["loss"].append(float(m["loss"]))
+            res["grad_norm"].append(float(m["grad_norm"]))
+        if opts.get("eval") is not None:
+            res["eval"] = float(eng.eval_batch(opts["eval"]))
+        if opts.get("save"):
+            eng.save_checkpoint(opts["save"], tag="t")
+            full = eng.full_state_leaves()
+            if rank == 0:
+                res["state"] = {k: v.detach().numpy().copy() for k, v in full.items()}
+        out[name] = res
+    gpt2.boundary_checkpoint = boundary
+    return out
+
+
+def _engine_grads(eng, batch, rank: int):
+    """The gradient of ``eng``'s training loss (fp32, one micro-batch, no
+    key) at its parameters, each tp slice gathered whole → numpy by leaf
+    path on rank 0, None elsewhere."""
+    from deepspeed_tpu_torch.parallel.topology import active_mesh
+    from deepspeed_tpu_torch.runtime.engine import _unflatten
+    from deepspeed_tpu_torch.utils.weights import tree_leaves
+
+    leaves = [p.detach().clone().requires_grad_(True) for p in tree_leaves(eng.params)]
+    micro = {k: torch.from_numpy(a[0]) for k, a in
+             ((p[0], a) for p, a in eng._host_batch(batch))}
+    micro["__norm__"] = torch.from_numpy(eng._host_batch(batch, norms=True)[1][0])
+    with active_mesh(eng.mesh):
+        loss, _ = eng.module.loss_fn(_unflatten(list(zip(eng._leaf_paths, leaves))), micro,
+                                     None, True)
+        grads = torch.autograd.grad(loss, leaves)
+    whole = [eng._tp_whole(g, plan) for g, plan in zip(grads, eng._tp_plan)]
+    if rank != 0:
+        return None
+    return {"/".join(p): g.numpy() for p, g in zip(eng._leaf_paths, whole)}
